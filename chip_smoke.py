@@ -7,21 +7,36 @@ Drives the port's main path (gatling_tpu_torch) the way a user does and
 fails, with a non-zero exit, if any phase fails:
 
 1. device: a CUDA card must be present (there is no CPU path);
-2. build: the bounce kernel is built from gatling_tpu_torch/csrc/bounce.cu;
-3. kernel against its plain twin (ops/bounce_ref.py) on the card, through
+2. build: the bounce kernels K1 (resident) and K2 (two-level walk) are
+   built from gatling_tpu_torch/csrc/bounce.cu;
+3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
    the wrapper the main path calls (ops/bounce.py bounce_step), on the ray
    waves the main path builds: Cornell 1200x1200 x 2 samples (2.88M rays,
    NEE off and on) and Lights.Analytic 96x96 x 24 samples, at bounce 0 and
    at bounce 4 from a state the twin stepped; then both timed on the
    Cornell waves;
+3b. K2 against its twin the same way, on the sphere_field wave (512x512 x
+   4 samples, 1,048,576 rays, in 32x32 pixel tiles), NEE off and on,
+   through the instanced tables (gi's route) and the flattened ones; and
+   the Cornell box in clustered tables held against K1's resident step;
+   then K2 and the twin timed on the wave as generated and after the
+   coherence sort, and K2 at bounces 1-5 of the frame with and without
+   the sort;
 4. full-size renders through gatling_tpu_torch.gi, as the CLI renders:
    Cornell 1200x1200 at 16 spp and 8 bounces, the same with NEE and a rect
    light, and Lights.Analytic at its authored settings, each checked;
+4b. sphere_field (294,916 triangles) at the JAX bench's settings, 512x512,
+   4 spp, 6 bounces, NEE off and on, checked, and the same frame through
+   the flattened tables, which must agree;
+4c. a transform edit of one sphere group: the refit tables equal a fresh
+   build;
 5. progressive accumulation over one scene (sampleOffset 16 -> 32 -> 48).
 
-The last lines are the card's name and power limit, one JSON line with
-the kernel's launch count, error and times, and
-{"ok": true, "device": {...}}.
+Each kernel's launches are counted over one frame of its path through
+gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off), the counts
+set to 0 just before it and read just after. The last lines are the
+card's name and power limit, one JSON line with the kernels' launch
+counts, errors, times and bounds, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,6 +54,11 @@ ANALYTIC = os.path.join(HERE, "tests", "graphical", "Lights.Analytic", "scene.us
 FULL_RES = 1200  # the bench's Cornell frame
 ANALYTIC_RES, ANALYTIC_SPP = 96, 24  # Lights.Analytic's authored settings
 RTOL, ATOL, MIN_AGREE = 1e-4, 1e-5, 0.999
+SF_RES, SF_SPP, SF_BOUNCES = 512, 4, 6  # the JAX bench's sphere_field settings (bench.py:40-48)
+# H100 SXM5 peaks: HBM3 bytes/s, f32 FLOP/s outside the tensor cores
+HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+TRI_TEST_FLOPS = 30  # one Baldwin-Weber triangle test, counted from the kernels' code
+SLAB_FLOPS = 24  # one slab test: 6 subtractions, 6 multiplications, 12 min/max
 
 
 def log(msg: str) -> None:
@@ -62,7 +82,7 @@ def bench_rect_light():
                     width=0.8, height=0.6))
 
 
-def scene_tables(path, extra_lights, device):
+def scene_tables(path, extra_lights, device, resident_max=4096):
     """Fused tables and camera of a scene file, built by the port."""
     from gatling_tpu_torch.ops.bounce import build_fused_scene
     from gatling_tpu_torch.ops.geometry import build_geometry
@@ -78,22 +98,27 @@ def scene_tables(path, extra_lights, device):
     rows = [lower_material(desc.materials.get(p) if p else None) for p in midx]
     lights = [l for l in desc.lights if l.light_type != "dome"] + list(extra_lights)
     fs, _static = build_fused_scene(geom, build_material_table(rows),
-                                    build_light_arrays(lights), device)
+                                    build_light_arrays(lights), device, resident_max)
     return fs, desc.first_camera()
 
 
-def wave_state(cam_desc, w, h, samples, device):
+def wave_state(cam_desc, w, h, samples, device, tiled=False):
     """Packed state of the main path's first ray wave over a w x h frame:
     `samples` jittered camera samples of every pixel, with the pixel and
-    sample indices render_pixels_fused gives them."""
+    sample indices render_pixels_fused gives them (pixels in 32x32 tiles
+    when `tiled`, as it orders them for a clustered scene)."""
     import torch
 
     from gatling_tpu_torch.ops import sampling as smp
     from gatling_tpu_torch.ops.bounce import pack_state
     from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
+    from gatling_tpu_torch.render.fused import tile_order
 
     cam = camera_uniforms(cam_desc, False, device)
-    pix = torch.arange(w * h, device=device).repeat(samples)
+    pix = torch.arange(w * h, device=device)
+    if tiled:
+        pix = torch.as_tensor(tile_order(w, h), device=device)
+    pix = pix.repeat(samples)
     sidx = torch.arange(samples, device=device).repeat_interleave(w * h)
     o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, sidx),
                                       True, True, False)
@@ -124,6 +149,34 @@ def compare(kernel_state, twin_state):
     outside = int((~close).sum())
     max_err = float((k[:12] - t[:12]).abs().max())
     return bad_bits, outside, k.shape[1], max_err
+
+
+def k1_bound_ms(state, fs) -> float:
+    """The least time of one K1 launch on `state`: its 16 state rows read
+    and written once and the tables read once, at the HBM rate, against
+    every alive ray's test of every triangle at the f32 rate."""
+    alive = int((state[13] > 0.5).sum())
+    nbytes = 2 * state.numel() * 4 + 4 * (fs.tris.numel() + fs.mats.numel() + fs.lights.numel())
+    return _bound(nbytes, alive * fs.tris.shape[0] * TRI_TEST_FLOPS)
+
+
+def _bound(nbytes: int, ops: int):
+    """(least ms, what bounds it) for moving nbytes and doing ops f32 operations."""
+    tb_, to = nbytes / HBM_BPS, ops / F32_FLOPS
+    return max(tb_, to) * 1e3, "bytes" if tb_ >= to else "operations"
+
+
+def k2_bound_ms(state, fs, work: tuple[int, int]):
+    """The least time of one K2 launch: the state rows read and written
+    and every table read once (HBM), against the f32 work the wave's
+    closest hits need (bounce_ref.walk_work): the 16 cluster-box slab tests
+    of each entry box a ray enters before its hit, and the 128 triangle
+    tests of each cluster box it enters before its hit. The TLAS node
+    tests and the instance transforms are left out: a floor."""
+    n_entries, n_clusters = work
+    nbytes = 2 * state.numel() * 4 + 4 * (fs.tris.numel() + fs.mats.numel()
+                                          + fs.lights.numel() + sum(t.numel() for t in fs.walk))
+    return _bound(nbytes, n_entries * 16 * SLAB_FLOPS + n_clusters * 128 * TRI_TEST_FLOPS)
 
 
 def time_ms(fn, state, reps: int = 7) -> float:
@@ -180,10 +233,158 @@ def phase_kernel(device):
             p0 = params_row(0, device)
             times[nee] = (time_ms(lambda s: tb.bounce_step(p0, fs, s, nee), wave),
                           time_ms(lambda s: bounce_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, nee),
-                                  wave, reps=3))
+                                  wave, reps=3), k1_bound_ms(wave, fs))
             log(f"timing {label} bounce 0 at {wave.shape[1]} rays: kernel "
-                f"{times[nee][0]:.3f} ms, plain twin {times[nee][1]:.3f} ms")
+                f"{times[nee][0]:.3f} ms, plain twin {times[nee][1]:.3f} ms, bound "
+                f"{times[nee][2][0]:.4f} ms ({times[nee][2][1]})")
     return max_err, times
+
+
+def sphere_field_setup(device):
+    """sphere_field's scene description, material index and table, and its
+    instanced (gi's route) and flattened kernel tables, the key light in
+    both."""
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.geometry import build_geometry
+    from gatling_tpu_torch.render.lights import build_light_arrays
+    from gatling_tpu_torch.render.material import build_material_table, lower_material
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    t0 = time.perf_counter()
+    desc = sphere_field()
+    mat_paths = sorted({m.material for m in desc.meshes if m.material})
+    midx = {p: i for i, p in enumerate(mat_paths)}
+    midx[None] = len(mat_paths)
+    table = build_material_table([lower_material(desc.materials.get(p) if p else None)
+                                  for p in midx])
+    lights = build_light_arrays(desc.lights)
+    inst, istatic = tb.build_fused_scene_instanced(desc.meshes, midx, table, lights, device)
+    t1 = time.perf_counter()
+    flat, fstatic = tb.build_fused_scene(build_geometry(desc.meshes, midx), table, lights, device)
+    t2 = time.perf_counter()
+    assert istatic.instanced and fstatic.clustered and not fstatic.instanced
+    log(f"sphere_field: {fstatic.n_tris} triangles; instanced tables {istatic.n_l1} entries "
+        f"over {istatic.n_clusters} unique clusters ({inst.tris.numel() * 4 / 1e6:.2f} MB, "
+        f"built in {t1 - t0:.2f} s); flattened {fstatic.n_clusters} clusters in "
+        f"{fstatic.n_l1} entries ({flat.tris.numel() * 4 / 1e6:.1f} MB, built in {t2 - t1:.2f} s)")
+    return desc, midx, table, inst, flat
+
+
+def phase_walk(device, sf):
+    """Phase 3b: K2 against its twin on sphere_field's first wave and on the
+    Cornell box's clustered tables against K1; then K2 and the twin timed,
+    and K2 timed at bounces 1-5 with and without the coherence sort."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.bounce_ref import (P_TMIN, bounce_ref, walk_closest,
+                                                  walk_hit_attrs, walk_work)
+    from gatling_tpu_torch.render.fused import coherence_keys
+
+    desc, _midx, _table, inst, flat = sf
+    cam = desc.first_camera()
+    wave = wave_state(cam, SF_RES, SF_RES, SF_SPP, device, tiled=True)
+    max_err = 0.0
+    for label, fs in (("instanced", inst), ("flattened", flat)):
+        lt = tuple(fs.light_types.tolist())
+        for nee in (False, True):
+            state = wave
+            for b in range(5):
+                params = params_row(b, device)
+                twin = state.clone()
+                bounce_ref(params, fs.tris, fs.mats, fs.lights, lt, twin, nee, fs.walk)
+                if b in (0, 4):
+                    got = state.clone()
+                    tb.bounce_step(params, fs, got, nee)
+                    torch.cuda.synchronize()
+                    bad_bits, outside, n, err = compare(got, twin)
+                    log(f"parity sphere_field {label} nee={nee} bounce {b}: {bad_bits} rays "
+                        f"with rows 12-15 not bit-equal, {outside} of {n} rays outside rtol "
+                        f"{RTOL}/atol {ATOL} on rows 0-11, max abs err {err:.3g}")
+                    max_err = max(max_err, err)
+                    assert bad_bits <= n * (1 - MIN_AGREE), (label, nee, b, bad_bits)
+                    assert outside <= n * (1 - MIN_AGREE), (label, nee, b, outside)
+                state = twin
+
+    # Cornell in clustered tables (one cluster) against K1's resident step;
+    # not folded into max_err, which is the kernel against its twin: the two
+    # branches compute t differently, so a ray on a triangle edge can flip
+    for nee, extra in ((False, ()), (True, (bench_rect_light(),))):
+        res, cam_c = scene_tables(CORNELL, extra, device)
+        clu, _ = scene_tables(CORNELL, extra, device, resident_max=0)
+        assert clu.walk is not None and res.walk is None
+        state = wave_state(cam_c, FULL_RES, FULL_RES, 2, device)
+        for b in range(5):
+            params = params_row(b, device)
+            ref = state.clone()
+            tb.bounce_step(params, res, ref, nee)
+            if b in (0, 4):
+                got = state.clone()
+                tb.bounce_step(params, clu, got, nee)
+                torch.cuda.synchronize()
+                bad_bits, outside, n, err = compare(got, ref)
+                log(f"parity cornell clustered (K2) vs resident (K1) nee={nee} bounce {b}: "
+                    f"{bad_bits} rays with rows 12-15 not bit-equal, {outside} of {n} outside "
+                    f"tolerance, max abs err {err:.3g}")
+                assert bad_bits <= n * (1 - MIN_AGREE) and outside <= n * (1 - MIN_AGREE)
+            state = ref
+
+    # timing at bounce 0: the wave as generated (tiled pixels) and sorted
+    # by the coherence key as render_pixels_fused sorts after a bounce
+    box = inst.walk.l1
+    lo = box[:, 0:3].min(dim=0).values
+    inv = 1.0 / torch.clamp(box[:, 3:6].max(dim=0).values - lo, min=1e-12)
+
+    def sort(s):  # one bounce's sort in render_pixels_fused
+        order = torch.argsort(coherence_keys(s, lo, inv), stable=True)
+        return s[:, order], order
+
+    waves = {"generated": wave, "sorted": sort(wave)[0]}
+    p0 = params_row(0, device)
+    times = {}
+    for label, fs in (("instanced", inst), ("flattened", flat)):
+        lt = tuple(fs.light_types.tolist())
+        o, d, alive = wave[0:3].T.contiguous(), wave[3:6].T.contiguous(), wave[13] > 0.5
+        tmin = float(p0[P_TMIN])
+        win = walk_closest(fs.walk, fs.tris, o, d, alive, tmin)
+        work = walk_work(fs.walk, o, d, alive, tmin, walk_hit_attrs(fs.walk, fs.tris, o, d, win)[0])
+        hits = int((win >= 0).sum())
+        for order, wv in waves.items():
+            for nee in (False, True):
+                k = time_ms(lambda s: tb.bounce_step(p0, fs, s, nee), wv)
+                twin = time_ms(lambda s: bounce_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, nee,
+                                                    fs.walk), wv, reps=2)
+                times[(label, order, nee)] = (k, twin, k2_bound_ms(wv, fs, work))
+                log(f"timing K2 sphere_field {label} wave {order} nee={nee} bounce 0 at "
+                    f"{wv.shape[1]} rays ({hits} hit; {work[0]} entry boxes and {work[1]} "
+                    f"cluster boxes entered before the hit): kernel {k:.3f} ms, plain twin "
+                    f"{twin:.1f} ms, bound {times[(label, order, nee)][2][0]:.4f} ms "
+                    f"({times[(label, order, nee)][2][1]})")
+
+    # bounces 1-5 of a frame: K2 on the state as the last bounce left it
+    # (the ray order of a frame without the sort) and sorted by the
+    # coherence key (the order render_pixels_fused gives it), and the sort
+    sorted_ms = {}
+    for label, fs in (("instanced", inst), ("flattened", flat)):
+        for nee in (False, True):
+            state = wave.clone()
+            tb.bounce_step(p0, fs, state, nee)
+            sums = [0.0, 0.0, 0.0]
+            for b in range(1, SF_BOUNCES):
+                params = params_row(b, device)
+                alive = int((state[13] > 0.5).sum())
+                k_as_is = time_ms(lambda s: tb.bounce_step(params, fs, s, nee), state)
+                k_sorted = time_ms(lambda s: tb.bounce_step(params, fs, s, nee), sort(state)[0])
+                t_sort = time_ms(sort, state)
+                for i, v in enumerate((k_as_is, k_sorted, t_sort)):
+                    sums[i] += v
+                log(f"timing K2 sphere_field {label} nee={nee} bounce {b} ({alive} rays alive): "
+                    f"unsorted {k_as_is:.3f} ms, sorted {k_sorted:.3f} ms, the sort {t_sort:.3f} ms")
+                tb.bounce_step(params, fs, state, nee)
+            sorted_ms[(label, nee)] = sums
+            log(f"timing K2 sphere_field {label} nee={nee} bounces 1-5: unsorted {sums[0]:.3f} ms, "
+                f"sorted {sums[1]:.3f} ms + the sorts {sums[2]:.3f} ms")
+    return max_err, times, sorted_ms
 
 
 def image_checks(img, label):
@@ -204,15 +405,21 @@ def image_checks(img, label):
 
 
 def timed_render(params, label):
+    """One gi.render, timed, with the kernels' launch counts set to 0 just
+    before it and read just after; returns (image, Mray/s, launches)."""
     from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
 
+    for kname in tb.launches:
+        tb.launches[kname] = 0
     t0 = time.perf_counter()
     gi.render(params)  # ends in a device-to-host copy of the image
     dt = time.perf_counter() - t0
+    launches = dict(tb.launches)
     mrays = params.scene.last_segments / dt / 1e6
     log(f"render {label}: {dt:.3f} s wall, {params.scene.last_segments:.0f} traced segments, "
-        f"{mrays:.1f} Mray/s")
-    return params.aov_bindings[0].render_buffer.data.copy(), mrays
+        f"{mrays:.1f} Mray/s, kernel launches {launches}")
+    return params.aov_bindings[0].render_buffer.data.copy(), mrays, launches
 
 
 def cornell_params(device, settings, lights=()):
@@ -229,6 +436,164 @@ def cornell_params(device, settings, lights=()):
                              render_settings=merged)
 
 
+def sphere_field_params(device, sf, nee: bool):
+    """gi render parameters of sphere_field at the bench's settings."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    desc = sf[0]
+    scene = gi.create_scene(device)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    buf = gi.GiRenderBuffer(SF_RES, SF_RES, 4)
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                             aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                             render_settings=dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=nee))
+
+
+def sphere_field_classes(device, sf):
+    """Per pixel of a 512x512 frame, from the ray through its centre: whether
+    it first hits the ground or a sphere, and whether that point sees the
+    key light's centre (a twin walk toward it) with its normal facing it."""
+    import torch
+
+    from gatling_tpu_torch.ops import sampling as smp
+    from gatling_tpu_torch.ops.bounce_ref import walk_closest, walk_hit_attrs, walk_occluded
+    from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
+
+    desc, _midx, _table, inst, _flat = sf
+    n = SF_RES * SF_RES
+    pix = torch.arange(n, device=device)
+    o, d, _ = generate_primary_rays(camera_uniforms(desc.first_camera(), False, device), SF_RES,
+                                    SF_RES, pix % SF_RES, pix // SF_RES, smp.rng_init(pix, 0),
+                                    False, False, False)
+    win = walk_closest(inst.walk, inst.tris, o, d, torch.ones(n, dtype=torch.bool, device=device),
+                       0.0)
+    t, _u, _v, gn, *_rest = walk_hit_attrs(inst.walk, inst.tris, o, d, win)
+    obj = torch.where(win >= 0, inst.walk.inst[(win // 2048).clamp(min=0), 13], -1.0)
+    hit = win >= 0
+    pos = o + torch.where(hit, t, 0.0)[:, None] * d
+    gnv = torch.stack(gn, 1)
+    gnv = torch.where(((gnv * d).sum(1) > 0)[:, None], -gnv, gnv)  # facing the camera
+    to_l = torch.as_tensor(desc.lights[0].transform[3, :3], dtype=torch.float32,
+                           device=device) - pos
+    dist = to_l.norm(dim=1)
+    ldir = to_l / dist[:, None]
+    cosl = (gnv * ldir).sum(1)
+    faces = hit & (cosl > 0.2)
+    origin = pos + gnv * 1e-3
+    occ = torch.zeros(n, dtype=torch.bool, device=device)
+    idx = faces.nonzero()[:, 0]
+    occ[idx] = walk_occluded(inst.walk, inst.tris, origin[idx], ldir[idx], dist[idx] - 1.0)
+    ground = obj == 8.0
+    spheres = hit & (obj < 8.0)
+    lit = faces & ~occ
+    return {k: v.cpu().numpy().reshape(SF_RES, SF_RES) for k, v in dict(
+        lit_ground=ground & lit, shadowed_ground=ground & ~lit,
+        lit_spheres=spheres & lit, dark_spheres=spheres & (cosl < -0.2)).items()}
+
+
+def phase_sphere_field(device, sf):
+    """Phases 4b and 4c: sphere_field through gi.render, NEE off and on, the
+    same frame through the flattened tables, and a transform edit."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.geometry import build_geometry
+    from gatling_tpu_torch.render.camera import camera_uniforms
+    from gatling_tpu_torch.render.fused import render_pixels_fused
+    from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
+
+    out, imgs = {}, {}
+    for nee in (False, True):
+        params = sphere_field_params(device, sf, nee)
+        label = f"sphere_field {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee={nee}"
+        img, out[f"sphere_field{'_nee' if nee else ''}"], launches = timed_render(params, label)
+        assert params.scene._fused_static.instanced
+        assert launches["K1"] == 0 and launches["K2"] > 0, launches
+        if not nee:
+            k2_launches = launches["K2"]  # the main path's sphere_field frame
+        assert np.isfinite(img).all() and (img >= 0).all(), label
+        imgs[nee] = img[..., :3]
+        if nee:
+            _, warm, _ = timed_render(params, label + " (second frame, warm)")
+    assert imgs[True].mean() > imgs[False].mean() * 1.02, "NEE must add light"
+
+    # NEE's direct light lands where the key light is seen: the lit ground
+    # and the spheres' lit sides gain more than the ground in the spheres'
+    # shadows and the sides turned away from the light, which gain only
+    # through later bounces (at 64x64 x 2 spp on the CPU twin: 2.8 and 2.7
+    # times as much)
+    cls = sphere_field_classes(device, sf)
+    gain = (imgs[True] - imgs[False]).mean(-1)
+    means = {k: float(gain[m].mean()) for k, m in cls.items()}
+    log(f"NEE gain by first-hit class {means}, pixels "
+        f"{ {k: int(m.sum()) for k, m in cls.items()} }")
+    assert means["lit_ground"] > 1.5 * max(means["shadowed_ground"], 1e-3)
+    assert means["lit_spheres"] > 1.5 * max(means["dark_spheres"], 1e-3)
+    lum = imgs[True].mean(-1)
+    assert lum[cls["lit_ground"]].mean() > lum[cls["shadowed_ground"]].mean()
+
+    # the same frame through the flattened tables, render_pixels_fused direct
+    desc, _midx, _table, inst, flat = sf
+    params = sphere_field_params(device, sf, True)
+    gi.render(params)
+    inst_img = params.aov_bindings[0].render_buffer.data[..., :3].copy()
+    s = params.render_settings
+    cfg = RenderConfig(width=SF_RES, height=SF_RES, spp=SF_SPP, max_bounces=SF_BOUNCES,
+                       nee=True)
+    uni = Uniforms(camera=camera_uniforms(desc.first_camera(), False, device), sample_offset=0,
+                   inv_total_sample_count=1.0 / SF_SPP, max_sample_value=10.0,
+                   rr_inv_min_term_prob=0.95, light_intensity_multiplier=1.0,
+                   meters_per_scene_unit=1.0, max_volume_walk_length=7)
+    assert s["spp"] == SF_SPP
+    t0 = time.perf_counter()
+    flat_img = render_pixels_fused(cfg, uni, flat, torch.arange(SF_RES * SF_RES, device=device),
+                                   SF_SPP, 0).cpu().numpy().reshape(SF_RES, SF_RES, 3)
+    log(f"render sphere_field through the flattened tables (render_pixels_fused, nee): "
+        f"{time.perf_counter() - t0:.3f} s")
+    rel = abs(flat_img.mean() - inst_img.mean()) / inst_img.mean()
+    close = (np.abs(flat_img - inst_img) <= 1e-3 * np.maximum(1.0, np.abs(inst_img))).all(-1).mean()
+    log(f"sphere_field instanced vs flattened: mean rel diff {rel:.2e}, {close:.5f} of pixels "
+        "within 1e-3")
+    assert rel < 5e-3 and close >= 0.99
+
+    # 4c: move one sphere group as its PointInstancer's next time sample
+    # would, tell the scene, render; the refit rebuilds the instance tables
+    # over the cached unique clusters and must equal a build from scratch
+    scene = params.scene
+    tris0 = scene._fused.tris
+    group = scene.meshes[3]
+    shift = np.eye(4)
+    shift[3, :3] = [0.3, -0.2, 0.1]
+    group.instance_transforms = group.instance_transforms @ shift
+    t0 = time.perf_counter()
+    scene.set_mesh_transform(group, group.transform)
+    gi.render(params)
+    log(f"transform edit + frame: {time.perf_counter() - t0:.3f} s")
+    assert scene._fused.tris is tris0  # the unique cluster table stayed on the card
+    fresh, _ = tb.build_fused_scene_instanced(scene.meshes, scene._material_index,
+                                              scene._material_table, scene._light_arrays, device)
+    refit = [scene._fused.tris, *scene._fused.walk]
+    assert all(torch.equal(a, b) for a, b in zip(refit, [fresh.tris, *fresh.walk]))
+    assert not torch.equal(scene._fused.walk.l1, inst.walk.l1)
+    fresh_geom = build_geometry(scene.meshes, scene._material_index)
+    assert all(np.array_equal(a, b) for a, b in zip(scene._geom, fresh_geom))
+    edited = params.aov_bindings[0].render_buffer.data[..., :3]
+    assert np.isfinite(edited).all() and abs(edited.mean() - inst_img.mean()) / inst_img.mean() < 0.05
+    log("transform refit: instance tables equal a build from scratch and geometry a fresh "
+        "geometry build, bit for bit")
+    out["sphere_field_nee_warm"] = warm
+    return out, k2_launches
+
+
 def phase_renders(device):
     """Phases 4 and 5: the main path at full size, and progressive frames."""
     import numpy as np
@@ -237,10 +602,13 @@ def phase_renders(device):
 
     settings = dict(spp=16, maxBounces=8)
     out = {}
-    img, mr = timed_render(cornell_params(device, settings), f"cornell {FULL_RES}^2 16spp 8 bounces")
+    img, mr, launches = timed_render(cornell_params(device, settings),
+                                     f"cornell {FULL_RES}^2 16spp 8 bounces")
     image_checks(img, "cornell")
+    assert launches["K1"] > 0 and launches["K2"] == 0, launches
+    k1_launches = launches["K1"]  # the main path's Cornell frame
     out["cornell"] = mr
-    img_nee, mr = timed_render(
+    img_nee, mr, _ = timed_render(
         cornell_params(device, dict(settings, nextEventEstimation=True), [bench_rect_light()]),
         f"cornell + NEE rect light {FULL_RES}^2 16spp 8 bounces")
     image_checks(img_nee, "cornell_nee")
@@ -267,7 +635,7 @@ def phase_renders(device):
     params = cornell_params(device, dict(spp=16, maxBounces=8))
     imgs = []
     for expect in (16, 32, 48):
-        img, mr = timed_render(params, f"progressive frame -> sampleOffset {expect}")
+        img, mr, _ = timed_render(params, f"progressive frame -> sampleOffset {expect}")
         assert params.scene.sample_offset == expect, params.scene.sample_offset
         imgs.append(img[..., :3])
     means = [float(i.mean()) for i in imgs]
@@ -275,7 +643,7 @@ def phase_renders(device):
     log(f"progressive means {means}, gradient noise {grads}")
     assert abs(means[2] - means[0]) / means[0] < 0.02
     assert grads[2] < grads[1] < grads[0]
-    return out
+    return out, k1_launches
 
 
 def main() -> int:
@@ -315,31 +683,63 @@ def main() -> int:
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
 
-    # 3. kernel against twin
+    # 3. K1 against its twin; 3b. K2 against its twin
+    t0 = time.perf_counter()
     max_err, times = phase_kernel(device)
+    log(f"phase 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sf = sphere_field_setup(device)
+    walk_err, walk_times, sorted_ms = phase_walk(device, sf)
+    log(f"phase 3b: {time.perf_counter() - t0:.1f} s")
 
-    # 4-5. main path; the launch count covers exactly these renders
-    tb.launches = 0
-    rates = phase_renders(device)
-    launches = tb.launches
-    assert launches > 0, "the main path never launched the bounce kernel"
-    log(f"main path: {launches} kernel launches; Mray/s {rates}")
+    # 4-5. main path; each kernel's launches are counted over one frame of
+    # its path through gi.render: K1 the Cornell frame, K2 sphere_field's
+    t0 = time.perf_counter()
+    rates, k1_launches = phase_renders(device)
+    log(f"phases 4 and 5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sf_rates, k2_launches = phase_sphere_field(device, sf)
+    rates.update(sf_rates)
+    log(f"phases 4b and 4c: {time.perf_counter() - t0:.1f} s")
+    launches = {"K1": k1_launches, "K2": k2_launches}
+    log(f"main path: kernel launches per frame {launches}; Mray/s {rates}")
 
+    k2 = walk_times[("instanced", "generated", False)]
     print(smi)
     print(json.dumps({"kernels": [{
-        "name": "bounce_step",
+        "name": "bounce_step (K1, resident)",
         "route": "cuda",
         "source": "gatling_tpu_torch/csrc/bounce.cu",
-        "replaces": "gatling_tpu/ops/pallas_bounce.py:3192",
-        "launches": launches,
+        "replaces": "gatling_tpu/ops/pallas_bounce.py:3192 (resident branch)",
+        "launches": launches["K1"],
         "max_abs_err": max_err,
         "ms": times[False][0],
         "plain_ms": times[False][1],
+        "bound_ms": times[False][2][0],
+        "bound_by": times[False][2][1],
+        "library_ms": None,
         "ms_nee": times[True][0],
         "plain_ms_nee": times[True][1],
+    }, {
+        "name": "bounce_step_walk (K2, clustered + instanced)",
+        "route": "cuda",
+        "source": "gatling_tpu_torch/csrc/bounce.cu",
+        "replaces": "gatling_tpu/ops/pallas_bounce.py:3192 (clustered+instanced branch: "
+                    "_trace_clustered_matrix :1513, _trace_clustered_occluded :2002)",
+        "launches": launches["K2"],
+        "max_abs_err": walk_err,
+        "ms": k2[0],
+        "plain_ms": k2[1],
+        "bound_ms": k2[2][0],
+        "bound_by": k2[2][1],
+        "library_ms": None,
+        "ms_by_case": {f"{t}/{o}/nee={n}": v[0] for (t, o, n), v in walk_times.items()},
+        "plain_ms_by_case": {f"{t}/{o}/nee={n}": v[1] for (t, o, n), v in walk_times.items()},
+        "bounces_1_5_ms_unsorted_sorted_sort": {f"{t}/nee={n}": v
+                                                for (t, n), v in sorted_ms.items()},
     }]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    # the run drives one card (cuda:0), whatever the host holds
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0
 
 

@@ -6,9 +6,13 @@ giRender with the dirty-flag engine and the progressive accumulation
 contract (sampleOffset persists across renders and resets when the
 framebuffer is invalidated, Gi.cpp:2125-2129,2515).
 
-The port renders on one device through the fused bounce kernel, and
-only what that path covers. `render` raises NotImplementedError, naming
-the ROADMAP item, for anything else; it never renders something else.
+The port renders on one device through the fused bounce kernels, and
+only what that path covers: untextured, cutout-free scenes of any size,
+instanced or not. Above 4096 triangles a scene takes the two-level walk
+(K2), in instance tables when the JAX package's rule picks them
+(ops/bounce.py MIN_GAIN), else in flattened clustered tables. `render`
+raises NotImplementedError, naming the ROADMAP item, for anything else; it
+never renders something else.
 """
 
 from __future__ import annotations
@@ -22,8 +26,17 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import AovId, aov_bit, f32
-from gatling_tpu_torch.ops.bounce import FusedScene, build_fused_scene
-from gatling_tpu_torch.ops.geometry import build_geometry
+from gatling_tpu_torch.ops.bounce import (
+    FusedScene,
+    FusedStatic,
+    UniqueClusters,
+    build_fused_scene_instanced,
+    build_fused_scene_with_order,
+    check_slice,
+    real_triangles,
+    refit_instanced,
+)
+from gatling_tpu_torch.ops.geometry import build_geometry_cached, update_instance_transforms
 from gatling_tpu_torch.render.camera import camera_uniforms
 from gatling_tpu_torch.render.fused import render_pixels_fused
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms, blend_aovs
@@ -42,6 +55,7 @@ class DirtyFlags(enum.IntFlag):
     FRAMEBUFFER = 1 << 1
     MATERIALS = 1 << 2
     LIGHTS = 1 << 4
+    TRANSFORMS = 1 << 5  # transform-only edits: refit, no geometry rebuild
     ALL = GEOMETRY | FRAMEBUFFER | MATERIALS | LIGHTS
 
 
@@ -80,11 +94,16 @@ class GiScene:
         self.sample_offset = 0
         self.dirty = DirtyFlags.ALL
         self._geom = None
+        self._geom_cache = None
+        self._pending_transforms: list[MeshDesc] = []
         self._material_index: dict[str | None, int] = {}
         self._lowered_materials: list = []
         self._material_table = None
         self._light_arrays = None
         self._fused: FusedScene | None = None
+        self._fused_static: FusedStatic | None = None
+        self._fused_order: np.ndarray | None = None  # flattened clustered order
+        self._clusters: UniqueClusters | None = None  # instanced: the unique clusters
         self._color: torch.Tensor | None = None  # accumulated COLOR AOV [N,4]
         self._fb_shape: tuple[int, int] | None = None
         self._last_params_key = None
@@ -95,6 +114,16 @@ class GiScene:
         self.meshes.append(mesh)
         self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.FRAMEBUFFER
         return mesh
+
+    def set_mesh_transform(self, mesh: MeshDesc, transform: np.ndarray) -> None:
+        """Move a mesh. Once its geometry is built, only its placements are
+        re-transformed at the next render and the fused tables refit."""
+        mesh.transform = np.asarray(transform, np.float64)
+        if self._geom_cache is not None and not (self.dirty & DirtyFlags.GEOMETRY):
+            self._pending_transforms.append(mesh)
+            self.dirty |= DirtyFlags.TRANSFORMS | DirtyFlags.FRAMEBUFFER
+        else:
+            self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.FRAMEBUFFER
 
     def add_material(self, mat: MaterialDesc) -> None:
         self.materials[mat.path] = mat
@@ -193,6 +222,40 @@ def _check_route(params: GiRenderParams, config: RenderConfig) -> None:
             "vertex colours are not ported yet (ROADMAP: 'Wavefront integrator')")
 
 
+def _build_fused(scene: GiScene) -> None:
+    """The fused tables (gatling_tpu/gi.py:706-737): instance tables
+    first, the flattened build when the scene does not take them."""
+    check_slice(scene._geom, scene._material_table, real_triangles(scene._geom))
+    scene._clusters = UniqueClusters()
+    res = build_fused_scene_instanced(scene.meshes, scene._material_index,
+                                      scene._material_table, scene._light_arrays, scene.device,
+                                      clusters=scene._clusters)
+    scene._fused_order = None
+    if res is not None:
+        scene._fused, scene._fused_static = res
+        get_logger().info("instanced fused scene: %d instances x %d unique clusters "
+                          "(flattened would be %d triangles)", scene._fused_static.n_instances,
+                          scene._fused_static.n_clusters, scene._fused_static.n_tris)
+    else:
+        scene._fused, scene._fused_static, scene._fused_order = build_fused_scene_with_order(
+            scene._geom, scene._material_table, scene._light_arrays, scene.device)
+
+
+def _refit_fused(scene: GiScene) -> None:
+    """Transform-only refresh (gatling_tpu/gi.py:518-564): instanced scenes
+    rebuild only their instance tables over the cached unique clusters,
+    which do not move; flattened ones refit their rows and boxes under the
+    cached triangle order. A refit that leaves the instanced route drops
+    the tables, to be built anew."""
+    if scene._fused_static.instanced:
+        scene._fused = refit_instanced(scene._fused, scene._clusters, scene.meshes,
+                                       scene._material_index, scene._material_table)
+    else:
+        scene._fused, scene._fused_static, scene._fused_order = build_fused_scene_with_order(
+            scene._geom, scene._material_table, scene._light_arrays, scene.device,
+            reuse_order=scene._fused_order)
+
+
 def render(params: GiRenderParams) -> None:
     """giRender analog (reference: Gi.cpp:1989-2524): resolve dirty state,
     rebuild device tables, render the frame through the fused bounce
@@ -221,10 +284,22 @@ def render(params: GiRenderParams) -> None:
         mat_paths = sorted({m.material for m in scene.meshes if m.material})
         scene._material_index = {p: i for i, p in enumerate(mat_paths)}
         scene._material_index[None] = len(mat_paths)
-        scene._geom = build_geometry(scene.meshes, scene._material_index)
+        scene._geom, scene._geom_cache = build_geometry_cached(scene.meshes,
+                                                               scene._material_index)
         scene._fused = None
+        scene._pending_transforms.clear()
         scene.dirty |= DirtyFlags.MATERIALS
         log.info("built geometry: %d triangles in %.1f ms", scene._geom.num_triangles,
+                 1e3 * (time.monotonic() - t0))
+    elif scene.dirty & DirtyFlags.TRANSFORMS and scene._pending_transforms:
+        t0 = time.monotonic()
+        pending = scene._pending_transforms
+        scene._geom = update_instance_transforms(scene._geom_cache, pending,
+                                                 scene._material_index)
+        if scene._fused is not None:
+            _refit_fused(scene)
+        scene._pending_transforms = []
+        log.info("refreshed %d transform(s) in %.1f ms (no geometry rebuild)", len(pending),
                  1e3 * (time.monotonic() - t0))
     if scene.dirty & DirtyFlags.MATERIALS or scene._material_table is None:
         rows = [None] * len(scene._material_index)
@@ -245,8 +320,7 @@ def render(params: GiRenderParams) -> None:
     config = _build_config(params, width, height, aov_mask)
     _check_route(params, config)
     if scene._fused is None:
-        scene._fused, _static = build_fused_scene(scene._geom, scene._material_table,
-                                                  scene._light_arrays, scene.device)
+        _build_fused(scene)
     if scene._color is None:
         scene._color = _init_aov_state(params.aov_bindings, n, scene.device)
 

@@ -1,17 +1,30 @@
-"""Fused bounce: scene tables, ray state, and the dispatch to the kernel.
+"""Fused bounce: scene tables, ray state, and the dispatch to the kernels.
 
-Host half of the JAX package's ops/pallas_bounce.py for the resident case
-(every triangle of a scene of at most 4096 in one table): the triangle,
+Host half of the JAX package's ops/pallas_bounce.py: the triangle,
 material and light tables, the packed 16-row ray state and the per-bounce
-parameter vector, plus `bounce_step`, which runs one bounce:
+parameter vector, plus `bounce_step`, which runs one bounce. Two table
+layouts, as in the JAX package:
 
-* on a CUDA tensor, the hand-written kernel csrc/bounce.cu, built with nvcc
-  at first use into build/torch_ext/ and loaded with ctypes (a plain C
+* resident (at most RESIDENT_MAX = 4096 triangles): every triangle in one
+  [T, 32] table, walked by the kernel K1;
+* clustered: 128-triangle clusters under two levels of boxes, walked by
+  the kernel K2. Flattened (`build_fused_scene_with_order`: the world
+  triangle soup ordered by a median split) or instanced
+  (`build_fused_scene_instanced`: each unique mesh's clusters once, in
+  its local frame, one level-1 entry per placement and 16 clusters). On
+  the card a binary BVH over the level-1 entry boxes (the TLAS, built
+  here) replaces the TPU's per-block walk plan.
+
+`bounce_step` runs:
+
+* on a CUDA tensor, the hand-written kernels of csrc/bounce.cu, built with
+  nvcc at first use into build/torch_ext/ and loaded with ctypes (a plain C
   interface: a source that includes PyTorch's headers takes minutes to
   build, this one seconds). A failed build or launch raises;
 * on a CPU tensor, the plain twin ops/bounce_ref.py.
 
-Both are also registered as the operator `torch.ops.gatling.bounce_step`.
+Both are also registered as the operators `torch.ops.gatling.bounce_step`
+(K1) and `torch.ops.gatling.bounce_step_walk` (K2).
 """
 
 from __future__ import annotations
@@ -24,18 +37,27 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import (
+    FLOAT_MAX,
     LightArrays,
     MESH_FLAG_DOUBLE_SIDED,
     MESH_FLAG_FLIP_FACING,
     f32,
 )
 from gatling_tpu_torch.ops.bounce_ref import (
+    CLU_OPAC,
+    CLU_OPAC_SH,
+    CLU_ROW_MAP,
+    CLU_TRI_ROWS,
+    CLUSTER_SIZE,
+    INST_COLS,
+    L1_FAN,
     LIGHT_COLS,
     LT_DISK,
     LT_DISTANT,
@@ -55,6 +77,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TR_R1,
     TR_R2,
     TR_UV,
+    WalkTables,
     bounce_ref,
 )
 from gatling_tpu_torch.ops.geometry import SceneGeometry
@@ -68,10 +91,22 @@ from gatling_tpu_torch.render.material import (
     MF_TRANS,
     MaterialTable,
 )
+from gatling_tpu_torch.scene.meshproc import materialize_mesh
 
 RESIDENT_MAX = 4096  # the resident (single-table) branch's triangle ceiling
+# The instanced builder's routing rule is the JAX package's, so a scene
+# takes the same route in both: instance tables engage above MIN_FLAT
+# flattened triangles when instancing saves MIN_GAIN times the triangles,
+# or for any scene of several placements, as long as the unique clusters
+# stay under CLU_VMEM_MAX_BYTES. All three were measured on a TPU v5e
+# (where 56 MB is what its VMEM holds); on the card they are inherited.
+MIN_GAIN = 4.0
+MIN_FLAT = 4096
+CLU_VMEM_MAX_BYTES = 56 * 1024 * 1024
 # materials + lights staged in shared memory per block
 SMEM_TABLE_MAX_BYTES = 48 * 1024
+TLAS_LEAF = 2      # level-1 entries per TLAS leaf
+TLAS_MAX_DEPTH = 48  # the kernel's traversal stack holds 64 nodes
 
 _REPO = Path(__file__).resolve().parents[2]
 _SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bounce.cu"
@@ -83,12 +118,13 @@ BUILD_DIR = _REPO / "build" / "torch_ext"
 # ---------------------------------------------------------------------------
 
 class FusedScene(NamedTuple):
-    """Device tables for the bounce kernel."""
+    """Device tables for the bounce kernels."""
 
-    tris: torch.Tensor         # [T, 32] f32, triangle-major (TR_* columns)
+    tris: torch.Tensor         # resident [T, 32]; clustered [C * 128, 40] f32
     mats: torch.Tensor         # [M, 30] f32 packed material rows
     lights: torch.Tensor       # [max(L,1), 20] f32, type-major slots
     light_types: torch.Tensor  # [L] int8 LT_* per slot
+    walk: WalkTables | None = None  # clustered and instanced scenes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +133,39 @@ class FusedStatic:
 
     n_tris: int
     light_types: tuple[int, ...]
+    n_clusters: int = 0   # 0: resident; instanced: unique local clusters
+    n_l1: int = 1
+    n_instances: int = 0  # > 0: instanced
+
+    @property
+    def clustered(self) -> bool:
+        return self.n_clusters > 0
+
+    @property
+    def instanced(self) -> bool:
+        return self.n_instances > 0
+
+
+class ClusterArrays(NamedTuple):
+    """Clustered tables as NumPy, in the JAX package's FusedScene layout
+    (the tests compare them with the JAX builders')."""
+
+    tris: np.ndarray                     # [C_pad, 40, 128] f32
+    l1: np.ndarray                       # [8, n_l1] f32 (rows 0-5: lo xyz, hi xyz)
+    l2: np.ndarray                       # [8, n_l1 * 16] f32
+    inst_smem: np.ndarray | None = None  # [n_l1, 16] f32: A3, a_t, pass, fan, pass_sh
+    inst_map: np.ndarray | None = None   # [n_l1 * 16] int32 -> unique cluster
+    inst_attr: np.ndarray | None = None  # [lanes, 24] f32: A3, a_t, mat, obj, entry, ds
+
+
+@dataclasses.dataclass
+class UniqueClusters:
+    """The unique meshes' local clusters, by identity of the mesh object,
+    and their cluster table. Built once for a set of meshes and kept across
+    transform edits of them, which rebuild only the instance tables."""
+
+    meshes: dict[int, dict] = dataclasses.field(default_factory=dict)
+    tris: np.ndarray | None = None  # [uc + 1, 40, 128] f32; the last cluster padding
 
 
 def _duff_onb_np(n: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -174,7 +243,13 @@ def build_fused_lights(arrays: LightArrays) -> tuple[np.ndarray, tuple[int, ...]
     return table.astype(np.float32), tuple(types)
 
 
-def tri_rows(geom: SceneGeometry) -> np.ndarray:
+def _light_table(light_arrays: LightArrays | None) -> tuple[np.ndarray, tuple[int, ...]]:
+    if light_arrays is None:
+        return np.zeros((1, LIGHT_COLS), np.float32), ()
+    return build_fused_lights(light_arrays)
+
+
+def tri_rows(geom) -> np.ndarray:
     """Per-triangle kernel rows [T, 32] (Baldwin-Weber precompute), built in
     float64 and stored as f32."""
     v0 = np.asarray(geom.v0, np.float64)
@@ -216,64 +291,424 @@ def tri_rows(geom: SceneGeometry) -> np.ndarray:
     return rows
 
 
-def _check_slice(geom: SceneGeometry, table: MaterialTable, n_real: int) -> None:
-    """Raise on scene content the resident kernel does not cover."""
+def _material_pass(table: MaterialTable) -> np.ndarray:
+    """[M] stochastic-cutout pass probability per material (1 = opaque)."""
     pf = table.packed_f
-    if n_real > RESIDENT_MAX:
-        raise NotImplementedError(
-            f"{n_real} triangles exceed the resident table ({RESIDENT_MAX}); "
-            "clustered and instanced scenes are not ported yet "
-            "(ROADMAP: 'Large scenes')")
+    return np.where(pf[:, MF_OPACITY_THRESH] > 0.0,
+                    (pf[:, MF_OPACITY] >= pf[:, MF_OPACITY_THRESH]).astype(np.float32),
+                    pf[:, MF_OPACITY])
+
+
+def check_slice(geom: SceneGeometry, table: MaterialTable, n_real: int) -> None:
+    """Raise on scene content the ported kernels do not cover."""
+    pf = table.packed_f
     thick = (pf[:, MF_TRANS] > 0.0) & (pf[:, MF_THIN] < 0.5)
     if thick.any() or (pf[:, MF_COAT] > 0.0).any() or (pf[:, MF_ANISO] != 0.0).any():
         raise NotImplementedError(
             "refraction, clearcoat and anisotropy lobes are not ported yet "
             "(ROADMAP: 'Lobes, media and cutout')")
-    per_mat = np.where(pf[:, MF_OPACITY_THRESH] > 0.0,
-                       (pf[:, MF_OPACITY] >= pf[:, MF_OPACITY_THRESH]).astype(np.float32),
-                       pf[:, MF_OPACITY])
     mid = np.clip(np.asarray(geom.material_id[:n_real]), 0, pf.shape[0] - 1)
-    if (per_mat[mid] < 1.0).any():
+    if (_material_pass(table)[mid] < 1.0).any():
         raise NotImplementedError(
-            "cutout opacity is not ported yet (ROADMAP: 'Lobes, media and cutout')")
+            "cutout opacity is not ported yet, in the resident table or in "
+            "the walks (ROADMAP: 'Lobes, media and cutout')")
+
+
+def real_triangles(geom: SceneGeometry) -> int:
+    """Triangles before the lane padding (degenerate rows at the end)."""
+    real = (np.abs(geom.e1).sum(axis=1) > 0) | (np.abs(geom.e2).sum(axis=1) > 0)
+    return int(np.max(np.nonzero(real)[0])) + 1 if real.any() else 0
 
 
 def build_fused_scene(geom: SceneGeometry, table: MaterialTable,
-                      light_arrays: LightArrays | None,
-                      device: torch.device | str) -> tuple[FusedScene, FusedStatic]:
-    """Kernel tables for a resident scene (the JAX package's
-    build_fused_scene_with_order, resident branch)."""
-    # drop the lane-padding triangles: the kernel needs no alignment
-    real = (np.abs(geom.e1).sum(axis=1) > 0) | (np.abs(geom.e2).sum(axis=1) > 0)
-    n_real = int(np.max(np.nonzero(real)[0])) + 1 if real.any() else 0
-    geom = SceneGeometry(*[arr[:n_real] for arr in geom])
-    _check_slice(geom, table, n_real)
-    if light_arrays is not None:
-        light_table, light_types = build_fused_lights(light_arrays)
-    else:
-        light_table, light_types = np.zeros((1, LIGHT_COLS), np.float32), ()
-    scene = to_device_tables(tri_rows(geom), table.packed_f, light_table,
-                             light_types, device)
-    static = FusedStatic(n_tris=n_real, light_types=light_types)
+                      light_arrays: LightArrays | None, device: torch.device | str,
+                      resident_max: int = RESIDENT_MAX) -> tuple[FusedScene, FusedStatic]:
+    """Kernel tables of a flattened scene: resident up to `resident_max`
+    triangles, clustered above."""
+    scene, static, _order = build_fused_scene_with_order(geom, table, light_arrays, device,
+                                                         resident_max)
     return scene, static
 
 
-def to_device_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
-                     light_types: tuple[int, ...], device) -> FusedScene:
-    """Port-layout NumPy tables ([T, 32] tris) -> device tensors."""
-    def f32(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
+def build_fused_scene_with_order(
+    geom: SceneGeometry, table: MaterialTable, light_arrays: LightArrays | None,
+    device: torch.device | str, resident_max: int = RESIDENT_MAX,
+    reuse_order: np.ndarray | None = None,
+) -> tuple[FusedScene, FusedStatic, np.ndarray | None]:
+    """The JAX package's build_fused_scene_with_order: resident tables up
+    to `resident_max` real triangles, else clustered tables in a median-
+    split triangle order, which is returned so that a transform edit can
+    refit the tables under the same order (`reuse_order`) instead of
+    re-sorting."""
+    n_real = real_triangles(geom)
+    geom = SceneGeometry(*[arr[:n_real] for arr in geom])
+    check_slice(geom, table, n_real)
+    light_table, light_types = _light_table(light_arrays)
+    if n_real <= resident_max:
+        scene = from_jax_tables(tri_rows(geom).T, table.packed_f, light_table, light_types,
+                                device)
+        return scene, FusedStatic(n_tris=n_real, light_types=light_types), None
 
-    return FusedScene(tris=f32(tris), mats=f32(mats), lights=f32(lights),
-                      light_types=torch.as_tensor(np.asarray(light_types, np.int8),
-                                                  device=device))
+    order = reuse_order if reuse_order is not None else median_split_order(geom, n_real)
+    arrays = clustered_arrays(geom, table, order)
+    n_clusters = -(-n_real // CLUSTER_SIZE)
+    scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
+                            l1=arrays.l1, l2=arrays.l2)
+    static = FusedStatic(n_tris=n_real, light_types=light_types, n_clusters=n_clusters,
+                         n_l1=arrays.l1.shape[1])
+    return scene, static, order
+
+
+def median_split_order(geom, n_real: int, leaf: int = CLUSTER_SIZE) -> np.ndarray:
+    """Recursive longest-axis median split of the triangle centroids into
+    `leaf`-sized runs (pallas_bounce.py _median_split_order): every
+    CLUSTER_SIZE-aligned run of the returned order is a spatially compact
+    cluster, and groups of L1_FAN consecutive clusters one level up."""
+    v0 = np.asarray(geom.v0[:n_real], np.float64)
+    e1 = np.asarray(geom.e1[:n_real], np.float64)
+    e2 = np.asarray(geom.e2[:n_real], np.float64)
+    cent = v0 + (e1 + e2) / 3.0
+    order = np.empty(n_real, np.int64)
+    pos = 0
+    stack = [np.arange(n_real)]
+    while stack:
+        idx = stack.pop()
+        if len(idx) <= leaf:
+            order[pos:pos + len(idx)] = idx
+            pos += len(idx)
+            continue
+        c = cent[idx]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        # split at the multiple of `leaf` nearest the median, so that every
+        # leaf but the global tail holds exactly `leaf` triangles
+        half = ((len(idx) // 2 + leaf - 1) // leaf) * leaf
+        half = min(max(half, leaf), len(idx) - 1)
+        part = np.argpartition(c[:, ax], half)
+        stack.append(idx[part[half:]])  # right emitted after left (LIFO)
+        stack.append(idx[part[:half]])
+    return order
+
+
+def _morton_codes(points: np.ndarray) -> np.ndarray:
+    """30-bit Morton codes of points [N, 3] on a 1024^3 grid over their box."""
+    lo = points.min(axis=0)
+    span = np.maximum(points.max(axis=0) - lo, 1e-12)
+    q = np.clip((points - lo) / span * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << 16)) & np.uint64(0x030000FF)
+        x = (x | (x << 8)) & np.uint64(0x0300F00F)
+        x = (x | (x << 4)) & np.uint64(0x030C30C3)
+        x = (x | (x << 2)) & np.uint64(0x09249249)
+        return x
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (spread(q[:, 2]) << np.uint64(2))
+
+
+def morton_order(geom, n_real: int) -> np.ndarray:
+    """Triangle order along the Morton curve of the centroids
+    (pallas_bounce.py _morton_order)."""
+    v0 = np.asarray(geom.v0[:n_real], np.float64)
+    e1 = np.asarray(geom.e1[:n_real], np.float64)
+    e2 = np.asarray(geom.e2[:n_real], np.float64)
+    return np.argsort(_morton_codes(v0 + (e1 + e2) / 3.0), kind="stable")
+
+
+def _cluster_rows(geom, n_clusters: int) -> np.ndarray:
+    """[n_clusters * 128, 40] CLU_* rows of `geom`'s triangles in order,
+    padding rows zero."""
+    rows = tri_rows(geom)
+    out = np.zeros((n_clusters * CLUSTER_SIZE, CLU_TRI_ROWS), np.float32)
+    out[:rows.shape[0], [dst for _, dst in CLU_ROW_MAP]] = rows[:, [src for src, _ in CLU_ROW_MAP]]
+    return out
+
+
+def _cluster_boxes(geom, n_clusters: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-cluster [n_clusters, 3] lo and hi corners (float64) of `geom`'s
+    triangles in order; all-padding clusters get empty boxes."""
+    nt = np.asarray(geom.v0).shape[0]
+    v0 = np.asarray(geom.v0, np.float64)
+    v1 = v0 + np.asarray(geom.e1, np.float64)
+    v2 = v0 + np.asarray(geom.e2, np.float64)
+    t_pad = n_clusters * CLUSTER_SIZE
+    lo = np.full((t_pad, 3), FLOAT_MAX, np.float64)
+    hi = np.full((t_pad, 3), -FLOAT_MAX, np.float64)
+    lo[:nt] = np.minimum(np.minimum(v0, v1), v2)
+    hi[:nt] = np.maximum(np.maximum(v0, v1), v2)
+    return (lo.reshape(n_clusters, CLUSTER_SIZE, 3).min(axis=1),
+            hi.reshape(n_clusters, CLUSTER_SIZE, 3).max(axis=1))
+
+
+def clustered_arrays(geom: SceneGeometry, table: MaterialTable,
+                     order: np.ndarray) -> ClusterArrays:
+    """Flattened clustered tables of the real triangles of `geom`, in
+    `order` (the clustered branch of build_fused_scene_with_order)."""
+    n_real = len(order)
+    mid = np.clip(np.asarray(geom.material_id), 0, table.packed_f.shape[0] - 1)
+    pass_prob = _material_pass(table)[mid].astype(np.float32)[order]
+    geom = SceneGeometry(*[np.asarray(arr)[order] for arr in geom])
+    n_clusters = -(-n_real // CLUSTER_SIZE)
+    n_l1 = -(-n_clusters // L1_FAN)
+    c_pad = n_l1 * L1_FAN
+    rows = _cluster_rows(geom, c_pad)
+    rows[:n_real, CLU_OPAC] = pass_prob
+    rows[:n_real, CLU_OPAC_SH] = pass_prob
+    tris = rows.reshape(c_pad, CLUSTER_SIZE, CLU_TRI_ROWS).transpose(0, 2, 1).copy()
+
+    l2min, l2max = _cluster_boxes(geom, c_pad)
+    l2 = np.zeros((8, c_pad), np.float32)
+    l2[0:3] = l2min.T
+    l2[3:6] = l2max.T
+    l1 = np.zeros((8, n_l1), np.float32)
+    l1[0:3] = l2min.reshape(n_l1, L1_FAN, 3).min(axis=1).T
+    l1[3:6] = l2max.reshape(n_l1, L1_FAN, 3).max(axis=1).T
+    return ClusterArrays(tris=tris, l1=l1, l2=l2)
+
+
+def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
+                     min_gain: float = MIN_GAIN, min_flat: int = MIN_FLAT,
+                     clusters: UniqueClusters | None = None):
+    """Two-level instanced tables (pallas_bounce.py
+    build_fused_scene_instanced, without the TPU-only bf16 transform
+    operand): each unique mesh (by identity of its mesh object) keeps its
+    triangles once, as median-split clusters in its local frame; each
+    placement adds level-1 entries of at most L1_FAN of its mesh's
+    clusters, with world boxes and the world->local transform, in Morton
+    order of the placements' translations. Per-placement material, object
+    and double-sided flag ride the instance rows.
+
+    `clusters`, when given, holds the unique clusters across calls on the
+    same meshes: it is filled by the first call, and later calls only
+    rebuild the instance tables over it (a transform edit's refit).
+
+    Returns (ClusterArrays, FusedStatic fields) or None when the scene
+    does not take this route (the JAX package's rule, see MIN_GAIN)."""
+    mat_pass = _material_pass(table)
+    clusters = UniqueClusters() if clusters is None else clusters
+    uniq = clusters.meshes
+    insts: list[dict] = []
+    flat_tris = 0
+    for md in mesh_descs:
+        key = id(md.mesh)
+        if key not in uniq:
+            tm = materialize_mesh(md.mesh)
+            nt = tm.num_triangles
+            p = tm.positions.reshape(-1, 3, 3)
+            nrm = tm.normals.reshape(-1, 3, 3)
+            uv = tm.uvs.reshape(-1, 3, 2)
+            g = dict(v0=p[:, 0], e1=p[:, 1] - p[:, 0], e2=p[:, 2] - p[:, 0],
+                     n0=nrm[:, 0], n1=nrm[:, 1], n2=nrm[:, 2],
+                     uv0=uv[:, 0], uv1=uv[:, 1], uv2=uv[:, 2],
+                     material_id=np.zeros(nt, np.int32), flags=np.zeros(nt, np.int32))
+            order = median_split_order(SimpleNamespace(**g), nt) if nt > CLUSTER_SIZE \
+                else np.arange(nt)
+            uniq[key] = {"geom": SimpleNamespace(**{k: np.asarray(v)[order] for k, v in g.items()}),
+                         "n": nt, "n_clusters": -(-nt // CLUSTER_SIZE)}
+        transforms = md.instance_transforms
+        if transforms is None:
+            transforms = np.asarray(md.transform)[None]
+        mat_row = material_index.get(md.material, 0)
+        mpass = float(mat_pass[min(mat_row, len(mat_pass) - 1)])
+        for xf in np.asarray(transforms, np.float64):
+            m3 = xf[:3, :3]
+            if abs(np.linalg.det(m3)) < 1e-30:
+                return None  # a placement that cannot be inverted
+            a3 = np.linalg.inv(m3)
+            insts.append({"key": key, "m3": m3, "m_t": xf[3, :3], "a3": a3,
+                          "a_t": -xf[3, :3] @ a3, "mat": mat_row, "obj": md.object_id,
+                          "ds": 1.0 if md.double_sided else 0.0, "pass": mpass})
+        flat_tris += uniq[key]["n"] * len(transforms)
+
+    unique_tris = sum(i["n"] for i in uniq.values())
+    if flat_tris <= min_flat or unique_tris == 0:
+        return None
+    gain = flat_tris / max(unique_tris, 1)
+    uniq_bytes = sum(i["n_clusters"] for i in uniq.values()) * CLUSTER_SIZE * CLU_TRI_ROWS * 4
+    object_walk = len(insts) >= 2 and uniq_bytes <= CLU_VMEM_MAX_BYTES
+    if gain < min_gain and not object_walk:
+        return None
+    if uniq_bytes > CLU_VMEM_MAX_BYTES:
+        return None
+
+    if clusters.tris is None:
+        # unique local clusters, then one all-degenerate cluster for pad slots
+        blocks: list[np.ndarray] = []
+        for info in uniq.values():
+            rows = _cluster_rows(info["geom"], info["n_clusters"])
+            rows[:info["n"], CLU_OPAC] = 1.0
+            info["cluster_base"] = len(blocks)
+            blocks.extend(rows.reshape(-1, CLUSTER_SIZE, CLU_TRI_ROWS).transpose(0, 2, 1))
+            info["c_lo"], info["c_hi"] = _cluster_boxes(info["geom"], info["n_clusters"])
+        blocks.append(np.zeros((CLU_TRI_ROWS, CLUSTER_SIZE), np.float32))
+        clusters.tris = np.stack(blocks)
+    tris = clusters.tris
+    uc = tris.shape[0] - 1
+    if tris.nbytes > CLU_VMEM_MAX_BYTES:
+        return None
+
+    # level-1 entries: each covers at most L1_FAN clusters of one placement
+    entries = [(inst, c0, min(L1_FAN, uniq[inst["key"]]["n_clusters"] - c0))
+               for inst in insts for c0 in range(0, uniq[inst["key"]]["n_clusters"], L1_FAN)]
+    code = _morton_codes(np.array([e[0]["m_t"] for e in entries], np.float64))
+    entries = [entries[i] for i in np.argsort(code, kind="stable")]
+    n_l1 = len(entries)
+    c_pad = n_l1 * L1_FAN
+    l1 = np.zeros((8, n_l1), np.float32)
+    l2 = np.zeros((8, c_pad), np.float32)
+    l2[0:3] = FLOAT_MAX
+    l2[3:6] = -FLOAT_MAX
+    inst_map = np.full((c_pad,), uc, np.int32)
+    inst_smem = np.zeros((n_l1, 16), np.float32)
+    inst_attr = np.zeros((max(128, -(-n_l1 // 128) * 128), 24), np.float32)
+    corner_bits = np.array([[(b >> k) & 1 for k in range(3)] for b in range(8)], bool)
+    for e, (inst, c0, nc) in enumerate(entries):
+        info = uniq[inst["key"]]
+        lo = info["c_lo"][c0:c0 + nc]
+        hi = info["c_hi"][c0:c0 + nc]
+        # world cluster boxes from the 8 transformed local corners
+        wc = np.where(corner_bits[None], hi[:, None, :], lo[:, None, :]) @ inst["m3"] + inst["m_t"]
+        empty = lo[:, 0] > hi[:, 0]
+        wlo = np.where(empty[:, None], FLOAT_MAX, wc.min(axis=1))
+        whi = np.where(empty[:, None], -FLOAT_MAX, wc.max(axis=1))
+        l2[0:3, e * L1_FAN:e * L1_FAN + nc] = wlo.T
+        l2[3:6, e * L1_FAN:e * L1_FAN + nc] = whi.T
+        l1[0:3, e] = wlo.min(axis=0)
+        l1[3:6, e] = whi.max(axis=0)
+        inst_map[e * L1_FAN:e * L1_FAN + nc] = info["cluster_base"] + c0 + np.arange(nc)
+        a3 = inst["a3"].astype(np.float32).reshape(-1)
+        inst_smem[e, 0:9] = a3
+        inst_smem[e, 9:12] = inst["a_t"]
+        inst_smem[e, 12] = inst["pass"]
+        inst_smem[e, 13] = float(nc)
+        inst_smem[e, 14] = inst["pass"]
+        inst_attr[e, 0:9] = a3
+        inst_attr[e, 9:12] = inst["a_t"]
+        inst_attr[e, 12] = float(inst["mat"])
+        inst_attr[e, 13] = float(inst["obj"])
+        inst_attr[e, 14] = float(e)
+        inst_attr[e, 15] = inst["ds"]
+    arrays = ClusterArrays(tris=tris, l1=l1, l2=l2, inst_smem=inst_smem, inst_map=inst_map,
+                           inst_attr=inst_attr)
+    return arrays, dict(n_tris=flat_tris, n_clusters=uc, n_l1=n_l1, n_instances=len(insts))
+
+
+def build_fused_scene_instanced(mesh_descs, material_index: dict, table: MaterialTable,
+                                light_arrays: LightArrays | None, device,
+                                min_gain: float = MIN_GAIN, min_flat: int = MIN_FLAT,
+                                clusters: UniqueClusters | None = None):
+    """Instanced kernel tables (see instanced_arrays), or None when the
+    scene takes the flattened route."""
+    res = instanced_arrays(mesh_descs, material_index, table, min_gain, min_flat, clusters)
+    if res is None:
+        return None
+    arrays, counts = res
+    light_table, light_types = _light_table(light_arrays)
+    scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
+                            l1=arrays.l1, l2=arrays.l2, inst_map=arrays.inst_map,
+                            inst_attr=arrays.inst_attr)
+    return scene, FusedStatic(light_types=light_types, **counts)
+
+
+def refit_instanced(scene: FusedScene, clusters: UniqueClusters, mesh_descs,
+                    material_index: dict, table: MaterialTable) -> FusedScene | None:
+    """Transform-only refresh of instanced tables built with `clusters`:
+    the instance tables and the TLAS are rebuilt over the cached unique
+    clusters, and the device cluster table is kept. None when the edit
+    took the scene off the instanced route."""
+    res = instanced_arrays(mesh_descs, material_index, table, clusters=clusters)
+    if res is None:
+        return None
+    a, _counts = res
+    return scene._replace(walk=walk_tables(a.l1, a.l2, a.inst_map, a.inst_attr, scene.tris.device))
+
+
+def build_tlas(lo: np.ndarray, hi: np.ndarray, leaf: int = TLAS_LEAF):
+    """Binary BVH over boxes lo, hi [n, 3] (f32): median split of the box
+    centres along their longest extent, at most `leaf` boxes a leaf. Returns
+    nodes [N, 8] f32 (lo xyz, hi xyz, 0, 0), kids [N, 2] int32 (children, or
+    (-1 - first, count) for a leaf over leaf_entries) and leaf_entries [n]
+    int32, node 0 the root."""
+    cent = (lo.astype(np.float64) + hi.astype(np.float64)) * 0.5
+    nodes: list[np.ndarray] = []
+    kids: list[list[int]] = []
+    leaf_entries: list[int] = []
+
+    def build(idx: np.ndarray, depth: int) -> int:
+        if depth > TLAS_MAX_DEPTH:
+            raise ValueError("TLAS deeper than the kernel's traversal stack")
+        k = len(kids)
+        box = np.zeros(8, np.float32)
+        box[0:3] = lo[idx].min(axis=0)
+        box[3:6] = hi[idx].max(axis=0)
+        nodes.append(box)
+        kids.append([0, 0])
+        if len(idx) <= leaf:
+            kids[k] = [-1 - len(leaf_entries), len(idx)]
+            leaf_entries.extend(int(i) for i in idx)
+            return k
+        c = cent[idx]
+        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        srt = idx[np.argsort(c[:, ax], kind="stable")]
+        half = len(idx) // 2
+        a = build(srt[:half], depth + 1)
+        b = build(srt[half:], depth + 1)
+        kids[k] = [a, b]
+        return k
+
+    build(np.arange(lo.shape[0]), 1)
+    return (np.stack(nodes), np.asarray(kids, np.int32), np.asarray(leaf_entries, np.int32))
+
+
+def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
+                inst_attr: np.ndarray | None, device) -> WalkTables:
+    """WalkTables from the JAX layout's l1 [8, n_l1], l2 [8, n_l1 * 16] and,
+    when instanced, inst_map [n_l1 * 16] and inst_attr [lanes, 24]."""
+    n_l1 = l1.shape[1]
+    l1_rows = np.ascontiguousarray(np.asarray(l1, np.float32).T)
+    valid_lo = np.where(l1_rows[:, 0:3] <= 1e30, l1_rows[:, 0:3], FLOAT_MAX)
+    valid_hi = np.where(l1_rows[:, 3:6] >= -1e30, l1_rows[:, 3:6], -FLOAT_MAX)
+    gbox = np.zeros(8, np.float32)
+    gbox[0:3] = valid_lo.min(axis=0)
+    gbox[3:6] = valid_hi.max(axis=0)
+    nodes, kids, leaf_entries = build_tlas(l1_rows[:, 0:3], l1_rows[:, 3:6])
+    if inst_attr is None:
+        cmap = np.arange(n_l1 * L1_FAN, dtype=np.int32)
+        inst = np.zeros((0, INST_COLS), np.float32)
+    else:
+        cmap = np.asarray(inst_map, np.int32)
+        inst = np.asarray(inst_attr, np.float32)[:n_l1, :INST_COLS]
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return WalkTables(l1=t(l1_rows), l2=t(np.asarray(l2, np.float32).T), cmap=t(cmap, torch.int32),
+                      inst=t(inst), nodes=t(nodes), kids=t(kids, torch.int32),
+                      leaf_entries=t(leaf_entries, torch.int32), gbox=t(gbox))
 
 
 def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
-                    light_types: tuple[int, ...], device) -> FusedScene:
-    """The JAX package's FusedScene arrays (resident tris [32, T]) as NumPy
-    -> the port's device tables."""
-    return to_device_tables(np.asarray(tris).T, mats, lights, light_types, device)
+                    light_types: tuple[int, ...], device, l1: np.ndarray | None = None,
+                    l2: np.ndarray | None = None, inst_map: np.ndarray | None = None,
+                    inst_attr: np.ndarray | None = None) -> FusedScene:
+    """The JAX package's FusedScene arrays as NumPy -> the port's device
+    tables: resident tris [32, T], or clustered tris [C_pad, 40, 128] with
+    l1 and l2 and, when instanced, inst_map and inst_attr (the JAX
+    inst_smem and inst_m24 are not needed)."""
+    tris = np.asarray(tris, np.float32)
+    walk = None
+    if l1 is None:
+        rows = tris.T  # [T, 32]
+    else:
+        rows = tris.transpose(0, 2, 1).reshape(-1, tris.shape[1])  # [C * 128, 40]
+        walk = walk_tables(l1, l2, inst_map, inst_attr, device)
+
+    def t(a):
+        return torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
+
+    return FusedScene(tris=t(rows), mats=t(mats), lights=t(lights),
+                      light_types=torch.as_tensor(np.asarray(light_types, np.int8),
+                                                  device=device),
+                      walk=walk)
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +765,7 @@ def make_params(config, uniforms, bounces: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: build, load, launch
+# the CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
 def _nvcc() -> str:
@@ -338,16 +773,22 @@ def _nvcc() -> str:
                  shutil.which("nvcc") or ""):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the bounce kernel is built from "
+    raise RuntimeError("nvcc not found: the bounce kernels are built from "
                        "csrc/bounce.cu at first use (set CUDA_HOME)")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"bounce kernel: {name} must be a contiguous CUDA {dtype} tensor, "
+                         f"got {t.device} {t.dtype}")
 
 
 class BounceKernel:
     """csrc/bounce.cu built into a shared library and loaded with ctypes.
 
     Built with -fmad=false: no contraction of a*b+c into a fused
-    multiply-add, so the kernel rounds like its twin and agrees with it on
-    every ray. Contraction is about 8 % faster per launch on an H100 but
+    multiply-add, so the kernels round like their twin and agree with it
+    on every ray. Contraction is about 8 % faster per launch on an H100 but
     moves a few rays per 2.88M off the twin's path (PERF.md, Findings)."""
 
     def __init__(self) -> None:
@@ -370,49 +811,84 @@ class BounceKernel:
             self.build_seconds = time.perf_counter() - t0
             self.ptxas_log = res.stderr
         lib = ctypes.CDLL(str(self.path))
-        fn = lib.gatling_bounce_step
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        self._fn = fn
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        self._resident = lib.gatling_bounce_step
+        self._resident.restype = i32
+        self._resident.argtypes = [ptr, ptr, i32, ptr, i32, ptr, ptr, i32, ptr, i64, i32, ptr]
+        self._walk = lib.gatling_bounce_walk
+        self._walk.restype = i32
+        self._walk.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                               ptr, i32, ptr, ptr, i32, ptr, i64, i32, ptr]
         self._err = lib.gatling_error_string
         self._err.restype = ctypes.c_char_p
         self._err.argtypes = [ctypes.c_int]
 
-    def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
-        for name, t, dt in (("params", params, torch.float32), ("tris", tris, torch.float32),
-                            ("mats", mats, torch.float32), ("lights", lights, torch.float32),
+    @staticmethod
+    def _check_common(params, mats, lights, light_types, state) -> None:
+        for name, t, dt in (("params", params, torch.float32), ("mats", mats, torch.float32),
+                            ("lights", lights, torch.float32),
                             ("light_types", light_types, torch.int8),
                             ("state", state, torch.float32)):
-            if not t.is_cuda or t.dtype != dt or not t.is_contiguous():
-                raise ValueError(f"bounce kernel: {name} must be a contiguous CUDA "
-                                 f"{dt} tensor, got {t.device} {t.dtype}")
+            _check(name, t, dt)
         if params.numel() != PARAMS_LEN or state.dim() != 2 or state.shape[0] != STATE_ROWS \
-                or (tris.numel() and tris.shape[1] != TRI_ROWS) or mats.shape[1] != 30 \
-                or lights.shape[1] != LIGHT_COLS or light_types.numel() > lights.shape[0]:
+                or mats.shape[1] != 30 or lights.shape[1] != LIGHT_COLS \
+                or light_types.numel() > lights.shape[0]:
             raise ValueError("bounce kernel: table or state shape mismatch")
         table_bytes = 4 * (mats.numel() + lights.numel())
         if table_bytes > SMEM_TABLE_MAX_BYTES:
             raise ValueError(f"bounce kernel: materials + lights take {table_bytes} B, "
                              f"above the {SMEM_TABLE_MAX_BYTES} B shared-memory budget")
-        rc = self._fn(params.data_ptr(), tris.data_ptr(), tris.shape[0],
-                      mats.data_ptr(), mats.shape[0], lights.data_ptr(),
-                      light_types.data_ptr(), light_types.numel(), state.data_ptr(),
-                      state.shape[1], int(bool(nee)),
-                      torch.cuda.current_stream(state.device).cuda_stream)
+
+    def _raise(self, rc: int, what: str) -> None:
         if rc != 0:
-            raise RuntimeError(f"bounce kernel launch failed: {self._err(rc).decode()}")
+            raise RuntimeError(f"{what} launch failed: {self._err(rc).decode()}")
+
+    def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
+        """K1: one bounce over a resident table tris [T, 32]."""
+        self._check_common(params, mats, lights, light_types, state)
+        _check("tris", tris, torch.float32)
+        if tris.numel() and tris.shape[1] != TRI_ROWS:
+            raise ValueError("bounce kernel: resident tris must be [T, 32]")
+        rc = self._resident(params.data_ptr(), tris.data_ptr(), tris.shape[0],
+                            mats.data_ptr(), mats.shape[0], lights.data_ptr(),
+                            light_types.data_ptr(), light_types.numel(), state.data_ptr(),
+                            state.shape[1], int(bool(nee)),
+                            torch.cuda.current_stream(state.device).cuda_stream)
+        self._raise(rc, "bounce kernel (resident)")
+
+    def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
+                    nee: bool) -> None:
+        """K2: one bounce over clustered tris [C * 128, 40] and their walk."""
+        self._check_common(params, mats, lights, light_types, state)
+        for name, t in zip(WalkTables._fields, walk):
+            _check(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries")
+                   else torch.float32)
+        _check("tris", tris, torch.float32)
+        n_l1 = walk.l1.shape[0]
+        if tris.dim() != 2 or tris.shape[1] != CLU_TRI_ROWS or tris.shape[0] % CLUSTER_SIZE \
+                or walk.l2.shape[0] != n_l1 * L1_FAN or walk.cmap.numel() != n_l1 * L1_FAN \
+                or walk.inst.shape[0] not in (0, n_l1) or walk.gbox.numel() != 8 \
+                or walk.leaf_entries.numel() != n_l1:
+            raise ValueError("bounce kernel: walk table shape mismatch")
+        rc = self._walk(params.data_ptr(), tris.data_ptr(), walk.l1.data_ptr(),
+                        walk.l2.data_ptr(), walk.cmap.data_ptr(), walk.inst.data_ptr(),
+                        walk.nodes.data_ptr(), walk.kids.data_ptr(),
+                        walk.leaf_entries.data_ptr(), walk.gbox.data_ptr(),
+                        int(walk.instanced), mats.data_ptr(), mats.shape[0],
+                        lights.data_ptr(), light_types.data_ptr(), light_types.numel(),
+                        state.data_ptr(), state.shape[1], int(bool(nee)),
+                        torch.cuda.current_stream(state.device).cuda_stream)
+        self._raise(rc, "bounce kernel (walk)")
 
 
 _kernel: BounceKernel | None = None
-# kernel launches made by bounce_step on CUDA tensors (chip_smoke.py reads it)
-launches = 0
+# kernel launches made by bounce_step on CUDA tensors, by kernel
+# (chip_smoke.py reads them): K1 resident, K2 the two-level walk
+launches = {"K1": 0, "K2": 0}
 
 
 def kernel() -> BounceKernel:
-    """The kernel's build, made at first use."""
+    """The kernels' build, made at first use."""
     global _kernel
     if _kernel is None:
         _kernel = BounceKernel()
@@ -420,13 +896,25 @@ def kernel() -> BounceKernel:
 
 
 def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool) -> None:
-    global launches
     kernel().launch(params, tris, mats, lights, light_types, state, nee)
-    launches += 1
+    launches["K1"] += 1
 
 
 def _bounce_cpu(params, tris, mats, lights, light_types, state, nee: bool) -> None:
     bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee)
+
+
+def _walk_cuda(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
+               leaf_entries, gbox, state, nee: bool) -> None:
+    walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
+    kernel().launch_walk(params, tris, mats, lights, light_types, walk, state, nee)
+    launches["K2"] += 1
+
+
+def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
+              leaf_entries, gbox, state, nee: bool) -> None:
+    walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
+    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk)
 
 
 _lib = torch.library.Library("gatling", "DEF")
@@ -434,11 +922,22 @@ _lib.define("bounce_step(Tensor params, Tensor tris, Tensor mats, Tensor lights,
             "Tensor light_types, Tensor(a!) state, bool nee) -> ()")
 _lib.impl("bounce_step", _bounce_cuda, "CUDA")
 _lib.impl("bounce_step", _bounce_cpu, "CPU")
+_lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
+            "Tensor light_types, Tensor l1, Tensor l2, Tensor cmap, Tensor inst, "
+            "Tensor nodes, Tensor kids, Tensor leaf_entries, Tensor gbox, Tensor(a!) state, "
+            "bool nee) -> ()")
+_lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
+_lib.impl("bounce_step_walk", _walk_cpu, "CPU")
 
 
 def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
                 nee: bool) -> None:
-    """One fused bounce over state [16, R], in place: the CUDA kernel for a
-    CUDA state, the plain twin for a CPU state."""
-    torch.ops.gatling.bounce_step(params, scene.tris, scene.mats, scene.lights,
-                                  scene.light_types, state, bool(nee))
+    """One fused bounce over state [16, R], in place: K1 for a resident
+    scene, K2 for a clustered or instanced one, on a CUDA state; the plain
+    twin on a CPU state."""
+    if scene.walk is None:
+        torch.ops.gatling.bounce_step(params, scene.tris, scene.mats, scene.lights,
+                                      scene.light_types, state, bool(nee))
+    else:
+        torch.ops.gatling.bounce_step_walk(params, scene.tris, scene.mats, scene.lights,
+                                           scene.light_types, *scene.walk, state, bool(nee))

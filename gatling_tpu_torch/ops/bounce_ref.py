@@ -1,26 +1,41 @@
-"""Plain PyTorch twin of the fused bounce kernel (csrc/bounce.cu).
+"""Plain PyTorch twin of the fused bounce kernels (csrc/bounce.cu).
 
 One path-tracing bounce over the whole ray state, written with ordinary
-tensor operations: vectorized over rays, looping over the triangle table
-in chunks. It computes what the JAX package's resident `bounce_step`
-(ops/pallas_bounce.py `_bounce_body` + `_shade_core`, flags cutout,
-volumes, scatter, advanced and tangents all off) computes, in the same
-order of float operations, so the two agree to rounding. The tests hold it
-against the JAX kernel; chip_smoke.py holds the CUDA kernel against it on
-the card; the CLI's `--device cpu` renders with it.
+tensor operations, vectorized over rays. It computes what the JAX
+package's `bounce_step` (ops/pallas_bounce.py `_bounce_body` +
+`_shade_core`, flags cutout, volumes, scatter, advanced and tangents all
+off) computes, in the same order of float operations, so the two agree to
+rounding. Two closest-hit searches feed the same shading:
 
-Layouts shared with the kernel:
+* resident (K1): every ray against the whole triangle table, in chunks;
+* clustered and instanced (K2, `walk` given): the two-level walk of
+  `_trace_clustered_matrix` / `_trace_clustered_occluded`. Rays are
+  slab-tested against the level-1 entry boxes, then the entry's cluster
+  boxes, then the cluster's 128 triangles. Winners are selected in f32
+  with the pass-1 formulas, ties on equal t going to the lower global
+  triangle index (cluster * 128 + lane), and the winner's t, u, v are
+  recomputed with pass 2's division form.
+
+The tests hold it against the JAX kernel; chip_smoke.py holds the CUDA
+kernels against it on the card; the CLI's `--device cpu` renders with it.
+
+Layouts shared with the kernels:
 * state [16, R] f32: rows 0-2 origin, 3-5 dir, 6-8 throughput,
   9-11 radiance, 12 rng (uint32 bits), 13 alive, 14 miss record
   (1 + bounce at which the ray missed), 15 traced-segment count;
-* tris [T, 32] f32, triangle-major: Baldwin-Weber plane and barycentric
-  rows plus shading attributes (TR_* columns);
+* resident tris [T, 32] f32, triangle-major: Baldwin-Weber plane and
+  barycentric rows plus shading attributes (TR_* columns);
+* clustered tris [C * 128, 40] f32: 128-triangle clusters, triangle-major
+  rows in the CLU_* layout (the JAX package's [C, 40, 128] transposed);
 * mats [M, 30] f32 packed material rows; lights [max(L,1), 20] f32 with
   a type-major slot order (LT_* per slot);
-* params [11] f32 (P_* entries).
+* params [11] f32 (P_* entries);
+* WalkTables for the clustered and instanced walks.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +61,71 @@ TR_MAT = 24
 TR_DS = 25
 TR_UV = 26    # 26-31: uv0.xy uv1.xy uv2.xy
 TRI_ROWS = 32
+
+# clustered layout (pallas_bounce.py CLU_*): a permutation of the TR_*
+# columns in which each Baldwin-Weber quad (n d0 | r1 c1 | r2 c2) starts at
+# a multiple of 8, the attributes filling the gaps
+CLUSTER_SIZE = 128
+L1_FAN = 16  # clusters per level-1 entry
+CLU_N = 0     # 0-2 n, 3 d0 | 4-6 gn, 7 mat
+CLU_GN = 4
+CLU_MAT = 7
+CLU_R1 = 8    # 8-10 r1, 11 c1 | 12-14 n0, 15 dsided
+CLU_N0 = 12
+CLU_DS = 15
+CLU_R2 = 16   # 16-18 r2, 19 c2 | 20-22 n1
+CLU_N1 = 20
+CLU_N2 = 24   # 24-26 n2
+CLU_UV = 28   # 28-33 uv0.xy uv1.xy uv2.xy
+CLU_OPAC = 34     # cutout pass probability, camera walk (1 = opaque)
+CLU_OPAC_SH = 35  # cutout pass probability, shadow walk
+CLU_TRI_ROWS = 40
+CLU_ROW_MAP = (  # (TR_* column, CLU_* column)
+    (TR_N, CLU_N), (TR_N + 1, CLU_N + 1), (TR_N + 2, CLU_N + 2), (TR_D0, CLU_N + 3),
+    (TR_R1, CLU_R1), (TR_R1 + 1, CLU_R1 + 1), (TR_R1 + 2, CLU_R1 + 2), (TR_R1 + 3, CLU_R1 + 3),
+    (TR_R2, CLU_R2), (TR_R2 + 1, CLU_R2 + 1), (TR_R2 + 2, CLU_R2 + 2), (TR_R2 + 3, CLU_R2 + 3),
+    (TR_GN, CLU_GN), (TR_GN + 1, CLU_GN + 1), (TR_GN + 2, CLU_GN + 2), (TR_MAT, CLU_MAT),
+    (TR_N0, CLU_N0), (TR_N0 + 1, CLU_N0 + 1), (TR_N0 + 2, CLU_N0 + 2), (TR_DS, CLU_DS),
+    (TR_N1, CLU_N1), (TR_N1 + 1, CLU_N1 + 1), (TR_N1 + 2, CLU_N1 + 2),
+    (TR_N2, CLU_N2), (TR_N2 + 1, CLU_N2 + 1), (TR_N2 + 2, CLU_N2 + 2),
+    (TR_UV, CLU_UV), (TR_UV + 1, CLU_UV + 1), (TR_UV + 2, CLU_UV + 2),
+    (TR_UV + 3, CLU_UV + 3), (TR_UV + 4, CLU_UV + 4), (TR_UV + 5, CLU_UV + 5),
+)
+# the pass-1 test columns: the three quads
+_CLU_TEST_COLS = (CLU_N, CLU_N + 1, CLU_N + 2, CLU_N + 3, CLU_R1, CLU_R1 + 1, CLU_R1 + 2,
+                  CLU_R1 + 3, CLU_R2, CLU_R2 + 1, CLU_R2 + 2, CLU_R2 + 3)
+
+# per-entry instance rows (the first 16 columns of the JAX inst_attr)
+INST_A3 = 0    # 0-8: world->local A3[j, i] at 3j+i
+INST_AT = 9    # 9-11: world->local translation a_t
+INST_MAT = 12
+INST_OBJ = 13
+INST_ENTRY = 14
+INST_DS = 15
+INST_COLS = 16
+
+
+class WalkTables(NamedTuple):
+    """Tables of the two-level walk (K2). Boxes are rows (lo xyz, hi xyz,
+    0, 0); an empty box has lo > hi and holds no triangle.
+
+    The TLAS is a binary BVH over the level-1 entry boxes: node k is
+    internal when kids[k, 0] >= 0 (children kids[k]) and a leaf otherwise,
+    holding entries leaf_entries[-1 - kids[k, 0]:][:kids[k, 1]]."""
+
+    l1: torch.Tensor            # [n_l1, 8] f32 entry world boxes
+    l2: torch.Tensor            # [n_l1 * 16, 8] f32 fan-slot cluster world boxes
+    cmap: torch.Tensor          # [n_l1 * 16] int32 fan slot -> cluster of tris
+    inst: torch.Tensor          # [n_l1, 16] f32 INST_* rows; [0, 16] when flattened
+    nodes: torch.Tensor         # [N, 8] f32 TLAS node boxes
+    kids: torch.Tensor          # [N, 2] int32
+    leaf_entries: torch.Tensor  # [n_l1] int32
+    gbox: torch.Tensor          # [8] f32 scene box
+
+    @property
+    def instanced(self) -> bool:
+        return self.inst.shape[0] > 0
+
 
 LIGHT_COLS = 20
 LT_SPHERE, LT_DISTANT, LT_RECT, LT_DISK = 0, 1, 2, 3
@@ -127,6 +207,228 @@ def occluded(tris: torch.Tensor, o, d, dist: torch.Tensor) -> torch.Tensor:
         tt, _u, _v, ok = _tri_test(tris[c0:c0 + TRI_CHUNK], o, d, SHADOW_TMIN)
         occ = occ | (ok & (tt < dist[:, None])).any(dim=1)
     return occ
+
+
+# ---------------------------------------------------------------------------
+# the two-level walk (K2)
+# ---------------------------------------------------------------------------
+
+WALK_ENTRIES = 16   # level-1 entries slab-tested in one pass
+WALK_PAIRS = 65536  # (ray, cluster) pairs triangle-tested in one pass
+_NO_HIT = torch.iinfo(torch.int64).max
+
+
+def _safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """1/d with |d| clamped to 1e-20 (pallas_bounce.py _safe_inv)."""
+    tiny = torch.abs(d) < 1e-20
+    return 1.0 / _where(tiny, _where(d >= 0.0, 1e-20, -1e-20), d)
+
+
+def _slab(box: torch.Tensor, o, iv, tmin, tcap) -> torch.Tensor:
+    """Slab test (pallas_bounce.py _slab_test) of boxes [..., 8] against
+    rays o, iv [..., 3] over [tmin, tcap], broadcast."""
+    t0 = (box[..., 0:3] - o) * iv
+    t1 = (box[..., 3:6] - o) * iv
+    tn = torch.minimum(t0, t1)
+    tx = torch.maximum(t0, t1)
+    tenter = torch.maximum(torch.maximum(tn[..., 0], tn[..., 1]), torch.maximum(tn[..., 2], tmin))
+    texit = torch.minimum(torch.minimum(tx[..., 0], tx[..., 1]), torch.minimum(tx[..., 2], tcap))
+    return tenter <= texit
+
+
+def _to_local(a: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """World rays [P, 3] into the frames of instance rows a [P, 16]:
+    o_l = o A3 + a_t, d_l = d A3, in pass 2's expression order."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    ol = torch.stack([ox * a[:, 0] + oy * a[:, 3] + oz * a[:, 6] + a[:, 9],
+                      ox * a[:, 1] + oy * a[:, 4] + oz * a[:, 7] + a[:, 10],
+                      ox * a[:, 2] + oy * a[:, 5] + oz * a[:, 8] + a[:, 11]], -1)
+    dl = torch.stack([dx * a[:, 0] + dy * a[:, 3] + dz * a[:, 6],
+                      dx * a[:, 1] + dy * a[:, 4] + dz * a[:, 7],
+                      dx * a[:, 2] + dy * a[:, 5] + dz * a[:, 8]], -1)
+    return ol, dl
+
+
+def _test_rows(tris: torch.Tensor) -> torch.Tensor:
+    """[C * 128, 40] clustered tris -> [C, 128, 12] pass-1 quads."""
+    cols = torch.tensor(_CLU_TEST_COLS, device=tris.device)
+    return tris.reshape(-1, CLUSTER_SIZE, CLU_TRI_ROWS).index_select(2, cols)
+
+
+def _candidates(walk: WalkTables, o, iv, rays, e0: int, e1: int, tmin, tcap):
+    """(ray, fan slot, entry) triples of entries [e0, e1) whose entry box
+    and non-empty cluster box the segment [tmin, tcap] of ray `rays` crosses."""
+    l1 = walk.l1[e0:e1]
+    m1 = _slab(l1, o[rays][:, None], iv[rays][:, None], tmin[rays][:, None], tcap[rays][:, None])
+    pi, pe = m1.nonzero(as_tuple=True)
+    ray, ent = rays[pi], pe + e0
+    slot = ent[:, None] * L1_FAN + torch.arange(L1_FAN, device=rays.device)
+    box = walk.l2[slot]
+    m2 = _slab(box, o[ray][:, None], iv[ray][:, None], tmin[ray][:, None], tcap[ray][:, None])
+    m2 = m2 & (box[..., 0] <= box[..., 3])
+    qi, qb = m2.nonzero(as_tuple=True)
+    return ray[qi], slot[qi, qb], ent[qi]
+
+
+def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap):
+    """Pass-1 Baldwin-Weber test (pallas_bounce.py :1649-1656, in f32) of
+    each (ray, cluster) pair against the cluster's 128 triangles; returns
+    tt and the validity mask, both [P, 128]."""
+    q = rows[walk.cmap[slot].long()].unbind(-1)  # 12 x [P, 128]
+    po, pd = o[ray], d[ray]
+    if walk.instanced:
+        po, pd = _to_local(walk.inst[ent], po, pd)
+    ox, oy, oz = (x[:, None] for x in po.unbind(-1))
+    dx, dy, dz = (x[:, None] for x in pd.unbind(-1))
+    nd = q[0] * dx + q[1] * dy + q[2] * dz
+    ok = torch.abs(nd) > 1e-12
+    inv = _where(ok, 1.0 / _where(ok, nd, 1.0), 0.0)
+    tt = -(q[0] * ox + q[1] * oy + q[2] * oz + q[3]) * inv
+    u = (q[4] * ox + q[5] * oy + q[6] * oz + q[7]) + tt * (q[4] * dx + q[5] * dy + q[6] * dz)
+    v = (q[8] * ox + q[9] * oy + q[10] * oz + q[11]) + tt * (q[8] * dx + q[9] * dy + q[10] * dz)
+    ok = (ok & (u >= _EPS_LO) & (v >= _EPS_LO) & (u + v <= _EPS_HI)
+          & (tt > tmin[ray][:, None]) & (tt < tcap[ray][:, None]))
+    return tt, ok
+
+
+def _scene_cap(walk: WalkTables, o: torch.Tensor, iv: torch.Tensor) -> torch.Tensor:
+    """Per-ray closest-hit cap: the scene box's slab exit, widened
+    (pallas_bounce.py :1555-1560)."""
+    gb = walk.gbox
+    ex = [torch.maximum((gb[a] - o[:, a]) * iv[:, a], (gb[3 + a] - o[:, a]) * iv[:, a])
+          for a in range(3)]
+    t_exit = torch.minimum(torch.minimum(ex[0], ex[1]), ex[2])
+    return torch.clamp(t_exit, min=0.0) * 1.0001 + 1e-3
+
+
+def _key_t(key: torch.Tensor) -> torch.Tensor:
+    """t of a (t bits << 32 | triangle) key; FLOAT_MAX for no hit."""
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    return _where(key != _NO_HIT, t, _FMAX)
+
+
+def walk_closest(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                 alive: torch.Tensor, tmin: float) -> torch.Tensor:
+    """Closest hit of the alive rays (o, d [R, 3]) over the two-level walk:
+    the global triangle index (fan slot * 128 + lane) of the smallest
+    valid t, ties to the lower index, or -1."""
+    if tmin < 0.0:
+        raise ValueError("the walk's hit keys order t by its bits: tmin must be >= 0")
+    r = o.shape[0]
+    iv = _safe_inv(d)
+    cap = _scene_cap(walk, o, iv)
+    tmin_r = torch.full((r,), tmin, dtype=torch.float32, device=o.device)
+    best = torch.full((r,), _NO_HIT, dtype=torch.int64, device=o.device)
+    rows = _test_rows(tris)
+    lanes = torch.arange(CLUSTER_SIZE, device=o.device)
+    rays = alive.nonzero()[:, 0]
+    for e0 in range(0, walk.l1.shape[0], WALK_ENTRIES):
+        run = torch.minimum(cap, _key_t(best))  # prunes boxes behind the best hit
+        ray, slot, ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin_r, run)
+        for p0 in range(0, ray.numel(), WALK_PAIRS):
+            sl = slice(p0, p0 + WALK_PAIRS)
+            tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin_r, cap)
+            gid = slot[sl, None] * CLUSTER_SIZE + lanes
+            key = _where(ok, (tt.view(torch.int32).to(torch.int64) << 32) | gid, _NO_HIT)
+            best.scatter_reduce_(0, ray[sl], key.amin(dim=1), "amin")
+    return _where(best != _NO_HIT, best & 0xFFFFFFFF, -1)
+
+
+def walk_occluded(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                  dist: torch.Tensor) -> torch.Tensor:
+    """Any-hit walk (pallas_bounce.py _trace_clustered_occluded): a valid
+    triangle at SHADOW_TMIN < t < dist on each ray (o, d [n, 3])."""
+    n = o.shape[0]
+    iv = _safe_inv(d)
+    tmin = torch.full((n,), SHADOW_TMIN, dtype=torch.float32, device=o.device)
+    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    rows = _test_rows(tris)
+    for e0 in range(0, walk.l1.shape[0], WALK_ENTRIES):
+        rays = (~occ).nonzero()[:, 0]
+        if not rays.numel():
+            break
+        ray, slot, ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin, dist)
+        for p0 in range(0, ray.numel(), WALK_PAIRS):
+            sl = slice(p0, p0 + WALK_PAIRS)
+            _tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin, dist)
+            occ.index_fill_(0, ray[sl][ok.any(dim=1)], True)
+    return occ
+
+
+def walk_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+              tmin: float, t_hit: torch.Tensor) -> tuple[int, int]:
+    """(level-1 entry boxes, cluster boxes) that the alive rays enter
+    between tmin and their hit t_hit (FLOAT_MAX on a miss: then up to the
+    scene cap): the fans a closest-hit walk over these tables must
+    slab-test and the clusters whose 128 triangles it must test, whatever
+    its order. The work count of K2's bound."""
+    iv = _safe_inv(d)
+    tcap = torch.minimum(_scene_cap(walk, o, iv), t_hit)
+    tmin_r = torch.full_like(tcap, tmin)
+    rays = alive.nonzero()[:, 0]
+    n_entries = n_clusters = 0
+    for e0 in range(0, walk.l1.shape[0], WALK_ENTRIES):
+        m1 = _slab(walk.l1[e0:e0 + WALK_ENTRIES], o[rays][:, None], iv[rays][:, None],
+                   tmin_r[rays][:, None], tcap[rays][:, None])
+        n_entries += int(m1.sum())
+        ray, _slot, _ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin_r, tcap)
+        n_clusters += ray.numel()
+    return n_entries, n_clusters
+
+
+def walk_hit_attrs(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
+                   win: torch.Tensor):
+    """Pass 2 (pallas_bounce.py :1882-1982): the winner's t, u, v
+    recomputed in f32 with the division form, and its attributes. An
+    instanced winner takes its normals as covectors through A3 and its
+    material and double-sided flag from the instance row. Returns (t, u,
+    v, gn, n0, n1, n2, mat_f, dsided), vectors as 3-tuples; t is FLOAT_MAX
+    and the rest 0 where win < 0."""
+    hit = win >= 0
+    w = win.clamp(min=0)
+    slot = w // CLUSTER_SIZE
+    row = tris[walk.cmap[slot].long() * CLUSTER_SIZE + w % CLUSTER_SIZE]
+    c = row.unbind(-1)
+    if walk.instanced:
+        a = walk.inst[slot // L1_FAN]
+        ol, dl = _to_local(a, o, d)
+    else:
+        ol, dl = o, d
+    ox, oy, oz = ol.unbind(-1)
+    dx, dy, dz = dl.unbind(-1)
+    ndw = c[CLU_N] * dx + c[CLU_N + 1] * dy + c[CLU_N + 2] * dz
+    pw = c[CLU_N] * ox + c[CLU_N + 1] * oy + c[CLU_N + 2] * oz + c[CLU_N + 3]
+    nd_safe = _where(torch.abs(ndw) > 1e-20, ndw, _where(ndw >= 0.0, 1e-20, -1e-20))
+    t = _where(hit, -pw / nd_safe, _FMAX)
+    px, py, pz = ox + t * dx, oy + t * dy, oz + t * dz
+    u = c[CLU_R1] * px + c[CLU_R1 + 1] * py + c[CLU_R1 + 2] * pz + c[CLU_R1 + 3]
+    v = c[CLU_R2] * px + c[CLU_R2 + 1] * py + c[CLU_R2 + 2] * pz + c[CLU_R2 + 3]
+
+    def vec(r0):
+        return c[r0], c[r0 + 1], c[r0 + 2]
+
+    if walk.instanced:
+        def covec(r0):  # n_w = n_l A3^T
+            nx, ny, nz = vec(r0)
+            return (nx * a[:, 0] + ny * a[:, 1] + nz * a[:, 2],
+                    nx * a[:, 3] + ny * a[:, 4] + nz * a[:, 5],
+                    nx * a[:, 6] + ny * a[:, 7] + nz * a[:, 8])
+
+        gx, gy, gz = covec(CLU_GN)
+        glen = 1.0 / torch.sqrt(torch.clamp(gx * gx + gy * gy + gz * gz, min=1e-20))
+        gn = (gx * glen, gy * glen, gz * glen)
+        n0, n1, n2 = covec(CLU_N0), covec(CLU_N1), covec(CLU_N2)
+        mat_f, dsided = a[:, INST_MAT], a[:, INST_DS]
+    else:
+        gn, n0, n1, n2 = vec(CLU_GN), vec(CLU_N0), vec(CLU_N1), vec(CLU_N2)
+        mat_f, dsided = c[CLU_MAT], c[CLU_DS]
+
+    def keep(x):
+        return _where(hit, x, 0.0)
+
+    gn, n0, n1, n2 = (tuple(keep(x) for x in vv) for vv in (gn, n0, n1, n2))
+    return t, keep(u), keep(v), gn, n0, n1, n2, keep(mat_f), keep(dsided)
 
 
 def sample_lights(lights: torch.Tensor, light_types: tuple[int, ...],
@@ -247,8 +549,9 @@ def area_num(area: float, cosl: torch.Tensor) -> torch.Tensor:
 
 def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
                lights: torch.Tensor, light_types: tuple[int, ...],
-               state: torch.Tensor, nee: bool) -> None:
-    """One bounce over state [16, R], updated in place."""
+               state: torch.Tensor, nee: bool, walk: WalkTables | None = None) -> None:
+    """One bounce over state [16, R], updated in place: resident tris
+    [T, 32] without `walk`, clustered tris [C * 128, 40] with it."""
     p = [f32(x) for x in params.tolist()]
     s = state
     ox, oy, oz = s[0], s[1], s[2]
@@ -260,16 +563,32 @@ def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
     bounce = p[P_BOUNCE]
 
     # ---- closest hit ----
-    best_t, u, v, win = closest_hit(tris, (ox, oy, oz), (dx, dy, dz), p[P_TMIN])
-    hit = alive & (best_t < _FMAX)
-    miss = alive & ~hit
-    if tris.shape[0]:
-        attrs = _where((win >= 0)[:, None], tris[win.clamp(min=0)], 0.0)
+    if walk is None:
+        best_t, u, v, win = closest_hit(tris, (ox, oy, oz), (dx, dy, dz), p[P_TMIN])
+        hit = alive & (best_t < _FMAX)
+        if tris.shape[0]:
+            attrs = _where((win >= 0)[:, None], tris[win.clamp(min=0)], 0.0)
+        else:
+            attrs = torch.zeros((win.shape[0], TRI_ROWS), dtype=torch.float32,
+                                device=win.device)
+        gn, n0, n1, n2 = ((attrs[:, c], attrs[:, c + 1], attrs[:, c + 2])
+                          for c in (TR_GN, TR_N0, TR_N1, TR_N2))
+        mat_f, dsided = attrs[:, TR_MAT], attrs[:, TR_DS]
+
+        def occluded_fn(o, d, dist):
+            return occluded(tris, o, d, dist)
     else:
-        attrs = torch.zeros((win.shape[0], TRI_ROWS), dtype=torch.float32,
-                            device=win.device)
-    gnx, gny, gnz = attrs[:, TR_GN], attrs[:, TR_GN + 1], attrs[:, TR_GN + 2]
-    mat_f, dsided = attrs[:, TR_MAT], attrs[:, TR_DS]
+        o3 = torch.stack([ox, oy, oz], 1)
+        d3 = torch.stack([dx, dy, dz], 1)
+        win = walk_closest(walk, tris, o3, d3, alive, p[P_TMIN])
+        # best_t caps at FLOAT_MAX on a miss; the hit flag is the winner
+        hit = alive & (win >= 0)
+        best_t, u, v, gn, n0, n1, n2, mat_f, dsided = walk_hit_attrs(walk, tris, o3, d3, win)
+
+        def occluded_fn(o, d, dist):
+            return walk_occluded(walk, tris, torch.stack(o, 1), torch.stack(d, 1), dist)
+    miss = alive & ~hit
+    gnx, gny, gnz = gn
 
     # ---- miss: constant background (dome radiance is not ported) ----
     radx = radx + _where(miss, tpx * p[P_BG_R], 0.0)
@@ -282,9 +601,7 @@ def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
     posy = oy + best_t * dy
     posz = oz + best_t * dz
     w = 1.0 - u - v
-    nx = w * attrs[:, TR_N0] + u * attrs[:, TR_N1] + v * attrs[:, TR_N2]
-    ny = w * attrs[:, TR_N0 + 1] + u * attrs[:, TR_N1 + 1] + v * attrs[:, TR_N2 + 1]
-    nz = w * attrs[:, TR_N0 + 2] + u * attrs[:, TR_N1 + 2] + v * attrs[:, TR_N2 + 2]
+    nx, ny, nz = (w * n0[c] + u * n1[c] + v * n2[c] for c in range(3))
     nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
     nx, ny, nz = nx * nlen, ny * nlen, nz * nlen
     front = (gnx * -dx + gny * -dy + gnz * -dz) >= 0.0
@@ -465,8 +782,8 @@ def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
             occ = torch.zeros_like(do_trace)
             idx = do_trace.nonzero()[:, 0]
             if idx.numel():
-                occ[idx] = occluded(tris, (ox[idx], oy[idx], oz[idx]),
-                                    (ldx[idx], ldy[idx], ldz[idx]), ldist[idx])
+                occ[idx] = occluded_fn((ox[idx], oy[idx], oz[idx]),
+                                       (ldx[idx], ldy[idx], ldz[idx]), ldist[idx])
             add = do_trace & ~occ
             radx = radx + _where(add, c[0], 0.0)
             rady = rady + _where(add, c[1], 0.0)

@@ -102,27 +102,60 @@ _CHUNK_KEYS = _VEC3_KEYS + ("uv0", "uv1", "uv2", "mat", "obj", "face",
                             "inst", "flags")
 
 
-def build_geometry(mesh_descs, material_index: dict[str | None, int]) -> SceneGeometry:
-    """Flatten MeshDescs (scene.stage) into one world-space SceneGeometry.
+class GeomCache:
+    """Host mirror of the soup for transform edits: the padded component
+    arrays (world positions in float64) and, per placement, (mesh desc,
+    index among its transforms, first triangle, triangle count). A
+    transform edit re-transforms only that placement's slice (the
+    reference's instance-array-only TLAS rebuild, Gi.cpp:1188-1202)."""
 
-    `material_index` maps material prim path (or None) -> material table row
-    (the reference's SBT hitGroupIndex = matIdx * 2, Gi.cpp:1195).
-    """
+    def __init__(self, arrays: dict[str, np.ndarray],
+                 instances: list[tuple[object, int, int, int]]) -> None:
+        self.arrays = arrays
+        self.instances = instances
+
+
+def _geom_from_arrays(cat: dict[str, np.ndarray]) -> SceneGeometry:
+    def f32(k):
+        return cat[k].astype(np.float32)
+
+    def i32(k):
+        return cat[k].astype(np.int32)
+
+    return SceneGeometry(
+        v0=f32("p0"),
+        e1=(cat["p1"] - cat["p0"]).astype(np.float32),
+        e2=(cat["p2"] - cat["p0"]).astype(np.float32),
+        n0=f32("n0"), n1=f32("n1"), n2=f32("n2"),
+        t0=f32("t0"), t1=f32("t1"), t2=f32("t2"),
+        bsign=f32("bs"),
+        uv0=f32("uv0"), uv1=f32("uv1"), uv2=f32("uv2"),
+        c0=f32("c0"), c1=f32("c1"), c2=f32("c2"),
+        material_id=i32("mat"), object_id=i32("obj"),
+        face_id=i32("face"), instance_id=i32("inst"), flags=i32("flags"),
+    )
+
+
+def build_geometry_cached(mesh_descs, material_index: dict[str | None, int]
+                          ) -> tuple[SceneGeometry, GeomCache]:
+    """build_geometry plus the cache that update_instance_transforms edits."""
     chunks: dict[str, list[np.ndarray]] = {k: [] for k in _CHUNK_KEYS}
-    instance_counter = 0
+    instances: list[tuple[object, int, int, int]] = []
+    cursor = 0
     for mesh_desc in mesh_descs:
         tm = materialize_mesh(mesh_desc.mesh)
         transforms = mesh_desc.instance_transforms
         if transforms is None:
             transforms = mesh_desc.transform[None]
-        for xform in transforms:
+        for local_i, xform in enumerate(transforms):
             rows = _instance_rows(
                 tm, xform, mesh_desc,
                 material_index.get(mesh_desc.material, 0),
-                mesh_desc.object_id, instance_counter)
+                mesh_desc.object_id, len(instances))
             for k in _CHUNK_KEYS:
                 chunks[k].append(rows[k])
-            instance_counter += 1
+            instances.append((mesh_desc, local_i, cursor, tm.num_triangles))
+            cursor += tm.num_triangles
 
     def empty(k):
         width = 3 if k in _VEC3_KEYS else (2 if k.startswith("uv") else None)
@@ -130,26 +163,39 @@ def build_geometry(mesh_descs, material_index: dict[str | None, int]) -> SceneGe
 
     cat = {k: np.concatenate(v, axis=0) if v else empty(k)
            for k, v in chunks.items()}
-    t_count = len(cat["p0"])
-    t_pad = max(PAD_MULTIPLE, -(-t_count // PAD_MULTIPLE) * PAD_MULTIPLE)
+    t_pad = max(PAD_MULTIPLE, -(-cursor // PAD_MULTIPLE) * PAD_MULTIPLE)
 
-    def padded(arr: np.ndarray, dtype) -> np.ndarray:
-        arr = np.ascontiguousarray(arr)
+    def padded(arr: np.ndarray) -> np.ndarray:
         pad = np.zeros((t_pad - arr.shape[0],) + arr.shape[1:], arr.dtype)
-        return np.concatenate([arr, pad], axis=0).astype(dtype, copy=False)
+        return np.concatenate([np.ascontiguousarray(arr), pad], axis=0)
 
-    f32 = {k: padded(cat[k], np.float32) for k in _VEC3_KEYS + ("uv0", "uv1", "uv2")}
-    i32 = {k: padded(cat[k], np.int32) for k in ("mat", "obj", "face", "inst", "flags")}
-    p0 = padded(cat["p0"], cat["p0"].dtype)
-    return SceneGeometry(
-        v0=f32["p0"],
-        e1=(padded(cat["p1"], cat["p1"].dtype) - p0).astype(np.float32),
-        e2=(padded(cat["p2"], cat["p2"].dtype) - p0).astype(np.float32),
-        n0=f32["n0"], n1=f32["n1"], n2=f32["n2"],
-        t0=f32["t0"], t1=f32["t1"], t2=f32["t2"],
-        bsign=f32["bs"],
-        uv0=f32["uv0"], uv1=f32["uv1"], uv2=f32["uv2"],
-        c0=f32["c0"], c1=f32["c1"], c2=f32["c2"],
-        material_id=i32["mat"], object_id=i32["obj"],
-        face_id=i32["face"], instance_id=i32["inst"], flags=i32["flags"],
-    )
+    cat = {k: padded(v) for k, v in cat.items()}
+    return _geom_from_arrays(cat), GeomCache(cat, instances)
+
+
+def build_geometry(mesh_descs, material_index: dict[str | None, int]) -> SceneGeometry:
+    """Flatten MeshDescs (scene.stage) into one world-space SceneGeometry.
+
+    `material_index` maps material prim path (or None) -> material table row
+    (the reference's SBT hitGroupIndex = matIdx * 2, Gi.cpp:1195).
+    """
+    return build_geometry_cached(mesh_descs, material_index)[0]
+
+
+def update_instance_transforms(cache: GeomCache, mesh_descs,
+                               material_index: dict[str | None, int]) -> SceneGeometry:
+    """Re-transform only the placements of `mesh_descs` in the cached soup,
+    from their current transforms, with no reordering; returns the
+    refreshed SceneGeometry."""
+    changed = {id(m) for m in mesh_descs}
+    for mesh_desc, local_i, start, count in cache.instances:
+        if id(mesh_desc) not in changed:
+            continue
+        transforms = mesh_desc.instance_transforms
+        xform = mesh_desc.transform if transforms is None else transforms[local_i]
+        rows = _instance_rows(materialize_mesh(mesh_desc.mesh), xform, mesh_desc,
+                              material_index.get(mesh_desc.material, 0),
+                              mesh_desc.object_id, int(cache.arrays["inst"][start]))
+        for k in _CHUNK_KEYS:
+            cache.arrays[k][start:start + count] = rows[k]
+    return _geom_from_arrays(cache.arrays)

@@ -1,4 +1,5 @@
-"""On the card: the CUDA bounce kernel against its plain twin.
+"""On the card: the CUDA bounce kernels (K1 resident, K2 the two-level
+walk) against their plain twin.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -77,12 +78,64 @@ def test_kernel_matches_twin(cuda, label):
         twin = state.clone()
         tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, nee)
         kern = state.clone()
-        before = tb.launches
+        before = tb.launches["K1"]
         tb.bounce_step(p, fs, kern, nee)
         torch.cuda.synchronize()
-        assert tb.launches == before + 1
+        assert tb.launches["K1"] == before + 1
         k, t = kern.cpu().numpy(), twin.cpu().numpy()
         np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
         close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
         assert close.mean() >= MIN_AGREE, (label, bounce, int((~close).sum()))
+        state = twin
+
+
+def _sphere_field_tables(device, instanced: bool, nee: bool):
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    desc = sphere_field(n_side=6, sphere_res=12)
+    mat_paths = sorted({m.material for m in desc.meshes if m.material})
+    midx = {p: i for i, p in enumerate(mat_paths)}
+    midx[None] = len(mat_paths)
+    table = build_material_table([lower_material(desc.materials.get(p) if p else None)
+                                  for p in midx])
+    lights = build_light_arrays(desc.lights) if nee else None
+    if instanced:
+        fs, static = tb.build_fused_scene_instanced(desc.meshes, midx, table, lights, device)
+    else:
+        fs, static = tb.build_fused_scene(build_geometry(desc.meshes, midx), table, lights,
+                                          device)
+    return fs, static, desc.first_camera()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("instanced", [False, True])
+@pytest.mark.parametrize("nee", [False, True])
+def test_walk_kernel_matches_twin(cuda, instanced, nee):
+    """K2 on a sphere_field of 36 spheres (10,372 triangles): instanced or
+    flattened tables, bounces 0-4."""
+    fs, static, cam_desc = _sphere_field_tables(cuda, instanced, nee)
+    assert static.clustered and static.instanced == instanced
+    w, h = 128, 64
+    cam = camera_uniforms(cam_desc, False, cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 1),
+                                      True, True, False)
+    state = tb.pack_state(o, d, rng, w * h)
+    params = np.zeros((5, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(5)
+    params[:, 6] = params[:, 8] = params[:, 9] = 1.0
+    for bounce in range(5):
+        p = torch.tensor(params[bounce], device=cuda)
+        twin = state.clone()
+        tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, nee, fs.walk)
+        kern = state.clone()
+        before = tb.launches["K2"]
+        tb.bounce_step(p, fs, kern, nee)
+        torch.cuda.synchronize()
+        assert tb.launches["K2"] == before + 1
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert bits.mean() <= 1 - MIN_AGREE, (instanced, nee, bounce, int(bits.sum()))
+        assert close.mean() >= MIN_AGREE, (instanced, nee, bounce, int((~close).sum()))
         state = twin

@@ -1,7 +1,8 @@
-"""The port runs where neither JAX nor Pillow nor the JAX package is
-installed (the GPU machine has torch, numpy and the CUDA toolkit only):
-in a fresh interpreter that cannot import them, every module of
-gatling_tpu_torch imports and an 8x8 frame renders on the CPU."""
+"""The port runs where neither JAX nor Pillow nor ml_dtypes nor the JAX
+package is installed (the GPU machine has torch, numpy and the CUDA
+toolkit only): in a fresh interpreter that cannot import them, every
+module of gatling_tpu_torch imports, and an 8x8 Cornell frame and an 8x8
+frame of an instanced scene render on the CPU."""
 
 import os
 import subprocess
@@ -11,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "PIL", "gatling_tpu"):
+BLOCKED = ("jax", "jaxlib", "PIL", "ml_dtypes", "gatling_tpu")
+for name in BLOCKED:
     sys.modules[name] = None  # any import of these raises ImportError
 import gatling_tpu_torch
 for mod in pkgutil.walk_packages(gatling_tpu_torch.__path__, "gatling_tpu_torch."):
@@ -21,8 +23,21 @@ img, scene = render_scene_file("tests/data/cornell.usda", 8, 8, {"spp": 1, "maxB
                                device="cpu")
 assert img.shape == (8, 8, 4) and scene.sample_offset == 1
 assert img[..., :3].max() > 0.0
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "PIL", "gatling_tpu")
-          and sys.modules[m] is not None]
+from gatling_tpu_torch import gi
+from gatling_tpu_torch.interface import AovId
+from gatling_tpu_torch.scene.examples import sphere_field
+desc = sphere_field(n_side=6, sphere_res=8)
+scene = gi.create_scene("cpu")
+for m in desc.meshes:
+    scene.add_mesh(m)
+for m in desc.materials.values():
+    scene.add_material(m)
+buf = gi.GiRenderBuffer(8, 8, 4)
+gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                            render_settings={"spp": 1, "maxBounces": 2}))
+assert scene._fused_static.instanced and buf.data[..., :3].max() > 0.0
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")
 """

@@ -135,15 +135,25 @@ def test_gate_renders_a_small_plain_scene():
 
 
 def test_gate_raises_on_large_scene():
+    """Above the resident ceiling a plain scene renders through the walk;
+    a cutout material still raises there, naming its ROADMAP item."""
     scene = gi.create_scene("cpu")
     scene.add_mesh(_quad_grid_mesh(46))  # 4232 triangles
-    with pytest.raises(NotImplementedError, match="Large scenes"):
+    img = _render(scene)
+    assert np.isfinite(img).all() and scene._fused_static.clustered
+    scene = gi.create_scene("cpu")
+    scene.add_mesh(_quad_grid_mesh(46, material="/cut"))
+    node = ShaderNode(path="/cut/s", shader_id="UsdPreviewSurface", inputs={"opacity": 0.5},
+                      input_connections={})
+    scene.add_material(MaterialDesc(path="/cut", surface_node="/cut/s", nodes={"/cut/s": node}))
+    with pytest.raises(NotImplementedError, match="Lobes, media and cutout"):
         _render(scene)
 
 
-def test_gate_raises_on_textured_material():
+@pytest.mark.parametrize("n", [2, 46])
+def test_gate_raises_on_textured_material(n):
     scene = gi.create_scene("cpu")
-    scene.add_mesh(_quad_grid_mesh(2, material="/tex"))
+    scene.add_mesh(_quad_grid_mesh(n, material="/tex"))
     nodes = {
         "/tex/s": ShaderNode(path="/tex/s", shader_id="UsdPreviewSurface", inputs={},
                              input_connections={"diffuseColor": ("/tex/img", "rgb")}),
@@ -247,3 +257,108 @@ def test_progressive_frames_add_up_to_one_frame():
 def test_png_encoder_reads_back():
     img = np.random.default_rng(3).integers(0, 256, size=(5, 7, 3)).astype(np.uint8)
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(encode_png(img)))), img)
+
+
+def test_render_pixels_fused_instanced_matches_jax():
+    """The port's sample loop over instance tables (tile swizzle, coherence
+    sort, walk twin) against the JAX fused path in interpret mode on the
+    same tables: the small instanced field, 8x8, 1 spp, 2 bounces, NEE."""
+    from test_torch_clustered_bounce import CAMERAS, jax_tables, port_tables, uniforms
+
+    w = h = 8
+    scene, static = jax_tables("instanced_field", True, True)
+    assert static.instanced
+    juni = uniforms(*CAMERAS["instanced_field"])
+    jcfg = JConfig(width=w, height=h, spp=1, max_bounces=2, nee=True, has_dome=False)
+    pix = jnp.arange(w * h, dtype=jnp.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jrender(jcfg, juni, scene, default_dome(), pix, 1, jnp.int32(3),
+                                 static=static))
+    cam = juni.camera
+    uni = Uniforms(
+        camera=CameraUniforms(torch.tensor(np.asarray(cam.position)),
+                              torch.tensor(np.asarray(cam.forward)),
+                              torch.tensor(np.asarray(cam.up)), float(cam.vfov),
+                              0.0, 0.0, 0.0, float(cam.clip_start), float(cam.clip_end)),
+        sample_offset=3, inv_total_sample_count=1.0, max_sample_value=10.0,
+        rr_inv_min_term_prob=float(np.float32(0.95)), light_intensity_multiplier=1.0,
+        meters_per_scene_unit=1.0, max_volume_walk_length=7)
+    cfg = RenderConfig(width=w, height=h, spp=1, max_bounces=2, nee=True)
+    got = render_pixels_fused(cfg, uni, port_tables(scene, static), torch.arange(w * h), 1,
+                              3).numpy()
+    assert got.shape == ref.shape == (w * h, 3)
+    assert np.isfinite(got).all() and ref.mean() > 0.01
+    rel = abs(got.mean() - ref.mean()) / ref.mean()
+    close = (np.abs(got - ref) <= 1e-3 * np.maximum(1.0, np.abs(ref))).all(axis=1)
+    print(f"instanced: mean rel diff {rel:.2e}, {int((~close).sum())} of {w * h} pixels "
+          "outside 1e-3")
+    assert rel < 1e-3
+    assert close.mean() >= 0.99
+
+
+def test_tile_swizzle_and_spp_replicas_compose():
+    """A full frame of a clustered scene goes through the 32x32 tile order
+    and the spp replicas; the result equals the same pixels rendered one
+    sample at a time, unswizzled (per-ray results do not depend on order)."""
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    desc = sphere_field(n_side=6, sphere_res=8)
+    scene = gi.create_scene("cpu")
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for mat in desc.materials.values():
+        scene.add_material(mat)
+    for light in desc.lights:
+        scene.add_light(light)
+    w, h = 40, 36  # partial tiles on both axes
+
+    def frame(spp, nee):
+        buf = gi.GiRenderBuffer(w, h, 4)
+        scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                    aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                                    render_settings=dict(spp=spp, maxBounces=3,
+                                                         nextEventEstimation=nee)))
+        return buf.data.copy()
+
+    img = frame(2, True)
+    assert scene._fused_static.instanced and scene._fused_static.n_instances == 38
+    assert np.isfinite(img).all() and (img >= 0).all() and img[..., :3].mean() > 0.01
+    # the same two samples through render_pixels_fused one at a time, on a
+    # pixel subset (no tile swizzle) in reverse order
+    from gatling_tpu_torch.render.camera import camera_uniforms
+    cfg = RenderConfig(width=w, height=h, spp=1, max_bounces=3, nee=True)
+    uni = Uniforms(camera=camera_uniforms(desc.first_camera(), False, "cpu"), sample_offset=0,
+                   inv_total_sample_count=1.0, max_sample_value=10.0,
+                   rr_inv_min_term_prob=float(np.float32(0.95)),
+                   light_intensity_multiplier=1.0, meters_per_scene_unit=1.0,
+                   max_volume_walk_length=7)
+    pix = torch.arange(w * h - 1, -1, -1)
+    one = sum(render_pixels_fused(cfg, uni, scene._fused, pix, 1, s) for s in (0, 1)) / 2
+    one = one.flip(0).numpy().reshape(h, w, 3)
+    np.testing.assert_allclose(img[..., :3], one, rtol=1e-5, atol=1e-6)
+
+
+def test_sphere_field_renders_on_the_cpu():
+    """gi.render of a small sphere_field through the twin: finite and
+    non-negative, and NEE adds light."""
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    means = []
+    for nee in (False, True):
+        desc = sphere_field(n_side=2, sphere_res=8)
+        scene = gi.create_scene("cpu")
+        for m in desc.meshes:
+            scene.add_mesh(m)
+        for mat in desc.materials.values():
+            scene.add_material(mat)
+        for light in desc.lights:
+            scene.add_light(light)
+        buf = gi.GiRenderBuffer(16, 16, 4)
+        gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                    aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                                    render_settings=dict(spp=2, maxBounces=3,
+                                                         nextEventEstimation=nee)))
+        assert np.isfinite(buf.data).all() and (buf.data >= 0).all()
+        means.append(buf.data[..., :3].mean())
+    assert means[1] > means[0] > 0.0
