@@ -100,8 +100,8 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
     log = get_logger()
     if aov != AovId.COLOR:
         raise NotImplementedError(
-            f"--aov {aov.name.lower()} is not ported yet (ROADMAP: 'Textured split path', "
-            "'Wavefront integrator')")
+            f"--aov {aov.name.lower()} is not ported yet (ROADMAP: 'First-hit AOVs, clipping "
+            "and textured cutout', 'Wavefront integrator')")
     scene, desc, merged = load_gi_scene(scene_path, device, settings)
     camera = desc.cameras.get(camera_path) if camera_path else None
     if camera_path and camera is None:

@@ -1,4 +1,4 @@
-// Fused path-tracing bounce for NVIDIA Hopper (sm_90a): two kernels.
+// Fused path-tracing bounce for NVIDIA Hopper (sm_90a): four kernels.
 //
 // K1 `bounce_kernel` replaces the JAX package's TPU kernel
 // ops/pallas_bounce.py `bounce_step` -> `_bounce_kernel` / `_bounce_body` /
@@ -7,11 +7,25 @@
 // replaces its clustered and instanced branch: the closest-hit walk
 // `_trace_clustered_matrix` and the any-hit shadow walk
 // `_trace_clustered_occluded`, with their XLA walk plan
-// `_cluster_walk_plan`. Both run with cutout, volumes, scattering, advanced
-// lobes and tangent rows off, and share the shading code. Their plain
+// `_cluster_walk_plan`. Both run with cutout, volumes, scattering and
+// advanced lobes off, and share the shading code. Their plain
 // PyTorch twin is ops/bounce_ref.py; all compute the same float operations
 // in the same order, so with -fmad=false they agree to the last bit except
 // where the math library's cos/sin/log differ.
+//
+// Textured scenes split the bounce (the JAX package's split-bounce mode):
+// K3 `trace_kernel` / `trace_walk_kernel` replaces `trace_step` ->
+// `_trace_kernel` (with `_finalize_hits` on walk tables) and writes each
+// ray's closest hit and shading state into a hit buffer; plain torch ops
+// then sample the textures (render/fused.py material_rows); K4
+// `shade_kernel` / `shade_walk_kernel` replaces `shade_step` ->
+// `_shade_kernel` and shades from the hit buffer and the per-ray
+// parameter rows. K3 reuses K1's tiled closest-hit search and K2's walk
+// and pass 2; K4 runs the shading core and the NEE shadow walks that K1
+// and K2 run (one copy of each in this file). Their twins are in
+// ops/split_ref.py. What bounds them: K3 the same triangle tests as K1
+// and K2 without the shading; K4 the state, hit-buffer and parameter
+// traffic (16 + 16 + up to 8 floats a ray) and, with NEE, the shadow walk.
 //
 // K1. One thread per ray; ray state row k of ray i lives at
 // state[k*R + i], so every row access coalesces. The TPU kernel tested a
@@ -50,7 +64,8 @@
 
 namespace {
 
-constexpr int TRI_ROWS = 32;
+constexpr int TRI_ROWS = 32;      // the resident row; the tile holds its first 32 floats
+constexpr int TRI_ROWS_TAN = 48;  // with the tangent rows TR_T0..TR_BS
 constexpr int MAT_COLS = 30;
 constexpr int LIGHT_COLS = 20;
 constexpr int TILE = 128;     // triangles per shared-memory tile
@@ -68,7 +83,11 @@ enum { S_OX = 0, S_DX = 3, S_TP = 6, S_RAD = 9, S_RNG = 12, S_ALIVE = 13,
        S_MISS = 14, S_SEG = 15 };
 // triangle columns
 enum { TR_N = 0, TR_D0 = 3, TR_R1 = 4, TR_R2 = 8, TR_GN = 12, TR_N0 = 15,
-       TR_N1 = 18, TR_N2 = 21, TR_MAT = 24, TR_DS = 25 };
+       TR_N1 = 18, TR_N2 = 21, TR_MAT = 24, TR_DS = 25, TR_UV = 26, TR_T0 = 32,
+       TR_T1 = 35, TR_T2 = 38, TR_BS = 41 };
+// hit buffer rows (ops/split_ref.py H_*)
+enum { H_HIT = 0, H_T = 1, H_UV = 2, H_MAT = 4, H_GN = 5, H_N = 8, H_FRONT = 11, H_DS = 12,
+       H_POS = 13, HIT_ROWS = 16, H_TAN = 16, H_BS = 19, HIT_ROWS_TAN = 24 };
 // params
 enum { P_BG_R = 0, P_RR_INV_MIN = 3, P_RR_OFFSET = 4, P_BOUNCE = 5,
        P_EXP2_EXPOSURE = 6, P_TMIN = 7, P_LIGHT_MULT = 8, PARAMS_LEN = 11 };
@@ -78,9 +97,10 @@ constexpr double SHADOW_TMIN = 0.01;  // reference: rgen:397-438 shadow ray tMin
 // clustered tables (ops/bounce_ref.py CLU_*, INST_*)
 constexpr int CLUSTER_SIZE = 128;  // triangles per cluster
 constexpr int L1_FAN = 16;         // clusters per level-1 entry
-constexpr int CLU_ROWS = 40;
+constexpr int CLU_ROWS_TAN = 56;  // a clustered row with the tangent rows (else 40)
 enum { CLU_N = 0, CLU_GN = 4, CLU_MAT = 7, CLU_R1 = 8, CLU_N0 = 12, CLU_DS = 15,
-       CLU_R2 = 16, CLU_N1 = 20, CLU_N2 = 24 };
+       CLU_R2 = 16, CLU_N1 = 20, CLU_N2 = 24, CLU_UV = 28, CLU_T0 = 40, CLU_T1 = 43,
+       CLU_T2 = 46, CLU_BS = 49 };
 enum { INST_AT = 9, INST_MAT = 12, INST_DS = 15, INST_COLS = 16 };
 constexpr int STACK = 64;  // TLAS traversal stack (ops/bounce.py TLAS_MAX_DEPTH)
 
@@ -116,13 +136,15 @@ __device__ __forceinline__ bool tri_hit(const float* tr, float ox, float oy,
          (tt > tmin);
 }
 
-// Copy triangles [base, base+cnt) of the table into the shared tile.
-__device__ __forceinline__ void load_tile(float* s_tri, const float* tris,
-                                          int base, int cnt) {
-  const float4* src = reinterpret_cast<const float4*>(tris + (size_t)base * TRI_ROWS);
+// Copy the first 32 floats of triangles [base, base+cnt) of a table with
+// rows of ld floats into the shared tile.
+__device__ __forceinline__ void load_tile(float* s_tri, const float* tris, int base,
+                                          int cnt, int ld) {
   float4* dst = reinterpret_cast<float4*>(s_tri);
-  for (int k = threadIdx.x; k < cnt * (TRI_ROWS / 4); k += blockDim.x)
-    dst[k] = src[k];
+  for (int k = threadIdx.x; k < cnt * (TRI_ROWS / 4); k += blockDim.x) {
+    const int t = k / (TRI_ROWS / 4), q = k % (TRI_ROWS / 4);
+    dst[k] = reinterpret_cast<const float4*>(tris + (size_t)(base + t) * ld)[q];
+  }
 }
 
 // Diffuse + glossy reflection lobes at local wi (render/bsdf.py _eval_lobes).
@@ -291,7 +313,7 @@ __device__ LightSample sample_light(const float* s_light, const int* s_ltype,
 }
 
 // ---------------------------------------------------------------------------
-// shading, shared by K1 and K2
+// shading, shared by K1, K2 and K4
 // ---------------------------------------------------------------------------
 
 // One ray's path state through a bounce.
@@ -308,6 +330,18 @@ struct Surf {
   float t, u, v, gn[3], nrm[3], mat_f, dsided;
 };
 
+// The shading state of a hit: position, geometric and (normalised)
+// shading normal turned to face the ray, facing flag, double-sided flag.
+struct Hit {
+  float pos[3], gn[3], n[3], dsided;
+  bool front;
+};
+
+// The shading parameters of a hit's material.
+struct Mat {
+  float base[3], metallic, roughness, ior, em[3], transm, thinw, bf_edf;
+};
+
 __device__ __forceinline__ void load_path(Ray& r, const float* state, long long R,
                                           long long i) {
   for (int c = 0; c < 3; ++c) {
@@ -318,56 +352,70 @@ __device__ __forceinline__ void load_path(Ray& r, const float* state, long long 
   r.miss_rec = state[S_MISS * R + i];
 }
 
-// Miss background, emission, BSDF sampling, the new ray and the NEE light
-// sample of an alive ray whose closest hit (r.hit, sf) is known.
-template <bool NEE>
-__device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_mats,
-                                      const float* s_light, const int* s_ltype,
-                                      int n_lights, const Surf& sf, Ray& r) {
-  const float bounce = p[P_BOUNCE];
-  r.miss = !r.hit;
-
-  // ---- miss: constant background; no dome (not ported) ----
-  if (r.miss) {
-    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * p[P_BG_R + c];
-    r.miss_rec = bounce + 1.0f;
-  }
-  if (!r.hit) return;
-
-  // ---- shading state ----
-  const float posx = r.o[0] + sf.t * r.d[0];
-  const float posy = r.o[1] + sf.t * r.d[1];
-  const float posz = r.o[2] + sf.t * r.d[2];
+__device__ __forceinline__ Hit surface_hit(const float o[3], const float d[3], const Surf& sf) {
+  Hit h;
+  for (int c = 0; c < 3; ++c) h.pos[c] = o[c] + sf.t * d[c];
   const float* nrm = sf.nrm;
   const float* gn = sf.gn;
   const float nlen = 1.0f / sqrtf(fmaxf(nrm[0] * nrm[0] + nrm[1] * nrm[1] + nrm[2] * nrm[2], C(1e-20)));
-  float nx = nrm[0] * nlen, ny = nrm[1] * nlen, nz = nrm[2] * nlen;
-  const bool front = (gn[0] * -r.d[0] + gn[1] * -r.d[1] + gn[2] * -r.d[2]) >= 0.0f;
-  const float fsign = front ? 1.0f : -1.0f;
-  const float gnx = gn[0] * fsign, gny = gn[1] * fsign, gnz = gn[2] * fsign;
-  nx = nx * fsign;
-  ny = ny * fsign;
-  nz = nz * fsign;
+  h.front = (gn[0] * -d[0] + gn[1] * -d[1] + gn[2] * -d[2]) >= 0.0f;
+  const float fsign = h.front ? 1.0f : -1.0f;
+  for (int c = 0; c < 3; ++c) {
+    h.gn[c] = gn[c] * fsign;
+    h.n[c] = nrm[c] * nlen * fsign;
+  }
+  h.dsided = sf.dsided;
+  return h;
+}
 
-  // ---- material row (ids outside the table resolve to zeros) ----
-  const int m_id = (int)rintf(sf.mat_f);
+// Material row of a hit from the shared-memory table (ids outside the
+// table resolve to zeros).
+__device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float mat_f) {
+  const int m_id = (int)rintf(mat_f);
   const bool m_ok = m_id >= 0 && m_id < n_mats;
   const float* m = s_mat + (m_ok ? m_id : 0) * MAT_COLS;
 #define MAT(col) (m_ok ? m[col] : 0.0f)
-  Surface s;
-  s.base[0] = MAT(0);
-  s.base[1] = MAT(1);
-  s.base[2] = MAT(2);
-  s.metallic = MAT(3);
-  const float roughness = MAT(4), ior = MAT(5);
-  const float em[3] = {MAT(7), MAT(8), MAT(9)};
-  s.transm = MAT(14);
-  const float thinw = MAT(15), bf_edf = MAT(24);
+  Mat t;
+  for (int c = 0; c < 3; ++c) {
+    t.base[c] = MAT(c);
+    t.em[c] = MAT(7 + c);
+  }
+  t.metallic = MAT(3);
+  t.roughness = MAT(4);
+  t.ior = MAT(5);
+  t.transm = MAT(14);
+  t.thinw = MAT(15);
+  t.bf_edf = MAT(24);
 #undef MAT
+  return t;
+}
+
+// Miss: constant background (no dome: not ported).
+__device__ __forceinline__ void shade_miss(const float* p, Ray& r) {
+  r.miss = !r.hit;
+  if (r.miss) {
+    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * p[P_BG_R + c];
+    r.miss_rec = p[P_BOUNCE] + 1.0f;
+  }
+}
+
+// Emission, BSDF sampling, the new ray and the NEE light sample of an
+// alive ray that hit (pallas_bounce.py _shade_core).
+template <bool NEE>
+__device__ __forceinline__ void shade_core(const float* p, const Mat& m, const Hit& h,
+                                           const float* s_light, const int* s_ltype,
+                                           int n_lights, Ray& r) {
+  const float posx = h.pos[0], posy = h.pos[1], posz = h.pos[2];
+  const float gnx = h.gn[0], gny = h.gn[1], gnz = h.gn[2];
+  const float nx = h.n[0], ny = h.n[1], nz = h.n[2];
+  Surface s;
+  for (int c = 0; c < 3; ++c) s.base[c] = m.base[c];
+  s.metallic = m.metallic;
+  s.transm = m.transm;
 
   // ---- emission (rp_main.chit:304-315) ----
-  if (front || sf.dsided <= 0.5f || (thinw > 0.5f && bf_edf > 0.5f)) {
-    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * em[c] * p[P_EXP2_EXPOSURE];
+  if (h.front || h.dsided <= 0.5f || (m.thinw > 0.5f && m.bf_edf > 0.5f)) {
+    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * m.em[c] * p[P_EXP2_EXPOSURE];
   }
 
   // ---- BSDF sample draws ----
@@ -392,7 +440,7 @@ __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_
   s.woz = -(d[0] * nx + d[1] * ny + d[2] * nz);
 
   // ---- lobe weights (render/bsdf.py _lobe_weights) ----
-  const float f0q = (ior - 1.0f) / (ior + 1.0f);
+  const float f0q = (m.ior - 1.0f) / (m.ior + 1.0f);
   const float f0d = f0q * f0q;
   for (int c = 0; c < 3; ++c)
     s.f0[c] = f0d * (1.0f - s.metallic) + s.base[c] * s.metallic;
@@ -409,7 +457,7 @@ __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_
   const bool pick_g = !pick_d && (xi0 < s.p_d + s.p_g);
   const bool pick_t = !pick_d && !pick_g;
 
-  const float alpha = fmaxf(roughness * roughness, C(1e-3));
+  const float alpha = fmaxf(m.roughness * m.roughness, C(1e-3));
   s.alpha2 = alpha * alpha;
 
   float wix, wiy, wiz;
@@ -455,10 +503,8 @@ __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_
 
   // new origin, offset along the signed geometric normal; world wi
   const float osign = pick_t ? -1.0f : 1.0f;
-  const float pos[3] = {posx, posy, posz};
-  const float gns[3] = {gnx, gny, gnz};
   for (int c = 0; c < 3; ++c)
-    r.o[c] = pos[c] + gns[c] * osign * fmaxf(fabsf(pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
+    r.o[c] = h.pos[c] + h.gn[c] * osign * fmaxf(fabsf(h.pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
   r.d[0] = wix * t1x + wiy * t2x + wiz * nx;
   r.d[1] = wix * t1y + wiy * t2y + wiz * ny;
   r.d[2] = wix * t1z + wiy * t2z + wiz * nz;
@@ -496,6 +542,18 @@ __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_
       r.ldist = ls.dist;
     }
   }
+}
+
+// The whole shading of a bounce for an alive ray whose closest hit (r.hit,
+// sf) is known: K1 and K2 read the material row from the table.
+template <bool NEE>
+__device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_mats,
+                                      const float* s_light, const int* s_ltype,
+                                      int n_lights, const Surf& sf, Ray& r) {
+  shade_miss(p, r);
+  if (!r.hit) return;
+  shade_core<NEE>(p, table_mat(s_mat, n_mats, sf.mat_f), surface_hit(r.o, r.d, sf), s_light,
+                  s_ltype, n_lights, r);
 }
 
 // NEE contribution, termination (miss, absorb, throughput cutoff, russian
@@ -541,13 +599,152 @@ __device__ __forceinline__ void stage_tables(float* s_mat, const float* mats, in
 }
 
 // ---------------------------------------------------------------------------
-// K1: the resident table
+// the split bounce's buffers (K3 writes the hit buffer, K4 reads it)
 // ---------------------------------------------------------------------------
+
+// K3's output for one ray: the H_* rows (ops/split_ref.py), the shading
+// state of its hit; with tangents the tangent orthonormalised against the
+// facing shading normal and the interpolated bitangent sign.
+template <bool TAN>
+__device__ __forceinline__ void write_hit(float* hit, long long R, long long i, bool is_hit,
+                                          const float o[3], const float d[3], const Surf& sf,
+                                          const float uv[2], const float tan[3], float tbs) {
+  const Hit h = surface_hit(o, d, sf);
+  hit[H_HIT * R + i] = is_hit ? 1.0f : 0.0f;
+  hit[H_T * R + i] = sf.t;
+  hit[H_UV * R + i] = uv[0];
+  hit[(H_UV + 1) * R + i] = uv[1];
+  hit[H_MAT * R + i] = sf.mat_f;
+  for (int c = 0; c < 3; ++c) {
+    hit[(H_GN + c) * R + i] = h.gn[c];
+    hit[(H_N + c) * R + i] = h.n[c];
+    hit[(H_POS + c) * R + i] = h.pos[c];
+  }
+  hit[H_FRONT * R + i] = h.front ? 1.0f : 0.0f;
+  hit[H_DS * R + i] = sf.dsided;
+  if (TAN) {
+    const float tdn = tan[0] * h.n[0] + tan[1] * h.n[1] + tan[2] * h.n[2];
+    float t[3];
+    for (int c = 0; c < 3; ++c) t[c] = tan[c] - h.n[c] * tdn;
+    const float tlen = 1.0f / sqrtf(fmaxf(t[0] * t[0] + t[1] * t[1] + t[2] * t[2], C(1e-20)));
+    for (int c = 0; c < 3; ++c) hit[(H_TAN + c) * R + i] = t[c] * tlen;
+    hit[H_BS * R + i] = tbs;
+    for (int k = H_BS + 1; k < HIT_ROWS_TAN; ++k) hit[k * R + i] = 0.0f;
+  }
+}
+
+// A dead ray's hit buffer: every row 0.
+__device__ __forceinline__ void write_dead(float* hit, int rows, long long R, long long i) {
+  for (int k = 0; k < rows; ++k) hit[k * R + i] = 0.0f;
+}
+
+// K4's view of one alive ray: the hit flag, its shading state, and its
+// material, the textured parameters (row >= 0) from the parameter buffer.
+__device__ __forceinline__ void read_hit(const float* hit, const float* par, const int prow[4],
+                                         const float* s_mat, int n_mats, long long R,
+                                         long long i, Ray& r, Hit& h, Mat& m) {
+  r.hit = hit[H_HIT * R + i] > 0.5f;
+  for (int c = 0; c < 3; ++c) {
+    h.pos[c] = hit[(H_POS + c) * R + i];
+    h.gn[c] = hit[(H_GN + c) * R + i];
+    h.n[c] = hit[(H_N + c) * R + i];
+  }
+  h.front = hit[H_FRONT * R + i] > 0.5f;
+  h.dsided = hit[H_DS * R + i];
+  m = table_mat(s_mat, n_mats, hit[H_MAT * R + i]);
+  for (int c = 0; c < 3; ++c) {
+    if (prow[0] >= 0) m.base[c] = par[(prow[0] + c) * R + i];
+    if (prow[1] >= 0) m.em[c] = par[(prow[1] + c) * R + i];
+  }
+  if (prow[2] >= 0) m.metallic = par[prow[2] * R + i];
+  if (prow[3] >= 0) m.roughness = par[prow[3] * R + i];
+}
+
+// ---------------------------------------------------------------------------
+// K1 (bounce), K3 (trace) and K4 (shade) over the resident table
+// ---------------------------------------------------------------------------
+
+// The closest hit of each alive ray of the block over the resident table,
+// through shared-memory tiles: serial table order, strict '<' (ties keep
+// the first). Every thread of the block must call it.
+__device__ __forceinline__ void resident_closest(float* s_tri, const float* tris, int n_tris,
+                                                 int ld, bool alive, const Ray& r, float tmin,
+                                                 float& best_t, float& bu, float& bv,
+                                                 int& win) {
+  best_t = FMAX;
+  bu = bv = 0.0f;
+  win = -1;
+  for (int base = 0; base < n_tris; base += TILE) {
+    const int cnt = min(TILE, n_tris - base);
+    __syncthreads();
+    load_tile(s_tri, tris, base, cnt, ld);
+    __syncthreads();
+    if (alive) {
+      for (int t = 0; t < cnt; ++t) {
+        float tt, u, v;
+        const bool ok = tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.d[0],
+                                r.d[1], r.d[2], tmin, tt, u, v);
+        if (ok && tt < best_t) {
+          best_t = tt;
+          bu = u;
+          bv = v;
+          win = base + t;
+        }
+      }
+    }
+  }
+}
+
+// The winner's attributes from its resident table row (zeros on a miss).
+__device__ __forceinline__ Surf resident_surf(const float* tris, int ld, float best_t, float bu,
+                                              float bv, int win) {
+  Surf sf = {};
+  sf.t = best_t;
+  sf.u = bu;
+  sf.v = bv;
+  if (win >= 0) {
+    const float* tr = tris + (size_t)win * ld;
+    const float w = 1.0f - bu - bv;
+    for (int c = 0; c < 3; ++c) {
+      sf.gn[c] = __ldg(tr + TR_GN + c);
+      sf.nrm[c] = w * __ldg(tr + TR_N0 + c) + bu * __ldg(tr + TR_N1 + c) +
+                  bv * __ldg(tr + TR_N2 + c);
+    }
+    sf.mat_f = __ldg(tr + TR_MAT);
+    sf.dsided = __ldg(tr + TR_DS);
+  }
+  return sf;
+}
+
+// NEE shadow rays over the resident table: any hit in (SHADOW_TMIN,
+// ldist); all threads help load tiles until no ray of the block needs an
+// answer. Every thread of the block must call it.
+__device__ __forceinline__ bool resident_occluded(float* s_tri, const float* tris, int n_tris,
+                                                  int ld, const Ray& r) {
+  bool occ = false;
+  for (int base = 0; base < n_tris; base += TILE) {
+    if (!__syncthreads_or(r.do_trace && !occ)) break;
+    const int cnt = min(TILE, n_tris - base);
+    load_tile(s_tri, tris, base, cnt, ld);
+    __syncthreads();
+    if (r.do_trace && !occ) {
+      for (int t = 0; t < cnt; ++t) {
+        float tt, u, v;
+        if (tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.ld[0], r.ld[1],
+                    r.ld[2], C(SHADOW_TMIN), tt, u, v) && tt < r.ldist) {
+          occ = true;
+          break;
+        }
+      }
+    }
+  }
+  return occ;
+}
 
 template <bool NEE>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
-              int n_tris, const float* __restrict__ mats, int n_mats,
+              int n_tris, int ld, const float* __restrict__ mats, int n_mats,
               const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
               int n_lights, float* __restrict__ state, long long R) {
   extern __shared__ float4 smem4[];
@@ -574,82 +771,118 @@ bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
     }
   }
 
-  // ---- closest hit: serial table order, strict '<' (ties keep the first) ----
-  float best_t = FMAX, bu = 0.0f, bv = 0.0f;
-  int win = -1;
-  for (int base = 0; base < n_tris; base += TILE) {
-    const int cnt = min(TILE, n_tris - base);
-    __syncthreads();
-    load_tile(s_tri, tris, base, cnt);
-    __syncthreads();
-    if (alive) {
-      for (int t = 0; t < cnt; ++t) {
-        float tt, u, v;
-        const bool ok = tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.d[0],
-                                r.d[1], r.d[2], p[P_TMIN], tt, u, v);
-        if (ok && tt < best_t) {
-          best_t = tt;
-          bu = u;
-          bv = v;
-          win = base + t;
-        }
-      }
-    }
-  }
-
+  float best_t, bu, bv;
+  int win;
+  resident_closest(s_tri, tris, n_tris, ld, alive, r, p[P_TMIN], best_t, bu, bv, win);
   if (alive) {
     load_path(r, state, R, i);
     r.hit = best_t < FMAX;
-    Surf sf = {};
-    sf.t = best_t;
-    sf.u = bu;
-    sf.v = bv;
-    if (r.hit) {
-      const float* tr = tris + (size_t)win * TRI_ROWS;
-      const float w = 1.0f - bu - bv;
-      for (int c = 0; c < 3; ++c) {
-        sf.gn[c] = __ldg(tr + TR_GN + c);
-        sf.nrm[c] = w * __ldg(tr + TR_N0 + c) + bu * __ldg(tr + TR_N1 + c) +
-                    bv * __ldg(tr + TR_N2 + c);
-      }
-      sf.mat_f = __ldg(tr + TR_MAT);
-      sf.dsided = __ldg(tr + TR_DS);
-    }
-    shade<NEE>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r);
+    shade<NEE>(p, s_mat, n_mats, s_light, s_ltype, n_lights,
+               resident_surf(tris, ld, best_t, bu, bv, win), r);
   }
+  const bool occ = NEE && resident_occluded(s_tri, tris, n_tris, ld, r);
+  if (!alive) return;
+  finish(p, r, occ, state, R, i);
+}
 
-  // ---- NEE shadow rays: any hit in (SHADOW_TMIN, ldist); all threads
-  // help load tiles until no ray of the block needs an answer ----
-  bool occ = false;
-  if (NEE) {
-    for (int base = 0; base < n_tris; base += TILE) {
-      if (!__syncthreads_or(r.do_trace && !occ)) break;
-      const int cnt = min(TILE, n_tris - base);
-      load_tile(s_tri, tris, base, cnt);
-      __syncthreads();
-      if (r.do_trace && !occ) {
-        for (int t = 0; t < cnt; ++t) {
-          float tt, u, v;
-          if (tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.ld[0], r.ld[1],
-                      r.ld[2], C(SHADOW_TMIN), tt, u, v) && tt < r.ldist) {
-            occ = true;
-            break;
-          }
-        }
-      }
+// K3, resident: closest hit and shading state into the hit buffer.
+template <bool TAN>
+__global__ void __launch_bounds__(THREADS)
+trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
+             int ld, const float* __restrict__ state, long long R, float* __restrict__ hit) {
+  extern __shared__ float4 smem4[];
+  float* s_tri = reinterpret_cast<float*>(smem4);
+  const int rows = TAN ? HIT_ROWS_TAN : HIT_ROWS;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
+  if (!__syncthreads_or(alive)) {
+    if (i < R) write_dead(hit, rows, R, i);
+    return;
+  }
+  Ray r = {};
+  if (alive) {
+    for (int c = 0; c < 3; ++c) {
+      r.o[c] = state[(S_OX + c) * R + i];
+      r.d[c] = state[(S_DX + c) * R + i];
     }
   }
+  float best_t, bu, bv;
+  int win;
+  resident_closest(s_tri, tris, n_tris, ld, alive, r, __ldg(params + P_TMIN), best_t, bu, bv,
+                   win);
+  if (i >= R) return;
+  if (!alive) {
+    write_dead(hit, rows, R, i);
+    return;
+  }
+  const Surf sf = resident_surf(tris, ld, best_t, bu, bv, win);
+  float uv[2] = {0.0f, 0.0f}, tan[3] = {0.0f, 0.0f, 0.0f}, tbs = 0.0f;
+  if (win >= 0) {
+    const float* tr = tris + (size_t)win * ld;
+    const float w = 1.0f - bu - bv;
+    for (int k = 0; k < 2; ++k)
+      uv[k] = w * __ldg(tr + TR_UV + k) + bu * __ldg(tr + TR_UV + 2 + k) +
+              bv * __ldg(tr + TR_UV + 4 + k);
+    if (TAN) {
+      for (int c = 0; c < 3; ++c)
+        tan[c] = w * __ldg(tr + TR_T0 + c) + bu * __ldg(tr + TR_T1 + c) +
+                 bv * __ldg(tr + TR_T2 + c);
+      tbs = w * __ldg(tr + TR_BS) + bu * __ldg(tr + TR_BS + 1) + bv * __ldg(tr + TR_BS + 2);
+    }
+  }
+  write_hit<TAN>(hit, R, i, best_t < FMAX, r.o, r.d, sf, uv, tan, tbs);
+}
 
+// K4, resident: shading from the hit and parameter buffers; the NEE shadow
+// rays walk the resident table as in K1.
+template <bool NEE>
+__global__ void __launch_bounds__(THREADS)
+shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
+             int ld, const float* __restrict__ mats, int n_mats,
+             const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
+             int n_lights, float* __restrict__ state, long long R,
+             const float* __restrict__ hit, const float* __restrict__ par, int pb, int pe,
+             int pm, int pr) {
+  extern __shared__ float4 smem4[];
+  float* s_tri = reinterpret_cast<float*>(smem4);
+  float* s_mat = s_tri + TILE * TRI_ROWS;
+  float* s_light = s_mat + n_mats * MAT_COLS;
+  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
+
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
+  if (!__syncthreads_or(alive)) return;
+  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  __syncthreads();
+
+  float p[PARAMS_LEN];
+  for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
+  const int prow[4] = {pb, pe, pm, pr};
+  Ray r = {};
+  if (alive) {
+    for (int c = 0; c < 3; ++c) {
+      r.o[c] = state[(S_OX + c) * R + i];
+      r.d[c] = state[(S_DX + c) * R + i];
+    }
+    load_path(r, state, R, i);
+    Hit h;
+    Mat m;
+    read_hit(hit, par, prow, s_mat, n_mats, R, i, r, h, m);
+    shade_miss(p, r);
+    if (r.hit) shade_core<NEE>(p, m, h, s_light, s_ltype, n_lights, r);
+  }
+  const bool occ = NEE && resident_occluded(s_tri, tris, n_tris, ld, r);
   if (!alive) return;
   finish(p, r, occ, state, R, i);
 }
 
 // ---------------------------------------------------------------------------
-// K2: the two-level walk (clustered and instanced tables)
+// K2 (bounce), K3 (trace) and K4 (shade) over the two-level walk
+// (clustered and instanced tables)
 // ---------------------------------------------------------------------------
 
 struct Walk {
-  const float* tris;   // [C * 128, 40] CLU_* rows, triangle-major
+  const float* tris;   // [C * 128, rows] CLU_* rows, triangle-major
   const float* l1;     // [n_l1, 8] entry world boxes (lo xyz, hi xyz, -, -)
   const float* l2;     // [n_l1 * 16, 8] fan-slot cluster world boxes
   const int* cmap;     // [n_l1 * 16] fan slot -> cluster of tris
@@ -659,6 +892,10 @@ struct Walk {
   const int* leaf;     // [n_l1] entries in leaf order
   const float* gbox;   // [8] scene box
 };
+
+// floats per clustered triangle row: 40, or 56 with the tangent rows
+template <bool TAN>
+__host__ __device__ constexpr int clu_rows() { return TAN ? CLU_ROWS_TAN : 40; }
 
 __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / (fabsf(d) < C(1e-20) ? (d >= 0.0f ? C(1e-20) : -C(1e-20)) : d);
@@ -718,7 +955,7 @@ __device__ __forceinline__ bool clu_test(const float* __restrict__ tr, const flo
 // so far for a closest-hit walk. ANY: return true at the first valid
 // triangle. Else: keep the smallest t, ties to the lower global triangle
 // index (fan slot * 128 + lane), in (best, win).
-template <bool INST, bool ANY>
+template <bool INST, bool ANY, bool TAN>
 __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tmin,
                      float tcap, float& best, int& win) {
   float iv[3];
@@ -768,10 +1005,10 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
         const float* box = w.l2 + 8 * slot;
         if (__ldg(box) > __ldg(box + 3)) continue;  // empty: pad slot
         if (!slab(box, o, iv, tmin, run, te)) continue;
-        const float* tr = w.tris + (size_t)__ldg(w.cmap + slot) * (CLUSTER_SIZE * CLU_ROWS);
+        const float* tr = w.tris + (size_t)__ldg(w.cmap + slot) * CLUSTER_SIZE * clu_rows<TAN>();
         for (int lane = 0; lane < CLUSTER_SIZE; ++lane) {
           float tt;
-          if (!clu_test(tr + lane * CLU_ROWS, ol, dl, tmin, tcap, tt)) continue;
+          if (!clu_test(tr + lane * clu_rows<TAN>(), ol, dl, tmin, tcap, tt)) continue;
           if (ANY) return true;
           const int gid = slot * CLUSTER_SIZE + lane;
           if (tt < best || (tt == best && gid < win)) {
@@ -786,17 +1023,38 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
   return false;
 }
 
+// The closest-hit walk of one ray below the scene box's widened slab exit
+// (pallas_bounce.py :1555-1560); returns the winner's global index or -1.
+template <bool INST, bool TAN>
+__device__ __forceinline__ int walk_closest(const Walk& w, const float o[3], const float d[3],
+                                            float tmin) {
+  float ex[3];
+  for (int c = 0; c < 3; ++c) {
+    const float iv = safe_inv(d[c]);
+    ex[c] = fmaxf((__ldg(w.gbox + c) - o[c]) * iv, (__ldg(w.gbox + 3 + c) - o[c]) * iv);
+  }
+  const float cap = fmaxf(fminf(fminf(ex[0], ex[1]), ex[2]), 0.0f) * C(1.0001) + C(1e-3);
+  float best = FMAX;
+  int win = -1;
+  walk<INST, false, TAN>(w, o, d, tmin, cap, best, win);
+  return win;
+}
+
+template <bool TAN>
+__device__ __forceinline__ const float* winner_row(const Walk& w, int win) {
+  return w.tris + ((size_t)__ldg(w.cmap + win / CLUSTER_SIZE) * CLUSTER_SIZE +
+                   win % CLUSTER_SIZE) * clu_rows<TAN>();
+}
+
 // Pass 2 (pallas_bounce.py :1882-1982): the winner's t, u, v recomputed in
 // f32 with the division form, and its attributes; an instanced winner
 // transforms its normals as covectors through A3 and takes its material
 // and flag from the instance row.
-template <bool INST>
+template <bool INST, bool TAN>
 __device__ __forceinline__ void pass2(const Walk& w, const float o[3], const float d[3],
                                       int win, Surf& sf) {
-  const int slot = win / CLUSTER_SIZE;
-  const float* tr = w.tris + ((size_t)__ldg(w.cmap + slot) * CLUSTER_SIZE +
-                              win % CLUSTER_SIZE) * CLU_ROWS;
-  const float* a = INST ? w.inst + INST_COLS * (slot / L1_FAN) : nullptr;
+  const float* tr = winner_row<TAN>(w, win);
+  const float* a = INST ? w.inst + INST_COLS * (win / CLUSTER_SIZE / L1_FAN) : nullptr;
   float ol[3], dl[3];
   if (INST) {
     to_local(a, o, d, ol, dl);
@@ -843,7 +1101,44 @@ __device__ __forceinline__ void pass2(const Walk& w, const float o[3], const flo
   for (int c = 0; c < 3; ++c) sf.nrm[c] = wb * n[0][c] + sf.u * n[1][c] + sf.v * n[2][c];
 }
 
-template <bool NEE, bool INST>
+// The trace finalize's extra attributes of a walk winner (pallas_bounce.py
+// _finalize_hits :3504): the interpolated uv and, with tangent rows, the
+// interpolated tangent (an instanced one to world space as a vector,
+// through the exact adjugate inverse of A3) and bitangent sign.
+template <bool INST, bool TAN>
+__device__ __forceinline__ void pass2_surface(const Walk& w, int win, float u, float v,
+                                              float uv[2], float tan[3], float& tbs) {
+  const float* tr = winner_row<TAN>(w, win);
+  const float wb = 1.0f - u - v;
+  for (int k = 0; k < 2; ++k)
+    uv[k] = wb * tr[CLU_UV + k] + u * tr[CLU_UV + 2 + k] + v * tr[CLU_UV + 4 + k];
+  if constexpr (TAN) {
+    float t[3];
+    for (int c = 0; c < 3; ++c)
+      t[c] = wb * tr[CLU_T0 + c] + u * tr[CLU_T1 + c] + v * tr[CLU_T2 + c];
+    tbs = wb * tr[CLU_BS] + u * tr[CLU_BS + 1] + v * tr[CLU_BS + 2];
+    if constexpr (INST) {
+      const float* a = w.inst + INST_COLS * (win / CLUSTER_SIZE / L1_FAN);
+      const float a00 = a[0], a01 = a[1], a02 = a[2], a10 = a[3], a11 = a[4], a12 = a[5];
+      const float a20 = a[6], a21 = a[7], a22 = a[8];
+      const float det = (a00 * (a11 * a22 - a12 * a21) - a01 * (a10 * a22 - a12 * a20) +
+                         a02 * (a10 * a21 - a11 * a20));
+      const float idet = 1.0f / (fabsf(det) > C(1e-30) ? det : 1.0f);
+      const float i00 = (a11 * a22 - a12 * a21) * idet, i01 = (a02 * a21 - a01 * a22) * idet;
+      const float i02 = (a01 * a12 - a02 * a11) * idet, i10 = (a12 * a20 - a10 * a22) * idet;
+      const float i11 = (a00 * a22 - a02 * a20) * idet, i12 = (a02 * a10 - a00 * a12) * idet;
+      const float i20 = (a10 * a21 - a11 * a20) * idet, i21 = (a01 * a20 - a00 * a21) * idet;
+      const float i22 = (a00 * a11 - a01 * a10) * idet;
+      tan[0] = t[0] * i00 + t[1] * i10 + t[2] * i20;
+      tan[1] = t[0] * i01 + t[1] * i11 + t[2] * i21;
+      tan[2] = t[0] * i02 + t[1] * i12 + t[2] * i22;
+    } else {
+      for (int c = 0; c < 3; ++c) tan[c] = t[c];
+    }
+  }
+}
+
+template <bool NEE, bool INST, bool TAN>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
             int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
@@ -867,33 +1162,91 @@ walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ 
     r.o[c] = state[(S_OX + c) * R + i];
     r.d[c] = state[(S_DX + c) * R + i];
   }
-
-  // closest hit below the scene box's widened slab exit (:1555-1560)
-  float cap;
-  {
-    float ex[3];
-    for (int c = 0; c < 3; ++c) {
-      const float iv = safe_inv(r.d[c]);
-      ex[c] = fmaxf((__ldg(w.gbox + c) - r.o[c]) * iv, (__ldg(w.gbox + 3 + c) - r.o[c]) * iv);
-    }
-    cap = fmaxf(fminf(fminf(ex[0], ex[1]), ex[2]), 0.0f) * C(1.0001) + C(1e-3);
-  }
-  float best = FMAX;
-  int win = -1;
-  walk<INST, false>(w, r.o, r.d, p[P_TMIN], cap, best, win);
-
+  const int win = walk_closest<INST, TAN>(w, r.o, r.d, p[P_TMIN]);
   load_path(r, state, R, i);
   r.hit = win >= 0;
   Surf sf = {};
   sf.t = FMAX;
-  if (r.hit) pass2<INST>(w, r.o, r.d, win, sf);
+  if (r.hit) pass2<INST, TAN>(w, r.o, r.d, win, sf);
   shade<NEE>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r);
 
   bool occ = false;
   if (NEE && r.do_trace) {
     float unused_t = FMAX;
     int unused_win = -1;
-    occ = walk<INST, true>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist, unused_t, unused_win);
+    occ = walk<INST, true, TAN>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist, unused_t, unused_win);
+  }
+  finish(p, r, occ, state, R, i);
+}
+
+// K3 over the walk: the closest hit, pass 2 and the finalize's extra
+// attributes into the hit buffer.
+template <bool INST, bool TAN>
+__global__ void __launch_bounds__(THREADS)
+trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ state,
+                  long long R, float* __restrict__ hit) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  if (!(state[S_ALIVE * R + i] > 0.5f)) {
+    write_dead(hit, TAN ? HIT_ROWS_TAN : HIT_ROWS, R, i);
+    return;
+  }
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = state[(S_OX + c) * R + i];
+    d[c] = state[(S_DX + c) * R + i];
+  }
+  const int win = walk_closest<INST, TAN>(w, o, d, __ldg(params + P_TMIN));
+  Surf sf = {};
+  sf.t = FMAX;
+  float uv[2] = {0.0f, 0.0f}, tan[3] = {0.0f, 0.0f, 0.0f}, tbs = 0.0f;
+  if (win >= 0) {
+    pass2<INST, TAN>(w, o, d, win, sf);
+    pass2_surface<INST, TAN>(w, win, sf.u, sf.v, uv, tan, tbs);
+  }
+  write_hit<TAN>(hit, R, i, win >= 0, o, d, sf, uv, tan, tbs);
+}
+
+// K4 over the walk: shading from the hit and parameter buffers, the NEE
+// shadow ray through the any-hit walk.
+template <bool NEE, bool INST, bool TAN>
+__global__ void __launch_bounds__(THREADS)
+shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
+                  int n_mats, const float* __restrict__ lights,
+                  const int8_t* __restrict__ ltypes, int n_lights, float* __restrict__ state,
+                  long long R, const float* __restrict__ hit, const float* __restrict__ par,
+                  int pb, int pe, int pm, int pr) {
+  extern __shared__ float4 smem4[];
+  float* s_mat = reinterpret_cast<float*>(smem4);
+  float* s_light = s_mat + n_mats * MAT_COLS;
+  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
+
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
+  if (!__syncthreads_or(alive)) return;
+  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  __syncthreads();
+  if (!alive) return;  // no block-wide step follows
+
+  float p[PARAMS_LEN];
+  for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
+  const int prow[4] = {pb, pe, pm, pr};
+  Ray r = {};
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = state[(S_OX + c) * R + i];
+    r.d[c] = state[(S_DX + c) * R + i];
+  }
+  load_path(r, state, R, i);
+  Hit h;
+  Mat m;
+  read_hit(hit, par, prow, s_mat, n_mats, R, i, r, h, m);
+  shade_miss(p, r);
+  if (r.hit) shade_core<NEE>(p, m, h, s_light, s_ltype, n_lights, r);
+  bool occ = false;
+  if (NEE && r.do_trace) {
+    float unused_t = FMAX;
+    int unused_win = -1;
+    occ = walk<INST, true, TAN>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist, unused_t, unused_win);
   }
   finish(p, r, occ, state, R, i);
 }
@@ -911,7 +1264,14 @@ size_t table_smem(int n_mats, int n_lights) {
          sizeof(int) * (size_t)n_lights;
 }
 
+constexpr size_t TILE_SMEM = sizeof(float) * TILE * TRI_ROWS;
+
+unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
+
 }  // namespace
+
+// the launch configuration of an entry point below: one thread per ray
+#define CONFIG(SMEM) <<<grid(n_rays), THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>
 
 extern "C" {
 
@@ -919,59 +1279,135 @@ const char* gatling_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1: one bounce over state [16, R] in place, on `stream`. Returns a
-// cudaError_t code (0 = launched).
-int gatling_bounce_step(const float* params, const float* tris, int n_tris,
+// Every entry point launches on `stream` and returns a cudaError_t code
+// (0 = launched). Resident tables are [n_tris, ld] (ld 32, or 48 with
+// tangent rows); walk tables carry their row length (40, or 56).
+
+// K1: one bounce over state [16, n_rays] in place.
+int gatling_bounce_step(const float* params, const float* tris, int n_tris, int ld,
                         const float* mats, int n_mats, const float* lights,
                         const int8_t* light_types, int n_lights, float* state,
                         long long n_rays, int nee, void* stream) {
   if (n_rays <= 0) return 0;
-  const size_t smem = sizeof(float) * (size_t)TILE * TRI_ROWS + table_smem(n_mats, n_lights);
-  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = TILE_SMEM + table_smem(n_mats, n_lights);
   int err;
+#define K1(NEE_)                                                                           \
+  if ((err = allow_smem(bounce_kernel<NEE_>, smem))) return err;                           \
+  bounce_kernel<NEE_> CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights,         \
+                                   light_types, n_lights, state, n_rays)
   if (nee) {
-    if ((err = allow_smem(bounce_kernel<true>, smem))) return err;
-    bounce_kernel<true><<<blocks, THREADS, smem, s>>>(params, tris, n_tris, mats, n_mats,
-                                                      lights, light_types, n_lights, state,
-                                                      n_rays);
+    K1(true);
   } else {
-    if ((err = allow_smem(bounce_kernel<false>, smem))) return err;
-    bounce_kernel<false><<<blocks, THREADS, smem, s>>>(params, tris, n_tris, mats, n_mats,
-                                                       lights, light_types, n_lights, state,
-                                                       n_rays);
+    K1(false);
+  }
+#undef K1
+  return (int)cudaGetLastError();
+}
+
+#define WALK_TABLES                                                                     \
+  const float *tris, const float *l1, const float *l2, const int *cmap, const float *inst, \
+      const float *nodes, const int *kids, const int *leaf_entries, const float *gbox,     \
+      int instanced, int rows
+#define WALK_STRUCT {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox}
+// the launch LAUNCH(nee, instanced, tangents) of the walk variant that
+// matches the runtime flags (tangent rows: rows == 56)
+#define WALK_VARIANTS(LAUNCH, NEE)                              \
+  do {                                                          \
+    const bool tan_ = rows == CLU_ROWS_TAN;                     \
+    if (NEE) {                                                  \
+      if (instanced && tan_) { LAUNCH(true, true, true); }      \
+      else if (instanced) { LAUNCH(true, true, false); }        \
+      else if (tan_) { LAUNCH(true, false, true); }             \
+      else { LAUNCH(true, false, false); }                      \
+    } else {                                                    \
+      if (instanced && tan_) { LAUNCH(false, true, true); }     \
+      else if (instanced) { LAUNCH(false, true, false); }       \
+      else if (tan_) { LAUNCH(false, false, true); }            \
+      else { LAUNCH(false, false, false); }                     \
+    }                                                           \
+  } while (0)
+
+// K2: one bounce over state [16, n_rays] in place through the two-level walk.
+int gatling_bounce_walk(const float* params, WALK_TABLES, const float* mats, int n_mats,
+                        const float* lights, const int8_t* light_types, int n_lights,
+                        float* state, long long n_rays, int nee, void* stream) {
+  if (n_rays <= 0) return 0;
+  const Walk w = WALK_STRUCT;
+  const size_t smem = table_smem(n_mats, n_lights);
+  int err;
+#define K2(NEE_, INST_, TAN_)                                                              \
+  if ((err = allow_smem(walk_kernel<NEE_, INST_, TAN_>, smem))) return err;                \
+  walk_kernel<NEE_, INST_, TAN_> CONFIG(smem)(params, w, mats, n_mats, lights, light_types, \
+                                              n_lights, state, n_rays)
+  WALK_VARIANTS(K2, nee);
+#undef K2
+  return (int)cudaGetLastError();
+}
+
+// K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
+int gatling_trace_resident(const float* params, const float* tris, int n_tris, int ld,
+                           const float* state, long long n_rays, float* hit, void* stream) {
+  if (n_rays <= 0) return 0;
+  if (ld == TRI_ROWS_TAN) {
+    trace_kernel<true> CONFIG(TILE_SMEM)(params, tris, n_tris, ld, state, n_rays, hit);
+  } else {
+    trace_kernel<false> CONFIG(TILE_SMEM)(params, tris, n_tris, ld, state, n_rays, hit);
   }
   return (int)cudaGetLastError();
 }
 
-// K2: one bounce over state [16, R] in place through the two-level walk.
-int gatling_bounce_walk(const float* params, const float* tris, const float* l1,
-                        const float* l2, const int* cmap, const float* inst,
-                        const float* nodes, const int* kids, const int* leaf_entries,
-                        const float* gbox, int instanced, const float* mats, int n_mats,
-                        const float* lights, const int8_t* light_types, int n_lights,
-                        float* state, long long n_rays, int nee, void* stream) {
+// K3 over the walk.
+int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, long long n_rays,
+                       float* hit, void* stream) {
   if (n_rays <= 0) return 0;
-  const Walk w = {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox};
-  const size_t smem = table_smem(n_mats, n_lights);
-  const unsigned blocks = (unsigned)((n_rays + THREADS - 1) / THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Walk w = WALK_STRUCT;
+#define K3(NEE_, INST_, TAN_) trace_walk_kernel<INST_, TAN_> CONFIG(0)(params, w, state, n_rays, hit)
+  WALK_VARIANTS(K3, false);
+#undef K3
+  return (int)cudaGetLastError();
+}
+
+// K4, resident: shade state [16, n_rays] in place from the hit buffer and
+// the parameter buffer, whose rows pb/pe/pm/pr hold base colour, emission,
+// metallic and roughness (-1: from the material table).
+int gatling_shade_resident(const float* params, const float* tris, int n_tris, int ld,
+                           const float* mats, int n_mats, const float* lights,
+                           const int8_t* light_types, int n_lights, float* state,
+                           long long n_rays, const float* hit, const float* par, int pb,
+                           int pe, int pm, int pr, int nee, void* stream) {
+  if (n_rays <= 0) return 0;
+  const size_t smem = TILE_SMEM + table_smem(n_mats, n_lights);
   int err;
-#define WALK_LAUNCH(NEE_, INST_)                                                          \
-  if ((err = allow_smem(walk_kernel<NEE_, INST_>, smem))) return err;              \
-  walk_kernel<NEE_, INST_><<<blocks, THREADS, smem, s>>>(params, w, mats, n_mats, lights, \
-                                                         light_types, n_lights, state,    \
-                                                         n_rays)
-  if (nee && instanced) {
-    WALK_LAUNCH(true, true);
-  } else if (nee) {
-    WALK_LAUNCH(true, false);
-  } else if (instanced) {
-    WALK_LAUNCH(false, true);
+#define K4(NEE_)                                                                           \
+  if ((err = allow_smem(shade_kernel<NEE_>, smem))) return err;                            \
+  shade_kernel<NEE_> CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights,          \
+                                  light_types, n_lights, state, n_rays, hit, par, pb, pe,  \
+                                  pm, pr)
+  if (nee) {
+    K4(true);
   } else {
-    WALK_LAUNCH(false, false);
+    K4(false);
   }
-#undef WALK_LAUNCH
+#undef K4
+  return (int)cudaGetLastError();
+}
+
+// K4 over the walk.
+int gatling_shade_walk(const float* params, WALK_TABLES, const float* mats, int n_mats,
+                       const float* lights, const int8_t* light_types, int n_lights,
+                       float* state, long long n_rays, const float* hit, const float* par,
+                       int pb, int pe, int pm, int pr, int nee, void* stream) {
+  if (n_rays <= 0) return 0;
+  const Walk w = WALK_STRUCT;
+  const size_t smem = table_smem(n_mats, n_lights);
+  int err;
+#define K4(NEE_, INST_, TAN_)                                                              \
+  if ((err = allow_smem(shade_walk_kernel<NEE_, INST_, TAN_>, smem))) return err;          \
+  shade_walk_kernel<NEE_, INST_, TAN_> CONFIG(smem)(params, w, mats, n_mats, lights,       \
+                                                    light_types, n_lights, state, n_rays,  \
+                                                    hit, par, pb, pe, pm, pr)
+  WALK_VARIANTS(K4, nee);
+#undef K4
   return (int)cudaGetLastError();
 }
 

@@ -1,38 +1,47 @@
-"""Frame times and the device-time breakdown of sphere_field on the card.
+"""Frame times and the device-time breakdown of a bench scene on the card.
 
-    python -m gatling_tpu_torch.frame_profile
+    python -m gatling_tpu_torch.frame_profile                    # sphere_field
+    python -m gatling_tpu_torch.frame_profile --scene interior   # textured interior
 
-On one CUDA card, for sphere_field at the JAX bench's settings (512x512,
-4 spp, 6 bounces), NEE off and on: one warm-up frame through `gi.render`,
+On one CUDA card, at the JAX bench's settings for big scenes (512x512,
+4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
+interior with NEE on. For each: one warm-up frame through `gi.render`,
 then five frames on the same scene (host clock around each, ending in the
 image's copy to the host; the framebuffer is reset each time), then one
 more under torch.profiler. Prints the frame times and Mray/s (traced
-segments over frame time), the profiled frame's device time by group (K1,
-K2, the coherence sort, other PyTorch kernels, copies) and its device
-idle share: the part of the frame's wall time in which no kernel or copy
-ran.
+segments over frame time), the profiled frame's device time by group (the
+kernels K1-K4, the coherence sort, other PyTorch kernels, copies) and its
+device idle share: the part of the frame's wall time in which no kernel
+or copy ran; and the eight PyTorch kernels that took the most of the
+rest. For the textured interior also the texture stage's time in
+that frame: CUDA events around each call of render/fused.py
+material_rows (its kernels and the gaps between them).
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
+import tempfile
 import time
 
 import torch
 
 from gatling_tpu_torch import gi
 from gatling_tpu_torch.interface import AovId
+from gatling_tpu_torch.render import fused
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
-GROUPS = (("K1 bounce_kernel", "bounce_kernel"), ("K2 walk_kernel", "walk_kernel"),
-          ("sort", "sort"), ("copies", "memcpy"))
+# kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
+GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
+          ("K2 walk_kernel", "walk_kernel"), ("sort", "sort"), ("copies", "memcpy"))
 
 
-def _params(nee: bool):
-    from gatling_tpu_torch.scene.examples import sphere_field
+def _params(scene_name: str, nee: bool, tex_dir: str):
+    from gatling_tpu_torch.scene.examples import interior, sphere_field
 
-    desc = sphere_field()
+    desc = interior(tex_dir=tex_dir) if scene_name == "interior" else sphere_field()
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
         scene.add_mesh(m)
@@ -65,13 +74,36 @@ def _busy_union(events) -> float:
     return busy
 
 
-def profile(nee: bool) -> None:
-    params = _params(nee)
+def _stage_ms(params) -> tuple[float, int]:
+    """One frame with CUDA events around each texture-stage call: the
+    stage's summed device time and its calls."""
+    real = fused.material_rows
+    spans = []
+
+    def timed(*args):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(*args)
+        b.record()
+        spans.append((a, b))
+        return out
+
+    fused.material_rows = timed
+    try:
+        _frame(params)
+    finally:
+        fused.material_rows = real
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans), len(spans)
+
+
+def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
+    params = _params(scene_name, nee, tex_dir)
     first = _frame(params)
     times = [_frame(params) for _ in range(FRAMES)]
     segs = params.scene.last_segments
     med = statistics.median(times)
-    print(f"sphere_field {RES}^2 {SPP} spp {BOUNCES} bounces nee={nee}: first frame (scene "
+    print(f"{scene_name} {RES}^2 {SPP} spp {BOUNCES} bounces nee={nee}: first frame (scene "
           f"build included) {first:.4f} s; frames {[round(t, 5) for t in times]} s; median "
           f"{med:.5f} s; {segs:.0f} segments; {segs / med / 1e6:.1f} Mray/s; route "
           f"{params.scene._fused_static}")
@@ -93,15 +125,32 @@ def profile(nee: bool) -> None:
           f"(busy {busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f})")
     for k, v in by.items():
         print(f"    {k}: {v:.3f} ms in {counts[k]} launches")
+    other: dict[str, list] = {}
+    for e in dev:
+        if not any(pat in e.name.lower() for _, pat in GROUPS):
+            o = other.setdefault(e.name[:90], [0.0, 0])
+            o[0] += (e.time_range.end - e.time_range.start) / 1e3
+            o[1] += 1
+    print("    the largest other kernels:")
+    for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"      {ms:.3f} ms in {n}: {name}")
+    if params.scene._fused_static.textured:
+        ms, calls = _stage_ms(params)
+        print(f"  texture stage (CUDA events around material_rows, one more frame): {ms:.3f} ms "
+              f"in {calls} calls")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("sphere_field", "interior"), default="sphere_field")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device; the port's timings come from the card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
-    for nee in (False, True):
-        profile(nee)
+    with tempfile.TemporaryDirectory(prefix="frame_profile_tex_") as tex_dir:
+        for nee in ((True,) if args.scene == "interior" else (False, True)):
+            profile(args.scene, nee, tex_dir)
     return 0
 
 

@@ -7,12 +7,14 @@ contract (sampleOffset persists across renders and resets when the
 framebuffer is invalidated, Gi.cpp:2125-2129,2515).
 
 The port renders on one device through the fused bounce kernels, and
-only what that path covers: untextured, cutout-free scenes of any size,
-instanced or not. Above 4096 triangles a scene takes the two-level walk
-(K2), in instance tables when the JAX package's rule picks them
-(ops/bounce.py MIN_GAIN), else in flattened clustered tables. `render`
-raises NotImplementedError, naming the ROADMAP item, for anything else; it
-never renders something else.
+only what that path covers: cutout-free scenes of any size, instanced or
+not, untextured or with 8-bit UsdUVTexture textures and normal maps. Above
+4096 triangles a scene takes the two-level walk, in instance tables when
+the JAX package's rule picks them (ops/bounce.py MIN_GAIN), else in
+flattened clustered tables. An untextured scene runs one kernel a bounce
+(K1 resident, K2 walk); a textured one the split bounce (K3 trace, the
+texture stage, K4 shade). `render` raises NotImplementedError, naming the
+ROADMAP item, for anything else; it never renders something else.
 """
 
 from __future__ import annotations
@@ -41,7 +43,14 @@ from gatling_tpu_torch.render.camera import camera_uniforms
 from gatling_tpu_torch.render.fused import render_pixels_fused
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms, blend_aovs
 from gatling_tpu_torch.render.lights import build_light_arrays
-from gatling_tpu_torch.render.material import build_material_table, lower_material
+from gatling_tpu_torch.render.material import (
+    MaterialTable,
+    build_materials,
+    lower_material,
+    substitute_texture_means,
+    textured_params,
+)
+from gatling_tpu_torch.render.texture import TextureManager
 from gatling_tpu_torch.scene.stage import CameraDesc, LightDesc, MaterialDesc, MeshDesc
 from gatling_tpu_torch.utils.config import default_settings
 from gatling_tpu_torch.utils.log import get_logger, init_logging
@@ -99,6 +108,9 @@ class GiScene:
         self._material_index: dict[str | None, int] = {}
         self._lowered_materials: list = []
         self._material_table = None
+        self._texture_manager = TextureManager()  # decoded textures, by path
+        self._texture_pool = None
+        self._material_dev = None  # the material table on the device, for the texture stage
         self._light_arrays = None
         self._fused: FusedScene | None = None
         self._fused_static: FusedStatic | None = None
@@ -191,6 +203,7 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
         progressive=bool(s.get("progressiveAccumulation", True)),
         aov_mask=aov_mask,
         has_dome=(params.dome_light or params.scene.dome_light) is not None,
+        tex_lod_bounces=int(s.get("textureLodBounces", 0)),
     )
 
 
@@ -211,8 +224,12 @@ def _check_route(params: GiRenderParams, config: RenderConfig) -> None:
     if config.aov_mask != aov_bit(AovId.COLOR):
         raise NotImplementedError(
             "only the COLOR AOV is ported; first-hit AOVs ride the split "
-            "kernels (ROADMAP: 'Textured split path'), the others the "
-            "wavefront integrator (ROADMAP: 'Wavefront integrator')")
+            "kernels (ROADMAP: 'First-hit AOVs, clipping and textured cutout'), the "
+            "others the wavefront integrator (ROADMAP: 'Wavefront integrator')")
+    if any("opacity" in m.textures for m in scene._lowered_materials):
+        raise NotImplementedError(
+            "textured opacity (cutout) is not ported yet "
+            "(ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
     if int(s.get("parallelDevices", 1) or 1) > 1:
         raise NotImplementedError(
             "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
@@ -222,13 +239,38 @@ def _check_route(params: GiRenderParams, config: RenderConfig) -> None:
             "vertex colours are not ported yet (ROADMAP: 'Wavefront integrator')")
 
 
+def _textured(scene: GiScene) -> bool:
+    pool = scene._texture_pool
+    return pool is not None and pool.packed
+
+
+def _with_split(scene: GiScene, static: FusedStatic) -> FusedStatic:
+    """The static of a textured scene names its textured parameters: it
+    renders through the split bounce."""
+    if not _textured(scene):
+        return static
+    return dataclasses.replace(static, textured=True,
+                               textured_params=textured_params(scene._lowered_materials))
+
+
+def _fused_mat_table(scene: GiScene) -> MaterialTable:
+    """The kernels' material table (gatling_tpu/gi.py:336-349): in a
+    textured scene the textured columns hold the texture means, which K4
+    never reads (the texture stage's rows override them) and the
+    textureLodBounces bounces shade with."""
+    if _textured(scene):
+        return substitute_texture_means(scene._material_table, scene._texture_pool)
+    return scene._material_table
+
+
 def _build_fused(scene: GiScene) -> None:
-    """The fused tables (gatling_tpu/gi.py:706-737): instance tables
+    """The fused tables (gatling_tpu/gi.py:706-756): instance tables
     first, the flattened build when the scene does not take them."""
-    check_slice(scene._geom, scene._material_table, real_triangles(scene._geom))
+    table = _fused_mat_table(scene)
+    check_slice(scene._geom, table, real_triangles(scene._geom))
     scene._clusters = UniqueClusters()
-    res = build_fused_scene_instanced(scene.meshes, scene._material_index,
-                                      scene._material_table, scene._light_arrays, scene.device,
+    res = build_fused_scene_instanced(scene.meshes, scene._material_index, table,
+                                      scene._light_arrays, scene.device,
                                       clusters=scene._clusters)
     scene._fused_order = None
     if res is not None:
@@ -238,7 +280,10 @@ def _build_fused(scene: GiScene) -> None:
                           scene._fused_static.n_clusters, scene._fused_static.n_tris)
     else:
         scene._fused, scene._fused_static, scene._fused_order = build_fused_scene_with_order(
-            scene._geom, scene._material_table, scene._light_arrays, scene.device)
+            scene._geom, table, scene._light_arrays, scene.device)
+        get_logger().info("flattened fused scene: %d triangles, %s", scene._fused_static.n_tris,
+                          "clustered" if scene._fused_static.clustered else "resident")
+    scene._fused_static = _with_split(scene, scene._fused_static)
 
 
 def _refit_fused(scene: GiScene) -> None:
@@ -247,13 +292,15 @@ def _refit_fused(scene: GiScene) -> None:
     which do not move; flattened ones refit their rows and boxes under the
     cached triangle order. A refit that leaves the instanced route drops
     the tables, to be built anew."""
+    table = _fused_mat_table(scene)
     if scene._fused_static.instanced:
         scene._fused = refit_instanced(scene._fused, scene._clusters, scene.meshes,
-                                       scene._material_index, scene._material_table)
+                                       scene._material_index, table)
     else:
-        scene._fused, scene._fused_static, scene._fused_order = build_fused_scene_with_order(
-            scene._geom, scene._material_table, scene._light_arrays, scene.device,
+        scene._fused, static, scene._fused_order = build_fused_scene_with_order(
+            scene._geom, table, scene._light_arrays, scene.device,
             reuse_order=scene._fused_order)
+        scene._fused_static = _with_split(scene, static)
 
 
 def render(params: GiRenderParams) -> None:
@@ -306,7 +353,9 @@ def render(params: GiRenderParams) -> None:
         for path, idx in scene._material_index.items():
             rows[idx] = lower_material(scene.materials.get(path) if path else None)
         scene._lowered_materials = rows
-        scene._material_table = build_material_table(rows)
+        scene._material_table, scene._texture_pool = build_materials(
+            rows, scene._texture_manager, scene.device)
+        scene._material_dev = scene._material_table.to(scene.device)
         scene._fused = None
     if scene.dirty & DirtyFlags.LIGHTS or scene._light_arrays is None:
         scene._light_arrays = build_light_arrays(scene.lights)
@@ -336,8 +385,11 @@ def render(params: GiRenderParams) -> None:
         max_volume_walk_length=int(s.get("maxVolumeWalkLength", 7)),
     )
     pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+    static = scene._fused_static
+    split = dict(materials=scene._material_dev, textures=scene._texture_pool,
+                 textured_params=static.textured_params) if static.textured else {}
     color, segs = render_pixels_fused(config, uniforms, scene._fused, pix, config.spp,
-                                      scene.sample_offset, with_stats=True)
+                                      scene.sample_offset, with_stats=True, **split)
     scene.last_segments = float(segs.sum()) * config.spp
     scene._color = blend_aovs(config, uniforms, {"color": scene._color}, color)["color"]
 

@@ -1,8 +1,13 @@
-"""Image output: an 8-bit RGB PNG writer on zlib + struct alone.
+"""Image IO on zlib, struct and numpy alone: an 8-bit PNG decoder and writer.
 
-The JAX package writes PNGs through Pillow, which the port does not depend
-on. Other formats (EXR, HDR, JPEG, ...) are not ported yet (ROADMAP: 'Dome
-lights' carries the HDR/EXR codecs).
+The JAX package decodes and writes LDR images through Pillow, which the
+port does not depend on. The decoder reads 8-bit, non-interlaced PNGs of
+every colour type (grey, RGB, palette with its PLTE/tRNS chunks, grey +
+alpha, RGBA) into the RGBA array that the JAX package's Pillow path gives
+for the same file: tRNS applies to palette images only, as Pillow's
+RGBA conversion of a "P" image does. Other bit depths, Adam7 interlacing
+and the JPEG/TGA/TIFF formats raise (ROADMAP: 'USD content'); EXR and
+Radiance HDR arrive with their codecs (ROADMAP: 'Dome lights').
 """
 
 from __future__ import annotations
@@ -13,32 +18,130 @@ import zlib
 
 import numpy as np
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def _unfilter(filt: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of filt [h, w, bpp] (uint8) with filter
+    types ftype [h]. Every filter predicts a byte from its left (a), upper
+    (b) and upper-left (c) neighbours, all on earlier anti-diagonals of the
+    pixel grid, so the pixels of one anti-diagonal are reconstructed
+    together, whatever mix of the five filters their rows use."""
+    h, w, _ = filt.shape
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown row filter {int(ftype.max())}")
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)  # row 0 and column 0: zeros
+    src = filt.astype(np.int32)
+    for d in range(h + w - 1):
+        r = np.arange(max(0, d - w + 1), min(h, d + 1))
+        x = d - r
+        a = out[r + 1, x]
+        b = out[r, x + 1]
+        c = out[r, x]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        t = ftype[r][:, None]
+        pred = np.where(t == 1, a, np.where(t == 2, b, np.where(
+            t == 3, (a + b) >> 1, np.where(t == 4, paeth, 0))))
+        out[r + 1, x + 1] = (src[r, x] + pred) & 0xFF
+    return out[1:, 1:].astype(np.uint8)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> [H, W, 4] uint8 RGBA."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos, idat, palette, trns, header = 8, [], None, None, None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if header is None:
+        raise ValueError("PNG: no IHDR chunk")
+    w, h, depth, ctype, _compression, _filter, interlace = header
+    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
+        raise NotImplementedError(
+            f"PNG of bit depth {depth}, colour type {ctype}, interlace {interlace}: only "
+            "8-bit non-interlaced PNGs are ported (ROADMAP: 'USD content')")
+    bpp = _CHANNELS[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
+    px = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0], bpp)
+    out = np.empty((h, w, 4), np.uint8)
+    out[..., 3] = 255
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("PNG: palette image without a PLTE chunk")
+        alpha = np.full(len(palette), 255, np.uint8)
+        if trns is not None:
+            alpha[:min(len(trns), len(alpha))] = trns[:len(alpha)]
+        idx = np.minimum(px[..., 0], len(palette) - 1)
+        out[..., :3] = palette[idx]
+        out[..., 3] = alpha[idx]
+    elif ctype in (0, 4):
+        out[..., :3] = px[..., :1]
+        if ctype == 4:
+            out[..., 3] = px[..., 1]
+    else:
+        out[..., :bpp] = px
+    return out
+
+
+def load_image(data: bytes) -> np.ndarray:
+    """Decode image bytes into [H, W, 4] uint8 RGBA (the JAX package's
+    imgio.load_image(data).data for the formats ported so far)."""
+    if data[:4] == b"\x76\x2f\x31\x01" or data[:2] == b"#?":
+        raise NotImplementedError("EXR and Radiance HDR images are not ported yet "
+                                  "(ROADMAP: 'Dome lights')")
+    if data[:8] != PNG_SIGNATURE:
+        raise NotImplementedError("only PNG images are decoded so far; JPEG, TGA and TIFF "
+                                  "are not ported yet (ROADMAP: 'USD content')")
+    return decode_png(data)
+
+
+def load_image_file(path: str | os.PathLike) -> np.ndarray:
+    with open(path, "rb") as f:
+        return load_image(f.read())
+
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + tag + data
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def encode_png(rgb: np.ndarray) -> bytes:
-    """[H, W, 3] uint8 -> PNG bytes (colour type 2, filter 0 per row)."""
-    rgb = np.ascontiguousarray(rgb, np.uint8)
-    h, w, c = rgb.shape
-    if c != 3:
-        raise ValueError(f"expected [H, W, 3] RGB, got {rgb.shape}")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n"
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+def encode_png(img: np.ndarray) -> bytes:
+    """[H, W, 3] or [H, W, 4] uint8 -> PNG bytes (colour type 2 or 6,
+    filter 0 on every row)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w, c = img.shape
+    if c not in (3, 4):
+        raise ValueError(f"expected [H, W, 3] RGB or [H, W, 4] RGBA, got {img.shape}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    return (PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + _chunk(b"IEND", b""))
 
 
-def write_image_file(path: str | os.PathLike, rgb: np.ndarray) -> None:
-    """Write [H, W, 3] floats in [0, 1] (or uint8) as an 8-bit PNG."""
+def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
+    """Write [H, W, 3] RGB or [H, W, 4] RGBA, floats in [0, 1] or uint8,
+    as an 8-bit PNG."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext != ".png":
         raise NotImplementedError(f"{ext} output is not ported yet; write .png")
-    rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8:
-        rgb = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:
-        f.write(encode_png(rgb))
+        f.write(encode_png(img))

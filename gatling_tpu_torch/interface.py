@@ -74,6 +74,9 @@ FLOAT_MIN = np.float32(1.175494351e-38)
 # u + v <= 1 + eps in every intersector.
 BARY_EPS = np.float32(1e-6)
 
+# Maximum number of texture slots (reference: rp_main.h MAX_TEXTURE_COUNT).
+MAX_TEXTURE_COUNT = 65535
+
 
 def f32(x: float) -> float:
     """Round a Python float to the nearest f32 value (what a kernel sees)."""

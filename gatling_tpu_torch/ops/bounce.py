@@ -15,16 +15,20 @@ layouts, as in the JAX package:
   the card a binary BVH over the level-1 entry boxes (the TLAS, built
   here) replaces the TPU's per-block walk plan.
 
-`bounce_step` runs:
+Normal-mapped scenes add per-corner tangent rows to either layout
+(`uses_tangents`). `bounce_step` runs one bounce of an untextured scene;
+a textured scene splits it into `trace_step` (the hit buffer) and
+`shade_step`, with the texture stage between (render/fused.py). Each runs:
 
-* on a CUDA tensor, the hand-written kernels of csrc/bounce.cu, built with
-  nvcc at first use into build/torch_ext/ and loaded with ctypes (a plain C
+* on a CUDA tensor, the hand-written kernels of csrc/bounce.cu (K1
+  resident and K2 walk bounce, K3 trace, K4 shade), built with nvcc at
+  first use into build/torch_ext/ and loaded with ctypes (a plain C
   interface: a source that includes PyTorch's headers takes minutes to
   build, this one seconds). A failed build or launch raises;
-* on a CPU tensor, the plain twin ops/bounce_ref.py.
+* on a CPU tensor, the plain twins ops/bounce_ref.py and ops/split_ref.py.
 
-Both are also registered as the operators `torch.ops.gatling.bounce_step`
-(K1) and `torch.ops.gatling.bounce_step_walk` (K2).
+They are registered as the operators `torch.ops.gatling.bounce_step` (K1),
+`bounce_step_walk` (K2), `trace_step` (K3) and `shade_step` (K4).
 """
 
 from __future__ import annotations
@@ -54,7 +58,9 @@ from gatling_tpu_torch.ops.bounce_ref import (
     CLU_OPAC,
     CLU_OPAC_SH,
     CLU_ROW_MAP,
+    CLU_ROW_MAP_TAN,
     CLU_TRI_ROWS,
+    CLU_TRI_ROWS_TAN,
     CLUSTER_SIZE,
     INST_COLS,
     L1_FAN,
@@ -76,11 +82,25 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TR_N2,
     TR_R1,
     TR_R2,
+    TR_BS,
+    TR_T0,
+    TR_T1,
+    TR_T2,
     TR_UV,
+    TRI_ROWS_TAN,
     WalkTables,
     bounce_ref,
 )
 from gatling_tpu_torch.ops.geometry import SceneGeometry
+from gatling_tpu_torch.ops.split_ref import (
+    HIT_ROWS,
+    HIT_ROWS_TAN,
+    has_tangents,
+    hit_row_count,
+    par_row_starts,
+    shade_ref,
+    trace_ref,
+)
 from gatling_tpu_torch.ops.sampling import u32_to_f32_bits
 from gatling_tpu_torch.render.material import (
     MF_ANISO,
@@ -136,6 +156,10 @@ class FusedStatic:
     n_clusters: int = 0   # 0: resident; instanced: unique local clusters
     n_l1: int = 1
     n_instances: int = 0  # > 0: instanced
+    tangents: bool = False  # per-corner tangent rows in the tables (normal maps)
+    # split-bounce mode (K3, the texture stage, K4): the scene has textures
+    textured: bool = False
+    textured_params: tuple[str, ...] = ()  # the parameters some material textures
 
     @property
     def clustered(self) -> bool:
@@ -249,9 +273,10 @@ def _light_table(light_arrays: LightArrays | None) -> tuple[np.ndarray, tuple[in
     return build_fused_lights(light_arrays)
 
 
-def tri_rows(geom) -> np.ndarray:
+def tri_rows(geom, tangents: bool = False) -> np.ndarray:
     """Per-triangle kernel rows [T, 32] (Baldwin-Weber precompute), built in
-    float64 and stored as f32."""
+    float64 and stored as f32; [T, 48] with the tangent rows TR_T0..TR_BS
+    of normal-mapped scenes (pallas_bounce.py _tri_rows)."""
     v0 = np.asarray(geom.v0, np.float64)
     e1 = np.asarray(geom.e1, np.float64)
     e2 = np.asarray(geom.e2, np.float64)
@@ -272,7 +297,7 @@ def tri_rows(geom) -> np.ndarray:
     degen = np.abs(n).sum(axis=1) == 0.0
     n = np.where(degen[:, None], 0.0, n)
 
-    rows = np.zeros((v0.shape[0], TRI_ROWS), np.float32)
+    rows = np.zeros((v0.shape[0], TRI_ROWS_TAN if tangents else TRI_ROWS), np.float32)
     rows[:, TR_N:TR_N + 3] = n
     rows[:, TR_D0] = d0
     rows[:, TR_R1:TR_R1 + 3] = r1
@@ -288,15 +313,29 @@ def tri_rows(geom) -> np.ndarray:
     rows[:, TR_UV:TR_UV + 2] = geom.uv0
     rows[:, TR_UV + 2:TR_UV + 4] = geom.uv1
     rows[:, TR_UV + 4:TR_UV + 6] = geom.uv2
+    if tangents:
+        rows[:, TR_T0:TR_T0 + 3] = geom.t0
+        rows[:, TR_T1:TR_T1 + 3] = geom.t1
+        rows[:, TR_T2:TR_T2 + 3] = geom.t2
+        rows[:, TR_BS:TR_BS + 3] = geom.bsign
     return rows
 
 
 def _material_pass(table: MaterialTable) -> np.ndarray:
-    """[M] stochastic-cutout pass probability per material (1 = opaque)."""
+    """[M] stochastic-cutout pass probability per material (1 = opaque);
+    opacity-textured materials count as opaque here, as in the JAX
+    package, where its re-trace stage resolves them."""
     pf = table.packed_f
-    return np.where(pf[:, MF_OPACITY_THRESH] > 0.0,
-                    (pf[:, MF_OPACITY] >= pf[:, MF_OPACITY_THRESH]).astype(np.float32),
-                    pf[:, MF_OPACITY])
+    per_mat = np.where(pf[:, MF_OPACITY_THRESH] > 0.0,
+                       (pf[:, MF_OPACITY] >= pf[:, MF_OPACITY_THRESH]).astype(np.float32),
+                       pf[:, MF_OPACITY])
+    return np.where(table.opacity_tex >= 0, 1.0, per_mat).astype(np.float32)
+
+
+def uses_tangents(table: MaterialTable) -> bool:
+    """Tangent rows ride the tables when a material binds a normal map
+    (pallas_bounce.py :663)."""
+    return bool((table.normal_tex >= 0).any())
 
 
 def check_slice(geom: SceneGeometry, table: MaterialTable, n_real: int) -> None:
@@ -344,10 +383,12 @@ def build_fused_scene_with_order(
     geom = SceneGeometry(*[arr[:n_real] for arr in geom])
     check_slice(geom, table, n_real)
     light_table, light_types = _light_table(light_arrays)
+    tangents = uses_tangents(table)
     if n_real <= resident_max:
-        scene = from_jax_tables(tri_rows(geom).T, table.packed_f, light_table, light_types,
-                                device)
-        return scene, FusedStatic(n_tris=n_real, light_types=light_types), None
+        scene = from_jax_tables(tri_rows(geom, tangents).T, table.packed_f, light_table,
+                                light_types, device)
+        return scene, FusedStatic(n_tris=n_real, light_types=light_types,
+                                  tangents=tangents), None
 
     order = reuse_order if reuse_order is not None else median_split_order(geom, n_real)
     arrays = clustered_arrays(geom, table, order)
@@ -355,7 +396,7 @@ def build_fused_scene_with_order(
     scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
                             l1=arrays.l1, l2=arrays.l2)
     static = FusedStatic(n_tris=n_real, light_types=light_types, n_clusters=n_clusters,
-                         n_l1=arrays.l1.shape[1])
+                         n_l1=arrays.l1.shape[1], tangents=tangents)
     return scene, static, order
 
 
@@ -414,12 +455,14 @@ def morton_order(geom, n_real: int) -> np.ndarray:
     return np.argsort(_morton_codes(v0 + (e1 + e2) / 3.0), kind="stable")
 
 
-def _cluster_rows(geom, n_clusters: int) -> np.ndarray:
+def _cluster_rows(geom, n_clusters: int, tangents: bool = False) -> np.ndarray:
     """[n_clusters * 128, 40] CLU_* rows of `geom`'s triangles in order,
-    padding rows zero."""
-    rows = tri_rows(geom)
-    out = np.zeros((n_clusters * CLUSTER_SIZE, CLU_TRI_ROWS), np.float32)
-    out[:rows.shape[0], [dst for _, dst in CLU_ROW_MAP]] = rows[:, [src for src, _ in CLU_ROW_MAP]]
+    padding rows zero; [.., 56] with the tangent rows CLU_T0..CLU_BS."""
+    rows = tri_rows(geom, tangents)
+    row_map = CLU_ROW_MAP_TAN if tangents else CLU_ROW_MAP
+    out = np.zeros((n_clusters * CLUSTER_SIZE, CLU_TRI_ROWS_TAN if tangents else CLU_TRI_ROWS),
+                   np.float32)
+    out[:rows.shape[0], [dst for _, dst in row_map]] = rows[:, [src for src, _ in row_map]]
     return out
 
 
@@ -450,10 +493,10 @@ def clustered_arrays(geom: SceneGeometry, table: MaterialTable,
     n_clusters = -(-n_real // CLUSTER_SIZE)
     n_l1 = -(-n_clusters // L1_FAN)
     c_pad = n_l1 * L1_FAN
-    rows = _cluster_rows(geom, c_pad)
+    rows = _cluster_rows(geom, c_pad, uses_tangents(table))
     rows[:n_real, CLU_OPAC] = pass_prob
     rows[:n_real, CLU_OPAC_SH] = pass_prob
-    tris = rows.reshape(c_pad, CLUSTER_SIZE, CLU_TRI_ROWS).transpose(0, 2, 1).copy()
+    tris = rows.reshape(c_pad, CLUSTER_SIZE, rows.shape[1]).transpose(0, 2, 1).copy()
 
     l2min, l2max = _cluster_boxes(geom, c_pad)
     l2 = np.zeros((8, c_pad), np.float32)
@@ -484,6 +527,8 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
     Returns (ClusterArrays, FusedStatic fields) or None when the scene
     does not take this route (the JAX package's rule, see MIN_GAIN)."""
     mat_pass = _material_pass(table)
+    tangents = uses_tangents(table)
+    n_rows = CLU_TRI_ROWS_TAN if tangents else CLU_TRI_ROWS
     clusters = UniqueClusters() if clusters is None else clusters
     uniq = clusters.meshes
     insts: list[dict] = []
@@ -496,9 +541,12 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
             p = tm.positions.reshape(-1, 3, 3)
             nrm = tm.normals.reshape(-1, 3, 3)
             uv = tm.uvs.reshape(-1, 3, 2)
+            tan = tm.tangents.reshape(-1, 3, 3)
             g = dict(v0=p[:, 0], e1=p[:, 1] - p[:, 0], e2=p[:, 2] - p[:, 0],
                      n0=nrm[:, 0], n1=nrm[:, 1], n2=nrm[:, 2],
                      uv0=uv[:, 0], uv1=uv[:, 1], uv2=uv[:, 2],
+                     t0=tan[:, 0], t1=tan[:, 1], t2=tan[:, 2],
+                     bsign=tm.bitangent_signs.reshape(-1, 3),
                      material_id=np.zeros(nt, np.int32), flags=np.zeros(nt, np.int32))
             order = median_split_order(SimpleNamespace(**g), nt) if nt > CLUSTER_SIZE \
                 else np.arange(nt)
@@ -523,7 +571,7 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
     if flat_tris <= min_flat or unique_tris == 0:
         return None
     gain = flat_tris / max(unique_tris, 1)
-    uniq_bytes = sum(i["n_clusters"] for i in uniq.values()) * CLUSTER_SIZE * CLU_TRI_ROWS * 4
+    uniq_bytes = sum(i["n_clusters"] for i in uniq.values()) * CLUSTER_SIZE * n_rows * 4
     object_walk = len(insts) >= 2 and uniq_bytes <= CLU_VMEM_MAX_BYTES
     if gain < min_gain and not object_walk:
         return None
@@ -534,12 +582,12 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
         # unique local clusters, then one all-degenerate cluster for pad slots
         blocks: list[np.ndarray] = []
         for info in uniq.values():
-            rows = _cluster_rows(info["geom"], info["n_clusters"])
+            rows = _cluster_rows(info["geom"], info["n_clusters"], tangents)
             rows[:info["n"], CLU_OPAC] = 1.0
             info["cluster_base"] = len(blocks)
-            blocks.extend(rows.reshape(-1, CLUSTER_SIZE, CLU_TRI_ROWS).transpose(0, 2, 1))
+            blocks.extend(rows.reshape(-1, CLUSTER_SIZE, n_rows).transpose(0, 2, 1))
             info["c_lo"], info["c_hi"] = _cluster_boxes(info["geom"], info["n_clusters"])
-        blocks.append(np.zeros((CLU_TRI_ROWS, CLUSTER_SIZE), np.float32))
+        blocks.append(np.zeros((n_rows, CLUSTER_SIZE), np.float32))
         clusters.tris = np.stack(blocks)
     tris = clusters.tris
     uc = tris.shape[0] - 1
@@ -589,7 +637,8 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
         inst_attr[e, 15] = inst["ds"]
     arrays = ClusterArrays(tris=tris, l1=l1, l2=l2, inst_smem=inst_smem, inst_map=inst_map,
                            inst_attr=inst_attr)
-    return arrays, dict(n_tris=flat_tris, n_clusters=uc, n_l1=n_l1, n_instances=len(insts))
+    return arrays, dict(n_tris=flat_tris, n_clusters=uc, n_l1=n_l1, n_instances=len(insts),
+                        tangents=tangents)
 
 
 def build_fused_scene_instanced(mesh_descs, material_index: dict, table: MaterialTable,
@@ -812,79 +861,134 @@ class BounceKernel:
             self.ptxas_log = res.stderr
         lib = ctypes.CDLL(str(self.path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        self._resident = lib.gatling_bounce_step
-        self._resident.restype = i32
-        self._resident.argtypes = [ptr, ptr, i32, ptr, i32, ptr, ptr, i32, ptr, i64, i32, ptr]
-        self._walk = lib.gatling_bounce_walk
-        self._walk.restype = i32
-        self._walk.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                               ptr, i32, ptr, ptr, i32, ptr, i64, i32, ptr]
+        walk = [ptr] * 9 + [i32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
+        shading = [ptr, i32, ptr, ptr, i32]  # mats n_mats lights light_types n_lights
+        self._fns = {}
+        for name, args in (
+                ("gatling_bounce_step", [ptr, ptr, i32, i32, *shading, ptr, i64, i32, ptr]),
+                ("gatling_bounce_walk", [ptr, *walk, i32, *shading, ptr, i64, i32, ptr]),
+                ("gatling_trace_resident", [ptr, ptr, i32, i32, ptr, i64, ptr, ptr]),
+                ("gatling_trace_walk", [ptr, *walk, i32, ptr, i64, ptr, ptr]),
+                ("gatling_shade_resident", [ptr, ptr, i32, i32, *shading, ptr, i64, ptr, ptr,
+                                            i32, i32, i32, i32, i32, ptr]),
+                ("gatling_shade_walk", [ptr, *walk, i32, *shading, ptr, i64, ptr, ptr,
+                                        i32, i32, i32, i32, i32, ptr])):
+            fn = getattr(lib, name)
+            fn.restype = i32
+            fn.argtypes = args
+            self._fns[name] = fn
         self._err = lib.gatling_error_string
         self._err.restype = ctypes.c_char_p
         self._err.argtypes = [ctypes.c_int]
 
+    def _call(self, name: str, *args) -> None:
+        rc = self._fns[name](*args)
+        if rc != 0:
+            raise RuntimeError(f"{name}: launch failed: {self._err(rc).decode()}")
+
     @staticmethod
-    def _check_common(params, mats, lights, light_types, state) -> None:
-        for name, t, dt in (("params", params, torch.float32), ("mats", mats, torch.float32),
-                            ("lights", lights, torch.float32),
-                            ("light_types", light_types, torch.int8),
-                            ("state", state, torch.float32)):
+    def _check_shading(mats, lights, light_types):
+        for name, t, dt in (("mats", mats, torch.float32), ("lights", lights, torch.float32),
+                            ("light_types", light_types, torch.int8)):
             _check(name, t, dt)
-        if params.numel() != PARAMS_LEN or state.dim() != 2 or state.shape[0] != STATE_ROWS \
-                or mats.shape[1] != 30 or lights.shape[1] != LIGHT_COLS \
+        if mats.shape[1] != 30 or lights.shape[1] != LIGHT_COLS \
                 or light_types.numel() > lights.shape[0]:
-            raise ValueError("bounce kernel: table or state shape mismatch")
+            raise ValueError("bounce kernel: material or light table shape mismatch")
         table_bytes = 4 * (mats.numel() + lights.numel())
         if table_bytes > SMEM_TABLE_MAX_BYTES:
             raise ValueError(f"bounce kernel: materials + lights take {table_bytes} B, "
                              f"above the {SMEM_TABLE_MAX_BYTES} B shared-memory budget")
+        return (mats.data_ptr(), mats.shape[0], lights.data_ptr(), light_types.data_ptr(),
+                light_types.numel())
 
-    def _raise(self, rc: int, what: str) -> None:
-        if rc != 0:
-            raise RuntimeError(f"{what} launch failed: {self._err(rc).decode()}")
+    @staticmethod
+    def _check_state(params, state):
+        _check("params", params, torch.float32)
+        _check("state", state, torch.float32)
+        if params.numel() != PARAMS_LEN or state.dim() != 2 or state.shape[0] != STATE_ROWS:
+            raise ValueError("bounce kernel: params or state shape mismatch")
 
-    def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
-        """K1: one bounce over a resident table tris [T, 32]."""
-        self._check_common(params, mats, lights, light_types, state)
+    @staticmethod
+    def _resident_args(tris):
         _check("tris", tris, torch.float32)
-        if tris.numel() and tris.shape[1] != TRI_ROWS:
-            raise ValueError("bounce kernel: resident tris must be [T, 32]")
-        rc = self._resident(params.data_ptr(), tris.data_ptr(), tris.shape[0],
-                            mats.data_ptr(), mats.shape[0], lights.data_ptr(),
-                            light_types.data_ptr(), light_types.numel(), state.data_ptr(),
-                            state.shape[1], int(bool(nee)),
-                            torch.cuda.current_stream(state.device).cuda_stream)
-        self._raise(rc, "bounce kernel (resident)")
+        if tris.dim() != 2 or tris.shape[1] not in (TRI_ROWS, TRI_ROWS_TAN):
+            raise ValueError("bounce kernel: resident tris must be [T, 32] or [T, 48]")
+        return tris.data_ptr(), tris.shape[0], tris.shape[1]
 
-    def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
-                    nee: bool) -> None:
-        """K2: one bounce over clustered tris [C * 128, 40] and their walk."""
-        self._check_common(params, mats, lights, light_types, state)
+    @staticmethod
+    def _walk_args(tris, walk: WalkTables):
         for name, t in zip(WalkTables._fields, walk):
             _check(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries")
                    else torch.float32)
         _check("tris", tris, torch.float32)
         n_l1 = walk.l1.shape[0]
-        if tris.dim() != 2 or tris.shape[1] != CLU_TRI_ROWS or tris.shape[0] % CLUSTER_SIZE \
-                or walk.l2.shape[0] != n_l1 * L1_FAN or walk.cmap.numel() != n_l1 * L1_FAN \
-                or walk.inst.shape[0] not in (0, n_l1) or walk.gbox.numel() != 8 \
-                or walk.leaf_entries.numel() != n_l1:
+        if tris.dim() != 2 or tris.shape[1] not in (CLU_TRI_ROWS, CLU_TRI_ROWS_TAN) \
+                or tris.shape[0] % CLUSTER_SIZE or walk.l2.shape[0] != n_l1 * L1_FAN \
+                or walk.cmap.numel() != n_l1 * L1_FAN or walk.inst.shape[0] not in (0, n_l1) \
+                or walk.gbox.numel() != 8 or walk.leaf_entries.numel() != n_l1:
             raise ValueError("bounce kernel: walk table shape mismatch")
-        rc = self._walk(params.data_ptr(), tris.data_ptr(), walk.l1.data_ptr(),
-                        walk.l2.data_ptr(), walk.cmap.data_ptr(), walk.inst.data_ptr(),
-                        walk.nodes.data_ptr(), walk.kids.data_ptr(),
-                        walk.leaf_entries.data_ptr(), walk.gbox.data_ptr(),
-                        int(walk.instanced), mats.data_ptr(), mats.shape[0],
-                        lights.data_ptr(), light_types.data_ptr(), light_types.numel(),
-                        state.data_ptr(), state.shape[1], int(bool(nee)),
-                        torch.cuda.current_stream(state.device).cuda_stream)
-        self._raise(rc, "bounce kernel (walk)")
+        return (tris.data_ptr(), *(t.data_ptr() for t in walk), int(walk.instanced),
+                tris.shape[1])
+
+    @staticmethod
+    def _check_split(state, hit, parbuf=None):
+        _check("hit", hit, torch.float32)
+        if hit.dim() != 2 or hit.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN) \
+                or hit.shape[1] != state.shape[1]:
+            raise ValueError("split kernels: hit buffer must be [16 or 24, R]")
+        if parbuf is not None:
+            _check("parbuf", parbuf, torch.float32)
+            if parbuf.dim() != 2 or parbuf.shape[0] < 8 or parbuf.shape[1] != state.shape[1]:
+                raise ValueError("split kernels: parameter buffer must be [rows, R]")
+
+    @staticmethod
+    def _stream(state):
+        return torch.cuda.current_stream(state.device).cuda_stream
+
+    def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
+        """K1: one bounce over a resident table tris [T, 32 or 48]."""
+        self._check_state(params, state)
+        self._call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris),
+                   *self._check_shading(mats, lights, light_types),
+                   state.data_ptr(), state.shape[1], int(bool(nee)), self._stream(state))
+
+    def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
+                    nee: bool) -> None:
+        """K2: one bounce over clustered tris [C * 128, 40 or 56] and their walk."""
+        self._check_state(params, state)
+        self._call("gatling_bounce_walk", params.data_ptr(), *self._walk_args(tris, walk),
+                   *self._check_shading(mats, lights, light_types),
+                   state.data_ptr(), state.shape[1], int(bool(nee)), self._stream(state))
+
+    def launch_trace(self, params, tris, walk: WalkTables | None, state,
+                     hit: torch.Tensor) -> None:
+        """K3: the hit buffer of every ray of `state` into `hit`."""
+        self._check_state(params, state)
+        self._check_split(state, hit)
+        if walk is None:
+            self._call("gatling_trace_resident", params.data_ptr(), *self._resident_args(tris),
+                       state.data_ptr(), state.shape[1], hit.data_ptr(), self._stream(state))
+        else:
+            self._call("gatling_trace_walk", params.data_ptr(), *self._walk_args(tris, walk),
+                       state.data_ptr(), state.shape[1], hit.data_ptr(), self._stream(state))
+
+    def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
+                     state, hit, parbuf, par_rows, nee: bool) -> None:
+        """K4: shade `state` in place from the hit and parameter buffers."""
+        self._check_state(params, state)
+        self._check_split(state, hit, parbuf)
+        geo = self._resident_args(tris) if walk is None else self._walk_args(tris, walk)
+        self._call("gatling_shade_resident" if walk is None else "gatling_shade_walk",
+                   params.data_ptr(), *geo,
+                   *self._check_shading(mats, lights, light_types),
+                   state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
+                   *[int(r) for r in par_rows], int(bool(nee)), self._stream(state))
 
 
 _kernel: BounceKernel | None = None
-# kernel launches made by bounce_step on CUDA tensors, by kernel
-# (chip_smoke.py reads them): K1 resident, K2 the two-level walk
-launches = {"K1": 0, "K2": 0}
+# kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
+# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
 def kernel() -> BounceKernel:
@@ -893,6 +997,10 @@ def kernel() -> BounceKernel:
     if _kernel is None:
         _kernel = BounceKernel()
     return _kernel
+
+
+def _walk(tensors) -> WalkTables | None:
+    return WalkTables(*tensors) if tensors else None
 
 
 def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool) -> None:
@@ -917,6 +1025,31 @@ def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes
     bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk)
 
 
+def _trace_cuda(params, tris, state, walk) -> torch.Tensor:
+    hit = torch.empty((hit_row_count(has_tangents(tris)), state.shape[1]), dtype=torch.float32,
+                      device=state.device)
+    kernel().launch_trace(params, tris, _walk(walk), state, hit)
+    launches["K3"] += 1
+    return hit
+
+
+def _trace_cpu(params, tris, state, walk) -> torch.Tensor:
+    return trace_ref(params, tris, state, _walk(walk))
+
+
+def _shade_cuda(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
+                nee: bool) -> None:
+    kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), state, hit,
+                          parbuf, par_rows, nee)
+    launches["K4"] += 1
+
+
+def _shade_cpu(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
+               nee: bool) -> None:
+    shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
+              par_rows, nee, _walk(walk))
+
+
 _lib = torch.library.Library("gatling", "DEF")
 _lib.define("bounce_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor(a!) state, bool nee) -> ()")
@@ -928,6 +1061,14 @@ _lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor li
             "bool nee) -> ()")
 _lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
 _lib.impl("bounce_step_walk", _walk_cpu, "CPU")
+_lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk) -> Tensor")
+_lib.impl("trace_step", _trace_cuda, "CUDA")
+_lib.impl("trace_step", _trace_cpu, "CPU")
+_lib.define("shade_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
+            "Tensor light_types, Tensor[] walk, Tensor hit, Tensor parbuf, int[] par_rows, "
+            "Tensor(a!) state, bool nee) -> ()")
+_lib.impl("shade_step", _shade_cuda, "CUDA")
+_lib.impl("shade_step", _shade_cpu, "CPU")
 
 
 def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
@@ -941,3 +1082,20 @@ def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     else:
         torch.ops.gatling.bounce_step_walk(params, scene.tris, scene.mats, scene.lights,
                                            scene.light_types, *scene.walk, state, bool(nee))
+
+
+def trace_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor) -> torch.Tensor:
+    """The split bounce's trace (K3 on a CUDA state, its twin on a CPU
+    one): the hit buffer [16, R] ([24, R] with tangent rows) of state
+    [16, R] (ops/split_ref.py H_* rows)."""
+    return torch.ops.gatling.trace_step(params, scene.tris, state, list(scene.walk or ()))
+
+
+def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
+               hitbuf: torch.Tensor, parbuf: torch.Tensor, textured_params, nee: bool) -> None:
+    """The split bounce's shade (K4 on a CUDA state, its twin on a CPU
+    one), in place: materials from scene.mats, the textured parameters
+    from parbuf in the slim layout of `textured_params`."""
+    torch.ops.gatling.shade_step(params, scene.tris, scene.mats, scene.lights,
+                                 scene.light_types, list(scene.walk or ()), hitbuf, parbuf,
+                                 par_row_starts(textured_params), state, bool(nee))

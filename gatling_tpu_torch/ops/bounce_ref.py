@@ -16,17 +16,22 @@ rounding. Two closest-hit searches feed the same shading:
   triangle index (cluster * 128 + lane), and the winner's t, u, v are
   recomputed with pass 2's division form.
 
-The tests hold it against the JAX kernel; chip_smoke.py holds the CUDA
-kernels against it on the card; the CLI's `--device cpu` renders with it.
+Its searches and its shading core (`shade_core`) also serve the split
+bounce's twins (ops/split_ref.py). The tests hold it against the JAX
+kernel; chip_smoke.py holds the CUDA kernels against it on the card; the
+CLI's `--device cpu` renders with it.
 
 Layouts shared with the kernels:
 * state [16, R] f32: rows 0-2 origin, 3-5 dir, 6-8 throughput,
   9-11 radiance, 12 rng (uint32 bits), 13 alive, 14 miss record
   (1 + bounce at which the ray missed), 15 traced-segment count;
 * resident tris [T, 32] f32, triangle-major: Baldwin-Weber plane and
-  barycentric rows plus shading attributes (TR_* columns);
+  barycentric rows plus shading attributes (TR_* columns); [T, 48] with
+  the tangent rows of normal-mapped scenes, which only the split trace
+  reads;
 * clustered tris [C * 128, 40] f32: 128-triangle clusters, triangle-major
   rows in the CLU_* layout (the JAX package's [C, 40, 128] transposed);
+  [C * 128, 56] with tangent rows;
 * mats [M, 30] f32 packed material rows; lights [max(L,1), 20] f32 with
   a type-major slot order (LT_* per slot);
 * params [11] f32 (P_* entries);
@@ -61,6 +66,13 @@ TR_MAT = 24
 TR_DS = 25
 TR_UV = 26    # 26-31: uv0.xy uv1.xy uv2.xy
 TRI_ROWS = 32
+# tangent extension of normal-mapped scenes: per-corner tangents and
+# bitangent signs, read by the trace kernel K3 only
+TR_T0 = 32    # 32-34, 35-37, 38-40: tangents per corner
+TR_T1 = 35
+TR_T2 = 38
+TR_BS = 41    # 41-43: bitangent signs per corner
+TRI_ROWS_TAN = 48
 
 # clustered layout (pallas_bounce.py CLU_*): a permutation of the TR_*
 # columns in which each Baldwin-Weber quad (n d0 | r1 c1 | r2 c2) starts at
@@ -80,6 +92,11 @@ CLU_UV = 28   # 28-33 uv0.xy uv1.xy uv2.xy
 CLU_OPAC = 34     # cutout pass probability, camera walk (1 = opaque)
 CLU_OPAC_SH = 35  # cutout pass probability, shadow walk
 CLU_TRI_ROWS = 40
+CLU_T0 = 40   # tangent extension: 40-42, 43-45, 46-48 tangents per corner
+CLU_T1 = 43
+CLU_T2 = 46
+CLU_BS = 49   # 49-51: bitangent signs per corner
+CLU_TRI_ROWS_TAN = 56
 CLU_ROW_MAP = (  # (TR_* column, CLU_* column)
     (TR_N, CLU_N), (TR_N + 1, CLU_N + 1), (TR_N + 2, CLU_N + 2), (TR_D0, CLU_N + 3),
     (TR_R1, CLU_R1), (TR_R1 + 1, CLU_R1 + 1), (TR_R1 + 2, CLU_R1 + 2), (TR_R1 + 3, CLU_R1 + 3),
@@ -91,6 +108,7 @@ CLU_ROW_MAP = (  # (TR_* column, CLU_* column)
     (TR_UV, CLU_UV), (TR_UV + 1, CLU_UV + 1), (TR_UV + 2, CLU_UV + 2),
     (TR_UV + 3, CLU_UV + 3), (TR_UV + 4, CLU_UV + 4), (TR_UV + 5, CLU_UV + 5),
 )
+CLU_ROW_MAP_TAN = CLU_ROW_MAP + tuple((TR_T0 + i, CLU_T0 + i) for i in range(12))
 # the pass-1 test columns: the three quads
 _CLU_TEST_COLS = (CLU_N, CLU_N + 1, CLU_N + 2, CLU_N + 3, CLU_R1, CLU_R1 + 1, CLU_R1 + 2,
                   CLU_R1 + 3, CLU_R2, CLU_R2 + 1, CLU_R2 + 2, CLU_R2 + 3)
@@ -251,9 +269,9 @@ def _to_local(a: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
 
 
 def _test_rows(tris: torch.Tensor) -> torch.Tensor:
-    """[C * 128, 40] clustered tris -> [C, 128, 12] pass-1 quads."""
+    """[C * 128, 40 or 56] clustered tris -> [C, 128, 12] pass-1 quads."""
     cols = torch.tensor(_CLU_TEST_COLS, device=tris.device)
-    return tris.reshape(-1, CLUSTER_SIZE, CLU_TRI_ROWS).index_select(2, cols)
+    return tris.reshape(-1, CLUSTER_SIZE, tris.shape[1]).index_select(2, cols)
 
 
 def _candidates(walk: WalkTables, o, iv, rays, e0: int, e1: int, tmin, tcap):
@@ -378,13 +396,17 @@ def walk_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.T
 
 
 def walk_hit_attrs(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
-                   win: torch.Tensor):
+                   win: torch.Tensor, surface: bool = False):
     """Pass 2 (pallas_bounce.py :1882-1982): the winner's t, u, v
     recomputed in f32 with the division form, and its attributes. An
     instanced winner takes its normals as covectors through A3 and its
     material and double-sided flag from the instance row. Returns (t, u,
     v, gn, n0, n1, n2, mat_f, dsided), vectors as 3-tuples; t is FLOAT_MAX
-    and the rest 0 where win < 0."""
+    and the rest 0 where win < 0. With `surface` (the trace kernel's
+    finalize, pallas_bounce.py _finalize_hits :3504) also the interpolated
+    uv (2-tuple) and, on a table with tangent rows, the interpolated
+    tangent (3-tuple; an instanced one taken to world space as a vector,
+    through the exact inverse of A3) and bitangent sign, else None."""
     hit = win >= 0
     w = win.clamp(min=0)
     slot = w // CLUSTER_SIZE
@@ -428,7 +450,47 @@ def walk_hit_attrs(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: tor
         return _where(hit, x, 0.0)
 
     gn, n0, n1, n2 = (tuple(keep(x) for x in vv) for vv in (gn, n0, n1, n2))
-    return t, keep(u), keep(v), gn, n0, n1, n2, keep(mat_f), keep(dsided)
+    u, v = keep(u), keep(v)
+    out = (t, u, v, gn, n0, n1, n2, keep(mat_f), keep(dsided))
+    if not surface:
+        return out
+    w = 1.0 - u - v
+    uv = tuple(keep(w * c[CLU_UV + k] + u * c[CLU_UV + 2 + k] + v * c[CLU_UV + 4 + k])
+               for k in range(2))
+    tan = tbs = None
+    if tris.shape[1] == CLU_TRI_ROWS_TAN:
+        tan = tuple(w * c[CLU_T0 + k] + u * c[CLU_T1 + k] + v * c[CLU_T2 + k] for k in range(3))
+        tbs = keep(w * c[CLU_BS] + u * c[CLU_BS + 1] + v * c[CLU_BS + 2])
+        if walk.instanced:
+            tan = _vec_to_world(a, *tan)
+        tan = tuple(keep(x) for x in tan)
+    return out + (uv, tan, tbs)
+
+
+def _vec_to_world(a: torch.Tensor, x, y, z):
+    """A local vector to world space through the inverse of A3 (rows a
+    [R, 16], A3[j, i] at 3j + i), by the exact adjugate: the transform of a
+    tangent, which A3^T (a normal's) would skew under a non-uniform scale
+    (pallas_bounce.py :3578-3602)."""
+    a00, a01, a02 = a[:, 0], a[:, 1], a[:, 2]
+    a10, a11, a12 = a[:, 3], a[:, 4], a[:, 5]
+    a20, a21, a22 = a[:, 6], a[:, 7], a[:, 8]
+    det = (a00 * (a11 * a22 - a12 * a21)
+           - a01 * (a10 * a22 - a12 * a20)
+           + a02 * (a10 * a21 - a11 * a20))
+    idet = 1.0 / _where(torch.abs(det) > 1e-30, det, 1.0)
+    i00 = (a11 * a22 - a12 * a21) * idet
+    i01 = (a02 * a21 - a01 * a22) * idet
+    i02 = (a01 * a12 - a02 * a11) * idet
+    i10 = (a12 * a20 - a10 * a22) * idet
+    i11 = (a00 * a22 - a02 * a20) * idet
+    i12 = (a02 * a10 - a00 * a12) * idet
+    i20 = (a10 * a21 - a11 * a20) * idet
+    i21 = (a01 * a20 - a00 * a21) * idet
+    i22 = (a00 * a11 - a01 * a10) * idet
+    return (x * i00 + y * i10 + z * i20,
+            x * i01 + y * i11 + z * i21,
+            x * i02 + y * i12 + z * i22)
 
 
 def sample_lights(lights: torch.Tensor, light_types: tuple[int, ...],
@@ -547,12 +609,83 @@ def area_num(area: float, cosl: torch.Tensor) -> torch.Tensor:
     return area * cosl if area > 0.0 else torch.ones_like(cosl)
 
 
+def resident_hits(tris: torch.Tensor, o, d, tmin: float):
+    """Closest hits over a resident table: (t, u, v, winner rows [R, rows],
+    zero where nothing is hit); t is FLOAT_MAX on a miss."""
+    best_t, u, v, win = closest_hit(tris, o, d, tmin)
+    if tris.shape[0]:
+        attrs = _where((win >= 0)[:, None], tris[win.clamp(min=0)], 0.0)
+    else:
+        attrs = torch.zeros((win.shape[0], tris.shape[1]), dtype=torch.float32,
+                            device=win.device)
+    return best_t, u, v, attrs
+
+
+def surface_state(o, d, t, u, v, gn, n0, n1, n2):
+    """The shading state of a hit (the trace epilogue of the kernels):
+    position, the geometric normal and the interpolated, normalised
+    shading normal, both turned to face the ray, and the facing flag.
+    Vectors are 3-tuples of [R] tensors."""
+    pos = tuple(o[c] + t * d[c] for c in range(3))
+    w = 1.0 - u - v
+    nx, ny, nz = (w * n0[c] + u * n1[c] + v * n2[c] for c in range(3))
+    nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
+    nx, ny, nz = nx * nlen, ny * nlen, nz * nlen
+    front = (gn[0] * -d[0] + gn[1] * -d[1] + gn[2] * -d[2]) >= 0.0
+    fsign = _where(front, 1.0, -1.0)
+    return (pos, tuple(x * fsign for x in gn), (nx * fsign, ny * fsign, nz * fsign), front)
+
+
+def material_rows(mats: torch.Tensor, mat_f: torch.Tensor) -> list[torch.Tensor]:
+    """The 12 shading parameters (_MAT_COLS) of each ray's material row;
+    ids outside the table resolve to zeros."""
+    m_id = torch.round(mat_f).to(torch.int64)
+    m_ok = (m_id >= 0) & (m_id < mats.shape[0])
+    mrow = _where(m_ok[:, None], mats[m_id.clamp(0, mats.shape[0] - 1)], 0.0)
+    return [mrow[:, c] for c in _MAT_COLS]
+
+
 def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
                lights: torch.Tensor, light_types: tuple[int, ...],
                state: torch.Tensor, nee: bool, walk: WalkTables | None = None) -> None:
     """One bounce over state [16, R], updated in place: resident tris
-    [T, 32] without `walk`, clustered tris [C * 128, 40] with it."""
+    [T, 32 or 48] without `walk`, clustered tris [C * 128, 40 or 56] with it."""
     p = [f32(x) for x in params.tolist()]
+    o, d = (state[0], state[1], state[2]), (state[3], state[4], state[5])
+    alive = state[13] > 0.5
+    if walk is None:
+        best_t, u, v, attrs = resident_hits(tris, o, d, p[P_TMIN])
+        hit = alive & (best_t < _FMAX)
+        gn, n0, n1, n2 = ((attrs[:, c], attrs[:, c + 1], attrs[:, c + 2])
+                          for c in (TR_GN, TR_N0, TR_N1, TR_N2))
+        mat_f, dsided = attrs[:, TR_MAT], attrs[:, TR_DS]
+    else:
+        o3, d3 = torch.stack(o, 1), torch.stack(d, 1)
+        win = walk_closest(walk, tris, o3, d3, alive, p[P_TMIN])
+        # best_t caps at FLOAT_MAX on a miss; the hit flag is the winner
+        hit = alive & (win >= 0)
+        best_t, u, v, gn, n0, n1, n2, mat_f, dsided = walk_hit_attrs(walk, tris, o3, d3, win)
+    pos, gn, n, front = surface_state(o, d, best_t, u, v, gn, n0, n1, n2)
+    shade_core(p, state, hit, pos, gn, n, front, dsided, material_rows(mats, mat_f), lights,
+               light_types, nee, occluder(tris, walk))
+
+
+def occluder(tris: torch.Tensor, walk: WalkTables | None):
+    """The any-hit test of NEE shadow rays over a resident table or a walk."""
+    if walk is None:
+        return lambda o, d, dist: occluded(tris, o, d, dist)
+    return lambda o, d, dist: walk_occluded(walk, tris, torch.stack(o, 1), torch.stack(d, 1),
+                                            dist)
+
+
+def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, n,
+               front: torch.Tensor, dsided: torch.Tensor, mrow: list[torch.Tensor],
+               lights: torch.Tensor, light_types: tuple[int, ...], nee: bool,
+               occluded_fn) -> None:
+    """Miss background, emission, BSDF sampling, the NEE shadow ray,
+    russian roulette and the state write-back of one bounce, given each
+    ray's hit and shading state (pallas_bounce.py _shade_core, shared by
+    the bounce and the split shade step). `state` is updated in place."""
     s = state
     ox, oy, oz = s[0], s[1], s[2]
     dx, dy, dz = s[3], s[4], s[5]
@@ -561,60 +694,18 @@ def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
     rng = f32_bits_to_u32(s[12])
     alive = s[13] > 0.5
     bounce = p[P_BOUNCE]
-
-    # ---- closest hit ----
-    if walk is None:
-        best_t, u, v, win = closest_hit(tris, (ox, oy, oz), (dx, dy, dz), p[P_TMIN])
-        hit = alive & (best_t < _FMAX)
-        if tris.shape[0]:
-            attrs = _where((win >= 0)[:, None], tris[win.clamp(min=0)], 0.0)
-        else:
-            attrs = torch.zeros((win.shape[0], TRI_ROWS), dtype=torch.float32,
-                                device=win.device)
-        gn, n0, n1, n2 = ((attrs[:, c], attrs[:, c + 1], attrs[:, c + 2])
-                          for c in (TR_GN, TR_N0, TR_N1, TR_N2))
-        mat_f, dsided = attrs[:, TR_MAT], attrs[:, TR_DS]
-
-        def occluded_fn(o, d, dist):
-            return occluded(tris, o, d, dist)
-    else:
-        o3 = torch.stack([ox, oy, oz], 1)
-        d3 = torch.stack([dx, dy, dz], 1)
-        win = walk_closest(walk, tris, o3, d3, alive, p[P_TMIN])
-        # best_t caps at FLOAT_MAX on a miss; the hit flag is the winner
-        hit = alive & (win >= 0)
-        best_t, u, v, gn, n0, n1, n2, mat_f, dsided = walk_hit_attrs(walk, tris, o3, d3, win)
-
-        def occluded_fn(o, d, dist):
-            return walk_occluded(walk, tris, torch.stack(o, 1), torch.stack(d, 1), dist)
     miss = alive & ~hit
+    posx, posy, posz = pos
     gnx, gny, gnz = gn
+    nx, ny, nz = n
+    (base_r, base_g, base_b, metallic, roughness, ior,
+     em_r, em_g, em_b, transm, thinw, bf_edf) = mrow
 
     # ---- miss: constant background (dome radiance is not ported) ----
     radx = radx + _where(miss, tpx * p[P_BG_R], 0.0)
     rady = rady + _where(miss, tpy * p[P_BG_G], 0.0)
     radz = radz + _where(miss, tpz * p[P_BG_B], 0.0)
     miss_rec = _where(miss, bounce + 1.0, s[14])
-
-    # ---- shading state ----
-    posx = ox + best_t * dx
-    posy = oy + best_t * dy
-    posz = oz + best_t * dz
-    w = 1.0 - u - v
-    nx, ny, nz = (w * n0[c] + u * n1[c] + v * n2[c] for c in range(3))
-    nlen = 1.0 / torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-20))
-    nx, ny, nz = nx * nlen, ny * nlen, nz * nlen
-    front = (gnx * -dx + gny * -dy + gnz * -dz) >= 0.0
-    fsign = _where(front, 1.0, -1.0)
-    gnx, gny, gnz = gnx * fsign, gny * fsign, gnz * fsign
-    nx, ny, nz = nx * fsign, ny * fsign, nz * fsign
-
-    # ---- material rows (ids outside the table resolve to zeros) ----
-    m_id = torch.round(mat_f).to(torch.int64)
-    m_ok = (m_id >= 0) & (m_id < mats.shape[0])
-    mrow = _where(m_ok[:, None], mats[m_id.clamp(0, mats.shape[0] - 1)], 0.0)
-    (base_r, base_g, base_b, metallic, roughness, ior,
-     em_r, em_g, em_b, transm, thinw, bf_edf) = (mrow[:, c] for c in _MAT_COLS)
 
     # ---- emission: front face, backface of single-sided geometry, or
     # thin-walled backface EDF (rp_main.chit:304-315) ----

@@ -1,15 +1,22 @@
 """Fused render path: the sample loop around the bounce kernels.
 
-Port of the JAX package's render/fused.py `render_pixels_fused` for an
-untextured scene: camera rays for a batch of samples, packed into the
-[16, R] ray state; `bounce_step` advances every ray one bounce per call
-(closest hit, shading, NEE shadow ray, russian roulette) until
-`max_bounces` or until no ray is alive; then the per-sample radiance clamp
-and the accumulation. Per-sample RNG streams equal the JAX package's.
+Port of the JAX package's render/fused.py `render_pixels_fused`: camera
+rays for a batch of samples, packed into the [16, R] ray state; every
+bounce advances every ray (closest hit, shading, NEE shadow ray, russian
+roulette) until `max_bounces` or until no ray is alive; then the
+per-sample radiance clamp and the accumulation. Per-sample RNG streams
+equal the JAX package's. An untextured scene runs one kernel a bounce,
+`bounce_step` (K1 or K2). A textured one splits the bounce: `trace_step`
+(K3) writes the hit buffer, `material_rows`, the texture stage, samples
+the textured parameters with plain torch gathers (and perturbs the
+shading normal of normal-mapped scenes), and `shade_step` (K4) shades;
+with textureLodBounces = k, bounces k and later run `bounce_step` on the
+kernels' material table, which holds the texture means.
 
 A dead ray costs the kernels one load of its alive row, so the port keeps
 no alive-ray partition between bounces (the TPU path partitions 128-ray
-chunks because each kernel block there has a fixed cost). Clustered and
+chunks, and runs the texture stage over the live prefix only, because
+each kernel block there has a fixed cost). Clustered and
 instanced scenes keep the JAX path's coherence measures: a full frame's
 pixels go in 32x32 tiles, and the rays are sorted after every bounce by
 direction octant and origin Morton cell (dead rays last), which puts rays
@@ -28,11 +35,31 @@ from gatling_tpu_torch.ops.bounce import (
     bounce_step,
     make_params,
     pack_state,
+    shade_step,
+    trace_step,
     unpack_radiance,
     unpack_rows,
 )
+from gatling_tpu_torch.ops.split_ref import (
+    H_BS,
+    H_MAT,
+    H_N,
+    H_TAN,
+    H_UVX,
+    H_UVY,
+    HIT_ROWS,
+    slim_param_layout,
+    slim_param_rows,
+)
 from gatling_tpu_torch.render.camera import generate_primary_rays
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
+from gatling_tpu_torch.render.material import (
+    MaterialTable,
+    apply_textures,
+    gather_params,
+    perturb_normal,
+)
+from gatling_tpu_torch.render.texture import TexturePool
 
 # samples of one pixel traced together in one ray wave, up to this many rays
 SPP_BATCH_RAYS = 4194304
@@ -75,17 +102,46 @@ def coherence_keys(state: torch.Tensor, scene_lo: torch.Tensor,
     return torch.where(state[13] > 0.5, (octant << 15) | morton, 0xFFFFFFFF)
 
 
+def material_rows(materials: MaterialTable, textures: TexturePool, hitbuf: torch.Tensor,
+                  active: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The texture stage between trace_step and shade_step (render/fused.py
+    _material_rows): (the slim parameter buffer of the textured parameters
+    `active`, the hit buffer). When the hit buffer carries tangent rows,
+    its H_N rows come back normal-mapped. `materials` is the raw material
+    table on the device; missed and dead rays read row 0 harmlessly."""
+    mat = torch.clamp(torch.round(hitbuf[H_MAT]).to(torch.int32), min=0)
+    uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
+    p = apply_textures(materials, textures, gather_params(materials, mat), mat, uv, active)
+    rows: list[torch.Tensor] = []
+    for name, _row in slim_param_layout(active):
+        val = p[name]
+        rows += list(val.T) if val.dim() == 2 else [val]
+    rows += [torch.zeros_like(hitbuf[0])] * (slim_param_rows(active) - len(rows))
+    if hitbuf.shape[0] > HIT_ROWS:
+        n = hitbuf[H_N:H_N + 3].T
+        t = hitbuf[H_TAN:H_TAN + 3].T
+        b = torch.linalg.cross(n, t) * hitbuf[H_BS][:, None]
+        hitbuf = hitbuf.clone()
+        hitbuf[H_N:H_N + 3] = perturb_normal(materials, textures, mat, uv, n, t, b).T
+    return torch.stack(rows), hitbuf
+
+
 def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedScene,
                         pixel_index: torch.Tensor, spp: int, sample_offset: int,
-                        with_stats: bool = False):
+                        with_stats: bool = False, materials: MaterialTable | None = None,
+                        textures: TexturePool | None = None,
+                        textured_params: tuple[str, ...] = ()):
     """Mean color [R,3] over spp samples of the pixels `pixel_index`; with
     with_stats also the mean traced-segment count per sample [R] (path
-    segments + NEE shadow rays: the Mray/s accounting source)."""
+    segments + NEE shadow rays: the Mray/s accounting source). With
+    `textures` (and the raw device `materials` and the textured parameter
+    names) the bounces split into trace, texture stage and shade."""
     if config.has_dome:
         raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
     if config.clipping_planes:
         raise NotImplementedError(
-            "camera clipping planes are not ported yet (ROADMAP: 'Textured split path')")
+            "camera clipping planes are not ported yet "
+            "(ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
     device = pixel_index.device
     r = pixel_index.shape[0]
     pixel_index = pixel_index.to(torch.int64)
@@ -111,6 +167,7 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     replica = torch.arange(spp_batch, device=device).repeat_interleave(r)
     params = make_params(config, uniforms, max(config.max_bounces, 1), device)
     nee = bool(config.nee)
+    lod_k = config.tex_lod_bounces if textures is not None else 0
 
     acc = torch.zeros((r, 3), dtype=torch.float32, device=device)
     segs = torch.zeros((r,), dtype=torch.float32, device=device)
@@ -125,7 +182,12 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
         for bounce in range(config.max_bounces):
             if not bool((state[13] > 0.5).any()):
                 break
-            bounce_step(params[bounce], scene, state, nee)
+            if textures is not None and (lod_k <= 0 or bounce < lod_k):
+                hitbuf = trace_step(params[bounce], scene, state)
+                parbuf, hitbuf = material_rows(materials, textures, hitbuf, textured_params)
+                shade_step(params[bounce], scene, state, hitbuf, parbuf, textured_params, nee)
+            else:
+                bounce_step(params[bounce], scene, state, nee)
             if sort_rays:
                 order = torch.argsort(coherence_keys(state, scene_lo, scene_inv), stable=True)
                 state = state[:, order]

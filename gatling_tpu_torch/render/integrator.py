@@ -35,6 +35,9 @@ class RenderConfig:
     progressive: bool = True
     aov_mask: int = aov_bit(AovId.COLOR)
     has_dome: bool = False
+    # textured scenes: bounces at or after this index (> 0) shade from the
+    # texture means (render setting textureLodBounces)
+    tex_lod_bounces: int = 0
 
 
 class Uniforms(NamedTuple):

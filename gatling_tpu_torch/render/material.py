@@ -1,9 +1,19 @@
-"""Material front end, host half: shader networks -> packed parameter rows.
+"""Material front end: shader networks -> packed parameter rows and textures.
 
-Constant-parameter UsdPreviewSurface networks are lowered into rows of the
-packed [M, 30] f32 table that the bounce kernel reads (the mc layer analog,
-reference: src/mc/impl/Frontend.cpp). Connected inputs (textures, shader
-graphs), MaterialX and MDL surfaces are not carried over yet and raise.
+UsdPreviewSurface networks are lowered into rows of the packed [M, 30] f32
+table that the kernels read (the mc layer analog, reference:
+src/mc/impl/Frontend.cpp), plus per-parameter texture requests: a
+connected input folds through render/shadergraph.py into a constant and
+at most one texture under an affine scale and bias. `build_materials`
+loads the textures into the device pool and records each material's slot
+and channel per parameter in the [M, 10] int32 `packed_i` rows.
+
+Around the kernels, the texture stage reads them: `gather_params` (the
+per-ray constants), `apply_textures` (the taps of the textured
+parameters), `perturb_normal` (tangent-space normal maps), and
+`substitute_texture_means`, the kernels' own table, whose textured
+columns hold the textures' means. MaterialX and MDL surfaces are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -12,7 +22,11 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
+from gatling_tpu_torch.render.shadergraph import GraphLowering
+from gatling_tpu_torch.render.texture import TextureManager, TexturePool, TextureRef, \
+    empty_pool, sample_pool
 from gatling_tpu_torch.scene.stage import MaterialDesc
 
 # packed_f column offsets
@@ -23,16 +37,35 @@ MF_BACKFACE_EDF = 24
 MF_VCOLOR_MUL = 25
 MF_COAT, MF_COAT_ROUGH, MF_ANISO, MF_ANISO_ROT = 26, 27, 28, 29
 PF_COLS = 30
+# packed_i columns: texture slot per parameter (-1 = constant), the
+# channel of single-channel reads, and (column 9) the backface row
+MI_BASE_TEX, MI_EMISSIVE_TEX, MI_METAL_TEX, MI_ROUGH_TEX = 0, 1, 2, 3
+MI_OPACITY_TEX, MI_NORMAL_TEX = 4, 5
+MI_METAL_CH, MI_ROUGH_CH, MI_OPACITY_CH = 6, 7, 8
 
 
 class MaterialTable(NamedTuple):
-    """Packed per-material parameter rows."""
+    """Packed per-material rows: NumPy on the host, or torch tensors on a
+    device (`to`)."""
 
     packed_f: np.ndarray  # [M, PF_COLS] f32, columns MF_*
+    packed_i: np.ndarray  # [M, 10] int32, columns MI_*
 
     @property
     def count(self) -> int:
         return self.packed_f.shape[0]
+
+    @property
+    def normal_tex(self):
+        return self.packed_i[:, MI_NORMAL_TEX]
+
+    @property
+    def opacity_tex(self):
+        return self.packed_i[:, MI_OPACITY_TEX]
+
+    def to(self, device) -> "MaterialTable":
+        return MaterialTable(torch.tensor(np.asarray(self.packed_f), device=device),
+                             torch.tensor(np.asarray(self.packed_i), device=device))
 
 
 @dataclasses.dataclass
@@ -44,10 +77,12 @@ class MaterialTraits:
 
 @dataclasses.dataclass
 class LoweredMaterial:
-    """One lowered material: constant uber-BSDF parameters."""
+    """One lowered material: constant uber-BSDF parameters and texture
+    requests."""
 
     params: dict
     traits: MaterialTraits
+    textures: dict[str, TextureRef] = dataclasses.field(default_factory=dict)
 
 
 _DEFAULTS = {
@@ -74,20 +109,22 @@ _DEFAULTS = {
     "anisotropy_rotation": 0.0,
 }
 
-# UsdPreviewSurface input -> uber-BSDF parameter
+# UsdPreviewSurface input -> (uber-BSDF parameter, is a colour)
 _PREVIEW_INPUTS = (
-    ("diffuseColor", "base_color"),
-    ("metallic", "metallic"),
-    ("roughness", "roughness"),
-    ("ior", "ior"),
-    ("opacity", "opacity"),
-    ("opacityThreshold", "opacity_threshold"),
-    ("emissiveColor", "emissive"),
-    ("useSpecularWorkflow", "use_specular_workflow"),
-    ("specularColor", "specular_color"),
-    ("clearcoat", "clearcoat"),
-    ("clearcoatRoughness", "clearcoat_roughness"),
+    ("diffuseColor", "base_color", True),
+    ("normal", "normal", False),
+    ("metallic", "metallic", False),
+    ("roughness", "roughness", False),
+    ("ior", "ior", False),
+    ("opacity", "opacity", False),
+    ("opacityThreshold", "opacity_threshold", False),
+    ("emissiveColor", "emissive", True),
+    ("useSpecularWorkflow", "use_specular_workflow", False),
+    ("specularColor", "specular_color", False),
+    ("clearcoat", "clearcoat", False),
+    ("clearcoatRoughness", "clearcoat_roughness", False),
 )
+_CH_INDEX = {"r": 0, "g": 1, "b": 2, "a": 3, "rgb": 0}
 
 
 def _vec3(v) -> tuple[float, float, float]:
@@ -97,53 +134,76 @@ def _vec3(v) -> tuple[float, float, float]:
     return v[:3] if len(v) >= 3 else (v + (0.0,) * 3)[:3]
 
 
-def _constant(v, default):
-    """A constant input as the lowering reads it: rgba-padded, then cut to
-    the parameter's shape (scalar stays scalar)."""
-    if v is None:
-        v = (0.0, 0.0, 0.0, 1.0)
-    elif isinstance(v, (int, float, bool)):
-        v = (float(v),) * 4
-    v = (tuple(float(x) for x in v) + (0.0, 0.0, 0.0, 1.0))[:4]
-    if isinstance(default, tuple):
-        return _vec3(v[:3])
-    return float(v[0])
-
-
 def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
-    """Lower one constant-parameter UsdPreviewSurface network to uber-BSDF
-    parameters (reference package: render/material.py lower_material)."""
+    """Lower one UsdPreviewSurface network to uber-BSDF parameters and
+    texture requests (the JAX package's render/material.py
+    lower_material)."""
     params = dict(_DEFAULTS)
+    textures: dict[str, TextureRef] = {}
     traits = MaterialTraits()
     node = None
     if desc is not None and desc.surface_node is not None:
         node = desc.nodes.get(desc.surface_node)
     if node is None:
-        return LoweredMaterial(params=params, traits=traits)
+        return LoweredMaterial(params=params, traits=traits, textures=textures)
 
     if node.shader_id != "UsdPreviewSurface":
         raise NotImplementedError(
             f"{desc.path}: surface shader {node.shader_id!r} is not ported yet "
             "(ROADMAP: 'USD content')")
-    if node.input_connections:
-        raise NotImplementedError(
-            f"{desc.path}: connected inputs {sorted(node.input_connections)} "
-            "(textures, shader graphs) are not ported yet "
-            "(ROADMAP: 'Textured split path')")
-    for input_name, param in _PREVIEW_INPUTS:
-        if input_name in node.inputs:
-            params[param] = _constant(node.inputs[input_name], _DEFAULTS[param])
+    graph = GraphLowering(desc)
+    for input_name, param, color in _PREVIEW_INPUTS:
+        default = (0.0, 0.0, 1.0) if param == "normal" else _DEFAULTS[param]
+        gv = graph.eval_input(node, input_name, default, color)
+        if isinstance(default, tuple):
+            params[param] = _vec3(gv.constant[:3])
+        else:
+            params[param] = float(gv.constant[0])
+        if gv.texture is not None:
+            textures[param] = gv.texture
 
+    # normal-map scale/bias defaults: authors often omit the required
+    # scale=2 bias=-1 mapping (reference: previewSurfaceNetworkPatcher.cpp)
+    nref = textures.get("normal")
+    if nref is not None and nref.scale == (1.0, 1.0, 1.0, 1.0) \
+            and nref.bias == (0.0, 0.0, 0.0, 0.0):
+        textures["normal"] = dataclasses.replace(
+            nref, scale=(2.0, 2.0, 2.0, 1.0), bias=(-1.0, -1.0, -1.0, 0.0), is_srgb=False)
     params["vcolor_mul"] = float(bool(node.inputs.get("_vcolor_multiply", False)))
     traits.has_backface_edf = bool(node.inputs.get("has_backface_edf", False))
-    return LoweredMaterial(params=params, traits=traits)
+    return LoweredMaterial(params=params, traits=traits, textures=textures)
 
 
-def build_material_table(lowered: list[LoweredMaterial]) -> MaterialTable:
-    """Pack lowered materials into the [M, 30] f32 row table, column for
-    column as the reference package's _pack_material_table lays it out."""
+def build_materials(lowered: list[LoweredMaterial], texture_manager: TextureManager | None = None,
+                    device="cpu") -> tuple[MaterialTable, TexturePool]:
+    """(MaterialTable, TexturePool): the texture requests deduplicated,
+    loaded through the TextureManager into a pool on `device`, and each
+    material's slot recorded per parameter (Gi.cpp:1446-1490)."""
     if not lowered:
         lowered = [lower_material(None)]
+    refs: list[TextureRef] = []
+    ref_slot: dict[TextureRef, int] = {}
+    texture_slots: dict[int, dict[str, int]] = {}
+    for i, m in enumerate(lowered):
+        for param, ref in m.textures.items():
+            if ref not in ref_slot:
+                ref_slot[ref] = len(refs)
+                refs.append(ref)
+            texture_slots.setdefault(i, {})[param] = ref_slot[ref]
+    pool = (texture_manager or TextureManager()).build_pool(refs, device) if refs \
+        else empty_pool(device)
+    return build_material_table(lowered, texture_slots), pool
+
+
+def build_material_table(lowered: list[LoweredMaterial],
+                         texture_slots: dict[int, dict[str, int]] | None = None
+                         ) -> MaterialTable:
+    """Pack lowered materials into the [M, 30] f32 and [M, 10] int32 rows,
+    column for column as the JAX package's _pack_material_table lays them
+    out. texture_slots maps a material row to {parameter: pool slot}."""
+    if not lowered:
+        lowered = [lower_material(None)]
+    texture_slots = texture_slots or {}
 
     def col(name, dtype=np.float32):
         vals = [m.params[name] for m in lowered]
@@ -165,4 +225,106 @@ def build_material_table(lowered: list[LoweredMaterial]) -> MaterialTable:
         col("anisotropy_rotation"),
     ], axis=1)
     assert packed_f.shape[1] == PF_COLS
-    return MaterialTable(packed_f=packed_f.astype(np.float32))
+
+    def slot(param):
+        return [texture_slots.get(i, {}).get(param, -1) for i in range(len(lowered))]
+
+    def channel(param):
+        return [_CH_INDEX.get(m.textures[param].channel, 0) if param in m.textures else 0
+                for m in lowered]
+
+    packed_i = np.stack([
+        slot("base_color"), slot("emissive"), slot("metallic"), slot("roughness"),
+        slot("opacity"), slot("normal"), channel("metallic"), channel("roughness"),
+        channel("opacity"), list(range(len(lowered))),
+    ], axis=1).astype(np.int32)
+    return MaterialTable(packed_f=packed_f.astype(np.float32), packed_i=packed_i)
+
+
+def textured_params(lowered: list[LoweredMaterial]) -> tuple[str, ...]:
+    """The uber-BSDF parameters with a texture anywhere in the scene."""
+    names = ("base_color", "emissive", "metallic", "roughness", "opacity")
+    return tuple(n for n in names if any(n in m.textures for m in lowered))
+
+
+def substitute_texture_means(table: MaterialTable, pool: TexturePool) -> MaterialTable:
+    """The kernels' material table: each textured parameter's constant
+    replaced by its texture's mean (the "top mip", pool.mean). The shade
+    kernel K4 takes the textured columns from the texture stage's rows and
+    the others from here; bounces at or after textureLodBounces run the
+    untextured kernels K1 and K2 on this table alone."""
+    mean = pool.mean.cpu().numpy()
+    pf = np.array(table.packed_f, np.float32)
+    pi = np.asarray(table.packed_i)
+    for col, width, tex_col, ch_col in ((MF_BASE, 3, MI_BASE_TEX, None),
+                                        (MF_EMISSIVE, 3, MI_EMISSIVE_TEX, None),
+                                        (MF_METAL, 1, MI_METAL_TEX, MI_METAL_CH),
+                                        (MF_ROUGH, 1, MI_ROUGH_TEX, MI_ROUGH_CH)):
+        sel = pi[:, tex_col] >= 0
+        if ch_col is None:
+            pf[sel, col:col + width] = mean[pi[sel, tex_col], :3]
+        else:
+            pf[sel, col] = mean[pi[sel, tex_col], pi[sel, ch_col]]
+    return MaterialTable(packed_f=pf, packed_i=np.array(pi))
+
+
+def gather_params(table: MaterialTable, material_ids: torch.Tensor) -> dict[str, torch.Tensor]:
+    """The per-ray constants of the parameters textures can drive, from a
+    device table by row (the JAX package's one-hot matrix product is a TPU
+    gather workaround; here it is plain indexing). Ids beyond the table
+    read its last row."""
+    pf = table.packed_f[torch.clamp(material_ids, max=table.count - 1).long()]
+    return dict(base_color=pf[:, MF_BASE:MF_BASE + 3], emissive=pf[:, MF_EMISSIVE:MF_EMISSIVE + 3],
+                metallic=pf[:, MF_METAL], roughness=pf[:, MF_ROUGH], opacity=pf[:, MF_OPACITY])
+
+
+def _has_textures(pool: TexturePool) -> bool:
+    return pool.count > 1 or pool.packed
+
+
+def apply_textures(table: MaterialTable, pool: TexturePool, params: dict,
+                   material_ids: torch.Tensor, uv: torch.Tensor,
+                   active: tuple[str, ...] | None = None) -> dict:
+    """The texture taps of the parameters in `active` laid over the
+    gathered constants where a material binds a slot."""
+    if not _has_textures(pool):
+        return params
+    pi = table.packed_i[torch.clamp(material_ids, max=table.count - 1).long()]
+
+    def rgb(col, constant):
+        slot = pi[:, col]
+        val = sample_pool(pool, slot, uv)
+        return torch.where((slot >= 0)[:, None], val[:, :3], constant)
+
+    def scalar(col, ch_col, constant):
+        slot = pi[:, col]
+        val = sample_pool(pool, slot, uv)
+        picked = torch.gather(val, 1, pi[:, ch_col].long()[:, None])[:, 0]
+        return torch.where(slot >= 0, picked, constant)
+
+    out = dict(params)
+    if active is None or "base_color" in active:
+        out["base_color"] = rgb(MI_BASE_TEX, params["base_color"])
+    if active is None or "emissive" in active:
+        out["emissive"] = rgb(MI_EMISSIVE_TEX, params["emissive"])
+    if active is None or "metallic" in active:
+        out["metallic"] = scalar(MI_METAL_TEX, MI_METAL_CH, params["metallic"])
+    if active is None or "roughness" in active:
+        out["roughness"] = scalar(MI_ROUGH_TEX, MI_ROUGH_CH, params["roughness"])
+    if active is None or "opacity" in active:
+        out["opacity"] = scalar(MI_OPACITY_TEX, MI_OPACITY_CH, params["opacity"])
+    return out
+
+
+def perturb_normal(table: MaterialTable, pool: TexturePool, material_ids: torch.Tensor,
+                   uv: torch.Tensor, n: torch.Tensor, t: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """Tangent-space normal mapping (UsdPreviewSurface `normal` input)."""
+    if not _has_textures(pool):
+        return n
+    slot = table.packed_i[torch.clamp(material_ids, max=table.count - 1).long(), MI_NORMAL_TEX]
+    nm = sample_pool(pool, slot, uv)[:, :3]
+    mapped = nm[:, 0:1] * t + nm[:, 1:2] * b + torch.clamp(nm[:, 2:3], min=1e-3) * n
+    mapped = mapped / torch.clamp(torch.linalg.vector_norm(mapped, dim=-1, keepdim=True),
+                                  min=1e-20)
+    return torch.where((slot >= 0)[:, None], mapped, n)

@@ -1,0 +1,269 @@
+"""Textures: the host-side cache and the device-side packed texel pool.
+
+Port of the JAX package's render/texture.py for 8-bit textures. The host
+side mirrors the reference's TextureManager (src/gi/impl/
+TextureManager.cpp: a path-keyed cache, a 1x1 black fallback when a file
+cannot be decoded). The device side is one pool for every texture of a
+scene: each texel is one uint32 of its four 8-bit codes (held as int32
+bits), and, when every slot wraps `repeat`, a second array holds each
+texel's 2x2 neighbourhood so that a bilinear tap is one gathered row.
+sRGB decoding follows the tap: the codes are the source data, so decoding
+after the tap equals decoding at upload. `sample_pool` is plain torch
+gathers on the pool, on the CPU and on the card alike.
+
+UsdUVTexture semantics: wrap modes (black, clamp, repeat, mirror), scale
+and bias applied after the lookup, v up (texel row 0 is the image top).
+HDR pools (float texels) arrive with the HDR codecs (ROADMAP: 'Dome
+lights').
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gatling_tpu_torch import imgio
+from gatling_tpu_torch.interface import MAX_TEXTURE_COUNT
+from gatling_tpu_torch.utils.log import get_logger
+
+WRAP_BLACK = 0
+WRAP_CLAMP = 1
+WRAP_REPEAT = 2
+WRAP_MIRROR = 3
+
+_WRAP_NAMES = {
+    "black": WRAP_BLACK, "clamp": WRAP_CLAMP,
+    "repeat": WRAP_REPEAT, "mirror": WRAP_MIRROR,
+    "useMetadata": WRAP_REPEAT,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TextureRef:
+    """One texture request from a material network."""
+
+    file_path: str
+    is_srgb: bool = False
+    wrap_s: str = "repeat"
+    wrap_t: str = "repeat"
+    scale: tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
+    bias: tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    channel: str = "rgb"  # rgb / r / g / b / a
+
+
+class TexturePool(NamedTuple):
+    """The device texture pool: packed texels and per-slot records."""
+
+    texels_u32: torch.Tensor  # [N + 1] int32: the rgba8 codes of each texel as uint32 bits
+    # [N + 1, 4] int32: each texel's 2x2 neighbourhood (self, +x, +y, +x+y),
+    # repeat wrap baked in (when every slot wraps repeat; [1, 4] zeros else)
+    texels_q22: torch.Tensor
+    is_srgb: torch.Tensor  # [T] int32: decode sRGB after the tap
+    offset: torch.Tensor   # [T] int32 first texel of the slot
+    width: torch.Tensor    # [T] int32
+    height: torch.Tensor   # [T] int32
+    wrap_s: torch.Tensor   # [T] int32 WRAP_*
+    wrap_t: torch.Tensor   # [T] int32
+    scale: torch.Tensor    # [T, 4] f32
+    bias: torch.Tensor     # [T, 4] f32
+    # [T, 4] f32 per-slot mean of (linear texels * scale + bias): the "top
+    # mip" that textureLodBounces substitutes for the per-ray tap
+    mean: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.offset.shape[0]
+
+    @property
+    def packed(self) -> bool:
+        return self.texels_u32.shape[0] > 1
+
+    @property
+    def bilinear_packed(self) -> bool:
+        return self.texels_q22.shape[0] > 1
+
+
+def empty_pool(device="cpu") -> TexturePool:
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return TexturePool(
+        texels_u32=i32([0]), texels_q22=i32([[0, 0, 0, 0]]), is_srgb=i32([0]),
+        offset=i32([0]), width=i32([1]), height=i32([1]), wrap_s=i32([WRAP_REPEAT]),
+        wrap_t=i32([WRAP_REPEAT]), scale=torch.ones((1, 4), device=device),
+        bias=torch.zeros((1, 4), device=device), mean=torch.zeros((1, 4), device=device))
+
+
+def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
+    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4).astype(np.float32)
+
+
+class TextureManager:
+    """Loads, caches and packs textures (TextureManager.cpp analog)."""
+
+    def __init__(self) -> None:
+        self._image_cache: dict[tuple[str, bool], np.ndarray] = {}  # -> linear RGBA f32
+        self._raw_cache: dict[str, np.ndarray] = {}  # path -> RGBA f32 as decoded
+
+    def _load_raw(self, ref: TextureRef) -> np.ndarray:
+        cached = self._raw_cache.get(ref.file_path)
+        if cached is not None:
+            return cached
+        try:
+            # a plain file read: the JAX package's asset-reader registry
+            # (render/assets.py) waits for ROADMAP 'Multi-GPU and front ends'
+            with open(ref.file_path, "rb") as f:
+                rgba = imgio.load_image(f.read()).astype(np.float32) / 255.0
+        except NotImplementedError:
+            raise  # a format the port does not read yet: never render something else
+        except Exception:  # noqa: BLE001
+            # 1x1 black fallback (TextureManager.cpp:253-267)
+            get_logger().error("texture load failed: %s", ref.file_path)
+            rgba = np.zeros((1, 1, 4), np.float32)
+        self._raw_cache[ref.file_path] = rgba
+        return rgba
+
+    def _load(self, ref: TextureRef) -> np.ndarray:
+        key = (ref.file_path, ref.is_srgb)
+        cached = self._image_cache.get(key)
+        if cached is not None:
+            return cached
+        rgba = self._load_raw(ref)
+        if ref.is_srgb:
+            rgba = np.concatenate([_srgb_to_linear(rgba[..., :3]), rgba[..., 3:]], axis=-1)
+        self._image_cache[key] = rgba.astype(np.float32)
+        return self._image_cache[key]
+
+    def build_pool(self, refs: list[TextureRef], device="cpu") -> TexturePool:
+        """Pack the given textures into a device pool; slot i holds refs[i]."""
+        if not refs:
+            return empty_pool(device)
+        if len(refs) > MAX_TEXTURE_COUNT:
+            raise ValueError(f"too many textures ({len(refs)} > {MAX_TEXTURE_COUNT})")
+        codes_all, srgbs, means = [], [], []
+        offsets, widths, heights, ws, wt, scales, biases = [], [], [], [], [], [], []
+        off = 0
+        for ref in refs:
+            img = self._load(ref)
+            means.append(img.reshape(-1, 4).mean(axis=0) * np.asarray(ref.scale, np.float32)
+                         + np.asarray(ref.bias, np.float32))
+            raw = self._load_raw(ref)
+            codes = np.round(raw * 255.0)
+            if raw.size == 0 or np.abs(raw * 255.0 - codes).max() > 1e-3 \
+                    or codes.min() < 0 or codes.max() > 255:
+                raise NotImplementedError(
+                    f"{ref.file_path}: texels beyond 8 bits need the float pool, which "
+                    "arrives with the HDR codecs (ROADMAP: 'Dome lights')")
+            c = codes.astype(np.uint32).reshape(-1, 4)
+            codes_all.append(c[:, 0] | (c[:, 1] << 8) | (c[:, 2] << 16) | (c[:, 3] << 24))
+            srgbs.append(1 if ref.is_srgb else 0)
+            h, w = img.shape[:2]
+            offsets.append(off)
+            widths.append(w)
+            heights.append(h)
+            ws.append(_WRAP_NAMES.get(ref.wrap_s, WRAP_REPEAT))
+            wt.append(_WRAP_NAMES.get(ref.wrap_t, WRAP_REPEAT))
+            scales.append(ref.scale)
+            biases.append(ref.bias)
+            off += h * w
+        # a trailing dummy texel: `packed` (shape > 1) holds for a one-texel pool too
+        u32 = np.concatenate(codes_all + [np.zeros(1, np.uint32)])
+        if all(m == WRAP_REPEAT for m in ws + wt):
+            q22 = []
+            for codes, w, h in zip(codes_all, widths, heights):
+                c = codes.reshape(h, w)
+                q = np.stack([c, np.roll(c, -1, axis=1), np.roll(c, -1, axis=0),
+                              np.roll(np.roll(c, -1, axis=0), -1, axis=1)], axis=-1)
+                q22.append(q.reshape(-1, 4))
+            q22.append(np.zeros((1, 4), np.uint32))
+            q22 = np.concatenate(q22, axis=0)
+        else:
+            q22 = np.zeros((1, 4), np.uint32)
+
+        def i32(a):  # uint32 values travel as their int32 bits
+            return torch.as_tensor(np.asarray(a).astype(np.uint32).view(np.int32),
+                                   device=device)
+
+        def f32(a):
+            return torch.as_tensor(np.array(a, np.float32), device=device)
+
+        return TexturePool(
+            texels_u32=i32(u32), texels_q22=i32(q22), is_srgb=i32(srgbs), offset=i32(offsets),
+            width=i32(widths), height=i32(heights), wrap_s=i32(ws), wrap_t=i32(wt),
+            scale=f32(scales), bias=f32(biases), mean=f32(means))
+
+
+def _wrap_coord(x: torch.Tensor, size: torch.Tensor, mode: torch.Tensor):
+    """Wrap integer texel coordinates; returns (index, inside mask)."""
+    size = torch.clamp(size, min=1)
+    rep = torch.remainder(x, size)
+    clamped = torch.minimum(torch.clamp(x, min=0), size - 1)
+    period = torch.remainder(x, 2 * size)
+    mirrored = torch.where(period < size, period, 2 * size - 1 - period)
+    inside = (x >= 0) & (x < size)
+    idx = torch.where(mode == WRAP_REPEAT, rep,
+                      torch.where(mode == WRAP_CLAMP, clamped,
+                                  torch.where(mode == WRAP_MIRROR, mirrored, clamped)))
+    valid = torch.where(mode == WRAP_BLACK, inside, True)
+    return idx, valid
+
+
+def sample_pool(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear texture lookup for a batch of rays (the JAX package's
+    sample_pool, the same float operations in the same order).
+
+    tex_id [R] (values < 0 sample slot 0: callers select the constant),
+    uv [R, 2] in the UsdUVTexture convention. Returns RGBA [R, 4] with the
+    slot's scale and bias applied."""
+    if not pool.packed:
+        raise NotImplementedError("float texel pools arrive with the HDR codecs "
+                                  "(ROADMAP: 'Dome lights')")
+    t = torch.clamp(tex_id, min=0).long()
+    w = pool.width[t]
+    h = pool.height[t]
+    off = pool.offset[t]
+    x = uv[:, 0] * w.to(torch.float32) - 0.5
+    y = (1.0 - uv[:, 1]) * h.to(torch.float32) - 0.5
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[:, None]
+    fy = (y - y0f)[:, None]
+    x0 = x0f.to(torch.int32)
+    y0 = y0f.to(torch.int32)
+    srgb = (pool.is_srgb[t] > 0)[:, None]
+
+    def unpack(code):
+        # rgba8 codes [R, ...] -> [R, ..., 4] f32; sRGB decoded after the tap
+        val = torch.stack([code & 0xFF, (code >> 8) & 0xFF, (code >> 16) & 0xFF,
+                           (code >> 24) & 0xFF], dim=-1).to(torch.float32) * (1.0 / 255.0)
+        c = val[..., :3]
+        lin = torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+        on = srgb.reshape(srgb.shape + (1,) * (c.dim() - 2))
+        return torch.cat([torch.where(on, lin, c), val[..., 3:]], dim=-1)
+
+    if pool.bilinear_packed:
+        # one gathered row per tap: the 2x2 neighbourhood baked per texel,
+        # its four texels unpacked together
+        xw = torch.remainder(x0, w)
+        yw = torch.remainder(y0, h)
+        c00, c10, c01, c11 = unpack(pool.texels_q22[(off + yw * w + xw).long()]).unbind(1)
+    else:
+        ws = pool.wrap_s[t]
+        wt = pool.wrap_t[t]
+
+        def texel(xi, yi):
+            xi_w, vx = _wrap_coord(xi, w, ws)
+            yi_w, vy = _wrap_coord(yi, h, wt)
+            code = pool.texels_u32[(off + yi_w * w + xi_w).long()]
+            return torch.where((vx & vy)[:, None], unpack(code), 0.0)
+
+        c00 = texel(x0, y0)
+        c10 = texel(x0 + 1, y0)
+        c01 = texel(x0, y0 + 1)
+        c11 = texel(x0 + 1, y0 + 1)
+    out = ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+           + (c01 * (1 - fx) + c11 * fx) * fy)
+    return out * pool.scale[t] + pool.bias[t]

@@ -1,18 +1,28 @@
 """Procedural example scenes, generated from a seed.
 
-The port's copy of the JAX package's scene/examples.py `sphere_field`: a
-stand-in of Junk-Shop-class triangle count (the reference's showcase
-scenes, README.md:4-65, are not redistributable) built from many
-placements of one mesh, so it exercises both the flattened clustered
-tables (290k world triangles) and the instanced ones (one 1152-triangle
-sphere under 256 placements).
+The port's copies of the JAX package's scene/examples.py scenes, which
+stand in for the reference's showcase scenes (README.md:4-65, not
+redistributable):
+
+* `sphere_field`: Junk-Shop-class triangle count built from many
+  placements of one mesh, so it exercises both the flattened clustered
+  tables (290k world triangles) and the instanced ones (one
+  1152-triangle sphere under 256 placements);
+* `interior`: an Evermotion-Kitchen-class textured room (about 92k
+  triangles at detail 5), every material's base colour a UsdUVTexture
+  over procedural 256x256 PNGs written from a seed, with a rect window
+  light and two sphere lamps.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gatling_tpu_torch.scene.meshproc import build_triangulated_mesh
+import os
+import tempfile
+
+from gatling_tpu_torch import imgio
+from gatling_tpu_torch.scene.meshproc import Interpolation, build_triangulated_mesh
 from gatling_tpu_torch.scene.stage import (
     CameraDesc,
     LightDesc,
@@ -115,3 +125,255 @@ def sphere_field(n_side: int = 16, sphere_res: int = 24, seed: int = 0) -> Scene
                         up=up.astype(np.float32), vfov=0.6)
     return SceneDesc(meshes=meshes, materials=materials, lights=lights,
                      cameras={"/cam": camera})
+
+
+# ---------------------------------------------------------------------------
+# interior: Evermotion-Kitchen-class proxy (the JAX bench's ladder config 5)
+# ---------------------------------------------------------------------------
+
+def _procedural_textures(out_dir: str, seed: int = 7) -> dict[str, str]:
+    """The interior's texture set (256x256 RGBA PNGs) in out_dir:
+    deterministic stand-ins for wood, tiles, plaster, fabric, marble and
+    brushed metal, written once and then read from the file."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+
+    def save(name, rgb):
+        path = os.path.join(out_dir, name + ".png")
+        if not os.path.exists(path):
+            rgba = np.concatenate(
+                [np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8),
+                 np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+            imgio.write_image_file(path, rgba)
+        return path
+
+    n = 256
+    yy, xx = np.mgrid[0:n, 0:n] / n
+
+    # wood: banded rings with per-plank phase jitter
+    plank = np.floor(yy * 8)
+    phase = rng.uniform(0, 6.28, 9)[plank.astype(int)]
+    grain = 0.5 + 0.5 * np.sin(xx * 95.0 + phase + 2.2 * np.sin(yy * 31.0))
+    wood = np.stack([0.42 + 0.25 * grain, 0.26 + 0.14 * grain,
+                     0.13 + 0.07 * grain], axis=-1)
+    wood *= (1.0 - 0.25 * (np.abs(yy * 8 - plank - 0.5) > 0.47))[..., None]
+
+    # tiles: grout grid + slight per-tile tint
+    tx, ty = np.floor(xx * 6), np.floor(yy * 6)
+    tint = rng.uniform(0.82, 1.0, (6, 6))[ty.astype(int), tx.astype(int)]
+    grout = ((xx * 6 - tx < 0.04) | (yy * 6 - ty < 0.04))
+    tiles = np.where(grout[..., None], 0.35,
+                     np.stack([0.75 * tint, 0.78 * tint, 0.80 * tint], axis=-1))
+
+    # plaster: low-frequency noise
+    base = rng.standard_normal((8, 8))
+    up = np.kron(base, np.ones((32, 32)))[:n, :n]
+    plaster = (0.80 + 0.05 * np.tanh(up))[..., None] * np.array([1.0, 0.97, 0.92])
+
+    # fabric: woven check
+    weave = 0.5 + 0.25 * np.sin(xx * 240) * np.sin(yy * 240)
+    fabric = np.stack([0.30 * weave + 0.25, 0.12 * weave + 0.10,
+                       0.10 * weave + 0.08], axis=-1)
+
+    # marble: veins
+    v = np.sin(xx * 9 + 4.0 * np.abs(np.sin(yy * 5 + xx * 3)))
+    marble = (0.78 + 0.18 * np.abs(v))[..., None] * np.array([1.0, 1.0, 0.98])
+
+    # brushed metal: anisotropic streaks
+    streak = rng.standard_normal((n, 1)) * np.ones((1, n))
+    metal = (0.55 + 0.08 * np.tanh(streak))[..., None] * np.array([0.9, 0.92, 0.95])
+
+    return {k: save(k, v) for k, v in dict(
+        wood=wood, tiles=tiles, plaster=plaster, fabric=fabric,
+        marble=marble, metal=metal).items()}
+
+
+def _textured_material(path: str, tex_file: str, roughness=0.7, metallic=0.0) -> MaterialDesc:
+    """UsdPreviewSurface whose diffuseColor is a UsdUVTexture (raw colour
+    space, repeat wrap): the network shape hdGatling consumes
+    (materialNetworkCompiler.cpp:295-505)."""
+    tex = ShaderNode(path=path + "/tex", shader_id="UsdUVTexture",
+                     inputs={"file": tex_file, "sourceColorSpace": "raw",
+                             "wrapS": "repeat", "wrapT": "repeat"},
+                     input_connections={})
+    surf = ShaderNode(path=path + "/s", shader_id="UsdPreviewSurface",
+                      inputs={"roughness": roughness, "metallic": metallic},
+                      input_connections={"diffuseColor": (tex.path, "rgb")})
+    return MaterialDesc(path=path, surface_node=surf.path,
+                        nodes={surf.path: surf, tex.path: tex})
+
+
+def _quad(p0, p1, p2, p3, uv_scale=1.0):
+    """Two-triangle quad with planar UVs (vertex interpolation)."""
+    pts = np.asarray([p0, p1, p2, p3], np.float32)
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32) * uv_scale
+    return build_triangulated_mesh(pts, np.array([4]), np.array([0, 1, 2, 3]),
+                                   uvs=uvs, uvs_interp=Interpolation.VERTEX)
+
+
+def _box_mesh(size, uv_scale=1.0, subdiv: int = 1):
+    """Axis-aligned box centred at the origin with per-face planar UVs;
+    subdiv splits each face into subdiv^2 quads."""
+    sx, sy, sz = np.asarray(size, np.float32) / 2
+    pts_list, idx_list, uv_list, counts = [], [], [], []
+    base = 0
+    axes = [  # (fixed axis, sign, u axis, v axis)
+        (0, +1, 1, 2), (0, -1, 1, 2), (1, +1, 0, 2),
+        (1, -1, 0, 2), (2, +1, 0, 1), (2, -1, 0, 1)]
+    half = np.array([sx, sy, sz], np.float32)
+    for ax, sgn, ua, va in axes:
+        g = np.linspace(-1, 1, subdiv + 1, dtype=np.float32)
+        for i in range(subdiv):
+            for j in range(subdiv):
+                corners = []
+                uvq = []
+                order = ((i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1))
+                if sgn < 0:
+                    order = order[::-1]
+                for (a, b) in order:
+                    p = np.zeros(3, np.float32)
+                    p[ax] = sgn * half[ax]
+                    p[ua] = g[a] * half[ua]
+                    p[va] = g[b] * half[va]
+                    corners.append(p)
+                    uvq.append([(g[a] * 0.5 + 0.5) * uv_scale,
+                                (g[b] * 0.5 + 0.5) * uv_scale])
+                pts_list.extend(corners)
+                uv_list.extend(uvq)
+                idx_list.extend(range(base, base + 4))
+                counts.append(4)
+                base += 4
+    return build_triangulated_mesh(
+        np.asarray(pts_list, np.float32), np.asarray(counts, np.int64),
+        np.asarray(idx_list, np.int64),
+        uvs=np.asarray(uv_list, np.float32), uvs_interp=Interpolation.VERTEX)
+
+
+def _sphere_uv_mesh(rows: int, cols: int):
+    pts, counts, idx = _uv_sphere(rows, cols)
+    theta = np.arccos(np.clip(pts[:, 2], -1, 1)) / np.pi
+    phi = (np.arctan2(pts[:, 1], pts[:, 0]) / (2 * np.pi)) % 1.0
+    uvs = np.stack([phi, 1.0 - theta], axis=-1).astype(np.float32)
+    return build_triangulated_mesh(pts, counts, idx, uvs=uvs, uvs_interp=Interpolation.VERTEX)
+
+
+def interior(detail: int = 5, seed: int = 11, tex_dir: str | None = None) -> SceneDesc:
+    """Enclosed textured interior, the Evermotion-Kitchen-class stand-in
+    (the JAX package's scene/examples.py interior): room shell, counters,
+    table, shelf clutter, every material's base colour a UsdUVTexture, a
+    rect window light and two sphere lamps, an interior camera.
+    detail=5 is about 92k triangles; detail scales the tessellation. The
+    textures go to tex_dir (default: gatling_interior_tex in the temporary
+    directory)."""
+    rng = np.random.default_rng(seed)
+    if tex_dir is None:
+        tex_dir = os.path.join(tempfile.gettempdir(), "gatling_interior_tex")
+    tex = _procedural_textures(tex_dir)
+
+    W, D, H = 6.0, 8.0, 3.0  # room extents (x width, y depth, z height)
+    materials: dict[str, MaterialDesc] = {}
+    meshes: list[MeshDesc] = []
+    oid = [0]
+
+    def add(path, mesh, mat, xf=None, inst=None, double_sided=False):
+        meshes.append(MeshDesc(
+            path=path, mesh=mesh, transform=np.eye(4) if xf is None else xf,
+            material=mat, double_sided=double_sided, object_id=oid[0],
+            instance_transforms=inst))
+        oid[0] += 1
+
+    def mat(name, texname, roughness=0.7, metallic=0.0):
+        p = f"/m_{name}"
+        if p not in materials:
+            materials[p] = _textured_material(p, tex[texname], roughness=roughness,
+                                              metallic=metallic)
+        return p
+
+    def xf_at(x, y, z, s=1.0):
+        m = np.diag([s, s, s, 1.0])
+        m[3, :3] = [x, y, z]
+        return m
+
+    # room shell: floor/ceiling/4 walls, inward-facing, subdivided
+    shell = detail * 4
+    floor = _box_mesh((W, D, 0.02), uv_scale=4.0, subdiv=shell)
+    add("/floor", floor, mat("floor", "tiles", 0.35), xf_at(0, 0, -0.01))
+    ceil_m = _box_mesh((W, D, 0.02), uv_scale=3.0, subdiv=shell)
+    add("/ceiling", ceil_m, mat("ceiling", "plaster", 0.9), xf_at(0, 0, H + 0.01))
+    wall_y = _box_mesh((W, 0.02, H), uv_scale=3.0, subdiv=shell)
+    add("/wall_back", wall_y, mat("wall", "plaster", 0.85), xf_at(0, D / 2 + 0.01, H / 2))
+    add("/wall_front", wall_y, mat("wall", "plaster", 0.85), xf_at(0, -D / 2 - 0.01, H / 2))
+    wall_x = _box_mesh((0.02, D, H), uv_scale=3.0, subdiv=shell)
+    add("/wall_left", wall_x, mat("wall", "plaster", 0.85), xf_at(-W / 2 - 0.01, 0, H / 2))
+    add("/wall_right", wall_x, mat("wall", "plaster", 0.85), xf_at(W / 2 + 0.01, 0, H / 2))
+
+    # counter run along the left wall + marble worktop
+    counter = _box_mesh((0.6, 1.0, 0.9), uv_scale=1.0, subdiv=detail)
+    inst = np.stack([xf_at(-W / 2 + 0.35, -D / 2 + 0.6 + i * 1.05, 0.45) for i in range(6)])
+    add("/counters", counter, mat("cabinet", "wood", 0.55), inst=inst)
+    top = _box_mesh((0.7, 6.4, 0.06), uv_scale=2.0, subdiv=detail)
+    add("/worktop", top, mat("worktop", "marble", 0.25), xf_at(-W / 2 + 0.35, -D / 2 + 3.2, 0.93))
+
+    # table + 4 legs
+    add("/table_top", _box_mesh((1.4, 2.0, 0.06), 1.5, subdiv=detail),
+        mat("table", "wood", 0.5), xf_at(0.8, 0.0, 0.75))
+    leg = _box_mesh((0.08, 0.08, 0.72), 0.5, subdiv=max(1, detail // 2))
+    inst = np.stack([xf_at(0.8 + dx, dy, 0.36) for dx in (-0.6, 0.6) for dy in (-0.9, 0.9)])
+    add("/table_legs", leg, mat("table", "wood", 0.5), inst=inst)
+
+    # shelf clutter: bowls/pots (spheres) on the worktop and table, crates
+    # (boxes) in the corner: most of the scene's triangles
+    sph = _sphere_uv_mesh(8 * detail, 8 * detail)
+    xfs = []
+    for i in range(10):
+        xfs.append(xf_at(-W / 2 + 0.35, -D / 2 + 0.7 + i * 0.62, 1.05, s=rng.uniform(0.07, 0.12)))
+    for i in range(6):
+        xfs.append(xf_at(0.8 + rng.uniform(-0.5, 0.5), rng.uniform(-0.8, 0.8), 0.86,
+                         s=rng.uniform(0.06, 0.10)))
+    add("/bowls", sph, mat("bowl", "fabric", 0.8), inst=np.stack(xfs))
+    pot = _sphere_uv_mesh(6 * detail, 6 * detail)
+    inst = np.stack([xf_at(W / 2 - 0.5, -D / 2 + 0.5 + i * 0.8, 0.25, s=0.22) for i in range(4)])
+    add("/pots", pot, mat("pot", "metal", 0.3, metallic=1.0), inst=inst)
+    crate = _box_mesh((0.45, 0.45, 0.45), 1.0, subdiv=detail)
+    inst = np.stack([xf_at(W / 2 - 0.4, D / 2 - 0.4 - i * 0.5, 0.225 + (i % 2) * 0.46)
+                     for i in range(5)])
+    add("/crates", crate, mat("crate", "wood", 0.7), inst=inst)
+
+    # rug under the table
+    add("/rug", _box_mesh((2.4, 3.2, 0.01), 2.0, subdiv=detail * 2),
+        mat("rug", "fabric", 0.95), xf_at(0.8, 0, 0.005))
+
+    # lights: a rect 'window' in the right wall (local -z rotated to -x,
+    # into the room) + two warm sphere lamps
+    win = np.eye(4)
+    win[:3, :3] = np.array([[0, 0, -1], [0, 1, 0], [1, 0, 0]], np.float64).T
+    win[3, :3] = [W / 2 - 0.05, 1.5, 1.7]
+    lights = [
+        LightDesc(path="/window", light_type="rect", transform=win,
+                  params=dict(intensity=28.0, exposure=0.0,
+                              color=np.array([1.0, 0.98, 0.92], np.float32),
+                              normalize=False, diffuse=1.0, specular=1.0,
+                              enableColorTemperature=False, colorTemperature=6500.0,
+                              width=1.6, height=1.2)),
+    ]
+    for k, (lx, ly) in enumerate([(-1.2, -2.2), (0.5, 2.6)]):
+        lamp = np.eye(4)
+        lamp[3, :3] = [lx, ly, H - 0.35]
+        lights.append(LightDesc(
+            path=f"/lamp{k}", light_type="sphere", transform=lamp,
+            params=dict(intensity=9.0, exposure=0.0,
+                        color=np.array([1.0, 0.85, 0.6], np.float32),
+                        normalize=False, diffuse=1.0, specular=1.0,
+                        enableColorTemperature=False, colorTemperature=6500.0,
+                        radius=0.08, treatAsPoint=False)))
+
+    cam_pos = np.array([-W / 2 + 0.9, -D / 2 + 1.0, 1.6])
+    target = np.array([0.9, 1.8, 0.9])
+    fwd = target - cam_pos
+    fwd /= np.linalg.norm(fwd)
+    up = np.cross(np.cross(fwd, [0, 0, 1.0]), fwd)
+    up /= np.linalg.norm(up)
+    camera = CameraDesc(position=cam_pos.astype(np.float32), forward=fwd.astype(np.float32),
+                        up=up.astype(np.float32), vfov=0.9)
+
+    return SceneDesc(meshes=meshes, materials=materials, lights=lights, cameras={"/cam": camera})

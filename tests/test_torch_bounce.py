@@ -119,10 +119,13 @@ def case(request):
     cfg = RenderConfig(width=w, height=h, has_dome=False, nee=nee)
     state = primary_state(uni, w, h, seed=len(request.param))
     steps = {}
+    # each interpreted kernel finishes before the next dispatch: a dispatch
+    # while the interpreter's callbacks run can deadlock
     with pltpu.force_tpu_interpret_mode():
         for b in range(5):
             params = make_params(cfg, uni, jnp.int32(b))
-            out = bounce_step(params, scene, state, static=static, nee=nee)
+            out = jax.block_until_ready(bounce_step(params, scene, state, static=static,
+                                                    nee=nee))
             if b in (0, 4):
                 steps[b] = (np.asarray(params), np.asarray(state), np.asarray(out))
             state = out

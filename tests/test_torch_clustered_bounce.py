@@ -16,6 +16,7 @@ instanced walk against its flattened walk) hold to 99.9 %.
 import functools
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -140,10 +141,13 @@ def jax_steps(label: str):
     cfg = RenderConfig(width=W, height=H, has_dome=False, nee=nee)
     state = primary_state(uni, seed=len(label))
     steps = {}
+    # each interpreted kernel finishes before the next dispatch: a dispatch
+    # while the interpreter's callbacks run can deadlock
     with pltpu.force_tpu_interpret_mode():
         for b in range(max(bounces) + 1):
             params = jpb.make_params(cfg, uni, jnp.int32(b))
-            out = jpb.bounce_step(params, scene, state, static=static, nee=nee)
+            out = jax.block_until_ready(jpb.bounce_step(params, scene, state, static=static,
+                                                        nee=nee))
             if b in bounces:
                 steps[b] = (np.asarray(params), np.asarray(state), np.asarray(out))
             state = out

@@ -231,7 +231,8 @@ def test_instanced_tables_match_jax(name):
     assert_bits(got.l1, ref.l1_aabbs, "l1")
     assert_bits(got.l2, ref.l2_aabbs, "l2")
     assert counts == dict(n_tris=jstatic.n_tris, n_clusters=jstatic.n_clusters,
-                          n_l1=jstatic.n_l1, n_instances=jstatic.n_instances)
+                          n_l1=jstatic.n_l1, n_instances=jstatic.n_instances,
+                          tangents=jstatic.tangents)
     if name == "big_mesh_pair":
         assert jstatic.n_l1 == 6  # 36 clusters a placement, 16 an entry
 
@@ -250,7 +251,8 @@ def test_sphere_field_instanced_tables_match_jax():
     (jm, jidx, jtable), (tm, tidx, ttable) = results
     ref, jstatic = _jax_instanced(jm, jidx, jtable)
     got, counts = tb.instanced_arrays(tm, tidx, ttable)
-    assert counts == dict(n_tris=294916, n_clusters=11, n_l1=258, n_instances=258)
+    assert counts == dict(n_tris=294916, n_clusters=11, n_l1=258, n_instances=258,
+                          tangents=False)
     assert jstatic.n_clusters == 11 and jstatic.n_l1 == 258
     for field in ("tris", "inst_smem", "inst_map", "inst_attr"):
         assert_bits(getattr(got, field), getattr(ref, field), field)

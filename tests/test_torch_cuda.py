@@ -1,5 +1,5 @@
-"""On the card: the CUDA bounce kernels (K1 resident, K2 the two-level
-walk) against their plain twin.
+"""On the card: the CUDA kernels (K1 resident, K2 the two-level walk, K3
+and K4 the split trace and shade) against their plain twins.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -139,3 +139,119 @@ def test_walk_kernel_matches_twin(cuda, instanced, nee):
         assert bits.mean() <= 1 - MIN_AGREE, (instanced, nee, bounce, int(bits.sum()))
         assert close.mean() >= MIN_AGREE, (instanced, nee, bounce, int((~close).sum()))
         state = twin
+
+
+def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir):
+    """Tables of a small interior (3,840 triangles) for the split kernels:
+    its base-colour textures and, with `normal_map`, a leaning
+    tangent-space normal map on every material (a raw UsdUVTexture, which
+    lower_material scales by 2 and biases by -1). gi.render of an 8x8 frame
+    builds the materials, the texture pool and the kernel material table;
+    its geometry and that table then go into resident, flattened or
+    instanced tables."""
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    desc = interior(detail=1, tex_dir=str(tex_dir))
+    if normal_map:
+        lean = np.zeros((2, 2, 4), np.uint8)
+        lean[...] = (200, 128, 230, 255)
+        path = str(tex_dir / "lean.png")
+        imgio.write_image_file(path, lean)
+        for m in desc.materials.values():
+            node = ShaderNode(path=f"{m.path}/normal_tex", shader_id="UsdUVTexture",
+                              inputs={"file": path, "sourceColorSpace": "raw"},
+                              input_connections={})
+            m.nodes[node.path] = node
+            m.nodes[m.surface_node].input_connections["normal"] = (node.path, "rgb")
+    scene = gi.create_scene(device)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                aov_bindings=[gi.GiAovBinding(AovId.COLOR,
+                                                              gi.GiRenderBuffer(8, 8, 4))],
+                                render_settings=dict(spp=1, maxBounces=1)))
+    table = gi._fused_mat_table(scene)
+    lights = scene._light_arrays if nee else None
+    if layout == "instanced":
+        fs, static = tb.build_fused_scene_instanced(scene.meshes, scene._material_index, table,
+                                                    lights, device, min_gain=1.5, min_flat=0)
+    else:
+        fs, static = tb.build_fused_scene(scene._geom, table, lights, device,
+                                          resident_max=4096 if layout == "resident" else 0)
+    static = gi._with_split(scene, static)
+    assert static.textured and static.tangents == normal_map
+    return (fs, static, scene._material_dev, scene._texture_pool, static.textured_params,
+            desc.first_camera())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "flattened", "instanced"])
+@pytest.mark.parametrize("nee,normal_map", [(False, False), (True, False), (True, True)])
+def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
+    """K3 and K4 against their twins (ops/split_ref.py) on a textured
+    interior wave, bounces 0-4: hit-buffer rows H_HIT and H_MAT and state
+    rows 12-15 bit-equal, the other rows within tolerance; at bounce 1
+    also K1 / K2 on the same tables (tangent rows included), as the
+    textureLodBounces bounces run them."""
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, shade_ref, trace_ref
+    from gatling_tpu_torch.render.fused import material_rows
+
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, nee, normal_map,
+                                                                tmp_path)
+    assert static.clustered == (layout != "resident") and static.instanced == (
+        layout == "instanced")
+    w, h = 128, 64
+    cam = camera_uniforms(cam_desc, False, cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 1),
+                                      True, True, False)
+    state = tb.pack_state(o, d, rng, w * h)
+    params = np.zeros((5, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(5)
+    params[:, 6] = params[:, 8] = params[:, 9] = 1.0
+    lt = static.light_types
+    for bounce in range(5):
+        p = torch.tensor(params[bounce], device=cuda)
+        hit_twin = trace_ref(p, fs.tris, state, fs.walk)
+        before = dict(tb.launches)
+        hit_k = tb.trace_step(p, fs, state)
+        torch.cuda.synchronize()
+        assert tb.launches["K3"] == before["K3"] + 1
+        hk, ht = hit_k.cpu().numpy(), hit_twin.cpu().numpy()
+        for row in (H_HIT, H_MAT):
+            np.testing.assert_array_equal(hk[row].view(np.int32), ht[row].view(np.int32))
+        close = np.isclose(hk, ht, rtol=RTOL, atol=ATOL).all(axis=0)
+        assert close.mean() >= MIN_AGREE, (layout, bounce, int((~close).sum()))
+
+        parbuf, hit_twin = material_rows(mats, pool, hit_twin, active)
+        twin = state.clone()
+        shade_ref(p, fs.tris, fs.mats, fs.lights, lt, twin, hit_twin, parbuf,
+                  tb.par_row_starts(active), nee, fs.walk)
+        kern = state.clone()
+        tb.shade_step(p, fs, kern, hit_twin, parbuf, active, nee)
+        torch.cuda.synchronize()
+        assert tb.launches["K4"] == before["K4"] + 1
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert close.mean() >= MIN_AGREE, (layout, bounce, int((~close).sum()))
+        if bounce == 1:
+            # textureLodBounces runs K1/K2 on these (means, tangent-row) tables
+            plain = state.clone()
+            tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, lt, plain, nee, fs.walk)
+            kern = state.clone()
+            tb.bounce_step(p, fs, kern, nee)
+            torch.cuda.synchronize()
+            k, t = kern.cpu().numpy(), plain.cpu().numpy()
+            bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
+            close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+            assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, layout
+        state = twin
+    assert int((state[13] > 0.5).sum()) > 0  # rays lived through bounce 4

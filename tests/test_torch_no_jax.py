@@ -1,8 +1,9 @@
 """The port runs where neither JAX nor Pillow nor ml_dtypes nor the JAX
 package is installed (the GPU machine has torch, numpy and the CUDA
 toolkit only): in a fresh interpreter that cannot import them, every
-module of gatling_tpu_torch imports, and an 8x8 Cornell frame and an 8x8
-frame of an instanced scene render on the CPU."""
+module of gatling_tpu_torch imports, and 8x8 frames of the Cornell box, of
+an instanced scene and of the textured interior (its PNG textures written
+and decoded by the port) render on the CPU."""
 
 import os
 import subprocess
@@ -37,6 +38,23 @@ gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
                             aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
                             render_settings={"spp": 1, "maxBounces": 2}))
 assert scene._fused_static.instanced and buf.data[..., :3].max() > 0.0
+import tempfile
+from gatling_tpu_torch.scene.examples import interior
+desc = interior(detail=1, tex_dir=tempfile.mkdtemp())  # PNGs written and read without Pillow
+scene = gi.create_scene("cpu")
+for m in desc.meshes:
+    scene.add_mesh(m)
+for m in desc.materials.values():
+    scene.add_material(m)
+for light in desc.lights:
+    scene.add_light(light)
+buf = gi.GiRenderBuffer(8, 8, 4)
+gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                            render_settings={"spp": 1, "maxBounces": 2,
+                                             "nextEventEstimation": True}))
+assert scene._fused_static.textured and scene._texture_pool.count == 6
+assert buf.data[..., :3].max() > 0.0
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")

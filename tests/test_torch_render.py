@@ -152,17 +152,26 @@ def test_gate_raises_on_large_scene():
 
 @pytest.mark.parametrize("n", [2, 46])
 def test_gate_raises_on_textured_material(n):
-    scene = gi.create_scene("cpu")
-    scene.add_mesh(_quad_grid_mesh(n, material="/tex"))
-    nodes = {
-        "/tex/s": ShaderNode(path="/tex/s", shader_id="UsdPreviewSurface", inputs={},
-                             input_connections={"diffuseColor": ("/tex/img", "rgb")}),
-        "/tex/img": ShaderNode(path="/tex/img", shader_id="UsdUVTexture",
-                               inputs={"file": "albedo.png"}, input_connections={}),
-    }
-    scene.add_material(MaterialDesc(path="/tex", surface_node="/tex/s", nodes=nodes))
-    with pytest.raises(NotImplementedError, match="Textured split path"):
-        _render(scene)
+    """A base-colour texture renders through the split bounce, resident
+    and clustered (a missing file reads as the 1x1 black fallback); a
+    textured opacity still raises, naming its ROADMAP item."""
+    for connected, textured_route in (("diffuseColor", True), ("opacity", False)):
+        scene = gi.create_scene("cpu")
+        scene.add_mesh(_quad_grid_mesh(n, material="/tex"))
+        nodes = {
+            "/tex/s": ShaderNode(path="/tex/s", shader_id="UsdPreviewSurface", inputs={},
+                                 input_connections={connected: ("/tex/img", "rgb")}),
+            "/tex/img": ShaderNode(path="/tex/img", shader_id="UsdUVTexture",
+                                   inputs={"file": "albedo.png"}, input_connections={}),
+        }
+        scene.add_material(MaterialDesc(path="/tex", surface_node="/tex/s", nodes=nodes))
+        if textured_route:
+            img = _render(scene)
+            assert np.isfinite(img).all() and scene._fused_static.textured
+            assert scene._fused_static.clustered == (n == 46)
+        else:
+            with pytest.raises(NotImplementedError, match="First-hit AOVs, clipping and textured"):
+                _render(scene)
 
 
 @pytest.mark.parametrize("what", ["dome", "aov", "clipping", "devices", "vcolor"])
@@ -188,7 +197,7 @@ def test_gate_raises_outside_the_slice(what):
         kwargs["clippingPlanes"] = True
     elif what == "devices":
         kwargs["parallelDevices"] = 2
-    item = {"dome": "Dome lights", "aov": "Textured split path", "clipping": "Textured split path",
+    item = {"dome": "Dome lights", "aov": "First-hit AOVs", "clipping": "First-hit AOVs",
             "devices": "Multi-GPU", "vcolor": "vertex colours"}[what]
     with pytest.raises(NotImplementedError, match=item):
         _render(scene, AovId.NORMAL if what == "aov" else AovId.COLOR, **kwargs)
