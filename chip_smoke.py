@@ -9,7 +9,8 @@ fails, with a non-zero exit, if any phase fails:
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade) are built from
-   gatling_tpu_torch/csrc/bounce.cu;
+   gatling_tpu_torch/csrc/bounce.cu, and K5-K8 (the brute-force trace)
+   from csrc/trace.cu, the two nvcc runs at once;
 3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
    the wrapper the main path calls (ops/bounce.py bounce_step), on the ray
    waves the main path builds: Cornell 1200x1200 x 2 samples (2.88M rays,
@@ -45,13 +46,30 @@ fails, with a non-zero exit, if any phase fails:
    geometry, NEE off and on, at bounces 0 and 4, and the textured Cornell
    box's wave (1200x1200 x 2 samples, resident tables); then both, their
    twins and the texture stage timed;
-5. progressive accumulation over one scene (sampleOffset 16 -> 32 -> 48).
+5. progressive accumulation over one scene (sampleOffset 16 -> 32 -> 48);
+4e. the wavefront integrator through gi.render, every AOV bound (the ids
+   in int32 buffers): cornell_aovs (the Cornell box and the bench's rect
+   light, 1200x1200, 16 spp, 8 bounces, NEE) and interior_aovs
+   (interior(detail=1), 3,840 triangles, 512x512, 4 spp, 6 bounces, NEE,
+   textured), a first and three warm frames each, COLOR's Cornell checks,
+   ids in range, unit normals, K5 and K6 launched and K1-K4 not; then
+   Mesh.PrimvarInterpolation and Render.AOVs on the card and through the
+   twins on the CPU, the same samples: ids equal on 99.9 % of pixels,
+   COLOR means within 1 %;
+3d. then K5-K8 against their twins (ops/trace_ref.py), through the
+   wrappers (ops/trace.py), on the waves 4e's frames handed the tracer
+   (sample 0, bounces 0 and 2: the closest-hit waves, 1,440,000 and
+   262,144 rays, and the NEE shadow waves) and the tables gi built: tri,
+   t, u, v bit-equal and the occlusion flags equal on every ray, K7's
+   triangle K5's on 99 % of rays; each kernel and twin timed.
 
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
-the interior's), the counts set to 0 just before it and read just after. The last lines are the
-card's name and power limit, one JSON line with the kernels' launch
-counts, errors, times and bounds, and {"ok": true, "device": {...}}.
+the interior's; K5 and K6: cornell_aovs'), the counts set to 0 just
+before it and read just after. K7 and K8 are on no path (the JAX
+package's comparison point) and count 0. The last lines are the card's
+name and power limit, one JSON line with the kernels' launch counts,
+errors, times and bounds, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1009,6 +1027,342 @@ def phase_interior(device, tex_dir: str, extra: dict):
     return out, split_launches, scenes
 
 
+AOVS_RES, AOVS_SPP, AOVS_BOUNCES = 1200, 16, 8  # cornell_aovs: the Cornell bench frame
+INT_AOVS = ("OBJECT_ID", "FACE_ID", "INSTANCE_ID")
+# operations a live ray spends on one triangle, counted from csrc/trace.cu
+TRACE_OPS = {"K5": 58, "K6": 57, "K7": 54, "K8": 53}
+
+
+def all_aov_bindings(w: int, h: int):
+    """One binding of every AOV: the ids in int32 buffers cleared to -1,
+    the others in float buffers of at least 3 channels."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId
+
+    return [gi.GiAovBinding(a, gi.GiRenderBuffer(w, h, 1 if AOV_IS_INT[a] else
+                                                 max(AOV_CHANNELS[a], 3), AOV_IS_INT[a]),
+                            clear_value=-1 if AOV_IS_INT[a] else None) for a in AovId]
+
+
+def cornell_aovs_params(device):
+    """cornell_aovs: the Cornell box with the bench's rect light, every AOV
+    bound, 1200x1200, 16 spp, 8 bounces, NEE."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.cli import load_gi_scene
+
+    scene, desc, merged = load_gi_scene(CORNELL, device, dict(
+        spp=AOVS_SPP, maxBounces=AOVS_BOUNCES, nextEventEstimation=True))
+    scene.add_light(bench_rect_light())
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                             aov_bindings=all_aov_bindings(AOVS_RES, AOVS_RES),
+                             render_settings=merged)
+
+
+def interior_aovs_params(device, tex_dir: str):
+    """interior_aovs: interior(detail=1), 3,840 triangles, every AOV bound,
+    512x512, 4 spp, 6 bounces, NEE."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(detail=1, tex_dir=tex_dir)
+    scene = gi.create_scene(device)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                             aov_bindings=all_aov_bindings(SF_RES, SF_RES),
+                             render_settings=dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True))
+
+
+def timed_aov_render(params, label):
+    """One gi.render of every bound AOV, timed to the end of the host copies,
+    the launch counts of all eight kernels set to 0 just before it and read
+    just after; returns ({AovId: buffer}, seconds, launches)."""
+    import torch
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
+
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    for counts in (tb.launches, tt.launches):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gi.render(params)
+    dt = time.perf_counter() - t0
+    launches = {**tb.launches, **tt.launches}
+    log(f"render {label}: {dt:.4f} s wall, kernel launches {launches}")
+    return {b.aov_id: b.render_buffer.data.copy() for b in params.aov_bindings}, dt, launches
+
+
+def check_aovs(aovs, params, label):
+    """Every AOV finite; ids within their ranges and present; the normals of
+    hit pixels unit length."""
+    import numpy as np
+
+    from gatling_tpu_torch.interface import AovId
+
+    scene = params.scene
+    n_inst = sum(1 if m.instance_transforms is None else len(m.instance_transforms)
+                 for m in scene.meshes)
+    for aov, buf in aovs.items():
+        assert np.isfinite(buf).all(), (label, aov)
+    obj, face, inst = (aovs[AovId[k]][..., 0] for k in INT_AOVS)
+    assert obj.min() >= -1 and obj.max() < len(scene.meshes) and (obj >= 0).mean() > 0.5, label
+    assert inst.min() >= -1 and inst.max() < n_inst and face.min() >= -1, label
+    assert ((obj >= 0) == (face >= 0)).all() and ((obj >= 0) == (inst >= 0)).all(), label
+    nrm = aovs[AovId.NORMAL][..., :3][obj >= 0] * 2.0 - 1.0
+    length = np.linalg.norm(nrm, axis=-1)
+    log(f"{label}: {(obj >= 0).mean():.4f} of pixels hit, {len(np.unique(obj[obj >= 0]))} objects, "
+        f"{len(np.unique(face[face >= 0]))} faces; normal lengths {length.min():.6f}-"
+        f"{length.max():.6f}")
+    assert np.abs(length - 1.0).max() < 1e-3, label
+
+
+def record_waves(params, bounces=(0, 2)):
+    """One more frame of `params` with the wavefront's trace calls
+    recorded: for sample 0, the closest-hit waves and the NEE shadow
+    waves of `bounces` (origins, directions, tmin, tmax), as gi.render
+    hands them to K5 and K6."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.render import integrator
+
+    calls = {"closest": [], "occluded": []}
+    real = {"closest": integrator._trace_closest, "occluded": integrator._trace_occluded}
+
+    def recorder(kind):
+        def fn(config, accel, *rays):
+            if len(calls[kind]) <= max(bounces):
+                calls[kind].append(tuple(r.clone() for r in rays))
+            return real[kind](config, accel, *rays)
+        return fn
+
+    integrator._trace_closest = recorder("closest")
+    integrator._trace_occluded = recorder("occluded")
+    try:
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        gi.render(params)
+    finally:
+        integrator._trace_closest = real["closest"]
+        integrator._trace_occluded = real["occluded"]
+    return {kind: {b: calls[kind][b] for b in bounces if b < len(calls[kind])}
+            for kind in calls}
+
+
+def graphical_card_vs_cpu(device, name):
+    """A tests/graphical scene at its own settings (96x96) with COLOR,
+    ALBEDO and the id AOVs, on the card and through the twins on the CPU,
+    the same samples. (Mesh.PrimvarInterpolation's COLOR is black: its
+    only light is a distant light and the scene renders without NEE; its
+    vertex colours show in the albedo.)"""
+    import numpy as np
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.cli import load_gi_scene
+    from gatling_tpu_torch.interface import AovId
+
+    path = os.path.join(HERE, "tests", "graphical", name, "scene.usda")
+    out = {}
+    for dev in (device, "cpu"):
+        scene, desc, merged = load_gi_scene(path, dev)
+        binds = [b for b in all_aov_bindings(96, 96)
+                 if b.aov_id in (AovId.COLOR, AovId.ALBEDO, *(AovId[k] for k in INT_AOVS))]
+        gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(), aov_bindings=binds,
+                                    render_settings=merged))
+        assert scene._accel is not None, name  # the wavefront route
+        out[str(dev)] = {b.aov_id: b.render_buffer.data for b in binds}
+    gpu, cpu = out[str(device)], out["cpu"]
+    same = {k: float((gpu[AovId[k]] == cpu[AovId[k]]).mean()) for k in INT_AOVS}
+    rel = {}
+    for aov in (AovId.COLOR, AovId.ALBEDO):
+        g, c = gpu[aov][..., :3], cpu[aov][..., :3]
+        assert np.isfinite(g).all() and (g >= 0).all(), (name, aov)
+        rel[aov.name] = float(abs(g.mean() - c.mean()) / max(float(c.mean()), 1e-12))
+    log(f"{name} card vs CPU twins: ids equal on {same}; mean rel diff {rel}; COLOR means "
+        f"{gpu[AovId.COLOR][..., :3].mean():.6f} / {cpu[AovId.COLOR][..., :3].mean():.6f}")
+    assert all(v >= 0.999 for v in same.values()) and all(v < 0.01 for v in rel.values())
+    return same, rel
+
+
+def phase_wavefront(device, tex_dir: str):
+    """Phase 4e: cornell_aovs and interior_aovs through gi.render's wavefront
+    route (K5 closest hits, K6 shadow rays): a first and warm frames, the
+    checks, the launch counts; the two graphical scenes on the card against
+    the CPU twins. Returns (frame seconds, launches of the Cornell warm
+    frame, recorded waves and tables per scene)."""
+    import numpy as np
+
+    from gatling_tpu_torch.interface import AovId
+
+    out, waves = {}, {}
+    for label, params, warm_frames in (
+            ("cornell_aovs", cornell_aovs_params(device), 3),
+            ("interior_aovs", interior_aovs_params(device, tex_dir), 3)):
+        desc = (f"{label} {params.aov_bindings[0].render_buffer.width}^2 "
+                f"{params.render_settings['spp']}spp {params.render_settings['maxBounces']} "
+                "bounces nee, every AOV")
+        _aovs, out[label + "_first_frame"], _ = timed_aov_render(params, desc + " (first frame)")
+        warm = []
+        for i in range(warm_frames):
+            aovs, dt, launches = timed_aov_render(params, desc + f" (warm {i + 1})")
+            warm.append(dt)
+        out[label + "_warm"] = warm
+        scene = params.scene
+        assert scene._tracer == "matrix" and scene._fused is None
+        assert launches["K5"] > 0 and launches["K6"] > 0, launches
+        assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K7", "K8")), launches
+        if label == "cornell_aovs":
+            wavefront_launches = {k: launches[k] for k in ("K5", "K6", "K7", "K8")}
+            image_checks(aovs[AovId.COLOR], label)
+        color = aovs[AovId.COLOR][..., :3]
+        assert (color >= 0).all() and color.mean() > 0.01, label
+        check_aovs(aovs, params, label)
+        log(f"{label}: warm frames {[round(t, 4) for t in warm]} s, median "
+            f"{float(np.median(warm)):.4f} s")
+        waves[label] = (record_waves(params), scene._accel.tables, scene._geom)
+    for name in ("Mesh.PrimvarInterpolation", "Render.AOVs"):
+        out[name] = graphical_card_vs_cpu(device, name)
+    return out, wavefront_launches, waves
+
+
+def event_ms(fn, reps: int = 7) -> float:
+    """Median of `reps` CUDA-event-timed calls of fn() after one warm-up."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times[1:])
+
+
+def trace_bound_ms(kernel: str, rays, table, tested: int):
+    """The least time of one launch: each ray's o, d, tmin, tmax read once,
+    its result written once (t, tri, u, v: 16 B; a flag: 1 B), the table
+    read once (HBM), against the `tested` ray-triangle tests at
+    TRACE_OPS operations each (f32)."""
+    n = rays[0].shape[0]
+    out_bytes = 16 if kernel in ("K5", "K7") else 1
+    return _bound(n * (32 + out_bytes) + 4 * table.numel(), tested * TRACE_OPS[kernel])
+
+
+def phase_trace(device, waves: dict):
+    """Phase 3d: K5-K8 against their twins on the waves 4e's frames handed
+    the tracer, on the tables gi built: tri, t, u, v bit-equal on every ray,
+    the occlusion flags equal on every ray; K7 against K5; each kernel and
+    twin timed with CUDA events."""
+    import torch
+
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+    from gatling_tpu_torch.ops.bounce import real_triangles
+
+    results = {}
+    for label, (recorded, tables, geom) in waves.items():
+        tiles = tt.build_tri_tiles(geom, device)
+        n_real = real_triangles(geom)
+        for bounce, rays in recorded["closest"].items():
+            live = int((rays[3] > rays[2]).sum())
+            got5, got7 = tt.intersect_matrix(*rays, tables), tt.intersect_tiles(*rays, tiles)
+            ref5 = trf.intersect_matrix_ref(*rays, tables.coeffs)
+            ref7 = trf.intersect_tiles_ref(*rays, tiles.tris)
+            torch.cuda.synchronize()
+            bad, err = {}, {}
+            for k, got, ref in (("K5", got5, ref5), ("K7", got7, ref7)):
+                bad[k] = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                             for g, r in zip(got, ref))
+                hit = ref[1] >= 0
+                err[k] = max(float((g[hit] - r[hit]).abs().max()) if bool(hit.any()) else 0.0
+                             for g, r in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])))
+            agree = float((got5.tri == got7.tri).float().mean())
+            log(f"parity {label} bounce {bounce} closest ({rays[0].shape[0]} rays, {live} live, "
+                f"{int((ref5[1] >= 0).sum())} hits): K5 {bad['K5']} and K7 {bad['K7']} values "
+                f"not bit-equal to their twins; K7 takes K5's triangle on {agree:.6f}")
+            assert bad["K5"] == 0 and bad["K7"] == 0 and agree >= 0.99
+            for k, fn, twin, table in (
+                    ("K5", lambda r=rays: tt.intersect_matrix(*r, tables),
+                     lambda r=rays: trf.intersect_matrix_ref(*r, tables.coeffs), tables.coeffs),
+                    ("K7", lambda r=rays: tt.intersect_tiles(*r, tiles),
+                     lambda r=rays: trf.intersect_tiles_ref(*r, tiles.tris), tiles.tris)):
+                results[(k, label, bounce)] = dict(
+                    ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
+                    live=live, bound=trace_bound_ms(k, rays, table, live * n_real), err=err[k])
+        for bounce, rays in recorded["occluded"].items():
+            live = int((rays[3] > rays[2]).sum())
+            got6, got8 = tt.occluded_matrix(*rays, tables), tt.occluded_tiles(*rays, tiles)
+            first6 = trf.occluded_matrix_ref(*rays, tables.coeffs, first=True)
+            first8 = trf.occluded_tiles_ref(*rays, tiles.tris, first=True)
+            torch.cuda.synchronize()
+            bad6, bad8 = int((got6 != (first6 >= 0)).sum()), int((got8 != (first8 >= 0)).sum())
+            log(f"parity {label} bounce {bounce} shadow rays ({rays[0].shape[0]} rays, {live} "
+                f"traced, {int(got6.sum())} occluded): K6 {bad6}, K8 {bad8} flags off their twins")
+            assert bad6 == 0 and bad8 == 0
+            err = {"K6": float((got6 != (first6 >= 0)).float().max()),
+                   "K8": float((got8 != (first8 >= 0)).float().max())}
+            for k, fn, twin, table, first in (
+                    ("K6", lambda r=rays: tt.occluded_matrix(*r, tables),
+                     lambda r=rays: trf.occluded_matrix_ref(*r, tables.coeffs), tables.coeffs,
+                     first6),
+                    ("K8", lambda r=rays: tt.occluded_tiles(*r, tiles),
+                     lambda r=rays: trf.occluded_tiles_ref(*r, tiles.tris), tiles.tris, first8)):
+                # the tests the data needs: up to the first occluder, else all
+                alive = rays[3] > rays[2]
+                tested = int(torch.where(first >= 0, first + 1, n_real)[alive].sum())
+                results[(k, label, bounce)] = dict(
+                    ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
+                    live=live, bound=trace_bound_ms(k, rays, table, tested), err=err[k])
+    for (k, label, bounce), r in sorted(results.items()):
+        log(f"timing {k} {label} bounce {bounce} ({r['rays']} rays, {r['live']} live): kernel "
+            f"{r['ms']:.4f} ms, plain twin {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]})")
+    return results
+
+
+TRACE_ENTRIES = {
+    "K5": ("intersect_matrix (K5, closest hit, coefficient form)",
+           "gatling_tpu/ops/pallas_trace.py:196 intersect_pallas -> _closest_hit_kernel :105"),
+    "K6": ("occluded_matrix (K6, shadow rays, coefficient form)",
+           "gatling_tpu/ops/pallas_trace.py:235 occluded_pallas -> _occlusion_kernel :157"),
+    "K7": ("intersect_tiles (K7, closest hit, elementwise)",
+           "gatling_tpu/ops/pallas_trace.py:365 intersect_pallas_vpu -> "
+           "_closest_hit_kernel_vpu :312"),
+    "K8": ("occluded_tiles (K8, shadow rays, elementwise)",
+           "gatling_tpu/ops/pallas_trace.py:401 occluded_pallas_vpu -> _occlusion_kernel_vpu :349"),
+}
+
+
+def trace_entry(kernel: str, times: dict, launches: int) -> dict:
+    """The kernels-line entry of K5-K8: the headline numbers on the Cornell
+    frame's bounce-0 wave, the other waves by case. K7 and K8 are on no
+    path of either package (the JAX package's comparison point): their
+    main-path launches are 0, and they run on the main path's waves."""
+    name, replaces = TRACE_ENTRIES[kernel]
+    head = times[(kernel, "cornell_aovs", 0)]
+    cases = {f"{label}/bounce {b}": r for (k, label, b), r in sorted(times.items()) if k == kernel}
+    return {
+        "name": name, "route": "cuda", "source": "gatling_tpu_torch/csrc/trace.cu",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["err"] for r in cases.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": None,
+        "on_main_path": kernel in ("K5", "K6"),
+        "ms_by_case": {c: r["ms"] for c, r in cases.items()},
+        "plain_ms_by_case": {c: r["plain_ms"] for c, r in cases.items()},
+        "bound_ms_by_case": {c: r["bound"][0] for c, r in cases.items()},
+    }
+
+
 def main() -> int:
     import tempfile
 
@@ -1037,16 +1391,22 @@ def main() -> int:
     # 2. build
     from torch.utils.cpp_extension import is_ninja_available
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
 
     t0 = time.perf_counter()
-    k = tb.kernel()
-    log(f"built {k.path.name} in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {k.build_seconds:.1f} s; ninja available: {is_ninja_available()}, "
-        "not needed: nvcc is called directly)")
-    for line in k.ptxas_log.splitlines():
-        if "entry function" in line or "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, both at once
+        builds = [pool.submit(mod.kernel) for mod in (tb, tt)]
+        libs = [b.result() for b in builds]
+    log(f"built {', '.join(k.path.name for k in libs)} in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc {', '.join(f'{k.build_seconds:.1f}' for k in libs)} s; ninja available: "
+        f"{is_ninja_available()}, not needed: nvcc is called directly)")
+    for k in libs:
+        for line in k.ptxas_log.splitlines():
+            if "entry function" in line or "registers" in line or "spill" in line:
+                log(f"ptxas: {line.strip()}")
 
     # 3. K1 against its twin; 3b. K2 against its twin
     t0 = time.perf_counter()
@@ -1077,10 +1437,20 @@ def main() -> int:
     # 3c. K3 and K4 against their twins on the tables gi built for 4d
     t0 = time.perf_counter()
     k3_err, k4_err, split_times = phase_split(device, scenes)
-    tex_tmp.cleanup()
     log(f"phase 3c: {time.perf_counter() - t0:.1f} s")
-    launches = {"K1": k1_launches, "K2": k2_launches, **split_launches}
-    log(f"main path: kernel launches per frame {launches}; Mray/s {rates}")
+
+    # 4e. the wavefront integrator (every AOV) through gi.render: K5, K6;
+    # 3d. K5-K8 against their twins on the waves of 4e's frames
+    t0 = time.perf_counter()
+    wave_times, wavefront_launches, waves = phase_wavefront(device, tex_tmp.name)
+    log(f"phase 4e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trace_times = phase_trace(device, waves)
+    tex_tmp.cleanup()
+    log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+    launches = {"K1": k1_launches, "K2": k2_launches, **split_launches, **wavefront_launches}
+    log(f"main path: kernel launches per frame {launches}; Mray/s {rates}; wavefront frame "
+        f"seconds {wave_times}")
 
     k2 = walk_times[("instanced", "generated", False)]
     it, ct = split_times["interior"], split_times["cornell_textured"]
@@ -1153,7 +1523,7 @@ def main() -> int:
         "ms_cornell_textured": ct["k4"],
         "plain_ms_cornell_textured": ct["k4_twin"],
         "bound_ms_cornell_textured": ct["k4_bound"][0],
-    }]}))
+    }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8"))]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0

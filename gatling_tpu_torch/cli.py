@@ -1,12 +1,13 @@
 """Headless renderer CLI of the port.
 
 `python -m gatling_tpu_torch.cli scene.usda out.png [options]` renders one
-frame through the fused bounce kernel on the card (`--device cuda`, the
-default) or through its plain twin on the CPU (`--device cpu`). The flags
-are the JAX package's (reference: src/gatling/main.cpp:94-265,
-Argparse.cpp:30-318): image size, camera path, AOV, gamma, and one flag per
-render setting; `--watch`, `--checkpoint` and AOVs other than colour are
-not ported yet and raise.
+frame on the card (`--device cuda`, the default) or through the kernels'
+plain twins on the CPU (`--device cpu`). The flags are the JAX package's
+(reference: src/gatling/main.cpp:94-265, Argparse.cpp:30-318): image size,
+camera path, AOV, gamma, and one flag per render setting. `--aov` takes
+every AOV: colour renders through the fused kernels, the others through
+the wavefront integrator (gi.py), the ids into int32 buffers. `--watch`
+and `--checkpoint` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import time
 import numpy as np
 
 from gatling_tpu_torch import gi, imgio
-from gatling_tpu_torch.interface import AovId
+from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId
 from gatling_tpu_torch.scene.stage import CameraDesc, load_scene
 from gatling_tpu_torch.utils.config import SETTING_DESCRIPTORS, default_settings
 from gatling_tpu_torch.utils.log import get_logger, init_logging
@@ -96,12 +97,10 @@ def load_gi_scene(scene_path: str, device: str, settings: dict | None = None):
 def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
                       aov: AovId = AovId.COLOR, camera_path: str | None = None,
                       device: str = "cuda"):
-    """Load a USD scene and render one frame; returns (image [H,W,4], scene)."""
+    """Load a USD scene and render one frame of `aov`; returns (image
+    [H, W, C], scene): 4 channels for colour, at least 3 for the other
+    float AOVs, 1 int32 channel for the ids."""
     log = get_logger()
-    if aov != AovId.COLOR:
-        raise NotImplementedError(
-            f"--aov {aov.name.lower()} is not ported yet (ROADMAP: 'First-hit AOVs, clipping "
-            "and textured cutout', 'Wavefront integrator')")
     scene, desc, merged = load_gi_scene(scene_path, device, settings)
     camera = desc.cameras.get(camera_path) if camera_path else None
     if camera_path and camera is None:
@@ -112,7 +111,8 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
         camera = CameraDesc(position=np.array([0, 0, 5], np.float32),
                             forward=np.array([0, 0, -1], np.float32),
                             up=np.array([0, 1, 0], np.float32), vfov=0.4)
-    buf = gi.GiRenderBuffer(width, height, 4)
+    is_int = AOV_IS_INT[aov]
+    buf = gi.GiRenderBuffer(width, height, 1 if is_int else max(AOV_CHANNELS[aov], 3), is_int)
     params = gi.GiRenderParams(scene=scene, camera=camera,
                                aov_bindings=[gi.GiAovBinding(aov_id=aov, render_buffer=buf)],
                                render_settings=merged)
@@ -123,10 +123,15 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
     return buf.data, scene
 
 
-def write_output(img: np.ndarray, path: str, gamma_correction: bool = True) -> None:
-    """Flip to image row order (main.cpp:224-249), encode sRGB, write PNG."""
-    rgb = img[::-1, :, :3]
-    if gamma_correction:
+def write_output(img: np.ndarray, path: str, gamma_correction: bool = True,
+                 aov: AovId = AovId.COLOR) -> None:
+    """Flip to image row order (main.cpp:224-249), encode colour as sRGB
+    (ids as grey levels over their maximum), write PNG."""
+    out = img[::-1]
+    if out.dtype == np.int32:
+        out = out.astype(np.float32) / max(1.0, float(out.max()))
+    rgb = out[:, :, :3] if out.shape[2] >= 3 else np.repeat(out, 3, axis=2)
+    if gamma_correction and aov == AovId.COLOR:
         rgb = linear_to_srgb(rgb)
     imgio.write_image_file(path, np.clip(rgb, 0, 1).astype(np.float32))
     get_logger().info("wrote %s", path)
@@ -139,10 +144,10 @@ def main(argv: list[str] | None = None) -> int:
         raise NotImplementedError(
             "--watch and --checkpoint are not ported yet (ROADMAP: 'Multi-GPU and front ends')")
     settings = {d.name: getattr(args, d.name) for d in SETTING_DESCRIPTORS}
+    aov = AovId[args.aov.upper()]
     img, _scene = render_scene_file(args.scene, args.image_width, args.image_height,
-                                    settings, AovId[args.aov.upper()], args.camera_path,
-                                    device=args.device)
-    write_output(img, args.output, args.gamma_correction)
+                                    settings, aov, args.camera_path, device=args.device)
+    write_output(img, args.output, args.gamma_correction, aov)
     return 0
 
 

@@ -1,11 +1,16 @@
 """Frame times and the device-time breakdown of a bench scene on the card.
 
-    python -m gatling_tpu_torch.frame_profile                    # sphere_field
-    python -m gatling_tpu_torch.frame_profile --scene interior   # textured interior
+    python -m gatling_tpu_torch.frame_profile                        # sphere_field
+    python -m gatling_tpu_torch.frame_profile --scene interior       # textured interior
+    python -m gatling_tpu_torch.frame_profile --scene cornell_aovs   # the wavefront
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
 4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
-interior with NEE on. For each: one warm-up frame through `gi.render`,
+interior with NEE on; or cornell_aovs, the wavefront integrator's frame:
+the Cornell box with the bench's rect light and every AOV bound, at the
+Cornell bench settings (1200x1200, 16 spp, 8 bounces, NEE), its time
+split into K5 (closest hits), K6 (shadow rays) and the PyTorch ops of
+shading and AOVs. For each: one warm-up frame through `gi.render`,
 then five frames on the same scene (host clock around each, ending in the
 image's copy to the host; the framebuffer is reset each time), then one
 more under torch.profiler. Prints the frame times and Mray/s (traced
@@ -35,12 +40,44 @@ from gatling_tpu_torch.render import fused
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
 GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
-          ("K2 walk_kernel", "walk_kernel"), ("sort", "sort"), ("copies", "memcpy"))
+          ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "closest_kernel"),
+          ("K6 shadow rays", "occluded_kernel"), ("sort", "sort"), ("copies", "memcpy"))
+
+
+def _cornell_aovs():
+    """cornell_aovs: the Cornell box, the bench's rect light, every AOV."""
+    import os
+
+    import numpy as np
+
+    from gatling_tpu_torch.cli import load_gi_scene
+    from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT
+    from gatling_tpu_torch.scene.stage import LightDesc
+
+    res = 1200
+    cornell = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "tests", "data", "cornell.usda")
+    scene, desc, merged = load_gi_scene(cornell, "cuda", dict(spp=16, maxBounces=8,
+                                                              nextEventEstimation=True))
+    xf = np.eye(4)
+    xf[3, :3] = [0.0, 0.0, 0.9]
+    scene.add_light(LightDesc(
+        path="/benchlight", light_type="rect", transform=xf,
+        params=dict(intensity=4.0, exposure=0.0, color=np.array([1.0, 0.9, 0.8], np.float32),
+                    normalize=False, diffuse=1.0, specular=1.0, enableColorTemperature=False,
+                    colorTemperature=6500.0, width=0.8, height=0.6)))
+    binds = [gi.GiAovBinding(a, gi.GiRenderBuffer(res, res, 1 if AOV_IS_INT[a] else
+                                                  max(AOV_CHANNELS[a], 3), AOV_IS_INT[a]),
+                             clear_value=-1 if AOV_IS_INT[a] else None) for a in AovId]
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(), aov_bindings=binds,
+                             render_settings=merged)
 
 
 def _params(scene_name: str, nee: bool, tex_dir: str):
     from gatling_tpu_torch.scene.examples import interior, sphere_field
 
+    if scene_name == "cornell_aovs":
+        return _cornell_aovs()
     desc = interior(tex_dir=tex_dir) if scene_name == "interior" else sphere_field()
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
@@ -103,10 +140,15 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
     times = [_frame(params) for _ in range(FRAMES)]
     segs = params.scene.last_segments
     med = statistics.median(times)
-    print(f"{scene_name} {RES}^2 {SPP} spp {BOUNCES} bounces nee={nee}: first frame (scene "
-          f"build included) {first:.4f} s; frames {[round(t, 5) for t in times]} s; median "
-          f"{med:.5f} s; {segs:.0f} segments; {segs / med / 1e6:.1f} Mray/s; route "
-          f"{params.scene._fused_static}")
+    s = params.render_settings
+    route = "wavefront, tracer " + params.scene._tracer if params.scene._accel is not None \
+        else params.scene._fused_static
+    rate = f"{segs:.0f} segments; {segs / med / 1e6:.1f} Mray/s" if segs else \
+        "segments not counted"
+    print(f"{scene_name} {params.aov_bindings[0].render_buffer.width}^2 {s['spp']} spp "
+          f"{s['maxBounces']} bounces nee={s.get('nextEventEstimation', False)}: first frame "
+          f"(scene build included) {first:.4f} s; frames {[round(t, 5) for t in times]} s; "
+          f"median {med:.5f} s; {rate}; route {route}")
 
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
@@ -134,7 +176,7 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
     print("    the largest other kernels:")
     for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"      {ms:.3f} ms in {n}: {name}")
-    if params.scene._fused_static.textured:
+    if params.scene._accel is None and params.scene._fused_static.textured:
         ms, calls = _stage_ms(params)
         print(f"  texture stage (CUDA events around material_rows, one more frame): {ms:.3f} ms "
               f"in {calls} calls")
@@ -142,14 +184,15 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("sphere_field", "interior"), default="sphere_field")
+    ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs"),
+                    default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device; the port's timings come from the card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     with tempfile.TemporaryDirectory(prefix="frame_profile_tex_") as tex_dir:
-        for nee in ((True,) if args.scene == "interior" else (False, True)):
+        for nee in ((False, True) if args.scene == "sphere_field" else (True,)):
             profile(args.scene, nee, tex_dir)
     return 0
 

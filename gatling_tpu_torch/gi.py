@@ -6,15 +6,23 @@ giRender with the dirty-flag engine and the progressive accumulation
 contract (sampleOffset persists across renders and resets when the
 framebuffer is invalidated, Gi.cpp:2125-2129,2515).
 
-The port renders on one device through the fused bounce kernels, and
-only what that path covers: cutout-free scenes of any size, instanced or
-not, untextured or with 8-bit UsdUVTexture textures and normal maps. Above
-4096 triangles a scene takes the two-level walk, in instance tables when
-the JAX package's rule picks them (ops/bounce.py MIN_GAIN), else in
-flattened clustered tables. An untextured scene runs one kernel a bounce
-(K1 resident, K2 walk); a textured one the split bounce (K3 trace, the
-texture stage, K4 shade). `render` raises NotImplementedError, naming the
-ROADMAP item, for anything else; it never renders something else.
+The port renders on one device through one of two paths, chosen as the
+JAX package chooses (gatling_tpu/gi.py:650-700):
+
+* the fused bounce kernels, for a COLOR request of a cutout-free scene
+  of any size, instanced or not, untextured or with 8-bit UsdUVTexture
+  textures and normal maps. Above 4096 triangles a scene takes the
+  two-level walk, in instance tables when the JAX package's rule picks
+  them (ops/bounce.py MIN_GAIN), else in flattened clustered tables. An
+  untextured scene runs one kernel a bounce (K1 resident, K2 walk); a
+  textured one the split bounce (K3 trace, the texture stage, K4 shade);
+* the wavefront integrator (render/integrator.py) when an AOV outside
+  FUSED_AOV_MASK is bound, or a material reads per-vertex colours: every
+  AOV, traced by the brute-force kernels K5 (closest hit) and K6 (shadow
+  rays) for scenes of at most 8192 triangles (`_choose_tracer`).
+
+`render` raises NotImplementedError, naming the ROADMAP item, for anything
+else; it never renders something else.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from gatling_tpu_torch.interface import AovId, aov_bit, f32
+from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId, aov_bit, f32
 from gatling_tpu_torch.ops.bounce import (
     FusedScene,
     FusedStatic,
@@ -38,11 +46,23 @@ from gatling_tpu_torch.ops.bounce import (
     real_triangles,
     refit_instanced,
 )
-from gatling_tpu_torch.ops.geometry import build_geometry_cached, update_instance_transforms
+from gatling_tpu_torch.ops.geometry import (
+    build_geometry_cached,
+    pack_geometry,
+    update_instance_transforms,
+)
+from gatling_tpu_torch.ops.trace import build_trace_tables
 from gatling_tpu_torch.render.camera import camera_uniforms
-from gatling_tpu_torch.render.fused import render_pixels_fused
-from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms, blend_aovs
-from gatling_tpu_torch.render.lights import build_light_arrays
+from gatling_tpu_torch.render.fused import FUSED_AOV_MASK, render_pixels_fused
+from gatling_tpu_torch.render.integrator import (
+    Accel,
+    RenderConfig,
+    SampleResult,
+    Uniforms,
+    blend_aovs,
+    render_frame,
+)
+from gatling_tpu_torch.render.lights import build_light_arrays, light_tensors
 from gatling_tpu_torch.render.material import (
     MaterialTable,
     build_materials,
@@ -71,11 +91,11 @@ class DirtyFlags(enum.IntFlag):
 class GiRenderBuffer:
     """Host render target (reference: renderBuffer.cpp, giCreateRenderBuffer)."""
 
-    def __init__(self, width: int, height: int, channels: int = 4) -> None:
+    def __init__(self, width: int, height: int, channels: int = 4, is_int: bool = False) -> None:
         self.width = width
         self.height = height
         self.channels = channels
-        self.data = np.zeros((height, width, channels), np.float32)
+        self.data = np.zeros((height, width, channels), np.int32 if is_int else np.float32)
 
 
 @dataclasses.dataclass
@@ -112,11 +132,15 @@ class GiScene:
         self._texture_pool = None
         self._material_dev = None  # the material table on the device, for the texture stage
         self._light_arrays = None
+        self._light_dev = None  # the light tables on the device, for the wavefront
+        self._tracer = "matrix"  # the wavefront's tracer (_choose_tracer)
+        self._accel: Accel | None = None  # its tables, built at the first wavefront frame
+        self._packed = None  # the soup's packed rows on the device (wavefront shading)
         self._fused: FusedScene | None = None
         self._fused_static: FusedStatic | None = None
         self._fused_order: np.ndarray | None = None  # flattened clustered order
         self._clusters: UniqueClusters | None = None  # instanced: the unique clusters
-        self._color: torch.Tensor | None = None  # accumulated COLOR AOV [N,4]
+        self._aov_state: dict[str, torch.Tensor] | None = None  # accumulated AOVs
         self._fb_shape: tuple[int, int] | None = None
         self._last_params_key = None
         self.last_segments: float = 0.0  # traced segments of the last render
@@ -187,8 +211,35 @@ def _params_key(params: GiRenderParams, width: int, height: int):
     )
 
 
+# the largest scene the brute-force kernels K5/K6 trace (gatling_tpu/gi.py:269)
+MATRIX_MAX_TRIS = 8192
+
+
+def _choose_tracer(geom) -> str:
+    """The wavefront's tracer (gatling_tpu/gi.py:272-286, with the TPU's
+    rule on either device): the brute-force kernels up to MATRIX_MAX_TRIS
+    triangles, the threaded BVH above."""
+    return "matrix" if geom.num_triangles <= MATRIX_MAX_TRIS else "bvh"
+
+
+def _build_accel(scene: GiScene) -> None:
+    """The wavefront's trace tables and packed shading rows on the device
+    (gatling_tpu/gi.py:289-303)."""
+    if scene._tracer != "matrix":
+        raise NotImplementedError(
+            f"{scene._geom.num_triangles} triangles: the wavefront integrator traces scenes "
+            f"above {MATRIX_MAX_TRIS} triangles with the threaded BVH tracer, which is not "
+            "ported yet (ROADMAP: 'Wavefront integrator')")
+    t0 = time.monotonic()
+    scene._accel = Accel(tables=build_trace_tables(scene._geom, scene.device))
+    scene._packed = pack_geometry(scene._geom, scene.device)
+    get_logger().info("built the %s trace tables in %.1f ms", scene._tracer,
+                      1e3 * (time.monotonic() - t0))
+
+
 def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int) -> RenderConfig:
     s = params.render_settings
+    scene = params.scene
     return RenderConfig(
         width=width,
         height=height,
@@ -202,41 +253,69 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
         clipping_planes=bool(s.get("clippingPlanes", False)),
         progressive=bool(s.get("progressiveAccumulation", True)),
         aov_mask=aov_mask,
-        has_dome=(params.dome_light or params.scene.dome_light) is not None,
+        has_dome=(params.dome_light or scene.dome_light) is not None,
         tex_lod_bounces=int(s.get("textureLodBounces", 0)),
+        tracer=scene._tracer,
+        has_volumes=any(any(c > 0.0 for c in m.params["volume_absorption"])
+                        or any(c > 0.0 for c in m.params["volume_scattering"])
+                        for m in scene._lowered_materials),
     )
 
 
-def _init_aov_state(bindings: list[GiAovBinding], n: int, device) -> torch.Tensor:
-    """The COLOR AOV buffer [n, 4], holding the binding's clear value
-    (zeros without one)."""
-    b = next(b for b in bindings if b.aov_id == AovId.COLOR)
-    cv = np.zeros(4, np.float32) if b.clear_value is None else \
-        np.asarray(b.clear_value, np.float32).reshape(-1)[:4]
-    return torch.broadcast_to(torch.as_tensor(cv, device=device), (n, 4)).clone()
+_AOV_KEYS = {
+    AovId.COLOR: "color", AovId.NORMAL: "normal", AovId.NEE: "nee",
+    AovId.BARYCENTRICS: "barycentrics", AovId.TEXCOORDS: "texcoords",
+    AovId.BOUNCES: "bounces", AovId.CLOCK_CYCLES: "clock_cycles",
+    AovId.OPACITY: "opacity", AovId.TANGENTS: "tangents",
+    AovId.BITANGENTS: "bitangents", AovId.THIN_WALLED: "thin_walled",
+    AovId.OBJECT_ID: "object_id", AovId.DEPTH: "depth",
+    AovId.FACE_ID: "face_id", AovId.INSTANCE_ID: "instance_id",
+    AovId.DOUBLE_SIDED: "double_sided", AovId.ALBEDO: "albedo",
+}
 
 
-def _check_route(params: GiRenderParams, config: RenderConfig) -> None:
-    """The slice's routing gate: raise for everything the fused resident
-    path of the port does not render."""
+def _init_aov_state(bindings: list[GiAovBinding], n: int, device) -> dict[str, torch.Tensor]:
+    """One buffer a bound AOV ([n] or [n, channels], int32 for the ids),
+    holding the binding's clear value (zeros without one)."""
+    state = {}
+    for b in bindings:
+        ch = AOV_CHANNELS[b.aov_id]
+        dtype = torch.int32 if AOV_IS_INT[b.aov_id] else torch.float32
+        shape = (n,) if ch == 1 else (n, ch)
+        cv = 0 if b.clear_value is None else np.asarray(b.clear_value).reshape(-1)[:ch]
+        state[_AOV_KEYS[b.aov_id]] = torch.broadcast_to(
+            torch.as_tensor(cv, dtype=dtype, device=device), shape).clone()
+    return state
+
+
+def _uses_vertex_colours(scene: GiScene) -> bool:
+    """A material multiplies per-vertex displayColor into its base colour
+    and a mesh carries such colours (gatling_tpu/gi.py:673-679)."""
+    vcolor = any(m.params.get("vcolor_mul", 0.0) for m in scene._lowered_materials)
+    return vcolor and any(getattr(m.mesh, "colors", None) is not None for m in scene.meshes)
+
+
+def _check_route(params: GiRenderParams, config: RenderConfig, wavefront: bool) -> None:
+    """Raise for what the chosen route of the port does not render."""
     scene = params.scene
-    s = params.render_settings
+    if int(params.render_settings.get("parallelDevices", 1) or 1) > 1:
+        raise NotImplementedError(
+            "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
+    opacity_textures = any("opacity" in m.textures for m in scene._lowered_materials)
+    if wavefront:
+        if opacity_textures:
+            raise NotImplementedError("cutout in the wavefront integrator is not ported yet "
+                                      "(ROADMAP: 'Lobes, media and cutout')")
+        check_slice(scene._geom, scene._material_table, real_triangles(scene._geom))
+        return
     if config.aov_mask != aov_bit(AovId.COLOR):
         raise NotImplementedError(
-            "only the COLOR AOV is ported; first-hit AOVs ride the split "
-            "kernels (ROADMAP: 'First-hit AOVs, clipping and textured cutout'), the "
-            "others the wavefront integrator (ROADMAP: 'Wavefront integrator')")
-    if any("opacity" in m.textures for m in scene._lowered_materials):
+            "the fused path renders the COLOR AOV only; its first-hit AOVs ride the split "
+            "kernels (ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
+    if opacity_textures:
         raise NotImplementedError(
             "textured opacity (cutout) is not ported yet "
             "(ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
-    if int(s.get("parallelDevices", 1) or 1) > 1:
-        raise NotImplementedError(
-            "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
-    vcolor = any(m.params.get("vcolor_mul", 0.0) for m in scene._lowered_materials)
-    if vcolor and any(getattr(m.mesh, "colors", None) is not None for m in scene.meshes):
-        raise NotImplementedError(
-            "vertex colours are not ported yet (ROADMAP: 'Wavefront integrator')")
 
 
 def _textured(scene: GiScene) -> bool:
@@ -306,7 +385,8 @@ def _refit_fused(scene: GiScene) -> None:
 def render(params: GiRenderParams) -> None:
     """giRender analog (reference: Gi.cpp:1989-2524): resolve dirty state,
     rebuild device tables, render the frame through the fused bounce
-    kernel, blend into the COLOR AOV and copy it to the host buffer."""
+    kernels or the wavefront integrator, blend it into the AOV buffers and
+    copy them to the host buffers."""
     log = get_logger()
     scene = params.scene
     if not params.aov_bindings:
@@ -333,6 +413,8 @@ def render(params: GiRenderParams) -> None:
         scene._material_index[None] = len(mat_paths)
         scene._geom, scene._geom_cache = build_geometry_cached(scene.meshes,
                                                                scene._material_index)
+        scene._tracer = _choose_tracer(scene._geom)
+        scene._accel = None  # built at the first wavefront frame
         scene._fused = None
         scene._pending_transforms.clear()
         scene.dirty |= DirtyFlags.MATERIALS
@@ -345,6 +427,8 @@ def render(params: GiRenderParams) -> None:
                                                  scene._material_index)
         if scene._fused is not None:
             _refit_fused(scene)
+        if scene._accel is not None:  # the trace tables follow (gatling_tpu/gi.py:532-534)
+            _build_accel(scene)
         scene._pending_transforms = []
         log.info("refreshed %d transform(s) in %.1f ms (no geometry rebuild)", len(pending),
                  1e3 * (time.monotonic() - t0))
@@ -359,20 +443,22 @@ def render(params: GiRenderParams) -> None:
         scene._fused = None
     if scene.dirty & DirtyFlags.LIGHTS or scene._light_arrays is None:
         scene._light_arrays = build_light_arrays(scene.lights)
+        scene._light_dev = light_tensors(scene._light_arrays, scene.device)
         scene._fused = None
     if scene.dirty & DirtyFlags.FRAMEBUFFER or scene._fb_shape != (width, height):
         scene.sample_offset = 0
         scene._fb_shape = (width, height)
-        scene._color = None
+        scene._aov_state = None
+    if scene._aov_state is None or set(scene._aov_state) != {
+            _AOV_KEYS[b.aov_id] for b in params.aov_bindings}:
+        scene._aov_state = _init_aov_state(params.aov_bindings, n, scene.device)
     scene.dirty = DirtyFlags.CLEAN
 
     config = _build_config(params, width, height, aov_mask)
-    _check_route(params, config)
-    if scene._fused is None:
-        _build_fused(scene)
-    if scene._color is None:
-        scene._color = _init_aov_state(params.aov_bindings, n, scene.device)
-
+    # the JAX package's route (gatling_tpu/gi.py:650-700): AOVs the fused
+    # kernels do not write, or vertex colours, take the wavefront integrator
+    wavefront = bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
+    _check_route(params, config, wavefront)
     s = params.render_settings
     uniforms = Uniforms(
         camera=camera_uniforms(params.camera, config.depth_of_field, scene.device),
@@ -384,18 +470,49 @@ def render(params: GiRenderParams) -> None:
         meters_per_scene_unit=f32(s.get("metersPerSceneUnit", 1.0)),
         max_volume_walk_length=int(s.get("maxVolumeWalkLength", 7)),
     )
-    pix = torch.arange(n, dtype=torch.int64, device=scene.device)
-    static = scene._fused_static
-    split = dict(materials=scene._material_dev, textures=scene._texture_pool,
-                 textured_params=static.textured_params) if static.textured else {}
-    color, segs = render_pixels_fused(config, uniforms, scene._fused, pix, config.spp,
-                                      scene.sample_offset, with_stats=True, **split)
-    scene.last_segments = float(segs.sum()) * config.spp
-    scene._color = blend_aovs(config, uniforms, {"color": scene._color}, color)["color"]
+    if wavefront:
+        if scene._accel is None:
+            _build_accel(scene)
+        scene._aov_state = render_frame(config, uniforms, scene._packed, scene._material_dev,
+                                        scene._light_dev, scene._aov_state,
+                                        scene._texture_pool, scene._accel)
+        scene.last_segments = 0.0  # the wavefront does not count its segments
+    else:
+        if scene._fused is None:
+            _build_fused(scene)
+        pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+        static = scene._fused_static
+        split = dict(materials=scene._material_dev, textures=scene._texture_pool,
+                     textured_params=static.textured_params) if static.textured else {}
+        color, segs = render_pixels_fused(config, uniforms, scene._fused, pix, config.spp,
+                                          scene.sample_offset, with_stats=True, **split)
+        scene.last_segments = float(segs.sum()) * config.spp
+        scene._aov_state = blend_aovs(config, uniforms, scene._aov_state,
+                                      SampleResult(color, torch.zeros_like(pix)))
 
-    arr = scene._color.cpu().numpy()
+    # device -> host copies of every bound AOV (Gi.cpp:2439-2502)
     for b in params.aov_bindings:
+        arr = scene._aov_state[_AOV_KEYS[b.aov_id]].cpu().numpy()
+        if arr.ndim == 1:
+            arr = arr[:, None]
         buf = b.render_buffer
-        ch = min(buf.channels, 4)
-        buf.data.reshape(n, buf.channels)[:, :ch] = arr[:, :ch]
+        if b.aov_id == AovId.CLOCK_CYCLES and buf.channels >= 3:
+            arr = _turbo_heatmap(arr[:, 0])  # the per-pixel cost heatmap (Gi.cpp:327-343)
+        ch = min(buf.channels, arr.shape[1])
+        out = buf.data.reshape(n, buf.channels)
+        out[:, :ch] = arr[:, :ch].astype(out.dtype)
+        if buf.channels == 4 and arr.shape[1] == 3:
+            out[:, 3] = 1
     scene.sample_offset += config.spp  # Gi.cpp:2515
+
+
+def _turbo_heatmap(values: np.ndarray) -> np.ndarray:
+    """Normalise per-pixel costs and map them through the Turbo colormap
+    (reference: src/gi/impl/Turbo.h, _EncodeRenderBufferAsHeatmap)."""
+    v = values.astype(np.float64)
+    vmax = v.max()
+    t = (v / vmax if vmax > 0 else v).clip(0.0, 1.0)
+    r = np.polyval([-3.8268, 9.6180, -8.2527, 2.1903, 0.9967, 0.1357][::-1], t)
+    g = np.polyval([-5.9311, 11.6060, -8.5590, 2.7747, 0.2484, 0.0914][::-1], t)
+    bl = np.polyval([13.6217, -34.5806, 28.8827, -9.0252, 1.2897, 0.1067][::-1], t)
+    return np.clip(np.stack([r, g, bl], axis=1), 0.0, 1.0).astype(np.float32)

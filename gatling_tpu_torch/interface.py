@@ -62,6 +62,21 @@ AOV_CHANNELS: dict[AovId, int] = {
     AovId.ALBEDO: 3,
 }
 
+# The id AOVs are int32 buffers (renderBuffer.cpp:30-35: Int32).
+AOV_IS_INT: dict[AovId, bool] = {
+    a: a in (AovId.OBJECT_ID, AovId.FACE_ID, AovId.INSTANCE_ID) for a in AovId}
+
+# BSDF event types (reference: mdl_types.glsl BSDF_EVENT_*).
+BSDF_EVENT_ABSORB = 0
+BSDF_EVENT_DIFFUSE = 1
+BSDF_EVENT_GLOSSY = 1 << 1
+BSDF_EVENT_SPECULAR = 1 << 2
+BSDF_EVENT_REFLECTION = 1 << 3
+BSDF_EVENT_TRANSMISSION = 1 << 4
+BSDF_EVENT_DIFFUSE_REFLECTION = BSDF_EVENT_DIFFUSE | BSDF_EVENT_REFLECTION
+BSDF_EVENT_GLOSSY_REFLECTION = BSDF_EVENT_GLOSSY | BSDF_EVENT_REFLECTION
+BSDF_EVENT_SPECULAR_TRANSMISSION = BSDF_EVENT_SPECULAR | BSDF_EVENT_TRANSMISSION
+
 # Mesh flags (reference: rp_main.h BLAS_PAYLOAD_BITFLAG_*).
 MESH_FLAG_FLIP_FACING = 1 << 0
 MESH_FLAG_DOUBLE_SIDED = 1 << 1

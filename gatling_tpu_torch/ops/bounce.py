@@ -33,14 +33,7 @@ They are registered as the operators `torch.ops.gatling.bounce_step` (K1),
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -91,6 +84,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     WalkTables,
     bounce_ref,
 )
+from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry
 from gatling_tpu_torch.ops.split_ref import (
     HIT_ROWS,
@@ -128,9 +122,6 @@ SMEM_TABLE_MAX_BYTES = 48 * 1024
 TLAS_LEAF = 2      # level-1 entries per TLAS leaf
 TLAS_MAX_DEPTH = 48  # the kernel's traversal stack holds 64 nodes
 
-_REPO = Path(__file__).resolve().parents[2]
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bounce.cu"
-BUILD_DIR = _REPO / "build" / "torch_ext"
 
 
 # ---------------------------------------------------------------------------
@@ -817,80 +808,31 @@ def make_params(config, uniforms, bounces: int, device) -> torch.Tensor:
 # the CUDA kernels: build, load, launch
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME", "") + "/bin/nvcc", "/usr/local/cuda/bin/nvcc",
-                 shutil.which("nvcc") or ""):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the bounce kernels are built from "
-                       "csrc/bounce.cu at first use (set CUDA_HOME)")
+def _check_bounce(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    check_tensor("bounce", name, t, dtype)
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"bounce kernel: {name} must be a contiguous CUDA {dtype} tensor, "
-                         f"got {t.device} {t.dtype}")
-
-
-class BounceKernel:
-    """csrc/bounce.cu built into a shared library and loaded with ctypes.
-
-    Built with -fmad=false: no contraction of a*b+c into a fused
-    multiply-add, so the kernels round like their twin and agree with it
-    on every ray. Contraction is about 8 % faster per launch on an H100 but
-    moves a few rays per 2.88M off the twin's path (PERF.md, Findings)."""
+class BounceKernel(CudaLibrary):
+    """csrc/bounce.cu built with nvcc and loaded with ctypes (ops/cuda_lib.py)."""
 
     def __init__(self) -> None:
-        flags = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                 "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-fmad=false"]
-        src = _SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        self.path = BUILD_DIR / f"libgatling_bounce_{tag}.so"
-        self.build_seconds = 0.0
-        self.ptxas_log = ""
-        if not self.path.exists():
-            t0 = time.perf_counter()
-            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-            res = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(_SOURCE)],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{res.stderr}")
-            os.replace(tmp, self.path)
-            self.build_seconds = time.perf_counter() - t0
-            self.ptxas_log = res.stderr
-        lib = ctypes.CDLL(str(self.path))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        walk = [ptr] * 9 + [i32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
-        shading = [ptr, i32, ptr, ptr, i32]  # mats n_mats lights light_types n_lights
-        self._fns = {}
-        for name, args in (
-                ("gatling_bounce_step", [ptr, ptr, i32, i32, *shading, ptr, i64, i32, ptr]),
-                ("gatling_bounce_walk", [ptr, *walk, i32, *shading, ptr, i64, i32, ptr]),
-                ("gatling_trace_resident", [ptr, ptr, i32, i32, ptr, i64, ptr, ptr]),
-                ("gatling_trace_walk", [ptr, *walk, i32, ptr, i64, ptr, ptr]),
-                ("gatling_shade_resident", [ptr, ptr, i32, i32, *shading, ptr, i64, ptr, ptr,
-                                            i32, i32, i32, i32, i32, ptr]),
-                ("gatling_shade_walk", [ptr, *walk, i32, *shading, ptr, i64, ptr, ptr,
-                                        i32, i32, i32, i32, i32, ptr])):
-            fn = getattr(lib, name)
-            fn.restype = i32
-            fn.argtypes = args
-            self._fns[name] = fn
-        self._err = lib.gatling_error_string
-        self._err.restype = ctypes.c_char_p
-        self._err.argtypes = [ctypes.c_int]
-
-    def _call(self, name: str, *args) -> None:
-        rc = self._fns[name](*args)
-        if rc != 0:
-            raise RuntimeError(f"{name}: launch failed: {self._err(rc).decode()}")
+        walk = [PTR] * 9 + [I32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
+        shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
+        super().__init__("bounce.cu", {
+            "gatling_bounce_step": [PTR, PTR, I32, I32, *shading, PTR, I64, I32, PTR],
+            "gatling_bounce_walk": [PTR, *walk, I32, *shading, PTR, I64, I32, PTR],
+            "gatling_trace_resident": [PTR, PTR, I32, I32, PTR, I64, PTR, PTR],
+            "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, PTR],
+            "gatling_shade_resident": [PTR, PTR, I32, I32, *shading, PTR, I64, PTR, PTR,
+                                       I32, I32, I32, I32, I32, PTR],
+            "gatling_shade_walk": [PTR, *walk, I32, *shading, PTR, I64, PTR, PTR,
+                                   I32, I32, I32, I32, I32, PTR]}, "gatling_error_string")
 
     @staticmethod
     def _check_shading(mats, lights, light_types):
         for name, t, dt in (("mats", mats, torch.float32), ("lights", lights, torch.float32),
                             ("light_types", light_types, torch.int8)):
-            _check(name, t, dt)
+            _check_bounce(name, t, dt)
         if mats.shape[1] != 30 or lights.shape[1] != LIGHT_COLS \
                 or light_types.numel() > lights.shape[0]:
             raise ValueError("bounce kernel: material or light table shape mismatch")
@@ -903,14 +845,14 @@ class BounceKernel:
 
     @staticmethod
     def _check_state(params, state):
-        _check("params", params, torch.float32)
-        _check("state", state, torch.float32)
+        _check_bounce("params", params, torch.float32)
+        _check_bounce("state", state, torch.float32)
         if params.numel() != PARAMS_LEN or state.dim() != 2 or state.shape[0] != STATE_ROWS:
             raise ValueError("bounce kernel: params or state shape mismatch")
 
     @staticmethod
     def _resident_args(tris):
-        _check("tris", tris, torch.float32)
+        _check_bounce("tris", tris, torch.float32)
         if tris.dim() != 2 or tris.shape[1] not in (TRI_ROWS, TRI_ROWS_TAN):
             raise ValueError("bounce kernel: resident tris must be [T, 32] or [T, 48]")
         return tris.data_ptr(), tris.shape[0], tris.shape[1]
@@ -918,9 +860,9 @@ class BounceKernel:
     @staticmethod
     def _walk_args(tris, walk: WalkTables):
         for name, t in zip(WalkTables._fields, walk):
-            _check(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries")
+            _check_bounce(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries")
                    else torch.float32)
-        _check("tris", tris, torch.float32)
+        _check_bounce("tris", tris, torch.float32)
         n_l1 = walk.l1.shape[0]
         if tris.dim() != 2 or tris.shape[1] not in (CLU_TRI_ROWS, CLU_TRI_ROWS_TAN) \
                 or tris.shape[0] % CLUSTER_SIZE or walk.l2.shape[0] != n_l1 * L1_FAN \
@@ -932,12 +874,12 @@ class BounceKernel:
 
     @staticmethod
     def _check_split(state, hit, parbuf=None):
-        _check("hit", hit, torch.float32)
+        _check_bounce("hit", hit, torch.float32)
         if hit.dim() != 2 or hit.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN) \
                 or hit.shape[1] != state.shape[1]:
             raise ValueError("split kernels: hit buffer must be [16 or 24, R]")
         if parbuf is not None:
-            _check("parbuf", parbuf, torch.float32)
+            _check_bounce("parbuf", parbuf, torch.float32)
             if parbuf.dim() != 2 or parbuf.shape[0] < 8 or parbuf.shape[1] != state.shape[1]:
                 raise ValueError("split kernels: parameter buffer must be [rows, R]")
 
@@ -948,17 +890,17 @@ class BounceKernel:
     def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
         """K1: one bounce over a resident table tris [T, 32 or 48]."""
         self._check_state(params, state)
-        self._call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris),
+        self.call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris),
                    *self._check_shading(mats, lights, light_types),
-                   state.data_ptr(), state.shape[1], int(bool(nee)), self._stream(state))
+                   state.data_ptr(), state.shape[1], int(bool(nee)), self.stream(state))
 
     def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
                     nee: bool) -> None:
         """K2: one bounce over clustered tris [C * 128, 40 or 56] and their walk."""
         self._check_state(params, state)
-        self._call("gatling_bounce_walk", params.data_ptr(), *self._walk_args(tris, walk),
+        self.call("gatling_bounce_walk", params.data_ptr(), *self._walk_args(tris, walk),
                    *self._check_shading(mats, lights, light_types),
-                   state.data_ptr(), state.shape[1], int(bool(nee)), self._stream(state))
+                   state.data_ptr(), state.shape[1], int(bool(nee)), self.stream(state))
 
     def launch_trace(self, params, tris, walk: WalkTables | None, state,
                      hit: torch.Tensor) -> None:
@@ -966,11 +908,11 @@ class BounceKernel:
         self._check_state(params, state)
         self._check_split(state, hit)
         if walk is None:
-            self._call("gatling_trace_resident", params.data_ptr(), *self._resident_args(tris),
-                       state.data_ptr(), state.shape[1], hit.data_ptr(), self._stream(state))
+            self.call("gatling_trace_resident", params.data_ptr(), *self._resident_args(tris),
+                       state.data_ptr(), state.shape[1], hit.data_ptr(), self.stream(state))
         else:
-            self._call("gatling_trace_walk", params.data_ptr(), *self._walk_args(tris, walk),
-                       state.data_ptr(), state.shape[1], hit.data_ptr(), self._stream(state))
+            self.call("gatling_trace_walk", params.data_ptr(), *self._walk_args(tris, walk),
+                       state.data_ptr(), state.shape[1], hit.data_ptr(), self.stream(state))
 
     def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
                      state, hit, parbuf, par_rows, nee: bool) -> None:
@@ -978,11 +920,11 @@ class BounceKernel:
         self._check_state(params, state)
         self._check_split(state, hit, parbuf)
         geo = self._resident_args(tris) if walk is None else self._walk_args(tris, walk)
-        self._call("gatling_shade_resident" if walk is None else "gatling_shade_walk",
+        self.call("gatling_shade_resident" if walk is None else "gatling_shade_walk",
                    params.data_ptr(), *geo,
                    *self._check_shading(mats, lights, light_types),
                    state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
-                   *[int(r) for r in par_rows], int(bool(nee)), self._stream(state))
+                   *[int(r) for r in par_rows], int(bool(nee)), self.stream(state))
 
 
 _kernel: BounceKernel | None = None

@@ -2,9 +2,11 @@
 
 Every mesh instance is pre-transformed into one struct-of-arrays triangle
 soup: positions baked to world space, per-triangle material, object, face
-and instance ids. The bounce kernel's triangle table (ops/bounce.py
-`tri_rows`) is built from it. Stands in for the reference's BLAS/TLAS and
-per-mesh payload buffers (reference: Gi.cpp:784-1204).
+and instance ids. The bounce kernels' triangle tables (ops/bounce.py
+`tri_rows`) and the wavefront's trace tables and packed rows
+(ops/trace.py, `pack_geometry`) are built from it. Stands in for the
+reference's BLAS/TLAS and per-mesh payload buffers (reference:
+Gi.cpp:784-1204).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from gatling_tpu_torch.interface import MESH_FLAG_DOUBLE_SIDED, MESH_FLAG_FLIP_FACING
 from gatling_tpu_torch.scene.meshproc import materialize_mesh
@@ -47,6 +50,33 @@ class SceneGeometry(NamedTuple):
     @property
     def num_triangles(self) -> int:
         return self.v0.shape[0]
+
+
+# column offsets into PackedGeometry.packed_f
+PF_V0, PF_E1, PF_E2 = 0, 3, 6
+PF_N0, PF_N1, PF_N2 = 9, 12, 15
+PF_T0, PF_T1, PF_T2 = 18, 21, 24
+PF_BSIGN = 27
+PF_UV0, PF_UV1, PF_UV2 = 30, 32, 34
+PF_C0, PF_C1, PF_C2 = 36, 39, 42
+PF_WIDTH = 45
+
+
+class PackedGeometry(NamedTuple):
+    """The soup's per-triangle rows on a device, read by the wavefront
+    integrator's shading state with two row gathers a hit."""
+
+    packed_f: torch.Tensor  # [T, 45] f32: v0 e1 e2 n0 n1 n2 t0 t1 t2 bsign uv0 uv1 uv2 c0 c1 c2
+    packed_i: torch.Tensor  # [T, 5] int32: material object face instance flags
+
+
+def pack_geometry(g: SceneGeometry, device) -> PackedGeometry:
+    """The packed row mirrors of the soup (ops/geometry.py pack_geometry)."""
+    packed_f = np.concatenate([g.v0, g.e1, g.e2, g.n0, g.n1, g.n2, g.t0, g.t1, g.t2, g.bsign,
+                               g.uv0, g.uv1, g.uv2, g.c0, g.c1, g.c2], axis=1)
+    packed_i = np.stack([g.material_id, g.object_id, g.face_id, g.instance_id, g.flags], axis=1)
+    return PackedGeometry(torch.tensor(packed_f.astype(np.float32), device=device),
+                          torch.tensor(packed_i.astype(np.int32), device=device))
 
 
 def _instance_rows(tm, xform, mesh_desc, material_row: int, object_id: int,

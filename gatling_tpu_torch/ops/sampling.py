@@ -116,6 +116,19 @@ def sample_hemisphere(xi: torch.Tensor) -> torch.Tensor:
     return torch.stack([a * torch.cos(b), a * torch.sin(b), torch.sqrt(1.0 - xi[..., 0])], dim=-1)
 
 
+def sample_sphere(xi: torch.Tensor, radius: torch.Tensor) -> torch.Tensor:
+    """Sphere-surface sample scaled by per-axis radius (common.glsl:222-229)."""
+    a = 1.0 - 2.0 * xi[..., 0]
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=0.0))
+    phi = 2.0 * PI * xi[..., 1]
+    return torch.stack([b * torch.cos(phi), b * torch.sin(phi), a], dim=-1) * radius
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance (common.glsl:254-257)."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
+
+
 def safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """0-on-0 division (reference: common.glsl safe_div:18-35)."""
     return torch.where(b == 0.0, torch.zeros_like(a * b), a / torch.where(b == 0.0, 1.0, b))

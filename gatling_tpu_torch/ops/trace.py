@@ -1,0 +1,211 @@
+"""Brute-force trace of the wavefront integrator: tables and the kernels K5-K8.
+
+The port of the JAX package's ops/pallas_trace.py. All four
+Moller-Trumbore quantities are trilinear in the ray origin o and direction
+d once per-triangle coefficients are precomputed:
+
+    det  = e1 . (d x e2)            =  <d,    D(tri)>
+    tnum = e2 . ((o - v0) x e1)     =  <o,    T(tri)> + const(tri)
+    unum = (o - v0) . (d x e2)      =  <o o d, U(tri)> + <d, U'(tri)>
+    vnum = d . ((o - v0) x e1)      =  <o o d, V(tri)> + <d, V'(tri)>
+
+so with the 16 ray features f = [o, d, vec(o d^T), 1] each is a dot
+product with a column of `TraceTables.coeffs` [n_tiles, 16, 4 * 128]
+(column groups det | tnum | unum | vnum, 128 triangles a tile). The
+elementwise form reads `TriTiles.tris` [n_tiles, 9, 128] (v0, e1, e2 by
+component); `trace_ref.ray_features` builds f. Entry points, each on a
+CUDA tensor the hand-written kernel of csrc/trace.cu (built at first use,
+ops/cuda_lib.py; a failed build or launch raises) and on a CPU tensor its
+twin in ops/trace_ref.py:
+
+* `intersect_matrix` (K5, `intersect_pallas`) and `occluded_matrix` (K6,
+  `occluded_pallas`): the tracer of the wavefront integrator for scenes
+  of at most 8192 triangles (gi.py `_choose_tracer`);
+* `intersect_tiles` (K7, `intersect_pallas_vpu`) and `occluded_tiles`
+  (K8, `occluded_pallas_vpu`): the elementwise form, which no entry point
+  of the JAX package reaches (its comparison point); chip_smoke.py holds
+  them against their twins and against K5 on the wavefront's waves.
+
+`launches` counts the kernel launches made on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
+from gatling_tpu_torch.ops.intersect import Hit
+from gatling_tpu_torch.ops.trace_ref import (
+    TRI_TILE,
+    intersect_matrix_ref,
+    intersect_tiles_ref,
+    occluded_matrix_ref,
+    occluded_tiles_ref,
+)
+
+N_FEATURES = 16
+
+
+def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                     a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                     a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=1)
+
+
+class TraceTables(NamedTuple):
+    """Per-triangle coefficient matrices, tiled: coeffs [n_tiles, 16, 512]."""
+
+    coeffs: torch.Tensor
+    n_tris: int
+
+
+class TriTiles(NamedTuple):
+    """The soup's v0, e1, e2 by component, tiled: tris [n_tiles, 9, 128]."""
+
+    tris: torch.Tensor
+    n_tris: int
+
+
+def build_trace_tables(geom, device) -> TraceTables:
+    """The [16, 4T] coefficient matrix of the soup (pallas_trace.py:60-94):
+    its einsums written out as f32 cross and dot products, which round as
+    the JAX package's do. Padded (degenerate) triangles have all-zero
+    coefficients, so det = 0 and they never hit."""
+    v0, e1, e2 = (np.asarray(getattr(geom, k), np.float32) for k in ("v0", "e1", "e2"))
+    t = v0.shape[0]
+    if t % TRI_TILE:
+        raise ValueError(f"the soup has {t} triangles, not a multiple of {TRI_TILE}")
+    e2_v0 = _cross(e2, v0)
+    zero = np.zeros(t, np.float32)
+    c = np.zeros((t, N_FEATURES, 4), np.float32)
+    c[:, 3:6, 0] = _cross(e2, e1)                                       # det: d
+    c[:, 0:3, 1] = _cross(e1, e2)                                       # tnum: o
+    c[:, 15, 1] = -((e1[:, 0] * e2_v0[:, 0] + e1[:, 1] * e2_v0[:, 1])
+                    + e1[:, 2] * e2_v0[:, 2])                           # tnum: 1
+    # unum: o_i d_j (the Levi-Civita entries of e2), then d
+    c[:, 6:15, 2] = np.stack([zero, e2[:, 2], -e2[:, 1], -e2[:, 2], zero, e2[:, 0],
+                              e2[:, 1], -e2[:, 0], zero], axis=1)
+    c[:, 3:6, 2] = -e2_v0
+    # vnum: o_j d_i (those of e1, transposed), then d
+    c[:, 6:15, 3] = np.stack([zero, -e1[:, 2], e1[:, 1], e1[:, 2], zero, -e1[:, 0],
+                              -e1[:, 1], e1[:, 0], zero], axis=1)
+    c[:, 3:6, 3] = -_cross(v0, e1)
+    n_tiles = t // TRI_TILE
+    c = c.reshape(n_tiles, TRI_TILE, N_FEATURES, 4)
+    c = np.ascontiguousarray(c.transpose(0, 2, 3, 1)).reshape(n_tiles, N_FEATURES, 4 * TRI_TILE)
+    return TraceTables(coeffs=torch.tensor(c, device=device), n_tris=t)
+
+
+def build_tri_tiles(geom, device) -> TriTiles:
+    """[n_tiles, 9, 128] tiles of v0, e1, e2 (pallas_trace.py:276-281)."""
+    data = np.concatenate([np.asarray(geom.v0), np.asarray(geom.e1), np.asarray(geom.e2)],
+                          axis=1).astype(np.float32)
+    t = data.shape[0]
+    if t % TRI_TILE:
+        raise ValueError(f"the soup has {t} triangles, not a multiple of {TRI_TILE}")
+    tiles = np.ascontiguousarray(data.reshape(t // TRI_TILE, TRI_TILE, 9).transpose(0, 2, 1))
+    return TriTiles(tris=torch.tensor(tiles, device=device), n_tris=t)
+
+
+class TraceKernel(CudaLibrary):
+    """csrc/trace.cu built with nvcc and loaded with ctypes."""
+
+    def __init__(self) -> None:
+        rays = [PTR, PTR, PTR, PTR, PTR, I32, I64]  # o d tmin tmax table n_tiles n_rays
+        closest = [*rays, PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
+        occluded = [*rays, PTR, PTR]                # hit stream
+        super().__init__("trace.cu", {
+            "gatling_intersect_matrix": closest, "gatling_occluded_matrix": occluded,
+            "gatling_intersect_tiles": closest, "gatling_occluded_tiles": occluded,
+        }, "gatling_trace_error_string")
+
+    def launch(self, name: str, origins, dirs, tmin, tmax, table, rows: int, outputs) -> None:
+        r = origins.shape[0]
+        for label, x in (("origins", origins), ("dirs", dirs), ("tmin", tmin), ("tmax", tmax),
+                         ("table", table)):
+            check_tensor("trace", label, x, torch.float32)
+        width = 4 * TRI_TILE if rows == N_FEATURES else TRI_TILE
+        if origins.shape != (r, 3) or dirs.shape != (r, 3) or tmin.shape != (r,) \
+                or tmax.shape != (r,) or table.dim() != 3 or table.shape[1:] != (rows, width):
+            raise ValueError(f"trace kernel {name}: ray or table shape mismatch")
+        if table.data_ptr() % 16:
+            raise ValueError(f"trace kernel {name}: the table must be 16-byte aligned")
+        self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+                  table.data_ptr(), table.shape[0], r, *(o.data_ptr() for o in outputs),
+                  self.stream(origins))
+
+
+_kernel: TraceKernel | None = None
+# kernel launches made on CUDA tensors (chip_smoke.py reads them)
+launches = {"K5": 0, "K6": 0, "K7": 0, "K8": 0}
+
+
+def kernel() -> TraceKernel:
+    """The kernels' build, made at first use."""
+    global _kernel
+    if _kernel is None:
+        _kernel = TraceKernel()
+    return _kernel
+
+
+def _closest_cuda(name, key, origins, dirs, tmin, tmax, table, rows) -> Hit:
+    r = origins.shape[0]
+    t = torch.empty((r,), dtype=torch.float32, device=origins.device)
+    tri = torch.empty((r,), dtype=torch.int32, device=origins.device)
+    u, v = torch.empty_like(t), torch.empty_like(t)
+    kernel().launch(name, origins, dirs, tmin, tmax, table, rows, (t, tri, u, v))
+    launches[key] += 1
+    return Hit(t, tri, u, v)
+
+
+def _occluded_cuda(name, key, origins, dirs, tmin, tmax, table, rows) -> torch.Tensor:
+    hit = torch.empty((origins.shape[0],), dtype=torch.bool, device=origins.device)
+    kernel().launch(name, origins, dirs, tmin, tmax, table, rows, (hit,))
+    launches[key] += 1
+    return hit
+
+
+def _on_cpu(origins: torch.Tensor) -> bool:
+    if origins.is_cuda:
+        return False
+    if origins.device.type != "cpu":
+        raise NotImplementedError(f"the trace kernels run on CUDA or CPU tensors, not "
+                                  f"{origins.device}")
+    return True
+
+
+def intersect_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> Hit:
+    """K5 (`intersect_pallas`): the closest hit of rays o, d [R, 3] in
+    (tmin, tmax) [R] over the coefficient tables."""
+    if _on_cpu(origins):
+        return Hit(*intersect_matrix_ref(origins, dirs, tmin, tmax, tables.coeffs))
+    return _closest_cuda("gatling_intersect_matrix", "K5", origins, dirs, tmin, tmax,
+                         tables.coeffs, N_FEATURES)
+
+
+def occluded_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> torch.Tensor:
+    """K6 (`occluded_pallas`): [R] bool, any hit in (tmin, tmax)."""
+    if _on_cpu(origins):
+        return occluded_matrix_ref(origins, dirs, tmin, tmax, tables.coeffs)
+    return _occluded_cuda("gatling_occluded_matrix", "K6", origins, dirs, tmin, tmax,
+                          tables.coeffs, N_FEATURES)
+
+
+def intersect_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> Hit:
+    """K7 (`intersect_pallas_vpu`): the closest hit by elementwise
+    Moller-Trumbore over the [n_tiles, 9, 128] tiles."""
+    if _on_cpu(origins):
+        return Hit(*intersect_tiles_ref(origins, dirs, tmin, tmax, tiles.tris))
+    return _closest_cuda("gatling_intersect_tiles", "K7", origins, dirs, tmin, tmax,
+                         tiles.tris, 9)
+
+
+def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:
+    """K8 (`occluded_pallas_vpu`): [R] bool, any hit, elementwise form."""
+    if _on_cpu(origins):
+        return occluded_tiles_ref(origins, dirs, tmin, tmax, tiles.tris)
+    return _occluded_cuda("gatling_occluded_tiles", "K8", origins, dirs, tmin, tmax,
+                          tiles.tris, 9)

@@ -29,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gatling_tpu_torch.interface import AovId, aov_bit
 from gatling_tpu_torch.ops import sampling as smp
 from gatling_tpu_torch.ops.bounce import (
     FusedScene,
@@ -63,6 +64,11 @@ from gatling_tpu_torch.render.texture import TexturePool
 
 # samples of one pixel traced together in one ray wave, up to this many rays
 SPP_BATCH_RAYS = 4194304
+# the AOVs the JAX package's fused kernels write (render/fused.py:116-118);
+# a request of others renders through the wavefront integrator. The port's
+# fused path writes COLOR only so far (ROADMAP item 5b).
+FUSED_AOV_MASK = (aov_bit(AovId.COLOR) | aov_bit(AovId.NORMAL) | aov_bit(AovId.ALBEDO)
+                  | aov_bit(AovId.DEPTH) | aov_bit(AovId.TEXCOORDS))
 
 
 def spp_batch_size(r: int, spp: int) -> int:
@@ -114,7 +120,7 @@ def material_rows(materials: MaterialTable, textures: TexturePool, hitbuf: torch
     p = apply_textures(materials, textures, gather_params(materials, mat), mat, uv, active)
     rows: list[torch.Tensor] = []
     for name, _row in slim_param_layout(active):
-        val = p[name]
+        val = getattr(p, name)
         rows += list(val.T) if val.dim() == 2 else [val]
     rows += [torch.zeros_like(hitbuf[0])] * (slim_param_rows(active) - len(rows))
     if hitbuf.shape[0] > HIT_ROWS:

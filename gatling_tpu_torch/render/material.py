@@ -8,10 +8,11 @@ at most one texture under an affine scale and bias. `build_materials`
 loads the textures into the device pool and records each material's slot
 and channel per parameter in the [M, 10] int32 `packed_i` rows.
 
-Around the kernels, the texture stage reads them: `gather_params` (the
-per-ray constants), `apply_textures` (the taps of the textured
-parameters), `perturb_normal` (tangent-space normal maps), and
-`substitute_texture_means`, the kernels' own table, whose textured
+The fused path's texture stage and the wavefront integrator read them
+per ray: `gather_params` (the uber-BSDF's parameters, render/bsdf.py
+BsdfParams), `apply_textures` (the taps of the textured parameters laid
+over them), `perturb_normal` (tangent-space normal maps); and
+`substitute_texture_means` builds the kernels' own table, whose textured
 columns hold the textures' means. MaterialX and MDL surfaces are not
 ported yet and raise.
 """
@@ -24,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gatling_tpu_torch.render.bsdf import BsdfParams
 from gatling_tpu_torch.render.shadergraph import GraphLowering
 from gatling_tpu_torch.render.texture import TextureManager, TexturePool, TextureRef, \
     empty_pool, sample_pool
@@ -42,6 +44,7 @@ PF_COLS = 30
 MI_BASE_TEX, MI_EMISSIVE_TEX, MI_METAL_TEX, MI_ROUGH_TEX = 0, 1, 2, 3
 MI_OPACITY_TEX, MI_NORMAL_TEX = 4, 5
 MI_METAL_CH, MI_ROUGH_CH, MI_OPACITY_CH = 6, 7, 8
+MI_BACKFACE_ID = 9
 
 
 class MaterialTable(NamedTuple):
@@ -268,28 +271,43 @@ def substitute_texture_means(table: MaterialTable, pool: TexturePool) -> Materia
     return MaterialTable(packed_f=pf, packed_i=np.array(pi))
 
 
-def gather_params(table: MaterialTable, material_ids: torch.Tensor) -> dict[str, torch.Tensor]:
-    """The per-ray constants of the parameters textures can drive, from a
-    device table by row (the JAX package's one-hot matrix product is a TPU
-    gather workaround; here it is plain indexing). Ids beyond the table
-    read its last row."""
-    pf = table.packed_f[torch.clamp(material_ids, max=table.count - 1).long()]
-    return dict(base_color=pf[:, MF_BASE:MF_BASE + 3], emissive=pf[:, MF_EMISSIVE:MF_EMISSIVE + 3],
-                metallic=pf[:, MF_METAL], roughness=pf[:, MF_ROUGH], opacity=pf[:, MF_OPACITY])
+def _gather_rows(table2d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows [R, C] of a device table by id (the JAX package's one-hot matrix
+    product is a TPU gather workaround; here it is plain indexing). Ids
+    beyond the table read its last row."""
+    return table2d[torch.clamp(ids, max=table2d.shape[0] - 1).long()]
+
+
+def gather_params(table: MaterialTable, material_ids: torch.Tensor) -> BsdfParams:
+    """The per-ray BSDF parameters of a device table (render/material.py
+    gather_params): one row gather and column slices. The texture taps go
+    on top (apply_textures)."""
+    pf = _gather_rows(table.packed_f, material_ids)
+    return BsdfParams(
+        base_color=pf[:, MF_BASE:MF_BASE + 3], metallic=pf[:, MF_METAL],
+        roughness=pf[:, MF_ROUGH], ior=pf[:, MF_IOR], opacity=pf[:, MF_OPACITY],
+        opacity_threshold=pf[:, MF_OPACITY_THRESH],
+        emissive=pf[:, MF_EMISSIVE:MF_EMISSIVE + 3], use_specular_workflow=pf[:, MF_USW],
+        specular_color=pf[:, MF_SPEC:MF_SPEC + 3], transmission=pf[:, MF_TRANS],
+        thin_walled=pf[:, MF_THIN] > 0, volume_absorption=pf[:, MF_VOL_A:MF_VOL_A + 3],
+        volume_scattering=pf[:, MF_VOL_S:MF_VOL_S + 3], volume_bias=pf[:, MF_VOL_BIAS],
+        backface_edf=pf[:, MF_BACKFACE_EDF], clearcoat=pf[:, MF_COAT],
+        clearcoat_roughness=pf[:, MF_COAT_ROUGH], anisotropy=pf[:, MF_ANISO],
+        anisotropy_rotation=pf[:, MF_ANISO_ROT])
 
 
 def _has_textures(pool: TexturePool) -> bool:
     return pool.count > 1 or pool.packed
 
 
-def apply_textures(table: MaterialTable, pool: TexturePool, params: dict,
+def apply_textures(table: MaterialTable, pool: TexturePool, params: BsdfParams,
                    material_ids: torch.Tensor, uv: torch.Tensor,
-                   active: tuple[str, ...] | None = None) -> dict:
-    """The texture taps of the parameters in `active` laid over the
-    gathered constants where a material binds a slot."""
+                   active: tuple[str, ...] | None = None) -> BsdfParams:
+    """The texture taps of the parameters in `active` (all five when None)
+    laid over the gathered constants where a material binds a slot."""
     if not _has_textures(pool):
         return params
-    pi = table.packed_i[torch.clamp(material_ids, max=table.count - 1).long()]
+    pi = _gather_rows(table.packed_i, material_ids)
 
     def rgb(col, constant):
         slot = pi[:, col]
@@ -302,18 +320,18 @@ def apply_textures(table: MaterialTable, pool: TexturePool, params: dict,
         picked = torch.gather(val, 1, pi[:, ch_col].long()[:, None])[:, 0]
         return torch.where(slot >= 0, picked, constant)
 
-    out = dict(params)
+    updates = {}
     if active is None or "base_color" in active:
-        out["base_color"] = rgb(MI_BASE_TEX, params["base_color"])
+        updates["base_color"] = rgb(MI_BASE_TEX, params.base_color)
     if active is None or "emissive" in active:
-        out["emissive"] = rgb(MI_EMISSIVE_TEX, params["emissive"])
+        updates["emissive"] = rgb(MI_EMISSIVE_TEX, params.emissive)
     if active is None or "metallic" in active:
-        out["metallic"] = scalar(MI_METAL_TEX, MI_METAL_CH, params["metallic"])
+        updates["metallic"] = scalar(MI_METAL_TEX, MI_METAL_CH, params.metallic)
     if active is None or "roughness" in active:
-        out["roughness"] = scalar(MI_ROUGH_TEX, MI_ROUGH_CH, params["roughness"])
+        updates["roughness"] = scalar(MI_ROUGH_TEX, MI_ROUGH_CH, params.roughness)
     if active is None or "opacity" in active:
-        out["opacity"] = scalar(MI_OPACITY_TEX, MI_OPACITY_CH, params["opacity"])
-    return out
+        updates["opacity"] = scalar(MI_OPACITY_TEX, MI_OPACITY_CH, params.opacity)
+    return params._replace(**updates)
 
 
 def perturb_normal(table: MaterialTable, pool: TexturePool, material_ids: torch.Tensor,
@@ -322,7 +340,7 @@ def perturb_normal(table: MaterialTable, pool: TexturePool, material_ids: torch.
     """Tangent-space normal mapping (UsdPreviewSurface `normal` input)."""
     if not _has_textures(pool):
         return n
-    slot = table.packed_i[torch.clamp(material_ids, max=table.count - 1).long(), MI_NORMAL_TEX]
+    slot = _gather_rows(table.packed_i, material_ids)[:, MI_NORMAL_TEX]
     nm = sample_pool(pool, slot, uv)[:, :3]
     mapped = nm[:, 0:1] * t + nm[:, 1:2] * b + torch.clamp(nm[:, 2:3], min=1e-3) * n
     mapped = mapped / torch.clamp(torch.linalg.vector_norm(mapped, dim=-1, keepdim=True),

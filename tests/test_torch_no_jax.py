@@ -3,7 +3,8 @@ package is installed (the GPU machine has torch, numpy and the CUDA
 toolkit only): in a fresh interpreter that cannot import them, every
 module of gatling_tpu_torch imports, and 8x8 frames of the Cornell box, of
 an instanced scene and of the textured interior (its PNG textures written
-and decoded by the port) render on the CPU."""
+and decoded by the port) render on the CPU, the interior also through
+the wavefront integrator."""
 
 import os
 import subprocess
@@ -55,6 +56,13 @@ gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
                                              "nextEventEstimation": True}))
 assert scene._fused_static.textured and scene._texture_pool.count == 6
 assert buf.data[..., :3].max() > 0.0
+ids = gi.GiRenderBuffer(8, 8, 1, is_int=True)  # an id AOV: the wavefront integrator
+gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf),
+                                          gi.GiAovBinding(AovId.OBJECT_ID, ids, clear_value=-1)],
+                            render_settings={"spp": 1, "maxBounces": 2,
+                                             "nextEventEstimation": True}))
+assert scene._accel is not None and (ids.data >= 0).any()
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")

@@ -180,7 +180,8 @@ def test_gate_raises_outside_the_slice(what):
     scene.add_mesh(_quad_grid_mesh(2))
     kwargs = {}
     if what == "vcolor":
-        # a displayColor mesh whose fallback material multiplies the colours in
+        # a displayColor mesh whose fallback material multiplies the colours
+        # in takes the wavefront integrator, where a cutout still raises
         grid = scene.meshes[0]
         pts = np.zeros((9, 3), np.float32)
         pts[:, :2] = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], indexing="ij"), -1).reshape(9, 2)
@@ -189,7 +190,8 @@ def test_gate_raises_outside_the_slice(what):
             colors=np.array([[0.9, 0.2, 0.1]], np.float32))
         grid.material = "/dc"
         node = ShaderNode(path="/dc/s", shader_id="UsdPreviewSurface",
-                          inputs={"_vcolor_multiply": True}, input_connections={})
+                          inputs={"_vcolor_multiply": True, "opacity": 0.5},
+                          input_connections={})
         scene.add_material(MaterialDesc(path="/dc", surface_node="/dc/s", nodes={"/dc/s": node}))
     elif what == "dome":
         scene.set_dome_light(gi.GiDomeLight(file_path="sky.hdr"))
@@ -198,7 +200,7 @@ def test_gate_raises_outside_the_slice(what):
     elif what == "devices":
         kwargs["parallelDevices"] = 2
     item = {"dome": "Dome lights", "aov": "First-hit AOVs", "clipping": "First-hit AOVs",
-            "devices": "Multi-GPU", "vcolor": "vertex colours"}[what]
+            "devices": "Multi-GPU", "vcolor": "Lobes, media and cutout"}[what]
     with pytest.raises(NotImplementedError, match=item):
         _render(scene, AovId.NORMAL if what == "aov" else AovId.COLOR, **kwargs)
 
@@ -216,6 +218,7 @@ def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):
 def test_blend_aovs_matches_jax():
     from gatling_tpu.render.integrator import FirstHitInfo, SampleResult
     from gatling_tpu.render.integrator import blend_aovs as jblend
+    from gatling_tpu_torch.render.integrator import SampleResult as TSampleResult
     from gatling_tpu_torch.render.integrator import blend_aovs
 
     rng = np.random.default_rng(4)
@@ -240,7 +243,8 @@ def test_blend_aovs_matches_jax():
                        light_intensity_multiplier=1.0, meters_per_scene_unit=1.0,
                        max_volume_walk_length=7)
         got = blend_aovs(RenderConfig(width=8, height=8, spp=spp), uni,
-                         {"color": torch.tensor(prev)}, torch.tensor(color))
+                         {"color": torch.tensor(prev)},
+                         TSampleResult(torch.tensor(color), torch.zeros(n, dtype=torch.int32)))
         np.testing.assert_array_equal(got["color"].numpy(), np.asarray(ref["color"]))
 
 

@@ -348,7 +348,7 @@ def test_perturb_normal_and_apply_textures_match_jax(interior_pair, texture_file
     tpar = tmat.apply_textures(ttd, tp, tmat.gather_params(ttd, torch.as_tensor(mat)),
                                torch.as_tensor(mat), torch.as_tensor(uv), active)
     for name in active:
-        np.testing.assert_allclose(tpar[name].numpy(), np.asarray(getattr(jpar, name)),
+        np.testing.assert_allclose(getattr(tpar, name).numpy(), np.asarray(getattr(jpar, name)),
                                    rtol=0, atol=ATOL, err_msg=name)
 
 
