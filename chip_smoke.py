@@ -9,8 +9,10 @@ fails, with a non-zero exit, if any phase fails:
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade) are built from
-   gatling_tpu_torch/csrc/bounce.cu, and K5-K8 (the brute-force trace)
-   from csrc/trace.cu, the two nvcc runs at once;
+   gatling_tpu_torch/csrc/bounce.cu (in five nvcc parts), K5-K8 (the
+   brute-force trace) from csrc/trace.cu and the probes P1/P2 from
+   csrc/probes.cu, every nvcc run at once; one line a kernel instance of
+   ptxas' registers, stack and spills;
 3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
    the wrapper the main path calls (ops/bounce.py bounce_step), on the ray
    waves the main path builds: Cornell 1200x1200 x 2 samples (2.88M rays,
@@ -61,20 +63,46 @@ fails, with a non-zero exit, if any phase fails:
    (sample 0, bounces 0 and 2: the closest-hit waves, 1,440,000 and
    262,144 rays, and the NEE shadow waves) and the tables gi built: tri,
    t, u, v bit-equal and the occlusion flags equal on every ray, K7's
-   triangle K5's on 99 % of rays; each kernel and twin timed.
+   triangle K5's on 99 % of rays; each kernel and twin timed;
+4f. the advanced lobes and the cutout through gi.render, a first and a
+   warm frame each with the kernels' launches: glass_coated
+   (Materials.GlassCoated at the bench's 1200x1200, 16 spp, 8 bounces,
+   NEE off and on: K1's advanced branch), cornell_cutout (the Cornell box
+   and the bench's rect light, the tall block at opacity 0.5, the short
+   one shut out by its opacityThreshold: K1's cutout on camera and shadow
+   rays; its first wave's pass rate through the tall block 0.5 +- 0.01),
+   sphere_field_lobes (a thick glass, a clearcoated and a half-open sphere
+   material, 512x512, 4 spp, 6 bounces, NEE off and on: K2's two
+   branches, instanced, and the NEE frame through the flattened tables),
+   interior_lobes (an anisotropic open_pbr worktop over its marble, the
+   instanced bowls at opacity 0.5: K3's cutout and K4's advanced branch
+   with the mesh-tangent frame) and cornell_cutout_aovs (every AOV: the
+   wavefront's cutout, K5 for the camera rays and, hop by hop, the shadow
+   rays); and Materials.GlassCoated at its own settings against its
+   committed reference;
+3e. then each branch's kernel against its twin on the waves 4f's frames
+   handed it (bounces 0 and 2, recorded by wrapping render/fused.py's
+   bounce_step / shade_step) and the tables gi built, the cutout draws
+   bit for bit; each timed at bounce 0;
+P. the probes P1 (layout moves, tools/cast_probe.py) and P2 (the one-hot
+   product at TF32, FP32 and 3xTF32, tools/precision_probe.py) through
+   their entry points, against their twins, with torch.matmul's error and
+   time beside P2.
 
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
-the interior's; K5 and K6: cornell_aovs'), the counts set to 0 just
-before it and read just after. K7 and K8 are on no path (the JAX
-package's comparison point) and count 0. The last lines are the card's
-name and power limit, one JSON line with the kernels' launch counts,
-errors, times and bounds, and {"ok": true, "device": {...}}.
+the interior's; K5 and K6: cornell_aovs'; the branches: 4f's frames;
+P1/P2: the probes' run), the counts set to 0 just before it and read
+just after. K7 and K8 are on no path (the JAX package's comparison point)
+and count 0. The last lines are the card's name and power limit, one JSON
+line with the kernels' launch counts, errors, times and bounds, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -88,8 +116,9 @@ FULL_RES = 1200  # the bench's Cornell frame
 ANALYTIC_RES, ANALYTIC_SPP = 96, 24  # Lights.Analytic's authored settings
 RTOL, ATOL, MIN_AGREE = 1e-4, 1e-5, 0.999
 SF_RES, SF_SPP, SF_BOUNCES = 512, 4, 6  # the JAX bench's sphere_field settings (bench.py:40-48)
-# H100 SXM5 peaks: HBM3 bytes/s, f32 FLOP/s outside the tensor cores
-HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+# H100 SXM5 peaks: HBM3 bytes/s, f32 FLOP/s outside the tensor cores, TF32
+# on the tensor cores (dense)
+HBM_BPS, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 TRI_TEST_FLOPS = 30  # one Baldwin-Weber triangle test, counted from the kernels' code
 SLAB_FLOPS = 24  # one slab test: 6 subtractions, 6 multiplications, 12 min/max
 
@@ -437,32 +466,39 @@ def image_checks(img, label):
     assert right[1] > 2.0 * right[0] and right[1] > 2.0 * right[2], (label, right)
 
 
-def timed_render(params, label):
-    """One gi.render, timed, with the kernels' launch counts set to 0 just
-    before it and read just after; returns (image, Mray/s, launches)."""
+def counted_render(params, label):
+    """One gi.render, timed to the end of the host copies, all eight
+    kernels' launch counts set to 0 just before it and read just after;
+    returns (COLOR buffer, seconds, Mray/s or None, launches)."""
+    import torch
+
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
 
-    for kname in tb.launches:
-        tb.launches[kname] = 0
+    for counts in (tb.launches, tt.launches):
+        for k in counts:
+            counts[k] = 0
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gi.render(params)  # ends in a device-to-host copy of the image
+    gi.render(params)
     dt = time.perf_counter() - t0
-    launches = dict(tb.launches)
-    mrays = params.scene.last_segments / dt / 1e6
-    log(f"render {label}: {dt:.3f} s wall, {params.scene.last_segments:.0f} traced segments, "
-        f"{mrays:.1f} Mray/s, kernel launches {launches}")
-    return params.aov_bindings[0].render_buffer.data.copy(), mrays, launches
+    launches = {**tb.launches, **tt.launches}
+    segs = params.scene.last_segments
+    mrays = segs / dt / 1e6 if segs else None
+    log(f"render {label}: {dt:.4f} s wall, {segs:.0f} traced segments, "
+        f"{'-' if mrays is None else f'{mrays:.1f}'} Mray/s, kernel launches {launches}")
+    return params.aov_bindings[0].render_buffer.data.copy(), dt, mrays, launches
 
 
 def warm_render(params, label):
     """A first frame (scene build included), then the timed warm frame
-    on the same scene and samples (timed_render's return)."""
+    on the same scene and samples (counted_render's return)."""
     from gatling_tpu_torch import gi
 
-    timed_render(params, label + " (first frame)")
+    counted_render(params, label + " (first frame)")
     params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
-    return timed_render(params, label + " (warm)")
+    return counted_render(params, label + " (warm)")
 
 
 def cornell_params(device, settings, lights=()):
@@ -481,22 +517,8 @@ def cornell_params(device, settings, lights=()):
 
 def sphere_field_params(device, sf, nee: bool):
     """gi render parameters of sphere_field at the bench's settings."""
-    from gatling_tpu_torch import gi
-    from gatling_tpu_torch.interface import AovId
-
-    desc = sf[0]
-    scene = gi.create_scene(device)
-    for m in desc.meshes:
-        scene.add_mesh(m)
-    for m in desc.materials.values():
-        scene.add_material(m)
-    for light in desc.lights:
-        scene.add_light(light)
-    buf = gi.GiRenderBuffer(SF_RES, SF_RES, 4)
-    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
-                             aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
-                             render_settings=dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
-                                                  nextEventEstimation=nee))
+    return desc_params(device, sf[0], SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                   nextEventEstimation=nee))
 
 
 def sphere_field_classes(device, sf):
@@ -558,7 +580,8 @@ def phase_sphere_field(device, sf):
     for nee in (False, True):
         params = sphere_field_params(device, sf, nee)
         label = f"sphere_field {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee={nee}"
-        img, out[f"sphere_field{'_nee' if nee else ''}"], launches = timed_render(params, label)
+        img, _dt, out[f"sphere_field{'_nee' if nee else ''}"], launches = counted_render(
+            params, label)
         assert params.scene._fused_static.instanced
         assert launches["K1"] == 0 and launches["K2"] > 0, launches
         if not nee:
@@ -566,7 +589,7 @@ def phase_sphere_field(device, sf):
         assert np.isfinite(img).all() and (img >= 0).all(), label
         imgs[nee] = img[..., :3]
         if nee:
-            _, warm, _ = timed_render(params, label + " (second frame, warm)")
+            _, _dt, warm, _ = counted_render(params, label + " (second frame, warm)")
     assert imgs[True].mean() > imgs[False].mean() * 1.02, "NEE must add light"
 
     # NEE's direct light lands where the key light is seen: the lit ground
@@ -645,13 +668,13 @@ def phase_renders(device):
 
     settings = dict(spp=16, maxBounces=8)
     out = {}
-    img, mr, launches = timed_render(cornell_params(device, settings),
+    img, _dt, mr, launches = counted_render(cornell_params(device, settings),
                                      f"cornell {FULL_RES}^2 16spp 8 bounces")
     image_checks(img, "cornell")
     assert launches["K1"] > 0 and launches["K2"] == 0, launches
     k1_launches = launches["K1"]  # the main path's Cornell frame
     out["cornell"] = mr
-    img_nee, mr, _ = timed_render(
+    img_nee, _dt, mr, _ = counted_render(
         cornell_params(device, dict(settings, nextEventEstimation=True), [bench_rect_light()]),
         f"cornell + NEE rect light {FULL_RES}^2 16spp 8 bounces")
     image_checks(img_nee, "cornell_nee")
@@ -678,7 +701,7 @@ def phase_renders(device):
     params = cornell_params(device, dict(spp=16, maxBounces=8))
     imgs = []
     for expect in (16, 32, 48):
-        img, mr, _ = timed_render(params, f"progressive frame -> sampleOffset {expect}")
+        img, _dt, mr, _ = counted_render(params, f"progressive frame -> sampleOffset {expect}")
         assert params.scene.sample_offset == expect, params.scene.sample_offset
         imgs.append(img[..., :3])
     means = [float(i.mean()) for i in imgs]
@@ -912,8 +935,6 @@ def interior_params(device, tex_dir: str, normal_map: str | None = None, means_o
     settings. With `normal_map`, the bench's normal map on every material;
     with `means_of` (a GiScene that rendered the interior), every base
     colour is a constant: its texture's mean in that scene."""
-    from gatling_tpu_torch import gi
-    from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.render.material import substitute_texture_means
     from gatling_tpu_torch.scene.examples import _preview_material, interior
 
@@ -926,17 +947,7 @@ def interior_params(device, tex_dir: str, normal_map: str | None = None, means_o
             inputs = dict(m.nodes[m.surface_node].inputs)
             inputs["diffuseColor"] = tuple(float(x) for x in pf[means_of._material_index[path], :3])
             desc.materials[path] = _preview_material(path, **inputs)
-    scene = gi.create_scene(device)
-    for m in desc.meshes:
-        scene.add_mesh(m)
-    for m in desc.materials.values():
-        scene.add_material(m)
-    for light in desc.lights:
-        scene.add_light(light)
-    buf = gi.GiRenderBuffer(SF_RES, SF_RES, 4)
-    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
-                             aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
-                             render_settings=dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
                                                   nextEventEstimation=True, **settings))
 
 
@@ -956,7 +967,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     out = {}
     params = interior_params(device, tex_dir)
     label = f"interior {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee"
-    img, out["interior_first_frame"], launches = timed_render(params, label + " (first frame)")
+    img, _dt, out["interior_first_frame"], launches = counted_render(params,
+                                                                     label + " (first frame)")
     scene = params.scene
     st = scene._fused_static
     log(f"interior route: {'instanced' if st.instanced else 'flattened'} ({st.n_instances} "
@@ -966,8 +978,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     assert launches["K1"] == 0 and launches["K2"] == 0, launches
     split_launches = {k: launches[k] for k in ("K3", "K4")}
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
-    img, out["interior"], launches = timed_render(params, label + " (warm)")
-    assert launches == dict(split_launches, K1=0, K2=0), launches
+    img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
+    assert launches == dict(split_launches, K1=0, K2=0, K5=0, K6=0, K7=0, K8=0), launches
     img = img[..., :3]
     assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01
 
@@ -982,7 +994,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     hit = tb.trace_step(params_row(0, device), scene._fused, tb.pack_state(o, d, pix, n))
     mat = torch.where(hit[H_HIT] > 0.5, hit[H_MAT], -1.0).cpu().numpy().reshape(SF_RES, SF_RES)
     mparams = interior_params(device, tex_dir, means_of=scene)
-    mimg, _, _ = timed_render(mparams, label + " with the texture means as constants")
+    mimg, _dt, _mr, _l = counted_render(mparams, label + " with the texture means as constants")
     assert not mparams.scene._fused_static.textured
     lum, mlum = img.mean(-1), mimg[..., :3].mean(-1)
     names = {i: p for p, i in scene._material_index.items()}
@@ -999,7 +1011,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
 
     # textureLodBounces=2: bounces 2-5 shade from the means (K1/K2 tables)
     lparams = interior_params(device, tex_dir, textureLodBounces=2)
-    limg, out["interior_lod2"], llaunches = warm_render(lparams, label + " textureLodBounces=2")
+    limg, _dt, out["interior_lod2"], llaunches = warm_render(lparams,
+                                                             label + " textureLodBounces=2")
     limg = limg[..., :3]
     rel = abs(limg.mean() - img.mean()) / img.mean()
     log(f"interior lod2 vs all taps: mean rel diff {rel:.3e}; launches {llaunches}")
@@ -1007,7 +1020,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     assert np.isfinite(limg).all() and rel < 0.05
 
     nparams = interior_params(device, tex_dir, normal_map=extra["lean"])
-    nimg, out["interior_normalmapped"], _ = warm_render(nparams, label + " normal-mapped")
+    nimg, _dt, out["interior_normalmapped"], _ = warm_render(nparams, label + " normal-mapped")
     nimg = nimg[..., :3]
     assert nparams.scene._fused_static.tangents and np.isfinite(nimg).all() and (nimg >= 0).all()
     nrel = abs(nimg.mean() - img.mean()) / img.mean()
@@ -1019,7 +1032,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     # the textured Cornell box (resident K3 and K4) at its bench settings
     cparams = cornell_params(device, dict(spp=16, maxBounces=8))
     texture_every_material(cparams.scene.materials, "diffuseColor", extra["checker"])
-    cimg, out["cornell_textured"], claunches = warm_render(cparams, "cornell_textured "
+    cimg, _dt, out["cornell_textured"], claunches = warm_render(cparams, "cornell_textured "
                                                            f"{FULL_RES}^2 16spp 8 bounces")
     assert claunches["K3"] > 0 and claunches["K1"] == 0
     assert np.isfinite(cimg).all() and (cimg >= 0).all() and cimg[..., :3].mean() > 0.01
@@ -1061,43 +1074,21 @@ def cornell_aovs_params(device):
 def interior_aovs_params(device, tex_dir: str):
     """interior_aovs: interior(detail=1), 3,840 triangles, every AOV bound,
     512x512, 4 spp, 6 bounces, NEE."""
-    from gatling_tpu_torch import gi
     from gatling_tpu_torch.scene.examples import interior
 
     desc = interior(detail=1, tex_dir=tex_dir)
-    scene = gi.create_scene(device)
-    for m in desc.meshes:
-        scene.add_mesh(m)
-    for m in desc.materials.values():
-        scene.add_material(m)
-    for light in desc.lights:
-        scene.add_light(light)
-    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
-                             aov_bindings=all_aov_bindings(SF_RES, SF_RES),
-                             render_settings=dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
-                                                  nextEventEstimation=True))
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True), every_aov=True)
 
 
 def timed_aov_render(params, label):
-    """One gi.render of every bound AOV, timed to the end of the host copies,
-    the launch counts of all eight kernels set to 0 just before it and read
-    just after; returns ({AovId: buffer}, seconds, launches)."""
-    import torch
-
+    """One more gi.render of every bound AOV (the framebuffer reset), as
+    counted_render times and counts it; returns ({AovId: buffer}, seconds,
+    launches)."""
     from gatling_tpu_torch import gi
-    from gatling_tpu_torch.ops import bounce as tb
-    from gatling_tpu_torch.ops import trace as tt
 
     params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
-    for counts in (tb.launches, tt.launches):
-        for k in counts:
-            counts[k] = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gi.render(params)
-    dt = time.perf_counter() - t0
-    launches = {**tb.launches, **tt.launches}
-    log(f"render {label}: {dt:.4f} s wall, kernel launches {launches}")
+    _img, dt, _mr, launches = counted_render(params, label)
     return {b.aov_id: b.render_buffer.data.copy() for b in params.aov_bindings}, dt, launches
 
 
@@ -1363,6 +1354,665 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# 4f, 3e and P: glass, clearcoat, anisotropy and cutout; the probes
+# ---------------------------------------------------------------------------
+
+GLASS = os.path.join(HERE, "tests", "graphical", "Materials.GlassCoated", "scene.usda")
+# the bench's glass_coated frame (bench.py:40-54, :365-369) and the Cornell one
+LOBES_RES, LOBES_SPP, LOBES_BOUNCES = FULL_RES, 16, 8
+OPEN_PBR = "ND_open_pbr_surface_surfaceshader"
+
+
+def merged_settings(desc, **overrides) -> dict:
+    """The defaults, a scene file's render settings and `overrides`, as the
+    CLI merges them."""
+    from gatling_tpu_torch.utils.config import default_settings
+
+    s = default_settings()
+    s["metersPerSceneUnit"] = desc.meters_per_unit
+    s.update(desc.render_settings)
+    s.update(overrides)
+    return s
+
+
+def desc_params(device, desc, res: int, settings: dict, every_aov: bool = False):
+    """gi render parameters of a scene description on a new GiScene: COLOR,
+    or every AOV."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    scene = gi.create_scene(device)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    binds = (all_aov_bindings(res, res) if every_aov
+             else [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(res, res, 4))])
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(), aov_bindings=binds,
+                             render_settings=settings)
+
+
+def surface_variant(mat, shader_id: str | None = None, **inputs):
+    """A copy of a material whose surface node takes `shader_id` (default:
+    its own) and `inputs` over its own; its connections (textures) stay."""
+    import copy
+
+    out = copy.deepcopy(mat)
+    node = out.nodes[out.surface_node]
+    if shader_id is not None:
+        node.shader_id = shader_id
+    node.inputs.update(inputs)
+    return out
+
+
+def glass_coated_params(device, nee: bool):
+    """glass_coated: Materials.GlassCoated at the bench's settings, 1200²,
+    16 spp, 8 bounces (NEE off as bench.py sets it; on as the scene asks)."""
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    desc = load_scene(GLASS)
+    return desc_params(device, desc, LOBES_RES, merged_settings(
+        desc, spp=LOBES_SPP, maxBounces=LOBES_BOUNCES, nextEventEstimation=nee))
+
+
+def cornell_cutout_desc():
+    """The Cornell box with the bench's rect light; the tall block's new
+    white material has opacity 0.5 (stochastic cutout), the short block's
+    opacity 0.3 under opacityThreshold 0.5 (a binary cutout: it vanishes)."""
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    desc = load_scene(CORNELL)
+    white = desc.materials["/Cornell/Materials/White"]
+    for block, extra in (("TallBlock", dict(opacity=0.5)),
+                         ("ShortBlock", dict(opacity=0.3, opacityThreshold=0.5))):
+        path = f"/Cornell/Materials/{block}Cutout"
+        desc.materials[path] = surface_variant(white, **extra)
+        desc.materials[path].path = path
+        next(m for m in desc.meshes if m.path.endswith("/" + block)).material = path
+    desc.lights.append(bench_rect_light())
+    return desc
+
+
+def cornell_cutout_params(device, every_aov: bool = False):
+    desc = cornell_cutout_desc()
+    return desc_params(device, desc, LOBES_RES, merged_settings(
+        desc, spp=LOBES_SPP, maxBounces=LOBES_BOUNCES, nextEventEstimation=True), every_aov)
+
+
+def sphere_field_lobes_desc():
+    """sphere_field with /mat0 an open_pbr thick glass, /mat1 a clearcoated
+    UsdPreviewSurface and /mat2 a UsdPreviewSurface of opacity 0.5."""
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    desc = sphere_field()
+    m = desc.materials
+    m["/mat0"] = surface_variant(m["/mat0"], OPEN_PBR, transmission_weight=1.0,
+                                 specular_ior=1.5, specular_roughness=0.0,
+                                 base_color=(1.0, 1.0, 1.0))
+    m["/mat1"] = surface_variant(m["/mat1"], clearcoat=1.0)
+    m["/mat2"] = surface_variant(m["/mat2"], opacity=0.5)
+    return desc
+
+
+def sphere_field_lobes_params(device, desc, nee: bool):
+    return desc_params(device, desc, SF_RES, merged_settings(
+        desc, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=nee))
+
+
+def interior_lobes_params(device, tex_dir: str):
+    """interior_lobes: the interior at its bench settings with the worktop
+    an open_pbr surface (its marble texture as base colour, specular
+    roughness anisotropy 0.6) and the instanced bowls at opacity 0.5 over
+    their fabric texture."""
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(tex_dir=tex_dir)
+    m = desc.materials
+    work = m["/m_worktop"]
+    node = work.nodes[work.surface_node]
+    tex = node.input_connections.pop("diffuseColor")
+    m["/m_worktop"] = surface_variant(work, OPEN_PBR, specular_roughness=0.25,
+                                      specular_roughness_anisotropy=0.6)
+    m["/m_worktop"].nodes[work.surface_node].input_connections["base_color"] = tex
+    m["/m_bowl"] = surface_variant(m["/m_bowl"], opacity=0.5)
+    return desc_params(device, desc, SF_RES, merged_settings(
+        desc, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True))
+
+
+def first_and_warm(params, label, want: set, warm_frames: int = 1):
+    """A first frame (scene build included) and warm frames of the same
+    samples; the launches of the last must be those of `want` only.
+    Returns (image, {first, warm seconds, Mray/s}, launches)."""
+    from gatling_tpu_torch import gi
+
+    _img, first, _mr, _l = counted_render(params, label + " (first frame)")
+    warm, rates = [], []
+    for i in range(warm_frames):
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, mr, launches = counted_render(params, label + f" (warm {i + 1})")
+        warm.append(dt)
+        rates.append(mr)
+    assert all(launches[k] > 0 for k in want), (label, launches)
+    assert all(v == 0 for k, v in launches.items() if k not in want), (label, launches)
+    return img, dict(first_s=first, warm_s=warm, mrays=rates), launches
+
+
+def record_fused_waves(run, bounces=(0, 2)):
+    """Run one frame (`run()`) with the fused path's kernel calls recorded:
+    for the first sample batch, the params row and the state going into
+    each bounce of `bounces`, and for the split bounce the hit and
+    parameter buffers K4 was handed. Returns ({bounce: (params row, state,
+    None or (hit buffer, parameter buffer))}, what run returned)."""
+    from gatling_tpu_torch.render import fused
+
+    calls = []
+    real = {k: getattr(fused, k) for k in ("bounce_step", "shade_step")}
+
+    def bounce(p, scene, state, nee):
+        if len(calls) <= max(bounces):
+            calls.append((p.clone(), state.clone(), None))
+        return real["bounce_step"](p, scene, state, nee)
+
+    def shade(p, scene, state, hitbuf, parbuf, active, nee):
+        if len(calls) <= max(bounces):
+            calls.append((p.clone(), state.clone(), (hitbuf.clone(), parbuf.clone())))
+        return real["shade_step"](p, scene, state, hitbuf, parbuf, active, nee)
+
+    fused.bounce_step, fused.shade_step = bounce, shade
+    try:
+        result = run()
+    finally:
+        fused.bounce_step, fused.shade_step = real["bounce_step"], real["shade_step"]
+    return {b: calls[b] for b in bounces if b < len(calls)}, result
+
+
+def gi_frame(params):
+    """A function that renders one more frame of `params` through gi."""
+    from gatling_tpu_torch import gi
+
+    def run():
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        gi.render(params)
+    return run
+
+
+def flattened_frame(params):
+    """(flattened tables, static, a function rendering the frame of
+    `params` through them with render_pixels_fused) for a scene that
+    gi.render rendered on instance tables."""
+    import torch
+
+    from gatling_tpu_torch.render.camera import camera_uniforms
+    from gatling_tpu_torch.render.fused import render_pixels_fused
+    from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
+
+    fs, static, *_rest = split_tables(params, flattened=True)
+    assert static.clustered and not static.instanced
+    s, device = params.render_settings, params.scene.device
+    res = params.aov_bindings[0].render_buffer.width
+    cfg = RenderConfig(width=res, height=res, spp=s["spp"], max_bounces=s["maxBounces"],
+                       nee=bool(s["nextEventEstimation"]))
+    uni = Uniforms(camera=camera_uniforms(params.camera, False, device), sample_offset=0,
+                   inv_total_sample_count=1.0 / s["spp"], max_sample_value=10.0,
+                   rr_inv_min_term_prob=0.95, light_intensity_multiplier=1.0,
+                   meters_per_scene_unit=1.0, max_volume_walk_length=7)
+    pix = torch.arange(res * res, device=device)
+    return fs, static, lambda: render_pixels_fused(cfg, uni, fs, pix, s["spp"], 0).cpu().numpy()
+
+
+def cutout_pass_rate(params):
+    """On cornell_cutout's first wave (1200² x 2 samples): the share of the
+    camera rays whose first surface is the tall block (opacity 0.5) that
+    pass it, and the camera rays that hit the short block (opacity 0.3
+    under threshold 0.5), from the kernels' tables through the twin's
+    search with and without the cutout draws."""
+    import torch
+
+    from gatling_tpu_torch.ops.bounce_ref import (P_TMIN, TR_MAT, closest_hit, cutout_key)
+
+    scene = params.scene
+    fs = scene._fused
+    wave = wave_state(params.camera, LOBES_RES, LOBES_RES, 2, scene.device)
+    o, d = (wave[0], wave[1], wave[2]), (wave[3], wave[4], wave[5])
+    tmin = float(params_row(0, scene.device)[P_TMIN])
+    _t, _u, _v, win = closest_hit(fs.tris, o, d, tmin)
+    t_cut, _u, _v, win_cut = closest_hit(fs.tris, o, d, tmin, cutout_key(wave))
+    mat = lambda w: torch.where(w >= 0, fs.tris[w.clamp(min=0), TR_MAT], -1.0)
+    idx = scene._material_index
+    tall = mat(win) == idx["/Cornell/Materials/TallBlockCutout"]
+    passed = tall & (win_cut != win)
+    short_hits = int((mat(win_cut) == idx["/Cornell/Materials/ShortBlockCutout"]).sum())
+    short_before = int((mat(win) == idx["/Cornell/Materials/ShortBlockCutout"]).sum())
+    rate = float(passed.sum()) / max(int(tall.sum()), 1)
+    log(f"cornell_cutout first wave: {int(tall.sum())} camera rays meet the tall block first, "
+        f"{rate:.5f} of them pass it (opacity 0.5); the short block (0.3 < threshold 0.5) "
+        f"stops {short_hits} rays ({short_before} without cutout)")
+    return rate, short_hits, short_before
+
+
+def golden_glass_coated(device):
+    """Materials.GlassCoated at its own settings (96², 48 spp, 6 bounces,
+    NEE) through gi on the card, against its committed reference. The
+    reference is a wavefront image (the JAX package's harness renders it on
+    the CPU): the frame with an OBJECT_ID binding beside COLOR takes the
+    port's wavefront and must pass the scene's gtl:errorPixelThreshold and
+    gtl:flipThreshold. The COLOR frame alone takes the fused K1 with the
+    advanced lobes, whose samples are drawn in another order: it is held to
+    the FLIP threshold and its mean to 2 % of the reference's, and its
+    error components are reported."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.scene.stage import load_scene
+    from gatling_tpu_torch.utils.flip import encode_srgb_u8, golden_errors
+
+    desc = load_scene(GLASS)
+    s = merged_settings(desc)
+    ref = imgio.load_image_file(os.path.join(os.path.dirname(GLASS), "ref_color.png"))
+    out = {}
+    for route in ("wavefront", "fused"):
+        params = desc_params(device, desc, 96, s)
+        if route == "wavefront":
+            params.aov_bindings.append(gi.GiAovBinding(
+                AovId.OBJECT_ID, gi.GiRenderBuffer(96, 96, 1, True), clear_value=-1))
+        gi.render(params)
+        scene = params.scene
+        assert (scene._fused is None) == (route == "wavefront"), route
+        color = params.aov_bindings[0].render_buffer.data
+        errors, flip = golden_errors(color, ref)
+        rel = abs(encode_srgb_u8(color)[..., :3].mean() / ref[..., :3].mean() - 1.0)
+        log(f"Materials.GlassCoated on the card, {route}: {errors} error components (threshold "
+            f"{s['errorPixelThreshold']}), mean FLIP {flip:.4f} (threshold {s['flipThreshold']}), "
+            f"mean encoded value {rel:.4f} off the reference's")
+        assert np.isfinite(color).all() and flip <= float(s["flipThreshold"]), route
+        if route == "wavefront":
+            assert errors <= int(s["errorPixelThreshold"])
+        else:
+            assert scene._fused_static.advanced and rel < 0.02
+        out[route] = dict(errors=errors, flip=flip, mean_rel=rel)
+    return out
+
+
+def phase_lobes(device, tex_dir: str):
+    """Phase 4f: configurations 1-5 of the advanced lobes and cutout through
+    gi.render, each a first and a warm frame with its launch counts and
+    checks; the GlassCoated golden; the cutout pass rate. Returns (frame
+    numbers, launches a frame, {case: (fused scene, static, recorded
+    waves, nee)} for 3e)."""
+    import numpy as np
+
+    from gatling_tpu_torch.interface import AovId
+
+    out, launches, replay = {}, {}, {}
+    for nee in (False, True):
+        label = f"glass_coated{'_nee' if nee else ''}"
+        params = glass_coated_params(device, nee)
+        img, out[label], lc = first_and_warm(
+            params, f"{label} {LOBES_RES}^2 {LOBES_SPP}spp {LOBES_BOUNCES} bounces", {"K1"})
+        st = params.scene._fused_static
+        assert st.advanced and not st.cutout and not st.clustered and not st.textured
+        img = img[..., :3]
+        assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01, label
+        launches[label] = lc["K1"]
+        replay[label] = (params.scene._fused, st, record_fused_waves(gi_frame(params))[0], nee)
+    out["glass_coated_golden"] = golden_glass_coated(device)
+
+    params = cornell_cutout_params(device)
+    img, out["cornell_cutout"], lc = first_and_warm(
+        params, f"cornell_cutout {LOBES_RES}^2 {LOBES_SPP}spp {LOBES_BOUNCES} bounces nee",
+        {"K1"})
+    st = params.scene._fused_static
+    assert st.cutout and not st.advanced and not st.clustered
+    image_checks(img, "cornell_cutout")
+    launches["cornell_cutout"] = lc["K1"]
+    rate, short_hits, short_before = cutout_pass_rate(params)
+    assert abs(rate - 0.5) <= 0.01 and short_hits == 0 and short_before > 0
+    out["cornell_cutout_pass_rate"] = rate
+    replay["cornell_cutout"] = (params.scene._fused, st, record_fused_waves(gi_frame(params))[0],
+                                True)
+
+    desc = sphere_field_lobes_desc()
+    imgs = {}
+    for nee in (False, True):
+        label = f"sphere_field_lobes{'_nee' if nee else ''}"
+        params = sphere_field_lobes_params(device, desc, nee)
+        img, out[label], lc = first_and_warm(
+            params, f"{label} {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces", {"K2"})
+        st = params.scene._fused_static
+        assert st.instanced and st.advanced and st.cutout and not st.textured
+        imgs[nee] = img[..., :3]
+        assert np.isfinite(imgs[nee]).all() and (imgs[nee] >= 0).all(), label
+        launches[label] = lc["K2"]
+        replay[label] = (params.scene._fused, st, record_fused_waves(gi_frame(params))[0], nee)
+    # the NEE frame through the flattened tables: other triangle ids, so
+    # other cutout draws; the means agree
+    flat, fstat, run = flattened_frame(params)
+    waves, flat_img = record_fused_waves(run)
+    replay["sphere_field_lobes_nee_flattened"] = (flat, fstat, waves, True)
+    assert imgs[True].mean() > imgs[False].mean() * 1.02, "NEE must add light"
+    rel = abs(flat_img.mean() - imgs[True].mean()) / imgs[True].mean()
+    log(f"sphere_field_lobes instanced vs flattened (NEE): mean rel diff {rel:.3e}")
+    assert np.isfinite(flat_img).all() and rel < 0.01, rel
+    out["sphere_field_lobes_flattened_rel"] = rel
+
+    params = interior_lobes_params(device, tex_dir)
+    img, out["interior_lobes"], lc = first_and_warm(
+        params, f"interior_lobes {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee", {"K3", "K4"})
+    st = params.scene._fused_static
+    assert st.instanced and st.textured and st.advanced and st.cutout and st.tangents
+    img = img[..., :3]
+    assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01
+    launches["interior_lobes"] = {k: lc[k] for k in ("K3", "K4")}
+    replay["interior_lobes"] = (params.scene._fused, st, record_fused_waves(gi_frame(params))[0],
+                                True)
+
+    # the wavefront: K5 traces the camera rays and, hop by hop, the shadow
+    # rays through the cutout (render/integrator.py _trace_occluded_cutout,
+    # as the JAX wavefront does), so K6 is not launched
+    params = cornell_cutout_params(device, every_aov=True)
+    aovs, out["cornell_cutout_aovs"], lc = first_and_warm(
+        params, f"cornell_cutout_aovs {LOBES_RES}^2 {LOBES_SPP}spp {LOBES_BOUNCES} bounces nee, "
+        "every AOV", {"K5"})
+    assert params.scene._accel is not None and params.scene._fused is None
+    full = {b.aov_id: b.render_buffer.data.copy() for b in params.aov_bindings}
+    image_checks(full[AovId.COLOR], "cornell_cutout_aovs")
+    check_aovs(full, params, "cornell_cutout_aovs")
+    launches["cornell_cutout_aovs"] = {"K5": lc["K5"]}
+    return out, launches, replay
+
+
+def bounce_twin(p, fs, state, nee):
+    """The twin of bounce_step on fused tables fs (resident or walk)."""
+    from gatling_tpu_torch.ops.bounce_ref import bounce_ref
+
+    bounce_ref(p, fs.tris, fs.mats, fs.lights, tuple(fs.light_types.tolist()), state, nee,
+               fs.walk, fs.advanced, fs.cutout)
+
+
+def check_parity(label, got, twin, errs):
+    """compare() with the branches' criteria: rows 12-15 bit-equal and rows
+    0-11 within rtol/atol, each on at least MIN_AGREE of the rays."""
+    bad_bits, outside, n, err = compare(got, twin)
+    log(f"parity {label}: {bad_bits} rays with rows 12-15 not bit-equal, {outside} of {n} "
+        f"rays outside rtol {RTOL}/atol {ATOL} on rows 0-11, max abs err {err:.3g}")
+    assert bad_bits <= n * (1 - MIN_AGREE) and outside <= n * (1 - MIN_AGREE), (label, bad_bits,
+                                                                                 outside)
+    errs.append(err)
+
+
+def check_draws(label, wave, fs):
+    """The kernels' cutout draws (ops/bounce.py cutout_draws) against the
+    twin's cutout_xi, bit for bit, for every ray of a wave: its camera key
+    against each of 64 triangle ids spread over the table, and its
+    shadow key against the same ids."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.bounce_ref import SHADOW_SALT, cutout_key, cutout_xi
+
+    key = cutout_key(wave)
+    n_ids = fs.tris.shape[0]
+    ids = torch.linspace(0, n_ids - 1, 64, device=wave.device).long()
+    bad = 0
+    for k in (key, key ^ SHADOW_SALT):
+        kk = k[:, None].expand(-1, ids.numel()).reshape(-1)
+        ii = ids[None, :].expand(k.numel(), -1).reshape(-1)
+        i32 = lambda x: (x - ((x >> 31) << 32)).to(torch.int32)  # uint32 bits as int32
+        got = tb.cutout_draws(i32(kk).contiguous(), i32(ii).contiguous())
+        bad += int((got.view(torch.int32) != cutout_xi(kk, ii).view(torch.int32)).sum())
+    log(f"cutout draws {label}: {bad} of {2 * key.numel() * ids.numel()} not bit-equal")
+    assert bad == 0, label
+
+
+def phase_branches(device, replay: dict):
+    """Phase 3e: each branch's kernel against its twin on 4f's recorded
+    waves (bounces 0 and 2) and the tables gi built; each timed at bounce
+    0 with CUDA events. Returns {case: numbers}."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cutout_key, walk_closest, \
+        walk_hit_attrs, walk_work
+    from gatling_tpu_torch.ops.split_ref import H_T, par_row_starts, shade_ref, trace_ref
+
+    out = {}
+    for label, (fs, static, waves, nee) in replay.items():
+        errs, k3_errs = [], []
+        if fs.cutout:
+            check_draws(label, waves[0][1], fs)
+        for b, (p, state, split) in sorted(waves.items()):
+            if split is None:
+                twin = state.clone()
+                bounce_twin(p, fs, twin, nee)
+                got = state.clone()
+                tb.bounce_step(p, fs, got, nee)
+                torch.cuda.synchronize()
+                check_parity(f"{label} bounce {b}", got, twin, errs)
+                continue
+            hit_n, parbuf = split
+            active = static.textured_params
+            hit = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
+            got_hit = tb.trace_step(p, fs, state)
+            twin = state.clone()
+            shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, hit_n, parbuf,
+                      par_row_starts(active), nee, fs.walk, fs.advanced, fs.cutout)
+            got = state.clone()
+            tb.shade_step(p, fs, got, hit_n, parbuf, active, nee)
+            torch.cuda.synchronize()
+            hb, ho, n, herr = compare_hits(got_hit, hit)
+            log(f"parity {label} bounce {b} K3: {hb} rays with H_HIT/H_MAT not bit-equal, {ho} "
+                f"of {n} outside rtol {RTOL}/atol {ATOL}, max abs err {herr:.3g} (hit rays)")
+            assert hb <= n * (1 - MIN_AGREE) and ho <= n * (1 - MIN_AGREE), (label, b, hb, ho)
+            k3_errs.append(herr)
+            check_parity(f"{label} bounce {b} K4", got, twin, errs)
+
+        # bounce 0 timed: the kernel(s), the twin(s), the bound
+        p, wave, split = waves[0]
+        alive = wave[13] > 0.5
+        r = dict(rays=wave.shape[1], alive=int(alive.sum()), err=max(errs),
+                 k3_err=max(k3_errs) if k3_errs else None)
+        if split is None:
+            r["ms"] = time_ms(lambda s: tb.bounce_step(p, fs, s, nee), wave)
+            r["plain_ms"] = time_ms(lambda s: bounce_twin(p, fs, s, nee), wave, reps=1)
+            if fs.walk is None:
+                r["bound"] = k1_bound_ms(wave, fs)
+            else:
+                o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
+                tmin = float(p[P_TMIN])
+                key = cutout_key(wave) if fs.cutout else None
+                win = walk_closest(fs.walk, fs.tris, o, d, alive, tmin, key)
+                t_hit = walk_hit_attrs(fs.walk, fs.tris, o, d, win)[0]
+                r["work"] = walk_work(fs.walk, o, d, alive, tmin, t_hit)
+                r["bound"] = k2_bound_ms(wave, fs, r["work"])
+        else:
+            hit_n, parbuf = split
+            active = static.textured_params
+            prow = par_row_starts(active)
+            hit = tb.trace_step(p, fs, wave)
+            o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
+            r["work"] = (walk_work(fs.walk, o, d, alive, float(p[P_TMIN]), hit[H_T])
+                         if fs.walk is not None else None)
+            r["k3_ms"] = time_ms(lambda s: tb.trace_step(p, fs, s), wave)
+            r["k3_plain_ms"] = time_ms(lambda s: trace_ref(p, fs.tris, s, fs.walk, fs.cutout),
+                                       wave, reps=1)
+            r["k3_bound"] = k3_bound_ms(wave, fs, hit.shape[0], r["work"])
+            r["ms"] = time_ms(lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, nee), wave)
+            r["plain_ms"] = time_ms(lambda s: shade_ref(
+                p, fs.tris, fs.mats, fs.lights, static.light_types, s, hit_n, parbuf, prow, nee,
+                fs.walk, fs.advanced, fs.cutout), wave, reps=1)
+            r["bound"] = k4_bound_ms(wave, fs, 3 * len(active))
+        out[label] = r
+        log(f"timing {label} bounce 0 ({r['rays']} rays, {r['alive']} alive): " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()
+            if k not in ("rays", "alive")))
+    return out
+
+
+def phase_probes(device):
+    """Phase P: the probes P1 and P2 through their entry points (launches
+    counted over that run), held against their twins; each timed with CUDA
+    events beside its twin and the library call. Returns their numbers."""
+    import torch
+
+    from gatling_tpu_torch import tools
+    from gatling_tpu_torch.tools import cast_probe, precision_probe
+
+    for k in tools.launches:
+        tools.launches[k] = 0
+    cast = cast_probe.run(device)
+    prec = precision_probe.run(device)
+    launches = dict(tools.launches)
+    log(f"probes: launches {launches}")
+    assert all(ok for ok, _deg in cast.values()), cast
+    assert prec["DEFAULT (TF32)"][2] and prec["HIGHEST (FP32)"][2] and prec["3xTF32"][2], prec
+
+    # launches below compare and time; they do not count
+    x = cast_probe.probe_input(device)
+    moves = range(len(cast_probe.MOVES))
+    p1 = dict(
+        ms=event_ms(lambda: [cast_probe.cast_move(x, m) for m in moves]),
+        plain_ms=event_ms(lambda: [cast_probe.cast_twin(x, m) for m in moves]),
+        # bytes: the tile read and each move's output written once
+        bound=_bound(sum(4 * (x.numel() + math.prod(shape)) for _n, shape in cast_probe.MOVES),
+                     0),
+        err=max(float((cast_probe.cast_move(x, m) - cast_probe.cast_twin(x, m)).abs().max())
+                for m in moves),
+        conflicts={n: deg for n, (_ok, deg) in cast.items()})
+    p1["library_ms"] = p1["plain_ms"]  # the twin is the torch calls themselves
+    oh, xm = precision_probe.probe_inputs(device)
+    n = precision_probe.N
+    flops = 2 * n ** 3
+    nbytes = 3 * 4 * n * n
+    p2 = {}
+    for name, mode in precision_probe.MODES:
+        peak = F32_FLOPS if mode == 1 else TF32_FLOPS
+        t_ops = (3 if mode == 2 else 1) * flops / peak
+        got = precision_probe.onehot_product(oh, xm, mode)
+        p2[name] = dict(
+            ms=event_ms(lambda m=mode: precision_probe.onehot_product(oh, xm, m)),
+            plain_ms=event_ms(lambda m=mode: precision_probe.product_twin(oh, xm, m)),
+            bound=(max(nbytes / HBM_BPS, t_ops) * 1e3,
+                   "bytes" if nbytes / HBM_BPS >= t_ops else "operations"),
+            err=float((got - precision_probe.product_twin(oh, xm, mode)).abs().max()),
+            err_vs_x=prec[name][0])
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for allow in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            p2[f"library_tf32={allow}"] = event_ms(lambda: torch.matmul(oh, xm))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    log(f"timing P1 (six moves) {p1}; P2 {p2}")
+    return launches, p1, p2
+
+
+BRANCHES = (  # kernels-line entries of the branches: (name, 3e case, replaces)
+    ("bounce_step (K1, advanced lobes)", "glass_coated",
+     "gatling_tpu/ops/pallas_bounce.py:3192 bounce_step -> _bounce_kernel :2162, advanced "
+     "branch of _shade_core :2381 (:2453-2762) and _resolve_material_rows :2190"),
+    ("bounce_step (K1, cutout)", "cornell_cutout",
+     "gatling_tpu/ops/pallas_bounce.py:3192 bounce_step -> _bounce_kernel :2162, cutout "
+     "branch: _cutout_xi :1445, _cutout_xi8 :1459, resident searches :2874-2900"),
+    ("bounce_step_walk (K2, advanced lobes + cutout)", "sphere_field_lobes",
+     "gatling_tpu/ops/pallas_bounce.py:3192 bounce_step, clustered+instanced branch: "
+     "_trace_clustered_matrix :1513 (cutout :1570, :1657-1668), _trace_clustered_occluded "
+     ":2002 (:2058, :2127-2138), advanced _shade_core :2381"),
+    ("trace_step (K3, cutout)", "interior_lobes",
+     "gatling_tpu/ops/pallas_bounce.py:3663 trace_step -> _trace_kernel :3241, cutout "
+     ":3276-3311"),
+    ("shade_step (K4, advanced lobes)", "interior_lobes",
+     "gatling_tpu/ops/pallas_bounce.py:3705 shade_step -> _shade_kernel :3370, advanced "
+     "_shade_core :2381 in the mesh-tangent frame (:2453-2473)"),
+)
+
+
+def branch_entries(branch: dict, lobe_launches: dict) -> list[dict]:
+    """The kernels-line entries of the branches from 3e's numbers (bounce 0
+    of the case's first recorded wave); launches per frame of 4f."""
+    out = []
+    for name, case, replaces in BRANCHES:
+        r = branch[case]
+        k3 = name.startswith("trace_step")
+        n = lobe_launches[case]
+        if isinstance(n, dict):
+            n = n["K3" if k3 else "K4"]
+        ms, plain, bound = (("k3_ms", "k3_plain_ms", "k3_bound") if k3
+                            else ("ms", "plain_ms", "bound"))
+        entry = {"name": name, "route": "cuda", "source": "gatling_tpu_torch/csrc/bounce.cu",
+                 "replaces": replaces, "launches": n,
+                 "max_abs_err": max(v["k3_err" if k3 else "err"] for k, v in branch.items()
+                                    if k.startswith(case)),
+                 "ms": r[ms], "plain_ms": r[plain], "bound_ms": r[bound][0],
+                 "bound_by": r[bound][1], "library_ms": None, "rays": r["rays"],
+                 "alive": r["alive"]}
+        others = {k: v for k, v in branch.items() if k.startswith(case) and k != case}
+        if others:
+            entry["ms_by_case"] = {k: v[ms] for k, v in others.items()}
+            entry["plain_ms_by_case"] = {k: v[plain] for k, v in others.items()}
+            entry["bound_ms_by_case"] = {k: v[bound][0] for k, v in others.items()}
+        out.append(entry)
+    return out
+
+
+def probe_entries(launches: dict, p1: dict, p2: dict) -> list[dict]:
+    """The kernels-line entries of P1 (the six moves together) and P2 (the
+    TF32 product; FP32 and 3xTF32 beside it)."""
+    tf32 = p2["DEFAULT (TF32)"]
+    return [{
+        "name": "cast_probe (P1, six layout moves of an (8, 128) f32 tile)",
+        "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/mosaic_cast_probe.py:12 probe", "launches": launches["P1"],
+        "max_abs_err": p1["err"], "ms": p1["ms"], "plain_ms": p1["plain_ms"],
+        "bound_ms": p1["bound"][0], "bound_by": p1["bound"][1], "library_ms": p1["library_ms"],
+        "bank_conflicts": p1["conflicts"],
+    }, {
+        "name": "onehot_product (P2, one-hot 128x128 product, TF32 mma.sync)",
+        "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
+        "replaces": "tools/mosaic_precision_probe.py:20 kern", "launches": launches["P2"],
+        "max_abs_err": max(v["err"] for k, v in p2.items() if isinstance(v, dict)),
+        "ms": tf32["ms"], "plain_ms": tf32["plain_ms"], "bound_ms": tf32["bound"][0],
+        "bound_by": tf32["bound"][1], "library_ms": p2["library_tf32=True"],
+        "library_ms_fp32": p2["library_tf32=False"],
+        "by_mode": {k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                            bound_by=v["bound"][1], err_vs_x=v["err_vs_x"])
+                    for k, v in p2.items() if isinstance(v, dict)},
+    }]
+
+
+# the __global__ functions of csrc/, the longest first (one name ends another)
+KERNEL_NAMES = ("shade_walk_kernel", "trace_walk_kernel", "cutout_draws_kernel",
+                "onehot_fp32_kernel", "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel",
+                "closest_kernel", "bounce_kernel", "shade_kernel", "trace_kernel", "walk_kernel")
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per compiled kernel of nvcc's -Xptxas -v report: its name
+    with the template flags (1/0) and its registers, stack frame and spill
+    bytes."""
+    import re
+
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(" + "|".join(KERNEL_NAMES)
+                      + r")(I(?:Lb[01]E)+E)?", line)
+        if m:
+            flags = re.findall(r"Lb([01])E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(flags)}>" if flags else "")
+            stack = spill = regs = None
+        elif name and "stack frame" in line:
+            stack, spill = re.findall(r"(\d+) bytes (?:stack frame|spill stores)", line)[:2]
+        elif name and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append(f"{name}: {regs} registers, {stack} B stack frame, {spill} B spill "
+                       "stores")
+            name = None
+    return out
+
+
 def main() -> int:
     import tempfile
 
@@ -1393,20 +2043,20 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from gatling_tpu_torch import tools
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import trace as tt
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, both at once
-        builds = [pool.submit(mod.kernel) for mod in (tb, tt)]
+    with ThreadPoolExecutor(3) as pool:  # every nvcc run at once (bounce.cu in parts)
+        builds = [pool.submit(mod.kernel) for mod in (tb, tt, tools)]
         libs = [b.result() for b in builds]
     log(f"built {', '.join(k.path.name for k in libs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {', '.join(f'{k.build_seconds:.1f}' for k in libs)} s; ninja available: "
         f"{is_ninja_available()}, not needed: nvcc is called directly)")
     for k in libs:
-        for line in k.ptxas_log.splitlines():
-            if "entry function" in line or "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+        for line in ptxas_summary(k.ptxas_log):
+            log(f"ptxas {k.path.name}: {line}")
 
     # 3. K1 against its twin; 3b. K2 against its twin
     t0 = time.perf_counter()
@@ -1446,11 +2096,26 @@ def main() -> int:
     log(f"phase 4e: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trace_times = phase_trace(device, waves)
-    tex_tmp.cleanup()
+    del waves
     log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+
+    # 4f. glass, clearcoat, anisotropy and cutout through gi.render; 3e. the
+    # branches against their twins on 4f's waves; P. the probes
+    t0 = time.perf_counter()
+    lobe_frames, lobe_launches, replay = phase_lobes(device, tex_tmp.name)
+    tex_tmp.cleanup()
+    log(f"phase 4f: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    branch = phase_branches(device, replay)
+    del replay
+    log(f"phase 3e: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probe_launches, p1, p2 = phase_probes(device)
+    log(f"phase P: {time.perf_counter() - t0:.1f} s")
     launches = {"K1": k1_launches, "K2": k2_launches, **split_launches, **wavefront_launches}
     log(f"main path: kernel launches per frame {launches}; Mray/s {rates}; wavefront frame "
-        f"seconds {wave_times}")
+        f"seconds {wave_times}; advanced lobes and cutout: launches {lobe_launches}, frames "
+        f"{lobe_frames}")
 
     k2 = walk_times[("instanced", "generated", False)]
     it, ct = split_times["interior"], split_times["cornell_textured"]
@@ -1523,7 +2188,8 @@ def main() -> int:
         "ms_cornell_textured": ct["k4"],
         "plain_ms_cornell_textured": ct["k4_twin"],
         "bound_ms_cornell_textured": ct["k4_bound"][0],
-    }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8"))]}))
+    }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
+        *branch_entries(branch, lobe_launches), *probe_entries(probe_launches, p1, p2)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0

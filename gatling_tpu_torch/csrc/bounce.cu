@@ -7,11 +7,32 @@
 // replaces its clustered and instanced branch: the closest-hit walk
 // `_trace_clustered_matrix` and the any-hit shadow walk
 // `_trace_clustered_occluded`, with their XLA walk plan
-// `_cluster_walk_plan`. Both run with cutout, volumes, scattering and
-// advanced lobes off, and share the shading code. Their plain
-// PyTorch twin is ops/bounce_ref.py; all compute the same float operations
-// in the same order, so with -fmad=false they agree to the last bit except
-// where the math library's cos/sin/log differ.
+// `_cluster_walk_plan`. Both share the shading code. Their plain PyTorch
+// twin is ops/bounce_ref.py; all compute the same float operations in the
+// same order, so with -fmad=false they agree to the last bit except where
+// the math library's cos/sin/log differ. Volumes and scattering are not
+// ported (gi raises for them).
+//
+// Two branches of the JAX FusedStatic are template flags here:
+// * ADV (`advanced`), the full lobe set in the shading core: clearcoat,
+//   anisotropic GGX (in the mesh-tangent frame where K4 reads the hit
+//   buffer's tangent rows) and thick refraction with the exact dielectric
+//   Fresnel and TIR (pallas_bounce.py :2453-2762). It adds per-ray math
+//   (a few sqrt, cos/sin and divisions more a sample and a light
+//   evaluation), no memory traffic; plain scenes take the ADV = false
+//   instances, whose code is the plain path's.
+// * CUT (`cutout`), stochastic cutout inside every search (:1445-1466,
+//   :1657-1668, :2127-2138, :2874-2900, :3276-3311): a candidate hit
+//   draws `cutout_xi`, an integer hash of the ray's PCG word and the
+//   global triangle id, against its pass probability (resident: two
+//   table columns staged in shared memory beside the tile; flattened walk:
+//   the CLU_OPAC / CLU_OPAC_SH row; instanced: the placement's INST_PASS /
+//   INST_PASS_SH). A rejected candidate is not a hit; nothing is re-traced
+//   and the path's PCG stream gives no draw. It adds a hash (about 10
+//   integer operations) to each candidate that would win, bound like the
+//   search itself by the per-ray triangle tests.
+// The source compiles in parts (GATLING_PART, ops/cuda_lib.py), each
+// defining some of the entry points below, so that nvcc runs in parallel.
 //
 // Textured scenes split the bounce (the JAX package's split-bounce mode):
 // K3 `trace_kernel` / `trace_walk_kernel` replaces `trace_step` ->
@@ -62,10 +83,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+// without GATLING_PART the file defines every entry point
+#ifndef GATLING_PART
+#define PART(k) 1
+#else
+#define PART(k) (GATLING_PART == (k))
+#endif
+
 namespace {
 
 constexpr int TRI_ROWS = 32;      // the resident row; the tile holds its first 32 floats
 constexpr int TRI_ROWS_TAN = 48;  // with the tangent rows TR_T0..TR_BS
+// a cutout table appends the camera and the shadow pass probability after
+// those rows and pads them to 36 or 52 floats
+constexpr uint32_t SHADOW_SALT = 0x5BD1E995u;  // the shadow walk's cutout key salt
 constexpr int MAT_COLS = 30;
 constexpr int LIGHT_COLS = 20;
 constexpr int TILE = 128;     // triangles per shared-memory tile
@@ -99,9 +132,10 @@ constexpr int CLUSTER_SIZE = 128;  // triangles per cluster
 constexpr int L1_FAN = 16;         // clusters per level-1 entry
 constexpr int CLU_ROWS_TAN = 56;  // a clustered row with the tangent rows (else 40)
 enum { CLU_N = 0, CLU_GN = 4, CLU_MAT = 7, CLU_R1 = 8, CLU_N0 = 12, CLU_DS = 15,
-       CLU_R2 = 16, CLU_N1 = 20, CLU_N2 = 24, CLU_UV = 28, CLU_T0 = 40, CLU_T1 = 43,
-       CLU_T2 = 46, CLU_BS = 49 };
-enum { INST_AT = 9, INST_MAT = 12, INST_DS = 15, INST_COLS = 16 };
+       CLU_R2 = 16, CLU_N1 = 20, CLU_N2 = 24, CLU_UV = 28, CLU_OPAC = 34, CLU_OPAC_SH = 35,
+       CLU_T0 = 40, CLU_T1 = 43, CLU_T2 = 46, CLU_BS = 49 };
+enum { INST_AT = 9, INST_MAT = 12, INST_DS = 15, INST_PASS = 16, INST_PASS_SH = 17,
+       INST_COLS = 20 };
 constexpr int STACK = 64;  // TLAS traversal stack (ops/bounce.py TLAS_MAX_DEPTH)
 
 __device__ __forceinline__ float pcg_next(uint32_t& s) {
@@ -116,6 +150,20 @@ __device__ __forceinline__ float pcg_next(uint32_t& s) {
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
+
+// Per-(ray, triangle) uniform in [0, 1) (pallas_bounce.py _cutout_xi): a
+// murmur-style mix of the ray's PCG word and the global triangle id.
+__device__ __forceinline__ float cutout_xi(uint32_t key, uint32_t tid) {
+  uint32_t h = key ^ (tid * 2654435761u);
+  h = (h ^ (h >> 16)) * 0x21F0AAADu;
+  h = (h ^ (h >> 15)) * 0x735A2D97u;
+  h = h ^ (h >> 15);
+  return (float)(h >> 8) * C(1.0 / (1 << 24));
+}
+
+// The camera pass-probability column of a resident cutout table of rows
+// of ld floats (the shadow one follows it).
+__device__ __forceinline__ int opac_col(int ld) { return ld >= TRI_ROWS_TAN ? TRI_ROWS_TAN : TRI_ROWS; }
 
 // Baldwin-Weber plane + barycentric test of one triangle (row pointer tr).
 __device__ __forceinline__ bool tri_hit(const float* tr, float ox, float oy,
@@ -137,14 +185,18 @@ __device__ __forceinline__ bool tri_hit(const float* tr, float ox, float oy,
 }
 
 // Copy the first 32 floats of triangles [base, base+cnt) of a table with
-// rows of ld floats into the shared tile.
-__device__ __forceinline__ void load_tile(float* s_tri, const float* tris, int base,
-                                          int cnt, int ld) {
+// rows of ld floats into the shared tile; with CUT also their column
+// `col` (a pass probability) into s_opac.
+template <bool CUT>
+__device__ __forceinline__ void load_tile(float* s_tri, float* s_opac, const float* tris,
+                                          int base, int cnt, int ld, int col) {
   float4* dst = reinterpret_cast<float4*>(s_tri);
   for (int k = threadIdx.x; k < cnt * (TRI_ROWS / 4); k += blockDim.x) {
     const int t = k / (TRI_ROWS / 4), q = k % (TRI_ROWS / 4);
     dst[k] = reinterpret_cast<const float4*>(tris + (size_t)(base + t) * ld)[q];
   }
+  if (CUT)
+    for (int k = threadIdx.x; k < cnt; k += blockDim.x) s_opac[k] = tris[(size_t)(base + k) * ld + col];
 }
 
 // Diffuse + glossy reflection lobes at local wi (render/bsdf.py _eval_lobes).
@@ -156,10 +208,26 @@ struct Surface {
   float wox, woy, woz;
   float base[3], f0[3];
   float metallic, transm, alpha2, p_d, p_g;
+  // the advanced lobe set: anisotropic roughnesses and their rotation,
+  // the coat's weight, roughness^4 and pick probability, the thick-glass
+  // fraction
+  float ax, ay, cos_r, sin_r, coat, ac2, p_c, thick;
 };
 
-__device__ __forceinline__ Lobes eval_lobes(const Surface& s, float wix,
-                                            float wiy, float wiz) {
+__device__ __forceinline__ float ggx_g1(float a2, float nv) {
+  return 2.0f * nv / (nv + sqrtf(a2 + (1.0f - a2) * nv * nv));
+}
+
+// Smith G1 of anisotropic GGX in the rotated frame (pallas_bounce.py :2651).
+__device__ __forceinline__ float aniso_g1(float ax, float ay, float vx, float vy, float vz) {
+  const float vza = fmaxf(fabsf(vz), C(1e-6));
+  const float sx = ax * vx, sy = ay * vy;
+  const float lam = 0.5f * (-1.0f + sqrtf(1.0f + (sx * sx + sy * sy) / (vza * vza)));
+  return 1.0f / (1.0f + lam);
+}
+
+template <bool ADV>
+__device__ __forceinline__ Lobes eval_lobes(const Surface& s, float wix, float wiy, float wiz) {
   Lobes l;
   const bool refl = (s.woz > 0.0f) && (wiz > 0.0f);
   const float cos_i_c = fmaxf(wiz, 0.0f);
@@ -175,21 +243,48 @@ __device__ __forceinline__ Lobes eval_lobes(const Surface& s, float wix,
   const float nvo = fmaxf(s.woz, C(1e-6));
   const float nvi = fmaxf(cos_i_c, C(1e-6));
   const float a2 = s.alpha2;
-  const float dd = nh * nh * (a2 - 1.0f) + 1.0f;
-  const float ggx_d = a2 / fmaxf(C(PI_D) * dd * dd, C(1e-12));
-  const float g1o = 2.0f * nvo / (nvo + sqrtf(a2 + (1.0f - a2) * nvo * nvo));
-  const float g1i = 2.0f * nvi / (nvi + sqrtf(a2 + (1.0f - a2) * nvi * nvi));
-  const float gg = g1o * g1i;
+  float ggx_d, gg;
+  if (ADV) {  // anisotropic D and G in the rotated tangent frame
+    const float qa = (hxs * s.cos_r + hys * s.sin_r) / s.ax;
+    const float qb = (-hxs * s.sin_r + hys * s.cos_r) / s.ay;
+    const float q = qa * qa + qb * qb + hzs * hzs;
+    ggx_d = 1.0f / fmaxf(C(PI_D) * s.ax * s.ay * q * q, C(1e-12));
+    gg = aniso_g1(s.ax, s.ay, s.wox * s.cos_r + s.woy * s.sin_r,
+                  -s.wox * s.sin_r + s.woy * s.cos_r, s.woz) *
+         aniso_g1(s.ax, s.ay, wix * s.cos_r + wiy * s.sin_r, -wix * s.sin_r + wiy * s.cos_r, wiz);
+  } else {
+    const float dd = nh * nh * (a2 - 1.0f) + 1.0f;
+    ggx_d = a2 / fmaxf(C(PI_D) * dd * dd, C(1e-12));
+    gg = ggx_g1(a2, nvo) * ggx_g1(a2, nvi);
+  }
   const float mfres = clampf(1.0f - oh, 0.0f, 1.0f);
   const float fres5 = (mfres * mfres) * (mfres * mfres) * mfres;
-  const float spec_core = ggx_d * gg / fmaxf(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
-  const float diff_core = (1.0f - s.metallic) * (1.0f - s.transm) * cos_i_c / C(PI_D);
+  float spec_core = ggx_d * gg / fmaxf(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
+  float diff_core = (1.0f - s.metallic) * (1.0f - s.transm) * cos_i_c / C(PI_D);
+  float coat_core = 0.0f, dc = 0.0f;
+  if (ADV) {
+    // the clearcoat lobe, and the base attenuated under the coat in both
+    // directions; the thick-glass fraction leaves the base glossy lobe
+    const float dcd = nh * nh * (s.ac2 - 1.0f) + 1.0f;
+    dc = s.ac2 / fmaxf(C(PI_D) * (dcd * dcd), C(1e-12));
+    const float fc = C(0.04) + C(0.96) * fres5;
+    coat_core = s.coat * fc * dc * ggx_g1(s.ac2, nvo) * ggx_g1(s.ac2, nvi) /
+                fmaxf(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
+    const float m_o = clampf(1.0f - nvo, 0.0f, 1.0f);
+    const float m_i = clampf(1.0f - nvi, 0.0f, 1.0f);
+    const float att = (1.0f - s.coat * (C(0.04) + C(0.96) * ((m_o * m_o) * (m_o * m_o)) * m_o)) *
+                      (1.0f - s.coat * (C(0.04) + C(0.96) * ((m_i * m_i) * (m_i * m_i)) * m_i));
+    spec_core = spec_core * ((1.0f - s.thick) * att);
+    diff_core = diff_core * att;
+  }
   for (int c = 0; c < 3; ++c) {
     l.fd[c] = refl ? s.base[c] * diff_core : 0.0f;
-    l.fg[c] = refl ? (s.f0[c] + (1.0f - s.f0[c]) * fres5) * spec_core : 0.0f;
+    float g = (s.f0[c] + (1.0f - s.f0[c]) * fres5) * spec_core;
+    if (ADV) g = g + coat_core;
+    l.fg[c] = refl ? g : 0.0f;
   }
-  const float pdf = s.p_d * cos_i_c / C(PI_D) +
-                    s.p_g * ggx_d * nh / fmaxf(4.0f * oh, C(1e-9));
+  float pdf = s.p_d * cos_i_c / C(PI_D) + s.p_g * ggx_d * nh / fmaxf(4.0f * oh, C(1e-9));
+  if (ADV) pdf = pdf + s.p_c * dc * nh / fmaxf(4.0f * oh, C(1e-9));
   l.pdf = refl ? pdf : 0.0f;
   return l;
 }
@@ -331,15 +426,20 @@ struct Surf {
 };
 
 // The shading state of a hit: position, geometric and (normalised)
-// shading normal turned to face the ray, facing flag, double-sided flag.
+// shading normal turned to face the ray, facing flag, double-sided flag;
+// in K4 with tangent rows the mesh tangent and bitangent sign, which frame
+// the advanced lobes.
 struct Hit {
   float pos[3], gn[3], n[3], dsided;
-  bool front;
+  bool front, has_tan;
+  float tan[3], tbs;
 };
 
-// The shading parameters of a hit's material.
+// The shading parameters of a hit's material (the last four: the advanced
+// lobe set's clearcoat, its roughness, anisotropy and its rotation).
 struct Mat {
   float base[3], metallic, roughness, ior, em[3], transm, thinw, bf_edf;
+  float coat, coat_rough, aniso, aniso_rot;
 };
 
 __device__ __forceinline__ void load_path(Ray& r, const float* state, long long R,
@@ -365,11 +465,14 @@ __device__ __forceinline__ Hit surface_hit(const float o[3], const float d[3], c
     h.n[c] = nrm[c] * nlen * fsign;
   }
   h.dsided = sf.dsided;
+  h.has_tan = false;
   return h;
 }
 
 // Material row of a hit from the shared-memory table (ids outside the
-// table resolve to zeros).
+// table resolve to zeros); ADV also reads the advanced columns
+// (pallas_bounce.py _resolve_material_rows).
+template <bool ADV>
 __device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float mat_f) {
   const int m_id = (int)rintf(mat_f);
   const bool m_ok = m_id >= 0 && m_id < n_mats;
@@ -386,6 +489,12 @@ __device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float m
   t.transm = MAT(14);
   t.thinw = MAT(15);
   t.bf_edf = MAT(24);
+  if (ADV) {
+    t.coat = MAT(26);
+    t.coat_rough = MAT(27);
+    t.aniso = MAT(28);
+    t.aniso_rot = MAT(29);
+  }
 #undef MAT
   return t;
 }
@@ -400,8 +509,9 @@ __device__ __forceinline__ void shade_miss(const float* p, Ray& r) {
 }
 
 // Emission, BSDF sampling, the new ray and the NEE light sample of an
-// alive ray that hit (pallas_bounce.py _shade_core).
-template <bool NEE>
+// alive ray that hit (pallas_bounce.py _shade_core). ADV: the full lobe
+// set (:2453-2762).
+template <bool NEE, bool ADV>
 __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const Hit& h,
                                            const float* s_light, const int* s_ltype,
                                            int n_lights, Ray& r) {
@@ -418,22 +528,46 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * m.em[c] * p[P_EXP2_EXPOSURE];
   }
 
-  // ---- BSDF sample draws ----
+  // ---- BSDF sample draws (xi3 picks reflection or refraction at a thick
+  // interface) ----
   const float xi0 = pcg_next(r.rng);
   const float xi1 = pcg_next(r.rng);
   const float xi2 = pcg_next(r.rng);
-  pcg_next(r.rng);  // xi3: drawn for the reference's order, unused here
+  const float xi3 = pcg_next(r.rng);
 
   // ---- Duff ONB around the shading normal ----
   const float nsign = nz >= 0.0f ? 1.0f : -1.0f;
   const float a_onb = -1.0f / (nsign + nz);
   const float b_onb = nx * ny * a_onb;
-  const float t1x = 1.0f + nsign * nx * nx * a_onb;
-  const float t1y = nsign * b_onb;
-  const float t1z = -nsign * nx;
-  const float t2x = b_onb;
-  const float t2y = nsign + ny * ny * a_onb;
-  const float t2z = -ny;
+  float t1x = 1.0f + nsign * nx * nx * a_onb;
+  float t1y = nsign * b_onb;
+  float t1z = -nsign * nx;
+  float t2x = b_onb;
+  float t2y = nsign + ny * ny * a_onb;
+  float t2z = -ny;
+  if (ADV && h.has_tan) {
+    // the mesh tangent re-orthonormalised against the (possibly
+    // normal-mapped) shading normal, bitangent cross(n, t) * sign; a
+    // degenerate tangent keeps the Duff frame
+    const float tdn = h.tan[0] * nx + h.tan[1] * ny + h.tan[2] * nz;
+    float mtx = h.tan[0] - nx * tdn;
+    float mty = h.tan[1] - ny * tdn;
+    float mtz = h.tan[2] - nz * tdn;
+    const float tlen2 = mtx * mtx + mty * mty + mtz * mtz;
+    if (tlen2 > C(1e-12)) {
+      const float tl = 1.0f / sqrtf(fmaxf(tlen2, C(1e-20)));
+      mtx = mtx * tl;
+      mty = mty * tl;
+      mtz = mtz * tl;
+      const float bsgn = h.tbs >= 0.0f ? 1.0f : -1.0f;
+      t1x = mtx;
+      t1y = mty;
+      t1z = mtz;
+      t2x = (ny * mtz - nz * mty) * bsgn;
+      t2y = (nz * mtx - nx * mtz) * bsgn;
+      t2z = (nx * mty - ny * mtx) * bsgn;
+    }
+  }
   const float* d = r.d;
   s.wox = -(d[0] * t1x + d[1] * t1y + d[2] * t1z);
   s.woy = -(d[0] * t2x + d[1] * t2y + d[2] * t2z);
@@ -447,21 +581,53 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
   const float lum_base = C(0.2126) * s.base[0] + C(0.7152) * s.base[1] + C(0.0722) * s.base[2];
   const float lum_f0 = C(0.2126) * s.f0[0] + C(0.7152) * s.f0[1] + C(0.0722) * s.f0[2];
   const float w_d = lum_base * (1.0f - s.metallic) * (1.0f - s.transm);
-  const float w_g = lum_f0 > 0.0f ? fmaxf(lum_f0, C(0.04)) : 0.0f;
+  float w_g = lum_f0 > 0.0f ? fmaxf(lum_f0, C(0.04)) : 0.0f;
   const float w_t = s.transm;
-  const float w_sum = fmaxf(w_d + w_g + w_t, C(1e-20));
+  const bool thin = m.thinw > 0.5f;
+  float w_sum, w_c = 0.0f;
+  if (ADV) {
+    // the thick-glass fraction is the interface lobe's: the base glossy
+    // lobe does not model that reflection again
+    s.thick = s.transm * (1.0f - (thin ? 1.0f : 0.0f));
+    w_g = w_g * (1.0f - s.thick);
+    w_c = C(0.25) * m.coat;
+    w_sum = fmaxf(w_d + w_g + w_t + w_c, C(1e-20));
+  } else {
+    w_sum = fmaxf(w_d + w_g + w_t, C(1e-20));
+  }
   s.p_d = w_d / w_sum;
   s.p_g = w_g / w_sum;
   const float p_t = w_t / w_sum;
   const bool pick_d = xi0 < s.p_d;
   const bool pick_g = !pick_d && (xi0 < s.p_d + s.p_g);
-  const bool pick_t = !pick_d && !pick_g;
+  bool pick_t, pick_c = false;
+  if (ADV) {
+    s.p_c = w_c / w_sum;
+    pick_t = !pick_d && !pick_g && (xi0 < s.p_d + s.p_g + p_t);
+    pick_c = !pick_d && !pick_g && !pick_t;
+  } else {
+    pick_t = !pick_d && !pick_g;
+  }
 
   const float alpha = fmaxf(m.roughness * m.roughness, C(1e-3));
   s.alpha2 = alpha * alpha;
+  if (ADV) {  // anisotropic GGX roughnesses (Disney aspect), their rotation; the coat
+    const float aspect = sqrtf(1.0f - C(0.9) * clampf(m.aniso, 0.0f, 1.0f));
+    s.ax = fmaxf(alpha / aspect, C(1e-3));
+    s.ay = fmaxf(alpha * aspect, C(1e-3));
+    const float rtheta = C(2.0 * PI_D) * m.aniso_rot;
+    s.cos_r = cosf(rtheta);
+    s.sin_r = sinf(rtheta);
+    s.coat = m.coat;
+    const float ac = fmaxf(m.coat_rough * m.coat_rough, C(1e-3));
+    s.ac2 = ac * ac;
+  }
 
+  // ---- the sampled direction ----
   float wix, wiy, wiz;
-  if (pick_t) {
+  bool refl_pick = false;  // thick interface: Fresnel reflection picked
+  float k_t = 0.0f;        // thick interface: 1 - sin^2 of the refracted angle
+  if (pick_t && (!ADV || thin)) {  // thin transmission: straight through
     wix = -s.wox;
     wiy = -s.woy;
     wiz = -s.woz;
@@ -473,36 +639,91 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
       wix = ra * cphi;
       wiy = ra * sphi;
       wiz = sqrtf(fmaxf(0.0f, 1.0f - xi1));
-    } else {  // glossy: GGX NDF half-vector sample + reflect
-      const float c2h = (1.0f - xi1) / fmaxf(1.0f + (s.alpha2 - 1.0f) * xi1, C(1e-12));
-      const float ch = sqrtf(clampf(c2h, 0.0f, 1.0f));
-      const float sh = sqrtf(fmaxf(0.0f, 1.0f - c2h));
-      const float hx = sh * cphi, hy = sh * sphi, hz = ch;
-      const float odoth = s.wox * hx + s.woy * hy + s.woz * hz;
-      wix = 2.0f * odoth * hx - s.wox;
-      wiy = 2.0f * odoth * hy - s.woy;
-      wiz = 2.0f * odoth * hz - s.woz;
+    } else {
+      // the half vector, then a reflection about it (or a refraction)
+      float hx, hy, hz;
+      const float u_c = clampf(xi1, 0.0f, C(1.0 - 1e-7));
+      if (ADV && pick_g) {  // anisotropic GGX, in slope space, rotated back
+        const float r_slope = sqrtf(u_c / (1.0f - u_c));
+        float hxr = s.ax * r_slope * cphi;
+        float hyr = s.ay * r_slope * sphi;
+        const float hinv_s = 1.0f / sqrtf(fmaxf(hxr * hxr + hyr * hyr + 1.0f, C(1e-24)));
+        hxr = hxr * hinv_s;
+        hyr = hyr * hinv_s;
+        hx = hxr * s.cos_r - hyr * s.sin_r;
+        hy = hxr * s.sin_r + hyr * s.cos_r;
+        hz = hinv_s;
+      } else {
+        // GGX NDF: the glossy lobe (plain), the coat or the thick interface
+        const float a2 = ADV ? (pick_c ? s.ac2 : s.alpha2) : s.alpha2;
+        const float x = ADV ? u_c : xi1;
+        const float c2h = (1.0f - x) / fmaxf(1.0f + (a2 - 1.0f) * x, C(1e-12));
+        const float ch = sqrtf(clampf(c2h, 0.0f, 1.0f));
+        const float sh = sqrtf(fmaxf(0.0f, 1.0f - c2h));
+        hx = sh * cphi;
+        hy = sh * sphi;
+        hz = ch;
+      }
+      if (ADV && pick_t) {
+        // thick transmission: a microfacet dielectric interface; the exact
+        // Fresnel picks reflection or refraction, TIR is F = 1
+        const float eta_rel = h.front ? m.ior : 1.0f / fmaxf(m.ior, C(1e-6));
+        const float c_oh = fmaxf(s.wox * hx + s.woy * hy + s.woz * hz, 0.0f);
+        const float sin2_t = (1.0f - c_oh * c_oh) / fmaxf(eta_rel * eta_rel, C(1e-12));
+        const float cos_tf = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+        const float rs_f = (c_oh - eta_rel * cos_tf) / fmaxf(c_oh + eta_rel * cos_tf, C(1e-12));
+        const float rp_f = (eta_rel * c_oh - cos_tf) / fmaxf(eta_rel * c_oh + cos_tf, C(1e-12));
+        const float f_t = sin2_t >= 1.0f ? 1.0f
+                                         : clampf(0.5f * (rs_f * rs_f + rp_f * rp_f), 0.0f, 1.0f);
+        const float eta_inv = 1.0f / fmaxf(eta_rel, C(1e-6));
+        k_t = 1.0f - eta_inv * eta_inv * (1.0f - c_oh * c_oh);
+        const float cos_t = sqrtf(fmaxf(k_t, 0.0f));
+        const float scale_h = eta_inv * c_oh - cos_t;
+        refl_pick = xi3 < f_t;
+        if (refl_pick) {
+          wix = 2.0f * c_oh * hx - s.wox;
+          wiy = 2.0f * c_oh * hy - s.woy;
+          wiz = 2.0f * c_oh * hz - s.woz;
+        } else {
+          wix = -eta_inv * s.wox + scale_h * hx;
+          wiy = -eta_inv * s.woy + scale_h * hy;
+          wiz = -eta_inv * s.woz + scale_h * hz;
+        }
+      } else {
+        const float odoth = s.wox * hx + s.woy * hy + s.woz * hz;
+        wix = 2.0f * odoth * hx - s.wox;
+        wiy = 2.0f * odoth * hy - s.woy;
+        wiz = 2.0f * odoth * hz - s.woz;
+      }
     }
   }
 
-  const Lobes lb = eval_lobes(s, wix, wiy, wiz);
-  const float inv_pdf = lb.pdf > C(1e-12) ? 1.0f / fmaxf(lb.pdf, C(1e-12)) : 0.0f;
   float bop[3];
-  if (pick_t) {  // thin transmission, Fresnel-weighted (render/bsdf.py)
+  if (pick_t) {  // thin transmission Fresnel-weighted (render/bsdf.py); thick: G1 at wi
     const float mtr = clampf(1.0f - fmaxf(s.woz, 0.0f), 0.0f, 1.0f);
     const float tr5 = (mtr * mtr) * (mtr * mtr) * mtr;
     const float inv_pt = p_t > C(1e-12) ? 1.0f / fmaxf(p_t, C(1e-12)) : 0.0f;
-    for (int c = 0; c < 3; ++c)
-      bop[c] = s.transm * (1.0f - (s.f0[c] + (1.0f - s.f0[c]) * tr5)) * inv_pt;
-    r.valid = p_t > 0.0f;
+    if (ADV && !thin) {
+      const float thick_w = s.transm * ggx_g1(s.alpha2, fmaxf(fabsf(wiz), C(1e-6))) * inv_pt;
+      for (int c = 0; c < 3; ++c) bop[c] = thick_w;
+      r.valid = p_t > 0.0f && (refl_pick || k_t > 0.0f);
+    } else {
+      for (int c = 0; c < 3; ++c)
+        bop[c] = s.transm * (1.0f - (s.f0[c] + (1.0f - s.f0[c]) * tr5)) * inv_pt;
+      r.valid = p_t > 0.0f;
+    }
   } else {
+    const Lobes lb = eval_lobes<ADV>(s, wix, wiy, wiz);
+    const float inv_pdf = lb.pdf > C(1e-12) ? 1.0f / fmaxf(lb.pdf, C(1e-12)) : 0.0f;
     for (int c = 0; c < 3; ++c) bop[c] = (lb.fd[c] + lb.fg[c]) * inv_pdf;
     r.valid = lb.pdf > C(1e-12) && wiz > 0.0f && s.woz > 0.0f;
   }
   for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * (r.valid ? bop[c] : 0.0f);
 
-  // new origin, offset along the signed geometric normal; world wi
-  const float osign = pick_t ? -1.0f : 1.0f;
+  // new origin, offset along the signed geometric normal (a Fresnel-
+  // reflected thick-glass sample stays on the front side); world wi
+  const bool crossing = pick_t && (!ADV || thin || !refl_pick);
+  const float osign = crossing ? -1.0f : 1.0f;
   for (int c = 0; c < 3; ++c)
     r.o[c] = h.pos[c] + h.gn[c] * osign * fmaxf(fabsf(h.pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
   r.d[0] = wix * t1x + wiy * t2x + wiz * nx;
@@ -525,7 +746,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
       const float lwx = ls.dx * t1x + ls.dy * t1y + ls.dz * t1z;
       const float lwy = ls.dx * t2x + ls.dy * t2y + ls.dz * t2z;
       const float lwz = ls.dx * nx + ls.dy * ny + ls.dz * nz;
-      const Lobes el = eval_lobes(s, lwx, lwy, lwz);
+      const Lobes el = eval_lobes<ADV>(s, lwx, lwy, lwz);
       const float gdot = ls.dx * gnx + ls.dy * gny + ls.dz * gnz;
       const bool nee_valid = ls.dist > 0.0f && gdot > 0.0f && el.pdf > 0.0f;
       // reference quirk: the throughput already includes this bounce's
@@ -546,14 +767,14 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
 
 // The whole shading of a bounce for an alive ray whose closest hit (r.hit,
 // sf) is known: K1 and K2 read the material row from the table.
-template <bool NEE>
+template <bool NEE, bool ADV>
 __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_mats,
                                       const float* s_light, const int* s_ltype,
                                       int n_lights, const Surf& sf, Ray& r) {
   shade_miss(p, r);
   if (!r.hit) return;
-  shade_core<NEE>(p, table_mat(s_mat, n_mats, sf.mat_f), surface_hit(r.o, r.d, sf), s_light,
-                  s_ltype, n_lights, r);
+  shade_core<NEE, ADV>(p, table_mat<ADV>(s_mat, n_mats, sf.mat_f), surface_hit(r.o, r.d, sf),
+                       s_light, s_ltype, n_lights, r);
 }
 
 // NEE contribution, termination (miss, absorb, throughput cutoff, russian
@@ -638,11 +859,13 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
   for (int k = 0; k < rows; ++k) hit[k * R + i] = 0.0f;
 }
 
-// K4's view of one alive ray: the hit flag, its shading state, and its
-// material, the textured parameters (row >= 0) from the parameter buffer.
+// K4's view of one alive ray: the hit flag, its shading state (with the
+// tangent rows when the buffer has them), and its material, the textured
+// parameters (row >= 0) from the parameter buffer.
+template <bool ADV>
 __device__ __forceinline__ void read_hit(const float* hit, const float* par, const int prow[4],
-                                         const float* s_mat, int n_mats, long long R,
-                                         long long i, Ray& r, Hit& h, Mat& m) {
+                                         bool hit_tan, const float* s_mat, int n_mats,
+                                         long long R, long long i, Ray& r, Hit& h, Mat& m) {
   r.hit = hit[H_HIT * R + i] > 0.5f;
   for (int c = 0; c < 3; ++c) {
     h.pos[c] = hit[(H_POS + c) * R + i];
@@ -651,7 +874,12 @@ __device__ __forceinline__ void read_hit(const float* hit, const float* par, con
   }
   h.front = hit[H_FRONT * R + i] > 0.5f;
   h.dsided = hit[H_DS * R + i];
-  m = table_mat(s_mat, n_mats, hit[H_MAT * R + i]);
+  h.has_tan = ADV && hit_tan;
+  if (h.has_tan) {
+    for (int c = 0; c < 3; ++c) h.tan[c] = hit[(H_TAN + c) * R + i];
+    h.tbs = hit[H_BS * R + i];
+  }
+  m = table_mat<ADV>(s_mat, n_mats, hit[H_MAT * R + i]);
   for (int c = 0; c < 3; ++c) {
     if (prow[0] >= 0) m.base[c] = par[(prow[0] + c) * R + i];
     if (prow[1] >= 0) m.em[c] = par[(prow[1] + c) * R + i];
@@ -664,27 +892,49 @@ __device__ __forceinline__ void read_hit(const float* hit, const float* par, con
 // K1 (bounce), K3 (trace) and K4 (shade) over the resident table
 // ---------------------------------------------------------------------------
 
+// Shared memory of the resident kernels: the 128-triangle tile, with CUT
+// its pass probabilities, then the material and light tables.
+struct Smem {
+  float *tri, *opac, *mat, *light;
+  int* ltype;
+};
+
+template <bool CUT>
+__device__ __forceinline__ Smem resident_smem(float* base, int n_mats, int n_lights) {
+  Smem m;
+  m.tri = base;
+  m.opac = m.tri + TILE * TRI_ROWS;
+  m.mat = m.opac + (CUT ? TILE : 0);
+  m.light = m.mat + n_mats * MAT_COLS;
+  m.ltype = reinterpret_cast<int*>(m.light + n_lights * LIGHT_COLS);
+  return m;
+}
+
 // The closest hit of each alive ray of the block over the resident table,
 // through shared-memory tiles: serial table order, strict '<' (ties keep
-// the first). Every thread of the block must call it.
-__device__ __forceinline__ void resident_closest(float* s_tri, const float* tris, int n_tris,
+// the first). CUT: a candidate that would win is a hit only if its cutout
+// draw with `key` passes the camera column. Every thread of the block must
+// call it.
+template <bool CUT>
+__device__ __forceinline__ void resident_closest(const Smem& sm, const float* tris, int n_tris,
                                                  int ld, bool alive, const Ray& r, float tmin,
-                                                 float& best_t, float& bu, float& bv,
-                                                 int& win) {
+                                                 uint32_t key, float& best_t, float& bu,
+                                                 float& bv, int& win) {
   best_t = FMAX;
   bu = bv = 0.0f;
   win = -1;
   for (int base = 0; base < n_tris; base += TILE) {
     const int cnt = min(TILE, n_tris - base);
     __syncthreads();
-    load_tile(s_tri, tris, base, cnt, ld);
+    load_tile<CUT>(sm.tri, sm.opac, tris, base, cnt, ld, opac_col(ld));
     __syncthreads();
     if (alive) {
       for (int t = 0; t < cnt; ++t) {
         float tt, u, v;
-        const bool ok = tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.d[0],
+        const bool ok = tri_hit(sm.tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.d[0],
                                 r.d[1], r.d[2], tmin, tt, u, v);
-        if (ok && tt < best_t) {
+        if (ok && tt < best_t &&
+            (!CUT || cutout_xi(key, (uint32_t)(base + t)) < sm.opac[t])) {
           best_t = tt;
           bu = u;
           bv = v;
@@ -717,21 +967,25 @@ __device__ __forceinline__ Surf resident_surf(const float* tris, int ld, float b
 }
 
 // NEE shadow rays over the resident table: any hit in (SHADOW_TMIN,
-// ldist); all threads help load tiles until no ray of the block needs an
-// answer. Every thread of the block must call it.
-__device__ __forceinline__ bool resident_occluded(float* s_tri, const float* tris, int n_tris,
+// ldist), with CUT only those whose draw (the salted PCG word) passes the
+// shadow column; all threads help load tiles until no ray of the block
+// needs an answer. Every thread of the block must call it.
+template <bool CUT>
+__device__ __forceinline__ bool resident_occluded(const Smem& sm, const float* tris, int n_tris,
                                                   int ld, const Ray& r) {
   bool occ = false;
+  const uint32_t key = CUT ? r.rng ^ SHADOW_SALT : 0u;
   for (int base = 0; base < n_tris; base += TILE) {
     if (!__syncthreads_or(r.do_trace && !occ)) break;
     const int cnt = min(TILE, n_tris - base);
-    load_tile(s_tri, tris, base, cnt, ld);
+    load_tile<CUT>(sm.tri, sm.opac, tris, base, cnt, ld, opac_col(ld) + 1);
     __syncthreads();
     if (r.do_trace && !occ) {
       for (int t = 0; t < cnt; ++t) {
         float tt, u, v;
-        if (tri_hit(s_tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.ld[0], r.ld[1],
-                    r.ld[2], C(SHADOW_TMIN), tt, u, v) && tt < r.ldist) {
+        if (tri_hit(sm.tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.ld[0], r.ld[1],
+                    r.ld[2], C(SHADOW_TMIN), tt, u, v) && tt < r.ldist &&
+            (!CUT || cutout_xi(key, (uint32_t)(base + t)) < sm.opac[t])) {
           occ = true;
           break;
         }
@@ -741,57 +995,56 @@ __device__ __forceinline__ bool resident_occluded(float* s_tri, const float* tri
   return occ;
 }
 
-template <bool NEE>
+template <bool NEE, bool ADV, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
               int n_tris, int ld, const float* __restrict__ mats, int n_mats,
               const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
               int n_lights, float* __restrict__ state, long long R) {
   extern __shared__ float4 smem4[];
-  float* s_tri = reinterpret_cast<float*>(smem4);
-  float* s_mat = s_tri + TILE * TRI_ROWS;
-  float* s_light = s_mat + n_mats * MAT_COLS;
-  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
+  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), n_mats, n_lights);
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
   // dead block: every ray passes through unchanged
   if (!__syncthreads_or(alive)) return;
 
-  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  stage_tables(sm.mat, mats, n_mats, sm.light, lights, sm.ltype, ltypes, n_lights);
 
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
 
   Ray r = {};
+  uint32_t key = 0;
   if (alive) {
     for (int c = 0; c < 3; ++c) {
       r.o[c] = state[(S_OX + c) * R + i];
       r.d[c] = state[(S_DX + c) * R + i];
     }
+    if (CUT) key = __float_as_uint(state[S_RNG * R + i]);
   }
 
   float best_t, bu, bv;
   int win;
-  resident_closest(s_tri, tris, n_tris, ld, alive, r, p[P_TMIN], best_t, bu, bv, win);
+  resident_closest<CUT>(sm, tris, n_tris, ld, alive, r, p[P_TMIN], key, best_t, bu, bv, win);
   if (alive) {
     load_path(r, state, R, i);
     r.hit = best_t < FMAX;
-    shade<NEE>(p, s_mat, n_mats, s_light, s_ltype, n_lights,
-               resident_surf(tris, ld, best_t, bu, bv, win), r);
+    shade<NEE, ADV>(p, sm.mat, n_mats, sm.light, sm.ltype, n_lights,
+                    resident_surf(tris, ld, best_t, bu, bv, win), r);
   }
-  const bool occ = NEE && resident_occluded(s_tri, tris, n_tris, ld, r);
+  const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
   if (!alive) return;
   finish(p, r, occ, state, R, i);
 }
 
 // K3, resident: closest hit and shading state into the hit buffer.
-template <bool TAN>
+template <bool TAN, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
              int ld, const float* __restrict__ state, long long R, float* __restrict__ hit) {
   extern __shared__ float4 smem4[];
-  float* s_tri = reinterpret_cast<float*>(smem4);
+  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), 0, 0);
   const int rows = TAN ? HIT_ROWS_TAN : HIT_ROWS;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
@@ -800,16 +1053,18 @@ trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
     return;
   }
   Ray r = {};
+  uint32_t key = 0;
   if (alive) {
     for (int c = 0; c < 3; ++c) {
       r.o[c] = state[(S_OX + c) * R + i];
       r.d[c] = state[(S_DX + c) * R + i];
     }
+    if (CUT) key = __float_as_uint(state[S_RNG * R + i]);
   }
   float best_t, bu, bv;
   int win;
-  resident_closest(s_tri, tris, n_tris, ld, alive, r, __ldg(params + P_TMIN), best_t, bu, bv,
-                   win);
+  resident_closest<CUT>(sm, tris, n_tris, ld, alive, r, __ldg(params + P_TMIN), key, best_t,
+                        bu, bv, win);
   if (i >= R) return;
   if (!alive) {
     write_dead(hit, rows, R, i);
@@ -835,24 +1090,21 @@ trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
 
 // K4, resident: shading from the hit and parameter buffers; the NEE shadow
 // rays walk the resident table as in K1.
-template <bool NEE>
+template <bool NEE, bool ADV, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
              int ld, const float* __restrict__ mats, int n_mats,
              const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
              int n_lights, float* __restrict__ state, long long R,
              const float* __restrict__ hit, const float* __restrict__ par, int pb, int pe,
-             int pm, int pr) {
+             int pm, int pr, int hit_tan) {
   extern __shared__ float4 smem4[];
-  float* s_tri = reinterpret_cast<float*>(smem4);
-  float* s_mat = s_tri + TILE * TRI_ROWS;
-  float* s_light = s_mat + n_mats * MAT_COLS;
-  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
+  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), n_mats, n_lights);
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
   if (!__syncthreads_or(alive)) return;
-  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  stage_tables(sm.mat, mats, n_mats, sm.light, lights, sm.ltype, ltypes, n_lights);
   __syncthreads();
 
   float p[PARAMS_LEN];
@@ -867,11 +1119,11 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
     load_path(r, state, R, i);
     Hit h;
     Mat m;
-    read_hit(hit, par, prow, s_mat, n_mats, R, i, r, h, m);
+    read_hit<ADV>(hit, par, prow, hit_tan != 0, sm.mat, n_mats, R, i, r, h, m);
     shade_miss(p, r);
-    if (r.hit) shade_core<NEE>(p, m, h, s_light, s_ltype, n_lights, r);
+    if (r.hit) shade_core<NEE, ADV>(p, m, h, sm.light, sm.ltype, n_lights, r);
   }
-  const bool occ = NEE && resident_occluded(s_tri, tris, n_tris, ld, r);
+  const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
   if (!alive) return;
   finish(p, r, occ, state, R, i);
 }
@@ -886,7 +1138,7 @@ struct Walk {
   const float* l1;     // [n_l1, 8] entry world boxes (lo xyz, hi xyz, -, -)
   const float* l2;     // [n_l1 * 16, 8] fan-slot cluster world boxes
   const int* cmap;     // [n_l1 * 16] fan slot -> cluster of tris
-  const float* inst;   // [n_l1, 16] world->local rows (instanced)
+  const float* inst;   // [n_l1, 20] world->local and pass-probability rows (instanced)
   const float* nodes;  // [N, 8] TLAS node boxes
   const int* kids;     // [N, 2] children, or (-1 - first, count) for a leaf
   const int* leaf;     // [n_l1] entries in leaf order
@@ -954,10 +1206,13 @@ __device__ __forceinline__ bool clu_test(const float* __restrict__ tr, const flo
 // tested in world space over [tmin, run], run being tcap, or the best hit
 // so far for a closest-hit walk. ANY: return true at the first valid
 // triangle. Else: keep the smallest t, ties to the lower global triangle
-// index (fan slot * 128 + lane), in (best, win).
-template <bool INST, bool ANY, bool TAN>
+// index (fan slot * 128 + lane), in (best, win). CUT: a candidate is valid
+// only if cutout_xi(key, global index) falls below its pass probability:
+// the placement's (instanced) or the triangle row's, the shadow column for
+// ANY.
+template <bool INST, bool ANY, bool TAN, bool CUT>
 __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tmin,
-                     float tcap, float& best, int& win) {
+                     float tcap, uint32_t key, float& best, int& win) {
   float iv[3];
   for (int c = 0; c < 3; ++c) iv[c] = safe_inv(d[c]);
   float run = tcap;
@@ -992,8 +1247,10 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
       float te;
       if (!slab(w.l1 + 8 * e, o, iv, tmin, run, te)) continue;
       float ol[3], dl[3];
+      float pass = 1.0f;
       if (INST) {
         to_local(w.inst + INST_COLS * e, o, d, ol, dl);
+        if (CUT) pass = __ldg(w.inst + INST_COLS * e + (ANY ? INST_PASS_SH : INST_PASS));
       } else {
         for (int c = 0; c < 3; ++c) {
           ol[c] = o[c];
@@ -1008,13 +1265,17 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
         const float* tr = w.tris + (size_t)__ldg(w.cmap + slot) * CLUSTER_SIZE * clu_rows<TAN>();
         for (int lane = 0; lane < CLUSTER_SIZE; ++lane) {
           float tt;
-          if (!clu_test(tr + lane * clu_rows<TAN>(), ol, dl, tmin, tcap, tt)) continue;
-          if (ANY) return true;
+          const float* row = tr + lane * clu_rows<TAN>();
+          if (!clu_test(row, ol, dl, tmin, tcap, tt)) continue;
           const int gid = slot * CLUSTER_SIZE + lane;
-          if (tt < best || (tt == best && gid < win)) {
-            best = tt;
-            win = gid;
+          if (!ANY && !(tt < best || (tt == best && gid < win))) continue;
+          if (CUT) {
+            const float prob = INST ? pass : __ldg(row + (ANY ? CLU_OPAC_SH : CLU_OPAC));
+            if (!(cutout_xi(key, (uint32_t)gid) < prob)) continue;
           }
+          if (ANY) return true;
+          best = tt;
+          win = gid;
         }
         if (!ANY) run = fminf(tcap, best);
       }
@@ -1025,9 +1286,9 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
 
 // The closest-hit walk of one ray below the scene box's widened slab exit
 // (pallas_bounce.py :1555-1560); returns the winner's global index or -1.
-template <bool INST, bool TAN>
+template <bool INST, bool TAN, bool CUT>
 __device__ __forceinline__ int walk_closest(const Walk& w, const float o[3], const float d[3],
-                                            float tmin) {
+                                            float tmin, uint32_t key) {
   float ex[3];
   for (int c = 0; c < 3; ++c) {
     const float iv = safe_inv(d[c]);
@@ -1036,8 +1297,19 @@ __device__ __forceinline__ int walk_closest(const Walk& w, const float o[3], con
   const float cap = fmaxf(fminf(fminf(ex[0], ex[1]), ex[2]), 0.0f) * C(1.0001) + C(1e-3);
   float best = FMAX;
   int win = -1;
-  walk<INST, false, TAN>(w, o, d, tmin, cap, best, win);
+  walk<INST, false, TAN, CUT>(w, o, d, tmin, cap, key, best, win);
   return win;
+}
+
+// The NEE shadow ray of a ray that traces one: the any-hit walk, its
+// cutout key the salted PCG word.
+template <bool INST, bool TAN, bool CUT>
+__device__ __forceinline__ bool walk_occluded(const Walk& w, const Ray& r) {
+  float unused_t = FMAX;
+  int unused_win = -1;
+  return walk<INST, true, TAN, CUT>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist,
+                                    CUT ? r.rng ^ SHADOW_SALT : 0u,
+                                    unused_t, unused_win);
 }
 
 template <bool TAN>
@@ -1138,7 +1410,7 @@ __device__ __forceinline__ void pass2_surface(const Walk& w, int win, float u, f
   }
 }
 
-template <bool NEE, bool INST, bool TAN>
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
             int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
@@ -1162,26 +1434,21 @@ walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ 
     r.o[c] = state[(S_OX + c) * R + i];
     r.d[c] = state[(S_DX + c) * R + i];
   }
-  const int win = walk_closest<INST, TAN>(w, r.o, r.d, p[P_TMIN]);
+  const int win = walk_closest<INST, TAN, CUT>(w, r.o, r.d, p[P_TMIN],
+                                               CUT ? __float_as_uint(state[S_RNG * R + i]) : 0u);
   load_path(r, state, R, i);
   r.hit = win >= 0;
   Surf sf = {};
   sf.t = FMAX;
   if (r.hit) pass2<INST, TAN>(w, r.o, r.d, win, sf);
-  shade<NEE>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r);
-
-  bool occ = false;
-  if (NEE && r.do_trace) {
-    float unused_t = FMAX;
-    int unused_win = -1;
-    occ = walk<INST, true, TAN>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist, unused_t, unused_win);
-  }
+  shade<NEE, ADV>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r);
+  const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
   finish(p, r, occ, state, R, i);
 }
 
 // K3 over the walk: the closest hit, pass 2 and the finalize's extra
 // attributes into the hit buffer.
-template <bool INST, bool TAN>
+template <bool INST, bool TAN, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ state,
                   long long R, float* __restrict__ hit) {
@@ -1196,7 +1463,8 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
     o[c] = state[(S_OX + c) * R + i];
     d[c] = state[(S_DX + c) * R + i];
   }
-  const int win = walk_closest<INST, TAN>(w, o, d, __ldg(params + P_TMIN));
+  const int win = walk_closest<INST, TAN, CUT>(w, o, d, __ldg(params + P_TMIN),
+                                               CUT ? __float_as_uint(state[S_RNG * R + i]) : 0u);
   Surf sf = {};
   sf.t = FMAX;
   float uv[2] = {0.0f, 0.0f}, tan[3] = {0.0f, 0.0f, 0.0f}, tbs = 0.0f;
@@ -1209,13 +1477,13 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
 
 // K4 over the walk: shading from the hit and parameter buffers, the NEE
 // shadow ray through the any-hit walk.
-template <bool NEE, bool INST, bool TAN>
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT>
 __global__ void __launch_bounds__(THREADS)
 shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
                   int n_mats, const float* __restrict__ lights,
                   const int8_t* __restrict__ ltypes, int n_lights, float* __restrict__ state,
                   long long R, const float* __restrict__ hit, const float* __restrict__ par,
-                  int pb, int pe, int pm, int pr) {
+                  int pb, int pe, int pm, int pr, int hit_tan) {
   extern __shared__ float4 smem4[];
   float* s_mat = reinterpret_cast<float*>(smem4);
   float* s_light = s_mat + n_mats * MAT_COLS;
@@ -1239,15 +1507,10 @@ shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
   load_path(r, state, R, i);
   Hit h;
   Mat m;
-  read_hit(hit, par, prow, s_mat, n_mats, R, i, r, h, m);
+  read_hit<ADV>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
   shade_miss(p, r);
-  if (r.hit) shade_core<NEE>(p, m, h, s_light, s_ltype, n_lights, r);
-  bool occ = false;
-  if (NEE && r.do_trace) {
-    float unused_t = FMAX;
-    int unused_win = -1;
-    occ = walk<INST, true, TAN>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist, unused_t, unused_win);
-  }
+  if (r.hit) shade_core<NEE, ADV>(p, m, h, s_light, s_ltype, n_lights, r);
+  const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
   finish(p, r, occ, state, R, i);
 }
 
@@ -1264,151 +1527,197 @@ size_t table_smem(int n_mats, int n_lights) {
          sizeof(int) * (size_t)n_lights;
 }
 
-constexpr size_t TILE_SMEM = sizeof(float) * TILE * TRI_ROWS;
+__global__ void __launch_bounds__(THREADS)
+cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ ids,
+                    float* __restrict__ out, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = cutout_xi(keys[i], ids[i]);
+}
+
+// the tile and, with cutout, its pass probabilities
+size_t tile_smem(bool cut) { return sizeof(float) * TILE * (TRI_ROWS + (cut ? 1 : 0)); }
 
 unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
+
+// f(std::true_type{}) or f(std::false_type{}): a runtime flag to a
+// template argument (decltype(flag)::value inside f)
+template <typename F>
+int with_flag(bool v, F&& f) {
+  return v ? f(std::true_type{}) : f(std::false_type{});
+}
 
 }  // namespace
 
 // the launch configuration of an entry point below: one thread per ray
 #define CONFIG(SMEM) <<<grid(n_rays), THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>
+// the compile-time value of a flag passed through with_flag
+#define V(flag) decltype(flag)::value
 
 extern "C" {
 
+// Every entry point launches on `stream` and returns a cudaError_t code
+// (0 = launched). Resident tables are [n_tris, ld] (ld 32, or 48 with
+// tangent rows; 36 or 52 with the cutout columns); walk tables carry their
+// row length (40, or 56). `adv` and `cut` pick the branches.
+
+#if PART(0)
 const char* gatling_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Every entry point launches on `stream` and returns a cudaError_t code
-// (0 = launched). Resident tables are [n_tris, ld] (ld 32, or 48 with
-// tangent rows); walk tables carry their row length (40, or 56).
+// The traversals' cutout draws for n (key, triangle id) pairs, as the
+// searches compute them (ops/bounce.py cutout_draws checks them against
+// the twin's cutout_xi).
+int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
+                         long long n_rays, void* stream) {
+  if (n_rays <= 0) return 0;
+  cutout_draws_kernel CONFIG(0)(keys, ids, out, n_rays);
+  return (int)cudaGetLastError();
+}
 
 // K1: one bounce over state [16, n_rays] in place.
 int gatling_bounce_step(const float* params, const float* tris, int n_tris, int ld,
                         const float* mats, int n_mats, const float* lights,
                         const int8_t* light_types, int n_lights, float* state,
-                        long long n_rays, int nee, void* stream) {
+                        long long n_rays, int nee, int adv, int cut, void* stream) {
   if (n_rays <= 0) return 0;
-  const size_t smem = TILE_SMEM + table_smem(n_mats, n_lights);
-  int err;
-#define K1(NEE_)                                                                           \
-  if ((err = allow_smem(bounce_kernel<NEE_>, smem))) return err;                           \
-  bounce_kernel<NEE_> CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights,         \
-                                   light_types, n_lights, state, n_rays)
-  if (nee) {
-    K1(true);
-  } else {
-    K1(false);
-  }
-#undef K1
-  return (int)cudaGetLastError();
+  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
+  return with_flag(nee, [&](auto nee_) {
+    return with_flag(adv, [&](auto adv_) {
+      return with_flag(cut, [&](auto cut_) {
+        auto kern = bounce_kernel<V(nee_), V(adv_), V(cut_)>;
+        if (int err = allow_smem(kern, smem)) return err;
+        kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types, n_lights,
+                          state, n_rays);
+        return (int)cudaGetLastError();
+      });
+    });
+  });
 }
+
+// K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
+int gatling_trace_resident(const float* params, const float* tris, int n_tris, int ld,
+                           const float* state, long long n_rays, float* hit, int cut,
+                           void* stream) {
+  if (n_rays <= 0) return 0;
+  const bool tan = ld >= TRI_ROWS_TAN;
+  return with_flag(tan, [&](auto tan_) {
+    return with_flag(cut, [&](auto cut_) {
+      trace_kernel<V(tan_), V(cut_)> CONFIG(tile_smem(cut))(params, tris, n_tris, ld, state,
+                                                            n_rays, hit);
+      return (int)cudaGetLastError();
+    });
+  });
+}
+
+// K4, resident: shade state [16, n_rays] in place from the hit buffer and
+// the parameter buffer, whose rows pb/pe/pm/pr hold base colour, emission,
+// metallic and roughness (-1: from the material table); hit_tan: the hit
+// buffer has the tangent rows.
+int gatling_shade_resident(const float* params, const float* tris, int n_tris, int ld,
+                           const float* mats, int n_mats, const float* lights,
+                           const int8_t* light_types, int n_lights, float* state,
+                           long long n_rays, const float* hit, const float* par, int pb,
+                           int pe, int pm, int pr, int hit_tan, int nee, int adv, int cut,
+                           void* stream) {
+  if (n_rays <= 0) return 0;
+  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
+  return with_flag(nee, [&](auto nee_) {
+    return with_flag(adv, [&](auto adv_) {
+      return with_flag(cut, [&](auto cut_) {
+        auto kern = shade_kernel<V(nee_), V(adv_), V(cut_)>;
+        if (int err = allow_smem(kern, smem)) return err;
+        kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types, n_lights,
+                          state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);
+        return (int)cudaGetLastError();
+      });
+    });
+  });
+}
+#endif
 
 #define WALK_TABLES                                                                     \
   const float *tris, const float *l1, const float *l2, const int *cmap, const float *inst, \
       const float *nodes, const int *kids, const int *leaf_entries, const float *gbox,     \
       int instanced, int rows
 #define WALK_STRUCT {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox}
-// the launch LAUNCH(nee, instanced, tangents) of the walk variant that
-// matches the runtime flags (tangent rows: rows == 56)
-#define WALK_VARIANTS(LAUNCH, NEE)                              \
-  do {                                                          \
-    const bool tan_ = rows == CLU_ROWS_TAN;                     \
-    if (NEE) {                                                  \
-      if (instanced && tan_) { LAUNCH(true, true, true); }      \
-      else if (instanced) { LAUNCH(true, true, false); }        \
-      else if (tan_) { LAUNCH(true, false, true); }             \
-      else { LAUNCH(true, false, false); }                      \
-    } else {                                                    \
-      if (instanced && tan_) { LAUNCH(false, true, true); }     \
-      else if (instanced) { LAUNCH(false, true, false); }       \
-      else if (tan_) { LAUNCH(false, false, true); }            \
-      else { LAUNCH(false, false, false); }                     \
-    }                                                           \
-  } while (0)
 
-// K2: one bounce over state [16, n_rays] in place through the two-level walk.
-int gatling_bounce_walk(const float* params, WALK_TABLES, const float* mats, int n_mats,
-                        const float* lights, const int8_t* light_types, int n_lights,
-                        float* state, long long n_rays, int nee, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Walk w = WALK_STRUCT;
-  const size_t smem = table_smem(n_mats, n_lights);
-  int err;
-#define K2(NEE_, INST_, TAN_)                                                              \
-  if ((err = allow_smem(walk_kernel<NEE_, INST_, TAN_>, smem))) return err;                \
-  walk_kernel<NEE_, INST_, TAN_> CONFIG(smem)(params, w, mats, n_mats, lights, light_types, \
-                                              n_lights, state, n_rays)
-  WALK_VARIANTS(K2, nee);
-#undef K2
-  return (int)cudaGetLastError();
-}
-
-// K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
-int gatling_trace_resident(const float* params, const float* tris, int n_tris, int ld,
-                           const float* state, long long n_rays, float* hit, void* stream) {
-  if (n_rays <= 0) return 0;
-  if (ld == TRI_ROWS_TAN) {
-    trace_kernel<true> CONFIG(TILE_SMEM)(params, tris, n_tris, ld, state, n_rays, hit);
-  } else {
-    trace_kernel<false> CONFIG(TILE_SMEM)(params, tris, n_tris, ld, state, n_rays, hit);
-  }
-  return (int)cudaGetLastError();
-}
-
+#if PART(0)
 // K3 over the walk.
 int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, long long n_rays,
-                       float* hit, void* stream) {
+                       float* hit, int cut, void* stream) {
   if (n_rays <= 0) return 0;
   const Walk w = WALK_STRUCT;
-#define K3(NEE_, INST_, TAN_) trace_walk_kernel<INST_, TAN_> CONFIG(0)(params, w, state, n_rays, hit)
-  WALK_VARIANTS(K3, false);
-#undef K3
-  return (int)cudaGetLastError();
+  return with_flag(instanced, [&](auto inst_) {
+    return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {
+      return with_flag(cut, [&](auto cut_) {
+        trace_walk_kernel<V(inst_), V(tan_), V(cut_)> CONFIG(0)(params, w, state, n_rays, hit);
+        return (int)cudaGetLastError();
+      });
+    });
+  });
 }
+#endif
 
-// K4, resident: shade state [16, n_rays] in place from the hit buffer and
-// the parameter buffer, whose rows pb/pe/pm/pr hold base colour, emission,
-// metallic and roughness (-1: from the material table).
-int gatling_shade_resident(const float* params, const float* tris, int n_tris, int ld,
-                           const float* mats, int n_mats, const float* lights,
-                           const int8_t* light_types, int n_lights, float* state,
-                           long long n_rays, const float* hit, const float* par, int pb,
-                           int pe, int pm, int pr, int nee, void* stream) {
-  if (n_rays <= 0) return 0;
-  const size_t smem = TILE_SMEM + table_smem(n_mats, n_lights);
-  int err;
-#define K4(NEE_)                                                                           \
-  if ((err = allow_smem(shade_kernel<NEE_>, smem))) return err;                            \
-  shade_kernel<NEE_> CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights,          \
-                                  light_types, n_lights, state, n_rays, hit, par, pb, pe,  \
-                                  pm, pr)
-  if (nee) {
-    K4(true);
-  } else {
-    K4(false);
+// K2: one bounce over state [16, n_rays] in place through the two-level
+// walk, NEE off (gatling_bounce_walk) or on (gatling_bounce_walk_nee).
+#define BOUNCE_WALK(NAME, NEE_)                                                               \
+  int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
+           const float* lights, const int8_t* light_types, int n_lights, float* state,        \
+           long long n_rays, int adv, int cut, void* stream) {                                \
+    if (n_rays <= 0) return 0;                                                                \
+    const Walk w = WALK_STRUCT;                                                               \
+    const size_t smem = table_smem(n_mats, n_lights);                                         \
+    return with_flag(instanced, [&](auto inst_) {                                             \
+      return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                                 \
+        return with_flag(adv, [&](auto adv_) {                                                \
+          return with_flag(cut, [&](auto cut_) {                                              \
+            auto kern = walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_)>;               \
+            if (int err = allow_smem(kern, smem)) return err;                                 \
+            kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights, state,  \
+                              n_rays);                                                        \
+            return (int)cudaGetLastError();                                                   \
+          });                                                                                 \
+        });                                                                                   \
+      });                                                                                     \
+    });                                                                                       \
   }
-#undef K4
-  return (int)cudaGetLastError();
-}
 
-// K4 over the walk.
-int gatling_shade_walk(const float* params, WALK_TABLES, const float* mats, int n_mats,
-                       const float* lights, const int8_t* light_types, int n_lights,
-                       float* state, long long n_rays, const float* hit, const float* par,
-                       int pb, int pe, int pm, int pr, int nee, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Walk w = WALK_STRUCT;
-  const size_t smem = table_smem(n_mats, n_lights);
-  int err;
-#define K4(NEE_, INST_, TAN_)                                                              \
-  if ((err = allow_smem(shade_walk_kernel<NEE_, INST_, TAN_>, smem))) return err;          \
-  shade_walk_kernel<NEE_, INST_, TAN_> CONFIG(smem)(params, w, mats, n_mats, lights,       \
-                                                    light_types, n_lights, state, n_rays,  \
-                                                    hit, par, pb, pe, pm, pr)
-  WALK_VARIANTS(K4, nee);
-#undef K4
-  return (int)cudaGetLastError();
-}
+// K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee).
+#define SHADE_WALK(NAME, NEE_)                                                                \
+  int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
+           const float* lights, const int8_t* light_types, int n_lights, float* state,        \
+           long long n_rays, const float* hit, const float* par, int pb, int pe, int pm,      \
+           int pr, int hit_tan, int adv, int cut, void* stream) {                             \
+    if (n_rays <= 0) return 0;                                                                \
+    const Walk w = WALK_STRUCT;                                                               \
+    const size_t smem = table_smem(n_mats, n_lights);                                         \
+    return with_flag(instanced, [&](auto inst_) {                                             \
+      return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                                 \
+        return with_flag(adv, [&](auto adv_) {                                                \
+          return with_flag(cut, [&](auto cut_) {                                              \
+            auto kern = shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_)>;         \
+            if (int err = allow_smem(kern, smem)) return err;                                 \
+            kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights, state,  \
+                              n_rays, hit, par, pb, pe, pm, pr, hit_tan);                     \
+            return (int)cudaGetLastError();                                                   \
+          });                                                                                 \
+        });                                                                                   \
+      });                                                                                     \
+    });                                                                                       \
+  }
+
+#if PART(1)
+BOUNCE_WALK(gatling_bounce_walk, false)
+#endif
+#if PART(2)
+BOUNCE_WALK(gatling_bounce_walk_nee, true)
+#endif
+#if PART(3)
+SHADE_WALK(gatling_shade_walk, false)
+#endif
+#if PART(4)
+SHADE_WALK(gatling_shade_walk_nee, true)
+#endif
 
 }  // extern "C"

@@ -3,6 +3,7 @@
     python -m gatling_tpu_torch.frame_profile                        # sphere_field
     python -m gatling_tpu_torch.frame_profile --scene interior       # textured interior
     python -m gatling_tpu_torch.frame_profile --scene cornell_aovs   # the wavefront
+    python -m gatling_tpu_torch.frame_profile --scene glass_coated   # the advanced lobes
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
 4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
@@ -21,6 +22,14 @@ or copy ran; and the eight PyTorch kernels that took the most of the
 rest. For the textured interior also the texture stage's time in
 that frame: CUDA events around each call of render/fused.py
 material_rows (its kernels and the gaps between them).
+
+glass_coated is tests/graphical/Materials.GlassCoated at the JAX bench's
+settings (1200x1200, 16 spp, 8 bounces, NEE off): K1 with the advanced
+lobes (thick glass, clearcoat). It is profiled as above, then with the
+lobes off (the glass thin-walled, the coat removed: the plain K1), and
+then K1's two branches are timed on the same first wave (1200x1200 x 2
+samples) and the same tables, the advanced one against the plain one
+(the scene's flag cleared), in turns with CUDA events.
 """
 
 from __future__ import annotations
@@ -73,11 +82,86 @@ def _cornell_aovs():
                              render_settings=merged)
 
 
+GLASS_RES, GLASS_SPP, GLASS_BOUNCES = 1200, 16, 8  # the bench's glass_coated (bench.py:40-54)
+
+
+def _glass_coated(lobes: bool):
+    """Materials.GlassCoated at the bench's settings; without `lobes` the
+    glass is thin-walled and the coat removed, which the plain K1 shades."""
+    import os
+
+    from gatling_tpu_torch.scene.stage import load_scene
+    from gatling_tpu_torch.utils.config import default_settings
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                        "graphical", "Materials.GlassCoated", "scene.usda")
+    desc = load_scene(path)
+    if not lobes:
+        for m in desc.materials.values():
+            inputs = m.nodes[m.surface_node].inputs
+            inputs.pop("clearcoat", None)
+            if "transmission_weight" in inputs:
+                inputs["geometry_thin_walled"] = True
+    scene = gi.create_scene("cuda")
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    settings = default_settings()
+    settings.update(desc.render_settings)
+    settings.update(spp=GLASS_SPP, maxBounces=GLASS_BOUNCES, nextEventEstimation=False)
+    return gi.GiRenderParams(
+        scene=scene, camera=desc.first_camera(),
+        aov_bindings=[gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(GLASS_RES, GLASS_RES, 4))],
+        render_settings=settings)
+
+
+def _k1_branches(params) -> None:
+    """K1's advanced and plain branches on the first wave of a rendered
+    scene's frame and its tables, in turns (advanced, plain, plain,
+    advanced), seven CUDA-event-timed launches each on fresh copies."""
+    from gatling_tpu_torch.ops import sampling as smp
+    from gatling_tpu_torch.ops.bounce import bounce_step, make_params, pack_state
+    from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
+    from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
+
+    fs = params.scene._fused
+    res = params.aov_bindings[0].render_buffer.width
+    pix = torch.arange(res * res, device="cuda").repeat(2)
+    sidx = torch.arange(2, device="cuda").repeat_interleave(res * res)
+    cam = camera_uniforms(params.camera, False, "cuda")
+    o, d, rng = generate_primary_rays(cam, res, res, pix % res, pix // res,
+                                      smp.rng_init(pix, sidx), True, True, False)
+    wave = pack_state(o, d, rng, pix.numel())
+    uni = Uniforms(cam, 0, 1.0, 10.0, 0.95, 1.0, 1.0, 7)
+    p0 = make_params(RenderConfig(res, res), uni, 1, "cuda")[0].contiguous()
+    times = {True: [], False: []}
+    for adv in (True, False, False, True):
+        tables = fs._replace(advanced=adv)
+        for _ in range(8):
+            s = wave.clone()
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            bounce_step(p0, tables, s, False)
+            b.record()
+            torch.cuda.synchronize()
+            times[adv].append(a.elapsed_time(b))
+        times[adv].pop(-8)  # each turn's first launch warms up
+    print(f"  K1 on the first wave ({wave.shape[1]} rays, {fs.tris.shape[0]} triangles): advanced "
+          f"branch median {statistics.median(times[True]):.4f} ms, plain branch "
+          f"{statistics.median(times[False]):.4f} ms (7 launches a turn, two turns each)")
+
+
 def _params(scene_name: str, nee: bool, tex_dir: str):
     from gatling_tpu_torch.scene.examples import interior, sphere_field
 
     if scene_name == "cornell_aovs":
         return _cornell_aovs()
+    if scene_name.startswith("glass_coated"):
+        return _glass_coated(lobes=scene_name == "glass_coated")
     desc = interior(tex_dir=tex_dir) if scene_name == "interior" else sphere_field()
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
@@ -180,18 +264,24 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
         ms, calls = _stage_ms(params)
         print(f"  texture stage (CUDA events around material_rows, one more frame): {ms:.3f} ms "
               f"in {calls} calls")
+    if scene_name == "glass_coated":
+        _k1_branches(params)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs"),
-                    default="sphere_field")
+    ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
+                                        "glass_coated"), default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device; the port's timings come from the card")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     with tempfile.TemporaryDirectory(prefix="frame_profile_tex_") as tex_dir:
+        if args.scene == "glass_coated":
+            for name in ("glass_coated", "glass_coated_lobes_off"):
+                profile(name, False, tex_dir)
+            return 0
         for nee in ((False, True) if args.scene == "sphere_field" else (True,)):
             profile(args.scene, nee, tex_dir)
     return 0

@@ -9,17 +9,21 @@ framebuffer is invalidated, Gi.cpp:2125-2129,2515).
 The port renders on one device through one of two paths, chosen as the
 JAX package chooses (gatling_tpu/gi.py:650-700):
 
-* the fused bounce kernels, for a COLOR request of a cutout-free scene
-  of any size, instanced or not, untextured or with 8-bit UsdUVTexture
-  textures and normal maps. Above 4096 triangles a scene takes the
+* the fused bounce kernels, for a COLOR request of a scene of any size,
+  instanced or not, untextured or with 8-bit UsdUVTexture textures and
+  normal maps, with the full lobe set (refraction, clearcoat, anisotropy)
+  and untextured cutout opacity. Above 4096 triangles a scene takes the
   two-level walk, in instance tables when the JAX package's rule picks
   them (ops/bounce.py MIN_GAIN), else in flattened clustered tables. An
   untextured scene runs one kernel a bounce (K1 resident, K2 walk); a
-  textured one the split bounce (K3 trace, the texture stage, K4 shade);
+  textured or anisotropic one the split bounce (K3 trace, the texture
+  stage, K4 shade: anisotropy's frame is the mesh tangent of the hit
+  buffer's tangent rows);
 * the wavefront integrator (render/integrator.py) when an AOV outside
   FUSED_AOV_MASK is bound, or a material reads per-vertex colours: every
-  AOV, traced by the brute-force kernels K5 (closest hit) and K6 (shadow
-  rays) for scenes of at most 8192 triangles (`_choose_tracer`).
+  AOV and cutout (textured too), traced by the brute-force kernels K5
+  (closest hit) and K6 (shadow rays) for scenes of at most 8192 triangles
+  (`_choose_tracer`).
 
 `render` raises NotImplementedError, naming the ROADMAP item, for anything
 else; it never renders something else.
@@ -40,10 +44,10 @@ from gatling_tpu_torch.ops.bounce import (
     FusedScene,
     FusedStatic,
     UniqueClusters,
+    aniso_from_table,
     build_fused_scene_instanced,
     build_fused_scene_with_order,
     check_slice,
-    real_triangles,
     refit_instanced,
 )
 from gatling_tpu_torch.ops.geometry import (
@@ -259,6 +263,7 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
         has_volumes=any(any(c > 0.0 for c in m.params["volume_absorption"])
                         or any(c > 0.0 for c in m.params["volume_scattering"])
                         for m in scene._lowered_materials),
+        has_cutout=any(m.traits.has_cutout for m in scene._lowered_materials),
     )
 
 
@@ -301,13 +306,13 @@ def _check_route(params: GiRenderParams, config: RenderConfig, wavefront: bool) 
     if int(params.render_settings.get("parallelDevices", 1) or 1) > 1:
         raise NotImplementedError(
             "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
-    opacity_textures = any("opacity" in m.textures for m in scene._lowered_materials)
+    if config.has_volumes:
+        raise NotImplementedError(
+            "volume absorption and scattering are not ported yet (ROADMAP: 'USD content', "
+            "with the MDL front end that produces them)")
     if wavefront:
-        if opacity_textures:
-            raise NotImplementedError("cutout in the wavefront integrator is not ported yet "
-                                      "(ROADMAP: 'Lobes, media and cutout')")
-        check_slice(scene._geom, scene._material_table, real_triangles(scene._geom))
         return
+    opacity_textures = any("opacity" in m.textures for m in scene._lowered_materials)
     if config.aov_mask != aov_bit(AovId.COLOR):
         raise NotImplementedError(
             "the fused path renders the COLOR AOV only; its first-hit AOVs ride the split "
@@ -324,9 +329,11 @@ def _textured(scene: GiScene) -> bool:
 
 
 def _with_split(scene: GiScene, static: FusedStatic) -> FusedStatic:
-    """The static of a textured scene names its textured parameters: it
-    renders through the split bounce."""
-    if not _textured(scene):
+    """The static of a textured or anisotropic scene names its textured
+    parameters: it renders through the split bounce, whose hit buffer
+    carries the mesh tangents that frame anisotropy (gatling_tpu/gi.py
+    :681-686, :748-756; an untextured one with the empty texture pool)."""
+    if not (_textured(scene) or aniso_from_table(scene._material_table)):
         return static
     return dataclasses.replace(static, textured=True,
                                textured_params=textured_params(scene._lowered_materials))
@@ -346,7 +353,7 @@ def _build_fused(scene: GiScene) -> None:
     """The fused tables (gatling_tpu/gi.py:706-756): instance tables
     first, the flattened build when the scene does not take them."""
     table = _fused_mat_table(scene)
-    check_slice(scene._geom, table, real_triangles(scene._geom))
+    check_slice(table)
     scene._clusters = UniqueClusters()
     res = build_fused_scene_instanced(scene.meshes, scene._material_index, table,
                                       scene._light_arrays, scene.device,

@@ -15,8 +15,15 @@ layouts, as in the JAX package:
   the card a binary BVH over the level-1 entry boxes (the TLAS, built
   here) replaces the TPU's per-block walk plan.
 
-Normal-mapped scenes add per-corner tangent rows to either layout
-(`uses_tangents`). `bounce_step` runs one bounce of an untextured scene;
+Normal-mapped and anisotropic scenes add per-corner tangent rows to either
+layout (`uses_tangents`). Two flags, set by the builders from the material
+table as the JAX package's FusedStatic sets them, ride the FusedScene and
+select the kernels' branches: `advanced` (a material needs the full lobe
+set: thick refraction, clearcoat or anisotropy) and `cutout` (a triangle's
+untextured opacity lets rays through: the resident table appends two
+pass-probability columns, the clustered rows carry CLU_OPAC /
+CLU_OPAC_SH, the instance rows INST_PASS / INST_PASS_SH). `bounce_step`
+runs one bounce of an untextured scene;
 a textured scene splits it into `trace_step` (the hit buffer) and
 `shade_step`, with the texture stage between (render/fused.py). Each runs:
 
@@ -55,7 +62,10 @@ from gatling_tpu_torch.ops.bounce_ref import (
     CLU_TRI_ROWS,
     CLU_TRI_ROWS_TAN,
     CLUSTER_SIZE,
+    CUTOUT_PAD,
     INST_COLS,
+    INST_PASS,
+    INST_PASS_SH,
     L1_FAN,
     LIGHT_COLS,
     LT_DISK,
@@ -83,6 +93,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TRI_ROWS_TAN,
     WalkTables,
     bounce_ref,
+    cutout_xi,
 )
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry
@@ -103,6 +114,8 @@ from gatling_tpu_torch.render.material import (
     MF_OPACITY_THRESH,
     MF_THIN,
     MF_TRANS,
+    MF_VOL_A,
+    MF_VOL_S,
     MaterialTable,
 )
 from gatling_tpu_torch.scene.meshproc import materialize_mesh
@@ -121,6 +134,7 @@ CLU_VMEM_MAX_BYTES = 56 * 1024 * 1024
 SMEM_TABLE_MAX_BYTES = 48 * 1024
 TLAS_LEAF = 2      # level-1 entries per TLAS leaf
 TLAS_MAX_DEPTH = 48  # the kernel's traversal stack holds 64 nodes
+BOUNCE_PARTS = 5  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
 
@@ -136,6 +150,8 @@ class FusedScene(NamedTuple):
     lights: torch.Tensor       # [max(L,1), 20] f32, type-major slots
     light_types: torch.Tensor  # [L] int8 LT_* per slot
     walk: WalkTables | None = None  # clustered and instanced scenes
+    advanced: bool = False     # the full lobe set in the shading
+    cutout: bool = False       # stochastic cutout in the searches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +167,8 @@ class FusedStatic:
     # split-bounce mode (K3, the texture stage, K4): the scene has textures
     textured: bool = False
     textured_params: tuple[str, ...] = ()  # the parameters some material textures
+    advanced: bool = False  # a material needs the full lobe set (FusedScene.advanced)
+    cutout: bool = False    # some triangle's pass probability is below 1
 
     @property
     def clustered(self) -> bool:
@@ -264,10 +282,13 @@ def _light_table(light_arrays: LightArrays | None) -> tuple[np.ndarray, tuple[in
     return build_fused_lights(light_arrays)
 
 
-def tri_rows(geom, tangents: bool = False) -> np.ndarray:
+def tri_rows(geom, tangents: bool = False, cutout_prob: np.ndarray | None = None,
+             shadow_prob: np.ndarray | None = None) -> np.ndarray:
     """Per-triangle kernel rows [T, 32] (Baldwin-Weber precompute), built in
     float64 and stored as f32; [T, 48] with the tangent rows TR_T0..TR_BS
-    of normal-mapped scenes (pallas_bounce.py _tri_rows)."""
+    of normal-mapped scenes; plus the camera and shadow pass-probability
+    columns of a cutout scene, [T, 34] or [T, 50] (pallas_bounce.py
+    _tri_rows, the JAX layout; from_jax_tables pads them)."""
     v0 = np.asarray(geom.v0, np.float64)
     e1 = np.asarray(geom.e1, np.float64)
     e2 = np.asarray(geom.e2, np.float64)
@@ -288,7 +309,8 @@ def tri_rows(geom, tangents: bool = False) -> np.ndarray:
     degen = np.abs(n).sum(axis=1) == 0.0
     n = np.where(degen[:, None], 0.0, n)
 
-    rows = np.zeros((v0.shape[0], TRI_ROWS_TAN if tangents else TRI_ROWS), np.float32)
+    base = TRI_ROWS_TAN if tangents else TRI_ROWS
+    rows = np.zeros((v0.shape[0], base + (2 if cutout_prob is not None else 0)), np.float32)
     rows[:, TR_N:TR_N + 3] = n
     rows[:, TR_D0] = d0
     rows[:, TR_R1:TR_R1 + 3] = r1
@@ -309,6 +331,9 @@ def tri_rows(geom, tangents: bool = False) -> np.ndarray:
         rows[:, TR_T1:TR_T1 + 3] = geom.t1
         rows[:, TR_T2:TR_T2 + 3] = geom.t2
         rows[:, TR_BS:TR_BS + 3] = geom.bsign
+    if cutout_prob is not None:
+        rows[:, base] = cutout_prob
+        rows[:, base + 1] = cutout_prob if shadow_prob is None else shadow_prob
     return rows
 
 
@@ -323,25 +348,39 @@ def _material_pass(table: MaterialTable) -> np.ndarray:
     return np.where(table.opacity_tex >= 0, 1.0, per_mat).astype(np.float32)
 
 
-def uses_tangents(table: MaterialTable) -> bool:
-    """Tangent rows ride the tables when a material binds a normal map
-    (pallas_bounce.py :663)."""
-    return bool((table.normal_tex >= 0).any())
-
-
-def check_slice(geom: SceneGeometry, table: MaterialTable, n_real: int) -> None:
-    """Raise on scene content the ported kernels do not cover."""
-    pf = table.packed_f
+def advanced_from_table(table: MaterialTable) -> bool:
+    """A material needs the full lobe set: thick refractive transmission,
+    clearcoat or anisotropy (pallas_bounce.py _advanced_from_table)."""
+    pf = np.asarray(table.packed_f)
     thick = (pf[:, MF_TRANS] > 0.0) & (pf[:, MF_THIN] < 0.5)
-    if thick.any() or (pf[:, MF_COAT] > 0.0).any() or (pf[:, MF_ANISO] != 0.0).any():
+    return bool(thick.any() or (pf[:, MF_COAT] > 0.0).any() or aniso_from_table(table))
+
+
+def aniso_from_table(table: MaterialTable) -> bool:
+    return bool((np.asarray(table.packed_f)[:, MF_ANISO] != 0.0).any())
+
+
+def uses_tangents(table: MaterialTable) -> bool:
+    """Tangent rows ride the tables when a material binds a normal map or
+    is anisotropic, whose frame is the mesh tangent (pallas_bounce.py
+    :661-664)."""
+    return bool((np.asarray(table.normal_tex) >= 0).any() or aniso_from_table(table))
+
+
+def has_volumes(table: MaterialTable) -> bool:
+    """Some material has absorption or scattering coefficients."""
+    pf = np.asarray(table.packed_f)
+    return bool((pf[:, MF_VOL_A:MF_VOL_A + 3] > 0.0).any()
+                or (pf[:, MF_VOL_S:MF_VOL_S + 3] > 0.0).any())
+
+
+def check_slice(table: MaterialTable) -> None:
+    """Raise on scene content the ported kernels do not cover: volume
+    coefficients, which only the MDL front end produces."""
+    if has_volumes(table):
         raise NotImplementedError(
-            "refraction, clearcoat and anisotropy lobes are not ported yet "
-            "(ROADMAP: 'Lobes, media and cutout')")
-    mid = np.clip(np.asarray(geom.material_id[:n_real]), 0, pf.shape[0] - 1)
-    if (_material_pass(table)[mid] < 1.0).any():
-        raise NotImplementedError(
-            "cutout opacity is not ported yet, in the resident table or in "
-            "the walks (ROADMAP: 'Lobes, media and cutout')")
+            "volume absorption and scattering are not ported yet (ROADMAP: 'USD content', "
+            "with the MDL front end that produces them)")
 
 
 def real_triangles(geom: SceneGeometry) -> int:
@@ -372,22 +411,28 @@ def build_fused_scene_with_order(
     re-sorting."""
     n_real = real_triangles(geom)
     geom = SceneGeometry(*[arr[:n_real] for arr in geom])
-    check_slice(geom, table, n_real)
+    check_slice(table)
     light_table, light_types = _light_table(light_arrays)
     tangents = uses_tangents(table)
+    advanced = advanced_from_table(table)
+    mid = np.clip(np.asarray(geom.material_id), 0, table.packed_f.shape[0] - 1)
+    pass_prob = _material_pass(table)[mid]
+    cutout = bool((pass_prob < 1.0).any())
     if n_real <= resident_max:
-        scene = from_jax_tables(tri_rows(geom, tangents).T, table.packed_f, light_table,
-                                light_types, device)
-        return scene, FusedStatic(n_tris=n_real, light_types=light_types,
-                                  tangents=tangents), None
+        rows = tri_rows(geom, tangents, pass_prob if cutout else None)
+        scene = from_jax_tables(rows.T, table.packed_f, light_table, light_types, device,
+                                advanced=advanced, cutout=cutout)
+        return scene, FusedStatic(n_tris=n_real, light_types=light_types, tangents=tangents,
+                                  advanced=advanced, cutout=cutout), None
 
     order = reuse_order if reuse_order is not None else median_split_order(geom, n_real)
     arrays = clustered_arrays(geom, table, order)
     n_clusters = -(-n_real // CLUSTER_SIZE)
     scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
-                            l1=arrays.l1, l2=arrays.l2)
+                            l1=arrays.l1, l2=arrays.l2, advanced=advanced, cutout=cutout)
     static = FusedStatic(n_tris=n_real, light_types=light_types, n_clusters=n_clusters,
-                         n_l1=arrays.l1.shape[1], tangents=tangents)
+                         n_l1=arrays.l1.shape[1], tangents=tangents, advanced=advanced,
+                         cutout=cutout)
     return scene, static, order
 
 
@@ -628,8 +673,9 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
         inst_attr[e, 15] = inst["ds"]
     arrays = ClusterArrays(tris=tris, l1=l1, l2=l2, inst_smem=inst_smem, inst_map=inst_map,
                            inst_attr=inst_attr)
+    cutout = bool((inst_smem[:, 12] < 1.0).any() or (inst_smem[:, 14] < 1.0).any())
     return arrays, dict(n_tris=flat_tris, n_clusters=uc, n_l1=n_l1, n_instances=len(insts),
-                        tangents=tangents)
+                        tangents=tangents, advanced=advanced_from_table(table), cutout=cutout)
 
 
 def build_fused_scene_instanced(mesh_descs, material_index: dict, table: MaterialTable,
@@ -645,7 +691,8 @@ def build_fused_scene_instanced(mesh_descs, material_index: dict, table: Materia
     light_table, light_types = _light_table(light_arrays)
     scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
                             l1=arrays.l1, l2=arrays.l2, inst_map=arrays.inst_map,
-                            inst_attr=arrays.inst_attr)
+                            inst_attr=arrays.inst_attr, inst_smem=arrays.inst_smem,
+                            advanced=counts["advanced"], cutout=counts["cutout"])
     return scene, FusedStatic(light_types=light_types, **counts)
 
 
@@ -658,8 +705,10 @@ def refit_instanced(scene: FusedScene, clusters: UniqueClusters, mesh_descs,
     res = instanced_arrays(mesh_descs, material_index, table, clusters=clusters)
     if res is None:
         return None
-    a, _counts = res
-    return scene._replace(walk=walk_tables(a.l1, a.l2, a.inst_map, a.inst_attr, scene.tris.device))
+    a, counts = res
+    return scene._replace(walk=walk_tables(a.l1, a.l2, a.inst_map, a.inst_attr,
+                                           scene.tris.device, a.inst_smem),
+                          cutout=counts["cutout"])
 
 
 def build_tlas(lo: np.ndarray, hi: np.ndarray, leaf: int = TLAS_LEAF):
@@ -700,9 +749,12 @@ def build_tlas(lo: np.ndarray, hi: np.ndarray, leaf: int = TLAS_LEAF):
 
 
 def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
-                inst_attr: np.ndarray | None, device) -> WalkTables:
+                inst_attr: np.ndarray | None, device,
+                inst_smem: np.ndarray | None = None) -> WalkTables:
     """WalkTables from the JAX layout's l1 [8, n_l1], l2 [8, n_l1 * 16] and,
-    when instanced, inst_map [n_l1 * 16] and inst_attr [lanes, 24]."""
+    when instanced, inst_map [n_l1 * 16], inst_attr [lanes, 24] and the
+    pass probabilities of inst_smem [n_l1, 16] (columns 12 and 14; 1 when
+    not given)."""
     n_l1 = l1.shape[1]
     l1_rows = np.ascontiguousarray(np.asarray(l1, np.float32).T)
     valid_lo = np.where(l1_rows[:, 0:3] <= 1e30, l1_rows[:, 0:3], FLOAT_MAX)
@@ -716,7 +768,12 @@ def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
         inst = np.zeros((0, INST_COLS), np.float32)
     else:
         cmap = np.asarray(inst_map, np.int32)
-        inst = np.asarray(inst_attr, np.float32)[:n_l1, :INST_COLS]
+        inst = np.zeros((n_l1, INST_COLS), np.float32)
+        inst[:, :INST_PASS] = np.asarray(inst_attr, np.float32)[:n_l1, :INST_PASS]
+        inst[:, INST_PASS:INST_PASS_SH + 1] = 1.0
+        if inst_smem is not None:
+            inst[:, INST_PASS] = np.asarray(inst_smem, np.float32)[:n_l1, 12]
+            inst[:, INST_PASS_SH] = np.asarray(inst_smem, np.float32)[:n_l1, 14]
 
     def t(a, dtype=torch.float32):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -729,18 +786,23 @@ def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
 def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
                     light_types: tuple[int, ...], device, l1: np.ndarray | None = None,
                     l2: np.ndarray | None = None, inst_map: np.ndarray | None = None,
-                    inst_attr: np.ndarray | None = None) -> FusedScene:
+                    inst_attr: np.ndarray | None = None, inst_smem: np.ndarray | None = None,
+                    advanced: bool = False, cutout: bool = False) -> FusedScene:
     """The JAX package's FusedScene arrays as NumPy -> the port's device
-    tables: resident tris [32, T], or clustered tris [C_pad, 40, 128] with
-    l1 and l2 and, when instanced, inst_map and inst_attr (the JAX
-    inst_smem and inst_m24 are not needed)."""
+    tables: resident tris [32, T] ([34, T] or [50, T] with the cutout rows,
+    padded here to a float4 multiple), or clustered tris [C_pad, 40, 128]
+    with l1 and l2 and, when instanced, inst_map, inst_attr and inst_smem
+    (its pass probabilities; the JAX inst_m24 is not needed). `advanced`
+    and `cutout` are the JAX FusedStatic's flags."""
     tris = np.asarray(tris, np.float32)
     walk = None
     if l1 is None:
         rows = tris.T  # [T, 32]
+        if cutout:
+            rows = np.pad(rows, ((0, 0), (0, -rows.shape[1] % CUTOUT_PAD)))
     else:
         rows = tris.transpose(0, 2, 1).reshape(-1, tris.shape[1])  # [C * 128, 40]
-        walk = walk_tables(l1, l2, inst_map, inst_attr, device)
+        walk = walk_tables(l1, l2, inst_map, inst_attr, device, inst_smem)
 
     def t(a):
         return torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
@@ -748,7 +810,7 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
     return FusedScene(tris=t(rows), mats=t(mats), lights=t(lights),
                       light_types=torch.as_tensor(np.asarray(light_types, np.int8),
                                                   device=device),
-                      walk=walk)
+                      walk=walk, advanced=bool(advanced), cutout=bool(cutout))
 
 
 # ---------------------------------------------------------------------------
@@ -818,15 +880,22 @@ class BounceKernel(CudaLibrary):
     def __init__(self) -> None:
         walk = [PTR] * 9 + [I32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
         shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
+        flags = [I32, I32]  # advanced, cutout
+        hit = [PTR, PTR, I32, I32, I32, I32, I32]  # hit, parbuf, 4 parameter rows, hit tangents
+        # the walk kernels take NEE as two entry points (..._nee), which
+        # compile in separate parts
+        bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
+        shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *flags, PTR]
         super().__init__("bounce.cu", {
-            "gatling_bounce_step": [PTR, PTR, I32, I32, *shading, PTR, I64, I32, PTR],
-            "gatling_bounce_walk": [PTR, *walk, I32, *shading, PTR, I64, I32, PTR],
-            "gatling_trace_resident": [PTR, PTR, I32, I32, PTR, I64, PTR, PTR],
-            "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, PTR],
-            "gatling_shade_resident": [PTR, PTR, I32, I32, *shading, PTR, I64, PTR, PTR,
-                                       I32, I32, I32, I32, I32, PTR],
-            "gatling_shade_walk": [PTR, *walk, I32, *shading, PTR, I64, PTR, PTR,
-                                   I32, I32, I32, I32, I32, PTR]}, "gatling_error_string")
+            "gatling_bounce_step": [PTR, PTR, I32, I32, *shading, PTR, I64, I32, *flags, PTR],
+            "gatling_bounce_walk": bounce_walk, "gatling_bounce_walk_nee": bounce_walk,
+            "gatling_trace_resident": [PTR, PTR, I32, I32, PTR, I64, PTR, I32, PTR],
+            "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
+            "gatling_shade_resident": [PTR, PTR, I32, I32, *shading, PTR, I64, *hit, I32,
+                                       *flags, PTR],
+            "gatling_shade_walk": shade_walk, "gatling_shade_walk_nee": shade_walk,
+            "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR]},
+            "gatling_error_string", parts=BOUNCE_PARTS)
 
     @staticmethod
     def _check_shading(mats, lights, light_types):
@@ -851,10 +920,14 @@ class BounceKernel(CudaLibrary):
             raise ValueError("bounce kernel: params or state shape mismatch")
 
     @staticmethod
-    def _resident_args(tris):
+    def _resident_args(tris, cutout: bool):
         _check_bounce("tris", tris, torch.float32)
-        if tris.dim() != 2 or tris.shape[1] not in (TRI_ROWS, TRI_ROWS_TAN):
-            raise ValueError("bounce kernel: resident tris must be [T, 32] or [T, 48]")
+        rows = (TRI_ROWS, TRI_ROWS_TAN)
+        if cutout:
+            rows = tuple(r + CUTOUT_PAD for r in rows)
+        if tris.dim() != 2 or tris.shape[1] not in rows:
+            raise ValueError(f"bounce kernel: resident tris must be [T, {rows[0]}] or "
+                             f"[T, {rows[1]}] (cutout={cutout})")
         return tris.data_ptr(), tris.shape[0], tris.shape[1]
 
     @staticmethod
@@ -867,6 +940,7 @@ class BounceKernel(CudaLibrary):
         if tris.dim() != 2 or tris.shape[1] not in (CLU_TRI_ROWS, CLU_TRI_ROWS_TAN) \
                 or tris.shape[0] % CLUSTER_SIZE or walk.l2.shape[0] != n_l1 * L1_FAN \
                 or walk.cmap.numel() != n_l1 * L1_FAN or walk.inst.shape[0] not in (0, n_l1) \
+                or walk.inst.shape[1] != INST_COLS \
                 or walk.gbox.numel() != 8 or walk.leaf_entries.numel() != n_l1:
             raise ValueError("bounce kernel: walk table shape mismatch")
         return (tris.data_ptr(), *(t.data_ptr() for t in walk), int(walk.instanced),
@@ -887,44 +961,56 @@ class BounceKernel(CudaLibrary):
     def _stream(state):
         return torch.cuda.current_stream(state.device).cuda_stream
 
-    def launch(self, params, tris, mats, lights, light_types, state, nee: bool) -> None:
-        """K1: one bounce over a resident table tris [T, 32 or 48]."""
+    def launch(self, params, tris, mats, lights, light_types, state, nee: bool,
+               advanced: bool = False, cutout: bool = False) -> None:
+        """K1: one bounce over a resident table tris [T, 32 or 48; 36 or 52
+        with the cutout columns]."""
         self._check_state(params, state)
-        self.call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris),
+        self.call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris, cutout),
                    *self._check_shading(mats, lights, light_types),
-                   state.data_ptr(), state.shape[1], int(bool(nee)), self.stream(state))
+                   state.data_ptr(), state.shape[1], int(bool(nee)), int(bool(advanced)),
+                   int(bool(cutout)), self.stream(state))
 
     def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
-                    nee: bool) -> None:
+                    nee: bool, advanced: bool = False, cutout: bool = False) -> None:
         """K2: one bounce over clustered tris [C * 128, 40 or 56] and their walk."""
         self._check_state(params, state)
-        self.call("gatling_bounce_walk", params.data_ptr(), *self._walk_args(tris, walk),
-                   *self._check_shading(mats, lights, light_types),
-                   state.data_ptr(), state.shape[1], int(bool(nee)), self.stream(state))
+        self.call("gatling_bounce_walk_nee" if nee else "gatling_bounce_walk", params.data_ptr(),
+                   *self._walk_args(tris, walk), *self._check_shading(mats, lights, light_types),
+                   state.data_ptr(), state.shape[1], int(bool(advanced)), int(bool(cutout)),
+                   self.stream(state))
 
     def launch_trace(self, params, tris, walk: WalkTables | None, state,
-                     hit: torch.Tensor) -> None:
+                     hit: torch.Tensor, cutout: bool = False) -> None:
         """K3: the hit buffer of every ray of `state` into `hit`."""
         self._check_state(params, state)
         self._check_split(state, hit)
         if walk is None:
-            self.call("gatling_trace_resident", params.data_ptr(), *self._resident_args(tris),
-                       state.data_ptr(), state.shape[1], hit.data_ptr(), self.stream(state))
+            self.call("gatling_trace_resident", params.data_ptr(),
+                       *self._resident_args(tris, cutout), state.data_ptr(), state.shape[1],
+                       hit.data_ptr(), int(bool(cutout)), self.stream(state))
         else:
             self.call("gatling_trace_walk", params.data_ptr(), *self._walk_args(tris, walk),
-                       state.data_ptr(), state.shape[1], hit.data_ptr(), self.stream(state))
+                       state.data_ptr(), state.shape[1], hit.data_ptr(), int(bool(cutout)),
+                       self.stream(state))
 
     def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
-                     state, hit, parbuf, par_rows, nee: bool) -> None:
+                     state, hit, parbuf, par_rows, nee: bool, advanced: bool = False,
+                     cutout: bool = False) -> None:
         """K4: shade `state` in place from the hit and parameter buffers."""
         self._check_state(params, state)
         self._check_split(state, hit, parbuf)
-        geo = self._resident_args(tris) if walk is None else self._walk_args(tris, walk)
-        self.call("gatling_shade_resident" if walk is None else "gatling_shade_walk",
-                   params.data_ptr(), *geo,
-                   *self._check_shading(mats, lights, light_types),
-                   state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
-                   *[int(r) for r in par_rows], int(bool(nee)), self.stream(state))
+        bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
+                *[int(r) for r in par_rows], int(hit.shape[0] == HIT_ROWS_TAN))
+        flags = (int(bool(advanced)), int(bool(cutout)), self.stream(state))
+        shading = self._check_shading(mats, lights, light_types)
+        if walk is None:
+            self.call("gatling_shade_resident", params.data_ptr(),
+                       *self._resident_args(tris, cutout), *shading, *bufs, int(bool(nee)),
+                       *flags)
+        else:
+            self.call("gatling_shade_walk_nee" if nee else "gatling_shade_walk",
+                       params.data_ptr(), *self._walk_args(tris, walk), *shading, *bufs, *flags)
 
 
 _kernel: BounceKernel | None = None
@@ -945,92 +1031,118 @@ def _walk(tensors) -> WalkTables | None:
     return WalkTables(*tensors) if tensors else None
 
 
-def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool) -> None:
-    kernel().launch(params, tris, mats, lights, light_types, state, nee)
+def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
+                 cutout: bool) -> None:
+    kernel().launch(params, tris, mats, lights, light_types, state, nee, advanced, cutout)
     launches["K1"] += 1
 
 
-def _bounce_cpu(params, tris, mats, lights, light_types, state, nee: bool) -> None:
-    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee)
+def _bounce_cpu(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
+                cutout: bool) -> None:
+    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee,
+               advanced=advanced, cutout=cutout)
 
 
 def _walk_cuda(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-               leaf_entries, gbox, state, nee: bool) -> None:
+               leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool) -> None:
     walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
-    kernel().launch_walk(params, tris, mats, lights, light_types, walk, state, nee)
+    kernel().launch_walk(params, tris, mats, lights, light_types, walk, state, nee, advanced,
+                         cutout)
     launches["K2"] += 1
 
 
 def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-              leaf_entries, gbox, state, nee: bool) -> None:
+              leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool) -> None:
     walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
-    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk)
+    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk,
+               advanced, cutout)
 
 
-def _trace_cuda(params, tris, state, walk) -> torch.Tensor:
+def _trace_cuda(params, tris, state, walk, cutout: bool) -> torch.Tensor:
     hit = torch.empty((hit_row_count(has_tangents(tris)), state.shape[1]), dtype=torch.float32,
                       device=state.device)
-    kernel().launch_trace(params, tris, _walk(walk), state, hit)
+    kernel().launch_trace(params, tris, _walk(walk), state, hit, cutout)
     launches["K3"] += 1
     return hit
 
 
-def _trace_cpu(params, tris, state, walk) -> torch.Tensor:
-    return trace_ref(params, tris, state, _walk(walk))
+def _trace_cpu(params, tris, state, walk, cutout: bool) -> torch.Tensor:
+    return trace_ref(params, tris, state, _walk(walk), cutout)
 
 
 def _shade_cuda(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-                nee: bool) -> None:
+                nee: bool, advanced: bool, cutout: bool) -> None:
     kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), state, hit,
-                          parbuf, par_rows, nee)
+                          parbuf, par_rows, nee, advanced, cutout)
     launches["K4"] += 1
 
 
 def _shade_cpu(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-               nee: bool) -> None:
+               nee: bool, advanced: bool, cutout: bool) -> None:
     shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
-              par_rows, nee, _walk(walk))
+              par_rows, nee, _walk(walk), advanced, cutout)
 
 
 _lib = torch.library.Library("gatling", "DEF")
 _lib.define("bounce_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
-            "Tensor light_types, Tensor(a!) state, bool nee) -> ()")
+            "Tensor light_types, Tensor(a!) state, bool nee, bool advanced, bool cutout) -> ()")
 _lib.impl("bounce_step", _bounce_cuda, "CUDA")
 _lib.impl("bounce_step", _bounce_cpu, "CPU")
 _lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor l1, Tensor l2, Tensor cmap, Tensor inst, "
             "Tensor nodes, Tensor kids, Tensor leaf_entries, Tensor gbox, Tensor(a!) state, "
-            "bool nee) -> ()")
+            "bool nee, bool advanced, bool cutout) -> ()")
 _lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
 _lib.impl("bounce_step_walk", _walk_cpu, "CPU")
-_lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk) -> Tensor")
+_lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk, "
+            "bool cutout) -> Tensor")
 _lib.impl("trace_step", _trace_cuda, "CUDA")
 _lib.impl("trace_step", _trace_cpu, "CPU")
 _lib.define("shade_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor[] walk, Tensor hit, Tensor parbuf, int[] par_rows, "
-            "Tensor(a!) state, bool nee) -> ()")
+            "Tensor(a!) state, bool nee, bool advanced, bool cutout) -> ()")
 _lib.impl("shade_step", _shade_cuda, "CUDA")
 _lib.impl("shade_step", _shade_cpu, "CPU")
+
+
+def cutout_draws(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The searches' cutout draws for (key, triangle id) pairs, int32
+    tensors holding uint32 bits: the kernels' device function on CUDA
+    tensors, the twin's cutout_xi on CPU ones. A check of the draws, on no
+    render path (no launch count)."""
+    if not keys.is_cuda:
+        return cutout_xi(keys.long() & 0xFFFFFFFF, ids.long() & 0xFFFFFFFF)
+    for name, t in (("keys", keys), ("ids", ids)):
+        _check_bounce(name, t, torch.int32)
+    if keys.shape != ids.shape or keys.dim() != 1:
+        raise ValueError("cutout_draws: keys and ids must be equal 1-D tensors")
+    out = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
+    k = kernel()
+    k.call("gatling_cutout_draws", keys.data_ptr(), ids.data_ptr(), out.data_ptr(), keys.numel(),
+           k.stream(keys))
+    return out
 
 
 def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
                 nee: bool) -> None:
     """One fused bounce over state [16, R], in place: K1 for a resident
     scene, K2 for a clustered or instanced one, on a CUDA state; the plain
-    twin on a CPU state."""
+    twin on a CPU state. The scene's flags pick the branches."""
+    flags = (bool(nee), bool(scene.advanced), bool(scene.cutout))
     if scene.walk is None:
         torch.ops.gatling.bounce_step(params, scene.tris, scene.mats, scene.lights,
-                                      scene.light_types, state, bool(nee))
+                                      scene.light_types, state, *flags)
     else:
         torch.ops.gatling.bounce_step_walk(params, scene.tris, scene.mats, scene.lights,
-                                           scene.light_types, *scene.walk, state, bool(nee))
+                                           scene.light_types, *scene.walk, state, *flags)
 
 
 def trace_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor) -> torch.Tensor:
     """The split bounce's trace (K3 on a CUDA state, its twin on a CPU
     one): the hit buffer [16, R] ([24, R] with tangent rows) of state
     [16, R] (ops/split_ref.py H_* rows)."""
-    return torch.ops.gatling.trace_step(params, scene.tris, state, list(scene.walk or ()))
+    return torch.ops.gatling.trace_step(params, scene.tris, state, list(scene.walk or ()),
+                                        bool(scene.cutout))
 
 
 def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
@@ -1040,4 +1152,5 @@ def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     from parbuf in the slim layout of `textured_params`."""
     torch.ops.gatling.shade_step(params, scene.tris, scene.mats, scene.lights,
                                  scene.light_types, list(scene.walk or ()), hitbuf, parbuf,
-                                 par_row_starts(textured_params), state, bool(nee))
+                                 par_row_starts(textured_params), state, bool(nee),
+                                 bool(scene.advanced), bool(scene.cutout))

@@ -3,9 +3,12 @@
 One path-tracing bounce over the whole ray state, written with ordinary
 tensor operations, vectorized over rays. It computes what the JAX
 package's `bounce_step` (ops/pallas_bounce.py `_bounce_body` +
-`_shade_core`, flags cutout, volumes, scatter, advanced and tangents all
-off) computes, in the same order of float operations, so the two agree to
-rounding. Two closest-hit searches feed the same shading:
+`_shade_core`, volumes and scatter off) computes, in the same order of float
+operations, so the two agree to rounding. Two flags select branches as the
+JAX FusedStatic does: `advanced` (the full lobe set: thick refraction with
+the exact dielectric Fresnel and TIR, clearcoat, anisotropic GGX) and
+`cutout` (a hash Bernoulli per candidate hit against its pass
+probability, `cutout_xi`). Two closest-hit searches feed the same shading:
 
 * resident (K1): every ray against the whole triangle table, in chunks;
 * clustered and instanced (K2, `walk` given): the two-level walk of
@@ -27,8 +30,10 @@ Layouts shared with the kernels:
   (1 + bounce at which the ray missed), 15 traced-segment count;
 * resident tris [T, 32] f32, triangle-major: Baldwin-Weber plane and
   barycentric rows plus shading attributes (TR_* columns); [T, 48] with
-  the tangent rows of normal-mapped scenes, which only the split trace
-  reads;
+  the tangent rows of normal-mapped and anisotropic scenes, which only the
+  split trace reads; a cutout table appends the camera and shadow pass
+  probabilities (TR_OPAC, then TR_OPAC + 1) and pads its rows to a
+  multiple of 4 floats: [T, 36] or [T, 52];
 * clustered tris [C * 128, 40] f32: 128-triangle clusters, triangle-major
   rows in the CLU_* layout (the JAX package's [C, 40, 128] transposed);
   [C * 128, 56] with tangent rows;
@@ -46,7 +51,14 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX, f32
-from gatling_tpu_torch.ops.sampling import f32_bits_to_u32, pcg32_step, u32_to_f32_bits, uint_as_float
+from gatling_tpu_torch.ops.sampling import (
+    _M32,
+    _mul32,
+    f32_bits_to_u32,
+    pcg32_step,
+    u32_to_f32_bits,
+    uint_as_float,
+)
 
 STATE_ROWS = 16
 PI = 3.14159265358979  # the kernel's constant (the JAX kernel's PI)
@@ -73,6 +85,9 @@ TR_T1 = 35
 TR_T2 = 38
 TR_BS = 41    # 41-43: bitangent signs per corner
 TRI_ROWS_TAN = 48
+# cutout tables: the camera and the shadow walk's pass probability after the
+# rows above (pallas_bounce.py tr_opac_row), padded to a float4 multiple
+CUTOUT_PAD = 4
 
 # clustered layout (pallas_bounce.py CLU_*): a permutation of the TR_*
 # columns in which each Baldwin-Weber quad (n d0 | r1 c1 | r2 c2) starts at
@@ -120,7 +135,9 @@ INST_MAT = 12
 INST_OBJ = 13
 INST_ENTRY = 14
 INST_DS = 15
-INST_COLS = 16
+INST_PASS = 16     # cutout pass probability of the placement, camera walk
+INST_PASS_SH = 17  # and shadow walk (the JAX inst_smem columns 12 and 14)
+INST_COLS = 20     # padded to a float4 multiple
 
 
 class WalkTables(NamedTuple):
@@ -159,8 +176,13 @@ P_METERS = 9
 P_MAX_WALK = 10
 PARAMS_LEN = 11
 
-# material columns the kernel reads (MaterialTable packed_f)
+# material columns the kernel reads (MaterialTable packed_f); the advanced
+# lobe set adds clearcoat, its roughness, anisotropy and its rotation
 _MAT_COLS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 14, 15, 24)
+_ADV_COLS = (26, 27, 28, 29)
+# the shadow walk's cutout key is the ray's PCG word salted with this
+# (pallas_bounce.py :2052), so its draws decorrelate from the camera walk's
+SHADOW_SALT = 0x5BD1E995
 
 _EPS_LO = float(-BARY_EPS)
 _EPS_HI = float(np.float32(1.0) + BARY_EPS)
@@ -175,6 +197,24 @@ def _pcg_next(rng: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _where(c, a, b):
     return torch.where(c, a, b)
+
+
+def tr_opac_col(tris: torch.Tensor) -> int:
+    """The camera pass-probability column of a resident cutout table (the
+    shadow one follows it)."""
+    return TRI_ROWS_TAN if tris.shape[1] >= TRI_ROWS_TAN else TRI_ROWS
+
+
+def cutout_xi(key: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
+    """Per-(ray, triangle) uniform in [0, 1) (pallas_bounce.py _cutout_xi):
+    a murmur-style mix of the ray's PCG word `key` with the global triangle
+    id `tid`, uint32 values in int64 carriers, broadcast. Independent of the
+    path's PCG stream: it takes no draw from it."""
+    h = key ^ _mul32(tid & _M32, 2654435761)
+    h = ((h ^ (h >> 16)) * 0x21F0AAAD) & _M32
+    h = ((h ^ (h >> 15)) * 0x735A2D97) & _M32
+    h = h ^ (h >> 15)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
 def _tri_test(tris: torch.Tensor, o, d, tmin: float):
@@ -197,17 +237,22 @@ def _tri_test(tris: torch.Tensor, o, d, tmin: float):
     return tt, u, v, ok
 
 
-def closest_hit(tris: torch.Tensor, o, d, tmin: float):
+def closest_hit(tris: torch.Tensor, o, d, tmin: float, key: torch.Tensor | None = None):
     """Serial-order closest hit: the first triangle (in table order) with
     the smallest valid t wins, exactly as a loop with a strict `<` test.
-    Returns best_t (FLOAT_MAX on a miss), u, v and the winner index (-1)."""
+    With a cutout `key` ([R] uint32 words) a candidate is a hit only where
+    its draw falls below the table's camera pass probability. Returns
+    best_t (FLOAT_MAX on a miss), u, v and the winner index (-1)."""
     r = o[0].shape[0]
     best_t = torch.full((r,), _FMAX, dtype=torch.float32, device=o[0].device)
     bu = torch.zeros_like(best_t)
     bv = torch.zeros_like(best_t)
     win = torch.full((r,), -1, dtype=torch.int64, device=o[0].device)
     for c0 in range(0, tris.shape[0], TRI_CHUNK):
-        tt, u, v, ok = _tri_test(tris[c0:c0 + TRI_CHUNK], o, d, tmin)
+        chunk = tris[c0:c0 + TRI_CHUNK]
+        tt, u, v, ok = _tri_test(chunk, o, d, tmin)
+        if key is not None:
+            ok = ok & _passes(key, c0, chunk, tr_opac_col(tris))
         tt = _where(ok, tt, float("inf"))
         cmin, carg = torch.min(tt, dim=1)  # first index of the minimum
         better = cmin < best_t
@@ -218,11 +263,23 @@ def closest_hit(tris: torch.Tensor, o, d, tmin: float):
     return best_t, bu, bv, win
 
 
-def occluded(tris: torch.Tensor, o, d, dist: torch.Tensor) -> torch.Tensor:
-    """Any triangle hit at SHADOW_TMIN < t < dist."""
+def _passes(key: torch.Tensor, c0: int, chunk: torch.Tensor, col: int) -> torch.Tensor:
+    """[R, C] cutout draws of rays `key` against triangles c0.. of a
+    resident chunk, below their pass probability in column `col`."""
+    tid = torch.arange(c0, c0 + chunk.shape[0], device=key.device)
+    return cutout_xi(key[:, None], tid[None, :]) < chunk[:, col][None, :]
+
+
+def occluded(tris: torch.Tensor, o, d, dist: torch.Tensor,
+             key: torch.Tensor | None = None) -> torch.Tensor:
+    """Any triangle hit at SHADOW_TMIN < t < dist; with a cutout `key` (the
+    salted words) only candidates whose draw passes the shadow column."""
     occ = torch.zeros(o[0].shape, dtype=torch.bool, device=o[0].device)
     for c0 in range(0, tris.shape[0], TRI_CHUNK):
-        tt, _u, _v, ok = _tri_test(tris[c0:c0 + TRI_CHUNK], o, d, SHADOW_TMIN)
+        chunk = tris[c0:c0 + TRI_CHUNK]
+        tt, _u, _v, ok = _tri_test(chunk, o, d, SHADOW_TMIN)
+        if key is not None:
+            ok = ok & _passes(key, c0, chunk, tr_opac_col(tris) + 1)
         occ = occ | (ok & (tt < dist[:, None])).any(dim=1)
     return occ
 
@@ -289,11 +346,15 @@ def _candidates(walk: WalkTables, o, iv, rays, e0: int, e1: int, tmin, tcap):
     return ray[qi], slot[qi, qb], ent[qi]
 
 
-def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap):
+def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap, cut=None):
     """Pass-1 Baldwin-Weber test (pallas_bounce.py :1649-1656, in f32) of
     each (ray, cluster) pair against the cluster's 128 triangles; returns
-    tt and the validity mask, both [P, 128]."""
-    q = rows[walk.cmap[slot].long()].unbind(-1)  # 12 x [P, 128]
+    tt and the validity mask, both [P, 128]. `cut` = (tris, key, shadow):
+    the cutout draws (pallas_bounce.py :1657-1668, :2127-2138) against the
+    placement's pass probability (instanced) or the triangles' CLU_OPAC
+    (camera) or CLU_OPAC_SH (shadow) rows."""
+    clu = walk.cmap[slot].long()
+    q = rows[clu].unbind(-1)  # 12 x [P, 128]
     po, pd = o[ray], d[ray]
     if walk.instanced:
         po, pd = _to_local(walk.inst[ent], po, pd)
@@ -307,6 +368,15 @@ def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap):
     v = (q[8] * ox + q[9] * oy + q[10] * oz + q[11]) + tt * (q[8] * dx + q[9] * dy + q[10] * dz)
     ok = (ok & (u >= _EPS_LO) & (v >= _EPS_LO) & (u + v <= _EPS_HI)
           & (tt > tmin[ray][:, None]) & (tt < tcap[ray][:, None]))
+    if cut is not None:
+        tris, key, shadow = cut
+        gid = slot[:, None] * CLUSTER_SIZE + torch.arange(CLUSTER_SIZE, device=slot.device)
+        if walk.instanced:
+            prob = walk.inst[ent, INST_PASS_SH if shadow else INST_PASS][:, None]
+        else:
+            col = CLU_OPAC_SH if shadow else CLU_OPAC
+            prob = tris.reshape(-1, CLUSTER_SIZE, tris.shape[1])[clu, :, col]
+        ok = ok & (cutout_xi(key[ray][:, None], gid) < prob)
     return tt, ok
 
 
@@ -327,10 +397,11 @@ def _key_t(key: torch.Tensor) -> torch.Tensor:
 
 
 def walk_closest(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
-                 alive: torch.Tensor, tmin: float) -> torch.Tensor:
+                 alive: torch.Tensor, tmin: float, key: torch.Tensor | None = None) -> torch.Tensor:
     """Closest hit of the alive rays (o, d [R, 3]) over the two-level walk:
     the global triangle index (fan slot * 128 + lane) of the smallest
-    valid t, ties to the lower index, or -1."""
+    valid t, ties to the lower index, or -1. With a cutout `key` ([R]
+    uint32 words) a candidate whose draw fails is not a hit."""
     if tmin < 0.0:
         raise ValueError("the walk's hit keys order t by its bits: tmin must be >= 0")
     r = o.shape[0]
@@ -341,22 +412,24 @@ def walk_closest(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch
     rows = _test_rows(tris)
     lanes = torch.arange(CLUSTER_SIZE, device=o.device)
     rays = alive.nonzero()[:, 0]
+    cut = None if key is None else (tris, key, False)
     for e0 in range(0, walk.l1.shape[0], WALK_ENTRIES):
         run = torch.minimum(cap, _key_t(best))  # prunes boxes behind the best hit
         ray, slot, ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin_r, run)
         for p0 in range(0, ray.numel(), WALK_PAIRS):
             sl = slice(p0, p0 + WALK_PAIRS)
-            tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin_r, cap)
+            tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin_r, cap, cut)
             gid = slot[sl, None] * CLUSTER_SIZE + lanes
-            key = _where(ok, (tt.view(torch.int32).to(torch.int64) << 32) | gid, _NO_HIT)
-            best.scatter_reduce_(0, ray[sl], key.amin(dim=1), "amin")
+            hit_key = _where(ok, (tt.view(torch.int32).to(torch.int64) << 32) | gid, _NO_HIT)
+            best.scatter_reduce_(0, ray[sl], hit_key.amin(dim=1), "amin")
     return _where(best != _NO_HIT, best & 0xFFFFFFFF, -1)
 
 
 def walk_occluded(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,
-                  dist: torch.Tensor) -> torch.Tensor:
+                  dist: torch.Tensor, key: torch.Tensor | None = None) -> torch.Tensor:
     """Any-hit walk (pallas_bounce.py _trace_clustered_occluded): a valid
-    triangle at SHADOW_TMIN < t < dist on each ray (o, d [n, 3])."""
+    triangle at SHADOW_TMIN < t < dist on each ray (o, d [n, 3]); with a
+    cutout `key` (the salted words) only candidates whose draw passes."""
     n = o.shape[0]
     iv = _safe_inv(d)
     tmin = torch.full((n,), SHADOW_TMIN, dtype=torch.float32, device=o.device)
@@ -369,7 +442,8 @@ def walk_occluded(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torc
         ray, slot, ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin, dist)
         for p0 in range(0, ray.numel(), WALK_PAIRS):
             sl = slice(p0, p0 + WALK_PAIRS)
-            _tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin, dist)
+            cut = None if key is None else (tris, key, True)
+            _tt, ok = _pair_test(walk, rows, o, d, ray[sl], slot[sl], ent[sl], tmin, dist, cut)
             occ.index_fill_(0, ray[sl][ok.any(dim=1)], True)
     return occ
 
@@ -609,10 +683,11 @@ def area_num(area: float, cosl: torch.Tensor) -> torch.Tensor:
     return area * cosl if area > 0.0 else torch.ones_like(cosl)
 
 
-def resident_hits(tris: torch.Tensor, o, d, tmin: float):
+def resident_hits(tris: torch.Tensor, o, d, tmin: float, key: torch.Tensor | None = None):
     """Closest hits over a resident table: (t, u, v, winner rows [R, rows],
-    zero where nothing is hit); t is FLOAT_MAX on a miss."""
-    best_t, u, v, win = closest_hit(tris, o, d, tmin)
+    zero where nothing is hit); t is FLOAT_MAX on a miss. `key`: the
+    cutout words, as closest_hit takes them."""
+    best_t, u, v, win = closest_hit(tris, o, d, tmin, key)
     if tris.shape[0]:
         attrs = _where((win >= 0)[:, None], tris[win.clamp(min=0)], 0.0)
     else:
@@ -636,56 +711,89 @@ def surface_state(o, d, t, u, v, gn, n0, n1, n2):
     return (pos, tuple(x * fsign for x in gn), (nx * fsign, ny * fsign, nz * fsign), front)
 
 
-def material_rows(mats: torch.Tensor, mat_f: torch.Tensor) -> list[torch.Tensor]:
-    """The 12 shading parameters (_MAT_COLS) of each ray's material row;
-    ids outside the table resolve to zeros."""
+def material_rows(mats: torch.Tensor, mat_f: torch.Tensor,
+                  advanced: bool = False) -> list[torch.Tensor]:
+    """The 12 shading parameters (_MAT_COLS) of each ray's material row,
+    16 with the advanced columns (_ADV_COLS); ids outside the table resolve
+    to zeros."""
     m_id = torch.round(mat_f).to(torch.int64)
     m_ok = (m_id >= 0) & (m_id < mats.shape[0])
     mrow = _where(m_ok[:, None], mats[m_id.clamp(0, mats.shape[0] - 1)], 0.0)
-    return [mrow[:, c] for c in _MAT_COLS]
+    return [mrow[:, c] for c in _MAT_COLS + (_ADV_COLS if advanced else ())]
+
+
+def cutout_key(state: torch.Tensor) -> torch.Tensor:
+    """The camera walk's cutout words: each ray's PCG state at the start of
+    the bounce (pallas_bounce.py :1345, :2312)."""
+    return f32_bits_to_u32(state[12])
 
 
 def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
                lights: torch.Tensor, light_types: tuple[int, ...],
-               state: torch.Tensor, nee: bool, walk: WalkTables | None = None) -> None:
+               state: torch.Tensor, nee: bool, walk: WalkTables | None = None,
+               advanced: bool = False, cutout: bool = False) -> None:
     """One bounce over state [16, R], updated in place: resident tris
-    [T, 32 or 48] without `walk`, clustered tris [C * 128, 40 or 56] with it."""
+    [T, 32 or 48; 36 or 52 with cutout rows] without `walk`, clustered tris
+    [C * 128, 40 or 56] with it."""
     p = [f32(x) for x in params.tolist()]
     o, d = (state[0], state[1], state[2]), (state[3], state[4], state[5])
     alive = state[13] > 0.5
+    key = cutout_key(state) if cutout else None
     if walk is None:
-        best_t, u, v, attrs = resident_hits(tris, o, d, p[P_TMIN])
+        best_t, u, v, attrs = resident_hits(tris, o, d, p[P_TMIN], key)
         hit = alive & (best_t < _FMAX)
         gn, n0, n1, n2 = ((attrs[:, c], attrs[:, c + 1], attrs[:, c + 2])
                           for c in (TR_GN, TR_N0, TR_N1, TR_N2))
         mat_f, dsided = attrs[:, TR_MAT], attrs[:, TR_DS]
     else:
         o3, d3 = torch.stack(o, 1), torch.stack(d, 1)
-        win = walk_closest(walk, tris, o3, d3, alive, p[P_TMIN])
+        win = walk_closest(walk, tris, o3, d3, alive, p[P_TMIN], key)
         # best_t caps at FLOAT_MAX on a miss; the hit flag is the winner
         hit = alive & (win >= 0)
         best_t, u, v, gn, n0, n1, n2, mat_f, dsided = walk_hit_attrs(walk, tris, o3, d3, win)
     pos, gn, n, front = surface_state(o, d, best_t, u, v, gn, n0, n1, n2)
-    shade_core(p, state, hit, pos, gn, n, front, dsided, material_rows(mats, mat_f), lights,
-               light_types, nee, occluder(tris, walk))
+    shade_core(p, state, hit, pos, gn, n, front, dsided, material_rows(mats, mat_f, advanced),
+               lights, light_types, nee, occluder(tris, walk, cutout), advanced)
 
 
-def occluder(tris: torch.Tensor, walk: WalkTables | None):
-    """The any-hit test of NEE shadow rays over a resident table or a walk."""
+def occluder(tris: torch.Tensor, walk: WalkTables | None, cutout: bool = False):
+    """The any-hit test of NEE shadow rays over a resident table or a walk:
+    fn(o, d, dist, key), `key` the salted cutout words of the rays (ignored
+    without cutout)."""
     if walk is None:
-        return lambda o, d, dist: occluded(tris, o, d, dist)
-    return lambda o, d, dist: walk_occluded(walk, tris, torch.stack(o, 1), torch.stack(d, 1),
-                                            dist)
+        return lambda o, d, dist, key: occluded(tris, o, d, dist, key if cutout else None)
+    return lambda o, d, dist, key: walk_occluded(walk, tris, torch.stack(o, 1),
+                                                 torch.stack(d, 1), dist,
+                                                 key if cutout else None)
+
+
+def _ggx_g1(a2, nv):
+    return 2.0 * nv / (nv + torch.sqrt(a2 + (1.0 - a2) * nv * nv))
+
+
+def _aniso_g1(ax, ay, vx, vy, vz):
+    """Smith G1 of anisotropic GGX in the rotated frame (pallas_bounce.py
+    :2651-2655)."""
+    vza = torch.clamp(torch.abs(vz), min=1e-6)
+    sx, sy = ax * vx, ay * vy
+    lam = 0.5 * (-1.0 + torch.sqrt(1.0 + (sx * sx + sy * sy) / (vza * vza)))
+    return 1.0 / (1.0 + lam)
 
 
 def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, n,
                front: torch.Tensor, dsided: torch.Tensor, mrow: list[torch.Tensor],
                lights: torch.Tensor, light_types: tuple[int, ...], nee: bool,
-               occluded_fn) -> None:
+               occluded_fn, advanced: bool = False, tangent=None) -> None:
     """Miss background, emission, BSDF sampling, the NEE shadow ray,
     russian roulette and the state write-back of one bounce, given each
     ray's hit and shading state (pallas_bounce.py _shade_core, shared by
-    the bounce and the split shade step). `state` is updated in place."""
+    the bounce and the split shade step). `state` is updated in place.
+
+    `advanced` adds the JAX kernel's full lobe set (mrow then carries the
+    four _ADV_COLS): clearcoat, anisotropic GGX and thick refraction with
+    the exact dielectric Fresnel and TIR; `tangent` = (t xyz, bitangent
+    sign), the split trace's H_TAN and H_BS rows, anchors its frame to the
+    mesh tangent (pallas_bounce.py :2453-2473)."""
     s = state
     ox, oy, oz = s[0], s[1], s[2]
     dx, dy, dz = s[3], s[4], s[5]
@@ -699,7 +807,10 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     gnx, gny, gnz = gn
     nx, ny, nz = n
     (base_r, base_g, base_b, metallic, roughness, ior,
-     em_r, em_g, em_b, transm, thinw, bf_edf) = mrow
+     em_r, em_g, em_b, transm, thinw, bf_edf) = mrow[:12]
+    adv = advanced
+    if adv:
+        coat, coat_rough, aniso, aniso_rot = mrow[12:16]
 
     # ---- miss: constant background (dome radiance is not ported) ----
     radx = radx + _where(miss, tpx * p[P_BG_R], 0.0)
@@ -732,6 +843,26 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     t2x = b_onb
     t2y = nsign + ny * ny * a_onb
     t2z = -ny
+    if adv and tangent is not None:
+        # the mesh tangent re-orthonormalised against the (possibly
+        # normal-mapped) shading normal, bitangent cross(n, t) * sign; a
+        # degenerate tangent keeps the Duff frame
+        (tanx, tany, tanz), tbs = tangent
+        tdn = tanx * nx + tany * ny + tanz * nz
+        mtx = tanx - nx * tdn
+        mty = tany - ny * tdn
+        mtz = tanz - nz * tdn
+        tlen2 = mtx * mtx + mty * mty + mtz * mtz
+        tok = tlen2 > 1e-12
+        tl = 1.0 / torch.sqrt(torch.clamp(tlen2, min=1e-20))
+        mtx, mty, mtz = mtx * tl, mty * tl, mtz * tl
+        bsgn = _where(tbs >= 0.0, 1.0, -1.0)
+        t1x = _where(tok, mtx, t1x)
+        t1y = _where(tok, mty, t1y)
+        t1z = _where(tok, mtz, t1z)
+        t2x = _where(tok, (ny * mtz - nz * mty) * bsgn, t2x)
+        t2y = _where(tok, (nz * mtx - nx * mtz) * bsgn, t2y)
+        t2z = _where(tok, (nx * mty - ny * mtx) * bsgn, t2z)
 
     wox = -(dx * t1x + dy * t1y + dz * t1z)
     woy = -(dx * t2x + dy * t2y + dz * t2z)
@@ -748,16 +879,36 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     w_d = lum_base * (1.0 - metallic) * (1.0 - transm)
     w_g = _where(lum_f0 > 0.0, torch.clamp(lum_f0, min=0.04), 0.0)
     w_t = transm
-    w_sum = torch.clamp(w_d + w_g + w_t, min=1e-20)
+    if adv:
+        # the thick-glass fraction is the interface lobe's: the base glossy
+        # lobe does not model that reflection again
+        thick = transm * (1.0 - _where(thinw > 0.5, 1.0, 0.0))
+        w_g = w_g * (1.0 - thick)
+        w_c = 0.25 * coat
+        w_sum = torch.clamp(w_d + w_g + w_t + w_c, min=1e-20)
+    else:
+        w_sum = torch.clamp(w_d + w_g + w_t, min=1e-20)
     p_d = w_d / w_sum
     p_g = w_g / w_sum
     p_t = w_t / w_sum
     pick_d = xi0 < p_d
     pick_g = ~pick_d & (xi0 < p_d + p_g)
-    pick_t = ~pick_d & ~pick_g
+    if adv:
+        p_c = w_c / w_sum
+        pick_t = ~pick_d & ~pick_g & (xi0 < p_d + p_g + p_t)
+        pick_c = ~pick_d & ~pick_g & ~pick_t
+    else:
+        pick_t = ~pick_d & ~pick_g
 
     alpha = torch.clamp(roughness * roughness, min=MIN_ALPHA)
     alpha2 = alpha * alpha
+    if adv:
+        # anisotropic GGX roughnesses (Disney aspect) and their rotation
+        aspect = torch.sqrt(1.0 - 0.9 * torch.clamp(aniso, 0.0, 1.0))
+        ax = torch.clamp(alpha / aspect, min=MIN_ALPHA)
+        ay = torch.clamp(alpha * aspect, min=MIN_ALPHA)
+        rtheta = (2.0 * PI) * aniso_rot
+        cos_r, sin_r = torch.cos(rtheta), torch.sin(rtheta)
 
     # diffuse: cosine hemisphere
     ra = torch.sqrt(torch.clamp(xi1, 0.0, 1.0))
@@ -766,24 +917,77 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     wdx = ra * cphi
     wdy = ra * sphi
     wdz = torch.sqrt(torch.clamp(1.0 - xi1, min=0.0))
-    # glossy: GGX NDF half-vector sample + reflect
-    c2h = (1.0 - xi1) / torch.clamp(1.0 + (alpha2 - 1.0) * xi1, min=1e-12)
-    ch = torch.sqrt(torch.clamp(c2h, 0.0, 1.0))
-    sh = torch.sqrt(torch.clamp(1.0 - c2h, min=0.0))
-    hx = sh * cphi
-    hy = sh * sphi
-    hz = ch
+    if adv:
+        # glossy: anisotropic GGX half vector in slope space, sampled in the
+        # rotated frame and rotated back
+        u_c = torch.clamp(xi1, 0.0, 1.0 - 1e-7)
+        r_slope = torch.sqrt(u_c / (1.0 - u_c))
+        hxr = ax * r_slope * cphi
+        hyr = ay * r_slope * sphi
+        hinv_s = 1.0 / torch.sqrt(torch.clamp(hxr * hxr + hyr * hyr + 1.0, min=1e-24))
+        hxr, hyr, hz = hxr * hinv_s, hyr * hinv_s, hinv_s
+        hx = hxr * cos_r - hyr * sin_r
+        hy = hxr * sin_r + hyr * cos_r
+    else:
+        # glossy: GGX NDF half-vector sample + reflect
+        c2h = (1.0 - xi1) / torch.clamp(1.0 + (alpha2 - 1.0) * xi1, min=1e-12)
+        ch = torch.sqrt(torch.clamp(c2h, 0.0, 1.0))
+        sh = torch.sqrt(torch.clamp(1.0 - c2h, min=0.0))
+        hx = sh * cphi
+        hy = sh * sphi
+        hz = ch
     odoth = wox * hx + woy * hy + woz * hz
     wix = _where(pick_d, wdx, 2.0 * odoth * hx - wox)
     wiy = _where(pick_d, wdy, 2.0 * odoth * hy - woy)
     wiz = _where(pick_d, wdz, 2.0 * odoth * hz - woz)
-    wix = _where(pick_t, -wox, wix)
-    wiy = _where(pick_t, -woy, wiy)
-    wiz = _where(pick_t, -woz, wiz)
+    if adv:
+        # clearcoat: isotropic GGX reflection at the coat roughness
+        ac = torch.clamp(coat_rough * coat_rough, min=MIN_ALPHA)
+        ac2 = ac * ac
+        c2hc = (1.0 - u_c) / torch.clamp(1.0 + (ac2 - 1.0) * u_c, min=1e-12)
+        chc = torch.sqrt(torch.clamp(c2hc, 0.0, 1.0))
+        shc = torch.sqrt(torch.clamp(1.0 - c2hc, min=0.0))
+        hcx, hcy, hcz = shc * cphi, shc * sphi, chc
+        odothc = wox * hcx + woy * hcy + woz * hcz
+        wix = _where(pick_c, 2.0 * odothc * hcx - wox, wix)
+        wiy = _where(pick_c, 2.0 * odothc * hcy - woy, wiy)
+        wiz = _where(pick_c, 2.0 * odothc * hcz - woz, wiz)
+
+        # thick transmission: a microfacet dielectric interface; the exact
+        # Fresnel picks reflection or refraction, TIR is F = 1
+        c2ht = (1.0 - u_c) / torch.clamp(1.0 + (alpha2 - 1.0) * u_c, min=1e-12)
+        cht = torch.sqrt(torch.clamp(c2ht, 0.0, 1.0))
+        sht = torch.sqrt(torch.clamp(1.0 - c2ht, min=0.0))
+        htx, hty, htz = sht * cphi, sht * sphi, cht
+        eta_rel = _where(front, ior, 1.0 / torch.clamp(ior, min=1e-6))
+        c_oh = torch.clamp(wox * htx + woy * hty + woz * htz, min=0.0)
+        sin2_t = (1.0 - c_oh * c_oh) / torch.clamp(eta_rel * eta_rel, min=1e-12)
+        tir = sin2_t >= 1.0
+        cos_tf = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
+        rs_f = (c_oh - eta_rel * cos_tf) / torch.clamp(c_oh + eta_rel * cos_tf, min=1e-12)
+        rp_f = (eta_rel * c_oh - cos_tf) / torch.clamp(eta_rel * c_oh + cos_tf, min=1e-12)
+        f_t = _where(tir, 1.0, torch.clamp(0.5 * (rs_f * rs_f + rp_f * rp_f), 0.0, 1.0))
+        eta_inv = 1.0 / torch.clamp(eta_rel, min=1e-6)
+        k_t = 1.0 - eta_inv * eta_inv * (1.0 - c_oh * c_oh)
+        cos_t = torch.sqrt(torch.clamp(k_t, min=0.0))
+        scale_h = eta_inv * c_oh - cos_t
+        refl_pick = xi3 < f_t
+        thin_b = thinw > 0.5
+        wt = [_where(thin_b, -wo_, _where(refl_pick, 2.0 * c_oh * ht_ - wo_,
+                                           -eta_inv * wo_ + scale_h * ht_))
+              for wo_, ht_ in ((wox, htx), (woy, hty), (woz, htz))]
+        wix = _where(pick_t, wt[0], wix)
+        wiy = _where(pick_t, wt[1], wiy)
+        wiz = _where(pick_t, wt[2], wiz)
+    else:
+        wix = _where(pick_t, -wox, wix)
+        wiy = _where(pick_t, -woy, wiy)
+        wiz = _where(pick_t, -woz, wiz)
 
     def eval_lobes(wix_, wiy_, wiz_):
-        """Diffuse + glossy reflection at local wi (render/bsdf.py
-        _eval_lobes): per-channel diffuse, glossy, and the pdf."""
+        """Diffuse + glossy reflection (+ clearcoat, anisotropy when
+        advanced) at local wi (render/bsdf.py _eval_lobes): per-channel
+        diffuse, glossy, and the pdf."""
         refl = (woz > 0.0) & (wiz_ > 0.0)
         cos_i_c = torch.clamp(wiz_, min=0.0)
         hxs = wox + wix_
@@ -795,32 +999,69 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
         oh = torch.clamp(wox * hxs + woy * hys + woz * hzs, min=1e-6)
         nvo = torch.clamp(woz, min=1e-6)
         nvi = torch.clamp(cos_i_c, min=1e-6)
-        dd = nh * nh * (alpha2 - 1.0) + 1.0
-        ggx_d = alpha2 / torch.clamp(PI * dd * dd, min=1e-12)
-        g1o = 2.0 * nvo / (nvo + torch.sqrt(alpha2 + (1.0 - alpha2) * nvo * nvo))
-        g1i = 2.0 * nvi / (nvi + torch.sqrt(alpha2 + (1.0 - alpha2) * nvi * nvi))
-        gg = g1o * g1i
+        if adv:
+            # anisotropic D and G in the rotated tangent frame
+            hxr_ = hxs * cos_r + hys * sin_r
+            hyr_ = -hxs * sin_r + hys * cos_r
+            qa, qb = hxr_ / ax, hyr_ / ay
+            q_ = qa * qa + qb * qb + hzs * hzs
+            ggx_d = 1.0 / torch.clamp(PI * ax * ay * q_ * q_, min=1e-12)
+            gg = (_aniso_g1(ax, ay, wox * cos_r + woy * sin_r, -wox * sin_r + woy * cos_r, woz)
+                  * _aniso_g1(ax, ay, wix_ * cos_r + wiy_ * sin_r,
+                              -wix_ * sin_r + wiy_ * cos_r, wiz_))
+        else:
+            dd = nh * nh * (alpha2 - 1.0) + 1.0
+            ggx_d = alpha2 / torch.clamp(PI * dd * dd, min=1e-12)
+            gg = _ggx_g1(alpha2, nvo) * _ggx_g1(alpha2, nvi)
         mfres = torch.clamp(1.0 - oh, 0.0, 1.0)
         fres5 = (mfres * mfres) * (mfres * mfres) * mfres
         spec_core = ggx_d * gg / torch.clamp(4.0 * woz * cos_i_c, min=1e-9) * cos_i_c
         diff_core = (1.0 - metallic) * (1.0 - transm) * cos_i_c / PI
+        if adv:
+            # the clearcoat lobe, and the base attenuated under the coat in
+            # both directions; the thick-glass fraction leaves the base
+            # glossy lobe
+            dcd = nh * nh * (ac2 - 1.0) + 1.0
+            dc_ = ac2 / torch.clamp(PI * (dcd * dcd), min=1e-12)
+            fc_ = 0.04 + 0.96 * fres5
+            coat_core = (coat * fc_ * dc_ * _ggx_g1(ac2, nvo) * _ggx_g1(ac2, nvi)
+                         / torch.clamp(4.0 * woz * cos_i_c, min=1e-9) * cos_i_c)
+            m_o = torch.clamp(1.0 - nvo, 0.0, 1.0)
+            m_i = torch.clamp(1.0 - nvi, 0.0, 1.0)
+            att = ((1.0 - coat * (0.04 + 0.96 * ((m_o * m_o) * (m_o * m_o)) * m_o))
+                   * (1.0 - coat * (0.04 + 0.96 * ((m_i * m_i) * (m_i * m_i)) * m_i)))
+            spec_core = spec_core * ((1.0 - thick) * att)
+            diff_core = diff_core * att
         fd = [_where(refl, b * diff_core, 0.0) for b in (base_r, base_g, base_b)]
-        fg = [_where(refl, (f0 + (1.0 - f0) * fres5) * spec_core, 0.0)
-              for f0 in (f0r, f0g, f0b)]
+        fg = [(f0 + (1.0 - f0) * fres5) * spec_core for f0 in (f0r, f0g, f0b)]
+        if adv:
+            fg = [x + coat_core for x in fg]
+        fg = [_where(refl, x, 0.0) for x in fg]
         pdf_ = p_d * cos_i_c / PI + p_g * ggx_d * nh / torch.clamp(4.0 * oh, min=1e-9)
+        if adv:
+            pdf_ = pdf_ + p_c * dc_ * nh / torch.clamp(4.0 * oh, min=1e-9)
         return fd, fg, _where(refl, pdf_, 0.0)
 
     fd, fg, pdf = eval_lobes(wix, wiy, wiz)
     inv_pdf = _where(pdf > 1e-12, 1.0 / torch.clamp(pdf, min=1e-12), 0.0)
     bop = [(a + b) * inv_pdf for a, b in zip(fd, fg)]
 
-    # transmission: straight through, Fresnel-weighted (render/bsdf.py)
+    # transmission: thin surfaces straight through, Fresnel-weighted
+    # (render/bsdf.py); advanced thick ones the interface lobe's white
+    # weight (its G1 at wi)
     mtr = torch.clamp(1.0 - torch.clamp(woz, min=0.0), 0.0, 1.0)
     tr5 = (mtr * mtr) * (mtr * mtr) * mtr
     inv_pt = _where(p_t > 1e-12, 1.0 / torch.clamp(p_t, min=1e-12), 0.0)
-    thin_w = [transm * (1.0 - (f0 + (1.0 - f0) * tr5)) * inv_pt for f0 in (f0r, f0g, f0b)]
-    bop = [_where(pick_t, tw, b) for tw, b in zip(thin_w, bop)]
-    valid = (pick_t & (p_t > 0.0)) | (~pick_t & (pdf > 1e-12) & (wiz > 0.0) & (woz > 0.0))
+    trans_w = [transm * (1.0 - (f0 + (1.0 - f0) * tr5)) * inv_pt for f0 in (f0r, f0g, f0b)]
+    if adv:
+        awz = torch.clamp(torch.abs(wiz), min=1e-6)
+        thick_w = transm * _ggx_g1(alpha2, awz) * inv_pt
+        trans_w = [_where(thin_b, tw, thick_w) for tw in trans_w]
+        valid_t = (p_t > 0.0) & (thin_b | refl_pick | (k_t > 0.0))
+    else:
+        valid_t = p_t > 0.0
+    bop = [_where(pick_t, tw, b) for tw, b in zip(trans_w, bop)]
+    valid = (pick_t & valid_t) | (~pick_t & (pdf > 1e-12) & (wiz > 0.0) & (woz > 0.0))
     bop = [_where(valid, b, 0.0) for b in bop]
 
     # world-space wi
@@ -831,8 +1072,10 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     tpy = _where(hit, tpy * bop[1], tpy)
     tpz = _where(hit, tpz * bop[2], tpz)
 
-    # new origin, offset along the signed geometric normal
-    osign = _where(pick_t, -1.0, 1.0)
+    # new origin, offset along the signed geometric normal (a Fresnel-
+    # reflected thick-glass sample stays on the front side)
+    crossing = pick_t & (thin_b | ~refl_pick) if adv else pick_t
+    osign = _where(crossing, -1.0, 1.0)
     offx = gnx * osign * torch.clamp(torch.abs(posx) * 2.0 ** -16, min=1.0 / 65536.0)
     offy = gny * osign * torch.clamp(torch.abs(posy) * 2.0 ** -16, min=1.0 / 65536.0)
     offz = gnz * osign * torch.clamp(torch.abs(posz) * 2.0 ** -16, min=1.0 / 65536.0)
@@ -874,7 +1117,8 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
             idx = do_trace.nonzero()[:, 0]
             if idx.numel():
                 occ[idx] = occluded_fn((ox[idx], oy[idx], oz[idx]),
-                                       (ldx[idx], ldy[idx], ldz[idx]), ldist[idx])
+                                       (ldx[idx], ldy[idx], ldz[idx]), ldist[idx],
+                                       rng[idx] ^ SHADOW_SALT)
             add = do_trace & ~occ
             radx = radx + _where(add, c[0], 0.0)
             rady = rady + _where(add, c[1], 0.0)

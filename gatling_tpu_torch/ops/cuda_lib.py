@@ -55,25 +55,25 @@ def check_tensor(kernel: str, name: str, t: torch.Tensor, dtype: torch.dtype) ->
 class CudaLibrary:
     """csrc/<source> built into a shared library and loaded with ctypes.
     `entry_points` maps each C function to its argument types; `error_fn`
-    names the function that turns an error code into a message."""
+    names the function that turns an error code into a message. With
+    `parts` > 1 the source is compiled that many times at once, each run
+    with -DGATLING_PART=k defining a share of the entry points (and so of
+    the template instances), and the objects are linked into one library:
+    the build takes the longest part's time, not the sum."""
 
-    def __init__(self, source: str, entry_points: dict[str, list], error_fn: str) -> None:
+    def __init__(self, source: str, entry_points: dict[str, list], error_fn: str,
+                 parts: int = 1) -> None:
         src_path = CSRC / source
-        tag = hashlib.sha1(src_path.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:12]
+        tag = hashlib.sha1(src_path.read_bytes() + " ".join(FLAGS).encode()
+                           + str(parts).encode()).hexdigest()[:12]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.path = BUILD_DIR / f"libgatling_{src_path.stem}_{tag}.so"
         self.build_seconds = 0.0
         self.ptxas_log = ""
         if not self.path.exists():
             t0 = time.perf_counter()
-            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-            res = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(src_path)],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src_path}:\n{res.stderr}")
-            os.replace(tmp, self.path)
+            self.ptxas_log = self._build(src_path, parts)
             self.build_seconds = time.perf_counter() - t0
-            self.ptxas_log = res.stderr
         lib = ctypes.CDLL(str(self.path))
         self._fns = {}
         for name, args in entry_points.items():
@@ -84,6 +84,34 @@ class CudaLibrary:
         self._err = getattr(lib, error_fn)
         self._err.restype = ctypes.c_char_p
         self._err.argtypes = [I32]
+
+    def _build(self, src_path: Path, parts: int) -> str:
+        """nvcc runs into a temporary file renamed onto self.path; returns
+        their ptxas reports."""
+        tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
+        if parts == 1:
+            runs = [[_nvcc(), *FLAGS, "-o", str(tmp), str(src_path)]]
+        else:
+            objs = [self.path.with_suffix(f".{os.getpid()}.part{k}.o") for k in range(parts)]
+            compile_flags = [f for f in FLAGS if f != "-shared"]
+            runs = [[_nvcc(), *compile_flags, f"-DGATLING_PART={k}", "-c", "-o", str(obj),
+                     str(src_path)] for k, obj in enumerate(objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for cmd in runs]
+        # wait for every run before reporting a failure: none is left running
+        logs = [proc.communicate()[1] for proc in procs]
+        for proc, err in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src_path}:\n{err}")
+        if parts > 1:
+            res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed to link {src_path}:\n{res.stderr}")
+        os.replace(tmp, self.path)
+        return "".join(logs)
 
     def call(self, name: str, *args) -> None:
         rc = self._fns[name](*args)

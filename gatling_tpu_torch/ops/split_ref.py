@@ -38,10 +38,10 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TR_T2,
     TR_UV,
     TRI_ROWS_TAN,
-    CLU_TRI_ROWS_TAN,
     WalkTables,
     _FMAX,
     _where,
+    cutout_key,
     material_rows,
     occluder,
     resident_hits,
@@ -67,7 +67,9 @@ PAR_ORDER = ("base_color", "emissive", "metallic", "roughness")
 
 
 def has_tangents(tris: torch.Tensor) -> bool:
-    return tris.shape[1] in (TRI_ROWS_TAN, CLU_TRI_ROWS_TAN)
+    """Whether a resident or clustered table carries the tangent rows
+    (resident: 48 floats a row, 52 with the cutout rows)."""
+    return tris.shape[1] >= TRI_ROWS_TAN
 
 
 def hit_row_count(tangents: bool) -> int:
@@ -98,17 +100,19 @@ def par_row_starts(textured_params) -> list[int]:
 
 
 def trace_ref(params: torch.Tensor, tris: torch.Tensor, state: torch.Tensor,
-              walk: WalkTables | None = None) -> torch.Tensor:
+              walk: WalkTables | None = None, cutout: bool = False) -> torch.Tensor:
     """K3's twin: the hit buffer [16 or 24, R] of the alive rays of state
-    [16, R] over resident tris [T, 32 or 48] or, with `walk`, clustered
-    tris [C * 128, 40 or 56]."""
+    [16, R] over resident tris [T, 32 or 48; 36 or 52 with cutout rows] or,
+    with `walk`, clustered tris [C * 128, 40 or 56]; `cutout` draws each
+    candidate against its pass probability, as the bounce twin does."""
     tmin = f32(float(params[P_TMIN]))
     o, d = (state[0], state[1], state[2]), (state[3], state[4], state[5])
     alive = state[13] > 0.5
     tangents = has_tangents(tris)
+    key = cutout_key(state) if cutout else None
     tan = tbs = None
     if walk is None:
-        t, u, v, attrs = resident_hits(tris, o, d, tmin)
+        t, u, v, attrs = resident_hits(tris, o, d, tmin, key)
         hit = alive & (t < _FMAX)
 
         def col(c0, n=3):
@@ -125,7 +129,7 @@ def trace_ref(params: torch.Tensor, tris: torch.Tensor, state: torch.Tensor,
             tbs = w * attrs[:, TR_BS] + u * attrs[:, TR_BS + 1] + v * attrs[:, TR_BS + 2]
     else:
         o3, d3 = torch.stack(o, 1), torch.stack(d, 1)
-        win = walk_closest(walk, tris, o3, d3, alive, tmin)
+        win = walk_closest(walk, tris, o3, d3, alive, tmin, key)
         hit = alive & (win >= 0)
         (t, u, v, gn, n0, n1, n2, mat_f, dsided, uv, tan, tbs) = walk_hit_attrs(
             walk, tris, o3, d3, win, surface=True)
@@ -146,13 +150,17 @@ def trace_ref(params: torch.Tensor, tris: torch.Tensor, state: torch.Tensor,
 def shade_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
               lights: torch.Tensor, light_types: tuple[int, ...], state: torch.Tensor,
               hitbuf: torch.Tensor, parbuf: torch.Tensor, par_rows, nee: bool,
-              walk: WalkTables | None = None) -> None:
+              walk: WalkTables | None = None, advanced: bool = False,
+              cutout: bool = False) -> None:
     """K4's twin: shade state [16, R] in place from the hit buffer; the
     material rows come from `mats` (the kernels' table of texture means),
-    the textured parameters from parbuf rows par_rows (par_row_starts)."""
+    the textured parameters from parbuf rows par_rows (par_row_starts).
+    `advanced`: the full lobe set, in the mesh-tangent frame of the hit
+    buffer's tangent rows when it has them; `cutout`: the shadow rays'
+    cutout draws."""
     p = [f32(x) for x in params.tolist()]
     hit = (state[13] > 0.5) & (hitbuf[H_HIT] > 0.5)
-    mrow = material_rows(mats, hitbuf[H_MAT])
+    mrow = material_rows(mats, hitbuf[H_MAT], advanced)
     base, em, met, rough = par_rows
     if base >= 0:
         mrow[0:3] = [parbuf[base + k] for k in range(3)]
@@ -166,5 +174,9 @@ def shade_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
     def vec(r0):
         return hitbuf[r0], hitbuf[r0 + 1], hitbuf[r0 + 2]
 
+    tangent = None
+    if hitbuf.shape[0] == HIT_ROWS_TAN:
+        tangent = (vec(H_TAN), hitbuf[H_BS])
     shade_core(p, state, hit, vec(H_POS), vec(H_GN), vec(H_N), hitbuf[H_FRONT] > 0.5,
-               hitbuf[H_DS], mrow, lights, light_types, nee, occluder(tris, walk))
+               hitbuf[H_DS], mrow, lights, light_types, nee, occluder(tris, walk, cutout),
+               advanced, tangent)

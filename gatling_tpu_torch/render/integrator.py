@@ -19,11 +19,14 @@ rays) of ops/trace.py (`tracer="matrix"`), or by the plain Moller-Trumbore
 of ops/intersect.py (`tracer="brute"`, the JAX package's CPU tracer).
 
 The JAX `while_loop` stops when no ray is alive; here a Python loop asks
-the device once a bounce (`alive.any()`), one host sync a bounce. The
-volume, medium-stack and dome branches are not ported: their flags raise.
-Nor are the cutout branches (gi raises for cutout materials before a
-frame starts) and the backface and dynamic-input ones, whose materials
-the port's front end does not produce yet.
+the device once a bounce (`alive.any()`), one host sync a bounce. Cutout
+(`has_cutout`) draws one decision at each hit from the path's PCG stream
+and passes a rejected hit straight through; shadow rays walk their hits
+one at a time (`_trace_occluded_cutout`, K5 re-launched until no ray is
+unresolved, at most MAX_SHADOW_CUTOUT_HOPS). The volume, medium-stack and
+dome branches are not ported: their flags raise. Nor are the backface and
+dynamic-input ones, whose materials the port's front end does not produce
+yet.
 """
 
 from __future__ import annotations
@@ -101,6 +104,8 @@ class RenderConfig:
     # some material has volume coefficients: the JAX wavefront's volume
     # branches, not ported yet (trace_sample raises)
     has_volumes: bool = False
+    # some material has cutout opacity (MaterialTraits.has_cutout)
+    has_cutout: bool = False
 
 
 class Uniforms(NamedTuple):
@@ -140,6 +145,40 @@ def _trace_occluded(config: RenderConfig, accel: Accel, origins, dirs, tmin, tma
         return occluded_brute(origins, dirs, tmin, tmax, accel.soup)
     raise NotImplementedError(f"tracer {config.tracer!r} is not ported yet "
                               "(ROADMAP: 'Wavefront integrator')")
+
+
+MAX_SHADOW_CUTOUT_HOPS = 8
+
+
+def _trace_occluded_cutout(config: RenderConfig, accel: Accel, geom: PackedGeometry,
+                           materials: MaterialTable, textures: TexturePool, origins, dirs,
+                           tmin, tmax, rng):
+    """Occlusion through stochastic cutout (integrator.py
+    _trace_occluded_cutout; rp_main.ahit:27-61): the closest hits along
+    each shadow ray are walked one at a time, each drawing one decision
+    from the ray's PCG stream against its material's cutout opacity
+    (textured too); an accepted hit occludes, an ignored one moves tmin
+    past the surface. Rays still unresolved after MAX_SHADOW_CUTOUT_HOPS
+    count as occluded. Returns (occluded, rng)."""
+    unresolved = tmax > tmin
+    occl = torch.zeros_like(unresolved)
+    for _hop in range(MAX_SHADOW_CUTOUT_HOPS):
+        if not bool(unresolved.any()):  # one host sync a hop
+            break
+        hit = _trace_closest(config, accel, origins, dirs, tmin,
+                             torch.where(unresolved, tmax, 0.0))
+        is_hit = unresolved & (hit.tri >= 0)
+        st = _shading_state(geom, hit, dirs)
+        mid = st["material_id"]
+        params = apply_textures(materials, textures, gather_params(materials, mid), mid, st["uv"])
+        rng_after, xi = smp.rng_next1f(rng)
+        rng = torch.where(is_hit, rng_after, rng)
+        accepted = is_hit & (xi < bsdf_mod.cutout_opacity(params))
+        occl = occl | accepted
+        # misses resolve as unoccluded; ignored hits continue past the surface
+        unresolved = unresolved & is_hit & ~accepted
+        tmin = torch.where(unresolved, hit.t * (1.0 + 1e-4) + 1e-5, tmin)
+    return occl | unresolved, rng
 
 
 class FirstHitInfo(NamedTuple):
@@ -226,7 +265,8 @@ def _check_branches(config: RenderConfig) -> None:
         raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
     if config.has_volumes:
         raise NotImplementedError("volumes in the wavefront integrator are not ported yet "
-                                  "(ROADMAP: 'Lobes, media and cutout')")
+                                  "(ROADMAP: 'USD content', with the MDL front end that "
+                                  "produces them)")
 
 
 _FIRST_HIT_AOVS = (
@@ -308,6 +348,14 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
         bitangent = n_x_t * torch.sign((n_x_t * st["bitangent"]).sum(-1, keepdim=True) + 1e-20)
         tangent = st["tangent"]
 
+        # stochastic cutout (rp_main.ahit:35-61): a rejected hit passes the
+        # ray straight through the surface and is not shaded
+        if config.has_cutout:
+            rng_after, xi_c = smp.rng_next1f(rng)
+            rng = torch.where(is_hit, rng_after, rng)
+            cut = is_hit & (xi_c >= bsdf_mod.cutout_opacity(params))
+            is_hit = is_hit & ~cut
+
         # emission (chit:292-343): front faces, back faces of single-sided
         # geometry, and double-sided back faces of thin-walled materials with
         # a backface EDF
@@ -353,6 +401,9 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
         is_transmission = (event & BSDF_EVENT_TRANSMISSION) != 0
         offset_n = _where3(is_transmission, -st["geom_normal"], st["geom_normal"])
         new_origin = _where3(is_hit, smp.offset_ray_origin(st["pos"], offset_n), origin)
+        if config.has_cutout:  # the pass-through continues from just past the surface
+            new_origin = _where3(cut, smp.offset_ray_origin(st["pos"], -st["geom_normal"]),
+                                 new_origin)
 
         if config.nee:  # NEE (chit:393-444, rgen:397-438)
             nee_able = is_hit & ((event & (BSDF_EVENT_DIFFUSE | BSDF_EVENT_GLOSSY)) != 0)
@@ -372,9 +423,15 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
             contrib = weight * (f_diff * diff_spec[:, 0:1] + f_glossy * diff_spec[:, 1:2])
             contrib = _where3(nee_valid, contrib, 0.0)
             do_trace = (smp.luminance(contrib) > 1e-6) & (light_dist > 1e-9)
-            shadowed = _trace_occluded(config, accel, new_origin, dir_to_light,
-                                       torch.where(do_trace, 0.01, 0.0),
-                                       torch.where(do_trace, light_dist, 0.0))
+            sh_tmin = torch.where(do_trace, 0.01, 0.0)
+            sh_tmax = torch.where(do_trace, light_dist, 0.0)
+            if config.has_cutout:  # the shadow stream's cutout (rp_main.ahit SHADOW_TEST)
+                shadowed, rng = _trace_occluded_cutout(config, accel, geom, materials, textures,
+                                                       new_origin, dir_to_light, sh_tmin,
+                                                       sh_tmax, rng)
+            else:
+                shadowed = _trace_occluded(config, accel, new_origin, dir_to_light, sh_tmin,
+                                           sh_tmax)
             radiance = radiance + _where3(do_trace & ~shadowed, contrib, 0.0)
             if want_first and config.aov_mask & aov_bit(AovId.NEE) and bounce == 0:
                 nee_color = _where3(shadowed, red.expand(n, 3), green.expand(n, 3))

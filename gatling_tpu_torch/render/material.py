@@ -13,8 +13,10 @@ per ray: `gather_params` (the uber-BSDF's parameters, render/bsdf.py
 BsdfParams), `apply_textures` (the taps of the textured parameters laid
 over them), `perturb_normal` (tangent-space normal maps); and
 `substitute_texture_means` builds the kernels' own table, whose textured
-columns hold the textures' means. MaterialX and MDL surfaces are not
-ported yet and raise.
+columns hold the textures' means. Besides UsdPreviewSurface, the MaterialX
+surfaces authored inline in USD (open_pbr_surface, standard_surface,
+gltf_pbr) map onto the same parameters; MDL and other surface shaders are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -76,6 +78,9 @@ class MaterialTraits:
     """Host-side material traits (reference: mc/Material.h McMaterial)."""
 
     has_backface_edf: bool = False
+    # an opacity below 1, an opacity threshold or an opacity texture: the
+    # wavefront integrator draws a cutout decision at every hit
+    has_cutout: bool = False
 
 
 @dataclasses.dataclass
@@ -138,9 +143,9 @@ def _vec3(v) -> tuple[float, float, float]:
 
 
 def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
-    """Lower one UsdPreviewSurface network to uber-BSDF parameters and
-    texture requests (the JAX package's render/material.py
-    lower_material)."""
+    """Lower one UsdPreviewSurface, open_pbr_surface, standard_surface or
+    gltf_pbr network to uber-BSDF parameters and texture requests (the JAX
+    package's render/material.py lower_material)."""
     params = dict(_DEFAULTS)
     textures: dict[str, TextureRef] = {}
     traits = MaterialTraits()
@@ -150,20 +155,73 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
     if node is None:
         return LoweredMaterial(params=params, traits=traits, textures=textures)
 
-    if node.shader_id != "UsdPreviewSurface":
-        raise NotImplementedError(
-            f"{desc.path}: surface shader {node.shader_id!r} is not ported yet "
-            "(ROADMAP: 'USD content')")
     graph = GraphLowering(desc)
-    for input_name, param, color in _PREVIEW_INPUTS:
+
+    def constant(input_name: str, default):
+        """An input's constant part (a connected texture is dropped)."""
+        gv = graph.eval_input(node, input_name, default, False)
+        if isinstance(default, tuple):
+            return _vec3(gv.constant[:3])
+        return float(gv.constant[0])
+
+    def grab(input_name: str, param: str, color: bool = False, conv=None) -> None:
         default = (0.0, 0.0, 1.0) if param == "normal" else _DEFAULTS[param]
         gv = graph.eval_input(node, input_name, default, color)
         if isinstance(default, tuple):
             params[param] = _vec3(gv.constant[:3])
         else:
             params[param] = float(gv.constant[0])
+        if conv is not None:
+            params[param] = conv(params[param])
         if gv.texture is not None:
             textures[param] = gv.texture
+
+    sid = node.shader_id
+    if sid == "UsdPreviewSurface":
+        for input_name, param, color in _PREVIEW_INPUTS:
+            grab(input_name, param, color)
+    elif sid in ("ND_standard_surface_surfaceshader", "standard_surface"):
+        grab("base_color", "base_color", True)
+        grab("metalness", "metallic")
+        grab("specular_roughness", "roughness")
+        grab("coat", "clearcoat")
+        grab("coat_roughness", "clearcoat_roughness")
+        grab("specular_anisotropy", "anisotropy")
+        grab("specular_rotation", "anisotropy_rotation")
+        grab("specular_IOR", "ior")
+        grab("transmission", "transmission")
+        grab("opacity", "opacity", conv=lambda v: float(np.mean(_vec3(v))))
+        scale = constant("emission", 0.0)
+        params["emissive"] = tuple(float(scale) * c for c in constant("emission_color",
+                                                                       (1.0, 1.0, 1.0)))
+        params["thin_walled"] = int(bool(node.inputs.get("thin_walled", False)))
+    elif sid in ("ND_open_pbr_surface_surfaceshader", "open_pbr_surface"):
+        grab("base_color", "base_color", True)
+        grab("base_metalness", "metallic")
+        grab("specular_roughness", "roughness")
+        grab("specular_ior", "ior")
+        grab("transmission_weight", "transmission")
+        grab("coat_weight", "clearcoat")
+        grab("coat_roughness", "clearcoat_roughness")
+        grab("specular_roughness_anisotropy", "anisotropy")
+        grab("geometry_opacity", "opacity")
+        lum = constant("emission_luminance", 0.0)
+        params["emissive"] = tuple(float(lum) * c for c in constant("emission_color",
+                                                                     (1.0, 1.0, 1.0)))
+        params["thin_walled"] = int(bool(node.inputs.get("geometry_thin_walled", False)))
+    elif sid in ("ND_gltf_pbr_surfaceshader", "gltf_pbr"):
+        grab("base_color", "base_color", True)
+        grab("metallic", "metallic")
+        grab("roughness", "roughness")
+        grab("transmission", "transmission")
+        grab("alpha", "opacity")
+        grab("emissive", "emissive")
+        if str(node.inputs.get("alpha_mode", "")).upper() == "MASK":
+            params["opacity_threshold"] = float(node.inputs.get("alpha_cutoff", 0.5))
+    else:
+        raise NotImplementedError(
+            f"{desc.path}: surface shader {sid!r} is not ported yet (ROADMAP: 'USD content', "
+            "the MDL and MaterialX front ends)")
 
     # normal-map scale/bias defaults: authors often omit the required
     # scale=2 bias=-1 mapping (reference: previewSurfaceNetworkPatcher.cpp)
@@ -174,6 +232,8 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
             nref, scale=(2.0, 2.0, 2.0, 1.0), bias=(-1.0, -1.0, -1.0, 0.0), is_srgb=False)
     params["vcolor_mul"] = float(bool(node.inputs.get("_vcolor_multiply", False)))
     traits.has_backface_edf = bool(node.inputs.get("has_backface_edf", False))
+    traits.has_cutout = (params["opacity_threshold"] > 0.0 or params["opacity"] < 1.0
+                         or "opacity" in textures)
     return LoweredMaterial(params=params, traits=traits, textures=textures)
 
 

@@ -335,3 +335,158 @@ def test_wavefront_frame_matches_cpu(cuda):
         assert (gpu[a] == cpu[a]).mean() >= 0.999, a
     c_gpu, c_cpu = gpu[AovId.COLOR][..., :3], cpu[AovId.COLOR][..., :3]
     assert np.isfinite(c_gpu).all() and abs(c_gpu.mean() - c_cpu.mean()) < 0.01 * c_cpu.mean()
+
+
+# ---------------------------------------------------------------------------
+# the advanced lobes, the cutout, the probes
+# ---------------------------------------------------------------------------
+
+def _lobe_desc(name: str):
+    """glass_coated (resident K1, advanced), cornell_cutout (resident K1,
+    cutout: the tall block at opacity 0.5, the short one shut out by its
+    threshold) or a small sphere_field with a glass, a clearcoated and a
+    half-open material (K2, both branches)."""
+    import copy
+
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    if name == "glass_coated":
+        return load_scene("tests/graphical/Materials.GlassCoated/scene.usda")
+    if name == "cornell_cutout":
+        desc = load_scene("tests/data/cornell.usda")
+        white = desc.materials["/Cornell/Materials/White"]
+        for block, extra in (("TallBlock", dict(opacity=0.5)),
+                             ("ShortBlock", dict(opacity=0.3, opacityThreshold=0.5))):
+            m = copy.deepcopy(white)
+            m.path = f"/{block}Cutout"
+            m.nodes[m.surface_node].inputs.update(extra)
+            desc.materials[m.path] = m
+            next(x for x in desc.meshes if x.path.endswith("/" + block)).material = m.path
+        desc.lights.append(_rect_light())
+        return desc
+    desc = sphere_field(n_side=6, sphere_res=12)
+    node = desc.materials["/mat0"].nodes[desc.materials["/mat0"].surface_node]
+    node.shader_id = "ND_open_pbr_surface_surfaceshader"
+    node.inputs = dict(transmission_weight=1.0, specular_ior=1.5, specular_roughness=0.1)
+    for path, extra in (("/mat1", dict(clearcoat=1.0)), ("/mat2", dict(opacity=0.5))):
+        desc.materials[path].nodes[desc.materials[path].surface_node].inputs.update(extra)
+    return desc
+
+
+def _tables(desc, device, instanced: bool = False):
+    mat_paths = sorted({m.material for m in desc.meshes if m.material})
+    midx = {p: i for i, p in enumerate(mat_paths)}
+    midx[None] = len(mat_paths)
+    table = build_material_table([lower_material(desc.materials.get(p) if p else None)
+                                  for p in midx])
+    lights = build_light_arrays([l for l in desc.lights if l.light_type != "dome"])
+    if instanced:
+        return tb.build_fused_scene_instanced(desc.meshes, midx, table, lights, device)
+    return tb.build_fused_scene(build_geometry(desc.meshes, midx), table, lights, device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name,instanced", [("glass_coated", False), ("cornell_cutout", False),
+                                            ("sphere_field_lobes", False),
+                                            ("sphere_field_lobes", True)])
+@pytest.mark.parametrize("nee", [False, True])
+def test_branch_kernels_match_twin(cuda, name, instanced, nee):
+    """K1's and K2's advanced and cutout branches against the twin on a
+    128x64 camera wave, bounces 0-4: rows 12-15 bit-equal, rows 0-11 at
+    rtol 1e-4 / atol 1e-5 on 99.9 % of rays."""
+    desc = _lobe_desc(name)
+    fs, static = _tables(desc, cuda, instanced)
+    assert static.instanced == instanced
+    assert fs.advanced == (name != "cornell_cutout") and fs.cutout == (name != "glass_coated")
+    w, h = 128, 64
+    cam = camera_uniforms(desc.first_camera(), False, cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 3),
+                                      True, True, False)
+    state = tb.pack_state(o, d, rng, w * h)
+    params = np.zeros((5, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(5)
+    params[:, 6] = params[:, 8] = params[:, 9] = 1.0
+    key = "K1" if fs.walk is None else "K2"
+    for bounce in range(5):
+        p = torch.tensor(params[bounce], device=cuda)
+        twin = state.clone()
+        tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, nee, fs.walk,
+                      fs.advanced, fs.cutout)
+        kern = state.clone()
+        before = tb.launches[key]
+        tb.bounce_step(p, fs, kern, nee)
+        torch.cuda.synchronize()
+        assert tb.launches[key] == before + 1
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, (
+            name, bounce, int(bits.sum()), int((~close).sum()))
+        state = twin
+
+
+@pytest.mark.requires_cuda
+def test_cutout_draws_match_twin(cuda):
+    """The searches' draw function on the card, bit for bit."""
+    from gatling_tpu_torch.ops.bounce_ref import cutout_xi
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 1 << 32, size=1 << 20, dtype=np.uint64).astype(np.uint32)
+    ids = rng.integers(0, 1 << 31, size=1 << 20, dtype=np.uint64).astype(np.uint32)
+    got = tb.cutout_draws(torch.tensor(keys.view(np.int32), device=cuda),
+                          torch.tensor(ids.view(np.int32), device=cuda)).cpu()
+    ref = cutout_xi(torch.tensor(keys.astype(np.int64)), torch.tensor(ids.astype(np.int64)))
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.requires_cuda
+def test_split_lobes_frame_matches_cpu(cuda):
+    """An untextured anisotropic scene with a half-open material renders
+    through the split kernels (K3 with the cutout draws, K4 with the
+    advanced lobes) on the card and through their twins on the CPU, the
+    same samples: the means within 1 %, 98 % of pixels within 1e-3."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    out = {}
+    for device in (cuda, "cpu"):
+        desc = _lobe_desc("sphere_field_lobes")
+        node = desc.materials["/mat3"].nodes[desc.materials["/mat3"].surface_node]
+        node.shader_id = "ND_open_pbr_surface_surfaceshader"
+        node.inputs = dict(base_metalness=1.0, specular_roughness=0.3,
+                           specular_roughness_anisotropy=0.7)
+        scene = gi.create_scene(device)
+        for m in desc.meshes:
+            scene.add_mesh(m)
+        for m in desc.materials.values():
+            scene.add_material(m)
+        for light in desc.lights:
+            scene.add_light(light)
+        buf = gi.GiRenderBuffer(48, 48, 4)
+        before = dict(tb.launches)
+        gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                    aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                                    render_settings=dict(spp=2, maxBounces=4,
+                                                         nextEventEstimation=True)))
+        st = scene._fused_static
+        assert st.textured and st.advanced and st.cutout and st.tangents
+        if device != "cpu":
+            assert tb.launches["K3"] > before["K3"] and tb.launches["K4"] > before["K4"]
+        out[str(device)] = buf.data[..., :3].copy()
+    g, c = out[str(cuda)], out["cpu"]
+    assert np.isfinite(g).all() and abs(g.mean() - c.mean()) < 0.01 * c.mean()
+    assert (np.abs(g - c) <= 1e-3 * np.maximum(1.0, np.abs(c))).all(-1).mean() >= 0.98
+
+
+@pytest.mark.requires_cuda
+def test_probes_match_twins(cuda):
+    """P1's six moves bit-equal to their torch twins; P2's three products
+    equal to their twins bit for bit (TF32: the emulated cvt.rna
+    rounding)."""
+    from gatling_tpu_torch.tools import cast_probe, precision_probe
+
+    assert all(ok for ok, _deg in cast_probe.run(cuda).values())
+    results = precision_probe.run(cuda)
+    assert all(same for *_e, same in results.values())
+    assert results["HIGHEST (FP32)"][0] == 0.0

@@ -134,9 +134,17 @@ def test_gate_renders_a_small_plain_scene():
     assert np.isfinite(img).all() and scene.sample_offset == 1
 
 
+def _with_volume(scene, path: str) -> None:
+    """Give a rendered scene's lowered material an absorption coefficient,
+    which only the MDL front end produces (the next frame re-reads it)."""
+    scene._lowered_materials[scene._material_index[path]].params["volume_absorption"] = (
+        1.0, 0.5, 0.2)
+
+
 def test_gate_raises_on_large_scene():
-    """Above the resident ceiling a plain scene renders through the walk;
-    a cutout material still raises there, naming its ROADMAP item."""
+    """Above the resident ceiling a plain scene renders through the walk,
+    and so does a cutout material (the walk's cutout branch); a volume
+    coefficient raises there, naming its ROADMAP item."""
     scene = gi.create_scene("cpu")
     scene.add_mesh(_quad_grid_mesh(46))  # 4232 triangles
     img = _render(scene)
@@ -146,7 +154,11 @@ def test_gate_raises_on_large_scene():
     node = ShaderNode(path="/cut/s", shader_id="UsdPreviewSurface", inputs={"opacity": 0.5},
                       input_connections={})
     scene.add_material(MaterialDesc(path="/cut", surface_node="/cut/s", nodes={"/cut/s": node}))
-    with pytest.raises(NotImplementedError, match="Lobes, media and cutout"):
+    img = _render(scene)
+    assert np.isfinite(img).all() and scene._fused_static.clustered
+    assert scene._fused_static.cutout and scene._fused.cutout
+    _with_volume(scene, "/cut")
+    with pytest.raises(NotImplementedError, match="USD content"):
         _render(scene)
 
 
@@ -181,7 +193,8 @@ def test_gate_raises_outside_the_slice(what):
     kwargs = {}
     if what == "vcolor":
         # a displayColor mesh whose fallback material multiplies the colours
-        # in takes the wavefront integrator, where a cutout still raises
+        # in takes the wavefront integrator, which renders its cutout; a
+        # volume coefficient raises there
         grid = scene.meshes[0]
         pts = np.zeros((9, 3), np.float32)
         pts[:, :2] = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], indexing="ij"), -1).reshape(9, 2)
@@ -200,7 +213,11 @@ def test_gate_raises_outside_the_slice(what):
     elif what == "devices":
         kwargs["parallelDevices"] = 2
     item = {"dome": "Dome lights", "aov": "First-hit AOVs", "clipping": "First-hit AOVs",
-            "devices": "Multi-GPU", "vcolor": "Lobes, media and cutout"}[what]
+            "devices": "Multi-GPU", "vcolor": "USD content"}[what]
+    if what == "vcolor":
+        img = _render(scene)
+        assert np.isfinite(img).all() and scene._accel is not None and scene._fused is None
+        _with_volume(scene, "/dc")
     with pytest.raises(NotImplementedError, match=item):
         _render(scene, AovId.NORMAL if what == "aov" else AovId.COLOR, **kwargs)
 
