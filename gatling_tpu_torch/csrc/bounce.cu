@@ -10,10 +10,9 @@
 // `_cluster_walk_plan`. Both share the shading code. Their plain PyTorch
 // twin is ops/bounce_ref.py; all compute the same float operations in the
 // same order, so with -fmad=false they agree to the last bit except where
-// the math library's cos/sin/log differ. Volumes and scattering are not
-// ported (gi raises for them).
+// the math library's cos/sin/log/exp differ.
 //
-// Two branches of the JAX FusedStatic are template flags here:
+// Three branches of the JAX FusedStatic are template flags here:
 // * ADV (`advanced`), the full lobe set in the shading core: clearcoat,
 //   anisotropic GGX (in the mesh-tangent frame where K4 reads the hit
 //   buffer's tangent rows) and thick refraction with the exact dielectric
@@ -31,6 +30,25 @@
 //   and the path's PCG stream gives no draw. It adds a hash (about 10
 //   integer operations) to each candidate that would win, bound like the
 //   search itself by the per-ray triangle tests.
+// * VOL (`volumes` and `scatter`, one mode: 0 off, 1 absorption only, 2
+//   scatter; K4 takes 0 and 1). Absorption (:2414-2430, :2930-2940):
+//   the alive row holds 2.0 inside a medium; the segment into a hit,
+//   measured from the hit position, attenuates by exp(-sigma_a d) with
+//   the HIT material's sigma_a, and a refracted crossing of a
+//   non-thin-walled surface toggles the flag. Scatter, a depth-1 medium
+//   stack (:2223, :2255-2290, :2321-2330, :2404-2413, :2779-2831,
+//   :2941-2954): the alive row encodes 2 + medium material id + 64 x walk
+//   count; inside a scattering medium a ray draws a free-flight distance
+//   (one colour channel by spectral MIS, two PCG words), and a hit beyond
+//   it, or none, becomes a Henyey-Greenstein walk step (two more words)
+//   instead of a surface hit or a miss; a surface hit inside attenuates
+//   by the current medium's sigma_t over the hit's t. The TPU kernel
+//   resolved the medium's row with a select loop over every material and
+//   kept the flags as f32 0/1; here both are one indexed read of the
+//   shared-memory table and a bool. Every reader takes a ray as alive iff
+//   its row 13 exceeds 0.5; ids are rounded half to even (rintf, as
+//   jnp.round). It adds a log and an exp or two a ray, no memory traffic
+//   beyond the table columns 16-22.
 // The source compiles in parts (GATLING_PART, ops/cuda_lib.py), each
 // defining some of the entry points below, so that nvcc runs in parallel.
 //
@@ -123,7 +141,11 @@ enum { H_HIT = 0, H_T = 1, H_UV = 2, H_MAT = 4, H_GN = 5, H_N = 8, H_FRONT = 11,
        H_POS = 13, HIT_ROWS = 16, H_TAN = 16, H_BS = 19, HIT_ROWS_TAN = 24 };
 // params
 enum { P_BG_R = 0, P_RR_INV_MIN = 3, P_RR_OFFSET = 4, P_BOUNCE = 5,
-       P_EXP2_EXPOSURE = 6, P_TMIN = 7, P_LIGHT_MULT = 8, PARAMS_LEN = 11 };
+       P_EXP2_EXPOSURE = 6, P_TMIN = 7, P_LIGHT_MULT = 8, P_METERS = 9, P_MAX_WALK = 10,
+       PARAMS_LEN = 11 };
+// material columns of the volume modes: sigma_a, sigma_s, the HG bias
+enum { MF_VOL_A = 16, MF_VOL_S = 19, MF_VOL_BIAS = 22 };
+enum { VOL_OFF = 0, VOL_ABSORB = 1, VOL_SCATTER = 2 };
 enum { LT_SPHERE = 0, LT_DISTANT = 1, LT_RECT = 2, LT_DISK = 3 };
 constexpr double SHADOW_TMIN = 0.01;  // reference: rgen:397-438 shadow ray tMin
 
@@ -417,6 +439,18 @@ struct Ray {
   uint32_t rng;
   bool hit, miss, valid, do_trace;
   float ld[3], ldist, cnee[3];  // NEE: light direction, distance, contribution
+  // volume modes: a refracted crossing of a non-thin-walled surface, and
+  // the alive row the ray keeps if it survives the bounce
+  bool toggled;
+  float alive_out;
+};
+
+// The scatter mode's record of one ray's bounce: the decoded alive row,
+// the current medium's coefficients and the free-flight sample; `step`: a
+// walk step instead of a surface hit or a miss.
+struct Medium {
+  bool inside, do_dist, step;
+  float mid_f, walk_f, t_sample, gbias, ms[3], mt[3], p3[3];
 };
 
 // The closest hit: its t, barycentrics, geometric normal, interpolated
@@ -440,6 +474,7 @@ struct Hit {
 struct Mat {
   float base[3], metallic, roughness, ior, em[3], transm, thinw, bf_edf;
   float coat, coat_rough, aniso, aniso_rot;
+  float va[3];  // the absorption mode's sigma_a
 };
 
 __device__ __forceinline__ void load_path(Ray& r, const float* state, long long R,
@@ -470,9 +505,9 @@ __device__ __forceinline__ Hit surface_hit(const float o[3], const float d[3], c
 }
 
 // Material row of a hit from the shared-memory table (ids outside the
-// table resolve to zeros); ADV also reads the advanced columns
-// (pallas_bounce.py _resolve_material_rows).
-template <bool ADV>
+// table resolve to zeros); ADV also reads the advanced columns, the
+// absorption mode sigma_a (pallas_bounce.py _resolve_material_rows).
+template <bool ADV, int VOL = VOL_OFF>
 __device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float mat_f) {
   const int m_id = (int)rintf(mat_f);
   const bool m_ok = m_id >= 0 && m_id < n_mats;
@@ -495,13 +530,106 @@ __device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float m
     t.aniso = MAT(28);
     t.aniso_rot = MAT(29);
   }
+  if (VOL == VOL_ABSORB)
+    for (int c = 0; c < 3; ++c) t.va[c] = MAT(MF_VOL_A + c);
 #undef MAT
   return t;
 }
 
-// Miss: constant background (no dome: not ported).
-__device__ __forceinline__ void shade_miss(const float* p, Ray& r) {
-  r.miss = !r.hit;
+// The scatter mode's free-flight distance sampling of an alive ray
+// (pallas_bounce.py :2255-2290): decode the alive row, resolve the current
+// medium from the table, draw two PCG words where the ray is inside a
+// scattering medium with walk steps left, pick a colour channel by
+// spectral MIS and sample a distance against its sigma_t.
+__device__ __forceinline__ void free_flight(const float* p, const float* s_mat, int n_mats,
+                                            float alive_f, Ray& r, Medium& md) {
+  md.inside = alive_f >= 1.5f;
+  const float enc = fmaxf(alive_f - 2.0f, 0.0f);
+  md.walk_f = floorf(enc * C(1.0 / 64.0));
+  md.mid_f = enc - md.walk_f * 64.0f;
+  const int m_id = (int)rintf(md.mid_f);
+  const bool m_ok = m_id >= 0 && m_id < n_mats;
+  const float* m = s_mat + (m_ok ? m_id : 0) * MAT_COLS;
+  for (int c = 0; c < 3; ++c) {
+    md.ms[c] = m_ok ? m[MF_VOL_S + c] : 0.0f;
+    md.mt[c] = (m_ok ? m[MF_VOL_A + c] : 0.0f) + md.ms[c];
+  }
+  md.gbias = m_ok ? m[MF_VOL_BIAS] : 0.0f;
+  const bool has_scat = (md.ms[0] + md.ms[1] + md.ms[2]) > 0.0f;
+  md.do_dist = md.inside && has_scat && (md.walk_f <= p[P_MAX_WALK]);
+  uint32_t s2 = r.rng;
+  const float xv0 = pcg_next(s2);
+  const float xv1 = pcg_next(s2);
+  if (md.do_dist) r.rng = s2;
+  // spectral single-channel MIS select (rgen sampleDistance:49-69)
+  float w[3];
+  for (int c = 0; c < 3; ++c)
+    w[c] = r.tp[c] * (md.mt[c] > 0.0f ? md.ms[c] / fmaxf(md.mt[c], C(1e-20)) : 0.0f);
+  const float wsum = w[0] + w[1] + w[2];
+  for (int c = 0; c < 3; ++c)
+    md.p3[c] = wsum > C(1e-9) ? w[c] / fmaxf(wsum, C(1e-9)) : C(1.0 / 3.0);
+  const bool pick1 = xv0 < md.p3[0];
+  const bool pick2 = !pick1 && (xv0 < md.p3[0] + md.p3[1]);
+  const float sel_sigma = pick1 ? md.mt[0] : (pick2 ? md.mt[1] : md.mt[2]);
+  const float s_coef = fmaxf(sel_sigma * p[P_METERS], C(1e-20));
+  md.t_sample = -logf(fmaxf(1.0f - xv1, C(1e-20))) / s_coef;
+}
+
+// A walk step of a ray whose free-flight sample fell short of its hit
+// (:2779-2831): throughput sigma_s T / pdf, the origin t_sample along, and
+// a Henyey-Greenstein direction in the Duff frame of the current one.
+__device__ __forceinline__ void walk_step(const float* p, Ray& r, const Medium& md) {
+  const float ts = md.t_sample;
+  const float dm_s = ts * p[P_METERS];
+  float trv[3];
+  for (int c = 0; c < 3; ++c) trv[c] = expf(-md.mt[c] * dm_s);
+  const float pdf_w = fmaxf(md.p3[0] * md.mt[0] * trv[0] + md.p3[1] * md.mt[1] * trv[1] +
+                                md.p3[2] * md.mt[2] * trv[2], C(1e-20));
+  for (int c = 0; c < 3; ++c) {
+    r.tp[c] = r.tp[c] * md.ms[c] * trv[c] / pdf_w;
+    r.o[c] = r.o[c] + r.d[c] * ts;
+  }
+  const float xh0 = pcg_next(r.rng);
+  const float xh1 = pcg_next(r.rng);
+  const float g = md.gbias;
+  const float sq = (1.0f - g * g) / fmaxf(1.0f - g + 2.0f * g * xh0, C(1e-9));
+  const float g_safe = fabsf(g) < C(1e-9) ? 1.0f : g;
+  const float cos_hg = clampf(fabsf(g) < C(1e-3) ? 1.0f - 2.0f * xh0
+                                                 : (1.0f + g * g - sq * sq) / (2.0f * g_safe),
+                              -1.0f, 1.0f);
+  const float sin_hg = sqrtf(fmaxf(0.0f, 1.0f - cos_hg * cos_hg));
+  const float phi = C(2.0 * PI_D) * xh1;
+  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
+  const float vsign = dz >= 0.0f ? 1.0f : -1.0f;
+  const float va_o = -1.0f / (vsign + dz);
+  const float vb_o = dx * dy * va_o;
+  const float v1x = 1.0f + vsign * dx * dx * va_o, v1y = vsign * vb_o, v1z = -vsign * dx;
+  const float v2x = vb_o, v2y = vsign + dy * dy * va_o, v2z = -dy;
+  const float shx = sin_hg * cosf(phi);
+  const float shy = sin_hg * sinf(phi);
+  r.d[0] = v1x * shx + v2x * shy + dx * cos_hg;
+  r.d[1] = v1y * shx + v2y * shy + dy * cos_hg;
+  r.d[2] = v1z * shx + v2z * shy + dz * cos_hg;
+}
+
+// The alive row of a volume mode for a ray that survives the bounce
+// (:2930-2954): inside a medium after the toggle, 2.0 (absorption) or
+// 2 + medium id + 64 x walk count (scatter: a medium entered through a
+// front face is the hit material, the id clipped to [0, 63]; a crossing
+// resets the walk, a walk step counts); outside, 1.0.
+template <int VOL>
+__device__ __forceinline__ float medium_row(bool inside, const Ray& r, bool entering,
+                                            float mat_f, const Medium& md) {
+  if (r.toggled == inside) return 1.0f;  // outside after the bounce
+  if (VOL == VOL_ABSORB) return 2.0f;
+  const float mid_new = entering ? clampf(rintf(mat_f), 0.0f, 63.0f) : md.mid_f;
+  const float walk_new = r.toggled ? 0.0f : (md.step ? md.walk_f + 1.0f : md.walk_f);
+  return 2.0f + mid_new + 64.0f * walk_new;
+}
+
+// Miss: constant background (no dome: not ported); a walk step is no miss.
+__device__ __forceinline__ void shade_miss(const float* p, Ray& r, bool step = false) {
+  r.miss = !r.hit && !step;
   if (r.miss) {
     for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.tp[c] * p[P_BG_R + c];
     r.miss_rec = p[P_BOUNCE] + 1.0f;
@@ -510,11 +638,16 @@ __device__ __forceinline__ void shade_miss(const float* p, Ray& r) {
 
 // Emission, BSDF sampling, the new ray and the NEE light sample of an
 // alive ray that hit (pallas_bounce.py _shade_core). ADV: the full lobe
-// set (:2453-2762).
-template <bool NEE, bool ADV>
+// set (:2453-2762). VOL: first the transmittance of the segment into the
+// hit for a ray `inside` a medium (absorption: the hit material's sigma_a
+// over the distance from the origin to the hit position; scatter: the
+// current medium's sigma_t over the hit's t, `hit_t`), and last whether
+// the sample crosses into or out of a medium (r.toggled).
+template <bool NEE, bool ADV, int VOL = VOL_OFF>
 __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const Hit& h,
                                            const float* s_light, const int* s_ltype,
-                                           int n_lights, Ray& r) {
+                                           int n_lights, Ray& r, bool inside = false,
+                                           const Medium* md = nullptr, float hit_t = 0.0f) {
   const float posx = h.pos[0], posy = h.pos[1], posz = h.pos[2];
   const float gnx = h.gn[0], gny = h.gn[1], gnz = h.gn[2];
   const float nx = h.n[0], ny = h.n[1], nz = h.n[2];
@@ -522,6 +655,15 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
   for (int c = 0; c < 3; ++c) s.base[c] = m.base[c];
   s.metallic = m.metallic;
   s.transm = m.transm;
+
+  if (VOL == VOL_SCATTER && inside) {  // (:2404-2413, integrator chit:160-186)
+    const float dist_m = hit_t * p[P_METERS];
+    for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * expf(-md->mt[c] * dist_m);
+  } else if (VOL == VOL_ABSORB && inside) {  // (:2414-2430, integrator:427-431)
+    const float ex = posx - r.o[0], ey = posy - r.o[1], ez = posz - r.o[2];
+    const float dist_m = fminf(sqrtf(ex * ex + ey * ey + ez * ez), C(1e30)) * p[P_METERS];
+    for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * expf(-m.va[c] * dist_m);
+  }
 
   // ---- emission (rp_main.chit:304-315) ----
   if (h.front || h.dsided <= 0.5f || (m.thinw > 0.5f && m.bf_edf > 0.5f)) {
@@ -723,6 +865,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
   // new origin, offset along the signed geometric normal (a Fresnel-
   // reflected thick-glass sample stays on the front side); world wi
   const bool crossing = pick_t && (!ADV || thin || !refl_pick);
+  if (VOL != VOL_OFF) r.toggled = r.valid && pick_t && m.thinw <= 0.5f && (!ADV || !refl_pick);
   const float osign = crossing ? -1.0f : 1.0f;
   for (int c = 0; c < 3; ++c)
     r.o[c] = h.pos[c] + h.gn[c] * osign * fmaxf(fabsf(h.pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
@@ -766,19 +909,43 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
 }
 
 // The whole shading of a bounce for an alive ray whose closest hit (r.hit,
-// sf) is known: K1 and K2 read the material row from the table.
-template <bool NEE, bool ADV>
+// sf) is known: K1 and K2 read the material row from the table. VOL: the
+// alive row `alive_f` the ray came in with; scatter: `md` from
+// free_flight, whose sample caps the segment (:2321-2330).
+template <bool NEE, bool ADV, int VOL = VOL_OFF>
 __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_mats,
                                       const float* s_light, const int* s_ltype,
-                                      int n_lights, const Surf& sf, Ray& r) {
-  shade_miss(p, r);
-  if (!r.hit) return;
-  shade_core<NEE, ADV>(p, table_mat<ADV>(s_mat, n_mats, sf.mat_f), surface_hit(r.o, r.d, sf),
-                       s_light, s_ltype, n_lights, r);
+                                      int n_lights, const Surf& sf, Ray& r,
+                                      float alive_f = 1.0f, Medium* md = nullptr) {
+  if constexpr (VOL == VOL_OFF) {
+    shade_miss(p, r);
+    if (!r.hit) return;
+    shade_core<NEE, ADV>(p, table_mat<ADV>(s_mat, n_mats, sf.mat_f), surface_hit(r.o, r.d, sf),
+                         s_light, s_ltype, n_lights, r);
+  } else {
+    const bool inside = VOL == VOL_SCATTER ? md->inside : alive_f > 1.5f;
+    if (VOL == VOL_SCATTER) {
+      md->step = md->do_dist && (!r.hit || sf.t > md->t_sample);
+      r.hit = r.hit && !md->step;
+    }
+    shade_miss(p, r, VOL == VOL_SCATTER && md->step);
+    bool front = false;
+    if (r.hit) {
+      const Hit h = surface_hit(r.o, r.d, sf);
+      front = h.front;
+      shade_core<NEE, ADV, VOL>(p, table_mat<ADV, VOL>(s_mat, n_mats, sf.mat_f), h, s_light,
+                                s_ltype, n_lights, r, inside, md, sf.t);
+    } else if (VOL == VOL_SCATTER && md->step) {
+      walk_step(p, r, *md);
+    }
+    r.alive_out = medium_row<VOL>(inside, r, r.toggled && front, sf.mat_f, *md);
+  }
 }
 
 // NEE contribution, termination (miss, absorb, throughput cutoff, russian
-// roulette) and the write-back of an alive ray.
+// roulette) and the write-back of an alive ray (VOL: its alive row
+// r.alive_out).
+template <int VOL = VOL_OFF>
 __device__ __forceinline__ void finish(const float* p, Ray& r, bool occ, float* state,
                                        long long R, long long i) {
   if (r.do_trace && !occ)
@@ -805,7 +972,7 @@ __device__ __forceinline__ void finish(const float* p, Ray& r, bool occ, float* 
     state[(S_RAD + c) * R + i] = r.rad[c];
   }
   state[S_RNG * R + i] = __uint_as_float(r.rng);
-  state[S_ALIVE * R + i] = terminate ? 0.0f : 1.0f;
+  state[S_ALIVE * R + i] = terminate ? 0.0f : (VOL != VOL_OFF ? r.alive_out : 1.0f);
   state[S_MISS * R + i] = r.miss_rec;
   state[S_SEG * R + i] = state[S_SEG * R + i] + 1.0f + (r.do_trace ? 1.0f : 0.0f);
 }
@@ -862,7 +1029,7 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
 // K4's view of one alive ray: the hit flag, its shading state (with the
 // tangent rows when the buffer has them), and its material, the textured
 // parameters (row >= 0) from the parameter buffer.
-template <bool ADV>
+template <bool ADV, int VOL = VOL_OFF>
 __device__ __forceinline__ void read_hit(const float* hit, const float* par, const int prow[4],
                                          bool hit_tan, const float* s_mat, int n_mats,
                                          long long R, long long i, Ray& r, Hit& h, Mat& m) {
@@ -879,7 +1046,7 @@ __device__ __forceinline__ void read_hit(const float* hit, const float* par, con
     for (int c = 0; c < 3; ++c) h.tan[c] = hit[(H_TAN + c) * R + i];
     h.tbs = hit[H_BS * R + i];
   }
-  m = table_mat<ADV>(s_mat, n_mats, hit[H_MAT * R + i]);
+  m = table_mat<ADV, VOL>(s_mat, n_mats, hit[H_MAT * R + i]);
   for (int c = 0; c < 3; ++c) {
     if (prow[0] >= 0) m.base[c] = par[(prow[0] + c) * R + i];
     if (prow[1] >= 0) m.em[c] = par[(prow[1] + c) * R + i];
@@ -995,7 +1162,7 @@ __device__ __forceinline__ bool resident_occluded(const Smem& sm, const float* t
   return occ;
 }
 
-template <bool NEE, bool ADV, bool CUT>
+template <bool NEE, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
               int n_tris, int ld, const float* __restrict__ mats, int n_mats,
@@ -1010,32 +1177,42 @@ bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
   if (!__syncthreads_or(alive)) return;
 
   stage_tables(sm.mat, mats, n_mats, sm.light, lights, sm.ltype, ltypes, n_lights);
+  if (VOL == VOL_SCATTER) __syncthreads();  // free_flight reads the table
 
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
 
   Ray r = {};
+  Medium md = {};
+  float alive_f = 0.0f;
   uint32_t key = 0;
   if (alive) {
     for (int c = 0; c < 3; ++c) {
       r.o[c] = state[(S_OX + c) * R + i];
       r.d[c] = state[(S_DX + c) * R + i];
     }
-    if (CUT) key = __float_as_uint(state[S_RNG * R + i]);
+    if (VOL != VOL_OFF) alive_f = state[S_ALIVE * R + i];
+    if (VOL == VOL_SCATTER) {
+      load_path(r, state, R, i);
+      free_flight(p, sm.mat, n_mats, alive_f, r, md);
+    }
+    // the resident search keys its cutout draws off the PCG word after the
+    // free-flight draws (:2311)
+    if (CUT) key = VOL == VOL_SCATTER ? r.rng : __float_as_uint(state[S_RNG * R + i]);
   }
 
   float best_t, bu, bv;
   int win;
   resident_closest<CUT>(sm, tris, n_tris, ld, alive, r, p[P_TMIN], key, best_t, bu, bv, win);
   if (alive) {
-    load_path(r, state, R, i);
+    if (VOL != VOL_SCATTER) load_path(r, state, R, i);
     r.hit = best_t < FMAX;
-    shade<NEE, ADV>(p, sm.mat, n_mats, sm.light, sm.ltype, n_lights,
-                    resident_surf(tris, ld, best_t, bu, bv, win), r);
+    shade<NEE, ADV, VOL>(p, sm.mat, n_mats, sm.light, sm.ltype, n_lights,
+                         resident_surf(tris, ld, best_t, bu, bv, win), r, alive_f, &md);
   }
   const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
   if (!alive) return;
-  finish(p, r, occ, state, R, i);
+  finish<VOL>(p, r, occ, state, R, i);
 }
 
 // K3, resident: closest hit and shading state into the hit buffer.
@@ -1090,7 +1267,7 @@ trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
 
 // K4, resident: shading from the hit and parameter buffers; the NEE shadow
 // rays walk the resident table as in K1.
-template <bool NEE, bool ADV, bool CUT>
+template <bool NEE, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
 shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
              int ld, const float* __restrict__ mats, int n_mats,
@@ -1119,13 +1296,15 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
     load_path(r, state, R, i);
     Hit h;
     Mat m;
-    read_hit<ADV>(hit, par, prow, hit_tan != 0, sm.mat, n_mats, R, i, r, h, m);
+    read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, sm.mat, n_mats, R, i, r, h, m);
     shade_miss(p, r);
-    if (r.hit) shade_core<NEE, ADV>(p, m, h, sm.light, sm.ltype, n_lights, r);
+    const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
+    if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, sm.light, sm.ltype, n_lights, r, inside);
+    if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
   }
   const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
   if (!alive) return;
-  finish(p, r, occ, state, R, i);
+  finish<VOL>(p, r, occ, state, R, i);
 }
 
 // ---------------------------------------------------------------------------
@@ -1410,7 +1589,7 @@ __device__ __forceinline__ void pass2_surface(const Walk& w, int win, float u, f
   }
 }
 
-template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT>
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
 walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
             int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
@@ -1434,16 +1613,24 @@ walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ 
     r.o[c] = state[(S_OX + c) * R + i];
     r.d[c] = state[(S_DX + c) * R + i];
   }
-  const int win = walk_closest<INST, TAN, CUT>(w, r.o, r.d, p[P_TMIN],
-                                               CUT ? __float_as_uint(state[S_RNG * R + i]) : 0u);
-  load_path(r, state, R, i);
+  // the walk keys its cutout draws off the PCG word at the start of the
+  // bounce (:1345), before the free-flight draws
+  const uint32_t key = CUT ? __float_as_uint(state[S_RNG * R + i]) : 0u;
+  Medium md = {};
+  const float alive_f = VOL != VOL_OFF ? state[S_ALIVE * R + i] : 1.0f;
+  if (VOL == VOL_SCATTER) {
+    load_path(r, state, R, i);
+    free_flight(p, s_mat, n_mats, alive_f, r, md);
+  }
+  const int win = walk_closest<INST, TAN, CUT>(w, r.o, r.d, p[P_TMIN], key);
+  if (VOL != VOL_SCATTER) load_path(r, state, R, i);
   r.hit = win >= 0;
   Surf sf = {};
   sf.t = FMAX;
   if (r.hit) pass2<INST, TAN>(w, r.o, r.d, win, sf);
-  shade<NEE, ADV>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r);
+  shade<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r, alive_f, &md);
   const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
-  finish(p, r, occ, state, R, i);
+  finish<VOL>(p, r, occ, state, R, i);
 }
 
 // K3 over the walk: the closest hit, pass 2 and the finalize's extra
@@ -1477,7 +1664,7 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
 
 // K4 over the walk: shading from the hit and parameter buffers, the NEE
 // shadow ray through the any-hit walk.
-template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT>
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
 shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
                   int n_mats, const float* __restrict__ lights,
@@ -1507,11 +1694,13 @@ shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
   load_path(r, state, R, i);
   Hit h;
   Mat m;
-  read_hit<ADV>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
+  read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
   shade_miss(p, r);
-  if (r.hit) shade_core<NEE, ADV>(p, m, h, s_light, s_ltype, n_lights, r);
+  const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
+  if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, s_light, s_ltype, n_lights, r, inside);
+  if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
   const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
-  finish(p, r, occ, state, R, i);
+  finish<VOL>(p, r, occ, state, R, i);
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in.
@@ -1546,6 +1735,17 @@ int with_flag(bool v, F&& f) {
   return v ? f(std::true_type{}) : f(std::false_type{});
 }
 
+// a volume mode to a template argument: LO..HI, or cudaErrorInvalidValue
+// for a mode that has no instance in this entry point
+template <int LO, int HI, typename F>
+int with_vol(int v, F&& f) {
+  if (v < LO || v > HI) return (int)cudaErrorInvalidValue;
+  if constexpr (LO < HI) {
+    if (v > LO) return with_vol<LO + 1, HI>(v, f);
+  }
+  return f(std::integral_constant<int, LO>{});
+}
+
 }  // namespace
 
 // the launch configuration of an entry point below: one thread per ray
@@ -1558,7 +1758,7 @@ extern "C" {
 // Every entry point launches on `stream` and returns a cudaError_t code
 // (0 = launched). Resident tables are [n_tris, ld] (ld 32, or 48 with
 // tangent rows; 36 or 52 with the cutout columns); walk tables carry their
-// row length (40, or 56). `adv` and `cut` pick the branches.
+// row length (40, or 56). `adv`, `cut` and `vol` pick the branches.
 
 #if PART(0)
 const char* gatling_error_string(int code) {
@@ -1575,25 +1775,6 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
   return (int)cudaGetLastError();
 }
 
-// K1: one bounce over state [16, n_rays] in place.
-int gatling_bounce_step(const float* params, const float* tris, int n_tris, int ld,
-                        const float* mats, int n_mats, const float* lights,
-                        const int8_t* light_types, int n_lights, float* state,
-                        long long n_rays, int nee, int adv, int cut, void* stream) {
-  if (n_rays <= 0) return 0;
-  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
-  return with_flag(nee, [&](auto nee_) {
-    return with_flag(adv, [&](auto adv_) {
-      return with_flag(cut, [&](auto cut_) {
-        auto kern = bounce_kernel<V(nee_), V(adv_), V(cut_)>;
-        if (int err = allow_smem(kern, smem)) return err;
-        kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types, n_lights,
-                          state, n_rays);
-        return (int)cudaGetLastError();
-      });
-    });
-  });
-}
 
 // K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
 int gatling_trace_resident(const float* params, const float* tris, int n_tris, int ld,
@@ -1619,17 +1800,43 @@ int gatling_shade_resident(const float* params, const float* tris, int n_tris, i
                            const int8_t* light_types, int n_lights, float* state,
                            long long n_rays, const float* hit, const float* par, int pb,
                            int pe, int pm, int pr, int hit_tan, int nee, int adv, int cut,
-                           void* stream) {
+                           int vol, void* stream) {
   if (n_rays <= 0) return 0;
   const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
   return with_flag(nee, [&](auto nee_) {
     return with_flag(adv, [&](auto adv_) {
       return with_flag(cut, [&](auto cut_) {
-        auto kern = shade_kernel<V(nee_), V(adv_), V(cut_)>;
-        if (int err = allow_smem(kern, smem)) return err;
-        kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types, n_lights,
-                          state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);
-        return (int)cudaGetLastError();
+        return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
+          auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
+          if (int err = allow_smem(kern, smem)) return err;
+          kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types,
+                            n_lights, state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);
+          return (int)cudaGetLastError();
+        });
+      });
+    });
+  });
+}
+#endif
+
+#if PART(5)
+// K1: one bounce over state [16, n_rays] in place.
+int gatling_bounce_step(const float* params, const float* tris, int n_tris, int ld,
+                        const float* mats, int n_mats, const float* lights,
+                        const int8_t* light_types, int n_lights, float* state,
+                        long long n_rays, int nee, int adv, int cut, int vol, void* stream) {
+  if (n_rays <= 0) return 0;
+  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
+  return with_flag(nee, [&](auto nee_) {
+    return with_flag(adv, [&](auto adv_) {
+      return with_flag(cut, [&](auto cut_) {
+        return with_vol<VOL_OFF, VOL_SCATTER>(vol, [&](auto vol_) {
+          auto kern = bounce_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
+          if (int err = allow_smem(kern, smem)) return err;
+          kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types,
+                            n_lights, state, n_rays);
+          return (int)cudaGetLastError();
+        });
       });
     });
   });
@@ -1660,47 +1867,61 @@ int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, lon
 #endif
 
 // K2: one bounce over state [16, n_rays] in place through the two-level
-// walk, NEE off (gatling_bounce_walk) or on (gatling_bounce_walk_nee).
-#define BOUNCE_WALK(NAME, NEE_)                                                               \
+// walk, NEE off (gatling_bounce_walk) or on (gatling_bounce_walk_nee);
+// the volume modes VLO..VHI (the plain entry points take VOL_OFF, the
+// ..._vol ones the absorption and scatter modes, in parts of their own).
+// The scatter mode has no tangent-row instance: only the split bounce's
+// tables carry tangents, and gi sends no scattering there.
+#define BOUNCE_WALK(NAME, NEE_, VLO, VHI)                                                     \
   int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
            const float* lights, const int8_t* light_types, int n_lights, float* state,        \
-           long long n_rays, int adv, int cut, void* stream) {                                \
+           long long n_rays, int adv, int cut, int vol, void* stream) {                       \
     if (n_rays <= 0) return 0;                                                                \
     const Walk w = WALK_STRUCT;                                                               \
     const size_t smem = table_smem(n_mats, n_lights);                                         \
-    return with_flag(instanced, [&](auto inst_) {                                             \
-      return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                                 \
-        return with_flag(adv, [&](auto adv_) {                                                \
-          return with_flag(cut, [&](auto cut_) {                                              \
-            auto kern = walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_)>;               \
-            if (int err = allow_smem(kern, smem)) return err;                                 \
-            kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights, state,  \
-                              n_rays);                                                        \
-            return (int)cudaGetLastError();                                                   \
-          });                                                                                 \
+    return with_vol<VLO, VHI>(vol, [&](auto vol_) {                                           \
+      return with_flag(instanced, [&](auto inst_) {                                           \
+        return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                               \
+          if constexpr (V(tan_) && V(vol_) == VOL_SCATTER) {                                  \
+            return (int)cudaErrorInvalidValue;                                                \
+          } else {                                                                            \
+            return with_flag(adv, [&](auto adv_) {                                            \
+              return with_flag(cut, [&](auto cut_) {                                          \
+                auto kern = walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_)>;  \
+                if (int err = allow_smem(kern, smem)) return err;                             \
+                kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights,     \
+                                  state, n_rays);                                             \
+                return (int)cudaGetLastError();                                               \
+              });                                                                             \
+            });                                                                               \
+          }                                                                                   \
         });                                                                                   \
       });                                                                                     \
     });                                                                                       \
   }
 
-// K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee).
-#define SHADE_WALK(NAME, NEE_)                                                                \
+// K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee),
+// the volume modes VLO..VHI.
+#define SHADE_WALK(NAME, NEE_, VLO, VHI)                                                      \
   int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
            const float* lights, const int8_t* light_types, int n_lights, float* state,        \
            long long n_rays, const float* hit, const float* par, int pb, int pe, int pm,      \
-           int pr, int hit_tan, int adv, int cut, void* stream) {                             \
+           int pr, int hit_tan, int adv, int cut, int vol, void* stream) {                    \
     if (n_rays <= 0) return 0;                                                                \
     const Walk w = WALK_STRUCT;                                                               \
     const size_t smem = table_smem(n_mats, n_lights);                                         \
-    return with_flag(instanced, [&](auto inst_) {                                             \
-      return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                                 \
-        return with_flag(adv, [&](auto adv_) {                                                \
-          return with_flag(cut, [&](auto cut_) {                                              \
-            auto kern = shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_)>;         \
-            if (int err = allow_smem(kern, smem)) return err;                                 \
-            kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights, state,  \
-                              n_rays, hit, par, pb, pe, pm, pr, hit_tan);                     \
-            return (int)cudaGetLastError();                                                   \
+    return with_vol<VLO, VHI>(vol, [&](auto vol_) {                                           \
+      return with_flag(instanced, [&](auto inst_) {                                           \
+        return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                               \
+          return with_flag(adv, [&](auto adv_) {                                              \
+            return with_flag(cut, [&](auto cut_) {                                            \
+              auto kern =                                                                     \
+                  shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_)>;      \
+              if (int err = allow_smem(kern, smem)) return err;                               \
+              kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights,       \
+                                state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);            \
+              return (int)cudaGetLastError();                                                 \
+            });                                                                               \
           });                                                                                 \
         });                                                                                   \
       });                                                                                     \
@@ -1708,16 +1929,28 @@ int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, lon
   }
 
 #if PART(1)
-BOUNCE_WALK(gatling_bounce_walk, false)
+BOUNCE_WALK(gatling_bounce_walk, false, VOL_OFF, VOL_OFF)
 #endif
 #if PART(2)
-BOUNCE_WALK(gatling_bounce_walk_nee, true)
+BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
 #endif
 #if PART(3)
-SHADE_WALK(gatling_shade_walk, false)
+SHADE_WALK(gatling_shade_walk, false, VOL_OFF, VOL_OFF)
 #endif
 #if PART(4)
-SHADE_WALK(gatling_shade_walk_nee, true)
+SHADE_WALK(gatling_shade_walk_nee, true, VOL_OFF, VOL_OFF)
+#endif
+#if PART(6)
+BOUNCE_WALK(gatling_bounce_walk_vol, false, VOL_ABSORB, VOL_SCATTER)
+#endif
+#if PART(7)
+BOUNCE_WALK(gatling_bounce_walk_vol_nee, true, VOL_ABSORB, VOL_SCATTER)
+#endif
+#if PART(8)
+SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB)
+#endif
+#if PART(9)
+SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB)
 #endif
 
 }  // extern "C"

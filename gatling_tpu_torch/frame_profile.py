@@ -4,6 +4,8 @@
     python -m gatling_tpu_torch.frame_profile --scene interior       # textured interior
     python -m gatling_tpu_torch.frame_profile --scene cornell_aovs   # the wavefront
     python -m gatling_tpu_torch.frame_profile --scene glass_coated   # the advanced lobes
+    python -m gatling_tpu_torch.frame_profile --scene cornell_fog    # a scattering medium
+    python -m gatling_tpu_torch.frame_profile --scene glass_tinted   # an absorbing medium
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
 4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
@@ -30,6 +32,14 @@ lobes off (the glass thin-walled, the coat removed: the plain K1), and
 then K1's two branches are timed on the same first wave (1200x1200 x 2
 samples) and the same tables, the advanced one against the plain one
 (the scene's flag cleared), in turns with CUDA events.
+
+cornell_fog and glass_tinted are the Cornell box of scene/examples.py with
+its tall block an MDL medium (a fog: mediumStackSize 1, K1's scatter
+branch; OmniGlass tinted: mediumStackSize 0, K1's absorption branch),
+under the bench's rect light at the Cornell bench settings (1200x1200, 16
+spp, 8 bounces, NEE), loaded from the written .usda as the CLI loads it.
+They are profiled as above, and then K1's volume branch is timed on the
+frame's first wave against the branch without media on the same tables.
 """
 
 from __future__ import annotations
@@ -118,10 +128,27 @@ def _glass_coated(lobes: bool):
         render_settings=settings)
 
 
-def _k1_branches(params) -> None:
-    """K1's advanced and plain branches on the first wave of a rendered
-    scene's frame and its tables, in turns (advanced, plain, plain,
-    advanced), seven CUDA-event-timed launches each on fresh copies."""
+def _media(scene_name: str, tmp_dir: str):
+    """cornell_fog or glass_tinted, loaded through the CLI's loader."""
+    from gatling_tpu_torch.cli import load_gi_scene
+    from gatling_tpu_torch.scene import examples
+
+    path = getattr(examples, scene_name)(tmp_dir)
+    stack = 1 if scene_name == "cornell_fog" else 0
+    scene, desc, merged = load_gi_scene(path, "cuda", dict(
+        spp=GLASS_SPP, maxBounces=GLASS_BOUNCES, nextEventEstimation=True,
+        mediumStackSize=stack, maxVolumeWalkLength=7))
+    return gi.GiRenderParams(
+        scene=scene, camera=desc.first_camera(),
+        aov_bindings=[gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(GLASS_RES, GLASS_RES, 4))],
+        render_settings=merged)
+
+
+def _k1_branches(params, field: str, values: tuple, nee: bool = False) -> None:
+    """K1 with the scene's `field` (advanced, or the volume mode) at each of
+    `values` on the first wave of a rendered scene's frame and its tables,
+    in turns (a, b, b, a), seven CUDA-event-timed launches each on fresh
+    copies."""
     from gatling_tpu_torch.ops import sampling as smp
     from gatling_tpu_torch.ops.bounce import bounce_step, make_params, pack_state
     from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
@@ -137,22 +164,23 @@ def _k1_branches(params) -> None:
     wave = pack_state(o, d, rng, pix.numel())
     uni = Uniforms(cam, 0, 1.0, 10.0, 0.95, 1.0, 1.0, 7)
     p0 = make_params(RenderConfig(res, res), uni, 1, "cuda")[0].contiguous()
-    times = {True: [], False: []}
-    for adv in (True, False, False, True):
-        tables = fs._replace(advanced=adv)
+    times = {v: [] for v in values}
+    for v in (*values, *values[::-1]):
+        tables = fs._replace(**{field: v})
         for _ in range(8):
             s = wave.clone()
             torch.cuda.synchronize()
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            bounce_step(p0, tables, s, False)
+            bounce_step(p0, tables, s, nee)
             b.record()
             torch.cuda.synchronize()
-            times[adv].append(a.elapsed_time(b))
-        times[adv].pop(-8)  # each turn's first launch warms up
-    print(f"  K1 on the first wave ({wave.shape[1]} rays, {fs.tris.shape[0]} triangles): advanced "
-          f"branch median {statistics.median(times[True]):.4f} ms, plain branch "
-          f"{statistics.median(times[False]):.4f} ms (7 launches a turn, two turns each)")
+            times[v].append(a.elapsed_time(b))
+        times[v].pop(-8)  # each turn's first launch warms up
+    print(f"  K1 on the first wave ({wave.shape[1]} rays, {fs.tris.shape[0]} triangles, "
+          f"nee={nee}): " + ", ".join(f"{field}={v} median {statistics.median(t):.4f} ms"
+                                      for v, t in times.items())
+          + " (7 launches a turn, two turns each)")
 
 
 def _params(scene_name: str, nee: bool, tex_dir: str):
@@ -162,6 +190,8 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
         return _cornell_aovs()
     if scene_name.startswith("glass_coated"):
         return _glass_coated(lobes=scene_name == "glass_coated")
+    if scene_name in ("cornell_fog", "glass_tinted"):
+        return _media(scene_name, tex_dir)
     desc = interior(tex_dir=tex_dir) if scene_name == "interior" else sphere_field()
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
@@ -265,13 +295,16 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
         print(f"  texture stage (CUDA events around material_rows, one more frame): {ms:.3f} ms "
               f"in {calls} calls")
     if scene_name == "glass_coated":
-        _k1_branches(params)
+        _k1_branches(params, "advanced", (True, False))
+    elif scene_name in ("cornell_fog", "glass_tinted"):
+        _k1_branches(params, "volumes", (params.scene._fused.volumes, 0), nee=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
-                                        "glass_coated"), default="sphere_field")
+                                        "glass_coated", "cornell_fog", "glass_tinted"),
+                    default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: no CUDA device; the port's timings come from the card")

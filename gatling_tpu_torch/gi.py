@@ -41,14 +41,16 @@ import torch
 
 from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId, aov_bit, f32
 from gatling_tpu_torch.ops.bounce import (
+    MAX_SCATTER_MATS,
     FusedScene,
     FusedStatic,
     UniqueClusters,
     aniso_from_table,
     build_fused_scene_instanced,
     build_fused_scene_with_order,
-    check_slice,
+    has_scattering,
     refit_instanced,
+    with_volumes,
 )
 from gatling_tpu_torch.ops.geometry import (
     build_geometry_cached,
@@ -263,6 +265,7 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
         has_volumes=any(any(c > 0.0 for c in m.params["volume_absorption"])
                         or any(c > 0.0 for c in m.params["volume_scattering"])
                         for m in scene._lowered_materials),
+        medium_stack_size=int(s.get("mediumStackSize", 0)),
         has_cutout=any(m.traits.has_cutout for m in scene._lowered_materials),
     )
 
@@ -306,10 +309,6 @@ def _check_route(params: GiRenderParams, config: RenderConfig, wavefront: bool) 
     if int(params.render_settings.get("parallelDevices", 1) or 1) > 1:
         raise NotImplementedError(
             "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
-    if config.has_volumes:
-        raise NotImplementedError(
-            "volume absorption and scattering are not ported yet (ROADMAP: 'USD content', "
-            "with the MDL front end that produces them)")
     if wavefront:
         return
     opacity_textures = any("opacity" in m.textures for m in scene._lowered_materials)
@@ -328,12 +327,43 @@ def _textured(scene: GiScene) -> bool:
     return pool is not None and pool.packed
 
 
+def _split(scene: GiScene) -> bool:
+    """The scene renders through the split bounce: it is textured, or
+    anisotropic (the hit buffer's tangent rows frame the lobe)."""
+    return _textured(scene) or aniso_from_table(scene._material_table)
+
+
+def _volumes_fused(scene: GiScene, config: RenderConfig) -> bool:
+    """The fused kernels render the scene's media (gatling_tpu/gi.py
+    :687-698, render/fused.py :142-143): absorption at mediumStackSize 0,
+    the depth-1 medium stack at 1 with at most 63 materials and no
+    scattering in a textured or anisotropic scene (the split bounce has no
+    free flight); deeper stacks take the wavefront."""
+    if not config.has_volumes:
+        return True
+    if config.medium_stack_size >= 2:
+        return False
+    return config.medium_stack_size == 0 or (
+        len(scene._lowered_materials) <= MAX_SCATTER_MATS
+        and not (has_scattering(scene._material_table) and _split(scene)))
+
+
+def _fused_volumes(scene: GiScene, config: RenderConfig) -> tuple[FusedScene, FusedStatic]:
+    """The fused tables with the frame's volume mode (gatling_tpu/gi.py
+    :739-747), set anew every frame: absorption, or the scatter mode at
+    mediumStackSize 1 for an untextured, isotropic scene."""
+    fused, static = scene._fused, scene._fused_static
+    if not config.has_volumes:
+        return fused, static
+    return with_volumes(fused, static, config.medium_stack_size == 1 and not _split(scene))
+
+
 def _with_split(scene: GiScene, static: FusedStatic) -> FusedStatic:
     """The static of a textured or anisotropic scene names its textured
     parameters: it renders through the split bounce, whose hit buffer
     carries the mesh tangents that frame anisotropy (gatling_tpu/gi.py
     :681-686, :748-756; an untextured one with the empty texture pool)."""
-    if not (_textured(scene) or aniso_from_table(scene._material_table)):
+    if not _split(scene):
         return static
     return dataclasses.replace(static, textured=True,
                                textured_params=textured_params(scene._lowered_materials))
@@ -353,7 +383,6 @@ def _build_fused(scene: GiScene) -> None:
     """The fused tables (gatling_tpu/gi.py:706-756): instance tables
     first, the flattened build when the scene does not take them."""
     table = _fused_mat_table(scene)
-    check_slice(table)
     scene._clusters = UniqueClusters()
     res = build_fused_scene_instanced(scene.meshes, scene._material_index, table,
                                       scene._light_arrays, scene.device,
@@ -463,8 +492,10 @@ def render(params: GiRenderParams) -> None:
 
     config = _build_config(params, width, height, aov_mask)
     # the JAX package's route (gatling_tpu/gi.py:650-700): AOVs the fused
-    # kernels do not write, or vertex colours, take the wavefront integrator
-    wavefront = bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
+    # kernels do not write, vertex colours, or media the fused kernels do
+    # not carry take the wavefront integrator
+    wavefront = (bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
+                 or not _volumes_fused(scene, config))
     _check_route(params, config, wavefront)
     s = params.render_settings
     uniforms = Uniforms(
@@ -488,6 +519,7 @@ def render(params: GiRenderParams) -> None:
         if scene._fused is None:
             _build_fused(scene)
         pix = torch.arange(n, dtype=torch.int64, device=scene.device)
+        scene._fused, scene._fused_static = _fused_volumes(scene, config)
         static = scene._fused_static
         split = dict(materials=scene._material_dev, textures=scene._texture_pool,
                      textured_params=static.textured_params) if static.textured else {}

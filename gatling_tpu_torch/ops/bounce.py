@@ -22,7 +22,10 @@ select the kernels' branches: `advanced` (a material needs the full lobe
 set: thick refraction, clearcoat or anisotropy) and `cutout` (a triangle's
 untextured opacity lets rays through: the resident table appends two
 pass-probability columns, the clustered rows carry CLU_OPAC /
-CLU_OPAC_SH, the instance rows INST_PASS / INST_PASS_SH). `bounce_step`
+CLU_OPAC_SH, the instance rows INST_PASS / INST_PASS_SH). A third,
+`volumes` (VOL_OFF, VOL_ABSORB or VOL_SCATTER: the JAX FusedStatic's
+`volumes` and `scatter`), is set by gi from the material table and
+mediumStackSize (`with_volumes`), as the JAX gi sets them. `bounce_step`
 runs one bounce of an untextured scene;
 a textured scene splits it into `trace_step` (the hit buffer) and
 `shade_step`, with the texture stage between (render/fused.py). Each runs:
@@ -72,6 +75,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     LT_DISTANT,
     LT_RECT,
     LT_SPHERE,
+    MAX_SCATTER_MATS,
     PARAMS_LEN,
     STATE_ROWS,
     TRI_ROWS,
@@ -91,6 +95,9 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TR_T2,
     TR_UV,
     TRI_ROWS_TAN,
+    VOL_ABSORB,
+    VOL_OFF,
+    VOL_SCATTER,
     WalkTables,
     bounce_ref,
     cutout_xi,
@@ -134,7 +141,7 @@ CLU_VMEM_MAX_BYTES = 56 * 1024 * 1024
 SMEM_TABLE_MAX_BYTES = 48 * 1024
 TLAS_LEAF = 2      # level-1 entries per TLAS leaf
 TLAS_MAX_DEPTH = 48  # the kernel's traversal stack holds 64 nodes
-BOUNCE_PARTS = 5  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
+BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
 
@@ -152,6 +159,7 @@ class FusedScene(NamedTuple):
     walk: WalkTables | None = None  # clustered and instanced scenes
     advanced: bool = False     # the full lobe set in the shading
     cutout: bool = False       # stochastic cutout in the searches
+    volumes: int = VOL_OFF     # the volume mode (VOL_*)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +177,16 @@ class FusedStatic:
     textured_params: tuple[str, ...] = ()  # the parameters some material textures
     advanced: bool = False  # a material needs the full lobe set (FusedScene.advanced)
     cutout: bool = False    # some triangle's pass probability is below 1
+    # absorption-only media (the alive row holds 2.0 inside one), and with
+    # `scatter` the depth-1 medium stack (FusedScene.volumes)
+    volumes: bool = False
+    scatter: bool = False
+
+    @property
+    def volume_mode(self) -> int:
+        if not self.volumes:
+            return VOL_OFF
+        return VOL_SCATTER if self.scatter else VOL_ABSORB
 
     @property
     def clustered(self) -> bool:
@@ -374,13 +392,20 @@ def has_volumes(table: MaterialTable) -> bool:
                 or (pf[:, MF_VOL_S:MF_VOL_S + 3] > 0.0).any())
 
 
-def check_slice(table: MaterialTable) -> None:
-    """Raise on scene content the ported kernels do not cover: volume
-    coefficients, which only the MDL front end produces."""
-    if has_volumes(table):
-        raise NotImplementedError(
-            "volume absorption and scattering are not ported yet (ROADMAP: 'USD content', "
-            "with the MDL front end that produces them)")
+def has_scattering(table: MaterialTable) -> bool:
+    """Some material has scattering coefficients."""
+    return bool((np.asarray(table.packed_f)[:, MF_VOL_S:MF_VOL_S + 3] > 0.0).any())
+
+
+def with_volumes(scene: FusedScene, static: FusedStatic, scatter: bool
+                 ) -> tuple[FusedScene, FusedStatic]:
+    """The tables and static of a scene with volume coefficients: the
+    absorption mode, or with `scatter` the depth-1 medium stack, whose
+    alive-row encoding holds at most MAX_SCATTER_MATS material ids
+    (gatling_tpu/gi.py:739-747; gi routes larger tables to the wavefront,
+    the kernel wrapper refuses them)."""
+    static = dataclasses.replace(static, volumes=True, scatter=bool(scatter))
+    return scene._replace(volumes=static.volume_mode), static
 
 
 def real_triangles(geom: SceneGeometry) -> int:
@@ -411,7 +436,6 @@ def build_fused_scene_with_order(
     re-sorting."""
     n_real = real_triangles(geom)
     geom = SceneGeometry(*[arr[:n_real] for arr in geom])
-    check_slice(table)
     light_table, light_types = _light_table(light_arrays)
     tangents = uses_tangents(table)
     advanced = advanced_from_table(table)
@@ -787,13 +811,15 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
                     light_types: tuple[int, ...], device, l1: np.ndarray | None = None,
                     l2: np.ndarray | None = None, inst_map: np.ndarray | None = None,
                     inst_attr: np.ndarray | None = None, inst_smem: np.ndarray | None = None,
-                    advanced: bool = False, cutout: bool = False) -> FusedScene:
+                    advanced: bool = False, cutout: bool = False,
+                    volumes: int = VOL_OFF) -> FusedScene:
     """The JAX package's FusedScene arrays as NumPy -> the port's device
     tables: resident tris [32, T] ([34, T] or [50, T] with the cutout rows,
     padded here to a float4 multiple), or clustered tris [C_pad, 40, 128]
     with l1 and l2 and, when instanced, inst_map, inst_attr and inst_smem
     (its pass probabilities; the JAX inst_m24 is not needed). `advanced`
-    and `cutout` are the JAX FusedStatic's flags."""
+    and `cutout` are the JAX FusedStatic's flags, `volumes` its `volumes`
+    and `scatter` as a VOL_* mode."""
     tris = np.asarray(tris, np.float32)
     walk = None
     if l1 is None:
@@ -810,7 +836,8 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
     return FusedScene(tris=t(rows), mats=t(mats), lights=t(lights),
                       light_types=torch.as_tensor(np.asarray(light_types, np.int8),
                                                   device=device),
-                      walk=walk, advanced=bool(advanced), cutout=bool(cutout))
+                      walk=walk, advanced=bool(advanced), cutout=bool(cutout),
+                      volumes=int(volumes))
 
 
 # ---------------------------------------------------------------------------
@@ -880,20 +907,22 @@ class BounceKernel(CudaLibrary):
     def __init__(self) -> None:
         walk = [PTR] * 9 + [I32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
         shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
-        flags = [I32, I32]  # advanced, cutout
+        flags = [I32, I32, I32]  # advanced, cutout, the volume mode
         hit = [PTR, PTR, I32, I32, I32, I32, I32]  # hit, parbuf, 4 parameter rows, hit tangents
-        # the walk kernels take NEE as two entry points (..._nee), which
-        # compile in separate parts
+        # the walk kernels take NEE and the volume modes as four entry points
+        # each (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
         bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
         shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *flags, PTR]
         super().__init__("bounce.cu", {
             "gatling_bounce_step": [PTR, PTR, I32, I32, *shading, PTR, I64, I32, *flags, PTR],
-            "gatling_bounce_walk": bounce_walk, "gatling_bounce_walk_nee": bounce_walk,
+            **{_walk_entry("gatling_bounce_walk", nee, vol): bounce_walk
+               for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_trace_resident": [PTR, PTR, I32, I32, PTR, I64, PTR, I32, PTR],
             "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
             "gatling_shade_resident": [PTR, PTR, I32, I32, *shading, PTR, I64, *hit, I32,
                                        *flags, PTR],
-            "gatling_shade_walk": shade_walk, "gatling_shade_walk_nee": shade_walk,
+            **{_walk_entry("gatling_shade_walk", nee, vol): shade_walk
+               for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR]},
             "gatling_error_string", parts=BOUNCE_PARTS)
 
@@ -961,24 +990,37 @@ class BounceKernel(CudaLibrary):
     def _stream(state):
         return torch.cuda.current_stream(state.device).cuda_stream
 
+    @staticmethod
+    def _check_volumes(mats, volumes: int, modes=(VOL_OFF, VOL_ABSORB, VOL_SCATTER)) -> int:
+        if volumes not in modes:
+            raise ValueError(f"bounce kernel: no volume mode {volumes} here (takes {modes})")
+        if volumes == VOL_SCATTER and mats.shape[0] > MAX_SCATTER_MATS:
+            raise ValueError(f"bounce kernel: the scatter mode encodes at most "
+                             f"{MAX_SCATTER_MATS} materials, got {mats.shape[0]}")
+        return int(volumes)
+
     def launch(self, params, tris, mats, lights, light_types, state, nee: bool,
-               advanced: bool = False, cutout: bool = False) -> None:
+               advanced: bool = False, cutout: bool = False, volumes: int = VOL_OFF) -> None:
         """K1: one bounce over a resident table tris [T, 32 or 48; 36 or 52
         with the cutout columns]."""
         self._check_state(params, state)
         self.call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris, cutout),
                    *self._check_shading(mats, lights, light_types),
                    state.data_ptr(), state.shape[1], int(bool(nee)), int(bool(advanced)),
-                   int(bool(cutout)), self.stream(state))
+                   int(bool(cutout)), self._check_volumes(mats, volumes), self.stream(state))
 
     def launch_walk(self, params, tris, mats, lights, light_types, walk: WalkTables, state,
-                    nee: bool, advanced: bool = False, cutout: bool = False) -> None:
+                    nee: bool, advanced: bool = False, cutout: bool = False,
+                    volumes: int = VOL_OFF) -> None:
         """K2: one bounce over clustered tris [C * 128, 40 or 56] and their walk."""
         self._check_state(params, state)
-        self.call("gatling_bounce_walk_nee" if nee else "gatling_bounce_walk", params.data_ptr(),
+        vol = self._check_volumes(mats, volumes)
+        if vol == VOL_SCATTER and tris.shape[1] == CLU_TRI_ROWS_TAN:
+            raise ValueError("bounce kernel: the scatter mode has no tangent-row walk")
+        self.call(_walk_entry("gatling_bounce_walk", nee, vol), params.data_ptr(),
                    *self._walk_args(tris, walk), *self._check_shading(mats, lights, light_types),
                    state.data_ptr(), state.shape[1], int(bool(advanced)), int(bool(cutout)),
-                   self.stream(state))
+                   vol, self.stream(state))
 
     def launch_trace(self, params, tris, walk: WalkTables | None, state,
                      hit: torch.Tensor, cutout: bool = False) -> None:
@@ -996,21 +1038,29 @@ class BounceKernel(CudaLibrary):
 
     def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
                      state, hit, parbuf, par_rows, nee: bool, advanced: bool = False,
-                     cutout: bool = False) -> None:
-        """K4: shade `state` in place from the hit and parameter buffers."""
+                     cutout: bool = False, volumes: int = VOL_OFF) -> None:
+        """K4: shade `state` in place from the hit and parameter buffers
+        (no scatter mode: the split bounce takes absorption only)."""
         self._check_state(params, state)
         self._check_split(state, hit, parbuf)
+        vol = self._check_volumes(mats, volumes, (VOL_OFF, VOL_ABSORB))
         bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
                 *[int(r) for r in par_rows], int(hit.shape[0] == HIT_ROWS_TAN))
-        flags = (int(bool(advanced)), int(bool(cutout)), self.stream(state))
+        flags = (int(bool(advanced)), int(bool(cutout)), vol, self.stream(state))
         shading = self._check_shading(mats, lights, light_types)
         if walk is None:
             self.call("gatling_shade_resident", params.data_ptr(),
                        *self._resident_args(tris, cutout), *shading, *bufs, int(bool(nee)),
                        *flags)
         else:
-            self.call("gatling_shade_walk_nee" if nee else "gatling_shade_walk",
-                       params.data_ptr(), *self._walk_args(tris, walk), *shading, *bufs, *flags)
+            self.call(_walk_entry("gatling_shade_walk", nee, vol), params.data_ptr(),
+                       *self._walk_args(tris, walk), *shading, *bufs, *flags)
+
+
+def _walk_entry(base: str, nee: bool, volumes: int) -> str:
+    """The walk kernels' entry point of a NEE flag and a volume mode (the
+    plain ones take VOL_OFF, the ..._vol ones the volume modes)."""
+    return base + ("_vol" if volumes != VOL_OFF else "") + ("_nee" if nee else "")
 
 
 _kernel: BounceKernel | None = None
@@ -1032,30 +1082,33 @@ def _walk(tensors) -> WalkTables | None:
 
 
 def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
-                 cutout: bool) -> None:
-    kernel().launch(params, tris, mats, lights, light_types, state, nee, advanced, cutout)
+                 cutout: bool, volumes: int) -> None:
+    kernel().launch(params, tris, mats, lights, light_types, state, nee, advanced, cutout,
+                    volumes)
     launches["K1"] += 1
 
 
 def _bounce_cpu(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
-                cutout: bool) -> None:
+                cutout: bool, volumes: int) -> None:
     bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee,
-               advanced=advanced, cutout=cutout)
+               advanced=advanced, cutout=cutout, volumes=volumes)
 
 
 def _walk_cuda(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-               leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool) -> None:
+               leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool,
+               volumes: int) -> None:
     walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
     kernel().launch_walk(params, tris, mats, lights, light_types, walk, state, nee, advanced,
-                         cutout)
+                         cutout, volumes)
     launches["K2"] += 1
 
 
 def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-              leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool) -> None:
+              leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool,
+              volumes: int) -> None:
     walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
     bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk,
-               advanced, cutout)
+               advanced, cutout, volumes)
 
 
 def _trace_cuda(params, tris, state, walk, cutout: bool) -> torch.Tensor:
@@ -1071,27 +1124,28 @@ def _trace_cpu(params, tris, state, walk, cutout: bool) -> torch.Tensor:
 
 
 def _shade_cuda(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-                nee: bool, advanced: bool, cutout: bool) -> None:
+                nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
     kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), state, hit,
-                          parbuf, par_rows, nee, advanced, cutout)
+                          parbuf, par_rows, nee, advanced, cutout, volumes)
     launches["K4"] += 1
 
 
 def _shade_cpu(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-               nee: bool, advanced: bool, cutout: bool) -> None:
+               nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
     shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
-              par_rows, nee, _walk(walk), advanced, cutout)
+              par_rows, nee, _walk(walk), advanced, cutout, volumes)
 
 
 _lib = torch.library.Library("gatling", "DEF")
 _lib.define("bounce_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
-            "Tensor light_types, Tensor(a!) state, bool nee, bool advanced, bool cutout) -> ()")
+            "Tensor light_types, Tensor(a!) state, bool nee, bool advanced, bool cutout, "
+            "int volumes) -> ()")
 _lib.impl("bounce_step", _bounce_cuda, "CUDA")
 _lib.impl("bounce_step", _bounce_cpu, "CPU")
 _lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor l1, Tensor l2, Tensor cmap, Tensor inst, "
             "Tensor nodes, Tensor kids, Tensor leaf_entries, Tensor gbox, Tensor(a!) state, "
-            "bool nee, bool advanced, bool cutout) -> ()")
+            "bool nee, bool advanced, bool cutout, int volumes) -> ()")
 _lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
 _lib.impl("bounce_step_walk", _walk_cpu, "CPU")
 _lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk, "
@@ -1100,7 +1154,7 @@ _lib.impl("trace_step", _trace_cuda, "CUDA")
 _lib.impl("trace_step", _trace_cpu, "CPU")
 _lib.define("shade_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor[] walk, Tensor hit, Tensor parbuf, int[] par_rows, "
-            "Tensor(a!) state, bool nee, bool advanced, bool cutout) -> ()")
+            "Tensor(a!) state, bool nee, bool advanced, bool cutout, int volumes) -> ()")
 _lib.impl("shade_step", _shade_cuda, "CUDA")
 _lib.impl("shade_step", _shade_cpu, "CPU")
 
@@ -1128,7 +1182,7 @@ def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     """One fused bounce over state [16, R], in place: K1 for a resident
     scene, K2 for a clustered or instanced one, on a CUDA state; the plain
     twin on a CPU state. The scene's flags pick the branches."""
-    flags = (bool(nee), bool(scene.advanced), bool(scene.cutout))
+    flags = (bool(nee), bool(scene.advanced), bool(scene.cutout), int(scene.volumes))
     if scene.walk is None:
         torch.ops.gatling.bounce_step(params, scene.tris, scene.mats, scene.lights,
                                       scene.light_types, state, *flags)
@@ -1153,4 +1207,4 @@ def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     torch.ops.gatling.shade_step(params, scene.tris, scene.mats, scene.lights,
                                  scene.light_types, list(scene.walk or ()), hitbuf, parbuf,
                                  par_row_starts(textured_params), state, bool(nee),
-                                 bool(scene.advanced), bool(scene.cutout))
+                                 bool(scene.advanced), bool(scene.cutout), int(scene.volumes))

@@ -3,12 +3,17 @@
 One path-tracing bounce over the whole ray state, written with ordinary
 tensor operations, vectorized over rays. It computes what the JAX
 package's `bounce_step` (ops/pallas_bounce.py `_bounce_body` +
-`_shade_core`, volumes and scatter off) computes, in the same order of float
-operations, so the two agree to rounding. Two flags select branches as the
-JAX FusedStatic does: `advanced` (the full lobe set: thick refraction with
-the exact dielectric Fresnel and TIR, clearcoat, anisotropic GGX) and
-`cutout` (a hash Bernoulli per candidate hit against its pass
-probability, `cutout_xi`). Two closest-hit searches feed the same shading:
+`_shade_core`) computes, in the same order of float operations, so the
+two agree to rounding. Three flags select branches as the JAX FusedStatic
+does: `advanced` (the full lobe set: thick refraction with the exact
+dielectric Fresnel and TIR, clearcoat, anisotropic GGX), `cutout` (a hash
+Bernoulli per candidate hit against its pass probability, `cutout_xi`)
+and `volumes`, its `volumes` and `scatter` flags as one mode (VOL_*):
+absorption-only media, whose alive row holds 2.0 inside a medium, or the
+depth-1 medium stack with free-flight sampling and Henyey-Greenstein walk
+steps, whose alive row encodes 2 + medium material id + 64 x walk count.
+Every reader takes a ray as alive iff its row 13 exceeds 0.5. Two
+closest-hit searches feed the same shading:
 
 * resident (K1): every ray against the whole triangle table, in chunks;
 * clustered and instanced (K2, `walk` given): the two-level walk of
@@ -177,9 +182,16 @@ P_MAX_WALK = 10
 PARAMS_LEN = 11
 
 # material columns the kernel reads (MaterialTable packed_f); the advanced
-# lobe set adds clearcoat, its roughness, anisotropy and its rotation
+# lobe set adds clearcoat, its roughness, anisotropy and its rotation; the
+# volume modes sigma_a (the medium rows also read sigma_s, 19-21, and the
+# Henyey-Greenstein bias, 22)
 _MAT_COLS = (0, 1, 2, 3, 4, 5, 7, 8, 9, 14, 15, 24)
 _ADV_COLS = (26, 27, 28, 29)
+_VOL_COLS = (16, 17, 18)
+# volume modes (the JAX FusedStatic's volumes and scatter flags)
+VOL_OFF, VOL_ABSORB, VOL_SCATTER = 0, 1, 2
+# medium material ids fit 6 bits of the scatter encoding
+MAX_SCATTER_MATS = 63
 # the shadow walk's cutout key is the ray's PCG word salted with this
 # (pallas_bounce.py :2052), so its draws decorrelate from the camera walk's
 SHADOW_SALT = 0x5BD1E995
@@ -711,15 +723,76 @@ def surface_state(o, d, t, u, v, gn, n0, n1, n2):
     return (pos, tuple(x * fsign for x in gn), (nx * fsign, ny * fsign, nz * fsign), front)
 
 
-def material_rows(mats: torch.Tensor, mat_f: torch.Tensor,
-                  advanced: bool = False) -> list[torch.Tensor]:
-    """The 12 shading parameters (_MAT_COLS) of each ray's material row,
-    16 with the advanced columns (_ADV_COLS); ids outside the table resolve
-    to zeros."""
+def _table_rows(mats: torch.Tensor, mat_f: torch.Tensor) -> torch.Tensor:
+    """Each ray's material row (round half to even, as jnp.round); ids
+    outside the table resolve to zeros."""
     m_id = torch.round(mat_f).to(torch.int64)
     m_ok = (m_id >= 0) & (m_id < mats.shape[0])
-    mrow = _where(m_ok[:, None], mats[m_id.clamp(0, mats.shape[0] - 1)], 0.0)
-    return [mrow[:, c] for c in _MAT_COLS + (_ADV_COLS if advanced else ())]
+    return _where(m_ok[:, None], mats[m_id.clamp(0, mats.shape[0] - 1)], 0.0)
+
+
+def material_rows(mats: torch.Tensor, mat_f: torch.Tensor,
+                  advanced: bool = False, volumes: int = VOL_OFF) -> list[torch.Tensor]:
+    """The 12 shading parameters (_MAT_COLS) of each ray's material row,
+    then the advanced columns (_ADV_COLS) and, in a volume mode, sigma_a
+    (_VOL_COLS)."""
+    mrow = _table_rows(mats, mat_f)
+    cols = _MAT_COLS + (_ADV_COLS if advanced else ()) + (_VOL_COLS if volumes else ())
+    return [mrow[:, c] for c in cols]
+
+
+def medium_rows(mats: torch.Tensor, mid_f: torch.Tensor):
+    """The current medium's sigma_s, sigma_t (= sigma_a + sigma_s) and
+    Henyey-Greenstein bias, by the medium material id of the scatter
+    encoding (pallas_bounce.py _resolve_medium_rows)."""
+    mrow = _table_rows(mats, mid_f)
+    ms = tuple(mrow[:, 19 + k] for k in range(3))
+    mt = tuple(mrow[:, 16 + k] + mrow[:, 19 + k] for k in range(3))
+    return ms, mt, mrow[:, 22]
+
+
+def free_flight(p: list[float], mats: torch.Tensor, state: torch.Tensor) -> dict:
+    """The scatter mode's free-flight distance sampling (pallas_bounce.py
+    :2255-2290, rgen:317-346): decode the alive row, draw two PCG words for
+    the rays inside a scattering medium with walk steps left, pick a colour
+    channel by spectral MIS and sample a distance against its sigma_t.
+    Advances state row 12 in place; returns what the shading reads."""
+    alive_f = state[13]
+    alive = alive_f > 0.5
+    rng = f32_bits_to_u32(state[12])
+    inside = alive_f >= 1.5
+    enc = torch.clamp(alive_f - 2.0, min=0.0)
+    walk_f = torch.floor(enc * (1.0 / 64.0))
+    mid_f = enc - walk_f * 64.0
+    ms, mt, gbias = medium_rows(mats, mid_f)
+    has_scat = (ms[0] + ms[1] + ms[2]) > 0.0
+    do_dist = alive & inside & has_scat & (walk_f <= p[P_MAX_WALK])
+    rng_v1, xv0 = _pcg_next(rng)
+    rng_v2, xv1 = _pcg_next(rng_v1)
+    state[12] = u32_to_f32_bits(_where(do_dist, rng_v2, rng))
+    # spectral single-channel MIS select (rgen sampleDistance:49-69)
+    al = [_where(t > 0.0, s_ / torch.clamp(t, min=1e-20), 0.0) for s_, t in zip(ms, mt)]
+    w = [tp * a for tp, a in zip((state[6], state[7], state[8]), al)]
+    wsum = w[0] + w[1] + w[2]
+    big_w = wsum > 1e-9
+    p3 = tuple(_where(big_w, x / torch.clamp(wsum, min=1e-9), 1.0 / 3.0) for x in w)
+    pick1 = xv0 < p3[0]
+    pick2 = ~pick1 & (xv0 < p3[0] + p3[1])
+    sel_sigma = _where(pick1, mt[0], _where(pick2, mt[1], mt[2]))
+    s_coef = torch.clamp(sel_sigma * p[P_METERS], min=1e-20)
+    t_sample = -torch.log(torch.clamp(1.0 - xv1, min=1e-20)) / s_coef
+    return dict(inside=inside, mid_f=mid_f, walk_f=walk_f, do_dist=do_dist,
+                t_sample=t_sample, ms=ms, mt=mt, p3=p3, gbias=gbias)
+
+
+def volume_step(vol: dict, hit: torch.Tensor, best_t: torch.Tensor) -> torch.Tensor:
+    """The segment cap (pallas_bounce.py :2321-2330): a ray that sampled a
+    free-flight distance short of its hit, or hit nothing, takes a walk
+    step; it is neither a surface hit nor a miss. Returns the new hit flag
+    and records the step in `vol`."""
+    step = vol["do_dist"] & (~hit | (best_t > vol["t_sample"]))
+    vol["step"] = step
+    return hit & ~step
 
 
 def cutout_key(state: torch.Tensor) -> torch.Tensor:
@@ -731,15 +804,21 @@ def cutout_key(state: torch.Tensor) -> torch.Tensor:
 def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
                lights: torch.Tensor, light_types: tuple[int, ...],
                state: torch.Tensor, nee: bool, walk: WalkTables | None = None,
-               advanced: bool = False, cutout: bool = False) -> None:
+               advanced: bool = False, cutout: bool = False,
+               volumes: int = VOL_OFF) -> None:
     """One bounce over state [16, R], updated in place: resident tris
     [T, 32 or 48; 36 or 52 with cutout rows] without `walk`, clustered tris
     [C * 128, 40 or 56] with it."""
     p = [f32(x) for x in params.tolist()]
     o, d = (state[0], state[1], state[2]), (state[3], state[4], state[5])
     alive = state[13] > 0.5
+    # the walk keys its cutout draws off the PCG word at the start of the
+    # bounce; the resident search off the word after the free-flight draws
+    # (pallas_bounce.py :1345, :2311)
     key = cutout_key(state) if cutout else None
+    vol = free_flight(p, mats, state) if volumes == VOL_SCATTER else None
     if walk is None:
+        key = cutout_key(state) if cutout else None
         best_t, u, v, attrs = resident_hits(tris, o, d, p[P_TMIN], key)
         hit = alive & (best_t < _FMAX)
         gn, n0, n1, n2 = ((attrs[:, c], attrs[:, c + 1], attrs[:, c + 2])
@@ -751,9 +830,13 @@ def bounce_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
         # best_t caps at FLOAT_MAX on a miss; the hit flag is the winner
         hit = alive & (win >= 0)
         best_t, u, v, gn, n0, n1, n2, mat_f, dsided = walk_hit_attrs(walk, tris, o3, d3, win)
+    if vol is not None:
+        hit = volume_step(vol, hit, best_t)
     pos, gn, n, front = surface_state(o, d, best_t, u, v, gn, n0, n1, n2)
-    shade_core(p, state, hit, pos, gn, n, front, dsided, material_rows(mats, mat_f, advanced),
-               lights, light_types, nee, occluder(tris, walk, cutout), advanced)
+    shade_core(p, state, hit, pos, gn, n, front, dsided,
+               material_rows(mats, mat_f, advanced, volumes), lights, light_types, nee,
+               occluder(tris, walk, cutout), advanced, volumes=volumes, vol=vol, hit_t=best_t,
+               hit_mat_f=mat_f)
 
 
 def occluder(tris: torch.Tensor, walk: WalkTables | None, cutout: bool = False):
@@ -783,7 +866,8 @@ def _aniso_g1(ax, ay, vx, vy, vz):
 def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, n,
                front: torch.Tensor, dsided: torch.Tensor, mrow: list[torch.Tensor],
                lights: torch.Tensor, light_types: tuple[int, ...], nee: bool,
-               occluded_fn, advanced: bool = False, tangent=None) -> None:
+               occluded_fn, advanced: bool = False, tangent=None, volumes: int = VOL_OFF,
+               vol: dict | None = None, hit_t=None, hit_mat_f=None) -> None:
     """Miss background, emission, BSDF sampling, the NEE shadow ray,
     russian roulette and the state write-back of one bounce, given each
     ray's hit and shading state (pallas_bounce.py _shade_core, shared by
@@ -793,7 +877,15 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     four _ADV_COLS): clearcoat, anisotropic GGX and thick refraction with
     the exact dielectric Fresnel and TIR; `tangent` = (t xyz, bitangent
     sign), the split trace's H_TAN and H_BS rows, anchors its frame to the
-    mesh tangent (pallas_bounce.py :2453-2473)."""
+    mesh tangent (pallas_bounce.py :2453-2473).
+
+    `volumes` (VOL_*): Beer-Lambert on the segment into a hit inside a
+    medium and the medium toggle of a refracted, non-thin-walled crossing;
+    mrow then ends in the hit material's sigma_a. In the scatter mode `vol`
+    is free_flight's record with volume_step's flag: the transmittance uses
+    the current medium's sigma_t over `hit_t`, a walk step moves the ray
+    t_sample along and turns it by a Henyey-Greenstein draw, and the alive
+    row carries the encoding, the medium entered taken from `hit_mat_f`."""
     s = state
     ox, oy, oz = s[0], s[1], s[2]
     dx, dy, dz = s[3], s[4], s[5]
@@ -802,7 +894,7 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     rng = f32_bits_to_u32(s[12])
     alive = s[13] > 0.5
     bounce = p[P_BOUNCE]
-    miss = alive & ~hit
+    miss = alive & ~hit if vol is None else alive & ~hit & ~vol["step"]
     posx, posy, posz = pos
     gnx, gny, gnz = gn
     nx, ny, nz = n
@@ -817,6 +909,25 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     rady = rady + _where(miss, tpy * p[P_BG_G], 0.0)
     radz = radz + _where(miss, tpz * p[P_BG_B], 0.0)
     miss_rec = _where(miss, bounce + 1.0, s[14])
+
+    if vol is not None:
+        # the scatter mode: surface-hit transmittance with the current
+        # medium's sigma_t (integrator chit:160-186)
+        inside = vol["inside"]
+        dist_m = _where(hit, hit_t, 0.0) * p[P_METERS]
+        att = inside & hit
+        tpx, tpy, tpz = (_where(att, tp * torch.exp(-mt * dist_m), tp)
+                         for tp, mt in zip((tpx, tpy, tpz), vol["mt"]))
+    elif volumes:
+        # absorption only: the alive row holds 2.0 inside a medium; the
+        # segment into this hit, measured from its position, attenuates
+        # with the HIT material's sigma_a (the reference's stackless rule)
+        inside = s[13] > 1.5
+        dist_m = _where(hit, torch.clamp(torch.sqrt(
+            (posx - ox) ** 2 + (posy - oy) ** 2 + (posz - oz) ** 2), max=1e30), 0.0) * p[P_METERS]
+        att = inside & hit
+        tpx, tpy, tpz = (_where(att, tp * torch.exp(-va * dist_m), tp)
+                         for tp, va in zip((tpx, tpy, tpz), mrow[-3:]))
 
     # ---- emission: front face, backface of single-sided geometry, or
     # thin-walled backface EDF (rp_main.chit:304-315) ----
@@ -1086,6 +1197,52 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     dy = _where(hit, k2y, dy)
     dz = _where(hit, k2z, dz)
 
+    if vol is not None:
+        # ---- volume walk step (rgen:461-477 + miss stepVolume): the rays
+        # that did not hit kept their origin and direction above ----
+        step = vol["step"]
+        ts = vol["t_sample"]
+        dm_s = ts * p[P_METERS]
+        ms, vt, p3 = vol["ms"], vol["mt"], vol["p3"]
+        trv = [torch.exp(-x * dm_s) for x in vt]
+        pdf_w = torch.clamp(p3[0] * vt[0] * trv[0] + p3[1] * vt[1] * trv[1]
+                            + p3[2] * vt[2] * trv[2], min=1e-20)
+        tpx, tpy, tpz = (_where(step, tp * m_ * tr_ / pdf_w, tp)
+                         for tp, m_, tr_ in zip((tpx, tpy, tpz), ms, trv))
+        ox = _where(step, ox + dx * ts, ox)
+        oy = _where(step, oy + dy * ts, oy)
+        oz = _where(step, oz + dz * ts, oz)
+        # Henyey-Greenstein phase around the current direction
+        rng_h1, xh0 = _pcg_next(rng)
+        rng_h2, xh1 = _pcg_next(rng_h1)
+        rng = _where(step, rng_h2, rng)
+        g_hg = vol["gbias"]
+        iso = torch.abs(g_hg) < 1e-3
+        sq_hg = (1.0 - g_hg * g_hg) / torch.clamp(1.0 - g_hg + 2.0 * g_hg * xh0, min=1e-9)
+        g_safe = _where(torch.abs(g_hg) < 1e-9, 1.0, g_hg)
+        cos_hg = _where(iso, 1.0 - 2.0 * xh0,
+                        (1.0 + g_hg * g_hg - sq_hg * sq_hg) / (2.0 * g_safe))
+        cos_hg = torch.clamp(cos_hg, -1.0, 1.0)
+        sin_hg = torch.sqrt(torch.clamp(1.0 - cos_hg * cos_hg, min=0.0))
+        phi_hg = 2.0 * PI * xh1
+        vsign = _where(dz >= 0.0, 1.0, -1.0)
+        va_o = -1.0 / (vsign + dz)
+        vb_o = dx * dy * va_o
+        v1x = 1.0 + vsign * dx * dx * va_o
+        v1y = vsign * vb_o
+        v1z = -vsign * dx
+        v2x = vb_o
+        v2y = vsign + dy * dy * va_o
+        v2z = -dy
+        shx = sin_hg * torch.cos(phi_hg)
+        shy = sin_hg * torch.sin(phi_hg)
+        sc_x = v1x * shx + v2x * shy + dx * cos_hg
+        sc_y = v1y * shx + v2y * shy + dy * cos_hg
+        sc_z = v1z * shx + v2z * shy + dz * cos_hg
+        dx = _where(step, sc_x, dx)
+        dy = _where(step, sc_y, dy)
+        dz = _where(step, sc_z, dz)
+
     # ---- NEE (rp_main.chit sampleLight:30-129 + rgen:397-438) ----
     shadow_count = torch.zeros_like(radx)
     if nee:
@@ -1140,10 +1297,29 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     tpx, tpy, tpz = tpx * rr_scale, tpy * rr_scale, tpz * rr_scale
     terminate = terminate | rr_kill
     new_alive = alive & ~terminate
+    alive_out = new_alive.to(torch.float32)
+    if volumes:
+        # a refracted crossing of a non-thin-walled surface toggles the
+        # medium (the integrator's stack-0 rule); the scatter mode stores
+        # the entered medium's material id and counts walk steps
+        toggled = hit & valid & pick_t & (thinw <= 0.5)
+        if adv:
+            toggled = toggled & ~refl_pick
+        inside_f = _where(inside, 1.0, 0.0)
+        inside_new = _where(toggled, 1.0 - inside_f, inside_f)
+        enc_new = 2.0
+        if vol is not None:
+            entering = toggled & front
+            mid_new = _where(entering, torch.clamp(torch.round(hit_mat_f), 0.0, 63.0),
+                             vol["mid_f"])
+            walk_new = _where(toggled, 0.0,
+                              _where(vol["step"], vol["walk_f"] + 1.0, vol["walk_f"]))
+            enc_new = 2.0 + mid_new + 64.0 * walk_new
+        alive_out = _where(new_alive & (inside_new > 0.5), enc_new, alive_out)
 
     out = torch.stack([
         ox, oy, oz, dx, dy, dz, tpx, tpy, tpz, radx, rady, radz,
-        u32_to_f32_bits(rng), new_alive.to(torch.float32), miss_rec,
+        u32_to_f32_bits(rng), alive_out, miss_rec,
         s[15] + _where(alive, 1.0, 0.0) + shadow_count,
     ])
     state.copy_(out)

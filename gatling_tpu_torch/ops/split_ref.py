@@ -38,6 +38,8 @@ from gatling_tpu_torch.ops.bounce_ref import (
     TR_T2,
     TR_UV,
     TRI_ROWS_TAN,
+    VOL_ABSORB,
+    VOL_OFF,
     WalkTables,
     _FMAX,
     _where,
@@ -151,16 +153,20 @@ def shade_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
               lights: torch.Tensor, light_types: tuple[int, ...], state: torch.Tensor,
               hitbuf: torch.Tensor, parbuf: torch.Tensor, par_rows, nee: bool,
               walk: WalkTables | None = None, advanced: bool = False,
-              cutout: bool = False) -> None:
+              cutout: bool = False, volumes: int = VOL_OFF) -> None:
     """K4's twin: shade state [16, R] in place from the hit buffer; the
     material rows come from `mats` (the kernels' table of texture means),
     the textured parameters from parbuf rows par_rows (par_row_starts).
     `advanced`: the full lobe set, in the mesh-tangent frame of the hit
     buffer's tangent rows when it has them; `cutout`: the shadow rays'
-    cutout draws."""
+    cutout draws; `volumes`: VOL_ABSORB, the absorption-only media (the
+    split bounce has no scatter mode: gi sends scattering with textures or
+    anisotropy to the wavefront)."""
+    if volumes not in (VOL_OFF, VOL_ABSORB):
+        raise ValueError(f"the split shade has no volume mode {volumes}")
     p = [f32(x) for x in params.tolist()]
     hit = (state[13] > 0.5) & (hitbuf[H_HIT] > 0.5)
-    mrow = material_rows(mats, hitbuf[H_MAT], advanced)
+    mrow = material_rows(mats, hitbuf[H_MAT], advanced, volumes)
     base, em, met, rough = par_rows
     if base >= 0:
         mrow[0:3] = [parbuf[base + k] for k in range(3)]
@@ -179,4 +185,4 @@ def shade_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
         tangent = (vec(H_TAN), hitbuf[H_BS])
     shade_core(p, state, hit, vec(H_POS), vec(H_GN), vec(H_N), hitbuf[H_FRONT] > 0.5,
                hitbuf[H_DS], mrow, lights, light_types, nee, occluder(tris, walk, cutout),
-               advanced, tangent)
+               advanced, tangent, volumes=volumes)

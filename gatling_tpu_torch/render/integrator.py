@@ -101,9 +101,12 @@ class RenderConfig:
     tex_lod_bounces: int = 0
     # the wavefront's tracer: "matrix" (K5/K6, ops/trace.py) or "brute"
     tracer: str = "brute"
-    # some material has volume coefficients: the JAX wavefront's volume
-    # branches, not ported yet (trace_sample raises)
+    # some material has volume coefficients: the medium branches; the
+    # medium stack's depth (render setting mediumStackSize): 0 toggles an
+    # absorbing medium flag, >= 1 keeps a stack of media with free-flight
+    # sampling and Henyey-Greenstein walk steps
     has_volumes: bool = False
+    medium_stack_size: int = 0
     # some material has cutout opacity (MaterialTraits.has_cutout)
     has_cutout: bool = False
 
@@ -263,10 +266,6 @@ def _shading_state(geom: PackedGeometry, hit: Hit, ray_dir: torch.Tensor) -> dic
 def _check_branches(config: RenderConfig) -> None:
     if config.has_dome:
         raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
-    if config.has_volumes:
-        raise NotImplementedError("volumes in the wavefront integrator are not ported yet "
-                                  "(ROADMAP: 'USD content', with the MDL front end that "
-                                  "produces them)")
 
 
 _FIRST_HIT_AOVS = (
@@ -319,6 +318,17 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
     alive = torch.ones((n,), dtype=torch.bool, device=device)
     bounces = torch.zeros((n,), dtype=torch.int32, device=device)
     zeros = torch.zeros((n,), dtype=torch.float32, device=device)
+    stack = config.medium_stack_size
+    rows = torch.arange(n, device=device)
+    if config.has_volumes:
+        # the medium stack (rp_main_payload.glsl Medium / mediumIdx bits):
+        # the depth, and per level sigma_s, sigma_t and the HG bias
+        medium_idx = torch.zeros((n,), dtype=torch.int32, device=device)
+        if stack > 0:
+            med_sigma_s = torch.zeros((n, stack, 3), dtype=torch.float32, device=device)
+            med_sigma_t = torch.zeros((n, stack, 3), dtype=torch.float32, device=device)
+            med_bias = torch.zeros((n, stack), dtype=torch.float32, device=device)
+            walk = torch.zeros((n,), dtype=torch.int32, device=device)
 
     for bounce in range(config.max_bounces):
         if not bool(alive.any()):  # one host sync a bounce
@@ -329,10 +339,46 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
             tmin, tmax = zeros, torch.full_like(zeros, float(FLOAT_MAX))
         tmax = torch.where(alive, tmax, 0.0)  # dead rays do no work
 
+        # free-flight distance sampling inside a scattering medium
+        # (rgen:317-346): the segment ends at t_sample
+        in_medium = None
+        walk_pdf = torch.ones((n, 3), dtype=torch.float32, device=device)
+        if config.has_volumes:
+            in_medium = medium_idx > 0
+            if stack > 0:
+                cur = torch.clamp(medium_idx - 1, 0, stack - 1).long()
+                sigma_s_c = med_sigma_s[rows, cur]
+                sigma_t_c = med_sigma_t[rows, cur]
+                has_scat = (sigma_s_c > 0.0).any(dim=-1)
+                do_dist = alive & in_medium & has_scat & (
+                    walk <= uniforms.max_volume_walk_length)
+                rng_after, xi2 = smp.rng_next2f(rng)
+                rng = torch.where(do_dist, rng_after, rng)
+                # spectral single-channel MIS select (rgen sampleDistance:49-69)
+                weights = throughput * smp.safe_div(sigma_s_c, sigma_t_c)
+                wsum = weights.sum(-1)
+                pdf3 = torch.where((wsum > 1e-9)[:, None],
+                                   weights / torch.clamp(wsum, min=1e-9)[:, None],
+                                   torch.full_like(weights, 1.0 / 3.0))
+                x0 = xi2[:, 0]
+                chan = torch.where(x0 < pdf3[:, 0], 0,
+                                   torch.where(x0 < pdf3[:, 0] + pdf3[:, 1], 1, 2))
+                sel_sigma = torch.gather(sigma_t_c, 1, chan[:, None])[:, 0]
+                s_coef = torch.clamp(sel_sigma * f32(uniforms.meters_per_scene_unit), min=1e-20)
+                t_sample = -torch.log(torch.clamp(1.0 - xi2[:, 1], min=1e-20)) / s_coef
+                tmax = torch.where(do_dist, t_sample, tmax)
+                walk_pdf = _where3(do_dist, pdf3, walk_pdf)
+
         hit = _trace_closest(config, accel, origin, direction, tmin, tmax)
         missed = hit.tri < 0
         is_hit = ~missed & alive
         is_miss = missed & alive
+        # a miss inside a medium is a walk step, not the background
+        # (rp_main.miss:16-34)
+        vol_miss = torch.zeros_like(is_miss)
+        if config.has_volumes and stack > 0:
+            vol_miss = is_miss & in_medium
+            is_miss = is_miss & ~in_medium
 
         # hit shading (rp_main.chit)
         st = _shading_state(geom, hit, direction)
@@ -355,6 +401,15 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
             rng = torch.where(is_hit, rng_after, rng)
             cut = is_hit & (xi_c >= bsdf_mod.cutout_opacity(params))
             is_hit = is_hit & ~cut
+
+        # transmittance of the segment into a surface hit inside a medium
+        # (chit:160-186): the current medium's sigma_t, or at stack 0 the
+        # hit material's sigma_a
+        if config.has_volumes:
+            dist_m = hit.t * f32(uniforms.meters_per_scene_unit)
+            sigma = sigma_t_c if stack > 0 else params.volume_absorption
+            throughput = _where3(is_hit & in_medium, throughput * torch.exp(-sigma * dist_m[:, None]),
+                                 throughput)
 
         # emission (chit:292-343): front faces, back faces of single-sided
         # geometry, and double-sided back faces of thin-walled materials with
@@ -405,6 +460,35 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
             new_origin = _where3(cut, smp.offset_ray_origin(st["pos"], -st["geom_normal"]),
                                  new_origin)
 
+        if config.has_volumes:  # the medium stack on transmission (chit:446-480)
+            med_change = is_hit & is_transmission & ~params.thin_walled
+            if stack == 0:
+                new_m_idx = torch.where(med_change, 1 - medium_idx, medium_idx)
+            else:
+                push = med_change & st["front"]
+                pop = med_change & ~st["front"] & (medium_idx > 0)
+                new_m_idx = medium_idx + push.to(torch.int32) - pop.to(torch.int32)
+                slot = torch.clamp(new_m_idx - 1, 0, stack - 1)
+                store = ((torch.arange(stack, device=device)[None, :] == slot[:, None])
+                         & (push & (new_m_idx <= stack))[:, None])
+                sigma_t_mat = params.volume_absorption + params.volume_scattering
+                med_sigma_s = torch.where(store[:, :, None], params.volume_scattering[:, None, :],
+                                          med_sigma_s)
+                med_sigma_t = torch.where(store[:, :, None], sigma_t_mat[:, None, :],
+                                          med_sigma_t)
+                med_bias = torch.where(store, params.volume_bias[:, None], med_bias)
+                # a medium change resets the walk (chit:478); a step counts
+                # (rp_main.miss stepVolume)
+                walk = torch.where(vol_miss, walk + 1, torch.where(med_change, 0, walk))
+                dist_m2 = tmax * f32(uniforms.meters_per_scene_unit)
+                trans = torch.exp(-sigma_t_c * dist_m2[:, None])
+                pdf_w = torch.clamp((walk_pdf * (sigma_t_c * trans)).sum(-1), min=1e-20)
+                throughput = _where3(vol_miss, throughput * (sigma_s_c * trans / pdf_w[:, None]),
+                                     throughput)
+                new_origin = _where3(vol_miss, origin + direction * tmax[:, None], new_origin)
+            hg_idx = medium_idx  # the HG bias is the medium the step was taken in
+            medium_idx = new_m_idx
+
         if config.nee:  # NEE (chit:393-444, rgen:397-438)
             nee_able = is_hit & ((event & (BSDF_EVENT_DIFFUSE | BSDF_EVENT_GLOSSY)) != 0)
             rng_after, k4 = smp.rng_next4f(rng)
@@ -449,6 +533,24 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
             throughput = _where3(do_rr & ~rr_kill, throughput / torch.clamp(p, min=1e-20)[:, None],
                                  throughput)
             terminate = terminate | rr_kill
+
+        if config.has_volumes and stack > 0:
+            # the walk step's direction (rgen:461-477): a Henyey-Greenstein
+            # phase around the current direction
+            rng_after, xi_hg = smp.rng_next2f(rng)
+            rng = torch.where(vol_miss, rng_after, rng)
+            g = med_bias[rows, torch.clamp(hg_idx - 1, 0, stack - 1).long()]
+            iso = torch.abs(g) < 1e-3
+            sq = (1.0 - g * g) / torch.clamp(1.0 - g + 2.0 * g * xi_hg[:, 0], min=1e-9)
+            g_safe = torch.where(torch.abs(g) < 1e-9, 1.0, g)
+            cos_hg = torch.where(iso, 1.0 - 2.0 * xi_hg[:, 0],
+                                 (1.0 + g * g - sq * sq) / torch.where(iso, 1.0, 2.0 * g_safe))
+            sin_hg = torch.sqrt(torch.clamp(1.0 - cos_hg * cos_hg, min=0.0))
+            phi = 2.0 * np.pi * xi_hg[:, 1]
+            t_b, b_b = smp.orthonormal_basis(new_dir)
+            scattered = (t_b * (sin_hg * torch.cos(phi))[:, None]
+                         + b_b * (sin_hg * torch.sin(phi))[:, None] + new_dir * cos_hg[:, None])
+            new_dir = _where3(vol_miss, scattered, new_dir)
 
         new_alive = alive & ~terminate
         bounces = bounces + new_alive.to(torch.int32) + (alive & terminate).to(torch.int32)

@@ -15,8 +15,10 @@ over them), `perturb_normal` (tangent-space normal maps); and
 `substitute_texture_means` builds the kernels' own table, whose textured
 columns hold the textures' means. Besides UsdPreviewSurface, the MaterialX
 surfaces authored inline in USD (open_pbr_surface, standard_surface,
-gltf_pbr) map onto the same parameters; MDL and other surface shaders are
-not ported yet and raise.
+gltf_pbr) and the MDL front end's `gatling_uber` node (render/mdl.py:
+OmniPBR, OmniGlass, OmniSurface, `material_volume` coefficients) map onto
+the same parameters; other surface shaders, and MDL materials with a
+distinct backface surface, raise.
 """
 
 from __future__ import annotations
@@ -143,8 +145,8 @@ def _vec3(v) -> tuple[float, float, float]:
 
 
 def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
-    """Lower one UsdPreviewSurface, open_pbr_surface, standard_surface or
-    gltf_pbr network to uber-BSDF parameters and texture requests (the JAX
+    """Lower one UsdPreviewSurface, open_pbr_surface, standard_surface,
+    gltf_pbr or MDL (gatling_uber) network to uber-BSDF parameters and texture requests (the JAX
     package's render/material.py lower_material)."""
     params = dict(_DEFAULTS)
     textures: dict[str, TextureRef] = {}
@@ -177,7 +179,28 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
             textures[param] = gv.texture
 
     sid = node.shader_id
-    if sid == "UsdPreviewSurface":
+    if node.inputs.get("has_backface_bsdf") or node.inputs.get("backface_params"):
+        raise NotImplementedError(
+            f"{desc.path}: an MDL material with a distinct backface surface needs the "
+            "backface material rows, which are not ported yet (ROADMAP: 'Wavefront "
+            "integrator', item 5)")
+    if sid == "gatling_uber":
+        # the MDL front end's pre-mapped parameter set (render/mdl.py)
+        for k, v in node.inputs.items():
+            if k.endswith("_texture"):
+                param = k[: -len("_texture")]
+                ref = TextureRef(file_path=str(v), is_srgb=param in ("base_color", "emissive"))
+                if param == "normal":
+                    ref = dataclasses.replace(ref, scale=(2.0, 2.0, 2.0, 1.0),
+                                              bias=(-1.0, -1.0, -1.0, 0.0))
+                textures[param] = ref
+            elif k in _DEFAULTS:
+                d = _DEFAULTS[k]
+                if isinstance(d, tuple):
+                    params[k] = _vec3(v)
+                else:
+                    params[k] = float(v[0]) if isinstance(v, tuple) else type(d)(v)
+    elif sid == "UsdPreviewSurface":
         for input_name, param, color in _PREVIEW_INPUTS:
             grab(input_name, param, color)
     elif sid in ("ND_standard_surface_surfaceshader", "standard_surface"):

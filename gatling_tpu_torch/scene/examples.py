@@ -12,6 +12,15 @@ redistributable):
   triangles at detail 5), every material's base colour a UsdUVTexture
   over procedural 256x256 PNGs written from a seed, with a rect window
   light and two sphere lamps.
+
+The media scenes bind MDL materials, as Omniverse assets do: the bundled
+OmniGlass (thick glass whose glass_color becomes an absorption
+coefficient) and a written fog module (`FOG_MDL`: a clear interface over
+an absorbing and scattering `material_volume`). `glass_tinted` and
+`cornell_fog` write the Cornell box of tests/data/cornell.usda with its
+tall block so bound, under the benchmark's ceiling rect light, as a
+.usda file; `sphere_field_volumes` and `interior_tinted` return the two
+large scenes with some of their materials so replaced.
 """
 
 from __future__ import annotations
@@ -19,7 +28,9 @@ from __future__ import annotations
 import numpy as np
 
 import os
+import re
 import tempfile
+from pathlib import Path
 
 from gatling_tpu_torch import imgio
 from gatling_tpu_torch.scene.meshproc import Interpolation, build_triangulated_mesh
@@ -377,3 +388,188 @@ def interior(detail: int = 5, seed: int = 11, tex_dir: str | None = None) -> Sce
                         up=up.astype(np.float32), vfov=0.9)
 
     return SceneDesc(meshes=meshes, materials=materials, lights=lights, cameras={"/cam": camera})
+
+
+# ---------------------------------------------------------------------------
+# media: MDL-bound tinted glass and fog
+# ---------------------------------------------------------------------------
+
+# OmniGlass's tint of the media scenes (sigma_a = -ln(colour) per metre)
+GLASS_TINT = (0.55, 0.8, 0.95)
+# a clear, thick interface over a homogeneous fog: sigma_a 0.05 and sigma_s
+# 1.5 per metre, isotropic
+FOG_MDL = """mdl 1.6;
+import ::df::*;
+
+export material Fog(*)
+ = material(
+    surface: material_surface(
+        scattering: df::specular_bsdf(mode: df::scatter_transmit)
+    ),
+    ior: color(1.0),
+    volume: material_volume(
+        absorption_coefficient: color(0.05),
+        scattering_coefficient: color(1.5)
+    )
+);
+"""
+_CORNELL_USDA = Path(__file__).resolve().parents[2] / "tests" / "data" / "cornell.usda"
+# the benchmark's ceiling rect light (the JAX bench.py:133-147)
+_BENCH_RECT_LIGHT = """
+    def RectLight "BenchLight"
+    {
+        matrix4d xformOp:transform = ( (1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0.9, 1) )
+        uniform token[] xformOpOrder = ["xformOp:transform"]
+        float inputs:intensity = 4
+        color3f inputs:color = (1, 0.9, 0.8)
+        float inputs:width = 0.8
+        float inputs:height = 0.6
+    }
+"""
+
+
+def write_fog_mdl(out_dir: str) -> str:
+    """FOG_MDL as fog.mdl in out_dir; returns its path."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "fog.mdl")
+    with open(path, "w") as f:
+        f.write(FOG_MDL)
+    return path
+
+
+def _mdl_material_prim(name: str, asset: str, sub: str, inputs: str = "") -> str:
+    return f"""
+        def Material "{name}"
+        {{
+            token outputs:surface.connect = </Cornell/Materials/{name}/Shader.outputs:surface>
+            def Shader "Shader"
+            {{
+                uniform token info:implementationSource = "sourceAsset"
+                uniform asset info:mdl:sourceAsset = @{asset}@
+                uniform token info:mdl:sourceAsset:subIdentifier = "{sub}"{inputs}
+                token outputs:surface
+            }}
+        }}
+"""
+
+
+def _cornell_with_tall_block(out_dir: str, name: str, material: str, prim: str) -> str:
+    """tests/data/cornell.usda with its tall block bound to `material`
+    (the prim text `prim` added to its materials) and the benchmark's rect
+    light, written as out_dir/name.usda."""
+    text = _CORNELL_USDA.read_text()
+    tall = text.index('def Mesh "TallBlock"')
+    head, tail = text[:tall], text[tall:]
+    tail = tail.replace("</Cornell/Materials/White>", f"</Cornell/Materials/{material}>", 1)
+    tail = re.sub(r'(def Scope "Materials"\s*\{)', lambda m: m.group(1) + prim, tail, count=1)
+    text = head + _BENCH_RECT_LIGHT + tail
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{name}.usda")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def glass_tinted(out_dir: str) -> str:
+    """The Cornell box with its tall block in OmniGlass tinted GLASS_TINT
+    (info:mdl:sourceAsset = @OmniGlass.mdl@, resolved in the bundled
+    modules), under the benchmark's rect light: out_dir/glass_tinted.usda."""
+    tint = ", ".join(f"{c:g}" for c in GLASS_TINT)
+    prim = _mdl_material_prim("TintedGlass", "OmniGlass.mdl", "OmniGlass",
+                              f"\n                color3f inputs:glass_color = ({tint})")
+    return _cornell_with_tall_block(out_dir, "glass_tinted", "TintedGlass", prim)
+
+
+def cornell_fog(out_dir: str) -> str:
+    """The Cornell box with its tall block a fog volume (FOG_MDL, written
+    beside it as fog.mdl), under the benchmark's rect light:
+    out_dir/cornell_fog.usda. Render it with mediumStackSize >= 1 for the
+    scattering (at 0 the medium only absorbs)."""
+    write_fog_mdl(out_dir)
+    return _cornell_with_tall_block(out_dir, "cornell_fog", "Fog",
+                                    _mdl_material_prim("Fog", "fog.mdl", "Fog"))
+
+
+def _mdl_desc(path: str, module: str, sub: str, overrides: dict | None = None) -> MaterialDesc:
+    from gatling_tpu_torch.render.mdl import load_mdl_material
+
+    desc = load_mdl_material(module, sub, overrides or {}, name=path.strip("/"))
+    return MaterialDesc(path=path, surface_node=desc.surface_node, nodes=desc.nodes,
+                        base_dir=desc.base_dir, mdl_source=module)
+
+
+def tinted_glass_material(path: str) -> MaterialDesc:
+    """The bundled OmniGlass tinted GLASS_TINT."""
+    return _mdl_desc(path, "OmniGlass.mdl", "OmniGlass", {"glass_color": GLASS_TINT})
+
+
+def fog_material(path: str, out_dir: str) -> MaterialDesc:
+    """FOG_MDL, written into out_dir."""
+    return _mdl_desc(path, write_fog_mdl(out_dir), "Fog")
+
+
+def sphere_field_volumes(out_dir: str, **kwargs) -> SceneDesc:
+    """sphere_field(**kwargs) with its first sphere material tinted OmniGlass
+    and its second the fog (fog.mdl written into out_dir)."""
+    desc = sphere_field(**kwargs)
+    desc.materials["/mat0"] = tinted_glass_material("/mat0")
+    desc.materials["/mat1"] = fog_material("/mat1", out_dir)
+    return desc
+
+
+def interior_tinted(detail: int = 5, tex_dir: str | None = None) -> SceneDesc:
+    """interior(detail) with its instanced bowls (closed UV spheres) in
+    tinted OmniGlass: a textured scene with absorbing media."""
+    desc = interior(detail=detail, tex_dir=tex_dir)
+    for m in desc.meshes:
+        if m.path == "/bowls":
+            m.material = "/m_bowl_glass"
+    desc.materials["/m_bowl_glass"] = tinted_glass_material("/m_bowl_glass")
+    return desc
+
+
+def uber_material(path: str, **params) -> MaterialDesc:
+    """A material whose surface node is the MDL front end's pre-mapped
+    uber-BSDF parameter set (`gatling_uber`, render/mdl.py), here with
+    `params` given directly."""
+    node = ShaderNode(path=path + "/s", shader_id="gatling_uber", inputs=params,
+                      input_connections={})
+    return MaterialDesc(path=path, surface_node=node.path, nodes={node.path: node})
+
+
+def absorbing_slab(sigma_a=(0.5, 1.0, 2.0), sigma_s=(0.0, 0.0, 0.0), bias: float = 0.0
+                   ) -> SceneDesc:
+    """The JAX package's Beer-Lambert slab (tests/test_volumes.py
+    _slab_scene): a clear (ior 1) double-sided slab between z = 1 and z = -1
+    holding a medium of `sigma_a` / `sigma_s` (per metre) and HG `bias`,
+    before an emissive wall (2, 2, 2) at z = -3, seen along -z from
+    (0.37, 0.11, 5) through a narrow field of view: through the slab the
+    centre pixel reads 2 exp(-2 sigma_a) without scattering."""
+
+    def quad(z: float, flip: bool = False):
+        size = 5.0
+        pts = np.array([[-size, -size, z], [size, -size, z], [-size, size, z],
+                        [size, size, z]], np.float32)
+        order = np.array([2, 3, 1, 0]) if flip else np.array([0, 1, 3, 2])
+        return build_triangulated_mesh(pts, np.array([4]), order)
+
+    meshes = [
+        MeshDesc(path="/slab_front", mesh=quad(1.0), transform=np.eye(4), material="/glass",
+                 double_sided=True, object_id=0),
+        # the back face winds the other way: a ray leaving the slab meets a back face
+        MeshDesc(path="/slab_back", mesh=quad(-1.0, flip=True), transform=np.eye(4),
+                 material="/glass", double_sided=True, object_id=1),
+        MeshDesc(path="/wall", mesh=quad(-3.0), transform=np.eye(4), material="/wall",
+                 double_sided=True, object_id=2),
+    ]
+    materials = {
+        "/glass": uber_material("/glass", transmission=1.0, roughness=0.1, ior=1.0,
+                                volume_absorption=tuple(sigma_a),
+                                volume_scattering=tuple(sigma_s), volume_bias=bias),
+        "/wall": uber_material("/wall", emissive=(2.0, 2.0, 2.0), base_color=(0.0, 0.0, 0.0)),
+    }
+    camera = CameraDesc(position=np.array([0.37, 0.11, 5.0], np.float32),
+                        forward=np.array([0.0, 0.0, -1.0], np.float32),
+                        up=np.array([0.0, 1.0, 0.0], np.float32), vfov=0.2,
+                        clip_start=0.01, clip_end=100.0)
+    return SceneDesc(meshes=meshes, materials=materials, lights=[], cameras={"/cam": camera})

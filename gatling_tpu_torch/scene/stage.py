@@ -272,9 +272,18 @@ def _build_material(prim: Prim, base_dir: str) -> MaterialDesc:
         src_asset = _attr_val(p, "info:mdl:sourceAsset", None)
         if src_asset is None:
             continue
-        raise NotImplementedError(
-            f"{prim.path}: MDL materials ({src_asset}) are not ported yet "
-            "(ROADMAP: 'USD content')")
+        from gatling_tpu_torch.render.mdl import load_mdl_material, resolve_mdl_path
+
+        mdl_path = resolve_mdl_path(str(src_asset), base_dir)
+        sub = _attr_val(p, "info:mdl:sourceAsset:subIdentifier", None)
+        overrides = {k[len("inputs:"):]: a.value for k, a in p.attrs.items()
+                     if k.startswith("inputs:") and a.value is not None}
+        mdl_desc = load_mdl_material(
+            mdl_path, str(sub) if sub else None, overrides,
+            name=prim.path.strip("/").replace("/", "_"))
+        return MaterialDesc(path=prim.path, surface_node=mdl_desc.surface_node,
+                            nodes=mdl_desc.nodes, base_dir=mdl_desc.base_dir,
+                            mdl_source=mdl_path)
 
     from gatling_tpu_torch.render.patcher import patch_preview_surface_network
 

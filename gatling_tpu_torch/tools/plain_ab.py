@@ -4,7 +4,8 @@ off and on) and K2 on sphere_field's (512x512 x 4 samples, instanced and
 flattened, NEE off and on), timed as chip_smoke.py phases 3 and 3b time
 them (CUDA events, fresh copies of the wave); where the checkout has them,
 also K2 on sphere_field_lobes' instanced tables and K1 on glass_coated's
-wave, and the ptxas registers and spills of the plain walk kernels.
+wave, and the ptxas registers, stack and spills of every kernel instance
+of bounce.cu.
 
     python gatling_tpu_torch/tools/plain_ab.py PARENT CHANGE CHANGE PARENT
 
@@ -69,8 +70,7 @@ def time_tree(tree: str) -> None:
                                                 gwave, reps=15)
     if hasattr(cs, "ptxas_summary"):
         for line in cs.ptxas_summary(tb.kernel().ptxas_log):
-            if "walk_kernel<1,1,0" in line or "walk_kernel<0,1,0" in line:
-                print(f"{tree}: ptxas {line}")
+            print(f"{tree}: ptxas {line}")
     for k, v in out.items():
         print(f"{tree}: {k}: {v:.4f} ms", flush=True)
 

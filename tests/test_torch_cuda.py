@@ -1,5 +1,6 @@
 """On the card: the CUDA kernels (K1 resident, K2 the two-level walk, K3
-and K4 the split trace and shade) against their plain twins.
+and K4 the split trace and shade, with their lobe, cutout and volume
+branches) against their plain twins.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -141,20 +142,22 @@ def test_walk_kernel_matches_twin(cuda, instanced, nee):
         state = twin
 
 
-def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir):
+def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
+                     tinted: bool = False):
     """Tables of a small interior (3,840 triangles) for the split kernels:
     its base-colour textures and, with `normal_map`, a leaning
     tangent-space normal map on every material (a raw UsdUVTexture, which
     lower_material scales by 2 and biases by -1). gi.render of an 8x8 frame
     builds the materials, the texture pool and the kernel material table;
     its geometry and that table then go into resident, flattened or
-    instanced tables."""
+    instanced tables. `tinted`: the bowls in tinted glass
+    (examples.interior_tinted)."""
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
-    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.examples import interior, interior_tinted
     from gatling_tpu_torch.scene.stage import ShaderNode
 
-    desc = interior(detail=1, tex_dir=str(tex_dir))
+    desc = (interior_tinted if tinted else interior)(detail=1, tex_dir=str(tex_dir))
     if normal_map:
         lean = np.zeros((2, 2, 4), np.uint8)
         lean[...] = (200, 128, 230, 255)
@@ -423,6 +426,124 @@ def test_branch_kernels_match_twin(cuda, name, instanced, nee):
         close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
         assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, (
             name, bounce, int(bits.sum()), int((~close).sum()))
+        state = twin
+
+
+# ---------------------------------------------------------------------------
+# the volume modes: absorption (VOL 1) and the depth-1 medium stack (VOL 2)
+# ---------------------------------------------------------------------------
+
+def _volume_desc(name: str, tmp_path):
+    """cornell_fog (resident K1: the fog tall block; with it the tinted
+    glass of glass_tinted on the short block) or a small sphere_field with
+    a tinted-glass and a fog material (K2)."""
+    from gatling_tpu_torch.scene import examples as ex
+
+    if name == "cornell_fog":
+        desc = load_scene(ex.cornell_fog(str(tmp_path)))
+        desc.materials["/glass"] = ex.tinted_glass_material("/glass")
+        next(m for m in desc.meshes if m.path.endswith("/ShortBlock")).material = "/glass"
+        return desc
+    return ex.sphere_field_volumes(str(tmp_path), n_side=6, sphere_res=12)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name,instanced", [("cornell_fog", False),
+                                            ("sphere_field_volumes", False),
+                                            ("sphere_field_volumes", True)])
+@pytest.mark.parametrize("nee", [False, True])
+@pytest.mark.parametrize("mode", [tb.VOL_ABSORB, tb.VOL_SCATTER])
+def test_volume_kernels_match_twin(cuda, tmp_path, name, instanced, nee, mode):
+    """K1's and K2's volume branches against the twin on a 128x64 camera
+    wave, bounces 0-5 (rays inside media carry the encoded alive row):
+    rows 12-15 bit-equal, rows 0-11 at rtol 1e-4 / atol 1e-5 on 99.9 % of
+    rays."""
+    desc = _volume_desc(name, tmp_path)
+    fs, static = _tables(desc, cuda, instanced)
+    fs, static = tb.with_volumes(fs, static, scatter=mode == tb.VOL_SCATTER)
+    assert static.instanced == instanced and fs.volumes == mode and fs.advanced
+    w, h = 128, 64
+    cam = camera_uniforms(desc.first_camera(), False, cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 3),
+                                      True, True, False)
+    state = tb.pack_state(o, d, rng, w * h)
+    params = np.zeros((6, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(6)
+    params[:, 6] = params[:, 8] = params[:, 9] = 1.0
+    params[:, 10] = 7.0  # maxVolumeWalkLength
+    key = "K1" if fs.walk is None else "K2"
+    inside = 0
+    for bounce in range(6):
+        p = torch.tensor(params[bounce], device=cuda)
+        twin = state.clone()
+        tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, nee, fs.walk,
+                      fs.advanced, fs.cutout, fs.volumes)
+        kern = state.clone()
+        before = tb.launches[key]
+        tb.bounce_step(p, fs, kern, nee)
+        torch.cuda.synchronize()
+        assert tb.launches[key] == before + 1
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, (
+            name, bounce, int(bits.sum()), int((~close).sum()))
+        inside += int((t[13] > 1.5).sum())
+        state = twin
+    assert inside > 100  # rays travelled inside media
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "instanced"])
+def test_volume_split_kernels_match_twins(cuda, tmp_path, layout):
+    """K4's absorption branch (and K1 / K2's on the same tangent-row tables,
+    as textureLodBounces runs them) on the textured interior with tinted
+    glass bowls, bounces 0-4, against the twins."""
+    from gatling_tpu_torch.ops.split_ref import shade_ref, trace_ref
+    from gatling_tpu_torch.render.fused import material_rows
+
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, True, True,
+                                                                tmp_path, tinted=True)
+    fs, static = tb.with_volumes(fs, static, scatter=False)
+    assert fs.volumes == tb.VOL_ABSORB and fs.advanced
+    w, h = 128, 64
+    cam = camera_uniforms(cam_desc, False, cuda)
+    pix = torch.arange(w * h, device=cuda)
+    o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 1),
+                                      True, True, False)
+    state = tb.pack_state(o, d, rng, w * h)
+    params = np.zeros((5, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(5)
+    params[:, 6] = params[:, 8] = params[:, 9] = 1.0
+    flags = (fs.walk, fs.advanced, fs.cutout, fs.volumes)
+    for bounce in range(5):
+        p = torch.tensor(params[bounce], device=cuda)
+        hit = trace_ref(p, fs.tris, state, fs.walk)
+        parbuf, hit = material_rows(mats, pool, hit, active)
+        twin = state.clone()
+        shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, hit, parbuf,
+                  tb.par_row_starts(active), True, *flags)
+        kern = state.clone()
+        before = tb.launches["K4"]
+        tb.shade_step(p, fs, kern, hit, parbuf, active, True)
+        torch.cuda.synchronize()
+        assert tb.launches["K4"] == before + 1
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert close.mean() >= MIN_AGREE, (layout, bounce, int((~close).sum()))
+        if bounce == 1:
+            plain = state.clone()
+            tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, plain, True,
+                          *flags)
+            kern = state.clone()
+            tb.bounce_step(p, fs, kern, True)
+            torch.cuda.synchronize()
+            k, t = kern.cpu().numpy(), plain.cpu().numpy()
+            bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
+            close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+            assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, layout
         state = twin
 
 

@@ -4,7 +4,8 @@ toolkit only): in a fresh interpreter that cannot import them, every
 module of gatling_tpu_torch imports, and 8x8 frames of the Cornell box, of
 an instanced scene and of the textured interior (its PNG textures written
 and decoded by the port) render on the CPU, the interior also through
-the wavefront integrator."""
+the wavefront integrator, and a Cornell box with an MDL fog volume (the
+port's own MDL front end) in the fused scatter mode."""
 
 import os
 import subprocess
@@ -63,6 +64,10 @@ gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
                             render_settings={"spp": 1, "maxBounces": 2,
                                              "nextEventEstimation": True}))
 assert scene._accel is not None and (ids.data >= 0).any()
+from gatling_tpu_torch.scene.examples import cornell_fog  # an MDL medium: the scatter mode
+img, scene = render_scene_file(cornell_fog(tempfile.mkdtemp()), 8, 8,
+                               {"spp": 1, "maxBounces": 3, "mediumStackSize": 1}, device="cpu")
+assert scene._fused.volumes == 2 and img[..., :3].max() > 0.0
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")

@@ -134,17 +134,20 @@ def test_gate_renders_a_small_plain_scene():
     assert np.isfinite(img).all() and scene.sample_offset == 1
 
 
-def _with_volume(scene, path: str) -> None:
-    """Give a rendered scene's lowered material an absorption coefficient,
-    which only the MDL front end produces (the next frame re-reads it)."""
-    scene._lowered_materials[scene._material_index[path]].params["volume_absorption"] = (
-        1.0, 0.5, 0.2)
+def _with_volume(scene, path: str, **inputs) -> None:
+    """Rebind a scene's material `path` to the MDL front end's parameter
+    node (examples.uber_material) with an absorbing medium and `inputs`."""
+    from gatling_tpu_torch.scene.examples import uber_material
+
+    scene.add_material(uber_material(path, transmission=1.0, roughness=0.3,
+                                     volume_absorption=(1.0, 0.5, 0.2), **inputs))
 
 
 def test_gate_raises_on_large_scene():
     """Above the resident ceiling a plain scene renders through the walk,
-    and so does a cutout material (the walk's cutout branch); a volume
-    coefficient raises there, naming its ROADMAP item."""
+    and so does a cutout material (the walk's cutout branch) and an
+    absorbing medium (the walk's absorption branch, gi's route at
+    mediumStackSize 0)."""
     scene = gi.create_scene("cpu")
     scene.add_mesh(_quad_grid_mesh(46))  # 4232 triangles
     img = _render(scene)
@@ -157,9 +160,11 @@ def test_gate_raises_on_large_scene():
     img = _render(scene)
     assert np.isfinite(img).all() and scene._fused_static.clustered
     assert scene._fused_static.cutout and scene._fused.cutout
-    _with_volume(scene, "/cut")
-    with pytest.raises(NotImplementedError, match="USD content"):
-        _render(scene)
+    _with_volume(scene, "/cut", opacity=0.5)
+    img = _render(scene)
+    assert np.isfinite(img).all() and scene._fused_static.clustered
+    assert scene._fused_static.volumes and not scene._fused_static.scatter
+    assert scene._fused.volumes == 1 and scene._fused.cutout
 
 
 @pytest.mark.parametrize("n", [2, 46])
@@ -193,8 +198,8 @@ def test_gate_raises_outside_the_slice(what):
     kwargs = {}
     if what == "vcolor":
         # a displayColor mesh whose fallback material multiplies the colours
-        # in takes the wavefront integrator, which renders its cutout; a
-        # volume coefficient raises there
+        # in takes the wavefront integrator, which renders its cutout and
+        # its medium
         grid = scene.meshes[0]
         pts = np.zeros((9, 3), np.float32)
         pts[:, :2] = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], indexing="ij"), -1).reshape(9, 2)
@@ -217,7 +222,10 @@ def test_gate_raises_outside_the_slice(what):
     if what == "vcolor":
         img = _render(scene)
         assert np.isfinite(img).all() and scene._accel is not None and scene._fused is None
-        _with_volume(scene, "/dc")
+        _with_volume(scene, "/dc", _vcolor_multiply=True, opacity=0.5)
+        img = _render(scene)
+        assert np.isfinite(img).all() and scene._accel is not None and scene._fused is None
+        return
     with pytest.raises(NotImplementedError, match=item):
         _render(scene, AovId.NORMAL if what == "aov" else AovId.COLOR, **kwargs)
 

@@ -374,17 +374,23 @@ def test_gi_textured_gates_raise(tex_dir, what):
     surf = m.nodes[m.surface_node]
     if what == "anisotropy":
         # an anisotropic material passes the gate and takes the advanced
-        # lobes with tangent rows; a volume coefficient is what raises
+        # lobes with tangent rows; with an absorbing medium too, the split
+        # bounce's absorption branch (a scattering one would take the
+        # wavefront: the split bounce has no free flight)
         scene = _gi_scene(desc)
         _gi_frame(scene, desc, 8, spp=1, maxBounces=2)
         scene._lowered_materials[0].params["anisotropy"] = 0.5
         table = tmat.build_material_table(scene._lowered_materials)
-        tb.check_slice(table)
         assert tb.advanced_from_table(table) and tb.uses_tangents(table)
-        scene._lowered_materials[0].params["volume_absorption"] = (0.5, 0.5, 0.5)
-        table = tmat.build_material_table(scene._lowered_materials)
-        with pytest.raises(NotImplementedError, match="USD content"):
-            tb.check_slice(table)
+        assert not tb.has_volumes(table)
+        from gatling_tpu_torch.scene.examples import uber_material
+
+        scene.add_material(uber_material(m.path, anisotropy=0.5, transmission=1.0,
+                                         roughness=0.3, volume_absorption=(0.5, 0.5, 0.5)))
+        img = _gi_frame(scene, desc, 8, spp=1, maxBounces=3, mediumStackSize=1)
+        st = scene._fused_static
+        assert np.isfinite(img).all() and st.textured and st.tangents and st.advanced
+        assert st.volumes and not st.scatter and scene._fused.volumes == tb.VOL_ABSORB
         return
     if what == "opacity_texture":
         surf.input_connections["opacity"] = (m.path + "/tex", "a")

@@ -22,7 +22,7 @@ Inputs are made with numpy from seeds and handed to both sides:
    and the comparison);
 6. gi's routing: the wavefront for AOVs outside FUSED_AOV_MASK and for
    vertex colours, the fused kernels for COLOR; NotImplementedError above
-   8192 triangles, for cutout and for volumes; clipping planes, the CLI's
+   8192 triangles; cutout and media render; clipping planes, the CLI's
    integer AOVs, transform edits and progressive frames.
 """
 
@@ -433,15 +433,18 @@ def test_gi_wavefront_gates_raise():
                       input_connections={})
     cut.add_material(MaterialDesc(path="/cut", surface_node="/cut/s", nodes={"/cut/s": node}))
     # cutout renders on the wavefront (its hit-side draw and the shadow
-    # hops); a volume coefficient raises, naming the MDL front end's item
+    # hops), and so do media (the medium stack)
     (faces,) = _gi_frame(cut, [AovId.FACE_ID])
     assert cut._accel is not None and (faces >= -1).all()
+    from gatling_tpu_torch.scene.examples import uber_material
+
     vol = gi.create_scene("cpu")
-    vol.add_mesh(_quad_grid_mesh(2))
-    _gi_frame(vol, [AovId.FACE_ID])
-    vol._lowered_materials[0].params["volume_absorption"] = (0.5, 0.5, 0.5)
-    with pytest.raises(NotImplementedError, match="USD content"):
-        _gi_frame(vol, [AovId.FACE_ID])
+    vol.add_mesh(_quad_grid_mesh(2, material="/fog"))
+    vol.add_material(uber_material("/fog", transmission=1.0, ior=1.0,
+                                   volume_absorption=(0.5, 0.5, 0.5),
+                                   volume_scattering=(1.0, 1.0, 1.0)))
+    (faces,) = _gi_frame(vol, [AovId.FACE_ID], mediumStackSize=2)
+    assert vol._accel is not None and vol._fused is None and (faces >= -1).all()
 
 
 def test_transform_edit_rebuilds_trace_tables():
