@@ -18,7 +18,10 @@ fails, with a non-zero exit, if any phase fails:
    waves the main path builds: Cornell 1200x1200 x 2 samples (2.88M rays,
    NEE off and on) and Lights.Analytic 96x96 x 24 samples, at bounce 0 and
    at bounce 4 from a state the twin stepped; then both timed on the
-   Cornell waves;
+   Cornell waves. K1, K3 and K4 walk a BVH over the resident table
+   (ops/bvh.py TriBvh) where the twins test every triangle; their bound is
+   the walk's work (bounce_ref.resident_work: its slab and triangle tests,
+   the NEE shadow rays' included), the brute-force bound beside it;
 3b. K2 against its twin the same way, on the sphere_field wave (512x512 x
    4 samples, 1,048,576 rays, in 32x32 pixel tiles), NEE off and on,
    through the instanced tables (gi's route) and the flattened ones; and
@@ -63,7 +66,11 @@ fails, with a non-zero exit, if any phase fails:
    (sample 0, bounces 0 and 2: the closest-hit waves, 1,440,000 and
    262,144 rays, and the NEE shadow waves) and the tables gi built: tri,
    t, u, v bit-equal and the occlusion flags equal on every ray, K7's
-   triangle K5's on 99 % of rays; each kernel and twin timed;
+   triangle K5's on 99 % of rays; each kernel and twin timed, K5's bound
+   from its BVH walk's work (trace_ref.matrix_work) beside the
+   brute-force one; after 4f, the same on cornell_cutout_aovs' shadow-hop
+   waves (bounces 0 and 2, recorded by wrapping
+   render/integrator.py _trace_occluded_cutout);
 4f. the advanced lobes and the cutout through gi.render, a first and a
    warm frame each with the kernels' launches: glass_coated
    (Materials.GlassCoated at the bench's 1200x1200, 16 spp, 8 bounces,
@@ -235,12 +242,72 @@ def compare(kernel_state, twin_state):
 
 
 def k1_bound_ms(state, fs) -> float:
-    """The least time of one K1 launch on `state`: its 16 state rows read
-    and written once and the tables read once, at the HBM rate, against
-    every alive ray's test of every triangle at the f32 rate."""
+    """The brute-force bound of one K1 launch on `state`: its 16 state rows
+    read and written once and the tables read once, at the HBM rate,
+    against every alive ray's test of every triangle at the f32 rate (the
+    twin's search)."""
     alive = int((state[13] > 0.5).sum())
     nbytes = 2 * state.numel() * 4 + 4 * (fs.tris.numel() + fs.mats.numel() + fs.lights.numel())
     return _bound(nbytes, alive * fs.tris.shape[0] * TRI_TEST_FLOPS)
+
+
+def nee_shadow_rays(p, fs, state, nee):
+    """The NEE shadow rays of one bounce of `state` over fs, as the twin
+    traces them (bounce_ref.occluder wrapped): a list of (origins [n, 3],
+    directions [n, 3], distances [n], the salted cutout words or None)."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce_ref
+
+    rays, real = [], bounce_ref.occluder
+
+    def occluder(tris, walk, cutout=False):
+        fn = real(tris, walk, cutout)
+
+        def traced(o, d, dist, key):
+            rays.append((torch.stack(o, 1), torch.stack(d, 1), dist, key if cutout else None))
+            return fn(o, d, dist, key)
+        return traced
+
+    if nee:
+        bounce_ref.occluder = occluder
+        try:
+            bounce_twin(p, fs, state.clone(), nee)
+        finally:
+            bounce_ref.occluder = real
+    return rays
+
+
+def resident_walk_work(p, fs, state, nee: bool) -> tuple[int, int]:
+    """(slab tests, triangle tests) of the BVH walks of one resident K1
+    (K3: NEE off) launch on `state`, from bounce_ref.resident_work:
+    every alive ray's closest-hit walk (its cutout words as the kernel's)
+    and, with NEE, the any-hit walk of each shadow ray the twin traces."""
+    import torch
+
+    from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cutout_key, resident_work
+
+    o, d = state[0:3].T.contiguous(), state[3:6].T.contiguous()
+    key = cutout_key(state) if fs.cutout else None
+    *_hit, boxes, tests = resident_work(fs.bvh, o, d, state[13] > 0.5, float(p[P_TMIN]), key)
+    work = [int(boxes.sum()), int(tests.sum())]
+    for so, sd, dist, skey in nee_shadow_rays(p, fs, state, nee):
+        *_occ, boxes, tests = resident_work(fs.bvh, so, sd, torch.ones_like(dist, dtype=torch.bool),
+                                            0.0, skey, dist=dist)
+        work[0] += int(boxes.sum())
+        work[1] += int(tests.sum())
+    return work[0], work[1]
+
+
+def k1_walk_bound_ms(p, fs, state, nee: bool):
+    """The least time of one K1 launch on `state` for the work its BVH
+    walks make (resident_walk_work): the state rows and every table (the
+    tree's included) read once, against 24 operations a slab test and 30
+    a triangle test at the f32 rate. Returns (ms, what bounds it), work."""
+    work = resident_walk_work(p, fs, state, nee)
+    nbytes = 2 * state.numel() * 4 + 4 * (fs.tris.numel() + fs.mats.numel() + fs.lights.numel()
+                                          + sum(t.numel() for t in fs.bvh))
+    return _bound(nbytes, work[0] * SLAB_FLOPS + work[1] * TRI_TEST_FLOPS), work
 
 
 def _bound(nbytes: int, ops: int):
@@ -314,12 +381,14 @@ def phase_kernel(device):
             state = twin
         if path == CORNELL:
             p0 = params_row(0, device)
+            bound, work = k1_walk_bound_ms(p0, fs, wave, nee)
             times[nee] = (time_ms(lambda s: tb.bounce_step(p0, fs, s, nee), wave),
                           time_ms(lambda s: bounce_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, nee),
-                                  wave, reps=3), k1_bound_ms(wave, fs))
+                                  wave, reps=3), bound, k1_bound_ms(wave, fs), work)
             log(f"timing {label} bounce 0 at {wave.shape[1]} rays: kernel "
                 f"{times[nee][0]:.3f} ms, plain twin {times[nee][1]:.3f} ms, bound "
-                f"{times[nee][2][0]:.4f} ms ({times[nee][2][1]})")
+                f"{bound[0]:.4f} ms ({bound[1]}; walk work {work} slab and triangle tests), "
+                f"brute-force bound {times[nee][3][0]:.4f} ms ({times[nee][3][1]})")
     return max_err, times
 
 
@@ -800,17 +869,20 @@ def compare_hits(kernel_hit, twin_hit):
     return bad_bits, outside, k.shape[1], max_err
 
 
-def k3_bound_ms(state, fs, hit_rows: int, work) -> tuple[float, str]:
+def k3_bound_ms(state, fs, hit_rows: int, work, brute: bool = False) -> tuple[float, str]:
     """The least time of one K3 launch: each ray's origin, direction and
     alive flag read and its hit rows written once, the tables read once
     (HBM), against the triangle and box tests the wave's closest hits need
-    (resident: every alive ray against every triangle; walk: as K2's
-    floor, bounce_ref.walk_work)."""
+    (resident: the BVH walk's `work`, its slab and triangle tests from
+    resident_walk_work, or with `brute` every alive ray against every
+    triangle; walk: as K2's floor, bounce_ref.walk_work)."""
     r = state.shape[1]
     nbytes = 4 * r * (7 + hit_rows) + 4 * (fs.tris.numel() + sum(
-        t.numel() for t in (fs.walk or ())))
-    if fs.walk is None:
+        t.numel() for t in (fs.walk or fs.bvh)))
+    if fs.walk is None and brute:
         return _bound(nbytes, int((state[13] > 0.5).sum()) * fs.tris.shape[0] * TRI_TEST_FLOPS)
+    if fs.walk is None:
+        return _bound(nbytes, work[0] * SLAB_FLOPS + work[1] * TRI_TEST_FLOPS)
     n_entries, n_clusters = work
     return _bound(nbytes, n_entries * 16 * SLAB_FLOPS + n_clusters * 128 * TRI_TEST_FLOPS)
 
@@ -905,10 +977,11 @@ def phase_split(device, scenes: dict):
         hit = tb.trace_step(p0, fs, wave)
         parbuf, hit_n = material_rows(mats, pool, hit, active)
         alive = wave[13] > 0.5
-        work = None
         if fs.walk is not None:
             o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
             work = walk_work(fs.walk, o, d, alive, float(p0[P_TMIN]), hit[H_T])
+        else:
+            work = resident_walk_work(p0, fs, wave, False)
         t = dict(
             k3=time_ms(lambda s: tb.trace_step(p0, fs, s), wave),
             k3_twin=time_ms(lambda s: trace_ref(p0, fs.tris, s, fs.walk), wave, reps=2),
@@ -919,12 +992,14 @@ def phase_split(device, scenes: dict):
             k4_twin=time_ms(lambda s: shade_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, hit_n,
                                                 parbuf, prow, nee, fs.walk), wave, reps=2),
             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work),
+            k3_bound_brute=k3_bound_ms(wave, fs, hit.shape[0], work, brute=True),
             k4_bound=k4_bound_ms(wave, fs, 3 * len(active)),
             work=work, rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
         times[label] = t
         log(f"timing {label} nee={nee} bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
             f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
-            f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}), texture stage {t['stage']:.3f} ms, "
+            f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}, brute-force bound "
+            f"{t['k3_bound_brute'][0]:.4f} ms), texture stage {t['stage']:.3f} ms, "
             f"K4 {t['k4']:.3f} ms (NEE off {t['k4_nee_off']:.3f} ms; twin {t['k4_twin']:.1f} ms, "
             f"bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]})")
 
@@ -1137,6 +1212,42 @@ def check_aovs(aovs, params, label):
     assert np.abs(length - 1.0).max() < 1e-3, label
 
 
+def record_hop_waves(params, bounces=(0, 2)):
+    """One more frame of a wavefront frame with cutout, with the shadow
+    hops of `bounces` of its first sample recorded: the rays each hop of
+    render/integrator.py _trace_occluded_cutout hands K5 (origins,
+    directions, tmin, tmax), as {"<bounce>/hop <k>": rays}."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.render import integrator
+
+    calls, at = {}, {"bounce": -1, "hop": None}
+    real_closest, real_cutout = integrator._trace_closest, integrator._trace_occluded_cutout
+
+    def closest(config, accel, *rays):
+        if at["hop"] is None:  # a path segment: the next bounce
+            at["bounce"] += 1
+        else:
+            if at["bounce"] in bounces:
+                calls[f"{at['bounce']}/hop {at['hop']}"] = tuple(r.clone() for r in rays)
+            at["hop"] += 1
+        return real_closest(config, accel, *rays)
+
+    def cutout(*args, **kwargs):
+        at["hop"] = 0
+        try:
+            return real_cutout(*args, **kwargs)
+        finally:
+            at["hop"] = None
+
+    integrator._trace_closest, integrator._trace_occluded_cutout = closest, cutout
+    try:
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        gi.render(params)
+    finally:
+        integrator._trace_closest, integrator._trace_occluded_cutout = real_closest, real_cutout
+    return calls
+
+
 def record_waves(params, bounces=(0, 2)):
     """One more frame of `params` with the wavefront's trace calls
     recorded: for sample 0, the closest-hit waves and the NEE shadow
@@ -1269,11 +1380,23 @@ def trace_bound_ms(kernel: str, rays, table, tested: int):
     return _bound(n * (32 + out_bytes) + 4 * table.numel(), tested * TRACE_OPS[kernel])
 
 
+def trace_walk_bound_ms(rays, bvh, work):
+    """The least time of one K5 launch for the work its BVH walk makes
+    (trace_ref.matrix_work: slab tests, triangle tests): each ray's o, d,
+    tmin, tmax read and t, tri, u, v written once, the tree read once
+    (HBM), against 24 operations a slab test and TRACE_OPS["K5"] a
+    triangle test (f32)."""
+    n = rays[0].shape[0]
+    return _bound(n * (32 + 16) + 4 * sum(t.numel() for t in bvh),
+                  work[0] * SLAB_FLOPS + work[1] * TRACE_OPS["K5"])
+
+
 def phase_trace(device, waves: dict):
     """Phase 3d: K5-K8 against their twins on the waves 4e's frames handed
-    the tracer, on the tables gi built: tri, t, u, v bit-equal on every ray,
-    the occlusion flags equal on every ray; K7 against K5; each kernel and
-    twin timed with CUDA events."""
+    the tracer (and 4f's cutout shadow hops), on the tables gi built: tri,
+    t, u, v bit-equal on every ray, the occlusion flags equal on every ray;
+    K7 against K5; each kernel and twin timed with CUDA events, K5's bound
+    from its walk's work beside the brute-force one."""
     import torch
 
     from gatling_tpu_torch.ops import trace as tt
@@ -1302,14 +1425,21 @@ def phase_trace(device, waves: dict):
                 f"{int((ref5[1] >= 0).sum())} hits): K5 {bad['K5']} and K7 {bad['K7']} values "
                 f"not bit-equal to their twins; K7 takes K5's triangle on {agree:.6f}")
             assert bad["K5"] == 0 and bad["K7"] == 0 and agree >= 0.99
+            *walked, boxes, tests = trf.matrix_work(tables.bvh, *rays)
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(walked, ref5)), (label, bounce)  # the plain walk's hit
+            work = (int(boxes.sum()), int(tests.sum()))
             for k, fn, twin, table in (
                     ("K5", lambda r=rays: tt.intersect_matrix(*r, tables),
                      lambda r=rays: trf.intersect_matrix_ref(*r, tables.coeffs), tables.coeffs),
                     ("K7", lambda r=rays: tt.intersect_tiles(*r, tiles),
                      lambda r=rays: trf.intersect_tiles_ref(*r, tiles.tris), tiles.tris)):
+                brute = trace_bound_ms(k, rays, table, live * n_real)
                 results[(k, label, bounce)] = dict(
                     ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
-                    live=live, bound=trace_bound_ms(k, rays, table, live * n_real), err=err[k])
+                    live=live, err=err[k], bound_brute=brute,
+                    bound=trace_walk_bound_ms(rays, tables.bvh, work) if k == "K5" else brute,
+                    work=work if k == "K5" else None)
         for bounce, rays in recorded["occluded"].items():
             live = int((rays[3] > rays[2]).sum())
             got6, got8 = tt.occluded_matrix(*rays, tables), tt.occluded_tiles(*rays, tiles)
@@ -1335,9 +1465,11 @@ def phase_trace(device, waves: dict):
                     ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
                     live=live, bound=trace_bound_ms(k, rays, table, tested), err=err[k])
     for (k, label, bounce), r in sorted(results.items()):
+        walk = (f"; walk work {r['work']} slab and triangle tests, brute-force bound "
+                f"{r['bound_brute'][0]:.4f} ms" if r.get("work") else "")
         log(f"timing {k} {label} bounce {bounce} ({r['rays']} rays, {r['live']} live): kernel "
             f"{r['ms']:.4f} ms, plain twin {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]})")
+            f"({r['bound'][1]}{walk})")
     return results
 
 
@@ -1362,6 +1494,11 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
     name, replaces = TRACE_ENTRIES[kernel]
     head = times[(kernel, "cornell_aovs", 0)]
     cases = {f"{label}/bounce {b}": r for (k, label, b), r in sorted(times.items()) if k == kernel}
+    brute = {}
+    if kernel == "K5":  # the walk's bound and, beside it, every triangle tested
+        brute = {"bound_ms_brute_force": head["bound_brute"][0],
+                 "bound_ms_brute_force_by_case": {c: r["bound_brute"][0]
+                                                  for c, r in cases.items()}}
     return {
         "name": name, "route": "cuda", "source": "gatling_tpu_torch/csrc/trace.cu",
         "replaces": replaces, "launches": launches,
@@ -1372,6 +1509,7 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
         "ms_by_case": {c: r["ms"] for c, r in cases.items()},
         "plain_ms_by_case": {c: r["plain_ms"] for c, r in cases.items()},
         "bound_ms_by_case": {c: r["bound"][0] for c, r in cases.items()},
+        **brute,
     }
 
 
@@ -1747,7 +1885,12 @@ def phase_lobes(device, tex_dir: str):
     image_checks(full[AovId.COLOR], "cornell_cutout_aovs")
     check_aovs(full, params, "cornell_cutout_aovs")
     launches["cornell_cutout_aovs"] = {"K5": lc["K5"]}
-    return out, launches, replay
+    hops = record_hop_waves(params)
+    log(f"cornell_cutout_aovs: recorded the shadow hop waves {sorted(hops)}")
+    assert hops
+    hop_waves = {"cornell_cutout_aovs_hops": ({"closest": hops, "occluded": {}},
+                                              params.scene._accel.tables, params.scene._geom)}
+    return out, launches, replay, hop_waves
 
 
 # ---------------------------------------------------------------------------
@@ -2034,7 +2177,8 @@ def phase_branches(device, replay: dict, exact: bool = False):
             r["ms"] = time_ms(lambda s: tb.bounce_step(p, fs, s, nee), wave)
             r["plain_ms"] = time_ms(lambda s: bounce_twin(p, fs, s, nee), wave, reps=1)
             if fs.walk is None:
-                r["bound"] = k1_bound_ms(wave, fs)
+                r["bound"], r["work"] = k1_walk_bound_ms(p, fs, wave, nee)
+                r["bound_brute"] = k1_bound_ms(wave, fs)
             else:
                 o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
                 tmin = float(p[P_TMIN])
@@ -2050,7 +2194,7 @@ def phase_branches(device, replay: dict, exact: bool = False):
             hit = tb.trace_step(p, fs, wave)
             o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
             r["work"] = (walk_work(fs.walk, o, d, alive, float(p[P_TMIN]), hit[H_T])
-                         if fs.walk is not None else None)
+                         if fs.walk is not None else resident_walk_work(p, fs, wave, False))
             r["k3_ms"] = time_ms(lambda s: tb.trace_step(p, fs, s), wave)
             r["k3_plain_ms"] = time_ms(lambda s: trace_ref(p, fs.tris, s, fs.walk, fs.cutout),
                                        wave, reps=1)
@@ -2181,11 +2325,16 @@ def branch_entries(branch: dict, lobe_launches: dict, table=BRANCHES) -> list[di
                  "ms": r[ms], "plain_ms": r[plain], "bound_ms": r[bound][0],
                  "bound_by": r[bound][1], "library_ms": None, "rays": r["rays"],
                  "alive": r["alive"]}
+        if not k3 and "bound_brute" in r:  # a resident K1: the BVH walk's bound, brute force's
+            entry["bound_ms_brute_force"] = r["bound_brute"][0]
         others = {k: v for k, v in branch.items() if k.startswith(case) and k != case}
         if others:
             entry["ms_by_case"] = {k: v[ms] for k, v in others.items()}
             entry["plain_ms_by_case"] = {k: v[plain] for k, v in others.items()}
             entry["bound_ms_by_case"] = {k: v[bound][0] for k, v in others.items()}
+            if "bound_ms_brute_force" in entry:
+                entry["bound_ms_brute_force_by_case"] = {k: v["bound_brute"][0]
+                                                         for k, v in others.items()}
         out.append(entry)
     return out
 
@@ -2216,7 +2365,8 @@ def probe_entries(launches: dict, p1: dict, p2: dict) -> list[dict]:
 
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
-KERNEL_NAMES = ("shade_walk_kernel", "trace_walk_kernel", "cutout_draws_kernel",
+KERNEL_NAMES = ("intersect_tree_kernel", "shade_walk_kernel", "trace_walk_kernel",
+                "cutout_draws_kernel",
                 "onehot_fp32_kernel", "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel",
                 "closest_kernel", "bounce_kernel", "shade_kernel", "trace_kernel", "walk_kernel")
 
@@ -2334,8 +2484,12 @@ def main() -> int:
     # 4f. glass, clearcoat, anisotropy and cutout through gi.render; 3e. the
     # branches against their twins on 4f's waves; P. the probes
     t0 = time.perf_counter()
-    lobe_frames, lobe_launches, replay = phase_lobes(device, tex_tmp.name)
+    lobe_frames, lobe_launches, replay, hop_waves = phase_lobes(device, tex_tmp.name)
     log(f"phase 4f: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    trace_times.update(phase_trace(device, hop_waves))
+    del hop_waves
+    log(f"phase 3d, the cutout shadow hops: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     branch = phase_branches(device, replay)
     del replay
@@ -2374,8 +2528,13 @@ def main() -> int:
         "bound_ms": times[False][2][0],
         "bound_by": times[False][2][1],
         "library_ms": None,
+        "bound_ms_brute_force": times[False][3][0],
+        "walk_work": times[False][4],
         "ms_nee": times[True][0],
         "plain_ms_nee": times[True][1],
+        "bound_ms_nee": times[True][2][0],
+        "bound_ms_brute_force_nee": times[True][3][0],
+        "walk_work_nee": times[True][4],
     }, {
         "name": "bounce_step_walk (K2, clustered + instanced)",
         "route": "cuda",
@@ -2409,6 +2568,7 @@ def main() -> int:
         "ms_cornell_textured": ct["k3"],
         "plain_ms_cornell_textured": ct["k3_twin"],
         "bound_ms_cornell_textured": ct["k3_bound"][0],
+        "bound_ms_brute_force_cornell_textured": ct["k3_bound_brute"][0],
         "ms_bounce2_coherence_order": split_times["interior_bounce2"]["k3"],
         "ms_bounce2_unsorted": split_times["interior_bounce2"]["k3_unsorted"],
         "bound_ms_bounce2": split_times["interior_bounce2"]["k3_bound"][0],

@@ -23,8 +23,8 @@
 // * CUT (`cutout`), stochastic cutout inside every search (:1445-1466,
 //   :1657-1668, :2127-2138, :2874-2900, :3276-3311): a candidate hit
 //   draws `cutout_xi`, an integer hash of the ray's PCG word and the
-//   global triangle id, against its pass probability (resident: two
-//   table columns staged in shared memory beside the tile; flattened walk:
+//   global triangle id, against its pass probability (resident: the two
+//   table columns, copied into the tree's leaf rows; flattened walk:
 //   the CLU_OPAC / CLU_OPAC_SH row; instanced: the placement's INST_PASS /
 //   INST_PASS_SH). A rejected candidate is not a hit; nothing is re-traced
 //   and the path's PCG stream gives no draw. It adds a hash (about 10
@@ -59,7 +59,7 @@
 // then sample the textures (render/fused.py material_rows); K4
 // `shade_kernel` / `shade_walk_kernel` replaces `shade_step` ->
 // `_shade_kernel` and shades from the hit buffer and the per-ray
-// parameter rows. K3 reuses K1's tiled closest-hit search and K2's walk
+// parameter rows. K3 reuses K1's closest-hit walk and K2's walk
 // and pass 2; K4 runs the shading core and the NEE shadow walks that K1
 // and K2 run (one copy of each in this file). Their twins are in
 // ops/split_ref.py. What bounds them: K3 the same triangle tests as K1
@@ -68,18 +68,28 @@
 //
 // K1. One thread per ray; ray state row k of ray i lives at
 // state[k*R + i], so every row access coalesces. The TPU kernel tested a
-// 2048-ray block against one triangle at a time out of SMEM; here every
-// thread walks the whole triangle table, which is staged through shared
-// memory in 128-triangle tiles (16 KB) with coalesced float4 loads
-// (a 4096-triangle table is 512 KB: more than shared memory or the 64 KB
-// constant bank, so it stays in global memory behind L2). Materials, lights
-// and the light-type list are staged in shared memory once per block.
-// A block whose rays are all dead returns at once; a dead ray inside a live
-// block only helps load tiles (the TPU kernel's per-block early-out, at ray
-// granularity). The NEE shadow loop stops as soon as no ray of the block
-// still needs an answer. At the Cornell box's ~30 triangles it is bound by
-// the state traffic (16 floats read and written per ray) and the shading
-// math.
+// 2048-ray block against every triangle, one at a time out of SMEM: its
+// matrix unit makes the dense product cheap. Here each ray walks a binary
+// BVH over the table, built once per scene on the host (ops/bvh.py
+// TriBvh: median split, 4 triangles a leaf, boxes padded for rounding; a
+// table of at most 64 triangles is one leaf, which a warp runs in step),
+// nearer child first with a local stack (tree_walk.cuh); a leaf's
+// triangles are read as three float4 quads of test data and a fourth with
+// the table index and the cutout probabilities, through the read-only
+// cache (a 4096-triangle table's tree and rows are about 300 KB: L1 and
+// L2 hold them). Each candidate runs the brute-force loop's tri_hit, and
+// the smallest t wins with ties to the lower table index, which is the
+// serial loop's "first wins" made independent of the order: the walk
+// finds the winner the twin's serial loop finds, bit for bit. The NEE
+// shadow ray is an any-hit walk that ends at its first occluder. The
+// winner's attributes are read from its table row. Materials, lights and
+// the light-type list are staged in shared memory once per block; a block
+// whose rays are all dead returns at once. What bounds it: per ray, the
+// slab tests of the nodes it opens (24 operations each) and the triangle
+// tests of the leaves it reaches (30 each), a few tens a ray on a closed
+// mesh of hundreds of triangles, and the divergence of a warp's rays down
+// different paths; on the Cornell box's 32 triangles, the state traffic
+// (16 floats read and written a ray) and the shading math.
 //
 // K2. The TPU walked level-1 entries near to far per 1024-ray block, in an
 // order an XLA prelude sorted, and intersected whole clusters with bf16
@@ -103,6 +113,8 @@
 
 #include <type_traits>
 
+#include "tree_walk.cuh"
+
 // without GATLING_PART the file defines every entry point
 #ifndef GATLING_PART
 #define PART(k) 1
@@ -112,14 +124,12 @@
 
 namespace {
 
-constexpr int TRI_ROWS = 32;      // the resident row; the tile holds its first 32 floats
 constexpr int TRI_ROWS_TAN = 48;  // with the tangent rows TR_T0..TR_BS
 // a cutout table appends the camera and the shadow pass probability after
 // those rows and pads them to 36 or 52 floats
 constexpr uint32_t SHADOW_SALT = 0x5BD1E995u;  // the shadow walk's cutout key salt
 constexpr int MAT_COLS = 30;
 constexpr int LIGHT_COLS = 20;
-constexpr int TILE = 128;     // triangles per shared-memory tile
 constexpr int THREADS = 128;  // rays per block
 
 // Constants rounded from double as the JAX kernel rounds its Python floats.
@@ -158,7 +168,7 @@ enum { CLU_N = 0, CLU_GN = 4, CLU_MAT = 7, CLU_R1 = 8, CLU_N0 = 12, CLU_DS = 15,
        CLU_T0 = 40, CLU_T1 = 43, CLU_T2 = 46, CLU_BS = 49 };
 enum { INST_AT = 9, INST_MAT = 12, INST_DS = 15, INST_PASS = 16, INST_PASS_SH = 17,
        INST_COLS = 20 };
-constexpr int STACK = 64;  // TLAS traversal stack (ops/bounce.py TLAS_MAX_DEPTH)
+constexpr int STACK = 64;  // TLAS traversal stack (ops/bvh.py TLAS_MAX_DEPTH)
 
 __device__ __forceinline__ float pcg_next(uint32_t& s) {
   const uint32_t ns = s * 747796405u + 2891336453u;
@@ -183,42 +193,22 @@ __device__ __forceinline__ float cutout_xi(uint32_t key, uint32_t tid) {
   return (float)(h >> 8) * C(1.0 / (1 << 24));
 }
 
-// The camera pass-probability column of a resident cutout table of rows
-// of ld floats (the shadow one follows it).
-__device__ __forceinline__ int opac_col(int ld) { return ld >= TRI_ROWS_TAN ? TRI_ROWS_TAN : TRI_ROWS; }
-
-// Baldwin-Weber plane + barycentric test of one triangle (row pointer tr).
-__device__ __forceinline__ bool tri_hit(const float* tr, float ox, float oy,
-                                        float oz, float dx, float dy, float dz,
-                                        float tmin, float& tt, float& u,
-                                        float& v) {
-  const float nx = tr[TR_N], ny = tr[TR_N + 1], nz = tr[TR_N + 2];
-  const float ndotd = nx * dx + ny * dy + nz * dz;
+// Baldwin-Weber plane + barycentric test of one triangle: its quads
+// (TR_N xyz, TR_D0), (TR_R1 xyz, c1), (TR_R2 xyz, c2).
+__device__ __forceinline__ bool tri_hit(const float4 n, const float4 r1, const float4 r2,
+                                        const float o[3], const float d[3], float tmin,
+                                        float& tt, float& u, float& v) {
+  const float ndotd = n.x * d[0] + n.y * d[1] + n.z * d[2];
   bool ok = fabsf(ndotd) > C(1e-12);
   const float inv = ok ? 1.0f / ndotd : 0.0f;
-  tt = -(nx * ox + ny * oy + nz * oz + tr[TR_D0]) * inv;
-  const float px = ox + tt * dx;
-  const float py = oy + tt * dy;
-  const float pz = oz + tt * dz;
-  u = tr[TR_R1] * px + tr[TR_R1 + 1] * py + tr[TR_R1 + 2] * pz + tr[TR_R1 + 3];
-  v = tr[TR_R2] * px + tr[TR_R2 + 1] * py + tr[TR_R2 + 2] * pz + tr[TR_R2 + 3];
+  tt = -(n.x * o[0] + n.y * o[1] + n.z * o[2] + n.w) * inv;
+  const float px = o[0] + tt * d[0];
+  const float py = o[1] + tt * d[1];
+  const float pz = o[2] + tt * d[2];
+  u = r1.x * px + r1.y * py + r1.z * pz + r1.w;
+  v = r2.x * px + r2.y * py + r2.z * pz + r2.w;
   return ok && (u >= BARY_LO) && (v >= BARY_LO) && (u + v <= BARY_HI) &&
          (tt > tmin);
-}
-
-// Copy the first 32 floats of triangles [base, base+cnt) of a table with
-// rows of ld floats into the shared tile; with CUT also their column
-// `col` (a pass probability) into s_opac.
-template <bool CUT>
-__device__ __forceinline__ void load_tile(float* s_tri, float* s_opac, const float* tris,
-                                          int base, int cnt, int ld, int col) {
-  float4* dst = reinterpret_cast<float4*>(s_tri);
-  for (int k = threadIdx.x; k < cnt * (TRI_ROWS / 4); k += blockDim.x) {
-    const int t = k / (TRI_ROWS / 4), q = k % (TRI_ROWS / 4);
-    dst[k] = reinterpret_cast<const float4*>(tris + (size_t)(base + t) * ld)[q];
-  }
-  if (CUT)
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) s_opac[k] = tris[(size_t)(base + k) * ld + col];
 }
 
 // Diffuse + glossy reflection lobes at local wi (render/bsdf.py _eval_lobes).
@@ -1059,57 +1049,46 @@ __device__ __forceinline__ void read_hit(const float* hit, const float* par, con
 // K1 (bounce), K3 (trace) and K4 (shade) over the resident table
 // ---------------------------------------------------------------------------
 
-// Shared memory of the resident kernels: the 128-triangle tile, with CUT
-// its pass probabilities, then the material and light tables.
-struct Smem {
-  float *tri, *opac, *mat, *light;
-  int* ltype;
+// A resident table's TriBvh (ops/bvh.py): nodes, kids and the leaf rows,
+// four quads a triangle: (TR_N xyz, TR_D0), (TR_R1, c1), (TR_R2, c2) and
+// (table index, camera pass probability, shadow pass probability, 0).
+struct TriTree {
+  const float* nodes;
+  const int* kids;
+  const float* rows;
 };
 
+// The closest hit of one ray over a resident table, walking its tree:
+// the smallest t of a candidate that passes tri_hit, ties to the lower
+// table index, so the winner is the serial loop's (strict '<', the first
+// of equal t). CUT: a candidate that would win is a hit only if its
+// cutout draw with `key` passes the camera probability (a draw depends on
+// the ray and the triangle alone, so the same candidates pass in any
+// order).
 template <bool CUT>
-__device__ __forceinline__ Smem resident_smem(float* base, int n_mats, int n_lights) {
-  Smem m;
-  m.tri = base;
-  m.opac = m.tri + TILE * TRI_ROWS;
-  m.mat = m.opac + (CUT ? TILE : 0);
-  m.light = m.mat + n_mats * MAT_COLS;
-  m.ltype = reinterpret_cast<int*>(m.light + n_lights * LIGHT_COLS);
-  return m;
-}
-
-// The closest hit of each alive ray of the block over the resident table,
-// through shared-memory tiles: serial table order, strict '<' (ties keep
-// the first). CUT: a candidate that would win is a hit only if its cutout
-// draw with `key` passes the camera column. Every thread of the block must
-// call it.
-template <bool CUT>
-__device__ __forceinline__ void resident_closest(const Smem& sm, const float* tris, int n_tris,
-                                                 int ld, bool alive, const Ray& r, float tmin,
-                                                 uint32_t key, float& best_t, float& bu,
-                                                 float& bv, int& win) {
+__device__ __forceinline__ void tree_closest(const TriTree& tr, const float o[3],
+                                             const float d[3], float tmin, uint32_t key,
+                                             float& best_t, float& bu, float& bv, int& win) {
   best_t = FMAX;
   bu = bv = 0.0f;
   win = -1;
-  for (int base = 0; base < n_tris; base += TILE) {
-    const int cnt = min(TILE, n_tris - base);
-    __syncthreads();
-    load_tile<CUT>(sm.tri, sm.opac, tris, base, cnt, ld, opac_col(ld));
-    __syncthreads();
-    if (alive) {
-      for (int t = 0; t < cnt; ++t) {
-        float tt, u, v;
-        const bool ok = tri_hit(sm.tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.d[0],
-                                r.d[1], r.d[2], tmin, tt, u, v);
-        if (ok && tt < best_t &&
-            (!CUT || cutout_xi(key, (uint32_t)(base + t)) < sm.opac[t])) {
-          best_t = tt;
-          bu = u;
-          bv = v;
-          win = base + t;
-        }
-      }
+  gatling::tree_walk(tr.nodes, tr.kids, o, d, tmin, FMAX, [&](int first, int count, float& run) {
+    const float4* q = reinterpret_cast<const float4*>(tr.rows) + 4 * (size_t)first;
+    for (int j = 0; j < count; ++j, q += 4) {
+      float tt, u, v;
+      if (!tri_hit(__ldg(q), __ldg(q + 1), __ldg(q + 2), o, d, tmin, tt, u, v)) continue;
+      const float4 q3 = __ldg(q + 3);
+      const int idx = (int)q3.x;
+      if (!(tt < best_t || (tt == best_t && idx < win))) continue;
+      if (CUT && !(cutout_xi(key, (uint32_t)idx) < q3.y)) continue;
+      best_t = tt;
+      bu = u;
+      bv = v;
+      win = idx;
     }
-  }
+    run = best_t;
+    return false;
+  });
 }
 
 // The winner's attributes from its resident table row (zeros on a miss).
@@ -1133,120 +1112,101 @@ __device__ __forceinline__ Surf resident_surf(const float* tris, int ld, float b
   return sf;
 }
 
-// NEE shadow rays over the resident table: any hit in (SHADOW_TMIN,
-// ldist), with CUT only those whose draw (the salted PCG word) passes the
-// shadow column; all threads help load tiles until no ray of the block
-// needs an answer. Every thread of the block must call it.
+// The NEE shadow ray of a ray that traces one: any candidate in
+// (SHADOW_TMIN, ldist), with CUT only one whose draw (the salted PCG word)
+// passes the shadow probability; the walk ends at the first.
 template <bool CUT>
-__device__ __forceinline__ bool resident_occluded(const Smem& sm, const float* tris, int n_tris,
-                                                  int ld, const Ray& r) {
-  bool occ = false;
+__device__ __forceinline__ bool tree_occluded(const TriTree& tr, const Ray& r) {
   const uint32_t key = CUT ? r.rng ^ SHADOW_SALT : 0u;
-  for (int base = 0; base < n_tris; base += TILE) {
-    if (!__syncthreads_or(r.do_trace && !occ)) break;
-    const int cnt = min(TILE, n_tris - base);
-    load_tile<CUT>(sm.tri, sm.opac, tris, base, cnt, ld, opac_col(ld) + 1);
-    __syncthreads();
-    if (r.do_trace && !occ) {
-      for (int t = 0; t < cnt; ++t) {
-        float tt, u, v;
-        if (tri_hit(sm.tri + t * TRI_ROWS, r.o[0], r.o[1], r.o[2], r.ld[0], r.ld[1],
-                    r.ld[2], C(SHADOW_TMIN), tt, u, v) && tt < r.ldist &&
-            (!CUT || cutout_xi(key, (uint32_t)(base + t)) < sm.opac[t])) {
-          occ = true;
-          break;
-        }
-      }
+  bool occ = false;
+  gatling::tree_walk(tr.nodes, tr.kids, r.o, r.ld, C(SHADOW_TMIN), r.ldist,
+                     [&](int first, int count, float&) {
+    const float4* q = reinterpret_cast<const float4*>(tr.rows) + 4 * (size_t)first;
+    for (int j = 0; j < count; ++j, q += 4) {
+      float tt, u, v;
+      if (!tri_hit(__ldg(q), __ldg(q + 1), __ldg(q + 2), r.o, r.ld, C(SHADOW_TMIN), tt, u, v) ||
+          !(tt < r.ldist))
+        continue;
+      if (CUT && !(cutout_xi(key, (uint32_t)__ldg(q + 3).x) < __ldg(q + 3).z)) continue;
+      occ = true;
+      return true;
     }
-  }
+    return false;
+  });
   return occ;
 }
 
 template <bool NEE, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
-bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris,
-              int n_tris, int ld, const float* __restrict__ mats, int n_mats,
+bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris, int ld,
+              TriTree tree, const float* __restrict__ mats, int n_mats,
               const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
               int n_lights, float* __restrict__ state, long long R) {
   extern __shared__ float4 smem4[];
-  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), n_mats, n_lights);
+  float* s_mat = reinterpret_cast<float*>(smem4);
+  float* s_light = s_mat + n_mats * MAT_COLS;
+  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
   // dead block: every ray passes through unchanged
   if (!__syncthreads_or(alive)) return;
-
-  stage_tables(sm.mat, mats, n_mats, sm.light, lights, sm.ltype, ltypes, n_lights);
-  if (VOL == VOL_SCATTER) __syncthreads();  // free_flight reads the table
+  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  __syncthreads();
+  if (!alive) return;  // no block-wide step follows
 
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
 
   Ray r = {};
   Medium md = {};
-  float alive_f = 0.0f;
-  uint32_t key = 0;
-  if (alive) {
-    for (int c = 0; c < 3; ++c) {
-      r.o[c] = state[(S_OX + c) * R + i];
-      r.d[c] = state[(S_DX + c) * R + i];
-    }
-    if (VOL != VOL_OFF) alive_f = state[S_ALIVE * R + i];
-    if (VOL == VOL_SCATTER) {
-      load_path(r, state, R, i);
-      free_flight(p, sm.mat, n_mats, alive_f, r, md);
-    }
-    // the resident search keys its cutout draws off the PCG word after the
-    // free-flight draws (:2311)
-    if (CUT) key = VOL == VOL_SCATTER ? r.rng : __float_as_uint(state[S_RNG * R + i]);
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = state[(S_OX + c) * R + i];
+    r.d[c] = state[(S_DX + c) * R + i];
   }
+  const float alive_f = VOL != VOL_OFF ? state[S_ALIVE * R + i] : 0.0f;
+  if (VOL == VOL_SCATTER) {
+    load_path(r, state, R, i);
+    free_flight(p, s_mat, n_mats, alive_f, r, md);
+  }
+  // the resident search keys its cutout draws off the PCG word after the
+  // free-flight draws (:2311)
+  const uint32_t key =
+      CUT ? (VOL == VOL_SCATTER ? r.rng : __float_as_uint(state[S_RNG * R + i])) : 0u;
 
   float best_t, bu, bv;
   int win;
-  resident_closest<CUT>(sm, tris, n_tris, ld, alive, r, p[P_TMIN], key, best_t, bu, bv, win);
-  if (alive) {
-    if (VOL != VOL_SCATTER) load_path(r, state, R, i);
-    r.hit = best_t < FMAX;
-    shade<NEE, ADV, VOL>(p, sm.mat, n_mats, sm.light, sm.ltype, n_lights,
-                         resident_surf(tris, ld, best_t, bu, bv, win), r, alive_f, &md);
-  }
-  const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
-  if (!alive) return;
+  tree_closest<CUT>(tree, r.o, r.d, p[P_TMIN], key, best_t, bu, bv, win);
+  if (VOL != VOL_SCATTER) load_path(r, state, R, i);
+  r.hit = best_t < FMAX;
+  shade<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights,
+                       resident_surf(tris, ld, best_t, bu, bv, win), r, alive_f, &md);
+  const bool occ = NEE && r.do_trace && tree_occluded<CUT>(tree, r);
   finish<VOL>(p, r, occ, state, R, i);
 }
 
 // K3, resident: closest hit and shading state into the hit buffer.
 template <bool TAN, bool CUT>
 __global__ void __launch_bounds__(THREADS)
-trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
-             int ld, const float* __restrict__ state, long long R, float* __restrict__ hit) {
-  extern __shared__ float4 smem4[];
-  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), 0, 0);
+trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, int ld,
+             TriTree tree, const float* __restrict__ state, long long R,
+             float* __restrict__ hit) {
   const int rows = TAN ? HIT_ROWS_TAN : HIT_ROWS;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
-  if (!__syncthreads_or(alive)) {
-    if (i < R) write_dead(hit, rows, R, i);
-    return;
-  }
-  Ray r = {};
-  uint32_t key = 0;
-  if (alive) {
-    for (int c = 0; c < 3; ++c) {
-      r.o[c] = state[(S_OX + c) * R + i];
-      r.d[c] = state[(S_DX + c) * R + i];
-    }
-    if (CUT) key = __float_as_uint(state[S_RNG * R + i]);
-  }
-  float best_t, bu, bv;
-  int win;
-  resident_closest<CUT>(sm, tris, n_tris, ld, alive, r, __ldg(params + P_TMIN), key, best_t,
-                        bu, bv, win);
   if (i >= R) return;
-  if (!alive) {
+  if (!(state[S_ALIVE * R + i] > 0.5f)) {
     write_dead(hit, rows, R, i);
     return;
   }
+  float o[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    o[c] = state[(S_OX + c) * R + i];
+    d[c] = state[(S_DX + c) * R + i];
+  }
+  const uint32_t key = CUT ? __float_as_uint(state[S_RNG * R + i]) : 0u;
+  float best_t, bu, bv;
+  int win;
+  tree_closest<CUT>(tree, o, d, __ldg(params + P_TMIN), key, best_t, bu, bv, win);
   const Surf sf = resident_surf(tris, ld, best_t, bu, bv, win);
   float uv[2] = {0.0f, 0.0f}, tan[3] = {0.0f, 0.0f, 0.0f}, tbs = 0.0f;
   if (win >= 0) {
@@ -1262,48 +1222,48 @@ trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
       tbs = w * __ldg(tr + TR_BS) + bu * __ldg(tr + TR_BS + 1) + bv * __ldg(tr + TR_BS + 2);
     }
   }
-  write_hit<TAN>(hit, R, i, best_t < FMAX, r.o, r.d, sf, uv, tan, tbs);
+  write_hit<TAN>(hit, R, i, best_t < FMAX, o, d, sf, uv, tan, tbs);
 }
 
 // K4, resident: shading from the hit and parameter buffers; the NEE shadow
-// rays walk the resident table as in K1.
+// rays walk the resident table's tree as in K1.
 template <bool NEE, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
-shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int n_tris,
-             int ld, const float* __restrict__ mats, int n_mats,
+shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int ld,
+             TriTree tree, const float* __restrict__ mats, int n_mats,
              const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
              int n_lights, float* __restrict__ state, long long R,
              const float* __restrict__ hit, const float* __restrict__ par, int pb, int pe,
              int pm, int pr, int hit_tan) {
   extern __shared__ float4 smem4[];
-  const Smem sm = resident_smem<CUT>(reinterpret_cast<float*>(smem4), n_mats, n_lights);
+  float* s_mat = reinterpret_cast<float*>(smem4);
+  float* s_light = s_mat + n_mats * MAT_COLS;
+  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
 
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
   if (!__syncthreads_or(alive)) return;
-  stage_tables(sm.mat, mats, n_mats, sm.light, lights, sm.ltype, ltypes, n_lights);
+  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
   __syncthreads();
+  if (!alive) return;  // no block-wide step follows
 
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
   const int prow[4] = {pb, pe, pm, pr};
   Ray r = {};
-  if (alive) {
-    for (int c = 0; c < 3; ++c) {
-      r.o[c] = state[(S_OX + c) * R + i];
-      r.d[c] = state[(S_DX + c) * R + i];
-    }
-    load_path(r, state, R, i);
-    Hit h;
-    Mat m;
-    read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, sm.mat, n_mats, R, i, r, h, m);
-    shade_miss(p, r);
-    const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
-    if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, sm.light, sm.ltype, n_lights, r, inside);
-    if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
+  for (int c = 0; c < 3; ++c) {
+    r.o[c] = state[(S_OX + c) * R + i];
+    r.d[c] = state[(S_DX + c) * R + i];
   }
-  const bool occ = NEE && resident_occluded<CUT>(sm, tris, n_tris, ld, r);
-  if (!alive) return;
+  load_path(r, state, R, i);
+  Hit h;
+  Mat m;
+  read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
+  shade_miss(p, r);
+  const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
+  if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, s_light, s_ltype, n_lights, r, inside);
+  if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
+  const bool occ = NEE && r.do_trace && tree_occluded<CUT>(tree, r);
   finish<VOL>(p, r, occ, state, R, i);
 }
 
@@ -1328,25 +1288,9 @@ struct Walk {
 template <bool TAN>
 __host__ __device__ constexpr int clu_rows() { return TAN ? CLU_ROWS_TAN : 40; }
 
-__device__ __forceinline__ float safe_inv(float d) {
-  return 1.0f / (fabsf(d) < C(1e-20) ? (d >= 0.0f ? C(1e-20) : -C(1e-20)) : d);
-}
-
-// Ray/box slab test (pallas_bounce.py _slab_test) over [tmin, tcap];
-// tenter is the clipped entry distance.
-__device__ __forceinline__ bool slab(const float* __restrict__ b, const float o[3],
-                                     const float iv[3], float tmin, float tcap,
-                                     float& tenter) {
-  // box row (lo xyz, hi xyz, 0, 0): q0 = lo xyz + hi.x, q1 = hi.yz
-  const float4 q0 = __ldg(reinterpret_cast<const float4*>(b));
-  const float4 q1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
-  const float tx0 = (q0.x - o[0]) * iv[0], tx1 = (q0.w - o[0]) * iv[0];
-  const float ty0 = (q0.y - o[1]) * iv[1], ty1 = (q1.x - o[1]) * iv[1];
-  const float tz0 = (q0.z - o[2]) * iv[2], tz1 = (q1.y - o[2]) * iv[2];
-  tenter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fmaxf(fminf(tz0, tz1), tmin));
-  const float texit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fminf(fmaxf(tz0, tz1), tcap));
-  return tenter <= texit;
-}
+// safe_inv and the slab test (tree_walk.cuh) serve the TLAS walk too
+using gatling::safe_inv;
+using gatling::slab;
 
 // World ray into an instance frame: o_l = o A3 + a_t, d_l = d A3
 // (A3[j, i] at a[3j + i]; pass 2's expression order).
@@ -1723,9 +1667,6 @@ cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restric
   if (i < n) out[i] = cutout_xi(keys[i], ids[i]);
 }
 
-// the tile and, with cutout, its pass probabilities
-size_t tile_smem(bool cut) { return sizeof(float) * TILE * (TRI_ROWS + (cut ? 1 : 0)); }
-
 unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
 
 // f(std::true_type{}) or f(std::false_type{}): a runtime flag to a
@@ -1757,8 +1698,12 @@ extern "C" {
 
 // Every entry point launches on `stream` and returns a cudaError_t code
 // (0 = launched). Resident tables are [n_tris, ld] (ld 32, or 48 with
-// tangent rows; 36 or 52 with the cutout columns); walk tables carry their
-// row length (40, or 56). `adv`, `cut` and `vol` pick the branches.
+// tangent rows; 36 or 52 with the cutout columns) with their TriBvh
+// (nodes, kids, leaf rows); walk tables carry their row length (40, or
+// 56). `adv`, `cut` and `vol` pick the branches.
+#define RESIDENT_TABLES \
+  const float *tris, int ld, const float *nodes, const int *kids, const float *trows
+#define TREE_STRUCT {nodes, kids, trows}
 
 #if PART(0)
 const char* gatling_error_string(int code) {
@@ -1777,15 +1722,14 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
 
 
 // K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
-int gatling_trace_resident(const float* params, const float* tris, int n_tris, int ld,
-                           const float* state, long long n_rays, float* hit, int cut,
-                           void* stream) {
+int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* state,
+                           long long n_rays, float* hit, int cut, void* stream) {
   if (n_rays <= 0) return 0;
   const bool tan = ld >= TRI_ROWS_TAN;
+  const TriTree tree = TREE_STRUCT;
   return with_flag(tan, [&](auto tan_) {
     return with_flag(cut, [&](auto cut_) {
-      trace_kernel<V(tan_), V(cut_)> CONFIG(tile_smem(cut))(params, tris, n_tris, ld, state,
-                                                            n_rays, hit);
+      trace_kernel<V(tan_), V(cut_)> CONFIG(0)(params, tris, ld, tree, state, n_rays, hit);
       return (int)cudaGetLastError();
     });
   });
@@ -1795,21 +1739,21 @@ int gatling_trace_resident(const float* params, const float* tris, int n_tris, i
 // the parameter buffer, whose rows pb/pe/pm/pr hold base colour, emission,
 // metallic and roughness (-1: from the material table); hit_tan: the hit
 // buffer has the tangent rows.
-int gatling_shade_resident(const float* params, const float* tris, int n_tris, int ld,
-                           const float* mats, int n_mats, const float* lights,
-                           const int8_t* light_types, int n_lights, float* state,
-                           long long n_rays, const float* hit, const float* par, int pb,
-                           int pe, int pm, int pr, int hit_tan, int nee, int adv, int cut,
-                           int vol, void* stream) {
+int gatling_shade_resident(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,
+                           const float* lights, const int8_t* light_types, int n_lights,
+                           float* state, long long n_rays, const float* hit, const float* par,
+                           int pb, int pe, int pm, int pr, int hit_tan, int nee, int adv,
+                           int cut, int vol, void* stream) {
   if (n_rays <= 0) return 0;
-  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
+  const size_t smem = table_smem(n_mats, n_lights);
+  const TriTree tree = TREE_STRUCT;
   return with_flag(nee, [&](auto nee_) {
     return with_flag(adv, [&](auto adv_) {
       return with_flag(cut, [&](auto cut_) {
         return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
           auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
           if (int err = allow_smem(kern, smem)) return err;
-          kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types,
+          kern CONFIG(smem)(params, tris, ld, tree, mats, n_mats, lights, light_types,
                             n_lights, state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);
           return (int)cudaGetLastError();
         });
@@ -1821,19 +1765,20 @@ int gatling_shade_resident(const float* params, const float* tris, int n_tris, i
 
 #if PART(5)
 // K1: one bounce over state [16, n_rays] in place.
-int gatling_bounce_step(const float* params, const float* tris, int n_tris, int ld,
-                        const float* mats, int n_mats, const float* lights,
-                        const int8_t* light_types, int n_lights, float* state,
-                        long long n_rays, int nee, int adv, int cut, int vol, void* stream) {
+int gatling_bounce_step(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,
+                        const float* lights, const int8_t* light_types, int n_lights,
+                        float* state, long long n_rays, int nee, int adv, int cut, int vol,
+                        void* stream) {
   if (n_rays <= 0) return 0;
-  const size_t smem = tile_smem(cut) + table_smem(n_mats, n_lights);
+  const size_t smem = table_smem(n_mats, n_lights);
+  const TriTree tree = TREE_STRUCT;
   return with_flag(nee, [&](auto nee_) {
     return with_flag(adv, [&](auto adv_) {
       return with_flag(cut, [&](auto cut_) {
         return with_vol<VOL_OFF, VOL_SCATTER>(vol, [&](auto vol_) {
           auto kern = bounce_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
           if (int err = allow_smem(kern, smem)) return err;
-          kern CONFIG(smem)(params, tris, n_tris, ld, mats, n_mats, lights, light_types,
+          kern CONFIG(smem)(params, tris, ld, tree, mats, n_mats, lights, light_types,
                             n_lights, state, n_rays);
           return (int)cudaGetLastError();
         });

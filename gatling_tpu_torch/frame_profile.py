@@ -59,7 +59,7 @@ from gatling_tpu_torch.render import fused
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
 GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
-          ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "closest_kernel"),
+          ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
           ("K6 shadow rays", "occluded_kernel"), ("sort", "sort"), ("copies", "memcpy"))
 
 

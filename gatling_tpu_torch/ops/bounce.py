@@ -6,7 +6,9 @@ parameter vector, plus `bounce_step`, which runs one bounce. Two table
 layouts, as in the JAX package:
 
 * resident (at most RESIDENT_MAX = 4096 triangles): every triangle in one
-  [T, 32] table, walked by the kernel K1;
+  [T, 32] table, searched by the kernel K1 through a BVH over the table
+  (`resident_bvh`, a TriBvh of ops/bvh.py) that from_jax_tables builds
+  with it;
 * clustered: 128-triangle clusters under two levels of boxes, walked by
   the kernel K2. Flattened (`build_fused_scene_with_order`: the world
   triangle soup ordered by a median split) or instanced
@@ -102,6 +104,13 @@ from gatling_tpu_torch.ops.bounce_ref import (
     bounce_ref,
     cutout_xi,
 )
+from gatling_tpu_torch.ops.bvh import (  # noqa: F401 (TLAS_*: the TLAS builder's, re-exported)
+    TLAS_LEAF,
+    TLAS_MAX_DEPTH,
+    TriBvh,
+    build_tlas,
+    tri_bvh,
+)
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry
 from gatling_tpu_torch.ops.split_ref import (
@@ -139,8 +148,6 @@ MIN_FLAT = 4096
 CLU_VMEM_MAX_BYTES = 56 * 1024 * 1024
 # materials + lights staged in shared memory per block
 SMEM_TABLE_MAX_BYTES = 48 * 1024
-TLAS_LEAF = 2      # level-1 entries per TLAS leaf
-TLAS_MAX_DEPTH = 48  # the kernel's traversal stack holds 64 nodes
 BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
@@ -157,6 +164,7 @@ class FusedScene(NamedTuple):
     lights: torch.Tensor       # [max(L,1), 20] f32, type-major slots
     light_types: torch.Tensor  # [L] int8 LT_* per slot
     walk: WalkTables | None = None  # clustered and instanced scenes
+    bvh: TriBvh | None = None  # resident scenes: the walk of K1, K3 and K4
     advanced: bool = False     # the full lobe set in the shading
     cutout: bool = False       # stochastic cutout in the searches
     volumes: int = VOL_OFF     # the volume mode (VOL_*)
@@ -735,43 +743,6 @@ def refit_instanced(scene: FusedScene, clusters: UniqueClusters, mesh_descs,
                           cutout=counts["cutout"])
 
 
-def build_tlas(lo: np.ndarray, hi: np.ndarray, leaf: int = TLAS_LEAF):
-    """Binary BVH over boxes lo, hi [n, 3] (f32): median split of the box
-    centres along their longest extent, at most `leaf` boxes a leaf. Returns
-    nodes [N, 8] f32 (lo xyz, hi xyz, 0, 0), kids [N, 2] int32 (children, or
-    (-1 - first, count) for a leaf over leaf_entries) and leaf_entries [n]
-    int32, node 0 the root."""
-    cent = (lo.astype(np.float64) + hi.astype(np.float64)) * 0.5
-    nodes: list[np.ndarray] = []
-    kids: list[list[int]] = []
-    leaf_entries: list[int] = []
-
-    def build(idx: np.ndarray, depth: int) -> int:
-        if depth > TLAS_MAX_DEPTH:
-            raise ValueError("TLAS deeper than the kernel's traversal stack")
-        k = len(kids)
-        box = np.zeros(8, np.float32)
-        box[0:3] = lo[idx].min(axis=0)
-        box[3:6] = hi[idx].max(axis=0)
-        nodes.append(box)
-        kids.append([0, 0])
-        if len(idx) <= leaf:
-            kids[k] = [-1 - len(leaf_entries), len(idx)]
-            leaf_entries.extend(int(i) for i in idx)
-            return k
-        c = cent[idx]
-        ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-        srt = idx[np.argsort(c[:, ax], kind="stable")]
-        half = len(idx) // 2
-        a = build(srt[:half], depth + 1)
-        b = build(srt[half:], depth + 1)
-        kids[k] = [a, b]
-        return k
-
-    build(np.arange(lo.shape[0]), 1)
-    return (np.stack(nodes), np.asarray(kids, np.int32), np.asarray(leaf_entries, np.int32))
-
-
 def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
                 inst_attr: np.ndarray | None, device,
                 inst_smem: np.ndarray | None = None) -> WalkTables:
@@ -821,11 +792,12 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
     and `cutout` are the JAX FusedStatic's flags, `volumes` its `volumes`
     and `scatter` as a VOL_* mode."""
     tris = np.asarray(tris, np.float32)
-    walk = None
+    walk = bvh = None
     if l1 is None:
         rows = tris.T  # [T, 32]
         if cutout:
             rows = np.pad(rows, ((0, 0), (0, -rows.shape[1] % CUTOUT_PAD)))
+        bvh = resident_bvh(rows, cutout, device)
     else:
         rows = tris.transpose(0, 2, 1).reshape(-1, tris.shape[1])  # [C * 128, 40]
         walk = walk_tables(l1, l2, inst_map, inst_attr, device, inst_smem)
@@ -836,8 +808,35 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
     return FusedScene(tris=t(rows), mats=t(mats), lights=t(lights),
                       light_types=torch.as_tensor(np.asarray(light_types, np.int8),
                                                   device=device),
-                      walk=walk, advanced=bool(advanced), cutout=bool(cutout),
+                      walk=walk, bvh=bvh, advanced=bool(advanced), cutout=bool(cutout),
                       volumes=int(volumes))
+
+
+def resident_bvh(rows: np.ndarray, cutout: bool, device) -> TriBvh:
+    """The TriBvh of a resident table rows [T, 32+] f32. Each triangle's
+    corners are solved in float64 from its f32 plane and barycentric rows
+    (the points of its plane where the test's u, v are (0, 0), (1, 0) and
+    (0, 1)), so the boxes hold the triangle the kernels test; a row whose
+    plane normal is 0 never hits (ndotd = 0) and goes into no leaf. The
+    leaf rows: TR_N..TR_R2 + 3, the index, the camera and shadow pass
+    probabilities (1 without cutout), 0."""
+    q = rows[:, :12].astype(np.float64)
+    a = np.stack([q[:, TR_R1:TR_R1 + 3], q[:, TR_R2:TR_R2 + 3], q[:, TR_N:TR_N + 3]], axis=1)
+    uv = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])  # the corners' u, v
+    b = np.stack([uv[None, :, 0] - q[:, TR_R1 + 3, None], uv[None, :, 1] - q[:, TR_R2 + 3, None],
+                  np.repeat(-q[:, TR_D0, None], 3, axis=1)], axis=1)  # [T, 3 eqs, 3 corners]
+    corners = np.full((rows.shape[0], 3, 3), np.nan)
+    with np.errstate(all="ignore"):
+        solvable = np.isfinite(a).all(axis=(1, 2)) & (np.abs(np.linalg.det(a)) > 0.0)
+    if solvable.any():
+        corners[solvable] = np.linalg.solve(a[solvable], b[solvable]).transpose(0, 2, 1)
+    leaf = np.zeros((rows.shape[0], 16), np.float32)
+    leaf[:, :12] = rows[:, :12]
+    leaf[:, 13:15] = 1.0
+    if cutout:
+        col = TRI_ROWS_TAN if rows.shape[1] >= TRI_ROWS_TAN else TRI_ROWS
+        leaf[:, 13:15] = rows[:, col:col + 2]
+    return tri_bvh(corners, (rows[:, TR_N:TR_N + 3] != 0.0).any(axis=1), leaf, device)
 
 
 # ---------------------------------------------------------------------------
@@ -913,14 +912,15 @@ class BounceKernel(CudaLibrary):
         # each (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
         bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
         shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *flags, PTR]
+        resident = [PTR, I32, PTR, PTR, PTR]  # tris ld, the TriBvh's nodes kids rows
         super().__init__("bounce.cu", {
-            "gatling_bounce_step": [PTR, PTR, I32, I32, *shading, PTR, I64, I32, *flags, PTR],
+            "gatling_bounce_step": [PTR, *resident, *shading, PTR, I64, I32, *flags, PTR],
             **{_walk_entry("gatling_bounce_walk", nee, vol): bounce_walk
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
-            "gatling_trace_resident": [PTR, PTR, I32, I32, PTR, I64, PTR, I32, PTR],
+            "gatling_trace_resident": [PTR, *resident, PTR, I64, PTR, I32, PTR],
             "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
-            "gatling_shade_resident": [PTR, PTR, I32, I32, *shading, PTR, I64, *hit, I32,
-                                       *flags, PTR],
+            "gatling_shade_resident": [PTR, *resident, *shading, PTR, I64, *hit, I32, *flags,
+                                       PTR],
             **{_walk_entry("gatling_shade_walk", nee, vol): shade_walk
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR]},
@@ -949,7 +949,7 @@ class BounceKernel(CudaLibrary):
             raise ValueError("bounce kernel: params or state shape mismatch")
 
     @staticmethod
-    def _resident_args(tris, cutout: bool):
+    def _resident_args(tris, bvh: TriBvh | None, cutout: bool):
         _check_bounce("tris", tris, torch.float32)
         rows = (TRI_ROWS, TRI_ROWS_TAN)
         if cutout:
@@ -957,7 +957,19 @@ class BounceKernel(CudaLibrary):
         if tris.dim() != 2 or tris.shape[1] not in rows:
             raise ValueError(f"bounce kernel: resident tris must be [T, {rows[0]}] or "
                              f"[T, {rows[1]}] (cutout={cutout})")
-        return tris.data_ptr(), tris.shape[0], tris.shape[1]
+        if bvh is None:
+            raise ValueError("bounce kernel: a resident table needs its TriBvh "
+                             "(ops/bounce.py resident_bvh)")
+        for name, t, dt in (("bvh nodes", bvh.nodes, torch.float32),
+                            ("bvh kids", bvh.kids, torch.int32),
+                            ("bvh rows", bvh.rows, torch.float32)):
+            _check_bounce(name, t, dt)
+        if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 8 \
+                or bvh.kids.shape != (bvh.nodes.shape[0], 2) or bvh.rows.dim() != 2 \
+                or bvh.rows.shape[1] != 16 or bvh.rows.shape[0] > tris.shape[0]:
+            raise ValueError("bounce kernel: resident TriBvh shape mismatch")
+        return (tris.data_ptr(), tris.shape[1], bvh.nodes.data_ptr(), bvh.kids.data_ptr(),
+                bvh.rows.data_ptr())
 
     @staticmethod
     def _walk_args(tris, walk: WalkTables):
@@ -999,12 +1011,13 @@ class BounceKernel(CudaLibrary):
                              f"{MAX_SCATTER_MATS} materials, got {mats.shape[0]}")
         return int(volumes)
 
-    def launch(self, params, tris, mats, lights, light_types, state, nee: bool,
+    def launch(self, params, tris, bvh: TriBvh, mats, lights, light_types, state, nee: bool,
                advanced: bool = False, cutout: bool = False, volumes: int = VOL_OFF) -> None:
         """K1: one bounce over a resident table tris [T, 32 or 48; 36 or 52
-        with the cutout columns]."""
+        with the cutout columns] through its TriBvh."""
         self._check_state(params, state)
-        self.call("gatling_bounce_step", params.data_ptr(), *self._resident_args(tris, cutout),
+        self.call("gatling_bounce_step", params.data_ptr(),
+                   *self._resident_args(tris, bvh, cutout),
                    *self._check_shading(mats, lights, light_types),
                    state.data_ptr(), state.shape[1], int(bool(nee)), int(bool(advanced)),
                    int(bool(cutout)), self._check_volumes(mats, volumes), self.stream(state))
@@ -1022,14 +1035,14 @@ class BounceKernel(CudaLibrary):
                    state.data_ptr(), state.shape[1], int(bool(advanced)), int(bool(cutout)),
                    vol, self.stream(state))
 
-    def launch_trace(self, params, tris, walk: WalkTables | None, state,
+    def launch_trace(self, params, tris, walk: WalkTables | None, bvh: TriBvh | None, state,
                      hit: torch.Tensor, cutout: bool = False) -> None:
         """K3: the hit buffer of every ray of `state` into `hit`."""
         self._check_state(params, state)
         self._check_split(state, hit)
         if walk is None:
             self.call("gatling_trace_resident", params.data_ptr(),
-                       *self._resident_args(tris, cutout), state.data_ptr(), state.shape[1],
+                       *self._resident_args(tris, bvh, cutout), state.data_ptr(), state.shape[1],
                        hit.data_ptr(), int(bool(cutout)), self.stream(state))
         else:
             self.call("gatling_trace_walk", params.data_ptr(), *self._walk_args(tris, walk),
@@ -1037,7 +1050,8 @@ class BounceKernel(CudaLibrary):
                        self.stream(state))
 
     def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
-                     state, hit, parbuf, par_rows, nee: bool, advanced: bool = False,
+                     bvh: TriBvh | None, state, hit, parbuf, par_rows, nee: bool,
+                     advanced: bool = False,
                      cutout: bool = False, volumes: int = VOL_OFF) -> None:
         """K4: shade `state` in place from the hit and parameter buffers
         (no scatter mode: the split bounce takes absorption only)."""
@@ -1050,7 +1064,7 @@ class BounceKernel(CudaLibrary):
         shading = self._check_shading(mats, lights, light_types)
         if walk is None:
             self.call("gatling_shade_resident", params.data_ptr(),
-                       *self._resident_args(tris, cutout), *shading, *bufs, int(bool(nee)),
+                       *self._resident_args(tris, bvh, cutout), *shading, *bufs, int(bool(nee)),
                        *flags)
         else:
             self.call(_walk_entry("gatling_shade_walk", nee, vol), params.data_ptr(),
@@ -1081,15 +1095,19 @@ def _walk(tensors) -> WalkTables | None:
     return WalkTables(*tensors) if tensors else None
 
 
-def _bounce_cuda(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
-                 cutout: bool, volumes: int) -> None:
-    kernel().launch(params, tris, mats, lights, light_types, state, nee, advanced, cutout,
-                    volumes)
+def _bvh(tensors) -> TriBvh | None:
+    return TriBvh(*tensors) if tensors else None
+
+
+def _bounce_cuda(params, tris, bvh, mats, lights, light_types, state, nee: bool,
+                 advanced: bool, cutout: bool, volumes: int) -> None:
+    kernel().launch(params, tris, _bvh(bvh), mats, lights, light_types, state, nee, advanced,
+                    cutout, volumes)
     launches["K1"] += 1
 
 
-def _bounce_cpu(params, tris, mats, lights, light_types, state, nee: bool, advanced: bool,
-                cutout: bool, volumes: int) -> None:
+def _bounce_cpu(params, tris, bvh, mats, lights, light_types, state, nee: bool,
+                advanced: bool, cutout: bool, volumes: int) -> None:
     bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee,
                advanced=advanced, cutout=cutout, volumes=volumes)
 
@@ -1111,33 +1129,33 @@ def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes
                advanced, cutout, volumes)
 
 
-def _trace_cuda(params, tris, state, walk, cutout: bool) -> torch.Tensor:
+def _trace_cuda(params, tris, state, walk, bvh, cutout: bool) -> torch.Tensor:
     hit = torch.empty((hit_row_count(has_tangents(tris)), state.shape[1]), dtype=torch.float32,
                       device=state.device)
-    kernel().launch_trace(params, tris, _walk(walk), state, hit, cutout)
+    kernel().launch_trace(params, tris, _walk(walk), _bvh(bvh), state, hit, cutout)
     launches["K3"] += 1
     return hit
 
 
-def _trace_cpu(params, tris, state, walk, cutout: bool) -> torch.Tensor:
+def _trace_cpu(params, tris, state, walk, bvh, cutout: bool) -> torch.Tensor:
     return trace_ref(params, tris, state, _walk(walk), cutout)
 
 
-def _shade_cuda(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-                nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
-    kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), state, hit,
-                          parbuf, par_rows, nee, advanced, cutout, volumes)
+def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, parbuf, par_rows,
+                state, nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
+    kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), _bvh(bvh), state,
+                          hit, parbuf, par_rows, nee, advanced, cutout, volumes)
     launches["K4"] += 1
 
 
-def _shade_cpu(params, tris, mats, lights, light_types, walk, hit, parbuf, par_rows, state,
-               nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
+def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, parbuf, par_rows,
+               state, nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
     shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
               par_rows, nee, _walk(walk), advanced, cutout, volumes)
 
 
 _lib = torch.library.Library("gatling", "DEF")
-_lib.define("bounce_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
+_lib.define("bounce_step(Tensor params, Tensor tris, Tensor[] bvh, Tensor mats, Tensor lights, "
             "Tensor light_types, Tensor(a!) state, bool nee, bool advanced, bool cutout, "
             "int volumes) -> ()")
 _lib.impl("bounce_step", _bounce_cuda, "CUDA")
@@ -1149,11 +1167,12 @@ _lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor li
 _lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
 _lib.impl("bounce_step_walk", _walk_cpu, "CPU")
 _lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk, "
-            "bool cutout) -> Tensor")
+            "Tensor[] bvh, bool cutout) -> Tensor")
 _lib.impl("trace_step", _trace_cuda, "CUDA")
 _lib.impl("trace_step", _trace_cpu, "CPU")
 _lib.define("shade_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
-            "Tensor light_types, Tensor[] walk, Tensor hit, Tensor parbuf, int[] par_rows, "
+            "Tensor light_types, Tensor[] walk, Tensor[] bvh, Tensor hit, Tensor parbuf, "
+            "int[] par_rows, "
             "Tensor(a!) state, bool nee, bool advanced, bool cutout, int volumes) -> ()")
 _lib.impl("shade_step", _shade_cuda, "CUDA")
 _lib.impl("shade_step", _shade_cpu, "CPU")
@@ -1184,8 +1203,8 @@ def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     twin on a CPU state. The scene's flags pick the branches."""
     flags = (bool(nee), bool(scene.advanced), bool(scene.cutout), int(scene.volumes))
     if scene.walk is None:
-        torch.ops.gatling.bounce_step(params, scene.tris, scene.mats, scene.lights,
-                                      scene.light_types, state, *flags)
+        torch.ops.gatling.bounce_step(params, scene.tris, list(scene.bvh or ()), scene.mats,
+                                      scene.lights, scene.light_types, state, *flags)
     else:
         torch.ops.gatling.bounce_step_walk(params, scene.tris, scene.mats, scene.lights,
                                            scene.light_types, *scene.walk, state, *flags)
@@ -1196,7 +1215,7 @@ def trace_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor) -> 
     one): the hit buffer [16, R] ([24, R] with tangent rows) of state
     [16, R] (ops/split_ref.py H_* rows)."""
     return torch.ops.gatling.trace_step(params, scene.tris, state, list(scene.walk or ()),
-                                        bool(scene.cutout))
+                                        list(scene.bvh or ()), bool(scene.cutout))
 
 
 def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
@@ -1205,6 +1224,7 @@ def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
     one), in place: materials from scene.mats, the textured parameters
     from parbuf in the slim layout of `textured_params`."""
     torch.ops.gatling.shade_step(params, scene.tris, scene.mats, scene.lights,
-                                 scene.light_types, list(scene.walk or ()), hitbuf, parbuf,
+                                 scene.light_types, list(scene.walk or ()),
+                                 list(scene.bvh or ()), hitbuf, parbuf,
                                  par_row_starts(textured_params), state, bool(nee),
                                  bool(scene.advanced), bool(scene.cutout), int(scene.volumes))

@@ -24,6 +24,11 @@ closest-hit searches feed the same shading:
   triangle index (cluster * 128 + lane), and the winner's t, u, v are
   recomputed with pass 2's division form.
 
+On the card K1, K3 and K4 search a resident table through its BVH
+(ops/bvh.py TriBvh); `resident_work` (`bvh_walk`) repeats that walk step
+for step: its winner, which the tests hold against the brute-force
+search, and its work, chip_smoke.py's bound.
+
 Its searches and its shading core (`shade_core`) also serve the split
 bounce's twins (ops/split_ref.py). The tests hold it against the JAX
 kernel; chip_smoke.py holds the CUDA kernels against it on the card; the
@@ -56,6 +61,7 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX, f32
+from gatling_tpu_torch.ops.bvh import TriBvh, index_col
 from gatling_tpu_torch.ops.sampling import (
     _M32,
     _mul32,
@@ -232,9 +238,13 @@ def cutout_xi(key: torch.Tensor, tid: torch.Tensor) -> torch.Tensor:
 def _tri_test(tris: torch.Tensor, o, d, tmin: float):
     """Baldwin-Weber test of rays [R] against triangles tris [C, 32];
     returns tt, u, v, ok, each [R, C]."""
-    ox, oy, oz = (x[:, None] for x in o)
-    dx, dy, dz = (x[:, None] for x in d)
-    col = tris.T  # [32, C]
+    return _bw_test(tris.T[:12], *(x[:, None] for x in (*o, *d)), tmin)
+
+
+def _bw_test(col, ox, oy, oz, dx, dy, dz, tmin):
+    """The Baldwin-Weber test (the kernels' tri_hit) of the TR_N..TR_R2 + 3
+    columns `col` (12 tensors) against rays, all broadcast together;
+    returns tt, u, v, ok."""
     nx, ny, nz, d0 = col[TR_N], col[TR_N + 1], col[TR_N + 2], col[TR_D0]
     ndotd = nx * dx + ny * dy + nz * dz
     ok = torch.abs(ndotd) > 1e-12
@@ -314,13 +324,18 @@ def _safe_inv(d: torch.Tensor) -> torch.Tensor:
 def _slab(box: torch.Tensor, o, iv, tmin, tcap) -> torch.Tensor:
     """Slab test (pallas_bounce.py _slab_test) of boxes [..., 8] against
     rays o, iv [..., 3] over [tmin, tcap], broadcast."""
+    return _slab_t(box, o, iv, tmin, tcap)[0]
+
+
+def _slab_t(box: torch.Tensor, o, iv, tmin, tcap):
+    """_slab and the clipped entry distance (the kernels' slab)."""
     t0 = (box[..., 0:3] - o) * iv
     t1 = (box[..., 3:6] - o) * iv
     tn = torch.minimum(t0, t1)
     tx = torch.maximum(t0, t1)
     tenter = torch.maximum(torch.maximum(tn[..., 0], tn[..., 1]), torch.maximum(tn[..., 2], tmin))
     texit = torch.minimum(torch.minimum(tx[..., 0], tx[..., 1]), torch.minimum(tx[..., 2], tcap))
-    return tenter <= texit
+    return tenter <= texit, tenter
 
 
 def _to_local(a: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
@@ -479,6 +494,119 @@ def walk_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.T
         ray, _slot, _ent = _candidates(walk, o, iv, rays, e0, e0 + WALK_ENTRIES, tmin_r, tcap)
         n_clusters += ray.numel()
     return n_entries, n_clusters
+
+
+# ---------------------------------------------------------------------------
+# the per-ray BVH walks of K1, K3 and K4 (resident) and K5: their work
+# ---------------------------------------------------------------------------
+
+TREE_STACK = 64  # the kernels' traversal stack (csrc/tree_walk.cuh)
+
+
+def bvh_walk(bvh: TriBvh, o: torch.Tensor, d: torch.Tensor, live: torch.Tensor,
+             tmin: torch.Tensor, tcap: torch.Tensor, test, any_hit: bool = False):
+    """The kernels' walk (csrc/tree_walk.cuh tree_walk with the leaf loops
+    of tree_closest / tree_occluded and K5's intersect_tree_kernel) of
+    every live ray of o, d [R, 3] over [tmin, tcap] ([R] f32), in the
+    kernels' order: a stack per ray, one node a step, nearer child first,
+    boxes skipped as the kernels skip them. `test(slot, ray)` runs the
+    kernel's test of leaf rows `slot` against rays `ray` ([P] int64) and
+    returns (t, u, v, ok), ok its acceptance but the best-t rule (the
+    cutout draw included). Returns (t, u, v, win, boxes, tests), each [R]:
+    the closest accepted candidate (ties to the lower table index) or, with
+    `any_hit`, the first the walk meets; FLOAT_MAX, 0, 0, -1 for none; and
+    the slab tests and triangle tests the walk made: its work, whatever
+    the card's timing. The tests hold its winner against the brute-force
+    search's."""
+    dev, r = o.device, o.shape[0]
+    iv = _safe_inv(d)
+    tlo = tmin - torch.abs(tmin) * (1.0 / 1024.0)
+    run = tcap.clone()
+    best_t = torch.full((r,), _FMAX, dtype=torch.float32, device=dev)
+    bu, bv = torch.zeros_like(best_t), torch.zeros_like(best_t)
+    win = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    boxes = torch.zeros((r,), dtype=torch.int64, device=dev)
+    tests = torch.zeros_like(boxes)
+    index = bvh.rows[:, index_col(bvh.rows.shape[1])].long()
+    kids = bvh.kids.long()
+    leaf_max = int(kids[kids[:, 0] < 0, 1].max()) if bool((kids[:, 0] < 0).any()) else 0
+    stack = torch.zeros((r, TREE_STACK), dtype=torch.int64, device=dev)
+    enter = torch.zeros((r, TREE_STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    rays = live.nonzero()[:, 0]
+    enter[rays, 0] = tlo[rays]
+    sp[rays] = 1
+
+    def push(p, node, t):
+        stack[p, sp[p]] = node
+        enter[p, sp[p]] = t
+        sp[p] += 1
+
+    while True:
+        a = (sp > 0).nonzero()[:, 0]
+        if not a.numel():
+            break
+        sp[a] -= 1
+        node, ent = stack[a, sp[a]], enter[a, sp[a]]
+        go = ~(ent > run[a])  # behind the best hit found since the push
+        a, node = a[go], node[go]
+        k0, k1 = kids[node, 0], kids[node, 1]
+        inner = k0 >= 0
+        ai, c0, c1 = a[inner], k0[inner], k1[inner]
+        if ai.numel():
+            boxes[ai] += 2
+            ha, ta = _slab_t(bvh.nodes[c0], o[ai], iv[ai], tlo[ai], run[ai])
+            hb, tb = _slab_t(bvh.nodes[c1], o[ai], iv[ai], tlo[ai], run[ai])
+            both, a_first = ha & hb, ta <= tb
+            # the far child first when both are hit, then the near one
+            push(ai[ha | hb], _where(both, _where(a_first, c1, c0), _where(ha, c0, c1))[ha | hb],
+                 _where(both, _where(a_first, tb, ta), _where(ha, ta, tb))[ha | hb])
+            push(ai[both], _where(a_first, c0, c1)[both], _where(a_first, ta, tb)[both])
+        al, first, count = a[~inner], -1 - k0[~inner], k1[~inner]
+        for j in range(leaf_max):
+            m = (j < count) & (win[al] < 0) if any_hit else j < count
+            rr, slot = al[m], first[m] + j
+            if not rr.numel():
+                continue
+            tests[rr] += 1
+            t, u, v, ok = test(slot, rr)
+            idx = index[slot]
+            if not any_hit:
+                ok = ok & ((t < best_t[rr]) | ((t == best_t[rr]) & (idx < win[rr])))
+            rw = rr[ok]
+            best_t[rw], bu[rw], bv[rw], win[rw] = t[ok], u[ok], v[ok], idx[ok]
+            if any_hit:
+                sp[rw] = 0
+        if not any_hit:
+            run[al] = torch.minimum(tcap[al], best_t[al])
+    return best_t, bu, bv, win, boxes, tests
+
+
+def resident_work(bvh: TriBvh, o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+                  tmin: float, key: torch.Tensor | None = None,
+                  dist: torch.Tensor | None = None):
+    """K1's (K3's, K4's) walk over a resident table's TriBvh, as bvh_walk:
+    the closest hit of the alive rays o, d [R, 3] beyond tmin or, with
+    `dist` ([R]), the NEE shadow rays' any-hit search in (SHADOW_TMIN,
+    dist). With a cutout `key` ([R] uint32 words; the salted ones for
+    shadow rays) a candidate whose draw fails its pass probability is not
+    a hit. Returns (t, u, v, win, boxes, tests)."""
+    r = o.shape[0]
+    shadow = dist is not None
+    lo = torch.full((r,), SHADOW_TMIN if shadow else tmin, dtype=torch.float32, device=o.device)
+    cap = dist if shadow else torch.full_like(lo, _FMAX)
+    rows = bvh.rows
+
+    def test(slot, ray):
+        q = rows[slot]
+        tt, u, v, ok = _bw_test(q[:, :12].T, *o[ray].T, *d[ray].T, lo[ray])
+        if shadow:
+            ok = ok & (tt < cap[ray])
+        if key is not None:
+            ok = ok & (cutout_xi(key[ray], q[:, 12].long()) < q[:, 14 if shadow else 13])
+        return tt, u, v, ok
+
+    return bvh_walk(bvh, o, d, alive, lo, cap, test, any_hit=shadow)
 
 
 def walk_hit_attrs(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,

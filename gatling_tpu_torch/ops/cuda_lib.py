@@ -3,8 +3,8 @@
 Each kernel file under csrc/ exposes a plain C interface: every entry
 point launches on the stream it is given and returns a cudaError_t code,
 0 when the launch went through. `CudaLibrary` compiles one file for
-sm_90a into build/torch_ext/ (keyed by a hash of the source and the
-flags, so a changed source builds anew), loads it, declares the entry
+sm_90a into build/torch_ext/ (keyed by a hash of the source, the
+headers of csrc/ and the flags, so a changed source builds anew), loads it, declares the entry
 points' argument types and raises when a build or a launch fails.
 
 The flags include -fmad=false: no contraction of a*b+c into a fused
@@ -64,7 +64,8 @@ class CudaLibrary:
     def __init__(self, source: str, entry_points: dict[str, list], error_fn: str,
                  parts: int = 1) -> None:
         src_path = CSRC / source
-        tag = hashlib.sha1(src_path.read_bytes() + " ".join(FLAGS).encode()
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        tag = hashlib.sha1(src_path.read_bytes() + headers + " ".join(FLAGS).encode()
                            + str(parts).encode()).hexdigest()[:12]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         self.path = BUILD_DIR / f"libgatling_{src_path.stem}_{tag}.so"

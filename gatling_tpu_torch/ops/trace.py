@@ -20,7 +20,9 @@ twin in ops/trace_ref.py:
 
 * `intersect_matrix` (K5, `intersect_pallas`) and `occluded_matrix` (K6,
   `occluded_pallas`): the tracer of the wavefront integrator for scenes
-  of at most 8192 triangles (gi.py `_choose_tracer`);
+  of at most 8192 triangles (gi.py `_choose_tracer`). On the card K5
+  walks a BVH over the soup (`TraceTables.bvh`, ops/bvh.py) instead of
+  testing every triangle, and finds the same hit bit for bit;
 * `intersect_tiles` (K7, `intersect_pallas_vpu`) and `occluded_tiles`
   (K8, `occluded_pallas_vpu`): the elementwise form, which no entry point
   of the JAX package reaches (its comparison point); chip_smoke.py holds
@@ -36,10 +38,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gatling_tpu_torch.ops.bvh import TriBvh, tri_bvh
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.intersect import Hit
 from gatling_tpu_torch.ops.trace_ref import (
+    DET_TERMS,
+    T_TERMS,
     TRI_TILE,
+    UV_TERMS,
     intersect_matrix_ref,
     intersect_tiles_ref,
     occluded_matrix_ref,
@@ -56,10 +62,13 @@ def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 class TraceTables(NamedTuple):
-    """Per-triangle coefficient matrices, tiled: coeffs [n_tiles, 16, 512]."""
+    """Per-triangle coefficient matrices, tiled: coeffs [n_tiles, 16, 512],
+    and K5's BVH over the soup (leaf rows: the 25 structurally non-zero
+    coefficients of each triangle, DET_TERMS, T_TERMS, UV_TERMS twice)."""
 
     coeffs: torch.Tensor
     n_tris: int
+    bvh: TriBvh
 
 
 class TriTiles(NamedTuple):
@@ -93,10 +102,17 @@ def build_trace_tables(geom, device) -> TraceTables:
     c[:, 6:15, 3] = np.stack([zero, -e1[:, 2], e1[:, 1], e1[:, 2], zero, -e1[:, 0],
                               -e1[:, 1], e1[:, 0], zero], axis=1)
     c[:, 3:6, 3] = -_cross(v0, e1)
+    rows = np.zeros((t, 28), np.float32)
+    rows[:, :25] = np.concatenate([c[:, DET_TERMS, 0], c[:, T_TERMS, 1], c[:, UV_TERMS, 2],
+                                   c[:, UV_TERMS, 3]], axis=1)
+    corners = np.stack([v0, v0 + e1.astype(np.float64), v0 + e2.astype(np.float64)], axis=1)
+    # det = <d, c[:, 3:6, 0]>: a triangle whose three are 0 never hits
+    # (the padding); it goes into no leaf
+    bvh = tri_bvh(corners.astype(np.float64), (c[:, 3:6, 0] != 0.0).any(axis=1), rows, device)
     n_tiles = t // TRI_TILE
     c = c.reshape(n_tiles, TRI_TILE, N_FEATURES, 4)
     c = np.ascontiguousarray(c.transpose(0, 2, 3, 1)).reshape(n_tiles, N_FEATURES, 4 * TRI_TILE)
-    return TraceTables(coeffs=torch.tensor(c, device=device), n_tris=t)
+    return TraceTables(coeffs=torch.tensor(c, device=device), n_tris=t, bvh=bvh)
 
 
 def build_tri_tiles(geom, device) -> TriTiles:
@@ -117,24 +133,50 @@ class TraceKernel(CudaLibrary):
         rays = [PTR, PTR, PTR, PTR, PTR, I32, I64]  # o d tmin tmax table n_tiles n_rays
         closest = [*rays, PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
         occluded = [*rays, PTR, PTR]                # hit stream
+        # K5: o d tmin tmax, the TriBvh's nodes kids rows, n_rays, t tri u v stream
+        walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR]
         super().__init__("trace.cu", {
-            "gatling_intersect_matrix": closest, "gatling_occluded_matrix": occluded,
+            "gatling_intersect_matrix": walk, "gatling_occluded_matrix": occluded,
             "gatling_intersect_tiles": closest, "gatling_occluded_tiles": occluded,
         }, "gatling_trace_error_string")
 
-    def launch(self, name: str, origins, dirs, tmin, tmax, table, rows: int, outputs) -> None:
+    @staticmethod
+    def _check_rays(name: str, origins, dirs, tmin, tmax) -> int:
         r = origins.shape[0]
-        for label, x in (("origins", origins), ("dirs", dirs), ("tmin", tmin), ("tmax", tmax),
-                         ("table", table)):
+        for label, x in (("origins", origins), ("dirs", dirs), ("tmin", tmin), ("tmax", tmax)):
             check_tensor("trace", label, x, torch.float32)
-        width = 4 * TRI_TILE if rows == N_FEATURES else TRI_TILE
         if origins.shape != (r, 3) or dirs.shape != (r, 3) or tmin.shape != (r,) \
-                or tmax.shape != (r,) or table.dim() != 3 or table.shape[1:] != (rows, width):
-            raise ValueError(f"trace kernel {name}: ray or table shape mismatch")
+                or tmax.shape != (r,):
+            raise ValueError(f"trace kernel {name}: ray shape mismatch")
+        return r
+
+    def launch(self, name: str, origins, dirs, tmin, tmax, table, rows: int, outputs) -> None:
+        """K6-K8: a brute-force search over the tiled `table`."""
+        r = self._check_rays(name, origins, dirs, tmin, tmax)
+        check_tensor("trace", "table", table, torch.float32)
+        width = 4 * TRI_TILE if rows == N_FEATURES else TRI_TILE
+        if table.dim() != 3 or table.shape[1:] != (rows, width):
+            raise ValueError(f"trace kernel {name}: table shape mismatch")
         if table.data_ptr() % 16:
             raise ValueError(f"trace kernel {name}: the table must be 16-byte aligned")
         self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
                   table.data_ptr(), table.shape[0], r, *(o.data_ptr() for o in outputs),
+                  self.stream(origins))
+
+    def launch_walk(self, origins, dirs, tmin, tmax, bvh: TriBvh, outputs) -> None:
+        """K5: the closest-hit walk over the soup's TriBvh."""
+        r = self._check_rays("gatling_intersect_matrix", origins, dirs, tmin, tmax)
+        for label, x, dt in (("bvh nodes", bvh.nodes, torch.float32),
+                             ("bvh kids", bvh.kids, torch.int32),
+                             ("bvh rows", bvh.rows, torch.float32)):
+            check_tensor("trace", label, x, dt)
+        if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 8 \
+                or bvh.kids.shape != (bvh.nodes.shape[0], 2) or bvh.rows.dim() != 2 \
+                or bvh.rows.shape[1] != 28:
+            raise ValueError("trace kernel gatling_intersect_matrix: TriBvh shape mismatch")
+        self.call("gatling_intersect_matrix", origins.data_ptr(), dirs.data_ptr(),
+                  tmin.data_ptr(), tmax.data_ptr(), bvh.nodes.data_ptr(), bvh.kids.data_ptr(),
+                  bvh.rows.data_ptr(), r, *(o.data_ptr() for o in outputs),
                   self.stream(origins))
 
 
@@ -151,12 +193,12 @@ def kernel() -> TraceKernel:
     return _kernel
 
 
-def _closest_cuda(name, key, origins, dirs, tmin, tmax, table, rows) -> Hit:
+def _closest_cuda(key, origins, launch) -> Hit:
     r = origins.shape[0]
     t = torch.empty((r,), dtype=torch.float32, device=origins.device)
     tri = torch.empty((r,), dtype=torch.int32, device=origins.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
-    kernel().launch(name, origins, dirs, tmin, tmax, table, rows, (t, tri, u, v))
+    launch((t, tri, u, v))
     launches[key] += 1
     return Hit(t, tri, u, v)
 
@@ -179,11 +221,12 @@ def _on_cpu(origins: torch.Tensor) -> bool:
 
 def intersect_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> Hit:
     """K5 (`intersect_pallas`): the closest hit of rays o, d [R, 3] in
-    (tmin, tmax) [R] over the coefficient tables."""
+    (tmin, tmax) [R] over the coefficient tables; on the card a walk of
+    their BVH, on the CPU the brute-force twin."""
     if _on_cpu(origins):
         return Hit(*intersect_matrix_ref(origins, dirs, tmin, tmax, tables.coeffs))
-    return _closest_cuda("gatling_intersect_matrix", "K5", origins, dirs, tmin, tmax,
-                         tables.coeffs, N_FEATURES)
+    return _closest_cuda("K5", origins, lambda out: kernel().launch_walk(
+        origins, dirs, tmin, tmax, tables.bvh, out))
 
 
 def occluded_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> torch.Tensor:
@@ -199,8 +242,8 @@ def intersect_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> Hit:
     Moller-Trumbore over the [n_tiles, 9, 128] tiles."""
     if _on_cpu(origins):
         return Hit(*intersect_tiles_ref(origins, dirs, tmin, tmax, tiles.tris))
-    return _closest_cuda("gatling_intersect_tiles", "K7", origins, dirs, tmin, tmax,
-                         tiles.tris, 9)
+    return _closest_cuda("K7", origins, lambda out: kernel().launch(
+        "gatling_intersect_tiles", origins, dirs, tmin, tmax, tiles.tris, 9, out))
 
 
 def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:

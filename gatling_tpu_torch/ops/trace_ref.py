@@ -1,4 +1,4 @@
-"""Plain PyTorch twins of the brute-force trace kernels K5-K8.
+"""Plain PyTorch twins of the trace kernels K5-K8, all brute force.
 
 They compute what csrc/trace.cu computes, with the same f32 operations in
 the same order: the coefficient form's dot products as explicit sums over
@@ -6,9 +6,10 @@ the structurally non-zero features in ascending order (not `feat @ C`,
 whose summation order a BLAS chooses), the elementwise Moller-Trumbore of
 `_mt_tile` operation for operation, and the TPU kernels' selection rule
 (ops/trace.py). A CPU tensor takes these; the CUDA kernels are held
-against them on the card. Rays go in chunks of RAY_CHUNK, so the
-[rays, 128] temporaries stay small; a ray's result does not depend on
-its chunk.
+against them on the card. `matrix_work` repeats K5's walk of the soup's
+BVH step for step (its hit and its work). Rays go in chunks of
+RAY_CHUNK, so the [rays, 128] temporaries stay small; a ray's result does
+not depend on its chunk.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX
+from gatling_tpu_torch.ops.bounce_ref import bvh_walk
+from gatling_tpu_torch.ops.bvh import TriBvh
 
 TRI_TILE = 128
 RAY_CHUNK = 131072
@@ -48,19 +51,19 @@ def _dot(f: torch.Tensor, c: torch.Tensor, terms, group: int) -> torch.Tensor:
 
 
 def _valid(det, tn, un, vn, tmin, tmax):
-    """(t, u, v, valid) of a [rays, 128] block of candidates."""
+    """(t, u, v, valid) of candidates, tmin and tmax broadcast to them."""
     ok = det.abs() > DET_EPS
     inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
     t, u, v = tn * inv, un * inv, vn * inv
     valid = (ok & (u >= NEG_EPS) & (v >= NEG_EPS) & (u + v <= ONE_PLUS_EPS)
-             & (t > tmin[:, None]) & (t < tmax[:, None]))
+             & (t > tmin) & (t < tmax))
     return t, u, v, valid
 
 
 def _matrix_tile(f, c, tmin, tmax):
     det = _dot(f, c, DET_TERMS, 0)
     return _valid(det, _dot(f, c, T_TERMS, 1), _dot(f, c, UV_TERMS, 2),
-                  _dot(f, c, UV_TERMS, 3), tmin, tmax)
+                  _dot(f, c, UV_TERMS, 3), tmin[:, None], tmax[:, None])
 
 
 def _mt_tile(o, d, tile, tmin, tmax):
@@ -137,6 +140,31 @@ def _first_occluder(origins, dirs, tmin, tmax, table, matrix: bool) -> torch.Ten
             lane = torch.argmax(valid.to(torch.uint8), dim=1).to(torch.int32)
             first.copy_(torch.where((first < 0) & valid.any(dim=1), j * TRI_TILE + lane, first))
     return out
+
+
+def matrix_work(bvh: TriBvh, origins, dirs, tmin, tmax):
+    """K5's walk of the soup's TriBvh (ops/trace.py TraceTables.bvh) for
+    rays o, d [R, 3] in (tmin, tmax) [R], as bounce_ref.bvh_walk: each
+    leaf triangle's numerators summed from its 25 leaf coefficients in
+    _dot's order and selected by _valid. Returns (t, tri, u, v, boxes,
+    tests), each [R]: the hit intersect_matrix_ref finds, and the slab and
+    triangle tests the walk made."""
+    f = ray_features(origins, dirs)
+
+    def test(slot, ray):
+        q, fr = bvh.rows[slot], f[ray]
+        sums, off = [], 0
+        for terms in (DET_TERMS, T_TERMS, UV_TERMS, UV_TERMS):
+            acc = None
+            for j, k in enumerate(terms):
+                term = q[:, off + j] if k == 15 else fr[:, k] * q[:, off + j]
+                acc = term if acc is None else acc + term
+            sums.append(acc)
+            off += len(terms)
+        return _valid(*sums, tmin[ray], tmax[ray])
+
+    t, u, v, win, boxes, tests = bvh_walk(bvh, origins, dirs, tmax > tmin, tmin, tmax, test)
+    return t, win.to(torch.int32), u, v, boxes, tests
 
 
 def intersect_matrix_ref(origins, dirs, tmin, tmax, coeffs):

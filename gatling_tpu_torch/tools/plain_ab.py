@@ -1,78 +1,158 @@
-"""Plain-scene kernel times of several checkouts of this repository, in turns
-on one card: K1 on the Cornell box's first wave (1200x1200 x 2 samples, NEE
-off and on) and K2 on sphere_field's (512x512 x 4 samples, instanced and
-flattened, NEE off and on), timed as chip_smoke.py phases 3 and 3b time
-them (CUDA events, fresh copies of the wave); where the checkout has them,
-also K2 on sphere_field_lobes' instanced tables and K1 on glass_coated's
-wave, and the ptxas registers, stack and spills of every kernel instance
-of bounce.cu.
+"""Kernel and frame times of several checkouts of this repository, in turns
+on one card.
 
     python gatling_tpu_torch/tools/plain_ab.py PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout (for example a `git archive` of a
 commit unpacked into a git-ignored directory); each runs in its own
-process, which imports that checkout's chip_smoke.py and builds its
-kernels. Run the file by its path, not with -m, so that the package each
-process imports is its checkout's.
+process, which imports that checkout's package and builds its kernels.
+The measuring code is the same for every checkout: this file and the
+chip_smoke.py of the checkout it belongs to, whose helpers call only entry
+points every checkout since the media slice has (gi.render, bounce_step,
+trace_step, intersect_matrix). Run the file by its path, not with -m.
+
+Measured, with CUDA events on fresh copies of each wave (chip_smoke.py
+time_ms / event_ms), at bounce 0 unless named:
+* K1 on the Cornell box's first wave (1200x1200 x 2 samples, NEE off and
+  on) and on glass_coated's (NEE off and on), each at bounces 0, 2 and 4
+  (the twin steps the wave, as chip_smoke.py phase 3 does), and on
+  cornell_cutout's and cornell_fog's first waves (NEE, gi's tables after
+  one frame);
+* K3 on the textured Cornell box's wave (resident tables);
+* K5 on the closest-hit waves of cornell_aovs and interior_aovs (bounces 0
+  and 2 of the first sample, recorded from a frame) and on the shadow-hop
+  waves of cornell_cutout_aovs (bounces 0 and 2);
+* K2 on sphere_field's wave (512x512 x 4 samples, instanced and flattened,
+  NEE off and on);
+* warm frames through gi.render (host clock to the image's copy):
+  glass_coated (NEE off and on), cornell, cornell_nee, cornell_aovs and
+  cornell_cutout_aovs;
+* the ptxas registers, stack and spills of every kernel instance.
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _chip_smoke():
+    """The chip_smoke.py beside this file, as a module (its helpers import
+    gatling_tpu_torch when called: the checkout's on sys.path)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def time_tree(tree: str) -> None:
-    """Print the kernel times of one checkout (imports its chip_smoke.py)."""
-    import time
+    """Print the kernel and frame times of one checkout."""
+    from concurrent.futures import ThreadPoolExecutor
 
     os.chdir(tree)
     sys.path.insert(0, tree)
-    import chip_smoke as cs
     import torch
 
+    from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.scene import examples as ex
+    from gatling_tpu_torch.scene.stage import load_scene
 
+    cs = _chip_smoke()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    tb.kernel()
+    with ThreadPoolExecutor(2) as pool:
+        libs = [f.result() for f in [pool.submit(m.kernel) for m in (tb, tt)]]
     print(f"{tree}: built in {time.perf_counter() - t0:.1f} s", flush=True)
     p0 = cs.params_row(0, device)
     out = {}
+
+    def k1(label, fs, wave, nee, p=p0):
+        out[f"K1 {label}"] = cs.time_ms(lambda s: tb.bounce_step(p, fs, s, nee), wave, reps=15)
+
+    def k1_bounces(label, fs, wave, nee):
+        """K1 at bounces 0, 2 and 4 of a wave the twin steps (phase 3's states)."""
+        state = wave
+        for b in range(5):
+            p = cs.params_row(b, device)
+            if b in (0, 2, 4):
+                k1(f"{label} bounce {b}", fs, state, nee, p)
+            twin = state.clone()
+            cs.bounce_twin(p, fs, twin, nee)
+            state = twin
+
     for nee, extra in ((False, ()), (True, (cs.bench_rect_light(),))):
         fs, cam = cs.scene_tables(cs.CORNELL, extra, device)
-        wave = cs.wave_state(cam, cs.FULL_RES, cs.FULL_RES, 2, device)
-        out[f"K1 cornell nee={nee}"] = cs.time_ms(lambda s: tb.bounce_step(p0, fs, s, nee), wave,
-                                                  reps=15)
+        k1_bounces(f"cornell nee={nee}", fs, cs.wave_state(cam, cs.FULL_RES, cs.FULL_RES, 2, device),
+                   nee)
+    gfs, gcam = cs.scene_tables(cs.GLASS, (), device)
+    gwave = cs.wave_state(gcam, cs.FULL_RES, cs.FULL_RES, 2, device)
+    for nee in (False, True):
+        k1_bounces(f"glass_coated nee={nee}", gfs, gwave, nee)
+    tmp = tempfile.TemporaryDirectory(prefix="plain_ab_")
+    res, spp, bnc = cs.LOBES_RES, cs.LOBES_SPP, cs.LOBES_BOUNCES
+    for label, params in (
+            ("cornell_cutout nee=True", cs.cornell_cutout_params(device)),
+            ("cornell_fog nee=True", cs.media_params(
+                device, load_scene(ex.cornell_fog(tmp.name)), res, spp, bnc, 1))):
+        cs.counted_render(params, label)
+        k1(label, params.scene._fused, cs.wave_state(params.camera, res, res, 2, device), True)
+
+    checker = cs.write_textures(tmp.name)["checker"]
+    cparams = cs.cornell_params(device, dict(spp=16, maxBounces=8))
+    cs.texture_every_material(cparams.scene.materials, "diffuseColor", checker)
+    cs.counted_render(cparams, "cornell_textured")
+    cwave = cs.wave_state(cparams.camera, cs.FULL_RES, cs.FULL_RES, 2, device)
+    out["K3 cornell_textured"] = cs.time_ms(
+        lambda s: tb.trace_step(p0, cparams.scene._fused, s), cwave, reps=15)
+
+    frames, waves = {}, {}
+    settings = dict(spp=16, maxBounces=8)
+    for label, params, n in (
+            ("glass_coated nee=False", cs.glass_coated_params(device, False), 3),
+            ("glass_coated nee=True", cs.glass_coated_params(device, True), 3),
+            ("cornell", cs.cornell_params(device, settings), 3),
+            ("cornell_nee", cs.cornell_params(device, dict(settings, nextEventEstimation=True),
+                                              [cs.bench_rect_light()]), 3),
+            ("cornell_aovs", cs.cornell_aovs_params(device), 1),
+            ("cornell_cutout_aovs", cs.cornell_cutout_params(device, every_aov=True), 1)):
+        cs.counted_render(params, label + " (first frame)")
+        for i in range(n):
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
+        if label == "cornell_aovs":
+            waves["cornell_aovs"] = (cs.record_waves(params)["closest"], params.scene._accel)
+        if label == "cornell_cutout_aovs":
+            waves["cornell_cutout_aovs hops"] = (cs.record_hop_waves(params), params.scene._accel)
+    iparams = cs.interior_aovs_params(device, tmp.name)
+    cs.counted_render(iparams, "interior_aovs")
+    waves["interior_aovs"] = (cs.record_waves(iparams)["closest"], iparams.scene._accel)
+    for label, (recorded, accel) in waves.items():
+        for b, rays in sorted(recorded.items(), key=lambda kv: str(kv[0])):
+            out[f"K5 {label} {b}"] = cs.event_ms(
+                lambda r=rays: tt.intersect_matrix(*r, accel.tables), reps=15)
+
     desc, _m, _t, inst, flat = cs.sphere_field_setup(device)
     wave = cs.wave_state(desc.first_camera(), cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
     for label, fs in (("instanced", inst), ("flattened", flat)):
         for nee in (False, True):
             out[f"K2 {label} nee={nee}"] = cs.time_ms(lambda s: tb.bounce_step(p0, fs, s, nee),
                                                       wave, reps=15)
-    if hasattr(cs, "sphere_field_lobes_desc"):
-        from gatling_tpu_torch.render.lights import build_light_arrays
-        from gatling_tpu_torch.render.material import build_material_table, lower_material
-
-        d2 = cs.sphere_field_lobes_desc()
-        paths = sorted({m.material for m in d2.meshes if m.material})
-        midx = {p: i for i, p in enumerate(paths)}
-        midx[None] = len(paths)
-        table = build_material_table([lower_material(d2.materials.get(p) if p else None)
-                                      for p in midx])
-        fs, _st = tb.build_fused_scene_instanced(d2.meshes, midx, table,
-                                                 build_light_arrays(d2.lights), device)
-        for nee in (False, True):
-            out[f"K2 lobes instanced nee={nee}"] = cs.time_ms(
-                lambda s: tb.bounce_step(p0, fs, s, nee), wave, reps=15)
-        gfs, gcam = cs.scene_tables(cs.GLASS, (), device)
-        gwave = cs.wave_state(gcam, cs.FULL_RES, cs.FULL_RES, 2, device)
-        out["K1 glass_coated adv"] = cs.time_ms(lambda s: tb.bounce_step(p0, gfs, s, False),
-                                                gwave, reps=15)
-    if hasattr(cs, "ptxas_summary"):
-        for line in cs.ptxas_summary(tb.kernel().ptxas_log):
-            print(f"{tree}: ptxas {line}")
+    for lib in libs:
+        for line in cs.ptxas_summary(lib.ptxas_log):
+            print(f"{tree}: ptxas {lib.path.name}: {line}")
     for k, v in out.items():
         print(f"{tree}: {k}: {v:.4f} ms", flush=True)
+    for k, v in frames.items():
+        print(f"{tree}: frame {k}: {v:.4f} s", flush=True)
+    tmp.cleanup()
 
 
 def main(argv: list[str]) -> int:
@@ -84,7 +164,7 @@ def main(argv: list[str]) -> int:
     rc = 0
     for tree in argv:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                             timeout=600).returncode
+                             timeout=900).returncode
     return rc
 
 

@@ -1,6 +1,8 @@
 """On the card: the CUDA kernels (K1 resident, K2 the two-level walk, K3
 and K4 the split trace and shade, with their lobe, cutout and volume
-branches) against their plain twins.
+branches, K5-K8 the wavefront's trace, P1/P2 the probes) against their
+plain twins; K1's and K5's BVH walks also on tests/test_torch_bvh.py's
+adversarial rays.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -545,6 +547,81 @@ def test_volume_split_kernels_match_twins(cuda, tmp_path, layout):
             close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
             assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, layout
         state = twin
+
+
+def _adversarial(device, cutout: bool):
+    """tests/test_torch_bvh.py's adversarial soup (shared edges and
+    vertices, duplicated triangles, a closed box) as a resident table with
+    a diffuse material and the rect light, its rays (4,324: through edges
+    and vertices, axis-parallel, from points on a surface, hits at t =
+    tmin) and their tmin, on `device`. With `cutout`, every triangle
+    passes half its camera draws and a quarter of its shadow draws."""
+    from test_torch_bvh import _adversarial_rays, _soup
+
+    geom = _soup()
+    n = geom.v0.shape[0]
+    probs = (np.full(n, 0.5, np.float32), np.full(n, 0.25, np.float32)) if cutout else (None,)
+    rows = tb.tri_rows(geom, cutout_prob=probs[0], shadow_prob=probs[-1])
+    table = build_material_table([lower_material(None)])
+    lights, light_types = tb.build_fused_lights(build_light_arrays([_rect_light()]))
+    fs = tb.from_jax_tables(rows.T, table.packed_f, lights, light_types, device, cutout=cutout)
+    o, d, lo = _adversarial_rays(geom)
+    return geom, fs, light_types, o.to(device), d.to(device), lo.to(device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cutout", [False, True])
+@pytest.mark.parametrize("nee", [False, True])
+def test_adversarial_resident_walk(cuda, cutout, nee):
+    """K1 and the resident K3 walk the table's BVH: on the adversarial
+    rays, grouped by their tmin, K1's rows 12-15 and K3's H_HIT, H_T and
+    H_MAT are bit-equal to the brute-force twins' on every ray (the
+    duplicated triangles' ties, the cutout draws and the NEE shadow rays
+    included), K1's rows 0-11 within rtol/atol on 99.9 %."""
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, H_T, trace_ref
+
+    _geom, fs, light_types, o, d, lo = _adversarial(cuda, cutout)
+    for tmin in sorted(set(lo.tolist())):
+        sel = lo == tmin
+        n = int(sel.sum())
+        state = tb.pack_state(o[sel].contiguous(), d[sel].contiguous(),
+                              smp.rng_init(torch.arange(n, device=cuda), 5), n)
+        p = torch.tensor([0.0, 0.0, 0.0, 0.95, 3.0, 0.0, 1.0, tmin, 1.0, 1.0, 7.0],
+                         dtype=torch.float32, device=cuda)
+        twin = state.clone()
+        tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, light_types, twin, nee, cutout=cutout)
+        kern = state.clone()
+        tb.bounce_step(p, fs, kern, nee)
+        hit_k = tb.trace_step(p, fs, state)
+        torch.cuda.synchronize()
+        hit_t = trace_ref(p, fs.tris, state, None, cutout)
+        k, t = kern.cpu().numpy(), twin.cpu().numpy()
+        np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
+        close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+        assert close.mean() >= MIN_AGREE, (tmin, int((~close).sum()))
+        rows = [H_HIT, H_T, H_MAT]
+        assert torch.equal(hit_k[rows].view(torch.int32), hit_t[rows].view(torch.int32)), tmin
+
+
+@pytest.mark.requires_cuda
+def test_adversarial_trace_walk(cuda):
+    """K5 walks the soup's BVH: on the adversarial rays (tmin per ray, every
+    17th ray dead) t, tri, u and v are bit-equal to intersect_matrix_ref's
+    on every ray."""
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+
+    geom, _fs, _lt, o, d, lo = _adversarial(cuda, False)
+    tables = tt.build_trace_tables(geom, cuda)
+    tmax = torch.full_like(lo, 3.4e38)
+    tmax[::17] = 0.0
+    got = tt.intersect_matrix(o, d, lo, tmax, tables)
+    torch.cuda.synchronize()
+    ref = trf.intersect_matrix_ref(o, d, lo, tmax, tables.coeffs)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                      r.cpu().numpy().view(np.int32))
+    assert (ref[1] >= 0).float().mean() > 0.5
 
 
 @pytest.mark.requires_cuda
