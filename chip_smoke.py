@@ -10,7 +10,7 @@ fails, with a non-zero exit, if any phase fails:
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade) are built from
    gatling_tpu_torch/csrc/bounce.cu (in ten nvcc parts), K5-K8 (the
-   brute-force trace) from csrc/trace.cu and the probes P1/P2 from
+   wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
    ptxas' registers, stack and spills;
 3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
@@ -66,9 +66,10 @@ fails, with a non-zero exit, if any phase fails:
    (sample 0, bounces 0 and 2: the closest-hit waves, 1,440,000 and
    262,144 rays, and the NEE shadow waves) and the tables gi built: tri,
    t, u, v bit-equal and the occlusion flags equal on every ray, K7's
-   triangle K5's on 99 % of rays; each kernel and twin timed, K5's bound
-   from its BVH walk's work (trace_ref.matrix_work) beside the
-   brute-force one; after 4f, the same on cornell_cutout_aovs' shadow-hop
+   triangle K5's on 99 % of rays; each kernel and twin timed, K5's and
+   K6's bounds from their BVH walks' work (trace_ref.matrix_work,
+   occluded_work, whose flags must equal the twin's) beside the
+   brute-force ones; after 4f, the same on cornell_cutout_aovs' shadow-hop
    waves (bounces 0 and 2, recorded by wrapping
    render/integrator.py _trace_occluded_cutout);
 4f. the advanced lobes and the cutout through gi.render, a first and a
@@ -114,7 +115,11 @@ fails, with a non-zero exit, if any phase fails:
 P. the probes P1 (layout moves, tools/cast_probe.py) and P2 (the one-hot
    product at TF32, FP32 and 3xTF32, tools/precision_probe.py) through
    their entry points, against their twins, with torch.matmul's error and
-   time beside P2.
+   time beside P2: each P2 mode and torch.matmul (TF32 allowed and not)
+   timed as the device time a launch (CUDA events around 200 back-to-back
+   launches queued behind a device sleep, over 200), as one call with its
+   host enqueue, and as the host's enqueue alone (1,000 calls, then one
+   synchronize).
 
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
@@ -1380,23 +1385,24 @@ def trace_bound_ms(kernel: str, rays, table, tested: int):
     return _bound(n * (32 + out_bytes) + 4 * table.numel(), tested * TRACE_OPS[kernel])
 
 
-def trace_walk_bound_ms(rays, bvh, work):
-    """The least time of one K5 launch for the work its BVH walk makes
-    (trace_ref.matrix_work: slab tests, triangle tests): each ray's o, d,
-    tmin, tmax read and t, tri, u, v written once, the tree read once
-    (HBM), against 24 operations a slab test and TRACE_OPS["K5"] a
-    triangle test (f32)."""
+def trace_walk_bound_ms(kernel: str, rays, bvh, work):
+    """The least time of one K5 or K6 launch for the work its BVH walk
+    makes (trace_ref.matrix_work / occluded_work: slab tests, triangle
+    tests): each ray's o, d, tmin, tmax read and its result (t, tri, u, v;
+    a flag) written once, the tree read once (HBM), against 24 operations
+    a slab test and TRACE_OPS[kernel] a triangle test (f32)."""
     n = rays[0].shape[0]
-    return _bound(n * (32 + 16) + 4 * sum(t.numel() for t in bvh),
-                  work[0] * SLAB_FLOPS + work[1] * TRACE_OPS["K5"])
+    out_bytes = 16 if kernel == "K5" else 1
+    return _bound(n * (32 + out_bytes) + 4 * sum(t.numel() for t in bvh),
+                  work[0] * SLAB_FLOPS + work[1] * TRACE_OPS[kernel])
 
 
 def phase_trace(device, waves: dict):
     """Phase 3d: K5-K8 against their twins on the waves 4e's frames handed
     the tracer (and 4f's cutout shadow hops), on the tables gi built: tri,
     t, u, v bit-equal on every ray, the occlusion flags equal on every ray;
-    K7 against K5; each kernel and twin timed with CUDA events, K5's bound
-    from its walk's work beside the brute-force one."""
+    K7 against K5; each kernel and twin timed with CUDA events, K5's and
+    K6's bounds from their walks' work beside the brute-force ones."""
     import torch
 
     from gatling_tpu_torch.ops import trace as tt
@@ -1438,7 +1444,8 @@ def phase_trace(device, waves: dict):
                 results[(k, label, bounce)] = dict(
                     ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
                     live=live, err=err[k], bound_brute=brute,
-                    bound=trace_walk_bound_ms(rays, tables.bvh, work) if k == "K5" else brute,
+                    bound=(trace_walk_bound_ms(k, rays, tables.bvh, work) if k == "K5"
+                           else brute),
                     work=work if k == "K5" else None)
         for bounce, rays in recorded["occluded"].items():
             live = int((rays[3] > rays[2]).sum())
@@ -1452,6 +1459,9 @@ def phase_trace(device, waves: dict):
             assert bad6 == 0 and bad8 == 0
             err = {"K6": float((got6 != (first6 >= 0)).float().max()),
                    "K8": float((got8 != (first8 >= 0)).float().max())}
+            walked, boxes, tests = trf.occluded_work(tables.bvh, *rays)
+            assert torch.equal(walked, first6 >= 0), (label, bounce)  # the plain walk's flags
+            work = (int(boxes.sum()), int(tests.sum()))
             for k, fn, twin, table, first in (
                     ("K6", lambda r=rays: tt.occluded_matrix(*r, tables),
                      lambda r=rays: trf.occluded_matrix_ref(*r, tables.coeffs), tables.coeffs,
@@ -1461,9 +1471,12 @@ def phase_trace(device, waves: dict):
                 # the tests the data needs: up to the first occluder, else all
                 alive = rays[3] > rays[2]
                 tested = int(torch.where(first >= 0, first + 1, n_real)[alive].sum())
+                brute = trace_bound_ms(k, rays, table, tested)
                 results[(k, label, bounce)] = dict(
                     ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
-                    live=live, bound=trace_bound_ms(k, rays, table, tested), err=err[k])
+                    live=live, err=err[k], bound_brute=brute,
+                    bound=trace_walk_bound_ms(k, rays, tables.bvh, work) if k == "K6" else brute,
+                    work=work if k == "K6" else None)
     for (k, label, bounce), r in sorted(results.items()):
         walk = (f"; walk work {r['work']} slab and triangle tests, brute-force bound "
                 f"{r['bound_brute'][0]:.4f} ms" if r.get("work") else "")
@@ -1474,9 +1487,11 @@ def phase_trace(device, waves: dict):
 
 
 TRACE_ENTRIES = {
-    "K5": ("intersect_matrix (K5, closest hit, coefficient form)",
+    "K5": ("intersect_matrix (K5, closest hit, coefficient form: intersect_tree_kernel, "
+           "a walk of the soup's BVH)",
            "gatling_tpu/ops/pallas_trace.py:196 intersect_pallas -> _closest_hit_kernel :105"),
-    "K6": ("occluded_matrix (K6, shadow rays, coefficient form)",
+    "K6": ("occluded_matrix (K6, shadow rays, coefficient form: occluded_tree_kernel, "
+           "an any-hit walk of the soup's BVH)",
            "gatling_tpu/ops/pallas_trace.py:235 occluded_pallas -> _occlusion_kernel :157"),
     "K7": ("intersect_tiles (K7, closest hit, elementwise)",
            "gatling_tpu/ops/pallas_trace.py:365 intersect_pallas_vpu -> "
@@ -1495,7 +1510,7 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
     head = times[(kernel, "cornell_aovs", 0)]
     cases = {f"{label}/bounce {b}": r for (k, label, b), r in sorted(times.items()) if k == kernel}
     brute = {}
-    if kernel == "K5":  # the walk's bound and, beside it, every triangle tested
+    if kernel in ("K5", "K6"):  # the walk's bound and, beside it, brute force's
         brute = {"bound_ms_brute_force": head["bound_brute"][0],
                  "bound_ms_brute_force_by_case": {c: r["bound_brute"][0]
                                                   for c, r in cases.items()}}
@@ -2211,13 +2226,68 @@ def phase_branches(device, replay: dict, exact: bool = False):
     return out
 
 
+def device_ms(fn, launches: int = 200) -> float:
+    """The device time of one launch of fn(): CUDA events around `launches`
+    back-to-back calls after a warm-up, over `launches`. The calls are
+    queued behind a device sleep that outlasts their enqueue (asserted), so
+    the events time the device running them back to back, not the host
+    issuing them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    cycles = 20_000_000
+    for _ in range(4):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if enqueue_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / launches
+        cycles *= 4
+    raise AssertionError("device_ms: the enqueue outlasted the device sleep")
+
+
+def enqueue_us(fn, calls: int = 1000) -> float:
+    """The host's time to issue one call of fn(): a host clock around
+    `calls` calls, then one synchronize (outside the clock)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def launch_times(fn) -> dict:
+    """A call's device time a launch (device_ms), its time as one call with
+    the host's enqueue (event_ms) and the enqueue alone (enqueue_us)."""
+    return dict(ms=device_ms(fn), ms_one_call_with_enqueue=event_ms(fn),
+                enqueue_us=enqueue_us(fn))
+
+
 def phase_probes(device):
     """Phase P: the probes P1 and P2 through their entry points (launches
     counted over that run), held against their twins; each timed with CUDA
-    events beside its twin and the library call. Returns their numbers."""
+    events beside its twin and the library call, P2 and torch.matmul also
+    as the device time a launch and the host's enqueue. Returns their
+    numbers: launches, P1's, P2's by mode, torch.matmul's by allow_tf32
+    and the host's cost of a stream handle."""
     import torch
 
     from gatling_tpu_torch import tools
+    from gatling_tpu_torch.ops.cuda_lib import CudaLibrary
     from gatling_tpu_torch.tools import cast_probe, precision_probe
 
     for k in tools.launches:
@@ -2252,21 +2322,29 @@ def phase_probes(device):
         t_ops = (3 if mode == 2 else 1) * flops / peak
         got = precision_probe.onehot_product(oh, xm, mode)
         p2[name] = dict(
-            ms=event_ms(lambda m=mode: precision_probe.onehot_product(oh, xm, m)),
+            **launch_times(lambda m=mode: precision_probe.onehot_product(oh, xm, m)),
             plain_ms=event_ms(lambda m=mode: precision_probe.product_twin(oh, xm, m)),
             bound=(max(nbytes / HBM_BPS, t_ops) * 1e3,
                    "bytes" if nbytes / HBM_BPS >= t_ops else "operations"),
             err=float((got - precision_probe.product_twin(oh, xm, mode)).abs().max()),
             err_vs_x=prec[name][0])
+    # the host's cost of the stream handle a wrapper passes its kernel:
+    # PyTorch's Stream object, and the raw getter ops/cuda_lib.py calls
+    stream_us = {
+        "torch.cuda.current_stream(device).cuda_stream":
+            enqueue_us(lambda: torch.cuda.current_stream(device).cuda_stream),
+        "CudaLibrary.stream": enqueue_us(lambda: CudaLibrary.stream(oh))}
+    library = {}
     prev = torch.backends.cuda.matmul.allow_tf32
     try:
         for allow in (True, False):
             torch.backends.cuda.matmul.allow_tf32 = allow
-            p2[f"library_tf32={allow}"] = event_ms(lambda: torch.matmul(oh, xm))
+            library[allow] = launch_times(lambda: torch.matmul(oh, xm))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    log(f"timing P1 (six moves) {p1}; P2 {p2}")
-    return launches, p1, p2
+    log(f"timing P1 (six moves) {p1}; P2 {p2}; torch.matmul by allow_tf32 {library}; "
+        f"stream handle us {stream_us}")
+    return launches, p1, p2, library, stream_us
 
 
 BRANCHES = (  # kernels-line entries of the branches: (name, 3e case, replaces)
@@ -2339,9 +2417,12 @@ def branch_entries(branch: dict, lobe_launches: dict, table=BRANCHES) -> list[di
     return out
 
 
-def probe_entries(launches: dict, p1: dict, p2: dict) -> list[dict]:
+def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
+                  stream_us: dict) -> list[dict]:
     """The kernels-line entries of P1 (the six moves together) and P2 (the
-    TF32 product; FP32 and 3xTF32 beside it)."""
+    TF32 product; FP32 and 3xTF32 beside it). P2's ms and library_ms are
+    device times a launch; the one-call times with the host's enqueue and
+    the enqueue alone stand beside them."""
     tf32 = p2["DEFAULT (TF32)"]
     return [{
         "name": "cast_probe (P1, six layout moves of an (8, 128) f32 tile)",
@@ -2351,24 +2432,33 @@ def probe_entries(launches: dict, p1: dict, p2: dict) -> list[dict]:
         "bound_ms": p1["bound"][0], "bound_by": p1["bound"][1], "library_ms": p1["library_ms"],
         "bank_conflicts": p1["conflicts"],
     }, {
-        "name": "onehot_product (P2, one-hot 128x128 product, TF32 mma.sync)",
+        "name": "onehot_product (P2, one-hot 128x128 product, TF32 mma.sync from staged "
+                "shared memory)",
         "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
         "replaces": "tools/mosaic_precision_probe.py:20 kern", "launches": launches["P2"],
-        "max_abs_err": max(v["err"] for k, v in p2.items() if isinstance(v, dict)),
+        "max_abs_err": max(v["err"] for v in p2.values()),
         "ms": tf32["ms"], "plain_ms": tf32["plain_ms"], "bound_ms": tf32["bound"][0],
-        "bound_by": tf32["bound"][1], "library_ms": p2["library_tf32=True"],
-        "library_ms_fp32": p2["library_tf32=False"],
-        "by_mode": {k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
-                            bound_by=v["bound"][1], err_vs_x=v["err_vs_x"])
-                    for k, v in p2.items() if isinstance(v, dict)},
+        "bound_by": tf32["bound"][1], "library_ms": library[True]["ms"],
+        "ms_one_call_with_enqueue": tf32["ms_one_call_with_enqueue"],
+        "enqueue_us": tf32["enqueue_us"],
+        "library_ms_one_call_with_enqueue": library[True]["ms_one_call_with_enqueue"],
+        "library_enqueue_us": library[True]["enqueue_us"],
+        "library_ms_fp32": library[False]["ms"],
+        "library_ms_fp32_one_call_with_enqueue": library[False]["ms_one_call_with_enqueue"],
+        "stream_handle_us": stream_us,
+        "by_mode": {k: dict(ms=v["ms"], ms_one_call_with_enqueue=v["ms_one_call_with_enqueue"],
+                            enqueue_us=v["enqueue_us"], plain_ms=v["plain_ms"],
+                            bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                            err_vs_x=v["err_vs_x"])
+                    for k, v in p2.items()},
     }]
 
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
-KERNEL_NAMES = ("intersect_tree_kernel", "shade_walk_kernel", "trace_walk_kernel",
-                "cutout_draws_kernel",
-                "onehot_fp32_kernel", "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel",
-                "closest_kernel", "bounce_kernel", "shade_kernel", "trace_kernel", "walk_kernel")
+KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_kernel",
+                "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
+                "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
+                "bounce_kernel", "shade_kernel", "trace_kernel", "walk_kernel")
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -2506,7 +2596,7 @@ def main() -> int:
     del replay
     log(f"phase 3f: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    probe_launches, p1, p2 = phase_probes(device)
+    probe_launches, p1, p2, p2_library, stream_us = phase_probes(device)
     log(f"phase P: {time.perf_counter() - t0:.1f} s")
     launches = {"K1": k1_launches, "K2": k2_launches, **split_launches, **wavefront_launches}
     log(f"main path: kernel launches per frame {launches}; Mray/s {rates}; wavefront frame "
@@ -2593,7 +2683,7 @@ def main() -> int:
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
-        *probe_entries(probe_launches, p1, p2)]}))
+        *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))
     return 0

@@ -18,11 +18,32 @@
 //    from zero), HIGHEST is FP32 FMA outside the tensor cores, and SPLIT3
 //    is the 3xTF32 product a_hi b_hi + a_hi b_lo + a_lo b_hi (hi = tf32(a),
 //    lo = tf32(a - hi)), the HIGHEST analogue that stays on the tensor
-//    cores. What bounds it: 2 * 128^3 operations (4.2 MFLOP, at 495 TFLOP/s
-//    TF32 or 67 TFLOP/s FP32 a few nanoseconds), so the launch.
+//    cores. What bounds it: not its 2 * 128^3 operations (4.2 MFLOP, at
+//    495 TFLOP/s TF32 or 67 TFLOP/s FP32 a few nanoseconds) nor its 192 KB
+//    (57 ns at 3.35 TB/s), but latency: the launch, one round trip to
+//    memory for the operands, and a chain of 16 dependent mma.sync (48 for
+//    3xTF32) or 128 dependent FMAs, then the store.
 //
-// One warp computes one 16x8 tile of the product; A and B are read from
-// global memory fragment by fragment (the matrices are 64 KB each).
+// P2's design. 16 blocks of 128 threads, each a 32x32 tile of the product:
+// the block stages its A strip (32 rows, all k) and B strip (all k, 32
+// columns) in shared memory once, every thread issuing its eight 16-byte
+// reads of each operand (coalesced, float4) before it stores any. The
+// tensor-core kernel converts each element to TF32 while staging (and its
+// remainder, lo = tf32(x - hi), for 3xTF32), so no warp converts again;
+// the conversion needs the value in a register, which is why the copies
+// are plain 16-byte loads and not cp.async or TMA. Rows are padded so the
+// m16n8k8 fragment reads hit 32 distinct banks: A (row-major, a = A[g][t])
+// at a stride of 132 words (4g + t), B (k-major, b = B[t][g]) at 40 (8t +
+// g). Each warp computes a 16x16 tile, two 16x8 mma tiles sharing one A
+// fragment from registers, over ascending k, 3xTF32 in the order lo*hi,
+// hi*lo, hi*hi at each k step. 3xTF32's hi and lo copies of both strips
+// take 74,752 bytes, dynamic shared memory above the 48 KB static limit
+// (cudaFuncSetAttribute, once). The FP32 kernel stages the same strips
+// unconverted (37,376 bytes, static) and gives each thread a 2x4
+// micro-tile, summed over ascending k with fmaf. wgmma would need 64-row
+// warpgroup tiles in a swizzled layout, so four blocks at most for this
+// product; its gain is tensor-core throughput, which at 128^3 is not what
+// bounds the kernel, so mma.sync from padded shared memory serves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,52 +95,146 @@ __device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// P2 on the tensor cores: out = A @ B (N x N, row-major), one warp a 16x8
-// tile; split3: the 3xTF32 product, else one TF32 product.
-__global__ void onehot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                   float* __restrict__ out, int split3) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  const int tiles_n = N / 8;
-  if (warp >= (N / 16) * tiles_n) return;
-  const int m0 = (warp / tiles_n) * 16, n0 = (warp % tiles_n) * 8;
+// P2: 32x32 output tiles of a 4x4 grid of blocks, 128 threads each
+constexpr int P2_TILE = 32, P2_THREADS = 128;
+constexpr int A_STRIDE = N + 4;        // 132 words: A fragment rows 4 banks apart
+constexpr int B_STRIDE = P2_TILE + 8;  // 40 words: B fragment rows 8 banks apart
+constexpr int A_WORDS = P2_TILE * A_STRIDE, B_WORDS = N * B_STRIDE;
+constexpr int P2_LOADS = P2_TILE * N / 4 / P2_THREADS;  // float4 a thread, each strip: 8
+
+// The block's strips in registers: load j of this thread is A row
+// (idx / 32, float4 idx % 32) and B row (idx / 8, float4 idx % 8) of the
+// strips, idx = threadIdx.x + 128 j; a_word / b_word are their shared offsets.
+__device__ __forceinline__ void load_strips(const float* __restrict__ a,
+                                            const float* __restrict__ b, float4 ra[P2_LOADS],
+                                            float4 rb[P2_LOADS]) {
+  const int m0 = blockIdx.y * P2_TILE, n0 = blockIdx.x * P2_TILE;
+  #pragma unroll
+  for (int j = 0; j < P2_LOADS; ++j) {
+    const int idx = threadIdx.x + P2_THREADS * j;
+    ra[j] = __ldg(reinterpret_cast<const float4*>(a + (m0 + idx / 32) * N) + idx % 32);
+    rb[j] = __ldg(reinterpret_cast<const float4*>(b + (idx / 8) * N + n0) + idx % 8);
+  }
+}
+
+__device__ __forceinline__ int a_word(int j) {
+  const int idx = threadIdx.x + P2_THREADS * j;
+  return (idx / 32) * A_STRIDE + 4 * (idx % 32);
+}
+
+__device__ __forceinline__ int b_word(int j) {
+  const int idx = threadIdx.x + P2_THREADS * j;
+  return (idx / 8) * B_STRIDE + 4 * (idx % 8);
+}
+
+__device__ __forceinline__ uint4 tf32x4(float4 x) {
+  return make_uint4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+}
+
+__device__ __forceinline__ uint4 tf32_lo(float4 x, uint4 hi) {
+  return make_uint4(to_tf32(x.x - __uint_as_float(hi.x)), to_tf32(x.y - __uint_as_float(hi.y)),
+                    to_tf32(x.z - __uint_as_float(hi.z)), to_tf32(x.w - __uint_as_float(hi.w)));
+}
+
+// P2 on the tensor cores: out = A @ B (N x N, row-major); SPLIT3: the
+// 3xTF32 product, else one TF32 product. Shared: A hi, B hi (and A lo,
+// B lo) as TF32 bit patterns.
+template <bool SPLIT3>
+__global__ void __launch_bounds__(P2_THREADS)
+    onehot_tf32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out) {
+  extern __shared__ uint4 p2_smem[];
+  uint32_t* s_ahi = reinterpret_cast<uint32_t*>(p2_smem);
+  uint32_t* s_bhi = s_ahi + A_WORDS;
+  uint32_t* s_alo = s_bhi + B_WORDS;
+  uint32_t* s_blo = s_alo + A_WORDS;
+  {
+    float4 ra[P2_LOADS], rb[P2_LOADS];
+    load_strips(a, b, ra, rb);
+    #pragma unroll
+    for (int j = 0; j < P2_LOADS; ++j) {
+      const uint4 ah = tf32x4(ra[j]), bh = tf32x4(rb[j]);
+      *reinterpret_cast<uint4*>(s_ahi + a_word(j)) = ah;
+      *reinterpret_cast<uint4*>(s_bhi + b_word(j)) = bh;
+      if (SPLIT3) {
+        *reinterpret_cast<uint4*>(s_alo + a_word(j)) = tf32_lo(ra[j], ah);
+        *reinterpret_cast<uint4*>(s_blo + b_word(j)) = tf32_lo(rb[j], bh);
+      }
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;  // groupID, threadID_in_group
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int wm = (warp / 2) * 16, wn = (warp % 2) * 16;  // the warp's 16x16 in the tile
+  float d[2][4] = {};
   for (int k0 = 0; k0 < N; k0 += 8) {
     // A fragment: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
     // B fragment: (t, g), (t + 4, g)
-    const float af[4] = {a[(m0 + g) * N + k0 + t], a[(m0 + g + 8) * N + k0 + t],
-                         a[(m0 + g) * N + k0 + t + 4], a[(m0 + g + 8) * N + k0 + t + 4]};
-    const float bf[2] = {b[(k0 + t) * N + n0 + g], b[(k0 + t + 4) * N + n0 + g]};
-    uint32_t ahi[4], bhi[2];
-    for (int i = 0; i < 4; ++i) ahi[i] = to_tf32(af[i]);
-    for (int i = 0; i < 2; ++i) bhi[i] = to_tf32(bf[i]);
-    if (split3) {
-      uint32_t alo[4], blo[2];
-      for (int i = 0; i < 4; ++i) alo[i] = to_tf32(af[i] - __uint_as_float(ahi[i]));
-      for (int i = 0; i < 2; ++i) blo[i] = to_tf32(bf[i] - __uint_as_float(bhi[i]));
-      mma_tf32(d, alo, bhi);  // the small terms first
-      mma_tf32(d, ahi, blo);
+    const int a0 = (wm + g) * A_STRIDE + k0 + t;
+    const int ai[4] = {a0, a0 + 8 * A_STRIDE, a0 + 4, a0 + 8 * A_STRIDE + 4};
+    uint32_t ahi[4], alo[4];
+    #pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ahi[i] = s_ahi[ai[i]];
+      if (SPLIT3) alo[i] = s_alo[ai[i]];
     }
-    mma_tf32(d, ahi, bhi);
+    #pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int b0 = (k0 + t) * B_STRIDE + wn + 8 * nt + g;
+      const uint32_t bhi[2] = {s_bhi[b0], s_bhi[b0 + 4 * B_STRIDE]};
+      if (SPLIT3) {
+        const uint32_t blo[2] = {s_blo[b0], s_blo[b0 + 4 * B_STRIDE]};
+        mma_tf32(d[nt], alo, bhi);  // the small terms first
+        mma_tf32(d[nt], ahi, blo);
+      }
+      mma_tf32(d[nt], ahi, bhi);
+    }
   }
   // D fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
-  out[(m0 + g) * N + n0 + 2 * t] = d[0];
-  out[(m0 + g) * N + n0 + 2 * t + 1] = d[1];
-  out[(m0 + g + 8) * N + n0 + 2 * t] = d[2];
-  out[(m0 + g + 8) * N + n0 + 2 * t + 1] = d[3];
+  const int m0 = blockIdx.y * P2_TILE + wm, n0 = blockIdx.x * P2_TILE + wn;
+  #pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    float* o = out + (m0 + g) * N + n0 + 8 * nt + 2 * t;
+    *reinterpret_cast<float2*>(o) = make_float2(d[nt][0], d[nt][1]);
+    *reinterpret_cast<float2*>(o + 8 * N) = make_float2(d[nt][2], d[nt][3]);
+  }
 }
 
-// P2 in FP32 outside the tensor cores: one thread an output element, the
-// sum over k in ascending order with fused multiply-adds.
-__global__ void onehot_fp32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                   float* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= N * N) return;
-  const int i = idx / N, j = idx % N;
-  float acc = 0.0f;
-  for (int k = 0; k < N; ++k) acc = fmaf(a[i * N + k], b[k * N + j], acc);
-  out[idx] = acc;
+// P2 in FP32 outside the tensor cores: the same staged strips, each thread
+// a 2x4 micro-tile (rows 2 ty, 2 ty + 1, columns 4 tx..4 tx + 3), the sum
+// over k in ascending order with fused multiply-adds.
+__global__ void __launch_bounds__(P2_THREADS)
+    onehot_fp32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ out) {
+  __shared__ __align__(16) float s_a[A_WORDS];
+  __shared__ __align__(16) float s_b[B_WORDS];
+  {
+    float4 ra[P2_LOADS], rb[P2_LOADS];
+    load_strips(a, b, ra, rb);
+    #pragma unroll
+    for (int j = 0; j < P2_LOADS; ++j) {
+      *reinterpret_cast<float4*>(s_a + a_word(j)) = ra[j];
+      *reinterpret_cast<float4*>(s_b + b_word(j)) = rb[j];
+    }
+  }
+  __syncthreads();
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float acc[2][4] = {};
+  for (int k = 0; k < N; ++k) {
+    const float a0 = s_a[(2 * ty) * A_STRIDE + k], a1 = s_a[(2 * ty + 1) * A_STRIDE + k];
+    const float4 bk = *reinterpret_cast<const float4*>(s_b + k * B_STRIDE + 4 * tx);
+    const float bj[4] = {bk.x, bk.y, bk.z, bk.w};
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      acc[0][j] = fmaf(a0, bj[j], acc[0][j]);
+      acc[1][j] = fmaf(a1, bj[j], acc[1][j]);
+    }
+  }
+  const int m0 = blockIdx.y * P2_TILE + 2 * ty, n0 = blockIdx.x * P2_TILE + 4 * tx;
+  #pragma unroll
+  for (int i = 0; i < 2; ++i)
+    *reinterpret_cast<float4*>(out + (m0 + i) * N + n0) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
 }
 
 }  // namespace
@@ -136,15 +251,26 @@ int gatling_cast_probe(const float* x, float* out, int move, int n_out, void* st
   return (int)cudaGetLastError();
 }
 
-// P2: out = a @ b (128 x 128) in mode 0 TF32, 1 FP32, 2 3xTF32.
+// P2: out = a @ b (128 x 128, 16-byte aligned) in mode 0 TF32, 1 FP32, 2
+// 3xTF32.
 int gatling_onehot_product(const float* a, const float* b, float* out, int mode,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N / P2_TILE, N / P2_TILE);
+  constexpr int hi_bytes = (A_WORDS + B_WORDS) * 4;  // 37,376
   if (mode == 1) {
-    onehot_fp32_kernel<<<N * N / 256, 256, 0, s>>>(a, b, out);
+    onehot_fp32_kernel<<<grid, P2_THREADS, 0, s>>>(a, b, out);
+  } else if (mode == 0) {
+    onehot_tf32_kernel<false><<<grid, P2_THREADS, hi_bytes, s>>>(a, b, out);
   } else {
-    const int warps = (N / 16) * (N / 8);
-    onehot_tf32_kernel<<<warps / 4, 128, 0, s>>>(a, b, out, mode == 2);
+    static int opted_in = 0;  // above 48 KB a kernel must opt in, once a process
+    if (!opted_in) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          onehot_tf32_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * hi_bytes);
+      if (e != cudaSuccess) return (int)e;
+      opted_in = 1;
+    }
+    onehot_tf32_kernel<true><<<grid, P2_THREADS, 2 * hi_bytes, s>>>(a, b, out);
   }
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,7 @@
     python -m gatling_tpu_torch.frame_profile                        # sphere_field
     python -m gatling_tpu_torch.frame_profile --scene interior       # textured interior
     python -m gatling_tpu_torch.frame_profile --scene cornell_aovs   # the wavefront
+    python -m gatling_tpu_torch.frame_profile --scene interior_aovs  # its small interior
     python -m gatling_tpu_torch.frame_profile --scene glass_coated   # the advanced lobes
     python -m gatling_tpu_torch.frame_profile --scene cornell_fog    # a scattering medium
     python -m gatling_tpu_torch.frame_profile --scene glass_tinted   # an absorbing medium
@@ -13,7 +14,8 @@ interior with NEE on; or cornell_aovs, the wavefront integrator's frame:
 the Cornell box with the bench's rect light and every AOV bound, at the
 Cornell bench settings (1200x1200, 16 spp, 8 bounces, NEE), its time
 split into K5 (closest hits), K6 (shadow rays) and the PyTorch ops of
-shading and AOVs. For each: one warm-up frame through `gi.render`,
+shading and AOVs; or interior_aovs, the same route on interior(detail=1)
+(3,840 triangles, textured) at 512x512, 4 spp, 6 bounces, NEE. For each: one warm-up frame through `gi.render`,
 then five frames on the same scene (host clock around each, ending in the
 image's copy to the host; the framebuffer is reset each time), then one
 more under torch.profiler. Prints the frame times and Mray/s (traced
@@ -60,7 +62,16 @@ RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
 GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
           ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
-          ("K6 shadow rays", "occluded_kernel"), ("sort", "sort"), ("copies", "memcpy"))
+          ("K6 shadow rays", "occluded_tree_kernel"), ("sort", "sort"), ("copies", "memcpy"))
+
+
+def _every_aov(res: int):
+    """One binding of every AOV, the ids in int32 buffers cleared to -1."""
+    from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT
+
+    return [gi.GiAovBinding(a, gi.GiRenderBuffer(res, res, 1 if AOV_IS_INT[a] else
+                                                 max(AOV_CHANNELS[a], 3), AOV_IS_INT[a]),
+                            clear_value=-1 if AOV_IS_INT[a] else None) for a in AovId]
 
 
 def _cornell_aovs():
@@ -70,7 +81,6 @@ def _cornell_aovs():
     import numpy as np
 
     from gatling_tpu_torch.cli import load_gi_scene
-    from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT
     from gatling_tpu_torch.scene.stage import LightDesc
 
     res = 1200
@@ -85,11 +95,8 @@ def _cornell_aovs():
         params=dict(intensity=4.0, exposure=0.0, color=np.array([1.0, 0.9, 0.8], np.float32),
                     normalize=False, diffuse=1.0, specular=1.0, enableColorTemperature=False,
                     colorTemperature=6500.0, width=0.8, height=0.6)))
-    binds = [gi.GiAovBinding(a, gi.GiRenderBuffer(res, res, 1 if AOV_IS_INT[a] else
-                                                  max(AOV_CHANNELS[a], 3), AOV_IS_INT[a]),
-                             clear_value=-1 if AOV_IS_INT[a] else None) for a in AovId]
-    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(), aov_bindings=binds,
-                             render_settings=merged)
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                             aov_bindings=_every_aov(res), render_settings=merged)
 
 
 GLASS_RES, GLASS_SPP, GLASS_BOUNCES = 1200, 16, 8  # the bench's glass_coated (bench.py:40-54)
@@ -192,7 +199,9 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
         return _glass_coated(lobes=scene_name == "glass_coated")
     if scene_name in ("cornell_fog", "glass_tinted"):
         return _media(scene_name, tex_dir)
-    desc = interior(tex_dir=tex_dir) if scene_name == "interior" else sphere_field()
+    desc = (interior(tex_dir=tex_dir) if scene_name == "interior"
+            else interior(detail=1, tex_dir=tex_dir) if scene_name == "interior_aovs"
+            else sphere_field())
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
         scene.add_mesh(m)
@@ -202,7 +211,8 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
         scene.add_light(light)
     return gi.GiRenderParams(
         scene=scene, camera=desc.first_camera(),
-        aov_bindings=[gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(RES, RES, 4))],
+        aov_bindings=(_every_aov(RES) if scene_name == "interior_aovs"
+                      else [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(RES, RES, 4))]),
         render_settings=dict(spp=SPP, maxBounces=BOUNCES, nextEventEstimation=nee))
 
 
@@ -303,7 +313,8 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
-                                        "glass_coated", "cornell_fog", "glass_tinted"),
+                                        "interior_aovs", "glass_coated", "cornell_fog",
+                                        "glass_tinted"),
                     default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -497,7 +497,7 @@ def walk_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.T
 
 
 # ---------------------------------------------------------------------------
-# the per-ray BVH walks of K1, K3 and K4 (resident) and K5: their work
+# the per-ray BVH walks of K1, K3 and K4 (resident), K5 and K6: their work
 # ---------------------------------------------------------------------------
 
 TREE_STACK = 64  # the kernels' traversal stack (csrc/tree_walk.cuh)
@@ -506,10 +506,10 @@ TREE_STACK = 64  # the kernels' traversal stack (csrc/tree_walk.cuh)
 def bvh_walk(bvh: TriBvh, o: torch.Tensor, d: torch.Tensor, live: torch.Tensor,
              tmin: torch.Tensor, tcap: torch.Tensor, test, any_hit: bool = False):
     """The kernels' walk (csrc/tree_walk.cuh tree_walk with the leaf loops
-    of tree_closest / tree_occluded and K5's intersect_tree_kernel) of
-    every live ray of o, d [R, 3] over [tmin, tcap] ([R] f32), in the
-    kernels' order: a stack per ray, one node a step, nearer child first,
-    boxes skipped as the kernels skip them. `test(slot, ray)` runs the
+    of tree_closest / tree_occluded, K5's intersect_tree_kernel and K6's
+    occluded_tree_kernel) of every live ray of o, d [R, 3] over [tmin,
+    tcap] ([R] f32), in the kernels' order: a stack per ray, one node a
+    step, nearer child first, boxes skipped as the kernels skip them. `test(slot, ray)` runs the
     kernel's test of leaf rows `slot` against rays `ray` ([P] int64) and
     returns (t, u, v, ok), ok its acceptance but the best-t rule (the
     cutout draw included). Returns (t, u, v, win, boxes, tests), each [R]:

@@ -121,4 +121,8 @@ class CudaLibrary:
 
     @staticmethod
     def stream(t: torch.Tensor) -> int:
-        return torch.cuda.current_stream(t.device).cuda_stream
+        """The raw handle of the current stream on t's card, from the getter
+        PyTorch's own generated kernels call: torch.cuda.current_stream()
+        builds a Stream object on every call, a large share of a small
+        launch's host time (chip_smoke.py phase P times both)."""
+        return torch._C._cuda_getCurrentRawStream(t.get_device())

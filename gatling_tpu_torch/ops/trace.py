@@ -20,9 +20,10 @@ twin in ops/trace_ref.py:
 
 * `intersect_matrix` (K5, `intersect_pallas`) and `occluded_matrix` (K6,
   `occluded_pallas`): the tracer of the wavefront integrator for scenes
-  of at most 8192 triangles (gi.py `_choose_tracer`). On the card K5
-  walks a BVH over the soup (`TraceTables.bvh`, ops/bvh.py) instead of
-  testing every triangle, and finds the same hit bit for bit;
+  of at most 8192 triangles (gi.py `_choose_tracer`). On the card both
+  walk a BVH over the soup (`TraceTables.bvh`, ops/bvh.py) instead of
+  testing every triangle, K5 for the closest hit and K6 to its first
+  occluder, and find the twins' hit and flag bit for bit;
 * `intersect_tiles` (K7, `intersect_pallas_vpu`) and `occluded_tiles`
   (K8, `occluded_pallas_vpu`): the elementwise form, which no entry point
   of the JAX package reaches (its comparison point); chip_smoke.py holds
@@ -63,8 +64,9 @@ def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 class TraceTables(NamedTuple):
     """Per-triangle coefficient matrices, tiled: coeffs [n_tiles, 16, 512],
-    and K5's BVH over the soup (leaf rows: the 25 structurally non-zero
-    coefficients of each triangle, DET_TERMS, T_TERMS, UV_TERMS twice)."""
+    and the BVH over the soup that K5 and K6 walk (leaf rows: the 25
+    structurally non-zero coefficients of each triangle, DET_TERMS,
+    T_TERMS, UV_TERMS twice)."""
 
     coeffs: torch.Tensor
     n_tris: int
@@ -130,14 +132,15 @@ class TraceKernel(CudaLibrary):
     """csrc/trace.cu built with nvcc and loaded with ctypes."""
 
     def __init__(self) -> None:
-        rays = [PTR, PTR, PTR, PTR, PTR, I32, I64]  # o d tmin tmax table n_tiles n_rays
-        closest = [*rays, PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
-        occluded = [*rays, PTR, PTR]                # hit stream
-        # K5: o d tmin tmax, the TriBvh's nodes kids rows, n_rays, t tri u v stream
-        walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64, PTR, PTR, PTR, PTR, PTR]
+        # K7/K8: o d tmin tmax, the tiles, n_tiles n_rays; K5/K6: o d tmin
+        # tmax, the TriBvh's nodes kids rows, n_rays
+        tiles = [PTR, PTR, PTR, PTR, PTR, I32, I64]
+        walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64]
+        closest = [PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
+        occluded = [PTR, PTR]                # hit stream
         super().__init__("trace.cu", {
-            "gatling_intersect_matrix": walk, "gatling_occluded_matrix": occluded,
-            "gatling_intersect_tiles": closest, "gatling_occluded_tiles": occluded,
+            "gatling_intersect_matrix": walk + closest, "gatling_occluded_matrix": walk + occluded,
+            "gatling_intersect_tiles": tiles + closest, "gatling_occluded_tiles": tiles + occluded,
         }, "gatling_trace_error_string")
 
     @staticmethod
@@ -150,12 +153,11 @@ class TraceKernel(CudaLibrary):
             raise ValueError(f"trace kernel {name}: ray shape mismatch")
         return r
 
-    def launch(self, name: str, origins, dirs, tmin, tmax, table, rows: int, outputs) -> None:
-        """K6-K8: a brute-force search over the tiled `table`."""
+    def launch(self, name: str, origins, dirs, tmin, tmax, table, outputs) -> None:
+        """K7/K8: a brute-force search over the [n_tiles, 9, 128] `table`."""
         r = self._check_rays(name, origins, dirs, tmin, tmax)
         check_tensor("trace", "table", table, torch.float32)
-        width = 4 * TRI_TILE if rows == N_FEATURES else TRI_TILE
-        if table.dim() != 3 or table.shape[1:] != (rows, width):
+        if table.dim() != 3 or table.shape[1:] != (9, TRI_TILE):
             raise ValueError(f"trace kernel {name}: table shape mismatch")
         if table.data_ptr() % 16:
             raise ValueError(f"trace kernel {name}: the table must be 16-byte aligned")
@@ -163,9 +165,12 @@ class TraceKernel(CudaLibrary):
                   table.data_ptr(), table.shape[0], r, *(o.data_ptr() for o in outputs),
                   self.stream(origins))
 
-    def launch_walk(self, origins, dirs, tmin, tmax, bvh: TriBvh, outputs) -> None:
-        """K5: the closest-hit walk over the soup's TriBvh."""
-        r = self._check_rays("gatling_intersect_matrix", origins, dirs, tmin, tmax)
+    def launch_walk(self, name: str, origins, dirs, tmin, tmax, bvh: TriBvh | None,
+                    outputs) -> None:
+        """K5/K6: a walk over the soup's TriBvh; raises without a tree."""
+        r = self._check_rays(name, origins, dirs, tmin, tmax)
+        if bvh is None:
+            raise ValueError(f"trace kernel {name}: the tables carry no TriBvh to walk")
         for label, x, dt in (("bvh nodes", bvh.nodes, torch.float32),
                              ("bvh kids", bvh.kids, torch.int32),
                              ("bvh rows", bvh.rows, torch.float32)):
@@ -173,11 +178,10 @@ class TraceKernel(CudaLibrary):
         if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 8 \
                 or bvh.kids.shape != (bvh.nodes.shape[0], 2) or bvh.rows.dim() != 2 \
                 or bvh.rows.shape[1] != 28:
-            raise ValueError("trace kernel gatling_intersect_matrix: TriBvh shape mismatch")
-        self.call("gatling_intersect_matrix", origins.data_ptr(), dirs.data_ptr(),
-                  tmin.data_ptr(), tmax.data_ptr(), bvh.nodes.data_ptr(), bvh.kids.data_ptr(),
-                  bvh.rows.data_ptr(), r, *(o.data_ptr() for o in outputs),
-                  self.stream(origins))
+            raise ValueError(f"trace kernel {name}: TriBvh shape mismatch")
+        self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+                  bvh.nodes.data_ptr(), bvh.kids.data_ptr(), bvh.rows.data_ptr(), r,
+                  *(o.data_ptr() for o in outputs), self.stream(origins))
 
 
 _kernel: TraceKernel | None = None
@@ -203,9 +207,9 @@ def _closest_cuda(key, origins, launch) -> Hit:
     return Hit(t, tri, u, v)
 
 
-def _occluded_cuda(name, key, origins, dirs, tmin, tmax, table, rows) -> torch.Tensor:
+def _occluded_cuda(key, origins, launch) -> torch.Tensor:
     hit = torch.empty((origins.shape[0],), dtype=torch.bool, device=origins.device)
-    kernel().launch(name, origins, dirs, tmin, tmax, table, rows, (hit,))
+    launch((hit,))
     launches[key] += 1
     return hit
 
@@ -226,15 +230,17 @@ def intersect_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> Hit:
     if _on_cpu(origins):
         return Hit(*intersect_matrix_ref(origins, dirs, tmin, tmax, tables.coeffs))
     return _closest_cuda("K5", origins, lambda out: kernel().launch_walk(
-        origins, dirs, tmin, tmax, tables.bvh, out))
+        "gatling_intersect_matrix", origins, dirs, tmin, tmax, tables.bvh, out))
 
 
 def occluded_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> torch.Tensor:
-    """K6 (`occluded_pallas`): [R] bool, any hit in (tmin, tmax)."""
+    """K6 (`occluded_pallas`): [R] bool, any hit in (tmin, tmax); on the
+    card an any-hit walk of the tables' BVH, on the CPU the brute-force
+    twin."""
     if _on_cpu(origins):
         return occluded_matrix_ref(origins, dirs, tmin, tmax, tables.coeffs)
-    return _occluded_cuda("gatling_occluded_matrix", "K6", origins, dirs, tmin, tmax,
-                          tables.coeffs, N_FEATURES)
+    return _occluded_cuda("K6", origins, lambda out: kernel().launch_walk(
+        "gatling_occluded_matrix", origins, dirs, tmin, tmax, tables.bvh, out))
 
 
 def intersect_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> Hit:
@@ -243,12 +249,12 @@ def intersect_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> Hit:
     if _on_cpu(origins):
         return Hit(*intersect_tiles_ref(origins, dirs, tmin, tmax, tiles.tris))
     return _closest_cuda("K7", origins, lambda out: kernel().launch(
-        "gatling_intersect_tiles", origins, dirs, tmin, tmax, tiles.tris, 9, out))
+        "gatling_intersect_tiles", origins, dirs, tmin, tmax, tiles.tris, out))
 
 
 def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:
     """K8 (`occluded_pallas_vpu`): [R] bool, any hit, elementwise form."""
     if _on_cpu(origins):
         return occluded_tiles_ref(origins, dirs, tmin, tmax, tiles.tris)
-    return _occluded_cuda("gatling_occluded_tiles", "K8", origins, dirs, tmin, tmax,
-                          tiles.tris, 9)
+    return _occluded_cuda("K8", origins, lambda out: kernel().launch(
+        "gatling_occluded_tiles", origins, dirs, tmin, tmax, tiles.tris, out))

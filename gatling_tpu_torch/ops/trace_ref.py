@@ -6,8 +6,9 @@ the structurally non-zero features in ascending order (not `feat @ C`,
 whose summation order a BLAS chooses), the elementwise Moller-Trumbore of
 `_mt_tile` operation for operation, and the TPU kernels' selection rule
 (ops/trace.py). A CPU tensor takes these; the CUDA kernels are held
-against them on the card. `matrix_work` repeats K5's walk of the soup's
-BVH step for step (its hit and its work). Rays go in chunks of
+against them on the card. `matrix_work` and `occluded_work` repeat K5's
+and K6's walks of the soup's BVH step for step (their answer and their
+work). Rays go in chunks of
 RAY_CHUNK, so the [rays, 128] temporaries stay small; a ray's result does
 not depend on its chunk.
 """
@@ -142,13 +143,10 @@ def _first_occluder(origins, dirs, tmin, tmax, table, matrix: bool) -> torch.Ten
     return out
 
 
-def matrix_work(bvh: TriBvh, origins, dirs, tmin, tmax):
-    """K5's walk of the soup's TriBvh (ops/trace.py TraceTables.bvh) for
-    rays o, d [R, 3] in (tmin, tmax) [R], as bounce_ref.bvh_walk: each
-    leaf triangle's numerators summed from its 25 leaf coefficients in
-    _dot's order and selected by _valid. Returns (t, tri, u, v, boxes,
-    tests), each [R]: the hit intersect_matrix_ref finds, and the slab and
-    triangle tests the walk made."""
+def _leaf_test(bvh: TriBvh, origins, dirs, tmin, tmax):
+    """bvh_walk's test of K5's and K6's leaves: each leaf triangle's
+    numerators summed from its 25 leaf coefficients in _dot's order and
+    selected by _valid over the ray's (tmin, tmax)."""
     f = ray_features(origins, dirs)
 
     def test(slot, ray):
@@ -163,8 +161,30 @@ def matrix_work(bvh: TriBvh, origins, dirs, tmin, tmax):
             off += len(terms)
         return _valid(*sums, tmin[ray], tmax[ray])
 
-    t, u, v, win, boxes, tests = bvh_walk(bvh, origins, dirs, tmax > tmin, tmin, tmax, test)
+    return test
+
+
+def matrix_work(bvh: TriBvh, origins, dirs, tmin, tmax):
+    """K5's walk of the soup's TriBvh (ops/trace.py TraceTables.bvh) for
+    rays o, d [R, 3] in (tmin, tmax) [R], as bounce_ref.bvh_walk with
+    _leaf_test. Returns (t, tri, u, v, boxes, tests), each [R]: the hit
+    intersect_matrix_ref finds, and the slab and triangle tests the walk
+    made."""
+    t, u, v, win, boxes, tests = bvh_walk(bvh, origins, dirs, tmax > tmin, tmin, tmax,
+                                          _leaf_test(bvh, origins, dirs, tmin, tmax))
     return t, win.to(torch.int32), u, v, boxes, tests
+
+
+def occluded_work(bvh: TriBvh, origins, dirs, tmin, tmax):
+    """K6's any-hit walk of the same tree, as bvh_walk(..., any_hit=True)
+    with _leaf_test: the segment's end never lowered, the walk ended at
+    its first valid candidate. Returns (flag, boxes, tests), each [R]: the
+    flag occluded_matrix_ref computes, and the slab and triangle tests the
+    walk made."""
+    _t, _u, _v, win, boxes, tests = bvh_walk(bvh, origins, dirs, tmax > tmin, tmin, tmax,
+                                             _leaf_test(bvh, origins, dirs, tmin, tmax),
+                                             any_hit=True)
+    return win >= 0, boxes, tests
 
 
 def intersect_matrix_ref(origins, dirs, tmin, tmax, coeffs):

@@ -9,7 +9,8 @@ process, which imports that checkout's package and builds its kernels.
 The measuring code is the same for every checkout: this file and the
 chip_smoke.py of the checkout it belongs to, whose helpers call only entry
 points every checkout since the media slice has (gi.render, bounce_step,
-trace_step, intersect_matrix). Run the file by its path, not with -m.
+trace_step, intersect_matrix, occluded_matrix, onehot_product). Run the
+file by its path, not with -m.
 
 Measured, with CUDA events on fresh copies of each wave (chip_smoke.py
 time_ms / event_ms), at bounce 0 unless named:
@@ -21,12 +22,16 @@ time_ms / event_ms), at bounce 0 unless named:
 * K3 on the textured Cornell box's wave (resident tables);
 * K5 on the closest-hit waves of cornell_aovs and interior_aovs (bounces 0
   and 2 of the first sample, recorded from a frame) and on the shadow-hop
-  waves of cornell_cutout_aovs (bounces 0 and 2);
+  waves of cornell_cutout_aovs (bounces 0 and 2), K6 on the NEE shadow
+  waves of cornell_aovs and interior_aovs (bounces 0 and 2);
+* P2 in each mode and torch.matmul (TF32 allowed and not) on the probe's
+  input: the device time a launch, one call with its host enqueue, and the
+  enqueue alone (chip_smoke.py launch_times);
 * K2 on sphere_field's wave (512x512 x 4 samples, instanced and flattened,
   NEE off and on);
 * warm frames through gi.render (host clock to the image's copy):
-  glass_coated (NEE off and on), cornell, cornell_nee, cornell_aovs and
-  cornell_cutout_aovs;
+  glass_coated (NEE off and on), cornell, cornell_nee, cornell_aovs,
+  cornell_cutout_aovs and interior_aovs;
 * the ptxas registers, stack and spills of every kernel instance.
 """
 
@@ -64,6 +69,7 @@ def time_tree(tree: str) -> None:
     from gatling_tpu_torch.ops import trace as tt
     from gatling_tpu_torch.scene import examples as ex
     from gatling_tpu_torch.scene.stage import load_scene
+    from gatling_tpu_torch.tools import precision_probe as pp
 
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
@@ -128,16 +134,35 @@ def time_tree(tree: str) -> None:
             params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
             frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
         if label == "cornell_aovs":
-            waves["cornell_aovs"] = (cs.record_waves(params)["closest"], params.scene._accel)
+            waves["cornell_aovs"] = (cs.record_waves(params), params.scene._accel)
         if label == "cornell_cutout_aovs":
-            waves["cornell_cutout_aovs hops"] = (cs.record_hop_waves(params), params.scene._accel)
+            waves["cornell_cutout_aovs hops"] = ({"closest": cs.record_hop_waves(params)},
+                                                 params.scene._accel)
     iparams = cs.interior_aovs_params(device, tmp.name)
-    cs.counted_render(iparams, "interior_aovs")
-    waves["interior_aovs"] = (cs.record_waves(iparams)["closest"], iparams.scene._accel)
+    cs.counted_render(iparams, "interior_aovs (first frame)")
+    for i in range(3):
+        iparams.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        frames[f"interior_aovs warm {i + 1}"] = cs.counted_render(iparams, "interior_aovs")[1]
+    waves["interior_aovs"] = (cs.record_waves(iparams), iparams.scene._accel)
     for label, (recorded, accel) in waves.items():
-        for b, rays in sorted(recorded.items(), key=lambda kv: str(kv[0])):
-            out[f"K5 {label} {b}"] = cs.event_ms(
-                lambda r=rays: tt.intersect_matrix(*r, accel.tables), reps=15)
+        for kind, key, fn in (("closest", "K5", tt.intersect_matrix),
+                              ("occluded", "K6", tt.occluded_matrix)):
+            for b, rays in sorted(recorded.get(kind, {}).items(), key=lambda kv: str(kv[0])):
+                out[f"{key} {label} {b}"] = cs.event_ms(
+                    lambda r=rays, f=fn: f(*r, accel.tables), reps=15)
+    oh, x = pp.probe_inputs(device)
+    calls = {f"P2 {name}": (lambda m=mode: pp.onehot_product(oh, x, m))
+             for name, mode in pp.MODES}
+    calls["torch.matmul"] = lambda: torch.matmul(oh, x)
+    for label, fn in calls.items():
+        for allow in ((True, False) if label == "torch.matmul" else (False,)):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            name = label + (f" allow_tf32={allow}" if label == "torch.matmul" else "")
+            t = cs.launch_times(fn)
+            out[f"{name} device a launch"] = t["ms"]
+            out[f"{name} one call with its enqueue"] = t["ms_one_call_with_enqueue"]
+            out[f"{name} enqueue alone"] = t["enqueue_us"] / 1e3
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     desc, _m, _t, inst, flat = cs.sphere_field_setup(device)
     wave = cs.wave_state(desc.first_camera(), cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
@@ -149,7 +174,7 @@ def time_tree(tree: str) -> None:
         for line in cs.ptxas_summary(lib.ptxas_log):
             print(f"{tree}: ptxas {lib.path.name}: {line}")
     for k, v in out.items():
-        print(f"{tree}: {k}: {v:.4f} ms", flush=True)
+        print(f"{tree}: {k}: {v:.6f} ms", flush=True)
     for k, v in frames.items():
         print(f"{tree}: frame {k}: {v:.4f} s", flush=True)
     tmp.cleanup()

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch import tools
+from gatling_tpu_torch.ops.cuda_lib import CudaLibrary
 
 N = 128
 MODES = (("DEFAULT (TF32)", 0), ("HIGHEST (FP32)", 1), ("3xTF32", 2))
@@ -59,13 +60,16 @@ def onehot_product(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
     kernel on CUDA tensors, the twin on CPU ones."""
     if not a.is_cuda:
         return product_twin(a, b, mode)
+    if mode not in (0, 1, 2):
+        raise ValueError(f"precision probe: mode {mode} is not 0, 1 or 2")
     for t in (a, b):
-        if t.shape != (N, N) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("precision probe: operands must be contiguous [128, 128] f32")
+        if t.shape != (N, N) or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != a.device or t.data_ptr() % 16:
+            raise ValueError("precision probe: operands must be contiguous, 16-byte aligned "
+                             "[128, 128] f32 tensors on one card")
     out = torch.empty((N, N), dtype=torch.float32, device=a.device)
-    lib = tools.kernel()
-    lib.call("gatling_onehot_product", a.data_ptr(), b.data_ptr(), out.data_ptr(), mode,
-             lib.stream(a))
+    tools.kernel().call("gatling_onehot_product", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                        mode, CudaLibrary.stream(a))
     tools.launches["P2"] += 1
     return out
 

@@ -1,23 +1,28 @@
-"""The BVH walks of K1 (K3, K4) and K5 against their brute-force twins, on
-the CPU.
+"""The BVH walks of K1 (K3, K4), K5 and K6 against their brute-force twins,
+on the CPU.
 
-On the card K1, K3 and K4 search a resident table, and K5 the wavefront's
-soup, by walking a BVH built once per scene (ops/bvh.py TriBvh); their
-twins test every triangle. The plain walks `bounce_ref.resident_work` and
-`trace_ref.matrix_work` repeat the kernels' walk step for step, so here
+On the card K1, K3 and K4 search a resident table, and K5 and K6 the
+wavefront's soup, by walking a BVH built once per scene (ops/bvh.py
+TriBvh); their twins test every triangle. The plain walks
+`bounce_ref.resident_work`, `trace_ref.matrix_work` and
+`trace_ref.occluded_work` repeat the kernels' walk step for step, so here
 they must return the brute-force twins' winner on every ray: the same t,
 u and v bits and the same triangle index (the closest t, ties to the lower
-index). Cases, each with its ray count: the Cornell box's camera wave
-(48x48 = 2,304 rays) and a bounce wave from its hits, the NEE shadow rays
-of both; glass_coated's 580-triangle table (48x48); interior(detail=1)'s
-3,840-triangle soup (3,740 real; 32x32 = 1,024 rays, resident and K5); an
-adversarial soup built with numpy from a seed (rays through shared edges and
-vertices, exact t ties from duplicated triangles, axis-parallel
-directions, origins on a surface at tmin, and a cutout table whose draws
-decide). A structural check holds every passing (ray, triangle) pair
-inside the padded box of each of the triangle's ancestor nodes at a t no
-later than its own, and build_tlas is deterministic and shallow at 4096
-triangles.
+index), or K6's occlusion flag. Cases, each with its ray count: the
+Cornell box's camera wave (48x48 = 2,304 rays) and a bounce wave from its
+hits, the NEE shadow rays of both; glass_coated's 580-triangle table
+(48x48); interior(detail=1)'s 3,840-triangle soup (3,740 real; 32x32 =
+1,024 rays, resident, K5 and K6); K6's shadow rays from the hits of the
+Cornell camera and bounce waves and the interior's camera wave, toward
+random directions and toward the lights; an adversarial soup built with
+numpy from a seed (rays through shared edges and vertices, exact t ties
+from duplicated triangles, axis-parallel directions, origins on a surface
+at tmin, and a cutout table whose draws decide; for K6 segments ending
+exactly at a triangle's t, rays grazing edges in a surface's plane, and
+segments starting just past a surface). A structural check holds every
+passing (ray, triangle) pair inside the padded box of each of the
+triangle's ancestor nodes at a t no later than its own, and build_tlas is
+deterministic and shallow at 4096 triangles.
 """
 
 from types import SimpleNamespace
@@ -205,6 +210,72 @@ def test_matrix_walk_matches_brute(cornell, interior, scene):
         assert bool((ref[1] >= 0).any())
 
 
+def _light_targets(desc, geom, n: int, rng) -> torch.Tensor:
+    """n points on the scene's lights: random points of the Cornell box's
+    emissive Light mesh, or the centres of the interior's lights jittered
+    by a normal of 0.05 (about their size)."""
+    light = [m.object_id for m in desc.meshes if m.path.endswith("/Light")]
+    if light:
+        k = rng.choice(np.nonzero(geom.object_id == light[0])[0], size=n)
+        b = rng.uniform(size=(n, 2)).astype(np.float32)
+        b = np.where(b.sum(axis=1, keepdims=True) > 1, 1 - b, b)
+        pts = geom.v0[k] + b[:, :1] * geom.e1[k] + b[:, 1:] * geom.e2[k]
+    else:
+        centres = np.stack([np.asarray(lt.transform[3, :3]) for lt in desc.lights])
+        pts = centres[rng.integers(0, len(centres), size=n)] + rng.normal(scale=0.05,
+                                                                           size=(n, 3))
+    return torch.from_numpy(pts.astype(np.float32))
+
+
+@pytest.mark.parametrize("scene,wave,target", [
+    ("cornell", "camera", "random"), ("cornell", "camera", "light"),
+    ("cornell", "bounce", "random"), ("cornell", "bounce", "light"),
+    ("interior", "camera", "random"), ("interior", "camera", "light")])
+def test_occluded_walk_matches_brute(cornell, interior, scene, wave, target):
+    """K6's any-hit walk over the soup's TriBvh (trace_ref.occluded_work)
+    against occluded_matrix_ref: shadow rays from the hits of the Cornell
+    camera wave (2,304 rays) or its bounce wave, and of interior(detail=1)'s
+    (1,024 rays), toward random directions (segments of 0.5-8) or toward a
+    point on a light (the segment ending there: on the Cornell box's Light
+    mesh itself), tmin 0.01 as the wavefront's NEE sets it. The flags are
+    equal on every ray; dead rays (tmax <= tmin) make no tests; Cornell's
+    one leaf makes at most its 32 tests a ray, the interior's walk fewer
+    than 100 on average where brute force makes 3,740."""
+    desc, geom = (cornell[0], cornell[1]) if scene == "cornell" else interior
+    tables = tt.build_trace_tables(geom, "cpu")
+    o, d = _camera_wave(desc, 48 if scene == "cornell" else 32)
+    full = lambda x, v: torch.full((x.shape[0],), v)
+    ref = trf.intersect_matrix_ref(o, d, full(o, TMIN), full(o, FMAX), tables.coeffs)
+    if wave == "bounce":
+        o, d = _bounce_wave(o, d, ref[0], ref[1], seed=7)
+        ref = trf.intersect_matrix_ref(o, d, full(o, TMIN), full(o, FMAX), tables.coeffs)
+    hit = ref[1] >= 0
+    pos = (o + ref[0][:, None] * d)[hit].contiguous()
+    n = pos.shape[0]
+    rng = np.random.default_rng(11)
+    if target == "light":
+        ld = _light_targets(desc, geom, n, rng) - pos
+        tmax = ld.norm(dim=1)
+        ld = ld / tmax[:, None]
+    else:
+        ld = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
+        ld = ld / ld.norm(dim=1, keepdim=True)
+        tmax = torch.from_numpy(rng.uniform(0.5, 8.0, size=n).astype(np.float32))
+    ld = ld.contiguous()
+    tmin = full(pos, 0.01)
+    tmax[::13] = 0.0  # dead rays, and segments of length 0
+    tmax[5::13] = 0.01
+    dead = tmax <= tmin
+    flag, boxes, tests = trf.occluded_work(tables.bvh, pos, ld, tmin, tmax)
+    assert torch.equal(flag, trf.occluded_matrix_ref(pos, ld, tmin, tmax, tables.coeffs))
+    assert int(tests[dead].sum()) == 0 and int(boxes[dead].sum()) == 0
+    assert 0 < int(flag.sum()) < int((~dead).sum())  # both answers occur
+    if scene == "cornell":
+        assert int(tests.max()) <= 32
+    else:
+        assert float(tests[~dead].float().mean()) < 100 < tb.real_triangles(geom)
+
+
 # ---------------------------------------------------------------------------
 # adversarial soup
 # ---------------------------------------------------------------------------
@@ -331,9 +402,55 @@ def test_adversarial_resident():
     assert int(got[3][0]) == 3
 
 
+def _grazing_rays():
+    """Rays in the plane of a surface along its edges: along the floor's
+    grid lines at y = 0 and one ulp above it, and along the box's top and
+    vertical edges (two faces meet there), both ways."""
+    o, d = [], []
+    for y in (0.0, float(np.spacing(np.float32(0.0))), 1e-7):
+        for g in GRID:
+            o += [[g, y, -4.0], [-4.0, y, g], [g, y, 4.0]]
+            d += [[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, 0.0, -1.0]]
+    for x in (-0.5, 0.5):
+        for z in (-0.5, 0.5):
+            o += [[x, 1.0, -2.0], [-2.0, 1.0, z], [x, -1.0, z], [x, 3.0, z]]
+            d += [[0.0, 0.0, 1.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, -1.0, 0.0]]
+    return (torch.tensor(o, dtype=torch.float32), torch.tensor(d, dtype=torch.float32))
+
+
+def _shadow_segments(o, d, lo, closest):
+    """K6's adversarial segments from the adversarial rays (o, d, tmin lo)
+    and their closest hits (t, tri): the rays with tmax at FLOAT_MAX;
+    the grazing rays; the hit rays with tmax exactly at the closest t and
+    one ulp either side of it (the hit excluded, included, and the
+    duplicates' equal t with it); the hit rays with tmin at that t and 1-2
+    ulps either side (the segment starting just past the surface) and tmax
+    past it; every 17th segment dead. Returns (o, d, tmin, tmax) and the
+    slices of the segments ending at the closest t and one ulp past it."""
+    hit = closest[1] >= 0
+    oh, dh, th, loh = o[hit], d[hit], closest[0][hit], lo[hit]
+    up, down = (torch.nextafter(th, torch.full_like(th, x)) for x in (FMAX, 0.0))
+    go, gd = (x.to(o.device) for x in _grazing_rays())
+    segments = [(o, d, lo, torch.full_like(lo, FMAX)),
+                (go, gd, torch.full_like(go[:, 0], TMIN), torch.full_like(go[:, 0], 10.0))]
+    for end in (th, up, down):
+        segments.append((oh, dh, loh, end))
+    for start in (th, up, down, torch.nextafter(up, torch.full_like(th, FMAX)),
+                  torch.nextafter(down, torch.zeros_like(th))):
+        segments.append((oh, dh, start, th * 2.0 + 1.0))
+    o6, d6, lo6, hi6 = (torch.cat(x).contiguous() for x in zip(*segments))
+    hi6[::17] = 0.0
+    first, n = o.shape[0] + go.shape[0], oh.shape[0]
+    return (o6, d6, lo6, hi6), (slice(first, first + n), slice(first + n, first + 2 * n))
+
+
 def test_adversarial_matrix():
     """The adversarial soup through K5's walk (4,324 rays, tmin per ray):
-    t, u, v and the index bit-equal to intersect_matrix_ref."""
+    t, u, v and the index bit-equal to intersect_matrix_ref; and K6's
+    any-hit walk against occluded_matrix_ref on _shadow_segments (a
+    segment ending at a triangle's t, grazing rays along edges, segments
+    starting just past a surface): the flags equal on every ray, dead
+    segments untested."""
     geom = _soup()
     tables = tt.build_trace_tables(geom, "cpu")
     o, d, lo = _adversarial_rays(geom)
@@ -343,6 +460,15 @@ def test_adversarial_matrix():
     _assert_same((got[0], got[2], got[3], got[1]), (ref[0], ref[2], ref[3], ref[1]),
                   "adversarial matrix")
     assert int((ref[1] >= 0).sum()) > o.shape[0] // 2
+
+    rays, (at, past) = _shadow_segments(o, d, lo, ref[:2])
+    want = trf.occluded_matrix_ref(*rays, tables.coeffs)
+    flag, _boxes, tests = trf.occluded_work(tables.bvh, *rays)
+    assert torch.equal(flag, want)
+    assert int(tests[rays[3] <= rays[2]].sum()) == 0
+    # the segment ending at the closest t excludes that hit, the one
+    # ending one ulp past it includes it
+    assert int(want[at].sum()) < int(want[past].sum())
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,7 +1,7 @@
 """On the card: the CUDA kernels (K1 resident, K2 the two-level walk, K3
 and K4 the split trace and shade, with their lobe, cutout and volume
 branches, K5-K8 the wavefront's trace, P1/P2 the probes) against their
-plain twins; K1's and K5's BVH walks also on tests/test_torch_bvh.py's
+plain twins; K1's, K5's and K6's BVH walks also on tests/test_torch_bvh.py's
 adversarial rays.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -266,8 +266,12 @@ def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
 @pytest.mark.parametrize("scene_name", ["cornell", "interior"])
 def test_trace_kernels_match_twins(cuda, tmp_path, scene_name):
     """K5-K8 against their twins (ops/trace_ref.py) on a camera wave and its
-    shadow rays toward random directions: tri, t, u, v and the occlusion
-    flags bit-equal on every ray; K7 takes K5's triangle on 99 % of rays."""
+    shadow rays toward random directions and toward points on the scene's
+    lights (K6 walking the soup's BVH, K8 the tiles): tri, t, u, v and the
+    occlusion flags bit-equal on every ray; K7 takes K5's triangle on 99 %
+    of rays."""
+    from test_torch_bvh import _light_targets
+
     from gatling_tpu_torch.ops import trace as tt
     from gatling_tpu_torch.ops import trace_ref as trf
     from gatling_tpu_torch.scene.examples import interior
@@ -303,12 +307,18 @@ def test_trace_kernels_match_twins(cuda, tmp_path, scene_name):
     g = torch.Generator().manual_seed(3)
     ld = torch.nn.functional.normalize(torch.randn(w * h, 3, generator=g), dim=1).to(cuda)
     lo, hi = torch.where(hit, 0.01, 0.0), torch.where(hit, 4.0, 0.0)
-    k6 = tt.occluded_matrix(pos, ld, lo, hi, tables)
-    k8 = tt.occluded_tiles(pos, ld, lo, hi, tiles)
-    torch.cuda.synchronize()
-    assert torch.equal(k6, trf.occluded_matrix_ref(pos, ld, lo, hi, tables.coeffs))
-    assert torch.equal(k8, trf.occluded_tiles_ref(pos, ld, lo, hi, tiles.tris))
-    assert 0 < int(k6.sum()) < int(hit.sum())
+    to_light = _light_targets(desc, geom, w * h, np.random.default_rng(4)).to(cuda) - pos
+    dist = to_light.norm(dim=1)
+    for ld, hi in ((ld, hi), ((to_light / dist[:, None]).contiguous(),
+                              torch.where(hit, dist, 0.0))):
+        before = tt.launches["K6"]
+        k6 = tt.occluded_matrix(pos, ld, lo, hi, tables)
+        k8 = tt.occluded_tiles(pos, ld, lo, hi, tiles)
+        torch.cuda.synchronize()
+        assert tt.launches["K6"] == before + 1
+        assert torch.equal(k6, trf.occluded_matrix_ref(pos, ld, lo, hi, tables.coeffs))
+        assert torch.equal(k8, trf.occluded_tiles_ref(pos, ld, lo, hi, tiles.tris))
+        assert 0 < int(k6.sum()) < int(hit.sum())
 
 
 @pytest.mark.requires_cuda
@@ -605,9 +615,14 @@ def test_adversarial_resident_walk(cuda, cutout, nee):
 
 @pytest.mark.requires_cuda
 def test_adversarial_trace_walk(cuda):
-    """K5 walks the soup's BVH: on the adversarial rays (tmin per ray, every
-    17th ray dead) t, tri, u and v are bit-equal to intersect_matrix_ref's
-    on every ray."""
+    """K5 and K6 walk the soup's BVH: on the adversarial rays (tmin per ray,
+    every 17th ray dead) K5's t, tri, u and v are bit-equal to
+    intersect_matrix_ref's on every ray, and on their shadow segments
+    (test_torch_bvh._shadow_segments: ending exactly at a hit's t, grazing
+    edges, starting just past a surface) K6's flags equal
+    occluded_matrix_ref's."""
+    from test_torch_bvh import _shadow_segments
+
     from gatling_tpu_torch.ops import trace as tt
     from gatling_tpu_torch.ops import trace_ref as trf
 
@@ -622,6 +637,11 @@ def test_adversarial_trace_walk(cuda):
         np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
                                       r.cpu().numpy().view(np.int32))
     assert (ref[1] >= 0).float().mean() > 0.5
+    rays, (at, past) = _shadow_segments(o, d, lo, ref[:2])
+    k6 = tt.occluded_matrix(*rays, tables)
+    torch.cuda.synchronize()
+    want = trf.occluded_matrix_ref(*rays, tables.coeffs)
+    assert torch.equal(k6, want) and int(want[at].sum()) < int(want[past].sum())
 
 
 @pytest.mark.requires_cuda
@@ -688,3 +708,44 @@ def test_probes_match_twins(cuda):
     results = precision_probe.run(cuda)
     assert all(same for *_e, same in results.values())
     assert results["HIGHEST (FP32)"][0] == 0.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rows", ["identity", "permutation"])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_onehot_product_matches_twin(cuda, mode, rows):
+    """P2's kernels (TF32, FP32, 3xTF32) bit-equal to product_twin on one-hot
+    rows: the probe's identity, and a permutation (each output row another
+    row of x: the strips' staging, the padded strides and the fragments'
+    indices show); one launch counted a call."""
+    from gatling_tpu_torch import tools
+    from gatling_tpu_torch.tools import precision_probe
+
+    oh, x = precision_probe.probe_inputs(cuda)
+    if rows == "permutation":
+        oh = oh[torch.from_numpy(np.random.default_rng(mode).permutation(precision_probe.N))]
+        oh = oh.to(cuda).contiguous()
+    before = tools.launches["P2"]
+    got = precision_probe.onehot_product(oh, x, mode)
+    torch.cuda.synchronize()
+    assert tools.launches["P2"] == before + 1
+    twin = precision_probe.product_twin(oh.cpu(), x.cpu(), mode)
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32), twin.numpy().view(np.int32))
+
+
+@pytest.mark.requires_cuda
+def test_onehot_product_rejects_bad_operands(cuda):
+    """P2's wrapper raises before any launch on an operand on another
+    device (the kernel would read a host pointer), a contiguous view that
+    is not 16-byte aligned (its float4 reads) and a mode outside 0-2."""
+    from gatling_tpu_torch import tools
+    from gatling_tpu_torch.tools import precision_probe
+
+    oh, x = precision_probe.probe_inputs(cuda)
+    n = precision_probe.N
+    shifted = torch.zeros(n * n + 1, device=cuda)[1:].view(n, n)
+    before = tools.launches["P2"]
+    for a, b, mode in ((oh, x.cpu(), 0), (oh, shifted, 1), (shifted, x, 2), (oh, x, 3)):
+        with pytest.raises(ValueError):
+            precision_probe.onehot_product(a, b, mode)
+    assert tools.launches["P2"] == before
