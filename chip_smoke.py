@@ -28,7 +28,11 @@ fails, with a non-zero exit, if any phase fails:
    the Cornell box in clustered tables held against K1's resident step;
    then K2 and the twin timed on the wave as generated and after the
    coherence sort, and K2 at bounces 1-5 of the frame with and without
-   the sort;
+   the sort. K2, K3 and K4 walk a BVH inside each cluster (ops/bvh.py
+   ClusterBvh); their bound is the walk's counted work
+   (bounce_ref.cluster_work: TLAS, cluster-box and tree slab tests and
+   triangle tests, the NEE shadow rays' included), the cluster floor (the
+   brute-force loop's 128 triangle tests a cluster box entered) beside it;
 4. full-size renders through gatling_tpu_torch.gi, as the CLI renders:
    Cornell 1200x1200 at 16 spp and 8 bounces, the same with NEE and a rect
    light, and Lights.Analytic at its authored settings, each checked;
@@ -321,17 +325,51 @@ def _bound(nbytes: int, ops: int):
     return max(tb_, to) * 1e3, "bytes" if tb_ >= to else "operations"
 
 
-def k2_bound_ms(state, fs, work: tuple[int, int]):
+def cluster_walk_work(p, fs, state, nee: bool) -> tuple[int, int, int, int]:
+    """(TLAS and entry slab tests, cluster-box slab tests, cluster-tree slab
+    tests, triangle tests) of the two-level walks of one K2 (K3: NEE off)
+    launch on `state`, from bounce_ref.cluster_work: every alive ray's
+    closest-hit walk (its cutout words as the kernel's) and, with NEE,
+    the any-hit walk of each shadow ray the twin traces."""
+    import torch
+
+    from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cluster_work, cutout_key
+
+    o, d = state[0:3].T.contiguous(), state[3:6].T.contiguous()
+    key = cutout_key(state) if fs.cutout else None
+    work = [int(c.sum()) for c in cluster_work(fs.walk, o, d, state[13] > 0.5,
+                                               float(p[P_TMIN]), key)[2:]]
+    for so, sd, dist, skey in nee_shadow_rays(p, fs, state, nee):
+        counts = cluster_work(fs.walk, so, sd, torch.ones_like(dist, dtype=torch.bool), 0.0,
+                              skey, dist=dist)[2:]
+        work = [w + int(c.sum()) for w, c in zip(work, counts)]
+    return tuple(work)
+
+
+def walk_ops(work) -> int:
+    """f32 operations of the two-level walk's counted work
+    (cluster_walk_work): 24 a slab test, 30 a triangle test."""
+    tlas, boxes, tree, tests = work
+    return (tlas + boxes + tree) * SLAB_FLOPS + tests * TRI_TEST_FLOPS
+
+
+def floor_ops(floor) -> int:
+    """f32 operations of the cluster floor (bounce_ref.walk_work:
+    the entry boxes and cluster boxes entered before the hit): the 16
+    cluster-box slab tests of each entry box and the 128 triangle tests of
+    each cluster box, whatever the order; no TLAS node and no transform."""
+    n_entries, n_clusters = floor
+    return n_entries * 16 * SLAB_FLOPS + n_clusters * 128 * TRI_TEST_FLOPS
+
+
+def k2_bound_ms(state, fs, ops: int):
     """The least time of one K2 launch: the state rows read and written
-    and every table read once (HBM), against the f32 work the wave's
-    closest hits need (bounce_ref.walk_work): the 16 cluster-box slab tests
-    of each entry box a ray enters before its hit, and the 128 triangle
-    tests of each cluster box it enters before its hit. The TLAS node
-    tests and the instance transforms are left out: a floor."""
-    n_entries, n_clusters = work
+    and every table read once (the cluster trees' included; HBM), against
+    `ops` f32 operations at the f32 rate (walk_ops of the counted work, or
+    floor_ops of the cluster floor)."""
     nbytes = 2 * state.numel() * 4 + 4 * (fs.tris.numel() + fs.mats.numel()
                                           + fs.lights.numel() + sum(t.numel() for t in fs.walk))
-    return _bound(nbytes, n_entries * 16 * SLAB_FLOPS + n_clusters * 128 * TRI_TEST_FLOPS)
+    return _bound(nbytes, ops)
 
 
 def time_ms(fn, state, reps: int = 7) -> float:
@@ -504,19 +542,27 @@ def phase_walk(device, sf):
         o, d, alive = wave[0:3].T.contiguous(), wave[3:6].T.contiguous(), wave[13] > 0.5
         tmin = float(p0[P_TMIN])
         win = walk_closest(fs.walk, fs.tris, o, d, alive, tmin)
-        work = walk_work(fs.walk, o, d, alive, tmin, walk_hit_attrs(fs.walk, fs.tris, o, d, win)[0])
+        floor = walk_work(fs.walk, o, d, alive, tmin,
+                          walk_hit_attrs(fs.walk, fs.tris, o, d, win)[0])
         hits = int((win >= 0).sum())
-        for order, wv in waves.items():
-            for nee in (False, True):
+        for nee in (False, True):
+            t_work = time.perf_counter()
+            work = cluster_walk_work(p0, fs, wave, nee)
+            bound, floor_bound = k2_bound_ms(wave, fs, walk_ops(work)), k2_bound_ms(
+                wave, fs, floor_ops(floor))
+            log(f"K2 sphere_field {label} nee={nee} bounce 0: walk work {work} (TLAS, cluster "
+                f"box, tree slab tests; triangle tests), counted in "
+                f"{time.perf_counter() - t_work:.1f} s; cluster floor {floor} (entry and "
+                f"cluster boxes entered before the hit)")
+            for order, wv in waves.items():
                 k = time_ms(lambda s: tb.bounce_step(p0, fs, s, nee), wv)
                 twin = time_ms(lambda s: bounce_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, nee,
                                                     fs.walk), wv, reps=2)
-                times[(label, order, nee)] = (k, twin, k2_bound_ms(wv, fs, work))
+                times[(label, order, nee)] = (k, twin, bound, floor_bound, work)
                 log(f"timing K2 sphere_field {label} wave {order} nee={nee} bounce 0 at "
-                    f"{wv.shape[1]} rays ({hits} hit; {work[0]} entry boxes and {work[1]} "
-                    f"cluster boxes entered before the hit): kernel {k:.3f} ms, plain twin "
-                    f"{twin:.1f} ms, bound {times[(label, order, nee)][2][0]:.4f} ms "
-                    f"({times[(label, order, nee)][2][1]})")
+                    f"{wv.shape[1]} rays ({hits} hit): kernel {k:.3f} ms, plain twin "
+                    f"{twin:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}), cluster floor "
+                    f"{floor_bound[0]:.4f} ms ({floor_bound[1]})")
 
     # bounces 1-5 of a frame: K2 on the state as the last bounce left it
     # (the ray order of a frame without the sort) and sorted by the
@@ -535,8 +581,10 @@ def phase_walk(device, sf):
                 t_sort = time_ms(sort, state)
                 for i, v in enumerate((k_as_is, k_sorted, t_sort)):
                     sums[i] += v
+                bound = k2_bound_ms(state, fs, walk_ops(cluster_walk_work(params, fs, state, nee)))
                 log(f"timing K2 sphere_field {label} nee={nee} bounce {b} ({alive} rays alive): "
-                    f"unsorted {k_as_is:.3f} ms, sorted {k_sorted:.3f} ms, the sort {t_sort:.3f} ms")
+                    f"unsorted {k_as_is:.3f} ms, sorted {k_sorted:.3f} ms, the sort {t_sort:.3f} "
+                    f"ms; bound {bound[0]:.4f} ms ({bound[1]})")
                 tb.bounce_step(params, fs, state, nee)
             sorted_ms[(label, nee)] = sums
             log(f"timing K2 sphere_field {label} nee={nee} bounces 1-5: unsorted {sums[0]:.3f} ms, "
@@ -874,13 +922,15 @@ def compare_hits(kernel_hit, twin_hit):
     return bad_bits, outside, k.shape[1], max_err
 
 
-def k3_bound_ms(state, fs, hit_rows: int, work, brute: bool = False) -> tuple[float, str]:
+def k3_bound_ms(state, fs, hit_rows: int, work, brute: bool = False,
+                floor: bool = False) -> tuple[float, str]:
     """The least time of one K3 launch: each ray's origin, direction and
     alive flag read and its hit rows written once, the tables read once
     (HBM), against the triangle and box tests the wave's closest hits need
     (resident: the BVH walk's `work`, its slab and triangle tests from
     resident_walk_work, or with `brute` every alive ray against every
-    triangle; walk: as K2's floor, bounce_ref.walk_work)."""
+    triangle; walk: the counted work of cluster_walk_work, or with `floor`
+    the cluster floor of bounce_ref.walk_work)."""
     r = state.shape[1]
     nbytes = 4 * r * (7 + hit_rows) + 4 * (fs.tris.numel() + sum(
         t.numel() for t in (fs.walk or fs.bvh)))
@@ -888,8 +938,7 @@ def k3_bound_ms(state, fs, hit_rows: int, work, brute: bool = False) -> tuple[fl
         return _bound(nbytes, int((state[13] > 0.5).sum()) * fs.tris.shape[0] * TRI_TEST_FLOPS)
     if fs.walk is None:
         return _bound(nbytes, work[0] * SLAB_FLOPS + work[1] * TRI_TEST_FLOPS)
-    n_entries, n_clusters = work
-    return _bound(nbytes, n_entries * 16 * SLAB_FLOPS + n_clusters * 128 * TRI_TEST_FLOPS)
+    return _bound(nbytes, floor_ops(work) if floor else walk_ops(work))
 
 
 def k4_bound_ms(state, fs, par_rows: int) -> tuple[float, str]:
@@ -941,7 +990,8 @@ def phase_split(device, scenes: dict):
     cases.append(("cornell_textured", ctables, cwave, False))
 
     k3_err = k4_err = 0.0
-    later = None  # the interior's state at bounce 2 (plain tables, NEE on)
+    # the interior's state at bounce 2 (plain tables, NEE on) and K4's inputs there
+    later = k4_later = None
     for label, (fs, static, mats, pool, active), wave, nee in cases:
         lt, prow = static.light_types, par_row_starts(active)
         state = wave
@@ -951,6 +1001,8 @@ def phase_split(device, scenes: dict):
             params = params_row(b, device)
             hit = trace_ref(params, fs.tris, state, fs.walk)
             parbuf, hit_n = material_rows(mats, pool, hit, active)
+            if b == 2 and label == "interior" and nee:
+                k4_later = (hit_n, parbuf, active, nee)
             twin = state.clone()
             shade_ref(params, fs.tris, fs.mats, fs.lights, lt, twin, hit_n, parbuf, prow, nee,
                       fs.walk)
@@ -982,9 +1034,11 @@ def phase_split(device, scenes: dict):
         hit = tb.trace_step(p0, fs, wave)
         parbuf, hit_n = material_rows(mats, pool, hit, active)
         alive = wave[13] > 0.5
+        floor = None
         if fs.walk is not None:
             o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
-            work = walk_work(fs.walk, o, d, alive, float(p0[P_TMIN]), hit[H_T])
+            floor = walk_work(fs.walk, o, d, alive, float(p0[P_TMIN]), hit[H_T])
+            work = cluster_walk_work(p0, fs, wave, False)
         else:
             work = resident_walk_work(p0, fs, wave, False)
         t = dict(
@@ -997,13 +1051,15 @@ def phase_split(device, scenes: dict):
             k4_twin=time_ms(lambda s: shade_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, hit_n,
                                                 parbuf, prow, nee, fs.walk), wave, reps=2),
             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work),
-            k3_bound_brute=k3_bound_ms(wave, fs, hit.shape[0], work, brute=True),
+            k3_bound_brute=(k3_bound_ms(wave, fs, hit.shape[0], floor, floor=True) if floor
+                            else k3_bound_ms(wave, fs, hit.shape[0], work, brute=True)),
             k4_bound=k4_bound_ms(wave, fs, 3 * len(active)),
             work=work, rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
         times[label] = t
         log(f"timing {label} nee={nee} bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
             f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
-            f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}, brute-force bound "
+            f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}, "
+            f"{'cluster floor' if floor else 'brute-force bound'} "
             f"{t['k3_bound_brute'][0]:.4f} ms), texture stage {t['stage']:.3f} ms, "
             f"K4 {t['k4']:.3f} ms (NEE off {t['k4_nee_off']:.3f} ms; twin {t['k4_twin']:.1f} ms, "
             f"bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]})")
@@ -1019,14 +1075,19 @@ def phase_split(device, scenes: dict):
     ordered = later[:, torch.argsort(coherence_keys(later, lo, inv), stable=True)]
     hit = tb.trace_step(p2, fs, later)
     alive = later[13] > 0.5
-    work = walk_work(fs.walk, later[0:3].T.contiguous(), later[3:6].T.contiguous(), alive,
-                     float(p2[P_TMIN]), hit[H_T])
+    floor = walk_work(fs.walk, later[0:3].T.contiguous(), later[3:6].T.contiguous(), alive,
+                      float(p2[P_TMIN]), hit[H_T])
+    work = cluster_walk_work(p2, fs, later, False)
     k3_2 = [time_ms(lambda s: tb.trace_step(p2, fs, s), wv) for wv in (later, ordered)]
     bound = k3_bound_ms(later, fs, hit.shape[0], work)
-    times["interior_bounce2"] = dict(k3_unsorted=k3_2[0], k3=k3_2[1], k3_bound=bound, work=work)
-    log(f"timing interior K3 bounce 2 ({int(alive.sum())} rays alive; walk work {work}): "
-        f"{k3_2[0]:.3f} ms as the twin left the wave, {k3_2[1]:.3f} ms in the coherence order, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
+    floor_bound = k3_bound_ms(later, fs, hit.shape[0], floor, floor=True)
+    k4_2 = time_ms(lambda s: tb.shade_step(p2, fs, s, *k4_later), later)
+    times["interior_bounce2"] = dict(k3_unsorted=k3_2[0], k3=k3_2[1], k3_bound=bound,
+                                     k3_floor=floor_bound, work=work, k4=k4_2)
+    log(f"timing interior K3 bounce 2 ({int(alive.sum())} rays alive; walk work {work}, "
+        f"cluster floor {floor}): {k3_2[0]:.3f} ms as the twin left the wave, {k3_2[1]:.3f} ms "
+        f"in the coherence order, bound {bound[0]:.4f} ms ({bound[1]}), cluster floor "
+        f"{floor_bound[0]:.4f} ms ({floor_bound[1]}); K4 (NEE) {k4_2:.3f} ms")
     return k3_err, k4_err, times
 
 
@@ -2200,20 +2261,25 @@ def phase_branches(device, replay: dict, exact: bool = False):
                 key = cutout_key(wave) if fs.cutout else None
                 win = walk_closest(fs.walk, fs.tris, o, d, alive, tmin, key)
                 t_hit = walk_hit_attrs(fs.walk, fs.tris, o, d, win)[0]
-                r["work"] = walk_work(fs.walk, o, d, alive, tmin, t_hit)
-                r["bound"] = k2_bound_ms(wave, fs, r["work"])
+                r["floor"] = walk_work(fs.walk, o, d, alive, tmin, t_hit)
+                r["work"] = cluster_walk_work(p, fs, wave, nee)
+                r["bound"] = k2_bound_ms(wave, fs, walk_ops(r["work"]))
+                r["floor_bound"] = k2_bound_ms(wave, fs, floor_ops(r["floor"]))
         else:
             hit_n, parbuf = split
             active = static.textured_params
             prow = par_row_starts(active)
             hit = tb.trace_step(p, fs, wave)
             o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
-            r["work"] = (walk_work(fs.walk, o, d, alive, float(p[P_TMIN]), hit[H_T])
+            r["work"] = (cluster_walk_work(p, fs, wave, False)
                          if fs.walk is not None else resident_walk_work(p, fs, wave, False))
             r["k3_ms"] = time_ms(lambda s: tb.trace_step(p, fs, s), wave)
             r["k3_plain_ms"] = time_ms(lambda s: trace_ref(p, fs.tris, s, fs.walk, fs.cutout),
                                        wave, reps=1)
             r["k3_bound"] = k3_bound_ms(wave, fs, hit.shape[0], r["work"])
+            if fs.walk is not None:
+                r["floor"] = walk_work(fs.walk, o, d, alive, float(p[P_TMIN]), hit[H_T])
+                r["k3_floor_bound"] = k3_bound_ms(wave, fs, hit.shape[0], r["floor"], floor=True)
             r["ms"] = time_ms(lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, nee), wave)
             r["plain_ms"] = time_ms(lambda s: shade_ref(
                 p, fs.tris, fs.mats, fs.lights, static.light_types, s, hit_n, parbuf, prow, nee,
@@ -2405,6 +2471,10 @@ def branch_entries(branch: dict, lobe_launches: dict, table=BRANCHES) -> list[di
                  "alive": r["alive"]}
         if not k3 and "bound_brute" in r:  # a resident K1: the BVH walk's bound, brute force's
             entry["bound_ms_brute_force"] = r["bound_brute"][0]
+        floor = "k3_floor_bound" if k3 else "floor_bound"
+        if floor in r:  # a walk: its counted bound, the brute-force cluster floor
+            entry["bound_ms_cluster_floor"] = r[floor][0]
+            entry["walk_work"] = r["work"]
         others = {k: v for k, v in branch.items() if k.startswith(case) and k != case}
         if others:
             entry["ms_by_case"] = {k: v[ms] for k, v in others.items()}
@@ -2638,8 +2708,13 @@ def main() -> int:
         "bound_ms": k2[2][0],
         "bound_by": k2[2][1],
         "library_ms": None,
+        "bound_ms_cluster_floor": k2[3][0],
+        "walk_work": k2[4],
         "ms_by_case": {f"{t}/{o}/nee={n}": v[0] for (t, o, n), v in walk_times.items()},
         "plain_ms_by_case": {f"{t}/{o}/nee={n}": v[1] for (t, o, n), v in walk_times.items()},
+        "bound_ms_by_case": {f"{t}/{o}/nee={n}": v[2][0] for (t, o, n), v in walk_times.items()},
+        "bound_ms_cluster_floor_by_case": {f"{t}/{o}/nee={n}": v[3][0]
+                                           for (t, o, n), v in walk_times.items()},
         "bounces_1_5_ms_unsorted_sorted_sort": {f"{t}/nee={n}": v
                                                 for (t, n), v in sorted_ms.items()},
     }, {
@@ -2655,6 +2730,8 @@ def main() -> int:
         "bound_ms": it["k3_bound"][0],
         "bound_by": it["k3_bound"][1],
         "library_ms": None,
+        "bound_ms_cluster_floor": it["k3_bound_brute"][0],
+        "walk_work": it["work"],
         "ms_cornell_textured": ct["k3"],
         "plain_ms_cornell_textured": ct["k3_twin"],
         "bound_ms_cornell_textured": ct["k3_bound"][0],
@@ -2662,6 +2739,8 @@ def main() -> int:
         "ms_bounce2_coherence_order": split_times["interior_bounce2"]["k3"],
         "ms_bounce2_unsorted": split_times["interior_bounce2"]["k3_unsorted"],
         "bound_ms_bounce2": split_times["interior_bounce2"]["k3_bound"][0],
+        "bound_ms_cluster_floor_bounce2": split_times["interior_bounce2"]["k3_floor"][0],
+        "walk_work_bounce2": split_times["interior_bounce2"]["work"],
         "texture_stage_ms": it["stage"],
         "texture_stage_ms_cornell_textured": ct["stage"],
     }, {
@@ -2677,6 +2756,7 @@ def main() -> int:
         "bound_by": it["k4_bound"][1],
         "library_ms": None,
         "ms_nee_off": it["k4_nee_off"],
+        "ms_bounce2": split_times["interior_bounce2"]["k4"],
         "ms_cornell_textured": ct["k4"],
         "plain_ms_cornell_textured": ct["k4_twin"],
         "bound_ms_cornell_textured": ct["k4_bound"][0],

@@ -96,17 +96,28 @@
 // hi/lo matrix products. Here each thread walks its own ray down a binary
 // BVH over the entry boxes (the TLAS, ops/bounce.py build_tlas), nearer
 // child first, pruning boxes beyond its best hit; at an entry it tests the
-// fan's cluster boxes and then a surviving cluster's 128 triangles, read
-// as float4 quads from the triangle-major [C * 128, 40] table in global
-// memory (L1 and L2 cache it: the instanced sphere_field's unique clusters
-// are a few hundred KB, its flattened table 47 MB). Instanced entries carry
-// the world->local transform: the ray enters the entry's frame, where t
-// is the same parameter. The winner is selected in f32 with the TPU's
-// pass-1 formulas and recomputed with its pass-2 division form; ties on t
-// go to the lower global triangle index, so the result does not depend on
-// the traversal order. What bounds it: the per-ray serial triangle tests
-// (about 30 flops each, a few hundred to a few thousand a ray) and the
-// divergence of rays of one warp that walk different clusters.
+// fan's cluster boxes and visits the survivors nearest entry first, and in
+// a cluster it walks the cluster's own BVH (ops/bvh.py ClusterBvh: median
+// split, 4 triangles a leaf, at most 6 levels, a stack of 8 nested in the
+// TLAS's), reading each candidate's 64-byte leaf row (its three test quads,
+// lane and pass probabilities) through the read-only cache: the instanced
+// sphere_field's trees are a few hundred KB, the flattened one's about
+// 19 MB beside its 47 MB table, which pass 2 alone reads. Instanced
+// entries carry the world->local transform: the ray enters the entry's
+// frame, where t is the same parameter, and the cluster's tree lives in
+// that frame. The trees' boxes are padded for their own coordinates and
+// grown at run time by 1e-4 of the ray origin's largest coordinate in the
+// frame (tree_walk.cuh padded_origin), which covers the rounding of the
+// tests however far or however scaled the placement. The winner is
+// selected in f32 with the TPU's pass-1 formulas and recomputed with its
+// pass-2 division form; ties on t go to the lower global triangle index,
+// so the result does not depend on the traversal order, and a node is
+// skipped only when no triangle under it can still win: the winner is
+// the brute-force twin's. What bounds it: per ray, the slab tests of the
+// TLAS nodes, entry boxes, cluster boxes and tree nodes it opens (24
+// operations each) and the triangle tests of the leaves it reaches (30
+// each), and the divergence of rays of one warp that walk different
+// clusters.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -1282,13 +1293,20 @@ struct Walk {
   const int* kids;     // [N, 2] children, or (-1 - first, count) for a leaf
   const int* leaf;     // [n_l1] entries in leaf order
   const float* gbox;   // [8] scene box
+  // one tree per cluster of tris, in the cluster's frame (ops/bvh.py ClusterBvh)
+  const float* cnodes;  // [M, 8] padded node boxes
+  const int* ckids;     // [M, 2] children, or (-1 - first row, count) for a leaf
+  const float* crows;   // [m, 16] leaf rows: the CLU_N, CLU_R1, CLU_R2 quads, lane,
+                        // CLU_OPAC, CLU_OPAC_SH, 0
+  const int* croot;     // [C] each cluster's root node
 };
 
 // floats per clustered triangle row: 40, or 56 with the tangent rows
 template <bool TAN>
 __host__ __device__ constexpr int clu_rows() { return TAN ? CLU_ROWS_TAN : 40; }
 
-// safe_inv and the slab test (tree_walk.cuh) serve the TLAS walk too
+// safe_inv and the slab tests (tree_walk.cuh) serve the TLAS walk too
+using gatling::padded_origin;
 using gatling::safe_inv;
 using gatling::slab;
 
@@ -1304,13 +1322,11 @@ __device__ __forceinline__ void to_local(const float* __restrict__ a, const floa
 }
 
 // Pass-1 test of one clustered triangle (pallas_bounce.py :1649-1656, in
-// f32): t from the plane quad, u and v as (r.o + c) + t (r.d).
-__device__ __forceinline__ bool clu_test(const float* __restrict__ tr, const float o[3],
-                                         const float d[3], float tmin, float tcap,
-                                         float& tt) {
-  const float4 q0 = __ldg(reinterpret_cast<const float4*>(tr + CLU_N));
-  const float4 q1 = __ldg(reinterpret_cast<const float4*>(tr + CLU_R1));
-  const float4 q2 = __ldg(reinterpret_cast<const float4*>(tr + CLU_R2));
+// f32) from its plane and barycentric quads: t from the plane quad, u and
+// v as (r.o + c) + t (r.d).
+__device__ __forceinline__ bool clu_test(const float4 q0, const float4 q1, const float4 q2,
+                                         const float o[3], const float d[3], float tmin,
+                                         float tcap, float& tt) {
   const float nd = q0.x * d[0] + q0.y * d[1] + q0.z * d[2];
   const bool ok = fabsf(nd) > C(1e-12);
   const float inv = ok ? 1.0f / nd : 0.0f;
@@ -1323,21 +1339,39 @@ __device__ __forceinline__ bool clu_test(const float* __restrict__ tr, const flo
          (tt < tcap);
 }
 
+constexpr int CLU_STACK = 8;  // a cluster tree's traversal stack (ops/bvh.py CLUSTER_STACK)
+
 // The walk: a stack traversal of the TLAS, nearer child first; at a leaf,
-// each entry's box, then its fan's non-empty cluster boxes, then the
-// cluster's 128 triangles (in the entry's frame when instanced). Boxes are
-// tested in world space over [tmin, run], run being tcap, or the best hit
-// so far for a closest-hit walk. ANY: return true at the first valid
-// triangle. Else: keep the smallest t, ties to the lower global triangle
-// index (fan slot * 128 + lane), in (best, win). CUT: a candidate is valid
-// only if cutout_xi(key, global index) falls below its pass probability:
-// the placement's (instanced) or the triangle row's, the shadow column for
-// ANY.
+// each entry's box, then its fan's non-empty cluster boxes: a closest-hit
+// walk visits the survivors nearest entry first (ties to the lower slot),
+// each while its entry t is not above `run`, an any-hit walk each as it
+// tests it, in stored order (measured faster there: PERF.md); in a
+// cluster, a walk of its tree (in the entry's frame when instanced, the
+// boxes grown at run time by padded_origin) and the cluster test of each
+// row of the leaves it reaches. Boxes are tested over [tmin, run] (the
+// trees' over [tmin less 2^-10 of |tmin|, run]), run being tcap, or the
+// best hit so far for a closest-hit walk. ANY: return true at the first
+// valid triangle. Else: keep the smallest t, ties to the lower global
+// triangle index (fan slot * 128 + lane), in (best, win): the order of
+// the visits does not change the winner, and a node is skipped only when
+// no triangle under it can pass with a t that could still win. CUT: a
+// candidate is valid only if cutout_xi(key, global index) falls below its
+// pass probability: the placement's (instanced) or the triangle row's,
+// the shadow column for ANY.
 template <bool INST, bool ANY, bool TAN, bool CUT>
 __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tmin,
                      float tcap, uint32_t key, float& best, int& win) {
   float iv[3];
   for (int c = 0; c < 3; ++c) iv[c] = safe_inv(d[c]);
+  const float tlo = tmin - fabsf(tmin) * (1.0f / 1024.0f);
+  // the cluster trees' frame: the world's when flattened, else the entry's
+  float ol[3], dl[3], ivl[3], olo[3], ohi[3];
+  for (int c = 0; c < 3; ++c) {
+    ol[c] = o[c];
+    dl[c] = d[c];
+    ivl[c] = iv[c];
+  }
+  if (!INST) padded_origin(o, olo, ohi);
   float run = tcap;
   int stack[STACK];
   float enter[STACK];
@@ -1369,38 +1403,78 @@ __device__ bool walk(const Walk& w, const float o[3], const float d[3], float tm
       const int e = __ldg(w.leaf - 1 - k0 + j);
       float te;
       if (!slab(w.l1 + 8 * e, o, iv, tmin, run, te)) continue;
-      float ol[3], dl[3];
       float pass = 1.0f;
       if (INST) {
         to_local(w.inst + INST_COLS * e, o, d, ol, dl);
+        for (int c = 0; c < 3; ++c) ivl[c] = safe_inv(dl[c]);
+        padded_origin(ol, olo, ohi);
         if (CUT) pass = __ldg(w.inst + INST_COLS * e + (ANY ? INST_PASS_SH : INST_PASS));
-      } else {
-        for (int c = 0; c < 3; ++c) {
-          ol[c] = o[c];
-          dl[c] = d[c];
-        }
       }
-      for (int b = 0; b < L1_FAN; ++b) {
-        const int slot = e * L1_FAN + b;
-        const float* box = w.l2 + 8 * slot;
-        if (__ldg(box) > __ldg(box + 3)) continue;  // empty: pad slot
-        if (!slab(box, o, iv, tmin, run, te)) continue;
-        const float* tr = w.tris + (size_t)__ldg(w.cmap + slot) * CLUSTER_SIZE * clu_rows<TAN>();
-        for (int lane = 0; lane < CLUSTER_SIZE; ++lane) {
-          float tt;
-          const float* row = tr + lane * clu_rows<TAN>();
-          if (!clu_test(row, ol, dl, tmin, tcap, tt)) continue;
-          const int gid = slot * CLUSTER_SIZE + lane;
-          if (!ANY && !(tt < best || (tt == best && gid < win))) continue;
-          if (CUT) {
-            const float prob = INST ? pass : __ldg(row + (ANY ? CLU_OPAC_SH : CLU_OPAC));
-            if (!(cutout_xi(key, (uint32_t)gid) < prob)) continue;
-          }
-          if (ANY) return true;
-          best = tt;
-          win = gid;
+      // a fan slot's cluster: its tree, the cluster test in its leaves
+      auto cluster = [&](int slot) {
+        return gatling::tree_walk_from<CLU_STACK>(
+            w.cnodes, w.ckids, __ldg(w.croot + __ldg(w.cmap + slot)), olo, ohi, ivl, tlo, run,
+            [&](int first, int count, float& run_) {
+              const float4* q = reinterpret_cast<const float4*>(w.crows) + 4 * (size_t)first;
+              for (int r = 0; r < count; ++r, q += 4) {
+                float tt;
+                if (!clu_test(__ldg(q), __ldg(q + 1), __ldg(q + 2), ol, dl, tmin, tcap, tt))
+                  continue;
+                const float4 q3 = __ldg(q + 3);
+                const int gid = slot * CLUSTER_SIZE + (int)q3.x;
+                if (!ANY && !(tt < best || (tt == best && gid < win))) continue;
+                if (CUT) {
+                  const float prob = INST ? pass : (ANY ? q3.z : q3.y);
+                  if (!(cutout_xi(key, (uint32_t)gid) < prob)) continue;
+                }
+                if (ANY) return true;
+                best = tt;
+                win = gid;
+              }
+              if (!ANY) run_ = fminf(tcap, best);
+              return false;
+            });
+      };
+      if constexpr (ANY) {
+        // any hit: the fan in stored order, each box tested as it comes,
+        // since the first occluder ends the walk and `run` never falls
+        for (int b = 0; b < L1_FAN; ++b) {
+          const float* box = w.l2 + 8 * (e * L1_FAN + b);
+          if (__ldg(box) > __ldg(box + 3)) continue;  // empty: pad slot
+          if (slab(box, o, iv, tmin, run, te) && cluster(e * L1_FAN + b)) return true;
         }
-        if (!ANY) run = fminf(tcap, best);
+      } else {
+        // closest hit: the fan's cluster boxes, then the survivors nearest
+        // entry first (ties to the lower slot), while not behind the best
+        float tf[L1_FAN];  // the survivors' entry t, +inf for the rest
+        unsigned mask = 0u;
+#pragma unroll
+        for (int b = 0; b < L1_FAN; ++b) {
+          const float* box = w.l2 + 8 * (e * L1_FAN + b);
+          tf[b] = INFINITY;
+          if (__ldg(box) > __ldg(box + 3)) continue;  // empty: pad slot
+          if (slab(box, o, iv, tmin, run, te)) {
+            mask |= 1u << b;
+            tf[b] = te;
+          }
+        }
+        while (mask) {
+          int b_min = 0;
+          float t_min = INFINITY;
+#pragma unroll
+          for (int b = 0; b < L1_FAN; ++b) {
+            if (tf[b] < t_min) {
+              t_min = tf[b];
+              b_min = b;
+            }
+          }
+          if (t_min > run) break;  // the nearest survivor lies behind the best hit
+#pragma unroll
+          for (int b = 0; b < L1_FAN; ++b)
+            if (b == b_min) tf[b] = INFINITY;
+          mask &= ~(1u << b_min);
+          cluster(e * L1_FAN + b_min);
+        }
       }
     }
   }
@@ -1791,8 +1865,10 @@ int gatling_bounce_step(const float* params, RESIDENT_TABLES, const float* mats,
 #define WALK_TABLES                                                                     \
   const float *tris, const float *l1, const float *l2, const int *cmap, const float *inst, \
       const float *nodes, const int *kids, const int *leaf_entries, const float *gbox,     \
+      const float *cnodes, const int *ckids, const float *crows, const int *croot,         \
       int instanced, int rows
-#define WALK_STRUCT {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox}
+#define WALK_STRUCT \
+  {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox, cnodes, ckids, crows, croot}
 
 #if PART(0)
 // K3 over the walk.

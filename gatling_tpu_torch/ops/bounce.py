@@ -64,6 +64,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     CLU_OPAC_SH,
     CLU_ROW_MAP,
     CLU_ROW_MAP_TAN,
+    CLU_TEST_COLS,
     CLU_TRI_ROWS,
     CLU_TRI_ROWS_TAN,
     CLUSTER_SIZE,
@@ -107,8 +108,11 @@ from gatling_tpu_torch.ops.bounce_ref import (
 from gatling_tpu_torch.ops.bvh import (  # noqa: F401 (TLAS_*: the TLAS builder's, re-exported)
     TLAS_LEAF,
     TLAS_MAX_DEPTH,
+    ClusterBvh,
     TriBvh,
     build_tlas,
+    cluster_bvh,
+    plane_corners,
     tri_bvh,
 )
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
@@ -738,18 +742,24 @@ def refit_instanced(scene: FusedScene, clusters: UniqueClusters, mesh_descs,
     if res is None:
         return None
     a, counts = res
+    w = scene.walk
+    trees = ClusterBvh(w.cnodes, w.ckids, w.crows, w.croot)
     return scene._replace(walk=walk_tables(a.l1, a.l2, a.inst_map, a.inst_attr,
-                                           scene.tris.device, a.inst_smem),
+                                           scene.tris.device, a.inst_smem, trees=trees),
                           cutout=counts["cutout"])
 
 
 def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
                 inst_attr: np.ndarray | None, device,
-                inst_smem: np.ndarray | None = None) -> WalkTables:
+                inst_smem: np.ndarray | None = None, rows: np.ndarray | None = None,
+                trees: ClusterBvh | None = None) -> WalkTables:
     """WalkTables from the JAX layout's l1 [8, n_l1], l2 [8, n_l1 * 16] and,
     when instanced, inst_map [n_l1 * 16], inst_attr [lanes, 24] and the
     pass probabilities of inst_smem [n_l1, 16] (columns 12 and 14; 1 when
-    not given)."""
+    not given). The cluster trees are built from the triangle rows
+    [C * 128, 40 or 56] (`cluster_trees`), or kept from `trees` (a refit:
+    the clusters did not change); with neither they are empty, and the
+    kernels refuse the tables."""
     n_l1 = l1.shape[1]
     l1_rows = np.ascontiguousarray(np.asarray(l1, np.float32).T)
     valid_lo = np.where(l1_rows[:, 0:3] <= 1e30, l1_rows[:, 0:3], FLOAT_MAX)
@@ -773,9 +783,24 @@ def walk_tables(l1: np.ndarray, l2: np.ndarray, inst_map: np.ndarray | None,
     def t(a, dtype=torch.float32):
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
+    if trees is None:
+        trees = (cluster_trees(rows, device) if rows is not None else ClusterBvh(
+            t(np.zeros((0, 8))), t(np.zeros((0, 2)), torch.int32), t(np.zeros((0, 16))),
+            t(np.zeros(0), torch.int32)))
     return WalkTables(l1=t(l1_rows), l2=t(np.asarray(l2, np.float32).T), cmap=t(cmap, torch.int32),
                       inst=t(inst), nodes=t(nodes), kids=t(kids, torch.int32),
-                      leaf_entries=t(leaf_entries, torch.int32), gbox=t(gbox))
+                      leaf_entries=t(leaf_entries, torch.int32), gbox=t(gbox),
+                      cnodes=trees.nodes, ckids=trees.kids, crows=trees.rows, croot=trees.root)
+
+
+def cluster_trees(rows: np.ndarray, device) -> ClusterBvh:
+    """The per-cluster BVHs (ops/bvh.py cluster_bvh) of clustered triangle
+    rows [C * 128, 40 or 56]: over each cluster's lanes that can hit, in
+    the rows' frame (local for the unique clusters of instanced tables),
+    with the CLU_OPAC and CLU_OPAC_SH probabilities in the leaf rows."""
+    rows = np.asarray(rows, np.float32)
+    return cluster_bvh(rows[:, list(CLU_TEST_COLS)], rows[:, [CLU_OPAC, CLU_OPAC_SH]],
+                       CLUSTER_SIZE, device)
 
 
 def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
@@ -800,7 +825,7 @@ def from_jax_tables(tris: np.ndarray, mats: np.ndarray, lights: np.ndarray,
         bvh = resident_bvh(rows, cutout, device)
     else:
         rows = tris.transpose(0, 2, 1).reshape(-1, tris.shape[1])  # [C * 128, 40]
-        walk = walk_tables(l1, l2, inst_map, inst_attr, device, inst_smem)
+        walk = walk_tables(l1, l2, inst_map, inst_attr, device, inst_smem, rows)
 
     def t(a):
         return torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
@@ -820,16 +845,7 @@ def resident_bvh(rows: np.ndarray, cutout: bool, device) -> TriBvh:
     plane normal is 0 never hits (ndotd = 0) and goes into no leaf. The
     leaf rows: TR_N..TR_R2 + 3, the index, the camera and shadow pass
     probabilities (1 without cutout), 0."""
-    q = rows[:, :12].astype(np.float64)
-    a = np.stack([q[:, TR_R1:TR_R1 + 3], q[:, TR_R2:TR_R2 + 3], q[:, TR_N:TR_N + 3]], axis=1)
-    uv = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])  # the corners' u, v
-    b = np.stack([uv[None, :, 0] - q[:, TR_R1 + 3, None], uv[None, :, 1] - q[:, TR_R2 + 3, None],
-                  np.repeat(-q[:, TR_D0, None], 3, axis=1)], axis=1)  # [T, 3 eqs, 3 corners]
-    corners = np.full((rows.shape[0], 3, 3), np.nan)
-    with np.errstate(all="ignore"):
-        solvable = np.isfinite(a).all(axis=(1, 2)) & (np.abs(np.linalg.det(a)) > 0.0)
-    if solvable.any():
-        corners[solvable] = np.linalg.solve(a[solvable], b[solvable]).transpose(0, 2, 1)
+    corners = plane_corners(rows[:, :12])
     leaf = np.zeros((rows.shape[0], 16), np.float32)
     leaf[:, :12] = rows[:, :12]
     leaf[:, 13:15] = 1.0
@@ -904,7 +920,8 @@ class BounceKernel(CudaLibrary):
     """csrc/bounce.cu built with nvcc and loaded with ctypes (ops/cuda_lib.py)."""
 
     def __init__(self) -> None:
-        walk = [PTR] * 9 + [I32]  # tris l1 l2 cmap inst nodes kids leaf gbox, instanced
+        # tris, the WalkTables fields (ops/bounce_ref.py), instanced
+        walk = [PTR] * (1 + len(WalkTables._fields)) + [I32]
         shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
         flags = [I32, I32, I32]  # advanced, cutout, the volume mode
         hit = [PTR, PTR, I32, I32, I32, I32, I32]  # hit, parbuf, 4 parameter rows, hit tangents
@@ -974,8 +991,8 @@ class BounceKernel(CudaLibrary):
     @staticmethod
     def _walk_args(tris, walk: WalkTables):
         for name, t in zip(WalkTables._fields, walk):
-            _check_bounce(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries")
-                   else torch.float32)
+            _check_bounce(name, t, torch.int32 if name in ("cmap", "kids", "leaf_entries", "ckids",
+                                                           "croot") else torch.float32)
         _check_bounce("tris", tris, torch.float32)
         n_l1 = walk.l1.shape[0]
         if tris.dim() != 2 or tris.shape[1] not in (CLU_TRI_ROWS, CLU_TRI_ROWS_TAN) \
@@ -984,6 +1001,11 @@ class BounceKernel(CudaLibrary):
                 or walk.inst.shape[1] != INST_COLS \
                 or walk.gbox.numel() != 8 or walk.leaf_entries.numel() != n_l1:
             raise ValueError("bounce kernel: walk table shape mismatch")
+        if walk.croot.numel() != tris.shape[0] // CLUSTER_SIZE or walk.cnodes.dim() != 2 \
+                or walk.cnodes.shape[1] != 8 or walk.ckids.shape != (walk.cnodes.shape[0], 2) \
+                or walk.crows.dim() != 2 or walk.crows.shape[1] != 16:
+            raise ValueError("bounce kernel: the walk tables need a tree per cluster "
+                             "(ops/bounce.py walk_tables with the triangle rows)")
         return (tris.data_ptr(), *(t.data_ptr() for t in walk), int(walk.instanced),
                 tris.shape[1])
 
@@ -1112,20 +1134,16 @@ def _bounce_cpu(params, tris, bvh, mats, lights, light_types, state, nee: bool,
                advanced=advanced, cutout=cutout, volumes=volumes)
 
 
-def _walk_cuda(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-               leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool,
-               volumes: int) -> None:
-    walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
-    kernel().launch_walk(params, tris, mats, lights, light_types, walk, state, nee, advanced,
-                         cutout, volumes)
+def _walk_cuda(params, tris, mats, lights, light_types, walk, state, nee: bool,
+               advanced: bool, cutout: bool, volumes: int) -> None:
+    kernel().launch_walk(params, tris, mats, lights, light_types, _walk(walk), state, nee,
+                         advanced, cutout, volumes)
     launches["K2"] += 1
 
 
-def _walk_cpu(params, tris, mats, lights, light_types, l1, l2, cmap, inst, nodes, kids,
-              leaf_entries, gbox, state, nee: bool, advanced: bool, cutout: bool,
-              volumes: int) -> None:
-    walk = WalkTables(l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox)
-    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, walk,
+def _walk_cpu(params, tris, mats, lights, light_types, walk, state, nee: bool,
+              advanced: bool, cutout: bool, volumes: int) -> None:
+    bounce_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, nee, _walk(walk),
                advanced, cutout, volumes)
 
 
@@ -1161,9 +1179,8 @@ _lib.define("bounce_step(Tensor params, Tensor tris, Tensor[] bvh, Tensor mats, 
 _lib.impl("bounce_step", _bounce_cuda, "CUDA")
 _lib.impl("bounce_step", _bounce_cpu, "CPU")
 _lib.define("bounce_step_walk(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
-            "Tensor light_types, Tensor l1, Tensor l2, Tensor cmap, Tensor inst, "
-            "Tensor nodes, Tensor kids, Tensor leaf_entries, Tensor gbox, Tensor(a!) state, "
-            "bool nee, bool advanced, bool cutout, int volumes) -> ()")
+            "Tensor light_types, Tensor[] walk, Tensor(a!) state, bool nee, bool advanced, "
+            "bool cutout, int volumes) -> ()")
 _lib.impl("bounce_step_walk", _walk_cuda, "CUDA")
 _lib.impl("bounce_step_walk", _walk_cpu, "CPU")
 _lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk, "
@@ -1207,7 +1224,8 @@ def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
                                       scene.lights, scene.light_types, state, *flags)
     else:
         torch.ops.gatling.bounce_step_walk(params, scene.tris, scene.mats, scene.lights,
-                                           scene.light_types, *scene.walk, state, *flags)
+                                           scene.light_types, list(scene.walk), state,
+                                           *flags)
 
 
 def trace_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor) -> torch.Tensor:

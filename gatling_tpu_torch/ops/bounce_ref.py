@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX, f32
-from gatling_tpu_torch.ops.bvh import TriBvh, index_col
+from gatling_tpu_torch.ops.bvh import BOX_PAD, CLUSTER_STACK, TriBvh, index_col
 from gatling_tpu_torch.ops.sampling import (
     _M32,
     _mul32,
@@ -136,8 +136,8 @@ CLU_ROW_MAP = (  # (TR_* column, CLU_* column)
 )
 CLU_ROW_MAP_TAN = CLU_ROW_MAP + tuple((TR_T0 + i, CLU_T0 + i) for i in range(12))
 # the pass-1 test columns: the three quads
-_CLU_TEST_COLS = (CLU_N, CLU_N + 1, CLU_N + 2, CLU_N + 3, CLU_R1, CLU_R1 + 1, CLU_R1 + 2,
-                  CLU_R1 + 3, CLU_R2, CLU_R2 + 1, CLU_R2 + 2, CLU_R2 + 3)
+CLU_TEST_COLS = (CLU_N, CLU_N + 1, CLU_N + 2, CLU_N + 3, CLU_R1, CLU_R1 + 1, CLU_R1 + 2,
+                 CLU_R1 + 3, CLU_R2, CLU_R2 + 1, CLU_R2 + 2, CLU_R2 + 3)
 
 # per-entry instance rows (the first 16 columns of the JAX inst_attr)
 INST_A3 = 0    # 0-8: world->local A3[j, i] at 3j+i
@@ -152,12 +152,17 @@ INST_COLS = 20     # padded to a float4 multiple
 
 
 class WalkTables(NamedTuple):
-    """Tables of the two-level walk (K2). Boxes are rows (lo xyz, hi xyz,
-    0, 0); an empty box has lo > hi and holds no triangle.
+    """Tables of the two-level walk (K2, and K3 and K4 over clustered
+    tables). Boxes are rows (lo xyz, hi xyz, 0, 0); an empty box has lo >
+    hi and holds no triangle.
 
     The TLAS is a binary BVH over the level-1 entry boxes: node k is
     internal when kids[k, 0] >= 0 (children kids[k]) and a leaf otherwise,
-    holding entries leaf_entries[-1 - kids[k, 0]:][:kids[k, 1]]."""
+    holding entries leaf_entries[-1 - kids[k, 0]:][:kids[k, 1]]. Below it
+    each cluster of tris has a BVH of its own (ops/bvh.py ClusterBvh, in
+    the cluster's frame: local when instanced): c* are that forest's
+    nodes, kids, leaf rows and per-cluster roots. The twin's brute-force
+    walks ignore them; `cluster_work` walks them as the kernels do."""
 
     l1: torch.Tensor            # [n_l1, 8] f32 entry world boxes
     l2: torch.Tensor            # [n_l1 * 16, 8] f32 fan-slot cluster world boxes
@@ -167,6 +172,10 @@ class WalkTables(NamedTuple):
     kids: torch.Tensor          # [N, 2] int32
     leaf_entries: torch.Tensor  # [n_l1] int32
     gbox: torch.Tensor          # [8] f32 scene box
+    cnodes: torch.Tensor        # [M, 8] f32 cluster-tree node boxes
+    ckids: torch.Tensor         # [M, 2] int32
+    crows: torch.Tensor         # [m, 16] f32 cluster-tree leaf rows
+    croot: torch.Tensor         # [C] int32 each cluster's root node
 
     @property
     def instanced(self) -> bool:
@@ -329,8 +338,16 @@ def _slab(box: torch.Tensor, o, iv, tmin, tcap) -> torch.Tensor:
 
 def _slab_t(box: torch.Tensor, o, iv, tmin, tcap):
     """_slab and the clipped entry distance (the kernels' slab)."""
-    t0 = (box[..., 0:3] - o) * iv
-    t1 = (box[..., 3:6] - o) * iv
+    return slab_padded(box, o, o, iv, tmin, tcap)
+
+
+def slab_padded(box: torch.Tensor, olo, ohi, iv, tmin, tcap):
+    """The slab test of boxes [..., 8], the low faces against origins olo
+    and the high ones against ohi (the kernels' slab_padded: with the
+    origins of padded_origin, the box grown by its padding; with olo = ohi
+    = o, the plain test). Returns (hit, clipped entry t)."""
+    t0 = (box[..., 0:3] - olo) * iv
+    t1 = (box[..., 3:6] - ohi) * iv
     tn = torch.minimum(t0, t1)
     tx = torch.maximum(t0, t1)
     tenter = torch.maximum(torch.maximum(tn[..., 0], tn[..., 1]), torch.maximum(tn[..., 2], tmin))
@@ -354,7 +371,7 @@ def _to_local(a: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
 
 def _test_rows(tris: torch.Tensor) -> torch.Tensor:
     """[C * 128, 40 or 56] clustered tris -> [C, 128, 12] pass-1 quads."""
-    cols = torch.tensor(_CLU_TEST_COLS, device=tris.device)
+    cols = torch.tensor(CLU_TEST_COLS, device=tris.device)
     return tris.reshape(-1, CLUSTER_SIZE, tris.shape[1]).index_select(2, cols)
 
 
@@ -373,6 +390,23 @@ def _candidates(walk: WalkTables, o, iv, rays, e0: int, e1: int, tmin, tcap):
     return ray[qi], slot[qi, qb], ent[qi]
 
 
+def _clu_test(q, o, d, tmin, tcap):
+    """Pass-1 Baldwin-Weber test (pallas_bounce.py :1649-1656, in f32; the
+    kernels' clu_test) of the 12 test columns q (CLU_N, CLU_R1, CLU_R2
+    quads) against rays o, d [..., 3] over (tmin, tcap), broadcast: t from
+    the plane quad, u and v as (r.o + c) + t (r.d). Returns tt, ok."""
+    ox, oy, oz = o.unbind(-1)
+    dx, dy, dz = d.unbind(-1)
+    nd = q[0] * dx + q[1] * dy + q[2] * dz
+    ok = torch.abs(nd) > 1e-12
+    inv = _where(ok, 1.0 / _where(ok, nd, 1.0), 0.0)
+    tt = -(q[0] * ox + q[1] * oy + q[2] * oz + q[3]) * inv
+    u = (q[4] * ox + q[5] * oy + q[6] * oz + q[7]) + tt * (q[4] * dx + q[5] * dy + q[6] * dz)
+    v = (q[8] * ox + q[9] * oy + q[10] * oz + q[11]) + tt * (q[8] * dx + q[9] * dy + q[10] * dz)
+    ok = ok & (u >= _EPS_LO) & (v >= _EPS_LO) & (u + v <= _EPS_HI) & (tt > tmin) & (tt < tcap)
+    return tt, ok
+
+
 def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap, cut=None):
     """Pass-1 Baldwin-Weber test (pallas_bounce.py :1649-1656, in f32) of
     each (ray, cluster) pair against the cluster's 128 triangles; returns
@@ -385,16 +419,7 @@ def _pair_test(walk: WalkTables, rows, o, d, ray, slot, ent, tmin, tcap, cut=Non
     po, pd = o[ray], d[ray]
     if walk.instanced:
         po, pd = _to_local(walk.inst[ent], po, pd)
-    ox, oy, oz = (x[:, None] for x in po.unbind(-1))
-    dx, dy, dz = (x[:, None] for x in pd.unbind(-1))
-    nd = q[0] * dx + q[1] * dy + q[2] * dz
-    ok = torch.abs(nd) > 1e-12
-    inv = _where(ok, 1.0 / _where(ok, nd, 1.0), 0.0)
-    tt = -(q[0] * ox + q[1] * oy + q[2] * oz + q[3]) * inv
-    u = (q[4] * ox + q[5] * oy + q[6] * oz + q[7]) + tt * (q[4] * dx + q[5] * dy + q[6] * dz)
-    v = (q[8] * ox + q[9] * oy + q[10] * oz + q[11]) + tt * (q[8] * dx + q[9] * dy + q[10] * dz)
-    ok = (ok & (u >= _EPS_LO) & (v >= _EPS_LO) & (u + v <= _EPS_HI)
-          & (tt > tmin[ray][:, None]) & (tt < tcap[ray][:, None]))
+    tt, ok = _clu_test(q, po[:, None], pd[:, None], tmin[ray][:, None], tcap[ray][:, None])
     if cut is not None:
         tris, key, shadow = cut
         gid = slot[:, None] * CLUSTER_SIZE + torch.arange(CLUSTER_SIZE, device=slot.device)
@@ -500,7 +525,7 @@ def walk_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.T
 # the per-ray BVH walks of K1, K3 and K4 (resident), K5 and K6: their work
 # ---------------------------------------------------------------------------
 
-TREE_STACK = 64  # the kernels' traversal stack (csrc/tree_walk.cuh)
+TREE_STACK = 64  # the kernels' traversal stacks (csrc/tree_walk.cuh; K2's TLAS, bounce.cu STACK)
 
 
 def bvh_walk(bvh: TriBvh, o: torch.Tensor, d: torch.Tensor, live: torch.Tensor,
@@ -607,6 +632,220 @@ def resident_work(bvh: TriBvh, o: torch.Tensor, d: torch.Tensor, alive: torch.Te
         return tt, u, v, ok
 
     return bvh_walk(bvh, o, d, alive, lo, cap, test, any_hit=shadow)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' two-level walk with its per-cluster trees: its work
+# ---------------------------------------------------------------------------
+
+def padded_origin(o: torch.Tensor):
+    """The origins the cluster-tree slab tests use, o + p and o - p with
+    p = BOX_PAD x the largest |coordinate| of o [..., 3], in f32: the
+    trees' boxes grow by p at run time (csrc/bounce.cu walk), which covers
+    the rounding of the cluster test and of the slab test, both a few ulps
+    of the origin's coordinates in the cluster's frame."""
+    a = o.abs()
+    p = torch.maximum(torch.maximum(a[..., 0], a[..., 1]), a[..., 2]) * BOX_PAD
+    return o + p[..., None], o - p[..., None]
+
+
+# the walk's states: a TLAS node to pop, a TLAS leaf's next entry, the
+# fan's next cluster, a cluster tree's node to pop, done
+_TLAS, _ENTRY, _FAN, _TREE, _DONE = range(5)
+
+
+def cluster_work(walk: WalkTables, o: torch.Tensor, d: torch.Tensor, alive: torch.Tensor,
+                 tmin: float, key: torch.Tensor | None = None,
+                 dist: torch.Tensor | None = None):
+    """The kernels' two-level walk (csrc/bounce.cu walk) of the alive rays
+    o, d [R, 3], step for step in plain torch: the closest hit beyond tmin
+    below the scene cap or, with `dist` ([R]), the NEE shadow rays'
+    any-hit search in (SHADOW_TMIN, dist); with a cutout `key` ([R]
+    uint32 words, the salted ones for shadow rays) a candidate whose draw
+    fails is not a hit. Each ray walks the TLAS nearer child first; at an
+    entry it enters the placement's frame and slab-tests the fan's
+    non-empty cluster boxes: a closest-hit walk visits the survivors
+    nearest entry first (ties to the lower slot), each while its entry t
+    is not above the best t, an any-hit walk each survivor in stored
+    order as it tests its box; in a cluster it walks the cluster's tree
+    (as bvh_walk walks a TriBvh, with the run-time padding of
+    padded_origin) and runs the cluster test on each row of the leaves it
+    reaches, the smallest t winning with ties to the lower global index
+    (slot * 128 + lane), or, any-hit, the first valid one ending the
+    walk. Returns (t, win, tlas, boxes, tree, tests),
+    each [R]: the winner's pass-1 t (FLOAT_MAX for none) and global index
+    (-1 for none; any-hit: the occluder's), the TLAS node and entry box
+    slab tests, the cluster-box slab tests, the cluster-tree slab tests and
+    the cluster tests the walk made: its work, whatever the card's
+    timing. The tests hold its winner against walk_closest's and its flag
+    against walk_occluded's on every ray."""
+    dev, r = o.device, o.shape[0]
+    shadow = dist is not None
+    iv = _safe_inv(d)
+    lo = torch.full((r,), SHADOW_TMIN if shadow else tmin, dtype=torch.float32, device=dev)
+    cap = dist.to(torch.float32) if shadow else _scene_cap(walk, o, iv)
+    tlo = lo - torch.abs(lo) * (1.0 / 1024.0)
+    run = cap.clone()
+    best = torch.full((r,), _FMAX, dtype=torch.float32, device=dev)
+    win = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    count = {k: torch.zeros((r,), dtype=torch.int64, device=dev)
+             for k in ("tlas", "boxes", "tree", "tests")}
+    tkids, ckids = walk.kids.long(), walk.ckids.long()
+    leaf_entries, croot, cmap = walk.leaf_entries.long(), walk.croot.long(), walk.cmap.long()
+    leaf_max = int(ckids[ckids[:, 0] < 0, 1].max()) if bool((ckids[:, 0] < 0).any()) else 0
+    # the frame the cluster trees are walked in: the world when flattened,
+    # else set at each entry
+    ol, dl, ivl = o.clone(), d.clone(), iv.clone()
+    olo, ohi = padded_origin(o)
+    pass_p = torch.ones((r,), dtype=torch.float32, device=dev)
+    tstack = torch.zeros((r, TREE_STACK), dtype=torch.int64, device=dev)
+    tenter = torch.zeros((r, TREE_STACK), dtype=torch.float32, device=dev)
+    tsp = torch.zeros((r,), dtype=torch.int64, device=dev)
+    cstack = torch.zeros((r, CLUSTER_STACK), dtype=torch.int64, device=dev)
+    center = torch.zeros((r, CLUSTER_STACK), dtype=torch.float32, device=dev)
+    csp = torch.zeros_like(tsp)
+    first, n_in, nxt, ent, slot = (torch.zeros_like(tsp) for _ in range(5))
+    fmask = torch.zeros((r, L1_FAN), dtype=torch.bool, device=dev)
+    ffull = torch.zeros_like(fmask)
+    fnext = torch.zeros_like(tsp)
+    fte = torch.zeros((r, L1_FAN), dtype=torch.float32, device=dev)
+    fan = torch.arange(L1_FAN, device=dev)
+    state = torch.full((r,), _DONE, dtype=torch.int64, device=dev)
+    rays = alive.nonzero()[:, 0]
+    state[rays] = _TLAS
+    tenter[rays, 0] = lo[rays]
+    tsp[rays] = 1
+
+    def push(stack, enter, sp, p, node, t):
+        stack[p, sp[p]] = node
+        enter[p, sp[p]] = t
+        sp[p] += 1
+
+    def popped(stack, enter, sp, phase, up):
+        """The rays in `phase`: those with an empty stack go to `up`; the
+        rest pop a node, and those whose node lies behind the best hit
+        found since the push drop it. Returns (rays, node) of the rest."""
+        a = (state == phase).nonzero()[:, 0]
+        empty = sp[a] == 0
+        state[a[empty]] = up
+        a = a[~empty]
+        sp[a] -= 1
+        node, t = stack[a, sp[a]], enter[a, sp[a]]
+        keep = ~(t > run[a])
+        return a[keep], node[keep]
+
+    def push_kids(stack, enter, sp, a, ha, ta, ca, hb, tb, cb):
+        both, a_first = ha & hb, ta <= tb
+        one = ha | hb
+        push(stack, enter, sp, a[one],
+             _where(both, _where(a_first, cb, ca), _where(ha, ca, cb))[one],
+             _where(both, _where(a_first, tb, ta), _where(ha, ta, tb))[one])
+        push(stack, enter, sp, a[both], _where(a_first, ca, cb)[both],
+             _where(a_first, ta, tb)[both])
+
+    while bool((state != _DONE).any()):
+        # a TLAS node: an inner node's children, nearer first; a leaf's entries
+        a, node = popped(tstack, tenter, tsp, _TLAS, _DONE)
+        k0, k1 = tkids[node, 0], tkids[node, 1]
+        inner = k0 >= 0
+        ai, c0, c1 = a[inner], k0[inner], k1[inner]
+        count["tlas"][ai] += 2
+        ha, ta = _slab_t(walk.nodes[c0], o[ai], iv[ai], lo[ai], run[ai])
+        hb, tb = _slab_t(walk.nodes[c1], o[ai], iv[ai], lo[ai], run[ai])
+        push_kids(tstack, tenter, tsp, ai, ha, ta, c0, hb, tb, c1)
+        al = a[~inner]
+        first[al], n_in[al], nxt[al] = -1 - k0[~inner], k1[~inner], 0
+        state[al] = _ENTRY
+        # a leaf's next entry: its box, the frame, the fan's cluster boxes
+        a = (state == _ENTRY).nonzero()[:, 0]
+        over = nxt[a] >= n_in[a]
+        state[a[over]] = _TLAS
+        a = a[~over]
+        e = leaf_entries[first[a] + nxt[a]]
+        nxt[a] += 1
+        count["tlas"][a] += 1
+        hit = _slab(walk.l1[e], o[a], iv[a], lo[a], run[a])
+        a, e = a[hit], e[hit]
+        if walk.instanced:
+            ol[a], dl[a] = _to_local(walk.inst[e], o[a], d[a])
+            ivl[a] = _safe_inv(dl[a])
+            olo[a], ohi[a] = padded_origin(ol[a])
+            if key is not None:
+                pass_p[a] = walk.inst[e, INST_PASS_SH if shadow else INST_PASS]
+        box = walk.l2[e[:, None] * L1_FAN + fan]
+        full = ~(box[..., 0] > box[..., 3])  # an empty box holds no cluster
+        h, t = _slab_t(box, o[a][:, None], iv[a][:, None], lo[a][:, None], run[a][:, None])
+        fmask[a], fte[a], ffull[a], ent[a], fnext[a] = h & full, t, full, e, 0
+        if not shadow:
+            count["boxes"][a] += full.sum(dim=1)
+        state[a] = _FAN
+        a = (state == _FAN).nonzero()[:, 0]
+        if shadow:
+            # the fan in stored order, each box tested as the walk reaches
+            # it (`run` never falls): the next surviving slot, and the
+            # non-empty boxes up to it
+            after = fan >= fnext[a][:, None]
+            cand = fmask[a] & after
+            go = cand.any(dim=1)
+            b = _where(go, torch.argmax(cand.to(torch.int8), dim=1), L1_FAN - 1)
+            count["boxes"][a] += (ffull[a] & after & (fan <= b[:, None])).sum(dim=1)
+            fnext[a] = b + 1
+        else:
+            # the nearest surviving cluster, while not behind the best hit
+            t = torch.where(fmask[a], fte[a], torch.inf)
+            b = torch.argmin(t, dim=1)  # the first of equal minima: the lower slot
+            tsel = t[torch.arange(a.numel(), device=dev), b]
+            fmask[a, b] = False
+            go = ~(tsel > run[a]) & (tsel < torch.inf)
+            fmask[a[~go]] = False
+        state[a[~go]] = _ENTRY
+        a, b = a[go], b[go]
+        slot[a] = ent[a] * L1_FAN + b
+        cstack[a, 0], center[a, 0], csp[a] = croot[cmap[slot[a]]], tlo[a], 1
+        state[a] = _TREE
+        # a cluster-tree node: an inner node's children, a leaf's rows
+        a, node = popped(cstack, center, csp, _TREE, _FAN)
+        k0, k1 = ckids[node, 0], ckids[node, 1]
+        inner = k0 >= 0
+        ai, c0, c1 = a[inner], k0[inner], k1[inner]
+        count["tree"][ai] += 2
+        ha, ta = slab_padded(walk.cnodes[c0], olo[ai], ohi[ai], ivl[ai], tlo[ai], run[ai])
+        hb, tb = slab_padded(walk.cnodes[c1], olo[ai], ohi[ai], ivl[ai], tlo[ai], run[ai])
+        push_kids(cstack, center, csp, ai, ha, ta, c0, hb, tb, c1)
+        al, row0, n_rows = a[~inner], -1 - k0[~inner], k1[~inner]
+        # a leaf's rows, all at once: the kernels test them in order, and
+        # the winner does not depend on it; an any-hit walk stops at the
+        # first valid one
+        pi, pj = (torch.arange(leaf_max, device=dev) < n_rows[:, None]).nonzero(as_tuple=True)
+        rr = al[pi]
+        q = walk.crows[row0[pi] + pj]
+        tt, ok = _clu_test(q[:, :12].unbind(-1), ol[rr], dl[rr], lo[rr], cap[rr])
+        gid = slot[rr] * CLUSTER_SIZE + q[:, 12].long()
+        if key is not None:
+            prob = pass_p[rr] if walk.instanced else q[:, 14 if shadow else 13]
+            ok = ok & (cutout_xi(key[rr], gid) < prob)
+        if shadow:
+            valid = torch.zeros((al.numel(), leaf_max), dtype=torch.bool, device=dev)
+            valid[pi, pj] = ok
+            found = valid.any(dim=1)
+            first_ok = torch.argmax(valid.to(torch.int8), dim=1)  # the first valid row
+            count["tests"][al] += _where(found, first_ok + 1, n_rows)
+            ids = torch.full((al.numel(), leaf_max), -1, dtype=torch.int64, device=dev)
+            ids[pi, pj] = gid
+            win[al[found]] = ids[found, first_ok[found]]
+            state[al[found]] = _DONE
+        else:
+            count["tests"][al] += n_rows
+            hit_key = _where(ok, (tt.view(torch.int32).to(torch.int64) << 32) | gid, _NO_HIT)
+            leaf_key = torch.full((al.numel(),), _NO_HIT, dtype=torch.int64, device=dev)
+            leaf_key.scatter_reduce_(0, pi, hit_key, "amin")
+            cur = _where(win[al] >= 0, (best[al].view(torch.int32).to(torch.int64) << 32)
+                         | win[al], _NO_HIT)
+            better = leaf_key < cur
+            rw = al[better]
+            best[rw], win[rw] = _key_t(leaf_key[better]), leaf_key[better] & 0xFFFFFFFF
+            run[al] = torch.minimum(cap[al], best[al])
+    return best, win, count["tlas"], count["boxes"], count["tree"], count["tests"]
 
 
 def walk_hit_attrs(walk: WalkTables, tris: torch.Tensor, o: torch.Tensor, d: torch.Tensor,

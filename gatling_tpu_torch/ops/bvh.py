@@ -1,18 +1,22 @@
 """Binary BVHs for the kernels' per-ray walks, built once per scene on the host.
 
-Two walks take one:
+Three walks take one:
 
 * K2's TLAS over the level-1 entry boxes of clustered and instanced
   tables (ops/bounce.py walk_tables), TLAS_LEAF entries a leaf;
+* below it, the triangle walk inside each 128-triangle cluster of those
+  tables (`ClusterBvh`, one forest, TRI_LEAF triangles a leaf), which K2,
+  and K3 and K4 over clustered tables, take;
 * the triangle walks of K1, K3 and K4 over a resident table and of K5
-  over the wavefront's soup (`TriBvh`), TRI_LEAF triangles a leaf (a
-  table of at most ONE_LEAF_MAX is one leaf).
+  and K6 over the wavefront's soup (`TriBvh`), TRI_LEAF triangles a leaf
+  (a table of at most ONE_LEAF_MAX is one leaf).
 
-`build_tlas` makes both: a median split of the box centres along their
-longest extent. A TriBvh keeps a compact copy of each triangle's test
-data in leaf order, with its index in the table, so that a walk reads its
-leaves in order and ties go to the lower index as in the brute-force
-loops.
+`build_tlas` makes them: a median split of the box centres along their
+longest extent (`build_forest` the same, for every cluster at once). A
+TriBvh or ClusterBvh keeps a compact copy of each triangle's test data
+in leaf order, with its index in the table (its lane in the cluster), so
+that a walk reads its leaves in order and ties go to the lower index as
+in the brute-force loops.
 
 What makes a walk equal the brute-force search bit for bit: it runs the
 same test on each candidate, and it skips a node only when no triangle
@@ -21,8 +25,13 @@ slack (the corners at u, v = -SLACK and 1 + 2 SLACK, SLACK ten times the
 tests' 1e-6) and is padded by BOX_PAD times the largest coordinate of the
 scene: the f32 rounding of a hit point, of u and v, and of the walk's
 slab test, each a few ulps of the coordinates (one ulp is 6e-8 of them),
-stay far inside it. The walks prune a node only when its entry t is
-strictly above the best t, so a tie in another leaf is still visited.
+stay far inside it. That rounding also grows with the ray origin's
+coordinates, which a cluster's tree cannot bound (an instanced cluster
+is seen from its placements' frames, the camera may move): its boxes
+are padded for the cluster's own coordinates, and the kernels add
+BOX_PAD times the origin's largest coordinate at run time. The walks
+prune a node only when its entry t is strictly above the best t, so a
+tie in another leaf is still visited.
 """
 
 from __future__ import annotations
@@ -36,6 +45,9 @@ from gatling_tpu_torch.interface import FLOAT_MAX
 
 TLAS_LEAF = 2        # level-1 entries per TLAS leaf
 TLAS_MAX_DEPTH = 48  # the kernels' traversal stacks hold 64 nodes
+# a cluster tree's depth: the kernels' per-cluster stacks hold 8 nodes (a
+# tree of 128 triangles, 4 a leaf, is 6 levels deep)
+CLUSTER_STACK = 8
 # Triangles a leaf of a TriBvh. A leaf reads its rows in one or two cache
 # lines; halving it adds a level (two slab tests, 48 operations) to save
 # about two triangle tests (60 operations in K1, 116 in K5).
@@ -101,18 +113,21 @@ def build_tlas(lo: np.ndarray, hi: np.ndarray, leaf: int = TLAS_LEAF):
     return (np.stack(nodes), np.asarray(kids, np.int32), np.asarray(leaf_entries, np.int32))
 
 
-def tri_boxes(corners: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def tri_boxes(corners: np.ndarray, scale: np.ndarray | None = None
+              ) -> tuple[np.ndarray, np.ndarray]:
     """Padded f32 boxes lo, hi [T, 3] of triangles corners [T, 3, 3]
     (float64 vertices; a row with a non-finite corner gets the box of the
     whole f32 range): the slack-widened triangle, BOX_PAD times the largest
-    finite coordinate around it, rounded outward."""
+    finite coordinate around it (or times `scale` [T], each triangle's
+    own), rounded outward."""
     finite = np.isfinite(corners).all(axis=(1, 2))
     p0, p1, p2 = corners[:, 0], corners[:, 1], corners[:, 2]
     e1, e2 = p1 - p0, p2 - p0
     wide = np.stack([p0 - SLACK * (e1 + e2), p0 + (1 + 2 * SLACK) * e1 - SLACK * e2,
                      p0 - SLACK * e1 + (1 + 2 * SLACK) * e2], axis=1)
-    scale = float(np.abs(corners[finite]).max()) if finite.any() else 0.0
-    pad = BOX_PAD * scale
+    if scale is None:
+        scale = float(np.abs(corners[finite]).max()) if finite.any() else 0.0
+    pad = BOX_PAD * (np.asarray(scale, np.float64)[:, None] if np.ndim(scale) else scale)
     with np.errstate(invalid="ignore"):
         lo = np.where(finite[:, None], wide.min(axis=1) - pad, -FLOAT_MAX)
         hi = np.where(finite[:, None], wide.max(axis=1) + pad, FLOAT_MAX)
@@ -144,6 +159,156 @@ def tri_bvh(corners: np.ndarray, can_hit: np.ndarray, rows: np.ndarray, device) 
         return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     return TriBvh(nodes=t(nodes), kids=t(kids, torch.int32), rows=t(leaf_rows))
+
+
+class ClusterBvh(NamedTuple):
+    """One small BVH per cluster of a clustered triangle table (K2's and
+    K3's bottom level), all in one forest: node k is internal when
+    kids[k, 0] >= 0 (children kids[k]) and a leaf otherwise, over
+    rows[-1 - kids[k, 0]:][:kids[k, 1]]; root[c] is cluster c's root. A
+    cluster's nodes and rows are contiguous. The rows hold each lane's
+    pass-1 test data (the CLU_N, CLU_R1 and CLU_R2 quads), its lane in
+    the cluster as a float and the camera and shadow pass probabilities
+    (CLU_OPAC, CLU_OPAC_SH), then 0: one 64-byte line."""
+
+    nodes: torch.Tensor  # [N, 8] f32 padded boxes, in the cluster's frame
+    kids: torch.Tensor   # [N, 2] int32
+    rows: torch.Tensor   # [n, 16] f32, leaf order
+    root: torch.Tensor   # [C] int32
+
+
+def plane_corners(q: np.ndarray) -> np.ndarray:
+    """The corners [T, 3, 3] (float64) of triangles given by their f32
+    test rows q [T, 12] (n, d0 | r1, c1 | r2, c2: the TR_N..TR_R2 columns,
+    the CLU_N, CLU_R1 and CLU_R2 quads): the points of each plane where
+    the test's u, v are (0, 0), (1, 0) and (0, 1), so that a box holds the
+    triangle the kernels test. NaN where the system is singular."""
+    q = np.asarray(q, np.float64)
+    a = np.stack([q[:, 4:7], q[:, 8:11], q[:, 0:3]], axis=1)
+    uv = np.array([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]])  # the corners' u, v
+    b = np.stack([uv[None, :, 0] - q[:, 7, None], uv[None, :, 1] - q[:, 11, None],
+                  np.repeat(-q[:, 3, None], 3, axis=1)], axis=1)  # [T, 3 eqs, 3 corners]
+    corners = np.full((q.shape[0], 3, 3), np.nan)
+    with np.errstate(all="ignore"):
+        solvable = np.isfinite(a).all(axis=(1, 2)) & (np.abs(np.linalg.det(a)) > 0.0)
+    if solvable.any():
+        corners[solvable] = np.linalg.solve(a[solvable], b[solvable]).transpose(0, 2, 1)
+    return corners
+
+
+def _segment_boxes(lo: np.ndarray, hi: np.ndarray, start: np.ndarray, count: np.ndarray):
+    """min(lo) and max(hi) [m, 3] over the rows start..start + count of
+    lo, hi (every count > 0)."""
+    idx = np.empty(2 * start.size, np.int64)
+    idx[0::2], idx[1::2] = start, start + count
+    pad = np.zeros((1, 3), lo.dtype)
+    return (np.minimum.reduceat(np.concatenate([lo, pad]), idx)[0::2],
+            np.maximum.reduceat(np.concatenate([hi, pad]), idx)[0::2])
+
+
+def build_forest(lo: np.ndarray, hi: np.ndarray, group: np.ndarray, n_groups: int,
+                 leaf: int = TRI_LEAF, max_depth: int = TLAS_MAX_DEPTH):
+    """build_tlas over each group of boxes at once: boxes lo, hi [n, 3]
+    (f32) sorted by their group [n] (0..n_groups - 1), split level by
+    level with build_tlas's median rule, so that each group's tree is the
+    one build_tlas makes of it. Returns nodes [N, 8], kids [N, 2] int32
+    (leaves over leaf_entries), leaf_entries [n] int32 and root
+    [n_groups] int32; an empty group's root is an empty leaf. A group's
+    nodes are contiguous, level by level, and so are its leaf entries."""
+    n = lo.shape[0]
+    cent = (lo.astype(np.float64) + hi.astype(np.float64)) * 0.5
+    perm = np.arange(n)
+    count = np.bincount(group, minlength=n_groups).astype(np.int64)
+    start = np.concatenate([[0], np.cumsum(count)[:-1]]).astype(np.int64)
+    node = np.arange(n_groups, dtype=np.int64)  # nodes numbered as made
+    seg_group = np.arange(n_groups, dtype=np.int64)
+    made = n_groups
+    boxes, links, owner, ids = [], [], [], []
+    depth = 1
+    while start.size:
+        if depth > max_depth:
+            raise ValueError("cluster tree deeper than the kernel's traversal stack")
+        full = count > 0
+        box = np.zeros((start.size, 8), np.float32)
+        box[:, 0:3], box[:, 3:6] = FLOAT_MAX, -FLOAT_MAX
+        if full.any():
+            blo, bhi = _segment_boxes(lo[perm], hi[perm], start[full], count[full])
+            box[full, 0:3], box[full, 3:6] = blo, bhi
+        inner = count > leaf
+        k = int(inner.sum())
+        kid = np.stack([-1 - start, count], axis=1)
+        kid[inner, 0] = made + 2 * np.arange(k)
+        kid[inner, 1] = made + 2 * np.arange(k) + 1
+        boxes.append(box)
+        links.append(kid)
+        owner.append(seg_group)
+        ids.append(node)
+        if not k:
+            break
+        ist, icn = start[inner], count[inner]
+        cmin, cmax = _segment_boxes(cent[perm], cent[perm], ist, icn)
+        ax = np.argmax(cmax - cmin, axis=1)
+        seg = np.repeat(np.arange(k), icn)
+        pos = np.repeat(ist - np.concatenate([[0], np.cumsum(icn)[:-1]]), icn) + np.arange(seg.size)
+        key = cent[perm[pos], ax[seg]]
+        perm[pos] = perm[pos[np.lexsort((key, seg))]]
+        half = icn // 2
+        start = np.stack([ist, ist + half], axis=1).reshape(-1)
+        count = np.stack([half, icn - half], axis=1).reshape(-1)
+        seg_group = np.repeat(seg_group[inner], 2)
+        node = made + np.arange(2 * k)
+        made += 2 * k
+        depth += 1
+    ids_all = np.concatenate(ids)
+    nodes = np.zeros((made, 8), np.float32)
+    kids = np.zeros((made, 2), np.int64)
+    grp = np.zeros(made, np.int64)
+    nodes[ids_all], kids[ids_all], grp[ids_all] = (np.concatenate(boxes), np.concatenate(links),
+                                                   np.concatenate(owner))
+    # renumber: each group's nodes together, in the order they were made
+    order = np.argsort(grp, kind="stable")
+    new_id = np.empty(made, np.int64)
+    new_id[order] = np.arange(made)
+    nodes, kids = nodes[order], kids[order]
+    inner = kids[:, 0] >= 0
+    kids[inner] = new_id[kids[inner]]
+    return (nodes, kids.astype(np.int32), perm.astype(np.int32),
+            new_id[:n_groups].astype(np.int32))
+
+
+def cluster_bvh(test_rows: np.ndarray, opac: np.ndarray, lanes: int, device) -> ClusterBvh:
+    """The ClusterBvh of a clustered table: its lanes' test rows
+    [C * lanes, 12] f32 (the CLU_N, CLU_R1 and CLU_R2 quads) and pass
+    probabilities opac [C * lanes, 2]. A lane whose plane normal is 0
+    (padding) never passes the test and goes into no leaf. Each cluster's
+    boxes are padded by BOX_PAD times the largest coordinate of its own
+    corners, in its own frame; the kernels add BOX_PAD times the largest
+    coordinate of the ray's origin in that frame at run time, so that a
+    placement seen from far away, or scaled far down, keeps its margin
+    (csrc/bounce.cu walk)."""
+    test_rows = np.asarray(test_rows, np.float32)
+    n_clusters = test_rows.shape[0] // lanes
+    keep = np.nonzero((test_rows[:, 0:3] != 0.0).any(axis=1))[0]
+    corners = plane_corners(test_rows[keep])
+    group = keep // lanes
+    finite = np.isfinite(corners).all(axis=(1, 2))
+    size = np.where(finite, np.abs(np.where(finite[:, None, None], corners, 0.0)).max(axis=(1, 2)),
+                    0.0)
+    scale = np.zeros(n_clusters)
+    np.maximum.at(scale, group, size)
+    lo, hi = tri_boxes(corners, scale[group])
+    nodes, kids, entries, root = build_forest(lo, hi, group, n_clusters, TRI_LEAF, CLUSTER_STACK)
+    src = keep[entries]
+    rows = np.zeros((src.size, 16), np.float32)
+    rows[:, 0:12] = test_rows[src]
+    rows[:, 12] = src % lanes
+    rows[:, 13:15] = np.asarray(opac, np.float32)[src]
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return ClusterBvh(nodes=t(nodes), kids=t(kids, torch.int32), rows=t(rows),
+                      root=t(root, torch.int32))
 
 
 def index_col(width: int) -> int:

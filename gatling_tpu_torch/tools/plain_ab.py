@@ -2,6 +2,7 @@
 on one card.
 
     python gatling_tpu_torch/tools/plain_ab.py PARENT CHANGE CHANGE PARENT
+    python gatling_tpu_torch/tools/plain_ab.py --only walk,frames PARENT CHANGE ...
 
 Each argument is the root of a checkout (for example a `git archive` of a
 commit unpacked into a git-ignored directory); each runs in its own
@@ -13,25 +14,31 @@ trace_step, intersect_matrix, occluded_matrix, onehot_product). Run the
 file by its path, not with -m.
 
 Measured, with CUDA events on fresh copies of each wave (chip_smoke.py
-time_ms / event_ms), at bounce 0 unless named:
-* K1 on the Cornell box's first wave (1200x1200 x 2 samples, NEE off and
+time_ms / event_ms), at bounce 0 unless named, in groups (`--only`
+picks some; all by default):
+* resident: K1 on the Cornell box's first wave (1200x1200 x 2 samples, NEE off and
   on) and on glass_coated's (NEE off and on), each at bounces 0, 2 and 4
   (the twin steps the wave, as chip_smoke.py phase 3 does), and on
   cornell_cutout's and cornell_fog's first waves (NEE, gi's tables after
   one frame);
-* K3 on the textured Cornell box's wave (resident tables);
-* K5 on the closest-hit waves of cornell_aovs and interior_aovs (bounces 0
+* resident: K3 on the textured Cornell box's wave (resident tables);
+* wavefront: K5 on the closest-hit waves of cornell_aovs and interior_aovs (bounces 0
   and 2 of the first sample, recorded from a frame) and on the shadow-hop
   waves of cornell_cutout_aovs (bounces 0 and 2), K6 on the NEE shadow
   waves of cornell_aovs and interior_aovs (bounces 0 and 2);
-* P2 in each mode and torch.matmul (TF32 allowed and not) on the probe's
+* probes: P2 in each mode and torch.matmul (TF32 allowed and not) on the probe's
   input: the device time a launch, one call with its host enqueue, and the
   enqueue alone (chip_smoke.py launch_times);
-* K2 on sphere_field's wave (512x512 x 4 samples, instanced and flattened,
-  NEE off and on);
-* warm frames through gi.render (host clock to the image's copy):
-  glass_coated (NEE off and on), cornell, cornell_nee, cornell_aovs,
-  cornell_cutout_aovs and interior_aovs;
+* walk: K2 on sphere_field's wave (512x512 x 4 samples, instanced and
+  flattened, NEE off and on) at bounce 0 and at bounce 2 (the twin steps
+  the wave; then in the coherence order render_pixels_fused gives it),
+  and K3 and K4 (NEE on) on the textured interior's wave (gi's instanced
+  tables) at bounces 0 and 2 likewise; warm frames of sphere_field,
+  sphere_field_nee and the textured interior (NEE);
+* frames: warm frames through gi.render (host clock to the image's
+  copy): glass_coated (NEE off and on), cornell, cornell_nee; with the
+  wavefront group also cornell_aovs, cornell_cutout_aovs and
+  interior_aovs;
 * the ptxas registers, stack and spills of every kernel instance.
 """
 
@@ -56,7 +63,10 @@ def _chip_smoke():
     return cs
 
 
-def time_tree(tree: str) -> None:
+GROUPS = ("resident", "wavefront", "probes", "walk", "frames")
+
+
+def time_tree(tree: str, groups=GROUPS) -> None:
     """Print the kernel and frame times of one checkout."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -94,41 +104,51 @@ def time_tree(tree: str) -> None:
             cs.bounce_twin(p, fs, twin, nee)
             state = twin
 
-    for nee, extra in ((False, ()), (True, (cs.bench_rect_light(),))):
-        fs, cam = cs.scene_tables(cs.CORNELL, extra, device)
-        k1_bounces(f"cornell nee={nee}", fs, cs.wave_state(cam, cs.FULL_RES, cs.FULL_RES, 2, device),
-                   nee)
-    gfs, gcam = cs.scene_tables(cs.GLASS, (), device)
-    gwave = cs.wave_state(gcam, cs.FULL_RES, cs.FULL_RES, 2, device)
-    for nee in (False, True):
-        k1_bounces(f"glass_coated nee={nee}", gfs, gwave, nee)
     tmp = tempfile.TemporaryDirectory(prefix="plain_ab_")
     res, spp, bnc = cs.LOBES_RES, cs.LOBES_SPP, cs.LOBES_BOUNCES
-    for label, params in (
-            ("cornell_cutout nee=True", cs.cornell_cutout_params(device)),
-            ("cornell_fog nee=True", cs.media_params(
-                device, load_scene(ex.cornell_fog(tmp.name)), res, spp, bnc, 1))):
-        cs.counted_render(params, label)
-        k1(label, params.scene._fused, cs.wave_state(params.camera, res, res, 2, device), True)
+    if "resident" in groups:
+        for nee, extra in ((False, ()), (True, (cs.bench_rect_light(),))):
+            fs, cam = cs.scene_tables(cs.CORNELL, extra, device)
+            k1_bounces(f"cornell nee={nee}", fs,
+                       cs.wave_state(cam, cs.FULL_RES, cs.FULL_RES, 2, device), nee)
+        gfs, gcam = cs.scene_tables(cs.GLASS, (), device)
+        gwave = cs.wave_state(gcam, cs.FULL_RES, cs.FULL_RES, 2, device)
+        for nee in (False, True):
+            k1_bounces(f"glass_coated nee={nee}", gfs, gwave, nee)
+        for label, params in (
+                ("cornell_cutout nee=True", cs.cornell_cutout_params(device)),
+                ("cornell_fog nee=True", cs.media_params(
+                    device, load_scene(ex.cornell_fog(tmp.name)), res, spp, bnc, 1))):
+            cs.counted_render(params, label)
+            k1(label, params.scene._fused, cs.wave_state(params.camera, res, res, 2, device), True)
 
-    checker = cs.write_textures(tmp.name)["checker"]
-    cparams = cs.cornell_params(device, dict(spp=16, maxBounces=8))
-    cs.texture_every_material(cparams.scene.materials, "diffuseColor", checker)
-    cs.counted_render(cparams, "cornell_textured")
-    cwave = cs.wave_state(cparams.camera, cs.FULL_RES, cs.FULL_RES, 2, device)
-    out["K3 cornell_textured"] = cs.time_ms(
-        lambda s: tb.trace_step(p0, cparams.scene._fused, s), cwave, reps=15)
+        checker = cs.write_textures(tmp.name)["checker"]
+        cparams = cs.cornell_params(device, dict(spp=16, maxBounces=8))
+        cs.texture_every_material(cparams.scene.materials, "diffuseColor", checker)
+        cs.counted_render(cparams, "cornell_textured")
+        cwave = cs.wave_state(cparams.camera, cs.FULL_RES, cs.FULL_RES, 2, device)
+        out["K3 cornell_textured"] = cs.time_ms(
+            lambda s: tb.trace_step(p0, cparams.scene._fused, s), cwave, reps=15)
 
     frames, waves = {}, {}
+    if "walk" in groups:
+        time_walk(cs, device, tmp.name, out, frames)
     settings = dict(spp=16, maxBounces=8)
-    for label, params, n in (
-            ("glass_coated nee=False", cs.glass_coated_params(device, False), 3),
-            ("glass_coated nee=True", cs.glass_coated_params(device, True), 3),
-            ("cornell", cs.cornell_params(device, settings), 3),
-            ("cornell_nee", cs.cornell_params(device, dict(settings, nextEventEstimation=True),
-                                              [cs.bench_rect_light()]), 3),
-            ("cornell_aovs", cs.cornell_aovs_params(device), 1),
-            ("cornell_cutout_aovs", cs.cornell_cutout_params(device, every_aov=True), 1)):
+    wavefront = "wavefront" in groups
+    cases = []
+    if "frames" in groups:
+        cases += [
+            ("glass_coated nee=False", lambda: cs.glass_coated_params(device, False), 3),
+            ("glass_coated nee=True", lambda: cs.glass_coated_params(device, True), 3),
+            ("cornell", lambda: cs.cornell_params(device, settings), 3),
+            ("cornell_nee", lambda: cs.cornell_params(
+                device, dict(settings, nextEventEstimation=True), [cs.bench_rect_light()]), 3)]
+    if wavefront:
+        cases += [("cornell_aovs", lambda: cs.cornell_aovs_params(device), 1),
+                  ("cornell_cutout_aovs",
+                   lambda: cs.cornell_cutout_params(device, every_aov=True), 1)]
+    for label, make, n in cases:
+        params = make()
         cs.counted_render(params, label + " (first frame)")
         for i in range(n):
             params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
@@ -138,12 +158,13 @@ def time_tree(tree: str) -> None:
         if label == "cornell_cutout_aovs":
             waves["cornell_cutout_aovs hops"] = ({"closest": cs.record_hop_waves(params)},
                                                  params.scene._accel)
-    iparams = cs.interior_aovs_params(device, tmp.name)
-    cs.counted_render(iparams, "interior_aovs (first frame)")
-    for i in range(3):
-        iparams.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
-        frames[f"interior_aovs warm {i + 1}"] = cs.counted_render(iparams, "interior_aovs")[1]
-    waves["interior_aovs"] = (cs.record_waves(iparams), iparams.scene._accel)
+    if wavefront:
+        iparams = cs.interior_aovs_params(device, tmp.name)
+        cs.counted_render(iparams, "interior_aovs (first frame)")
+        for i in range(3):
+            iparams.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"interior_aovs warm {i + 1}"] = cs.counted_render(iparams, "interior_aovs")[1]
+        waves["interior_aovs"] = (cs.record_waves(iparams), iparams.scene._accel)
     for label, (recorded, accel) in waves.items():
         for kind, key, fn in (("closest", "K5", tt.intersect_matrix),
                               ("occluded", "K6", tt.occluded_matrix)):
@@ -154,6 +175,8 @@ def time_tree(tree: str) -> None:
     calls = {f"P2 {name}": (lambda m=mode: pp.onehot_product(oh, x, m))
              for name, mode in pp.MODES}
     calls["torch.matmul"] = lambda: torch.matmul(oh, x)
+    if "probes" not in groups:
+        calls = {}
     for label, fn in calls.items():
         for allow in ((True, False) if label == "torch.matmul" else (False,)):
             torch.backends.cuda.matmul.allow_tf32 = allow
@@ -164,12 +187,6 @@ def time_tree(tree: str) -> None:
             out[f"{name} enqueue alone"] = t["enqueue_us"] / 1e3
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    desc, _m, _t, inst, flat = cs.sphere_field_setup(device)
-    wave = cs.wave_state(desc.first_camera(), cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
-    for label, fs in (("instanced", inst), ("flattened", flat)):
-        for nee in (False, True):
-            out[f"K2 {label} nee={nee}"] = cs.time_ms(lambda s: tb.bounce_step(p0, fs, s, nee),
-                                                      wave, reps=15)
     for lib in libs:
         for line in cs.ptxas_summary(lib.ptxas_log):
             print(f"{tree}: ptxas {lib.path.name}: {line}")
@@ -180,16 +197,82 @@ def time_tree(tree: str) -> None:
     tmp.cleanup()
 
 
+def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
+    """The walk group: K2 on sphere_field's waves, K3 and K4 on the
+    textured interior's, at bounces 0 and 2, and their warm frames."""
+    import torch
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import shade_ref, trace_ref
+    from gatling_tpu_torch.render.fused import coherence_keys, material_rows
+
+    def coherent(state, fs):  # render_pixels_fused's order after a bounce
+        box = fs.walk.l1
+        lo = box[:, 0:3].min(dim=0).values
+        inv = 1.0 / torch.clamp(box[:, 3:6].max(dim=0).values - lo, min=1e-12)
+        return state[:, torch.argsort(coherence_keys(state, lo, inv), stable=True)]
+
+    sf = cs.sphere_field_setup(device)
+    desc, _m, _t, inst, flat = sf
+    wave = cs.wave_state(desc.first_camera(), cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
+    for label, fs in (("instanced", inst), ("flattened", flat)):
+        for nee in (False, True):
+            state = wave
+            for b in range(3):
+                p = cs.params_row(b, device)
+                if b in (0, 2):
+                    out[f"K2 {label} nee={nee} bounce {b}"] = cs.time_ms(
+                        lambda s: tb.bounce_step(p, fs, s, nee), state, reps=15)
+                state = state.clone()
+                cs.bounce_twin(p, fs, state, nee)
+                state = coherent(state, fs)
+    for nee in (False, True):
+        params = cs.sphere_field_params(device, sf, nee)
+        cs.counted_render(params, f"sphere_field nee={nee} (first frame)")
+        for i in range(3):
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"sphere_field nee={nee} warm {i + 1}"] = cs.counted_render(
+                params, f"sphere_field nee={nee}")[1]
+
+    params = cs.interior_params(device, tmp)
+    cs.counted_render(params, "interior_nee_textured (first frame)")
+    for i in range(3):
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        frames[f"interior_nee_textured warm {i + 1}"] = cs.counted_render(
+            params, "interior_nee_textured")[1]
+    fs, static, mats, pool, active = cs.split_tables(params)
+    prow = tb.par_row_starts(active)
+    state = cs.wave_state(params.camera, cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
+    for b in range(3):
+        p = cs.params_row(b, device)
+        hit = trace_ref(p, fs.tris, state, fs.walk)
+        parbuf, hit_n = material_rows(mats, pool, hit, active)
+        if b in (0, 2):
+            out[f"K3 interior bounce {b}"] = cs.time_ms(lambda s: tb.trace_step(p, fs, s), state,
+                                                        reps=15)
+            out[f"K4 interior nee=True bounce {b}"] = cs.time_ms(
+                lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, True), state, reps=15)
+        state = state.clone()
+        shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, state, hit_n, parbuf, prow,
+                  True, fs.walk)
+        state = coherent(state, fs)
+
+
 def main(argv: list[str]) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        time_tree(os.path.abspath(argv[1]))
+    if len(argv) >= 2 and argv[0] == "--one":
+        time_tree(os.path.abspath(argv[1]), tuple(argv[2].split(",")) if len(argv) > 2
+                  else GROUPS)
         return 0
+    groups = []
+    if len(argv) >= 2 and argv[0] == "--only":
+        groups, argv = [argv[1]], argv[2:]
     if not argv:
         raise SystemExit(__doc__)
     rc = 0
     for tree in argv:
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                             timeout=900).returncode
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree,
+                              *groups], timeout=900).returncode
     return rc
 
 

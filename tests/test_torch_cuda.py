@@ -2,7 +2,8 @@
 and K4 the split trace and shade, with their lobe, cutout and volume
 branches, K5-K8 the wavefront's trace, P1/P2 the probes) against their
 plain twins; K1's, K5's and K6's BVH walks also on tests/test_torch_bvh.py's
-adversarial rays.
+adversarial rays, and K2's, K3's and K4's per-cluster trees on
+tests/test_torch_cluster_bvh.py's adversarial placements.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -611,6 +612,71 @@ def test_adversarial_resident_walk(cuda, cutout, nee):
         assert close.mean() >= MIN_AGREE, (tmin, int((~close).sum()))
         rows = [H_HIT, H_T, H_MAT]
         assert torch.equal(hit_k[rows].view(torch.int32), hit_t[rows].view(torch.int32)), tmin
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("cutout", [False, True])
+@pytest.mark.parametrize("nee", [False, True])
+def test_adversarial_cluster_walk(cuda, cutout, nee):
+    """K2, K3 and K4 walk each cluster's tree: on the adversarial soup's
+    three placements (as built, scaled by 1e-3 seen from about 7e5 of its
+    units away, scaled by 1e3; test_torch_cluster_bvh._placed_rays),
+    grouped by tmin, K2's rows 12-15 (the NEE shadow flags included) and
+    K3's H_HIT, H_T and H_MAT are bit-equal to the brute-force twins' on
+    every ray, K2's rows 0-11 within rtol/atol on 99.9 %; and K4 (its NEE
+    shadow ray through the any-hit walk) from the twin's hit buffer
+    equals the twin's shade likewise."""
+    from test_torch_cluster_bvh import _placed_rays, _placements, _soup_mesh, _with_cutout
+
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, H_T, shade_ref, trace_ref
+    from gatling_tpu_torch.scene.stage import MeshDesc
+
+    mesh = MeshDesc(path="/soup", mesh=_soup_mesh(), transform=np.eye(4), material=None,
+                    double_sided=True, object_id=0, instance_transforms=_placements())
+    table = build_material_table([lower_material(None)])
+    light = _rect_light()
+    light.transform[3, :3] = [0.0, 2.0, 0.0]
+    fs, static = tb.build_fused_scene_instanced([mesh], {None: 0}, table,
+                                                build_light_arrays([light]), cuda,
+                                                min_gain=1.5, min_flat=0)
+    if cutout:
+        fs = _with_cutout(fs)
+    parbuf = torch.zeros((8, 1), device=cuda)
+    for k, (o, d, lo) in enumerate(_placed_rays()):
+        o, d, lo = o.to(cuda), d.to(cuda), lo.to(cuda)
+        for tmin in sorted(set(lo.tolist())):
+            sel = lo == tmin
+            n = int(sel.sum())
+            state = tb.pack_state(o[sel].contiguous(), d[sel].contiguous(),
+                                  smp.rng_init(torch.arange(n, device=cuda), 5), n)
+            p = torch.tensor([0.0, 0.0, 0.0, 0.95, 3.0, 0.0, 1.0, tmin, 1.0, 1.0, 7.0],
+                             dtype=torch.float32, device=cuda)
+            twin = state.clone()
+            tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, nee,
+                          fs.walk, cutout=cutout)
+            kern = state.clone()
+            tb.bounce_step(p, fs, kern, nee)
+            hit_k = tb.trace_step(p, fs, state)
+            torch.cuda.synchronize()
+            hit_t = trace_ref(p, fs.tris, state, fs.walk, cutout)
+            kt, tt_ = kern.cpu().numpy(), twin.cpu().numpy()
+            np.testing.assert_array_equal(kt[12:].view(np.int32), tt_[12:].view(np.int32))
+            close = np.isclose(kt[:12], tt_[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+            assert close.mean() >= MIN_AGREE, (k, tmin, int((~close).sum()))
+            rows = [H_HIT, H_T, H_MAT]
+            assert torch.equal(hit_k[rows].view(torch.int32), hit_t[rows].view(torch.int32)), \
+                (k, tmin)
+            shaded = state.clone()
+            tb.shade_step(p, fs, shaded, hit_t, parbuf.expand(8, n).contiguous(), (), nee)
+            torch.cuda.synchronize()
+            want = state.clone()
+            shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, want, hit_t,
+                      parbuf.expand(8, n).contiguous(), tb.par_row_starts(()), nee, fs.walk,
+                      cutout=cutout)
+            ks, ws = shaded.cpu().numpy(), want.cpu().numpy()
+            np.testing.assert_array_equal(ks[12:].view(np.int32), ws[12:].view(np.int32))
+            close = np.isclose(ks[:12], ws[:12], rtol=RTOL, atol=ATOL).all(axis=0)
+            assert close.mean() >= MIN_AGREE, (k, tmin, int((~close).sum()))
 
 
 @pytest.mark.requires_cuda
