@@ -8,8 +8,9 @@ fails, with a non-zero exit, if any phase fails:
 
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
-   K3 (split trace) and K4 (split shade) are built from
-   gatling_tpu_torch/csrc/bounce.cu (in ten nvcc parts), K5-K8 (the
+   K3 (split trace) and K4 (split shade: its own texture taps, and its
+   NEE shadow walk in a second launch) are built from
+   gatling_tpu_torch/csrc/bounce.cu (in nine nvcc parts), K5-K8 (the
    wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
    ptxas' registers, stack and spills;
@@ -45,16 +46,24 @@ fails, with a non-zero exit, if any phase fails:
    through gi.render at the JAX bench's settings, 512x512, 4 spp, 6
    bounces, NEE on: checked (finite, non-negative, per-material means
    against a frame of the texture means), the textureLodBounces=2 frame
-   and a normal-mapped frame against it, first and warm frame times; and
-   the textured Cornell box at 1200x1200, 16 spp, 8 bounces;
-3c. then K3 and K4 against their twins (ops/split_ref.py), through the
-   wrappers the main path calls (ops/bounce.py trace_step, shade_step),
-   on the tables gi.render built for 4d's frames: the interior's first
-   wave (512x512 x 4 samples, 1,048,576 rays), plain and normal-mapped,
-   on gi's instanced tables and on the flattened tables of the same
-   geometry, NEE off and on, at bounces 0 and 4, and the textured Cornell
-   box's wave (1200x1200 x 2 samples, resident tables); then both, their
-   twins and the texture stage timed;
+   and a normal-mapped frame against it, first and warm frame times; the
+   textured Cornell box at 1200x1200, 16 spp, 8 bounces; interior_taps
+   (sRGB, clamp, mirror and black wraps, metallic and roughness from the
+   b and g channels); each textured frame calls the texture stage
+   (render/fused.py material_rows) 0 times;
+3c. then K3 and K4 against their twins (ops/split_ref.py; K4's is the
+   texture stage, then shade_ref), through the wrappers the main path
+   calls (ops/bounce.py trace_step, shade_step), on the tables gi.render
+   built for 4d's frames: the interior's first wave (512x512 x 4 samples,
+   1,048,576 rays), plain and normal-mapped, on gi's instanced tables and
+   on the flattened tables of the same geometry, interior_taps', NEE off
+   and on, at bounces 0 and 4, and the textured Cornell box's wave
+   (1200x1200 x 2 samples, resident tables): rows 12-15 bit-equal on
+   every ray, and K4's taps alone (ops/bounce.py tap_rows) bit-equal to
+   the texture stage's on every hit ray; then both, their twins and the
+   texture stage K4's taps replace timed; K4's bound counts its state and
+   hit rows, the distinct texels its taps read and its NEE shadow walk's
+   counted work;
 5. progressive accumulation over one scene (sampleOffset 16 -> 32 -> 48);
 4e. the wavefront integrator through gi.render, every AOV bound (the ids
    in int32 buffers): cornell_aovs (the Cornell box and the bench's rect
@@ -260,13 +269,14 @@ def k1_bound_ms(state, fs) -> float:
     return _bound(nbytes, alive * fs.tris.shape[0] * TRI_TEST_FLOPS)
 
 
-def nee_shadow_rays(p, fs, state, nee):
-    """The NEE shadow rays of one bounce of `state` over fs, as the twin
-    traces them (bounce_ref.occluder wrapped): a list of (origins [n, 3],
-    directions [n, 3], distances [n], the salted cutout words or None)."""
+def traced_shadow_rays(run):
+    """The NEE shadow rays a twin traces while `run()` runs (the occluder of
+    ops/bounce_ref.py and ops/split_ref.py wrapped): a list of (origins
+    [n, 3], directions [n, 3], distances [n], the salted cutout words or
+    None)."""
     import torch
 
-    from gatling_tpu_torch.ops import bounce_ref
+    from gatling_tpu_torch.ops import bounce_ref, split_ref
 
     rays, real = [], bounce_ref.occluder
 
@@ -278,13 +288,39 @@ def nee_shadow_rays(p, fs, state, nee):
             return fn(o, d, dist, key)
         return traced
 
-    if nee:
-        bounce_ref.occluder = occluder
-        try:
-            bounce_twin(p, fs, state.clone(), nee)
-        finally:
-            bounce_ref.occluder = real
+    bounce_ref.occluder = split_ref.occluder = occluder
+    try:
+        run()
+    finally:
+        bounce_ref.occluder = split_ref.occluder = real
     return rays
+
+
+def nee_shadow_rays(p, fs, state, nee):
+    """The NEE shadow rays of one bounce of `state` over fs, as the twin
+    traces them (traced_shadow_rays)."""
+    return traced_shadow_rays(lambda: bounce_twin(p, fs, state.clone(), nee)) if nee else []
+
+
+def shadow_walk_work(fs, rays) -> tuple[int, ...]:
+    """The counted work of the any-hit walks of shadow rays `rays`
+    (traced_shadow_rays) over fs: (slab, triangle) tests through the
+    resident tree (bounce_ref.resident_work), or the two-level walk's
+    (TLAS and entry, cluster-box, tree slab, triangle) tests
+    (bounce_ref.cluster_work)."""
+    import torch
+
+    from gatling_tpu_torch.ops.bounce_ref import cluster_work, resident_work
+
+    work = [0, 0] if fs.walk is None else [0, 0, 0, 0]
+    for so, sd, dist, skey in rays:
+        ones = torch.ones_like(dist, dtype=torch.bool)
+        if fs.walk is None:
+            counts = resident_work(fs.bvh, so, sd, ones, 0.0, skey, dist=dist)[-2:]
+        else:
+            counts = cluster_work(fs.walk, so, sd, ones, 0.0, skey, dist=dist)[2:]
+        work = [w + int(c.sum()) for w, c in zip(work, counts)]
+    return tuple(work)
 
 
 def resident_walk_work(p, fs, state, nee: bool) -> tuple[int, int]:
@@ -292,20 +328,13 @@ def resident_walk_work(p, fs, state, nee: bool) -> tuple[int, int]:
     (K3: NEE off) launch on `state`, from bounce_ref.resident_work:
     every alive ray's closest-hit walk (its cutout words as the kernel's)
     and, with NEE, the any-hit walk of each shadow ray the twin traces."""
-    import torch
-
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cutout_key, resident_work
 
     o, d = state[0:3].T.contiguous(), state[3:6].T.contiguous()
     key = cutout_key(state) if fs.cutout else None
     *_hit, boxes, tests = resident_work(fs.bvh, o, d, state[13] > 0.5, float(p[P_TMIN]), key)
-    work = [int(boxes.sum()), int(tests.sum())]
-    for so, sd, dist, skey in nee_shadow_rays(p, fs, state, nee):
-        *_occ, boxes, tests = resident_work(fs.bvh, so, sd, torch.ones_like(dist, dtype=torch.bool),
-                                            0.0, skey, dist=dist)
-        work[0] += int(boxes.sum())
-        work[1] += int(tests.sum())
-    return work[0], work[1]
+    shadow = shadow_walk_work(fs, nee_shadow_rays(p, fs, state, nee))
+    return int(boxes.sum()) + shadow[0], int(tests.sum()) + shadow[1]
 
 
 def k1_walk_bound_ms(p, fs, state, nee: bool):
@@ -331,19 +360,14 @@ def cluster_walk_work(p, fs, state, nee: bool) -> tuple[int, int, int, int]:
     launch on `state`, from bounce_ref.cluster_work: every alive ray's
     closest-hit walk (its cutout words as the kernel's) and, with NEE,
     the any-hit walk of each shadow ray the twin traces."""
-    import torch
-
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cluster_work, cutout_key
 
     o, d = state[0:3].T.contiguous(), state[3:6].T.contiguous()
     key = cutout_key(state) if fs.cutout else None
     work = [int(c.sum()) for c in cluster_work(fs.walk, o, d, state[13] > 0.5,
                                                float(p[P_TMIN]), key)[2:]]
-    for so, sd, dist, skey in nee_shadow_rays(p, fs, state, nee):
-        counts = cluster_work(fs.walk, so, sd, torch.ones_like(dist, dtype=torch.bool), 0.0,
-                              skey, dist=dist)[2:]
-        work = [w + int(c.sum()) for w, c in zip(work, counts)]
-    return tuple(work)
+    shadow = shadow_walk_work(fs, nee_shadow_rays(p, fs, state, nee))
+    return tuple(w + c for w, c in zip(work, shadow))
 
 
 def walk_ops(work) -> int:
@@ -611,17 +635,21 @@ def image_checks(img, label):
 
 def counted_render(params, label):
     """One gi.render, timed to the end of the host copies, all eight
-    kernels' launch counts set to 0 just before it and read just after;
-    returns (COLOR buffer, seconds, Mray/s or None, launches)."""
+    kernels' launch counts and the texture stage's call count
+    (render/fused.py stage_calls, read by the caller) set to 0 just before
+    it and read just after; returns (COLOR buffer, seconds, Mray/s or
+    None, launches)."""
     import torch
 
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.render import fused
 
     for counts in (tb.launches, tt.launches):
         for k in counts:
             counts[k] = 0
+    fused.stage_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gi.render(params)
@@ -630,7 +658,8 @@ def counted_render(params, label):
     segs = params.scene.last_segments
     mrays = segs / dt / 1e6 if segs else None
     log(f"render {label}: {dt:.4f} s wall, {segs:.0f} traced segments, "
-        f"{'-' if mrays is None else f'{mrays:.1f}'} Mray/s, kernel launches {launches}")
+        f"{'-' if mrays is None else f'{mrays:.1f}'} Mray/s, kernel launches {launches}, "
+        f"texture stage calls {fused.stage_calls}")
     return params.aov_bindings[0].render_buffer.data.copy(), dt, mrays, launches
 
 
@@ -941,47 +970,146 @@ def k3_bound_ms(state, fs, hit_rows: int, work, brute: bool = False,
     return _bound(nbytes, floor_ops(work) if floor else walk_ops(work))
 
 
-def k4_bound_ms(state, fs, par_rows: int) -> tuple[float, str]:
-    """The least time of one K4 launch, a floor: the state read and written,
-    the hit rows it reads and the textured parameter rows read, the
-    material and light tables read once (HBM); the shading arithmetic and
-    the NEE shadow walk are left out. K4 reads 13 hit rows (csrc/bounce.cu
-    read_hit): never H_T, the uv or the tangent rows."""
-    from gatling_tpu_torch.ops.split_ref import H_DS, H_FRONT, H_GN, H_HIT, H_MAT, H_N, H_POS
-
-    read = {H_HIT, H_MAT, H_FRONT, H_DS, *range(H_GN, H_GN + 3), *range(H_N, H_N + 3),
-            *range(H_POS, H_POS + 3)}
+def k4_floor_ms(state, fs, par_rows: int) -> tuple[float, str]:
+    """The floor PR 3-9 gave one K4 launch: the state read and written, 13
+    hit rows and the texture stage's parameter rows read, the material and
+    light tables read once (HBM); no texel, no operation."""
     r = state.shape[1]
-    return _bound(4 * r * (2 * 16 + len(read) + par_rows)
-                  + 4 * (fs.mats.numel() + fs.lights.numel()), 0)
+    return _bound(4 * r * (2 * 16 + 13 + par_rows) + 4 * (fs.mats.numel() + fs.lights.numel()),
+                  0)
+
+
+def tap_texel_rows(mats, pool, hit, textured: int):
+    """The distinct texel rows the taps of one K4 launch on hit buffer
+    `hit` read: for each hit ray and each tapped parameter (render/fused.py
+    textured bits, ops/bounce.py TAP_BITS) and the normal map whose
+    material binds a slot, the texels_q22 row of its bilinear tap, or the
+    texels_u32 entries of its four texels that the wrap keeps, indexed as
+    render/texture.py sample_pool indexes them. Returns the unique indices
+    (torch.unique) and the bytes of one row."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, H_UVX, H_UVY
+    from gatling_tpu_torch.render.material import (MI_BASE_TEX, MI_EMISSIVE_TEX, MI_METAL_TEX,
+                                                   MI_NORMAL_TEX, MI_ROUGH_TEX)
+    from gatling_tpu_torch.render.texture import _wrap_coord
+
+    mask = tb.tap_mask(textured, hit.shape[0], pool)
+    row_bytes = 16 if pool.bilinear_packed else 4
+    on = hit[H_HIT] > 0.5
+    mat = torch.clamp(torch.round(hit[H_MAT][on]).to(torch.int64), 0,
+                      mats.packed_i.shape[0] - 1)
+    u, v = hit[H_UVX][on], hit[H_UVY][on]
+    rows = [torch.zeros(0, dtype=torch.int64, device=hit.device)]
+    for bit, col in ((tb.TAP_BITS["base_color"], MI_BASE_TEX),
+                     (tb.TAP_BITS["emissive"], MI_EMISSIVE_TEX),
+                     (tb.TAP_BITS["metallic"], MI_METAL_TEX),
+                     (tb.TAP_BITS["roughness"], MI_ROUGH_TEX), (tb.TAP_NORMAL, MI_NORMAL_TEX)):
+        if not mask & bit:
+            continue
+        slot = mats.packed_i[mat, col]
+        sel = slot >= 0
+        t = slot[sel].long()
+        w, h, off = pool.width[t], pool.height[t], pool.offset[t]
+        x0 = torch.floor(u[sel] * w.to(torch.float32) - 0.5).to(torch.int32)
+        y0 = torch.floor((1.0 - v[sel]) * h.to(torch.float32) - 0.5).to(torch.int32)
+        if pool.bilinear_packed:
+            rows.append((off + torch.remainder(y0, h) * w + torch.remainder(x0, w)).long())
+            continue
+        for dx, dy in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            xi, vx = _wrap_coord(x0 + dx, w, pool.wrap_s[t])
+            yi, vy = _wrap_coord(y0 + dy, h, pool.wrap_t[t])
+            rows.append((off + yi * w + xi)[vx & vy].long())
+    return torch.unique(torch.cat(rows)), row_bytes
+
+
+def k4_shadow_rays(p, fs, state, hit, mats, pool, active, nee):
+    """The NEE shadow rays of one K4 launch on `state` and hit buffer `hit`,
+    as its twin (the texture stage, then split_ref.shade_ref) traces them
+    (traced_shadow_rays)."""
+    from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref
+    from gatling_tpu_torch.render.fused import material_rows
+
+    def run():
+        parbuf, hit_n = material_rows(mats, pool, hit, active)
+        shade_ref(p, fs.tris, fs.mats, fs.lights, tuple(fs.light_types.tolist()), state.clone(),
+                  hit_n, parbuf, par_row_starts(active), nee, fs.walk, fs.advanced, fs.cutout,
+                  fs.volumes)
+    return traced_shadow_rays(run) if nee else []
+
+
+def k4_bound_ms(p, fs, state, hit, mats, pool, active, nee):
+    """The least time of one K4 launch on `state` and K3's hit buffer `hit`
+    (HBM bytes against f32 operations): the state read and written, the
+    hit rows K4 reads (13, the uv when it taps, the 4 tangent rows when it
+    normal-maps or frames the advanced lobes), the distinct texel rows its
+    taps touch (tap_texel_rows: the least texel traffic), the tables read
+    once (materials, lights, the slot columns and records, the sRGB table;
+    with NEE the triangle rows and walk tables), against the counted work
+    of the NEE shadow walks the twin traces (shadow_walk_work: 24
+    operations a slab test, 30 a triangle test). The shading arithmetic is
+    left out. Returns ((ms, what bounds it), shadow work, distinct texel
+    rows)."""
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import HIT_ROWS_TAN
+
+    textured = sum(bit for name, bit in tb.TAP_BITS.items() if name in active)
+    mask = tb.tap_mask(textured, hit.shape[0], pool)
+    texels, row_bytes = tap_texel_rows(mats, pool, hit, textured)
+    tangents = hit.shape[0] == HIT_ROWS_TAN and (fs.advanced or mask & tb.TAP_NORMAL)
+    hit_rows = 13 + (2 if mask else 0) + (4 if tangents else 0)
+    tables = fs.mats.numel() + fs.lights.numel() + mats.packed_i.numel() + 14 * pool.count + 256
+    if nee:
+        tables += fs.tris.numel() + sum(t.numel() for t in (fs.walk or fs.bvh))
+    nbytes = 4 * state.shape[1] * (2 * 16 + hit_rows) + texels.numel() * row_bytes + 4 * tables
+    work = shadow_walk_work(fs, k4_shadow_rays(p, fs, state, hit, mats, pool, active, nee))
+    ops = walk_ops(work) if fs.walk is not None else work[0] * SLAB_FLOPS + work[1] * TRI_TEST_FLOPS
+    return _bound(nbytes, ops), work, texels.numel()
+
+
+def split_twin(p, fs, state, hit, mats, pool, active, nee):
+    """K4's twin in place: the texture stage (render/fused.py
+    material_rows) on K3's hit buffer, then split_ref.shade_ref."""
+    from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref
+    from gatling_tpu_torch.render.fused import material_rows
+
+    parbuf, hit_n = material_rows(mats, pool, hit, active)
+    shade_ref(p, fs.tris, fs.mats, fs.lights, tuple(fs.light_types.tolist()), state, hit_n,
+              parbuf, par_row_starts(active), nee, fs.walk, fs.advanced, fs.cutout, fs.volumes)
 
 
 def phase_split(device, scenes: dict):
     """Phase 3c: K3 and K4 against their twins on the tables of the scenes
     that phase 4d rendered through gi: the interior's first wave (plain and
     normal-mapped, gi's instanced tables and the flattened ones, NEE off
-    and on) and the textured Cornell box's (resident); then timed."""
+    and on), interior_taps' (wrap modes clamp, mirror and black, sRGB
+    slots, metallic and roughness from the b and g channels: the
+    texels_u32 taps) and the textured Cornell box's (resident); then
+    timed, with the texture stage K4's taps replace beside K4."""
     import torch
 
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, walk_work
-    from gatling_tpu_torch.ops.split_ref import H_T, par_row_starts, shade_ref, trace_ref
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_T, trace_ref
     from gatling_tpu_torch.render.fused import coherence_keys, material_rows
 
     cases = []
-    for label in ("interior", "interior_normalmapped"):
+    for label in ("interior", "interior_normalmapped", "interior_taps"):
         params = scenes[label]
         wave = wave_state(params.camera, SF_RES, SF_RES, SF_SPP, device, tiled=True)
-        for flattened in (False, True):
+        for flattened in ((False, True) if label != "interior_taps" else (False,)):
             t0 = time.perf_counter()
             tables = split_tables(params, flattened)
-            st = tables[1]
+            st, pool = tables[1], tables[3]
             name = label + ("_flattened" if flattened else "")
             log(f"{name}: {st.n_tris} triangles, {'flattened' if flattened else 'gi'} tables "
                 f"({st.n_instances} placements over {st.n_clusters} clusters, tangent rows "
-                f"{st.tangents}), textured {tables[4]}; in {time.perf_counter() - t0:.2f} s")
+                f"{st.tangents}), textured {tables[4]}, {pool.count} texture slots "
+                f"(2x2 rows: {pool.bilinear_packed}); in {time.perf_counter() - t0:.2f} s")
             assert st.clustered and st.textured and st.instanced != flattened
             assert st.tangents == (label == "interior_normalmapped")
+            assert pool.bilinear_packed == (label != "interior_taps")
             cases += [(name, tables, wave, nee) for nee in (False, True)]
     cparams = scenes["cornell_textured"]
     ctables = split_tables(cparams)
@@ -993,32 +1121,34 @@ def phase_split(device, scenes: dict):
     # the interior's state at bounce 2 (plain tables, NEE on) and K4's inputs there
     later = k4_later = None
     for label, (fs, static, mats, pool, active), wave, nee in cases:
-        lt, prow = static.light_types, par_row_starts(active)
         state = wave
         for b in range(5):
-            if b == 2 and label == "interior" and nee:
-                later = state
             params = params_row(b, device)
             hit = trace_ref(params, fs.tris, state, fs.walk)
-            parbuf, hit_n = material_rows(mats, pool, hit, active)
             if b == 2 and label == "interior" and nee:
-                k4_later = (hit_n, parbuf, active, nee)
+                later, k4_later = state, (hit, mats, pool, active, nee)
             twin = state.clone()
-            shade_ref(params, fs.tris, fs.mats, fs.lights, lt, twin, hit_n, parbuf, prow, nee,
-                      fs.walk)
+            split_twin(params, fs, twin, hit, mats, pool, active, nee)
             if b in (0, 4):
                 got_hit = tb.trace_step(params, fs, state)
                 got = state.clone()
-                tb.shade_step(params, fs, got, hit_n, parbuf, active, nee)
+                tb.shade_step(params, fs, got, hit, mats, pool, active, nee)
+                # K4's taps alone against the texture stage, on the hit rays
+                taps = tb.tap_rows(hit, mats, pool, active)
+                taps_twin = tb.tap_rows_ref(hit, mats, pool, active)
                 torch.cuda.synchronize()
+                on = hit[H_HIT] > 0.5
+                tb_bad = int((taps.view(torch.int32) != taps_twin.view(torch.int32))[:, on]
+                             .any(dim=0).sum())
                 hb, ho, n, herr = compare_hits(got_hit, hit)
                 sb, so, _n, serr = compare(got, twin)
                 log(f"parity {label} nee={nee} bounce {b}: K3 {hb} rays with H_HIT/H_MAT not "
                     f"bit-equal, {ho} of {n} outside rtol {RTOL}/atol {ATOL}, max abs err "
-                    f"{herr:.3g} (hit rays); K4 {sb} rays with rows 12-15 not bit-equal, {so} "
-                    f"outside on rows 0-11, max abs err {serr:.3g}")
+                    f"{herr:.3g} (hit rays); K4's taps {tb_bad} of {int(on.sum())} hit rays "
+                    f"not bit-equal to the texture stage's; K4 {sb} rays with rows 12-15 not "
+                    f"bit-equal, {so} outside on rows 0-11, max abs err {serr:.3g}")
                 k3_err, k4_err = max(k3_err, herr), max(k4_err, serr)
-                assert hb == 0 and sb == 0, (label, nee, b, hb, sb)
+                assert hb == 0 and sb == 0 and tb_bad == 0, (label, nee, b, hb, sb, tb_bad)
                 for v in (ho, so):
                     assert v <= n * (1 - MIN_AGREE), (label, nee, b, ho, so)
             state = twin
@@ -1029,10 +1159,9 @@ def phase_split(device, scenes: dict):
     p0 = params_row(0, device)
     by_case = {(c[0], c[3]): c for c in cases}
     for label, (fs, static, mats, pool, active), wave, nee in (
-            by_case[("interior", True)], by_case[("cornell_textured", False)]):
-        lt, prow = static.light_types, par_row_starts(active)
+            by_case[("interior", True)], by_case[("interior_taps", True)],
+            by_case[("cornell_textured", False)]):
         hit = tb.trace_step(p0, fs, wave)
-        parbuf, hit_n = material_rows(mats, pool, hit, active)
         alive = wave[13] > 0.5
         floor = None
         if fs.walk is not None:
@@ -1041,38 +1170,43 @@ def phase_split(device, scenes: dict):
             work = cluster_walk_work(p0, fs, wave, False)
         else:
             work = resident_walk_work(p0, fs, wave, False)
+        k4_bound, k4_work, texels = k4_bound_ms(p0, fs, wave, hit, mats, pool, active, nee)
         t = dict(
             k3=time_ms(lambda s: tb.trace_step(p0, fs, s), wave),
             k3_twin=time_ms(lambda s: trace_ref(p0, fs.tris, s, fs.walk), wave, reps=2),
             stage=time_ms(lambda h: material_rows(mats, pool, h, active), hit),
-            k4=time_ms(lambda s: tb.shade_step(p0, fs, s, hit_n, parbuf, active, nee), wave),
-            k4_nee_off=time_ms(lambda s: tb.shade_step(p0, fs, s, hit_n, parbuf, active, False),
+            k4=time_ms(lambda s: tb.shade_step(p0, fs, s, hit, mats, pool, active, nee), wave),
+            k4_nee_off=time_ms(lambda s: tb.shade_step(p0, fs, s, hit, mats, pool, active, False),
                                wave),
-            k4_twin=time_ms(lambda s: shade_ref(p0, fs.tris, fs.mats, fs.lights, lt, s, hit_n,
-                                                parbuf, prow, nee, fs.walk), wave, reps=2),
+            k4_twin=time_ms(lambda s: split_twin(p0, fs, s, hit, mats, pool, active, nee), wave,
+                            reps=2),
             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work),
             k3_bound_brute=(k3_bound_ms(wave, fs, hit.shape[0], floor, floor=True) if floor
                             else k3_bound_ms(wave, fs, hit.shape[0], work, brute=True)),
-            k4_bound=k4_bound_ms(wave, fs, 3 * len(active)),
+            k4_bound=k4_bound, k4_work=k4_work, k4_texels=texels,
+            k4_floor=k4_floor_ms(wave, fs, 3 * len(active)),
             work=work, rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
         times[label] = t
         log(f"timing {label} nee={nee} bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
             f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
             f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}, "
             f"{'cluster floor' if floor else 'brute-force bound'} "
-            f"{t['k3_bound_brute'][0]:.4f} ms), texture stage {t['stage']:.3f} ms, "
-            f"K4 {t['k4']:.3f} ms (NEE off {t['k4_nee_off']:.3f} ms; twin {t['k4_twin']:.1f} ms, "
-            f"bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]})")
+            f"{t['k3_bound_brute'][0]:.4f} ms); texture stage {t['stage']:.3f} ms (the stage "
+            f"K4's taps replace), K4 {t['k4']:.3f} ms (NEE off {t['k4_nee_off']:.3f} ms; twin "
+            f"{t['k4_twin']:.1f} ms; bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]}: shadow "
+            f"walk work {k4_work}, {texels} distinct texel rows; PR 3-9 floor "
+            f"{t['k4_floor'][0]:.4f} ms)")
 
-    # K3 on a secondary wave: the interior at bounce 2 as the twin left it
-    # and in the coherence order render_pixels_fused gives it, against its
-    # floor
+    # K3 and K4 on a secondary wave: the interior at bounce 2 as the twin
+    # left it and in the coherence order render_pixels_fused gives it,
+    # against their bounds
     fs = by_case[("interior", True)][1][0]
     p2 = params_row(2, device)
     box = fs.walk.l1
     lo = box[:, 0:3].min(dim=0).values
     inv = 1.0 / torch.clamp(box[:, 3:6].max(dim=0).values - lo, min=1e-12)
-    ordered = later[:, torch.argsort(coherence_keys(later, lo, inv), stable=True)]
+    order = torch.argsort(coherence_keys(later, lo, inv), stable=True)
+    ordered = later[:, order]
     hit = tb.trace_step(p2, fs, later)
     alive = later[13] > 0.5
     floor = walk_work(fs.walk, later[0:3].T.contiguous(), later[3:6].T.contiguous(), alive,
@@ -1081,13 +1215,21 @@ def phase_split(device, scenes: dict):
     k3_2 = [time_ms(lambda s: tb.trace_step(p2, fs, s), wv) for wv in (later, ordered)]
     bound = k3_bound_ms(later, fs, hit.shape[0], work)
     floor_bound = k3_bound_ms(later, fs, hit.shape[0], floor, floor=True)
-    k4_2 = time_ms(lambda s: tb.shade_step(p2, fs, s, *k4_later), later)
+    hit2, mats, pool, active, nee = k4_later
+    hit2_ordered = hit2[:, order].contiguous()
+    k4_2 = time_ms(lambda s: tb.shade_step(p2, fs, s, hit2_ordered, mats, pool, active, nee),
+                   ordered)
+    k4_2_bound, k4_2_work, texels_2 = k4_bound_ms(p2, fs, ordered, hit2_ordered, mats, pool,
+                                                  active, nee)
     times["interior_bounce2"] = dict(k3_unsorted=k3_2[0], k3=k3_2[1], k3_bound=bound,
-                                     k3_floor=floor_bound, work=work, k4=k4_2)
+                                     k3_floor=floor_bound, work=work, k4=k4_2,
+                                     k4_bound=k4_2_bound, k4_work=k4_2_work)
     log(f"timing interior K3 bounce 2 ({int(alive.sum())} rays alive; walk work {work}, "
         f"cluster floor {floor}): {k3_2[0]:.3f} ms as the twin left the wave, {k3_2[1]:.3f} ms "
         f"in the coherence order, bound {bound[0]:.4f} ms ({bound[1]}), cluster floor "
-        f"{floor_bound[0]:.4f} ms ({floor_bound[1]}); K4 (NEE) {k4_2:.3f} ms")
+        f"{floor_bound[0]:.4f} ms ({floor_bound[1]}); K4 (NEE, coherence order) {k4_2:.3f} ms, "
+        f"bound {k4_2_bound[0]:.4f} ms ({k4_2_bound[1]}; shadow walk work {k4_2_work}, "
+        f"{texels_2} distinct texel rows)")
     return k3_err, k4_err, times
 
 
@@ -1113,6 +1255,36 @@ def interior_params(device, tex_dir: str, normal_map: str | None = None, means_o
                                                   nextEventEstimation=True, **settings))
 
 
+def interior_taps_params(device, tex_dir: str):
+    """The textured interior at the bench's settings with its textures
+    decoded as sRGB and wrapping clamp, mirror or black (a material's
+    wrapS and wrapT two of the three in turn), and metallic and roughness
+    read from the b and g channels of each material's texture: a pool
+    that is not all `repeat`, so K4 taps texels_u32 through the wrap
+    modes."""
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    desc = interior(tex_dir=tex_dir)
+    modes = ("clamp", "mirror", "black")
+    for k, m in enumerate(desc.materials.values()):
+        wraps = dict(wrapS=modes[k % 3], wrapT=modes[(k + 1) % 3])
+        files = []
+        for node in m.nodes.values():
+            if node.shader_id == "UsdUVTexture":
+                node.inputs.update(sourceColorSpace="sRGB", **wraps)
+                files.append(node.inputs["file"])
+        surf = m.nodes[m.surface_node]
+        for name, channel in (("metallic", "b"), ("roughness", "g")) if files else ():
+            node = ShaderNode(path=f"{m.path}/{name}_tex", shader_id="UsdUVTexture",
+                              inputs={"file": files[0], "sourceColorSpace": "raw", **wraps},
+                              input_connections={})
+            m.nodes[node.path] = node
+            surf.input_connections[name] = (node.path, channel)
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True))
+
+
 def phase_interior(device, tex_dir: str, extra: dict):
     """Phase 4d: the textured interior through gi.render (the main path's
     frame for K3 and K4), its checks and variants; the textured Cornell
@@ -1124,6 +1296,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import sampling as smp
     from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT
+    from gatling_tpu_torch.render import fused
     from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
 
     out = {}
@@ -1142,6 +1315,9 @@ def phase_interior(device, tex_dir: str, extra: dict):
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
     assert launches == dict(split_launches, K1=0, K2=0, K5=0, K6=0, K7=0, K8=0), launches
+    # K4 taps the textures itself: no texture stage between K3 and K4
+    assert fused.stage_calls == 0, fused.stage_calls
+    out["interior_texture_stage_calls"] = fused.stage_calls
     img = img[..., :3]
     assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01
 
@@ -1179,12 +1355,13 @@ def phase_interior(device, tex_dir: str, extra: dict):
     rel = abs(limg.mean() - img.mean()) / img.mean()
     log(f"interior lod2 vs all taps: mean rel diff {rel:.3e}; launches {llaunches}")
     assert llaunches["K2"] > 0 and llaunches["K3"] == llaunches["K4"] < split_launches["K3"]
-    assert np.isfinite(limg).all() and rel < 0.05
+    assert np.isfinite(limg).all() and rel < 0.05 and fused.stage_calls == 0
 
     nparams = interior_params(device, tex_dir, normal_map=extra["lean"])
     nimg, _dt, out["interior_normalmapped"], _ = warm_render(nparams, label + " normal-mapped")
     nimg = nimg[..., :3]
     assert nparams.scene._fused_static.tangents and np.isfinite(nimg).all() and (nimg >= 0).all()
+    assert fused.stage_calls == 0, fused.stage_calls
     nrel = abs(nimg.mean() - img.mean()) / img.mean()
     log(f"interior normal-mapped vs plain: mean rel diff {nrel:.3e}")
     # the leaning normal moves the frame's mean by 6.261e-2 on an H100 80GB
@@ -1196,9 +1373,21 @@ def phase_interior(device, tex_dir: str, extra: dict):
     texture_every_material(cparams.scene.materials, "diffuseColor", extra["checker"])
     cimg, _dt, out["cornell_textured"], claunches = warm_render(cparams, "cornell_textured "
                                                            f"{FULL_RES}^2 16spp 8 bounces")
-    assert claunches["K3"] > 0 and claunches["K1"] == 0
+    assert claunches["K3"] > 0 and claunches["K1"] == 0 and fused.stage_calls == 0
     assert np.isfinite(cimg).all() and (cimg >= 0).all() and cimg[..., :3].mean() > 0.01
-    scenes = {"interior": params, "interior_normalmapped": nparams, "cornell_textured": cparams}
+
+    # interior_taps: wrap modes other than repeat, sRGB, channel picks
+    tparams = interior_taps_params(device, tex_dir)
+    timg, _dt, out["interior_taps"], tlaunches = warm_render(tparams, label + " interior_taps")
+    tst = tparams.scene._fused_static
+    log(f"interior_taps: textured {tst.textured_params}, pool of "
+        f"{tparams.scene._texture_pool.count} slots, 2x2 rows "
+        f"{tparams.scene._texture_pool.bilinear_packed}")
+    assert tlaunches["K4"] == split_launches["K4"] and fused.stage_calls == 0
+    assert {"metallic", "roughness"} <= set(tst.textured_params)
+    assert np.isfinite(timg).all() and (timg >= 0).all() and timg[..., :3].mean() > 0.01
+    scenes = {"interior": params, "interior_normalmapped": nparams, "cornell_textured": cparams,
+              "interior_taps": tparams}
     return out, split_launches, scenes
 
 
@@ -1738,9 +1927,10 @@ def first_and_warm(params, label, want: set, warm_frames: int = 1):
 def record_fused_waves(run, bounces=(0, 2)):
     """Run one frame (`run()`) with the fused path's kernel calls recorded:
     for the first sample batch, the params row and the state going into
-    each bounce of `bounces`, and for the split bounce the hit and
-    parameter buffers K4 was handed. Returns ({bounce: (params row, state,
-    None or (hit buffer, parameter buffer))}, what run returned)."""
+    each bounce of `bounces`, and for the split bounce the hit buffer, the
+    device material table and the texture pool K4 was handed. Returns
+    ({bounce: (params row, state, None or (hit buffer, materials, pool))},
+    what run returned)."""
     from gatling_tpu_torch.render import fused
 
     calls = []
@@ -1751,10 +1941,10 @@ def record_fused_waves(run, bounces=(0, 2)):
             calls.append((p.clone(), state.clone(), None))
         return real["bounce_step"](p, scene, state, nee)
 
-    def shade(p, scene, state, hitbuf, parbuf, active, nee):
+    def shade(p, scene, state, hitbuf, materials, textures, active, nee):
         if len(calls) <= max(bounces):
-            calls.append((p.clone(), state.clone(), (hitbuf.clone(), parbuf.clone())))
-        return real["shade_step"](p, scene, state, hitbuf, parbuf, active, nee)
+            calls.append((p.clone(), state.clone(), (hitbuf.clone(), materials, textures)))
+        return real["shade_step"](p, scene, state, hitbuf, materials, textures, active, nee)
 
     fused.bounce_step, fused.shade_step = bounce, shade
     try:
@@ -2208,7 +2398,8 @@ def phase_branches(device, replay: dict, exact: bool = False):
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cutout_key, walk_closest, \
         walk_hit_attrs, walk_work
-    from gatling_tpu_torch.ops.split_ref import H_T, par_row_starts, shade_ref, trace_ref
+    from gatling_tpu_torch.ops.split_ref import H_T, trace_ref
+    from gatling_tpu_torch.render.fused import material_rows
 
     out = {}
     for label, (fs, static, waves, nee) in replay.items():
@@ -2226,15 +2417,14 @@ def phase_branches(device, replay: dict, exact: bool = False):
                 r_in = int((state[13] > 1.5).sum())
                 log(f"  {label} bounce {b}: {r_in} rays came in inside a medium")
                 continue
-            hit_n, parbuf = split
+            hitbuf, mats, pool = split
             active = static.textured_params
             hit = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
             got_hit = tb.trace_step(p, fs, state)
             twin = state.clone()
-            shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, hit_n, parbuf,
-                      par_row_starts(active), nee, fs.walk, fs.advanced, fs.cutout, fs.volumes)
+            split_twin(p, fs, twin, hitbuf, mats, pool, active, nee)
             got = state.clone()
-            tb.shade_step(p, fs, got, hit_n, parbuf, active, nee)
+            tb.shade_step(p, fs, got, hitbuf, mats, pool, active, nee)
             torch.cuda.synchronize()
             hb, ho, n, herr = compare_hits(got_hit, hit)
             log(f"parity {label} bounce {b} K3: {hb} rays with H_HIT/H_MAT not bit-equal, {ho} "
@@ -2242,7 +2432,8 @@ def phase_branches(device, replay: dict, exact: bool = False):
             assert hb <= (0 if exact else n * (1 - MIN_AGREE)), (label, b, hb)
             assert ho <= n * (1 - MIN_AGREE), (label, b, ho)
             k3_errs.append(herr)
-            check_parity(f"{label} bounce {b} K4", got, twin, errs, exact)
+            # K4 against its twin: rows 12-15 on every ray, as in 3c
+            check_parity(f"{label} bounce {b} K4", got, twin, errs, exact=True)
 
         # bounce 0 timed: the kernel(s), the twin(s), the bound
         p, wave, split = waves[0]
@@ -2266,9 +2457,8 @@ def phase_branches(device, replay: dict, exact: bool = False):
                 r["bound"] = k2_bound_ms(wave, fs, walk_ops(r["work"]))
                 r["floor_bound"] = k2_bound_ms(wave, fs, floor_ops(r["floor"]))
         else:
-            hit_n, parbuf = split
+            hitbuf, mats, pool = split
             active = static.textured_params
-            prow = par_row_starts(active)
             hit = tb.trace_step(p, fs, wave)
             o, d = wave[0:3].T.contiguous(), wave[3:6].T.contiguous()
             r["work"] = (cluster_walk_work(p, fs, wave, False)
@@ -2280,11 +2470,14 @@ def phase_branches(device, replay: dict, exact: bool = False):
             if fs.walk is not None:
                 r["floor"] = walk_work(fs.walk, o, d, alive, float(p[P_TMIN]), hit[H_T])
                 r["k3_floor_bound"] = k3_bound_ms(wave, fs, hit.shape[0], r["floor"], floor=True)
-            r["ms"] = time_ms(lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, nee), wave)
-            r["plain_ms"] = time_ms(lambda s: shade_ref(
-                p, fs.tris, fs.mats, fs.lights, static.light_types, s, hit_n, parbuf, prow, nee,
-                fs.walk, fs.advanced, fs.cutout, fs.volumes), wave, reps=1)
-            r["bound"] = k4_bound_ms(wave, fs, 3 * len(active))
+            r["ms"] = time_ms(lambda s: tb.shade_step(p, fs, s, hitbuf, mats, pool, active, nee),
+                              wave)
+            r["plain_ms"] = time_ms(lambda s: split_twin(p, fs, s, hitbuf, mats, pool, active,
+                                                         nee), wave, reps=1)
+            r["stage_ms"] = time_ms(lambda h: material_rows(mats, pool, h, active), hitbuf)
+            r["bound"], r["k4_work"], r["k4_texels"] = k4_bound_ms(p, fs, wave, hitbuf, mats, pool,
+                                                                   active, nee)
+            r["k4_floor"] = k4_floor_ms(wave, fs, 3 * len(active))
         out[label] = r
         log(f"timing {label} bounce 0 ({r['rays']} rays, {r['alive']} alive): " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()
@@ -2471,6 +2664,9 @@ def branch_entries(branch: dict, lobe_launches: dict, table=BRANCHES) -> list[di
                  "alive": r["alive"]}
         if not k3 and "bound_brute" in r:  # a resident K1: the BVH walk's bound, brute force's
             entry["bound_ms_brute_force"] = r["bound_brute"][0]
+        if "k4_floor" in r:  # K4: the texture stage its taps replace, PR 3-9's floor
+            entry.update(texture_stage_ms=r["stage_ms"], bound_ms_pr3_9_floor=r["k4_floor"][0],
+                         shadow_walk_work=r["k4_work"], distinct_texel_rows=r["k4_texels"])
         floor = "k3_floor_bound" if k3 else "floor_bound"
         if floor in r:  # a walk: its counted bound, the brute-force cluster floor
             entry["bound_ms_cluster_floor"] = r[floor][0]
@@ -2524,11 +2720,14 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
     }]
 
 
-# the __global__ functions of csrc/, the longest first (one name ends another)
-KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_kernel",
-                "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
-                "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
-                "bounce_kernel", "shade_kernel", "trace_kernel", "walk_kernel")
+# the __global__ functions of csrc/, the longest first (one name ends
+# another), and shade_walk_kernel, K4 over the walk in checkouts before its
+# shadow walk took a launch of its own (tools/plain_ab.py times those)
+KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shadow_walk_kernel",
+                "shade_walk_kernel", "trace_walk_kernel", "cutout_draws_kernel",
+                "onehot_fp32_kernel", "onehot_tf32_kernel", "cast_probe_kernel",
+                "occluded_kernel", "closest_kernel", "bounce_kernel", "shadow_kernel",
+                "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -2741,8 +2940,6 @@ def main() -> int:
         "bound_ms_bounce2": split_times["interior_bounce2"]["k3_bound"][0],
         "bound_ms_cluster_floor_bounce2": split_times["interior_bounce2"]["k3_floor"][0],
         "walk_work_bounce2": split_times["interior_bounce2"]["work"],
-        "texture_stage_ms": it["stage"],
-        "texture_stage_ms_cornell_textured": ct["stage"],
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -2755,10 +2952,19 @@ def main() -> int:
         "bound_ms": it["k4_bound"][0],
         "bound_by": it["k4_bound"][1],
         "library_ms": None,
+        "texture_stage_ms": it["stage"],
+        "bound_ms_pr3_9_floor": it["k4_floor"][0],
+        "shadow_walk_work": it["k4_work"],
+        "distinct_texel_rows": it["k4_texels"],
         "ms_nee_off": it["k4_nee_off"],
         "ms_bounce2": split_times["interior_bounce2"]["k4"],
+        "bound_ms_bounce2": split_times["interior_bounce2"]["k4_bound"][0],
+        "ms_interior_taps": split_times["interior_taps"]["k4"],
+        "texture_stage_ms_interior_taps": split_times["interior_taps"]["stage"],
+        "bound_ms_interior_taps": split_times["interior_taps"]["k4_bound"][0],
         "ms_cornell_textured": ct["k4"],
         "plain_ms_cornell_textured": ct["k4_twin"],
+        "texture_stage_ms_cornell_textured": ct["stage"],
         "bound_ms_cornell_textured": ct["k4_bound"][0],
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
         *branch_entries(branch, lobe_launches),

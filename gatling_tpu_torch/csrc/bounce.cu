@@ -55,16 +55,27 @@
 // Textured scenes split the bounce (the JAX package's split-bounce mode):
 // K3 `trace_kernel` / `trace_walk_kernel` replaces `trace_step` ->
 // `_trace_kernel` (with `_finalize_hits` on walk tables) and writes each
-// ray's closest hit and shading state into a hit buffer; plain torch ops
-// then sample the textures (render/fused.py material_rows); K4
-// `shade_kernel` / `shade_walk_kernel` replaces `shade_step` ->
-// `_shade_kernel` and shades from the hit buffer and the per-ray
-// parameter rows. K3 reuses K1's closest-hit walk and K2's walk
+// ray's closest hit and shading state into a hit buffer; K4
+// `shade_kernel` / `shade_walk_kernel` replaces the XLA texture stage
+// `_material_rows` and `shade_step` -> `_shade_kernel`: it samples the
+// textured parameters and the normal map itself and shades. The TPU
+// kernel could not gather per lane, so an XLA stage between the two
+// kernels sampled every ray's textures into a parameter buffer and a
+// normal-mapped copy of the hit buffer; here each thread gathers its own
+// texels: a tap is one 16-byte read of the texel's baked 2x2 row (a pool
+// whose slots all wrap `repeat`) or four 4-byte reads through the wrap
+// modes, through the read-only cache, with the slot records, the
+// materials' slot columns and a 256-entry sRGB decode table in shared
+// memory. K4 writes every row of the path state before its NEE shadow
+// walk, and after it only the radiance of an unoccluded shadow ray, so
+// that little of the shaded ray stays live across the walk. K3 reuses K1's closest-hit walk and K2's walk
 // and pass 2; K4 runs the shading core and the NEE shadow walks that K1
 // and K2 run (one copy of each in this file). Their twins are in
-// ops/split_ref.py. What bounds them: K3 the same triangle tests as K1
-// and K2 without the shading; K4 the state, hit-buffer and parameter
-// traffic (16 + 16 + up to 8 floats a ray) and, with NEE, the shadow walk.
+// ops/split_ref.py (K4's after render/fused.py material_rows, the texture
+// stage in plain torch). What bounds them: K3 the same triangle tests as
+// K1 and K2 without the shading; K4 the state and hit-buffer traffic (16
+// + 16 + up to 21 floats a ray), the texels its taps touch and, with NEE,
+// the shadow walk's box and triangle tests.
 //
 // K1. One thread per ray; ray state row k of ray i lives at
 // state[k*R + i], so every row access coalesces. The TPU kernel tested a
@@ -943,15 +954,11 @@ __device__ __forceinline__ void shade(const float* p, const float* s_mat, int n_
   }
 }
 
-// NEE contribution, termination (miss, absorb, throughput cutoff, russian
-// roulette) and the write-back of an alive ray (VOL: its alive row
-// r.alive_out).
+// Termination (miss, absorb, throughput cutoff, russian roulette) and the
+// write-back of an alive ray (VOL: its alive row r.alive_out).
 template <int VOL = VOL_OFF>
-__device__ __forceinline__ void finish(const float* p, Ray& r, bool occ, float* state,
-                                       long long R, long long i) {
-  if (r.do_trace && !occ)
-    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.cnee[c];
-
+__device__ __forceinline__ void write_path(const float* p, Ray& r, float* state, long long R,
+                                           long long i) {
   bool terminate = r.miss || (r.hit && !r.valid);
   terminate = terminate || (r.tp[0] * r.tp[0] + r.tp[1] * r.tp[1] + r.tp[2] * r.tp[2] < C(1e-18));
   if (p[P_BOUNCE] > p[P_RR_OFFSET]) {
@@ -976,6 +983,41 @@ __device__ __forceinline__ void finish(const float* p, Ray& r, bool occ, float* 
   state[S_ALIVE * R + i] = terminate ? 0.0f : (VOL != VOL_OFF ? r.alive_out : 1.0f);
   state[S_MISS * R + i] = r.miss_rec;
   state[S_SEG * R + i] = state[S_SEG * R + i] + 1.0f + (r.do_trace ? 1.0f : 0.0f);
+}
+
+// The NEE contribution of an unoccluded shadow ray, then write_path.
+template <int VOL = VOL_OFF>
+__device__ __forceinline__ void finish(const float* p, Ray& r, bool occ, float* state,
+                                       long long R, long long i) {
+  if (r.do_trace && !occ)
+    for (int c = 0; c < 3; ++c) r.rad[c] = r.rad[c] + r.cnee[c];
+  write_path<VOL>(p, r, state, R, i);
+}
+
+// What K4 keeps of a ray across its shadow walk, once write_path has
+// written the rest: the shadow ray, its cutout key (the salted PCG word
+// after the shading, before the russian-roulette draw) and the radiance
+// with the NEE contribution, written if the walk finds no occluder.
+struct Shadow {
+  float o[3], ld[3], ldist, rad[3];
+  uint32_t key;
+};
+
+__device__ __forceinline__ Shadow shadow_of(const Ray& r) {
+  Shadow sh;
+  for (int c = 0; c < 3; ++c) {
+    sh.o[c] = r.o[c];
+    sh.ld[c] = r.ld[c];
+    sh.rad[c] = r.rad[c] + r.cnee[c];
+  }
+  sh.ldist = r.ldist;
+  sh.key = r.rng ^ SHADOW_SALT;
+  return sh;
+}
+
+__device__ __forceinline__ void write_rad(const float rad[3], float* state, long long R,
+                                          long long i) {
+  for (int c = 0; c < 3; ++c) state[(S_RAD + c) * R + i] = rad[c];
 }
 
 __device__ __forceinline__ void stage_tables(float* s_mat, const float* mats, int n_mats,
@@ -1027,12 +1069,189 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
   for (int k = 0; k < rows; ++k) hit[k * R + i] = 0.0f;
 }
 
+// ---------------------------------------------------------------------------
+// K4's texture taps (render/texture.py sample_pool, render/material.py
+// apply_textures and perturb_normal, as render/fused.py material_rows
+// runs them)
+// ---------------------------------------------------------------------------
+
+enum { WRAP_BLACK = 0, WRAP_CLAMP = 1, WRAP_REPEAT = 2, WRAP_MIRROR = 3 };
+// which taps a launch makes: the textured parameters, and the normal map
+// when the hit buffer carries the tangent rows
+enum { TAP_BASE = 1, TAP_EMISSIVE = 2, TAP_METAL = 4, TAP_ROUGH = 8, TAP_NORMAL = 16 };
+// the material table's integer columns K4 stages, per material: the slots
+// of base colour, emission, metallic, roughness and the normal map, then
+// the channels of metallic and roughness (render/material.py MI_*)
+constexpr int MI_COLS = 10;
+constexpr int TAP_MI = 7;  // MI_* columns 0-3 and 5-7 (4, the opacity slot, is not read)
+constexpr int SLOT_I = 6;  // offset, width, height, wrap s, wrap t, sRGB
+constexpr int SLOT_F = 8;  // scale, bias
+
+// The texture pool (render/texture.py TexturePool) and the material
+// table's integer columns, as K4 reads them.
+struct Taps {
+  const int* mat_i;     // [n_mats, 10] the MI_* columns
+  const uint32_t* u32;  // [N + 1] each texel's rgba8 codes
+  const int4* q22;      // [N + 1] each texel's 2x2 row (repeat baked in), or null
+  const int *offset, *width, *height, *wrap_s, *wrap_t, *is_srgb;  // [T] a slot each
+  const float *scale, *bias;  // [T, 4]
+  const float* lut;           // [256] the sRGB decode of each 8-bit code
+  int n_slots, mask;
+};
+
+// Shared-memory copies of what the taps read of the tables (stage_taps).
+struct TapTables {
+  const int* mi;      // [n_mats, TAP_MI]
+  const int* slot_i;  // [T, SLOT_I]
+  const float* slot_f;  // [T, SLOT_F]
+  const float* lut;   // [256]
+};
+
+__host__ __device__ constexpr size_t tap_smem_words(int n_mats, int n_slots) {
+  return (size_t)n_mats * TAP_MI + (size_t)n_slots * (SLOT_I + SLOT_F) + 256;
+}
+
+__device__ __forceinline__ TapTables stage_taps(const Taps& tx, int n_mats, int* smem) {
+  TapTables tt;
+  int* mi = smem;
+  int* si = mi + n_mats * TAP_MI;
+  float* sf = reinterpret_cast<float*>(si + tx.n_slots * SLOT_I);
+  float* lut = sf + tx.n_slots * SLOT_F;
+  for (int k = threadIdx.x; k < n_mats * TAP_MI; k += blockDim.x)
+    mi[k] = tx.mat_i[(k / TAP_MI) * MI_COLS + k % TAP_MI + (k % TAP_MI >= 4 ? 1 : 0)];
+  for (int k = threadIdx.x; k < tx.n_slots; k += blockDim.x) {
+    int* o = si + k * SLOT_I;
+    o[0] = tx.offset[k];
+    o[1] = tx.width[k];
+    o[2] = tx.height[k];
+    o[3] = tx.wrap_s[k];
+    o[4] = tx.wrap_t[k];
+    o[5] = tx.is_srgb[k];
+  }
+  for (int k = threadIdx.x; k < tx.n_slots * 4; k += blockDim.x) {
+    sf[(k / 4) * SLOT_F + k % 4] = tx.scale[k];
+    sf[(k / 4) * SLOT_F + 4 + k % 4] = tx.bias[k];
+  }
+  for (int k = threadIdx.x; k < 256; k += blockDim.x) lut[k] = tx.lut[k];
+  tt.mi = mi;
+  tt.slot_i = si;
+  tt.slot_f = sf;
+  tt.lut = lut;
+  return tt;
+}
+
+// torch.remainder of int32: the floor modulo (a negative a wraps to b - 1)
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// texture.py _wrap_coord: the wrapped index of texel coordinate x, and
+// whether a `black` wrap keeps it
+__device__ __forceinline__ int wrap_coord(int x, int size, int mode, bool& valid) {
+  const int s = max(size, 1);
+  const int rep = floor_mod(x, s);
+  const int clamped = min(max(x, 0), s - 1);
+  const int period = floor_mod(x, 2 * s);
+  const int mirrored = period < s ? period : 2 * s - 1 - period;
+  valid = mode != WRAP_BLACK || (x >= 0 && x < s);
+  return mode == WRAP_REPEAT ? rep
+                             : (mode == WRAP_CLAMP ? clamped : (mode == WRAP_MIRROR ? mirrored
+                                                                                    : clamped));
+}
+
+// One texel's rgba8 codes as floats, code / 255 (in f32), the colour
+// channels of an sRGB slot through the decode table (built by the twin's
+// own expression, so equal to it on every code); zeros when not `valid`.
+__device__ __forceinline__ float4 unpack_texel(uint32_t code, bool srgb, const float* lut,
+                                               bool valid = true) {
+  float c[4];
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t b = (code >> (8 * k)) & 0xFFu;
+    c[k] = (k < 3 && srgb) ? lut[b] : (float)b * C(1.0 / 255.0);
+  }
+  return valid ? make_float4(c[0], c[1], c[2], c[3]) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The bilinear tap of slot `slot` at (u, v) (sample_pool: v up, texel
+// centres at half integers), its scale and bias applied: RGBA.
+__device__ __forceinline__ float4 tap(const Taps& tx, const TapTables& tt, int slot, float u,
+                                      float v) {
+  const int* si = tt.slot_i + slot * SLOT_I;
+  const int off = si[0], w = si[1], h = si[2];
+  const bool srgb = si[5] > 0;
+  const float x = u * (float)w - 0.5f;
+  const float y = (1.0f - v) * (float)h - 0.5f;
+  const float x0f = floorf(x), y0f = floorf(y);
+  const float fx = x - x0f, fy = y - y0f;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  float4 c00, c10, c01, c11;
+  if (tx.q22 != nullptr) {
+    const int4 q = __ldg(tx.q22 + off + floor_mod(y0, h) * w + floor_mod(x0, w));
+    c00 = unpack_texel((uint32_t)q.x, srgb, tt.lut);
+    c10 = unpack_texel((uint32_t)q.y, srgb, tt.lut);
+    c01 = unpack_texel((uint32_t)q.z, srgb, tt.lut);
+    c11 = unpack_texel((uint32_t)q.w, srgb, tt.lut);
+  } else {
+    bool vx0, vx1, vy0, vy1;
+    const int xa = wrap_coord(x0, w, si[3], vx0), xb = wrap_coord(x0 + 1, w, si[3], vx1);
+    const int ya = wrap_coord(y0, h, si[4], vy0), yb = wrap_coord(y0 + 1, h, si[4], vy1);
+    c00 = unpack_texel(__ldg(tx.u32 + off + ya * w + xa), srgb, tt.lut, vx0 && vy0);
+    c10 = unpack_texel(__ldg(tx.u32 + off + ya * w + xb), srgb, tt.lut, vx1 && vy0);
+    c01 = unpack_texel(__ldg(tx.u32 + off + yb * w + xa), srgb, tt.lut, vx0 && vy1);
+    c11 = unpack_texel(__ldg(tx.u32 + off + yb * w + xb), srgb, tt.lut, vx1 && vy1);
+  }
+  const float gx = 1.0f - fx, gy = 1.0f - fy;
+  const float* sf = tt.slot_f + slot * SLOT_F;
+  auto mix = [&](float a, float b, float c, float d, int k) {
+    return ((a * gx + b * fx) * gy + (c * gx + d * fx) * fy) * sf[k] + sf[4 + k];
+  };
+  return make_float4(mix(c00.x, c10.x, c01.x, c11.x, 0), mix(c00.y, c10.y, c01.y, c11.y, 1),
+                     mix(c00.z, c10.z, c01.z, c11.z, 2), mix(c00.w, c10.w, c01.w, c11.w, 3));
+}
+
+// channel k of a tap (torch.gather of MI_*_CH), a select, not an indexed
+// register
+__device__ __forceinline__ float channel(const float4 t, int k) {
+  return k == 0 ? t.x : (k == 1 ? t.y : (k == 2 ? t.z : t.w));
+}
+
+// One component of torch.linalg.cross on the card, a * b - c * d, rounded
+// as PyTorch's CUDA kernel rounds it: nvcc contracts the first product
+// into a fused multiply-add (found by comparing candidate orders against
+// the twin on 1,048,576 random rows on an H100: this one and the sum
+// order of norm_sq differ on none).
+__device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
+  return __fmaf_rn(a, b, -(c * d));
+}
+
+// The squared length torch.linalg.vector_norm sums over a row of three on
+// the card: each square rounded, summed left to right.
+__device__ __forceinline__ float norm_sq(const float m[3]) {
+  return (m[0] * m[0] + m[1] * m[1]) + m[2] * m[2];
+}
+
+// perturb_normal of one ray: the normal map's tap nm in the frame of the
+// shading normal n, the tangent t and the bitangent cross(n, t) * sign,
+// normalised; n in place.
+__device__ __forceinline__ void perturb(const float4 nm, const float t[3], float tbs, float n[3]) {
+  float b[3], m[3];
+  b[0] = cross_term(n[1], t[2], n[2], t[1]) * tbs;
+  b[1] = cross_term(n[2], t[0], n[0], t[2]) * tbs;
+  b[2] = cross_term(n[0], t[1], n[1], t[0]) * tbs;
+  const float nz = fmaxf(nm.z, C(1e-3));
+  for (int c = 0; c < 3; ++c) m[c] = (nm.x * t[c] + nm.y * b[c]) + nz * n[c];
+  const float len = fmaxf(sqrtf(norm_sq(m)), C(1e-20));
+  for (int c = 0; c < 3; ++c) n[c] = m[c] / len;
+}
+
 // K4's view of one alive ray: the hit flag, its shading state (with the
-// tangent rows when the buffer has them), and its material, the textured
-// parameters (row >= 0) from the parameter buffer.
+// tangent rows when the buffer has them), and its material: the table's
+// row, the textured parameters of `tx.mask` tapped where the material
+// binds a slot, and the shading normal normal-mapped (TAP_NORMAL).
 template <bool ADV, int VOL = VOL_OFF>
-__device__ __forceinline__ void read_hit(const float* hit, const float* par, const int prow[4],
-                                         bool hit_tan, const float* s_mat, int n_mats,
+__device__ __forceinline__ void read_hit(const float* hit, bool hit_tan, const float* s_mat,
+                                         int n_mats, const Taps& tx, const TapTables& tt,
                                          long long R, long long i, Ray& r, Hit& h, Mat& m) {
   r.hit = hit[H_HIT * R + i] > 0.5f;
   for (int c = 0; c < 3; ++c) {
@@ -1043,17 +1262,31 @@ __device__ __forceinline__ void read_hit(const float* hit, const float* par, con
   h.front = hit[H_FRONT * R + i] > 0.5f;
   h.dsided = hit[H_DS * R + i];
   h.has_tan = ADV && hit_tan;
-  if (h.has_tan) {
+  const bool nmap = (tx.mask & TAP_NORMAL) != 0;
+  if (h.has_tan || nmap) {
     for (int c = 0; c < 3; ++c) h.tan[c] = hit[(H_TAN + c) * R + i];
     h.tbs = hit[H_BS * R + i];
   }
-  m = table_mat<ADV, VOL>(s_mat, n_mats, hit[H_MAT * R + i]);
-  for (int c = 0; c < 3; ++c) {
-    if (prow[0] >= 0) m.base[c] = par[(prow[0] + c) * R + i];
-    if (prow[1] >= 0) m.em[c] = par[(prow[1] + c) * R + i];
+  const float mat_f = hit[H_MAT * R + i];
+  m = table_mat<ADV, VOL>(s_mat, n_mats, mat_f);
+  if (tx.mask == 0 || !r.hit) return;
+  const float u = hit[H_UV * R + i], v = hit[(H_UV + 1) * R + i];
+  const int* mi = tt.mi + TAP_MI * min(max((int)rintf(mat_f), 0), n_mats - 1);
+  if ((tx.mask & TAP_BASE) && mi[0] >= 0) {
+    const float4 t = tap(tx, tt, mi[0], u, v);
+    m.base[0] = t.x;
+    m.base[1] = t.y;
+    m.base[2] = t.z;
   }
-  if (prow[2] >= 0) m.metallic = par[prow[2] * R + i];
-  if (prow[3] >= 0) m.roughness = par[prow[3] * R + i];
+  if ((tx.mask & TAP_EMISSIVE) && mi[1] >= 0) {
+    const float4 t = tap(tx, tt, mi[1], u, v);
+    m.em[0] = t.x;
+    m.em[1] = t.y;
+    m.em[2] = t.z;
+  }
+  if ((tx.mask & TAP_METAL) && mi[2] >= 0) m.metallic = channel(tap(tx, tt, mi[2], u, v), mi[5]);
+  if ((tx.mask & TAP_ROUGH) && mi[3] >= 0) m.roughness = channel(tap(tx, tt, mi[3], u, v), mi[6]);
+  if (nmap && mi[4] >= 0) perturb(tap(tx, tt, mi[4], u, v), h.tan, h.tbs, h.n);
 }
 
 // ---------------------------------------------------------------------------
@@ -1127,16 +1360,16 @@ __device__ __forceinline__ Surf resident_surf(const float* tris, int ld, float b
 // (SHADOW_TMIN, ldist), with CUT only one whose draw (the salted PCG word)
 // passes the shadow probability; the walk ends at the first.
 template <bool CUT>
-__device__ __forceinline__ bool tree_occluded(const TriTree& tr, const Ray& r) {
-  const uint32_t key = CUT ? r.rng ^ SHADOW_SALT : 0u;
+__device__ __forceinline__ bool tree_occluded(const TriTree& tr, const float o[3],
+                                              const float ld[3], float ldist, uint32_t key) {
   bool occ = false;
-  gatling::tree_walk(tr.nodes, tr.kids, r.o, r.ld, C(SHADOW_TMIN), r.ldist,
+  gatling::tree_walk(tr.nodes, tr.kids, o, ld, C(SHADOW_TMIN), ldist,
                      [&](int first, int count, float&) {
     const float4* q = reinterpret_cast<const float4*>(tr.rows) + 4 * (size_t)first;
     for (int j = 0; j < count; ++j, q += 4) {
       float tt, u, v;
-      if (!tri_hit(__ldg(q), __ldg(q + 1), __ldg(q + 2), r.o, r.ld, C(SHADOW_TMIN), tt, u, v) ||
-          !(tt < r.ldist))
+      if (!tri_hit(__ldg(q), __ldg(q + 1), __ldg(q + 2), o, ld, C(SHADOW_TMIN), tt, u, v) ||
+          !(tt < ldist))
         continue;
       if (CUT && !(cutout_xi(key, (uint32_t)__ldg(q + 3).x) < __ldg(q + 3).z)) continue;
       occ = true;
@@ -1192,7 +1425,8 @@ bounce_kernel(const float* __restrict__ params, const float* __restrict__ tris, 
   r.hit = best_t < FMAX;
   shade<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights,
                        resident_surf(tris, ld, best_t, bu, bv, win), r, alive_f, &md);
-  const bool occ = NEE && r.do_trace && tree_occluded<CUT>(tree, r);
+  const bool occ = NEE && r.do_trace &&
+                   tree_occluded<CUT>(tree, r.o, r.ld, r.ldist, CUT ? r.rng ^ SHADOW_SALT : 0u);
   finish<VOL>(p, r, occ, state, R, i);
 }
 
@@ -1236,31 +1470,36 @@ trace_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
   write_hit<TAN>(hit, R, i, best_t < FMAX, o, d, sf, uv, tan, tbs);
 }
 
-// K4, resident: shading from the hit and parameter buffers; the NEE shadow
-// rays walk the resident table's tree as in K1.
-template <bool NEE, bool ADV, bool CUT, int VOL>
-__global__ void __launch_bounds__(THREADS)
-shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, int ld,
-             TriTree tree, const float* __restrict__ mats, int n_mats,
-             const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
-             int n_lights, float* __restrict__ state, long long R,
-             const float* __restrict__ hit, const float* __restrict__ par, int pb, int pe,
-             int pm, int pr, int hit_tan) {
+// K4's shared memory: the material and light tables (stage_tables), then
+// the taps' tables (stage_taps) when the launch taps. Returns false for a
+// block whose rays are all dead (nothing to do); every thread reaches the
+// barriers.
+__device__ __forceinline__ bool stage_k4(bool alive, const float* mats, int n_mats,
+                                         const float* lights, const int8_t* ltypes,
+                                         int n_lights, const Taps& tx, float*& s_mat,
+                                         float*& s_light, int*& s_ltype, TapTables& tt) {
   extern __shared__ float4 smem4[];
-  float* s_mat = reinterpret_cast<float*>(smem4);
-  float* s_light = s_mat + n_mats * MAT_COLS;
-  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
-
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
-  if (!__syncthreads_or(alive)) return;
+  s_mat = reinterpret_cast<float*>(smem4);
+  s_light = s_mat + n_mats * MAT_COLS;
+  s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
+  if (!__syncthreads_or(alive)) return false;
   stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
+  tt = {};
+  if (tx.mask != 0) tt = stage_taps(tx, n_mats, s_ltype + n_lights);
   __syncthreads();
-  if (!alive) return;  // no block-wide step follows
+  return true;
+}
 
-  float p[PARAMS_LEN];
-  for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
-  const int prow[4] = {pb, pe, pm, pr};
+// K4's shading of one alive ray up to its shadow walk: the hit buffer and
+// the taps (read_hit), the shading core, and every row of the path state
+// written (write_path, the radiance without the NEE contribution).
+// Returns whether the ray traces a shadow ray, which `sh` then holds.
+template <bool NEE, bool ADV, int VOL>
+__device__ __forceinline__ bool shade_split(const float* p, const float* s_mat, int n_mats,
+                                            const float* s_light, const int* s_ltype,
+                                            int n_lights, const float* hit, bool hit_tan,
+                                            const Taps& tx, const TapTables& tt, float* state,
+                                            long long R, long long i, Shadow& sh) {
   Ray r = {};
   for (int c = 0; c < 3; ++c) {
     r.o[c] = state[(S_OX + c) * R + i];
@@ -1269,13 +1508,42 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ tris, i
   load_path(r, state, R, i);
   Hit h;
   Mat m;
-  read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
+  read_hit<ADV, VOL>(hit, hit_tan, s_mat, n_mats, tx, tt, R, i, r, h, m);
   shade_miss(p, r);
   const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
   if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, s_light, s_ltype, n_lights, r, inside);
   if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
-  const bool occ = NEE && r.do_trace && tree_occluded<CUT>(tree, r);
-  finish<VOL>(p, r, occ, state, R, i);
+  const bool trace = NEE && r.do_trace;
+  if (trace) sh = shadow_of(r);  // before write_path's russian-roulette draw
+  write_path<VOL>(p, r, state, R, i);
+  return trace;
+}
+
+// K4, resident: shading from the hit buffer with its own texture taps, the
+// path state written; then the NEE shadow ray walks the resident table's
+// tree as in K1 and writes the radiance if unoccluded.
+template <bool NEE, bool ADV, bool CUT, int VOL>
+__global__ void __launch_bounds__(THREADS)
+shade_kernel(const float* __restrict__ params, TriTree tree, const float* __restrict__ mats,
+             int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
+             int n_lights, float* __restrict__ state, long long R,
+             const float* __restrict__ hit, int hit_tan, Taps tx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
+  float *s_mat, *s_light;
+  int* s_ltype;
+  TapTables tt;
+  if (!stage_k4(alive, mats, n_mats, lights, ltypes, n_lights, tx, s_mat, s_light, s_ltype, tt))
+    return;
+  if (!alive) return;  // no block-wide step follows
+
+  float p[PARAMS_LEN];
+  for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
+  Shadow sh;
+  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
+                                 tx, tt, state, R, i, sh) &&
+      !tree_occluded<CUT>(tree, sh.o, sh.ld, sh.ldist, sh.key))
+    write_rad(sh.rad, state, R, i);
 }
 
 // ---------------------------------------------------------------------------
@@ -1501,12 +1769,12 @@ __device__ __forceinline__ int walk_closest(const Walk& w, const float o[3], con
 // The NEE shadow ray of a ray that traces one: the any-hit walk, its
 // cutout key the salted PCG word.
 template <bool INST, bool TAN, bool CUT>
-__device__ __forceinline__ bool walk_occluded(const Walk& w, const Ray& r) {
+__device__ __forceinline__ bool walk_occluded(const Walk& w, const float o[3], const float ld[3],
+                                              float ldist, uint32_t key) {
   float unused_t = FMAX;
   int unused_win = -1;
-  return walk<INST, true, TAN, CUT>(w, r.o, r.ld, C(SHADOW_TMIN), r.ldist,
-                                    CUT ? r.rng ^ SHADOW_SALT : 0u,
-                                    unused_t, unused_win);
+  return walk<INST, true, TAN, CUT>(w, o, ld, C(SHADOW_TMIN), ldist, CUT ? key : 0u, unused_t,
+                                    unused_win);
 }
 
 template <bool TAN>
@@ -1647,7 +1915,8 @@ walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ 
   sf.t = FMAX;
   if (r.hit) pass2<INST, TAN>(w, r.o, r.d, win, sf);
   shade<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, sf, r, alive_f, &md);
-  const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
+  const bool occ = NEE && r.do_trace &&
+                   walk_occluded<INST, TAN, CUT>(w, r.o, r.ld, r.ldist, r.rng ^ SHADOW_SALT);
   finish<VOL>(p, r, occ, state, R, i);
 }
 
@@ -1680,45 +1949,30 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
   write_hit<TAN>(hit, R, i, win >= 0, o, d, sf, uv, tan, tbs);
 }
 
-// K4 over the walk: shading from the hit and parameter buffers, the NEE
-// shadow ray through the any-hit walk.
+// K4 over the walk: shading from the hit buffer with its own texture taps,
+// the path state written; then the NEE shadow ray's any-hit walk.
 template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
 shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
                   int n_mats, const float* __restrict__ lights,
                   const int8_t* __restrict__ ltypes, int n_lights, float* __restrict__ state,
-                  long long R, const float* __restrict__ hit, const float* __restrict__ par,
-                  int pb, int pe, int pm, int pr, int hit_tan) {
-  extern __shared__ float4 smem4[];
-  float* s_mat = reinterpret_cast<float*>(smem4);
-  float* s_light = s_mat + n_mats * MAT_COLS;
-  int* s_ltype = reinterpret_cast<int*>(s_light + n_lights * LIGHT_COLS);
-
+                  long long R, const float* __restrict__ hit, int hit_tan, Taps tx) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
-  if (!__syncthreads_or(alive)) return;
-  stage_tables(s_mat, mats, n_mats, s_light, lights, s_ltype, ltypes, n_lights);
-  __syncthreads();
+  float *s_mat, *s_light;
+  int* s_ltype;
+  TapTables tt;
+  if (!stage_k4(alive, mats, n_mats, lights, ltypes, n_lights, tx, s_mat, s_light, s_ltype, tt))
+    return;
   if (!alive) return;  // no block-wide step follows
 
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
-  const int prow[4] = {pb, pe, pm, pr};
-  Ray r = {};
-  for (int c = 0; c < 3; ++c) {
-    r.o[c] = state[(S_OX + c) * R + i];
-    r.d[c] = state[(S_DX + c) * R + i];
-  }
-  load_path(r, state, R, i);
-  Hit h;
-  Mat m;
-  read_hit<ADV, VOL>(hit, par, prow, hit_tan != 0, s_mat, n_mats, R, i, r, h, m);
-  shade_miss(p, r);
-  const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
-  if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, s_light, s_ltype, n_lights, r, inside);
-  if (VOL != VOL_OFF) r.alive_out = medium_row<VOL_ABSORB>(inside, r, false, 0.0f, Medium{});
-  const bool occ = NEE && r.do_trace && walk_occluded<INST, TAN, CUT>(w, r);
-  finish<VOL>(p, r, occ, state, R, i);
+  Shadow sh;
+  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
+                                 tx, tt, state, R, i, sh) &&
+      !walk_occluded<INST, TAN, CUT>(w, sh.o, sh.ld, sh.ldist, sh.key))
+    write_rad(sh.rad, state, R, i);
 }
 
 // Dynamic shared memory above the default 48 KB needs an opt-in.
@@ -1734,11 +1988,39 @@ size_t table_smem(int n_mats, int n_lights) {
          sizeof(int) * (size_t)n_lights;
 }
 
+// K4's: the tables, and the taps' when it taps
+size_t shade_smem(int n_mats, int n_lights, const Taps& tx) {
+  return table_smem(n_mats, n_lights) +
+         (tx.mask != 0 ? sizeof(int) * tap_smem_words(n_mats, tx.n_slots) : 0);
+}
+
 __global__ void __launch_bounds__(THREADS)
 cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restrict__ ids,
                     float* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) out[i] = cutout_xi(keys[i], ids[i]);
+}
+
+// K4's taps alone, for a check against the texture stage (ops/bounce.py
+// tap_rows; on no render path): each hit ray's material row with its
+// tapped parameters and its normal-mapped shading normal, rows base
+// colour (3), emission (3), metallic, roughness, normal (3) of out
+// [11, R]; the material table `mats` is read from global memory.
+__global__ void __launch_bounds__(THREADS)
+tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__ hit,
+           int hit_tan, long long R, Taps tx, float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  const TapTables tt = stage_taps(tx, n_mats, reinterpret_cast<int*>(smem4));
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  Ray r = {};
+  Hit h;
+  Mat m;
+  read_hit<false>(hit, hit_tan != 0, mats, n_mats, tx, tt, R, i, r, h, m);
+  const float rows[11] = {m.base[0], m.base[1], m.base[2], m.em[0],  m.em[1], m.em[2],
+                          m.metallic, m.roughness, h.n[0],   h.n[1], h.n[2]};
+  for (int k = 0; k < 11; ++k) out[k * R + i] = rows[k];
 }
 
 unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
@@ -1779,6 +2061,19 @@ extern "C" {
   const float *tris, int ld, const float *nodes, const int *kids, const float *trows
 #define TREE_STRUCT {nodes, kids, trows}
 
+// K4's texture pool and material slot columns (ops/bounce.py
+// BounceKernel.launch_shade): the MI_* table, the texels and their 2x2
+// rows (q22 null unless every slot wraps repeat), the per-slot offset,
+// width, height, wrap modes, sRGB flag, scale and bias, the sRGB decode
+// table, the slot count and the TAP_* mask (0: no taps).
+#define TAP_ARGS                                                                          \
+  const int *mat_i, const uint32_t *u32, const int *q22, const int *t_off, const int *t_w, \
+      const int *t_h, const int *t_ws, const int *t_wt, const int *t_srgb,                 \
+      const float *t_scale, const float *t_bias, const float *lut, int n_slots, int taps
+#define TAP_STRUCT                                                                         \
+  {mat_i, u32, reinterpret_cast<const int4*>(q22), t_off, t_w, t_h, t_ws, t_wt, t_srgb,     \
+   t_scale, t_bias, lut, n_slots, taps}
+
 #if PART(0)
 const char* gatling_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -1791,6 +2086,17 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
                          long long n_rays, void* stream) {
   if (n_rays <= 0) return 0;
   cutout_draws_kernel CONFIG(0)(keys, ids, out, n_rays);
+  return (int)cudaGetLastError();
+}
+
+// K4's taps alone on hit buffer `hit` into out [11, n_rays] (tap_kernel).
+int gatling_tap_rows(const float* mats, int n_mats, const float* hit, int hit_tan,
+                     long long n_rays, TAP_ARGS, float* out, void* stream) {
+  if (n_rays <= 0) return 0;
+  const Taps tx = TAP_STRUCT;
+  const size_t smem = sizeof(int) * tap_smem_words(n_mats, n_slots);
+  if (int err = allow_smem(tap_kernel, smem)) return err;
+  tap_kernel CONFIG(smem)(mats, n_mats, hit, hit_tan, n_rays, tx, out);
   return (int)cudaGetLastError();
 }
 
@@ -1809,17 +2115,15 @@ int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* st
   });
 }
 
-// K4, resident: shade state [16, n_rays] in place from the hit buffer and
-// the parameter buffer, whose rows pb/pe/pm/pr hold base colour, emission,
-// metallic and roughness (-1: from the material table); hit_tan: the hit
-// buffer has the tangent rows.
+// K4, resident: shade state [16, n_rays] in place from the hit buffer
+// (hit_tan: with the tangent rows), tapping the textures itself.
 int gatling_shade_resident(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,
                            const float* lights, const int8_t* light_types, int n_lights,
-                           float* state, long long n_rays, const float* hit, const float* par,
-                           int pb, int pe, int pm, int pr, int hit_tan, int nee, int adv,
-                           int cut, int vol, void* stream) {
+                           float* state, long long n_rays, const float* hit, int hit_tan,
+                           TAP_ARGS, int nee, int adv, int cut, int vol, void* stream) {
   if (n_rays <= 0) return 0;
-  const size_t smem = table_smem(n_mats, n_lights);
+  const Taps tx = TAP_STRUCT;
+  const size_t smem = shade_smem(n_mats, n_lights, tx);
   const TriTree tree = TREE_STRUCT;
   return with_flag(nee, [&](auto nee_) {
     return with_flag(adv, [&](auto adv_) {
@@ -1827,8 +2131,8 @@ int gatling_shade_resident(const float* params, RESIDENT_TABLES, const float* ma
         return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
           auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
           if (int err = allow_smem(kern, smem)) return err;
-          kern CONFIG(smem)(params, tris, ld, tree, mats, n_mats, lights, light_types,
-                            n_lights, state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);
+          kern CONFIG(smem)(params, tree, mats, n_mats, lights, light_types, n_lights, state,
+                            n_rays, hit, hit_tan, tx);
           return (int)cudaGetLastError();
         });
       });
@@ -1870,7 +2174,7 @@ int gatling_bounce_step(const float* params, RESIDENT_TABLES, const float* mats,
 #define WALK_STRUCT \
   {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox, cnodes, ckids, crows, croot}
 
-#if PART(0)
+#if PART(8)
 // K3 over the walk.
 int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, long long n_rays,
                        float* hit, int cut, void* stream) {
@@ -1921,16 +2225,23 @@ int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, lon
     });                                                                                       \
   }
 
+#if PART(1)
+BOUNCE_WALK(gatling_bounce_walk, false, VOL_OFF, VOL_OFF)
+#endif
+#if PART(2)
+BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
+#endif
 // K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee),
 // the volume modes VLO..VHI.
 #define SHADE_WALK(NAME, NEE_, VLO, VHI)                                                      \
   int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
            const float* lights, const int8_t* light_types, int n_lights, float* state,        \
-           long long n_rays, const float* hit, const float* par, int pb, int pe, int pm,      \
-           int pr, int hit_tan, int adv, int cut, int vol, void* stream) {                    \
+           long long n_rays, const float* hit, int hit_tan, TAP_ARGS, int adv, int cut,       \
+           int vol, void* stream) {                                                           \
     if (n_rays <= 0) return 0;                                                                \
     const Walk w = WALK_STRUCT;                                                               \
-    const size_t smem = table_smem(n_mats, n_lights);                                         \
+    const Taps tx = TAP_STRUCT;                                                               \
+    const size_t smem = shade_smem(n_mats, n_lights, tx);                                     \
     return with_vol<VLO, VHI>(vol, [&](auto vol_) {                                           \
       return with_flag(instanced, [&](auto inst_) {                                           \
         return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                               \
@@ -1940,7 +2251,7 @@ int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, lon
                   shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_)>;      \
               if (int err = allow_smem(kern, smem)) return err;                               \
               kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights,       \
-                                state, n_rays, hit, par, pb, pe, pm, pr, hit_tan);            \
+                                state, n_rays, hit, hit_tan, tx);                             \
               return (int)cudaGetLastError();                                                 \
             });                                                                               \
           });                                                                                 \
@@ -1949,12 +2260,6 @@ int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, lon
     });                                                                                       \
   }
 
-#if PART(1)
-BOUNCE_WALK(gatling_bounce_walk, false, VOL_OFF, VOL_OFF)
-#endif
-#if PART(2)
-BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
-#endif
 #if PART(3)
 SHADE_WALK(gatling_shade_walk, false, VOL_OFF, VOL_OFF)
 #endif
@@ -1967,10 +2272,11 @@ BOUNCE_WALK(gatling_bounce_walk_vol, false, VOL_ABSORB, VOL_SCATTER)
 #if PART(7)
 BOUNCE_WALK(gatling_bounce_walk_vol_nee, true, VOL_ABSORB, VOL_SCATTER)
 #endif
-#if PART(8)
+
+#if PART(9)
 SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB)
 #endif
-#if PART(9)
+#if PART(10)
 SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB)
 #endif
 

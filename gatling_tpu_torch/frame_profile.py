@@ -23,9 +23,9 @@ segments over frame time), the profiled frame's device time by group (the
 kernels K1-K4, the coherence sort, other PyTorch kernels, copies) and its
 device idle share: the part of the frame's wall time in which no kernel
 or copy ran; and the eight PyTorch kernels that took the most of the
-rest. For the textured interior also the texture stage's time in
-that frame: CUDA events around each call of render/fused.py
-material_rows (its kernels and the gaps between them).
+rest. K4 taps the textures itself (its shading launch, `shade_kernel`,
+and its NEE shadow walk, `shadow_kernel` / `shadow_walk_kernel`): the
+textured interior's frame has no texture stage.
 
 glass_coated is tests/graphical/Materials.GlassCoated at the JAX bench's
 settings (1200x1200, 16 spp, 8 bounces, NEE off): K1 with the advanced
@@ -56,11 +56,11 @@ import torch
 
 from gatling_tpu_torch import gi
 from gatling_tpu_torch.interface import AovId
-from gatling_tpu_torch.render import fused
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
-GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
+GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K4 shadow walk", "shadow_"),
+          ("K1 bounce_kernel", "bounce_kernel"),
           ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
           ("K6 shadow rays", "occluded_tree_kernel"), ("sort", "sort"), ("copies", "memcpy"))
 
@@ -235,29 +235,6 @@ def _busy_union(events) -> float:
     return busy
 
 
-def _stage_ms(params) -> tuple[float, int]:
-    """One frame with CUDA events around each texture-stage call: the
-    stage's summed device time and its calls."""
-    real = fused.material_rows
-    spans = []
-
-    def timed(*args):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = real(*args)
-        b.record()
-        spans.append((a, b))
-        return out
-
-    fused.material_rows = timed
-    try:
-        _frame(params)
-    finally:
-        fused.material_rows = real
-    torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in spans), len(spans)
-
-
 def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
     params = _params(scene_name, nee, tex_dir)
     first = _frame(params)
@@ -300,10 +277,6 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
     print("    the largest other kernels:")
     for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"      {ms:.3f} ms in {n}: {name}")
-    if params.scene._accel is None and params.scene._fused_static.textured:
-        ms, calls = _stage_ms(params)
-        print(f"  texture stage (CUDA events around material_rows, one more frame): {ms:.3f} ms "
-              f"in {calls} calls")
     if scene_name == "glass_coated":
         _k1_branches(params, "advanced", (True, False))
     elif scene_name in ("cornell_fog", "glass_tinted"):

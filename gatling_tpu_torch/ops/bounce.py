@@ -30,14 +30,15 @@ CLU_OPAC_SH, the instance rows INST_PASS / INST_PASS_SH). A third,
 mediumStackSize (`with_volumes`), as the JAX gi sets them. `bounce_step`
 runs one bounce of an untextured scene;
 a textured scene splits it into `trace_step` (the hit buffer) and
-`shade_step`, with the texture stage between (render/fused.py). Each runs:
+`shade_step`, which taps the textures itself. Each runs:
 
 * on a CUDA tensor, the hand-written kernels of csrc/bounce.cu (K1
   resident and K2 walk bounce, K3 trace, K4 shade), built with nvcc at
   first use into build/torch_ext/ and loaded with ctypes (a plain C
   interface: a source that includes PyTorch's headers takes minutes to
   build, this one seconds). A failed build or launch raises;
-* on a CPU tensor, the plain twins ops/bounce_ref.py and ops/split_ref.py.
+* on a CPU tensor, the plain twins ops/bounce_ref.py and ops/split_ref.py
+  (K4's after the texture stage, render/fused.py material_rows).
 
 They are registered as the operators `torch.ops.gatling.bounce_step` (K1),
 `bounce_step_walk` (K2), `trace_step` (K3) and `shade_step` (K4).
@@ -118,12 +119,17 @@ from gatling_tpu_torch.ops.bvh import (  # noqa: F401 (TLAS_*: the TLAS builder'
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry
 from gatling_tpu_torch.ops.split_ref import (
+    H_MAT,
+    H_N,
     HIT_ROWS,
     HIT_ROWS_TAN,
+    PAR_ORDER,
+    PR_WIDTHS,
     has_tangents,
     hit_row_count,
     par_row_starts,
     shade_ref,
+    slim_param_layout,
     trace_ref,
 )
 from gatling_tpu_torch.ops.sampling import u32_to_f32_bits
@@ -138,6 +144,7 @@ from gatling_tpu_torch.render.material import (
     MF_VOL_S,
     MaterialTable,
 )
+from gatling_tpu_torch.render.texture import TexturePool, srgb_table
 from gatling_tpu_torch.scene.meshproc import materialize_mesh
 
 RESIDENT_MAX = 4096  # the resident (single-table) branch's triangle ceiling
@@ -152,7 +159,13 @@ MIN_FLAT = 4096
 CLU_VMEM_MAX_BYTES = 56 * 1024 * 1024
 # materials + lights staged in shared memory per block
 SMEM_TABLE_MAX_BYTES = 48 * 1024
-BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
+SMEM_MAX_BYTES = 227 * 1024  # the shared memory an H100 block can use
+MI_COLS = 10  # the device material table's integer columns (render/material.py MI_*)
+# K4's taps (csrc/bounce.cu TAP_*): a bit for each textured parameter it
+# samples, and the normal map
+TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
+TAP_NORMAL = 16
+BOUNCE_PARTS = 11  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
 
@@ -184,7 +197,7 @@ class FusedStatic:
     n_l1: int = 1
     n_instances: int = 0  # > 0: instanced
     tangents: bool = False  # per-corner tangent rows in the tables (normal maps)
-    # split-bounce mode (K3, the texture stage, K4): the scene has textures
+    # split-bounce mode (K3, K4 with its texture taps): the scene has textures
     textured: bool = False
     textured_params: tuple[str, ...] = ()  # the parameters some material textures
     advanced: bool = False  # a material needs the full lobe set (FusedScene.advanced)
@@ -924,11 +937,14 @@ class BounceKernel(CudaLibrary):
         walk = [PTR] * (1 + len(WalkTables._fields)) + [I32]
         shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
         flags = [I32, I32, I32]  # advanced, cutout, the volume mode
-        hit = [PTR, PTR, I32, I32, I32, I32, I32]  # hit, parbuf, 4 parameter rows, hit tangents
-        # the walk kernels take NEE and the volume modes as four entry points
-        # each (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
+        hit = [PTR, I32]  # the hit buffer, whether it has the tangent rows
+        # K4's taps: the MI_* table, the pool's texels, 2x2 rows and eight
+        # slot columns, the sRGB table; the slot count and the TAP_* mask
+        taps = [PTR] * 12 + [I32, I32]
+        # the walk bounce takes NEE and the volume modes as four entry points
+        # (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
         bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
-        shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *flags, PTR]
+        shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *taps, *flags, PTR]
         resident = [PTR, I32, PTR, PTR, PTR]  # tris ld, the TriBvh's nodes kids rows
         super().__init__("bounce.cu", {
             "gatling_bounce_step": [PTR, *resident, *shading, PTR, I64, I32, *flags, PTR],
@@ -936,11 +952,12 @@ class BounceKernel(CudaLibrary):
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_trace_resident": [PTR, *resident, PTR, I64, PTR, I32, PTR],
             "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
-            "gatling_shade_resident": [PTR, *resident, *shading, PTR, I64, *hit, I32, *flags,
-                                       PTR],
+            "gatling_shade_resident": [PTR, *resident, *shading, PTR, I64, *hit, *taps, I32,
+                                       *flags, PTR],
             **{_walk_entry("gatling_shade_walk", nee, vol): shade_walk
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
-            "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR]},
+            "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR],
+            "gatling_tap_rows": [PTR, I32, PTR, I32, I64, *taps, PTR, PTR]},
             "gatling_error_string", parts=BOUNCE_PARTS)
 
     @staticmethod
@@ -1010,15 +1027,37 @@ class BounceKernel(CudaLibrary):
                 tris.shape[1])
 
     @staticmethod
-    def _check_split(state, hit, parbuf=None):
+    def _check_split(state, hit):
         _check_bounce("hit", hit, torch.float32)
         if hit.dim() != 2 or hit.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN) \
                 or hit.shape[1] != state.shape[1]:
             raise ValueError("split kernels: hit buffer must be [16 or 24, R]")
-        if parbuf is not None:
-            _check_bounce("parbuf", parbuf, torch.float32)
-            if parbuf.dim() != 2 or parbuf.shape[0] < 8 or parbuf.shape[1] != state.shape[1]:
-                raise ValueError("split kernels: parameter buffer must be [rows, R]")
+
+    @staticmethod
+    def _tap_args(mats, mat_i, pool: TexturePool, taps: int):
+        """K4's tap arguments (csrc/bounce.cu TAP_ARGS) of the device
+        material table's integer columns and texture pool; `taps` the
+        TAP_* mask."""
+        _check_bounce("mat_i", mat_i, torch.int32)
+        if mat_i.shape != (mats.shape[0], MI_COLS):
+            raise ValueError(f"shade kernel: the material slot columns must be "
+                             f"[{mats.shape[0]}, {MI_COLS}], got {tuple(mat_i.shape)}")
+        ints = ("texels_u32", "texels_q22", "offset", "width", "height", "wrap_s", "wrap_t",
+                "is_srgb")
+        for name in ints:
+            _check_bounce(name, getattr(pool, name), torch.int32)
+        for name in ("scale", "bias"):
+            _check_bounce(name, getattr(pool, name), torch.float32)
+        n = pool.offset.numel()
+        if any(getattr(pool, f).shape != (n,) for f in ints[2:]) \
+                or pool.scale.shape != (n, 4) or pool.bias.shape != (n, 4) \
+                or pool.texels_q22.dim() != 2 or pool.texels_q22.shape[1] != 4:
+            raise ValueError("shade kernel: texture pool shape mismatch")
+        lut = srgb_lut(mats.device)
+        return (mat_i.data_ptr(), pool.texels_u32.data_ptr(),
+                pool.texels_q22.data_ptr() if pool.bilinear_packed else None,
+                *(getattr(pool, f).data_ptr() for f in ints[2:]), pool.scale.data_ptr(),
+                pool.bias.data_ptr(), lut.data_ptr(), n, int(taps))
 
     @staticmethod
     def _stream(state):
@@ -1072,18 +1111,28 @@ class BounceKernel(CudaLibrary):
                        self.stream(state))
 
     def launch_shade(self, params, tris, mats, lights, light_types, walk: WalkTables | None,
-                     bvh: TriBvh | None, state, hit, parbuf, par_rows, nee: bool,
-                     advanced: bool = False,
-                     cutout: bool = False, volumes: int = VOL_OFF) -> None:
-        """K4: shade `state` in place from the hit and parameter buffers
-        (no scatter mode: the split bounce takes absorption only)."""
+                     bvh: TriBvh | None, state, hit, mat_i, pool: TexturePool, taps: int,
+                     nee: bool, advanced: bool = False, cutout: bool = False,
+                     volumes: int = VOL_OFF) -> None:
+        """K4: shade `state` in place from the hit buffer, tapping the
+        pool for the parameters of the TAP_* mask `taps` where the
+        material table's slot columns `mat_i` bind a texture (no scatter
+        mode: the split bounce takes absorption only); with NEE the shadow
+        ray walks the resident tree or the two-level walk in the same
+        launch, after the path state is written."""
         self._check_state(params, state)
-        self._check_split(state, hit, parbuf)
+        self._check_split(state, hit)
         vol = self._check_volumes(mats, volumes, (VOL_OFF, VOL_ABSORB))
-        bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(), parbuf.data_ptr(),
-                *[int(r) for r in par_rows], int(hit.shape[0] == HIT_ROWS_TAN))
-        flags = (int(bool(advanced)), int(bool(cutout)), vol, self.stream(state))
         shading = self._check_shading(mats, lights, light_types)
+        tap_args = self._tap_args(mats, mat_i, pool, taps)
+        smem = 4 * (mats.numel() + lights.numel() + light_types.numel()) + (
+            4 * (mats.shape[0] * 7 + tap_args[-2] * 14 + 256) if taps else 0)
+        if smem > SMEM_MAX_BYTES:
+            raise ValueError(f"shade kernel: its tables take {smem} B of shared memory, above "
+                             f"the {SMEM_MAX_BYTES} B a block has")
+        bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(),
+                int(hit.shape[0] == HIT_ROWS_TAN), *tap_args)
+        flags = (int(bool(advanced)), int(bool(cutout)), vol, self.stream(state))
         if walk is None:
             self.call("gatling_shade_resident", params.data_ptr(),
                        *self._resident_args(tris, bvh, cutout), *shading, *bufs, int(bool(nee)),
@@ -1101,7 +1150,8 @@ def _walk_entry(base: str, nee: bool, volumes: int) -> str:
 
 _kernel: BounceKernel | None = None
 # kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
-# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade
+# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade (its
+# shading launch and, with NEE, its shadow-walk launch count one)
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
@@ -1159,17 +1209,51 @@ def _trace_cpu(params, tris, state, walk, bvh, cutout: bool) -> torch.Tensor:
     return trace_ref(params, tris, state, _walk(walk), cutout)
 
 
-def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, parbuf, par_rows,
-                state, nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
+_srgb_luts: dict[torch.device, torch.Tensor] = {}
+
+
+def srgb_lut(device) -> torch.Tensor:
+    """K4's sRGB decode table on `device` (render/texture.py srgb_table),
+    built there once."""
+    device = torch.device(device)
+    if device not in _srgb_luts:
+        _srgb_luts[device] = srgb_table(device)
+    return _srgb_luts[device]
+
+
+def tap_mask(textured: int, hit_rows: int, pool: TexturePool) -> int:
+    """The TAP_* mask of a split shade: the TAP_BITS of the textured
+    parameters it reads, and the normal map when the hit buffer carries
+    the tangent rows; 0 for a pool with no texture (an anisotropic scene's
+    empty pool). A float pool raises."""
+    if not (pool.count > 1 or pool.packed):
+        return 0
+    if not pool.packed:
+        raise NotImplementedError("K4 taps 8-bit pools; float texel pools arrive with the HDR "
+                                  "codecs (ROADMAP: 'Dome lights')")
+    return textured | (TAP_NORMAL if hit_rows == HIT_ROWS_TAN else 0)
+
+
+def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
+                textured: int, state, nee: bool, advanced: bool, cutout: bool,
+                volumes: int) -> None:
+    pool = TexturePool(*pool)
     kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), _bvh(bvh), state,
-                          hit, parbuf, par_rows, nee, advanced, cutout, volumes)
+                          hit, mat_i, pool, tap_mask(textured, hit.shape[0], pool), nee, advanced,
+                          cutout, volumes)
     launches["K4"] += 1
 
 
-def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, parbuf, par_rows,
-               state, nee: bool, advanced: bool, cutout: bool, volumes: int) -> None:
+def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
+               textured: int, state, nee: bool, advanced: bool, cutout: bool,
+               volumes: int) -> None:
+    # the texture stage, then the shade twin (render/fused.py imports this module)
+    from gatling_tpu_torch.render.fused import material_rows
+
+    active = tuple(name for name in PAR_ORDER if textured & TAP_BITS[name])
+    parbuf, hit = material_rows(MaterialTable(mat_f, mat_i), TexturePool(*pool), hit, active)
     shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
-              par_rows, nee, _walk(walk), advanced, cutout, volumes)
+              par_row_starts(active), nee, _walk(walk), advanced, cutout, volumes)
 
 
 _lib = torch.library.Library("gatling", "DEF")
@@ -1188,9 +1272,9 @@ _lib.define("trace_step(Tensor params, Tensor tris, Tensor state, Tensor[] walk,
 _lib.impl("trace_step", _trace_cuda, "CUDA")
 _lib.impl("trace_step", _trace_cpu, "CPU")
 _lib.define("shade_step(Tensor params, Tensor tris, Tensor mats, Tensor lights, "
-            "Tensor light_types, Tensor[] walk, Tensor[] bvh, Tensor hit, Tensor parbuf, "
-            "int[] par_rows, "
-            "Tensor(a!) state, bool nee, bool advanced, bool cutout, int volumes) -> ()")
+            "Tensor light_types, Tensor[] walk, Tensor[] bvh, Tensor hit, Tensor mat_f, "
+            "Tensor mat_i, Tensor[] pool, int textured, Tensor(a!) state, bool nee, "
+            "bool advanced, bool cutout, int volumes) -> ()")
 _lib.impl("shade_step", _shade_cuda, "CUDA")
 _lib.impl("shade_step", _shade_cpu, "CPU")
 
@@ -1210,6 +1294,48 @@ def cutout_draws(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     k = kernel()
     k.call("gatling_cutout_draws", keys.data_ptr(), ids.data_ptr(), out.data_ptr(), keys.numel(),
            k.stream(keys))
+    return out
+
+
+def tap_rows_ref(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
+                 textured_params) -> torch.Tensor:
+    """tap_rows' twin, on the device of its tensors: the texture stage
+    (render/fused.py material_rows) over the raw material table's rows."""
+    from gatling_tpu_torch.render.fused import material_rows
+
+    active = tuple(name for name in PAR_ORDER if name in textured_params)
+    parbuf, hit_n = material_rows(materials, textures, hitbuf, active)
+    mat = torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
+    rows = materials.packed_f[mat][:, [0, 1, 2, 7, 8, 9, 3, 4]].T.clone()
+    layout = dict(slim_param_layout(active))
+    for name, dst in (("base_color", 0), ("emissive", 3), ("metallic", 6), ("roughness", 7)):
+        if name in layout:
+            rows[dst:dst + PR_WIDTHS[name]] = parbuf[layout[name]:layout[name] + PR_WIDTHS[name]]
+    return torch.cat([rows, hit_n[H_N:H_N + 3]])
+
+
+def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
+             textured_params) -> torch.Tensor:
+    """K4's taps alone, a check of them on no render path (no launch
+    count): [11, R] of the base colour, emission, metallic, roughness and
+    shading normal each hit ray of K3's hit buffer shades with, from the
+    raw material table `materials` and the texture pool: K4's device code
+    on CUDA tensors, tap_rows_ref on CPU ones. Rows of missed rays are
+    unspecified."""
+    if not hitbuf.is_cuda:
+        return tap_rows_ref(hitbuf, materials, textures, textured_params)
+    k, mats = kernel(), materials.packed_f
+    _check_bounce("mats", mats, torch.float32)
+    _check_bounce("hit", hitbuf, torch.float32)
+    if hitbuf.dim() != 2 or hitbuf.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN):
+        raise ValueError("tap_rows: hit buffer must be [16 or 24, R]")
+    out = torch.empty((11, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
+    textured = sum(bit for name, bit in TAP_BITS.items() if name in textured_params)
+    taps = k._tap_args(mats, materials.packed_i, textures,
+                       tap_mask(textured, hitbuf.shape[0], textures))
+    k.call("gatling_tap_rows", mats.data_ptr(), mats.shape[0], hitbuf.data_ptr(),
+           int(hitbuf.shape[0] == HIT_ROWS_TAN), hitbuf.shape[1], *taps, out.data_ptr(),
+           k.stream(hitbuf))
     return out
 
 
@@ -1237,12 +1363,18 @@ def trace_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor) -> 
 
 
 def shade_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
-               hitbuf: torch.Tensor, parbuf: torch.Tensor, textured_params, nee: bool) -> None:
-    """The split bounce's shade (K4 on a CUDA state, its twin on a CPU
-    one), in place: materials from scene.mats, the textured parameters
-    from parbuf in the slim layout of `textured_params`."""
+               hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
+               textured_params, nee: bool) -> None:
+    """The split bounce's shade, in place, from K3's hit buffer: the
+    material rows of scene.mats, with the parameters `textured_params`
+    tapped from `textures` where the device material table `materials`
+    binds a slot, and the shading normal normal-mapped when the hit buffer
+    carries the tangent rows. On a CUDA state K4, which taps the textures
+    itself; on a CPU state the texture stage (render/fused.py
+    material_rows), then K4's twin."""
+    textured = sum(bit for name, bit in TAP_BITS.items() if name in textured_params)
     torch.ops.gatling.shade_step(params, scene.tris, scene.mats, scene.lights,
                                  scene.light_types, list(scene.walk or ()),
-                                 list(scene.bvh or ()), hitbuf, parbuf,
-                                 par_row_starts(textured_params), state, bool(nee),
+                                 list(scene.bvh or ()), hitbuf, materials.packed_f,
+                                 materials.packed_i, list(textures), textured, state, bool(nee),
                                  bool(scene.advanced), bool(scene.cutout), int(scene.volumes))

@@ -7,11 +7,14 @@ roulette) until `max_bounces` or until no ray is alive; then the
 per-sample radiance clamp and the accumulation. Per-sample RNG streams
 equal the JAX package's. An untextured scene runs one kernel a bounce,
 `bounce_step` (K1 or K2). A textured one splits the bounce: `trace_step`
-(K3) writes the hit buffer, `material_rows`, the texture stage, samples
-the textured parameters with plain torch gathers (and perturbs the
-shading normal of normal-mapped scenes), and `shade_step` (K4) shades;
-with textureLodBounces = k, bounces k and later run `bounce_step` on the
-kernels' material table, which holds the texture means.
+(K3) writes the hit buffer and `shade_step` (K4) samples the textured
+parameters, perturbs the shading normal of normal-mapped scenes and
+shades. The JAX package runs an XLA texture stage between its two
+kernels (`_material_rows`); its port, `material_rows` here, is the plain
+twin of K4's taps (shade_step runs it on a CPU state) and never runs on
+the card's main path. With textureLodBounces = k, bounces k and later
+run `bounce_step` on the kernels' material table, which holds the
+texture means.
 
 A dead ray costs the kernels one load of its alive row, so the port keeps
 no alive-ray partition between bounces (the TPU path partitions 128-ray
@@ -62,6 +65,9 @@ from gatling_tpu_torch.render.material import (
 )
 from gatling_tpu_torch.render.texture import TexturePool
 
+# calls of material_rows, the texture stage (chip_smoke.py asserts that a
+# textured frame on the card makes none)
+stage_calls = 0
 # samples of one pixel traced together in one ray wave, up to this many rays
 SPP_BATCH_RAYS = 4194304
 # the AOVs the JAX package's fused kernels write (render/fused.py:116-118);
@@ -110,11 +116,14 @@ def coherence_keys(state: torch.Tensor, scene_lo: torch.Tensor,
 
 def material_rows(materials: MaterialTable, textures: TexturePool, hitbuf: torch.Tensor,
                   active: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """The texture stage between trace_step and shade_step (render/fused.py
-    _material_rows): (the slim parameter buffer of the textured parameters
-    `active`, the hit buffer). When the hit buffer carries tangent rows,
-    its H_N rows come back normal-mapped. `materials` is the raw material
-    table on the device; missed and dead rays read row 0 harmlessly."""
+    """The texture stage of the JAX package's split bounce (render/fused.py
+    _material_rows), the plain twin of K4's taps: (the slim parameter
+    buffer of the textured parameters `active`, the hit buffer). When the
+    hit buffer carries tangent rows, its H_N rows come back normal-mapped.
+    `materials` is the raw material table on the device; missed and dead
+    rays read row 0 harmlessly."""
+    global stage_calls
+    stage_calls += 1
     mat = torch.clamp(torch.round(hitbuf[H_MAT]).to(torch.int32), min=0)
     uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
     p = apply_textures(materials, textures, gather_params(materials, mat), mat, uv, active)
@@ -141,7 +150,7 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     with_stats also the mean traced-segment count per sample [R] (path
     segments + NEE shadow rays: the Mray/s accounting source). With
     `textures` (and the raw device `materials` and the textured parameter
-    names) the bounces split into trace, texture stage and shade."""
+    names) the bounces split into trace and shade."""
     if config.has_dome:
         raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
     if config.clipping_planes:
@@ -190,8 +199,8 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
                 break
             if textures is not None and (lod_k <= 0 or bounce < lod_k):
                 hitbuf = trace_step(params[bounce], scene, state)
-                parbuf, hitbuf = material_rows(materials, textures, hitbuf, textured_params)
-                shade_step(params[bounce], scene, state, hitbuf, parbuf, textured_params, nee)
+                shade_step(params[bounce], scene, state, hitbuf, materials, textures,
+                           textured_params, nee)
             else:
                 bounce_step(params[bounce], scene, state, nee)
             if sort_rays:

@@ -196,6 +196,21 @@ class TextureManager:
             scale=f32(scales), bias=f32(biases), mean=f32(means))
 
 
+def srgb_decode(c: torch.Tensor) -> torch.Tensor:
+    """sRGB-encoded colour values in [0, 1] to linear (sample_pool's decode
+    after the tap)."""
+    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def srgb_table(device) -> torch.Tensor:
+    """[256] f32: the linear value of each 8-bit sRGB code, by sample_pool's
+    own expressions on `device` (code * (1/255), then srgb_decode), so that
+    the kernel K4 reads it in place of a pow and equals the taps of
+    sample_pool on that device on every code."""
+    code = torch.arange(256, dtype=torch.int32, device=device)
+    return srgb_decode(code.to(torch.float32) * (1.0 / 255.0))
+
+
 def _wrap_coord(x: torch.Tensor, size: torch.Tensor, mode: torch.Tensor):
     """Wrap integer texel coordinates; returns (index, inside mask)."""
     size = torch.clamp(size, min=1)
@@ -240,7 +255,7 @@ def sample_pool(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor) -> to
         val = torch.stack([code & 0xFF, (code >> 8) & 0xFF, (code >> 16) & 0xFF,
                            (code >> 24) & 0xFF], dim=-1).to(torch.float32) * (1.0 / 255.0)
         c = val[..., :3]
-        lin = torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+        lin = srgb_decode(c)
         on = srgb.reshape(srgb.shape + (1,) * (c.dim() - 2))
         return torch.cat([torch.where(on, lin, c), val[..., 3:]], dim=-1)
 

@@ -39,6 +39,20 @@ picks some; all by default):
   copy): glass_coated (NEE off and on), cornell, cornell_nee; with the
   wavefront group also cornell_aovs, cornell_cutout_aovs and
   interior_aovs;
+* k4: the split shade as the main path runs it between K3 and the next
+  bounce: a checkout whose K4 takes the texture stage's parameter buffer
+  (`shade_step(..., parbuf, ...)`) is timed as the stage
+  (render/fused.py material_rows) and K4 together, and each alone; one
+  whose K4 taps the textures itself as K4 alone. On the waves a frame
+  hands K3 (recorded by wrapping render/fused.py trace_step; bounce 0 and
+  2, NEE on unless named): the textured interior (gi's instanced tables;
+  also NEE off, and with a 2048x2048 sRGB texture written from a seed on
+  every base colour, whose taps read from HBM), its normal-mapped
+  variant, interior_lobes (K4's advanced branch), interior_tinted (the
+  absorption branch) and the textured Cornell box (resident, NEE off);
+  warm frames of interior_nee_textured, _normalmapped, _lod2,
+  cornell_textured, interior_lobes, interior_tinted and sphere_field
+  (NEE off and on);
 * the ptxas registers, stack and spills of every kernel instance.
 """
 
@@ -63,7 +77,7 @@ def _chip_smoke():
     return cs
 
 
-GROUPS = ("resident", "wavefront", "probes", "walk", "frames")
+GROUPS = ("resident", "wavefront", "probes", "walk", "frames", "k4")
 
 
 def time_tree(tree: str, groups=GROUPS) -> None:
@@ -133,6 +147,8 @@ def time_tree(tree: str, groups=GROUPS) -> None:
     frames, waves = {}, {}
     if "walk" in groups:
         time_walk(cs, device, tmp.name, out, frames)
+    if "k4" in groups:
+        time_k4(cs, device, tmp.name, out, frames)
     settings = dict(spp=16, maxBounces=8)
     wavefront = "wavefront" in groups
     cases = []
@@ -200,11 +216,13 @@ def time_tree(tree: str, groups=GROUPS) -> None:
 def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
     """The walk group: K2 on sphere_field's waves, K3 and K4 on the
     textured interior's, at bounces 0 and 2, and their warm frames."""
+    import inspect
+
     import torch
 
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
-    from gatling_tpu_torch.ops.split_ref import shade_ref, trace_ref
+    from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref, trace_ref
     from gatling_tpu_torch.render.fused import coherence_keys, material_rows
 
     def coherent(state, fs):  # render_pixels_fused's order after a bounce
@@ -242,7 +260,8 @@ def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
         frames[f"interior_nee_textured warm {i + 1}"] = cs.counted_render(
             params, "interior_nee_textured")[1]
     fs, static, mats, pool, active = cs.split_tables(params)
-    prow = tb.par_row_starts(active)
+    prow = par_row_starts(active)
+    stage_first = "parbuf" in inspect.signature(tb.shade_step).parameters
     state = cs.wave_state(params.camera, cs.SF_RES, cs.SF_RES, cs.SF_SPP, device, tiled=True)
     for b in range(3):
         p = cs.params_row(b, device)
@@ -251,12 +270,116 @@ def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
         if b in (0, 2):
             out[f"K3 interior bounce {b}"] = cs.time_ms(lambda s: tb.trace_step(p, fs, s), state,
                                                         reps=15)
+            # K4 alone: on the stage's buffers where it takes them
+            k4_args = (hit_n, parbuf) if stage_first else (hit, mats, pool)
             out[f"K4 interior nee=True bounce {b}"] = cs.time_ms(
-                lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, True), state, reps=15)
+                lambda s: tb.shade_step(p, fs, s, *k4_args, active, True), state, reps=15)
         state = state.clone()
         shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, state, hit_n, parbuf, prow,
                   True, fs.walk)
         state = coherent(state, fs)
+
+
+def big_texture_interior(cs, device, tmp: str, size: int = 2048):
+    """The textured interior with every base colour one size x size sRGB
+    RGBA texture of noise from a seed: a pool of 64 MB of 2x2 rows at 2048,
+    which no cache holds, so each tap reads device memory."""
+    import numpy as np
+
+    from gatling_tpu_torch import imgio
+    from gatling_tpu_torch.scene.examples import interior
+
+    path = os.path.join(tmp, f"noise{size}.png")
+    img = np.random.default_rng(5).integers(0, 256, (size, size, 4), dtype=np.uint8)
+    img[..., 3] = 255
+    imgio.write_image_file(path, img)
+    desc = interior(tex_dir=tmp)
+    for m in desc.materials.values():
+        for node in m.nodes.values():
+            if node.shader_id == "UsdUVTexture":
+                node.inputs.update(file=path, sourceColorSpace="sRGB")
+    return cs.desc_params(device, desc, cs.SF_RES, dict(spp=cs.SF_SPP, maxBounces=cs.SF_BOUNCES,
+                                                        nextEventEstimation=True))
+
+
+def time_k4(cs, device, tmp: str, out: dict, frames: dict) -> None:
+    """The k4 group: the split shade between K3 and the next bounce, as the
+    checkout's main path runs it (the texture stage and K4, or K4 alone),
+    on the waves a frame hands K3, and the warm frames of the textured
+    scenes and of sphere_field."""
+    import inspect
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.render import fused
+    from gatling_tpu_torch.scene import examples as ex
+
+    stage_first = "parbuf" in inspect.signature(tb.shade_step).parameters
+    print(f"K4 {'after the texture stage' if stage_first else 'with its own taps'}", flush=True)
+
+    def record(params):
+        """{bounce: (params row, tables, state)} going into K3 at bounces 0
+        and 2 of the first sample batch of one more frame."""
+        calls, real = [], fused.trace_step
+
+        def trace(p, scene, state):
+            if len(calls) < 3:
+                calls.append((p.clone(), scene, state.clone()))
+            return real(p, scene, state)
+
+        fused.trace_step = trace
+        try:
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            gi.render(params)
+        finally:
+            fused.trace_step = real
+        return {b: calls[b] for b in (0, 2) if b < len(calls)}
+
+    def case(label, params, nees=(True,), bounces=(0, 2), warm=3):
+        cs.counted_render(params, label + " (first frame)")
+        for i in range(warm):
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
+        scene = params.scene
+        mats, pool = scene._material_dev, scene._texture_pool
+        active = scene._fused_static.textured_params
+        for b, (p, fs, state) in (record(params) if bounces else {}).items():
+            if b not in bounces:
+                continue
+            hit = tb.trace_step(p, fs, state)
+            for nee in nees:
+                name = f"{label} nee={nee} bounce {b}"
+                if stage_first:
+                    parbuf, hit_n = fused.material_rows(mats, pool, hit, active)
+                    out[f"stage {name}"] = cs.time_ms(
+                        lambda h: fused.material_rows(mats, pool, h, active), hit, reps=15)
+                    out[f"K4 alone {name}"] = cs.time_ms(
+                        lambda s: tb.shade_step(p, fs, s, hit_n, parbuf, active, nee), state,
+                        reps=15)
+
+                    def split(s, p=p, fs=fs, nee=nee):
+                        par, hn = fused.material_rows(mats, pool, hit, active)
+                        tb.shade_step(p, fs, s, hn, par, active, nee)
+                else:
+                    def split(s, p=p, fs=fs, nee=nee):
+                        tb.shade_step(p, fs, s, hit, mats, pool, active, nee)
+                out[f"stage+K4 {name}"] = cs.time_ms(split, state, reps=15)
+
+    extra = cs.write_textures(tmp)
+    case("interior_nee_textured", cs.interior_params(device, tmp), nees=(True, False))
+    case("interior_normalmapped", cs.interior_params(device, tmp, normal_map=extra["lean"]))
+    lparams = cs.interior_params(device, tmp, textureLodBounces=2)
+    case("interior_lod2", lparams, bounces=())
+    case("interior_lobes", cs.interior_lobes_params(device, tmp), bounces=(0,))
+    case("interior_tinted", cs.media_params(device, ex.interior_tinted(tex_dir=tmp), cs.SF_RES,
+                                            cs.SF_SPP, cs.SF_BOUNCES, 0), bounces=(0,))
+    cparams = cs.cornell_params(device, dict(spp=16, maxBounces=8))
+    cs.texture_every_material(cparams.scene.materials, "diffuseColor", extra["checker"])
+    case("cornell_textured", cparams, nees=(False,), bounces=(0,))
+    case("interior_noise2048", big_texture_interior(cs, device, tmp), bounces=(0,), warm=1)
+    sf = cs.sphere_field_setup(device)
+    for nee in (False, True):
+        case(f"sphere_field nee={nee}", cs.sphere_field_params(device, sf, nee), bounces=())
 
 
 def main(argv: list[str]) -> int:

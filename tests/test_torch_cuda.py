@@ -26,6 +26,7 @@ from gatling_tpu_torch.ops.geometry import build_geometry
 from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
 from gatling_tpu_torch.render.lights import build_light_arrays
 from gatling_tpu_torch.render.material import build_material_table, lower_material
+from gatling_tpu_torch.render.texture import empty_pool
 from gatling_tpu_torch.scene.stage import LightDesc, load_scene
 
 RTOL, ATOL, MIN_AGREE = 1e-4, 1e-5, 0.999
@@ -145,8 +146,30 @@ def test_walk_kernel_matches_twin(cuda, instanced, nee):
         state = twin
 
 
+def _tap_variants(desc) -> None:
+    """K4's other taps on a textured scene: every texture decoded as sRGB
+    and wrapping clamp, mirror or black (each material two of the three in
+    turn: a pool with no 2x2 rows, tapped through texels_u32), metallic and
+    roughness from the b and g channels of the material's texture."""
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    modes = ("clamp", "mirror", "black")
+    for k, m in enumerate(desc.materials.values()):
+        wraps = dict(wrapS=modes[k % 3], wrapT=modes[(k + 1) % 3])
+        files = [n.inputs["file"] for n in m.nodes.values() if n.shader_id == "UsdUVTexture"]
+        for n in m.nodes.values():
+            if n.shader_id == "UsdUVTexture":
+                n.inputs.update(sourceColorSpace="sRGB", **wraps)
+        for name, channel in (("metallic", "b"), ("roughness", "g")) if files else ():
+            node = ShaderNode(path=f"{m.path}/{name}_tex", shader_id="UsdUVTexture",
+                              inputs={"file": files[0], "sourceColorSpace": "raw", **wraps},
+                              input_connections={})
+            m.nodes[node.path] = node
+            m.nodes[m.surface_node].input_connections[name] = (node.path, channel)
+
+
 def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
-                     tinted: bool = False):
+                     tinted: bool = False, taps: bool = False):
     """Tables of a small interior (3,840 triangles) for the split kernels:
     its base-colour textures and, with `normal_map`, a leaning
     tangent-space normal map on every material (a raw UsdUVTexture, which
@@ -154,13 +177,15 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
     builds the materials, the texture pool and the kernel material table;
     its geometry and that table then go into resident, flattened or
     instanced tables. `tinted`: the bowls in tinted glass
-    (examples.interior_tinted)."""
+    (examples.interior_tinted); `taps`: _tap_variants."""
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.scene.examples import interior, interior_tinted
     from gatling_tpu_torch.scene.stage import ShaderNode
 
     desc = (interior_tinted if tinted else interior)(detail=1, tex_dir=str(tex_dir))
+    if taps:
+        _tap_variants(desc)
     if normal_map:
         lean = np.zeros((2, 2, 4), np.uint8)
         lean[...] = (200, 128, 230, 255)
@@ -197,35 +222,32 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
             desc.first_camera())
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("layout", ["resident", "flattened", "instanced"])
-@pytest.mark.parametrize("nee,normal_map", [(False, False), (True, False), (True, True)])
-def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
-    """K3 and K4 against their twins (ops/split_ref.py) on a textured
-    interior wave, bounces 0-4: hit-buffer rows H_HIT and H_MAT and state
-    rows 12-15 bit-equal, the other rows within tolerance; at bounce 1
-    also K1 / K2 on the same tables (tangent rows included), as the
-    textureLodBounces bounces run them."""
+def _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee: bool, label,
+                       bounces: int = 5, bounce_lod: bool = True):
+    """K3 and K4 against their twins on a 128x64 camera wave of the tables,
+    bounces 0..bounces-1 (the twins step the wave): hit-buffer rows H_HIT
+    and H_MAT and state rows 12-15 bit-equal on every ray, the other rows
+    within tolerance on 99.9 %; K4 from the twin's hit buffer with its own
+    taps, its twin the texture stage (material_rows) and shade_ref; with
+    `bounce_lod`, at bounce 1 also K1 / K2 on the same tables (tangent rows
+    included), as the textureLodBounces bounces run them."""
     from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, shade_ref, trace_ref
     from gatling_tpu_torch.render.fused import material_rows
 
-    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, nee, normal_map,
-                                                                tmp_path)
-    assert static.clustered == (layout != "resident") and static.instanced == (
-        layout == "instanced")
     w, h = 128, 64
     cam = camera_uniforms(cam_desc, False, cuda)
     pix = torch.arange(w * h, device=cuda)
     o, d, rng = generate_primary_rays(cam, w, h, pix % w, pix // w, smp.rng_init(pix, 1),
                                       True, True, False)
     state = tb.pack_state(o, d, rng, w * h)
-    params = np.zeros((5, 11), np.float32)
-    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(5)
+    params = np.zeros((bounces, 11), np.float32)
+    params[:, 3], params[:, 4], params[:, 5] = 0.95, 3, np.arange(bounces)
     params[:, 6] = params[:, 8] = params[:, 9] = 1.0
     lt = static.light_types
-    for bounce in range(5):
+    flags = (fs.walk, fs.advanced, fs.cutout, fs.volumes)
+    for bounce in range(bounces):
         p = torch.tensor(params[bounce], device=cuda)
-        hit_twin = trace_ref(p, fs.tris, state, fs.walk)
+        hit_twin = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
         before = dict(tb.launches)
         hit_k = tb.trace_step(p, fs, state)
         torch.cuda.synchronize()
@@ -234,33 +256,180 @@ def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
         for row in (H_HIT, H_MAT):
             np.testing.assert_array_equal(hk[row].view(np.int32), ht[row].view(np.int32))
         close = np.isclose(hk, ht, rtol=RTOL, atol=ATOL).all(axis=0)
-        assert close.mean() >= MIN_AGREE, (layout, bounce, int((~close).sum()))
+        assert close.mean() >= MIN_AGREE, (label, bounce, int((~close).sum()))
 
-        parbuf, hit_twin = material_rows(mats, pool, hit_twin, active)
+        parbuf, hit_n = material_rows(mats, pool, hit_twin, active)
         twin = state.clone()
-        shade_ref(p, fs.tris, fs.mats, fs.lights, lt, twin, hit_twin, parbuf,
-                  tb.par_row_starts(active), nee, fs.walk)
+        shade_ref(p, fs.tris, fs.mats, fs.lights, lt, twin, hit_n, parbuf,
+                  tb.par_row_starts(active), nee, *flags)
         kern = state.clone()
-        tb.shade_step(p, fs, kern, hit_twin, parbuf, active, nee)
+        tb.shade_step(p, fs, kern, hit_twin, mats, pool, active, nee)
         torch.cuda.synchronize()
         assert tb.launches["K4"] == before["K4"] + 1
         k, t = kern.cpu().numpy(), twin.cpu().numpy()
         np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
         close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
-        assert close.mean() >= MIN_AGREE, (layout, bounce, int((~close).sum()))
-        if bounce == 1:
+        assert close.mean() >= MIN_AGREE, (label, bounce, int((~close).sum()))
+        if bounce == 1 and bounce_lod:
             # textureLodBounces runs K1/K2 on these (means, tangent-row) tables
             plain = state.clone()
-            tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, lt, plain, nee, fs.walk)
+            tb.bounce_ref(p, fs.tris, fs.mats, fs.lights, lt, plain, nee, *flags)
             kern = state.clone()
             tb.bounce_step(p, fs, kern, nee)
             torch.cuda.synchronize()
             k, t = kern.cpu().numpy(), plain.cpu().numpy()
             bits = (k[12:].view(np.int32) != t[12:].view(np.int32)).any(axis=0)
             close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
-            assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, layout
+            assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, label
         state = twin
-    assert int((state[13] > 0.5).sum()) > 0  # rays lived through bounce 4
+    return state
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "flattened", "instanced"])
+@pytest.mark.parametrize("nee,normal_map", [(False, False), (True, False), (True, True)])
+def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
+    """K3 and K4 against their twins (ops/split_ref.py, K4's after the
+    texture stage) on a textured interior wave, bounces 0-4
+    (_check_split_waves)."""
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, nee, normal_map,
+                                                                tmp_path)
+    assert static.clustered == (layout != "resident") and static.instanced == (
+        layout == "instanced")
+    assert pool.bilinear_packed
+    _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee, layout)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "instanced"])
+@pytest.mark.parametrize("normal_map", [False, True])
+def test_split_taps_wrap_modes_and_channels(cuda, tmp_path, layout, normal_map):
+    """K4's taps through the wrap modes (clamp, mirror, black: texels_u32
+    and the floor-modulo wrap on the interior's uv outside [0, 1]), sRGB
+    slots (the decode table) and metallic and roughness picked from the b
+    and g channels, against the texture stage and shade_ref, NEE on."""
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, True, normal_map,
+                                                                tmp_path, taps=True)
+    assert not pool.bilinear_packed and {"metallic", "roughness"} <= set(active)
+    assert bool((pool.is_srgb > 0).any()) and {0, 1, 3} <= set(pool.wrap_s.tolist())
+    _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, True,
+                       f"{layout} taps", bounce_lod=False)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("textured", [False, True])
+def test_split_lobes_cutout_match_twins(cuda, tmp_path, textured):
+    """K4's advanced (mesh-tangent frame) and cutout (the shadow walk's
+    draws) branches: the small interior with an anisotropic open_pbr
+    worktop over its texture and the bowls at opacity 0.5 (textured), or
+    the sphere field with an anisotropic and a half-open material and the
+    empty pool (untextured), through gi's tables (resident for the
+    interior, instanced for the sphere field), NEE on."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.scene.examples import interior
+
+    if textured:
+        desc = interior(detail=1, tex_dir=str(tmp_path))
+        work = desc.materials["/m_worktop"]
+        node = work.nodes[work.surface_node]
+        node.input_connections["base_color"] = node.input_connections.pop("diffuseColor")
+        node.shader_id = "ND_open_pbr_surface_surfaceshader"
+        node.inputs = dict(specular_roughness=0.25, specular_roughness_anisotropy=0.6)
+        bowl = desc.materials["/m_bowl"]
+        bowl.nodes[bowl.surface_node].inputs["opacity"] = 0.5
+    else:
+        desc = _lobe_desc("sphere_field_lobes")
+        node = desc.materials["/mat3"].nodes[desc.materials["/mat3"].surface_node]
+        node.shader_id = "ND_open_pbr_surface_surfaceshader"
+        node.inputs = dict(base_metalness=1.0, specular_roughness=0.3,
+                           specular_roughness_anisotropy=0.7)
+    scene = gi.create_scene(cuda)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                aov_bindings=[gi.GiAovBinding(AovId.COLOR,
+                                                              gi.GiRenderBuffer(8, 8, 4))],
+                                render_settings=dict(spp=1, maxBounces=1,
+                                                     nextEventEstimation=True)))
+    fs, st = scene._fused, scene._fused_static
+    assert st.textured and st.advanced and st.cutout and st.tangents
+    assert st.clustered != textured
+    assert scene._texture_pool.packed == textured
+    _check_split_waves(cuda, fs, st, scene._material_dev, scene._texture_pool,
+                       st.textured_params, desc.first_camera(), True,
+                       f"lobes textured={textured}", bounces=3, bounce_lod=False)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("taps,normal_map", [(False, False), (False, True), (True, False),
+                                             (True, True)])
+def test_taps_match_texture_stage(cuda, tmp_path, taps, normal_map):
+    """K4's taps alone (ops/bounce.py tap_rows) against the texture stage on
+    the card (tap_rows_ref: render/fused.py material_rows) on 1,048,576
+    random hit rows over the small interior's materials and pool (2x2 rows,
+    or with `taps` the wrap modes, sRGB and channel picks of
+    _tap_variants): uv from -3 to 4, random unit normals, tangents and
+    bitangent signs. Every tapped parameter and the normal-mapped shading
+    normal bit-equal on every row: the normal map's cross product and norm
+    in the rounding of PyTorch's CUDA kernels."""
+    _fs, _static, mats, pool, active, _cam = _textured_tables(cuda, "resident", False,
+                                                              normal_map, tmp_path, taps=taps)
+    rng = np.random.default_rng(8)
+    r = 1 << 20
+    hit = np.zeros((24 if normal_map else 16, r), np.float32)
+    hit[0] = 1.0
+    hit[2:4] = rng.uniform(-3.0, 4.0, (2, r))
+    hit[4] = rng.integers(0, mats.packed_f.shape[0], r)
+    n = rng.standard_normal((3, r))
+    n /= np.linalg.norm(n, axis=0)
+    hit[8:11] = n
+    if normal_map:
+        t = rng.standard_normal((3, r))
+        t -= n * (t * n).sum(0)
+        hit[16:19] = t / np.linalg.norm(t, axis=0)
+        hit[19] = np.where(rng.random(r) < 0.5, -1.0, 1.0)
+    hit = torch.tensor(hit, device=cuda)
+    got = tb.tap_rows(hit, mats, pool, active)
+    want = tb.tap_rows_ref(hit, mats, pool, active)
+    torch.cuda.synchronize()
+    bad = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+    assert int(bad.sum()) == 0, (int(bad.sum()), torch.nonzero(bad)[:5].tolist())
+    assert bool((got[8:11] != hit[8:11]).any()) == normal_map
+
+
+@pytest.mark.requires_cuda
+def test_textured_frame_runs_no_texture_stage(cuda, tmp_path):
+    """A textured, normal-mapped frame through gi.render on the card: K3
+    and K4 a bounce, and no call of the texture stage (K4 taps itself)."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.render import fused
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(detail=1, tex_dir=str(tmp_path))
+    _tap_variants(desc)
+    scene = gi.create_scene(cuda)
+    for m in desc.meshes:
+        scene.add_mesh(m)
+    for m in desc.materials.values():
+        scene.add_material(m)
+    for light in desc.lights:
+        scene.add_light(light)
+    before, fused.stage_calls = dict(tb.launches), 0
+    buf = gi.GiRenderBuffer(32, 32, 4)
+    gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                                aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                                render_settings=dict(spp=2, maxBounces=3,
+                                                     nextEventEstimation=True)))
+    assert scene._fused_static.textured
+    assert tb.launches["K3"] - before["K3"] == tb.launches["K4"] - before["K4"] > 0
+    assert fused.stage_calls == 0
+    assert np.isfinite(buf.data).all() and buf.data[..., :3].mean() > 0.01
 
 
 @pytest.mark.requires_cuda
@@ -533,13 +702,13 @@ def test_volume_split_kernels_match_twins(cuda, tmp_path, layout):
     for bounce in range(5):
         p = torch.tensor(params[bounce], device=cuda)
         hit = trace_ref(p, fs.tris, state, fs.walk)
-        parbuf, hit = material_rows(mats, pool, hit, active)
+        parbuf, hit_n = material_rows(mats, pool, hit, active)
         twin = state.clone()
-        shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, hit, parbuf,
+        shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, twin, hit_n, parbuf,
                   tb.par_row_starts(active), True, *flags)
         kern = state.clone()
         before = tb.launches["K4"]
-        tb.shade_step(p, fs, kern, hit, parbuf, active, True)
+        tb.shade_step(p, fs, kern, hit, mats, pool, active, True)
         torch.cuda.synchronize()
         assert tb.launches["K4"] == before + 1
         k, t = kern.cpu().numpy(), twin.cpu().numpy()
@@ -642,6 +811,7 @@ def test_adversarial_cluster_walk(cuda, cutout, nee):
     if cutout:
         fs = _with_cutout(fs)
     parbuf = torch.zeros((8, 1), device=cuda)
+    untextured = table.to(cuda)
     for k, (o, d, lo) in enumerate(_placed_rays()):
         o, d, lo = o.to(cuda), d.to(cuda), lo.to(cuda)
         for tmin in sorted(set(lo.tolist())):
@@ -667,7 +837,7 @@ def test_adversarial_cluster_walk(cuda, cutout, nee):
             assert torch.equal(hit_k[rows].view(torch.int32), hit_t[rows].view(torch.int32)), \
                 (k, tmin)
             shaded = state.clone()
-            tb.shade_step(p, fs, shaded, hit_t, parbuf.expand(8, n).contiguous(), (), nee)
+            tb.shade_step(p, fs, shaded, hit_t, untextured, empty_pool(cuda), (), nee)
             torch.cuda.synchronize()
             want = state.clone()
             shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, want, hit_t,

@@ -64,7 +64,7 @@ from test_advanced_bsdf_fused import _mat, _scene
 from test_torch_bounce import CORNELL, rect_light
 from test_torch_clustered_bounce import check, primary_state, uniforms
 from test_torch_clustered_scene import JAX, TORCH
-from test_torch_split_bounce import _agree, _port_uniforms
+from test_torch_split_bounce import _agree, _port_uniforms, shade_twin
 
 GLASS_COATED = "tests/graphical/Materials.GlassCoated/scene.usda"
 MIN_AGREE_RESIDENT, MIN_AGREE_WALK = 0.999, 0.995
@@ -441,8 +441,8 @@ def test_aniso_split_twins_match_jax(layout, nee, bounce):
     _agree(hit.numpy(), hit_ref, alive, min_agree, f"{layout} trace bounce {bounce}",
            exact_rows=(sr.H_HIT, sr.H_MAT))
     # K4's twin on the JAX buffers: the mesh-tangent frame of H_TAN / H_BS
-    tb.shade_step(p, fs, st, torch.tensor(hit_n_ref.reshape(hit_n_ref.shape[0], -1)),
-                  torch.tensor(par_ref.reshape(par_ref.shape[0], -1)), (), nee)
+    shade_twin(p, fs, st, torch.tensor(hit_n_ref.reshape(hit_n_ref.shape[0], -1)),
+               torch.tensor(par_ref.reshape(par_ref.shape[0], -1)), (), nee)
     _agree(tb.state_to_numpy(st), out_ref, np.ones_like(alive), min_agree,
            f"{layout} shade bounce {bounce}", exact_rows=(12, 13, 14, 15),
            close_rows=slice(0, 12))
@@ -458,9 +458,9 @@ def test_tangent_frame_changes_the_anisotropic_shade():
     hit_n = torch.tensor(hit_n_ref.reshape(hit_n_ref.shape[0], -1))
     par = torch.tensor(par_ref.reshape(par_ref.shape[0], -1))
     with_tan = tb.state_from_numpy(state_in, "cpu")
-    tb.shade_step(torch.tensor(params), fs, with_tan, hit_n, par, (), True)
+    shade_twin(torch.tensor(params), fs, with_tan, hit_n, par, (), True)
     duff = tb.state_from_numpy(state_in, "cpu")
-    tb.shade_step(torch.tensor(params), fs, duff, hit_n[:sr.HIT_ROWS], par, (), True)
+    shade_twin(torch.tensor(params), fs, duff, hit_n[:sr.HIT_ROWS], par, (), True)
     moved = (~torch.isclose(with_tan[3:6], duff[3:6], rtol=1e-4, atol=1e-5)).any(0)
     assert int(moved.sum()) > 50
 

@@ -160,6 +160,14 @@ def jax_case(layout: str, tangents: bool, nee: bool, d):
     return scene, static, table, pool, active, steps
 
 
+def shade_twin(p, fs, state, hitbuf, parbuf, active, nee):
+    """K4's twin (ops/split_ref.py shade_ref) on the given hit and parameter
+    buffers, in place: the shade without the texture stage."""
+    sr.shade_ref(p, fs.tris, fs.mats, fs.lights, tuple(fs.light_types.tolist()), state, hitbuf,
+                 parbuf, sr.par_row_starts(active), nee, fs.walk, fs.advanced, fs.cutout,
+                 fs.volumes)
+
+
 def _agree(got, ref, mask, min_agree, label, exact_rows=(), close_rows=slice(None)):
     """exact_rows agree bit for bit, close_rows within RTOL/ATOL, each on
     min_agree of the rays in mask."""
@@ -205,8 +213,8 @@ def test_split_twins_match_jax(tex_dir, layout, tangents, nee, bounce):
                                rtol=0, atol=1e-6)
 
     # K4's twin on the JAX buffers
-    tb.shade_step(p, fs, st, torch.tensor(hit_n_ref.reshape(hit_n_ref.shape[0], -1)),
-                  torch.tensor(par_ref.reshape(par_ref.shape[0], -1)), active, nee)
+    shade_twin(p, fs, st, torch.tensor(hit_n_ref.reshape(hit_n_ref.shape[0], -1)),
+               torch.tensor(par_ref.reshape(par_ref.shape[0], -1)), active, nee)
     got = tb.state_to_numpy(st)
     _agree(got, out_ref, np.ones_like(alive), MIN_AGREE,
            f"{layout} shade bounce {bounce}", exact_rows=(12, 13, 14, 15),

@@ -57,7 +57,7 @@ from gatling_tpu_torch.scene.stage import load_scene
 from test_torch_clustered_bounce import H, W, check, primary_state, uniforms
 from test_torch_clustered_scene import JAX, instanced_field
 from test_torch_lobes import aniso_scene, port_tables, slab_light
-from test_torch_split_bounce import _agree
+from test_torch_split_bounce import _agree, shade_twin
 from test_volumes import _slab_scene
 
 MIN_AGREE_RESIDENT, MIN_AGREE_WALK = 0.999, 0.995
@@ -269,8 +269,8 @@ def test_split_volume_twin_matches_jax(bounce):
     params, state_in, hit_n, par, out_ref = steps[bounce]
     fs = port_tables(scene, static)._replace(volumes=tb.VOL_ABSORB)
     st = tb.state_from_numpy(state_in, "cpu")
-    tb.shade_step(torch.tensor(params), fs, st, torch.tensor(hit_n.reshape(hit_n.shape[0], -1)),
-                  torch.tensor(par.reshape(par.shape[0], -1)), (), True)
+    shade_twin(torch.tensor(params), fs, st, torch.tensor(hit_n.reshape(hit_n.shape[0], -1)),
+               torch.tensor(par.reshape(par.shape[0], -1)), (), True)
     alive = state_in.reshape(16, -1)[13]
     _agree(tb.state_to_numpy(st), out_ref, np.ones_like(alive, bool), MIN_AGREE_WALK,
            f"instanced shade bounce {bounce}", exact_rows=(12, 13, 14, 15),
