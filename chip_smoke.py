@@ -8,9 +8,8 @@ fails, with a non-zero exit, if any phase fails:
 
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
-   K3 (split trace) and K4 (split shade: its own texture taps, and its
-   NEE shadow walk in a second launch) are built from
-   gatling_tpu_torch/csrc/bounce.cu (in nine nvcc parts), K5-K8 (the
+   K3 (split trace) and K4 (split shade, with its own texture taps) are
+   built from gatling_tpu_torch/csrc/bounce.cu (in ten nvcc parts), K5-K8 (the
    wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
    ptxas' registers, stack and spills;
@@ -2720,14 +2719,11 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
     }]
 
 
-# the __global__ functions of csrc/, the longest first (one name ends
-# another), and shade_walk_kernel, K4 over the walk in checkouts before its
-# shadow walk took a launch of its own (tools/plain_ab.py times those)
-KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shadow_walk_kernel",
-                "shade_walk_kernel", "trace_walk_kernel", "cutout_draws_kernel",
-                "onehot_fp32_kernel", "onehot_tf32_kernel", "cast_probe_kernel",
-                "occluded_kernel", "closest_kernel", "bounce_kernel", "shadow_kernel",
-                "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")
+# the __global__ functions of csrc/, the longest first (one name ends another)
+KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_kernel",
+                "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
+                "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
+                "bounce_kernel", "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")
 
 
 def ptxas_summary(report: str) -> list[str]:

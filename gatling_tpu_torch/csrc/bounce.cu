@@ -66,13 +66,9 @@
 // whose slots all wrap `repeat`) or four 4-byte reads through the wrap
 // modes, through the read-only cache, with the slot records, the
 // materials' slot columns and a 256-entry sRGB decode table in shared
-// memory. K4 is two launches. The first shades, the same code for every
-// table, writes every row of the path state and, with NEE, queues each
-// traced shadow ray (origin, direction, distance, cutout key, and the
-// radiance with the NEE contribution); the second walks the queue over
-// the resident tree or the two-level walk and writes the radiance of the
-// unoccluded ones. So no shaded ray stays live across a walk, and a
-// warp's lanes all walk. K3 reuses K1's closest-hit walk and K2's walk
+// memory. K4 writes every row of the path state before its NEE shadow
+// walk, and after it only the radiance of an unoccluded shadow ray, so
+// that little of the shaded ray stays live across the walk. K3 reuses K1's closest-hit walk and K2's walk
 // and pass 2; K4 runs the shading core and the NEE shadow walks that K1
 // and K2 run (one copy of each in this file). Their twins are in
 // ops/split_ref.py (K4's after render/fused.py material_rows, the texture
@@ -1222,9 +1218,9 @@ __device__ __forceinline__ float channel(const float4 t, int k) {
 
 // One component of torch.linalg.cross on the card, a * b - c * d, rounded
 // as PyTorch's CUDA kernel rounds it: nvcc contracts the first product
-// into a fused multiply-add (found by comparing candidate orders against
-// the twin on 1,048,576 random rows on an H100: this one and the sum
-// order of norm_sq differ on none).
+// into a fused multiply-add. This form and norm_sq's order are the ones
+// that make the normal map bit-equal to the twin's (tests/test_torch_cuda.py
+// test_taps_match_texture_stage, 1,048,576 random rows).
 __device__ __forceinline__ float cross_term(float a, float b, float c, float d) {
   return __fmaf_rn(a, b, -(c * d));
 }
@@ -1523,52 +1519,15 @@ __device__ __forceinline__ bool shade_split(const float* p, const float* s_mat, 
   return trace;
 }
 
-// K4's shadow-ray queue: a record of three float4 a ray, (origin, ldist),
-// (direction, cutout key), (radiance with the NEE contribution, ray index).
-// enqueue appends the traced shadow rays of the converged lanes of a warp
-// together, in lane order, with one atomic; dequeue reads record k.
-__device__ __forceinline__ void enqueue(bool trace, const Shadow& sh, long long i,
-                                        float4* queue, int* count) {
-  const unsigned act = __activemask();
-  const unsigned bal = __ballot_sync(act, trace);
-  if (bal == 0u) return;
-  const int lane = threadIdx.x & 31, leader = __ffs(bal) - 1;
-  int base = 0;
-  if (lane == leader) base = atomicAdd(count, __popc(bal));
-  base = __shfl_sync(act, base, leader);
-  if (!trace) return;
-  float4* q = queue + 3 * (size_t)(base + __popc(bal & ((1u << lane) - 1u)));
-  q[0] = make_float4(sh.o[0], sh.o[1], sh.o[2], sh.ldist);
-  q[1] = make_float4(sh.ld[0], sh.ld[1], sh.ld[2], __uint_as_float(sh.key));
-  q[2] = make_float4(sh.rad[0], sh.rad[1], sh.rad[2], __int_as_float((int)i));
-}
-
-__device__ __forceinline__ bool dequeue(const float4* queue, const int* count, Shadow& sh,
-                                        long long& i) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= __ldg(count)) return false;
-  const float4 a = __ldg(queue + 3 * k), b = __ldg(queue + 3 * k + 1),
-               c = __ldg(queue + 3 * k + 2);
-  sh.o[0] = a.x, sh.o[1] = a.y, sh.o[2] = a.z, sh.ldist = a.w;
-  sh.ld[0] = b.x, sh.ld[1] = b.y, sh.ld[2] = b.z, sh.key = __float_as_uint(b.w);
-  sh.rad[0] = c.x, sh.rad[1] = c.y, sh.rad[2] = c.z;
-  i = __float_as_int(c.w);
-  return true;
-}
-
-// K4, the shading launch, the same for every table: the hit buffer with
-// its own texture taps, the shading core, the path state written; with
-// NEE each traced shadow ray queued for the second launch (shadow_kernel
-// over a resident table, shadow_walk_kernel over the walk), which writes
-// the radiance of the unoccluded ones. Measured against one launch that
-// walks each shadow ray where it is shaded (PERF.md, PR 10): the queue
-// keeps a warp's lanes busy in the walk.
-template <bool NEE, bool ADV, int VOL>
+// K4, resident: shading from the hit buffer with its own texture taps, the
+// path state written; then the NEE shadow ray walks the resident table's
+// tree as in K1 and writes the radiance if unoccluded.
+template <bool NEE, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
-shade_kernel(const float* __restrict__ params, const float* __restrict__ mats, int n_mats,
-             const float* __restrict__ lights, const int8_t* __restrict__ ltypes, int n_lights,
-             float* __restrict__ state, long long R, const float* __restrict__ hit, int hit_tan,
-             Taps tx, float4* __restrict__ queue, int* __restrict__ count) {
+shade_kernel(const float* __restrict__ params, TriTree tree, const float* __restrict__ mats,
+             int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
+             int n_lights, float* __restrict__ state, long long R,
+             const float* __restrict__ hit, int hit_tan, Taps tx) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
   float *s_mat, *s_light;
@@ -1581,20 +1540,9 @@ shade_kernel(const float* __restrict__ params, const float* __restrict__ mats, i
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
   Shadow sh;
-  const bool trace = shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights,
-                                                hit, hit_tan != 0, tx, tt, state, R, i, sh);
-  if (NEE) enqueue(trace, sh, i, queue, count);
-}
-
-// K4's shadow walk over a resident table: each queued shadow ray's walk of
-// the tree as in K1.
-template <bool CUT>
-__global__ void __launch_bounds__(THREADS)
-shadow_kernel(TriTree tree, const float4* __restrict__ queue, const int* __restrict__ count,
-              float* __restrict__ state, long long R) {
-  Shadow sh;
-  long long i;
-  if (dequeue(queue, count, sh, i) && !tree_occluded<CUT>(tree, sh.o, sh.ld, sh.ldist, sh.key))
+  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
+                                 tx, tt, state, R, i, sh) &&
+      !tree_occluded<CUT>(tree, sh.o, sh.ld, sh.ldist, sh.key))
     write_rad(sh.rad, state, R, i);
 }
 
@@ -2001,16 +1949,29 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
   write_hit<TAN>(hit, R, i, win >= 0, o, d, sf, uv, tan, tbs);
 }
 
-// K4's shadow walk over the two-level walk: each queued shadow ray's
-// any-hit walk as in K2.
-template <bool INST, bool TAN, bool CUT>
+// K4 over the walk: shading from the hit buffer with its own texture taps,
+// the path state written; then the NEE shadow ray's any-hit walk.
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL>
 __global__ void __launch_bounds__(THREADS)
-shadow_walk_kernel(Walk w, const float4* __restrict__ queue, const int* __restrict__ count,
-                   float* __restrict__ state, long long R) {
+shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
+                  int n_mats, const float* __restrict__ lights,
+                  const int8_t* __restrict__ ltypes, int n_lights, float* __restrict__ state,
+                  long long R, const float* __restrict__ hit, int hit_tan, Taps tx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool alive = i < R && state[S_ALIVE * R + i] > 0.5f;
+  float *s_mat, *s_light;
+  int* s_ltype;
+  TapTables tt;
+  if (!stage_k4(alive, mats, n_mats, lights, ltypes, n_lights, tx, s_mat, s_light, s_ltype, tt))
+    return;
+  if (!alive) return;  // no block-wide step follows
+
+  float p[PARAMS_LEN];
+  for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
   Shadow sh;
-  long long i;
-  if (dequeue(queue, count, sh, i) && !walk_occluded<INST, TAN, CUT>(w, sh.o, sh.ld, sh.ldist,
-                                                                     sh.key))
+  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
+                                 tx, tt, state, R, i, sh) &&
+      !walk_occluded<INST, TAN, CUT>(w, sh.o, sh.ld, sh.ldist, sh.key))
     write_rad(sh.rad, state, R, i);
 }
 
@@ -2154,16 +2115,28 @@ int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* st
   });
 }
 
-// K4's shadow walk over a resident table: the shadow rays gatling_shade
-// queued (queue [n_rays, 12] f32, count one int32).
-int gatling_shadow_resident(RESIDENT_TABLES, const float* queue, const int* count, float* state,
-                            long long n_rays, int cut, void* stream) {
+// K4, resident: shade state [16, n_rays] in place from the hit buffer
+// (hit_tan: with the tangent rows), tapping the textures itself.
+int gatling_shade_resident(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,
+                           const float* lights, const int8_t* light_types, int n_lights,
+                           float* state, long long n_rays, const float* hit, int hit_tan,
+                           TAP_ARGS, int nee, int adv, int cut, int vol, void* stream) {
   if (n_rays <= 0) return 0;
+  const Taps tx = TAP_STRUCT;
+  const size_t smem = shade_smem(n_mats, n_lights, tx);
   const TriTree tree = TREE_STRUCT;
-  const float4* q = reinterpret_cast<const float4*>(queue);
-  return with_flag(cut, [&](auto cut_) {
-    shadow_kernel<V(cut_)> CONFIG(0)(tree, q, count, state, n_rays);
-    return (int)cudaGetLastError();
+  return with_flag(nee, [&](auto nee_) {
+    return with_flag(adv, [&](auto adv_) {
+      return with_flag(cut, [&](auto cut_) {
+        return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
+          auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
+          if (int err = allow_smem(kern, smem)) return err;
+          kern CONFIG(smem)(params, tree, mats, n_mats, lights, light_types, n_lights, state,
+                            n_rays, hit, hit_tan, tx);
+          return (int)cudaGetLastError();
+        });
+      });
+    });
   });
 }
 #endif
@@ -2201,7 +2174,7 @@ int gatling_bounce_step(const float* params, RESIDENT_TABLES, const float* mats,
 #define WALK_STRUCT \
   {tris, l1, l2, cmap, inst, nodes, kids, leaf_entries, gbox, cnodes, ckids, crows, croot}
 
-#if PART(8)
+#if PART(0)
 // K3 over the walk.
 int gatling_trace_walk(const float* params, WALK_TABLES, const float* state, long long n_rays,
                        float* hit, int cut, void* stream) {
@@ -2258,60 +2231,53 @@ BOUNCE_WALK(gatling_bounce_walk, false, VOL_OFF, VOL_OFF)
 #if PART(2)
 BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
 #endif
+// K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee),
+// the volume modes VLO..VHI.
+#define SHADE_WALK(NAME, NEE_, VLO, VHI)                                                      \
+  int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
+           const float* lights, const int8_t* light_types, int n_lights, float* state,        \
+           long long n_rays, const float* hit, int hit_tan, TAP_ARGS, int adv, int cut,       \
+           int vol, void* stream) {                                                           \
+    if (n_rays <= 0) return 0;                                                                \
+    const Walk w = WALK_STRUCT;                                                               \
+    const Taps tx = TAP_STRUCT;                                                               \
+    const size_t smem = shade_smem(n_mats, n_lights, tx);                                     \
+    return with_vol<VLO, VHI>(vol, [&](auto vol_) {                                           \
+      return with_flag(instanced, [&](auto inst_) {                                           \
+        return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {                               \
+          return with_flag(adv, [&](auto adv_) {                                              \
+            return with_flag(cut, [&](auto cut_) {                                            \
+              auto kern =                                                                     \
+                  shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_)>;      \
+              if (int err = allow_smem(kern, smem)) return err;                               \
+              kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights,       \
+                                state, n_rays, hit, hit_tan, tx);                             \
+              return (int)cudaGetLastError();                                                 \
+            });                                                                               \
+          });                                                                                 \
+        });                                                                                   \
+      });                                                                                     \
+    });                                                                                       \
+  }
+
 #if PART(3)
-// K4's shadow walk over the two-level walk (as gatling_shadow_resident).
-int gatling_shadow_walk(WALK_TABLES, const float* queue, const int* count, float* state,
-                        long long n_rays, int cut, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Walk w = WALK_STRUCT;
-  const float4* q = reinterpret_cast<const float4*>(queue);
-  return with_flag(instanced, [&](auto inst_) {
-    return with_flag(rows == CLU_ROWS_TAN, [&](auto tan_) {
-      return with_flag(cut, [&](auto cut_) {
-        shadow_walk_kernel<V(inst_), V(tan_), V(cut_)> CONFIG(0)(w, q, count, state, n_rays);
-        return (int)cudaGetLastError();
-      });
-    });
-  });
-}
+SHADE_WALK(gatling_shade_walk, false, VOL_OFF, VOL_OFF)
 #endif
 #if PART(4)
-// K4's shading launch, for every table: state [16, n_rays] in place from
-// the hit buffer (hit_tan: with the tangent rows), its own texture taps;
-// with NEE the traced shadow rays into queue ([n_rays, 12] f32) and count
-// (one int32, set to 0 here), which gatling_shadow_resident or
-// gatling_shadow_walk then walks.
-int gatling_shade(const float* params, const float* mats, int n_mats, const float* lights,
-                  const int8_t* light_types, int n_lights, float* state, long long n_rays,
-                  const float* hit, int hit_tan, TAP_ARGS, int nee, int adv, int vol,
-                  float* queue, int* count, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Taps tx = TAP_STRUCT;
-  const size_t smem = shade_smem(n_mats, n_lights, tx);
-  float4* q = reinterpret_cast<float4*>(queue);
-  if (nee) {
-    const cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int),
-                                            static_cast<cudaStream_t>(stream));
-    if (err != cudaSuccess) return (int)err;
-  }
-  return with_flag(nee, [&](auto nee_) {
-    return with_flag(adv, [&](auto adv_) {
-      return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
-        auto kern = shade_kernel<V(nee_), V(adv_), V(vol_)>;
-        if (int err = allow_smem(kern, smem)) return err;
-        kern CONFIG(smem)(params, mats, n_mats, lights, light_types, n_lights, state, n_rays, hit,
-                          hit_tan, tx, q, count);
-        return (int)cudaGetLastError();
-      });
-    });
-  });
-}
+SHADE_WALK(gatling_shade_walk_nee, true, VOL_OFF, VOL_OFF)
 #endif
 #if PART(6)
 BOUNCE_WALK(gatling_bounce_walk_vol, false, VOL_ABSORB, VOL_SCATTER)
 #endif
 #if PART(7)
 BOUNCE_WALK(gatling_bounce_walk_vol_nee, true, VOL_ABSORB, VOL_SCATTER)
+#endif
+
+#if PART(8)
+SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB)
+#endif
+#if PART(9)
+SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB)
 #endif
 
 }  // extern "C"

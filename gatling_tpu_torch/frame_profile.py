@@ -23,9 +23,8 @@ segments over frame time), the profiled frame's device time by group (the
 kernels K1-K4, the coherence sort, other PyTorch kernels, copies) and its
 device idle share: the part of the frame's wall time in which no kernel
 or copy ran; and the eight PyTorch kernels that took the most of the
-rest. K4 taps the textures itself (its shading launch, `shade_kernel`,
-and its NEE shadow walk, `shadow_kernel` / `shadow_walk_kernel`): the
-textured interior's frame has no texture stage.
+rest. K4 taps the textures itself: the textured interior's frame has no
+texture stage.
 
 glass_coated is tests/graphical/Materials.GlassCoated at the JAX bench's
 settings (1200x1200, 16 spp, 8 bounces, NEE off): K1 with the advanced
@@ -59,8 +58,7 @@ from gatling_tpu_torch.interface import AovId
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
-GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K4 shadow walk", "shadow_"),
-          ("K1 bounce_kernel", "bounce_kernel"),
+GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
           ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
           ("K6 shadow rays", "occluded_tree_kernel"), ("sort", "sort"), ("copies", "memcpy"))
 

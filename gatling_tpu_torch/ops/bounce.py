@@ -165,7 +165,7 @@ MI_COLS = 10  # the device material table's integer columns (render/material.py 
 # samples, and the normal map
 TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
 TAP_NORMAL = 16
-BOUNCE_PARTS = 9  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
+BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
 
@@ -944,7 +944,7 @@ class BounceKernel(CudaLibrary):
         # the walk bounce takes NEE and the volume modes as four entry points
         # (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
         bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
-        queue = [PTR, PTR, PTR, I64, I32, PTR]  # K4's shadow queue, count, state, R, cut, stream
+        shade_walk = [PTR, *walk, I32, *shading, PTR, I64, *hit, *taps, *flags, PTR]
         resident = [PTR, I32, PTR, PTR, PTR]  # tris ld, the TriBvh's nodes kids rows
         super().__init__("bounce.cu", {
             "gatling_bounce_step": [PTR, *resident, *shading, PTR, I64, I32, *flags, PTR],
@@ -952,9 +952,10 @@ class BounceKernel(CudaLibrary):
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_trace_resident": [PTR, *resident, PTR, I64, PTR, I32, PTR],
             "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
-            "gatling_shade": [PTR, *shading, PTR, I64, *hit, *taps, I32, I32, I32, PTR, PTR, PTR],
-            "gatling_shadow_resident": [*resident, *queue],
-            "gatling_shadow_walk": [*walk, I32, *queue],
+            "gatling_shade_resident": [PTR, *resident, *shading, PTR, I64, *hit, *taps, I32,
+                                       *flags, PTR],
+            **{_walk_entry("gatling_shade_walk", nee, vol): shade_walk
+               for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR],
             "gatling_tap_rows": [PTR, I32, PTR, I32, I64, *taps, PTR, PTR]},
             "gatling_error_string", parts=BOUNCE_PARTS)
@@ -1116,9 +1117,9 @@ class BounceKernel(CudaLibrary):
         """K4: shade `state` in place from the hit buffer, tapping the
         pool for the parameters of the TAP_* mask `taps` where the
         material table's slot columns `mat_i` bind a texture (no scatter
-        mode: the split bounce takes absorption only); with NEE a second
-        launch walks the shadow rays the first queued, over the resident
-        tree or the two-level walk."""
+        mode: the split bounce takes absorption only); with NEE the shadow
+        ray walks the resident tree or the two-level walk in the same
+        launch, after the path state is written."""
         self._check_state(params, state)
         self._check_split(state, hit)
         vol = self._check_volumes(mats, volumes, (VOL_OFF, VOL_ABSORB))
@@ -1129,19 +1130,16 @@ class BounceKernel(CudaLibrary):
         if smem > SMEM_MAX_BYTES:
             raise ValueError(f"shade kernel: its tables take {smem} B of shared memory, above "
                              f"the {SMEM_MAX_BYTES} B a block has")
-        tables = (self._resident_args(tris, bvh, cutout) if walk is None
-                  else self._walk_args(tris, walk))
-        r, stream = state.shape[1], self.stream(state)
-        # the shadow queue: three float4 a traced ray (csrc/bounce.cu enqueue)
-        queue = torch.empty((r if nee else 0, 12), dtype=torch.float32, device=state.device)
-        count = torch.empty((1,), dtype=torch.int32, device=state.device)
-        self.call("gatling_shade", params.data_ptr(), *shading, state.data_ptr(), r,
-                   hit.data_ptr(), int(hit.shape[0] == HIT_ROWS_TAN), *tap_args, int(bool(nee)),
-                   int(bool(advanced)), vol, queue.data_ptr(), count.data_ptr(), stream)
-        if nee:
-            self.call("gatling_shadow_resident" if walk is None else "gatling_shadow_walk",
-                       *tables, queue.data_ptr(), count.data_ptr(), state.data_ptr(), r,
-                       int(bool(cutout)), stream)
+        bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(),
+                int(hit.shape[0] == HIT_ROWS_TAN), *tap_args)
+        flags = (int(bool(advanced)), int(bool(cutout)), vol, self.stream(state))
+        if walk is None:
+            self.call("gatling_shade_resident", params.data_ptr(),
+                       *self._resident_args(tris, bvh, cutout), *shading, *bufs, int(bool(nee)),
+                       *flags)
+        else:
+            self.call(_walk_entry("gatling_shade_walk", nee, vol), params.data_ptr(),
+                       *self._walk_args(tris, walk), *shading, *bufs, *flags)
 
 
 def _walk_entry(base: str, nee: bool, volumes: int) -> str:
@@ -1152,8 +1150,7 @@ def _walk_entry(base: str, nee: bool, volumes: int) -> str:
 
 _kernel: BounceKernel | None = None
 # kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
-# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade (its
-# shading launch and, with NEE, its shadow-walk launch count one)
+# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade
 launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
 
