@@ -49,7 +49,7 @@ fails, with a non-zero exit, if any phase fails:
    textured Cornell box at 1200x1200, 16 spp, 8 bounces; interior_taps
    (sRGB, clamp, mirror and black wraps, metallic and roughness from the
    b and g channels); each textured frame calls the texture stage
-   (render/fused.py material_rows) 0 times;
+   (ops/split_ref.py material_rows) 0 times;
 3c. then K3 and K4 against their twins (ops/split_ref.py; K4's is the
    texture stage, then shade_ref), through the wrappers the main path
    calls (ops/bounce.py trace_step, shade_step), on the tables gi.render
@@ -635,20 +635,20 @@ def image_checks(img, label):
 def counted_render(params, label):
     """One gi.render, timed to the end of the host copies, all eight
     kernels' launch counts and the texture stage's call count
-    (render/fused.py stage_calls, read by the caller) set to 0 just before
+    (ops/split_ref.py stage_calls, read by the caller) set to 0 just before
     it and read just after; returns (COLOR buffer, seconds, Mray/s or
     None, launches)."""
     import torch
 
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import split_ref
     from gatling_tpu_torch.ops import trace as tt
-    from gatling_tpu_torch.render import fused
 
     for counts in (tb.launches, tt.launches):
         for k in counts:
             counts[k] = 0
-    fused.stage_calls = 0
+    split_ref.stage_calls = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gi.render(params)
@@ -658,7 +658,7 @@ def counted_render(params, label):
     mrays = segs / dt / 1e6 if segs else None
     log(f"render {label}: {dt:.4f} s wall, {segs:.0f} traced segments, "
         f"{'-' if mrays is None else f'{mrays:.1f}'} Mray/s, kernel launches {launches}, "
-        f"texture stage calls {fused.stage_calls}")
+        f"texture stage calls {split_ref.stage_calls}")
     return params.aov_bindings[0].render_buffer.data.copy(), dt, mrays, launches
 
 
@@ -1028,7 +1028,7 @@ def k4_shadow_rays(p, fs, state, hit, mats, pool, active, nee):
     as its twin (the texture stage, then split_ref.shade_ref) traces them
     (traced_shadow_rays)."""
     from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref
-    from gatling_tpu_torch.render.fused import material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows
 
     def run():
         parbuf, hit_n = material_rows(mats, pool, hit, active)
@@ -1071,7 +1071,7 @@ def split_twin(p, fs, state, hit, mats, pool, active, nee):
     """K4's twin in place: the texture stage (render/fused.py
     material_rows) on K3's hit buffer, then split_ref.shade_ref."""
     from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref
-    from gatling_tpu_torch.render.fused import material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows
 
     parbuf, hit_n = material_rows(mats, pool, hit, active)
     shade_ref(p, fs.tris, fs.mats, fs.lights, tuple(fs.light_types.tolist()), state, hit_n,
@@ -1091,7 +1091,8 @@ def phase_split(device, scenes: dict):
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, walk_work
     from gatling_tpu_torch.ops.split_ref import H_HIT, H_T, trace_ref
-    from gatling_tpu_torch.render.fused import coherence_keys, material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows
+    from gatling_tpu_torch.render.fused import coherence_keys
 
     cases = []
     for label in ("interior", "interior_normalmapped", "interior_taps"):
@@ -1254,17 +1255,14 @@ def interior_params(device, tex_dir: str, normal_map: str | None = None, means_o
                                                   nextEventEstimation=True, **settings))
 
 
-def interior_taps_params(device, tex_dir: str):
-    """The textured interior at the bench's settings with its textures
+def tap_variants(desc) -> None:
+    """K4's other taps, an edit in place of a textured scene: every texture
     decoded as sRGB and wrapping clamp, mirror or black (a material's
-    wrapS and wrapT two of the three in turn), and metallic and roughness
-    read from the b and g channels of each material's texture: a pool
-    that is not all `repeat`, so K4 taps texels_u32 through the wrap
-    modes."""
-    from gatling_tpu_torch.scene.examples import interior
+    wrapS and wrapT two of the three in turn: a pool that is not all
+    `repeat`, tapped through texels_u32), and metallic and roughness read
+    from the b and g channels of each material's texture."""
     from gatling_tpu_torch.scene.stage import ShaderNode
 
-    desc = interior(tex_dir=tex_dir)
     modes = ("clamp", "mirror", "black")
     for k, m in enumerate(desc.materials.values()):
         wraps = dict(wrapS=modes[k % 3], wrapT=modes[(k + 1) % 3])
@@ -1280,6 +1278,15 @@ def interior_taps_params(device, tex_dir: str):
                               input_connections={})
             m.nodes[node.path] = node
             surf.input_connections[name] = (node.path, channel)
+
+
+def interior_taps_params(device, tex_dir: str):
+    """The textured interior at the bench's settings with tap_variants'
+    textures."""
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(tex_dir=tex_dir)
+    tap_variants(desc)
     return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
                                                   nextEventEstimation=True))
 
@@ -1294,8 +1301,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import sampling as smp
+    from gatling_tpu_torch.ops import split_ref
     from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT
-    from gatling_tpu_torch.render import fused
     from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
 
     out = {}
@@ -1315,8 +1322,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
     assert launches == dict(split_launches, K1=0, K2=0, K5=0, K6=0, K7=0, K8=0), launches
     # K4 taps the textures itself: no texture stage between K3 and K4
-    assert fused.stage_calls == 0, fused.stage_calls
-    out["interior_texture_stage_calls"] = fused.stage_calls
+    assert split_ref.stage_calls == 0, split_ref.stage_calls
+    out["interior_texture_stage_calls"] = split_ref.stage_calls
     img = img[..., :3]
     assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01
 
@@ -1354,13 +1361,13 @@ def phase_interior(device, tex_dir: str, extra: dict):
     rel = abs(limg.mean() - img.mean()) / img.mean()
     log(f"interior lod2 vs all taps: mean rel diff {rel:.3e}; launches {llaunches}")
     assert llaunches["K2"] > 0 and llaunches["K3"] == llaunches["K4"] < split_launches["K3"]
-    assert np.isfinite(limg).all() and rel < 0.05 and fused.stage_calls == 0
+    assert np.isfinite(limg).all() and rel < 0.05 and split_ref.stage_calls == 0
 
     nparams = interior_params(device, tex_dir, normal_map=extra["lean"])
     nimg, _dt, out["interior_normalmapped"], _ = warm_render(nparams, label + " normal-mapped")
     nimg = nimg[..., :3]
     assert nparams.scene._fused_static.tangents and np.isfinite(nimg).all() and (nimg >= 0).all()
-    assert fused.stage_calls == 0, fused.stage_calls
+    assert split_ref.stage_calls == 0, split_ref.stage_calls
     nrel = abs(nimg.mean() - img.mean()) / img.mean()
     log(f"interior normal-mapped vs plain: mean rel diff {nrel:.3e}")
     # the leaning normal moves the frame's mean by 6.261e-2 on an H100 80GB
@@ -1372,7 +1379,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     texture_every_material(cparams.scene.materials, "diffuseColor", extra["checker"])
     cimg, _dt, out["cornell_textured"], claunches = warm_render(cparams, "cornell_textured "
                                                            f"{FULL_RES}^2 16spp 8 bounces")
-    assert claunches["K3"] > 0 and claunches["K1"] == 0 and fused.stage_calls == 0
+    assert claunches["K3"] > 0 and claunches["K1"] == 0 and split_ref.stage_calls == 0
     assert np.isfinite(cimg).all() and (cimg >= 0).all() and cimg[..., :3].mean() > 0.01
 
     # interior_taps: wrap modes other than repeat, sRGB, channel picks
@@ -1382,7 +1389,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     log(f"interior_taps: textured {tst.textured_params}, pool of "
         f"{tparams.scene._texture_pool.count} slots, 2x2 rows "
         f"{tparams.scene._texture_pool.bilinear_packed}")
-    assert tlaunches["K4"] == split_launches["K4"] and fused.stage_calls == 0
+    assert tlaunches["K4"] == split_launches["K4"] and split_ref.stage_calls == 0
     assert {"metallic", "roughness"} <= set(tst.textured_params)
     assert np.isfinite(timg).all() and (timg >= 0).all() and timg[..., :3].mean() > 0.01
     scenes = {"interior": params, "interior_normalmapped": nparams, "cornell_textured": cparams,
@@ -2398,7 +2405,7 @@ def phase_branches(device, replay: dict, exact: bool = False):
     from gatling_tpu_torch.ops.bounce_ref import P_TMIN, cutout_key, walk_closest, \
         walk_hit_attrs, walk_work
     from gatling_tpu_torch.ops.split_ref import H_T, trace_ref
-    from gatling_tpu_torch.render.fused import material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows
 
     out = {}
     for label, (fs, static, waves, nee) in replay.items():

@@ -71,8 +71,8 @@
 // that little of the shaded ray stays live across the walk. K3 reuses K1's closest-hit walk and K2's walk
 // and pass 2; K4 runs the shading core and the NEE shadow walks that K1
 // and K2 run (one copy of each in this file). Their twins are in
-// ops/split_ref.py (K4's after render/fused.py material_rows, the texture
-// stage in plain torch). What bounds them: K3 the same triangle tests as
+// ops/split_ref.py (K4's after material_rows there, the texture stage in
+// plain torch). What bounds them: K3 the same triangle tests as
 // K1 and K2 without the shading; K4 the state and hit-buffer traffic (16
 // + 16 + up to 21 floats a ray), the texels its taps touch and, with NEE,
 // the shadow walk's box and triangle tests.
@@ -1071,7 +1071,7 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
 
 // ---------------------------------------------------------------------------
 // K4's texture taps (render/texture.py sample_pool, render/material.py
-// apply_textures and perturb_normal, as render/fused.py material_rows
+// apply_textures and perturb_normal, as ops/split_ref.py material_rows
 // runs them)
 // ---------------------------------------------------------------------------
 

@@ -38,7 +38,7 @@ a textured scene splits it into `trace_step` (the hit buffer) and
   interface: a source that includes PyTorch's headers takes minutes to
   build, this one seconds). A failed build or launch raises;
 * on a CPU tensor, the plain twins ops/bounce_ref.py and ops/split_ref.py
-  (K4's after the texture stage, render/fused.py material_rows).
+  (K4's after the texture stage, ops/split_ref.py material_rows).
 
 They are registered as the operators `torch.ops.gatling.bounce_step` (K1),
 `bounce_step_walk` (K2), `trace_step` (K3) and `shade_step` (K4).
@@ -127,6 +127,7 @@ from gatling_tpu_torch.ops.split_ref import (
     PR_WIDTHS,
     has_tangents,
     hit_row_count,
+    material_rows,
     par_row_starts,
     shade_ref,
     slim_param_layout,
@@ -135,9 +136,13 @@ from gatling_tpu_torch.ops.split_ref import (
 from gatling_tpu_torch.ops.sampling import u32_to_f32_bits
 from gatling_tpu_torch.render.material import (
     MF_ANISO,
+    MF_BASE,
     MF_COAT,
+    MF_EMISSIVE,
+    MF_METAL,
     MF_OPACITY,
     MF_OPACITY_THRESH,
+    MF_ROUGH,
     MF_THIN,
     MF_TRANS,
     MF_VOL_A,
@@ -165,6 +170,10 @@ MI_COLS = 10  # the device material table's integer columns (render/material.py 
 # samples, and the normal map
 TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
 TAP_NORMAL = 16
+# K4's tap tables in shared memory, in 4-byte words (csrc/bounce.cu
+# tap_smem_words): TAP_MI slot columns a material, SLOT_WORDS a texture
+# slot (SLOT_I ints, SLOT_F floats), then the SRGB_LUT-entry decode table
+TAP_MI, SLOT_WORDS, SRGB_LUT = 7, 6 + 8, 256
 BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
@@ -1126,7 +1135,7 @@ class BounceKernel(CudaLibrary):
         shading = self._check_shading(mats, lights, light_types)
         tap_args = self._tap_args(mats, mat_i, pool, taps)
         smem = 4 * (mats.numel() + lights.numel() + light_types.numel()) + (
-            4 * (mats.shape[0] * 7 + tap_args[-2] * 14 + 256) if taps else 0)
+            4 * (mats.shape[0] * TAP_MI + tap_args[-2] * SLOT_WORDS + SRGB_LUT) if taps else 0)
         if smem > SMEM_MAX_BYTES:
             raise ValueError(f"shade kernel: its tables take {smem} B of shared memory, above "
                              f"the {SMEM_MAX_BYTES} B a block has")
@@ -1246,9 +1255,7 @@ def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, 
 def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
                textured: int, state, nee: bool, advanced: bool, cutout: bool,
                volumes: int) -> None:
-    # the texture stage, then the shade twin (render/fused.py imports this module)
-    from gatling_tpu_torch.render.fused import material_rows
-
+    # the texture stage, then the shade twin
     active = tuple(name for name in PAR_ORDER if textured & TAP_BITS[name])
     parbuf, hit = material_rows(MaterialTable(mat_f, mat_i), TexturePool(*pool), hit, active)
     shade_ref(params, tris, mats, lights, tuple(light_types.tolist()), state, hit, parbuf,
@@ -1299,13 +1306,13 @@ def cutout_draws(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def tap_rows_ref(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
                  textured_params) -> torch.Tensor:
     """tap_rows' twin, on the device of its tensors: the texture stage
-    (render/fused.py material_rows) over the raw material table's rows."""
-    from gatling_tpu_torch.render.fused import material_rows
-
+    (ops/split_ref.py material_rows) over the raw material table's rows."""
     active = tuple(name for name in PAR_ORDER if name in textured_params)
     parbuf, hit_n = material_rows(materials, textures, hitbuf, active)
     mat = torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
-    rows = materials.packed_f[mat][:, [0, 1, 2, 7, 8, 9, 3, 4]].T.clone()
+    cols = [*range(MF_BASE, MF_BASE + 3), *range(MF_EMISSIVE, MF_EMISSIVE + 3), MF_METAL,
+            MF_ROUGH]
+    rows = materials.packed_f[mat][:, cols].T.clone()
     layout = dict(slim_param_layout(active))
     for name, dst in (("base_color", 0), ("emissive", 3), ("metallic", 6), ("roughness", 7)):
         if name in layout:

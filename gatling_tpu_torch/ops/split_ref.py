@@ -1,11 +1,13 @@
 """Plain PyTorch twins of the split-bounce kernels K3 (trace) and K4 (shade).
 
-Textured scenes split a bounce in three (the JAX package's trace_step,
-the XLA texture stage `_material_rows`, shade_step): K3 finds each ray's
-closest hit and writes its shading state into a hit buffer; the texture
-stage (render/fused.py material_rows) samples the textured parameters
-into a parameter buffer and, on normal-mapped scenes, perturbs the
-shading normal; K4 shades from both. Layouts shared with csrc/bounce.cu:
+The JAX package splits a textured bounce in three (trace_step, the XLA
+texture stage `_material_rows`, shade_step): K3 finds each ray's closest
+hit and writes its shading state into a hit buffer; the texture stage
+samples the textured parameters into a parameter buffer and, on
+normal-mapped scenes, perturbs the shading normal; K4 shades from both.
+The port's K4 taps the textures itself; its twin is the texture stage's
+port, material_rows here, then shade_ref. Layouts shared with
+csrc/bounce.cu:
 
 * hit buffer [16, R] f32 (24 rows with tangents): the H_* rows below; a
   dead ray's rows are all 0;
@@ -44,7 +46,7 @@ from gatling_tpu_torch.ops.bounce_ref import (
     _FMAX,
     _where,
     cutout_key,
-    material_rows,
+    material_rows as table_rows,
     occluder,
     resident_hits,
     shade_core,
@@ -53,6 +55,13 @@ from gatling_tpu_torch.ops.bounce_ref import (
     walk_hit_attrs,
 )
 from gatling_tpu_torch.interface import f32
+from gatling_tpu_torch.render.material import (
+    MaterialTable,
+    apply_textures,
+    gather_params,
+    perturb_normal,
+)
+from gatling_tpu_torch.render.texture import TexturePool
 
 # hit buffer rows (pallas_bounce.py :246-256)
 H_HIT, H_T, H_UVX, H_UVY, H_MAT = 0, 1, 2, 3, 4
@@ -66,6 +75,9 @@ HIT_ROWS_TAN = 24
 # slim parameter buffer (pallas_bounce.py :258-285)
 PR_WIDTHS = {"base_color": 3, "emissive": 3, "metallic": 1, "roughness": 1}
 PAR_ORDER = ("base_color", "emissive", "metallic", "roughness")
+# calls of material_rows, the texture stage (chip_smoke.py asserts that a
+# textured frame on the card makes none)
+stage_calls = 0
 
 
 def has_tangents(tris: torch.Tensor) -> bool:
@@ -99,6 +111,33 @@ def par_row_starts(textured_params) -> list[int]:
     slim buffer, -1 where untextured (the kernel's form of the layout)."""
     rows = dict(slim_param_layout(textured_params))
     return [rows.get(name, -1) for name in PAR_ORDER]
+
+
+def material_rows(materials: MaterialTable, textures: TexturePool, hitbuf: torch.Tensor,
+                  active: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The texture stage of the JAX package's split bounce (render/fused.py
+    _material_rows), the plain twin of K4's taps: (the slim parameter
+    buffer of the textured parameters `active`, the hit buffer). When the
+    hit buffer carries tangent rows, its H_N rows come back normal-mapped.
+    `materials` is the raw material table on the device; missed and dead
+    rays read row 0 harmlessly."""
+    global stage_calls
+    stage_calls += 1
+    mat = torch.clamp(torch.round(hitbuf[H_MAT]).to(torch.int32), min=0)
+    uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
+    p = apply_textures(materials, textures, gather_params(materials, mat), mat, uv, active)
+    rows: list[torch.Tensor] = []
+    for name, _row in slim_param_layout(active):
+        val = getattr(p, name)
+        rows += list(val.T) if val.dim() == 2 else [val]
+    rows += [torch.zeros_like(hitbuf[0])] * (slim_param_rows(active) - len(rows))
+    if hitbuf.shape[0] > HIT_ROWS:
+        n = hitbuf[H_N:H_N + 3].T
+        t = hitbuf[H_TAN:H_TAN + 3].T
+        b = torch.linalg.cross(n, t) * hitbuf[H_BS][:, None]
+        hitbuf = hitbuf.clone()
+        hitbuf[H_N:H_N + 3] = perturb_normal(materials, textures, mat, uv, n, t, b).T
+    return torch.stack(rows), hitbuf
 
 
 def trace_ref(params: torch.Tensor, tris: torch.Tensor, state: torch.Tensor,
@@ -166,7 +205,7 @@ def shade_ref(params: torch.Tensor, tris: torch.Tensor, mats: torch.Tensor,
         raise ValueError(f"the split shade has no volume mode {volumes}")
     p = [f32(x) for x in params.tolist()]
     hit = (state[13] > 0.5) & (hitbuf[H_HIT] > 0.5)
-    mrow = material_rows(mats, hitbuf[H_MAT], advanced, volumes)
+    mrow = table_rows(mats, hitbuf[H_MAT], advanced, volumes)
     base, em, met, rough = par_rows
     if base >= 0:
         mrow[0:3] = [parbuf[base + k] for k in range(3)]

@@ -10,11 +10,11 @@ equal the JAX package's. An untextured scene runs one kernel a bounce,
 (K3) writes the hit buffer and `shade_step` (K4) samples the textured
 parameters, perturbs the shading normal of normal-mapped scenes and
 shades. The JAX package runs an XLA texture stage between its two
-kernels (`_material_rows`); its port, `material_rows` here, is the plain
-twin of K4's taps (shade_step runs it on a CPU state) and never runs on
-the card's main path. With textureLodBounces = k, bounces k and later
-run `bounce_step` on the kernels' material table, which holds the
-texture means.
+kernels (`_material_rows`); its port, ops/split_ref.py `material_rows`,
+is the plain twin of K4's taps (shade_step runs it on a CPU state) and
+never runs on the card's main path. With textureLodBounces = k, bounces
+k and later run `bounce_step` on the kernels' material table, which
+holds the texture means.
 
 A dead ray costs the kernels one load of its alive row, so the port keeps
 no alive-ray partition between bounces (the TPU path partitions 128-ray
@@ -44,30 +44,11 @@ from gatling_tpu_torch.ops.bounce import (
     unpack_radiance,
     unpack_rows,
 )
-from gatling_tpu_torch.ops.split_ref import (
-    H_BS,
-    H_MAT,
-    H_N,
-    H_TAN,
-    H_UVX,
-    H_UVY,
-    HIT_ROWS,
-    slim_param_layout,
-    slim_param_rows,
-)
 from gatling_tpu_torch.render.camera import generate_primary_rays
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
-from gatling_tpu_torch.render.material import (
-    MaterialTable,
-    apply_textures,
-    gather_params,
-    perturb_normal,
-)
+from gatling_tpu_torch.render.material import MaterialTable
 from gatling_tpu_torch.render.texture import TexturePool
 
-# calls of material_rows, the texture stage (chip_smoke.py asserts that a
-# textured frame on the card makes none)
-stage_calls = 0
 # samples of one pixel traced together in one ray wave, up to this many rays
 SPP_BATCH_RAYS = 4194304
 # the AOVs the JAX package's fused kernels write (render/fused.py:116-118);
@@ -112,33 +93,6 @@ def coherence_keys(state: torch.Tensor, scene_lo: torch.Tensor,
          for a in range(3)]
     morton = _spread10(q[0]) | (_spread10(q[1]) << 1) | (_spread10(q[2]) << 2)
     return torch.where(state[13] > 0.5, (octant << 15) | morton, 0xFFFFFFFF)
-
-
-def material_rows(materials: MaterialTable, textures: TexturePool, hitbuf: torch.Tensor,
-                  active: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """The texture stage of the JAX package's split bounce (render/fused.py
-    _material_rows), the plain twin of K4's taps: (the slim parameter
-    buffer of the textured parameters `active`, the hit buffer). When the
-    hit buffer carries tangent rows, its H_N rows come back normal-mapped.
-    `materials` is the raw material table on the device; missed and dead
-    rays read row 0 harmlessly."""
-    global stage_calls
-    stage_calls += 1
-    mat = torch.clamp(torch.round(hitbuf[H_MAT]).to(torch.int32), min=0)
-    uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
-    p = apply_textures(materials, textures, gather_params(materials, mat), mat, uv, active)
-    rows: list[torch.Tensor] = []
-    for name, _row in slim_param_layout(active):
-        val = getattr(p, name)
-        rows += list(val.T) if val.dim() == 2 else [val]
-    rows += [torch.zeros_like(hitbuf[0])] * (slim_param_rows(active) - len(rows))
-    if hitbuf.shape[0] > HIT_ROWS:
-        n = hitbuf[H_N:H_N + 3].T
-        t = hitbuf[H_TAN:H_TAN + 3].T
-        b = torch.linalg.cross(n, t) * hitbuf[H_BS][:, None]
-        hitbuf = hitbuf.clone()
-        hitbuf[H_N:H_N + 3] = perturb_normal(materials, textures, mat, uv, n, t, b).T
-    return torch.stack(rows), hitbuf
 
 
 def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedScene,

@@ -222,8 +222,8 @@ def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
 
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.ops import bounce as tb
-    from gatling_tpu_torch.ops.split_ref import par_row_starts, shade_ref, trace_ref
-    from gatling_tpu_torch.render.fused import coherence_keys, material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows, par_row_starts, shade_ref, trace_ref
+    from gatling_tpu_torch.render.fused import coherence_keys
 
     def coherent(state, fs):  # render_pixels_fused's order after a bounce
         box = fs.walk.l1

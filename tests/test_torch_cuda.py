@@ -16,6 +16,9 @@ must be bit-equal; rows 0-11 agree to rtol 1e-4 / atol 1e-5 on at least
 code paths of the same math library).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -146,26 +149,14 @@ def test_walk_kernel_matches_twin(cuda, instanced, nee):
         state = twin
 
 
-def _tap_variants(desc) -> None:
-    """K4's other taps on a textured scene: every texture decoded as sRGB
-    and wrapping clamp, mirror or black (each material two of the three in
-    turn: a pool with no 2x2 rows, tapped through texels_u32), metallic and
-    roughness from the b and g channels of the material's texture."""
-    from gatling_tpu_torch.scene.stage import ShaderNode
-
-    modes = ("clamp", "mirror", "black")
-    for k, m in enumerate(desc.materials.values()):
-        wraps = dict(wrapS=modes[k % 3], wrapT=modes[(k + 1) % 3])
-        files = [n.inputs["file"] for n in m.nodes.values() if n.shader_id == "UsdUVTexture"]
-        for n in m.nodes.values():
-            if n.shader_id == "UsdUVTexture":
-                n.inputs.update(sourceColorSpace="sRGB", **wraps)
-        for name, channel in (("metallic", "b"), ("roughness", "g")) if files else ():
-            node = ShaderNode(path=f"{m.path}/{name}_tex", shader_id="UsdUVTexture",
-                              inputs={"file": files[0], "sourceColorSpace": "raw", **wraps},
-                              input_connections={})
-            m.nodes[node.path] = node
-            m.nodes[m.surface_node].input_connections[name] = (node.path, channel)
+def _chip_smoke():
+    """chip_smoke.py at the repo's root, as a module (its helpers import
+    gatling_tpu_torch when called)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_for_tests", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
@@ -177,7 +168,7 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
     builds the materials, the texture pool and the kernel material table;
     its geometry and that table then go into resident, flattened or
     instanced tables. `tinted`: the bowls in tinted glass
-    (examples.interior_tinted); `taps`: _tap_variants."""
+    (examples.interior_tinted); `taps`: chip_smoke.py tap_variants."""
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.scene.examples import interior, interior_tinted
@@ -185,7 +176,7 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
 
     desc = (interior_tinted if tinted else interior)(detail=1, tex_dir=str(tex_dir))
     if taps:
-        _tap_variants(desc)
+        _chip_smoke().tap_variants(desc)
     if normal_map:
         lean = np.zeros((2, 2, 4), np.uint8)
         lean[...] = (200, 128, 230, 255)
@@ -230,9 +221,10 @@ def _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee: bool
     within tolerance on 99.9 %; K4 from the twin's hit buffer with its own
     taps, its twin the texture stage (material_rows) and shade_ref; with
     `bounce_lod`, at bounce 1 also K1 / K2 on the same tables (tangent rows
-    included), as the textureLodBounces bounces run them."""
-    from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, shade_ref, trace_ref
-    from gatling_tpu_torch.render.fused import material_rows
+    included), as the textureLodBounces bounces run them. Some rays must
+    live through the last bounce, so no bounce's comparison is empty."""
+    from gatling_tpu_torch.ops.split_ref import (H_HIT, H_MAT, material_rows, shade_ref,
+                                                 trace_ref)
 
     w, h = 128, 64
     cam = camera_uniforms(cam_desc, False, cuda)
@@ -282,7 +274,7 @@ def _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee: bool
             close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
             assert bits.mean() <= 1 - MIN_AGREE and close.mean() >= MIN_AGREE, label
         state = twin
-    return state
+    assert int((state[13] > 0.5).sum()) > 0, label  # rays lived through the last bounce
 
 
 @pytest.mark.requires_cuda
@@ -370,10 +362,10 @@ def test_split_lobes_cutout_match_twins(cuda, tmp_path, textured):
                                              (True, True)])
 def test_taps_match_texture_stage(cuda, tmp_path, taps, normal_map):
     """K4's taps alone (ops/bounce.py tap_rows) against the texture stage on
-    the card (tap_rows_ref: render/fused.py material_rows) on 1,048,576
+    the card (tap_rows_ref: ops/split_ref.py material_rows) on 1,048,576
     random hit rows over the small interior's materials and pool (2x2 rows,
     or with `taps` the wrap modes, sRGB and channel picks of
-    _tap_variants): uv from -3 to 4, random unit normals, tangents and
+    chip_smoke.py tap_variants): uv from -3 to 4, random unit normals, tangents and
     bitangent signs. Every tapped parameter and the normal-mapped shading
     normal bit-equal on every row: the normal map's cross product and norm
     in the rounding of PyTorch's CUDA kernels."""
@@ -408,11 +400,11 @@ def test_textured_frame_runs_no_texture_stage(cuda, tmp_path):
     and K4 a bounce, and no call of the texture stage (K4 taps itself)."""
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.interface import AovId
-    from gatling_tpu_torch.render import fused
+    from gatling_tpu_torch.ops import split_ref
     from gatling_tpu_torch.scene.examples import interior
 
     desc = interior(detail=1, tex_dir=str(tmp_path))
-    _tap_variants(desc)
+    _chip_smoke().tap_variants(desc)
     scene = gi.create_scene(cuda)
     for m in desc.meshes:
         scene.add_mesh(m)
@@ -420,7 +412,7 @@ def test_textured_frame_runs_no_texture_stage(cuda, tmp_path):
         scene.add_material(m)
     for light in desc.lights:
         scene.add_light(light)
-    before, fused.stage_calls = dict(tb.launches), 0
+    before, split_ref.stage_calls = dict(tb.launches), 0
     buf = gi.GiRenderBuffer(32, 32, 4)
     gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
                                 aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
@@ -428,7 +420,7 @@ def test_textured_frame_runs_no_texture_stage(cuda, tmp_path):
                                                      nextEventEstimation=True)))
     assert scene._fused_static.textured
     assert tb.launches["K3"] - before["K3"] == tb.launches["K4"] - before["K4"] > 0
-    assert fused.stage_calls == 0
+    assert split_ref.stage_calls == 0
     assert np.isfinite(buf.data).all() and buf.data[..., :3].mean() > 0.01
 
 
@@ -682,8 +674,7 @@ def test_volume_split_kernels_match_twins(cuda, tmp_path, layout):
     """K4's absorption branch (and K1 / K2's on the same tangent-row tables,
     as textureLodBounces runs them) on the textured interior with tinted
     glass bowls, bounces 0-4, against the twins."""
-    from gatling_tpu_torch.ops.split_ref import shade_ref, trace_ref
-    from gatling_tpu_torch.render.fused import material_rows
+    from gatling_tpu_torch.ops.split_ref import material_rows, shade_ref, trace_ref
 
     fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, True, True,
                                                                 tmp_path, tinted=True)

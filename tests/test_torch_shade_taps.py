@@ -2,7 +2,7 @@
 
 On the card K4 (csrc/bounce.cu) samples the textured parameters and the
 normal map itself; on a CPU state `shade_step` runs its twin, the texture
-stage (render/fused.py material_rows) and then ops/split_ref.py
+stage (ops/split_ref.py material_rows) and then ops/split_ref.py
 shade_ref. Held here:
 
 1. the new `shade_step` on a CPU state, from the JAX hit buffer, against
@@ -22,9 +22,7 @@ shade_ref. Held here:
    read (its bound's texel bytes) against a brute-force count.
 """
 
-import importlib.util
 import math
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,15 +32,14 @@ import torch
 import gatling_tpu.render.texture as jtex
 
 from gatling_tpu_torch.ops import bounce as tb
-from gatling_tpu_torch.render import fused
+from gatling_tpu_torch.ops import split_ref
 from gatling_tpu_torch.render import texture as ttex
 from gatling_tpu_torch.render.material import MaterialTable
 
 from test_torch_clustered_bounce import port_tables
+from test_torch_cuda import _chip_smoke
 from test_torch_split_bounce import (MIN_AGREE, _agree, _port_pool, _port_table, jax_case,
                                      tex_dir)  # noqa: F401 (tex_dir: the fixture)
-
-HERE = os.path.dirname(os.path.abspath(__file__))
 
 CASES = [(layout, tan, nee) for layout in ("flattened", "instanced")
          for tan in (False, True) for nee in (False, True)] + [("resident", False, False)]
@@ -57,11 +54,11 @@ def test_shade_step_taps_match_jax(tex_dir, layout, tangents, nee, bounce):  # n
     st = tb.state_from_numpy(state_in, "cpu")
     alive = st[13].numpy() > 0.5
     assert alive.sum() > 300 and (hit_ref.shape[0] == 24) == tangents
-    calls = fused.stage_calls
+    calls = split_ref.stage_calls
     # K3's hit buffer as JAX wrote it, before any normal map
     tb.shade_step(torch.tensor(params), fs, st, torch.tensor(hit_ref.reshape(hit_ref.shape[0], -1)),
                   _port_table(table), _port_pool(pool), active, nee)
-    assert fused.stage_calls == calls + 1  # a CPU state runs the texture stage
+    assert split_ref.stage_calls == calls + 1  # a CPU state runs the texture stage
     _agree(tb.state_to_numpy(st), out_ref, np.ones_like(alive), MIN_AGREE,
            f"{layout} tangents={tangents} nee={nee} bounce {bounce}",
            exact_rows=(12, 13, 14, 15), close_rows=slice(0, 12))
@@ -153,14 +150,6 @@ def test_float_pool_raises():
     with pytest.raises(NotImplementedError, match="Dome lights"):
         ttex.sample_pool(float_pool, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 2)))
     assert tb.tap_mask(15, 24, empty) == 0
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke_for_tests",
-                                                  os.path.join(HERE, "..", "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    return cs
 
 
 @pytest.mark.parametrize("packed", [True, False])

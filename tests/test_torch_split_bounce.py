@@ -58,7 +58,7 @@ from gatling_tpu_torch.ops import split_ref as sr
 from gatling_tpu_torch.render import material as tmat
 from gatling_tpu_torch.render import texture as ttex
 from gatling_tpu_torch.render.camera import CameraUniforms
-from gatling_tpu_torch.render.fused import material_rows, render_pixels_fused
+from gatling_tpu_torch.render.fused import render_pixels_fused
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
 from gatling_tpu_torch.scene import examples as tex
 
@@ -206,7 +206,7 @@ def test_split_twins_match_jax(tex_dir, layout, tangents, nee, bounce):
 
     # the texture stage on the JAX hit buffer
     hb = torch.tensor(hit_ref.reshape(hit_ref.shape[0], -1))
-    parbuf, hit_n = material_rows(_port_table(table), _port_pool(pool), hb, active)
+    parbuf, hit_n = sr.material_rows(_port_table(table), _port_pool(pool), hb, active)
     np.testing.assert_allclose(parbuf.numpy(), par_ref.reshape(par_ref.shape[0], -1),
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(hit_n.numpy(), hit_n_ref.reshape(hit_n_ref.shape[0], -1),
