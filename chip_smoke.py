@@ -81,9 +81,15 @@ fails, with a non-zero exit, if any phase fails:
    triangle K5's on 99 % of rays; each kernel and twin timed, K5's and
    K6's bounds from their BVH walks' work (trace_ref.matrix_work,
    occluded_work, whose flags must equal the twin's) beside the
-   brute-force ones; after 4f, the same on cornell_cutout_aovs' shadow-hop
-   waves (bounces 0 and 2, recorded by wrapping
-   render/integrator.py _trace_occluded_cutout);
+   brute-force ones; every bound also at one FP32 instruction an
+   operation (33.45e12/s: the kernels build with -fmad=false); K7 and K8
+   also on the first 8192 triangles of interior(detail=2), more rows than
+   they hold at once (their streamed path): its camera wave at 512x512 and
+   shadow rays from its hits to its lights, bit-equal, with their layout
+   (rays a K7 thread, lanes a K8 shadow ray, rows a chunk) and K8's tests
+   past each ray's first occluder; after 4f, the same on
+   cornell_cutout_aovs' shadow-hop waves (bounces 0 and 2, recorded by
+   wrapping render/integrator.py _trace_occluded_cutout);
 4f. the advanced lobes and the cutout through gi.render, a first and a
    warm frame each with the kernels' launches: glass_coated
    (Materials.GlassCoated at the bench's 1200x1200, 16 spp, 8 bounces,
@@ -164,6 +170,10 @@ SF_RES, SF_SPP, SF_BOUNCES = 512, 4, 6  # the JAX bench's sphere_field settings 
 # H100 SXM5 peaks: HBM3 bytes/s, f32 FLOP/s outside the tensor cores, TF32
 # on the tensor cores (dense)
 HBM_BPS, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# built with -fmad=false, every f32 multiply and add is one FP32 instruction:
+# 128 a clock on each of the 132 SMs at 1.98 GHz, 33.45e12/s (the published
+# f32 peak counts a fused multiply-add as two operations)
+FP32_INSTR_RATE = 132 * 128 * 1.98e9
 TRI_TEST_FLOPS = 30  # one Baldwin-Weber triangle test, counted from the kernels' code
 SLAB_FLOPS = 24  # one slab test: 6 subtractions, 6 multiplications, 12 min/max
 
@@ -347,9 +357,10 @@ def k1_walk_bound_ms(p, fs, state, nee: bool):
     return _bound(nbytes, work[0] * SLAB_FLOPS + work[1] * TRI_TEST_FLOPS), work
 
 
-def _bound(nbytes: int, ops: int):
-    """(least ms, what bounds it) for moving nbytes and doing ops f32 operations."""
-    tb_, to = nbytes / HBM_BPS, ops / F32_FLOPS
+def _bound(nbytes: int, ops: int, peak: float = F32_FLOPS):
+    """(least ms, what bounds it) for moving nbytes and doing ops f32
+    operations at `peak` a second."""
+    tb_, to = nbytes / HBM_BPS, ops / peak
     return max(tb_, to) * 1e3, "bytes" if tb_ >= to else "operations"
 
 
@@ -1401,6 +1412,10 @@ AOVS_RES, AOVS_SPP, AOVS_BOUNCES = 1200, 16, 8  # cornell_aovs: the Cornell benc
 INT_AOVS = ("OBJECT_ID", "FACE_ID", "INSTANCE_ID")
 # operations a live ray spends on one triangle, counted from csrc/trace.cu
 TRACE_OPS = {"K5": 58, "K6": 57, "K7": 54, "K8": 53}
+# K7/K8, the least a pair needs: decided at det (d x e2 9, det 5, |det| 2)
+# or at u (then the reciprocal 1, t - v0 3, u 6, one comparison); the
+# rest TRACE_OPS (trace_ref.tiles_work sorts the pairs)
+MT_DET_OPS, MT_U_OPS = 16, 27
 
 
 def all_aov_bindings(w: int, h: int):
@@ -1631,44 +1646,77 @@ def event_ms(fn, reps: int = 7) -> float:
     return statistics.median(times[1:])
 
 
-def trace_bound_ms(kernel: str, rays, table, tested: int):
+def trace_bound_ms(kernel: str, rays, table, ops: int, peak: float = F32_FLOPS):
     """The least time of one launch: each ray's o, d, tmin, tmax read once,
     its result written once (t, tri, u, v: 16 B; a flag: 1 B), the table
-    read once (HBM), against the `tested` ray-triangle tests at
-    TRACE_OPS operations each (f32)."""
+    read once (HBM), against `ops` operations (f32, at `peak`)."""
     n = rays[0].shape[0]
     out_bytes = 16 if kernel in ("K5", "K7") else 1
-    return _bound(n * (32 + out_bytes) + 4 * table.numel(), tested * TRACE_OPS[kernel])
+    return _bound(n * (32 + out_bytes) + 4 * table.numel(), ops, peak)
 
 
-def trace_walk_bound_ms(kernel: str, rays, bvh, work):
+def tiles_ops(kernel: str, case: str, rays, tiles, last) -> tuple[int, int]:
+    """The operations K7 or K8 needs on a wave, and its pairs: per live ray
+    over the triangles 0 .. last[ray] (trace_ref.tiles_work), MT_DET_OPS a
+    pair decided at det, MT_U_OPS one decided at u, TRACE_OPS[kernel] the
+    rest. Logs the split."""
+    from gatling_tpu_torch.ops import trace_ref as trf
+
+    at_det, at_u, pairs = (int(x.sum()) for x in trf.tiles_work(*rays, tiles.tris, last))
+    ops = at_det * MT_DET_OPS + at_u * MT_U_OPS + (pairs - at_det - at_u) * TRACE_OPS[kernel]
+    log(f"{kernel} {case}: {pairs} pairs, {at_det} decided at det and {at_u} at u, "
+        f"{ops} operations ({ops / max(pairs, 1):.2f} a pair)")
+    return ops, pairs
+
+
+def trace_walk_bound_ms(kernel: str, rays, bvh, work, peak: float = F32_FLOPS):
     """The least time of one K5 or K6 launch for the work its BVH walk
     makes (trace_ref.matrix_work / occluded_work: slab tests, triangle
     tests): each ray's o, d, tmin, tmax read and its result (t, tri, u, v;
     a flag) written once, the tree read once (HBM), against 24 operations
-    a slab test and TRACE_OPS[kernel] a triangle test (f32)."""
+    a slab test and TRACE_OPS[kernel] a triangle test (f32, at `peak`)."""
     n = rays[0].shape[0]
     out_bytes = 16 if kernel == "K5" else 1
     return _bound(n * (32 + out_bytes) + 4 * sum(t.numel() for t in bvh),
-                  work[0] * SLAB_FLOPS + work[1] * TRACE_OPS[kernel])
+                  work[0] * SLAB_FLOPS + work[1] * TRACE_OPS[kernel], peak)
+
+
+def log_k8_sweep(case: str, first, alive, n_real: int, layout: dict, tested: int) -> None:
+    """Logs the tests K8's layout implies beside the `tested` pairs its
+    bound counts: a model, not a count from the kernel. A ray's group tests
+    whole steps of k8_group * k8_rows rows from each chunk's first (one
+    chunk of every row when the table is resident), up to the step that
+    holds its first occluder (`first`, trace_ref's index; -1: none, every
+    row tested)."""
+    import torch
+
+    g = layout["k8_group"] * layout["k8_rows"]
+    chunk = layout["chunk_rows"] if n_real > layout["resident_rows"] else max(n_real, 1)
+    f = first[alive].long()
+    lo = torch.div(f.clamp(min=0), chunk, rounding_mode="floor") * chunk
+    steps = torch.div(f - lo + g, g, rounding_mode="floor")  # up to the occluder's step
+    rows = (n_real - lo).clamp(max=chunk)  # the occluder's chunk's rows
+    swept = int(torch.where(f >= 0, lo + (steps * g).minimum(rows), n_real).sum())
+    log(f"K8 {case}: {tested} tests up to the first occluders; K8's layout implies {swept} "
+        f"({swept - tested} past them)")
 
 
 def phase_trace(device, waves: dict):
     """Phase 3d: K5-K8 against their twins on the waves 4e's frames handed
     the tracer (and 4f's cutout shadow hops), on the tables gi built: tri,
     t, u, v bit-equal on every ray, the occlusion flags equal on every ray;
-    K7 against K5; each kernel and twin timed with CUDA events, K5's and
-    K6's bounds from their walks' work beside the brute-force ones."""
+    K7 against K5; each kernel and twin timed (trace_timing); K8's sweep
+    as its layout implies it (log_k8_sweep)."""
     import torch
 
     from gatling_tpu_torch.ops import trace as tt
     from gatling_tpu_torch.ops import trace_ref as trf
-    from gatling_tpu_torch.ops.bounce import real_triangles
 
+    layout = tt.kernel().layout()
     results = {}
     for label, (recorded, tables, geom) in waves.items():
         tiles = tt.build_tri_tiles(geom, device)
-        n_real = real_triangles(geom)
+        n_real = tiles.n_real
         for bounce, rays in recorded["closest"].items():
             live = int((rays[3] > rays[2]).sum())
             got5, got7 = tt.intersect_matrix(*rays, tables), tt.intersect_tiles(*rays, tiles)
@@ -1691,18 +1739,17 @@ def phase_trace(device, waves: dict):
             assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                        for a, b in zip(walked, ref5)), (label, bounce)  # the plain walk's hit
             work = (int(boxes.sum()), int(tests.sum()))
-            for k, fn, twin, table in (
+            ops7, _ = tiles_ops("K7", f"{label} bounce {bounce}", rays, tiles,
+                                torch.full_like(ref7[1], n_real - 1))
+            for k, fn, twin, table, ops, walk in (
                     ("K5", lambda r=rays: tt.intersect_matrix(*r, tables),
-                     lambda r=rays: trf.intersect_matrix_ref(*r, tables.coeffs), tables.coeffs),
+                     lambda r=rays: trf.intersect_matrix_ref(*r, tables.coeffs), tables.coeffs,
+                     live * n_real * TRACE_OPS["K5"], (tables.bvh, work)),
                     ("K7", lambda r=rays: tt.intersect_tiles(*r, tiles),
-                     lambda r=rays: trf.intersect_tiles_ref(*r, tiles.tris), tiles.tris)):
-                brute = trace_bound_ms(k, rays, table, live * n_real)
-                results[(k, label, bounce)] = dict(
-                    ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
-                    live=live, err=err[k], bound_brute=brute,
-                    bound=(trace_walk_bound_ms(k, rays, tables.bvh, work) if k == "K5"
-                           else brute),
-                    work=work if k == "K5" else None)
+                     lambda r=rays: trf.intersect_tiles_ref(*r, tiles.tris), tiles.rows, ops7,
+                     None)):
+                results[(k, label, bounce)] = trace_timing(k, fn, twin, rays, table, ops,
+                                                           err[k], walk)
         for bounce, rays in recorded["occluded"].items():
             live = int((rays[3] > rays[2]).sum())
             got6, got8 = tt.occluded_matrix(*rays, tables), tt.occluded_tiles(*rays, tiles)
@@ -1718,27 +1765,136 @@ def phase_trace(device, waves: dict):
             walked, boxes, tests = trf.occluded_work(tables.bvh, *rays)
             assert torch.equal(walked, first6 >= 0), (label, bounce)  # the plain walk's flags
             work = (int(boxes.sum()), int(tests.sum()))
-            for k, fn, twin, table, first in (
+            case = f"{label} bounce {bounce}"
+            alive = rays[3] > rays[2]
+            tested6 = int(torch.where(first6 >= 0, first6 + 1, n_real)[alive].sum())
+            ops8, tested8 = tiles_ops("K8", case, rays, tiles,
+                                      torch.where(first8 >= 0, first8, n_real - 1))
+            log_k8_sweep(case, first8, alive, n_real, layout, tested8)
+            for k, fn, twin, table, ops, walk in (
                     ("K6", lambda r=rays: tt.occluded_matrix(*r, tables),
                      lambda r=rays: trf.occluded_matrix_ref(*r, tables.coeffs), tables.coeffs,
-                     first6),
+                     tested6 * TRACE_OPS["K6"], (tables.bvh, work)),
                     ("K8", lambda r=rays: tt.occluded_tiles(*r, tiles),
-                     lambda r=rays: trf.occluded_tiles_ref(*r, tiles.tris), tiles.tris, first8)):
-                # the tests the data needs: up to the first occluder, else all
-                alive = rays[3] > rays[2]
-                tested = int(torch.where(first >= 0, first + 1, n_real)[alive].sum())
-                brute = trace_bound_ms(k, rays, table, tested)
-                results[(k, label, bounce)] = dict(
-                    ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
-                    live=live, err=err[k], bound_brute=brute,
-                    bound=trace_walk_bound_ms(k, rays, tables.bvh, work) if k == "K6" else brute,
-                    work=work if k == "K6" else None)
+                     lambda r=rays: trf.occluded_tiles_ref(*r, tiles.tris), tiles.rows, ops8,
+                     None)):
+                results[(k, label, bounce)] = trace_timing(k, fn, twin, rays, table, ops,
+                                                           err[k], walk)
+    log_trace_times(results)
+    return results
+
+
+def trace_timing(k, fn, twin, rays, table, ops: int, err: float, walk=None) -> dict:
+    """Phase 3d's record of one K5-K8 launch on one wave: the kernel and its
+    twin timed with CUDA events, and its bound at the published f32 peak
+    and at one FP32 instruction an operation (`bound_nc`): of `ops` (K7,
+    K8: tiles_ops), or of K5's or K6's walk (`walk`: the tree and its
+    work) with brute force's `ops` beside it (`bound_brute`)."""
+    bounds = [trace_walk_bound_ms(k, rays, walk[0], walk[1], peak) if walk
+              else trace_bound_ms(k, rays, table, ops, peak)
+              for peak in (F32_FLOPS, FP32_INSTR_RATE)]
+    out = dict(ms=event_ms(fn), plain_ms=event_ms(twin, reps=2), rays=rays[0].shape[0],
+               live=int((rays[3] > rays[2]).sum()), err=err, bound=bounds[0], bound_nc=bounds[1])
+    if walk:
+        out.update(work=walk[1], bound_brute=trace_bound_ms(k, rays, table, ops))
+    return out
+
+
+def log_trace_times(results: dict) -> None:
     for (k, label, bounce), r in sorted(results.items()):
         walk = (f"; walk work {r['work']} slab and triangle tests, brute-force bound "
-                f"{r['bound_brute'][0]:.4f} ms" if r.get("work") else "")
+                f"{r['bound_brute'][0]:.4f} ms" if "work" in r else "")
         log(f"timing {k} {label} bounce {bounce} ({r['rays']} rays, {r['live']} live): kernel "
             f"{r['ms']:.4f} ms, plain twin {r['plain_ms']:.3f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}{walk})")
+            f"({r['bound'][1]}{walk}), at one FP32 instruction an operation "
+            f"{r['bound_nc'][0]:.4f} ms")
+
+
+def streamed_wave(device, tex_dir: str):
+    """The first 8192 triangles of interior(detail=2) (64 tiles, every row
+    real: above the rows K7 and K8 hold at once, so their tables stream)
+    and two waves over them: the interior camera's at 512x512 (every 11th
+    ray dead) and shadow rays from its hits toward points on the lights
+    (their centres jittered by 0.05). Returns (tiles, closest rays,
+    shadow rays)."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch.ops import sampling as smp
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+    from gatling_tpu_torch.ops.geometry import SceneGeometry, build_geometry
+    from gatling_tpu_torch.render.camera import camera_uniforms, generate_primary_rays
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(detail=2, tex_dir=tex_dir)
+    paths = sorted({m.material for m in desc.meshes if m.material})
+    midx = {p: i for i, p in enumerate(paths)}
+    midx[None] = len(paths)
+    geom = build_geometry(desc.meshes, midx)
+    tiles = tt.build_tri_tiles(SceneGeometry(*[a[:8192] for a in geom]), device)
+    n = SF_RES * SF_RES
+    pix = torch.arange(n, device=device)
+    o, d, _ = generate_primary_rays(camera_uniforms(desc.first_camera(), False, device), SF_RES,
+                                    SF_RES, pix % SF_RES, pix // SF_RES, smp.rng_init(pix, 2),
+                                    True, True, False)
+    tmin = torch.zeros(n, device=device)
+    tmax = torch.full((n,), 3.4e38, device=device)
+    tmax[::11] = 0.0
+    t, tri, _u, _v = trf.intersect_tiles_ref(o, d, tmin, tmax, tiles.tris)
+    hit = tri >= 0
+    rng = np.random.default_rng(4)
+    centres = np.stack([np.asarray(lt.transform[3, :3]) for lt in desc.lights])
+    target = centres[rng.integers(0, len(centres), size=n)] + rng.normal(scale=0.05, size=(n, 3))
+    pos = o + d * torch.where(hit, t, 0.0)[:, None]
+    to_light = torch.tensor(target, dtype=torch.float32, device=device) - pos
+    dist = to_light.norm(dim=1)
+    shadow = (pos.contiguous(), (to_light / dist[:, None]).contiguous(),
+              torch.where(hit, 1e-3, 0.0), torch.where(hit, dist, 0.0))
+    return tiles, (o, d, tmin, tmax), shadow
+
+
+def phase_trace_streamed(device, tex_dir: str) -> dict:
+    """Phase 3d on streamed_wave's 8192 triangles: K7's t, tri, u, v and
+    K8's flags bit-equal to their twins on every ray, each timed with its
+    bounds; the layout of K7 and K8 (rays a thread, lanes a shadow ray,
+    rows held at once, rows a streamed chunk) logged."""
+    import torch
+
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+
+    layout = tt.kernel().layout()
+    log(f"K7/K8 layout {layout}")
+    tiles, rays, shadow = streamed_wave(device, tex_dir)
+    assert tiles.n_real > layout["resident_rows"], tiles.n_real
+    label = f"interior{tiles.n_real}"
+    got7, ref7 = tt.intersect_tiles(*rays, tiles), trf.intersect_tiles_ref(*rays, tiles.tris)
+    got8 = tt.occluded_tiles(*shadow, tiles)
+    first8 = trf.occluded_tiles_ref(*shadow, tiles.tris, first=True)
+    torch.cuda.synchronize()
+    bad7 = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+               for g, r in zip(got7, ref7))
+    bad8 = int((got8 != (first8 >= 0)).sum())
+    live = int((rays[3] > rays[2]).sum())
+    log(f"parity {label} ({tiles.n_real} rows, streamed): closest ({rays[0].shape[0]} rays, "
+        f"{live} live, {int((ref7[1] >= 0).sum())} hits) K7 {bad7} values not bit-equal to its "
+        f"twin; shadow rays ({int((shadow[3] > shadow[2]).sum())} traced, {int(got8.sum())} "
+        f"occluded) K8 {bad8} flags off its twin")
+    assert bad7 == 0 and bad8 == 0
+    n_real = tiles.n_real
+    ops7, _ = tiles_ops("K7", label, rays, tiles, torch.full_like(ref7[1], n_real - 1))
+    ops8, tested8 = tiles_ops("K8", label, shadow, tiles,
+                              torch.where(first8 >= 0, first8, n_real - 1))
+    log_k8_sweep(label, first8, shadow[3] > shadow[2], n_real, layout, tested8)
+    results = {
+        ("K7", label, 0): trace_timing(
+            "K7", lambda: tt.intersect_tiles(*rays, tiles),
+            lambda: trf.intersect_tiles_ref(*rays, tiles.tris), rays, tiles.rows, ops7, 0.0),
+        ("K8", label, 0): trace_timing(
+            "K8", lambda: tt.occluded_tiles(*shadow, tiles),
+            lambda: trf.occluded_tiles_ref(*shadow, tiles.tris), shadow, tiles.rows, ops8, 0.0)}
+    log_trace_times(results)
     return results
 
 
@@ -1780,6 +1936,8 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
         "ms_by_case": {c: r["ms"] for c, r in cases.items()},
         "plain_ms_by_case": {c: r["plain_ms"] for c, r in cases.items()},
         "bound_ms_by_case": {c: r["bound"][0] for c, r in cases.items()},
+        "bound_ms_no_contraction": head["bound_nc"][0],
+        "bound_ms_no_contraction_by_case": {c: r["bound_nc"][0] for c, r in cases.items()},
         **brute,
     }
 
@@ -2841,6 +2999,7 @@ def main() -> int:
     t0 = time.perf_counter()
     trace_times = phase_trace(device, waves)
     del waves
+    trace_times.update(phase_trace_streamed(device, tex_tmp.name))
     log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
 
     # 4f. glass, clearcoat, anisotropy and cutout through gi.render; 3e. the

@@ -117,7 +117,7 @@ from gatling_tpu_torch.ops.bvh import (  # noqa: F401 (TLAS_*: the TLAS builder'
     tri_bvh,
 )
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
-from gatling_tpu_torch.ops.geometry import SceneGeometry
+from gatling_tpu_torch.ops.geometry import SceneGeometry, real_triangles
 from gatling_tpu_torch.ops.split_ref import (
     H_MAT,
     H_N,
@@ -440,12 +440,6 @@ def with_volumes(scene: FusedScene, static: FusedStatic, scatter: bool
     the kernel wrapper refuses them)."""
     static = dataclasses.replace(static, volumes=True, scatter=bool(scatter))
     return scene._replace(volumes=static.volume_mode), static
-
-
-def real_triangles(geom: SceneGeometry) -> int:
-    """Triangles before the lane padding (degenerate rows at the end)."""
-    real = (np.abs(geom.e1).sum(axis=1) > 0) | (np.abs(geom.e2).sum(axis=1) > 0)
-    return int(np.max(np.nonzero(real)[0])) + 1 if real.any() else 0
 
 
 def build_fused_scene(geom: SceneGeometry, table: MaterialTable,

@@ -52,6 +52,13 @@ class SceneGeometry(NamedTuple):
         return self.v0.shape[0]
 
 
+def real_triangles(geom: SceneGeometry) -> int:
+    """Triangles before the lane padding: up to the last row whose e1 or e2
+    is not zero (a degenerate real triangle before it counts)."""
+    real = (np.abs(geom.e1).sum(axis=1) > 0) | (np.abs(geom.e2).sum(axis=1) > 0)
+    return int(np.max(np.nonzero(real)[0])) + 1 if real.any() else 0
+
+
 # column offsets into PackedGeometry.packed_f
 PF_V0, PF_E1, PF_E2 = 0, 3, 6
 PF_N0, PF_N1, PF_N2 = 9, 12, 15

@@ -12,8 +12,9 @@ d once per-triangle coefficients are precomputed:
 so with the 16 ray features f = [o, d, vec(o d^T), 1] each is a dot
 product with a column of `TraceTables.coeffs` [n_tiles, 16, 4 * 128]
 (column groups det | tnum | unum | vnum, 128 triangles a tile). The
-elementwise form reads `TriTiles.tris` [n_tiles, 9, 128] (v0, e1, e2 by
-component); `trace_ref.ray_features` builds f. Entry points, each on a
+elementwise form's twins read `TriTiles.tris` [n_tiles, 9, 128] (v0, e1,
+e2 by component), its kernels `TriTiles.rows`, one row a real triangle;
+`trace_ref.ray_features` builds f. Entry points, each on a
 CUDA tensor the hand-written kernel of csrc/trace.cu (built at first use,
 ops/cuda_lib.py; a failed build or launch raises) and on a CPU tensor its
 twin in ops/trace_ref.py:
@@ -27,13 +28,17 @@ twin in ops/trace_ref.py:
 * `intersect_tiles` (K7, `intersect_pallas_vpu`) and `occluded_tiles`
   (K8, `occluded_pallas_vpu`): the elementwise form, which no entry point
   of the JAX package reaches (its comparison point); chip_smoke.py holds
-  them against their twins and against K5 on the wavefront's waves.
+  them against their twins and against K5 on the wavefront's waves. On
+  the card both test the `n_real` triangles before the lane padding and
+  nothing after (a padding row has det = 0 and never hits), K7 with four
+  rays a thread, K8 with a group of lanes a shadow ray (csrc/trace.cu).
 
 `launches` counts the kernel launches made on CUDA tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -41,6 +46,7 @@ import torch
 
 from gatling_tpu_torch.ops.bvh import TriBvh, tri_bvh
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
+from gatling_tpu_torch.ops.geometry import real_triangles
 from gatling_tpu_torch.ops.intersect import Hit
 from gatling_tpu_torch.ops.trace_ref import (
     DET_TERMS,
@@ -74,10 +80,15 @@ class TraceTables(NamedTuple):
 
 
 class TriTiles(NamedTuple):
-    """The soup's v0, e1, e2 by component, tiled: tris [n_tiles, 9, 128]."""
+    """The soup's v0, e1, e2 by component, tiled: tris [n_tiles, 9, 128]
+    (the twins' table); n_real, the triangles before the lane padding; and
+    rows [n_real, 12], each real triangle's v0, e1, e2 and three zeros (the
+    kernels' table: 48-byte rows, three 16-byte loads)."""
 
     tris: torch.Tensor
     n_tris: int
+    n_real: int
+    rows: torch.Tensor
 
 
 def build_trace_tables(geom, device) -> TraceTables:
@@ -118,21 +129,27 @@ def build_trace_tables(geom, device) -> TraceTables:
 
 
 def build_tri_tiles(geom, device) -> TriTiles:
-    """[n_tiles, 9, 128] tiles of v0, e1, e2 (pallas_trace.py:276-281)."""
+    """[n_tiles, 9, 128] tiles of v0, e1, e2 (pallas_trace.py:276-281),
+    and the rows of the triangles before the padding (real_triangles), so
+    a degenerate real triangle before the last real one is still tested."""
     data = np.concatenate([np.asarray(geom.v0), np.asarray(geom.e1), np.asarray(geom.e2)],
                           axis=1).astype(np.float32)
     t = data.shape[0]
     if t % TRI_TILE:
         raise ValueError(f"the soup has {t} triangles, not a multiple of {TRI_TILE}")
     tiles = np.ascontiguousarray(data.reshape(t // TRI_TILE, TRI_TILE, 9).transpose(0, 2, 1))
-    return TriTiles(tris=torch.tensor(tiles, device=device), n_tris=t)
+    n_real = real_triangles(geom)
+    rows = np.zeros((n_real, 12), np.float32)
+    rows[:, :9] = data[:n_real]
+    return TriTiles(tris=torch.tensor(tiles, device=device), n_tris=t, n_real=n_real,
+                    rows=torch.tensor(rows, device=device))
 
 
 class TraceKernel(CudaLibrary):
     """csrc/trace.cu built with nvcc and loaded with ctypes."""
 
     def __init__(self) -> None:
-        # K7/K8: o d tmin tmax, the tiles, n_tiles n_rays; K5/K6: o d tmin
+        # K7/K8: o d tmin tmax, the rows, n_real n_rays; K5/K6: o d tmin
         # tmax, the TriBvh's nodes kids rows, n_rays
         tiles = [PTR, PTR, PTR, PTR, PTR, I32, I64]
         walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64]
@@ -141,7 +158,18 @@ class TraceKernel(CudaLibrary):
         super().__init__("trace.cu", {
             "gatling_intersect_matrix": walk + closest, "gatling_occluded_matrix": walk + occluded,
             "gatling_intersect_tiles": tiles + closest, "gatling_occluded_tiles": tiles + occluded,
+            "gatling_trace_layout": [PTR],
         }, "gatling_trace_error_string")
+
+    def layout(self) -> dict[str, int]:
+        """K7's and K8's constants in the built source: rays a K7 thread,
+        lanes a K8 shadow ray, rows a K8 lane tests a step, the rows staged
+        whole, the rows of a streamed chunk, threads a block, rays a K8
+        block lists at once."""
+        out = (ctypes.c_int * 8)()
+        self.call("gatling_trace_layout", ctypes.addressof(out))
+        return dict(zip(("k7_rays", "k8_group", "k8_rows", "resident_rows", "chunk_rows",
+                         "k7_threads", "k8_threads", "k8_batch"), out))
 
     @staticmethod
     def _check_rays(name: str, origins, dirs, tmin, tmax) -> int:
@@ -153,16 +181,17 @@ class TraceKernel(CudaLibrary):
             raise ValueError(f"trace kernel {name}: ray shape mismatch")
         return r
 
-    def launch(self, name: str, origins, dirs, tmin, tmax, table, outputs) -> None:
-        """K7/K8: a brute-force search over the [n_tiles, 9, 128] `table`."""
+    def launch(self, name: str, origins, dirs, tmin, tmax, tiles: TriTiles, outputs) -> None:
+        """K7/K8: a brute-force search over the tiles' real rows."""
         r = self._check_rays(name, origins, dirs, tmin, tmax)
-        check_tensor("trace", "table", table, torch.float32)
-        if table.dim() != 3 or table.shape[1:] != (9, TRI_TILE):
-            raise ValueError(f"trace kernel {name}: table shape mismatch")
-        if table.data_ptr() % 16:
-            raise ValueError(f"trace kernel {name}: the table must be 16-byte aligned")
+        rows = tiles.rows
+        check_tensor("trace", "rows", rows, torch.float32)
+        if rows.shape != (tiles.n_real, 12):
+            raise ValueError(f"trace kernel {name}: rows shape mismatch")
+        if rows.data_ptr() % 16:
+            raise ValueError(f"trace kernel {name}: the rows must be 16-byte aligned")
         self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                  table.data_ptr(), table.shape[0], r, *(o.data_ptr() for o in outputs),
+                  rows.data_ptr(), tiles.n_real, r, *(o.data_ptr() for o in outputs),
                   self.stream(origins))
 
     def launch_walk(self, name: str, origins, dirs, tmin, tmax, bvh: TriBvh | None,
@@ -245,11 +274,11 @@ def occluded_matrix(origins, dirs, tmin, tmax, tables: TraceTables) -> torch.Ten
 
 def intersect_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> Hit:
     """K7 (`intersect_pallas_vpu`): the closest hit by elementwise
-    Moller-Trumbore over the [n_tiles, 9, 128] tiles."""
+    Moller-Trumbore over the tiles; on the card over their real rows."""
     if _on_cpu(origins):
         return Hit(*intersect_tiles_ref(origins, dirs, tmin, tmax, tiles.tris))
     return _closest_cuda("K7", origins, lambda out: kernel().launch(
-        "gatling_intersect_tiles", origins, dirs, tmin, tmax, tiles.tris, out))
+        "gatling_intersect_tiles", origins, dirs, tmin, tmax, tiles, out))
 
 
 def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:
@@ -257,4 +286,4 @@ def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:
     if _on_cpu(origins):
         return occluded_tiles_ref(origins, dirs, tmin, tmax, tiles.tris)
     return _occluded_cuda("K8", origins, lambda out: kernel().launch(
-        "gatling_occluded_tiles", origins, dirs, tmin, tmax, tiles.tris, out))
+        "gatling_occluded_tiles", origins, dirs, tmin, tmax, tiles, out))

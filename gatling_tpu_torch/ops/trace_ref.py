@@ -8,9 +8,9 @@ whose summation order a BLAS chooses), the elementwise Moller-Trumbore of
 (ops/trace.py). A CPU tensor takes these; the CUDA kernels are held
 against them on the card. `matrix_work` and `occluded_work` repeat K5's
 and K6's walks of the soup's BVH step for step (their answer and their
-work). Rays go in chunks of
-RAY_CHUNK, so the [rays, 128] temporaries stay small; a ray's result does
-not depend on its chunk.
+work); `tiles_work` counts where K7's and K8's pairs are decided. Rays go
+in chunks of RAY_CHUNK, so the [rays, 128] temporaries stay small; a
+ray's result does not depend on its chunk.
 """
 
 from __future__ import annotations
@@ -67,16 +67,23 @@ def _matrix_tile(f, c, tmin, tmax):
                   _dot(f, c, UV_TERMS, 3), tmin[:, None], tmax[:, None])
 
 
+def _mt_det(d, tile):
+    """_mt_tile's p = d x e2 and det = e1 . p."""
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    e1x, e1y, e1z, e2x, e2y, e2z = (tile[k][None, :] for k in range(3, 9))
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    return px, py, pz, e1x * px + e1y * py + e1z * pz
+
+
 def _mt_tile(o, d, tile, tmin, tmax):
     """Elementwise Moller-Trumbore of rays [n] against a [9, 128] tile
     (pallas_trace.py _mt_tile)."""
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tile[k][None, :] for k in range(9))
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
+    px, py, pz, det = _mt_det(d, tile)
     ok = det.abs() > DET_EPS
     inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
     tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
@@ -185,6 +192,32 @@ def occluded_work(bvh: TriBvh, origins, dirs, tmin, tmax):
                                              _leaf_test(bvh, origins, dirs, tmin, tmax),
                                              any_hit=True)
     return win >= 0, boxes, tests
+
+
+def tiles_work(origins, dirs, tmin, tmax, tris, last):
+    """What K7's and K8's search needs of each ray: over the triangles 0 ..
+    last[ray] of tris [n_tiles, 9, 128] (K7: every real one; K8: up to its
+    first occluder), the pairs decided at det (|det| <= 1e-12), those
+    decided at u (|det| > 1e-12 and u outside [-1e-6, 2], invalid whatever
+    v is, as trace.cu u_may_hit), and the pairs. Returns (at_det, at_u,
+    pairs), each [R] int64, zeros for a dead ray."""
+    r = origins.shape[0]
+    out = torch.zeros((3, r), dtype=torch.int64, device=origins.device)
+    lanes = torch.arange(TRI_TILE, device=origins.device)
+    for a in range(0, r, RAY_CHUNK):
+        o, d = origins[a:a + RAY_CHUNK], dirs[a:a + RAY_CHUNK]
+        lo, hi = tmin[a:a + RAY_CHUNK], tmax[a:a + RAY_CHUNK]
+        lim = torch.where(hi > lo, last[a:a + RAY_CHUNK], -1)[:, None]
+        counts = out[:, a:a + RAY_CHUNK]
+        for j in range(tris.shape[0]):
+            tested = j * TRI_TILE + lanes[None, :] <= lim
+            ok = _mt_det(d, tris[j])[3].abs() > DET_EPS
+            u = _mt_tile(o, d, tris[j], lo, hi)[1]
+            at_u = ok & ~((u >= NEG_EPS) & (u <= 2.0))
+            counts[0] += (tested & ~ok).sum(dim=1)
+            counts[1] += (tested & at_u).sum(dim=1)
+            counts[2] += tested.sum(dim=1)
+    return out[0], out[1], out[2]
 
 
 def intersect_matrix_ref(origins, dirs, tmin, tmax, coeffs):

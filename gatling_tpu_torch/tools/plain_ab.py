@@ -22,10 +22,12 @@ picks some; all by default):
   cornell_cutout's and cornell_fog's first waves (NEE, gi's tables after
   one frame);
 * resident: K3 on the textured Cornell box's wave (resident tables);
-* wavefront: K5 on the closest-hit waves of cornell_aovs and interior_aovs (bounces 0
-  and 2 of the first sample, recorded from a frame) and on the shadow-hop
-  waves of cornell_cutout_aovs (bounces 0 and 2), K6 on the NEE shadow
-  waves of cornell_aovs and interior_aovs (bounces 0 and 2);
+* wavefront: K5 and K7 on the closest-hit waves of cornell_aovs and
+  interior_aovs (bounces 0 and 2 of the first sample, recorded from a
+  frame) and on the shadow-hop waves of cornell_cutout_aovs (bounces 0 and
+  2), K6 and K8 on the NEE shadow waves of cornell_aovs and interior_aovs
+  (bounces 0 and 2); K7 and K8 also on chip_smoke.py streamed_wave's
+  (8192 triangles of interior(detail=2): a camera wave, its shadow rays);
 * probes: P2 in each mode and torch.matmul (TF32 allowed and not) on the probe's
   input: the device time a launch, one call with its host enqueue, and the
   enqueue alone (chip_smoke.py launch_times);
@@ -98,8 +100,9 @@ def time_tree(tree: str, groups=GROUPS) -> None:
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    mods = (tt,) if set(groups) <= {"wavefront", "probes"} else (tb, tt)  # what the groups run
     with ThreadPoolExecutor(2) as pool:
-        libs = [f.result() for f in [pool.submit(m.kernel) for m in (tb, tt)]]
+        libs = [f.result() for f in [pool.submit(m.kernel) for m in mods]]
     print(f"{tree}: built in {time.perf_counter() - t0:.1f} s", flush=True)
     p0 = cs.params_row(0, device)
     out = {}
@@ -170,23 +173,31 @@ def time_tree(tree: str, groups=GROUPS) -> None:
             params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
             frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
         if label == "cornell_aovs":
-            waves["cornell_aovs"] = (cs.record_waves(params), params.scene._accel)
+            waves["cornell_aovs"] = (cs.record_waves(params), params.scene)
         if label == "cornell_cutout_aovs":
             waves["cornell_cutout_aovs hops"] = ({"closest": cs.record_hop_waves(params)},
-                                                 params.scene._accel)
+                                                 params.scene)
     if wavefront:
         iparams = cs.interior_aovs_params(device, tmp.name)
         cs.counted_render(iparams, "interior_aovs (first frame)")
         for i in range(3):
             iparams.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
             frames[f"interior_aovs warm {i + 1}"] = cs.counted_render(iparams, "interior_aovs")[1]
-        waves["interior_aovs"] = (cs.record_waves(iparams), iparams.scene._accel)
-    for label, (recorded, accel) in waves.items():
-        for kind, key, fn in (("closest", "K5", tt.intersect_matrix),
-                              ("occluded", "K6", tt.occluded_matrix)):
+        waves["interior_aovs"] = (cs.record_waves(iparams), iparams.scene)
+        tiles, rays, shadow = cs.streamed_wave(device, tmp.name)
+        label = f"interior{tiles.n_tris}"
+        out[f"K7 {label} 0"] = cs.event_ms(lambda: tt.intersect_tiles(*rays, tiles), reps=15)
+        out[f"K8 {label} 0"] = cs.event_ms(lambda: tt.occluded_tiles(*shadow, tiles), reps=15)
+    for label, (recorded, scene) in waves.items():
+        tables, tiles = scene._accel.tables, tt.build_tri_tiles(scene._geom, device)
+        kernels = {
+            "closest": (("K5", tt.intersect_matrix, tables), ("K7", tt.intersect_tiles, tiles)),
+            "occluded": (("K6", tt.occluded_matrix, tables), ("K8", tt.occluded_tiles, tiles))}
+        for kind, runs in kernels.items():
             for b, rays in sorted(recorded.get(kind, {}).items(), key=lambda kv: str(kv[0])):
-                out[f"{key} {label} {b}"] = cs.event_ms(
-                    lambda r=rays, f=fn: f(*r, accel.tables), reps=15)
+                for key, fn, table in runs:
+                    out[f"{key} {label} {b}"] = cs.event_ms(
+                        lambda r=rays, f=fn, t=table: f(*r, t), reps=15)
     oh, x = pp.probe_inputs(device)
     calls = {f"P2 {name}": (lambda m=mode: pp.onehot_product(oh, x, m))
              for name, mode in pp.MODES}

@@ -871,6 +871,124 @@ def test_adversarial_trace_walk(cuda):
     assert torch.equal(k6, want) and int(want[at].sum()) < int(want[past].sum())
 
 
+def _tile_case(case: str):
+    """(v0, e1, e2 [T, 3], o, d [R, 3], tmin, tmax [R]) as numpy f32 for
+    the adversarial K7/K8 cases; T a multiple of 128, zero rows after the
+    real triangles, R a multiple of no block, K7's rays a thread or K8's
+    group."""
+    rng = np.random.default_rng(17)
+    n_rays = 5003
+    if case == "det_edges":
+        # triangle k: legs a_k and b_k along x and y, apart from the others
+        # on the x axis, so det = a_k * b_k: a float apart on both sides of
+        # the 1e-12 threshold (a = b), then from the subnormal (1e-40) to
+        # 1e38; ray k straight down through (a/4, b/4) of it
+        a = np.concatenate([1e-6 * (1 + np.arange(-48, 48) * 2.0 ** -22),
+                            np.logspace(-20, 19, 160)])
+        b = a * np.concatenate([np.ones(96), rng.uniform(0.5, 2.0, 160)])
+        n_tris = a.size
+        v0 = np.zeros((n_tris, 3))
+        v0[1:, 0] = np.cumsum(8.0 + 2.0 * np.maximum(a, b))[:-1]
+        e1 = np.zeros((n_tris, 3))
+        e2 = np.zeros((n_tris, 3))
+        e1[:, 0], e2[:, 1] = a, b
+        k = rng.integers(0, n_tris, n_rays)
+        o = np.stack([v0[k, 0] + a[k] / 4, b[k] / 4, np.ones(n_rays)], axis=1)
+        d = np.tile([0.0, 0.0, -1.0], (n_rays, 1))
+    else:
+        n_tris = 8192 if case in ("streamed_ties", "last_streamed", "all_dead") else 384
+        n_real = n_tris - 92
+        v0 = rng.uniform(-2, 2, (n_tris, 3))
+        e1 = rng.uniform(-1, 1, (n_tris, 3))
+        e2 = rng.uniform(-1, 1, (n_tris, 3))
+        o = rng.uniform(-4, 4, (n_rays, 3))
+        d = rng.normal(size=(n_rays, 3))
+        if case.startswith("last"):
+            # every triangle far away but the last real one, a wide quad's
+            # half across the rays' way: it alone occludes
+            v0[:] = 50.0
+            v0[n_real - 1], e1[n_real - 1], e2[n_real - 1] = ([-100, -100, 0], [300, 0, 0],
+                                                              [0, 300, 0])
+            o[:, 2] = rng.uniform(1, 3, n_rays)
+            d[:, 2] = -np.abs(d[:, 2]) - 0.5
+        if case == "streamed_ties":
+            # one triangle at 2047 and 2048, either side of the first chunk
+            # boundary, and at 4095 and 4096; a quarter of the rays aimed
+            # at it, and rays i, i + 512, i + 1024, i + 1536 of each batch
+            # of 2048 the same (one K7 thread's four rays)
+            for j in (2047, 2048, 4095, 4096):
+                v0[j], e1[j], e2[j] = [-1, -1, 5], [2, 0, 0], [0, 2, 0]
+            aim = rng.uniform(size=n_rays) < 0.25
+            o[aim] = np.stack([rng.uniform(-0.9, 0.9, aim.sum()),
+                               rng.uniform(-0.9, 0.9, aim.sum()), np.full(aim.sum(), 9.0)], 1)
+            d[aim] = [0.0, 0.0, -1.0]
+            i = np.arange(n_rays)
+            same = (i % 2048) >= 512
+            src = i - 512 * ((i % 2048) // 512)
+            o[same], d[same] = o[src[same]], d[src[same]]
+        for k in (v0, e1, e2):
+            k[n_real:] = 0.0
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.zeros(n_rays)
+    tmax = np.full(n_rays, 3.4e38)
+    tmax[::9] = 0.0
+    if case == "all_dead":
+        tmax[:] = tmin
+    f32 = [np.asarray(x, np.float32) for x in (v0, e1, e2, o, d, tmin, tmax)]
+    return f32[:3], f32[3:]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["streamed_ties", "last_streamed", "last_resident", "all_dead",
+                                  "det_edges"])
+def test_tile_kernels_adversarial(cuda, case):
+    """K7 and K8 over the real rows against their twins over every lane:
+    K7's t, tri, u, v bit-equal and K8's flags equal on every ray. The
+    cases: 8192 triangles (two streamed chunks and more) with one triangle
+    repeated either side of each chunk boundary, and one K7 thread's rays
+    alike; only the last real triangle occluding, streamed and resident;
+    every ray dead; det across the 1e-12 threshold, subnormal and huge."""
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+    from gatling_tpu_torch.ops.geometry import SceneGeometry
+
+    (v0, e1, e2), (o, d, tmin, tmax) = _tile_case(case)
+    t = v0.shape[0]
+    z3, z2, zi = np.zeros((t, 3), np.float32), np.zeros((t, 2), np.float32), np.zeros(t, np.int32)
+    geom = SceneGeometry(v0=v0, e1=e1, e2=e2, n0=z3, n1=z3, n2=z3, t0=z3, t1=z3, t2=z3,
+                         bsign=z3, uv0=z2, uv1=z2, uv2=z2, c0=z3, c1=z3, c2=z3, material_id=zi,
+                         object_id=zi, face_id=zi, instance_id=zi, flags=zi)
+    tiles = tt.build_tri_tiles(geom, cuda)
+    layout = tt.kernel().layout()
+    rays = [torch.tensor(x, device=cuda) for x in (o, d, tmin, tmax)]
+    before = dict(tt.launches)
+    k7 = tt.intersect_tiles(*rays, tiles)
+    k8 = tt.occluded_tiles(*rays, tiles)
+    torch.cuda.synchronize()
+    assert tt.launches["K7"] == before["K7"] + 1 and tt.launches["K8"] == before["K8"] + 1
+    ref7 = trf.intersect_tiles_ref(*rays, tiles.tris)
+    ref8 = trf.occluded_tiles_ref(*rays, tiles.tris, first=True)
+    for g, r in zip(k7, ref7):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                      r.cpu().numpy().view(np.int32))
+    assert torch.equal(k8, ref8 >= 0)
+    live = rays[3] > rays[2]
+    hits = int((ref7[1] >= 0).sum())
+    if case == "all_dead":
+        assert hits == 0 and not bool(k8.any())
+    elif case == "streamed_ties":
+        assert tiles.n_real > layout["resident_rows"]
+        assert int((ref7[1] == 2047).sum()) > 500 and not bool((ref7[1] == 2048).any())
+    elif case.startswith("last"):
+        assert (tiles.n_real > layout["resident_rows"]) == (case == "last_streamed")
+        assert bool((ref8[live] == tiles.n_real - 1).all()) and bool(k8[live].all())
+    else:  # det_edges: valid and invalid on either side of the threshold
+        det = e1[:, 0] * e2[:, 1]
+        assert (det < 1e-38).any() and (det > 1e37).any()
+        assert (det[:96] > 1e-12).any() and (det[:96] <= 1e-12).any()
+        assert 0 < hits < int(live.sum())
+
+
 @pytest.mark.requires_cuda
 def test_cutout_draws_match_twin(cuda):
     """The searches' draw function on the card, bit for bit."""

@@ -17,7 +17,13 @@ with numpy from seeds and handed to both sides:
    across tiles, K7 takes the same winner, dead rays (tmax = 0) miss;
 4. the port's `intersect_brute` / `occluded_brute` against JAX's;
 5. K7 against K5 on the same rays: the triangle on 99 % of rays (the JAX
-   test's own criterion, tests/test_pallas_trace.py).
+   test's own criterion, tests/test_pallas_trace.py);
+6. the padding skip of the K7/K8 kernels: `build_tri_tiles(...).n_real`
+   is `real_triangles`, and the twins over the first n_real triangles
+   only give the bits and flags they give over every lane;
+7. `trace_ref.tiles_work`, the pairs K7's and K8's bounds count, against
+   a numpy count of the same f32 operations: no valid pair is decided at
+   det or at u.
 
 The CUDA kernels are held against these twins on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3d).
@@ -40,7 +46,8 @@ from gatling_tpu.ops.intersect import occluded_brute as joccluded_brute
 from gatling_tpu.scene.stage import load_scene as jload_scene
 
 from gatling_tpu_torch.ops import trace as tt
-from gatling_tpu_torch.ops.geometry import SceneGeometry, build_geometry
+from gatling_tpu_torch.ops import trace_ref as trf
+from gatling_tpu_torch.ops.geometry import SceneGeometry, build_geometry, real_triangles
 from gatling_tpu_torch.ops.intersect import intersect_brute, occluded_brute
 from gatling_tpu_torch.scene.stage import load_scene
 
@@ -227,3 +234,113 @@ def test_wrappers_take_the_twin_only_on_the_cpu():
     meta = [x.to("meta") for x in (o, d, tmin, tmax)]
     with pytest.raises(NotImplementedError, match="CUDA or CPU"):
         tt.occluded_matrix(*meta, tables)
+
+
+def _padded_soup(which: str):
+    """The port's SceneGeometry of a soup padded with zero rows to whole
+    tiles: the Cornell box (32 of 128), 300 random triangles in 384 lanes
+    with a degenerate one (e2 = 2 e1) at 150, or the same whose last real
+    triangle (299) is degenerate."""
+    if which == "cornell":
+        desc = load_scene(CORNELL)
+        return build_geometry(desc.meshes, {m.material: i for i, m in enumerate(desc.meshes)})
+    v0, e1, e2 = _soup(384, 31)
+    for k in (v0, e1, e2):
+        k[300:] = 0.0
+    e2[150] = 2.0 * e1[150]
+    if which == "degenerate_last":
+        e2[299] = -e1[299]
+    return _geoms(v0, e1, e2)[1]
+
+
+class _RealLanes:
+    """The twins' table cut at n_real: tile j keeps its lanes below n_real,
+    so the twins test triangles 0 .. n_real - 1 in order and nothing after,
+    as the kernels do."""
+
+    def __init__(self, tiles):
+        n = tiles.n_real
+        self.tiles = [tiles.tris[j, :, :min(tt.TRI_TILE, n - j * tt.TRI_TILE)]
+                      for j in range(-(-n // tt.TRI_TILE))]
+        self.shape = (len(self.tiles),)
+
+    def __getitem__(self, j):
+        return self.tiles[j]
+
+
+@pytest.mark.parametrize("which", ["cornell", "random", "degenerate_last"])
+def test_n_real_is_real_triangles(which):
+    geom = _padded_soup(which)
+    tiles = tt.build_tri_tiles(geom, "cpu")
+    assert tiles.n_real == real_triangles(geom) == {"cornell": 32}.get(which, 300)
+    assert tiles.rows.shape == (tiles.n_real, 12)
+    flat = tiles.tris.permute(0, 2, 1).reshape(-1, 9)
+    assert torch.equal(tiles.rows[:, :9], flat[:tiles.n_real])
+    assert not tiles.rows[:, 9:].any() and not flat[tiles.n_real:, 3:].any()
+
+
+@pytest.mark.parametrize("which", ["cornell", "random", "degenerate_last"])
+@pytest.mark.parametrize("kernel", ["K7", "K8"])
+def test_padding_skip_is_exact(kernel, which):
+    """The twins over the first n_real triangles against the twins over
+    every lane, on 1024 seeded rays (every 7th dead): K7's t, tri, u, v
+    and K8's flags and first occluders bit-equal."""
+    tiles = tt.build_tri_tiles(_padded_soup(which), "cpu")
+    o, d, tmin, tmax = _rays(1024, 32, dead_every=7)
+    if which == "cornell":  # rays from inside the box
+        o = (o * 0.2).astype(np.float32)
+    rays = _t(o, d, tmin, tmax)
+    cut = _RealLanes(tiles)
+    if kernel == "K7":
+        full = trf.intersect_tiles_ref(*rays, tiles.tris)
+        got = trf.intersect_tiles_ref(*rays, cut)
+        for g, f in zip(got, full):
+            assert torch.equal(g.view(torch.int32), f.view(torch.int32))
+        assert (full[1] >= 0).sum() > 100 and (full[1][::7] == -1).all()
+    else:
+        full = trf.occluded_tiles_ref(*rays, tiles.tris, first=True)
+        got = trf.occluded_tiles_ref(*rays, cut, first=True)
+        assert torch.equal(got, full)
+        assert (full >= 0).sum() > 100 and (full[::7] == -1).all()
+
+
+@pytest.mark.parametrize("which", ["cornell", "random", "degenerate_last"])
+@pytest.mark.parametrize("kernel", ["K7", "K8"])
+def test_tiles_work_counts_the_early_pairs(kernel, which):
+    """tiles_work over every real triangle (K7) or up to each ray's first
+    occluder (K8), on 512 seeded rays (every 7th dead), against numpy's
+    count of the same f32 operations: the pairs decided at det (|det| <=
+    1e-12) and at u (outside [-1e-6, 2]), and the pairs tested; no valid
+    pair of the twin falls in either early class."""
+    tiles = tt.build_tri_tiles(_padded_soup(which), "cpu")
+    o, d, tmin, tmax = _rays(512, 33, dead_every=7)
+    if which == "cornell":
+        o = (o * 0.2).astype(np.float32)
+    rays = _t(o, d, tmin, tmax)
+    n = tiles.n_real
+    first = trf.occluded_tiles_ref(*rays, tiles.tris, first=True)
+    last = (torch.full_like(first, n - 1) if kernel == "K7"
+            else torch.where(first >= 0, first, n - 1))
+    at_det, at_u, pairs = trf.tiles_work(*rays, tiles.tris, last)
+
+    v0, e1, e2 = (tiles.rows[:, k:k + 3].numpy()[None] for k in (0, 3, 6))
+    ro, rd = o[:, None, :], d[:, None, :]
+    p = np.stack([rd[..., 1] * e2[..., 2] - rd[..., 2] * e2[..., 1],
+                  rd[..., 2] * e2[..., 0] - rd[..., 0] * e2[..., 2],
+                  rd[..., 0] * e2[..., 1] - rd[..., 1] * e2[..., 0]], axis=-1)
+    det = e1[..., 0] * p[..., 0] + e1[..., 1] * p[..., 1] + e1[..., 2] * p[..., 2]
+    ok = np.abs(det) > np.float32(1e-12)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.where(ok, np.float32(1.0) / np.where(ok, det, np.float32(1.0)), np.float32(0))
+        tv = ro - v0
+        u = (tv[..., 0] * p[..., 0] + tv[..., 1] * p[..., 1] + tv[..., 2] * p[..., 2]) * inv
+    early_u = ok & ~((u >= np.float32(-trf.BARY_EPS)) & (u <= np.float32(2.0)))
+    tested = (np.arange(n)[None, :] <= last.numpy()[:, None]) & (tmax > tmin)[:, None]
+    np.testing.assert_array_equal(at_det.numpy(), (tested & ~ok).sum(axis=1))
+    np.testing.assert_array_equal(at_u.numpy(), (tested & early_u).sum(axis=1))
+    np.testing.assert_array_equal(pairs.numpy(), tested.sum(axis=1))
+    assert int(at_u.sum()) > 0 and int(pairs.sum()) > int(at_det.sum() + at_u.sum())
+
+    valid = torch.cat([trf._mt_tile(rays[0], rays[1], tiles.tris[j], rays[2], rays[3])[3]
+                       for j in range(tiles.tris.shape[0])], dim=1)[:, :n].numpy()
+    assert valid.any() and not (valid & (~ok | early_u)).any()
