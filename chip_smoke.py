@@ -8,7 +8,8 @@ fails, with a non-zero exit, if any phase fails:
 
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
-   K3 (split trace) and K4 (split shade, with its own texture taps) are
+   K3 (split trace) and K4 (split shade, with its own texture taps; its
+   taps alone K4t) are
    built from gatling_tpu_torch/csrc/bounce.cu (in ten nvcc parts), K5-K8 (the
    wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
@@ -130,21 +131,60 @@ fails, with a non-zero exit, if any phase fails:
    (bounces 0 and 2: rays inside media at 2) and gi's tables: rows 12-15,
    H_HIT and H_MAT bit-equal on every ray, the other rows within
    tolerance on 99.9 %; each timed at bounce 0;
-P. the probes P1 (layout moves, tools/cast_probe.py) and P2 (the one-hot
-   product at TF32, FP32 and 3xTF32, tools/precision_probe.py) through
-   their entry points, against their twins, with torch.matmul's error and
-   time beside P2: each P2 mode and torch.matmul (TF32 allowed and not)
-   timed as the device time a launch (CUDA events around 200 back-to-back
-   launches queued behind a device sleep, over 200), as one call with its
-   host enqueue, and as the host's enqueue alone (1,000 calls, then one
-   synchronize).
+4h. the first-hit AOVs on the fused route (COLOR, NORMAL, ALBEDO, DEPTH and
+   TEXCOORDS bound): the Cornell box with the bench's rect light (1200x1200,
+   16 spp, 8 bounces, NEE) and the textured interior (512x512, 4 spp, 6
+   bounces, NEE), a first and a warm frame each with their launches (one
+   sample a wave; bounce 0 peeled through K3, K4's taps alone (tap_rows,
+   K4t) and K4), checked (unit normals where hit, ALBEDO in [0, 2], DEPTH
+   finite, no call of the texture stage); interior(detail=1) and the
+   Cornell box held against the wavefront's first-hit AOVs of the same
+   samples: NORMAL, DEPTH and TEXCOORDS within FH_RTOL / FH_ATOL on 99 % of
+   the pixels both hit;
+4i. camera clipping on the fused route: the Cornell box at 1200x1200, 16
+   spp, 8 bounces, the open range, a near plane that cuts the room and a
+   far plane that cuts it (tests/test_fused.py:850's ranges and checks),
+   the near and far frames against the wavefront's of the same samples:
+   the means within MEAN_SIGMAS standard errors of their per-pixel
+   differences;
+4j. the textured cutout on the fused route: the interior with its bowls'
+   opacity a checker mask written at run time (and emitting, so that the
+   frame without NEE is lit), 512x512, 4 spp, 6 bounces, NEE off and on: K3
+   four times a split bounce (the trace and three re-trace rounds), K4's
+   taps three times, K4 once; the first wave's pass rate through the mask
+   0.5 +- 0.01; interior(detail=1)'s NEE-off frame against the wavefront's
+   (which taps the opacity at every hit), means as in 4i, held at 24 and
+   48 bounces (CUTOUT_MEAN_PAIRS; the 6-bounce pairs, at the re-trace's 4
+   rounds and at 16, logged: the wavefront spends a bounce on each pass
+   through the mask);
+3g. then tap_rows on the waves of 4h and 4j against tap_rows_ref, every
+   row (the opacity's included) bit-equal on every hit ray; K3 and K4 on
+   4i's clipped peel waves against their twins as 3c holds them; K3 on
+   4j's masked re-trace waves; each timed, with its bound (tap_rows: the
+   hit rows its outputs depend on, the distinct texels touched, 12 rows
+   written);
+goldens: the committed scenes tests/test_torch_graphical.py renders,
+   through gatling_tpu_torch.testing.run_graphical_test on the card at
+   their own thresholds (Materials.GlassCoated: its reference is a
+   wavefront image, the harness renders the port's fused K1, and only the
+   error components may miss; 4f holds its wavefront frame to both);
+P. the probes P1 (the six layout moves in one launch, a block a move,
+   tools/cast_probe.py) and P2 (the one-hot product at TF32, FP32 and
+   3xTF32, tools/precision_probe.py) through their entry points, against
+   their twins, with torch.matmul's error and time beside P2: P1's launch,
+   each P2 mode and torch.matmul (TF32 allowed and not) timed as the device
+   time a launch (CUDA events around 200 back-to-back launches queued
+   behind a device sleep, over 200), and as one call with its host enqueue
+   (P1: the whole run), P2's also as the host's enqueue alone (1,000
+   calls, then one synchronize); beside P1 the launch floor, a one-element
+   add_'s device time a launch.
 
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
-the interior's; K5 and K6: cornell_aovs'; the branches: 4f's and 4g's
-frames;
-P1/P2: the probes' run), the counts set to 0 just before it and read
-just after. K7 and K8 are on no path (the JAX package's comparison point)
+the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
+cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's frames beside
+K3's, K4's and K4t's entries; P1/P2: the probes' run), the counts set to
+0 just before it and read just after. K7 and K8 are on no path (the JAX package's comparison point)
 and count 0. The last lines are the card's name and power limit, one JSON
 line with the kernels' launch counts, errors, times and bounds, and
 {"ok": true, "device": {...}}.
@@ -993,16 +1033,17 @@ def tap_texel_rows(mats, pool, hit, textured: int):
     """The distinct texel rows the taps of one K4 launch on hit buffer
     `hit` read: for each hit ray and each tapped parameter (render/fused.py
     textured bits, ops/bounce.py TAP_BITS) and the normal map whose
-    material binds a slot, the texels_q22 row of its bilinear tap, or the
-    texels_u32 entries of its four texels that the wrap keeps, indexed as
-    render/texture.py sample_pool indexes them. Returns the unique indices
+    material binds a slot (and tap_rows' opacity with TAP_OPACITY), the
+    texels_q22 row of its bilinear tap, or the texels_u32 entries of its
+    four texels that the wrap keeps, indexed as render/texture.py
+    sample_pool indexes them. Returns the unique indices
     (torch.unique) and the bytes of one row."""
     import torch
 
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, H_UVX, H_UVY
     from gatling_tpu_torch.render.material import (MI_BASE_TEX, MI_EMISSIVE_TEX, MI_METAL_TEX,
-                                                   MI_NORMAL_TEX, MI_ROUGH_TEX)
+                                                   MI_NORMAL_TEX, MI_OPACITY_TEX, MI_ROUGH_TEX)
     from gatling_tpu_torch.render.texture import _wrap_coord
 
     mask = tb.tap_mask(textured, hit.shape[0], pool)
@@ -1015,7 +1056,8 @@ def tap_texel_rows(mats, pool, hit, textured: int):
     for bit, col in ((tb.TAP_BITS["base_color"], MI_BASE_TEX),
                      (tb.TAP_BITS["emissive"], MI_EMISSIVE_TEX),
                      (tb.TAP_BITS["metallic"], MI_METAL_TEX),
-                     (tb.TAP_BITS["roughness"], MI_ROUGH_TEX), (tb.TAP_NORMAL, MI_NORMAL_TEX)):
+                     (tb.TAP_BITS["roughness"], MI_ROUGH_TEX), (tb.TAP_NORMAL, MI_NORMAL_TEX),
+                     (tb.TAP_OPACITY, MI_OPACITY_TEX)):
         if not mask & bit:
             continue
         slot = mats.packed_i[mat, col]
@@ -1331,7 +1373,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     split_launches = {k: launches[k] for k in ("K3", "K4")}
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
-    assert launches == dict(split_launches, K1=0, K2=0, K5=0, K6=0, K7=0, K8=0), launches
+    assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K5=0, K6=0, K7=0, K8=0), launches
     # K4 taps the textures itself: no texture stage between K3 and K4
     assert split_ref.stage_calls == 0, split_ref.stage_calls
     out["interior_texture_stage_calls"] = split_ref.stage_calls
@@ -2095,26 +2137,10 @@ def record_fused_waves(run, bounces=(0, 2)):
     device material table and the texture pool K4 was handed. Returns
     ({bounce: (params row, state, None or (hit buffer, materials, pool))},
     what run returned)."""
-    from gatling_tpu_torch.render import fused
-
-    calls = []
-    real = {k: getattr(fused, k) for k in ("bounce_step", "shade_step")}
-
-    def bounce(p, scene, state, nee):
-        if len(calls) <= max(bounces):
-            calls.append((p.clone(), state.clone(), None))
-        return real["bounce_step"](p, scene, state, nee)
-
-    def shade(p, scene, state, hitbuf, materials, textures, active, nee):
-        if len(calls) <= max(bounces):
-            calls.append((p.clone(), state.clone(), (hitbuf.clone(), materials, textures)))
-        return real["shade_step"](p, scene, state, hitbuf, materials, textures, active, nee)
-
-    fused.bounce_step, fused.shade_step = bounce, shade
-    try:
+    with KernelCalls(max(bounces) + 1, ("bounce_step", "shade_step")) as kc:
         result = run()
-    finally:
-        fused.bounce_step, fused.shade_step = real["bounce_step"], real["shade_step"]
+    calls = [(a[0], a[2], None if name == "bounce_step" else (a[3], a[4], a[5]))
+             for name, a in kc.calls]
     return {b: calls[b] for b in bounces if b < len(calls)}, result
 
 
@@ -2201,7 +2227,7 @@ def golden_glass_coated(device):
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.scene.stage import load_scene
-    from gatling_tpu_torch.utils.flip import encode_srgb_u8, golden_errors
+    from gatling_tpu_torch.testing import compare_images, encode_aov_u8
 
     desc = load_scene(GLASS)
     s = merged_settings(desc)
@@ -2216,8 +2242,10 @@ def golden_glass_coated(device):
         scene = params.scene
         assert (scene._fused is None) == (route == "wavefront"), route
         color = params.aov_bindings[0].render_buffer.data
-        errors, flip = golden_errors(color, ref)
-        rel = abs(encode_srgb_u8(color)[..., :3].mean() / ref[..., :3].mean() - 1.0)
+        img = encode_aov_u8(AovId.COLOR, color[::-1])
+        errors, flip, _msgs = compare_images("color", img, ref, int(s["errorPixelThreshold"]),
+                                             float(s["flipThreshold"]))
+        rel = abs(img[..., :3].mean() / ref[..., :3].mean() - 1.0)
         log(f"Materials.GlassCoated on the card, {route}: {errors} error components (threshold "
             f"{s['errorPixelThreshold']}), mean FLIP {flip:.4f} (threshold {s['flipThreshold']}), "
             f"mean encoded value {rel:.4f} off the reference's")
@@ -2693,10 +2721,12 @@ def enqueue_us(fn, calls: int = 1000) -> float:
     return us
 
 
-def launch_times(fn) -> dict:
-    """A call's device time a launch (device_ms), its time as one call with
-    the host's enqueue (event_ms) and the enqueue alone (enqueue_us)."""
-    return dict(ms=device_ms(fn), ms_one_call_with_enqueue=event_ms(fn),
+def launch_times(fn, launches: int = 200) -> dict:
+    """A call's device time (device_ms over `launches` calls: their kernel
+    launches must fit the device's queue of pending launches, about a
+    thousand, or the enqueue waits for the device), its time as one call
+    with the host's enqueue (event_ms) and the enqueue alone (enqueue_us)."""
+    return dict(ms=device_ms(fn, launches), ms_one_call_with_enqueue=event_ms(fn),
                 enqueue_us=enqueue_us(fn))
 
 
@@ -2725,14 +2755,20 @@ def phase_probes(device):
     # launches below compare and time; they do not count
     x = cast_probe.probe_input(device)
     moves = range(len(cast_probe.MOVES))
+    one = torch.zeros(1, device=device)
     p1 = dict(
-        ms=event_ms(lambda: [cast_probe.cast_move(x, m) for m in moves]),
+        # the one launch's device time (as P2's), and the whole run's: the
+        # six outputs' allocations and the launch, with the host's enqueue
+        ms=device_ms(lambda: cast_probe.cast_moves(x)),
+        run_ms=event_ms(lambda: cast_probe.cast_moves(x)),
         plain_ms=event_ms(lambda: [cast_probe.cast_twin(x, m) for m in moves]),
-        # bytes: the tile read and each move's output written once
-        bound=_bound(sum(4 * (x.numel() + math.prod(shape)) for _n, shape in cast_probe.MOVES),
+        # bytes: the tile read once and each move's output written once
+        bound=_bound(4 * (x.numel() + sum(math.prod(shape) for _n, shape in cast_probe.MOVES)),
                      0),
-        err=max(float((cast_probe.cast_move(x, m) - cast_probe.cast_twin(x, m)).abs().max())
-                for m in moves),
+        # the least a launch takes back to back: a one-element add_
+        launch_floor_ms=device_ms(lambda: one.add_(1.0)),
+        err=max(float((got - cast_probe.cast_twin(x, m)).abs().max())
+                for m, got in enumerate(cast_probe.cast_moves(x))),
         conflicts={n: deg for n, (_ok, deg) in cast.items()})
     p1["library_ms"] = p1["plain_ms"]  # the twin is the torch calls themselves
     oh, xm = precision_probe.probe_inputs(device)
@@ -2855,12 +2891,14 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
     the enqueue alone stand beside them."""
     tf32 = p2["DEFAULT (TF32)"]
     return [{
-        "name": "cast_probe (P1, six layout moves of an (8, 128) f32 tile)",
+        "name": "cast_probe (P1, six layout moves of an (8, 128) f32 tile, one launch, a "
+                "block a move)",
         "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
         "replaces": "tools/mosaic_cast_probe.py:12 probe", "launches": launches["P1"],
         "max_abs_err": p1["err"], "ms": p1["ms"], "plain_ms": p1["plain_ms"],
         "bound_ms": p1["bound"][0], "bound_by": p1["bound"][1], "library_ms": p1["library_ms"],
-        "bank_conflicts": p1["conflicts"],
+        "bank_conflicts": p1["conflicts"], "run_ms": p1["run_ms"],
+        "launch_floor_ms": p1["launch_floor_ms"],
     }, {
         "name": "onehot_product (P2, one-hot 128x128 product, TF32 mma.sync from staged "
                 "shared memory)",
@@ -2882,6 +2920,547 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
                             err_vs_x=v["err_vs_x"])
                     for k, v in p2.items()},
     }]
+
+
+# ---------------------------------------------------------------------------
+# 4h, 4i, 4j, 3g and the goldens: the fused route's bounce-0 peel (first-hit
+# AOVs, camera clipping), the textured cutout's re-trace, K4's taps alone,
+# and the committed graphical scenes through the port's harness
+# ---------------------------------------------------------------------------
+
+FIRST_HIT = ("COLOR", "NORMAL", "ALBEDO", "DEPTH", "TEXCOORDS")
+# 4h: the fused first-hit AOVs against the wavefront's of the same samples.
+# Both trace the same primary rays (the same PCG streams); the fused search
+# (Baldwin-Weber) and the wavefront's (Moller-Trumbore) round t, u and v
+# differently in the last bits, and an edge ray can meet the other triangle.
+# A silhouette pixel whose samples hit and miss differs too: the fused
+# frame keeps the last hit sample's DEPTH and TEXCOORDS
+# (gatling_tpu/render/fused.py:520-523), the wavefront the last sample's
+# (gatling_tpu/render/integrator.py render_pixels)
+FH_RTOL, FH_ATOL, FH_AGREE = 1e-3, 1e-4, 0.99
+# 4i, 4j: a fused frame's mean against the wavefront frame's of the same
+# samples, within MEAN_SIGMAS standard errors of the mean of their
+# per-pixel differences: the two shade in different frames (Duff's and the
+# mesh tangents'), so their paths part after the first bounce and the
+# pixels' differences are noise of that size
+MEAN_SIGMAS = 5.0
+# 4i: the ranges of tests/test_fused.py:850 (open: the camera's own)
+CLIP_RANGES = {"open": None, "near": (6.5, 1000.0), "far": (0.1, 7.0)}
+# 4j: the checker's share of transparent texels, and the first wave's pass
+# rate's tolerance
+CUTOUT_PASS, CUTOUT_PASS_TOL = 0.5, 0.01
+# 4j: the fused-against-wavefront pairs, (maxBounces, TEX_CUTOUT_ROUNDS).
+# The wavefront spends a bounce on each pass through a cutout
+# (gatling_tpu/render/integrator.py:529-538: the loop's next segment), the
+# fused re-trace none, so at the bench's 6 bounces the wavefront's paths
+# end earlier and its frame is darker: those pairs are logged, not held.
+# The 6-bounce pair at 16 rounds tells that gap from the re-trace's round
+# cap (a ray rejected by every round keeps its last hit): a cap at fault
+# would close the gap there. From CUTOUT_MEAN_BOUNCES paths end by roulette
+# before either budget, and the pairs are held to MEAN_SIGMAS
+CUTOUT_MEAN_BOUNCES = 24
+CUTOUT_MEAN_PAIRS = ((SF_BOUNCES, 4), (SF_BOUNCES, 16), (CUTOUT_MEAN_BOUNCES, 4), (48, 4))
+ALBEDO_MAX = 2.0  # bsdf.auxiliary: diffuse albedo + Schlick Fresnel (1 at grazing)
+
+
+def fh_params(device, desc, res: int, settings: dict, wavefront: bool = False, lights=()):
+    """gi render parameters binding the fused first-hit AOVs (and with
+    `wavefront` OBJECT_ID too, which sends the frame to the wavefront)."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    params = desc_params(device, desc, res, settings)
+    for light in lights:
+        params.scene.add_light(light)
+    aovs = [AovId[a] for a in FIRST_HIT[1:]]
+    params.aov_bindings += [gi.GiAovBinding(a, gi.GiRenderBuffer(res, res, 4)) for a in aovs]
+    if wavefront:
+        params.aov_bindings.append(gi.GiAovBinding(
+            AovId.OBJECT_ID, gi.GiRenderBuffer(res, res, 1, True), clear_value=-1))
+    return params
+
+
+def aov_buffers(params) -> dict:
+    return {b.aov_id.name: b.render_buffer.data.copy() for b in params.aov_bindings}
+
+
+def hit_pixels(bufs):
+    """Pixels some sample hit: the NORMAL buffer holds (n + 1) / 2 of a
+    unit normal there, 0.5 (the zero vector) where every sample missed."""
+    import numpy as np
+
+    n = bufs["NORMAL"][..., :3] * 2.0 - 1.0
+    return np.linalg.norm(n, axis=-1) > 0.5, n
+
+
+def check_first_hit(bufs, label):
+    """4h's checks of a fused first-hit frame: COLOR finite and
+    non-negative; unit normals where hit; ALBEDO in [0, ALBEDO_MAX];
+    DEPTH and TEXCOORDS finite. Returns the share of hit pixels."""
+    import numpy as np
+
+    color = bufs["COLOR"][..., :3]
+    assert np.isfinite(color).all() and (color >= 0).all() and color.mean() > 0.01, label
+    hit, n = hit_pixels(bufs)
+    albedo = bufs["ALBEDO"][..., :3]
+    assert hit.mean() > 0.3, (label, hit.mean())
+    assert np.abs(np.linalg.norm(n[hit], axis=-1) - 1.0).max() < 1e-3, label
+    assert np.isfinite(albedo).all() and albedo.min() >= 0 and albedo.max() <= ALBEDO_MAX, label
+    assert np.isfinite(bufs["DEPTH"]).all() and np.isfinite(bufs["TEXCOORDS"]).all(), label
+    log(f"{label}: {hit.mean():.4f} of pixels hit; albedo {albedo.min():.4f}-{albedo.max():.4f}"
+        f", depth {bufs['DEPTH'][..., 0][hit].min():.4f}-{bufs['DEPTH'][..., 0][hit].max():.4f}")
+    return float(hit.mean())
+
+
+def compare_first_hit(fused, wave, label) -> dict:
+    """NORMAL, DEPTH and TEXCOORDS of a fused first-hit frame against the
+    wavefront's of the same samples: the share of the pixels both hit
+    within FH_RTOL / FH_ATOL, each at least FH_AGREE; and the share of
+    pixels whose hit flags agree (logged: the fused flag is any sample's,
+    the wavefront's the last sample's)."""
+    import numpy as np
+
+    hf, _n = hit_pixels(fused)
+    hw, _n = hit_pixels(wave)
+    both = hf & hw
+    out = {"hit_agree": float((hf == hw).mean())}
+    for aov, ch in (("NORMAL", 3), ("DEPTH", 1), ("TEXCOORDS", 2)):
+        f, w = fused[aov][..., :ch][both], wave[aov][..., :ch][both]
+        out[aov] = float(np.isclose(f, w, rtol=FH_RTOL, atol=FH_ATOL).all(-1).mean())
+    log(f"{label}: fused first-hit AOVs against the wavefront's, the same samples: {out} "
+        f"within rtol {FH_RTOL} / atol {FH_ATOL} on {int(both.sum())} pixels both hit")
+    assert all(out[a] >= FH_AGREE for a in ("NORMAL", "DEPTH", "TEXCOORDS")), out
+    return out
+
+
+def mean_gap(fused, wave, label, held: bool = True) -> dict:
+    """The two COLOR frames' means and their gap in standard errors of the
+    mean of the per-pixel differences; at most MEAN_SIGMAS if `held`."""
+    import numpy as np
+
+    f, w = fused[..., :3].astype(np.float64), wave[..., :3].astype(np.float64)
+    diff = (f - w).mean(-1).ravel()
+    se = diff.std() / math.sqrt(diff.size)
+    gap = f.mean() - w.mean()
+    out = dict(fused=float(f.mean()), wavefront=float(w.mean()), se=float(se),
+               sigmas=float(abs(gap) / max(se, 1e-30)))
+    log(f"{label}: COLOR mean fused {out['fused']:.6f}, wavefront {out['wavefront']:.6f}, gap "
+        f"{gap:.3g} = {out['sigmas']:.2f} standard errors ({se:.3g}; "
+        f"{f'tolerance {MEAN_SIGMAS}' if held else 'not held'})")
+    assert np.isfinite(f).all() and (out["sigmas"] <= MEAN_SIGMAS or not held), (label, out)
+    return out
+
+
+class KernelCalls:
+    """Keeps copies of the inputs of the first `limit` calls render/fused.py
+    makes of its kernel entry points `names` (by default trace_step,
+    tap_rows and shade_step: K3, K4t, K4) inside the `with` block:
+    [(name, args)] in call order."""
+
+    def __init__(self, limit: int, names=("trace_step", "tap_rows", "shade_step")) -> None:
+        self.limit, self.calls, self.names = limit, [], names
+
+    def __enter__(self):
+        import torch
+
+        from gatling_tpu_torch.render import fused
+
+        self.real = {k: getattr(fused, k) for k in self.names}
+
+        def wrap(name):
+            def call(*args):
+                if len(self.calls) < self.limit:
+                    self.calls.append((name, [a.clone() if isinstance(a, torch.Tensor) else a
+                                              for a in args]))
+                return self.real[name](*args)
+            return call
+
+        for k in self.names:
+            setattr(fused, k, wrap(k))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from gatling_tpu_torch.render import fused
+
+        for k, f in self.real.items():
+            setattr(fused, k, f)
+
+    def of(self, name: str) -> list:
+        return [args for n, args in self.calls if n == name]
+
+
+def frame_pair(params, label, want: set, record: int = 0):
+    """A first frame and a warm one (first_and_warm), the first `record`
+    kernel calls recorded (KernelCalls: the first frame's; the warm frame
+    traces the same samples on the same tables); the texture stage must
+    not run. Returns (buffers, times, launches, KernelCalls)."""
+    from gatling_tpu_torch.ops import split_ref
+
+    with KernelCalls(record) as calls:
+        _img, times, launches = first_and_warm(params, label, want)
+    assert split_ref.stage_calls == 0, (label, split_ref.stage_calls)
+    return aov_buffers(params), times, launches, calls
+
+
+def phase_first_hit(device, tex_dir: str):
+    """Phase 4h: the first-hit AOVs on the fused route (COLOR, NORMAL,
+    ALBEDO, DEPTH and TEXCOORDS bound): the Cornell box with the bench's
+    rect light (1200x1200, 16 spp, 8 bounces, NEE: K3, K4's taps, K4 at
+    bounce 0 of each sample, K1 after) and the textured interior (512x512,
+    4 spp, 6 bounces, NEE: K3/K4 every bounce), a first and a warm frame
+    each with their launches; then interior(detail=1) and the Cornell box
+    held against the wavefront's first-hit AOVs of the same samples.
+    Returns (frames, launches by frame, recorded tap_rows waves)."""
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    cornell = load_scene(CORNELL)
+    settings = merged_settings(cornell, spp=AOVS_SPP, maxBounces=AOVS_BOUNCES,
+                               nextEventEstimation=True)
+    frames, launches, waves = {}, {}, []
+    params = fh_params(device, cornell, AOVS_RES, settings, lights=(bench_rect_light(),))
+    bufs, frames["cornell_first_hit"], launches["cornell_first_hit"], calls = frame_pair(
+        params, f"cornell_first_hit {AOVS_RES}^2 {AOVS_SPP}spp {AOVS_BOUNCES} bounces nee",
+        {"K1", "K3", "K4", "K4t"}, record=3)
+    n = launches["cornell_first_hit"]
+    # one sample a wave: K3, the taps and K4 peel bounce 0 of each, K1 after
+    assert n["K3"] == n["K4"] == n["K4t"] == AOVS_SPP and n["K1"] > n["K3"], n
+    frames["cornell_first_hit"]["hit_share"] = check_first_hit(bufs, "cornell_first_hit")
+    waves.append(("cornell_first_hit", calls.of("tap_rows")[0]))
+    fused_cornell = bufs
+
+    desc = interior(tex_dir=tex_dir)
+    settings = merged_settings(desc, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True)
+    params = fh_params(device, desc, SF_RES, settings)
+    bufs, frames["interior_first_hit"], launches["interior_first_hit"], calls = frame_pair(
+        params, f"interior_first_hit {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee",
+        {"K3", "K4", "K4t"}, record=4)
+    n = launches["interior_first_hit"]
+    assert n["K4t"] == SF_SPP and n["K3"] == n["K4"] > SF_SPP, n
+    frames["interior_first_hit"]["hit_share"] = check_first_hit(bufs, "interior_first_hit")
+    waves.append(("interior_first_hit", calls.of("tap_rows")[0]))
+
+    # the wavefront's first-hit AOVs of the same samples
+    small = interior(detail=1, tex_dir=tex_dir)
+    s = merged_settings(small, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True)
+    out = {}
+    for route in ("fused", "wavefront"):
+        params = fh_params(device, small, SF_RES, s, wavefront=route == "wavefront")
+        counted_render(params, f"interior_first_hit detail=1, {route}")
+        assert (params.scene._fused is None) == (route == "wavefront"), route
+        out[route] = aov_buffers(params)
+    frames["interior_first_hit_vs_wavefront"] = compare_first_hit(
+        out["fused"], out["wavefront"], "interior_first_hit detail=1")
+    params = fh_params(device, cornell, AOVS_RES, merged_settings(
+        cornell, spp=AOVS_SPP, maxBounces=AOVS_BOUNCES, nextEventEstimation=True),
+        wavefront=True, lights=(bench_rect_light(),))
+    counted_render(params, "cornell_first_hit, wavefront")
+    frames["cornell_first_hit_vs_wavefront"] = compare_first_hit(
+        fused_cornell, aov_buffers(params), "cornell_first_hit")
+    return frames, launches, waves
+
+
+def clip_params(device, desc, clip, wavefront: bool):
+    """The Cornell box at the bench's plain settings (1200x1200, 16 spp, 8
+    bounces) with clippingPlanes on, the camera's range `clip` (None: its
+    own); with `wavefront`, an OBJECT_ID binding beside COLOR."""
+    import copy
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    params = desc_params(device, desc, FULL_RES, merged_settings(
+        desc, spp=LOBES_SPP, maxBounces=LOBES_BOUNCES, clippingPlanes=True))
+    if clip is not None:
+        params.camera = copy.deepcopy(params.camera)
+        params.camera.clip_start, params.camera.clip_end = clip
+    if wavefront:
+        params.aov_bindings.append(gi.GiAovBinding(
+            AovId.OBJECT_ID, gi.GiRenderBuffer(FULL_RES, FULL_RES, 1, True), clear_value=-1))
+    return params
+
+
+def phase_clipping(device):
+    """Phase 4i: camera clipping planes on the fused route, the Cornell box
+    at 1200x1200, 16 spp, 8 bounces: the open range (the camera's own), a
+    near plane that cuts the room and a far plane that cuts it, a first and
+    a warm frame each (K3 and K4 peel bounce 0 of each wave, K1 after);
+    the near and far frames against the wavefront's of the same samples
+    (mean_gap), and the cuts changing the image as tests/test_fused.py:850
+    asserts. Returns (frames, launches, recorded peel waves)."""
+    from gatling_tpu_torch.render.fused import spp_batch_size
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    desc = load_scene(CORNELL)
+    frames, launches, waves, means = {}, {}, {}, {}
+    for name, clip in CLIP_RANGES.items():
+        params = clip_params(device, desc, clip, False)
+        bufs, frames[name], launches[name], calls = frame_pair(
+            params, f"cornell_clip_{name} {FULL_RES}^2 {LOBES_SPP}spp {LOBES_BOUNCES} bounces",
+            {"K1", "K3", "K4"}, record=2)
+        n = launches[name]
+        # the clip-only peel keeps the spp batching: one K3 and K4 a wave
+        n_waves = LOBES_SPP // spp_batch_size(FULL_RES * FULL_RES, LOBES_SPP)
+        assert n["K3"] == n["K4"] == n_waves and n["K4t"] == 0, n
+        means[name] = float(bufs["COLOR"][..., :3].mean())
+        if clip is None:
+            continue
+        (_t, trace), = [c for c in calls.calls if c[0] == "trace_step"][:1]
+        (_s, shade), = [c for c in calls.calls if c[0] == "shade_step"][:1]
+        waves[name] = (trace, shade)
+        wave = clip_params(device, desc, clip, True)
+        counted_render(wave, f"cornell_clip_{name}, wavefront")
+        assert wave.scene._fused is None
+        frames[name]["vs_wavefront"] = mean_gap(bufs["COLOR"], aov_buffers(wave)["COLOR"],
+                                                f"cornell_clip_{name}")
+    log(f"clipping: COLOR means {means}")
+    assert abs(means["near"] - means["open"]) > 0.005, means
+    assert means["far"] < 0.6 * means["open"], means
+    return frames, launches, waves
+
+
+def checker_mask(path: str, size: int = 64, square: int = 4) -> str:
+    """A checker of alpha 0 and 255 in squares of `square` texels (white
+    RGB), written with the port's PNG writer."""
+    import numpy as np
+
+    from gatling_tpu_torch import imgio
+
+    c = (np.arange(size)[:, None] // square + np.arange(size)[None, :] // square) % 2
+    img = np.full((size, size, 4), 255, np.uint8)
+    img[..., 3] = np.where(c, 255, 0)
+    imgio.write_image_file(path, img)
+    return path
+
+
+def cutout_interior(tex_dir: str, detail: int = 5):
+    """The interior with its instanced bowls' opacity the checker mask's
+    alpha at opacityThreshold 0.5 (a leaf- or fence-like cutout). The
+    bowls also emit (1, 1, 1): the interior's lights reach the camera only
+    through NEE, so without NEE the frame is lit by the bowls alone, and
+    what it shows depends on the mask."""
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    desc = interior(detail=detail, tex_dir=tex_dir)
+    bowl = surface_variant(desc.materials["/m_bowl"], opacityThreshold=0.5,
+                           emissiveColor=(1.0, 1.0, 1.0))
+    node = ShaderNode(path="/m_bowl/mask", shader_id="UsdUVTexture",
+                      inputs={"file": checker_mask(os.path.join(tex_dir, "mask.png")),
+                              "sourceColorSpace": "raw"}, input_connections={})
+    bowl.nodes[node.path] = node
+    bowl.nodes[bowl.surface_node].input_connections["opacity"] = (node.path, "a")
+    desc.materials["/m_bowl"] = bowl
+    return desc
+
+
+def first_wave_pass_rate(calls, bowl: int):
+    """On the first wave of a frame recorded by KernelCalls (its first K3
+    state and the first round's taps of that hit buffer): the share of
+    the alive rays whose hit is a bowl (material `bowl`) that the
+    re-trace's first draw lets through the mask, their count, and the mean
+    of their pass probabilities."""
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.sampling import f32_bits_to_u32
+    from gatling_tpu_torch.ops.split_ref import H_HIT
+    from gatling_tpu_torch.render import bsdf
+    from gatling_tpu_torch.render.fused import _hit_materials, _tapped_params, retrace_draws
+
+    _p, _fs, state = calls.of("trace_step")[0]
+    hit, mats, pool, active = calls.of("tap_rows")[0]
+    mat = _hit_materials(hit, mats)
+    pass_prob = bsdf.cutout_opacity(_tapped_params(mats, mat, tb.tap_rows(hit, mats, pool,
+                                                                          active)))
+    on = (state[13] > 0.5) & (hit[H_HIT] > 0.5) & (mat == bowl)
+    passed = on & (retrace_draws(f32_bits_to_u32(state[12]), 0) >= pass_prob)
+    n = int(on.sum())
+    return float(passed.sum()) / max(n, 1), n, float((1.0 - pass_prob)[on].mean())
+
+
+def phase_textured_cutout(device, tex_dir: str):
+    """Phase 4j: the textured cutout on the fused route: cutout_interior
+    (the bowls' opacity a checker mask) at the bench's 512x512, 4 spp, 6
+    bounces, NEE off and on, a first and a warm frame each: every split
+    bounce K3, then three re-trace rounds (K4's taps of the opacity, K3 on
+    the rejected rays), then K4; the NEE shadow walk draws against the
+    mask's mean pass rate (gi.shadow_cutout_pass). The first wave's pass
+    rate through the mask, and interior(detail=1)'s NEE-off frame against
+    the wavefront's (which taps the opacity at every hit) of the same
+    samples, held at 24 and 48 bounces and logged at 6 (CUTOUT_MEAN_PAIRS).
+    Returns (frames, launches, KernelCalls of the NEE-off frame)."""
+    import numpy as np
+
+    desc = cutout_interior(tex_dir)
+    frames, launches, recorded = {}, {}, None
+    for nee in (False, True):
+        label = f"interior_cutout nee={nee}"
+        params = desc_params(device, desc, SF_RES, merged_settings(
+            desc, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=nee))
+        bufs, frames[label], launches[label], calls = frame_pair(
+            params, f"{label} {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces",
+            {"K3", "K4", "K4t"}, record=8)
+        scene = params.scene
+        st = scene._fused_static
+        assert st.instanced and st.textured and st.cutout_textured and scene._fused.cutout, st
+        n = launches[label]
+        # a split bounce: one K3, TEX_CUTOUT_ROUNDS - 1 rounds of taps and K3, one K4
+        assert n["K3"] == 4 * n["K4"] and n["K4t"] == 3 * n["K4"] and n["K3"] > SF_BOUNCES, n
+        img = bufs["COLOR"][..., :3]
+        assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01, label
+        if not nee:
+            rate, hits, mean_pass = first_wave_pass_rate(calls, scene._material_index["/m_bowl"])
+            log(f"{label} first wave: {hits} rays hit a bowl first, {rate:.5f} of them pass the "
+                f"mask (mean pass probability {mean_pass:.5f}; want {CUTOUT_PASS} +- "
+                f"{CUTOUT_PASS_TOL})")
+            assert hits > 1000 and abs(rate - CUTOUT_PASS) <= CUTOUT_PASS_TOL, (rate, hits)
+            frames[label].update(pass_rate=rate, bowl_hits=hits, mean_pass_probability=mean_pass)
+            recorded = calls
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+
+    from gatling_tpu_torch.render import fused
+
+    small = cutout_interior(tex_dir, detail=1)
+    for bounces, rounds in CUTOUT_MEAN_PAIRS:
+        out = {}
+        for route in ("fused", "wavefront"):
+            params = desc_params(device, small, SF_RES, merged_settings(
+                small, spp=SF_SPP, maxBounces=bounces, nextEventEstimation=False))
+            if route == "wavefront":
+                params.aov_bindings.append(gi.GiAovBinding(
+                    AovId.OBJECT_ID, gi.GiRenderBuffer(SF_RES, SF_RES, 1, True), clear_value=-1))
+            saved, fused.TEX_CUTOUT_ROUNDS = fused.TEX_CUTOUT_ROUNDS, rounds
+            try:
+                counted_render(params, f"interior_cutout detail=1 nee=False {bounces} bounces, "
+                                       f"{rounds} cutout rounds, {route}")
+            finally:
+                fused.TEX_CUTOUT_ROUNDS = saved
+            assert (params.scene._fused is None) == (route == "wavefront"), route
+            out[route] = aov_buffers(params)["COLOR"]
+        label = f"interior_cutout detail=1 nee=False {bounces} bounces {rounds} rounds"
+        held = bounces >= CUTOUT_MEAN_BOUNCES  # below, logged: the pass-throughs spend bounces
+        frames[label + " vs wavefront"] = mean_gap(out["fused"], out["wavefront"], label, held)
+    return frames, launches, recorded
+
+
+def tap_bound_ms(hit, mats, pool, active):
+    """The least time of one tap_rows launch (HBM bytes; it does no walk):
+    the hit rows its 12 output rows depend on (H_HIT, H_MAT and the 3 of
+    H_N; the 2 uv rows when it taps; H_TAN and H_BS when it normal-maps:
+    read_hit loads 13 rows, but H_POS, H_GN, H_FRONT and H_DS feed none of
+    tap_kernel's outputs), the distinct texel rows its taps touch
+    (tap_texel_rows), its 12 rows written, the tables read once (the
+    material rows and slot columns, the slot records, the sRGB table).
+    Returns ((ms, what bounds it), distinct texel rows)."""
+    from gatling_tpu_torch.ops import bounce as tb
+
+    textured = sum(bit for name, bit in tb.TAP_BITS.items() if name in active)
+    textured |= tb.TAP_OPACITY if "opacity" in active else 0
+    mask = tb.tap_mask(textured, hit.shape[0], pool)
+    texels, row_bytes = tap_texel_rows(mats, pool, hit, textured)
+    hit_rows = 5 + (2 if mask else 0) + (4 if mask & tb.TAP_NORMAL else 0)
+    tables = mats.packed_f.numel() + mats.packed_i.numel() + 14 * pool.count + 256
+    nbytes = 4 * hit.shape[1] * (hit_rows + tb.TAP_ROWS) + texels.numel() * row_bytes + 4 * tables
+    return _bound(nbytes, 0), texels.numel()
+
+
+def phase_taps(device, tap_waves, clip_waves, cutout_calls):
+    """Phase 3g: the kernels of 4h-4j on the waves those frames handed
+    them. K4's taps alone (tap_rows) against tap_rows_ref on 4h's peel
+    waves and 4j's re-trace waves, every row (the opacity's included)
+    bit-equal on every hit ray; K3 and K4 on 4i's clipped peel waves
+    against their twins (H_HIT, H_MAT and state rows 12-15 bit-equal on
+    every ray, the other rows within tolerance on 99.9 %), as 3c holds
+    them; K3 on 4j's masked re-trace waves against its twin. Each timed
+    (CUDA events, medians) beside its twin, with its bound. Returns
+    {wave: numbers}."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import H_HIT, trace_ref
+
+    out, errs = {}, dict(taps=0.0, k3=0.0, k4=0.0)
+    for label, (hit, mats, pool, active) in tap_waves:
+        got, want = tb.tap_rows(hit, mats, pool, active), tb.tap_rows_ref(hit, mats, pool, active)
+        torch.cuda.synchronize()
+        on = hit[H_HIT] > 0.5
+        bad = int((got.view(torch.int32) != want.view(torch.int32))[:, on].any(dim=0).sum())
+        err = float((got - want)[:, on].abs().max()) if bool(on.any()) else 0.0
+        bound, texels = tap_bound_ms(hit, mats, pool, active)
+        out[label] = dict(rays=hit.shape[1], hit_rays=int(on.sum()), not_bit_equal=bad,
+                          ms=event_ms(lambda: tb.tap_rows(hit, mats, pool, active)),
+                          plain_ms=event_ms(lambda: tb.tap_rows_ref(hit, mats, pool, active)),
+                          bound=bound, distinct_texel_rows=texels,
+                          opacity="opacity" in active)
+        log(f"taps {label}: {out[label]}")
+        assert bad == 0, (label, bad)
+        errs["taps"] = max(errs["taps"], err)
+    for label, (trace, shade) in clip_waves.items():
+        p, fs, state = trace
+        hit = tb.trace_step(p, fs, state)
+        twin = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
+        hb, ho, n, herr = compare_hits(hit, twin)
+        p, fs, st, chit, mats, pool, active, nee = shade
+        got = st.clone()
+        tb.shade_step(p, fs, got, chit, mats, pool, active, nee)
+        ref = st.clone()
+        split_twin(p, fs, ref, chit, mats, pool, active, nee)
+        sb, so, _n, serr = compare(got, ref)
+        out[f"clip_{label}"] = dict(
+            rays=n, k3_not_bit_equal=hb, k3_outside=ho, k4_not_bit_equal=sb, k4_outside=so,
+            clipped_hits=int((twin[H_HIT] > 0.5).sum() - (chit[H_HIT] > 0.5).sum()),
+            k3=time_ms(lambda s: tb.trace_step(p, fs, s), state),
+            k4=time_ms(lambda s: tb.shade_step(p, fs, s, chit, mats, pool, active, nee), st))
+        log(f"peel clip_{label}: {out[f'clip_{label}']}, max abs err K3 {herr:.3g}, K4 {serr:.3g}")
+        assert hb == 0 and sb == 0 and ho <= n * (1 - MIN_AGREE) and so <= n * (1 - MIN_AGREE)
+        errs["k3"], errs["k4"] = max(errs["k3"], herr), max(errs["k4"], serr)
+    for k, (p, fs, state) in enumerate(cutout_calls.of("trace_step")[1:]):
+        hit = tb.trace_step(p, fs, state)
+        twin = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
+        hb, ho, n, herr = compare_hits(hit, twin)
+        work = cluster_walk_work(p, fs, state, False)
+        bound = k3_bound_ms(state, fs, hit.shape[0], work)
+        out[f"retrace_round_{k}"] = dict(
+            rays=n, alive=int((state[13] > 0.5).sum()), not_bit_equal=hb, outside=ho,
+            ms=time_ms(lambda s: tb.trace_step(p, fs, s), state),
+            plain_ms=time_ms(lambda s: trace_ref(p, fs.tris, s, fs.walk, fs.cutout), state, 3),
+            bound=bound, walk_work=work)
+        log(f"re-trace K3 round {k}: {out[f'retrace_round_{k}']}, max abs err {herr:.3g}")
+        assert hb == 0 and ho <= n * (1 - MIN_AGREE)
+        errs["k3"] = max(errs["k3"], herr)
+    return out, errs
+
+
+def phase_goldens(device, out_dir: str):
+    """The committed graphical scenes that tests/test_torch_graphical.py
+    renders, through gatling_tpu_torch.testing.run_graphical_test on the
+    card at their own thresholds, each on the route the port picks
+    (Camera.ClippingPlanes on the fused peel). Materials.GlassCoated's
+    reference is a wavefront image and the port's route for it the fused
+    K1: the harness reports its error components over the threshold and
+    nothing else (golden_glass_coated in 4f holds its wavefront frame to
+    both thresholds). Returns {scene: failures}."""
+    from gatling_tpu_torch import testing
+
+    out = {}
+    for name in GOLDENS:
+        path = os.path.join(HERE, "tests", "graphical", name, "scene.usda")
+        t0 = time.perf_counter()
+        failures = testing.run_graphical_test(path, os.path.join(out_dir, name), device)
+        out[name] = failures
+        log(f"golden {name} on the card: {failures or 'passed'} ({time.perf_counter() - t0:.2f} s)")
+        if name == "Materials.GlassCoated":
+            assert failures and all("error components" in f for f in failures), failures
+        else:
+            assert not failures, (name, failures)
+    return out
+
+
+# the goldens the port renders (tests/test_torch_graphical.py ROUTES); the
+# other three raise, naming their ROADMAP item
+GOLDENS = ("Camera.ClippingPlanes", "Lights.Analytic", "MaterialX.ColorSpaces",
+           "Materials.GlassCoated", "Mesh.PrimvarInterpolation", "Render.AOVs",
+           "Render.Empty1x1")
 
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
@@ -3020,12 +3599,34 @@ def main() -> int:
     # twins on 4g's waves, rows 12-15, H_HIT and H_MAT on every ray
     t0 = time.perf_counter()
     vol_frames, vol_launches, replay = phase_volumes(device, tex_tmp.name)
-    tex_tmp.cleanup()
     log(f"phase 4g: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     vol_branch = phase_branches(device, replay, exact=True)
     del replay
     log(f"phase 3f: {time.perf_counter() - t0:.1f} s")
+
+    # 4h-4j: the fused route's bounce-0 peel (first-hit AOVs, clipping) and
+    # the textured cutout's re-trace; 3g: K4's taps alone, K3 and K4 on
+    # their waves; the goldens through the port's harness
+    t0 = time.perf_counter()
+    fh_frames, fh_launches, tap_waves = phase_first_hit(device, tex_tmp.name)
+    log(f"phase 4h: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    clip_frames, clip_launches, clip_waves = phase_clipping(device)
+    log(f"phase 4i: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cut_frames, cut_launches, cut_calls = phase_textured_cutout(device, tex_tmp.name)
+    log(f"phase 4j: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tap_waves += [(f"interior_cutout round {k}", args)
+                  for k, args in enumerate(cut_calls.of("tap_rows"))]
+    peel, peel_errs = phase_taps(device, tap_waves, clip_waves, cut_calls)
+    del tap_waves, clip_waves, cut_calls
+    log(f"phase 3g: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
+    tex_tmp.cleanup()
+    log(f"goldens: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     probe_launches, p1, p2, p2_library, stream_us = phase_probes(device)
     log(f"phase P: {time.perf_counter() - t0:.1f} s")
@@ -3033,6 +3634,11 @@ def main() -> int:
     log(f"main path: kernel launches per frame {launches}; Mray/s {rates}; wavefront frame "
         f"seconds {wave_times}; advanced lobes and cutout: launches {lobe_launches}, frames "
         f"{lobe_frames}; media: launches {vol_launches}, frames {vol_frames}")
+    new_launches = {**fh_launches, **{f"cornell_clip_{k}": v for k, v in clip_launches.items()},
+                    **cut_launches}
+    log(f"first-hit frames {fh_frames}; clipping frames {clip_frames}; textured-cutout frames "
+        f"{cut_frames}; their launches {new_launches}; goldens {goldens}")
+    taps = peel["cornell_first_hit"]
 
     k2 = walk_times[("instanced", "generated", False)]
     it, ct = split_times["interior"], split_times["cornell_textured"]
@@ -3102,6 +3708,12 @@ def main() -> int:
         "bound_ms_bounce2": split_times["interior_bounce2"]["k3_bound"][0],
         "bound_ms_cluster_floor_bounce2": split_times["interior_bounce2"]["k3_floor"][0],
         "walk_work_bounce2": split_times["interior_bounce2"]["work"],
+        "max_abs_err_peel": peel_errs["k3"],
+        "ms_peel_clipped": {k: v["k3"] for k, v in peel.items() if k.startswith("clip_")},
+        "ms_retrace_masked": {k: v["ms"] for k, v in peel.items() if k.startswith("retrace")},
+        "bound_ms_retrace_masked": {k: v["bound"][0] for k, v in peel.items()
+                                    if k.startswith("retrace")},
+        "launches_by_new_frame": {k: v["K3"] for k, v in new_launches.items()},
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -3128,6 +3740,29 @@ def main() -> int:
         "plain_ms_cornell_textured": ct["k4_twin"],
         "texture_stage_ms_cornell_textured": ct["stage"],
         "bound_ms_cornell_textured": ct["k4_bound"][0],
+        "max_abs_err_peel": peel_errs["k4"],
+        "ms_peel_clipped": {k: v["k4"] for k, v in peel.items() if k.startswith("clip_")},
+        "launches_by_new_frame": {k: v["K4"] for k, v in new_launches.items()},
+    }, {
+        "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
+                "textured cutout's opacity)",
+        "route": "cuda",
+        "source": "gatling_tpu_torch/csrc/bounce.cu",
+        "replaces": "gatling_tpu/render/fused.py:241 _material_rows (the texture stage before "
+                    "gatling_tpu/ops/pallas_bounce.py:3705 shade_step) at the bounce-0 peel "
+                    ":481-490 and the textured-cutout re-trace :326-333",
+        "launches": new_launches["cornell_first_hit"]["K4t"],
+        "max_abs_err": peel_errs["taps"],
+        "ms": taps["ms"],
+        "plain_ms": taps["plain_ms"],
+        "bound_ms": taps["bound"][0],
+        "bound_by": taps["bound"][1],
+        "library_ms": None,
+        "by_wave": {k: {f: v[f] for f in ("rays", "hit_rays", "ms", "plain_ms",
+                                           "distinct_texel_rows", "opacity")}
+                    | {"bound_ms": v["bound"][0]}
+                    for k, v in peel.items() if "ms" in v and "alive" not in v},
+        "launches_by_new_frame": {k: v["K4t"] for k, v in new_launches.items()},
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),

@@ -5,8 +5,9 @@ frame on the card (`--device cuda`, the default) or through the kernels'
 plain twins on the CPU (`--device cpu`). The flags are the JAX package's
 (reference: src/gatling/main.cpp:94-265, Argparse.cpp:30-318): image size,
 camera path, AOV, gamma, and one flag per render setting. `--aov` takes
-every AOV: colour renders through the fused kernels, the others through
-the wavefront integrator (gi.py), the ids into int32 buffers. `--watch`
+every AOV: colour and the first-hit normal, albedo, depth and texcoords
+render through the fused kernels, the others through the wavefront
+integrator (gi.py), the ids into int32 buffers. `--watch`
 and `--checkpoint` are not ported yet and raise.
 """
 

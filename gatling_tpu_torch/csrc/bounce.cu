@@ -1077,13 +1077,18 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
 
 enum { WRAP_BLACK = 0, WRAP_CLAMP = 1, WRAP_REPEAT = 2, WRAP_MIRROR = 3 };
 // which taps a launch makes: the textured parameters, and the normal map
-// when the hit buffer carries the tangent rows
-enum { TAP_BASE = 1, TAP_EMISSIVE = 2, TAP_METAL = 4, TAP_ROUGH = 8, TAP_NORMAL = 16 };
+// when the hit buffer carries the tangent rows; TAP_OPACITY only in
+// tap_kernel (K4 never reads opacity)
+enum { TAP_BASE = 1, TAP_EMISSIVE = 2, TAP_METAL = 4, TAP_ROUGH = 8, TAP_NORMAL = 16,
+       TAP_OPACITY = 32 };
 // the material table's integer columns K4 stages, per material: the slots
 // of base colour, emission, metallic, roughness and the normal map, then
 // the channels of metallic and roughness (render/material.py MI_*)
 constexpr int MI_COLS = 10;
 constexpr int TAP_MI = 7;  // MI_* columns 0-3 and 5-7 (4, the opacity slot, is not read)
+// the opacity slot and channel columns (MI_OPACITY_TEX, MI_OPACITY_CH), which
+// only tap_kernel reads, from global memory; the table's opacity column
+constexpr int MI_OPACITY_TEX = 4, MI_OPACITY_CH = 8, MF_OPACITY = 6;
 constexpr int SLOT_I = 6;  // offset, width, height, wrap s, wrap t, sRGB
 constexpr int SLOT_F = 8;  // scale, bias
 
@@ -2001,11 +2006,14 @@ cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restric
   if (i < n) out[i] = cutout_xi(keys[i], ids[i]);
 }
 
-// K4's taps alone, for a check against the texture stage (ops/bounce.py
-// tap_rows; on no render path): each hit ray's material row with its
-// tapped parameters and its normal-mapped shading normal, rows base
-// colour (3), emission (3), metallic, roughness, normal (3) of out
-// [11, R]; the material table `mats` is read from global memory.
+// K4's taps alone (ops/bounce.py tap_rows): each hit ray's material row
+// with its tapped parameters and its normal-mapped shading normal, rows
+// base colour (3), emission (3), metallic, roughness, normal (3) and
+// opacity of out [12, R]; the material table `mats` is read from global
+// memory. The first-hit AOVs and the textured-cutout draw of the fused
+// sample loop read them. With TAP_OPACITY the opacity is tapped where the
+// material binds an opacity slot (its slot and channel columns read from
+// global memory: K4's shared table stays as it is), else the table's.
 __global__ void __launch_bounds__(THREADS)
 tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__ hit,
            int hit_tan, long long R, Taps tx, float* __restrict__ out) {
@@ -2018,9 +2026,17 @@ tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__
   Hit h;
   Mat m;
   read_hit<false>(hit, hit_tan != 0, mats, n_mats, tx, tt, R, i, r, h, m);
-  const float rows[11] = {m.base[0], m.base[1], m.base[2], m.em[0],  m.em[1], m.em[2],
-                          m.metallic, m.roughness, h.n[0],   h.n[1], h.n[2]};
-  for (int k = 0; k < 11; ++k) out[k * R + i] = rows[k];
+  const int mat = min(max((int)rintf(hit[H_MAT * R + i]), 0), n_mats - 1);
+  float opacity = mats[mat * MAT_COLS + MF_OPACITY];
+  if ((tx.mask & TAP_OPACITY) && r.hit) {
+    const int slot = __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_TEX);
+    if (slot >= 0)
+      opacity = channel(tap(tx, tt, slot, hit[H_UV * R + i], hit[(H_UV + 1) * R + i]),
+                        __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_CH));
+  }
+  const float rows[12] = {m.base[0], m.base[1], m.base[2], m.em[0],  m.em[1], m.em[2],
+                          m.metallic, m.roughness, h.n[0],   h.n[1], h.n[2], opacity};
+  for (int k = 0; k < 12; ++k) out[k * R + i] = rows[k];
 }
 
 unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
@@ -2089,7 +2105,7 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
   return (int)cudaGetLastError();
 }
 
-// K4's taps alone on hit buffer `hit` into out [11, n_rays] (tap_kernel).
+// K4's taps alone on hit buffer `hit` into out [12, n_rays] (tap_kernel).
 int gatling_tap_rows(const float* mats, int n_mats, const float* hit, int hit_tan,
                      long long n_rays, TAP_ARGS, float* out, void* stream) {
   if (n_rays <= 0) return 0;

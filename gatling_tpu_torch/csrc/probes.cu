@@ -4,12 +4,16 @@
 // P1 `cast_probe_kernel` <- tools/mosaic_cast_probe.py `probe` (its
 //    pl.pallas_call of one VMEM block): six layout moves of an (8, 128)
 //    f32 tile. The TPU question was which reshapes, stacks, concatenations
-//    and transposes Mosaic legalizes inside a kernel. Here one block stages
-//    the tile in shared memory, row-major, and writes each output element
-//    from the shared word its index map names: every move is legal, and
+//    and transposes Mosaic legalizes inside a kernel. Here one launch runs
+//    all six, a block a move: each block stages the tile in shared memory
+//    once, its rows CAST_STRIDE = 132 words apart, and writes each output
+//    element from the shared word its index map names. Every move is legal;
 //    what differs between them is the index map's shared-memory bank
-//    pattern, which the host counts statically (tools/cast_probe.py). What
-//    bounds it: the 4 KB read and the 4 or 32 KB written, and the launch.
+//    pattern, which the host counts statically (tools/cast_probe.py): with
+//    the rows 4 banks apart a transpose's warp (8 rows of 4 columns) reads
+//    32 distinct banks, and the flat moves a run of 32 consecutive words, so
+//    no move's reads conflict. What bounds it: the launch; its 4 KB read
+//    (once a block) and 80 KB written take 25 ns at 3.35 TB/s.
 // P2 `onehot_tf32_kernel` / `onehot_fp32_kernel` <-
 //    tools/mosaic_precision_probe.py `kern`: the one-hot 128x128 product
 //    oh @ x, which must reproduce x, at the TPU's DEFAULT and HIGHEST
@@ -51,12 +55,15 @@
 namespace {
 
 constexpr int TILE_ROWS = 8, TILE_COLS = 128, TILE_N = TILE_ROWS * TILE_COLS;
+constexpr int CAST_MOVES = 6;
+constexpr int CAST_STRIDE = TILE_COLS + 4;  // staged rows 4 banks apart
+constexpr int CAST_THREADS = 256;
 constexpr int N = 128;  // the product's side
 
-// P1: the shared-memory word that output element k of move `move` reads;
-// moves: 0 reshape (1024,), 1 reshape (1024, 1), 2 stack of 8 (1024, 8),
-// 3 concatenation of 8 columns (1024, 8), 4 transpose (128, 8), 5
-// concatenation of the 8 rows' transposes (128, 8).
+// P1: the tile element (row-major) that output element k of move `move`
+// reads; moves: 0 reshape (1024,), 1 reshape (1024, 1), 2 stack of 8
+// (1024, 8), 3 concatenation of 8 columns (1024, 8), 4 transpose (128, 8),
+// 5 concatenation of the 8 rows' transposes (128, 8).
 __device__ __forceinline__ int cast_src(int move, int k) {
   switch (move) {
     case 2:
@@ -70,12 +77,36 @@ __device__ __forceinline__ int cast_src(int move, int k) {
   }
 }
 
-__global__ void cast_probe_kernel(const float* __restrict__ x, float* __restrict__ out, int move,
-                                  int n_out) {
-  __shared__ float s[TILE_N];
-  for (int k = threadIdx.x; k < TILE_N; k += blockDim.x) s[k] = x[k];
+// The six moves' outputs, and each one's length.
+struct CastOut {
+  float* out[CAST_MOVES];
+  int n[CAST_MOVES];
+};
+
+// Block b runs move b over its staged copy of the tile, element e at
+// shared word (e / 128) * CAST_STRIDE + e % 128.
+__global__ void __launch_bounds__(CAST_THREADS)
+cast_probe_kernel(const float* __restrict__ x, CastOut o) {
+  __shared__ float s[TILE_ROWS * CAST_STRIDE];
+  for (int e = threadIdx.x; e < TILE_N; e += CAST_THREADS)
+    s[(e / TILE_COLS) * CAST_STRIDE + e % TILE_COLS] = __ldg(x + e);
   __syncthreads();
-  for (int k = threadIdx.x; k < n_out; k += blockDim.x) out[k] = s[cast_src(move, k)];
+  // the block's output by selects: an index into the parameter struct
+  // would copy it to the stack
+  const int move = blockIdx.x;
+  float* __restrict__ out = o.out[0];
+  int n_out = o.n[0];
+#pragma unroll
+  for (int m = 1; m < CAST_MOVES; ++m) {
+    if (move == m) {
+      out = o.out[m];
+      n_out = o.n[m];
+    }
+  }
+  for (int k = threadIdx.x; k < n_out; k += CAST_THREADS) {
+    const int e = cast_src(move, k);
+    out[k] = s[(e / TILE_COLS) * CAST_STRIDE + e % TILE_COLS];
+  }
 }
 
 // f32 -> TF32 (round to nearest, ties away from zero), as an f32 bit
@@ -245,9 +276,13 @@ const char* gatling_probe_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// P1: move `move` of the (8, 128) tile x into out (n_out floats).
-int gatling_cast_probe(const float* x, float* out, int move, int n_out, void* stream) {
-  cast_probe_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, out, move, n_out);
+// P1: the six moves of the (8, 128) tile x in one launch, move m into
+// out_m (n_m floats).
+int gatling_cast_probe(const float* x, float* out0, float* out1, float* out2, float* out3,
+                       float* out4, float* out5, int n0, int n1, int n2, int n3, int n4, int n5,
+                       void* stream) {
+  const CastOut o = {{out0, out1, out2, out3, out4, out5}, {n0, n1, n2, n3, n4, n5}};
+  cast_probe_kernel<<<CAST_MOVES, CAST_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(x, o);
   return (int)cudaGetLastError();
 }
 

@@ -7,6 +7,8 @@
     python -m gatling_tpu_torch.frame_profile --scene glass_coated   # the advanced lobes
     python -m gatling_tpu_torch.frame_profile --scene cornell_fog    # a scattering medium
     python -m gatling_tpu_torch.frame_profile --scene glass_tinted   # an absorbing medium
+    python -m gatling_tpu_torch.frame_profile --scene cornell_first_hit   # the bounce-0 peel
+    python -m gatling_tpu_torch.frame_profile --scene interior_first_hit
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
 4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
@@ -15,7 +17,12 @@ the Cornell box with the bench's rect light and every AOV bound, at the
 Cornell bench settings (1200x1200, 16 spp, 8 bounces, NEE), its time
 split into K5 (closest hits), K6 (shadow rays) and the PyTorch ops of
 shading and AOVs; or interior_aovs, the same route on interior(detail=1)
-(3,840 triangles, textured) at 512x512, 4 spp, 6 bounces, NEE. For each: one warm-up frame through `gi.render`,
+(3,840 triangles, textured) at 512x512, 4 spp, 6 bounces, NEE; or
+cornell_first_hit / interior_first_hit, the fused route's first-hit
+frames: the Cornell box (as cornell_aovs) or the textured interior (512x512,
+4 spp, 6 bounces, NEE) with COLOR, NORMAL, ALBEDO, DEPTH and TEXCOORDS
+bound (bounce 0 of each sample peeled through K3, K4's taps alone and
+K4). For each: one warm-up frame through `gi.render`,
 then five frames on the same scene (host clock around each, ending in the
 image's copy to the host; the framebuffer is reset each time), then one
 more under torch.profiler. Prints the frame times and Mray/s (traced
@@ -58,22 +65,27 @@ from gatling_tpu_torch.interface import AovId
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
-GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K1 bounce_kernel", "bounce_kernel"),
+GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K4t taps", "tap_kernel"),
+          ("K1 bounce_kernel", "bounce_kernel"),
           ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
           ("K6 shadow rays", "occluded_tree_kernel"), ("sort", "sort"), ("copies", "memcpy"))
 
 
-def _every_aov(res: int):
-    """One binding of every AOV, the ids in int32 buffers cleared to -1."""
+FIRST_HIT = (AovId.COLOR, AovId.NORMAL, AovId.ALBEDO, AovId.DEPTH, AovId.TEXCOORDS)
+
+
+def _every_aov(res: int, aovs=tuple(AovId)):
+    """One binding of each of `aovs` (every AOV), the ids in int32 buffers
+    cleared to -1."""
     from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT
 
     return [gi.GiAovBinding(a, gi.GiRenderBuffer(res, res, 1 if AOV_IS_INT[a] else
                                                  max(AOV_CHANNELS[a], 3), AOV_IS_INT[a]),
-                            clear_value=-1 if AOV_IS_INT[a] else None) for a in AovId]
+                            clear_value=-1 if AOV_IS_INT[a] else None) for a in aovs]
 
 
-def _cornell_aovs():
-    """cornell_aovs: the Cornell box, the bench's rect light, every AOV."""
+def _cornell_aovs(aovs=tuple(AovId)):
+    """cornell_aovs: the Cornell box, the bench's rect light, `aovs`."""
     import os
 
     import numpy as np
@@ -94,7 +106,7 @@ def _cornell_aovs():
                     normalize=False, diffuse=1.0, specular=1.0, enableColorTemperature=False,
                     colorTemperature=6500.0, width=0.8, height=0.6)))
     return gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
-                             aov_bindings=_every_aov(res), render_settings=merged)
+                             aov_bindings=_every_aov(res, aovs), render_settings=merged)
 
 
 GLASS_RES, GLASS_SPP, GLASS_BOUNCES = 1200, 16, 8  # the bench's glass_coated (bench.py:40-54)
@@ -193,11 +205,13 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
 
     if scene_name == "cornell_aovs":
         return _cornell_aovs()
+    if scene_name == "cornell_first_hit":
+        return _cornell_aovs(FIRST_HIT)
     if scene_name.startswith("glass_coated"):
         return _glass_coated(lobes=scene_name == "glass_coated")
     if scene_name in ("cornell_fog", "glass_tinted"):
         return _media(scene_name, tex_dir)
-    desc = (interior(tex_dir=tex_dir) if scene_name == "interior"
+    desc = (interior(tex_dir=tex_dir) if scene_name in ("interior", "interior_first_hit")
             else interior(detail=1, tex_dir=tex_dir) if scene_name == "interior_aovs"
             else sphere_field())
     scene = gi.create_scene("cuda")
@@ -210,6 +224,7 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
     return gi.GiRenderParams(
         scene=scene, camera=desc.first_camera(),
         aov_bindings=(_every_aov(RES) if scene_name == "interior_aovs"
+                      else _every_aov(RES, FIRST_HIT) if scene_name == "interior_first_hit"
                       else [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(RES, RES, 4))]),
         render_settings=dict(spp=SPP, maxBounces=BOUNCES, nextEventEstimation=nee))
 
@@ -285,7 +300,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
                                         "interior_aovs", "glass_coated", "cornell_fog",
-                                        "glass_tinted"),
+                                        "glass_tinted", "cornell_first_hit",
+                                        "interior_first_hit"),
                     default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -9,16 +9,19 @@ framebuffer is invalidated, Gi.cpp:2125-2129,2515).
 The port renders on one device through one of two paths, chosen as the
 JAX package chooses (gatling_tpu/gi.py:650-700):
 
-* the fused bounce kernels, for a COLOR request of a scene of any size,
-  instanced or not, untextured or with 8-bit UsdUVTexture textures and
-  normal maps, with the full lobe set (refraction, clearcoat, anisotropy)
-  and untextured cutout opacity. Above 4096 triangles a scene takes the
-  two-level walk, in instance tables when the JAX package's rule picks
-  them (ops/bounce.py MIN_GAIN), else in flattened clustered tables. An
-  untextured scene runs one kernel a bounce (K1 resident, K2 walk); a
-  textured or anisotropic one the split bounce (K3 trace, the texture
-  stage, K4 shade: anisotropy's frame is the mesh tangent of the hit
-  buffer's tangent rows);
+* the fused bounce kernels, for a request of COLOR and the first-hit AOVs
+  of FUSED_AOV_MASK (NORMAL, ALBEDO, DEPTH, TEXCOORDS) of a scene of any
+  size, instanced or not, untextured or with 8-bit UsdUVTexture textures
+  and normal maps, with the full lobe set (refraction, clearcoat,
+  anisotropy), cutout opacity (textured too) and camera clipping planes.
+  Above 4096 triangles a scene takes the two-level walk, in instance
+  tables when the JAX package's rule picks them (ops/bounce.py MIN_GAIN),
+  else in flattened clustered tables. An untextured scene runs one kernel
+  a bounce (K1 resident, K2 walk); a textured or anisotropic one the split
+  bounce (K3 trace, K4 shade with its own texture taps: anisotropy's frame
+  is the mesh tangent of the hit buffer's tangent rows). First-hit AOVs
+  and clipping planes peel bounce 0 off through K3 and K4 (render/fused.py),
+  an opacity texture re-traces what its cutout rejects;
 * the wavefront integrator (render/integrator.py) when an AOV outside
   FUSED_AOV_MASK is bound, or a material reads per-vertex colours: every
   AOV and cutout (textured too), traced by the brute-force kernels K5
@@ -66,6 +69,7 @@ from gatling_tpu_torch.render.integrator import (
     SampleResult,
     Uniforms,
     blend_aovs,
+    empty_first_hit,
     render_frame,
 )
 from gatling_tpu_torch.render.lights import build_light_arrays, light_tensors
@@ -303,23 +307,36 @@ def _uses_vertex_colours(scene: GiScene) -> bool:
     return vcolor and any(getattr(m.mesh, "colors", None) is not None for m in scene.meshes)
 
 
-def _check_route(params: GiRenderParams, config: RenderConfig, wavefront: bool) -> None:
-    """Raise for what the chosen route of the port does not render."""
-    scene = params.scene
+def _check_route(params: GiRenderParams) -> None:
+    """Raise for what neither route of the port renders."""
     if int(params.render_settings.get("parallelDevices", 1) or 1) > 1:
         raise NotImplementedError(
             "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
-    if wavefront:
-        return
-    opacity_textures = any("opacity" in m.textures for m in scene._lowered_materials)
-    if config.aov_mask != aov_bit(AovId.COLOR):
-        raise NotImplementedError(
-            "the fused path renders the COLOR AOV only; its first-hit AOVs ride the split "
-            "kernels (ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
-    if opacity_textures:
-        raise NotImplementedError(
-            "textured opacity (cutout) is not ported yet "
-            "(ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
+
+
+def _opacity_textures(lowered: list) -> bool:
+    return any("opacity" in m.textures for m in lowered)
+
+
+def shadow_cutout_pass(lowered: list, manager: TextureManager) -> np.ndarray | None:
+    """[M] the NEE shadow walk's cutout pass probability per material
+    (gatling_tpu/gi.py:306-333): an opacity texture's UV-mean pass rate
+    (the share of its texels at or above the opacity threshold, or its
+    mean opacity without one), else the untextured rule. The walk cannot
+    tap textures, so it draws against the mean. None when no material has
+    an opacity texture: the camera values serve both walks."""
+    if not _opacity_textures(lowered):
+        return None
+    out = np.ones(len(lowered), np.float32)
+    for i, m in enumerate(lowered):
+        th = float(m.params.get("opacity_threshold", 0.0) or 0.0)
+        ref = m.textures.get("opacity")
+        if ref is not None:
+            out[i] = manager.pass_rate(ref, th)
+        else:
+            op = float(m.params.get("opacity", 1.0))
+            out[i] = float(op >= th) if th > 0.0 else op
+    return np.clip(out, 0.0, 1.0)
 
 
 def _textured(scene: GiScene) -> bool:
@@ -366,7 +383,8 @@ def _with_split(scene: GiScene, static: FusedStatic) -> FusedStatic:
     if not _split(scene):
         return static
     return dataclasses.replace(static, textured=True,
-                               textured_params=textured_params(scene._lowered_materials))
+                               textured_params=textured_params(scene._lowered_materials),
+                               cutout_textured=_opacity_textures(scene._lowered_materials))
 
 
 def _fused_mat_table(scene: GiScene) -> MaterialTable:
@@ -383,10 +401,11 @@ def _build_fused(scene: GiScene) -> None:
     """The fused tables (gatling_tpu/gi.py:706-756): instance tables
     first, the flattened build when the scene does not take them."""
     table = _fused_mat_table(scene)
+    shadow_pass = shadow_cutout_pass(scene._lowered_materials, scene._texture_manager)
     scene._clusters = UniqueClusters()
     res = build_fused_scene_instanced(scene.meshes, scene._material_index, table,
                                       scene._light_arrays, scene.device,
-                                      clusters=scene._clusters)
+                                      clusters=scene._clusters, shadow_pass=shadow_pass)
     scene._fused_order = None
     if res is not None:
         scene._fused, scene._fused_static = res
@@ -395,7 +414,7 @@ def _build_fused(scene: GiScene) -> None:
                           scene._fused_static.n_clusters, scene._fused_static.n_tris)
     else:
         scene._fused, scene._fused_static, scene._fused_order = build_fused_scene_with_order(
-            scene._geom, table, scene._light_arrays, scene.device)
+            scene._geom, table, scene._light_arrays, scene.device, shadow_pass=shadow_pass)
         get_logger().info("flattened fused scene: %d triangles, %s", scene._fused_static.n_tris,
                           "clustered" if scene._fused_static.clustered else "resident")
     scene._fused_static = _with_split(scene, scene._fused_static)
@@ -408,13 +427,14 @@ def _refit_fused(scene: GiScene) -> None:
     cached triangle order. A refit that leaves the instanced route drops
     the tables, to be built anew."""
     table = _fused_mat_table(scene)
+    shadow_pass = shadow_cutout_pass(scene._lowered_materials, scene._texture_manager)
     if scene._fused_static.instanced:
         scene._fused = refit_instanced(scene._fused, scene._clusters, scene.meshes,
-                                       scene._material_index, table)
+                                       scene._material_index, table, shadow_pass)
     else:
         scene._fused, static, scene._fused_order = build_fused_scene_with_order(
             scene._geom, table, scene._light_arrays, scene.device,
-            reuse_order=scene._fused_order)
+            reuse_order=scene._fused_order, shadow_pass=shadow_pass)
         scene._fused_static = _with_split(scene, static)
 
 
@@ -496,7 +516,7 @@ def render(params: GiRenderParams) -> None:
     # not carry take the wavefront integrator
     wavefront = (bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
                  or not _volumes_fused(scene, config))
-    _check_route(params, config, wavefront)
+    _check_route(params)
     s = params.render_settings
     uniforms = Uniforms(
         camera=camera_uniforms(params.camera, config.depth_of_field, scene.device),
@@ -521,13 +541,26 @@ def render(params: GiRenderParams) -> None:
         pix = torch.arange(n, dtype=torch.int64, device=scene.device)
         scene._fused, scene._fused_static = _fused_volumes(scene, config)
         static = scene._fused_static
-        split = dict(materials=scene._material_dev, textures=scene._texture_pool,
-                     textured_params=static.textured_params) if static.textured else {}
-        color, segs = render_pixels_fused(config, uniforms, scene._fused, pix, config.spp,
-                                          scene.sample_offset, with_stats=True, **split)
+        # the first-hit AOVs, the clipping planes' peel and the re-trace
+        # read the raw material table and the pool (gatling_tpu/gi.py:757-760)
+        want_first = aov_mask != aov_bit(AovId.COLOR)
+        tables = static.textured or want_first or config.clipping_planes
+        out = render_pixels_fused(
+            config, uniforms, scene._fused, pix, config.spp, scene.sample_offset,
+            with_stats=True, materials=scene._material_dev if tables else None,
+            textures=scene._texture_pool if tables else None,
+            textured_params=static.textured_params, want_first_hit=want_first,
+            split=static.textured, cutout_textured=static.cutout_textured)
+        color, segs = out[0], out[1]
+        first = empty_first_hit(n, scene.device)
+        if want_first:
+            # ids -1 and zeros where the peel has no data (gatling_tpu/gi.py:797-817)
+            fh = out[2]
+            first = first._replace(normal=fh["normal"], albedo=fh["albedo"],
+                                   texcoords=fh["texcoords"], depth=fh["depth"], hit=fh["hit"])
         scene.last_segments = float(segs.sum()) * config.spp
         scene._aov_state = blend_aovs(config, uniforms, scene._aov_state,
-                                      SampleResult(color, torch.zeros_like(pix)))
+                                      SampleResult(color, torch.zeros_like(pix), first))
 
     # device -> host copies of every bound AOV (Gi.cpp:2439-2502)
     for b in params.aov_bindings:

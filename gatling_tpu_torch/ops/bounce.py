@@ -121,6 +121,8 @@ from gatling_tpu_torch.ops.geometry import SceneGeometry, real_triangles
 from gatling_tpu_torch.ops.split_ref import (
     H_MAT,
     H_N,
+    H_UVX,
+    H_UVY,
     HIT_ROWS,
     HIT_ROWS_TAN,
     PAR_ORDER,
@@ -148,6 +150,8 @@ from gatling_tpu_torch.render.material import (
     MF_VOL_A,
     MF_VOL_S,
     MaterialTable,
+    apply_textures,
+    gather_params,
 )
 from gatling_tpu_torch.render.texture import TexturePool, srgb_table
 from gatling_tpu_torch.scene.meshproc import materialize_mesh
@@ -170,6 +174,8 @@ MI_COLS = 10  # the device material table's integer columns (render/material.py 
 # samples, and the normal map
 TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
 TAP_NORMAL = 16
+TAP_OPACITY = 32  # tap_rows' opacity row alone: K4 never reads opacity
+TAP_ROWS = 12  # tap_rows' rows: base colour, emission, metallic, roughness, normal, opacity
 # K4's tap tables in shared memory, in 4-byte words (csrc/bounce.cu
 # tap_smem_words): TAP_MI slot columns a material, SLOT_WORDS a texture
 # slot (SLOT_I ints, SLOT_F floats), then the SRGB_LUT-entry decode table
@@ -215,6 +221,9 @@ class FusedStatic:
     # `scatter` the depth-1 medium stack (FusedScene.volumes)
     volumes: bool = False
     scatter: bool = False
+    # some material binds an opacity texture: the split bounce re-traces
+    # the rays its cutout rejects (render/fused.py textured_cutout_retrace)
+    cutout_textured: bool = False
 
     @property
     def volume_mode(self) -> int:
@@ -444,24 +453,36 @@ def with_volumes(scene: FusedScene, static: FusedStatic, scatter: bool
 
 def build_fused_scene(geom: SceneGeometry, table: MaterialTable,
                       light_arrays: LightArrays | None, device: torch.device | str,
-                      resident_max: int = RESIDENT_MAX) -> tuple[FusedScene, FusedStatic]:
+                      resident_max: int = RESIDENT_MAX,
+                      shadow_pass: np.ndarray | None = None) -> tuple[FusedScene, FusedStatic]:
     """Kernel tables of a flattened scene: resident up to `resident_max`
     triangles, clustered above."""
     scene, static, _order = build_fused_scene_with_order(geom, table, light_arrays, device,
-                                                         resident_max)
+                                                         resident_max, shadow_pass=shadow_pass)
     return scene, static
+
+
+def _shadow_prob(pass_prob: np.ndarray, mid: np.ndarray,
+                 shadow_pass: np.ndarray | None) -> np.ndarray:
+    """Each triangle's shadow-walk pass probability: its material's entry
+    of `shadow_pass` (gi.shadow_cutout_pass: an opacity texture's UV-mean
+    pass rate), else the camera one (pallas_bounce.py :666-669)."""
+    if shadow_pass is None:
+        return pass_prob
+    return np.asarray(shadow_pass, np.float32)[np.clip(mid, 0, len(shadow_pass) - 1)]
 
 
 def build_fused_scene_with_order(
     geom: SceneGeometry, table: MaterialTable, light_arrays: LightArrays | None,
     device: torch.device | str, resident_max: int = RESIDENT_MAX,
-    reuse_order: np.ndarray | None = None,
+    reuse_order: np.ndarray | None = None, shadow_pass: np.ndarray | None = None,
 ) -> tuple[FusedScene, FusedStatic, np.ndarray | None]:
     """The JAX package's build_fused_scene_with_order: resident tables up
     to `resident_max` real triangles, else clustered tables in a median-
     split triangle order, which is returned so that a transform edit can
     refit the tables under the same order (`reuse_order`) instead of
-    re-sorting."""
+    re-sorting. `shadow_pass` [M] fills the shadow walk's pass-probability
+    column per material (gi.shadow_cutout_pass)."""
     n_real = real_triangles(geom)
     geom = SceneGeometry(*[arr[:n_real] for arr in geom])
     light_table, light_types = _light_table(light_arrays)
@@ -469,16 +490,18 @@ def build_fused_scene_with_order(
     advanced = advanced_from_table(table)
     mid = np.clip(np.asarray(geom.material_id), 0, table.packed_f.shape[0] - 1)
     pass_prob = _material_pass(table)[mid]
-    cutout = bool((pass_prob < 1.0).any())
+    shadow_prob = _shadow_prob(pass_prob, np.asarray(geom.material_id), shadow_pass)
+    cutout = bool((pass_prob < 1.0).any() or (shadow_prob < 1.0).any())
     if n_real <= resident_max:
-        rows = tri_rows(geom, tangents, pass_prob if cutout else None)
+        rows = tri_rows(geom, tangents, pass_prob if cutout else None,
+                        shadow_prob if cutout else None)
         scene = from_jax_tables(rows.T, table.packed_f, light_table, light_types, device,
                                 advanced=advanced, cutout=cutout)
         return scene, FusedStatic(n_tris=n_real, light_types=light_types, tangents=tangents,
                                   advanced=advanced, cutout=cutout), None
 
     order = reuse_order if reuse_order is not None else median_split_order(geom, n_real)
-    arrays = clustered_arrays(geom, table, order)
+    arrays = clustered_arrays(geom, table, order, shadow_pass)
     n_clusters = -(-n_real // CLUSTER_SIZE)
     scene = from_jax_tables(arrays.tris, table.packed_f, light_table, light_types, device,
                             l1=arrays.l1, l2=arrays.l2, advanced=advanced, cutout=cutout)
@@ -570,20 +593,22 @@ def _cluster_boxes(geom, n_clusters: int) -> tuple[np.ndarray, np.ndarray]:
             hi.reshape(n_clusters, CLUSTER_SIZE, 3).max(axis=1))
 
 
-def clustered_arrays(geom: SceneGeometry, table: MaterialTable,
-                     order: np.ndarray) -> ClusterArrays:
+def clustered_arrays(geom: SceneGeometry, table: MaterialTable, order: np.ndarray,
+                     shadow_pass: np.ndarray | None = None) -> ClusterArrays:
     """Flattened clustered tables of the real triangles of `geom`, in
     `order` (the clustered branch of build_fused_scene_with_order)."""
     n_real = len(order)
     mid = np.clip(np.asarray(geom.material_id), 0, table.packed_f.shape[0] - 1)
-    pass_prob = _material_pass(table)[mid].astype(np.float32)[order]
+    pass_all = _material_pass(table)[mid].astype(np.float32)
+    pass_prob = pass_all[order]
+    shadow_prob = _shadow_prob(pass_all, np.asarray(geom.material_id), shadow_pass)[order]
     geom = SceneGeometry(*[np.asarray(arr)[order] for arr in geom])
     n_clusters = -(-n_real // CLUSTER_SIZE)
     n_l1 = -(-n_clusters // L1_FAN)
     c_pad = n_l1 * L1_FAN
     rows = _cluster_rows(geom, c_pad, uses_tangents(table))
     rows[:n_real, CLU_OPAC] = pass_prob
-    rows[:n_real, CLU_OPAC_SH] = pass_prob
+    rows[:n_real, CLU_OPAC_SH] = shadow_prob
     tris = rows.reshape(c_pad, CLUSTER_SIZE, rows.shape[1]).transpose(0, 2, 1).copy()
 
     l2min, l2max = _cluster_boxes(geom, c_pad)
@@ -598,7 +623,8 @@ def clustered_arrays(geom: SceneGeometry, table: MaterialTable,
 
 def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
                      min_gain: float = MIN_GAIN, min_flat: int = MIN_FLAT,
-                     clusters: UniqueClusters | None = None):
+                     clusters: UniqueClusters | None = None,
+                     shadow_pass: np.ndarray | None = None):
     """Two-level instanced tables (pallas_bounce.py
     build_fused_scene_instanced, without the TPU-only bf16 transform
     operand): each unique mesh (by identity of its mesh object) keeps its
@@ -611,10 +637,13 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
     `clusters`, when given, holds the unique clusters across calls on the
     same meshes: it is filled by the first call, and later calls only
     rebuild the instance tables over it (a transform edit's refit).
+    `shadow_pass` [M]: the shadow walk's pass probability per material
+    (gi.shadow_cutout_pass), else the camera one.
 
     Returns (ClusterArrays, FusedStatic fields) or None when the scene
     does not take this route (the JAX package's rule, see MIN_GAIN)."""
     mat_pass = _material_pass(table)
+    mat_pass_sh = mat_pass if shadow_pass is None else np.asarray(shadow_pass, np.float32)
     tangents = uses_tangents(table)
     n_rows = CLU_TRI_ROWS_TAN if tangents else CLU_TRI_ROWS
     clusters = UniqueClusters() if clusters is None else clusters
@@ -645,6 +674,7 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
             transforms = np.asarray(md.transform)[None]
         mat_row = material_index.get(md.material, 0)
         mpass = float(mat_pass[min(mat_row, len(mat_pass) - 1)])
+        mpass_sh = float(mat_pass_sh[min(mat_row, len(mat_pass_sh) - 1)])
         for xf in np.asarray(transforms, np.float64):
             m3 = xf[:3, :3]
             if abs(np.linalg.det(m3)) < 1e-30:
@@ -652,7 +682,8 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
             a3 = np.linalg.inv(m3)
             insts.append({"key": key, "m3": m3, "m_t": xf[3, :3], "a3": a3,
                           "a_t": -xf[3, :3] @ a3, "mat": mat_row, "obj": md.object_id,
-                          "ds": 1.0 if md.double_sided else 0.0, "pass": mpass})
+                          "ds": 1.0 if md.double_sided else 0.0, "pass": mpass,
+                          "pass_sh": mpass_sh})
         flat_tris += uniq[key]["n"] * len(transforms)
 
     unique_tris = sum(i["n"] for i in uniq.values())
@@ -716,7 +747,7 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
         inst_smem[e, 9:12] = inst["a_t"]
         inst_smem[e, 12] = inst["pass"]
         inst_smem[e, 13] = float(nc)
-        inst_smem[e, 14] = inst["pass"]
+        inst_smem[e, 14] = inst["pass_sh"]
         inst_attr[e, 0:9] = a3
         inst_attr[e, 9:12] = inst["a_t"]
         inst_attr[e, 12] = float(inst["mat"])
@@ -733,10 +764,12 @@ def instanced_arrays(mesh_descs, material_index: dict, table: MaterialTable,
 def build_fused_scene_instanced(mesh_descs, material_index: dict, table: MaterialTable,
                                 light_arrays: LightArrays | None, device,
                                 min_gain: float = MIN_GAIN, min_flat: int = MIN_FLAT,
-                                clusters: UniqueClusters | None = None):
+                                clusters: UniqueClusters | None = None,
+                                shadow_pass: np.ndarray | None = None):
     """Instanced kernel tables (see instanced_arrays), or None when the
     scene takes the flattened route."""
-    res = instanced_arrays(mesh_descs, material_index, table, min_gain, min_flat, clusters)
+    res = instanced_arrays(mesh_descs, material_index, table, min_gain, min_flat, clusters,
+                           shadow_pass)
     if res is None:
         return None
     arrays, counts = res
@@ -749,12 +782,14 @@ def build_fused_scene_instanced(mesh_descs, material_index: dict, table: Materia
 
 
 def refit_instanced(scene: FusedScene, clusters: UniqueClusters, mesh_descs,
-                    material_index: dict, table: MaterialTable) -> FusedScene | None:
+                    material_index: dict, table: MaterialTable,
+                    shadow_pass: np.ndarray | None = None) -> FusedScene | None:
     """Transform-only refresh of instanced tables built with `clusters`:
     the instance tables and the TLAS are rebuilt over the cached unique
     clusters, and the device cluster table is kept. None when the edit
     took the scene off the instanced route."""
-    res = instanced_arrays(mesh_descs, material_index, table, clusters=clusters)
+    res = instanced_arrays(mesh_descs, material_index, table, clusters=clusters,
+                           shadow_pass=shadow_pass)
     if res is None:
         return None
     a, counts = res
@@ -1153,8 +1188,9 @@ def _walk_entry(base: str, nee: bool, volumes: int) -> str:
 
 _kernel: BounceKernel | None = None
 # kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
-# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+# them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade,
+# K4t K4's taps alone (tap_rows)
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4t": 0}
 
 
 def kernel() -> BounceKernel:
@@ -1300,7 +1336,9 @@ def cutout_draws(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 def tap_rows_ref(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
                  textured_params) -> torch.Tensor:
     """tap_rows' twin, on the device of its tensors: the texture stage
-    (ops/split_ref.py material_rows) over the raw material table's rows."""
+    (ops/split_ref.py material_rows) over the raw material table's rows,
+    and the opacity through the same taps (render/material.py
+    apply_textures) when "opacity" is among `textured_params`."""
     active = tuple(name for name in PAR_ORDER if name in textured_params)
     parbuf, hit_n = material_rows(materials, textures, hitbuf, active)
     mat = torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
@@ -1311,17 +1349,23 @@ def tap_rows_ref(hitbuf: torch.Tensor, materials: MaterialTable, textures: Textu
     for name, dst in (("base_color", 0), ("emissive", 3), ("metallic", 6), ("roughness", 7)):
         if name in layout:
             rows[dst:dst + PR_WIDTHS[name]] = parbuf[layout[name]:layout[name] + PR_WIDTHS[name]]
-    return torch.cat([rows, hit_n[H_N:H_N + 3]])
+    params = gather_params(materials, mat)
+    if "opacity" in textured_params:
+        uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
+        params = apply_textures(materials, textures, params, mat, uv, ("opacity",))
+    return torch.cat([rows, hit_n[H_N:H_N + 3], params.opacity[None]])
 
 
 def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
              textured_params) -> torch.Tensor:
-    """K4's taps alone, a check of them on no render path (no launch
-    count): [11, R] of the base colour, emission, metallic, roughness and
-    shading normal each hit ray of K3's hit buffer shades with, from the
-    raw material table `materials` and the texture pool: K4's device code
-    on CUDA tensors, tap_rows_ref on CPU ones. Rows of missed rays are
-    unspecified."""
+    """K4's taps alone: [TAP_ROWS, R] of the base colour, emission,
+    metallic, roughness, shading normal and opacity each hit ray of K3's
+    hit buffer shades with, from the raw material table `materials` and
+    the texture pool, for the textured parameters `textured_params` (the
+    opacity tapped when it is among them): K4's device code (tap_kernel)
+    on CUDA tensors, tap_rows_ref on CPU ones. The fused sample loop's
+    first-hit AOVs and textured-cutout draws read them. Rows of missed
+    rays are unspecified."""
     if not hitbuf.is_cuda:
         return tap_rows_ref(hitbuf, materials, textures, textured_params)
     k, mats = kernel(), materials.packed_f
@@ -1329,13 +1373,15 @@ def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePo
     _check_bounce("hit", hitbuf, torch.float32)
     if hitbuf.dim() != 2 or hitbuf.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN):
         raise ValueError("tap_rows: hit buffer must be [16 or 24, R]")
-    out = torch.empty((11, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
+    out = torch.empty((TAP_ROWS, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
     textured = sum(bit for name, bit in TAP_BITS.items() if name in textured_params)
+    textured |= TAP_OPACITY if "opacity" in textured_params else 0
     taps = k._tap_args(mats, materials.packed_i, textures,
                        tap_mask(textured, hitbuf.shape[0], textures))
     k.call("gatling_tap_rows", mats.data_ptr(), mats.shape[0], hitbuf.data_ptr(),
            int(hitbuf.shape[0] == HIT_ROWS_TAN), hitbuf.shape[1], *taps, out.data_ptr(),
            k.stream(hitbuf))
+    launches["K4t"] += 1
     return out
 
 

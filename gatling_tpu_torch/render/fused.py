@@ -25,6 +25,19 @@ pixels go in 32x32 tiles, and the rays are sorted after every bounce by
 direction octant and origin Morton cell (dead rays last), which puts rays
 that walk the same boxes side by side in a warp. Neither changes a ray's
 result: the RNG state rides in the ray's own row.
+
+Camera clipping planes and the first-hit AOVs (NORMAL, ALBEDO, DEPTH,
+TEXCOORDS) peel bounce 0 off the loop, as the JAX package does
+(gatling_tpu/render/fused.py:446-527): the origin advances to the near plane, K3
+traces, hits beyond the far plane become misses, the AOVs are read from
+the hit buffer and from K4's taps alone (ops/bounce.py tap_rows: the
+tapped base colour, metallic, roughness and normal-mapped normal), and K4
+shades; the loop goes on at bounce 1. A first-hit frame traces one sample
+a wave. A scene with an opacity texture re-traces the rays its textured
+cutout rejects, up to TEX_CUTOUT_ROUNDS - 1 times a split bounce
+(gatling_tpu/render/fused.py:299-359): each round draws against the opacity that
+tap_rows taps at the hit and moves a rejected ray's origin past the
+surface; K3 traces the rejected rays alone.
 """
 
 from __future__ import annotations
@@ -32,35 +45,47 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gatling_tpu_torch.interface import AovId, aov_bit
+from gatling_tpu_torch.interface import AovId, aov_bit, f32
 from gatling_tpu_torch.ops import sampling as smp
 from gatling_tpu_torch.ops.bounce import (
+    VOL_ABSORB,
+    VOL_SCATTER,
     FusedScene,
     bounce_step,
     make_params,
     pack_state,
     shade_step,
+    tap_rows,
     trace_step,
     unpack_radiance,
     unpack_rows,
 )
+from gatling_tpu_torch.ops.split_ref import H_GN, H_HIT, H_MAT, H_POS, H_T, H_UVX, H_UVY
+from gatling_tpu_torch.render import bsdf
 from gatling_tpu_torch.render.camera import generate_primary_rays
 from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
-from gatling_tpu_torch.render.material import MaterialTable
+from gatling_tpu_torch.render.material import MI_OPACITY_TEX, MaterialTable, gather_params
 from gatling_tpu_torch.render.texture import TexturePool
 
 # samples of one pixel traced together in one ray wave, up to this many rays
 SPP_BATCH_RAYS = 4194304
-# the AOVs the JAX package's fused kernels write (render/fused.py:116-118);
-# a request of others renders through the wavefront integrator. The port's
-# fused path writes COLOR only so far (ROADMAP item 5b).
+# the AOVs the fused path writes (gatling_tpu/render/fused.py:116-118): COLOR and the
+# first-hit AOVs of the bounce-0 peel; a request of others renders through
+# the wavefront integrator
 FUSED_AOV_MASK = (aov_bit(AovId.COLOR) | aov_bit(AovId.NORMAL) | aov_bit(AovId.ALBEDO)
                   | aov_bit(AovId.DEPTH) | aov_bit(AovId.TEXCOORDS))
+# textured-cutout surfaces a split bounce passes through before it takes
+# the hit (gatling_tpu/render/fused.py:299): TEX_CUTOUT_ROUNDS - 1 re-traces
+TEX_CUTOUT_ROUNDS = 4
+# the tap_rows rows the peel and the re-trace read
+_TAP_BASE, _TAP_EM, _TAP_METAL, _TAP_ROUGH, _TAP_N, _TAP_OPACITY = 0, 3, 6, 7, 8, 11
 
 
-def spp_batch_size(r: int, spp: int) -> int:
-    """Largest divisor of spp whose wave stays within SPP_BATCH_RAYS rays."""
-    if spp <= 1 or r < 128:
+def spp_batch_size(r: int, spp: int, want_first_hit: bool = False) -> int:
+    """Largest divisor of spp whose wave stays within SPP_BATCH_RAYS rays;
+    1 for a first-hit frame, whose peel traces one sample a wave
+    (gatling_tpu/render/fused.py:391)."""
+    if spp <= 1 or r < 128 or want_first_hit:
         return 1
     cap = max(1, SPP_BATCH_RAYS // r)
     return max(d for d in range(1, min(spp, cap) + 1) if spp % d == 0)
@@ -95,29 +120,135 @@ def coherence_keys(state: torch.Tensor, scene_lo: torch.Tensor,
     return torch.where(state[13] > 0.5, (octant << 15) | morton, 0xFFFFFFFF)
 
 
+def retrace_draws(salt: torch.Tensor, rnd: int) -> torch.Tensor:
+    """The textured-cutout re-trace's uniform draw of round `rnd`
+    (gatling_tpu/render/fused.py:342-346): a hash of each ray's PCG word `salt` (uint32
+    values in int64 carriers), salted by the round, in [0, 1)."""
+    h = salt ^ ((0x9E3779B9 + 0x85EB * rnd) & 0xFFFFFFFF)
+    h = ((h ^ (h >> 16)) * 0x21F0AAAD) & 0xFFFFFFFF
+    h = ((h ^ (h >> 15)) * 0x735A2D97) & 0xFFFFFFFF
+    return ((h ^ (h >> 15)) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def _tapped_params(materials: MaterialTable, mat: torch.Tensor, taps: torch.Tensor):
+    """BsdfParams of each ray's material row with the tapped rows of
+    tap_rows laid over: base colour, emission, metallic, roughness and
+    opacity (the raw table's where no slot is bound, as apply_textures)."""
+    p = gather_params(materials, mat)
+    return p._replace(base_color=taps[_TAP_BASE:_TAP_BASE + 3].T,
+                      emissive=taps[_TAP_EM:_TAP_EM + 3].T, metallic=taps[_TAP_METAL],
+                      roughness=taps[_TAP_ROUGH], opacity=taps[_TAP_OPACITY])
+
+
+def _hit_materials(hitbuf: torch.Tensor, materials: MaterialTable) -> torch.Tensor:
+    return torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
+
+
+def textured_cutout_retrace(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,
+                            hitbuf: torch.Tensor, materials: MaterialTable,
+                            textures: TexturePool, textured_params) -> torch.Tensor:
+    """The stochastic textured-opacity cutout of a split bounce
+    (gatling_tpu/render/fused.py:302-359): TEX_CUTOUT_ROUNDS - 1 rounds, each drawing
+    against the opacity tapped at every alive ray's hit (tap_rows) where
+    the material binds an opacity texture, moving a rejected ray's origin
+    just past the surface (state rows 0-2, in place) and re-tracing the
+    rejected rays alone (K3 with the others' alive row masked). Returns
+    the merged hit buffer. The in-walk untextured cutout is separate:
+    opacity-textured materials pass there with probability 1."""
+    salt = smp.f32_bits_to_u32(state[12])
+    has_slot = materials.packed_i[:, MI_OPACITY_TEX] >= 0
+    for rnd in range(TEX_CUTOUT_ROUNDS - 1):
+        mat = _hit_materials(hitbuf, materials)
+        taps = tap_rows(hitbuf, materials, textures, textured_params)
+        pass_prob = bsdf.cutout_opacity(_tapped_params(materials, mat, taps))
+        reject = ((state[13] > 0.5) & (hitbuf[H_HIT] > 0.5) & has_slot[mat]
+                  & (retrace_draws(salt, rnd) >= pass_prob))
+        past = smp.offset_ray_origin(hitbuf[H_POS:H_POS + 3].T, -hitbuf[H_GN:H_GN + 3].T)
+        state[0:3] = torch.where(reject, past.T, state[0:3])
+        masked = state.clone()
+        masked[13] = torch.where(reject, state[13], 0.0)
+        hitbuf = torch.where(reject, trace_step(params, scene, masked), hitbuf)
+    return hitbuf
+
+
+class FirstHit:
+    """The first-hit AOV sums of a frame (gatling_tpu/render/fused.py:497-523): NORMAL
+    and ALBEDO summed over the samples' hits / spp, DEPTH and TEXCOORDS the
+    last hit sample's, `hit` where any sample hit."""
+
+    def __init__(self, r: int, device) -> None:
+        self.normal = torch.zeros((r, 3), dtype=torch.float32, device=device)
+        self.albedo = torch.zeros_like(self.normal)
+        self.texcoords = torch.zeros_like(self.normal)
+        self.depth = torch.ones((r,), dtype=torch.float32, device=device)
+        self.hit = torch.zeros((r,), dtype=torch.bool, device=device)
+
+    def add(self, hitbuf: torch.Tensor, taps: torch.Tensor, materials: MaterialTable,
+            dirs: torch.Tensor, camera, spp: int) -> None:
+        """One sample's peel: hitbuf after the far-plane filter and the
+        re-trace (its H_N rows the geometric shading normal; the taps'
+        normal rows normal-mapped), the taps of those hits, the primary
+        directions [r, 3]."""
+        r = dirs.shape[0]
+        hit = hitbuf[H_HIT, :r] > 0.5
+        normal = taps[_TAP_N:_TAP_N + 3, :r].T
+        p = _tapped_params(materials, _hit_materials(hitbuf[:, :r], materials), taps[:, :r])
+        albedo = bsdf.auxiliary(p, -dirs, normal)
+        t_hit = hitbuf[H_T, :r]
+        cs, ce = f32(camera.clip_start), f32(camera.clip_end)
+        if cs > 0.0:
+            # the log depth between the clipping planes
+            span = np.log(np.float32(max(f32(ce / cs), f32(1.0 + 1e-6))))
+            depth = 2.0 * torch.log(torch.clamp(t_hit, min=1e-20) / float(cs)) / float(span) - 1.0
+        else:
+            depth = t_hit
+        uv = torch.stack([hitbuf[H_UVX, :r], hitbuf[H_UVY, :r], torch.zeros_like(t_hit)], -1)
+        self.normal = self.normal + torch.where(hit[:, None], normal, 0.0) / spp
+        self.albedo = self.albedo + torch.where(hit[:, None], albedo, 0.0) / spp
+        self.depth = torch.where(hit, depth, self.depth)
+        self.texcoords = torch.where(hit[:, None], uv, self.texcoords)
+        self.hit = self.hit | hit
+
+    def unswizzle(self, tile_perm: torch.Tensor) -> None:
+        """Undo the 32x32 tile order: row i holds pixel tile_perm[i]."""
+        for key in ("normal", "albedo", "texcoords", "depth", "hit"):
+            v = getattr(self, key)
+            setattr(self, key, torch.zeros_like(v).index_copy_(0, tile_perm, v))
+
+    def as_dict(self) -> dict[str, torch.Tensor]:
+        return dict(normal=self.normal, albedo=self.albedo, depth=self.depth,
+                    texcoords=self.texcoords, hit=self.hit)
+
+
 def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedScene,
                         pixel_index: torch.Tensor, spp: int, sample_offset: int,
                         with_stats: bool = False, materials: MaterialTable | None = None,
                         textures: TexturePool | None = None,
-                        textured_params: tuple[str, ...] = ()):
+                        textured_params: tuple[str, ...] = (), want_first_hit: bool = False,
+                        split: bool | None = None, cutout_textured: bool = False):
     """Mean color [R,3] over spp samples of the pixels `pixel_index`; with
     with_stats also the mean traced-segment count per sample [R] (path
-    segments + NEE shadow rays: the Mray/s accounting source). With
-    `textures` (and the raw device `materials` and the textured parameter
-    names) the bounces split into trace and shade."""
+    segments + NEE shadow rays: the Mray/s accounting source); with
+    want_first_hit (color, segments, the first-hit AOVs as a dict: normal,
+    albedo, depth, texcoords, hit). `materials` (the raw device table) and
+    `textures` serve the split bounce, the peel and the re-trace: with
+    `split` (by default, whether `textures` is given) every bounce splits
+    into trace and shade, tapping the parameters `textured_params`;
+    `cutout_textured` re-traces the rays an opacity texture rejects."""
     if config.has_dome:
         raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
-    if config.clipping_planes:
-        raise NotImplementedError(
-            "camera clipping planes are not ported yet "
-            "(ROADMAP: 'First-hit AOVs, clipping and textured cutout')")
+    split = textures is not None if split is None else split
+    peel = want_first_hit or config.clipping_planes
+    if (peel or cutout_textured or split) and (materials is None or textures is None):
+        raise ValueError("render_pixels_fused: the split bounce, the bounce-0 peel and the "
+                         "textured-cutout re-trace take the material table and the texture pool")
     device = pixel_index.device
     r = pixel_index.shape[0]
     pixel_index = pixel_index.to(torch.int64)
     # several samples per pixel in one wave: the sample index of replica k
     # in step s is offset + s * batch + k, the same stream as one sample
     # per step
-    spp_batch = spp_batch_size(r, spp)
+    spp_batch = spp_batch_size(r, spp, want_first_hit)
     rb = r * spp_batch
     sort_rays = scene.walk is not None
     tile_perm = None
@@ -136,7 +267,20 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     replica = torch.arange(spp_batch, device=device).repeat_interleave(r)
     params = make_params(config, uniforms, max(config.max_bounces, 1), device)
     nee = bool(config.nee)
-    lod_k = config.tex_lod_bounces if textures is not None else 0
+    # textureLodBounces gives way to the textured cutout (gatling_tpu/render/fused.py:640-642)
+    lod_k = config.tex_lod_bounces if split and not cutout_textured else 0
+    # the peel shades the depth-1 medium stack's rays as the JAX shade_step
+    # does: in the absorption mode (its shade kernel has no scatter branch)
+    peel_scene = scene._replace(volumes=VOL_ABSORB) if scene.volumes == VOL_SCATTER else scene
+    cam = uniforms.camera
+    first = FirstHit(r, device) if want_first_hit else None
+
+    def split_bounce(p, fs, st):
+        hitbuf = trace_step(p, fs, st)
+        if cutout_textured:
+            hitbuf = textured_cutout_retrace(p, fs, st, hitbuf, materials, textures,
+                                             textured_params)
+        shade_step(p, fs, st, hitbuf, materials, textures, textured_params, nee)
 
     acc = torch.zeros((r, 3), dtype=torch.float32, device=device)
     segs = torch.zeros((r,), dtype=torch.float32, device=device)
@@ -144,17 +288,38 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
         sidx = sample_offset + s * spp_batch + replica
         rng = smp.rng_init(pixel_index, sidx)
         origins, dirs, rng = generate_primary_rays(
-            uniforms.camera, config.width, config.height, px, py, rng,
+            cam, config.width, config.height, px, py, rng,
             config.jittered, config.fis, config.depth_of_field)
+        if config.clipping_planes:
+            # camera clipping (rp_main.rgen:283-285): the origin on the near
+            # plane; the far plane's distance along the ray for the peel
+            cosc = torch.clamp((dirs * cam.forward).sum(dim=-1), min=1e-5)
+            c_lo = torch.tensor(f32(cam.clip_start), device=device) / cosc
+            clip_rem = torch.tensor(f32(cam.clip_end), device=device) / cosc - c_lo
+            origins = origins + dirs * c_lo[:, None]
         state = pack_state(origins, dirs, rng, rb)
         orig = None
-        for bounce in range(config.max_bounces):
+        start = 0
+        if peel:
+            # bounce 0 through the split kernels: the hit buffer carries the
+            # far-plane filter and the first-hit AOVs (chit:191-290)
+            hitbuf = trace_step(params[0], peel_scene, state)
+            if config.clipping_planes:
+                hitbuf[H_HIT] = torch.where(hitbuf[H_T] <= clip_rem, hitbuf[H_HIT], 0.0)
+            if cutout_textured:
+                hitbuf = textured_cutout_retrace(params[0], peel_scene, state, hitbuf,
+                                                 materials, textures, textured_params)
+            if first is not None:
+                taps = tap_rows(hitbuf, materials, textures, textured_params)
+                first.add(hitbuf, taps, materials, dirs, cam, spp)
+            shade_step(params[0], peel_scene, state, hitbuf, materials, textures,
+                       textured_params, nee)
+            start = 1
+        for bounce in range(start, config.max_bounces):
             if not bool((state[13] > 0.5).any()):
                 break
-            if textures is not None and (lod_k <= 0 or bounce < lod_k):
-                hitbuf = trace_step(params[bounce], scene, state)
-                shade_step(params[bounce], scene, state, hitbuf, materials, textures,
-                           textured_params, nee)
+            if split and (lod_k <= 0 or bounce < lod_k):
+                split_bounce(params[bounce], scene, state)
             else:
                 bounce_step(params[bounce], scene, state, nee)
             if sort_rays:
@@ -180,6 +345,10 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
         # row i holds pixel tile_perm[i]
         acc = torch.zeros_like(acc).index_copy_(0, tile_perm, acc)
         segs = torch.zeros_like(segs).index_copy_(0, tile_perm, segs)
+        if first is not None:
+            first.unswizzle(tile_perm)
+    if first is not None:
+        return acc, segs, first.as_dict()
     if with_stats:
         return acc, segs
     return acc

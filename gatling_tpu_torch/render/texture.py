@@ -137,6 +137,13 @@ class TextureManager:
         self._image_cache[key] = rgba.astype(np.float32)
         return self._image_cache[key]
 
+    def pass_rate(self, ref: TextureRef, threshold: float) -> float:
+        """The UV-mean cutout pass rate of opacity texture `ref`: the share
+        of its channel's texels at or above `threshold`, or the channel's
+        mean without one (threshold 0); decoded once, as build_pool does."""
+        vals = self._load(ref)[..., {"r": 0, "g": 1, "b": 2, "a": 3}.get(ref.channel, 0)]
+        return float((vals >= threshold).mean() if threshold > 0.0 else vals.mean())
+
     def build_pool(self, refs: list[TextureRef], device="cpu") -> TexturePool:
         """Pack the given textures into a device pool; slot i holds refs[i]."""
         if not refs:

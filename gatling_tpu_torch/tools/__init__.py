@@ -22,7 +22,7 @@ def kernel() -> CudaLibrary:
     global _kernel
     if _kernel is None:
         _kernel = CudaLibrary("probes.cu", {
-            "gatling_cast_probe": [PTR, PTR, I32, I32, PTR],
+            "gatling_cast_probe": [PTR, *[PTR] * 6, *[I32] * 6, PTR],
             "gatling_onehot_product": [PTR, PTR, PTR, I32, PTR]},
             "gatling_probe_error_string")
     return _kernel

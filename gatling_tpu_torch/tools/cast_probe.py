@@ -1,14 +1,15 @@
 """P1: the layout-move probe (tools/mosaic_cast_probe.py on the TPU).
 
 The JAX probe asks which of six layout moves of an (8, 128) f32 tile
-Mosaic legalizes inside a Pallas kernel. Here each move runs inside one
-CUDA block through shared memory (csrc/probes.cu `cast_probe_kernel`): the
-tile is staged row-major, and output element k reads the shared word its
-index map names. Every move is legal in a hand-written kernel; the probe
-checks each result bit for bit against its torch twin (`reshape`, `stack`,
-`cat`, `t()`) and reports the bank-conflict degree of its shared reads,
-counted from the index map: the most distinct words one warp's 32 reads
-take from one of the 32 four-byte banks (1: conflict-free).
+Mosaic legalizes inside a Pallas kernel. Here one launch runs the six
+moves, a CUDA block each (csrc/probes.cu `cast_probe_kernel`): a block
+stages the tile in shared memory with its rows STRIDE words apart, and
+output element k reads the shared word its index map names. Every move is
+legal in a hand-written kernel; the probe checks each result bit for bit
+against its torch twin (`reshape`, `stack`, `cat`, `t()`) and reports the
+bank-conflict degree of its shared reads, counted from the index map: the
+most distinct words one warp's 32 reads take from one of the 32
+four-byte banks (1: conflict-free; the padded rows make every move 1).
 
     python -m gatling_tpu_torch.tools.cast_probe            # on the card
     python -m gatling_tpu_torch.tools.cast_probe --device cpu  # the twins
@@ -24,6 +25,7 @@ import torch
 from gatling_tpu_torch import tools
 
 ROWS, COLS = 8, 128
+STRIDE = COLS + 4  # the staged tile's row pitch in words (csrc/probes.cu CAST_STRIDE)
 BANKS = 32
 # (name as the JAX probe prints it, output shape)
 MOVES = (
@@ -59,11 +61,13 @@ def source_index(move: int, k: np.ndarray) -> np.ndarray:
     return k
 
 
-def bank_conflicts(move: int) -> int:
+def bank_conflicts(move: int, stride: int = STRIDE) -> int:
     """Worst bank-conflict degree of the move's shared reads over its warps
-    (32 consecutive output elements a warp, as the kernel assigns them)."""
+    (32 consecutive output elements a warp, as the kernel assigns them),
+    with the staged rows `stride` words apart."""
     n = int(np.prod(MOVES[move][1]))
     src = source_index(move, np.arange(n))
+    src = (src // COLS) * stride + src % COLS
     worst = 1
     for w in range(0, n, 32):
         words = np.unique(src[w:w + 32])
@@ -71,19 +75,19 @@ def bank_conflicts(move: int) -> int:
     return worst
 
 
-def cast_move(x: torch.Tensor, move: int) -> torch.Tensor:
-    """Move `move` of x [8, 128] f32: the kernel on a CUDA tensor, the twin
-    on a CPU one."""
+def cast_moves(x: torch.Tensor) -> list[torch.Tensor]:
+    """The six moves of x [8, 128] f32: the kernel, one launch, on a CUDA
+    tensor; the twins on a CPU one."""
     if not x.is_cuda:
-        return cast_twin(x, move)
+        return [cast_twin(x, move) for move in range(len(MOVES))]
     if x.shape != (ROWS, COLS) or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("cast probe: x must be a contiguous [8, 128] f32 tensor")
-    out = torch.empty(MOVES[move][1], dtype=torch.float32, device=x.device)
+    outs = [torch.empty(shape, dtype=torch.float32, device=x.device) for _n, shape in MOVES]
     lib = tools.kernel()
-    lib.call("gatling_cast_probe", x.data_ptr(), out.data_ptr(), move, out.numel(),
-             lib.stream(x))
+    lib.call("gatling_cast_probe", x.data_ptr(), *(o.data_ptr() for o in outs),
+             *(o.numel() for o in outs), lib.stream(x))
     tools.launches["P1"] += 1
-    return out
+    return outs
 
 
 def probe_input(device) -> torch.Tensor:
@@ -98,17 +102,19 @@ def run(device) -> dict[str, tuple[bool, int]]:
     probe does, with the move's bank-conflict degree. Returns {name: (ok,
     degree)}."""
     x = probe_input(device)
+    try:
+        moved, err = cast_moves(x), None
+    except RuntimeError as e:
+        moved, err = None, "FAIL " + str(e).split("\n")[0][:100]
     out = {}
     for move, (name, _shape) in enumerate(MOVES):
         degree = bank_conflicts(move)
-        try:
-            got = cast_move(x, move)
-            ref = cast_twin(x, move)
+        ok, msg = False, err
+        if moved is not None:
+            got, ref = moved[move], cast_twin(x, move)
             ok = got.shape == ref.shape and torch.equal(got.view(torch.int32),
                                                         ref.view(torch.int32))
             msg = "OK" if ok else "FAIL not bit-equal to the torch twin"
-        except RuntimeError as e:
-            ok, msg = False, "FAIL " + str(e).split("\n")[0][:100]
         print(f"{name}: {msg} (shared-memory bank conflicts: {degree}-way)")
         out[name] = (ok, degree)
     return out

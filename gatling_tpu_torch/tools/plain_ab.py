@@ -29,8 +29,10 @@ picks some; all by default):
   (bounces 0 and 2); K7 and K8 also on chip_smoke.py streamed_wave's
   (8192 triangles of interior(detail=2): a camera wave, its shadow rays);
 * probes: P2 in each mode and torch.matmul (TF32 allowed and not) on the probe's
-  input: the device time a launch, one call with its host enqueue, and the
-  enqueue alone (chip_smoke.py launch_times);
+  input, and P1's six moves (one launch, or a launch a move where the
+  checkout's cast_probe has no cast_moves): the device time a call, one
+  call with its host enqueue, and the enqueue alone (chip_smoke.py
+  launch_times);
 * walk: K2 on sphere_field's wave (512x512 x 4 samples, instanced and
   flattened, NEE off and on) at bounce 0 and at bounce 2 (the twin steps
   the wave; then in the coherence order render_pixels_fused gives it),
@@ -202,13 +204,21 @@ def time_tree(tree: str, groups=GROUPS) -> None:
     calls = {f"P2 {name}": (lambda m=mode: pp.onehot_product(oh, x, m))
              for name, mode in pp.MODES}
     calls["torch.matmul"] = lambda: torch.matmul(oh, x)
+    from gatling_tpu_torch.tools import cast_probe as cp
+
+    tile = cp.probe_input(device)
+    if hasattr(cp, "cast_moves"):  # one launch, a block a move
+        calls["P1 six moves"] = lambda: cp.cast_moves(tile)
+    else:  # a launch a move
+        calls["P1 six moves"] = lambda: [cp.cast_move(tile, m) for m in range(len(cp.MOVES))]
     if "probes" not in groups:
         calls = {}
     for label, fn in calls.items():
         for allow in ((True, False) if label == "torch.matmul" else (False,)):
             torch.backends.cuda.matmul.allow_tf32 = allow
             name = label + (f" allow_tf32={allow}" if label == "torch.matmul" else "")
-            t = cs.launch_times(fn)
+            # the parent's P1 makes six launches a call: 100 calls stay in the queue
+            t = cs.launch_times(fn, 100 if label.startswith("P1") else 200)
             out[f"{name} device a launch"] = t["ms"]
             out[f"{name} one call with its enqueue"] = t["ms_one_call_with_enqueue"]
             out[f"{name} enqueue alone"] = t["enqueue_us"] / 1e3

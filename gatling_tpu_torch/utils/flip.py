@@ -1,8 +1,8 @@
 """LDR-FLIP perceptual image difference (Andersson et al. 2020,
-"FLIP: A Difference Evaluator for Alternating Images", HPG), and the
-graphical harness's comparison of a render with its committed reference
-(`encode_srgb_u8`, `golden_errors`; the JAX package's gatling_tpu/flip.py
-and testing.py, of which the port keeps its own copy).
+"FLIP: A Difference Evaluator for Alternating Images", HPG), and the sRGB
+encode of COLOR (`srgb_encode`) that the graphical harness
+(gatling_tpu_torch/testing.py) diffs; the port's own copy of the JAX
+package's gatling_tpu/flip.py.
 
 The harness gates on exact error-component counts and on the mean FLIP
 score per product. Pure NumPy, from the published algorithm:
@@ -209,22 +209,10 @@ def mean_flip(reference: np.ndarray, test: np.ndarray,
     return float(flip(reference, test, pixels_per_degree).mean())
 
 
-def encode_srgb_u8(color: np.ndarray) -> np.ndarray:
-    """A COLOR render buffer [H, W, >=3] (rows bottom-up, as gi writes it)
-    -> the RGBA8 image the harness diffs (main.cpp:332-376): flipped to
-    image row order, clipped, sRGB-encoded."""
-    rgb = np.clip(color[::-1, :, :3].astype(np.float64), 0.0, 1.0)
-    rgb = np.where(rgb <= 0.0031308, rgb * 12.92,
-                   1.055 * np.power(np.maximum(rgb, 1e-9), 1 / 2.4) - 0.055)
-    out = np.full(rgb.shape[:2] + (4,), 255, np.uint8)
-    out[:, :, :3] = (rgb * 255.0 + 0.5).astype(np.uint8)
-    return out
+def srgb_encode(rgb: np.ndarray) -> np.ndarray:
+    """Linear values, clipped to [0, 1], through the sRGB transfer curve
+    (float64), as the harness encodes COLOR (main.cpp:332-376)."""
+    rgb = np.clip(rgb.astype(np.float64), 0.0, 1.0)
+    return np.where(rgb <= 0.0031308, rgb * 12.92,
+                    1.055 * np.power(np.maximum(rgb, 1e-9), 1 / 2.4) - 0.055)
 
-
-def golden_errors(color: np.ndarray, reference: np.ndarray) -> tuple[int, float]:
-    """(error components, mean FLIP) of a COLOR render buffer against a
-    reference RGBA8 image, as the graphical harness counts them: every
-    byte that differs, and FLIP over RGB."""
-    img = encode_srgb_u8(color)
-    errors = int((np.abs(reference.astype(int) - img.astype(int)) > 0).sum())
-    return errors, mean_flip(reference[..., :3], img[..., :3])

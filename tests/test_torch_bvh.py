@@ -56,6 +56,19 @@ TMIN = 1e-4
 FMAX = float(np.finfo(np.float32).max)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One PyTorch thread a test. The walks' twins run thousands of small
+    ops, and where test workers share the host each op's thread pool
+    contends with theirs: test_resident_walk_interior took 785 s beside
+    five other workers on the default pool, 10 s alone (9 s alone on one
+    thread)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geometry(desc) -> SceneGeometry:
     paths = sorted({m.material for m in desc.meshes if m.material})
     midx = {p: i for i, p in enumerate(paths)}

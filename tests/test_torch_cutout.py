@@ -27,7 +27,14 @@ shadow rays' hits one at a time. Held against the JAX package:
    AOVs equal on 99 % of pixels (the same PCG streams; an edge ray can
    go another way);
 6. gi: opacity below 1 sets the static's cutout flag; textured opacity
-   raises on the fused route and renders on the wavefront.
+   renders on the fused route (the re-trace) and on the wavefront;
+7. the textured cutout of the fused route (render/fused.py
+   textured_cutout_retrace): the re-trace's draw hash bit for bit against
+   the JAX expression; tests/test_cutout.py's checker-masked screen through
+   both fused paths, NEE off and on (the shadow walk's UV-mean pass rate);
+   the per-material shadow pass (gi.shadow_cutout_pass) equal to the JAX
+   `_shadow_cutout_pass`, and the tables it fills bit-equal to the JAX
+   builders'.
 """
 
 import functools
@@ -39,8 +46,13 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+import dataclasses
+from types import SimpleNamespace
+
 import gatling_tpu.ops.geometry as jgeom
 import gatling_tpu.ops.pallas_bounce as jpb
+import gatling_tpu.render.texture as jtex
+from gatling_tpu.gi import _shadow_cutout_pass as jshadow_cutout_pass
 from gatling_tpu.render.fused import render_pixels_fused as jrender
 from gatling_tpu.render.integrator import Accel as JAccel
 from gatling_tpu.render.integrator import RenderConfig as JConfig
@@ -49,11 +61,12 @@ from gatling_tpu.render.integrator import render_frame as jrender_frame
 from gatling_tpu.render.lights import build_light_arrays as jlight_arrays
 
 import gatling_tpu_torch.ops.geometry as tgeom
-from gatling_tpu_torch import gi
+import gatling_tpu_torch.render.texture as ttex
+from gatling_tpu_torch import gi, imgio
 from gatling_tpu_torch.interface import AovId, aov_bit
 from gatling_tpu_torch.ops import bounce as tb
 from gatling_tpu_torch.ops import bounce_ref as br
-from gatling_tpu_torch.render.fused import render_pixels_fused
+from gatling_tpu_torch.render.fused import render_pixels_fused, retrace_draws
 from gatling_tpu_torch.render.integrator import Accel, RenderConfig, render_frame
 from gatling_tpu_torch.render.lights import light_tensors
 from gatling_tpu_torch.scene.stage import MaterialDesc, ShaderNode
@@ -62,7 +75,7 @@ from test_torch_clustered_bounce import check, primary_state, uniforms
 from test_torch_clustered_scene import JAX, TORCH, assert_bits, port_flattened
 from test_torch_lobes import port_tables
 from test_torch_render import _quad_grid_mesh, _render
-from test_torch_split_bounce import _port_uniforms
+from test_torch_split_bounce import _port_pool, _port_table, _port_uniforms
 
 W = H = 32  # the bounce wave: 1024 rays
 MIN_AGREE_RESIDENT, MIN_AGREE_WALK = 0.999, 0.995
@@ -374,8 +387,11 @@ def test_gi_opacity_sets_cutout():
 
 
 def test_gi_textured_opacity_raises_on_fused_renders_on_wavefront():
-    """A textured opacity raises on the fused route (the re-trace stage,
-    ROADMAP item 5b) and renders on the wavefront, whose taps run."""
+    """A textured opacity renders on the fused route, where the split
+    bounce re-traces what the mask rejects (a missing file reads as the
+    1x1 black fallback: every hit is rejected), and on the wavefront,
+    whose taps run. (The name dates from when the fused route raised
+    here; it is kept so that the test's record runs on.)"""
     def scene_with_texture():
         scene = gi.create_scene("cpu")
         scene.add_mesh(_quad_grid_mesh(2, material="/tex"))
@@ -389,8 +405,177 @@ def test_gi_textured_opacity_raises_on_fused_renders_on_wavefront():
         scene.add_material(MaterialDesc(path="/tex", surface_node="/tex/s", nodes=nodes))
         return scene
 
-    with pytest.raises(NotImplementedError, match="First-hit AOVs, clipping and textured"):
-        _render(scene_with_texture())
+    scene = scene_with_texture()
+    img = _render(scene, nextEventEstimation=True)
+    st = scene._fused_static
+    assert np.isfinite(img).all() and (img >= 0).all() and scene._accel is None
+    assert st.textured and st.cutout_textured and "opacity" in st.textured_params
+    # the shadow walk's UV-mean pass of the black mask: 0, so the table's
+    # shadow column shuts and the cutout branch is on
+    assert st.cutout and scene._fused.cutout
     scene = scene_with_texture()
     img = _render(scene, AovId.OBJECT_ID)
     assert scene._accel is not None and scene._fused is None and np.isfinite(img).all()
+
+
+# ---------------------------------------------------------------------------
+# 7. the textured cutout of the fused route
+# ---------------------------------------------------------------------------
+
+def test_retrace_draws_match_jax():
+    """The re-trace's draw (render/fused.py:342-346) on 4096 seeded salts
+    and its 3 rounds, bit for bit."""
+    salt = np.random.default_rng(21).integers(0, 1 << 32, size=4096,
+                                              dtype=np.uint64).astype(np.uint32)
+    for rnd in range(3):
+        h = jnp.asarray(salt) ^ jnp.uint32(0x9E3779B9 + 0x85EB * rnd)
+        h = (h ^ (h >> jnp.uint32(16))) * jnp.uint32(0x21F0AAAD)
+        h = (h ^ (h >> jnp.uint32(15))) * jnp.uint32(0x735A2D97)
+        ref = np.asarray(((h ^ (h >> jnp.uint32(15))) >> jnp.uint32(8)).astype(jnp.float32)
+                         * jnp.float32(1.0 / (1 << 24)))
+        got = retrace_draws(torch.tensor(salt.astype(np.int64)), rnd).numpy()
+        np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+        assert 0.0 <= got.min() and got.max() < 1.0
+
+
+def _checker_png(path) -> str:
+    """tests/test_cutout.py's 8x8 checker of alpha 0 and 255, written by
+    the port's PNG writer."""
+    img = np.zeros((8, 8, 4), np.uint8)
+    img[..., :3] = 255
+    c = (np.arange(8)[:, None] // 2 + np.arange(8)[None, :] // 2) % 2
+    img[..., 3] = np.where(c, 255, 0)
+    imgio.write_image_file(str(path), img)
+    return str(path)
+
+
+def textured_screen(lib, tex, png: str, nee: bool):
+    """tests/test_cutout.py:237 (and :329 with NEE) in either package: a
+    black screen at z=1 with uvs, its opacity the checker's alpha at
+    threshold 0.5, before an emissive wall at z=-3; with NEE, a grey floor
+    at z=-1 under the screen and a 2x2 rect light at z=3. Returns (meshes,
+    material index, lowered rows, lights)."""
+    size = 5.0
+    pts = np.array([[-size, -size, 1.0], [size, -size, 1.0], [-size, size, 1.0],
+                    [size, size, 1.0]], np.float32)
+    uvs = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], np.float32)
+    screen_mesh = lib.mesh.build_triangulated_mesh(pts, np.array([4]), np.array([0, 1, 3, 2]),
+                                                   uvs=uvs,
+                                                   uvs_interp=lib.mesh.Interpolation.VERTEX)
+    back = "floor" if nee else "wall"
+    meshes = [
+        lib.stage.MeshDesc(path="/screen", mesh=screen_mesh, transform=np.eye(4),
+                           material="screen", double_sided=True, object_id=0),
+        lib.stage.MeshDesc(path="/" + back, mesh=_quad(lib, -1.0 if nee else -3.0),
+                           transform=np.eye(4), material=back, double_sided=True, object_id=1),
+    ]
+    midx = {"screen": 0, back: 1, None: 2}
+    screen = lib.mat.LoweredMaterial(
+        params=dict(lib.mat._DEFAULTS), traits=lib.mat.MaterialTraits(has_cutout=True),
+        textures={"opacity": tex.TextureRef(file_path=png, is_srgb=False, channel="a")})
+    screen.params.update(base_color=(0.0, 0.0, 0.0), opacity_threshold=0.5)
+    other = lib.mat.LoweredMaterial(params=dict(lib.mat._DEFAULTS),
+                                    traits=lib.mat.MaterialTraits(), textures={})
+    lights = []
+    if nee:
+        other.params.update(base_color=(0.8, 0.8, 0.8), ior=1.0)
+        xf = np.eye(4)
+        xf[3, :3] = [0.0, 0.0, 3.0]
+        lights = [lib.stage.LightDesc(
+            path="/L", light_type="rect", transform=xf,
+            params=dict(intensity=6.0, exposure=0.0, color=np.array([1.0, 1.0, 1.0], np.float32),
+                        normalize=False, diffuse=1.0, specular=1.0,
+                        enableColorTemperature=False, colorTemperature=6500.0,
+                        width=2.0, height=2.0))]
+    else:
+        other.params.update(emissive=(1.0, 1.0, 1.0), base_color=(0.0, 0.0, 0.0))
+    return meshes, midx, [screen, other, lib.mat.lower_material(None)], lights
+
+
+def test_shadow_cutout_pass_matches_jax(tmp_path):
+    """The per-material shadow pass (the checker's mean pass rate 0.5, 1
+    elsewhere) equal to the JAX `_shadow_cutout_pass`; the resident,
+    flattened and instanced tables it fills bit-equal to the JAX
+    builders' with the same `shadow_pass`."""
+    png = _checker_png(tmp_path / "checker.png")
+    jm, jidx, jrows, _ = textured_screen(JAX, jtex, png, True)
+    tm, tidx, trows, _ = textured_screen(TORCH, ttex, png, True)
+    ref = jshadow_cutout_pass(SimpleNamespace(_lowered_materials=jrows,
+                                              _texture_manager=jtex.TextureManager()))
+    got = gi.shadow_cutout_pass(trows, ttex.TextureManager())
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, np.array([0.5, 1.0, 1.0], np.float32))
+    assert gi.shadow_cutout_pass(trows[1:], ttex.TextureManager()) is None
+    # an untextured opacity keeps the camera rule
+    trows[1].params.update(opacity=0.3, opacity_threshold=0.5)
+    jrows[1].params.update(opacity=0.3, opacity_threshold=0.5)
+    np.testing.assert_array_equal(
+        gi.shadow_cutout_pass(trows, ttex.TextureManager()),
+        jshadow_cutout_pass(SimpleNamespace(_lowered_materials=jrows,
+                                            _texture_manager=jtex.TextureManager())))
+    jt, tt = JAX.mat.build_material_table(jrows), TORCH.mat.build_material_table(trows)
+    jg, tg = jgeom.build_geometry(jm, jidx), tgeom.build_geometry(tm, tidx)
+    jscene, jstatic = jpb.build_fused_scene(jg, jt, None, shadow_pass=ref)
+    tscene, tstatic = tb.build_fused_scene(tg, tt, None, "cpu", shadow_pass=got)
+    assert jstatic.cutout and tstatic.cutout
+    assert_bits(tscene.tris[:, :34].numpy(), np.asarray(jscene.tris).T, "resident")
+    jref, _st, _order = jpb.build_fused_scene_with_order(jg, jt, None, resident_max=0,
+                                                         shadow_pass=ref)
+    n_real = tb.real_triangles(tg)
+    g = tgeom.SceneGeometry(*[a[:n_real] for a in tg])
+    flat = tb.clustered_arrays(g, tt, tb.median_split_order(g, n_real), got)
+    assert_bits(flat.tris, jref.tris, "flattened")
+    jref, jst = jpb.build_fused_scene_instanced(jm, jidx, jt, None, min_gain=0.5, min_flat=0,
+                                                shadow_pass=ref)
+    arrays, counts = tb.instanced_arrays(tm, tidx, tt, min_gain=0.5, min_flat=0,
+                                         shadow_pass=got)
+    assert jst.cutout and counts["cutout"]
+    assert_bits(arrays.inst_smem, jref.inst_smem, "inst_smem")
+
+
+@functools.lru_cache(maxsize=None)
+def _textured_cutout_case(png: str, nee: bool):
+    jm, jidx, jrows, jl = textured_screen(JAX, jtex, png, nee)
+    table, pool = JAX.mat.build_materials(jrows)
+    shadow = jshadow_cutout_pass(SimpleNamespace(_lowered_materials=jrows,
+                                                 _texture_manager=jtex.TextureManager()))
+    scene, static = jpb.build_fused_scene(jgeom.build_geometry(jm, jidx), table,
+                                          jlight_arrays(jl) if jl else None, shadow_pass=shadow)
+    active = JAX.mat.textured_params(jrows)
+    static = dataclasses.replace(static, textured=True, cutout_textured=True,
+                                 textured_params=active)
+    return scene, static, table, pool, active
+
+
+@pytest.mark.parametrize("nee", [False, True])
+def test_render_pixels_fused_textured_cutout_matches_jax(tmp_path_factory, nee):
+    """16x16, 2 spp, 3 bounces, unjittered: the same samples through both
+    fused paths with the re-trace at every bounce, means within 1e-3 and
+    98 % of pixels within 1e-3; without NEE the mean near the checker's
+    pass rate 0.5 (tests/test_cutout.py's 0.12)."""
+    png = _checker_png(tmp_path_factory.mktemp("cutout") / "checker.png")
+    scene, static, table, pool, active = _textured_cutout_case(png, nee)
+    w = h = 16
+    spp, bounces = 2, 3
+    juni = uniforms((0.0, 0.0, 5.0) if not nee else (0.37, 0.11, 5.0), (0.02, 0.01, -1.0),
+                    vfov=0.3)
+    jcfg = JConfig(width=w, height=h, spp=spp, max_bounces=bounces, nee=nee, has_dome=False,
+                   jittered=False, fis=False, rr_bounce_offset=100, has_cutout=True)
+    pix = jnp.arange(w * h, dtype=jnp.int32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jrender(jcfg, juni, scene, default_dome(), pix, spp, jnp.int32(0),
+                                 static=static, materials=table, textures=pool))
+    cfg = RenderConfig(width=w, height=h, spp=spp, max_bounces=bounces, nee=nee,
+                       jittered=False, fis=False, rr_bounce_offset=100, has_cutout=True)
+    fs = port_tables(scene, static)
+    got = render_pixels_fused(cfg, _port_uniforms(juni, 0), fs, torch.arange(w * h), spp, 0,
+                              materials=_port_table(table), textures=_port_pool(pool),
+                              textured_params=active, cutout_textured=True).numpy()
+    assert np.isfinite(got).all() and (got >= 0).all() and ref.mean() > 0.01
+    rel = abs(got.mean() - ref.mean()) / ref.mean()
+    close = (np.abs(got - ref) <= 1e-3 * np.maximum(1.0, np.abs(ref))).all(axis=1)
+    print(f"nee={nee}: mean {got.mean():.4f} (JAX {ref.mean():.4f}), "
+          f"{int((~close).sum())} pixels outside 1e-3")
+    assert rel < 1e-3 and close.mean() >= 0.98
+    if not nee:
+        assert abs(got.mean() - 0.5) < 0.12

@@ -596,25 +596,31 @@ def test_glass_coated_fused_mean_matches_jax_wavefront():
 
 
 def test_golden_errors_match_jax_harness():
-    """The port's own copy of the graphical harness's comparison
-    (utils/flip.py encode_srgb_u8 and golden_errors, which chip_smoke.py
-    holds Materials.GlassCoated to) against the JAX package's
-    testing._encode_srgb_u8, error count and flip.mean_flip on a noisy
-    render of a random image: the byte images equal, the counts equal, and
-    the mean FLIP within 1e-12 (both are the same float64 NumPy sequence)."""
+    """The port's graphical harness's encode and comparison
+    (testing.encode_aov_u8 and compare_images, which every golden and
+    chip_smoke.py's Materials.GlassCoated go through) against the JAX
+    package's testing._encode_srgb_u8, error count and flip.mean_flip on a
+    noisy render of a random image: the byte images equal (COLOR, DEPTH,
+    NORMAL and an id AOV), the counts equal, and the mean FLIP within
+    1e-12 (both are the same float64 NumPy sequence)."""
     from gatling_tpu.flip import mean_flip as jmean_flip
     from gatling_tpu.interface import AovId as JAovId
     from gatling_tpu.testing import _encode_srgb_u8 as jencode
 
-    from gatling_tpu_torch.utils.flip import encode_srgb_u8, golden_errors
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.testing import compare_images, encode_aov_u8
 
     rng = np.random.default_rng(11)
     ref_color = rng.uniform(0.0, 1.2, (24, 32, 4)).astype(np.float32)
     color = np.clip(ref_color + rng.normal(0.0, 0.02, ref_color.shape), 0.0, None).astype(
         np.float32)
-    ref = jencode(JAovId.COLOR, ref_color[::-1])
-    img = encode_srgb_u8(color)
-    np.testing.assert_array_equal(img, jencode(JAovId.COLOR, color[::-1]))
-    errors, score = golden_errors(color, ref)
+    ref = jencode(JAovId.COLOR, ref_color)
+    img = encode_aov_u8(AovId.COLOR, color)
+    np.testing.assert_array_equal(img, jencode(JAovId.COLOR, color))
+    for aov, data in ((AovId.DEPTH, color[..., :1]), (AovId.NORMAL, color[..., :3] - 0.5),
+                      (AovId.OBJECT_ID, rng.integers(-1, 600, (24, 32, 1)).astype(np.int32))):
+        np.testing.assert_array_equal(encode_aov_u8(aov, data), jencode(JAovId(int(aov)), data))
+    errors, score, failures = compare_images("color", img, ref, 0, 1.0)
     assert errors == int((np.abs(ref.astype(int) - img.astype(int)) > 0).sum()) > 0
+    assert failures == [f"color: {errors} error components > threshold 0"]
     assert abs(score - jmean_flip(ref[..., :3], img[..., :3])) < 1e-12

@@ -37,7 +37,7 @@ JNP_MOVES = (  # tools/mosaic_cast_probe.py's expressions, in MOVES' order
 def test_cast_twin_matches_jax_numpy(move):
     x = cast_probe.probe_input("cpu")
     ref = np.asarray(JNP_MOVES[move](jnp.asarray(x.numpy())))
-    got = cast_probe.cast_move(x, move).numpy()  # the twin on a CPU tensor
+    got = cast_probe.cast_moves(x)[move].numpy()  # the twins on a CPU tensor
     assert got.shape == ref.shape == cast_probe.MOVES[move][1]
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
     # the kernel's index map (csrc/probes.cu cast_src) reads the same words
@@ -47,11 +47,14 @@ def test_cast_twin_matches_jax_numpy(move):
 
 
 def test_cast_bank_conflicts():
-    """Row-major (8, 128) tile, 32 consecutive outputs a warp: the flat and
-    stacked moves read distinct or broadcast words of distinct banks; a
-    transpose's warp reads 8 rows of 4 columns, 8 words in each of 4
-    banks."""
-    assert [cast_probe.bank_conflicts(m) for m in range(6)] == [1, 1, 1, 1, 8, 8]
+    """32 consecutive outputs a warp: the flat and stacked moves read
+    distinct or broadcast words of distinct banks; a transpose's warp reads
+    8 rows of 4 columns, which the kernel's row pitch of 132 words puts in
+    32 distinct banks. Unpadded (a pitch of 128) those reads take 8 words
+    in each of 4 banks."""
+    assert cast_probe.STRIDE == 132
+    assert [cast_probe.bank_conflicts(m) for m in range(6)] == [1] * 6
+    assert [cast_probe.bank_conflicts(m, stride=128) for m in range(6)] == [1, 1, 1, 1, 8, 8]
 
 
 def test_cast_probe_runs_on_the_cpu(capsys):

@@ -170,9 +170,11 @@ def test_gate_raises_on_large_scene():
 @pytest.mark.parametrize("n", [2, 46])
 def test_gate_raises_on_textured_material(n):
     """A base-colour texture renders through the split bounce, resident
-    and clustered (a missing file reads as the 1x1 black fallback); a
-    textured opacity still raises, naming its ROADMAP item."""
-    for connected, textured_route in (("diffuseColor", True), ("opacity", False)):
+    and clustered (a missing file reads as the 1x1 black fallback); so
+    does a textured opacity, with the re-trace of its cutout. (The name
+    dates from when these raised; it is kept so that the test's record
+    runs on.)"""
+    for connected, cutout in (("diffuseColor", False), ("opacity", True)):
         scene = gi.create_scene("cpu")
         scene.add_mesh(_quad_grid_mesh(n, material="/tex"))
         nodes = {
@@ -182,13 +184,10 @@ def test_gate_raises_on_textured_material(n):
                                    inputs={"file": "albedo.png"}, input_connections={}),
         }
         scene.add_material(MaterialDesc(path="/tex", surface_node="/tex/s", nodes=nodes))
-        if textured_route:
-            img = _render(scene)
-            assert np.isfinite(img).all() and scene._fused_static.textured
-            assert scene._fused_static.clustered == (n == 46)
-        else:
-            with pytest.raises(NotImplementedError, match="First-hit AOVs, clipping and textured"):
-                _render(scene)
+        img = _render(scene)
+        assert np.isfinite(img).all() and scene._fused_static.textured
+        assert scene._fused_static.clustered == (n == 46)
+        assert scene._fused_static.cutout_textured == cutout
 
 
 @pytest.mark.parametrize("what", ["dome", "aov", "clipping", "devices", "vcolor"])
@@ -217,8 +216,29 @@ def test_gate_raises_outside_the_slice(what):
         kwargs["clippingPlanes"] = True
     elif what == "devices":
         kwargs["parallelDevices"] = 2
-    item = {"dome": "Dome lights", "aov": "First-hit AOVs", "clipping": "First-hit AOVs",
-            "devices": "Multi-GPU", "vcolor": "USD content"}[what]
+    item = {"dome": "Dome lights", "devices": "Multi-GPU"}.get(what)
+    if what in ("aov", "clipping"):
+        # the fused route's bounce-0 peel: a first-hit AOV beside COLOR, or
+        # a clipping range that cuts nothing of the grid at z=0
+        aovs = (AovId.COLOR, AovId.NORMAL, AovId.DEPTH) if what == "aov" else (AovId.COLOR,)
+        bufs = {a: gi.GiRenderBuffer(8, 8, 4) for a in aovs}
+        cam = CameraDesc(position=np.array([0, 0, 3], np.float32),
+                         forward=np.array([0, 0, -1], np.float32),
+                         up=np.array([0, 1, 0], np.float32), vfov=0.8)
+        gi.render(gi.GiRenderParams(
+            scene=scene, camera=cam, aov_bindings=[gi.GiAovBinding(a, b) for a, b in bufs.items()],
+            render_settings=dict(jdefaults(), spp=2, maxBounces=2, **kwargs)))
+        assert scene._fused is not None and scene._accel is None
+        assert all(np.isfinite(b.data).all() for b in bufs.values())
+        assert (bufs[AovId.COLOR].data[..., 3] == 1).all()  # the frame was blended in
+        if what == "aov":
+            normal = bufs[AovId.NORMAL].data[..., :3] * 2.0 - 1.0  # the encoded normal
+            hit = np.abs(normal).sum(-1) > 0.5
+            assert hit.mean() > 0.5
+            np.testing.assert_allclose(np.linalg.norm(normal[hit], axis=-1), 1.0, atol=1e-4)
+            depth = bufs[AovId.DEPTH].data[..., 0]
+            assert (depth[hit] > -1.0).all() and (depth[hit] < 1.0).all()  # the log depth
+        return
     if what == "vcolor":
         img = _render(scene)
         assert np.isfinite(img).all() and scene._accel is not None and scene._fused is None
@@ -227,7 +247,7 @@ def test_gate_raises_outside_the_slice(what):
         assert np.isfinite(img).all() and scene._accel is not None and scene._fused is None
         return
     with pytest.raises(NotImplementedError, match=item):
-        _render(scene, AovId.NORMAL if what == "aov" else AovId.COLOR, **kwargs)
+        _render(scene, **kwargs)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch, tmp_path):

@@ -19,7 +19,12 @@ shade_ref. Held here:
    against `_wrap_coord` (the port's and the JAX package's) for negative
    and out-of-range coordinates on every WRAP_* mode; a float pool raises;
 3. chip_smoke.py's count of the distinct texel rows a K4 launch's taps
-   read (its bound's texel bytes) against a brute-force count.
+   read (its bound's texel bytes) against a brute-force count;
+4. the opacity row of the taps alone (ops/bounce.py tap_rows_ref, the
+   twin of tap_kernel's TAP_OPACITY row) against the JAX
+   `apply_textures(..., ("opacity",))` on seeded hits, over every wrap mode
+   and channel, on a pool of mixed wraps and on an all-repeat pool (the
+   2x2-row path), bit for bit.
 """
 
 import math
@@ -29,11 +34,15 @@ import numpy as np
 import pytest
 import torch
 
+import gatling_tpu.render.material as jmat
 import gatling_tpu.render.texture as jtex
+
+from gatling_tpu_torch import imgio
 
 from gatling_tpu_torch.ops import bounce as tb
 from gatling_tpu_torch.ops import split_ref
 from gatling_tpu_torch.render import texture as ttex
+from gatling_tpu_torch.render import material as tmat
 from gatling_tpu_torch.render.material import MaterialTable
 
 from test_torch_clustered_bounce import port_tables
@@ -213,3 +222,55 @@ def test_distinct_texel_count_matches_brute_force(packed):
                     want.add(int(offsets[slot]) + int(yi[0]) * w + int(xi[0]))
     assert len(want) > 20
     assert sorted(got.tolist()) == sorted(want)
+
+
+# (channel, wrap_s, wrap_t) of each opacity-textured material: every wrap
+# mode and channel, or all repeat (the pool's 2x2 rows)
+OPACITY_SLOTS = {
+    "wraps": [("r", "repeat", "clamp"), ("g", "clamp", "mirror"), ("b", "mirror", "black"),
+              ("a", "black", "repeat")],
+    "repeat": [("a", "repeat", "repeat"), ("r", "repeat", "repeat")],
+}
+
+
+@pytest.mark.parametrize("pool_kind", sorted(OPACITY_SLOTS))
+def test_opacity_tap_row_matches_jax(tmp_path, pool_kind):
+    rng = np.random.default_rng(17)
+    png = str(tmp_path / "opacity.png")
+    imgio.write_image_file(png, rng.integers(0, 256, (13, 9, 4)).astype(np.uint8))
+
+    def lowered(lib, tex):
+        rows = []
+        for k, (ch, ws, wt) in enumerate(OPACITY_SLOTS[pool_kind]):
+            m = lib.lower_material(None)
+            m.textures["opacity"] = tex.TextureRef(
+                file_path=png, wrap_s=ws, wrap_t=wt, channel=ch,
+                scale=(0.9, 1.1, 0.8, 1.2), bias=(0.05, -0.1, 0.1, -0.05))
+            m.params.update(opacity_threshold=0.5 if k % 2 else 0.0)
+            rows.append(m)
+        m = lib.lower_material(None)
+        m.params.update(opacity=0.3)  # untextured: the table's opacity
+        return rows + [m]
+
+    jt, jp = jmat.build_materials(lowered(jmat, jtex))
+    tt, tp = tmat.build_materials(lowered(tmat, ttex))
+    assert tp.bilinear_packed == (pool_kind == "repeat")
+    r = 4096
+    n_mats = len(OPACITY_SLOTS[pool_kind]) + 1
+    mat = rng.integers(0, n_mats, r).astype(np.int32)
+    uv = rng.uniform(-2.0, 3.0, (r, 2)).astype(np.float32)
+    hit = torch.zeros((split_ref.HIT_ROWS, r))
+    hit[split_ref.H_HIT] = torch.tensor((rng.random(r) < 0.9).astype(np.float32))
+    hit[split_ref.H_MAT] = torch.tensor(mat.astype(np.float32))
+    hit[split_ref.H_UVX:split_ref.H_UVY + 1] = torch.tensor(uv.T.copy())
+    got = tb.tap_rows_ref(hit, tt.to("cpu"), tp, ("opacity",))
+    assert got.shape == (tb.TAP_ROWS, r)
+    ref = jmat.apply_textures(jt, jp, jmat.gather_params(jt, jnp.asarray(mat)),
+                              jnp.asarray(mat), jnp.asarray(uv), ("opacity",))
+    hit_rays = hit[split_ref.H_HIT].numpy() > 0.5
+    np.testing.assert_array_equal(got[11].numpy()[hit_rays], np.asarray(ref.opacity)[hit_rays])
+    untextured = hit_rays & (mat == n_mats - 1)
+    assert untextured.any() and (got[11].numpy()[untextured] == np.float32(0.3)).all()
+    # without "opacity" among the textured parameters the row is the table's
+    plain = tb.tap_rows_ref(hit, tt.to("cpu"), tp, ())
+    np.testing.assert_array_equal(plain[11].numpy(), tt.packed_f[mat, tmat.MF_OPACITY])

@@ -15,18 +15,14 @@ Inputs are made with numpy from seeds and handed to both sides:
    barycentrics equal on 99 % of pixels, COLOR and the float AOVs within
    1e-3 on 98 % and the mean within 1 % (the same RNG streams; a ray that
    grazes an edge can take another path);
-5. `gi.render` of the committed graphical scenes `Render.AOVs` and
-   `Mesh.PrimvarInterpolation` on the CPU (K5/K6's twins) against their
-   reference PNGs, at each scene's own gtl:errorPixelThreshold and
-   gtl:flipThreshold (the JAX package's harness and FLIP do the encoding
-   and the comparison);
+5. (the committed graphical scenes, among them the wavefront's
+   `Render.AOVs` and `Mesh.PrimvarInterpolation`, are held by
+   tests/test_torch_graphical.py through the port's own harness);
 6. gi's routing: the wavefront for AOVs outside FUSED_AOV_MASK and for
    vertex colours, the fused kernels for COLOR; NotImplementedError above
    8192 triangles; cutout and media render; clipping planes, the CLI's
    integer AOVs, transform edits and progressive frames.
 """
-
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +30,6 @@ import pytest
 import torch
 from PIL import Image
 
-from gatling_tpu import imgio as jimgio
-from gatling_tpu.flip import mean_flip
 from gatling_tpu.ops.geometry import build_geometry as jbuild_geometry
 from gatling_tpu.ops.intersect import Hit as JHit
 from gatling_tpu.render import bsdf as jbsdf
@@ -52,8 +46,6 @@ from gatling_tpu.render.material import build_materials as jbuild_materials
 from gatling_tpu.render.material import lower_material as jlower_material
 from gatling_tpu.scene.stage import LightDesc as JLightDesc
 from gatling_tpu.scene.stage import load_scene as jload_scene
-from gatling_tpu.scene.usda import load_usd
-from gatling_tpu.testing import _encode_srgb_u8, compute_render_spec
 
 from gatling_tpu_torch import cli, gi
 from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId, aov_bit
@@ -83,7 +75,6 @@ from gatling_tpu_torch.scene.stage import (
 from test_torch_bounce import CORNELL, rect_light
 from test_torch_render import _quad_grid_mesh
 
-GRAPHICAL = Path(__file__).parent / "graphical"
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -321,42 +312,6 @@ def test_render_frame_brute_matches_jax():
     assert (got["object_id"] >= 0).mean() > 0.7
     rel = abs(got["color"].mean() - ref["color"].mean()) / ref["color"].mean()
     assert rel < 0.01 and got["color"][:, :3].mean() > 0.05
-
-
-# ---------------------------------------------------------------------------
-# 5. the committed graphical scenes
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("name", ["Render.AOVs", "Mesh.PrimvarInterpolation"])
-def test_graphical_scene_matches_reference(name):
-    scene_path = GRAPHICAL / name / "scene.usda"
-    spec = compute_render_spec(load_usd(scene_path))
-    settings = {k: v for k, v in spec.settings.items()
-                if k not in ("errorPixelThreshold", "flipThreshold")}
-    scene, desc, merged = cli.load_gi_scene(str(scene_path), "cpu", settings)
-    product = spec.products[0]
-    w, h = product.resolution
-    bindings, buffers = [], {}
-    for var, aov in product.aovs:
-        port_aov = AovId(int(aov))
-        is_int = AOV_IS_INT[port_aov]
-        buf = gi.GiRenderBuffer(w, h, 1 if is_int else max(AOV_CHANNELS[port_aov], 3), is_int)
-        bindings.append(gi.GiAovBinding(port_aov, buf, clear_value=-1 if is_int else None))
-        buffers[var] = (aov, buf)
-    camera = desc.cameras.get(product.camera_path) or desc.first_camera()
-    gi.render(gi.GiRenderParams(scene=scene, camera=camera, aov_bindings=bindings,
-                                render_settings=merged))
-    assert scene._accel is not None and scene._fused is None  # the wavefront route
-    threshold = int(spec.settings["errorPixelThreshold"])
-    flip_threshold = float(spec.settings["flipThreshold"])
-    for var, (aov, buf) in buffers.items():
-        img = _encode_srgb_u8(aov, buf.data[::-1])
-        ref = jimgio.load_image_file(scene_path.parent / f"ref_{var}.png").data
-        errors = int((ref.astype(int) != img.astype(int)).sum())
-        flip = mean_flip(ref[..., :3], img[..., :3])
-        print(f"{name} {var}: {errors} error components (threshold {threshold}), mean FLIP "
-              f"{flip:.4f} (threshold {flip_threshold})")
-        assert errors <= threshold and flip <= flip_threshold, var
 
 
 # ---------------------------------------------------------------------------
