@@ -9,8 +9,8 @@ fails, with a non-zero exit, if any phase fails:
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade, with its own texture taps; its
-   taps alone K4t) are
-   built from gatling_tpu_torch/csrc/bounce.cu (in ten nvcc parts), K5-K8 (the
+   taps alone K4t; both also in FLT instances over a float texel pool) are
+   built from gatling_tpu_torch/csrc/bounce.cu (in fifteen nvcc parts), K5-K8 (the
    wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
    ptxas' registers, stack and spills;
@@ -163,6 +163,32 @@ fails, with a non-zero exit, if any phase fails:
    4j's masked re-trace waves; each timed, with its bound (tap_rows: the
    hit rows its outputs depend on, the distinct texels touched, 12 rows
    written);
+4k. dome lights and float texel pools through gi.render, a first and a
+   warm frame each with their launches: cornell_dome (the Cornell box,
+   open towards -y, under a 2048x1024 half EXR sky written at run time by
+   the port's encode_exr: a vertical gradient and a 16x16-texel sun of
+   5e3; 1200x1200, 16 spp, 8 bounces, NEE off and on, camera-visible and
+   not: K1; the invisible frame darker only on pixels whose camera rays
+   missed), once through gatling_tpu_torch.cli on the .usda that holds
+   the DomeLight prim (its PNG within one code of the gi frame's),
+   sphere_field_dome (a 4096x2048 float32 sky, rotated 30 degrees about
+   the up axis, emission (1.5, 1.4, 1.3); 512x512, 4 spp, 6 bounces, NEE:
+   K2), cornell_aovs_dome (every AOV under the cornell_dome sky: the
+   wavefront's K5/K6 and the dome on the miss; the fused NEE frame's mean
+   against it within MEAN_SIGMAS), interior_hdr_textured (the interior
+   with its floor a 2048x2048 EXR reaching 4: the whole pool float; K3 and
+   K4's FLT instance, no texture stage) and interior_hdr_first_hit (its
+   first-hit AOVs: K4t's FLT instance); the dome pass (render/fused.py
+   dome_pass) on the card against its CPU run on three frames' final
+   states, 99.9 % of rays within 1e-4, with its device time;
+3h. then K3 and K4's FLT instances against their twins on 4k's recorded
+   waves (interior_hdr_textured on gi's instanced tables, and a Cornell
+   box with an EXR checker on every base colour on resident ones; bounces
+   0 and 2): rows 12-15, H_HIT and H_MAT bit-equal on every ray; K4t's
+   FLT instance on interior_hdr_first_hit's peel wave, and with
+   TAP_OPACITY over the float floor texture, bit-equal to tap_rows_ref on
+   every hit ray; each timed with its bound (16 bytes a distinct float
+   texel);
 goldens: the committed scenes tests/test_torch_graphical.py renders,
    through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.GlassCoated: its reference is a
@@ -184,7 +210,8 @@ gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's frames beside
 K3's, K4's and K4t's entries; P1/P2: the probes' run), the counts set to
-0 just before it and read just after. K7 and K8 are on no path (the JAX package's comparison point)
+0 just before it and read just after (K4f and K4tf, the FLT instances:
+interior_hdr_textured's and interior_hdr_first_hit's frames). K7 and K8 are on no path (the JAX package's comparison point)
 and count 0. The last lines are the card's name and power limit, one JSON
 line with the kernels' launch counts, errors, times and bounds, and
 {"ok": true, "device": {...}}.
@@ -1034,10 +1061,10 @@ def tap_texel_rows(mats, pool, hit, textured: int):
     `hit` read: for each hit ray and each tapped parameter (render/fused.py
     textured bits, ops/bounce.py TAP_BITS) and the normal map whose
     material binds a slot (and tap_rows' opacity with TAP_OPACITY), the
-    texels_q22 row of its bilinear tap, or the texels_u32 entries of its
-    four texels that the wrap keeps, indexed as render/texture.py
-    sample_pool indexes them. Returns the unique indices
-    (torch.unique) and the bytes of one row."""
+    texels_q22 row of its bilinear tap, or the texels_u32 entries (a float
+    pool's `texels` rows, 16 bytes each) of its four texels that the wrap
+    keeps, indexed as render/texture.py sample_pool indexes them. Returns
+    the unique indices (torch.unique) and the bytes of one row."""
     import torch
 
     from gatling_tpu_torch.ops import bounce as tb
@@ -1047,7 +1074,7 @@ def tap_texel_rows(mats, pool, hit, textured: int):
     from gatling_tpu_torch.render.texture import _wrap_coord
 
     mask = tb.tap_mask(textured, hit.shape[0], pool)
-    row_bytes = 16 if pool.bilinear_packed else 4
+    row_bytes = 16 if pool.bilinear_packed or not pool.packed else 4
     on = hit[H_HIT] > 0.5
     mat = torch.clamp(torch.round(hit[H_MAT][on]).to(torch.int64), 0,
                       mats.packed_i.shape[0] - 1)
@@ -1373,7 +1400,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     split_launches = {k: launches[k] for k in ("K3", "K4")}
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
-    assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K5=0, K6=0, K7=0, K8=0), launches
+    assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K4f=0, K4tf=0, K5=0, K6=0, K7=0,
+                            K8=0), launches
     # K4 taps the textures itself: no texture stage between K3 and K4
     assert split_ref.stage_calls == 0, split_ref.stage_calls
     out["interior_texture_stage_calls"] = split_ref.stage_calls
@@ -2993,9 +3021,9 @@ def hit_pixels(bufs):
     return np.linalg.norm(n, axis=-1) > 0.5, n
 
 
-def check_first_hit(bufs, label):
+def check_first_hit(bufs, label, albedo_max: float = ALBEDO_MAX):
     """4h's checks of a fused first-hit frame: COLOR finite and
-    non-negative; unit normals where hit; ALBEDO in [0, ALBEDO_MAX];
+    non-negative; unit normals where hit; ALBEDO in [0, albedo_max];
     DEPTH and TEXCOORDS finite. Returns the share of hit pixels."""
     import numpy as np
 
@@ -3005,7 +3033,7 @@ def check_first_hit(bufs, label):
     albedo = bufs["ALBEDO"][..., :3]
     assert hit.mean() > 0.3, (label, hit.mean())
     assert np.abs(np.linalg.norm(n[hit], axis=-1) - 1.0).max() < 1e-3, label
-    assert np.isfinite(albedo).all() and albedo.min() >= 0 and albedo.max() <= ALBEDO_MAX, label
+    assert np.isfinite(albedo).all() and albedo.min() >= 0 and albedo.max() <= albedo_max, label
     assert np.isfinite(bufs["DEPTH"]).all() and np.isfinite(bufs["TEXCOORDS"]).all(), label
     log(f"{label}: {hit.mean():.4f} of pixels hit; albedo {albedo.min():.4f}-{albedo.max():.4f}"
         f", depth {bufs['DEPTH'][..., 0][hit].min():.4f}-{bufs['DEPTH'][..., 0][hit].max():.4f}")
@@ -3054,8 +3082,8 @@ def mean_gap(fused, wave, label, held: bool = True) -> dict:
 class KernelCalls:
     """Keeps copies of the inputs of the first `limit` calls render/fused.py
     makes of its kernel entry points `names` (by default trace_step,
-    tap_rows and shade_step: K3, K4t, K4) inside the `with` block:
-    [(name, args)] in call order."""
+    tap_rows and shade_step: K3, K4t, K4; or its dome_pass) inside the
+    `with` block: [(name, args)] in call order."""
 
     def __init__(self, limit: int, names=("trace_step", "tap_rows", "shade_step")) -> None:
         self.limit, self.calls, self.names = limit, [], names
@@ -3431,6 +3459,300 @@ def phase_taps(device, tap_waves, clip_waves, cutout_calls):
     return out, errs
 
 
+# 4k: dome lights and float texel pools. cornell_dome's sky is a half EXR
+# (ZIP), sphere_field_dome's a float32 one, rotated 30 degrees about the
+# scene's up axis (z) with an emission multiplier; interior_hdr_textured's
+# floor a half EXR whose values reach 4 (scene/examples.py write_sky,
+# hdr_floor)
+DOME_SKY, SF_DOME_SKY, HDR_FLOOR = (2048, 1024), (4096, 2048), 2048
+DOME_ROTATION = (0.0, 0.0, math.sin(math.pi / 12), math.cos(math.pi / 12))
+DOME_EMISSION = (1.5, 1.4, 1.3)
+# the dome pass on the card against its CPU run on the same final state:
+# atan2 and acos round differently in the last bits on the two, which moves
+# a tap next to the sun's edge across it, so a share of the rays is held
+DOME_RTOL, DOME_ATOL, DOME_AGREE = 1e-4, 1e-6, 0.999
+# passes timed back to back behind the device's sleep: about 60 PyTorch
+# launches each, within the queue of pending launches (device_ms)
+DOME_PASSES = 8
+
+
+def write_dome_assets(tex_dir: str) -> dict:
+    """The skies and cornell_dome.usda (a DomeLight prim pointing at the
+    half sky), written at run time."""
+    from gatling_tpu_torch.scene import examples as ex
+
+    t0 = time.perf_counter()
+    out = dict(sky=ex.write_sky(os.path.join(tex_dir, "sky.exr"), *DOME_SKY),
+               sf_sky=ex.write_sky(os.path.join(tex_dir, "sky_f32.exr"), *SF_DOME_SKY,
+                                   half=False))
+    out["usda"] = ex.cornell_dome(tex_dir, "sky.exr")
+    log(f"dome assets: {DOME_SKY} half EXR {os.path.getsize(out['sky'])} B, {SF_DOME_SKY} "
+        f"float32 EXR {os.path.getsize(out['sf_sky'])} B, written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def cornell_dome_params(device, usda: str, nee: bool, visible: bool, every_aov: bool = False):
+    """cornell_dome: the Cornell box (open towards -y) under the half sky,
+    loaded from its .usda as the CLI loads it, 1200x1200, 16 spp, 8
+    bounces; with NEE the bench's rect light; COLOR, or every AOV."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.cli import load_gi_scene
+    from gatling_tpu_torch.interface import AovId
+
+    scene, desc, merged = load_gi_scene(usda, device, dict(
+        spp=AOVS_SPP, maxBounces=AOVS_BOUNCES, nextEventEstimation=nee,
+        domeLightCameraVisible=visible))
+    assert scene.dome_light is not None and scene.dome_light.file_path.endswith("sky.exr")
+    if nee:
+        scene.add_light(bench_rect_light())
+    binds = (all_aov_bindings(AOVS_RES, AOVS_RES) if every_aov else
+             [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(AOVS_RES, AOVS_RES, 4))])
+    return gi.GiRenderParams(scene=scene, camera=desc.first_camera(), aov_bindings=binds,
+                             render_settings=merged)
+
+
+def check_dome_pass(args, label) -> dict:
+    """The dome pass on the card against its run on the CPU on the same
+    final state: DOME_AGREE of the rays within DOME_RTOL / DOME_ATOL; its
+    device time (device_ms over DOME_PASSES passes) and the bytes it moves at HBM rate (each
+    state row it reads and the radiance written once, four texels of 12 B
+    a missed ray)."""
+    import torch
+
+    from gatling_tpu_torch.render.fused import dome_pass
+    from gatling_tpu_torch.render.integrator import DomeLightData
+
+    radiance, state, dome, uniforms, visible = args
+    got = dome_pass(radiance, state, dome, uniforms, visible)
+    cpu_dome = DomeLightData(dome.texture.cpu(), dome.fallback.cpu())
+    ref = dome_pass(radiance.cpu(), state.cpu(), cpu_dome, uniforms, visible)
+    close = torch.isclose(got.cpu(), ref, rtol=DOME_RTOL, atol=DOME_ATOL).all(dim=1)
+    missed = state[14] > 0.0
+    r = radiance.shape[0]
+    out = dict(rays=r, missed=int(missed.sum()), agree=float(close.float().mean()),
+               max_abs_err=float((got.cpu() - ref).abs().max()),
+               ms=device_ms(lambda: dome_pass(radiance, state, dome, uniforms, visible),
+                            DOME_PASSES))
+    out["bound"] = _bound(4 * r * (7 + 3 + 3) + 48 * out["missed"], 0)
+    log(f"dome pass {label}: card against CPU {out}")
+    assert out["agree"] >= DOME_AGREE, (label, out)
+    return out
+
+
+def srgb8(img):
+    """The CLI's 8-bit PNG of a linear COLOR buffer (flipped, sRGB)."""
+    import numpy as np
+
+    from gatling_tpu_torch.cli import linear_to_srgb
+
+    rgb = linear_to_srgb(img[::-1, :, :3])
+    return np.clip(np.clip(rgb, 0, 1) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def interior_hdr_desc(tex_dir: str):
+    """interior_hdr_textured: the interior with its floor texture a
+    HDR_FLOOR^2 EXR (the whole pool float)."""
+    from gatling_tpu_torch.scene.examples import hdr_floor, interior
+
+    desc = interior(tex_dir=tex_dir)
+    hdr_floor(desc, os.path.join(tex_dir, "floor_hdr.exr"), size=HDR_FLOOR)
+    return desc
+
+
+def cornell_hdr_params(device, tex_dir: str):
+    """The Cornell box with every base colour a 64x64 EXR checker whose
+    values reach 4 (a float pool on resident tables: K4's FLT instance
+    over the resident tree), 1200x1200, 2 spp, 3 bounces."""
+    import numpy as np
+
+    from gatling_tpu_torch import imgio
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    c = (np.arange(64)[:, None] // 8 + np.arange(64)[None, :] // 8) % 2
+    img = np.stack([np.where(c, 4.0, 0.2), np.where(c, 2.5, 0.4), np.where(c, 0.6, 1.5),
+                    np.ones_like(c)], -1).astype(np.float32)
+    path = os.path.join(tex_dir, "checker_hdr.exr")
+    imgio.write_image_file(path, img)
+    desc = load_scene(CORNELL)
+    texture_every_material(desc.materials, "diffuseColor", path)
+    return desc_params(device, desc, FULL_RES, merged_settings(desc, spp=2, maxBounces=3))
+
+
+def phase_dome(device, tex_dir: str):
+    """Phase 4k: dome lights and float texel pools through gi.render, a
+    first and a warm frame each with the kernels' launches: cornell_dome
+    (K1; NEE off and on, camera-visible and not; the invisible frame
+    darker only where a camera ray missed, bit-equal elsewhere), once
+    through the CLI (its PNG the gi frame's within one code),
+    sphere_field_dome (K2, instanced), cornell_aovs_dome (every AOV: the
+    wavefront's K5/K6 and the dome on the miss; the fused NEE frame's mean
+    against it within MEAN_SIGMAS), interior_hdr_textured (K3 and K4's
+    FLT instance, no texture stage) and interior_hdr_first_hit (K4t's FLT
+    instance); the dome pass on the card against its CPU run on three of
+    the frames' final states. Returns (frame numbers, launches by frame,
+    {case: (tables, static, recorded waves, nee)} for 3h, the tap waves of
+    3h, the dome pass numbers)."""
+    import numpy as np
+
+    from gatling_tpu_torch import cli, gi, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.material import MI_OPACITY_CH, MI_OPACITY_TEX, MaterialTable
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    assets = write_dome_assets(tex_dir)
+    frames, launches, replay, passes = {}, {}, {}, {}
+    imgs = {}
+    for nee in (False, True):
+        for visible in (True, False):
+            label = f"cornell_dome{'_nee' if nee else ''}{'' if visible else '_invisible'}"
+            params = cornell_dome_params(device, assets["usda"], nee, visible)
+            with KernelCalls(1, ("dome_pass",)) as dp:
+                img, frames[label], launches[label] = first_and_warm(params, label, {"K1"})
+            assert params.scene._fused_static.n_clusters == 0  # resident: K1
+            assert np.isfinite(img).all() and (img >= 0).all() and img[..., :3].mean() > 0.01
+            imgs[label] = img
+            if visible == nee:  # NEE on and visible, NEE off and invisible
+                passes[label] = check_dome_pass(dp.of("dome_pass")[0], label)
+        vis, inv = imgs[f"cornell_dome{'_nee' if nee else ''}"], imgs[
+            f"cornell_dome{'_nee' if nee else ''}_invisible"]
+        diff = vis[..., :3] - inv[..., :3]
+        changed = float((diff != 0).any(-1).mean())
+        log(f"cornell_dome nee={nee}: camera-invisible frame differs on {changed:.4f} of pixels "
+            f"(camera rays that missed), by at most {float(diff.max()):.4f}")
+        assert (diff >= 0).all() and 0.0 < changed < 0.5, (nee, changed)
+
+    # the CLI on the .usda that holds the DomeLight prim
+    png = os.path.join(tex_dir, "cornell_dome.png")
+    for k in tb.launches:
+        tb.launches[k] = 0
+    t0 = time.perf_counter()
+    rc = cli.main([assets["usda"], png, "--image-width", str(AOVS_RES), "--image-height",
+                   str(AOVS_RES), "--spp", str(AOVS_SPP), "--max-bounces", str(AOVS_BOUNCES),
+                   "--device", str(device)])
+    cli_s = time.perf_counter() - t0
+    cli_img = imgio.load_image_file(png)[..., :3].astype(np.int32)
+    same = float((np.abs(cli_img - srgb8(imgs["cornell_dome"])) <= 1).all(-1).mean())
+    log(f"cornell_dome through the CLI: rc {rc}, {cli_s:.2f} s, K1 launches {tb.launches['K1']}, "
+        f"{same:.6f} of pixels within one code of the gi frame's sRGB")
+    assert rc == 0 and tb.launches["K1"] > 0 and same >= 0.999
+    frames["cornell_dome_cli_s"] = cli_s
+
+    # sphere_field_dome: the float32 sky, rotated, scaled
+    params = desc_params(device, sphere_field(), SF_RES, dict(
+        spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True))
+    dome = gi.giCreateDomeLight(params.scene, assets["sf_sky"])
+    gi.giSetDomeLightRotation(dome, DOME_ROTATION)
+    gi.giSetDomeLightBaseEmission(dome, DOME_EMISSION)
+    with KernelCalls(1, ("dome_pass",)) as dp:
+        img, frames["sphere_field_dome"], launches["sphere_field_dome"] = first_and_warm(
+            params, f"sphere_field_dome {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee",
+            {"K2"})
+    assert params.scene._fused_static.instanced and np.isfinite(img).all() and (img >= 0).all()
+    passes["sphere_field_dome"] = check_dome_pass(dp.of("dome_pass")[0], "sphere_field_dome")
+
+    # cornell_aovs_dome: the wavefront, every AOV; the fused frame of the
+    # same samples against it
+    params = cornell_dome_params(device, assets["usda"], True, True, every_aov=True)
+    desc = f"cornell_aovs_dome {AOVS_RES}^2 {AOVS_SPP}spp {AOVS_BOUNCES} bounces nee, every AOV"
+    _aovs, first, _ = timed_aov_render(params, desc + " (first frame)")
+    aovs, warm, lc = timed_aov_render(params, desc + " (warm)")
+    assert lc["K5"] > 0 and lc["K6"] > 0, lc
+    assert all(lc[k] == 0 for k in ("K1", "K2", "K3", "K4", "K4f", "K7", "K8")), lc
+    check_aovs(aovs, params, "cornell_aovs_dome")
+    frames["cornell_aovs_dome"] = dict(first_s=first, warm_s=[warm])
+    launches["cornell_aovs_dome"] = lc
+    frames["cornell_dome_vs_wavefront"] = mean_gap(imgs["cornell_dome_nee"], aovs[AovId.COLOR],
+                                                   "cornell_dome_nee against cornell_aovs_dome")
+
+    # interior_hdr_textured: K3 and K4's FLT instance; its waves for 3h
+    hdr = interior_hdr_desc(tex_dir)
+    params = desc_params(device, hdr, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                   nextEventEstimation=True))
+    label = f"interior_hdr_textured {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee"
+    img, frames["interior_hdr_textured"], lc = first_and_warm(params, label, {"K3", "K4f"})
+    assert split_ref.stage_calls == 0 and np.isfinite(img).all() and (img >= 0).all()
+    pool = params.scene._texture_pool
+    assert not pool.packed and pool.texels.shape[0] > HDR_FLOOR ** 2, pool.texels.shape
+    launches["interior_hdr_textured"] = lc
+    waves, _ = record_fused_waves(gi_frame(params))
+    replay["interior_hdr_textured"] = (params.scene._fused, params.scene._fused_static, waves,
+                                       True)
+    log(f"interior_hdr_textured: a float pool of {pool.texels.shape[0]} texels "
+        f"({pool.texels.numel() * 4} B) over {pool.count} slots")
+
+    # interior_hdr_first_hit: K4t's FLT instance at the peel
+    settings = merged_settings(hdr, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True)
+    params = fh_params(device, hdr, SF_RES, settings)
+    bufs, frames["interior_hdr_first_hit"], lc, calls = frame_pair(
+        params, f"interior_hdr_first_hit {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee",
+        {"K3", "K4f", "K4tf"}, record=4)
+    assert lc["K4tf"] == SF_SPP and lc["K3"] == lc["K4f"] > SF_SPP, lc
+    # an HDR base colour reaches 4: the albedo's diffuse part with it
+    frames["interior_hdr_first_hit"]["hit_share"] = check_first_hit(
+        bufs, "interior_hdr_first_hit", albedo_max=4.0 + ALBEDO_MAX)
+    launches["interior_hdr_first_hit"] = lc
+    hit, mats, pool, active = calls.of("tap_rows")[0]
+    # the same wave's opacity tapped through the float pool: every
+    # material's opacity the floor EXR's green channel (TAP_OPACITY)
+    pi = mats.packed_i.clone()
+    pi[:, MI_OPACITY_TEX] = int((pool.width == HDR_FLOOR).nonzero()[0, 0])
+    pi[:, MI_OPACITY_CH] = 1
+    tap_waves = [("interior_hdr_first_hit", (hit, mats, pool, active)),
+                 ("interior_hdr_opacity", (hit, MaterialTable(mats.packed_f, pi), pool,
+                                           (*active, "opacity")))]
+
+    # K4's FLT instance over resident tables, for 3h
+    params = cornell_hdr_params(device, tex_dir)
+    waves, _ = record_fused_waves(gi_frame(params))
+    assert params.scene._fused.walk is None and not params.scene._texture_pool.packed
+    replay["cornell_hdr_textured"] = (params.scene._fused, params.scene._fused_static, waves,
+                                      False)
+    return frames, launches, replay, tap_waves, passes
+
+
+def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict) -> list[dict]:
+    """The kernels-line entries of K4's and K4t's FLT instances from 3h's
+    numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
+    instance on cornell_hdr_textured's beside it), K4t on
+    interior_hdr_first_hit's peel wave (with TAP_OPACITY beside it);
+    launches per frame of 4k."""
+    r, c = branch["interior_hdr_textured"], branch["cornell_hdr_textured"]
+    t, o = taps["interior_hdr_first_hit"], taps["interior_hdr_opacity"]
+    return [{
+        "name": "shade_step (K4, FLT: a float texel pool)",
+        "route": "cuda",
+        "source": "gatling_tpu_torch/csrc/bounce.cu",
+        "replaces": "gatling_tpu/ops/pallas_bounce.py:3705 shade_step -> _shade_kernel :3370 "
+                    "with the texture stage gatling_tpu/render/fused.py:241 _material_rows over "
+                    "a float pool (gatling_tpu/render/texture.py:479-484)",
+        "launches": launches["interior_hdr_textured"]["K4f"],
+        "max_abs_err": max(r["err"], c["err"]),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1], "library_ms": None, "rays": r["rays"], "alive": r["alive"],
+        "texture_stage_ms": r["stage_ms"], "shadow_walk_work": r["k4_work"],
+        "distinct_texel_rows": r["k4_texels"], "bound_ms_pr3_9_floor": r["k4_floor"][0],
+        "ms_resident_cornell_hdr": c["ms"], "plain_ms_resident_cornell_hdr": c["plain_ms"],
+        "bound_ms_resident_cornell_hdr": c["bound"][0],
+        "distinct_texel_rows_resident_cornell_hdr": c["k4_texels"],
+    }, {
+        "name": "tap_rows (K4t, FLT: a float texel pool)",
+        "route": "cuda",
+        "source": "gatling_tpu_torch/csrc/bounce.cu",
+        "replaces": "gatling_tpu/render/fused.py:241 _material_rows over a float pool "
+                    "(gatling_tpu/render/texture.py:479-484) at the bounce-0 peel :481-490",
+        "launches": launches["interior_hdr_first_hit"]["K4tf"],
+        "max_abs_err": tap_errs["taps"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": None, "rays": t["rays"],
+        "hit_rays": t["hit_rays"], "distinct_texel_rows": t["distinct_texel_rows"],
+        "ms_opacity": o["ms"], "plain_ms_opacity": o["plain_ms"],
+        "bound_ms_opacity": o["bound"][0],
+    }]
+
+
 def phase_goldens(device, out_dir: str):
     """The committed graphical scenes that tests/test_torch_graphical.py
     renders, through gatling_tpu_torch.testing.run_graphical_test on the
@@ -3623,6 +3945,18 @@ def main() -> int:
     peel, peel_errs = phase_taps(device, tap_waves, clip_waves, cut_calls)
     del tap_waves, clip_waves, cut_calls
     log(f"phase 3g: {time.perf_counter() - t0:.1f} s")
+
+    # 4k: dome lights and float texel pools through gi.render; 3h: K4's and
+    # K4t's FLT instances against their twins on 4k's waves
+    t0 = time.perf_counter()
+    dome_frames, dome_launches, hdr_replay, hdr_taps, dome_passes = phase_dome(device,
+                                                                               tex_tmp.name)
+    log(f"phase 4k: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hdr_branch = phase_branches(device, hdr_replay, exact=True)
+    hdr_tap_times, hdr_tap_errs = phase_taps(device, hdr_taps, {}, KernelCalls(0))
+    del hdr_replay, hdr_taps
+    log(f"phase 3h: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -3638,6 +3972,8 @@ def main() -> int:
                     **cut_launches}
     log(f"first-hit frames {fh_frames}; clipping frames {clip_frames}; textured-cutout frames "
         f"{cut_frames}; their launches {new_launches}; goldens {goldens}")
+    log(f"dome and float-pool frames {dome_frames}; their launches {dome_launches}; the dome "
+        f"pass {dome_passes}")
     taps = peel["cornell_first_hit"]
 
     k2 = walk_times[("instanced", "generated", False)]
@@ -3766,6 +4102,7 @@ def main() -> int:
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
+        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

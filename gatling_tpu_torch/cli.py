@@ -7,7 +7,8 @@ plain twins on the CPU (`--device cpu`). The flags are the JAX package's
 camera path, AOV, gamma, and one flag per render setting. `--aov` takes
 every AOV: colour and the first-hit normal, albedo, depth and texcoords
 render through the fused kernels, the others through the wavefront
-integrator (gi.py), the ids into int32 buffers. `--watch`
+integrator (gi.py), the ids into int32 buffers. A `DomeLight` prim's
+`inputs:texture:file` becomes the scene's dome light. `--watch`
 and `--checkpoint` are not ported yet and raise.
 """
 
@@ -36,7 +37,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         prog="gatling",
         description="USD path tracer, PyTorch + CUDA port (gatling_tpu_torch)")
     p.add_argument("scene", help="input USD scene (.usda)")
-    p.add_argument("output", help="output image (.png)")
+    p.add_argument("output", help="output image (.png; .exr or .hdr for linear values)")
     p.add_argument("--image-width", type=int, default=1200)
     p.add_argument("--image-height", type=int, default=1200)
     p.add_argument("--camera-path", type=str, default=None)
@@ -126,15 +127,19 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
 
 def write_output(img: np.ndarray, path: str, gamma_correction: bool = True,
                  aov: AovId = AovId.COLOR) -> None:
-    """Flip to image row order (main.cpp:224-249), encode colour as sRGB
-    (ids as grey levels over their maximum), write PNG."""
+    """Flip to image row order (main.cpp:224-249) and write: a .png with
+    colour encoded as sRGB (ids as grey levels over their maximum), an .exr
+    or .hdr with the linear values (gatling_tpu/cli.py _write_output)."""
     out = img[::-1]
     if out.dtype == np.int32:
         out = out.astype(np.float32) / max(1.0, float(out.max()))
-    rgb = out[:, :, :3] if out.shape[2] >= 3 else np.repeat(out, 3, axis=2)
-    if gamma_correction and aov == AovId.COLOR:
-        rgb = linear_to_srgb(rgb)
-    imgio.write_image_file(path, np.clip(rgb, 0, 1).astype(np.float32))
+    if path.lower().endswith((".exr", ".hdr")):
+        imgio.write_image_file(path, out.astype(np.float32))
+    else:
+        rgb = out[:, :, :3] if out.shape[2] >= 3 else np.repeat(out, 3, axis=2)
+        if gamma_correction and aov == AovId.COLOR:
+            rgb = linear_to_srgb(rgb)
+        imgio.write_image_file(path, np.clip(rgb, 0, 1).astype(np.float32))
     get_logger().info("wrote %s", path)
 
 

@@ -66,7 +66,11 @@
 // whose slots all wrap `repeat`) or four 4-byte reads through the wrap
 // modes, through the read-only cache, with the slot records, the
 // materials' slot columns and a 256-entry sRGB decode table in shared
-// memory. K4 writes every row of the path state before its NEE shadow
+// memory. A float pool (an EXR or Radiance HDR slot makes the whole pool
+// float, render/texture.py build_pool) holds linear [4] f32 texels: the
+// FLT instances of K4 and of its taps alone read four 16-byte texels a tap
+// through the wrap modes, with no sRGB table and no 2x2 rows; the 8-bit
+// instances are compiled without that code. K4 writes every row of the path state before its NEE shadow
 // walk, and after it only the radiance of an unoccluded shadow ray, so
 // that little of the shaded ray stays live across the walk. K3 reuses K1's closest-hit walk and K2's walk
 // and pass 2; K4 runs the shading core and the NEE shadow walks that K1
@@ -639,7 +643,9 @@ __device__ __forceinline__ float medium_row(bool inside, const Ray& r, bool ente
   return 2.0f + mid_new + 64.0f * walk_new;
 }
 
-// Miss: constant background (no dome: not ported); a walk step is no miss.
+// Miss: constant background, the miss recorded (row 14: the bounce + 1),
+// from which the sample loop adds a dome light's radiance after the last
+// bounce (render/fused.py dome_pass); a walk step is no miss.
 __device__ __forceinline__ void shade_miss(const float* p, Ray& r, bool step = false) {
   r.miss = !r.hit && !step;
   if (r.miss) {
@@ -1096,8 +1102,9 @@ constexpr int SLOT_F = 8;  // scale, bias
 // table's integer columns, as K4 reads them.
 struct Taps {
   const int* mat_i;     // [n_mats, 10] the MI_* columns
-  const uint32_t* u32;  // [N + 1] each texel's rgba8 codes
+  const uint32_t* u32;  // [N + 1] each texel's rgba8 codes (an 8-bit pool)
   const int4* q22;      // [N + 1] each texel's 2x2 row (repeat baked in), or null
+  const float4* f32;    // [N] each texel's linear RGBA (a float pool)
   const int *offset, *width, *height, *wrap_s, *wrap_t, *is_srgb;  // [T] a slot each
   const float *scale, *bias;  // [T, 4]
   const float* lut;           // [256] the sRGB decode of each 8-bit code
@@ -1178,8 +1185,17 @@ __device__ __forceinline__ float4 unpack_texel(uint32_t code, bool srgb, const f
   return valid ? make_float4(c[0], c[1], c[2], c[3]) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
+// One texel of a float pool, zeros when not `valid` (sample_pool's float
+// branch: the gathered row, then the black-wrap select).
+__device__ __forceinline__ float4 float_texel(const Taps& tx, int k, bool valid) {
+  const float4 c = __ldg(tx.f32 + k);
+  return valid ? c : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
 // The bilinear tap of slot `slot` at (u, v) (sample_pool: v up, texel
-// centres at half integers), its scale and bias applied: RGBA.
+// centres at half integers), its scale and bias applied: RGBA. FLT: the
+// float pool's texels, through the wrap modes.
+template <bool FLT>
 __device__ __forceinline__ float4 tap(const Taps& tx, const TapTables& tt, int slot, float u,
                                       float v) {
   const int* si = tt.slot_i + slot * SLOT_I;
@@ -1191,7 +1207,15 @@ __device__ __forceinline__ float4 tap(const Taps& tx, const TapTables& tt, int s
   const float fx = x - x0f, fy = y - y0f;
   const int x0 = (int)x0f, y0 = (int)y0f;
   float4 c00, c10, c01, c11;
-  if (tx.q22 != nullptr) {
+  if constexpr (FLT) {
+    bool vx0, vx1, vy0, vy1;
+    const int xa = wrap_coord(x0, w, si[3], vx0), xb = wrap_coord(x0 + 1, w, si[3], vx1);
+    const int ya = wrap_coord(y0, h, si[4], vy0), yb = wrap_coord(y0 + 1, h, si[4], vy1);
+    c00 = float_texel(tx, off + ya * w + xa, vx0 && vy0);
+    c10 = float_texel(tx, off + ya * w + xb, vx1 && vy0);
+    c01 = float_texel(tx, off + yb * w + xa, vx0 && vy1);
+    c11 = float_texel(tx, off + yb * w + xb, vx1 && vy1);
+  } else if (tx.q22 != nullptr) {
     const int4 q = __ldg(tx.q22 + off + floor_mod(y0, h) * w + floor_mod(x0, w));
     c00 = unpack_texel((uint32_t)q.x, srgb, tt.lut);
     c10 = unpack_texel((uint32_t)q.y, srgb, tt.lut);
@@ -1254,7 +1278,7 @@ __device__ __forceinline__ void perturb(const float4 nm, const float t[3], float
 // tangent rows when the buffer has them), and its material: the table's
 // row, the textured parameters of `tx.mask` tapped where the material
 // binds a slot, and the shading normal normal-mapped (TAP_NORMAL).
-template <bool ADV, int VOL = VOL_OFF>
+template <bool ADV, int VOL = VOL_OFF, bool FLT = false>
 __device__ __forceinline__ void read_hit(const float* hit, bool hit_tan, const float* s_mat,
                                          int n_mats, const Taps& tx, const TapTables& tt,
                                          long long R, long long i, Ray& r, Hit& h, Mat& m) {
@@ -1278,20 +1302,22 @@ __device__ __forceinline__ void read_hit(const float* hit, bool hit_tan, const f
   const float u = hit[H_UV * R + i], v = hit[(H_UV + 1) * R + i];
   const int* mi = tt.mi + TAP_MI * min(max((int)rintf(mat_f), 0), n_mats - 1);
   if ((tx.mask & TAP_BASE) && mi[0] >= 0) {
-    const float4 t = tap(tx, tt, mi[0], u, v);
+    const float4 t = tap<FLT>(tx, tt, mi[0], u, v);
     m.base[0] = t.x;
     m.base[1] = t.y;
     m.base[2] = t.z;
   }
   if ((tx.mask & TAP_EMISSIVE) && mi[1] >= 0) {
-    const float4 t = tap(tx, tt, mi[1], u, v);
+    const float4 t = tap<FLT>(tx, tt, mi[1], u, v);
     m.em[0] = t.x;
     m.em[1] = t.y;
     m.em[2] = t.z;
   }
-  if ((tx.mask & TAP_METAL) && mi[2] >= 0) m.metallic = channel(tap(tx, tt, mi[2], u, v), mi[5]);
-  if ((tx.mask & TAP_ROUGH) && mi[3] >= 0) m.roughness = channel(tap(tx, tt, mi[3], u, v), mi[6]);
-  if (nmap && mi[4] >= 0) perturb(tap(tx, tt, mi[4], u, v), h.tan, h.tbs, h.n);
+  if ((tx.mask & TAP_METAL) && mi[2] >= 0)
+    m.metallic = channel(tap<FLT>(tx, tt, mi[2], u, v), mi[5]);
+  if ((tx.mask & TAP_ROUGH) && mi[3] >= 0)
+    m.roughness = channel(tap<FLT>(tx, tt, mi[3], u, v), mi[6]);
+  if (nmap && mi[4] >= 0) perturb(tap<FLT>(tx, tt, mi[4], u, v), h.tan, h.tbs, h.n);
 }
 
 // ---------------------------------------------------------------------------
@@ -1499,7 +1525,7 @@ __device__ __forceinline__ bool stage_k4(bool alive, const float* mats, int n_ma
 // the taps (read_hit), the shading core, and every row of the path state
 // written (write_path, the radiance without the NEE contribution).
 // Returns whether the ray traces a shadow ray, which `sh` then holds.
-template <bool NEE, bool ADV, int VOL>
+template <bool NEE, bool ADV, int VOL, bool FLT>
 __device__ __forceinline__ bool shade_split(const float* p, const float* s_mat, int n_mats,
                                             const float* s_light, const int* s_ltype,
                                             int n_lights, const float* hit, bool hit_tan,
@@ -1513,7 +1539,7 @@ __device__ __forceinline__ bool shade_split(const float* p, const float* s_mat, 
   load_path(r, state, R, i);
   Hit h;
   Mat m;
-  read_hit<ADV, VOL>(hit, hit_tan, s_mat, n_mats, tx, tt, R, i, r, h, m);
+  read_hit<ADV, VOL, FLT>(hit, hit_tan, s_mat, n_mats, tx, tt, R, i, r, h, m);
   shade_miss(p, r);
   const bool inside = VOL != VOL_OFF && state[S_ALIVE * R + i] > 1.5f;
   if (r.hit) shade_core<NEE, ADV, VOL>(p, m, h, s_light, s_ltype, n_lights, r, inside);
@@ -1527,7 +1553,7 @@ __device__ __forceinline__ bool shade_split(const float* p, const float* s_mat, 
 // K4, resident: shading from the hit buffer with its own texture taps, the
 // path state written; then the NEE shadow ray walks the resident table's
 // tree as in K1 and writes the radiance if unoccluded.
-template <bool NEE, bool ADV, bool CUT, int VOL>
+template <bool NEE, bool ADV, bool CUT, int VOL, bool FLT>
 __global__ void __launch_bounds__(THREADS)
 shade_kernel(const float* __restrict__ params, TriTree tree, const float* __restrict__ mats,
              int n_mats, const float* __restrict__ lights, const int8_t* __restrict__ ltypes,
@@ -1545,8 +1571,8 @@ shade_kernel(const float* __restrict__ params, TriTree tree, const float* __rest
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
   Shadow sh;
-  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
-                                 tx, tt, state, R, i, sh) &&
+  if (shade_split<NEE, ADV, VOL, FLT>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit,
+                                      hit_tan != 0, tx, tt, state, R, i, sh) &&
       !tree_occluded<CUT>(tree, sh.o, sh.ld, sh.ldist, sh.key))
     write_rad(sh.rad, state, R, i);
 }
@@ -1956,7 +1982,7 @@ trace_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
 
 // K4 over the walk: shading from the hit buffer with its own texture taps,
 // the path state written; then the NEE shadow ray's any-hit walk.
-template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL>
+template <bool NEE, bool INST, bool TAN, bool ADV, bool CUT, int VOL, bool FLT>
 __global__ void __launch_bounds__(THREADS)
 shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restrict__ mats,
                   int n_mats, const float* __restrict__ lights,
@@ -1974,8 +2000,8 @@ shade_walk_kernel(const float* __restrict__ params, Walk w, const float* __restr
   float p[PARAMS_LEN];
   for (int k = 0; k < PARAMS_LEN; ++k) p[k] = __ldg(params + k);
   Shadow sh;
-  if (shade_split<NEE, ADV, VOL>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit, hit_tan != 0,
-                                 tx, tt, state, R, i, sh) &&
+  if (shade_split<NEE, ADV, VOL, FLT>(p, s_mat, n_mats, s_light, s_ltype, n_lights, hit,
+                                      hit_tan != 0, tx, tt, state, R, i, sh) &&
       !walk_occluded<INST, TAN, CUT>(w, sh.o, sh.ld, sh.ldist, sh.key))
     write_rad(sh.rad, state, R, i);
 }
@@ -2014,6 +2040,8 @@ cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restric
 // sample loop read them. With TAP_OPACITY the opacity is tapped where the
 // material binds an opacity slot (its slot and channel columns read from
 // global memory: K4's shared table stays as it is), else the table's.
+// FLT: over a float pool.
+template <bool FLT>
 __global__ void __launch_bounds__(THREADS)
 tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__ hit,
            int hit_tan, long long R, Taps tx, float* __restrict__ out) {
@@ -2025,13 +2053,13 @@ tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__
   Ray r = {};
   Hit h;
   Mat m;
-  read_hit<false>(hit, hit_tan != 0, mats, n_mats, tx, tt, R, i, r, h, m);
+  read_hit<false, VOL_OFF, FLT>(hit, hit_tan != 0, mats, n_mats, tx, tt, R, i, r, h, m);
   const int mat = min(max((int)rintf(hit[H_MAT * R + i]), 0), n_mats - 1);
   float opacity = mats[mat * MAT_COLS + MF_OPACITY];
   if ((tx.mask & TAP_OPACITY) && r.hit) {
     const int slot = __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_TEX);
     if (slot >= 0)
-      opacity = channel(tap(tx, tt, slot, hit[H_UV * R + i], hit[(H_UV + 1) * R + i]),
+      opacity = channel(tap<FLT>(tx, tt, slot, hit[H_UV * R + i], hit[(H_UV + 1) * R + i]),
                         __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_CH));
   }
   const float rows[12] = {m.base[0], m.base[1], m.base[2], m.em[0],  m.em[1], m.em[2],
@@ -2078,17 +2106,58 @@ extern "C" {
 #define TREE_STRUCT {nodes, kids, trows}
 
 // K4's texture pool and material slot columns (ops/bounce.py
-// BounceKernel.launch_shade): the MI_* table, the texels and their 2x2
-// rows (q22 null unless every slot wraps repeat), the per-slot offset,
+// BounceKernel.launch_shade): the MI_* table, the 8-bit texels and their
+// 2x2 rows (q22 null unless every slot wraps repeat), the float texels
+// (read by the FLT instances alone), the per-slot offset,
 // width, height, wrap modes, sRGB flag, scale and bias, the sRGB decode
 // table, the slot count and the TAP_* mask (0: no taps).
-#define TAP_ARGS                                                                          \
-  const int *mat_i, const uint32_t *u32, const int *q22, const int *t_off, const int *t_w, \
-      const int *t_h, const int *t_ws, const int *t_wt, const int *t_srgb,                 \
+#define TAP_ARGS                                                                           \
+  const int *mat_i, const uint32_t *u32, const int *q22, const float *f32, const int *t_off, \
+      const int *t_w, const int *t_h, const int *t_ws, const int *t_wt, const int *t_srgb,   \
       const float *t_scale, const float *t_bias, const float *lut, int n_slots, int taps
-#define TAP_STRUCT                                                                         \
-  {mat_i, u32, reinterpret_cast<const int4*>(q22), t_off, t_w, t_h, t_ws, t_wt, t_srgb,     \
-   t_scale, t_bias, lut, n_slots, taps}
+#define TAP_STRUCT                                                                           \
+  {mat_i, u32, reinterpret_cast<const int4*>(q22), reinterpret_cast<const float4*>(f32),      \
+   t_off, t_w, t_h, t_ws, t_wt, t_srgb, t_scale, t_bias, lut, n_slots, taps}
+
+// K4's taps alone on hit buffer `hit` into out [12, n_rays] (tap_kernel):
+// gatling_tap_rows over an 8-bit pool, gatling_tap_rows_flt over a float one.
+#define TAP_ROWS(NAME, FLT_)                                                      \
+  int NAME(const float* mats, int n_mats, const float* hit, int hit_tan,         \
+           long long n_rays, TAP_ARGS, float* out, void* stream) {               \
+    if (n_rays <= 0) return 0;                                                    \
+    const Taps tx = TAP_STRUCT;                                                   \
+    const size_t smem = sizeof(int) * tap_smem_words(n_mats, n_slots);            \
+    if (int err = allow_smem(tap_kernel<FLT_>, smem)) return err;                 \
+    tap_kernel<FLT_> CONFIG(smem)(mats, n_mats, hit, hit_tan, n_rays, tx, out);   \
+    return (int)cudaGetLastError();                                               \
+  }
+
+// K4, resident: shade state [16, n_rays] in place from the hit buffer
+// (hit_tan: with the tangent rows), tapping the textures itself: an 8-bit
+// pool (gatling_shade_resident) or a float one (gatling_shade_resident_flt).
+#define SHADE_RESIDENT(NAME, FLT_)                                                            \
+  int NAME(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,               \
+           const float* lights, const int8_t* light_types, int n_lights, float* state,        \
+           long long n_rays, const float* hit, int hit_tan, TAP_ARGS, int nee, int adv,       \
+           int cut, int vol, void* stream) {                                                  \
+    if (n_rays <= 0) return 0;                                                                \
+    const Taps tx = TAP_STRUCT;                                                               \
+    const size_t smem = shade_smem(n_mats, n_lights, tx);                                     \
+    const TriTree tree = TREE_STRUCT;                                                         \
+    return with_flag(nee, [&](auto nee_) {                                                    \
+      return with_flag(adv, [&](auto adv_) {                                                  \
+        return with_flag(cut, [&](auto cut_) {                                                \
+          return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {                          \
+            auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_), FLT_>;               \
+            if (int err = allow_smem(kern, smem)) return err;                                 \
+            kern CONFIG(smem)(params, tree, mats, n_mats, lights, light_types, n_lights,      \
+                              state, n_rays, hit, hit_tan, tx);                               \
+            return (int)cudaGetLastError();                                                   \
+          });                                                                                 \
+        });                                                                                   \
+      });                                                                                     \
+    });                                                                                       \
+  }
 
 #if PART(0)
 const char* gatling_error_string(int code) {
@@ -2105,17 +2174,7 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
   return (int)cudaGetLastError();
 }
 
-// K4's taps alone on hit buffer `hit` into out [12, n_rays] (tap_kernel).
-int gatling_tap_rows(const float* mats, int n_mats, const float* hit, int hit_tan,
-                     long long n_rays, TAP_ARGS, float* out, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Taps tx = TAP_STRUCT;
-  const size_t smem = sizeof(int) * tap_smem_words(n_mats, n_slots);
-  if (int err = allow_smem(tap_kernel, smem)) return err;
-  tap_kernel CONFIG(smem)(mats, n_mats, hit, hit_tan, n_rays, tx, out);
-  return (int)cudaGetLastError();
-}
-
+TAP_ROWS(gatling_tap_rows, false)
 
 // K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
 int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* state,
@@ -2131,30 +2190,7 @@ int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* st
   });
 }
 
-// K4, resident: shade state [16, n_rays] in place from the hit buffer
-// (hit_tan: with the tangent rows), tapping the textures itself.
-int gatling_shade_resident(const float* params, RESIDENT_TABLES, const float* mats, int n_mats,
-                           const float* lights, const int8_t* light_types, int n_lights,
-                           float* state, long long n_rays, const float* hit, int hit_tan,
-                           TAP_ARGS, int nee, int adv, int cut, int vol, void* stream) {
-  if (n_rays <= 0) return 0;
-  const Taps tx = TAP_STRUCT;
-  const size_t smem = shade_smem(n_mats, n_lights, tx);
-  const TriTree tree = TREE_STRUCT;
-  return with_flag(nee, [&](auto nee_) {
-    return with_flag(adv, [&](auto adv_) {
-      return with_flag(cut, [&](auto cut_) {
-        return with_vol<VOL_OFF, VOL_ABSORB>(vol, [&](auto vol_) {
-          auto kern = shade_kernel<V(nee_), V(adv_), V(cut_), V(vol_)>;
-          if (int err = allow_smem(kern, smem)) return err;
-          kern CONFIG(smem)(params, tree, mats, n_mats, lights, light_types, n_lights, state,
-                            n_rays, hit, hit_tan, tx);
-          return (int)cudaGetLastError();
-        });
-      });
-    });
-  });
-}
+SHADE_RESIDENT(gatling_shade_resident, false)
 #endif
 
 #if PART(5)
@@ -2248,8 +2284,8 @@ BOUNCE_WALK(gatling_bounce_walk, false, VOL_OFF, VOL_OFF)
 BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
 #endif
 // K4 over the walk, NEE off (gatling_shade_walk) or on (gatling_shade_walk_nee),
-// the volume modes VLO..VHI.
-#define SHADE_WALK(NAME, NEE_, VLO, VHI)                                                      \
+// the volume modes VLO..VHI, over an 8-bit pool or (..._flt) a float one.
+#define SHADE_WALK(NAME, NEE_, VLO, VHI, FLT_)                                                \
   int NAME(const float* params, WALK_TABLES, const float* mats, int n_mats,                   \
            const float* lights, const int8_t* light_types, int n_lights, float* state,        \
            long long n_rays, const float* hit, int hit_tan, TAP_ARGS, int adv, int cut,       \
@@ -2264,7 +2300,7 @@ BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
           return with_flag(adv, [&](auto adv_) {                                              \
             return with_flag(cut, [&](auto cut_) {                                            \
               auto kern =                                                                     \
-                  shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_)>;      \
+                  shade_walk_kernel<NEE_, V(inst_), V(tan_), V(adv_), V(cut_), V(vol_), FLT_>; \
               if (int err = allow_smem(kern, smem)) return err;                               \
               kern CONFIG(smem)(params, w, mats, n_mats, lights, light_types, n_lights,       \
                                 state, n_rays, hit, hit_tan, tx);                             \
@@ -2277,10 +2313,10 @@ BOUNCE_WALK(gatling_bounce_walk_nee, true, VOL_OFF, VOL_OFF)
   }
 
 #if PART(3)
-SHADE_WALK(gatling_shade_walk, false, VOL_OFF, VOL_OFF)
+SHADE_WALK(gatling_shade_walk, false, VOL_OFF, VOL_OFF, false)
 #endif
 #if PART(4)
-SHADE_WALK(gatling_shade_walk_nee, true, VOL_OFF, VOL_OFF)
+SHADE_WALK(gatling_shade_walk_nee, true, VOL_OFF, VOL_OFF, false)
 #endif
 #if PART(6)
 BOUNCE_WALK(gatling_bounce_walk_vol, false, VOL_ABSORB, VOL_SCATTER)
@@ -2290,10 +2326,28 @@ BOUNCE_WALK(gatling_bounce_walk_vol_nee, true, VOL_ABSORB, VOL_SCATTER)
 #endif
 
 #if PART(8)
-SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB)
+SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB, false)
 #endif
 #if PART(9)
-SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB)
+SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB, false)
+#endif
+
+// the float pool's instances of K4 and of its taps alone, in parts of their own
+#if PART(10)
+TAP_ROWS(gatling_tap_rows_flt, true)
+SHADE_RESIDENT(gatling_shade_resident_flt, true)
+#endif
+#if PART(11)
+SHADE_WALK(gatling_shade_walk_flt, false, VOL_OFF, VOL_OFF, true)
+#endif
+#if PART(12)
+SHADE_WALK(gatling_shade_walk_nee_flt, true, VOL_OFF, VOL_OFF, true)
+#endif
+#if PART(13)
+SHADE_WALK(gatling_shade_walk_vol_flt, false, VOL_ABSORB, VOL_ABSORB, true)
+#endif
+#if PART(14)
+SHADE_WALK(gatling_shade_walk_vol_nee_flt, true, VOL_ABSORB, VOL_ABSORB, true)
 #endif
 
 }  // extern "C"

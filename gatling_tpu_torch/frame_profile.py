@@ -9,6 +9,7 @@
     python -m gatling_tpu_torch.frame_profile --scene glass_tinted   # an absorbing medium
     python -m gatling_tpu_torch.frame_profile --scene cornell_first_hit   # the bounce-0 peel
     python -m gatling_tpu_torch.frame_profile --scene interior_first_hit
+    python -m gatling_tpu_torch.frame_profile --scene sphere_field_dome   # the dome pass
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
 4 spp, 6 bounces): sphere_field with NEE off and on, or the textured
@@ -22,7 +23,14 @@ cornell_first_hit / interior_first_hit, the fused route's first-hit
 frames: the Cornell box (as cornell_aovs) or the textured interior (512x512,
 4 spp, 6 bounces, NEE) with COLOR, NORMAL, ALBEDO, DEPTH and TEXCOORDS
 bound (bounce 0 of each sample peeled through K3, K4's taps alone and
-K4). For each: one warm-up frame through `gi.render`,
+K4); or sphere_field_dome, sphere_field (NEE on) under a 4096x2048
+float32 EXR sky written at run time (scene/examples.py write_sky), rotated
+30 degrees about the up axis with an emission multiplier (1.5, 1.4, 1.3):
+after the profile, the dome pass (render/fused.py dome_pass, PyTorch ops
+over the kernels' miss records) is timed alone on the profiled frame's
+final state, as the device time of one pass (CUDA events around 8
+passes queued behind a device sleep). For each: one warm-up frame through
+`gi.render`,
 then five frames on the same scene (host clock around each, ending in the
 image's copy to the host; the framebuffer is reset each time), then one
 more under torch.profiler. Prints the frame times and Mray/s (traced
@@ -62,6 +70,7 @@ import torch
 
 from gatling_tpu_torch import gi
 from gatling_tpu_torch.interface import AovId
+from gatling_tpu_torch.render import fused
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
@@ -201,7 +210,10 @@ def _k1_branches(params, field: str, values: tuple, nee: bool = False) -> None:
 
 
 def _params(scene_name: str, nee: bool, tex_dir: str):
-    from gatling_tpu_torch.scene.examples import interior, sphere_field
+    import math
+    import os
+
+    from gatling_tpu_torch.scene.examples import interior, sphere_field, write_sky
 
     if scene_name == "cornell_aovs":
         return _cornell_aovs()
@@ -221,6 +233,12 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
         scene.add_material(m)
     for light in desc.lights:
         scene.add_light(light)
+    if scene_name == "sphere_field_dome":
+        dome = gi.giCreateDomeLight(scene, write_sky(os.path.join(tex_dir, "sky_f32.exr"),
+                                                     4096, 2048, half=False))
+        gi.giSetDomeLightRotation(dome, (0.0, 0.0, math.sin(math.pi / 12),
+                                         math.cos(math.pi / 12)))
+        gi.giSetDomeLightBaseEmission(dome, (1.5, 1.4, 1.3))
     return gi.GiRenderParams(
         scene=scene, camera=desc.first_camera(),
         aov_bindings=(_every_aov(RES) if scene_name == "interior_aovs"
@@ -265,8 +283,20 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
           f"median {med:.5f} s; {rate}; route {route}")
 
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
-        wall = _frame(params)
+    passes = []
+    real_pass = fused.dome_pass
+
+    def recorded_pass(*args):  # keeps the first dome pass's inputs
+        if not passes:
+            passes.append(args)
+        return real_pass(*args)
+
+    fused.dome_pass = recorded_pass
+    try:
+        with torch.profiler.profile(activities=act) as prof:
+            wall = _frame(params)
+    finally:
+        fused.dome_pass = real_pass
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.time_range.end - e.time_range.start for e in dev) / 1e3
     by = {name: 0.0 for name, _ in GROUPS}
@@ -290,10 +320,46 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
     print("    the largest other kernels:")
     for name, (ms, n) in sorted(other.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"      {ms:.3f} ms in {n}: {name}")
+    if passes:
+        _dome_pass_time(passes[0])
     if scene_name == "glass_coated":
         _k1_branches(params, "advanced", (True, False))
     elif scene_name in ("cornell_fog", "glass_tinted"):
         _k1_branches(params, "volumes", (params.scene._fused.volumes, 0), nee=True)
+
+
+def _dome_pass_time(args, passes: int = 8) -> None:
+    """The device time of one dome pass on the frame's final state: CUDA
+    events around `passes` passes queued behind a device sleep that
+    outlasts their enqueue (about 60 PyTorch launches a pass: the passes
+    must fit the device's queue of pending launches, about a thousand)."""
+    def run():
+        fused.dome_pass(*args)
+
+    for _ in range(3):
+        run()
+    cycles = 20_000_000
+    for _ in range(4):
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            run()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        torch.cuda.synchronize()
+        if enqueue_ms < 0.8 * ev[0].elapsed_time(ev[1]):
+            break
+        cycles *= 4
+    else:
+        raise AssertionError("dome pass timing: the enqueue outlasted the device sleep")
+    radiance, state = args[0], args[1]
+    print(f"  dome pass: {ev[1].elapsed_time(ev[2]) / passes:.4f} ms of device time a pass over "
+          f"{radiance.shape[0]} rays ({int((state[14] > 0).sum())} missed), "
+          f"{radiance.shape[0] // (RES * RES)} samples a pixel in the wave")
 
 
 def main(argv=None) -> int:
@@ -301,7 +367,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
                                         "interior_aovs", "glass_coated", "cornell_fog",
                                         "glass_tinted", "cornell_first_hit",
-                                        "interior_first_hit"),
+                                        "interior_first_hit", "sphere_field_dome"),
                     default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -11,8 +11,9 @@ JAX package chooses (gatling_tpu/gi.py:650-700):
 
 * the fused bounce kernels, for a request of COLOR and the first-hit AOVs
   of FUSED_AOV_MASK (NORMAL, ALBEDO, DEPTH, TEXCOORDS) of a scene of any
-  size, instanced or not, untextured or with 8-bit UsdUVTexture textures
-  and normal maps, with the full lobe set (refraction, clearcoat,
+  size, instanced or not, untextured or with UsdUVTexture textures (8-bit
+  PNG, or EXR and Radiance HDR in a float pool) and normal maps, under a
+  dome light or not, with the full lobe set (refraction, clearcoat,
   anisotropy), cutout opacity (textured too) and camera clipping planes.
   Above 4096 triangles a scene takes the two-level walk, in instance
   tables when the JAX package's rule picks them (ops/bounce.py MIN_GAIN),
@@ -42,6 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from gatling_tpu_torch import imgio
 from gatling_tpu_torch.interface import AOV_CHANNELS, AOV_IS_INT, AovId, aov_bit, f32
 from gatling_tpu_torch.ops.bounce import (
     MAX_SCATTER_MATS,
@@ -65,10 +67,12 @@ from gatling_tpu_torch.render.camera import camera_uniforms
 from gatling_tpu_torch.render.fused import FUSED_AOV_MASK, render_pixels_fused
 from gatling_tpu_torch.render.integrator import (
     Accel,
+    DomeLightData,
     RenderConfig,
     SampleResult,
     Uniforms,
     blend_aovs,
+    default_dome,
     empty_first_hit,
     render_frame,
 )
@@ -118,6 +122,11 @@ class GiAovBinding:
 @dataclasses.dataclass
 class GiDomeLight:
     file_path: str | None = None
+    rotation: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0, 0, 0, 1.0], np.float32))  # quaternion (x, y, z, w)
+    base_emission: np.ndarray = dataclasses.field(default_factory=lambda: np.ones(3, np.float32))
+    diffuse: float = 1.0
+    specular: float = 1.0
 
 
 class GiScene:
@@ -212,12 +221,15 @@ def _params_key(params: GiRenderParams, width: int, height: int):
     """Camera + settings fingerprint for dirty detection
     (reference: _CalcDirtyFlagsForRenderParams Gi.cpp:1859-1987)."""
     c = params.camera
+    dome = params.dome_light or params.scene.dome_light
     return (
         tuple(np.asarray(c.position, np.float32)), tuple(np.asarray(c.forward, np.float32)),
         tuple(np.asarray(c.up, np.float32)), c.vfov, c.f_stop, c.focus_distance,
         c.focal_length, c.clip_start, c.clip_end, c.exposure,
         tuple(sorted((k, str(v)) for k, v in params.render_settings.items())),
         width, height,
+        (dome.file_path, tuple(np.asarray(dome.rotation, np.float32).tolist()),
+         tuple(np.asarray(dome.base_emission, np.float32).tolist())) if dome else None,
     )
 
 
@@ -263,6 +275,7 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
         clipping_planes=bool(s.get("clippingPlanes", False)),
         progressive=bool(s.get("progressiveAccumulation", True)),
         aov_mask=aov_mask,
+        dome_light_camera_visible=bool(s.get("domeLightCameraVisible", True)),
         has_dome=(params.dome_light or scene.dome_light) is not None,
         tex_lod_bounces=int(s.get("textureLodBounces", 0)),
         tracer=scene._tracer,
@@ -340,8 +353,10 @@ def shadow_cutout_pass(lowered: list, manager: TextureManager) -> np.ndarray | N
 
 
 def _textured(scene: GiScene) -> bool:
+    """The scene's pool holds textures, 8-bit or float (gatling_tpu/gi.py
+    :345-346, :656-658)."""
     pool = scene._texture_pool
-    return pool is not None and pool.packed
+    return pool is not None and pool.has_texels
 
 
 def _split(scene: GiScene) -> bool:
@@ -518,6 +533,7 @@ def render(params: GiRenderParams) -> None:
                  or not _volumes_fused(scene, config))
     _check_route(params)
     s = params.render_settings
+    dome_obj = params.dome_light or scene.dome_light
     uniforms = Uniforms(
         camera=camera_uniforms(params.camera, config.depth_of_field, scene.device),
         sample_offset=scene.sample_offset,
@@ -527,13 +543,15 @@ def render(params: GiRenderParams) -> None:
         light_intensity_multiplier=f32(s.get("lightIntensityMultiplier", 1.0)),
         meters_per_scene_unit=f32(s.get("metersPerSceneUnit", 1.0)),
         max_volume_walk_length=int(s.get("maxVolumeWalkLength", 7)),
+        **_dome_uniforms(dome_obj, scene.device),
     )
+    dome = _load_dome(dome_obj, scene.device) if config.has_dome else None
     if wavefront:
         if scene._accel is None:
             _build_accel(scene)
         scene._aov_state = render_frame(config, uniforms, scene._packed, scene._material_dev,
                                         scene._light_dev, scene._aov_state,
-                                        scene._texture_pool, scene._accel)
+                                        scene._texture_pool, scene._accel, dome)
         scene.last_segments = 0.0  # the wavefront does not count its segments
     else:
         if scene._fused is None:
@@ -550,7 +568,7 @@ def render(params: GiRenderParams) -> None:
             with_stats=True, materials=scene._material_dev if tables else None,
             textures=scene._texture_pool if tables else None,
             textured_params=static.textured_params, want_first_hit=want_first,
-            split=static.textured, cutout_textured=static.cutout_textured)
+            split=static.textured, cutout_textured=static.cutout_textured, dome=dome)
         color, segs = out[0], out[1]
         first = empty_first_hit(n, scene.device)
         if want_first:
@@ -578,6 +596,47 @@ def render(params: GiRenderParams) -> None:
     scene.sample_offset += config.spp  # Gi.cpp:2515
 
 
+def _dome_uniforms(dome: GiDomeLight | None, device) -> dict:
+    """The dome's uniforms (gatling_tpu/gi.py:641-645), its rotation and
+    emission on `device`: identity rotation, unit emission and
+    diffuse/specular without a dome."""
+    if dome is None:
+        return {}
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    return dict(dome_rotation=f32(dome.rotation), dome_emission_multiplier=f32(dome.base_emission),
+                dome_diffuse_specular=(float(dome.diffuse), float(dome.specular)))
+
+
+# decoded dome textures on their devices, by file path (gatling_tpu/gi.py:888)
+_dome_cache: dict[tuple[str, str], DomeLightData] = {}
+
+
+def _load_dome(dome: GiDomeLight | None, device) -> DomeLightData:
+    """The dome's equirect texture on `device`, decoded once a path
+    (gatling_tpu/gi.py:891-904); a dome without a file, or whose file fails
+    to decode, is black (logged)."""
+    if dome is None or dome.file_path is None:
+        return default_dome(device)
+    key = (dome.file_path, str(torch.device(device)))
+    cached = _dome_cache.get(key)
+    if cached is None:
+        try:
+            tex = imgio.as_float_rgba(imgio.load_image_file(dome.file_path))[:, :, :3]
+        except NotImplementedError:
+            raise  # a format the port does not read yet: never render something else
+        except Exception:  # noqa: BLE001
+            get_logger().error("failed to load dome light texture %s", dome.file_path)
+            tex = np.zeros((1, 1, 3), np.float32)
+        cached = DomeLightData(
+            texture=torch.as_tensor(np.ascontiguousarray(tex), device=device),
+            fallback=torch.zeros((1, 1, 3), dtype=torch.float32, device=device))
+        _dome_cache[key] = cached
+    return cached
+
+
 def _turbo_heatmap(values: np.ndarray) -> np.ndarray:
     """Normalise per-pixel costs and map them through the Turbo colormap
     (reference: src/gi/impl/Turbo.h, _EncodeRenderBufferAsHeatmap)."""
@@ -588,3 +647,29 @@ def _turbo_heatmap(values: np.ndarray) -> np.ndarray:
     g = np.polyval([-5.9311, 11.6060, -8.5590, 2.7747, 0.2484, 0.0914][::-1], t)
     bl = np.polyval([13.6217, -34.5806, 28.8827, -9.0252, 1.2897, 0.1067][::-1], t)
     return np.clip(np.stack([r, g, bl], axis=1), 0.0, 1.0).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the reference's C-style names of the dome light's calls (Gi.h:199-261;
+# gatling_tpu/gi.py:939-942, :1111-1123)
+# ---------------------------------------------------------------------------
+
+def giCreateDomeLight(scene: GiScene, file_path: str) -> GiDomeLight:
+    dome = GiDomeLight(file_path=file_path)
+    scene.set_dome_light(dome)
+    return dome
+
+
+def giSetDomeLightRotation(light: GiDomeLight, quat) -> None:
+    light.rotation = np.asarray(quat, np.float32)
+
+
+def giSetDomeLightBaseEmission(light: GiDomeLight, rgb) -> None:
+    light.base_emission = np.asarray(rgb, np.float32)
+
+
+def giSetDomeLightDiffuseSpecular(light: GiDomeLight, diffuse: float, specular: float) -> None:
+    # stored for parity: the reference packs it into its uniforms and no
+    # shader reads it (Gi.cpp:2386, rp_main.h:29)
+    light.diffuse = float(diffuse)
+    light.specular = float(specular)

@@ -1,13 +1,17 @@
-"""Image IO on zlib, struct and numpy alone: an 8-bit PNG decoder and writer.
+"""Image IO on zlib, struct and numpy alone: an 8-bit PNG decoder and
+writer, and the OpenEXR and Radiance HDR codecs (exr.py, hdr.py).
 
 The JAX package decodes and writes LDR images through Pillow, which the
 port does not depend on. The decoder reads 8-bit, non-interlaced PNGs of
 every colour type (grey, RGB, palette with its PLTE/tRNS chunks, grey +
 alpha, RGBA) into the RGBA array that the JAX package's Pillow path gives
 for the same file: tRNS applies to palette images only, as Pillow's
-RGBA conversion of a "P" image does. Other bit depths, Adam7 interlacing
-and the JPEG/TGA/TIFF formats raise (ROADMAP: 'USD content'); EXR and
-Radiance HDR arrive with their codecs (ROADMAP: 'Dome lights').
+RGBA conversion of a "P" image does. `load_image` picks the decoder by
+magic, as the JAX package's does: EXR, Radiance HDR, PNG. A decoded image
+is an RGBA array, uint8 for PNG and float32 for the HDR formats, so its
+dtype says whether it is HDR (`is_hdr`, the JAX package's Image.is_hdr).
+Other PNG bit depths, Adam7 interlacing and the JPEG/TGA/TIFF formats
+raise (ROADMAP: 'USD content').
 """
 
 from __future__ import annotations
@@ -18,6 +22,11 @@ import zlib
 
 import numpy as np
 
+from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
+from gatling_tpu_torch.imgio.hdr import decode_hdr, encode_hdr
+
+EXR_MAGIC = b"\x76\x2f\x31\x01"
+HDR_MAGIC = b"#?"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
 
@@ -99,11 +108,13 @@ def decode_png(data: bytes) -> np.ndarray:
 
 
 def load_image(data: bytes) -> np.ndarray:
-    """Decode image bytes into [H, W, 4] uint8 RGBA (the JAX package's
+    """Decode image bytes into [H, W, 4] RGBA: uint8 from a PNG, float32
+    from an EXR (half widened) or a Radiance HDR file (the JAX package's
     imgio.load_image(data).data for the formats ported so far)."""
-    if data[:4] == b"\x76\x2f\x31\x01" or data[:2] == b"#?":
-        raise NotImplementedError("EXR and Radiance HDR images are not ported yet "
-                                  "(ROADMAP: 'Dome lights')")
+    if data[:4] == EXR_MAGIC:
+        return decode_exr(data)
+    if data[:2] == HDR_MAGIC:
+        return decode_hdr(data)
     if data[:8] != PNG_SIGNATURE:
         raise NotImplementedError("only PNG images are decoded so far; JPEG, TGA and TIFF "
                                   "are not ported yet (ROADMAP: 'USD content')")
@@ -113,6 +124,19 @@ def load_image(data: bytes) -> np.ndarray:
 def load_image_file(path: str | os.PathLike) -> np.ndarray:
     with open(path, "rb") as f:
         return load_image(f.read())
+
+
+def is_hdr(img: np.ndarray) -> bool:
+    """A decoded image holds HDR data (float texels, not 8-bit codes)."""
+    return img.dtype != np.uint8
+
+
+def as_float_rgba(img: np.ndarray) -> np.ndarray:
+    """[H, W, 4] float32: 8-bit codes / 255, HDR data as decoded (the JAX
+    package's Image.as_float_rgba)."""
+    if img.dtype == np.uint8:
+        return img.astype(np.float32) / 255.0
+    return img.astype(np.float32)
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -135,12 +159,18 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
-    """Write [H, W, 3] RGB or [H, W, 4] RGBA, floats in [0, 1] or uint8,
-    as an 8-bit PNG."""
+    """Write [H, W, 3] RGB or [H, W, 4] RGBA by extension: .png as 8 bits
+    (floats in [0, 1] or uint8), .exr (ZIP, half) and .hdr (flat RGBE) as
+    the float values."""
     ext = os.path.splitext(str(path))[1].lower()
-    if ext != ".png":
-        raise NotImplementedError(f"{ext} output is not ported yet; write .png")
     img = np.asarray(img)
+    if ext in (".exr", ".hdr"):
+        encode = encode_exr if ext == ".exr" else encode_hdr
+        with open(path, "wb") as f:
+            f.write(encode(img.astype(np.float32)))
+        return
+    if ext != ".png":
+        raise NotImplementedError(f"{ext} output is not ported yet; write .png, .exr or .hdr")
     if img.dtype != np.uint8:
         img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
     with open(path, "wb") as f:

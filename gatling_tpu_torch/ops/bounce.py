@@ -175,12 +175,15 @@ MI_COLS = 10  # the device material table's integer columns (render/material.py 
 TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
 TAP_NORMAL = 16
 TAP_OPACITY = 32  # tap_rows' opacity row alone: K4 never reads opacity
+# the pool is float (render/texture.py): the taps read `texels` through the
+# FLT instances of K4 and of tap_rows (the ..._flt entry points)
+TAP_FLOAT = 64
 TAP_ROWS = 12  # tap_rows' rows: base colour, emission, metallic, roughness, normal, opacity
 # K4's tap tables in shared memory, in 4-byte words (csrc/bounce.cu
 # tap_smem_words): TAP_MI slot columns a material, SLOT_WORDS a texture
 # slot (SLOT_I ints, SLOT_F floats), then the SRGB_LUT-entry decode table
 TAP_MI, SLOT_WORDS, SRGB_LUT = 7, 6 + 8, 256
-BOUNCE_PARTS = 10  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
+BOUNCE_PARTS = 15  # csrc/bounce.cu compiles in this many nvcc runs at once (GATLING_PART)
 
 
 
@@ -976,9 +979,10 @@ class BounceKernel(CudaLibrary):
         shading = [PTR, I32, PTR, PTR, I32]  # mats n_mats lights light_types n_lights
         flags = [I32, I32, I32]  # advanced, cutout, the volume mode
         hit = [PTR, I32]  # the hit buffer, whether it has the tangent rows
-        # K4's taps: the MI_* table, the pool's texels, 2x2 rows and eight
-        # slot columns, the sRGB table; the slot count and the TAP_* mask
-        taps = [PTR] * 12 + [I32, I32]
+        # K4's taps: the MI_* table, the pool's 8-bit texels, 2x2 rows, float
+        # texels and eight slot columns, the sRGB table; the slot count and
+        # the TAP_* mask
+        taps = [PTR] * 13 + [I32, I32]
         # the walk bounce takes NEE and the volume modes as four entry points
         # (..._nee, ..._vol, ..._vol_nee), which compile in separate parts
         bounce_walk = [PTR, *walk, I32, *shading, PTR, I64, *flags, PTR]
@@ -990,12 +994,15 @@ class BounceKernel(CudaLibrary):
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
             "gatling_trace_resident": [PTR, *resident, PTR, I64, PTR, I32, PTR],
             "gatling_trace_walk": [PTR, *walk, I32, PTR, I64, PTR, I32, PTR],
-            "gatling_shade_resident": [PTR, *resident, *shading, PTR, I64, *hit, *taps, I32,
-                                       *flags, PTR],
-            **{_walk_entry("gatling_shade_walk", nee, vol): shade_walk
-               for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)},
+            **{_flt_entry("gatling_shade_resident", flt): [PTR, *resident, *shading, PTR, I64,
+                                                           *hit, *taps, I32, *flags, PTR]
+               for flt in (False, True)},
+            **{_walk_entry("gatling_shade_walk", nee, vol, flt): shade_walk
+               for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)
+               for flt in (False, True)},
             "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR],
-            "gatling_tap_rows": [PTR, I32, PTR, I32, I64, *taps, PTR, PTR]},
+            **{_flt_entry("gatling_tap_rows", flt): [PTR, I32, PTR, I32, I64, *taps, PTR, PTR]
+               for flt in (False, True)}},
             "gatling_error_string", parts=BOUNCE_PARTS)
 
     @staticmethod
@@ -1075,7 +1082,7 @@ class BounceKernel(CudaLibrary):
     def _tap_args(mats, mat_i, pool: TexturePool, taps: int):
         """K4's tap arguments (csrc/bounce.cu TAP_ARGS) of the device
         material table's integer columns and texture pool; `taps` the
-        TAP_* mask."""
+        TAP_* mask (TAP_FLOAT: the float pool's texels, [N, 4] f32)."""
         _check_bounce("mat_i", mat_i, torch.int32)
         if mat_i.shape != (mats.shape[0], MI_COLS):
             raise ValueError(f"shade kernel: the material slot columns must be "
@@ -1084,18 +1091,22 @@ class BounceKernel(CudaLibrary):
                 "is_srgb")
         for name in ints:
             _check_bounce(name, getattr(pool, name), torch.int32)
-        for name in ("scale", "bias"):
+        for name in ("texels", "scale", "bias"):
             _check_bounce(name, getattr(pool, name), torch.float32)
         n = pool.offset.numel()
         if any(getattr(pool, f).shape != (n,) for f in ints[2:]) \
                 or pool.scale.shape != (n, 4) or pool.bias.shape != (n, 4) \
-                or pool.texels_q22.dim() != 2 or pool.texels_q22.shape[1] != 4:
+                or pool.texels_q22.dim() != 2 or pool.texels_q22.shape[1] != 4 \
+                or pool.texels.dim() != 2 or pool.texels.shape[1] != 4:
             raise ValueError("shade kernel: texture pool shape mismatch")
+        flt = bool(taps & TAP_FLOAT)
+        if taps and flt == pool.packed:
+            raise ValueError("shade kernel: TAP_FLOAT must be set for a float pool alone")
         lut = srgb_lut(mats.device)
         return (mat_i.data_ptr(), pool.texels_u32.data_ptr(),
-                pool.texels_q22.data_ptr() if pool.bilinear_packed else None,
-                *(getattr(pool, f).data_ptr() for f in ints[2:]), pool.scale.data_ptr(),
-                pool.bias.data_ptr(), lut.data_ptr(), n, int(taps))
+                pool.texels_q22.data_ptr() if pool.bilinear_packed and not flt else None,
+                pool.texels.data_ptr(), *(getattr(pool, f).data_ptr() for f in ints[2:]),
+                pool.scale.data_ptr(), pool.bias.data_ptr(), lut.data_ptr(), n, int(taps))
 
     @staticmethod
     def _stream(state):
@@ -1171,26 +1182,36 @@ class BounceKernel(CudaLibrary):
         bufs = (state.data_ptr(), state.shape[1], hit.data_ptr(),
                 int(hit.shape[0] == HIT_ROWS_TAN), *tap_args)
         flags = (int(bool(advanced)), int(bool(cutout)), vol, self.stream(state))
+        flt = bool(taps & TAP_FLOAT)
         if walk is None:
-            self.call("gatling_shade_resident", params.data_ptr(),
+            self.call(_flt_entry("gatling_shade_resident", flt), params.data_ptr(),
                        *self._resident_args(tris, bvh, cutout), *shading, *bufs, int(bool(nee)),
                        *flags)
         else:
-            self.call(_walk_entry("gatling_shade_walk", nee, vol), params.data_ptr(),
+            self.call(_walk_entry("gatling_shade_walk", nee, vol, flt), params.data_ptr(),
                        *self._walk_args(tris, walk), *shading, *bufs, *flags)
 
 
-def _walk_entry(base: str, nee: bool, volumes: int) -> str:
+def _flt_entry(base: str, flt: bool) -> str:
+    """The entry point of K4 or tap_rows over an 8-bit pool, or (..._flt) a
+    float one."""
+    return base + ("_flt" if flt else "")
+
+
+def _walk_entry(base: str, nee: bool, volumes: int, flt: bool = False) -> str:
     """The walk kernels' entry point of a NEE flag and a volume mode (the
-    plain ones take VOL_OFF, the ..._vol ones the volume modes)."""
-    return base + ("_vol" if volumes != VOL_OFF else "") + ("_nee" if nee else "")
+    plain ones take VOL_OFF, the ..._vol ones the volume modes), K4's over
+    a float pool with `flt`."""
+    return _flt_entry(base + ("_vol" if volumes != VOL_OFF else "") + ("_nee" if nee else ""),
+                      flt)
 
 
 _kernel: BounceKernel | None = None
 # kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
 # them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade,
-# K4t K4's taps alone (tap_rows)
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4t": 0}
+# K4t K4's taps alone (tap_rows); K4f and K4tf their FLT instances, over a
+# float pool
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4t": 0, "K4f": 0, "K4tf": 0}
 
 
 def kernel() -> BounceKernel:
@@ -1261,25 +1282,24 @@ def srgb_lut(device) -> torch.Tensor:
 
 def tap_mask(textured: int, hit_rows: int, pool: TexturePool) -> int:
     """The TAP_* mask of a split shade: the TAP_BITS of the textured
-    parameters it reads, and the normal map when the hit buffer carries
-    the tangent rows; 0 for a pool with no texture (an anisotropic scene's
-    empty pool). A float pool raises."""
-    if not (pool.count > 1 or pool.packed):
+    parameters it reads, the normal map when the hit buffer carries the
+    tangent rows, and TAP_FLOAT for a float pool (sample_pool's float
+    branch: every pool that is not 8-bit); 0 for a pool with no texture
+    (an anisotropic scene's empty pool)."""
+    if not (pool.count > 1 or pool.has_texels):
         return 0
-    if not pool.packed:
-        raise NotImplementedError("K4 taps 8-bit pools; float texel pools arrive with the HDR "
-                                  "codecs (ROADMAP: 'Dome lights')")
-    return textured | (TAP_NORMAL if hit_rows == HIT_ROWS_TAN else 0)
+    return (textured | (TAP_NORMAL if hit_rows == HIT_ROWS_TAN else 0)
+            | (0 if pool.packed else TAP_FLOAT))
 
 
 def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
                 textured: int, state, nee: bool, advanced: bool, cutout: bool,
                 volumes: int) -> None:
     pool = TexturePool(*pool)
+    mask = tap_mask(textured, hit.shape[0], pool)
     kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), _bvh(bvh), state,
-                          hit, mat_i, pool, tap_mask(textured, hit.shape[0], pool), nee, advanced,
-                          cutout, volumes)
-    launches["K4"] += 1
+                          hit, mat_i, pool, mask, nee, advanced, cutout, volumes)
+    launches["K4f" if mask & TAP_FLOAT else "K4"] += 1
 
 
 def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
@@ -1376,12 +1396,13 @@ def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePo
     out = torch.empty((TAP_ROWS, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
     textured = sum(bit for name, bit in TAP_BITS.items() if name in textured_params)
     textured |= TAP_OPACITY if "opacity" in textured_params else 0
-    taps = k._tap_args(mats, materials.packed_i, textures,
-                       tap_mask(textured, hitbuf.shape[0], textures))
-    k.call("gatling_tap_rows", mats.data_ptr(), mats.shape[0], hitbuf.data_ptr(),
+    mask = tap_mask(textured, hitbuf.shape[0], textures)
+    taps = k._tap_args(mats, materials.packed_i, textures, mask)
+    flt = bool(mask & TAP_FLOAT)
+    k.call(_flt_entry("gatling_tap_rows", flt), mats.data_ptr(), mats.shape[0], hitbuf.data_ptr(),
            int(hitbuf.shape[0] == HIT_ROWS_TAN), hitbuf.shape[1], *taps, out.data_ptr(),
            k.stream(hitbuf))
-    launches["K4t"] += 1
+    launches["K4tf" if flt else "K4t"] += 1
     return out
 
 

@@ -1271,7 +1271,8 @@ def shade_core(p: list[float], state: torch.Tensor, hit: torch.Tensor, pos, gn, 
     if adv:
         coat, coat_rough, aniso, aniso_rot = mrow[12:16]
 
-    # ---- miss: constant background (dome radiance is not ported) ----
+    # ---- miss: constant background; the miss record feeds the sample
+    # loop's dome pass (render/fused.py dome_pass) ----
     radx = radx + _where(miss, tpx * p[P_BG_R], 0.0)
     rady = rady + _where(miss, tpy * p[P_BG_G], 0.0)
     radz = radz + _where(miss, tpz * p[P_BG_B], 0.0)

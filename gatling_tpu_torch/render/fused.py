@@ -38,6 +38,13 @@ cutout rejects, up to TEX_CUTOUT_ROUNDS - 1 times a split bounce
 (gatling_tpu/render/fused.py:299-359): each round draws against the opacity that
 tap_rows taps at the hit and moves a rejected ray's origin past the
 surface; K3 traces the rejected rays alone.
+
+A dome light adds its radiance after the bounce loop, as the JAX package
+does (gatling_tpu/render/fused.py:666-681): the kernels record in state row
+14 the bounce at which a ray missed, and `dome_pass` looks up the dome
+along the direction rows at that miss, weighted by the throughput rows,
+before the radiance clamp. It is PyTorch ops on every route: the JAX
+package computes it in XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -63,7 +70,13 @@ from gatling_tpu_torch.ops.bounce import (
 from gatling_tpu_torch.ops.split_ref import H_GN, H_HIT, H_MAT, H_POS, H_T, H_UVX, H_UVY
 from gatling_tpu_torch.render import bsdf
 from gatling_tpu_torch.render.camera import generate_primary_rays
-from gatling_tpu_torch.render.integrator import RenderConfig, Uniforms
+from gatling_tpu_torch.render.integrator import (
+    DomeLightData,
+    RenderConfig,
+    Uniforms,
+    default_dome,
+    dome_radiance,
+)
 from gatling_tpu_torch.render.material import MI_OPACITY_TEX, MaterialTable, gather_params
 from gatling_tpu_torch.render.texture import TexturePool
 
@@ -220,12 +233,28 @@ class FirstHit:
                     texcoords=self.texcoords, hit=self.hit)
 
 
+def dome_pass(radiance: torch.Tensor, state: torch.Tensor, dome: DomeLightData,
+              uniforms: Uniforms, camera_visible: bool) -> torch.Tensor:
+    """The radiance [R, 3] of the final state [16, R] (after the unsort)
+    with the dome's added over the kernels' miss records
+    (gatling_tpu/render/fused.py:666-681): row 14 the bounce + 1 at which
+    the ray missed (0: no miss), rows 6-8 its throughput and 3-5 its
+    direction there; a camera ray's miss is record 1."""
+    r = radiance.shape[0]
+    miss_rec = unpack_rows(state, 14, 1, r)[:, 0]
+    rad = dome_radiance(dome, uniforms, unpack_rows(state, 3, 3, r), miss_rec == 1.0,
+                        camera_visible)
+    return radiance + torch.where((miss_rec > 0.0)[:, None], unpack_rows(state, 6, 3, r) * rad,
+                                  0.0)
+
+
 def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedScene,
                         pixel_index: torch.Tensor, spp: int, sample_offset: int,
                         with_stats: bool = False, materials: MaterialTable | None = None,
                         textures: TexturePool | None = None,
                         textured_params: tuple[str, ...] = (), want_first_hit: bool = False,
-                        split: bool | None = None, cutout_textured: bool = False):
+                        split: bool | None = None, cutout_textured: bool = False,
+                        dome: DomeLightData | None = None):
     """Mean color [R,3] over spp samples of the pixels `pixel_index`; with
     with_stats also the mean traced-segment count per sample [R] (path
     segments + NEE shadow rays: the Mray/s accounting source); with
@@ -234,9 +263,8 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     `textures` serve the split bounce, the peel and the re-trace: with
     `split` (by default, whether `textures` is given) every bounce splits
     into trace and shade, tapping the parameters `textured_params`;
-    `cutout_textured` re-traces the rays an opacity texture rejects."""
-    if config.has_dome:
-        raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
+    `cutout_textured` re-traces the rays an opacity texture rejects; with
+    config.has_dome the misses see `dome` (black when None)."""
     split = textures is not None if split is None else split
     peel = want_first_hit or config.clipping_planes
     if (peel or cutout_textured or split) and (materials is None or textures is None):
@@ -274,6 +302,8 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     peel_scene = scene._replace(volumes=VOL_ABSORB) if scene.volumes == VOL_SCATTER else scene
     cam = uniforms.camera
     first = FirstHit(r, device) if want_first_hit else None
+    if config.has_dome and dome is None:
+        dome = default_dome(device)
 
     def split_bounce(p, fs, st):
         hitbuf = trace_step(p, fs, st)
@@ -329,8 +359,11 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
         if orig is not None:
             state = state[:, torch.argsort(orig)]
 
-        # radiance clamp (rgen:488-494), per sample, before the replica sum
         radiance = unpack_radiance(state, rb)
+        if config.has_dome:
+            radiance = dome_pass(radiance, state, dome, uniforms,
+                                 config.dome_light_camera_visible)
+        # radiance clamp (rgen:488-494), per sample, before the replica sum
         max_v = radiance.max(dim=-1).values
         scale = torch.where(max_v > uniforms.max_sample_value,
                             uniforms.max_sample_value / torch.clamp(max_v, min=1e-20), 1.0)

@@ -23,9 +23,10 @@ the device once a bounce (`alive.any()`), one host sync a bounce. Cutout
 (`has_cutout`) draws one decision at each hit from the path's PCG stream
 and passes a rejected hit straight through; shadow rays walk their hits
 one at a time (`_trace_occluded_cutout`, K5 re-launched until no ray is
-unresolved, at most MAX_SHADOW_CUTOUT_HOPS). The volume, medium-stack and
-dome branches are not ported: their flags raise. Nor are the backface and
-dynamic-input ones, whose materials the port's front end does not produce
+unresolved, at most MAX_SHADOW_CUTOUT_HOPS). The volume branches carry the
+absorbing medium flag and the medium stack; a miss adds the dome light's
+equirect radiance (`has_dome`). The backface and dynamic-input branches
+are not ported: the port's front end does not produce their materials
 yet.
 """
 
@@ -95,6 +96,9 @@ class RenderConfig:
     clipping_planes: bool = False
     progressive: bool = True
     aov_mask: int = aov_bit(AovId.COLOR)
+    dome_light_camera_visible: bool = True
+    # a dome light is set: misses add its radiance (the render paths read
+    # no dome texture without it)
     has_dome: bool = False
     # textured scenes: bounces at or after this index (> 0) shade from the
     # texture means (render setting textureLodBounces; the fused path)
@@ -122,6 +126,79 @@ class Uniforms(NamedTuple):
     light_intensity_multiplier: float
     meters_per_scene_unit: float
     max_volume_walk_length: int
+    # the dome's quaternion (x, y, z, w) and emission multiplier: floats, or
+    # f32 tensors on the device (gi's: a copy from the host each sample
+    # wave would wait for the device)
+    dome_rotation: tuple[float, ...] | torch.Tensor = (0.0, 0.0, 0.0, 1.0)
+    dome_emission_multiplier: tuple[float, ...] | torch.Tensor = (1.0, 1.0, 1.0)
+    # stored for parity: the reference packs it into its uniforms and no
+    # shader reads it (gatling_tpu/render/integrator.py:194-198)
+    dome_diffuse_specular: tuple[float, ...] = (1.0, 1.0)
+
+
+class DomeLightData(NamedTuple):
+    """The equirectangular dome texture and the background a camera ray
+    sees when the dome is invisible to the camera (reference:
+    Gi.cpp:2183-2238, rp_main.miss:46-53)."""
+
+    texture: torch.Tensor   # [H, W, 3] f32 (1x1 black when absent)
+    fallback: torch.Tensor  # [1, 1, 3] f32
+
+
+def default_dome(device="cpu") -> DomeLightData:
+    z = torch.zeros((1, 1, 3), dtype=torch.float32, device=device)
+    return DomeLightData(texture=z, fallback=z.clone())
+
+
+def _quat_rotate(q: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """GLM-style quaternion rotate of directions d [R, 3] by q [4]
+    (reference: rp_main.miss:38-44)."""
+    qv = q[:3].expand_as(d)
+    a = torch.linalg.cross(qv, d)
+    b = torch.linalg.cross(qv, a)
+    return d + (a * q[3] + b) * 2.0
+
+
+def _sample_equirect(tex: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Bilinear equirect lookup of unit directions d [R, 3] in tex
+    [H, W, 3] (reference: rp_main.miss sampleDomeLight:46-53, GL repeat-wrap
+    sampling of u = (atan(z, x) + pi/2) / 2pi, v = 1 - acos(y) / pi)."""
+    h, w = tex.shape[0], tex.shape[1]
+    u = (torch.atan2(d[:, 2], d[:, 0]) + 0.5 * np.pi) / (2.0 * np.pi)
+    v = 1.0 - torch.acos(torch.clamp(d[:, 1], -1.0, 1.0)) / np.pi
+    x = u * w - 0.5
+    y = (1.0 - v) * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    xi0 = torch.remainder(x0.to(torch.int32), w).long()
+    xi1 = torch.remainder(xi0 + 1, w)
+    yi0 = torch.clamp(y0.to(torch.int32), 0, h - 1).long()
+    yi1 = torch.clamp(yi0 + 1, 0, h - 1)
+    c00 = tex[yi0, xi0]
+    c01 = tex[yi0, xi1]
+    c10 = tex[yi1, xi0]
+    c11 = tex[yi1, xi1]
+    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
+
+
+def dome_radiance(dome: DomeLightData, uniforms: Uniforms, directions: torch.Tensor,
+                  primary: torch.Tensor, camera_visible: bool) -> torch.Tensor:
+    """[R, 3] the dome's radiance seen along `directions` (rp_main.miss:55-87):
+    rotated by the dome's quaternion, normalised, looked up and scaled by its
+    emission multiplier; where `primary` (camera rays) the fallback instead
+    when the dome is invisible to the camera."""
+    def vector(v):  # a tensor on the device already (gi's) is not copied
+        return torch.as_tensor(v, dtype=torch.float32, device=directions.device)
+
+    sample_dir = _quat_rotate(vector(uniforms.dome_rotation), directions)
+    sample_dir = sample_dir / torch.clamp(
+        torch.linalg.vector_norm(sample_dir, dim=-1, keepdim=True), min=1e-20)
+    rad = _sample_equirect(dome.texture, sample_dir) * vector(uniforms.dome_emission_multiplier)
+    if not camera_visible:
+        rad = torch.where(primary[:, None], dome.fallback[0, 0].expand_as(rad), rad)
+    return rad
 
 
 class Accel(NamedTuple):
@@ -263,11 +340,6 @@ def _shading_state(geom: PackedGeometry, hit: Hit, ray_dir: torch.Tensor) -> dic
         material_id=pi[:, 0], object_id=pi[:, 1], face_id=pi[:, 2], instance_id=pi[:, 3])
 
 
-def _check_branches(config: RenderConfig) -> None:
-    if config.has_dome:
-        raise NotImplementedError("dome lights are not ported yet (ROADMAP: 'Dome lights')")
-
-
 _FIRST_HIT_AOVS = (
     AovId.NORMAL, AovId.ALBEDO, AovId.BARYCENTRICS, AovId.TEXCOORDS,
     AovId.TANGENTS, AovId.BITANGENTS, AovId.DEPTH, AovId.OBJECT_ID,
@@ -286,12 +358,16 @@ def _where3(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                  materials: MaterialTable, lights: LightArrays, pixel_index: torch.Tensor,
-                 sample_index: int, textures: TexturePool, accel: Accel) -> SampleResult:
+                 sample_index: int, textures: TexturePool, accel: Accel,
+                 dome: DomeLightData | None = None) -> SampleResult:
     """Trace one sample of each pixel of `pixel_index` through the bounce
     loop (integrator.py trace_sample). `lights` holds tensors
-    (render/lights.py light_tensors), `materials` the device table."""
-    _check_branches(config)
+    (render/lights.py light_tensors), `materials` the device table, `dome`
+    the dome light that misses see (with config.has_dome; black when
+    None)."""
     device = pixel_index.device
+    if config.has_dome and dome is None:
+        dome = default_dome(device)
     n = pixel_index.shape[0]
     pixel_index = pixel_index.to(torch.int64)
     cam = uniforms.camera
@@ -379,6 +455,13 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
         if config.has_volumes and stack > 0:
             vol_miss = is_miss & in_medium
             is_miss = is_miss & ~in_medium
+
+        # miss: the dome light (rp_main.miss:55-87)
+        if config.has_dome:
+            rad = dome_radiance(dome, uniforms, direction,
+                                torch.full_like(is_miss, bounce == 0),
+                                config.dome_light_camera_visible)
+            radiance = radiance + _where3(is_miss, throughput * rad, 0.0)
 
         # hit shading (rp_main.chit)
         st = _shading_state(geom, hit, direction)
@@ -567,7 +650,7 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
 def render_pixels(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                   materials: MaterialTable, lights: LightArrays, pixel_index: torch.Tensor,
                   spp: int, sample_offset: int, textures: TexturePool,
-                  accel: Accel) -> SampleResult:
+                  accel: Accel, dome: DomeLightData | None = None) -> SampleResult:
     """`spp` samples of the pixels `pixel_index`: the mean colour, the
     longest path and the first-hit data (normal and albedo averaged over
     the samples, the rest from the last sample that hit)."""
@@ -578,7 +661,7 @@ def render_pixels(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry
     first = empty_first_hit(n, pixel_index.device)
     for s in range(spp):
         res = trace_sample(config, uniforms, geom, materials, lights, pixel_index,
-                           sample_offset + s, textures, accel)
+                           sample_offset + s, textures, accel, dome)
         color = color + res.color * inv_spp
         bounces = torch.maximum(bounces, res.bounces)
         first = res.first._replace(normal=first.normal + res.first.normal * inv_spp,
@@ -633,12 +716,13 @@ def blend_aovs(config: RenderConfig, uniforms: Uniforms, aovs: dict[str, torch.T
 
 def render_frame(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                  materials: MaterialTable, lights: LightArrays, aovs: dict[str, torch.Tensor],
-                 textures: TexturePool, accel: Accel) -> dict[str, torch.Tensor]:
+                 textures: TexturePool, accel: Accel,
+                 dome: DomeLightData | None = None) -> dict[str, torch.Tensor]:
     """One frame of every pixel through the wavefront integrator, blended
     into `aovs` (the giRender dispatch, Gi.cpp:2437)."""
     pixel_index = torch.arange(config.width * config.height, device=geom.packed_f.device)
     res = render_pixels(config, uniforms, geom, materials, lights, pixel_index, config.spp,
-                        uniforms.sample_offset, textures, accel)
+                        uniforms.sample_offset, textures, accel, dome)
     return blend_aovs(config, uniforms, aovs, res)
 
 

@@ -380,7 +380,7 @@ def gather_params(table: MaterialTable, material_ids: torch.Tensor) -> BsdfParam
 
 
 def _has_textures(pool: TexturePool) -> bool:
-    return pool.count > 1 or pool.packed
+    return pool.count > 1 or pool.has_texels
 
 
 def apply_textures(table: MaterialTable, pool: TexturePool, params: BsdfParams,

@@ -1,20 +1,21 @@
-"""Textures: the host-side cache and the device-side packed texel pool.
+"""Textures: the host-side cache and the device-side texel pool.
 
-Port of the JAX package's render/texture.py for 8-bit textures. The host
-side mirrors the reference's TextureManager (src/gi/impl/
-TextureManager.cpp: a path-keyed cache, a 1x1 black fallback when a file
-cannot be decoded). The device side is one pool for every texture of a
-scene: each texel is one uint32 of its four 8-bit codes (held as int32
+Port of the JAX package's render/texture.py. The host side mirrors the
+reference's TextureManager (src/gi/impl/TextureManager.cpp: a path-keyed
+cache, a 1x1 black fallback when a file cannot be decoded). The device side
+is one pool for every texture of a scene. When every texture is 8-bit
+(PNG), each texel is one uint32 of its four 8-bit codes (held as int32
 bits), and, when every slot wraps `repeat`, a second array holds each
-texel's 2x2 neighbourhood so that a bilinear tap is one gathered row.
-sRGB decoding follows the tap: the codes are the source data, so decoding
-after the tap equals decoding at upload. `sample_pool` is plain torch
-gathers on the pool, on the CPU and on the card alike.
+texel's 2x2 neighbourhood so that a bilinear tap is one gathered row; sRGB
+decoding follows the tap: the codes are the source data, so decoding after
+the tap equals decoding at upload. One HDR slot (EXR, Radiance HDR) makes
+the whole pool float, as the JAX package's `packable` rule does: every
+slot's linear texels in `texels` ([N, 4] f32), sRGB decoded on the host.
+`sample_pool` is plain torch gathers on the pool, on the CPU and on the
+card alike.
 
 UsdUVTexture semantics: wrap modes (black, clamp, repeat, mirror), scale
 and bias applied after the lookup, v up (texel row 0 is the image top).
-HDR pools (float texels) arrive with the HDR codecs (ROADMAP: 'Dome
-lights').
 """
 
 from __future__ import annotations
@@ -55,8 +56,11 @@ class TextureRef:
 
 
 class TexturePool(NamedTuple):
-    """The device texture pool: packed texels and per-slot records."""
+    """The device texture pool: texels and per-slot records. An 8-bit pool
+    holds its texels in `texels_u32` (and `texels_q22`), a float pool in
+    `texels`; the other arrays are one-row dummies."""
 
+    texels: torch.Tensor  # [N, 4] f32 linear texels of a float pool ([1, 4] zeros else)
     texels_u32: torch.Tensor  # [N + 1] int32: the rgba8 codes of each texel as uint32 bits
     # [N + 1, 4] int32: each texel's 2x2 neighbourhood (self, +x, +y, +x+y),
     # repeat wrap baked in (when every slot wraps repeat; [1, 4] zeros else)
@@ -79,11 +83,18 @@ class TexturePool(NamedTuple):
 
     @property
     def packed(self) -> bool:
+        """The texels are 8-bit codes in texels_u32."""
         return self.texels_u32.shape[0] > 1
 
     @property
     def bilinear_packed(self) -> bool:
         return self.texels_q22.shape[0] > 1
+
+    @property
+    def has_texels(self) -> bool:
+        """The pool holds textures (gatling_tpu/gi.py:345-346): 8-bit codes,
+        or more than one float texel."""
+        return self.packed or self.texels.shape[0] > 1
 
 
 def empty_pool(device="cpu") -> TexturePool:
@@ -91,7 +102,7 @@ def empty_pool(device="cpu") -> TexturePool:
         return torch.tensor(v, dtype=torch.int32, device=device)
 
     return TexturePool(
-        texels_u32=i32([0]), texels_q22=i32([[0, 0, 0, 0]]), is_srgb=i32([0]),
+        texels=torch.zeros((1, 4), device=device), texels_u32=i32([0]), texels_q22=i32([[0, 0, 0, 0]]), is_srgb=i32([0]),
         offset=i32([0]), width=i32([1]), height=i32([1]), wrap_s=i32([WRAP_REPEAT]),
         wrap_t=i32([WRAP_REPEAT]), scale=torch.ones((1, 4), device=device),
         bias=torch.zeros((1, 4), device=device), mean=torch.zeros((1, 4), device=device))
@@ -106,9 +117,10 @@ class TextureManager:
 
     def __init__(self) -> None:
         self._image_cache: dict[tuple[str, bool], np.ndarray] = {}  # -> linear RGBA f32
-        self._raw_cache: dict[str, np.ndarray] = {}  # path -> RGBA f32 as decoded
+        # path -> (RGBA f32 as decoded, whether the file is HDR)
+        self._raw_cache: dict[str, tuple[np.ndarray, bool]] = {}
 
-    def _load_raw(self, ref: TextureRef) -> np.ndarray:
+    def _load_raw(self, ref: TextureRef) -> tuple[np.ndarray, bool]:
         cached = self._raw_cache.get(ref.file_path)
         if cached is not None:
             return cached
@@ -116,23 +128,24 @@ class TextureManager:
             # a plain file read: the JAX package's asset-reader registry
             # (render/assets.py) waits for ROADMAP 'Multi-GPU and front ends'
             with open(ref.file_path, "rb") as f:
-                rgba = imgio.load_image(f.read()).astype(np.float32) / 255.0
+                img = imgio.load_image(f.read())
+            rgba, hdr = imgio.as_float_rgba(img), imgio.is_hdr(img)
         except NotImplementedError:
             raise  # a format the port does not read yet: never render something else
         except Exception:  # noqa: BLE001
             # 1x1 black fallback (TextureManager.cpp:253-267)
             get_logger().error("texture load failed: %s", ref.file_path)
-            rgba = np.zeros((1, 1, 4), np.float32)
-        self._raw_cache[ref.file_path] = rgba
-        return rgba
+            rgba, hdr = np.zeros((1, 1, 4), np.float32), False
+        self._raw_cache[ref.file_path] = (rgba, hdr)
+        return self._raw_cache[ref.file_path]
 
     def _load(self, ref: TextureRef) -> np.ndarray:
         key = (ref.file_path, ref.is_srgb)
         cached = self._image_cache.get(key)
         if cached is not None:
             return cached
-        rgba = self._load_raw(ref)
-        if ref.is_srgb:
+        rgba, hdr = self._load_raw(ref)
+        if ref.is_srgb and not hdr:  # HDR data is linear
             rgba = np.concatenate([_srgb_to_linear(rgba[..., :3]), rgba[..., 3:]], axis=-1)
         self._image_cache[key] = rgba.astype(np.float32)
         return self._image_cache[key]
@@ -145,29 +158,33 @@ class TextureManager:
         return float((vals >= threshold).mean() if threshold > 0.0 else vals.mean())
 
     def build_pool(self, refs: list[TextureRef], device="cpu") -> TexturePool:
-        """Pack the given textures into a device pool; slot i holds refs[i]."""
+        """Pack the given textures into a device pool; slot i holds refs[i].
+        The 8-bit pool when every texture is exactly 8-bit, else the float
+        pool of every slot's linear texels (gatling_tpu/render/texture.py
+        :303-380)."""
         if not refs:
             return empty_pool(device)
         if len(refs) > MAX_TEXTURE_COUNT:
             raise ValueError(f"too many textures ({len(refs)} > {MAX_TEXTURE_COUNT})")
-        codes_all, srgbs, means = [], [], []
+        texels, codes_all, srgbs, means = [], [], [], []
         offsets, widths, heights, ws, wt, scales, biases = [], [], [], [], [], [], []
+        packable = True
         off = 0
         for ref in refs:
             img = self._load(ref)
             means.append(img.reshape(-1, 4).mean(axis=0) * np.asarray(ref.scale, np.float32)
                          + np.asarray(ref.bias, np.float32))
-            raw = self._load_raw(ref)
+            raw, hdr = self._load_raw(ref)
             codes = np.round(raw * 255.0)
-            if raw.size == 0 or np.abs(raw * 255.0 - codes).max() > 1e-3 \
+            if hdr or raw.size == 0 or np.abs(raw * 255.0 - codes).max() > 1e-3 \
                     or codes.min() < 0 or codes.max() > 255:
-                raise NotImplementedError(
-                    f"{ref.file_path}: texels beyond 8 bits need the float pool, which "
-                    "arrives with the HDR codecs (ROADMAP: 'Dome lights')")
-            c = codes.astype(np.uint32).reshape(-1, 4)
-            codes_all.append(c[:, 0] | (c[:, 1] << 8) | (c[:, 2] << 16) | (c[:, 3] << 24))
-            srgbs.append(1 if ref.is_srgb else 0)
+                packable = False
+            else:
+                c = codes.astype(np.uint32).reshape(-1, 4)
+                codes_all.append(c[:, 0] | (c[:, 1] << 8) | (c[:, 2] << 16) | (c[:, 3] << 24))
+                srgbs.append(1 if ref.is_srgb else 0)
             h, w = img.shape[:2]
+            texels.append(img.reshape(-1, 4))
             offsets.append(off)
             widths.append(w)
             heights.append(h)
@@ -176,19 +193,24 @@ class TextureManager:
             scales.append(ref.scale)
             biases.append(ref.bias)
             off += h * w
-        # a trailing dummy texel: `packed` (shape > 1) holds for a one-texel pool too
-        u32 = np.concatenate(codes_all + [np.zeros(1, np.uint32)])
-        if all(m == WRAP_REPEAT for m in ws + wt):
-            q22 = []
-            for codes, w, h in zip(codes_all, widths, heights):
-                c = codes.reshape(h, w)
-                q = np.stack([c, np.roll(c, -1, axis=1), np.roll(c, -1, axis=0),
-                              np.roll(np.roll(c, -1, axis=0), -1, axis=1)], axis=-1)
-                q22.append(q.reshape(-1, 4))
-            q22.append(np.zeros((1, 4), np.uint32))
-            q22 = np.concatenate(q22, axis=0)
+        q22 = np.zeros((1, 4), np.uint32)
+        if packable:
+            tex_f32 = np.zeros((1, 4), np.float32)
+            # a trailing dummy texel: `packed` (shape > 1) holds for a one-texel pool too
+            u32 = np.concatenate(codes_all + [np.zeros(1, np.uint32)])
+            if all(m == WRAP_REPEAT for m in ws + wt):
+                q22 = []
+                for codes, w, h in zip(codes_all, widths, heights):
+                    c = codes.reshape(h, w)
+                    q = np.stack([c, np.roll(c, -1, axis=1), np.roll(c, -1, axis=0),
+                                  np.roll(np.roll(c, -1, axis=0), -1, axis=1)], axis=-1)
+                    q22.append(q.reshape(-1, 4))
+                q22.append(np.zeros((1, 4), np.uint32))
+                q22 = np.concatenate(q22, axis=0)
         else:
-            q22 = np.zeros((1, 4), np.uint32)
+            tex_f32 = np.concatenate(texels, axis=0)
+            u32 = np.zeros(1, np.uint32)
+            srgbs = [0] * len(refs)  # linear texels: decoded on the host
 
         def i32(a):  # uint32 values travel as their int32 bits
             return torch.as_tensor(np.asarray(a).astype(np.uint32).view(np.int32),
@@ -198,9 +220,9 @@ class TextureManager:
             return torch.as_tensor(np.array(a, np.float32), device=device)
 
         return TexturePool(
-            texels_u32=i32(u32), texels_q22=i32(q22), is_srgb=i32(srgbs), offset=i32(offsets),
-            width=i32(widths), height=i32(heights), wrap_s=i32(ws), wrap_t=i32(wt),
-            scale=f32(scales), bias=f32(biases), mean=f32(means))
+            texels=f32(tex_f32), texels_u32=i32(u32), texels_q22=i32(q22), is_srgb=i32(srgbs),
+            offset=i32(offsets), width=i32(widths), height=i32(heights), wrap_s=i32(ws),
+            wrap_t=i32(wt), scale=f32(scales), bias=f32(biases), mean=f32(means))
 
 
 def srgb_decode(c: torch.Tensor) -> torch.Tensor:
@@ -239,10 +261,8 @@ def sample_pool(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor) -> to
 
     tex_id [R] (values < 0 sample slot 0: callers select the constant),
     uv [R, 2] in the UsdUVTexture convention. Returns RGBA [R, 4] with the
-    slot's scale and bias applied."""
-    if not pool.packed:
-        raise NotImplementedError("float texel pools arrive with the HDR codecs "
-                                  "(ROADMAP: 'Dome lights')")
+    slot's scale and bias applied. An 8-bit pool taps its codes, a float
+    pool four [4] rows of `texels` through the wrap modes."""
     t = torch.clamp(tex_id, min=0).long()
     w = pool.width[t]
     h = pool.height[t]
@@ -279,8 +299,9 @@ def sample_pool(pool: TexturePool, tex_id: torch.Tensor, uv: torch.Tensor) -> to
         def texel(xi, yi):
             xi_w, vx = _wrap_coord(xi, w, ws)
             yi_w, vy = _wrap_coord(yi, h, wt)
-            code = pool.texels_u32[(off + yi_w * w + xi_w).long()]
-            return torch.where((vx & vy)[:, None], unpack(code), 0.0)
+            idx = (off + yi_w * w + xi_w).long()
+            val = unpack(pool.texels_u32[idx]) if pool.packed else pool.texels[idx]
+            return torch.where((vx & vy)[:, None], val, 0.0)
 
         c00 = texel(x0, y0)
         c10 = texel(x0 + 1, y0)

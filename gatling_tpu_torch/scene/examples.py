@@ -21,6 +21,12 @@ an absorbing and scattering `material_volume`). `glass_tinted` and
 tall block so bound, under the benchmark's ceiling rect light, as a
 .usda file; `sphere_field_volumes` and `interior_tinted` return the two
 large scenes with some of their materials so replaced.
+
+The dome scenes light them by an HDR sky: `write_sky` writes an
+equirectangular sky (a vertical gradient and a small, bright sun) as an
+EXR, `cornell_dome` the Cornell box with a `DomeLight` prim that points at
+it, and `hdr_floor` rewrites the interior's floor texture as an EXR whose
+values reach 4 (one HDR slot makes the whole texture pool float).
 """
 
 from __future__ import annotations
@@ -573,3 +579,70 @@ def absorbing_slab(sigma_a=(0.5, 1.0, 2.0), sigma_s=(0.0, 0.0, 0.0), bias: float
                         up=np.array([0.0, 1.0, 0.0], np.float32), vfov=0.2,
                         clip_start=0.01, clip_end=100.0)
     return SceneDesc(meshes=meshes, materials=materials, lights=[], cameras={"/cam": camera})
+
+
+# ---------------------------------------------------------------------------
+# dome lights and HDR textures
+# ---------------------------------------------------------------------------
+
+SUN_RADIANCE = 5e3  # the sun of write_sky
+SUN_TEXELS = 16     # its side in texels
+
+
+def write_sky(path: str, width: int, height: int, half: bool = True) -> str:
+    """An equirectangular sky of width x height texels at `path` (EXR: ZIP,
+    half or float32): a vertical gradient from a blue zenith (texel row 0)
+    through a white horizon to a brown ground, and a SUN_TEXELS-square sun
+    of SUN_RADIANCE at u = 0.25, 65 % of the way down, where the
+    reference's lookup puts directions with y = -0.45 (rays that leave the
+    Cornell box through its opening see it). Returns the path."""
+    v = (np.arange(height, dtype=np.float32) + 0.5) / height
+    zenith, horizon, ground = (np.array(c, np.float32) for c in
+                               ((0.35, 0.55, 1.2), (1.0, 0.95, 0.9), (0.3, 0.24, 0.18)))
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)[:, None]
+    down = np.clip(2.0 * v - 1.0, 0.0, 1.0)[:, None]
+    col = horizon + (zenith - horizon) * up + (ground - horizon) * down  # [height, 3]
+    sky = np.broadcast_to(col[:, None, :], (height, width, 3)).copy()
+    r0, c0 = int(0.65 * height) - SUN_TEXELS // 2, width // 4 - SUN_TEXELS // 2
+    sky[r0:r0 + SUN_TEXELS, c0:c0 + SUN_TEXELS] = SUN_RADIANCE
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(imgio.encode_exr(sky, half=half))
+    return path
+
+
+def cornell_dome(out_dir: str, sky: str) -> str:
+    """tests/data/cornell.usda (open towards -y) with a DomeLight prim whose
+    inputs:texture:file is `sky` (written beside it or absolute), as
+    out_dir/cornell_dome.usda; returns its path."""
+    text = _CORNELL_USDA.read_text().rstrip()
+    assert text.endswith("}")
+    text = text[:-1] + (f'    def DomeLight "Sky"\n    {{\n'
+                        f'        asset inputs:texture:file = @{sky}@\n    }}\n}}\n')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cornell_dome.usda")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def hdr_floor(desc: SceneDesc, path: str, size: int = 2048, seed: int = 3) -> str:
+    """The interior's floor texture rewritten, in place, as a size x size
+    half EXR at `path`: 8 x 8 tiles of random tints whose values reach 4,
+    between dark grout lines. Returns the path."""
+    rng = np.random.default_rng(seed)
+    n = 8
+    tint = rng.uniform(0.25, 4.0, (n, n, 1)) * rng.uniform(0.7, 1.0, (n, n, 3))
+    tint *= 4.0 / tint.max()
+    cell = size // n
+    img = np.repeat(np.repeat(tint, cell, axis=0), cell, axis=1).astype(np.float32)
+    grout = (np.arange(size) % cell) < max(cell // 32, 1)
+    img[grout] = 0.05
+    img[:, grout] = 0.05
+    rgba = np.concatenate([img, np.ones((size, size, 1), np.float32)], axis=-1)
+    with open(path, "wb") as f:
+        f.write(imgio.encode_exr(rgba))
+    for node in desc.materials["/m_floor"].nodes.values():
+        if node.shader_id == "UsdUVTexture":
+            node.inputs["file"] = path
+    return path

@@ -160,7 +160,7 @@ def _chip_smoke():
 
 
 def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
-                     tinted: bool = False, taps: bool = False):
+                     tinted: bool = False, taps: bool = False, hdr: bool = False):
     """Tables of a small interior (3,840 triangles) for the split kernels:
     its base-colour textures and, with `normal_map`, a leaning
     tangent-space normal map on every material (a raw UsdUVTexture, which
@@ -168,15 +168,18 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
     builds the materials, the texture pool and the kernel material table;
     its geometry and that table then go into resident, flattened or
     instanced tables. `tinted`: the bowls in tinted glass
-    (examples.interior_tinted); `taps`: chip_smoke.py tap_variants."""
+    (examples.interior_tinted); `taps`: chip_smoke.py tap_variants; `hdr`:
+    the floor a 64x64 EXR (examples.hdr_floor), a float pool."""
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
-    from gatling_tpu_torch.scene.examples import interior, interior_tinted
+    from gatling_tpu_torch.scene.examples import hdr_floor, interior, interior_tinted
     from gatling_tpu_torch.scene.stage import ShaderNode
 
     desc = (interior_tinted if tinted else interior)(detail=1, tex_dir=str(tex_dir))
     if taps:
         _chip_smoke().tap_variants(desc)
+    if hdr:
+        hdr_floor(desc, str(tex_dir / "floor.exr"), size=64)
     if normal_map:
         lean = np.zeros((2, 2, 4), np.uint8)
         lean[...] = (200, 128, 230, 255)
@@ -209,6 +212,7 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
                                           resident_max=4096 if layout == "resident" else 0)
     static = gi._with_split(scene, static)
     assert static.textured and static.tangents == normal_map
+    assert scene._texture_pool.packed != hdr
     return (fs, static, scene._material_dev, scene._texture_pool, static.textured_params,
             desc.first_camera())
 
@@ -237,6 +241,7 @@ def _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee: bool
     params[:, 6] = params[:, 8] = params[:, 9] = 1.0
     lt = static.light_types
     flags = (fs.walk, fs.advanced, fs.cutout, fs.volumes)
+    k4 = "K4f" if pool.has_texels and not pool.packed else "K4"  # the FLT instances
     for bounce in range(bounces):
         p = torch.tensor(params[bounce], device=cuda)
         hit_twin = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
@@ -257,7 +262,7 @@ def _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee: bool
         kern = state.clone()
         tb.shade_step(p, fs, kern, hit_twin, mats, pool, active, nee)
         torch.cuda.synchronize()
-        assert tb.launches["K4"] == before["K4"] + 1
+        assert tb.launches[k4] == before[k4] + 1
         k, t = kern.cpu().numpy(), twin.cpu().numpy()
         np.testing.assert_array_equal(k[12:].view(np.int32), t[12:].view(np.int32))
         close = np.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(axis=0)
@@ -290,6 +295,23 @@ def test_split_kernels_match_twins(cuda, tmp_path, layout, nee, normal_map):
         layout == "instanced")
     assert pool.bilinear_packed
     _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee, layout)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "flattened", "instanced"])
+@pytest.mark.parametrize("nee,normal_map", [(False, False), (True, True)])
+def test_split_kernels_match_twins_float_pool(cuda, tmp_path, layout, nee, normal_map):
+    """K4's FLT instances (resident: K4, clustered and instanced: K4 walk)
+    and K3 against their twins on the interior whose floor texture is an
+    EXR (examples.hdr_floor): the whole pool float, every tap reading four f32x4
+    texels; rows 12-15, H_HIT and H_MAT bit-equal on every ray
+    (_check_split_waves)."""
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, nee, normal_map,
+                                                                tmp_path, hdr=True)
+    assert not pool.packed and pool.texels.shape[0] > 64 * 64
+    assert tb.tap_mask(1, 16, pool) & tb.TAP_FLOAT
+    _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee,
+                       f"{layout} float pool")
 
 
 @pytest.mark.requires_cuda
@@ -392,6 +414,41 @@ def test_taps_match_texture_stage(cuda, tmp_path, taps, normal_map):
     bad = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
     assert int(bad.sum()) == 0, (int(bad.sum()), torch.nonzero(bad)[:5].tolist())
     assert bool((got[8:11] != hit[8:11]).any()) == normal_map
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("taps,normal_map", [(False, True), (True, True)])
+def test_float_taps_match_texture_stage(cuda, tmp_path, taps, normal_map):
+    """tap_rows' FLT instance (K4t over a float pool: the floor an EXR,
+    every slot's linear texels in `texels`, with `taps` the wrap modes and
+    channel picks of tap_variants) bit-equal to tap_rows_ref on 1,048,576
+    random hit rows, as test_taps_match_texture_stage holds the 8-bit one;
+    one K4tf launch a call."""
+    _fs, _static, mats, pool, active, _cam = _textured_tables(cuda, "resident", False,
+                                                              normal_map, tmp_path, taps=taps,
+                                                              hdr=True)
+    rng = np.random.default_rng(9)
+    r = 1 << 20
+    hit = np.zeros((24, r), np.float32)
+    hit[0] = 1.0
+    hit[2:4] = rng.uniform(-3.0, 4.0, (2, r))
+    hit[4] = rng.integers(0, mats.packed_f.shape[0], r)
+    n = rng.standard_normal((3, r))
+    n /= np.linalg.norm(n, axis=0)
+    hit[8:11] = n
+    t = rng.standard_normal((3, r))
+    t -= n * (t * n).sum(0)
+    hit[16:19] = t / np.linalg.norm(t, axis=0)
+    hit[19] = np.where(rng.random(r) < 0.5, -1.0, 1.0)
+    hit = torch.tensor(hit, device=cuda)
+    before = dict(tb.launches)
+    got = tb.tap_rows(hit, mats, pool, active)
+    assert tb.launches["K4tf"] == before["K4tf"] + 1 and tb.launches["K4t"] == before["K4t"]
+    want = tb.tap_rows_ref(hit, mats, pool, active)
+    torch.cuda.synchronize()
+    bad = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
+    assert int(bad.sum()) == 0, (int(bad.sum()), torch.nonzero(bad)[:5].tolist())
+    assert float(got[0:3].max()) > 1.0  # the EXR's texels above 1 were tapped
 
 
 @pytest.mark.requires_cuda
@@ -1097,13 +1154,14 @@ def test_onehot_product_rejects_bad_operands(cuda):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("repeat", [False, True, "float"])
 def test_opacity_tap_matches_twin(cuda, tmp_path, repeat):
     """tap_kernel's opacity row (TAP_OPACITY: the opacity slot and channel
     columns read from global memory) bit-equal to tap_rows_ref's on every
     hit ray of 1,048,576 random rows: every channel, every wrap mode (or
     all repeat: the 2x2 rows), thresholds on and off, one untextured
-    material; one K4t launch a call."""
+    material; one K4t launch a call. "float": the same over an EXR
+    opacity texture (a float pool: tap_rows' FLT instance, K4tf)."""
     from gatling_tpu_torch import imgio
     from gatling_tpu_torch.render import material as tmat
     from gatling_tpu_torch.render.texture import TextureRef
@@ -1111,7 +1169,10 @@ def test_opacity_tap_matches_twin(cuda, tmp_path, repeat):
     rng = np.random.default_rng(23)
     png = str(tmp_path / "opacity.png")
     imgio.write_image_file(png, rng.integers(0, 256, (29, 17, 4)).astype(np.uint8))
-    wraps = (["repeat"] * 4 if repeat else ["repeat", "clamp", "mirror", "black"])
+    if repeat == "float":
+        png = str(tmp_path / "opacity.exr")
+        imgio.write_image_file(png, rng.uniform(0.0, 1.2, (29, 17, 4)).astype(np.float32))
+    wraps = (["repeat"] * 4 if repeat is True else ["repeat", "clamp", "mirror", "black"])
     rows = []
     for k, ch in enumerate("rgba"):
         m = lower_material(None)
@@ -1130,9 +1191,11 @@ def test_opacity_tap_matches_twin(cuda, tmp_path, repeat):
     hit[2:4] = rng.uniform(-3.0, 4.0, (2, r))
     hit[4] = rng.integers(0, len(rows), r)
     hit = torch.tensor(hit, device=cuda)
-    before = tb.launches["K4t"]
+    key = "K4tf" if repeat == "float" else "K4t"
+    assert pool.packed == (repeat != "float")
+    before = tb.launches[key]
     got = tb.tap_rows(hit, mats, pool, ("opacity",))
-    assert tb.launches["K4t"] == before + 1
+    assert tb.launches[key] == before + 1
     want = tb.tap_rows_ref(hit, mats, pool, ("opacity",))
     torch.cuda.synchronize()
     on = hit[0] > 0.5

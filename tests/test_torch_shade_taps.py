@@ -17,7 +17,8 @@ shade_ref. Held here:
    against sample_pool's own decode on all 256 codes, bit for bit; the
    kernel's floor modulo (C's truncating % made a floor modulo) and wrap
    against `_wrap_coord` (the port's and the JAX package's) for negative
-   and out-of-range coordinates on every WRAP_* mode; a float pool raises;
+   and out-of-range coordinates on every WRAP_* mode; a float pool takes
+   the FLT taps (TAP_FLOAT) and sample_pool's float branch;
 3. chip_smoke.py's count of the distinct texel rows a K4 launch's taps
    read (its bound's texel bytes) against a brute-force count;
 4. the opacity row of the taps alone (ops/bounce.py tap_rows_ref, the
@@ -85,6 +86,7 @@ def test_srgb_table_matches_the_taps():
     codes = np.arange(256, dtype=np.uint32)
     texels = codes | (codes << 8) | (codes << 16) | (codes << 24)
     pool = ttex.TexturePool(
+        texels=torch.zeros((1, 4)),
         texels_u32=_i32(np.concatenate([texels, [0]])), texels_q22=_i32(np.zeros((1, 4))),
         is_srgb=_i32([1]), offset=_i32([0]), width=_i32([256]), height=_i32([1]),
         wrap_s=_i32([ttex.WRAP_CLAMP]), wrap_t=_i32([ttex.WRAP_CLAMP]),
@@ -149,15 +151,20 @@ def test_floor_modulo_wrap_matches_wrap_coord(mode):
 
 def test_float_pool_raises():
     """A pool with textures but no 8-bit texels (the float pool of the HDR
-    codecs) raises, on the card's path and on the twin's; the empty pool
-    of an untextured anisotropic scene taps nothing."""
+    codecs) no longer raises: K4 takes its FLT taps (TAP_FLOAT in the
+    mask) and the twin sample_pool's float branch, which reads `texels`;
+    the empty pool of an untextured anisotropic scene taps nothing."""
     empty = ttex.empty_pool()
-    float_pool = empty._replace(offset=_i32([0, 1]), width=_i32([1, 1]), height=_i32([1, 1]))
-    assert float_pool.count == 2 and not float_pool.packed
-    with pytest.raises(NotImplementedError, match="Dome lights"):
-        tb.tap_mask(1, 16, float_pool)
-    with pytest.raises(NotImplementedError, match="Dome lights"):
-        ttex.sample_pool(float_pool, torch.zeros(1, dtype=torch.int32), torch.zeros((1, 2)))
+    float_pool = empty._replace(texels=torch.tensor([[0.5, 2.0, 4.0, 1.0], [1.5, 0.0, 8.0, 0.25]]),
+                                is_srgb=_i32([0, 0]), offset=_i32([0, 1]), width=_i32([1, 1]),
+                                height=_i32([1, 1]), wrap_s=_i32([ttex.WRAP_REPEAT] * 2),
+                                wrap_t=_i32([ttex.WRAP_CLAMP] * 2), scale=torch.ones((2, 4)),
+                                bias=torch.zeros((2, 4)))
+    assert float_pool.count == 2 and not float_pool.packed and float_pool.has_texels
+    assert tb.tap_mask(1, 16, float_pool) == 1 | tb.TAP_FLOAT
+    got = ttex.sample_pool(float_pool, torch.tensor([0, 1], dtype=torch.int32),
+                           torch.full((2, 2), 0.5))
+    assert torch.equal(got, float_pool.texels)  # a 1x1 slot's tap is its texel
     assert tb.tap_mask(15, 24, empty) == 0
 
 
@@ -177,6 +184,7 @@ def test_distinct_texel_count_matches_brute_force(packed):
     modes = ([ttex.WRAP_REPEAT] * 3 if packed
              else [ttex.WRAP_BLACK, ttex.WRAP_MIRROR, ttex.WRAP_CLAMP])
     pool = ttex.TexturePool(
+        texels=torch.zeros((1, 4)),
         texels_u32=_i32(rng.integers(0, 2 ** 32, n + 1, dtype=np.uint64)),
         texels_q22=_i32(rng.integers(0, 2 ** 32, (n + 1, 4), dtype=np.uint64) if packed
                         else np.zeros((1, 4))),
