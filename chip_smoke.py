@@ -10,8 +10,8 @@ fails, with a non-zero exit, if any phase fails:
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade, with its own texture taps; its
    taps alone K4t; both also in FLT instances over a float texel pool) are
-   built from gatling_tpu_torch/csrc/bounce.cu (in fifteen nvcc parts), K5-K8 (the
-   wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
+   built from gatling_tpu_torch/csrc/bounce.cu (in fifteen nvcc parts), K5-K8 and
+   B1/B2 (the wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once; one line a kernel instance of
    ptxas' registers, stack and spills;
 3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
@@ -67,7 +67,7 @@ fails, with a non-zero exit, if any phase fails:
 5. progressive accumulation over one scene (sampleOffset 16 -> 32 -> 48);
 4e. the wavefront integrator through gi.render, every AOV bound (the ids
    in int32 buffers): cornell_aovs (the Cornell box and the bench's rect
-   light, 1200x1200, 16 spp, 8 bounces, NEE) and interior_aovs
+   light, 1200x1200, 16 spp, 8 bounces, NEE) and interior_aovs_small
    (interior(detail=1), 3,840 triangles, 512x512, 4 spp, 6 bounces, NEE,
    textured), a first and a warm frame each, COLOR's Cornell checks,
    ids in range, unit normals, K5 and K6 launched and K1-K4 not; then
@@ -91,6 +91,25 @@ fails, with a non-zero exit, if any phase fails:
    past each ray's first occluder; after 4f, the same on
    cornell_cutout_aovs' shadow-hop waves (bounces 0 and 2, recorded by
    wrapping render/integrator.py _trace_occluded_cutout);
+4l. the wavefront above 8192 triangles, on the threaded BVH tracer (B1
+   closest hits, B2 shadow rays; gi builds the tree at the first
+   wavefront frame), every AOV bound: interior_aovs (the interior at full
+   detail, 92,492 triangles) and sphere_field_aovs (294,916, flattened
+   into the soup), 512x512, 4 spp, 6 bounces, NEE, the tree's build time
+   on the host, a first and a warm frame, B1 and B2 launched and K1-K8
+   not, the AOV checks; interior_dynamic (the interior at full detail,
+   its pots' emission Materials.MtlxViewDirection's view-dependent graph,
+   its crates a two-sided MDL material: the dynamic inputs and the
+   backface rows, COLOR, 512x512, 4 spp, 6 bounces, NEE), its warm frame
+   and checks, the dynamic expression on the card against the CPU, and
+   the scene at 32x32 on the card against the CPU twins, the same samples;
+3i. then B1 and B2 against their twins (ops/trace_ref.py, the JAX walk in
+   lockstep) on 4l's recorded waves (interior_aovs bounces 0 and 2,
+   sphere_field_aovs bounce 0, closest and shadow rays, 262,144 rays
+   each): t, tri, u, v and the flags bit-equal on every ray; each timed
+   with its bound (the walk's counted slab and triangle tests); and on
+   interior_aovs_small's waves over a threaded BVH of its soup, beside K5
+   and K6 on the same rays;
 4f. the advanced lobes and the cutout through gi.render, a first and a
    warm frame each with the kernels' launches: glass_coated
    (Materials.GlassCoated at the bench's 1200x1200, 16 spp, 8 bounces,
@@ -191,7 +210,8 @@ fails, with a non-zero exit, if any phase fails:
    texel);
 goldens: the committed scenes tests/test_torch_graphical.py renders,
    through gatling_tpu_torch.testing.run_graphical_test on the card at
-   their own thresholds (Materials.GlassCoated: its reference is a
+   their own thresholds (Materials.MtlxViewDirection on the wavefront,
+   its emission evaluated per hit; Materials.GlassCoated: its reference is a
    wavefront image, the harness renders the port's fused K1, and only the
    error components may miss; 4f holds its wavefront frame to both);
 P. the probes P1 (the six layout moves in one launch, a block a move,
@@ -209,7 +229,9 @@ Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's frames beside
-K3's, K4's and K4t's entries; P1/P2: the probes' run), the counts set to
+K3's, K4's and K4t's entries; B1 and B2: interior_aovs', with
+sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
+run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
 interior_hdr_textured's and interior_hdr_first_hit's frames). K7 and K8 are on no path (the JAX package's comparison point)
 and count 0. The last lines are the card's name and power limit, one JSON
@@ -1401,7 +1423,7 @@ def phase_interior(device, tex_dir: str, extra: dict):
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
     assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K4f=0, K4tf=0, K5=0, K6=0, K7=0,
-                            K8=0), launches
+                            K8=0, B1=0, B2=0), launches
     # K4 taps the textures itself: no texture stage between K3 and K4
     assert split_ref.stage_calls == 0, split_ref.stage_calls
     out["interior_texture_stage_calls"] = split_ref.stage_calls
@@ -1513,12 +1535,14 @@ def cornell_aovs_params(device):
                              render_settings=merged)
 
 
-def interior_aovs_params(device, tex_dir: str):
-    """interior_aovs: interior(detail=1), 3,840 triangles, every AOV bound,
-    512x512, 4 spp, 6 bounces, NEE."""
+def interior_aovs_params(device, tex_dir: str, detail: int = 1):
+    """interior_aovs_small: interior(detail=1), 3,840 triangles (K5/K6's
+    frame), or with detail=5 interior_aovs, the interior at full detail,
+    92,492 triangles (B1/B2's); every AOV bound, 512x512, 4 spp, 6
+    bounces, NEE."""
     from gatling_tpu_torch.scene.examples import interior
 
-    desc = interior(detail=1, tex_dir=tex_dir)
+    desc = interior(detail=detail, tex_dir=tex_dir)
     return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
                                                   nextEventEstimation=True), every_aov=True)
 
@@ -1660,8 +1684,8 @@ def graphical_card_vs_cpu(device, name):
 
 
 def phase_wavefront(device, tex_dir: str):
-    """Phase 4e: cornell_aovs and interior_aovs through gi.render's wavefront
-    route (K5 closest hits, K6 shadow rays): a first and warm frames, the
+    """Phase 4e: cornell_aovs and interior_aovs_small through gi.render's
+    wavefront route (K5 closest hits, K6 shadow rays): a first and warm frames, the
     checks, the launch counts; the two graphical scenes on the card against
     the CPU twins. Returns (frame seconds, launches of the Cornell warm
     frame, recorded waves and tables per scene)."""
@@ -1672,7 +1696,7 @@ def phase_wavefront(device, tex_dir: str):
     out, waves = {}, {}
     for label, params, warm_frames in (
             ("cornell_aovs", cornell_aovs_params(device), 1),
-            ("interior_aovs", interior_aovs_params(device, tex_dir), 1)):
+            ("interior_aovs_small", interior_aovs_params(device, tex_dir), 1)):
         desc = (f"{label} {params.aov_bindings[0].render_buffer.width}^2 "
                 f"{params.render_settings['spp']}spp {params.render_settings['maxBounces']} "
                 "bounces nee, every AOV")
@@ -2009,6 +2033,322 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
         "bound_ms_no_contraction": head["bound_nc"][0],
         "bound_ms_no_contraction_by_case": {c: r["bound_nc"][0] for c, r in cases.items()},
         **brute,
+    }
+
+
+# ---------------------------------------------------------------------------
+# 4l and 3i: the wavefront above 8192 triangles (B1/B2), dynamic inputs and
+# backface materials
+# ---------------------------------------------------------------------------
+
+# operations of B1 and B2, counted from csrc/trace.cu: (a slab test, a
+# triangle test) at the published f32 peak (a fused multiply-add two) and
+# in FP32 instructions (a fused multiply-add one); 3 divisions a live ray
+THREADED_FLOPS = {"B1": (26, 56), "B2": (25, 54)}
+THREADED_INSTR = {"B1": (26, 42), "B2": (25, 40)}
+
+
+def threaded_bound_ms(kernel: str, rays, bvh, work, nc: bool = False):
+    """The least time of one B1 or B2 launch for the work its walk makes
+    (trace_ref.threaded_work: slab tests, triangle tests): each ray's o, d,
+    tmin, tmax read and its result (t, tri, u, v; a flag) written once, the
+    node rows (8 words) and the triangles (v0, e1, e2: 9) read once (HBM),
+    against THREADED_FLOPS at the published f32 peak, or with `nc`
+    THREADED_INSTR at one FP32 instruction each."""
+    n = rays[0].shape[0]
+    live = int((rays[3] > rays[2]).sum())
+    out_bytes = 16 if kernel == "B1" else 1
+    slab, tri = (THREADED_INSTR if nc else THREADED_FLOPS)[kernel]
+    nbytes = n * (32 + out_bytes) + 4 * (8 * bvh.num_nodes + 9 * bvh.tris.shape[0])
+    return _bound(nbytes, 3 * live + work[0] * slab + work[1] * tri,
+                  FP32_INSTR_RATE if nc else F32_FLOPS)
+
+
+def threaded_parity(label: str, bounce, kind: str, rays, bvh) -> dict:
+    """B1 (closest) or B2 (occluded) on one recorded wave against its twin
+    over every ray: t, tri, u, v or the flags bit-equal. The twin's one run
+    (trace_ref.threaded_work) gives its time, and the walk's work for the
+    bound; the kernel is timed with CUDA events."""
+    import torch
+
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+
+    any_hit = kind == "occluded"
+    k = "B2" if any_hit else "B1"
+    run = tt.occluded_threaded if any_hit else tt.intersect_threaded
+    got = run(*rays, bvh)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    ref, boxes, tests = trf.threaded_work(*rays, bvh, any_hit=any_hit)
+    b.record()
+    torch.cuda.synchronize()
+    live = int((rays[3] > rays[2]).sum())
+    if any_hit:
+        bad = int((got != ref).sum())
+        err = float((got != ref).float().max())
+        what = f"{int(got.sum())} occluded"
+    else:
+        bad = sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                  for g, r in zip(got, ref))
+        hit = ref[1] >= 0
+        err = max(float((g[hit] - r[hit]).abs().max()) if bool(hit.any()) else 0.0
+                  for g, r in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])))
+        what = f"{int(hit.sum())} hits"
+    work = (int(boxes.sum()), int(tests.sum()))
+    log(f"parity {label} bounce {bounce} {kind} ({rays[0].shape[0]} rays, every one compared, "
+        f"{live} live, {what}): {k} {bad} values not bit-equal to its twin; walk work {work} "
+        f"slab and triangle tests, {work[0] / max(live, 1):.1f} and {work[1] / max(live, 1):.1f} "
+        "a live ray")
+    assert bad == 0, (label, bounce, kind)
+    return dict(ms=event_ms(lambda: run(*rays, bvh)), plain_ms=a.elapsed_time(b),
+                rays=rays[0].shape[0], live=live, err=err, work=work,
+                bound=threaded_bound_ms(k, rays, bvh, work),
+                bound_nc=threaded_bound_ms(k, rays, bvh, work, nc=True))
+
+
+def timed_accel_build(params, label: str) -> float:
+    """A first gi.render of `params` (timed_aov_render), which must build
+    the wavefront's tracer: the seconds of that build (gi._build_accel:
+    for the `bvh` tracer build_bvh on the host, the reorder, the device
+    rows and the reordered packed rows)."""
+    from gatling_tpu_torch import gi
+
+    real, spent = gi._build_accel, []
+
+    def timed(scene):
+        t0 = time.perf_counter()
+        real(scene)
+        spent.append(time.perf_counter() - t0)
+
+    gi._build_accel = timed
+    try:
+        timed_aov_render(params, label)
+    finally:
+        gi._build_accel = real
+    assert len(spent) == 1, spent
+    return spent[0]
+
+
+def dynamic_eval_check(device) -> float:
+    """eval_dynamic_expr of view_direction_material's emission on the card
+    against the CPU, on 65,536 random view directions and normals: the
+    largest difference (XLA-free torch ops on both sides; pow and the
+    reductions may round differently on the two devices)."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch.render.material import lower_material
+    from gatling_tpu_torch.render.shadergraph import eval_dynamic_expr
+    from gatling_tpu_torch.scene.examples import view_direction_material
+
+    expr = lower_material(view_direction_material("/m")).dynamic["emissive"]
+    rng = np.random.default_rng(8)
+    vd, nrm = (torch.nn.functional.normalize(torch.tensor(rng.normal(size=(65536, 3)),
+                                                          dtype=torch.float32), dim=1)
+               for _ in range(2))
+    cpu = eval_dynamic_expr(expr, vd, nrm)
+    gpu = eval_dynamic_expr(expr, vd.to(device), nrm.to(device)).cpu()
+    err = float((gpu - cpu).abs().max())
+    log(f"dynamic input (view-direction emission) on the card against the CPU: max abs diff "
+        f"{err:.3e} over 65536 hits")
+    assert err < 1e-5
+    return err
+
+
+def phase_threaded(device, tex_dir: str, sf):
+    """Phase 4l: the wavefront above 8192 triangles through gi.render, on
+    the `bvh` tracer (B1 closest hits, B2 shadow rays): interior_aovs (the
+    interior at full detail, 92,492 triangles) and sphere_field_aovs
+    (294,916), every AOV, 512x512, 4 spp, 6 bounces, NEE; the tree's build
+    time, a first and a warm frame, launches (B1 and B2 only), the AOV
+    checks; then interior_dynamic (a view-dependent emission and a
+    two-sided MDL material: the dynamic and backface routes), COLOR, its
+    warm frame and image checks. Returns (frame numbers, each frame's B1
+    and B2 launches, recorded waves and trees per scene)."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId, aov_bit
+    from gatling_tpu_torch.scene.examples import interior_dynamic
+
+    out, waves, launches_by = {}, {}, {}
+    for label, params in (
+            ("interior_aovs", interior_aovs_params(device, tex_dir, detail=5)),
+            ("sphere_field_aovs", desc_params(device, sf[0], SF_RES, dict(
+                spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True), every_aov=True))):
+        desc = f"{label} {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee, every AOV"
+        t0 = time.perf_counter()
+        build = timed_accel_build(params, desc + " (first frame)")
+        first = time.perf_counter() - t0
+        scene = params.scene
+        log(f"{label}: {scene._geom.num_triangles} triangles (padded), the threaded BVH's "
+            f"{scene._accel.bvh.num_nodes} nodes built with the reorder and the device rows in "
+            f"{build:.3f} s on the card's host; first frame {first:.3f} s")
+        aovs, dt, launches = timed_aov_render(params, desc + " (warm)")
+        assert scene._tracer == "bvh" and scene._fused is None and scene._accel.tables is None
+        assert launches["B1"] > 0 and launches["B2"] > 0, launches
+        assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")), \
+            launches
+        color = aovs[AovId.COLOR][..., :3]
+        assert (color >= 0).all() and color.mean() > 0.01, label
+        check_aovs(aovs, params, label)
+        out[label] = dict(build_s=build, first_frame_s=first, warm_frame_s=dt,
+                          triangles=scene._geom.num_triangles,
+                          nodes=scene._accel.bvh.num_nodes)
+        launches_by[label] = {k: launches[k] for k in ("B1", "B2")}
+        waves[label] = (record_waves(params), scene._accel.bvh)
+
+    # interior_dynamic: a view-dependent emission and a two-sided MDL
+    # material at full detail, COLOR only
+    desc = interior_dynamic(tex_dir=tex_dir)
+    params = desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                    nextEventEstimation=True))
+    label = f"interior_dynamic {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee"
+    counted_render(params, label + " (first frame)")
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, dt, _mr, launches = counted_render(params, label + " (warm)")
+    scene = params.scene
+    config = gi._build_config(params, SF_RES, SF_RES, aov_bit(AovId.COLOR))
+    assert scene._tracer == "bvh" and scene._fused is None and config.has_backface
+    assert [p for _i, p, _e in config.dynamic_params] == ["emissive"], config.dynamic_params
+    assert launches["B1"] > 0 and launches["B2"] > 0, launches
+    assert all(launches[k] == 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"))
+    rgb = img[..., :3]
+    assert np.isfinite(rgb).all() and (rgb >= 0).all() and rgb.mean() > 0.01, "interior_dynamic"
+    log(f"interior_dynamic: warm frame {dt:.4f} s, COLOR mean {rgb.mean():.5f}, max "
+        f"{rgb.max():.3f}; launches {launches}")
+    out["interior_dynamic"] = dict(warm_frame_s=dt, color_mean=float(rgb.mean()),
+                                   dynamic_eval_err=dynamic_eval_check(device),
+                                   card_vs_cpu=interior_dynamic_card_vs_cpu(device, tex_dir))
+    launches_by["interior_dynamic"] = {k: launches[k] for k in ("B1", "B2")}
+    return out, launches_by, waves
+
+
+def interior_dynamic_card_vs_cpu(device, tex_dir: str) -> dict:
+    """interior_dynamic at 32x32, 1 spp, 3 bounces, NEE, COLOR and
+    OBJECT_ID, on the card (B1/B2) and through the twins on the CPU, the
+    same samples: the ids equal on 99 % of pixels, COLOR within 1e-3 on
+    98 % and its mean within 1 % (tests/test_torch_wavefront.py's whole-
+    frame tolerances)."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.scene.examples import interior_dynamic
+
+    out = {}
+    for dev in (device, "cpu"):
+        desc = interior_dynamic(tex_dir=tex_dir)
+        params = desc_params(dev, desc, 32, dict(spp=1, maxBounces=3, nextEventEstimation=True))
+        params.aov_bindings.append(gi.GiAovBinding(AovId.OBJECT_ID,
+                                                   gi.GiRenderBuffer(32, 32, 1, True), -1))
+        t0 = time.perf_counter()
+        gi.render(params)
+        out[str(dev)] = [b.render_buffer.data.copy() for b in params.aov_bindings]
+        log(f"interior_dynamic 32^2 on {dev}: {time.perf_counter() - t0:.2f} s")
+    (cg, og), (cc, oc) = out[str(device)], out["cpu"]
+    same = float((og == oc).mean())
+    close = float((np.abs(cg - cc) <= 1e-3 + 1e-3 * np.abs(cc)).all(axis=-1).mean())
+    rel = float(abs(cg[..., :3].mean() - cc[..., :3].mean()) / cc[..., :3].mean())
+    log(f"interior_dynamic card vs CPU twins: ids equal on {same:.4f}, COLOR within 1e-3 on "
+        f"{close:.4f}, mean rel diff {rel:.2e}")
+    assert same >= 0.99 and close >= 0.98 and rel < 0.01
+    return dict(ids_equal=same, color_close=close, mean_rel_diff=rel)
+
+
+def phase_threaded_trace(device, waves: dict, small) -> dict:
+    """Phase 3i: B1 and B2 against their twins on 4l's recorded waves
+    (bounces 0 and 2 of the first sample of interior_aovs; bounce 0 of
+    sphere_field_aovs), every ray bit-equal, each timed with its bound;
+    and on interior_aovs_small's waves (4e: interior(detail=1), 3,840
+    triangles, traced there by K5/K6) over a threaded BVH of the same
+    soup, beside K5 and K6 on the same rays: their times, and the hits
+    (B1's triangle mapped back through the tree's order) against K5's."""
+    import torch
+
+    from gatling_tpu_torch.ops import bvh as bvhm
+    from gatling_tpu_torch.ops import trace as tt
+
+    results = {}
+    for label, (recorded, bvh) in waves.items():
+        keep = (0, 2) if label == "interior_aovs" else (0,)
+        for kind in ("closest", "occluded"):
+            for bounce, rays in recorded[kind].items():
+                if bounce in keep:
+                    k = "B2" if kind == "occluded" else "B1"
+                    results[(k, label, bounce)] = threaded_parity(label, bounce, kind, rays, bvh)
+    recorded, tables, geom = small
+    t0 = time.perf_counter()
+    arrays, order = bvhm.build_bvh(geom.v0, geom.e1, geom.e2)
+    bvh = bvhm.threaded_bvh(arrays, bvhm.reorder_geometry(geom, order), device)
+    log(f"interior_aovs_small: threaded BVH over {geom.num_triangles} triangles in "
+        f"{time.perf_counter() - t0:.3f} s")
+    order_t = torch.as_tensor(order, device=device)
+    for kind in ("closest", "occluded"):
+        for bounce, rays in recorded[kind].items():
+            k = "B2" if kind == "occluded" else "B1"
+            r = threaded_parity("interior_aovs_small", bounce, kind, rays, bvh)
+            if kind == "closest":
+                k5 = tt.intersect_matrix(*rays, tables)
+                b1 = tt.intersect_threaded(*rays, bvh)
+                mapped = torch.where(b1.tri >= 0, order_t[b1.tri.clamp(min=0).long()], -1)
+                r["same_hit_as_k5"] = float((mapped == k5.tri).float().mean())
+                r["k5_ms"] = event_ms(lambda rr=rays: tt.intersect_matrix(*rr, tables))
+            else:
+                r["same_hit_as_k5"] = float((tt.occluded_matrix(*rays, tables)
+                                             == tt.occluded_threaded(*rays, bvh)).float().mean())
+                r["k5_ms"] = event_ms(lambda rr=rays: tt.occluded_matrix(*rr, tables))
+            log(f"interior_aovs_small bounce {bounce} {kind}: {k} {r['ms']:.4f} ms, "
+                f"{'K5' if k == 'B1' else 'K6'} {r['k5_ms']:.4f} ms on the same rays; the same "
+                f"answer on {r['same_hit_as_k5']:.6f} of rays")
+            assert r["same_hit_as_k5"] >= 0.999
+            results[(k, "interior_aovs_small", bounce)] = r
+    for (k, label, bounce), r in sorted(results.items()):
+        log(f"timing {k} {label} bounce {bounce} ({r['rays']} rays, {r['live']} live): kernel "
+            f"{r['ms']:.4f} ms, plain twin {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}; walk work {r['work']}), at one FP32 instruction an operation "
+            f"{r['bound_nc'][0]:.4f} ms")
+    return results
+
+
+THREADED_ENTRIES = {
+    "B1": ("intersect_threaded (B1, closest hit: threaded_closest_kernel, a stackless walk of "
+           "the threaded BVH, the wavefront's tracer above 8192 triangles)",
+           "gatling_tpu/ops/bvh.py:202 traverse (any_hit=False; an XLA lax.while_loop, no "
+           "Pallas kernel) via traverse_closest :266"),
+    "B2": ("occluded_threaded (B2, shadow rays: threaded_occluded_kernel, its any-hit walk)",
+           "gatling_tpu/ops/bvh.py:202 traverse (any_hit=True; an XLA lax.while_loop, no "
+           "Pallas kernel) via traverse_occluded :270"),
+}
+
+
+def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict) -> dict:
+    """The kernels-line entry of B1 or B2: the headline numbers on
+    interior_aovs' bounce-0 wave (its launches a warm frame), the other
+    waves by case, K5's or K6's time beside it on interior_aovs_small."""
+    name, replaces = THREADED_ENTRIES[kernel]
+    head = times[(kernel, "interior_aovs", 0)]
+    cases = {f"{label}/bounce {b}": r for (k, label, b), r in sorted(times.items())
+             if k == kernel}
+    return {
+        "name": name, "route": "cuda", "source": "gatling_tpu_torch/csrc/trace.cu",
+        "replaces": replaces, "launches": launches["interior_aovs"][kernel],
+        "max_abs_err": max(r["err"] for r in cases.values()),
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound"][0],
+        "bound_by": head["bound"][1], "library_ms": None, "on_main_path": True,
+        "launches_by_frame": {label: v[kernel] for label, v in launches.items()},
+        "walk_work": head["work"],
+        "ms_by_case": {c: r["ms"] for c, r in cases.items()},
+        "plain_ms_by_case": {c: r["plain_ms"] for c, r in cases.items()},
+        "bound_ms_by_case": {c: r["bound"][0] for c, r in cases.items()},
+        "bound_ms_no_contraction": head["bound_nc"][0],
+        "bound_ms_no_contraction_by_case": {c: r["bound_nc"][0] for c, r in cases.items()},
+        "walk_work_by_case": {c: r["work"] for c, r in cases.items()},
+        ("k5_ms_by_case" if kernel == "B1" else "k6_ms_by_case"): {
+            c: r["k5_ms"] for c, r in cases.items() if "k5_ms" in r},
+        "bvh_build_s": {label: f["build_s"] for label, f in frames.items() if "build_s" in f},
     }
 
 
@@ -3779,10 +4119,10 @@ def phase_goldens(device, out_dir: str):
 
 
 # the goldens the port renders (tests/test_torch_graphical.py ROUTES); the
-# other three raise, naming their ROADMAP item
+# other two raise, naming their ROADMAP item
 GOLDENS = ("Camera.ClippingPlanes", "Lights.Analytic", "MaterialX.ColorSpaces",
-           "Materials.GlassCoated", "Mesh.PrimvarInterpolation", "Render.AOVs",
-           "Render.Empty1x1")
+           "Materials.GlassCoated", "Materials.MtlxViewDirection", "Mesh.PrimvarInterpolation",
+           "Render.AOVs", "Render.Empty1x1")
 
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
@@ -3899,9 +4239,21 @@ def main() -> int:
     log(f"phase 4e: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     trace_times = phase_trace(device, waves)
+    small_waves = waves["interior_aovs_small"]
     del waves
     trace_times.update(phase_trace_streamed(device, tex_tmp.name))
     log(f"phase 3d: {time.perf_counter() - t0:.1f} s")
+
+    # 4l. the wavefront above 8192 triangles (B1/B2) through gi.render, the
+    # dynamic inputs and the backface rows; 3i. B1 and B2 against their
+    # twins on 4l's waves, and beside K5/K6 on interior_aovs_small's
+    t0 = time.perf_counter()
+    threaded_frames, threaded_launches, threaded_waves = phase_threaded(device, tex_tmp.name, sf)
+    log(f"phase 4l: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    threaded_times = phase_threaded_trace(device, threaded_waves, small_waves)
+    del threaded_waves, small_waves
+    log(f"phase 3i: {time.perf_counter() - t0:.1f} s")
 
     # 4f. glass, clearcoat, anisotropy and cutout through gi.render; 3e. the
     # branches against their twins on 4f's waves; P. the probes
@@ -3974,6 +4326,8 @@ def main() -> int:
         f"{cut_frames}; their launches {new_launches}; goldens {goldens}")
     log(f"dome and float-pool frames {dome_frames}; their launches {dome_launches}; the dome "
         f"pass {dome_passes}")
+    log(f"the wavefront above 8192 triangles, dynamic inputs and backface rows: frames "
+        f"{threaded_frames}; their launches {threaded_launches}")
     taps = peel["cornell_first_hit"]
 
     k2 = walk_times[("instanced", "generated", False)]
@@ -4100,6 +4454,8 @@ def main() -> int:
                     for k, v in peel.items() if "ms" in v and "alive" not in v},
         "launches_by_new_frame": {k: v["K4t"] for k, v in new_launches.items()},
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
+        *(threaded_entry(k, threaded_times, threaded_launches, threaded_frames)
+          for k in ("B1", "B2")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
         *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches),

@@ -24,10 +24,15 @@ JAX package chooses (gatling_tpu/gi.py:650-700):
   and clipping planes peel bounce 0 off through K3 and K4 (render/fused.py),
   an opacity texture re-traces what its cutout rejects;
 * the wavefront integrator (render/integrator.py) when an AOV outside
-  FUSED_AOV_MASK is bound, or a material reads per-vertex colours: every
-  AOV and cutout (textured too), traced by the brute-force kernels K5
-  (closest hit) and K6 (shadow rays) for scenes of at most 8192 triangles
-  (`_choose_tracer`).
+  FUSED_AOV_MASK is bound, a material reads per-vertex colours or has
+  view-, normal- or primvar-dependent inputs (evaluated per hit) or an MDL
+  backface surface (its appended row shades back-facing hits), or the
+  media need a stack of 2 or more: every AOV and cutout (textured too),
+  traced by K5 (closest hit) and K6 (shadow rays) for scenes of at most
+  8192 triangles and above that by B1 and B2, the walks of the JAX
+  package's threaded BVH (`_choose_tracer`; the tree is built at the first
+  wavefront frame, over the soup it reorders, and a fused frame never
+  builds it).
 
 `render` raises NotImplementedError, naming the ROADMAP item, for anything
 else; it never renders something else.
@@ -57,8 +62,10 @@ from gatling_tpu_torch.ops.bounce import (
     refit_instanced,
     with_volumes,
 )
+from gatling_tpu_torch.ops.bvh import build_bvh, reorder_geometry, threaded_bvh
 from gatling_tpu_torch.ops.geometry import (
     build_geometry_cached,
+    build_instance_primvar_tables,
     pack_geometry,
     update_instance_transforms,
 )
@@ -84,6 +91,7 @@ from gatling_tpu_torch.render.material import (
     substitute_texture_means,
     textured_params,
 )
+from gatling_tpu_torch.render.shadergraph import expr_dynamic_beyond, expr_reads_primvar
 from gatling_tpu_torch.render.texture import TextureManager
 from gatling_tpu_torch.scene.stage import CameraDesc, LightDesc, MaterialDesc, MeshDesc
 from gatling_tpu_torch.utils.config import default_settings
@@ -245,18 +253,41 @@ def _choose_tracer(geom) -> str:
 
 
 def _build_accel(scene: GiScene) -> None:
-    """The wavefront's trace tables and packed shading rows on the device
-    (gatling_tpu/gi.py:289-303)."""
-    if scene._tracer != "matrix":
-        raise NotImplementedError(
-            f"{scene._geom.num_triangles} triangles: the wavefront integrator traces scenes "
-            f"above {MATRIX_MAX_TRIS} triangles with the threaded BVH tracer, which is not "
-            "ported yet (ROADMAP: 'Wavefront integrator')")
+    """The wavefront's tracer data and packed shading rows on the device
+    (gatling_tpu/gi.py:289-303, :350-360): K5/K6's trace tables, or the
+    threaded BVH of B1/B2 over the soup in the tree's order, which the
+    packed rows (every table the wavefront reads by triangle index) follow.
+    The fused tables keep the soup's own order (scene._geom)."""
     t0 = time.monotonic()
-    scene._accel = Accel(tables=build_trace_tables(scene._geom, scene.device))
-    scene._packed = pack_geometry(scene._geom, scene.device)
-    get_logger().info("built the %s trace tables in %.1f ms", scene._tracer,
-                      1e3 * (time.monotonic() - t0))
+    geom = scene._geom
+    if scene._tracer == "matrix":
+        scene._accel = Accel(tables=build_trace_tables(geom, scene.device))
+    else:
+        arrays, order = build_bvh(geom.v0, geom.e1, geom.e2)
+        geom = reorder_geometry(geom, order)
+        scene._accel = Accel(bvh=threaded_bvh(arrays, geom, scene.device))
+    scene._packed = pack_geometry(geom, scene.device)
+    get_logger().info("built the %s tracer's data over %d triangles in %.1f ms", scene._tracer,
+                      geom.num_triangles, 1e3 * (time.monotonic() - t0))
+
+
+def _resolvable_primvars(scene: GiScene) -> set:
+    """The primvars a hit can read (gatling_tpu/gi.py:363-373): the
+    interpolated displayColor and every mesh's instance-rate primvars."""
+    out = {"displayColor"}
+    for m in scene.meshes:
+        out.update(getattr(m, "instance_primvars", None) or {})
+    return out
+
+
+def _dynamic_params(scene: GiScene) -> tuple:
+    """(material index, parameter, Expr) of every dynamic input that needs
+    per-hit evaluation (gatling_tpu/gi.py:402-406); one whose only dynamic
+    leaves are primvars no hit carries keeps its fallback constant."""
+    resolvable = _resolvable_primvars(scene)
+    return tuple((idx, pname, expr) for idx, m in enumerate(scene._lowered_materials)
+                 for pname, expr in sorted(m.dynamic.items())
+                 if expr_dynamic_beyond(expr, resolvable))
 
 
 def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int) -> RenderConfig:
@@ -284,6 +315,8 @@ def _build_config(params: GiRenderParams, width: int, height: int, aov_mask: int
                         for m in scene._lowered_materials),
         medium_stack_size=int(s.get("mediumStackSize", 0)),
         has_cutout=any(m.traits.has_cutout for m in scene._lowered_materials),
+        dynamic_params=_dynamic_params(scene),
+        has_backface=any(m.backface for m in scene._lowered_materials),
     )
 
 
@@ -314,9 +347,12 @@ def _init_aov_state(bindings: list[GiAovBinding], n: int, device) -> dict[str, t
 
 
 def _uses_vertex_colours(scene: GiScene) -> bool:
-    """A material multiplies per-vertex displayColor into its base colour
-    and a mesh carries such colours (gatling_tpu/gi.py:673-679)."""
-    vcolor = any(m.params.get("vcolor_mul", 0.0) for m in scene._lowered_materials)
+    """A material reads per-vertex displayColor (multiplies it into its
+    base colour, or a dynamic input reads a primvar) and a mesh carries
+    such colours (gatling_tpu/gi.py:670-679)."""
+    vcolor = any(m.params.get("vcolor_mul", 0.0)
+                 or any(expr_reads_primvar(e) for e in m.dynamic.values())
+                 for m in scene._lowered_materials)
     return vcolor and any(getattr(m.mesh, "colors", None) is not None for m in scene.meshes)
 
 
@@ -527,9 +563,11 @@ def render(params: GiRenderParams) -> None:
 
     config = _build_config(params, width, height, aov_mask)
     # the JAX package's route (gatling_tpu/gi.py:650-700): AOVs the fused
-    # kernels do not write, vertex colours, or media the fused kernels do
-    # not carry take the wavefront integrator
+    # kernels do not write, vertex colours, dynamic inputs, backface
+    # surfaces, or media the fused kernels do not carry take the wavefront
+    # integrator
     wavefront = (bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
+                 or bool(config.dynamic_params) or config.has_backface
                  or not _volumes_fused(scene, config))
     _check_route(params)
     s = params.render_settings
@@ -549,9 +587,12 @@ def render(params: GiRenderParams) -> None:
     if wavefront:
         if scene._accel is None:
             _build_accel(scene)
+        inst_pv = {name: torch.as_tensor(table, device=scene.device)
+                   for name, table in build_instance_primvar_tables(scene.meshes).items()}
         scene._aov_state = render_frame(config, uniforms, scene._packed, scene._material_dev,
                                         scene._light_dev, scene._aov_state,
-                                        scene._texture_pool, scene._accel, dome)
+                                        scene._texture_pool, scene._accel, dome,
+                                        inst_pv or None)
         scene.last_segments = 0.0  # the wavefront does not count its segments
     else:
         if scene._fused is None:

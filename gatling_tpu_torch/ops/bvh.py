@@ -1,6 +1,6 @@
 """Binary BVHs for the kernels' per-ray walks, built once per scene on the host.
 
-Three walks take one:
+Four walks take one:
 
 * K2's TLAS over the level-1 entry boxes of clustered and instanced
   tables (ops/bounce.py walk_tables), TLAS_LEAF entries a leaf;
@@ -9,7 +9,11 @@ Three walks take one:
   and K3 and K4 over clustered tables, take;
 * the triangle walks of K1, K3 and K4 over a resident table and of K5
   and K6 over the wavefront's soup (`TriBvh`), TRI_LEAF triangles a leaf
-  (a table of at most ONE_LEAF_MAX is one leaf).
+  (a table of at most ONE_LEAF_MAX is one leaf);
+* the stackless walks of B1 and B2, the wavefront's tracer above 8192
+  triangles (`ThreadedBvh`, at the end of this file): the JAX package's
+  threaded BVH, Morton order and median splits, unpadded boxes, built
+  as the JAX package builds it so that its walk is the JAX `traverse`.
 
 `build_tlas` makes them: a median split of the box centres along their
 longest extent (`build_forest` the same, for every cluster at once). A
@@ -314,3 +318,166 @@ def cluster_bvh(test_rows: np.ndarray, opac: np.ndarray, lanes: int, device) -> 
 def index_col(width: int) -> int:
     """The table-index column of TriBvh rows of `width` floats."""
     return {16: 12, 28: 25}[width]
+
+
+# ---------------------------------------------------------------------------
+# The threaded BVH of the wavefront's `bvh` tracer (scenes above 8192
+# triangles): a NumPy copy of the JAX package's ops/bvh.py build, walked by
+# B1/B2 (csrc/trace.cu) and their twins (ops/trace_ref.py)
+# ---------------------------------------------------------------------------
+
+LEAF_SIZE = 4  # triangles a leaf of the threaded BVH (gatling_tpu/ops/bvh.py)
+LEAF_BITS = 3  # a node row's leaf word: leaf_start << LEAF_BITS | leaf_count
+
+
+class BvhArrays(NamedTuple):
+    """The threaded BVH as the JAX package's build_bvh returns it (NumPy):
+    nodes in depth-first preorder, skip links, and the leaves' ranges in
+    the reordered soup."""
+
+    bbox_min: np.ndarray    # [N, 3] f32
+    bbox_max: np.ndarray    # [N, 3] f32
+    skip: np.ndarray        # [N] int32: the node after this subtree
+    leaf_start: np.ndarray  # [N] int32: first triangle of a leaf (reordered soup)
+    leaf_count: np.ndarray  # [N] int32: its triangles (0: an interior node)
+
+
+class ThreadedBvh(NamedTuple):
+    """A threaded BVH on a device, in the rows B1, B2 and their twins read.
+    nodes [N, 8] f32, one 32-byte row a node: bbox_min xyz, bbox_max xyz,
+    then two int32 words stored bit for bit: skip, and leaf_start <<
+    LEAF_BITS | leaf_count. tris [T, 12] f32: the reordered soup's v0, e1,
+    e2 and three zeros a triangle (three 16-byte loads)."""
+
+    nodes: torch.Tensor
+    tris: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def bbox_min(self) -> torch.Tensor:
+        return self.nodes[:, 0:3]
+
+    @property
+    def bbox_max(self) -> torch.Tensor:
+        return self.nodes[:, 3:6]
+
+    @property
+    def skip(self) -> torch.Tensor:
+        return self.nodes.view(torch.int32)[:, 6]
+
+    @property
+    def leaf_start(self) -> torch.Tensor:
+        return self.nodes.view(torch.int32)[:, 7] >> LEAF_BITS
+
+    @property
+    def leaf_count(self) -> torch.Tensor:
+        return self.nodes.view(torch.int32)[:, 7] & ((1 << LEAF_BITS) - 1)
+
+
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """10 bits an axis interleaved into 30-bit Morton codes, x in [0, 1)^3
+    (gatling_tpu/ops/bvh.py _morton3)."""
+    q = np.clip((x * 1024.0).astype(np.uint64), 0, 1023)
+
+    def spread(v):
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+
+    return (spread(q[:, 0]) << np.uint64(2)) | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2])
+
+
+def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+              leaf_size: int = LEAF_SIZE) -> tuple[BvhArrays, np.ndarray]:
+    """The threaded BVH of a soup (gatling_tpu/ops/bvh.py build_bvh, its
+    NumPy path): triangles sorted by the Morton code of their box
+    centroids, median splits over that order down to `leaf_size`
+    triangles a leaf, nodes in preorder with skip links. Returns (arrays,
+    order): order reorders the soup so that every leaf is a contiguous
+    range. Built over the padded soup (its degenerate triangles included),
+    the arrays and the order equal the JAX package's."""
+    v0 = np.asarray(v0, np.float32)
+    e1 = np.asarray(e1, np.float32)
+    e2 = np.asarray(e2, np.float32)
+    t = len(v0)
+    p1 = v0 + e1
+    p2 = v0 + e2
+    tri_min = np.minimum(np.minimum(v0, p1), p2)
+    tri_max = np.maximum(np.maximum(v0, p1), p2)
+    centroid = (tri_min + tri_max) * 0.5
+    lo = centroid.min(axis=0)
+    hi = centroid.max(axis=0)
+    extent = np.maximum(hi - lo, 1e-12)
+    order = np.argsort(_morton3((centroid - lo) / extent), kind="stable").astype(np.int64)
+    tri_min = tri_min[order]
+    tri_max = tri_max[order]
+
+    # pass 1: median splits in preorder (a node is appended before its
+    # subtrees), each interior node's right child recorded
+    bbox_min, bbox_max, leaf_start, leaf_count, right_child = [], [], [], [], []
+    stack = [(0, t, -1)]  # (start, count, the parent's right_child slot to patch)
+    while stack:
+        start, count, patch_slot = stack.pop()
+        idx = len(right_child)
+        if patch_slot >= 0:
+            right_child[patch_slot] = idx
+        bbox_min.append(tri_min[start:start + count].min(axis=0))
+        bbox_max.append(tri_max[start:start + count].max(axis=0))
+        if count <= leaf_size:
+            leaf_start.append(start)
+            leaf_count.append(count)
+            right_child.append(-1)
+        else:
+            leaf_start.append(0)
+            leaf_count.append(0)
+            right_child.append(0)
+            half = count // 2
+            stack.append((start + half, count - half, idx))  # the right after the left
+            stack.append((start, half, -1))
+
+    # pass 2: skip links; a left child (idx + 1) skips to its sibling, a
+    # right child inherits its parent's
+    n = len(right_child)
+    skip = np.full(n, n, np.int32)
+    frames = [(0, n)]
+    while frames:
+        i, s = frames.pop()
+        skip[i] = s
+        if leaf_count[i] == 0:
+            rc = right_child[i]
+            frames.append((i + 1, rc))
+            frames.append((rc, s))
+    arrays = BvhArrays(bbox_min=np.stack(bbox_min), bbox_max=np.stack(bbox_max), skip=skip,
+                       leaf_start=np.array(leaf_start, np.int32),
+                       leaf_count=np.array(leaf_count, np.int32))
+    return arrays, order
+
+
+def reorder_geometry(geom, order: np.ndarray):
+    """The soup (ops/geometry.py SceneGeometry) in the BVH's triangle order
+    (gatling_tpu/ops/bvh.py reorder_geometry): every per-triangle array,
+    ids included, so the packed shading rows follow."""
+    return type(geom)(*[np.asarray(a)[order] for a in geom])
+
+
+def threaded_bvh(arrays: BvhArrays, soup, device) -> ThreadedBvh:
+    """The device rows of `arrays` over the reordered `soup`."""
+    n = arrays.skip.shape[0]
+    if int(arrays.leaf_start.max(initial=0)) >= 1 << (31 - LEAF_BITS) \
+            or int(arrays.leaf_count.max(initial=0)) >= 1 << LEAF_BITS:
+        raise ValueError("threaded BVH: a leaf range does not fit its node row's leaf word")
+    nodes = np.zeros((n, 8), np.float32)
+    nodes[:, 0:3] = arrays.bbox_min
+    nodes[:, 3:6] = arrays.bbox_max
+    words = nodes.view(np.int32)
+    words[:, 6] = arrays.skip
+    words[:, 7] = (arrays.leaf_start << LEAF_BITS) | arrays.leaf_count
+    tris = np.zeros((soup.v0.shape[0], 12), np.float32)
+    tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = soup.v0, soup.e1, soup.e2
+    return ThreadedBvh(nodes=torch.tensor(nodes, device=device),
+                       tris=torch.tensor(tris, device=device))

@@ -236,3 +236,32 @@ def update_instance_transforms(cache: GeomCache, mesh_descs,
         for k in _CHUNK_KEYS:
             cache.arrays[k][start:start + count] = rows[k]
     return _geom_from_arrays(cache.arrays)
+
+
+def build_instance_primvar_tables(mesh_descs) -> dict[str, np.ndarray]:
+    """Per-instance primvar tables (gatling_tpu/ops/geometry.py
+    build_instance_primvar_tables): {name: [num_instances, 3] f32}, indexed
+    by the sequential instance id build_geometry_cached assigns (one a
+    (mesh, transform) pair, in mesh_descs order), from each MeshDesc's
+    instance_primvars ({name: [K, <= 3]} beside its instance_transforms;
+    instancer.cpp:138-189). A mesh without a name holds zeros there; a
+    scalar primvar fills x, with y = z = 0. Empty when no mesh has one."""
+    names: set[str] = set()
+    total = 0
+    for md in mesh_descs:
+        total += len(md.instance_transforms) if md.instance_transforms is not None else 1
+        names.update(getattr(md, "instance_primvars", None) or {})
+    if not names:
+        return {}
+    out = {n: np.zeros((max(total, 1), 3), np.float32) for n in sorted(names)}
+    i = 0
+    for md in mesh_descs:
+        k = len(md.instance_transforms) if md.instance_transforms is not None else 1
+        pv = getattr(md, "instance_primvars", None) or {}
+        for n in names:
+            if n in pv:
+                v = np.asarray(pv[n], np.float32).reshape(k, -1)
+                w = min(v.shape[1], 3)
+                out[n][i:i + k, :w] = v[:, :w]
+        i += k
+    return out

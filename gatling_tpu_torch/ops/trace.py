@@ -31,7 +31,12 @@ twin in ops/trace_ref.py:
   them against their twins and against K5 on the wavefront's waves. On
   the card both test the `n_real` triangles before the lane padding and
   nothing after (a padding row has det = 0 and never hits), K7 with four
-  rays a thread, K8 with a group of lanes a shadow ray (csrc/trace.cu).
+  rays a thread, K8 with a group of lanes a shadow ray (csrc/trace.cu);
+* `intersect_threaded` (B1) and `occluded_threaded` (B2): the tracer of
+  the wavefront above 8192 triangles (`tracer="bvh"`), the JAX package's
+  threaded-BVH walk `traverse` (gatling_tpu/ops/bvh.py, an XLA loop, no
+  Pallas kernel) over a ThreadedBvh (ops/bvh.py), one thread a ray; their
+  twins repeat the JAX walk in lockstep.
 
 `launches` counts the kernel launches made on CUDA tensors.
 """
@@ -44,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gatling_tpu_torch.ops.bvh import TriBvh, tri_bvh
+from gatling_tpu_torch.ops.bvh import ThreadedBvh, TriBvh, tri_bvh
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import real_triangles
 from gatling_tpu_torch.ops.intersect import Hit
@@ -54,8 +59,10 @@ from gatling_tpu_torch.ops.trace_ref import (
     TRI_TILE,
     UV_TERMS,
     intersect_matrix_ref,
+    intersect_threaded_ref,
     intersect_tiles_ref,
     occluded_matrix_ref,
+    occluded_threaded_ref,
     occluded_tiles_ref,
 )
 
@@ -150,14 +157,18 @@ class TraceKernel(CudaLibrary):
 
     def __init__(self) -> None:
         # K7/K8: o d tmin tmax, the rows, n_real n_rays; K5/K6: o d tmin
-        # tmax, the TriBvh's nodes kids rows, n_rays
+        # tmax, the TriBvh's nodes kids rows, n_rays; B1/B2: o d tmin tmax,
+        # the ThreadedBvh's nodes n_nodes tris, n_rays
         tiles = [PTR, PTR, PTR, PTR, PTR, I32, I64]
         walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64]
+        threaded = [PTR, PTR, PTR, PTR, PTR, I32, PTR, I64]
         closest = [PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
         occluded = [PTR, PTR]                # hit stream
         super().__init__("trace.cu", {
             "gatling_intersect_matrix": walk + closest, "gatling_occluded_matrix": walk + occluded,
             "gatling_intersect_tiles": tiles + closest, "gatling_occluded_tiles": tiles + occluded,
+            "gatling_intersect_threaded": threaded + closest,
+            "gatling_occluded_threaded": threaded + occluded,
             "gatling_trace_layout": [PTR],
         }, "gatling_trace_error_string")
 
@@ -212,10 +223,25 @@ class TraceKernel(CudaLibrary):
                   bvh.nodes.data_ptr(), bvh.kids.data_ptr(), bvh.rows.data_ptr(), r,
                   *(o.data_ptr() for o in outputs), self.stream(origins))
 
+    def launch_threaded(self, name: str, origins, dirs, tmin, tmax, bvh: ThreadedBvh,
+                        outputs) -> None:
+        """B1/B2: a stackless walk of the ThreadedBvh."""
+        r = self._check_rays(name, origins, dirs, tmin, tmax)
+        check_tensor("trace", "threaded bvh nodes", bvh.nodes, torch.float32)
+        check_tensor("trace", "threaded bvh tris", bvh.tris, torch.float32)
+        if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 8 or bvh.tris.dim() != 2 \
+                or bvh.tris.shape[1] != 12:
+            raise ValueError(f"trace kernel {name}: ThreadedBvh shape mismatch")
+        if bvh.nodes.data_ptr() % 16 or bvh.tris.data_ptr() % 16:
+            raise ValueError(f"trace kernel {name}: the ThreadedBvh rows must be 16-byte aligned")
+        self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+                  bvh.nodes.data_ptr(), bvh.num_nodes, bvh.tris.data_ptr(), r,
+                  *(o.data_ptr() for o in outputs), self.stream(origins))
+
 
 _kernel: TraceKernel | None = None
 # kernel launches made on CUDA tensors (chip_smoke.py reads them)
-launches = {"K5": 0, "K6": 0, "K7": 0, "K8": 0}
+launches = {"K5": 0, "K6": 0, "K7": 0, "K8": 0, "B1": 0, "B2": 0}
 
 
 def kernel() -> TraceKernel:
@@ -287,3 +313,23 @@ def occluded_tiles(origins, dirs, tmin, tmax, tiles: TriTiles) -> torch.Tensor:
         return occluded_tiles_ref(origins, dirs, tmin, tmax, tiles.tris)
     return _occluded_cuda("K8", origins, lambda out: kernel().launch(
         "gatling_occluded_tiles", origins, dirs, tmin, tmax, tiles, out))
+
+
+def intersect_threaded(origins, dirs, tmin, tmax, bvh: ThreadedBvh) -> Hit:
+    """B1 (`traverse_closest`, gatling_tpu/ops/bvh.py): the closest hit of
+    rays o, d [R, 3] in (tmin, tmax) [R] over the threaded BVH; tri
+    indexes the reordered soup. On the card the kernel, on the CPU its
+    lockstep twin."""
+    if _on_cpu(origins):
+        return Hit(*intersect_threaded_ref(origins, dirs, tmin, tmax, bvh))
+    return _closest_cuda("B1", origins, lambda out: kernel().launch_threaded(
+        "gatling_intersect_threaded", origins, dirs, tmin, tmax, bvh, out))
+
+
+def occluded_threaded(origins, dirs, tmin, tmax, bvh: ThreadedBvh) -> torch.Tensor:
+    """B2 (`traverse_occluded`): [R] bool, any hit in (tmin, tmax), by the
+    any-hit walk of the threaded BVH."""
+    if _on_cpu(origins):
+        return occluded_threaded_ref(origins, dirs, tmin, tmax, bvh)
+    return _occluded_cuda("B2", origins, lambda out: kernel().launch_threaded(
+        "gatling_occluded_threaded", origins, dirs, tmin, tmax, bvh, out))

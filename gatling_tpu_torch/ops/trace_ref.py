@@ -1,4 +1,4 @@
-"""Plain PyTorch twins of the trace kernels K5-K8, all brute force.
+"""Plain PyTorch twins of the trace kernels: K5-K8, all brute force, and B1/B2.
 
 They compute what csrc/trace.cu computes, with the same f32 operations in
 the same order: the coefficient form's dot products as explicit sums over
@@ -11,6 +11,14 @@ and K6's walks of the soup's BVH step for step (their answer and their
 work); `tiles_work` counts where K7's and K8's pairs are decided. Rays go
 in chunks of RAY_CHUNK, so the [rays, 128] temporaries stay small; a
 ray's result does not depend on its chunk.
+
+The twins of B1 and B2, `intersect_threaded_ref` and
+`occluded_threaded_ref`, are not brute force: they are the JAX package's
+lockstep `traverse` (gatling_tpu/ops/bvh.py:202-263) over the same
+threaded BVH (ops/bvh.py ThreadedBvh), step for step, in the arithmetic
+XLA compiles it to on the CPU (its leaf test's products and sums
+contracted into fused multiply-adds, `fma_f32`; B1 and B2 take
+__fmaf_rn); `threaded_work` counts their walks' slab and triangle tests.
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX
 from gatling_tpu_torch.ops.bounce_ref import bvh_walk
-from gatling_tpu_torch.ops.bvh import TriBvh
+from gatling_tpu_torch.ops.bvh import LEAF_BITS, LEAF_SIZE, ThreadedBvh, TriBvh
 
 TRI_TILE = 128
 RAY_CHUNK = 131072
@@ -241,3 +249,159 @@ def occluded_tiles_ref(origins, dirs, tmin, tmax, tris, first: bool = False):
     """K8's twin, as occluded_matrix_ref over the [n_tiles, 9, 128] tiles."""
     idx = _first_occluder(origins, dirs, tmin, tmax, tris, False)
     return idx if first else idx >= 0
+
+
+# ---------------------------------------------------------------------------
+# B1/B2's twins: the JAX package's threaded-BVH `traverse` in lockstep
+# ---------------------------------------------------------------------------
+
+def _slab_threaded(o, inv_d, tmin, tmax, row):
+    """The JAX `_slab_test` of rays [R] against their nodes' boxes (row
+    [R, 8]: bbox_min xyz, bbox_max xyz): torch.minimum and maximum carry a
+    NaN through, as jnp's and the kernel's min.NaN / max.NaN do."""
+    t0 = (row[:, 0:3] - o) * inv_d
+    t1 = (row[:, 3:6] - o) * inv_d
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tnear = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+    tfar = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return (tnear <= tfar) & (tfar >= tmin) & (tnear <= tmax)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The f32 fused multiply-add a * b + c with one rounding (the kernels'
+    __fmaf_rn; XLA contracts the JAX walk's products and sums into it on
+    the CPU). The product is exact in f64; the sum rounded to f64 and then
+    to f32 rounds twice only where the f64 sum sits on the midpoint of two
+    f32 values, and there the sign of its rounding error (TwoSum) picks
+    the side of the exact sum."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    r = s.float()
+    rd = r.double()
+    toward = torch.nextafter(r, torch.where(s > rd, float("inf"), float("-inf")).float())
+    z = s - p
+    err = (p - (s - z)) + (cd - z)  # s + err == p + c exactly
+    past_mid = (s == (rd + toward.double()) * 0.5) & (err * (toward.double() - rd) > 0.0)
+    return torch.where(past_mid, toward, r)
+
+
+def _leaf_tests(o, d, tri, tmin):
+    """The JAX `_leaf_intersect` of rays [R] against LEAF_SIZE gathered
+    triangles each (tri [R, K, 12]: v0, e1, e2), in XLA's arithmetic on
+    the CPU: jnp.cross's components as fma(a1, b2, -(a2 b1)), each sum of
+    three products as fma(a2, b2, fma(a1, b1, a0 b0)). Returns (t, u, v,
+    valid over (tmin, inf)) [R, K]; the caller adds t < its segment's end."""
+    ox, oy, oz, dx, dy, dz = (x[:, None] for x in (*o.unbind(1), *d.unbind(1)))
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[:, :, :9].unbind(2)
+
+    def cross(a0, a1, a2, b0, b1, b2):
+        return (fma_f32(a1, b2, -(a2 * b1)), fma_f32(a2, b0, -(a0 * b2)),
+                fma_f32(a0, b1, -(a1 * b0)))
+
+    def dot(a0, a1, a2, b0, b1, b2):
+        return fma_f32(a2, b2, fma_f32(a1, b1, a0 * b0))
+
+    px, py, pz = cross(dx, dy, dz, e2x, e2y, e2z)
+    det = dot(px, py, pz, e1x, e1y, e1z)
+    ok = det.abs() > DET_EPS
+    inv = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+    u = dot(tx, ty, tz, px, py, pz) * inv
+    qx, qy, qz = cross(tx, ty, tz, e1x, e1y, e1z)
+    v = dot(dx, dy, dz, qx, qy, qz) * inv
+    t = dot(e2x, e2y, e2z, qx, qy, qz) * inv
+    valid = ok & (u >= NEG_EPS) & (v >= NEG_EPS) & (u + v <= ONE_PLUS_EPS) & (t > tmin[:, None])
+    return t, u, v, valid
+
+
+def _threaded_walk(origins, dirs, tmin, tmax, bvh: ThreadedBvh, any_hit: bool):
+    """Every ray's walk of the threaded BVH, all in lockstep as the JAX
+    `traverse`: at each step a ray tests its node's box over (tmin,
+    min(tmax, best t)); on a hit it descends to node + 1, or at a leaf
+    tests its at most LEAF_SIZE triangles in index order and keeps a hit
+    only with t < best t (the closest hit, the lower reordered index on a
+    tie), or (`any_hit`) stops at the first valid one; on a miss, and
+    after a leaf, it jumps to the node's skip link. A ray with tmax <=
+    tmin has no valid hit and walks nothing (the JAX walk would, to the
+    same result). Rays that finish leave the lockstep set, so a step costs
+    what its walking rays need. Returns (t, tri, u, v, hit, boxes, tests):
+    the closest hit, the any-hit flag, and the slab and triangle tests
+    each ray made ([R] int64; with `any_hit`, the tests of a leaf up to
+    its first valid one)."""
+    r, dev = origins.shape[0], origins.device
+    n, n_tris = bvh.num_nodes, bvh.tris.shape[0]
+    words = bvh.nodes.view(torch.int32)
+    out_t = torch.full((r,), float(FLOAT_MAX), dtype=torch.float32, device=dev)
+    out_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    out_u, out_v = torch.zeros_like(out_t), torch.zeros_like(out_t)
+    out_hit = torch.zeros((r,), dtype=torch.bool, device=dev)
+    boxes = torch.zeros((r,), dtype=torch.int64, device=dev)
+    tests = torch.zeros_like(boxes)
+    idx = torch.nonzero(tmax > tmin)[:, 0]
+    o, d, lo, hi = origins[idx], dirs[idx], tmin[idx], tmax[idx]
+    inv_d = 1.0 / d
+    node = torch.zeros_like(idx)
+    best_t = torch.full_like(lo, float(FLOAT_MAX))
+    best_tri = torch.full_like(idx, -1, dtype=torch.int32)
+    best_u, best_v = torch.zeros_like(lo), torch.zeros_like(lo)
+    hit = torch.zeros_like(idx, dtype=torch.bool)
+    n_box, n_test = torch.zeros_like(idx), torch.zeros_like(idx)
+    lanes = torch.arange(LEAF_SIZE, device=dev)
+    while idx.numel():
+        w = words[node]
+        hit_box = _slab_threaded(o, inv_d, lo, torch.minimum(hi, best_t), bvh.nodes[node])
+        count = w[:, 7] & ((1 << LEAF_BITS) - 1)
+        start = (w[:, 7] >> LEAF_BITS).long()
+        do_leaf = hit_box & (count > 0)
+        n_box += 1
+        tri_idx = torch.clamp(start[:, None] + lanes, max=n_tris - 1)
+        in_range = do_leaf[:, None] & (lanes < count[:, None])
+        t, u, v, valid = _leaf_tests(o, d, bvh.tris[tri_idx], lo)
+        for k in range(LEAF_SIZE):  # in index order, each against the best t so far
+            ok = valid[:, k] & in_range[:, k] & (t[:, k] < torch.minimum(hi, best_t))
+            if any_hit:
+                n_test += in_range[:, k] & ~hit
+                hit = hit | ok
+            else:
+                n_test += in_range[:, k]
+                better = ok & (t[:, k] < best_t)
+                best_tri = torch.where(better, tri_idx[:, k].to(torch.int32), best_tri)
+                best_u = torch.where(better, u[:, k], best_u)
+                best_v = torch.where(better, v[:, k], best_v)
+                best_t = torch.where(better, t[:, k], best_t)
+        node = torch.where(hit_box & (count == 0), node + 1, w[:, 6].long())
+        if any_hit:
+            node = torch.where(hit, n, node)
+        done = node >= n
+        if bool(done.any()):  # the finished rays' results out, the rest go on
+            at = idx[done]
+            out_t[at], out_tri[at], out_u[at], out_v[at] = (best_t[done], best_tri[done],
+                                                             best_u[done], best_v[done])
+            out_hit[at], boxes[at], tests[at] = hit[done], n_box[done], n_test[done]
+            keep = ~done
+            idx, o, d, inv_d, lo, hi, node = (x[keep] for x in (idx, o, d, inv_d, lo, hi, node))
+            best_t, best_tri, best_u, best_v, hit, n_box, n_test = (
+                x[keep] for x in (best_t, best_tri, best_u, best_v, hit, n_box, n_test))
+    return out_t, out_tri, out_u, out_v, out_hit, boxes, tests
+
+
+def intersect_threaded_ref(origins, dirs, tmin, tmax, bvh: ThreadedBvh):
+    """B1's twin: the closest hit (t, tri, u, v) of rays o, d [R, 3] in
+    (tmin, tmax) [R] by the JAX `traverse_closest` walk; tri indexes the
+    reordered soup (bvh.tris)."""
+    return _threaded_walk(origins, dirs, tmin, tmax, bvh, False)[:4]
+
+
+def occluded_threaded_ref(origins, dirs, tmin, tmax, bvh: ThreadedBvh):
+    """B2's twin: [R] bool, any valid hit in (tmin, tmax), by the JAX
+    `traverse_occluded` walk."""
+    return _threaded_walk(origins, dirs, tmin, tmax, bvh, True)[4]
+
+
+def threaded_work(origins, dirs, tmin, tmax, bvh: ThreadedBvh, any_hit: bool = False):
+    """B1's (or with `any_hit` B2's) walk: (answer, boxes, tests), the
+    answer the twin's ((t, tri, u, v), or the flag) and the slab and
+    triangle tests each ray's walk makes ([R] int64), for the bound."""
+    t, tri, u, v, hit, boxes, tests = _threaded_walk(origins, dirs, tmin, tmax, bvh, any_hit)
+    return (hit if any_hit else (t, tri, u, v)), boxes, tests

@@ -14,9 +14,12 @@ uber-BSDF (render/bsdf.py) from the packed geometry and material rows, runs
 the NEE shadow rays and russian roulette. The RNG draw order is the
 reference shader's (pixel jitter, lens, BSDF xi4, NEE k4, roulette), so a
 pixel's samples equal the JAX package's up to the last bits of cos/sin/log.
-Rays are traced by the brute-force kernels K5 (closest hit) and K6 (shadow
-rays) of ops/trace.py (`tracer="matrix"`), or by the plain Moller-Trumbore
-of ops/intersect.py (`tracer="brute"`, the JAX package's CPU tracer).
+Rays are traced by K5 (closest hit) and K6 (shadow rays) of ops/trace.py
+(`tracer="matrix"`, scenes of at most 8192 triangles), by B1 and B2, the
+walks of the JAX package's threaded BVH (`tracer="bvh"`, above: Accel.bvh
+over the soup in the tree's order, the packed rows reordered with it), or
+by the plain Moller-Trumbore of ops/intersect.py (`tracer="brute"`, the
+JAX package's CPU tracer).
 
 The JAX `while_loop` stops when no ray is alive; here a Python loop asks
 the device once a bounce (`alive.any()`), one host sync a bounce. Cutout
@@ -25,9 +28,12 @@ and passes a rejected hit straight through; shadow rays walk their hits
 one at a time (`_trace_occluded_cutout`, K5 re-launched until no ray is
 unresolved, at most MAX_SHADOW_CUTOUT_HOPS). The volume branches carry the
 absorbing medium flag and the medium stack; a miss adds the dome light's
-equirect radiance (`has_dome`). The backface and dynamic-input branches
-are not ported: the port's front end does not produce their materials
-yet.
+equirect radiance (`has_dome`). A material with an MDL backface surface
+(`has_backface`) shades a back-facing hit with its appended row
+(MI_BACKFACE_ID); view-, normal- and primvar-dependent inputs
+(`dynamic_params`) are evaluated at every hit (shadergraph
+eval_dynamic_expr, with displayColor and the instance primvar tables) and
+replace the material's constant where the hit's material is theirs.
 """
 
 from __future__ import annotations
@@ -64,13 +70,22 @@ from gatling_tpu_torch.ops.geometry import (
     PackedGeometry,
     SceneGeometry,
 )
+from gatling_tpu_torch.ops.bvh import ThreadedBvh
 from gatling_tpu_torch.ops.intersect import Hit, intersect_brute, occluded_brute
-from gatling_tpu_torch.ops.trace import TraceTables, intersect_matrix, occluded_matrix
+from gatling_tpu_torch.ops.trace import (
+    TraceTables,
+    intersect_matrix,
+    intersect_threaded,
+    occluded_matrix,
+    occluded_threaded,
+)
 from gatling_tpu_torch.render import bsdf as bsdf_mod
 from gatling_tpu_torch.render.camera import CameraUniforms, generate_primary_rays
 from gatling_tpu_torch.render.lights import sample_light
+from gatling_tpu_torch.render.shadergraph import eval_dynamic_expr
 from gatling_tpu_torch.render.material import (
     MF_VCOLOR_MUL,
+    MI_BACKFACE_ID,
     MaterialTable,
     _gather_rows,
     apply_textures,
@@ -103,7 +118,8 @@ class RenderConfig:
     # textured scenes: bounces at or after this index (> 0) shade from the
     # texture means (render setting textureLodBounces; the fused path)
     tex_lod_bounces: int = 0
-    # the wavefront's tracer: "matrix" (K5/K6, ops/trace.py) or "brute"
+    # the wavefront's tracer: "matrix" (K5/K6, ops/trace.py), "bvh" (B1/B2,
+    # the threaded BVH) or "brute"
     tracer: str = "brute"
     # some material has volume coefficients: the medium branches; the
     # medium stack's depth (render setting mediumStackSize): 0 toggles an
@@ -113,6 +129,12 @@ class RenderConfig:
     medium_stack_size: int = 0
     # some material has cutout opacity (MaterialTraits.has_cutout)
     has_cutout: bool = False
+    # view-, normal- and primvar-dependent inputs: (material index,
+    # parameter, shadergraph.Expr) evaluated per hit
+    dynamic_params: tuple = ()
+    # some material has a distinct MDL backface surface: back-facing hits
+    # shade with its appended row (MaterialTable packed_i MI_BACKFACE_ID)
+    has_backface: bool = False
 
 
 class Uniforms(NamedTuple):
@@ -202,29 +224,33 @@ def dome_radiance(dome: DomeLightData, uniforms: Uniforms, directions: torch.Ten
 
 
 class Accel(NamedTuple):
-    """The tracer's data: the coefficient tables of K5/K6, or for the brute
-    tracer the soup itself."""
+    """The tracer's data: the coefficient tables of K5/K6, the threaded BVH
+    of B1/B2 (its rows hold the soup in the tree's order, which the packed
+    shading rows follow), or for the brute tracer the soup itself."""
 
     tables: TraceTables | None = None
     soup: SceneGeometry | None = None
+    bvh: ThreadedBvh | None = None
 
 
 def _trace_closest(config: RenderConfig, accel: Accel, origins, dirs, tmin, tmax) -> Hit:
     if config.tracer == "matrix":
         return intersect_matrix(origins, dirs, tmin, tmax, accel.tables)
+    if config.tracer == "bvh":
+        return intersect_threaded(origins, dirs, tmin, tmax, accel.bvh)
     if config.tracer == "brute":
         return intersect_brute(origins, dirs, tmin, tmax, accel.soup)
-    raise NotImplementedError(f"tracer {config.tracer!r} is not ported yet "
-                              "(ROADMAP: 'Wavefront integrator')")
+    raise ValueError(f"unknown tracer {config.tracer!r}")
 
 
 def _trace_occluded(config: RenderConfig, accel: Accel, origins, dirs, tmin, tmax):
     if config.tracer == "matrix":
         return occluded_matrix(origins, dirs, tmin, tmax, accel.tables)
+    if config.tracer == "bvh":
+        return occluded_threaded(origins, dirs, tmin, tmax, accel.bvh)
     if config.tracer == "brute":
         return occluded_brute(origins, dirs, tmin, tmax, accel.soup)
-    raise NotImplementedError(f"tracer {config.tracer!r} is not ported yet "
-                              "(ROADMAP: 'Wavefront integrator')")
+    raise ValueError(f"unknown tracer {config.tracer!r}")
 
 
 MAX_SHADOW_CUTOUT_HOPS = 8
@@ -340,6 +366,29 @@ def _shading_state(geom: PackedGeometry, hit: Hit, ray_dir: torch.Tensor) -> dic
         material_id=pi[:, 0], object_id=pi[:, 1], face_id=pi[:, 2], instance_id=pi[:, 3])
 
 
+_RGB_PARAMS = ("base_color", "emissive", "specular_color")
+
+
+def _substitute_dynamic(config: RenderConfig, params, mid, direction, st, instance_primvars):
+    """The dynamic inputs of config.dynamic_params evaluated over the wave
+    (gatling_tpu/render/integrator.py:501-521) and substituted where the
+    hit's material is theirs: primvars are displayColor (the interpolated
+    vertex colours) and each instance table at the hit's instance id; an
+    RGB parameter takes x, y, z, the others x."""
+    pv = {"displayColor": st["vcolor"]}
+    for name, table in (instance_primvars or {}).items():
+        pv[name] = table[torch.clamp(st["instance_id"], 0, table.shape[0] - 1).long()]
+    for mat_idx, pname, expr in config.dynamic_params:
+        val = eval_dynamic_expr(expr, direction, st["normal"], primvars=pv)
+        sel = mid == mat_idx
+        cur = getattr(params, pname)
+        if pname in _RGB_PARAMS:
+            params = params._replace(**{pname: torch.where(sel[:, None], val[:, :3], cur)})
+        else:
+            params = params._replace(**{pname: torch.where(sel, val[:, 0], cur)})
+    return params
+
+
 _FIRST_HIT_AOVS = (
     AovId.NORMAL, AovId.ALBEDO, AovId.BARYCENTRICS, AovId.TEXCOORDS,
     AovId.TANGENTS, AovId.BITANGENTS, AovId.DEPTH, AovId.OBJECT_ID,
@@ -359,12 +408,15 @@ def _where3(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                  materials: MaterialTable, lights: LightArrays, pixel_index: torch.Tensor,
                  sample_index: int, textures: TexturePool, accel: Accel,
-                 dome: DomeLightData | None = None) -> SampleResult:
+                 dome: DomeLightData | None = None,
+                 instance_primvars: dict[str, torch.Tensor] | None = None) -> SampleResult:
     """Trace one sample of each pixel of `pixel_index` through the bounce
     loop (integrator.py trace_sample). `lights` holds tensors
     (render/lights.py light_tensors), `materials` the device table, `dome`
     the dome light that misses see (with config.has_dome; black when
-    None)."""
+    None), `instance_primvars` {name: [num_instances, 3]} the tables the
+    dynamic inputs' primvar leaves read through the hit's instance id
+    (ops/geometry.py build_instance_primvar_tables)."""
     device = pixel_index.device
     if config.has_dome and dome is None:
         dome = default_dome(device)
@@ -466,11 +518,16 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
         # hit shading (rp_main.chit)
         st = _shading_state(geom, hit, direction)
         mid = st["material_id"]
+        if config.has_backface:  # a back-facing hit shades with the backface row
+            mid = torch.where(st["front"], mid,
+                              _gather_rows(materials.packed_i, mid)[:, MI_BACKFACE_ID])
         params = apply_textures(materials, textures, gather_params(materials, mid), mid, st["uv"])
         # the vertex-colour multiply, on the displayColor fallback material only
         vmul = _gather_rows(materials.packed_f, mid)[:, MF_VCOLOR_MUL]
         params = params._replace(
             base_color=params.base_color * (1.0 + (st["vcolor"] - 1.0) * vmul[:, None]))
+        if config.dynamic_params:
+            params = _substitute_dynamic(config, params, mid, direction, st, instance_primvars)
         normal = perturb_normal(materials, textures, mid, st["uv"], st["normal"],
                                 st["tangent"], st["bitangent"])
         n_x_t = torch.linalg.cross(normal, st["tangent"])
@@ -650,7 +707,8 @@ def trace_sample(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
 def render_pixels(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                   materials: MaterialTable, lights: LightArrays, pixel_index: torch.Tensor,
                   spp: int, sample_offset: int, textures: TexturePool,
-                  accel: Accel, dome: DomeLightData | None = None) -> SampleResult:
+                  accel: Accel, dome: DomeLightData | None = None,
+                  instance_primvars: dict[str, torch.Tensor] | None = None) -> SampleResult:
     """`spp` samples of the pixels `pixel_index`: the mean colour, the
     longest path and the first-hit data (normal and albedo averaged over
     the samples, the rest from the last sample that hit)."""
@@ -661,7 +719,7 @@ def render_pixels(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry
     first = empty_first_hit(n, pixel_index.device)
     for s in range(spp):
         res = trace_sample(config, uniforms, geom, materials, lights, pixel_index,
-                           sample_offset + s, textures, accel, dome)
+                           sample_offset + s, textures, accel, dome, instance_primvars)
         color = color + res.color * inv_spp
         bounces = torch.maximum(bounces, res.bounces)
         first = res.first._replace(normal=first.normal + res.first.normal * inv_spp,
@@ -717,12 +775,14 @@ def blend_aovs(config: RenderConfig, uniforms: Uniforms, aovs: dict[str, torch.T
 def render_frame(config: RenderConfig, uniforms: Uniforms, geom: PackedGeometry,
                  materials: MaterialTable, lights: LightArrays, aovs: dict[str, torch.Tensor],
                  textures: TexturePool, accel: Accel,
-                 dome: DomeLightData | None = None) -> dict[str, torch.Tensor]:
+                 dome: DomeLightData | None = None,
+                 instance_primvars: dict[str, torch.Tensor] | None = None
+                 ) -> dict[str, torch.Tensor]:
     """One frame of every pixel through the wavefront integrator, blended
     into `aovs` (the giRender dispatch, Gi.cpp:2437)."""
     pixel_index = torch.arange(config.width * config.height, device=geom.packed_f.device)
     res = render_pixels(config, uniforms, geom, materials, lights, pixel_index, config.spp,
-                        uniforms.sample_offset, textures, accel, dome)
+                        uniforms.sample_offset, textures, accel, dome, instance_primvars)
     return blend_aovs(config, uniforms, aovs, res)
 
 

@@ -17,8 +17,12 @@ columns hold the textures' means. Besides UsdPreviewSurface, the MaterialX
 surfaces authored inline in USD (open_pbr_surface, standard_surface,
 gltf_pbr) and the MDL front end's `gatling_uber` node (render/mdl.py:
 OmniPBR, OmniGlass, OmniSurface, `material_volume` coefficients) map onto
-the same parameters; other surface shaders, and MDL materials with a
-distinct backface surface, raise.
+the same parameters; other surface shaders raise. Two parts of a material
+only the wavefront integrator shades (render/integrator.py):
+`LoweredMaterial.dynamic`, the view-, normal- and primvar-dependent
+inputs it evaluates per hit, and `LoweredMaterial.backface`, an MDL
+`backface:` surface, which `build_material_table` appends as a row of its
+own (packed_i column MI_BACKFACE_ID) for back-facing hits.
 """
 
 from __future__ import annotations
@@ -30,10 +34,16 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.render.bsdf import BsdfParams
-from gatling_tpu_torch.render.shadergraph import GraphLowering
+from gatling_tpu_torch.render.shadergraph import (
+    Expr,
+    GraphLowering,
+    expr_has_texture,
+    expr_is_dynamic,
+)
 from gatling_tpu_torch.render.texture import TextureManager, TexturePool, TextureRef, \
     empty_pool, sample_pool
 from gatling_tpu_torch.scene.stage import MaterialDesc
+from gatling_tpu_torch.utils.log import get_logger
 
 # packed_f column offsets
 MF_BASE, MF_METAL, MF_ROUGH, MF_IOR, MF_OPACITY = 0, 3, 4, 5, 6
@@ -83,16 +93,23 @@ class MaterialTraits:
     # an opacity below 1, an opacity threshold or an opacity texture: the
     # wavefront integrator draws a cutout decision at every hit
     has_cutout: bool = False
+    # an MDL `backface:` surface with a BSDF (Frontend.cpp:104-121)
+    has_backface_bsdf: bool = False
 
 
 @dataclasses.dataclass
 class LoweredMaterial:
-    """One lowered material: constant uber-BSDF parameters and texture
-    requests."""
+    """One lowered material: constant uber-BSDF parameters, texture
+    requests, the dynamic inputs (parameter -> Expr, evaluated per hit by
+    the wavefront integrator) and the distinct backface surface's
+    parameters (the MDL `backface:` field; build_material_table appends
+    them as a row of their own)."""
 
     params: dict
     traits: MaterialTraits
     textures: dict[str, TextureRef] = dataclasses.field(default_factory=dict)
+    dynamic: dict[str, Expr] = dataclasses.field(default_factory=dict)
+    backface: dict = dataclasses.field(default_factory=dict)
 
 
 _DEFAULTS = {
@@ -144,12 +161,29 @@ def _vec3(v) -> tuple[float, float, float]:
     return v[:3] if len(v) >= 3 else (v + (0.0,) * 3)[:3]
 
 
+def lower_param(graph: GraphLowering, node, input_name: str, default, color: bool):
+    """One input through the graph (gatling_tpu/render/material.py
+    _resolve_input): (GraphValue, dynamic Expr or None). A dynamic
+    expression is returned for per-hit evaluation; one that also reads a
+    texture keeps its affine approximation (logged), as in the JAX
+    package."""
+    gv = graph.eval_input(node, input_name, default, color)
+    if gv.expr is None or not expr_is_dynamic(gv.expr):
+        return gv, None
+    if expr_has_texture(gv.expr):
+        get_logger().warning("shader graph: %s.%s mixes textures with view/normal-dependent "
+                             "nodes; using the affine approximation", node.path, input_name)
+        return gv, None
+    return gv, gv.expr
+
+
 def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
     """Lower one UsdPreviewSurface, open_pbr_surface, standard_surface,
     gltf_pbr or MDL (gatling_uber) network to uber-BSDF parameters and texture requests (the JAX
     package's render/material.py lower_material)."""
     params = dict(_DEFAULTS)
     textures: dict[str, TextureRef] = {}
+    dynamic: dict[str, Expr] = {}
     traits = MaterialTraits()
     node = None
     if desc is not None and desc.surface_node is not None:
@@ -168,7 +202,9 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
 
     def grab(input_name: str, param: str, color: bool = False, conv=None) -> None:
         default = (0.0, 0.0, 1.0) if param == "normal" else _DEFAULTS[param]
-        gv = graph.eval_input(node, input_name, default, color)
+        gv, dyn = lower_param(graph, node, input_name, default, color)
+        if dyn is not None:
+            dynamic[param] = dyn
         if isinstance(default, tuple):
             params[param] = _vec3(gv.constant[:3])
         else:
@@ -179,11 +215,6 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
             textures[param] = gv.texture
 
     sid = node.shader_id
-    if node.inputs.get("has_backface_bsdf") or node.inputs.get("backface_params"):
-        raise NotImplementedError(
-            f"{desc.path}: an MDL material with a distinct backface surface needs the "
-            "backface material rows, which are not ported yet (ROADMAP: 'Wavefront "
-            "integrator', item 5)")
     if sid == "gatling_uber":
         # the MDL front end's pre-mapped parameter set (render/mdl.py)
         for k, v in node.inputs.items():
@@ -254,10 +285,13 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
         textures["normal"] = dataclasses.replace(
             nref, scale=(2.0, 2.0, 2.0, 1.0), bias=(-1.0, -1.0, -1.0, 0.0), is_srgb=False)
     params["vcolor_mul"] = float(bool(node.inputs.get("_vcolor_multiply", False)))
+    # the MDL front end's backface traits and parameters (render/mdl.py)
+    traits.has_backface_bsdf = bool(node.inputs.get("has_backface_bsdf", False))
     traits.has_backface_edf = bool(node.inputs.get("has_backface_edf", False))
     traits.has_cutout = (params["opacity_threshold"] > 0.0 or params["opacity"] < 1.0
                          or "opacity" in textures)
-    return LoweredMaterial(params=params, traits=traits, textures=textures)
+    return LoweredMaterial(params=params, traits=traits, textures=textures, dynamic=dynamic,
+                           backface=dict(node.inputs.get("backface_params") or {}))
 
 
 def build_materials(lowered: list[LoweredMaterial], texture_manager: TextureManager | None = None,
@@ -286,10 +320,28 @@ def build_material_table(lowered: list[LoweredMaterial],
                          ) -> MaterialTable:
     """Pack lowered materials into the [M, 30] f32 and [M, 10] int32 rows,
     column for column as the JAX package's _pack_material_table lays them
-    out. texture_slots maps a material row to {parameter: pool slot}."""
+    out. texture_slots maps a material row to {parameter: pool slot}.
+
+    A material with a distinct MDL backface surface gets a second row
+    appended after every material's own (gatling_tpu/render/material.py
+    build_material_table): its front parameters overridden by the
+    backface's, its emission exactly the backface's own (none unless
+    given), no textures. Column MI_BACKFACE_ID holds the row the
+    wavefront shades a back-facing hit with: the appended row, else the
+    material's own."""
     if not lowered:
         lowered = [lower_material(None)]
     texture_slots = texture_slots or {}
+    backface_ids = list(range(len(lowered)))
+    expanded = list(lowered)
+    for i, m in enumerate(lowered):
+        if m.backface:
+            bf = dict(m.params, emissive=(0.0, 0.0, 0.0))
+            bf.update({k: v for k, v in m.backface.items() if k in _DEFAULTS})
+            expanded.append(LoweredMaterial(params=bf, traits=m.traits))
+            backface_ids[i] = len(expanded) - 1
+    backface_ids += list(range(len(lowered), len(expanded)))
+    lowered = expanded
 
     def col(name, dtype=np.float32):
         vals = [m.params[name] for m in lowered]
@@ -322,7 +374,7 @@ def build_material_table(lowered: list[LoweredMaterial],
     packed_i = np.stack([
         slot("base_color"), slot("emissive"), slot("metallic"), slot("roughness"),
         slot("opacity"), slot("normal"), channel("metallic"), channel("roughness"),
-        channel("opacity"), list(range(len(lowered))),
+        channel("opacity"), backface_ids,
     ], axis=1).astype(np.int32)
     return MaterialTable(packed_f=packed_f.astype(np.float32), packed_i=packed_i)
 

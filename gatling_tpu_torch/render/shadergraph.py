@@ -1,20 +1,29 @@
-"""Shader node graphs -> a constant, or an affine function of one texture.
+"""Shader node graphs -> a constant, an affine function of one texture, or a
+per-hit expression.
 
-The part of the JAX package's render/shadergraph.py that the fused kernels
-consume: a material input folds to
+The port of the JAX package's render/shadergraph.py. A material input
+folds to
 
     GraphValue = constant rgba                (no texture in the subtree)
                | s * T + b over one texture   (the pool's per-slot affine)
 
 through UsdUVTexture / image / tiledimage leaves, constant, multiply,
 divide, add, subtract, mix, clamp over constants, convert, swizzle /
-extract and normalmap. Where the JAX package keeps an exact subtree (an
-Expr) instead, the port raises: composites of two textures and non-affine
-math over a texture, which the JAX package bakes into a texture, and
-procedural or frame-dependent nodes (ROADMAP: 'USD content'); view-,
-normal- and primvar-dependent leaves, which its wavefront integrator
-evaluates per hit (ROADMAP: 'Wavefront integrator'). Unknown nodes fall
-back to the input's default, as in the JAX package.
+extract and normalmap. Where a subtree is not affine in one texture,
+GraphValue.expr carries it exactly (an `Expr`, with the affine form as
+its approximation), as in the JAX package:
+
+* a subtree with a view-, normal- or primvar-dependent leaf
+  (`viewdirection`, `normal`, a named `geompropvalue` or
+  `UsdPrimvarReader`; dotproduct, absval and power over it) is dynamic
+  (`expr_is_dynamic`): the wavefront integrator evaluates it at every hit
+  (`eval_dynamic_expr`, render/integrator.py);
+* a static one (two textures in one node, non-affine math over a
+  texture), which the JAX package bakes into a composite texture, raises
+  here, and so do procedural generators and frame, time and texcoord
+  nodes (ROADMAP: 'USD content').
+
+Unknown nodes fall back to the input's default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Any
+
+import torch
 
 from gatling_tpu_torch.render.texture import TextureRef
 from gatling_tpu_torch.utils.log import get_logger
@@ -35,10 +46,9 @@ _ND_TYPE_TOKENS = {
     "matrix33", "matrix44", "color3FA", "color4FA", "vector2FA", "vector3FA",
     "vector4FA",
 }
-_BAKED = ("clamp", "dotproduct", "absval", "power", "frame", "time", "texcoord",
-          "checkerboard", "ramplr", "ramptb", "ramp4", "noise2d", "noise3d", "fractal3d",
-          "cellnoise2d", "cellnoise3d", "worleynoise2d", "worleynoise3d")
-_DYNAMIC = ("viewdirection", "normal", "geompropvalue")
+_BAKED = ("frame", "time", "texcoord", "checkerboard", "ramplr", "ramptb", "ramp4", "noise2d",
+          "noise3d", "fractal3d", "cellnoise2d", "cellnoise3d", "worleynoise2d",
+          "worleynoise3d")
 
 
 def _vec4(v: Any, default=(0.0, 0.0, 0.0, 1.0)) -> tuple[float, float, float, float]:
@@ -58,32 +68,189 @@ def _baked(what: str) -> NotImplementedError:
 
 
 @dataclasses.dataclass(frozen=True)
+class Expr:
+    """An exact shader-graph subtree (gatling_tpu/render/shadergraph.py
+    Expr). op: const | tex | multiply | divide | add | subtract | mix |
+    clamp | extract | dot | abs | power, or a dynamic leaf: viewdir
+    (camera -> surface, MDL state::direction), normalvec (the shading
+    normal), primvar (the primvar named by `channel`, `const` its
+    fallback)."""
+
+    op: str
+    const: tuple[float, float, float, float] | None = None
+    tex: TextureRef | None = None
+    args: tuple["Expr", ...] = ()
+    channel: str = ""
+
+
+def _const_expr(c) -> Expr:
+    return Expr(op="const", const=_vec4(c))
+
+
+_DYNAMIC_LEAVES = ("viewdir", "normalvec", "primvar")
+
+
+def expr_is_dynamic(e: Expr | None) -> bool:
+    """The subtree reads per-hit state (a view, normal or primvar leaf)."""
+    if e is None:
+        return False
+    return e.op in _DYNAMIC_LEAVES or any(expr_is_dynamic(a) for a in e.args)
+
+
+def expr_reads_primvar(e: Expr | None) -> bool:
+    """The subtree holds a primvar leaf."""
+    if e is None:
+        return False
+    return e.op == "primvar" or any(expr_reads_primvar(a) for a in e.args)
+
+
+def expr_primvar_channels(e: Expr | None) -> set:
+    """The names of the subtree's primvar leaves."""
+    if e is None:
+        return set()
+    out = {e.channel} if e.op == "primvar" else set()
+    for a in e.args:
+        out |= expr_primvar_channels(a)
+    return out
+
+
+def expr_dynamic_beyond(e: Expr | None, resolvable: set) -> bool:
+    """The subtree needs per-hit evaluation: it reads the view or the
+    normal, or a primvar of `resolvable` (gi's: displayColor and the
+    scene's instance primvars). One whose only dynamic leaves are other
+    primvars evaluates to their fallbacks and stays static."""
+    if e is None:
+        return False
+    if e.op in ("viewdir", "normalvec"):
+        return True
+    if e.op == "primvar":
+        return e.channel in resolvable
+    return any(expr_dynamic_beyond(a, resolvable) for a in e.args)
+
+
+def expr_has_texture(e: Expr | None) -> bool:
+    if e is None:
+        return False
+    return e.op == "tex" or any(expr_has_texture(a) for a in e.args)
+
+
+def eval_dynamic_expr(e: Expr, view_dir: torch.Tensor, normal: torch.Tensor,
+                      primvars: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
+    """A dynamic expression at every hit (gatling_tpu/render/shadergraph.py
+    eval_dynamic_expr): view_dir (camera -> surface) and normal [N, 3];
+    primvars {name: [N, 3]}. Returns [N, 4]. dot takes x, y, z and
+    broadcasts to four; divide is 0 where the divisor is; power is
+    pow(max(a, 0), b); the rest is elementwise. A primvar without a table
+    is its fallback; a texture leaf (kept out at lowering) and an unknown
+    op are (0, 0, 0, 1)."""
+    n = view_dir.shape[0]
+    dev = view_dir.device
+
+    def const(c):
+        return torch.tensor(c, dtype=torch.float32, device=dev).expand(n, 4)
+
+    def pad4(v3):
+        return torch.cat([v3, torch.zeros((n, 1), dtype=v3.dtype, device=dev)], dim=1)
+
+    def ev(x: Expr) -> torch.Tensor:
+        if x.op == "const":
+            return const(x.const)
+        if x.op == "viewdir":
+            return pad4(view_dir)
+        if x.op == "normalvec":
+            return pad4(normal)
+        if x.op == "primvar":
+            if primvars and x.channel in primvars:
+                return pad4(primvars[x.channel])
+            return const(_vec4(x.const))
+        if x.op == "dot":
+            a, b = ev(x.args[0]), ev(x.args[1])
+            return (a[:, :3] * b[:, :3]).sum(dim=1, keepdim=True).expand(n, 4)
+        if x.op == "multiply":
+            return ev(x.args[0]) * ev(x.args[1])
+        if x.op == "divide":
+            b = ev(x.args[1])
+            return torch.where(b != 0.0, ev(x.args[0]) / torch.where(b == 0.0, 1.0, b), 0.0)
+        if x.op == "add":
+            return ev(x.args[0]) + ev(x.args[1])
+        if x.op == "subtract":
+            return ev(x.args[0]) - ev(x.args[1])
+        if x.op == "mix":
+            fg, bg, m = ev(x.args[0]), ev(x.args[1]), ev(x.args[2])
+            return fg * m + bg * (1.0 - m)
+        if x.op == "clamp":
+            return torch.minimum(torch.maximum(ev(x.args[0]), ev(x.args[1])), ev(x.args[2]))
+        if x.op == "abs":
+            return torch.abs(ev(x.args[0]))
+        if x.op == "power":
+            a, b = ev(x.args[0]), ev(x.args[1])
+            return torch.pow(torch.clamp(a, min=0.0), b)
+        if x.op == "extract":
+            i = _CH.get(x.channel, 0)
+            return ev(x.args[0])[:, i:i + 1].expand(n, 4)
+        return const(_vec4(None))
+
+    return ev(e)
+
+
+def _dynamic(expr: Expr, what: str) -> Expr:
+    """`expr` where it is dynamic; a static non-affine subtree needs the
+    JAX package's baked composite texture, which raises."""
+    if not expr_is_dynamic(expr):
+        raise _baked(what)
+    return expr
+
+
+@dataclasses.dataclass(frozen=True)
 class GraphValue:
     """A lowered subtree: an rgba constant, optionally over one texture via
     the pool's affine (value = sample * scale + bias; `constant` is the
-    connection's fallback value)."""
+    connection's fallback value). Where the subtree is not affine in one
+    texture, `expr` is it exactly (dynamic: render/integrator.py evaluates
+    it per hit) and constant and texture its affine approximation."""
 
     constant: tuple[float, float, float, float]
     texture: TextureRef | None = None
+    expr: Expr | None = None
+
+    @property
+    def exact(self) -> Expr:
+        """The exact subtree as an Expr."""
+        if self.expr is not None:
+            return self.expr
+        if self.texture is not None:
+            return Expr(op="tex", tex=self.texture)
+        return _const_expr(self.constant)
 
     def with_affine(self, scale=(1, 1, 1, 1), bias=(0, 0, 0, 0)) -> "GraphValue":
         """Compose value -> value * scale + bias."""
         s = _vec4(scale, (1, 1, 1, 1))
         b = _vec4(bias, (0, 0, 0, 0))
         const = tuple(c * sc + bc for c, sc, bc in zip(self.constant, s, b))
+        expr = None
+        if self.expr is not None:
+            expr = Expr(op="add", args=(Expr(op="multiply", args=(self.expr, _const_expr(s))),
+                                        _const_expr(b)))
         if self.texture is None:
-            return GraphValue(constant=const)
+            return GraphValue(constant=const, expr=expr)
         ts = tuple(a * b2 for a, b2 in zip(self.texture.scale, s))
         tb = tuple(a * s2 + b2 for a, s2, b2 in zip(self.texture.bias, s, b))
         return GraphValue(constant=const,
-                          texture=dataclasses.replace(self.texture, scale=ts, bias=tb))
+                          texture=dataclasses.replace(self.texture, scale=ts, bias=tb),
+                          expr=expr)
 
 
 def _binary(op: str, a: GraphValue, b: GraphValue, node_id: str) -> GraphValue:
-    """Fold a binary node while it stays affine in one texture."""
-    if (a.texture is not None and b.texture is not None) or (op == "divide"
-                                                             and b.texture is not None):
-        raise _baked(f"{node_id} (not affine in one texture)")
+    """Fold a binary node while it stays affine in one texture; beyond
+    that, the exact Expr (dynamic, or raising) beside the affine form."""
+    if (a.expr is not None or b.expr is not None
+            or (a.texture is not None and b.texture is not None)
+            or (op == "divide" and b.texture is not None)):
+        expr = _dynamic(Expr(op=op, args=(a.exact, b.exact)),
+                        f"{node_id} (not affine in one texture)")
+        approx = _binary(op, GraphValue(constant=a.constant, texture=a.texture),
+                         GraphValue(constant=b.constant), node_id)
+        return dataclasses.replace(approx, expr=expr)
     if op == "multiply":
         if b.texture is not None:
             a, b = b, a
@@ -105,9 +272,17 @@ def _binary(op: str, a: GraphValue, b: GraphValue, node_id: str) -> GraphValue:
 
 def _mix(fg: GraphValue, bg: GraphValue, mix: GraphValue, node_id: str) -> GraphValue:
     """MaterialX mix: out = fg*mix + bg*(1-mix), affine when at most one
-    operand carries a texture and the factor is constant."""
-    if sum(v.texture is not None for v in (fg, bg, mix)) > 1 or mix.texture is not None:
-        raise _baked(f"{node_id} (not affine in one texture)")
+    operand carries a texture and the factor is constant; beyond that,
+    the exact Expr (dynamic, or raising) beside the affine form."""
+    if (fg.expr is not None or bg.expr is not None or mix.expr is not None
+            or sum(v.texture is not None for v in (fg, bg, mix)) > 1
+            or mix.texture is not None):
+        expr = _dynamic(Expr(op="mix", args=(fg.exact, bg.exact, mix.exact)),
+                        f"{node_id} (not affine in one texture)")
+        approx = _mix(GraphValue(constant=fg.constant, texture=fg.texture),
+                      GraphValue(constant=bg.constant), GraphValue(constant=mix.constant),
+                      node_id)
+        return dataclasses.replace(approx, expr=expr)
     m = mix.constant
     one_m = tuple(1.0 - c for c in m)
     if bg.texture is not None:
@@ -216,10 +391,12 @@ class GraphLowering:
             v = ev("in", hint=color_hint)
             lo = ev("low", (0.0, 0.0, 0.0, 0.0)).constant
             hi = ev("high", (1.0, 1.0, 1.0, 1.0)).constant
-            if v.texture is not None:
-                raise _baked(f"clamp@{node.path} over a texture")
-            return GraphValue(constant=tuple(min(max(c, l), h)
-                                             for c, l, h in zip(v.constant, lo, hi)))
+            const = tuple(min(max(c, l), h) for c, l, h in zip(v.constant, lo, hi))
+            if v.texture is not None or v.expr is not None:
+                expr = _dynamic(Expr(op="clamp", args=(v.exact, _const_expr(lo), _const_expr(hi))),
+                                f"clamp@{node.path} over a texture")
+                return GraphValue(constant=const, texture=v.texture, expr=expr)
+            return GraphValue(constant=const)
         if sid == "convert":
             return ev("in", default, color_hint)
         if sid in ("swizzle", "extract", "separate2", "separate3", "separate4"):
@@ -227,6 +404,9 @@ class GraphLowering:
             ch = str(node.inputs.get("channels", out_name or "r")).lower()
             if len(ch) == 1 and ch in _CH:
                 const = (v.constant[_CH[ch]],) * 4
+                if v.expr is not None:
+                    return GraphValue(constant=const, texture=v.texture,
+                                      expr=Expr(op="extract", channel=ch, args=(v.expr,)))
                 if v.texture is not None:
                     return GraphValue(constant=const,
                                       texture=dataclasses.replace(v.texture, channel=ch))
@@ -236,16 +416,43 @@ class GraphLowering:
             v = ev("in", (0.5, 0.5, 1.0), False)
             # tangent-space decode [0, 1] -> [-1, 1] (previewSurfaceNetworkPatcher.cpp)
             return v.with_affine(scale=(2.0, 2.0, 2.0, 1.0), bias=(-1.0, -1.0, -1.0, 0.0))
-        if sid in _DYNAMIC or sid.startswith("UsdPrimvarReader"):
-            if sid == "normal" and node.input_connections:
-                return GraphValue(constant=_vec4(default))  # the JAX package's fallback
-            if sid not in ("normal", "viewdirection") and not str(
-                    node.inputs.get("varname", node.inputs.get("geomprop", ""))):
-                return GraphValue(constant=_vec4(node.inputs.get(
-                    "fallback", node.inputs.get("default", default))))
-            raise NotImplementedError(
-                f"shader graph: {sid}@{node.path} is evaluated per hit by the wavefront "
-                "integrator, which is not ported yet (ROADMAP: 'Wavefront integrator')")
+        if sid == "viewdirection":
+            # world space, camera -> surface (MDL state::direction)
+            return GraphValue(constant=(0.0, 0.0, 1.0, 0.0), expr=Expr(op="viewdir"))
+        if sid == "normal" and not node.input_connections:
+            # the world-space shading normal as a value node
+            return GraphValue(constant=(0.0, 0.0, 1.0, 0.0), expr=Expr(op="normalvec"))
+        if sid == "dotproduct":
+            a, b = ev("in1"), ev("in2")
+            d = sum(x * y for x, y in zip(a.constant[:3], b.constant[:3]))
+            return GraphValue(constant=(d, d, d, d), expr=_dynamic(
+                Expr(op="dot", args=(a.exact, b.exact)), f"dotproduct@{node.path}"))
+        if sid == "absval":
+            v = ev("in", default, color_hint)
+            const = tuple(abs(c) for c in v.constant)
+            if v.texture is None and v.expr is None:
+                return GraphValue(constant=const)
+            return GraphValue(constant=const, texture=v.texture, expr=_dynamic(
+                Expr(op="abs", args=(v.exact,)), f"absval@{node.path}"))
+        if sid == "power":
+            a = ev("in1", default, color_hint)
+            b = ev("in2", (1.0, 1.0, 1.0, 1.0))
+            const = tuple(max(x, 0.0) ** y for x, y in zip(a.constant, b.constant))
+            if a.texture is None and a.expr is None and b.texture is None and b.expr is None:
+                return GraphValue(constant=const)
+            return GraphValue(constant=const, texture=a.texture, expr=_dynamic(
+                Expr(op="power", args=(a.exact, b.exact)), f"power@{node.path}"))
+        if sid.startswith("UsdPrimvarReader") or sid == "geompropvalue":
+            # a named primvar is a dynamic leaf (displayColor from the
+            # interpolated vertex colours, instance-rate names from the
+            # instance tables; gi keeps it static where neither holds it),
+            # an unnamed reader its fallback
+            var = str(node.inputs.get("varname", node.inputs.get("geomprop", "")))
+            fallback = _vec4(node.inputs.get("fallback", node.inputs.get("default", default)))
+            if var:
+                return GraphValue(constant=fallback,
+                                  expr=Expr(op="primvar", channel=var, const=fallback))
+            return GraphValue(constant=fallback)
         if sid in _BAKED:
             raise _baked(f"{sid}@{node.path}")
         get_logger().debug("shader graph: unhandled node %s (%s)", sid, node.path)

@@ -20,7 +20,8 @@ an absorbing and scattering `material_volume`). `glass_tinted` and
 `cornell_fog` write the Cornell box of tests/data/cornell.usda with its
 tall block so bound, under the benchmark's ceiling rect light, as a
 .usda file; `sphere_field_volumes` and `interior_tinted` return the two
-large scenes with some of their materials so replaced.
+large scenes with some of their materials so replaced, `interior_dynamic`
+the interior with a view-dependent emission and a two-sided MDL material.
 
 The dome scenes light them by an HDR sky: `write_sky` writes an
 equirectangular sky (a vertical gradient and a small, bright sun) as an
@@ -531,6 +532,72 @@ def interior_tinted(detail: int = 5, tex_dir: str | None = None) -> SceneDesc:
         if m.path == "/bowls":
             m.material = "/m_bowl_glass"
     desc.materials["/m_bowl_glass"] = tinted_glass_material("/m_bowl_glass")
+    return desc
+
+
+# a two-sided MDL material: a red front and a blue `backface:` surface
+TWO_SIDED_MDL = """mdl 1.6;
+import ::df::*;
+export material TwoSided()
+ = material(
+    surface: material_surface(
+        scattering: df::diffuse_reflection_bsdf(tint: color(0.8, 0.2, 0.2))
+    ),
+    backface: material_surface(
+        scattering: df::diffuse_reflection_bsdf(tint: color(0.1, 0.1, 0.9))
+    )
+);
+"""
+
+
+def two_sided_material(path: str, out_dir: str) -> MaterialDesc:
+    """TWO_SIDED_MDL, written into out_dir as two_sided.mdl."""
+    os.makedirs(out_dir, exist_ok=True)
+    module = os.path.join(out_dir, "two_sided.mdl")
+    with open(module, "w") as f:
+        f.write(TWO_SIDED_MDL)
+    return _mdl_desc(path, module, "TwoSided")
+
+
+def view_direction_material(path: str) -> MaterialDesc:
+    """The graph of tests/graphical/Materials.MtlxViewDirection: a black
+    UsdPreviewSurface whose emission is mix(orange, blue, pow(|viewdirection
+    . normal|, 3)), a view- and normal-dependent input."""
+    def node(name, sid, inputs=None, **links):
+        return ShaderNode(path=f"{path}/{name}", shader_id=sid, inputs=inputs or {},
+                          input_connections={k: (f"{path}/{v}", "out") for k, v in links.items()})
+
+    nodes = [
+        node("s", "UsdPreviewSurface", {"diffuseColor": (0.0, 0.0, 0.0)}, emissiveColor="mix"),
+        node("mix", "ND_mix_color3", {"fg": (0.9, 0.3, 0.05), "bg": (0.02, 0.1, 0.9)},
+             mix="pow"),
+        node("pow", "ND_power_float", {"in2": 3.0}, in1="abs"),
+        node("abs", "ND_absval_float", {}, **{"in": "dot"}),
+        node("dot", "ND_dotproduct_vector3", {}, in1="vd", in2="nrm"),
+        node("vd", "ND_viewdirection_vector3"),
+        node("nrm", "ND_normal_vector3", {"space": "world"}),
+    ]
+    return MaterialDesc(path=path, surface_node=f"{path}/s", nodes={n.path: n for n in nodes})
+
+
+def interior_dynamic(detail: int = 5, tex_dir: str | None = None) -> SceneDesc:
+    """interior(detail) with its pots' material replaced by the view-
+    dependent emission of view_direction_material and its crates' by the
+    two-sided MDL material (TWO_SIDED_MDL, written beside the textures in
+    tex_dir, by default interior's): a scene only the wavefront renders
+    (per-hit material inputs, a backface row)."""
+    if tex_dir is None:
+        tex_dir = os.path.join(tempfile.gettempdir(), "gatling_interior_tex")
+    desc = interior(detail=detail, tex_dir=tex_dir)
+    for m in desc.meshes:
+        if m.material == "/m_pot":
+            m.material = "/m_pot_view"
+        elif m.material == "/m_crate":
+            m.material = "/m_crate_two_sided"
+    desc.materials["/m_pot_view"] = view_direction_material("/m_pot_view")
+    desc.materials["/m_crate_two_sided"] = two_sided_material("/m_crate_two_sided", tex_dir)
+    for p in ("/m_pot", "/m_crate"):
+        del desc.materials[p]
     return desc
 
 

@@ -571,6 +571,90 @@ def test_wavefront_frame_matches_cpu(cuda):
     assert np.isfinite(c_gpu).all() and abs(c_gpu.mean() - c_cpu.mean()) < 0.01 * c_cpu.mean()
 
 
+def _threaded_soup(name: str, tmp_path):
+    """(desc or None, soup): a random soup of 20,000 triangles, or the
+    interior at full detail (92,492 triangles and the padding)."""
+    from gatling_tpu_torch.ops.geometry import SceneGeometry
+    from gatling_tpu_torch.scene.examples import interior
+
+    if name == "interior":
+        desc = interior(tex_dir=str(tmp_path))
+        paths = sorted({m.material for m in desc.meshes if m.material})
+        midx = {p: i for i, p in enumerate(paths)}
+        midx[None] = len(paths)
+        return desc, build_geometry(desc.meshes, midx)
+    rng = np.random.default_rng(21)
+    n = 20000
+    v0 = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    e1, e2 = (rng.normal(0, 0.3, (n, 3)).astype(np.float32) for _ in range(2))
+    z3, z2, zi = np.zeros((n, 3), np.float32), np.zeros((n, 2), np.float32), np.zeros(n, np.int32)
+    return None, SceneGeometry(v0, e1, e2, z3, z3, z3, z3, z3, z3, z3, z2, z2, z2, z3, z3, z3,
+                               zi, zi, zi, zi, zi)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("soup", ["random20000", "interior"])
+def test_threaded_kernels_match_twins(cuda, tmp_path, soup):
+    """B1 and B2 (the threaded-BVH walks, the wavefront's tracer above 8192
+    triangles) against their twins: on a random soup of 20,000 triangles
+    (rays from random points in random directions, every 7th with tmin >
+    0, every 5th a finite tmax, every 11th dead) and on the interior's
+    first wave at full detail (its camera's 256x256 rays, shadow rays
+    from their hits toward its lights): t, tri, u, v and the flags
+    bit-equal on every ray, one launch each."""
+    from test_torch_bvh import _light_targets
+
+    from gatling_tpu_torch.ops import bvh as bvhm
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.ops import trace_ref as trf
+
+    desc, geom = _threaded_soup(soup, tmp_path)
+    arrays, order = bvhm.build_bvh(geom.v0, geom.e1, geom.e2)
+    reordered = bvhm.reorder_geometry(geom, order)
+    bvh = bvhm.threaded_bvh(arrays, reordered, cuda)
+    n = 256 * 256
+    if desc is None:
+        rng = np.random.default_rng(5)
+        o = torch.tensor(rng.uniform(-7, 7, (n, 3)), dtype=torch.float32, device=cuda)
+        d = torch.nn.functional.normalize(torch.tensor(rng.normal(size=(n, 3)),
+                                                       dtype=torch.float32, device=cuda), dim=1)
+        tmin = torch.zeros(n, device=cuda)
+        tmin[::7] = 0.5
+        tmax = torch.full((n,), 3.4e38, device=cuda)
+        tmax[::5] = 4.0
+    else:
+        pix = torch.arange(n, device=cuda)
+        o, d, _ = generate_primary_rays(camera_uniforms(desc.first_camera(), False, cuda), 256,
+                                        256, pix % 256, pix // 256, smp.rng_init(pix, 2), True,
+                                        True, False)
+        tmin = torch.zeros(n, device=cuda)
+        tmax = torch.full((n,), 3.4e38, device=cuda)
+    tmax[::11] = 0.0  # dead rays
+    before = dict(tt.launches)
+    b1 = tt.intersect_threaded(o, d, tmin, tmax, bvh)
+    torch.cuda.synchronize()
+    assert tt.launches["B1"] == before["B1"] + 1
+    for g, r in zip(b1, trf.intersect_threaded_ref(o, d, tmin, tmax, bvh)):
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                      r.cpu().numpy().view(np.int32))
+    hit = b1.tri >= 0
+    assert hit.float().mean() > (0.5 if desc else 0.05) and (b1.tri[::11] == -1).all()
+    pos = (o + d * torch.where(hit, b1.t, 0.0)[:, None]).contiguous()
+    if desc is None:
+        to = torch.tensor(np.random.default_rng(6).uniform(-7, 7, (n, 3)), dtype=torch.float32,
+                          device=cuda) - pos
+    else:
+        to = _light_targets(desc, geom, n, np.random.default_rng(4)).to(cuda) - pos
+    dist = to.norm(dim=1)
+    ld = (to / dist[:, None]).contiguous()
+    lo, hi = torch.where(hit, 1e-3, 0.0), torch.where(hit, dist, 0.0)
+    b2 = tt.occluded_threaded(pos, ld, lo, hi, bvh)
+    torch.cuda.synchronize()
+    assert tt.launches["B2"] == before["B2"] + 1
+    assert torch.equal(b2, trf.occluded_threaded_ref(pos, ld, lo, hi, bvh))
+    assert 0 < int(b2.sum()) < int(hit.sum())
+
+
 # ---------------------------------------------------------------------------
 # the advanced lobes, the cutout, the probes
 # ---------------------------------------------------------------------------

@@ -10,10 +10,11 @@ gtl:flipThreshold. Each scene's expectation:
 * the route it renders on: the fused kernels (Camera.ClippingPlanes
   through the bounce-0 peel, MaterialX.ColorSpaces, Render.Empty1x1) or the
   wavefront (an AOV outside the fused set: Lights.Analytic's NEE,
-  Render.AOVs' ids, Mesh.PrimvarInterpolation's vertex colours), which
-  must pass both thresholds;
-* Materials.MtlxFrame, Materials.MtlxViewDirection and Mesh.Skinned raise
-  the NotImplementedError that names their ROADMAP item;
+  Render.AOVs' ids; Mesh.PrimvarInterpolation's vertex colours;
+  Materials.MtlxViewDirection's emission, a view- and normal-dependent
+  input evaluated per hit), which must pass both thresholds;
+* Materials.MtlxFrame and Mesh.Skinned raise the NotImplementedError that
+  names their ROADMAP item;
 * Materials.GlassCoated's 48 spp take minutes through the twins on the
   CPU, so it is held on the card only (`requires_cuda`; chip_smoke.py's
   goldens phase and golden_glass_coated): its reference is a wavefront
@@ -45,7 +46,7 @@ ROUTES = {
     "MaterialX.ColorSpaces": "fused",
     "Materials.GlassCoated": "card",
     "Materials.MtlxFrame": "USD content",
-    "Materials.MtlxViewDirection": "USD content",
+    "Materials.MtlxViewDirection": "wavefront",
     "Mesh.PrimvarInterpolation": "wavefront",
     "Mesh.Skinned": "USD content",
     "Render.AOVs": "wavefront",

@@ -242,12 +242,22 @@ def test_usda_source_asset_tables_match_jax(tmp_path, make):
 
 
 def test_backface_material_raises(tmp_path):
+    """A `backface:` surface, which raised until the backface rows were
+    ported, lowers as in the JAX package: the front parameters and the
+    backface dict equal, bit for bit as floats, the backface traits and
+    the packed rows (the appended backface row and MI_BACKFACE_ID)."""
     p = tmp_path / "two_sided.mdl"
     p.write_text(BACKFACE_MDL)
-    desc = tmdl.load_mdl_material(p, "TwoSided")
-    assert jmat.lower_material(jmdl.load_mdl_material(p, "TwoSided")).backface
-    with pytest.raises(NotImplementedError, match="Wavefront integrator"):
-        tmat.lower_material(desc)
+    jrow = jmat.lower_material(jmdl.load_mdl_material(p, "TwoSided"))
+    trow = tmat.lower_material(tmdl.load_mdl_material(p, "TwoSided"))
+    assert jrow.backface and set(trow.backface) == set(jrow.backface)
+    for k, v in trow.backface.items():
+        assert np.array_equal(np.asarray(v, np.float64), np.asarray(jrow.backface[k], np.float64)), k
+    _same_lowering(jrow, trow, "TwoSided")
+    jt, tt = jmat.build_material_table([jrow]), tmat.build_material_table([trow])
+    np.testing.assert_array_equal(tt.packed_i, np.asarray(jt.packed_i))
+    assert trow.traits.has_backface_bsdf == jrow.traits.has_backface_bsdf
+    assert trow.traits.has_backface_edf == jrow.traits.has_backface_edf
 
 
 def test_missing_module_falls_back():

@@ -279,8 +279,17 @@ def test_graphs_beyond_one_affine_texture_raise(texture_files, what):
         "primvar": {"out": ("UsdPrimvarReader_float3", {"varname": "displayColor"}, {})},
         "noise": {"out": ("noise2d", {}, {})},
     }[what]
-    item = "Wavefront integrator" if what in ("viewdirection", "primvar") else "USD content"
-    with pytest.raises(NotImplementedError, match=item):
+    if what in ("viewdirection", "primvar"):
+        # a view- or primvar-dependent input lowers to the per-hit
+        # expression the wavefront evaluates, as the JAX package's does
+        row = tmat.lower_material(_network(tstage, "/m", {}, {"diffuseColor": ("out", "out")},
+                                           nodes))
+        jrow = jmat.lower_material(_network(jstage, "/m", {}, {"diffuseColor": ("out", "out")},
+                                            nodes))
+        assert row.dynamic["base_color"].op == {"viewdirection": "viewdir"}.get(what, what)
+        assert set(row.dynamic) == set(jrow.dynamic) == {"base_color"}
+        return
+    with pytest.raises(NotImplementedError, match="USD content"):
         tmat.lower_material(_network(tstage, "/m", {}, {"diffuseColor": ("out", "out")}, nodes))
 
 

@@ -19,9 +19,10 @@ Inputs are made with numpy from seeds and handed to both sides:
    `Render.AOVs` and `Mesh.PrimvarInterpolation`, are held by
    tests/test_torch_graphical.py through the port's own harness);
 6. gi's routing: the wavefront for AOVs outside FUSED_AOV_MASK and for
-   vertex colours, the fused kernels for COLOR; NotImplementedError above
-   8192 triangles; cutout and media render; clipping planes, the CLI's
-   integer AOVs, transform edits and progressive frames.
+   vertex colours, the fused kernels for COLOR; the threaded BVH tracer
+   above 8192 triangles (its frames against the JAX package's:
+   tests/test_torch_threaded_bvh.py); cutout and media render; clipping
+   planes, the CLI's integer AOVs, transform edits and progressive frames.
 """
 
 import jax.numpy as jnp
@@ -378,10 +379,15 @@ def test_gi_routes_between_fused_and_wavefront():
 
 
 def test_gi_wavefront_gates_raise():
+    """The wavefront's gates: above 8192 triangles the threaded BVH tracer
+    (B1/B2's twins here), built at the first wavefront frame over the soup
+    it reorders; cutout and media render on the wavefront."""
     big = gi.create_scene("cpu")
     big.add_mesh(_quad_grid_mesh(65))  # 8450 triangles
-    with pytest.raises(NotImplementedError, match="BVH tracer.*Wavefront integrator"):
-        _gi_frame(big, [AovId.OBJECT_ID])
+    (obj,) = _gi_frame(big, [AovId.OBJECT_ID])
+    assert big._tracer == "bvh" and big._accel.bvh is not None and big._accel.tables is None
+    assert big._accel.bvh.tris.shape[0] == big._geom.num_triangles
+    assert set(np.unique(obj)) <= {-1, 0} and (obj == 0).mean() > 0.5
     cut = gi.create_scene("cpu")
     cut.add_mesh(_quad_grid_mesh(2, material="/cut"))
     node = ShaderNode(path="/cut/s", shader_id="UsdPreviewSurface", inputs={"opacity": 0.5},
