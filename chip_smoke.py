@@ -103,6 +103,8 @@ fails, with a non-zero exit, if any phase fails:
    backface rows, COLOR, 512x512, 4 spp, 6 bounces, NEE), its warm frame
    and checks, the dynamic expression on the card against the CPU, and
    the scene at 32x32 on the card against the CPU twins, the same samples;
+   sphere_field_aovs' frame is recorded twice: each wave's rays, live
+   counts and B1's hits or B2's flags must be bit-equal;
 3i. then B1 and B2 against their twins (ops/trace_ref.py, the JAX walk in
    lockstep) on 4l's recorded waves (interior_aovs bounces 0 and 2,
    sphere_field_aovs bounce 0, closest and shadow rays, 262,144 rays
@@ -208,8 +210,24 @@ fails, with a non-zero exit, if any phase fails:
    TAP_OPACITY over the float floor texture, bit-equal to tap_rows_ref on
    every hit ray; each timed with its bound (16 bytes a distinct float
    texel);
-goldens: the committed scenes tests/test_torch_graphical.py renders,
-   through gatling_tpu_torch.testing.run_graphical_test on the card at
+4m. USD content (phase_content): 16 skinned figures (6,144 triangles
+   each; 24-joint chains, 4 influences a vertex, animations sampled at
+   frames 1-24, a blend shape) on a textured ground, MaterialX nodes
+   authored in USD (a checkerboard, a noise roughness, a two-texture
+   multiply, a frame-driven emission), written as .usda, parsed, saved as
+   a crate file and zipped into a .usdz by the port; the .usdc read back
+   equal to the parsed stage within f32 rounding (also in the exporters'
+   lz4 layout); cli.render_scene_file of the .usdz at frame 12, 512x512,
+   4 spp, 6 bounces, NEE: K3 and K4 over the two-level walk, the
+   composites baked into the 8-bit pool; a first frame and two warm ones
+   with the host times of the crate read, the skinning, the baking and
+   the pool build; the .usdz frame against the .usda frame (CONTENT_RTOL,
+   CONTENT_ATOL), the 128x128 frame against the wavefront's (MEAN_SIGMAS);
+   a frame-13 render that lowers the animated material alone (its
+   emission 13 x in2 exactly, the pool and fused tables kept); then K3 and
+   K4 on the bounce-0 wave against their twins, timed with their bounds;
+goldens: the committed scenes tests/test_torch_graphical.py renders, all
+   ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
    its emission evaluated per hit; Materials.GlassCoated: its reference is a
    wavefront image, the harness renders the port's fused K1, and only the
@@ -228,8 +246,8 @@ P. the probes P1 (the six layout moves in one launch, a block a move,
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
-cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's frames beside
-K3's, K4's and K4t's entries; B1 and B2: interior_aovs', with
+cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's and 4m's
+frames beside K3's, K4's and K4t's entries; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -2198,7 +2216,12 @@ def phase_threaded(device, tex_dir: str, sf):
                           triangles=scene._geom.num_triangles,
                           nodes=scene._accel.bvh.num_nodes)
         launches_by[label] = {k: launches[k] for k in ("B1", "B2")}
-        waves[label] = (record_waves(params), scene._accel.bvh)
+        recorded = record_waves(params)
+        if label == "sphere_field_aovs":
+            out[label]["repeat"] = repeat_waves(recorded, record_waves(params), scene._accel.bvh,
+                                                label)
+            out[label]["repeat"]["fresh_nee_live"] = fresh_sphere_field_nee(device)
+        waves[label] = (recorded, scene._accel.bvh)
 
     # interior_dynamic: a view-dependent emission and a two-sided MDL
     # material at full detail, COLOR only
@@ -2256,6 +2279,52 @@ def interior_dynamic_card_vs_cpu(device, tex_dir: str) -> dict:
         f"{close:.4f}, mean rel diff {rel:.2e}")
     assert same >= 0.99 and close >= 0.98 and rel < 0.01
     return dict(ids_equal=same, color_close=close, mean_rel_diff=rel)
+
+
+def repeat_waves(first: dict, second: dict, bvh, label: str) -> dict:
+    """Two recordings of one scene's frame (record_waves) in one process:
+    each wave's rays, its live (traced) count, and B1's hit rows or B2's
+    flags on it must be bit-equal. (Two full runs of this script once
+    logged two counts for sphere_field_aovs' bounce-0 NEE wave: a fresh
+    sphere_field and the one that carries 4c's shift of a sphere group
+    trace different waves; fresh_sphere_field_nee logs the former.)"""
+    import torch
+
+    from gatling_tpu_torch.ops import trace as tt
+
+    out = {}
+    for kind in ("closest", "occluded"):
+        for bounce in sorted(first[kind]):
+            a, b = first[kind][bounce], second[kind][bounce]
+            live = [int((r[3] > r[2]).sum()) for r in (a, b)]
+            rays_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+            run = tt.occluded_threaded if kind == "occluded" else tt.intersect_threaded
+            ha, hb = run(*a, bvh), run(*b, bvh)
+            hits_equal = (torch.equal(ha, hb) if kind == "occluded" else
+                          all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                              for x, y in zip(ha, hb)))
+            out[f"{kind} {bounce}"] = dict(live=live, rays_equal=rays_equal,
+                                           hits_equal=hits_equal)
+            log(f"{label} bounce {bounce} {kind} wave, recorded twice in one process: "
+                f"{a[0].shape[0]} rays, live (traced) {live[0]} and {live[1]}, rays bit-equal "
+                f"{rays_equal}, {'flags' if kind == 'occluded' else 'hit rows'} bit-equal "
+                f"{hits_equal}")
+            assert live[0] == live[1] and rays_equal and hits_equal, (label, kind, bounce)
+    return out
+
+
+def fresh_sphere_field_nee(device) -> int:
+    """The live (traced) count of a fresh sphere_field's bounce-0 NEE wave
+    at sphere_field_aovs' settings: the scene before 4c's transform edit,
+    which the shared scene description keeps for the later phases."""
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    params = desc_params(device, sphere_field(), SF_RES, dict(
+        spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True), every_aov=True)
+    rays = record_waves(params, bounces=(0,))["occluded"][0]
+    live = int((rays[3] > rays[2]).sum())
+    log(f"sphere_field (fresh, before 4c's edit) bounce 0 occluded wave: {live} live (traced)")
+    return live
 
 
 def phase_threaded_trace(device, waves: dict, small) -> dict:
@@ -4093,6 +4162,328 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict) -> lis
     }]
 
 
+# 4m: the content scene's .usdz frame against its .usda frame (the JAX
+# package's tests/test_usdc.py:36 tolerance), and the share of pixels that
+# may lie beyond it: the text layer skins the points its parser read in
+# f64, the crate layer the f32 points it stores, and at full width a few
+# near-ties move
+CONTENT_RTOL, CONTENT_ATOL, CONTENT_BEYOND = 1e-4, 1e-5, 1e-3
+CONTENT_FRAME = 12.0
+# the content scene's shape (scene/examples.py write_content's defaults)
+CONTENT = dict(figures=16, rings=48, segments=64, joints=24, tex_res=1024)
+# a stage read back from a crate file against the parsed text: values
+# within f32 rounding (the crate stores float and point attrs as f32)
+STAGE_RTOL = 2.0 ** -23
+
+
+def _values_close(x, y, rtol: float) -> bool:
+    """Two attribute or metadata values: strings and tokens equal, dicts
+    key by key, numbers (nested tuples and lists too, a matrix array flat
+    or nested) within rtol, other lists element by element."""
+    import numpy as np
+
+    if isinstance(x, str) or isinstance(y, str) or x is None or y is None:
+        return x == y
+    if isinstance(x, dict) or isinstance(y, dict):
+        return (isinstance(x, dict) and isinstance(y, dict) and x.keys() == y.keys()
+                and all(_values_close(x[k], y[k], rtol) for k in x))
+    try:
+        a, b = np.asarray(x, np.float64).ravel(), np.asarray(y, np.float64).ravel()
+    except (TypeError, ValueError):
+        a = b = None
+    if a is not None:
+        return a.shape == b.shape and bool(np.all(np.abs(a - b) <= rtol * np.abs(a)))
+    if isinstance(x, (list, tuple)) and isinstance(y, (list, tuple)):
+        return len(x) == len(y) and all(_values_close(u, v, rtol) for u, v in zip(x, y))
+    return x == y
+
+
+def stage_diffs(a, b, rtol: float = STAGE_RTOL) -> list[str]:
+    """Where two stages differ: the prim set, each prim's type, metadata
+    and relationships, each attribute's type, value, metadata, connection
+    and time samples (tests/test_usdc.py:17 and :306, widened to every
+    field). Values compare within rtol."""
+    pa, pb = {p.path: p for p in a.walk()}, {p.path: p for p in b.walk()}
+    only = sorted(set(pa) ^ set(pb))
+    out = [f"prims in one stage only: {only[:5]}"] if only else []
+    if not _values_close(dict(a.meta), dict(b.meta), rtol):
+        out.append(f"stage metadata {a.meta} != {b.meta}")
+    for path in sorted(set(pa) & set(pb)):
+        p, q = pa[path], pb[path]
+        # the text parser records a specifier other than `def` only
+        meta_p, meta_q = ({"specifier": "def", **x.meta} for x in (p, q))
+        if p.type_name != q.type_name or not _values_close(meta_p, meta_q, rtol):
+            out.append(f"{path}: type or metadata")
+        if p.rels != q.rels:
+            out.append(f"{path}: relationships {p.rels} != {q.rels}")
+        if sorted(p.attrs) != sorted(q.attrs):
+            out.append(f"{path}: attributes {sorted(set(p.attrs) ^ set(q.attrs))}")
+        for name in sorted(set(p.attrs) & set(q.attrs)):
+            u, v = p.attrs[name], q.attrs[name]
+            ts_u, ts_v = u.time_samples or {}, v.time_samples or {}
+            same = (u.type_name == v.type_name and str(u.connect or "") == str(v.connect or "")
+                    and _values_close(u.value, v.value, rtol)
+                    and _values_close(u.meta, v.meta, rtol)
+                    and sorted(ts_u) == sorted(ts_v)
+                    and all(_values_close(ts_u[t], ts_v[t], rtol) for t in ts_u))
+            if not same:
+                out.append(f"{path}.{name}")
+    return out
+
+
+class HostTimers:
+    """Host seconds spent in functions, patched by (module or class,
+    attribute name) for the length of a `with` block; a call nested in
+    another of the same function counts once (the outermost)."""
+
+    def __init__(self, **targets):
+        self.targets, self.seconds, self.calls = targets, {k: 0.0 for k in targets}, {}
+        self._saved, self._depth = {}, {k: 0 for k in targets}
+
+    def __enter__(self):
+        for key, (owner, attr) in self.targets.items():
+            real = getattr(owner, attr)
+            self._saved[key] = real
+
+            def timed(*args, _key=key, _real=real, **kwargs):
+                self._depth[_key] += 1
+                t0 = time.perf_counter()
+                try:
+                    return _real(*args, **kwargs)
+                finally:
+                    self._depth[_key] -= 1
+                    if self._depth[_key] == 0:
+                        self.seconds[_key] += time.perf_counter() - t0
+                        self.calls[_key] = self.calls.get(_key, 0) + 1
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for key, (owner, attr) in self.targets.items():
+            setattr(owner, attr, self._saved[key])
+        return False
+
+
+def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_RES):
+    """Phase 4m: USD content of production shape, built by the port alone
+    (scene/examples.py write_content: 16 skinned figures of 6,144
+    triangles, each bound to its own 24-joint chain Skeleton with 4
+    influences a vertex and driven by its own SkelAnimation sampled at
+    frames 1-24, one with a blend shape; a ground plane under a 1024^2
+    8-bit PNG, a rect light, a camera; USD-authored MaterialX nodes: an
+    ND_checkerboard_color3 base colour with ND_noise2d_float roughness, an
+    ND_multiply_color3 of two image textures, an ND_frame_float x colour
+    emission). The .usda is parsed by load_usda, saved by save_usdc, zipped
+    with its PNGs into a .usdz (pack_usdz); the .usdc read back must equal
+    the parsed stage within f32 rounding. cli.render_scene_file renders the
+    .usdz on the card at frame 12 (512x512, 4 spp, 6 bounces, NEE: the
+    bench's interior settings): the split bounce, K3 and K4 over the
+    two-level walk (98,306 triangles, no mesh shared: each figure and the
+    ground a placement of its own clusters, the object walk of the JAX
+    package's rule), the composites baked into the 8-bit pool; a first
+    frame, two warm frames, the host times of the crate read, the
+    skinning, the baking and the pool build; the .usdz frame against the
+    .usda frame; the frame at 128x128 against the wavefront's
+    of the same samples; a gi.render at frame 13 lowers the animated
+    material alone, its emission 13 x in2 exactly, the pool and the fused
+    tables kept; then K3 and K4 on the frame's bounce-0 wave against their
+    twins, timed with their bounds."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch import cli, gi
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.ops.split_ref import trace_ref
+    from gatling_tpu_torch.render import material as rmat
+    from gatling_tpu_torch.render.texture import TextureManager
+    from gatling_tpu_torch.scene import crate, examples, skel
+    from gatling_tpu_torch.scene.usda import load_usda
+
+    out = {}
+    t0 = time.perf_counter()
+    usda = examples.write_content(work_dir, **content)
+    n_tris = content["figures"] * content["rings"] * content["segments"] * 2 + 2
+    out["write_s"] = time.perf_counter() - t0
+    usdz = os.path.join(work_dir, "content.usdz")
+    packed = examples.pack_usdz(usda, usdz)
+    out.update({k: packed[k] for k in ("parse_s", "save_s", "zip_s", "usdc_bytes")})
+    with open(packed["usdc"], "rb") as f:
+        data = f.read()
+    with HostTimers(lz4=(crate, "lz4_decompress_block")) as tm:
+        t0 = time.perf_counter()
+        read_back = crate.read_usdc(data, path=packed["usdc"])
+        out["crate_read_s"] = time.perf_counter() - t0
+    out["crate_lz4_s"] = tm.seconds["lz4"]
+    diffs = stage_diffs(packed["stage"], read_back)
+    # the layout exporters write: minimal delta codes, match-bearing lz4
+    # chunks, compressed int and float arrays (the pure-Python decoder's
+    # match copies)
+    adv = crate.write_usdc(packed["stage"], adversarial=True)
+    with HostTimers(lz4=(crate, "lz4_decompress_block")) as tm:
+        t0 = time.perf_counter()
+        adv_back = crate.read_usdc(adv)
+        out["crate_read_adversarial_s"] = time.perf_counter() - t0
+    out.update(crate_lz4_adversarial_s=tm.seconds["lz4"], adversarial_bytes=len(adv))
+    diffs += stage_diffs(packed["stage"], adv_back)
+    log(f"content: {os.path.getsize(usda)} B of .usda written in {out['write_s']:.2f} s, parsed "
+        f"by load_usda in {out['parse_s']:.2f} s, saved by save_usdc ({out['usdc_bytes']} B) in "
+        f"{out['save_s']:.3f} s, zipped in {out['zip_s']:.3f} s; the crate read back in "
+        f"{out['crate_read_s']:.3f} s ({out['usdc_bytes'] / out['crate_read_s'] / 1e6:.1f} MB/s; "
+        f"the pure-Python lz4 {out['crate_lz4_s']:.3f} s; literal blocks); the exporters' "
+        f"layout ({out['adversarial_bytes']} B) in {out['crate_read_adversarial_s']:.3f} s "
+        f"({out['adversarial_bytes'] / out['crate_read_adversarial_s'] / 1e6:.1f} MB/s; lz4 "
+        f"{out['crate_lz4_adversarial_s']:.3f} s); against the parsed stage: {len(diffs)} "
+        f"differences {diffs[:5]}")
+    assert not diffs, diffs[:10]
+
+    settings = dict(frame=CONTENT_FRAME, spp=SF_SPP, maxBounces=SF_BOUNCES,
+                    nextEventEstimation=True)
+    captured = []
+    real_render = gi.render
+
+    def capture(params):
+        captured.append(params)
+        return real_render(params)
+
+    timers = HostTimers(crate_read=(crate, "read_usdc"), skinning=(skel, "maybe_skin_mesh"),
+                        pool_build=(TextureManager, "build_pool"),
+                        baking=(TextureManager, "_eval_bake"))
+    for counts in (tb.launches,):
+        for k in counts:
+            counts[k] = 0
+    split_ref.stage_calls = 0
+    gi.render = capture
+    try:
+        with timers:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, scene = cli.render_scene_file(usdz, res, res, settings, device=str(device))
+            out["first_frame_s"] = time.perf_counter() - t0
+    finally:
+        gi.render = real_render
+    params = captured[0]
+    img = img.copy()  # the render buffer itself: the next frames write into it
+    out.update({f"host_{k}_s": v for k, v in timers.seconds.items()})
+    st, pool = scene._fused_static, scene._texture_pool
+    log(f"content .usdz at frame {CONTENT_FRAME:g}, {res}^2 {SF_SPP}spp {SF_BOUNCES} bounces "
+        f"nee: first frame {out['first_frame_s']:.3f} s through cli.render_scene_file (host: "
+        f"crate read {out['host_crate_read_s']:.3f} s, skinning {out['host_skinning_s']:.3f} s "
+        f"in {timers.calls.get('skinning', 0)} meshes, pool build "
+        f"{out['host_pool_build_s']:.3f} s of which baking {out['host_baking_s']:.3f} s in "
+        f"{timers.calls.get('baking', 0)} composites); "
+        f"{st.n_tris} triangles, {'instanced' if st.instanced else 'flattened'} "
+        f"{'clustered' if st.clustered else 'resident'}, textured {st.textured_params}, "
+        f"{pool.count} pool slots, 8-bit {pool.packed}; launches {dict(tb.launches)}")
+    # every figure and the ground a placement of its own clusters: the
+    # instance tables' object walk (ops/bounce.py instanced_arrays)
+    assert st.n_tris == n_tris and st.clustered and st.textured
+    assert st.n_instances == content["figures"] + 1, st.n_instances
+    assert pool.count == 4 and pool.packed and split_ref.stage_calls == 0
+    assert timers.calls["skinning"] == content["figures"] + 1, timers.calls
+    assert timers.calls["baking"] == 3, timers.calls
+    frames = []
+    for k in range(2):
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        wimg, dt, _mr, launches = counted_render(params, f"content warm frame {k + 1}")
+        frames.append(dt)
+        assert launches["K3"] > 0 and launches["K4"] == launches["K3"], launches
+        assert all(launches[n] == 0 for n in ("K1", "K2", "K4t", "K4f", "K4tf", "K5", "K6",
+                                              "B1", "B2")), launches
+        assert split_ref.stage_calls == 0
+    out["warm_frame_s"], out["launches"] = frames, {k: launches[k] for k in ("K3", "K4")}
+    rgb = wimg[..., :3]
+    assert np.isfinite(rgb).all() and (rgb >= 0).all() and rgb.mean() > 0.01
+    np.testing.assert_array_equal(wimg, img)  # the same samples on the same tables
+
+    # the .usda frame: the same scene from the text layer
+    timg, tscene = cli.render_scene_file(usda, res, res, settings, device=str(device))
+    close = np.abs(img - timg) <= CONTENT_ATOL + CONTENT_RTOL * np.abs(timg)
+    beyond = float((~close.all(-1)).mean())
+    out["usdz_vs_usda_beyond"] = beyond
+    log(f"content .usdz frame against the .usda frame: {beyond:.6f} of pixels beyond rtol "
+        f"{CONTENT_RTOL} / atol {CONTENT_ATOL} (held under {CONTENT_BEYOND}); max abs diff "
+        f"{float(np.abs(img - timg).max()):.3g}; means {img[..., :3].mean():.6f} / "
+        f"{timg[..., :3].mean():.6f}")
+    assert beyond < CONTENT_BEYOND
+    del tscene, timg
+
+    # the fused frame against the wavefront's at 128x128
+    small = {}
+    for route in ("fused", "wavefront"):
+        sc, desc, merged = cli.load_gi_scene(usdz, str(device), settings)
+        binds = [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(128, 128, 4))]
+        if route == "wavefront":
+            binds.append(gi.GiAovBinding(AovId.OBJECT_ID, gi.GiRenderBuffer(128, 128, 1, True),
+                                         clear_value=-1))
+        p = gi.GiRenderParams(scene=sc, camera=desc.first_camera(), aov_bindings=binds,
+                              render_settings=merged)
+        counted_render(p, f"content 128^2 {SF_SPP}spp {SF_BOUNCES} bounces nee, {route}")
+        assert (sc._fused is None) == (route == "wavefront"), route
+        small[route] = binds[0].render_buffer.data.copy()
+    out["vs_wavefront"] = mean_gap(small["fused"], small["wavefront"], "content 128^2")
+
+    # frame 13: the animated material alone is lowered anew
+    glow = scene._material_index["/World/Looks/Glow"]
+    in2 = scene.materials["/World/Looks/Glow"].nodes["/World/Looks/Glow/glow"].inputs["in2"]
+    pool0, tris0 = scene._texture_pool, scene._fused.tris
+    lowered = HostTimers(lower=(gi, "lower_material"))
+    params.render_settings = dict(params.render_settings, frame=13.0)
+    with lowered:
+        img13, _dt, _mr, launches13 = counted_render(params, "content at frame 13")
+    row = scene._material_table.packed_f[glow, rmat.MF_EMISSIVE:rmat.MF_EMISSIVE + 3]
+    want = np.array([13.0 * float(c) for c in in2[:3]], np.float32)
+    log(f"content at frame 13: {lowered.calls.get('lower', 0)} material(s) lowered anew, the "
+        f"emission row {row.tolist()} (13 x in2 = {want.tolist()}); the pool kept "
+        f"{scene._texture_pool is pool0}, the fused triangle tables kept "
+        f"{scene._fused.tris is tris0}; launches {launches13}")
+    assert lowered.calls.get("lower", 0) == 1 and np.array_equal(row, want)
+    assert scene._texture_pool is pool0 and scene._fused.tris is tris0
+    assert torch.equal(scene._fused.mats[glow, rmat.MF_EMISSIVE:rmat.MF_EMISSIVE + 3].cpu(),
+                       torch.from_numpy(want))
+    assert split_ref.stage_calls == 0 and not np.array_equal(img13, img)
+    params.render_settings = dict(params.render_settings, frame=CONTENT_FRAME)
+    gi.render(params)  # back at frame 12 for the bounce-0 wave
+
+    # K3 and K4 on the frame's bounce-0 wave: parity and timing
+    fs, static, mats, tpool, active = split_tables(params)
+    wave = wave_state(params.camera, res, res, SF_SPP, device, tiled=True)
+    p0 = params_row(0, device)
+    hit = trace_ref(p0, fs.tris, wave, fs.walk)
+    twin = wave.clone()
+    split_twin(p0, fs, twin, hit, mats, tpool, active, True)
+    got_hit = tb.trace_step(p0, fs, wave)
+    got = wave.clone()
+    tb.shade_step(p0, fs, got, hit, mats, tpool, active, True)
+    torch.cuda.synchronize()
+    hb, ho, n, herr = compare_hits(got_hit, hit)
+    sb, so, _n, serr = compare(got, twin)
+    log(f"parity content nee=True bounce 0: K3 {hb} rays with H_HIT/H_MAT not bit-equal, {ho} "
+        f"of {n} outside rtol {RTOL}/atol {ATOL}, max abs err {herr:.3g}; K4 {sb} rays with rows "
+        f"12-15 not bit-equal, {so} outside on rows 0-11, max abs err {serr:.3g}")
+    assert hb == 0 and sb == 0 and ho <= n * (1 - MIN_AGREE) and so <= n * (1 - MIN_AGREE)
+    work = cluster_walk_work(p0, fs, wave, False)
+    k4_bound, k4_work, texels = k4_bound_ms(p0, fs, wave, hit, mats, tpool, active, True)
+    t = dict(k3=time_ms(lambda s: tb.trace_step(p0, fs, s), wave),
+             k3_twin=time_ms(lambda s: trace_ref(p0, fs.tris, s, fs.walk), wave, reps=2),
+             k4=time_ms(lambda s: tb.shade_step(p0, fs, s, hit, mats, tpool, active, True), wave),
+             k4_twin=time_ms(lambda s: split_twin(p0, fs, s, hit, mats, tpool, active, True),
+                             wave, reps=2),
+             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work), k4_bound=k4_bound,
+             k3_err=herr, k4_err=serr, work=work, k4_work=k4_work, k4_texels=texels,
+             rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
+    log(f"timing content nee=True bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
+        f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
+        f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}); K4 {t['k4']:.3f} ms (twin "
+        f"{t['k4_twin']:.1f} ms, bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]}: shadow walk "
+        f"work {k4_work}, {texels} distinct texel rows)")
+    out["kernels"] = t
+    log(f"content: warm frames {', '.join(f'{x:.4f}' for x in frames)} s; launches a frame "
+        f"{out['launches']}")
+    return out
+
+
 def phase_goldens(device, out_dir: str):
     """The committed graphical scenes that tests/test_torch_graphical.py
     renders, through gatling_tpu_torch.testing.run_graphical_test on the
@@ -4118,11 +4509,10 @@ def phase_goldens(device, out_dir: str):
     return out
 
 
-# the goldens the port renders (tests/test_torch_graphical.py ROUTES); the
-# other two raise, naming their ROADMAP item
+# the goldens (tests/test_torch_graphical.py ROUTES): every committed scene
 GOLDENS = ("Camera.ClippingPlanes", "Lights.Analytic", "MaterialX.ColorSpaces",
-           "Materials.GlassCoated", "Materials.MtlxViewDirection", "Mesh.PrimvarInterpolation",
-           "Render.AOVs", "Render.Empty1x1")
+           "Materials.GlassCoated", "Materials.MtlxFrame", "Materials.MtlxViewDirection",
+           "Mesh.PrimvarInterpolation", "Mesh.Skinned", "Render.AOVs", "Render.Empty1x1")
 
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
@@ -4130,6 +4520,16 @@ KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_ker
                 "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
                 "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
                 "bounce_kernel", "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")
+
+
+def content_entry(content: dict, kernel: str) -> dict:
+    """Phase 4m's numbers beside K3's or K4's kernels-line entry: launches
+    a warm frame, ms a launch on the bounce-0 wave, its twin's and its
+    bound, the warm frames' seconds."""
+    t, k = content["kernels"], kernel.lower()
+    return {"launches": content["launches"][kernel], "ms": t[k], "plain_ms": t[k + "_twin"],
+            "bound_ms": t[k + "_bound"][0], "bound_by": t[k + "_bound"][1],
+            "max_abs_err": t[k + "_err"], "warm_frame_s": content["warm_frame_s"]}
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -4309,6 +4709,11 @@ def main() -> int:
     hdr_tap_times, hdr_tap_errs = phase_taps(device, hdr_taps, {}, KernelCalls(0))
     del hdr_replay, hdr_taps
     log(f"phase 3h: {time.perf_counter() - t0:.1f} s")
+    # 4m: USD content (skinned figures, a .usdz of a crate layer, MaterialX
+    # graphs baked into the pool) through cli.render_scene_file: K3, K4
+    t0 = time.perf_counter()
+    content = phase_content(device, os.path.join(tex_tmp.name, "content"))
+    log(f"phase 4m: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -4404,6 +4809,7 @@ def main() -> int:
         "bound_ms_retrace_masked": {k: v["bound"][0] for k, v in peel.items()
                                     if k.startswith("retrace")},
         "launches_by_new_frame": {k: v["K3"] for k, v in new_launches.items()},
+        "content": content_entry(content, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -4433,6 +4839,7 @@ def main() -> int:
         "max_abs_err_peel": peel_errs["k4"],
         "ms_peel_clipped": {k: v["k4"] for k, v in peel.items() if k.startswith("clip_")},
         "launches_by_new_frame": {k: v["K4"] for k, v in new_launches.items()},
+        "content": content_entry(content, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",

@@ -34,6 +34,16 @@ JAX package chooses (gatling_tpu/gi.py:650-700):
   wavefront frame, over the soup it reorders, and a fused frame never
   builds it).
 
+Scene content reaches both paths as plain tables: a UsdSkel mesh is
+skinned at load (scene/skel.py), a binary .usdc or a .usdz reads through
+scene/crate.py, a MaterialX document through render/mtlx.py
+(`giCreateMaterialFromMtlxStr`, `giCreateMaterialFromMtlxDoc`), and a
+shader graph that is not affine in one texture (two textures in a node,
+clamp or texcoord math, the procedural generators) is baked into a slot
+of the texture pool. Frame and time nodes fold at the `frame` setting;
+when it changes, `render` lowers the animated materials anew
+(`_relower_animated`) and keeps the pool and the fused tables where it can.
+
 `render` raises NotImplementedError, naming the ROADMAP item, for anything
 else; it never renders something else.
 """
@@ -55,6 +65,8 @@ from gatling_tpu_torch.ops.bounce import (
     FusedScene,
     FusedStatic,
     UniqueClusters,
+    _material_pass,
+    advanced_from_table,
     aniso_from_table,
     build_fused_scene_instanced,
     build_fused_scene_with_order,
@@ -86,9 +98,11 @@ from gatling_tpu_torch.render.integrator import (
 from gatling_tpu_torch.render.lights import build_light_arrays, light_tensors
 from gatling_tpu_torch.render.material import (
     MaterialTable,
+    build_material_table,
     build_materials,
     lower_material,
     substitute_texture_means,
+    texture_slots,
     textured_params,
 )
 from gatling_tpu_torch.render.shadergraph import expr_dynamic_beyond, expr_reads_primvar
@@ -154,6 +168,7 @@ class GiScene:
         self._pending_transforms: list[MeshDesc] = []
         self._material_index: dict[str | None, int] = {}
         self._lowered_materials: list = []
+        self._lowered_frame = 0.0  # the frame value the materials were lowered at
         self._material_table = None
         self._texture_manager = TextureManager()  # decoded textures, by path
         self._texture_pool = None
@@ -489,6 +504,44 @@ def _refit_fused(scene: GiScene) -> None:
         scene._fused_static = _with_split(scene, static)
 
 
+def _relower_animated(scene: GiScene, frame: float) -> None:
+    """A frame change under animated materials (frame and time nodes;
+    gatling_tpu/gi.py:566-579, which lowers every material anew): only the
+    animated ones are lowered again at `frame`. While their texture requests
+    stay the same the pool stays, and the material table is packed anew
+    under the same slots; while the columns the fused tables derive from
+    (the cutout pass, the lobe set, the shadow pass) stay the same too, the
+    fused tables take the new material rows in place. Anything else
+    rebuilds what depends on it, as a material edit does."""
+    old_rows = scene._lowered_materials
+    rows = list(old_rows)
+    for path, idx in scene._material_index.items():
+        if rows[idx].traits.is_animated:
+            rows[idx] = lower_material(scene.materials.get(path) if path else None, frame)
+    scene._lowered_frame = frame
+    scene._lowered_materials = rows
+    if [m.textures for m in rows] != [m.textures for m in old_rows]:
+        scene._material_table, scene._texture_pool = build_materials(
+            rows, scene._texture_manager, scene.device)
+        scene._material_dev = scene._material_table.to(scene.device)
+        scene._fused = None
+        return
+    old_fused = _fused_mat_table(scene)
+    scene._material_table = build_material_table(rows, texture_slots(rows)[1])
+    scene._material_dev = scene._material_table.to(scene.device)
+    new_fused = _fused_mat_table(scene)
+    same_shape = (np.array_equal(_material_pass(old_fused), _material_pass(new_fused))
+                  and advanced_from_table(old_fused) == advanced_from_table(new_fused)
+                  and aniso_from_table(old_fused) == aniso_from_table(new_fused)
+                  and np.array_equal(shadow_cutout_pass(old_rows, scene._texture_manager),
+                                     shadow_cutout_pass(rows, scene._texture_manager)))
+    if scene._fused is not None and same_shape:
+        scene._fused = scene._fused._replace(
+            mats=torch.tensor(new_fused.packed_f, dtype=torch.float32, device=scene.device))
+    else:
+        scene._fused = None
+
+
 def render(params: GiRenderParams) -> None:
     """giRender analog (reference: Gi.cpp:1989-2524): resolve dirty state,
     rebuild device tables, render the frame through the fused bounce
@@ -539,15 +592,20 @@ def render(params: GiRenderParams) -> None:
         scene._pending_transforms = []
         log.info("refreshed %d transform(s) in %.1f ms (no geometry rebuild)", len(pending),
                  1e3 * (time.monotonic() - t0))
+    frame = float(params.render_settings.get("frame", 0.0) or 0.0)
     if scene.dirty & DirtyFlags.MATERIALS or scene._material_table is None:
         rows = [None] * len(scene._material_index)
         for path, idx in scene._material_index.items():
-            rows[idx] = lower_material(scene.materials.get(path) if path else None)
+            rows[idx] = lower_material(scene.materials.get(path) if path else None, frame)
+        scene._lowered_frame = frame
         scene._lowered_materials = rows
         scene._material_table, scene._texture_pool = build_materials(
             rows, scene._texture_manager, scene.device)
         scene._material_dev = scene._material_table.to(scene.device)
         scene._fused = None
+    elif frame != scene._lowered_frame and any(
+            m.traits.is_animated for m in scene._lowered_materials):
+        _relower_animated(scene, frame)
     if scene.dirty & DirtyFlags.LIGHTS or scene._light_arrays is None:
         scene._light_arrays = build_light_arrays(scene.lights)
         scene._light_dev = light_tensors(scene._light_arrays, scene.device)
@@ -714,3 +772,22 @@ def giSetDomeLightDiffuseSpecular(light: GiDomeLight, diffuse: float, specular: 
     # shader reads it (Gi.cpp:2386, rp_main.h:29)
     light.diffuse = float(diffuse)
     light.specular = float(specular)
+
+
+def giCreateMaterialFromMtlxStr(scene: GiScene, name: str, mtlx_src: str) -> MaterialDesc:
+    """Reference: Gi.h giCreateMaterialFromMtlxStr (gatling_tpu/gi.py:1127)."""
+    from gatling_tpu_torch.render.mtlx import parse_mtlx
+
+    mat = parse_mtlx(mtlx_src, name=name)
+    scene.add_material(mat)
+    return mat
+
+
+def giCreateMaterialFromMtlxDoc(scene: GiScene, name: str, path: str) -> MaterialDesc:
+    """Reference: Gi.h giCreateMaterialFromMtlxDoc (the document is a file
+    here; gatling_tpu/gi.py:1136)."""
+    from gatling_tpu_torch.render.mtlx import load_mtlx
+
+    mat = load_mtlx(path)
+    scene.add_material(mat)
+    return mat

@@ -4,7 +4,12 @@ UsdPreviewSurface networks are lowered into rows of the packed [M, 30] f32
 table that the kernels read (the mc layer analog, reference:
 src/mc/impl/Frontend.cpp), plus per-parameter texture requests: a
 connected input folds through render/shadergraph.py into a constant and
-at most one texture under an affine scale and bias. `build_materials`
+at most one texture under an affine scale and bias, or, where the graph
+is not affine in one texture and reads no per-hit state, a composite that
+the texture manager bakes into a slot of its own (render/texture.py
+baked_ref). Frame and time nodes fold at the frame the material is
+lowered at (`lower_material(desc, frame)`); such a material carries
+`traits.is_animated`, and gi lowers it anew when the frame changes. `build_materials`
 loads the textures into the device pool and records each material's slot
 and channel per parameter in the [M, 10] int32 `packed_i` rows.
 
@@ -17,7 +22,8 @@ columns hold the textures' means. Besides UsdPreviewSurface, the MaterialX
 surfaces authored inline in USD (open_pbr_surface, standard_surface,
 gltf_pbr) and the MDL front end's `gatling_uber` node (render/mdl.py:
 OmniPBR, OmniGlass, OmniSurface, `material_volume` coefficients) map onto
-the same parameters; other surface shaders raise. Two parts of a material
+the same parameters; another surface shader keeps the default
+parameters (logged), as in the JAX package. Two parts of a material
 only the wavefront integrator shades (render/integrator.py):
 `LoweredMaterial.dynamic`, the view-, normal- and primvar-dependent
 inputs it evaluates per hit, and `LoweredMaterial.backface`, an MDL
@@ -39,9 +45,10 @@ from gatling_tpu_torch.render.shadergraph import (
     GraphLowering,
     expr_has_texture,
     expr_is_dynamic,
+    normalize_shader_id,
 )
 from gatling_tpu_torch.render.texture import TextureManager, TexturePool, TextureRef, \
-    empty_pool, sample_pool
+    baked_ref, empty_pool, sample_pool
 from gatling_tpu_torch.scene.stage import MaterialDesc
 from gatling_tpu_torch.utils.log import get_logger
 
@@ -95,6 +102,9 @@ class MaterialTraits:
     has_cutout: bool = False
     # an MDL `backface:` surface with a BSDF (Frontend.cpp:104-121)
     has_backface_bsdf: bool = False
+    # the network holds frame or time nodes (MtlxMdlCodeGen.cpp:116-144):
+    # lowered anew when the frame setting changes
+    is_animated: bool = False
 
 
 @dataclasses.dataclass
@@ -166,10 +176,13 @@ def lower_param(graph: GraphLowering, node, input_name: str, default, color: boo
     _resolve_input): (GraphValue, dynamic Expr or None). A dynamic
     expression is returned for per-hit evaluation; one that also reads a
     texture keeps its affine approximation (logged), as in the JAX
-    package."""
+    package. A static one becomes the GraphValue's texture: the composite,
+    baked at pool build."""
     gv = graph.eval_input(node, input_name, default, color)
-    if gv.expr is None or not expr_is_dynamic(gv.expr):
+    if gv.expr is None:
         return gv, None
+    if not expr_is_dynamic(gv.expr):
+        return dataclasses.replace(gv, texture=baked_ref(gv.expr)), None
     if expr_has_texture(gv.expr):
         get_logger().warning("shader graph: %s.%s mixes textures with view/normal-dependent "
                              "nodes; using the affine approximation", node.path, input_name)
@@ -177,10 +190,11 @@ def lower_param(graph: GraphLowering, node, input_name: str, default, color: boo
     return gv, gv.expr
 
 
-def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
+def lower_material(desc: MaterialDesc | None, frame: float = 0.0) -> LoweredMaterial:
     """Lower one UsdPreviewSurface, open_pbr_surface, standard_surface,
-    gltf_pbr or MDL (gatling_uber) network to uber-BSDF parameters and texture requests (the JAX
-    package's render/material.py lower_material)."""
+    gltf_pbr or MDL (gatling_uber) network to uber-BSDF parameters and
+    texture requests (the JAX package's render/material.py lower_material);
+    `frame` feeds the frame and time nodes."""
     params = dict(_DEFAULTS)
     textures: dict[str, TextureRef] = {}
     dynamic: dict[str, Expr] = {}
@@ -191,7 +205,9 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
     if node is None:
         return LoweredMaterial(params=params, traits=traits, textures=textures)
 
-    graph = GraphLowering(desc)
+    graph = GraphLowering(desc, frame)
+    traits.is_animated = any(normalize_shader_id(n.shader_id) in ("frame", "time")
+                             for n in desc.nodes.values())
 
     def constant(input_name: str, default):
         """An input's constant part (a connected texture is dropped)."""
@@ -273,9 +289,8 @@ def lower_material(desc: MaterialDesc | None) -> LoweredMaterial:
         if str(node.inputs.get("alpha_mode", "")).upper() == "MASK":
             params["opacity_threshold"] = float(node.inputs.get("alpha_cutoff", 0.5))
     else:
-        raise NotImplementedError(
-            f"{desc.path}: surface shader {sid!r} is not ported yet (ROADMAP: 'USD content', "
-            "the MDL and MaterialX front ends)")
+        # the JAX package's rule: an unknown surface keeps the defaults
+        get_logger().warning("unknown surface shader id %r; using defaults", sid)
 
     # normal-map scale/bias defaults: authors often omit the required
     # scale=2 bias=-1 mapping (reference: previewSurfaceNetworkPatcher.cpp)
@@ -301,18 +316,26 @@ def build_materials(lowered: list[LoweredMaterial], texture_manager: TextureMana
     material's slot recorded per parameter (Gi.cpp:1446-1490)."""
     if not lowered:
         lowered = [lower_material(None)]
+    refs, slots = texture_slots(lowered)
+    pool = (texture_manager or TextureManager()).build_pool(refs, device) if refs \
+        else empty_pool(device)
+    return build_material_table(lowered, slots), pool
+
+
+def texture_slots(lowered: list[LoweredMaterial]
+                  ) -> tuple[list[TextureRef], dict[int, dict[str, int]]]:
+    """(the distinct texture requests in pool-slot order, {material row:
+    {parameter: slot}}): equal requests share a slot."""
     refs: list[TextureRef] = []
     ref_slot: dict[TextureRef, int] = {}
-    texture_slots: dict[int, dict[str, int]] = {}
+    slots: dict[int, dict[str, int]] = {}
     for i, m in enumerate(lowered):
         for param, ref in m.textures.items():
             if ref not in ref_slot:
                 ref_slot[ref] = len(refs)
                 refs.append(ref)
-            texture_slots.setdefault(i, {})[param] = ref_slot[ref]
-    pool = (texture_manager or TextureManager()).build_pool(refs, device) if refs \
-        else empty_pool(device)
-    return build_material_table(lowered, texture_slots), pool
+            slots.setdefault(i, {})[param] = ref_slot[ref]
+    return refs, slots
 
 
 def build_material_table(lowered: list[LoweredMaterial],

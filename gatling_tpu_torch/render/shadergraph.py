@@ -1,5 +1,5 @@
-"""Shader node graphs -> a constant, an affine function of one texture, or a
-per-hit expression.
+"""Shader node graphs -> a constant, an affine function of one texture, a
+baked composite, or a per-hit expression.
 
 The port of the JAX package's render/shadergraph.py. A material input
 folds to
@@ -8,22 +8,26 @@ folds to
                | s * T + b over one texture   (the pool's per-slot affine)
 
 through UsdUVTexture / image / tiledimage leaves, constant, multiply,
-divide, add, subtract, mix, clamp over constants, convert, swizzle /
-extract and normalmap. Where a subtree is not affine in one texture,
-GraphValue.expr carries it exactly (an `Expr`, with the affine form as
-its approximation), as in the JAX package:
+divide, add, subtract, mix, clamp, convert, swizzle / extract and
+normalmap. Where a subtree is not affine in one texture, GraphValue.expr
+carries it exactly (an `Expr`, with the affine form as its approximation),
+as in the JAX package:
 
 * a subtree with a view-, normal- or primvar-dependent leaf
   (`viewdirection`, `normal`, a named `geompropvalue` or
   `UsdPrimvarReader`; dotproduct, absval and power over it) is dynamic
   (`expr_is_dynamic`): the wavefront integrator evaluates it at every hit
   (`eval_dynamic_expr`, render/integrator.py);
-* a static one (two textures in one node, non-affine math over a
-  texture), which the JAX package bakes into a composite texture, raises
-  here, and so do procedural generators and frame, time and texcoord
-  nodes (ROADMAP: 'USD content').
+* a static one (two textures in one node, non-affine math over a texture,
+  a texcoord leaf, a procedural generator: checkerboard, ramps, noises,
+  cell and Worley noise) is baked by the texture manager into a composite
+  texture at pool-build time (render/texture.py TextureManager._eval_bake,
+  render/procedural.py): one pool slot, tapped by K4 like any other.
 
-Unknown nodes fall back to the input's default, as in the JAX package.
+Frame and time nodes fold to constants at the frame the material is
+lowered at (`GraphLowering(desc, frame)`); gi re-lowers the materials
+that hold them when the `frame` setting changes. Unknown nodes fall back
+to the input's default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,9 +50,15 @@ _ND_TYPE_TOKENS = {
     "matrix33", "matrix44", "color3FA", "color4FA", "vector2FA", "vector3FA",
     "vector4FA",
 }
-_BAKED = ("frame", "time", "texcoord", "checkerboard", "ramplr", "ramptb", "ramp4", "noise2d",
-          "noise3d", "fractal3d", "cellnoise2d", "cellnoise3d", "worleynoise2d",
-          "worleynoise3d")
+# procedural generator nodes: uv-space functions baked through the texture
+# manager's composite path (_eval_bake), exact at texel centers, one pool
+# slot at render time. 3D variants evaluate at position=(u, v, 0), the
+# JAX package's documented approximation for a uv-indexed pool.
+_PROC_GENERATORS = (
+    "checkerboard", "ramplr", "ramptb", "ramp4", "noise2d", "noise3d",
+    "fractal3d", "cellnoise2d", "cellnoise3d", "worleynoise2d",
+    "worleynoise3d",
+)
 
 
 def _vec4(v: Any, default=(0.0, 0.0, 0.0, 1.0)) -> tuple[float, float, float, float]:
@@ -61,20 +71,15 @@ def _vec4(v: Any, default=(0.0, 0.0, 0.0, 1.0)) -> tuple[float, float, float, fl
     return (v + (0.0, 0.0, 0.0, 1.0))[:4]
 
 
-def _baked(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"shader graph: {what} needs a baked composite texture, which is not ported "
-        "yet (ROADMAP: 'USD content')")
-
-
 @dataclasses.dataclass(frozen=True)
 class Expr:
     """An exact shader-graph subtree (gatling_tpu/render/shadergraph.py
     Expr). op: const | tex | multiply | divide | add | subtract | mix |
-    clamp | extract | dot | abs | power, or a dynamic leaf: viewdir
-    (camera -> surface, MDL state::direction), normalvec (the shading
-    normal), primvar (the primvar named by `channel`, `const` its
-    fallback)."""
+    clamp | extract | dot | abs | power, a bakeable leaf: texcoord, or a
+    procedural generator (_PROC_GENERATORS: shape scalars in `const`,
+    value inputs in `args`), or a dynamic leaf: viewdir (camera ->
+    surface, MDL state::direction), normalvec (the shading normal),
+    primvar (the primvar named by `channel`, `const` its fallback)."""
 
     op: str
     const: tuple[float, float, float, float] | None = None
@@ -193,21 +198,14 @@ def eval_dynamic_expr(e: Expr, view_dir: torch.Tensor, normal: torch.Tensor,
     return ev(e)
 
 
-def _dynamic(expr: Expr, what: str) -> Expr:
-    """`expr` where it is dynamic; a static non-affine subtree needs the
-    JAX package's baked composite texture, which raises."""
-    if not expr_is_dynamic(expr):
-        raise _baked(what)
-    return expr
-
-
 @dataclasses.dataclass(frozen=True)
 class GraphValue:
     """A lowered subtree: an rgba constant, optionally over one texture via
     the pool's affine (value = sample * scale + bias; `constant` is the
     connection's fallback value). Where the subtree is not affine in one
     texture, `expr` is it exactly (dynamic: render/integrator.py evaluates
-    it per hit) and constant and texture its affine approximation."""
+    it per hit, or baked into a composite texture) and constant and texture
+    its affine approximation."""
 
     constant: tuple[float, float, float, float]
     texture: TextureRef | None = None
@@ -242,12 +240,13 @@ class GraphValue:
 
 def _binary(op: str, a: GraphValue, b: GraphValue, node_id: str) -> GraphValue:
     """Fold a binary node while it stays affine in one texture; beyond
-    that, the exact Expr (dynamic, or raising) beside the affine form."""
+    that, the exact Expr (dynamic, or baked) beside the affine form."""
     if (a.expr is not None or b.expr is not None
             or (a.texture is not None and b.texture is not None)
             or (op == "divide" and b.texture is not None)):
-        expr = _dynamic(Expr(op=op, args=(a.exact, b.exact)),
-                        f"{node_id} (not affine in one texture)")
+        get_logger().info("shader graph: %s is not affine in one texture; baking a "
+                          "composite texture", node_id)
+        expr = Expr(op=op, args=(a.exact, b.exact))
         approx = _binary(op, GraphValue(constant=a.constant, texture=a.texture),
                          GraphValue(constant=b.constant), node_id)
         return dataclasses.replace(approx, expr=expr)
@@ -273,12 +272,13 @@ def _binary(op: str, a: GraphValue, b: GraphValue, node_id: str) -> GraphValue:
 def _mix(fg: GraphValue, bg: GraphValue, mix: GraphValue, node_id: str) -> GraphValue:
     """MaterialX mix: out = fg*mix + bg*(1-mix), affine when at most one
     operand carries a texture and the factor is constant; beyond that,
-    the exact Expr (dynamic, or raising) beside the affine form."""
+    the exact Expr (dynamic, or baked) beside the affine form."""
     if (fg.expr is not None or bg.expr is not None or mix.expr is not None
             or sum(v.texture is not None for v in (fg, bg, mix)) > 1
             or mix.texture is not None):
-        expr = _dynamic(Expr(op="mix", args=(fg.exact, bg.exact, mix.exact)),
-                        f"{node_id} (not affine in one texture)")
+        get_logger().info("shader graph: %s is not affine in one texture; baking a "
+                          "composite texture", node_id)
+        expr = Expr(op="mix", args=(fg.exact, bg.exact, mix.exact))
         approx = _mix(GraphValue(constant=fg.constant, texture=fg.texture),
                       GraphValue(constant=bg.constant), GraphValue(constant=mix.constant),
                       node_id)
@@ -301,10 +301,12 @@ def normalize_shader_id(sid: str) -> str:
 
 
 class GraphLowering:
-    """Recursive evaluator over one material's node dict."""
+    """Recursive evaluator over one material's node dict; `frame` is the
+    value frame and time nodes fold to."""
 
-    def __init__(self, desc) -> None:
+    def __init__(self, desc, frame: float = 0.0) -> None:
         self.desc = desc
+        self.frame = float(frame)
         self._stack: list[str] = []  # cycle guard
 
     def _resolve_path(self, path: str) -> str:
@@ -393,8 +395,8 @@ class GraphLowering:
             hi = ev("high", (1.0, 1.0, 1.0, 1.0)).constant
             const = tuple(min(max(c, l), h) for c, l, h in zip(v.constant, lo, hi))
             if v.texture is not None or v.expr is not None:
-                expr = _dynamic(Expr(op="clamp", args=(v.exact, _const_expr(lo), _const_expr(hi))),
-                                f"clamp@{node.path} over a texture")
+                # clamp is not affine: the exact composite bakes
+                expr = Expr(op="clamp", args=(v.exact, _const_expr(lo), _const_expr(hi)))
                 return GraphValue(constant=const, texture=v.texture, expr=expr)
             return GraphValue(constant=const)
         if sid == "convert":
@@ -425,23 +427,32 @@ class GraphLowering:
         if sid == "dotproduct":
             a, b = ev("in1"), ev("in2")
             d = sum(x * y for x, y in zip(a.constant[:3], b.constant[:3]))
-            return GraphValue(constant=(d, d, d, d), expr=_dynamic(
-                Expr(op="dot", args=(a.exact, b.exact)), f"dotproduct@{node.path}"))
+            return GraphValue(constant=(d, d, d, d),
+                              expr=Expr(op="dot", args=(a.exact, b.exact)))
         if sid == "absval":
             v = ev("in", default, color_hint)
             const = tuple(abs(c) for c in v.constant)
             if v.texture is None and v.expr is None:
                 return GraphValue(constant=const)
-            return GraphValue(constant=const, texture=v.texture, expr=_dynamic(
-                Expr(op="abs", args=(v.exact,)), f"absval@{node.path}"))
+            return GraphValue(constant=const, texture=v.texture,
+                              expr=Expr(op="abs", args=(v.exact,)))
         if sid == "power":
             a = ev("in1", default, color_hint)
             b = ev("in2", (1.0, 1.0, 1.0, 1.0))
             const = tuple(max(x, 0.0) ** y for x, y in zip(a.constant, b.constant))
             if a.texture is None and a.expr is None and b.texture is None and b.expr is None:
                 return GraphValue(constant=const)
-            return GraphValue(constant=const, texture=a.texture, expr=_dynamic(
-                Expr(op="power", args=(a.exact, b.exact)), f"power@{node.path}"))
+            return GraphValue(constant=const, texture=a.texture,
+                              expr=Expr(op="power", args=(a.exact, b.exact)))
+        if sid in ("frame", "time"):
+            # the current frame folds to a constant at lowering; materials
+            # holding these nodes carry traits.is_animated and are lowered
+            # anew when the frame setting changes (the reference's
+            # time-node detection, MtlxMdlCodeGen.cpp:116-144)
+            val = self.frame
+            if sid == "time":
+                val = val / float(node.inputs.get("fps", 24.0) or 24.0)
+            return GraphValue(constant=(val, val, val, val))
         if sid.startswith("UsdPrimvarReader") or sid == "geompropvalue":
             # a named primvar is a dynamic leaf (displayColor from the
             # interpolated vertex colours, instance-rate names from the
@@ -453,7 +464,58 @@ class GraphLowering:
                 return GraphValue(constant=fallback,
                                   expr=Expr(op="primvar", channel=var, const=fallback))
             return GraphValue(constant=fallback)
-        if sid in _BAKED:
-            raise _baked(f"{sid}@{node.path}")
+        if sid == "texcoord":
+            # a bakeable uv leaf: math over texcoord bakes over the texel
+            # grid (the reference reads state::texture_coordinate)
+            return GraphValue(constant=_vec4(node.inputs.get("fallback", default)),
+                              expr=Expr(op="texcoord"))
+        if sid in _PROC_GENERATORS:
+            return self._eval_proc_node(node, sid, ev, color_hint)
         get_logger().debug("shader graph: unhandled node %s (%s)", sid, node.path)
         return GraphValue(constant=_vec4(default))
+
+    def _eval_proc_node(self, node, sid: str, ev, color_hint: bool) -> GraphValue:
+        """A procedural generator -> an Expr leaf for the texture baker.
+        Value inputs (colours, amplitude, pivot) stay Exprs so textured
+        parameters compose; shape scalars (tiling, octaves, jitter) fold
+        into the Expr's const quad."""
+        def c4(name, d):
+            return _vec4(ev(name, _vec4(d)).constant, _vec4(d))
+
+        if sid == "checkerboard":
+            a = ev("in1", (1.0, 1.0, 1.0, 1.0), color_hint)
+            b = ev("in2", (0.0, 0.0, 0.0, 1.0), color_hint)
+            tile = c4("uvtiling", (8.0, 8.0, 0.0, 0.0))
+            off = c4("uvoffset", (0.0, 0.0, 0.0, 0.0))
+            mean = tuple((x + y) / 2 for x, y in zip(a.constant, b.constant))
+            return GraphValue(constant=mean, expr=Expr(
+                op=sid, const=(tile[0], tile[1], off[0], off[1]), args=(a.exact, b.exact)))
+        if sid in ("ramplr", "ramptb"):
+            a_name, b_name = ("valuel", "valuer") if sid == "ramplr" else ("valuet", "valueb")
+            a = ev(a_name, (0.0, 0.0, 0.0, 1.0), color_hint)
+            b = ev(b_name, (1.0, 1.0, 1.0, 1.0), color_hint)
+            mean = tuple((x + y) / 2 for x, y in zip(a.constant, b.constant))
+            return GraphValue(constant=mean, expr=Expr(op=sid, args=(a.exact, b.exact)))
+        if sid == "ramp4":
+            vs = [ev(n, (0.0, 0.0, 0.0, 1.0), color_hint)
+                  for n in ("valuetl", "valuetr", "valuebl", "valuebr")]
+            mean = tuple(sum(v.constant[i] for v in vs) / 4 for i in range(4))
+            return GraphValue(constant=mean, expr=Expr(op=sid, args=tuple(v.exact for v in vs)))
+        if sid in ("noise2d", "noise3d"):
+            amp = ev("amplitude", (1.0, 1.0, 1.0, 1.0))
+            piv = ev("pivot", (0.0, 0.0, 0.0, 0.0))
+            return GraphValue(constant=piv.constant,
+                              expr=Expr(op=sid, args=(amp.exact, piv.exact)))
+        if sid == "fractal3d":
+            amp = ev("amplitude", (1.0, 1.0, 1.0, 1.0))
+            octaves = float(c4("octaves", (3.0,) * 4)[0])
+            lac = float(c4("lacunarity", (2.0,) * 4)[0])
+            dim = float(c4("diminish", (0.5,) * 4)[0])
+            return GraphValue(constant=(0.0, 0.0, 0.0, 0.0), expr=Expr(
+                op=sid, const=(octaves, lac, dim, 0.0), args=(amp.exact,)))
+        if sid in ("cellnoise2d", "cellnoise3d"):
+            return GraphValue(constant=(0.5, 0.5, 0.5, 0.5), expr=Expr(op=sid))
+        # worleynoise2d / worleynoise3d
+        jitter = float(c4("jitter", (1.0,) * 4)[0])
+        return GraphValue(constant=(0.5, 0.5, 0.5, 0.5),
+                          expr=Expr(op=sid, const=(jitter, 0.0, 0.0, 0.0)))

@@ -14,6 +14,13 @@ slot's linear texels in `texels` ([N, 4] f32), sRGB decoded on the host.
 `sample_pool` is plain torch gathers on the pool, on the CPU and on the
 card alike.
 
+A shader-graph composite that is not affine in one texture (render/
+shadergraph.py: two textures in one node, clamp over a texture, texcoord
+math, the procedural generators) is baked on the host into a slot of its
+own (`baked_ref`, `TextureManager._eval_bake`): stored sRGB-encoded as
+8-bit codes when its values lie in [0, 1], so that K4 taps it through
+its 256-entry table; any other value makes the pool float.
+
 UsdUVTexture semantics: wrap modes (black, clamp, repeat, mirror), scale
 and bias applied after the lookup, v up (texel row 0 is the image top).
 """
@@ -29,6 +36,13 @@ import torch
 from gatling_tpu_torch import imgio
 from gatling_tpu_torch.interface import MAX_TEXTURE_COUNT
 from gatling_tpu_torch.utils.log import get_logger
+
+# procedural generator Expr ops baked over a uv grid (render/procedural.py)
+_PROC_OPS = frozenset((
+    "checkerboard", "ramplr", "ramptb", "ramp4", "noise2d", "noise3d",
+    "fractal3d", "cellnoise2d", "cellnoise3d", "worleynoise2d",
+    "worleynoise3d", "texcoord",
+))
 
 WRAP_BLACK = 0
 WRAP_CLAMP = 1
@@ -53,6 +67,10 @@ class TextureRef:
     scale: tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)
     bias: tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
     channel: str = "rgb"  # rgb / r / g / b / a
+    # a non-affine shader-graph subtree (render/shadergraph.py Expr) baked
+    # into this texture's texels at pool build; file_path is then the
+    # synthetic baked:// cache key
+    bake: "object | None" = None
 
 
 class TexturePool(NamedTuple):
@@ -108,6 +126,32 @@ def empty_pool(device="cpu") -> TexturePool:
         bias=torch.zeros((1, 4), device=device), mean=torch.zeros((1, 4), device=device))
 
 
+def baked_ref(expr, channel: str = "rgb") -> TextureRef:
+    """The TextureRef of a non-affine shader-graph composite, baked at pool
+    build (TextureManager._eval_bake; gatling_tpu/render/texture.py
+    baked_ref). Wrap modes come from the first texture leaf; the synthetic
+    baked:// path is the cache key."""
+    import hashlib
+
+    def first_leaf(e):
+        if e.op == "tex":
+            return e.tex
+        for a in e.args:
+            leaf = first_leaf(a)
+            if leaf is not None:
+                return leaf
+        return None
+
+    leaf = first_leaf(expr)
+    key = hashlib.md5(repr(expr).encode()).hexdigest()[:16]
+    return TextureRef(
+        file_path=f"baked://{key}",
+        is_srgb=True,  # an LDR composite is stored sRGB-encoded in the 8-bit pool
+        wrap_s=leaf.wrap_s if leaf is not None else "repeat",
+        wrap_t=leaf.wrap_t if leaf is not None else "repeat",
+        channel=channel, bake=expr)
+
+
 def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
     return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4).astype(np.float32)
 
@@ -120,10 +164,108 @@ class TextureManager:
         # path -> (RGBA f32 as decoded, whether the file is HDR)
         self._raw_cache: dict[str, tuple[np.ndarray, bool]] = {}
 
+    def _resize(self, img: np.ndarray, h: int, w: int) -> np.ndarray:
+        """Bilinear resize [h0, w0, 4] -> [h, w, 4] (a composite of leaves
+        of several resolutions bakes at the largest)."""
+        h0, w0 = img.shape[:2]
+        if (h0, w0) == (h, w):
+            return img
+        ys = (np.arange(h) + 0.5) * h0 / h - 0.5
+        xs = (np.arange(w) + 0.5) * w0 / w - 0.5
+        y0 = np.clip(np.floor(ys).astype(int), 0, h0 - 1)
+        x0 = np.clip(np.floor(xs).astype(int), 0, w0 - 1)
+        y1 = np.minimum(y0 + 1, h0 - 1)
+        x1 = np.minimum(x0 + 1, w0 - 1)
+        fy = np.clip(ys - y0, 0, 1)[:, None, None]
+        fx = np.clip(xs - x0, 0, 1)[None, :, None]
+        a = img[y0][:, x0] * (1 - fx) + img[y0][:, x1] * fx
+        b = img[y1][:, x0] * (1 - fx) + img[y1][:, x1] * fx
+        return (a * (1 - fy) + b * fy).astype(np.float32)
+
+    def _eval_bake(self, expr) -> np.ndarray:
+        """A shader-graph Expr as a LINEAR rgba image on the host (the
+        composite baker of render/shadergraph.py, gatling_tpu/render/
+        texture.py _eval_bake): texture leaves load through the cache with
+        their own sRGB decode and affine, constants broadcast, leaves of
+        several resolutions upsample bilinearly to the largest, generators
+        evaluate over the texel-center uv grid (render/procedural.py)."""
+        if expr.op == "const":
+            return np.asarray(expr.const, np.float32).reshape(1, 1, 4)
+        if expr.op == "tex":
+            ref = expr.tex
+            img = self._load(ref) * np.asarray(ref.scale, np.float32) \
+                + np.asarray(ref.bias, np.float32)
+            if ref.channel in ("r", "g", "b", "a"):
+                i = "rgba".index(ref.channel)
+                img = np.repeat(img[..., i:i + 1], 4, axis=-1)
+            return img.astype(np.float32)
+        from gatling_tpu_torch.render.procedural import PROC_BAKE_RES, eval_generator
+
+        args = [self._eval_bake(a) for a in expr.args]
+        is_proc = expr.op in _PROC_OPS
+        h = max([a.shape[0] for a in args] + ([PROC_BAKE_RES] if is_proc else []))
+        w = max([a.shape[1] for a in args] + ([PROC_BAKE_RES] if is_proc else []))
+        args = [self._resize(a, h, w) if a.shape[:2] != (1, 1) else a for a in args]
+        if is_proc:
+            # texel-center uv grid; v = 0 is the BOTTOM row (sample_pool)
+            u = ((np.arange(w) + 0.5) / w)[None, :] * np.ones((h, 1))
+            v = (1.0 - (np.arange(h) + 0.5) / h)[:, None] * np.ones((1, w))
+            args = [np.broadcast_to(a, (h, w, 4)) for a in args]
+            return eval_generator(expr.op, expr.const, args, u, v)
+        if expr.op == "multiply":
+            return args[0] * args[1]
+        if expr.op == "divide":
+            d = args[1]
+            return np.where(d != 0.0, args[0] / np.where(d != 0.0, d, 1.0), 0.0)
+        if expr.op == "add":
+            return args[0] + args[1]
+        if expr.op == "subtract":
+            return args[0] - args[1]
+        if expr.op == "mix":
+            fg, bg, m = args
+            return fg * m + bg * (1.0 - m)
+        if expr.op == "clamp":
+            return np.clip(args[0], args[1], args[2])
+        if expr.op == "extract":
+            i = "rgba".index(expr.channel)
+            return np.repeat(args[0][..., i:i + 1], 4, axis=-1)
+        raise ValueError(f"unbakeable shader expr op: {expr.op}")
+
+    def _bake_shape(self, expr) -> tuple[int, int, int]:
+        """(H, W, 4) of a baked composite: the largest leaf's resolution."""
+        if expr.op == "tex":
+            img, _hdr = self._load_raw(expr.tex)
+            return (img.shape[0], img.shape[1], 4)
+        if expr.op == "const":
+            return (1, 1, 4)
+        from gatling_tpu_torch.render.procedural import PROC_BAKE_RES
+
+        base = [PROC_BAKE_RES] if expr.op in _PROC_OPS else [1]
+        shapes = [self._bake_shape(a) for a in expr.args]
+        return (max([s[0] for s in shapes] + base), max([s[1] for s in shapes] + base), 4)
+
     def _load_raw(self, ref: TextureRef) -> tuple[np.ndarray, bool]:
         cached = self._raw_cache.get(ref.file_path)
         if cached is not None:
             return cached
+        if ref.bake is not None:
+            # the composite, stored sRGB-encoded and quantized to 8-bit codes
+            # when LDR so that the pool stays 8-bit (ref.is_srgb decodes it
+            # after the tap); an HDR composite keeps its linear floats and
+            # makes the pool float (the JAX package's rule)
+            linear = np.broadcast_to(self._eval_bake(ref.bake),
+                                     self._bake_shape(ref.bake)).copy()
+            if linear.min() >= 0.0 and linear.max() <= 1.0:
+                rgb = linear[..., :3]
+                enc = np.where(rgb <= 0.0031308, rgb * 12.92,
+                               1.055 * np.maximum(rgb, 1e-12) ** (1 / 2.4) - 0.055)
+                raw = np.concatenate([enc, linear[..., 3:]], axis=-1)
+                raw = np.round(np.clip(raw, 0.0, 1.0) * 255.0) / 255.0
+                out = (raw.astype(np.float32), False)
+            else:
+                out = (linear.astype(np.float32), True)
+            self._raw_cache[ref.file_path] = out
+            return out
         try:
             # a plain file read: the JAX package's asset-reader registry
             # (render/assets.py) waits for ROADMAP 'Multi-GPU and front ends'

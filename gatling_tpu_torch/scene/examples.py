@@ -713,3 +713,346 @@ def hdr_floor(desc: SceneDesc, path: str, size: int = 2048, seed: int = 3) -> st
         if node.shader_id == "UsdUVTexture":
             node.inputs["file"] = path
     return path
+
+
+# ---------------------------------------------------------------------------
+# USD content: skinned figures under MaterialX graphs, as a binary package
+# ---------------------------------------------------------------------------
+
+def _fmt(v) -> str:
+    """A value as the f32 it is stored as, written out exactly: the text
+    layer and a crate file of it hold the same numbers."""
+    return repr(float(np.float32(v))).removesuffix(".0")
+
+
+def _tuples(a: np.ndarray) -> str:
+    """[N, k] -> "(a, b, c), ..." in USD text."""
+    return ", ".join("(" + ", ".join(_fmt(x) for x in row) + ")" for row in np.asarray(a))
+
+
+def _flat(a) -> str:
+    return ", ".join(_fmt(x) if isinstance(x, (float, np.floating)) else str(int(x))
+                     for x in np.asarray(a).ravel())
+
+
+def _matrix(m: np.ndarray) -> str:
+    return "(" + ", ".join("(" + ", ".join(_fmt(x) for x in row) + ")" for row in m) + ")"
+
+
+def _quat_x(theta: float) -> tuple[float, float, float, float]:
+    """(w, x, y, z) of a rotation by theta about the bend axis (x)."""
+    return (float(np.cos(theta / 2)), float(np.sin(theta / 2)), 0.0, 0.0)
+
+
+def _tube(rings: int, segments: int, height: float, radius: float):
+    """An open tube along +z: (points [(rings+1)(segments+1), 3], vertex
+    normals, st, face vertex indices of rings x segments quads, wound
+    outwards). The seam column is doubled so that st runs 0 to 1 around
+    it."""
+    i, j = np.meshgrid(np.arange(rings + 1), np.arange(segments + 1), indexing="ij")
+    a = 2.0 * np.pi * j / segments
+    z = height * i / rings
+    pts = np.stack([radius * np.cos(a), radius * np.sin(a), z], -1).reshape(-1, 3)
+    nrm = np.stack([np.cos(a), np.sin(a), np.zeros_like(a)], -1).reshape(-1, 3)
+    st = np.stack([j / segments, i / rings], -1).reshape(-1, 2)
+    v = (np.arange(rings)[:, None] * (segments + 1) + np.arange(segments)[None, :]).ravel()
+    faces = np.stack([v, v + 1, v + segments + 2, v + segments + 1], axis=1)
+    return pts, nrm, st, faces
+
+
+def _figure_weights(rings: int, segments: int, joints: int, k: int = 4):
+    """Each vertex's k joint influences (indices, weights) along the
+    chain: the joints about its height, a tent kernel, normalized."""
+    s = np.repeat(np.arange(rings + 1) * (joints - 1) / rings, segments + 1)
+    base = np.floor(s).astype(np.int64)[:, None] + np.arange(-1, k - 1)[None, :]
+    idx = np.clip(base, 0, joints - 1)
+    w = np.maximum(0.0, 1.5 - np.abs(s[:, None] - base))
+    w = w / w.sum(axis=1, keepdims=True)
+    return idx, w.astype(np.float32)
+
+
+def _png(path: str, rgb: np.ndarray) -> str:
+    rgba = np.concatenate([np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8),
+                           np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    imgio.write_image_file(path, rgba)
+    return os.path.basename(path)
+
+
+def write_content(out_dir: str, figures: int = 16, rings: int = 48, segments: int = 64,
+                  joints: int = 24, tex_res: int = 1024, seed: int = 5) -> str:
+    """USD content of production shape as out_dir/content.usda, its PNG
+    textures beside it; returns the path. `figures` skinned tubes (rings x
+    segments quads each; 16 x 6,144 triangles at the defaults), each bound
+    (SkelBindingAPI) to its own chain Skeleton of `joints` joints with 4
+    influences a vertex (primvars:skel:jointIndices / jointWeights,
+    elementSize 4) and driven by its own SkelAnimation (rotations quatf,
+    translations float3, scales half3, sampled at frames 1-24); figure 0
+    also carries a blend shape. Z is up: a ground plane under an 8-bit
+    tex_res x tex_res PNG (UsdUVTexture), a rect light above it (its
+    unrotated frame emits down) and a camera.
+    Materials are USD-authored MaterialX nodes (info:id ND_*): an
+    ND_checkerboard_color3 base colour with ND_noise2d_float roughness, an
+    ND_multiply_color3 of two image textures (a baked composite), and an
+    ND_frame_float x colour emission on figure 5. Scales are multiples of
+    1/256 (exact in half)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    n = tex_res
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    tile = rng.uniform(0.55, 0.9, (8, 8))[(yy * 8).astype(int), (xx * 8).astype(int)]
+    grout = ((xx * 8) % 1 < 0.03) | ((yy * 8) % 1 < 0.03)
+    ground = np.where(grout[..., None], 0.25, tile[..., None] * np.array([0.9, 0.85, 0.75]))
+    ground_png = _png(os.path.join(out_dir, "ground.png"), ground)
+    m = 256
+    yy, xx = np.mgrid[0:m, 0:m] / m
+    stripes = 0.5 + 0.5 * np.sin(xx * 40.0)[..., None] * np.array([0.8, 0.4, 0.1])
+    grad = np.stack([0.3 + 0.7 * yy, 0.9 - 0.5 * xx, 0.5 + 0.3 * np.cos(yy * 9.0)], -1)
+    a_png = _png(os.path.join(out_dir, "stripes.png"), stripes)
+    b_png = _png(os.path.join(out_dir, "gradient.png"), grad)
+
+    height, radius = 3.0, 0.3
+    pts, nrm, st, faces = _tube(rings, segments, height, radius)
+    idx, w = _figure_weights(rings, segments, joints)
+    seg = height / (joints - 1)
+    names, path = [], ""
+    for k in range(joints):
+        path = f"j{k}" if k == 0 else f"{path}/j{k}"
+        names.append(path)
+    joint_list = ", ".join(f'"{p}"' for p in names)
+    bind = ", ".join(_matrix(np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0],
+                                       [0, 0, k * seg, 1]], np.float64)) for k in range(joints))
+    rest = ", ".join(_matrix(np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0],
+                                       [0, 0, seg if k else 0.0, 1]], np.float64))
+                     for k in range(joints))
+    mesh_attrs = [
+        f"int[] faceVertexCounts = [{', '.join(['4'] * len(faces))}]",
+        f"int[] faceVertexIndices = [{_flat(faces)}]",
+        f"point3f[] points = [{_tuples(pts)}]",
+        f"normal3f[] normals = [{_tuples(nrm)}] (", '    interpolation = "vertex"', ")",
+        f"texCoord2f[] primvars:st = [{_tuples(st)}] (", '    interpolation = "vertex"', ")",
+        f"int[] primvars:skel:jointIndices = [{_flat(idx)}] (", "    elementSize = 4",
+        '    interpolation = "vertex"', ")",
+        f"float[] primvars:skel:jointWeights = [{_flat(w)}] (", "    elementSize = 4",
+        '    interpolation = "vertex"', ")",
+        "uniform bool doubleSided = 1"]
+
+    def block(indent: int, head: str, body: list[str]) -> list[str]:
+        pad = " " * indent
+        return [pad + head, pad + "{", *(pad + "    " + b for b in body), pad + "}"]
+
+    def samples(name: str, rows: list[str]) -> list[str]:
+        return [f"{name}.timeSamples = {{", *(f"    {r}," for r in rows), "}"]
+
+    side = int(np.ceil(np.sqrt(figures)))
+    out = ['#usda 1.0', '(', '    defaultPrim = "World"', '    startTimeCode = 1',
+           '    endTimeCode = 24', '    upAxis = "Z"', ')', '', 'def Xform "World"', '{']
+    frames = np.arange(1, 25)
+    for f in range(figures):
+        x, y = (f % side - (side - 1) / 2) * 2.0, (f // side - (side - 1) / 2) * 2.0
+        phase = rng.uniform(0.0, 2.0 * np.pi)
+        material = "Glow" if f == 5 else ("Checker" if f % 2 == 0 else "Composite")
+        tr = np.zeros((joints, 3))
+        tr[1:, 2] = seg
+        rot, trans, scale, weight = [], [], [], []
+        for t in frames:
+            ang = 0.06 * np.sin(2.0 * np.pi * t / 24.0 + phase + 0.35 * np.arange(joints))
+            sx = 1.0 + np.round(0.08 * np.sin(2.0 * np.pi * t / 24.0 + np.arange(joints))
+                                * 256.0) / 256.0
+            rot.append(f"{t}: [{_tuples([_quat_x(a) for a in ang])}]")
+            trans.append(f"{t}: [{_tuples(tr)}]")
+            scale.append(f"{t}: [{_tuples(np.stack([sx, sx, np.ones(joints)], -1))}]")
+            weight.append(f"{t}: [{_fmt(0.5 + 0.5 * np.sin(2.0 * np.pi * t / 24.0))}]")
+        anim = [f"uniform token[] joints = [{joint_list}]",
+                *samples("float3[] translations", trans), *samples("quatf[] rotations", rot),
+                *samples("half3[] scales", scale)]
+        mesh = [f"rel skel:skeleton = </World/Fig{f}/Skel>",
+                f"rel material:binding = </World/Looks/{material}>", *mesh_attrs]
+        if f == 0:  # a blend shape: a bulge about the middle third
+            ring = np.repeat(np.arange(rings + 1), segments + 1)
+            sel = np.nonzero(np.abs(ring - rings / 2) < rings / 6)[0]
+            bump = np.cos((ring[sel] - rings / 2) / (rings / 6) * np.pi / 2)[:, None]
+            anim += ['uniform token[] blendShapes = ["bulge"]',
+                     *samples("float[] blendShapeWeights", weight)]
+            mesh += ['uniform token[] skel:blendShapes = ["bulge"]',
+                     f"rel skel:blendShapeTargets = [</World/Fig{f}/Tube/Bulge>]",
+                     *block(0, 'def BlendShape "Bulge"', [
+                         f"uniform vector3f[] offsets = [{_tuples(0.15 * bump * nrm[sel])}]",
+                         f"uniform int[] pointIndices = [{_flat(sel)}]"])]
+        skel = [f"uniform token[] joints = [{joint_list}]",
+                f"uniform matrix4d[] bindTransforms = [{bind}]",
+                f"uniform matrix4d[] restTransforms = [{rest}]",
+                f"rel skel:animationSource = </World/Fig{f}/Skel/Anim>",
+                *block(0, 'def SkelAnimation "Anim"', anim)]
+        out += block(4, f'def SkelRoot "Fig{f}"', [
+            f"double3 xformOp:translate = ({_fmt(x)}, {_fmt(y)}, 0)",
+            'uniform token[] xformOpOrder = ["xformOp:translate"]',
+            *block(0, 'def Skeleton "Skel" (\n            prepend apiSchemas = ["SkelBindingAPI"]'
+                   '\n        )', skel),
+            *block(0, 'def Mesh "Tube" (\n            prepend apiSchemas = ["SkelBindingAPI"]'
+                   '\n        )', mesh)])
+    out = ["\n".join(out) + "\n"]
+    out.append(f'''    def Mesh "Ground"
+    {{
+        int[] faceVertexCounts = [4]
+        int[] faceVertexIndices = [0, 1, 2, 3]
+        point3f[] points = [(-7, -7, 0), (7, -7, 0), (7, 7, 0), (-7, 7, 0)]
+        texCoord2f[] primvars:st = [(0, 0), (0, 4), (4, 4), (4, 0)] (
+            interpolation = "vertex"
+        )
+        rel material:binding = </World/Looks/Ground>
+    }}
+    def RectLight "Key"
+    {{
+        double3 xformOp:translate = (0, 0, 7)
+        uniform token[] xformOpOrder = ["xformOp:translate"]
+        float inputs:width = 5
+        float inputs:height = 5
+        float inputs:intensity = 12
+    }}
+    def Xform "CamX"
+    {{
+        matrix4d xformOp:transform = ( (1, 0, 0, 0), (0, 0.1874, 0.9823, 0),
+            (0, -0.9823, 0.1874, 0), (0, -11, 3.6, 1) )
+        uniform token[] xformOpOrder = ["xformOp:transform"]
+        def Camera "Cam"
+        {{
+            float focalLength = 30
+            float verticalAperture = 20.955
+            float horizontalAperture = 20.955
+            float2 clippingRange = (0.5, 100)
+        }}
+    }}
+    def Scope "Looks"
+    {{
+        def Material "Checker"
+        {{
+            token outputs:surface.connect = </World/Looks/Checker/s.outputs:surface>
+            def Shader "s"
+            {{
+                uniform token info:id = "UsdPreviewSurface"
+                color3f inputs:diffuseColor.connect = </World/Looks/Checker/checker.outputs:out>
+                float inputs:roughness.connect = </World/Looks/Checker/noise.outputs:out>
+                token outputs:surface
+            }}
+            def Shader "checker"
+            {{
+                uniform token info:id = "ND_checkerboard_color3"
+                color3f inputs:in1 = (0.8, 0.25, 0.1)
+                color3f inputs:in2 = (0.9, 0.85, 0.7)
+                float2 inputs:uvtiling = (8, 6)
+                color3f outputs:out
+            }}
+            def Shader "noise"
+            {{
+                uniform token info:id = "ND_noise2d_float"
+                float inputs:amplitude = 0.25
+                float inputs:pivot = 0.45
+                float outputs:out
+            }}
+        }}
+        def Material "Composite"
+        {{
+            token outputs:surface.connect = </World/Looks/Composite/s.outputs:surface>
+            def Shader "s"
+            {{
+                uniform token info:id = "UsdPreviewSurface"
+                color3f inputs:diffuseColor.connect = </World/Looks/Composite/mul.outputs:out>
+                float inputs:roughness = 0.4
+                token outputs:surface
+            }}
+            def Shader "mul"
+            {{
+                uniform token info:id = "ND_multiply_color3"
+                color3f inputs:in1.connect = </World/Looks/Composite/a.outputs:out>
+                color3f inputs:in2.connect = </World/Looks/Composite/b.outputs:out>
+                color3f outputs:out
+            }}
+            def Shader "a"
+            {{
+                uniform token info:id = "ND_image_color3"
+                asset inputs:file = @{a_png}@
+                color3f outputs:out
+            }}
+            def Shader "b"
+            {{
+                uniform token info:id = "ND_image_color3"
+                asset inputs:file = @{b_png}@
+                color3f outputs:out
+            }}
+        }}
+        def Material "Glow"
+        {{
+            token outputs:surface.connect = </World/Looks/Glow/s.outputs:surface>
+            def Shader "s"
+            {{
+                uniform token info:id = "UsdPreviewSurface"
+                color3f inputs:diffuseColor = (0.2, 0.2, 0.25)
+                color3f inputs:emissiveColor.connect = </World/Looks/Glow/glow.outputs:out>
+                token outputs:surface
+            }}
+            def Shader "glow"
+            {{
+                uniform token info:id = "ND_multiply_color3"
+                float inputs:in1.connect = </World/Looks/Glow/frame.outputs:out>
+                color3f inputs:in2 = (0.05, 0.04, 0.02)
+                color3f outputs:out
+            }}
+            def Shader "frame"
+            {{
+                uniform token info:id = "ND_frame_float"
+                float outputs:out
+            }}
+        }}
+        def Material "Ground"
+        {{
+            token outputs:surface.connect = </World/Looks/Ground/s.outputs:surface>
+            def Shader "s"
+            {{
+                uniform token info:id = "UsdPreviewSurface"
+                color3f inputs:diffuseColor.connect = </World/Looks/Ground/tex.outputs:rgb>
+                float inputs:roughness = 0.7
+                token outputs:surface
+            }}
+            def Shader "tex"
+            {{
+                uniform token info:id = "UsdUVTexture"
+                asset inputs:file = @{ground_png}@
+                token inputs:wrapS = "repeat"
+                token inputs:wrapT = "repeat"
+                float3 outputs:rgb
+            }}
+        }}
+    }}
+}}
+''')
+    path = os.path.join(out_dir, "content.usda")
+    with open(path, "w") as fh:
+        fh.write("".join(out))
+    return path
+
+
+def pack_usdz(usda_path: str, usdz_path: str) -> dict:
+    """The text layer as a binary package: parsed with load_usda, saved as
+    a crate file with save_usdc beside it, zipped (stored, as USDZ wants)
+    with the textures it names into usdz_path. Returns the host seconds of
+    each step and the crate file's path and size."""
+    import time
+    import zipfile
+
+    from gatling_tpu_torch.scene.crate import save_usdc
+    from gatling_tpu_torch.scene.usda import load_usda
+
+    t0 = time.perf_counter()
+    stage = load_usda(usda_path)
+    t1 = time.perf_counter()
+    usdc = os.path.splitext(usda_path)[0] + ".usdc"
+    save_usdc(stage, usdc)
+    t2 = time.perf_counter()
+    text = Path(usda_path).read_text()
+    assets = sorted(set(re.findall(r"@([^@]+\.png)@", text)))
+    with zipfile.ZipFile(usdz_path, "w", zipfile.ZIP_STORED) as zf:
+        zf.write(usdc, os.path.basename(usdc))
+        for a in assets:
+            zf.write(os.path.join(os.path.dirname(usda_path), a), a)
+    return dict(parse_s=t1 - t0, save_s=t2 - t1, zip_s=time.perf_counter() - t2, usdc=usdc,
+                usdc_bytes=os.path.getsize(usdc), stage=stage)

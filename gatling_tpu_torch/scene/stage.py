@@ -392,7 +392,8 @@ def _display_color_material(prim: Prim, vertex_colors: bool = False
     return MaterialDesc(path=path, surface_node=node.path, nodes={node.path: node})
 
 
-def _build_mesh(prim: Prim, world: np.ndarray, object_id: int) -> MeshDesc | None:
+def _build_mesh(prim: Prim, world: np.ndarray, object_id: int,
+                stage: "Stage | None" = None) -> MeshDesc | None:
     points = _attr_val(prim, "points")
     counts = _attr_val(prim, "faceVertexCounts")
     indices = _attr_val(prim, "faceVertexIndices")
@@ -407,12 +408,20 @@ def _build_mesh(prim: Prim, world: np.ndarray, object_id: int) -> MeshDesc | Non
         # USD default interpolation for normals is vertex
         n_interp = meshproc.Interpolation.VERTEX
 
-    if ("primvars:skel:jointIndices" in prim.attrs
-            or "primvars:skel:jointWeights" in prim.attrs):
-        # UsdSkel linear-blend skinning at load is not carried over yet
-        raise NotImplementedError(
-            f"{prim.path}: skinned meshes are not ported yet "
-            "(ROADMAP: 'USD content')")
+    if stage is not None:
+        # UsdSkel LBS at the resolved frame (the extComputation-points
+        # analog, hdGatling mesh.cpp:852-890; scene/skel.py)
+        from gatling_tpu_torch.scene import skel as _skel
+
+        corner_idx = (np.asarray(indices, np.int64)
+                      if n_interp == meshproc.Interpolation.FACE_VARYING
+                      else None)
+        points, sk_normals, skinned = _skel.maybe_skin_mesh(
+            stage, prim, points, normals, corner_idx)
+        if skinned:
+            normals = sk_normals
+            if normals is None:
+                n_interp = meshproc.Interpolation.FACE_VARYING
 
     uv_attr = None
     for uv_name in ("primvars:st", "primvars:uv", "primvars:UVMap", "primvars:st0"):
@@ -505,7 +514,8 @@ def build_scene(stage: Stage) -> SceneDesc:
     def add_mesh_prim(prim: Prim, world: np.ndarray,
                       instance_transforms: np.ndarray | None = None,
                       instance_primvars: dict | None = None) -> None:
-        mesh = _build_mesh(prim, world, object_id=len(scene.meshes))
+        mesh = _build_mesh(prim, world, object_id=len(scene.meshes),
+                           stage=stage)
         if mesh is None:
             return
         mesh.instance_transforms = instance_transforms

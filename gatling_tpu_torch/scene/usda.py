@@ -551,9 +551,11 @@ def load_usd(path: str | os.PathLike, compose: bool = True,
     if head[:4] == b"PK\x03\x04":
         stage = _load_usdz(path, compose)
     elif head == b"PXR-USDC":
-        raise NotImplementedError(
-            f"{path}: binary .usdc scenes are not ported yet "
-            "(ROADMAP: 'USD content')")
+        from gatling_tpu_torch.scene.crate import read_usdc
+
+        with open(path, "rb") as f:
+            stage = read_usdc(f.read(), path=path)
+        stage = compose_stage(stage) if compose else stage
     else:
         stage = load_usda(path, compose=compose)
     if frame is not None:

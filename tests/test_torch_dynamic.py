@@ -18,7 +18,9 @@ Inputs are made with numpy from seeds and handed to both packages:
    primvar read into the base colour; a bound material with its own
    colour): the same parameters bit for bit, the same `dynamic` keys, and
    expressions that evaluate equal, as in 1.;
-3. a static composite still raises naming 'USD content'; gi's route: a
+3. a static composite lowers to the JAX package's baked slot request
+   (abs and dot, which its baker does not evaluate, raise at the pool
+   build in both); gi's route: a
    dynamic input takes the wavefront, one whose primvar no mesh carries
    stays static (the fused kernels), a displayColor read counts as vertex
    colours;
@@ -179,19 +181,38 @@ def test_lower_material_dynamic_matches_jax(case):
 
 
 def test_static_composites_still_raise():
-    """What the JAX package bakes into a composite texture raises naming
-    'USD content': two textures in one multiply, abs over a texture; a
-    dot of two constants is a static composite too."""
+    """What the JAX package bakes into a composite texture lowers as there:
+    two textures in one multiply, abs over a texture and a dot of two
+    constants become a baked slot's request; the multiply builds the JAX
+    pool bit for bit, and abs and dot, which the JAX baker does not
+    evaluate, raise its ValueError at the pool build in both packages.
+    (The name dates from when these raised at lowering.)"""
     tex = ("tex", "UsdUVTexture", {"file": "a.png"}, {})
     tex2 = ("tex2", "UsdUVTexture", {"file": "b.png"}, {})
-    for spec in ([("s", "UsdPreviewSurface", {}, {"diffuseColor": "mul"}),
-                  ("mul", "ND_multiply_color3", {}, {"in1": "tex", "in2": "tex2"}), tex, tex2],
-                 [("s", "UsdPreviewSurface", {}, {"roughness": "abs"}),
-                  ("abs", "ND_absval_float", {}, {"in": "tex"}), tex],
-                 [("s", "UsdPreviewSurface", {}, {"roughness": "dot"}),
-                  ("dot", "ND_dotproduct_vector3", {"in1": (1, 0, 0), "in2": (0, 1, 0)}, {})]):
-        with pytest.raises(NotImplementedError, match="USD content"):
-            tmat.lower_material(_material(stage, "/m", spec))
+    for spec, param, op in (
+            ([("s", "UsdPreviewSurface", {}, {"diffuseColor": "mul"}),
+              ("mul", "ND_multiply_color3", {}, {"in1": "tex", "in2": "tex2"}), tex, tex2],
+             "base_color", "multiply"),
+            ([("s", "UsdPreviewSurface", {}, {"roughness": "abs"}),
+              ("abs", "ND_absval_float", {}, {"in": "tex"}), tex], "roughness", "abs"),
+            ([("s", "UsdPreviewSurface", {}, {"roughness": "dot"}),
+              ("dot", "ND_dotproduct_vector3", {"in1": (1, 0, 0), "in2": (0, 1, 0)}, {})],
+             "roughness", "dot")):
+        jrow = jmat.lower_material(_material(jstage, "/m", spec))
+        trow = tmat.lower_material(_material(stage, "/m", spec))
+        ref, jref = trow.textures[param], jrow.textures[param]
+        assert ref.bake.op == jref.bake.op == op and not trow.dynamic and not jrow.dynamic
+        assert ref.file_path.startswith("baked://") and jref.file_path.startswith("baked://")
+        if op == "multiply":
+            jt, jp = jmat.build_materials([jrow])
+            tt, tp = tmat.build_materials([trow])
+            np.testing.assert_array_equal(tt.packed_f, np.asarray(jt.packed_f))
+            np.testing.assert_array_equal(tp.texels_u32.numpy().view(np.uint32),
+                                          np.asarray(jp.texels_u32))
+            continue
+        for lib in (jmat, tmat):
+            with pytest.raises(ValueError, match=f"unbakeable shader expr op: {op}"):
+                lib.build_materials([jrow if lib is jmat else trow])
 
 
 def _quad_scene(material, colors=None):

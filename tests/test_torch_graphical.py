@@ -8,13 +8,14 @@ reference PNGs at the scene's own gtl:errorPixelThreshold and
 gtl:flipThreshold. Each scene's expectation:
 
 * the route it renders on: the fused kernels (Camera.ClippingPlanes
-  through the bounce-0 peel, MaterialX.ColorSpaces, Render.Empty1x1) or the
+  through the bounce-0 peel, MaterialX.ColorSpaces, Render.Empty1x1,
+  Materials.MtlxFrame's ND_frame_float-driven emission at frame 60,
+  Mesh.Skinned's UsdSkel mesh at frame 2 with its ALBEDO through the
+  peel) or the
   wavefront (an AOV outside the fused set: Lights.Analytic's NEE,
   Render.AOVs' ids; Mesh.PrimvarInterpolation's vertex colours;
   Materials.MtlxViewDirection's emission, a view- and normal-dependent
   input evaluated per hit), which must pass both thresholds;
-* Materials.MtlxFrame and Mesh.Skinned raise the NotImplementedError that
-  names their ROADMAP item;
 * Materials.GlassCoated's 48 spp take minutes through the twins on the
   CPU, so it is held on the card only (`requires_cuda`; chip_smoke.py's
   goldens phase and golden_glass_coated): its reference is a wavefront
@@ -45,10 +46,10 @@ ROUTES = {
     "Lights.Analytic": "wavefront",
     "MaterialX.ColorSpaces": "fused",
     "Materials.GlassCoated": "card",
-    "Materials.MtlxFrame": "USD content",
+    "Materials.MtlxFrame": "fused",
     "Materials.MtlxViewDirection": "wavefront",
     "Mesh.PrimvarInterpolation": "wavefront",
-    "Mesh.Skinned": "USD content",
+    "Mesh.Skinned": "fused",
     "Render.AOVs": "wavefront",
     "Render.Empty1x1": "fused",
 }
@@ -79,10 +80,6 @@ def _check_goldens(name, device, tmp_path):
     for n in SCENES])
 def test_graphical_scene_matches_reference(name, tmp_path):
     route = ROUTES[name]
-    if route == "USD content":
-        with pytest.raises(NotImplementedError, match="USD content"):
-            testing.run_graphical_test(GRAPHICAL / name / "scene.usda", tmp_path, "cpu")
-        return
     if route == "card":
         if not torch.cuda.is_available():
             pytest.skip("48 spp through the twins take minutes on the CPU: held on the card "

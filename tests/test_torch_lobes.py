@@ -179,8 +179,14 @@ def test_lower_material_glass_coated_matches_jax():
 
 
 def test_unknown_surface_raises():
-    with pytest.raises(NotImplementedError, match="USD content"):
-        tmat.lower_material(_surface(TORCH, "ND_surface_unlit", {}))
+    """An unknown surface shader (a MaterialX document's lama_surface, USD's
+    ND_surface_unlit) lowers as the JAX package lowers it: the default
+    parameters, logged. (The name dates from when the port raised.)"""
+    for sid in ("ND_surface_unlit", "lama_surface"):
+        got = tmat.lower_material(_surface(TORCH, sid, {"base_color": (0.9, 0.1, 0.1)}))
+        want = jmat.lower_material(_surface(JAX, sid, {"base_color": (0.9, 0.1, 0.1)}))
+        assert got.params == want.params == tmat.lower_material(None).params
+        assert not got.textures and not want.textures
 
 
 # ---------------------------------------------------------------------------

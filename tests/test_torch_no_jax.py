@@ -4,8 +4,10 @@ toolkit only): in a fresh interpreter that cannot import them, every
 module of gatling_tpu_torch imports, and 8x8 frames of the Cornell box, of
 an instanced scene and of the textured interior (its PNG textures written
 and decoded by the port) render on the CPU, the interior also through
-the wavefront integrator, and a Cornell box with an MDL fog volume (the
-port's own MDL front end) in the fused scatter mode."""
+the wavefront integrator, a Cornell box with an MDL fog volume (the
+port's own MDL front end) in the fused scatter mode, and USD content: a
+.usdz of a crate layer the port wrote, with UsdSkel figures and MaterialX
+graphs it bakes (and a MaterialX document through its own nodedefs)."""
 
 import os
 import subprocess
@@ -68,6 +70,17 @@ from gatling_tpu_torch.scene.examples import cornell_fog  # an MDL medium: the s
 img, scene = render_scene_file(cornell_fog(tempfile.mkdtemp()), 8, 8,
                                {"spp": 1, "maxBounces": 3, "mediumStackSize": 1}, device="cpu")
 assert scene._fused.volumes == 2 and img[..., :3].max() > 0.0
+from gatling_tpu_torch.scene.examples import pack_usdz, write_content  # USD content
+d = tempfile.mkdtemp()
+pack_usdz(write_content(d, figures=6, rings=8, segments=12, joints=6, tex_res=32),
+          d + "/content.usdz")
+img, scene = render_scene_file(d + "/content.usdz", 8, 8,
+                               {"spp": 1, "maxBounces": 2, "frame": 12.0}, device="cpu")
+assert scene._texture_pool.count == 4 and img[..., :3].max() > 0.0
+assert any(m.traits.is_animated for m in scene._lowered_materials)
+from gatling_tpu_torch.render.mtlx import parse_mtlx
+assert parse_mtlx('<materialx><open_pbr_surface name="s" type="surfaceshader"/></materialx>',
+                  name="m").nodes["/m/s"].inputs["specular_roughness"] == 0.3
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")

@@ -377,9 +377,9 @@ def test_gi_textured_routes(tex_dir):
 
 @pytest.mark.parametrize("what", ["opacity_texture", "anisotropy", "procedural"])
 def test_gi_textured_gates_raise(tex_dir, what):
-    """The gates of a textured scene: a procedural input raises, naming its
-    ROADMAP item; an opacity texture and an anisotropic material render on
-    the fused route. (The name dates from when all three raised; it is
+    """The gates of a textured scene: a procedural input (baked into a pool
+    slot of its own), an opacity texture and an anisotropic material render
+    on the fused route. (The name dates from when all three raised; it is
     kept so that the cases' records run on.)"""
     desc = tex.interior(detail=1, tex_dir=str(tex_dir))
     m = next(iter(desc.materials.values()))
@@ -416,10 +416,12 @@ def test_gi_textured_gates_raise(tex_dir, what):
         assert st.textured and st.cutout_textured and "opacity" in st.textured_params
         assert scene._fused is not None and scene._accel is None
         return
-    else:
-        m.nodes["/noise"] = type(surf)(path="/noise", shader_id="ND_noise2d_color3", inputs={},
-                                       input_connections={})
-        surf.input_connections["roughness"] = ("/noise", "out")
-        item = "USD content"
-    with pytest.raises(NotImplementedError, match=item):
-        _gi_frame(_gi_scene(desc), desc, 8, spp=1, maxBounces=2)
+    m.nodes["/noise"] = type(surf)(path="/noise", shader_id="ND_noise2d_color3", inputs={},
+                                   input_connections={})
+    surf.input_connections["roughness"] = ("/noise", "out")
+    scene = _gi_scene(desc)
+    img = _gi_frame(scene, desc, 8, spp=1, maxBounces=2)
+    st = scene._fused_static
+    # perlin noise about 0 reaches below 0: an HDR composite, the float pool
+    assert np.isfinite(img).all() and st.textured and "roughness" in st.textured_params
+    assert not scene._texture_pool.packed and scene._fused is not None

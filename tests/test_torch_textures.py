@@ -279,18 +279,26 @@ def test_graphs_beyond_one_affine_texture_raise(texture_files, what):
         "primvar": {"out": ("UsdPrimvarReader_float3", {"varname": "displayColor"}, {})},
         "noise": {"out": ("noise2d", {}, {})},
     }[what]
+    # (The name dates from when these raised; it is kept so that the
+    # test's record runs on.)
+    row = tmat.lower_material(_network(tstage, "/m", {}, {"diffuseColor": ("out", "out")},
+                                       nodes))
+    jrow = jmat.lower_material(_network(jstage, "/m", {}, {"diffuseColor": ("out", "out")},
+                                        nodes))
     if what in ("viewdirection", "primvar"):
         # a view- or primvar-dependent input lowers to the per-hit
         # expression the wavefront evaluates, as the JAX package's does
-        row = tmat.lower_material(_network(tstage, "/m", {}, {"diffuseColor": ("out", "out")},
-                                           nodes))
-        jrow = jmat.lower_material(_network(jstage, "/m", {}, {"diffuseColor": ("out", "out")},
-                                            nodes))
         assert row.dynamic["base_color"].op == {"viewdirection": "viewdir"}.get(what, what)
         assert set(row.dynamic) == set(jrow.dynamic) == {"base_color"}
         return
-    with pytest.raises(NotImplementedError, match="USD content"):
-        tmat.lower_material(_network(tstage, "/m", {}, {"diffuseColor": ("out", "out")}, nodes))
+    # a static composite (two textures in one node, a procedural generator)
+    # bakes into a pool slot of its own, as the JAX package's does: the
+    # tables and the pool bit for bit
+    ref = row.textures["base_color"]
+    assert ref.file_path.startswith("baked://") and ref.bake.op == {
+        "two_textures": "multiply"}.get(what, "noise2d")
+    assert not row.dynamic and not jrow.dynamic
+    _check_tables(*jmat.build_materials([jrow]), *tmat.build_materials([row]))
 
 
 def _pools(texture_files, wrap_s, wrap_t, srgb):
