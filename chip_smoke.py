@@ -12,8 +12,10 @@ fails, with a non-zero exit, if any phase fails:
    taps alone K4t; both also in FLT instances over a float texel pool) are
    built from gatling_tpu_torch/csrc/bounce.cu (in fifteen nvcc parts), K5-K8 and
    B1/B2 (the wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
-   csrc/probes.cu, every nvcc run at once; one line a kernel instance of
-   ptxas' registers, stack and spills;
+   csrc/probes.cu, every nvcc run at once, and with them the native host
+   library from csrc/gatling_native.cpp (g++: the threaded-BVH build,
+   lz4, the image codecs' loops); one line a kernel instance of ptxas'
+   registers, stack and spills;
 3. K1 against its plain twin (ops/bounce_ref.py) on the card, through
    the wrapper the main path calls (ops/bounce.py bounce_step), on the ray
    waves the main path builds: Cornell 1200x1200 x 2 samples (2.88M rays,
@@ -226,6 +228,27 @@ fails, with a non-zero exit, if any phase fails:
    a frame-13 render that lowers the animated material alone (its
    emission 13 x in2 exactly, the pool and fused tables kept); then K3 and
    K4 on the bounce-0 wave against their twins, timed with their bounds;
+4n. formats (phase_formats): (a) every image fixture of tests/data/imgio
+   (JPEG baseline 4:2:0 / 4:2:2 / 4:4:4, with restarts, progressive and
+   grey; TGA raw and run-length; TIFF LZW with predictor 2, 16-bit
+   Deflate and float; PNG interlaced, 16-bit RGB, 16-bit grey and 1-bit)
+   decoded on the card's host, bit-equal to fixtures.npz (Pillow's arrays,
+   written where Pillow runs); (b) the textured interior at 512x512, 4
+   spp, 6 bounces, NEE, its materials' base colours eight 8-bit fixtures
+   of eight formats, bit-equal to the frame whose textures are PNGs of
+   the port's decoded codes, K3 and K4 on its bounce-0 wave against their
+   twins; (c) the interior with the 16-bit grey PNG as every material's
+   roughness (a float pool): 6 K4f launches a frame, K3 and K4f on its
+   bounce-0 wave against their twins, its 128x128 frame against the
+   wavefront's (MEAN_SIGMAS); (d) the content scene with its 1024^2 ground
+   a JPEG written by the port: the ground's decode and the pool build on
+   the host, the frame; (e) the threaded BVHs of 4l's interior_aovs and
+   sphere_field_aovs, built by the native library, against build_bvh_ref
+   array for array, both timed; (f) 4m's crate file in the exporters'
+   layout read through the native lz4, every block against the
+   pure-Python twin's bytes, both timed; (g) (b)'s interior with its
+   textures served by a registered in-memory asset reader, bit-equal to
+   (b);
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -246,8 +269,8 @@ P. the probes P1 (the six layout moves in one launch, a block a move,
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
-cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's and 4m's
-frames beside K3's, K4's and K4t's entries; B1 and B2: interior_aovs', with
+cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's and
+4n's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -2197,9 +2220,22 @@ def phase_threaded(device, tex_dir: str, sf):
             ("sphere_field_aovs", desc_params(device, sf[0], SF_RES, dict(
                 spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=True), every_aov=True))):
         desc = f"{label} {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces nee, every AOV"
-        t0 = time.perf_counter()
-        build = timed_accel_build(params, desc + " (first frame)")
-        first = time.perf_counter() - t0
+        native_builds, real_build = [], gi.build_bvh
+
+        def capture_build(v0, e1, e2, *args, _real=real_build, _into=native_builds):
+            t0 = time.perf_counter()
+            tree = _real(v0, e1, e2, *args)
+            _into.append(((np.asarray(v0), np.asarray(e1), np.asarray(e2)), tree,
+                          time.perf_counter() - t0))
+            return tree
+
+        gi.build_bvh = capture_build  # the native build and its soup, for 4n (e)
+        try:
+            t0 = time.perf_counter()
+            build = timed_accel_build(params, desc + " (first frame)")
+            first = time.perf_counter() - t0
+        finally:
+            gi.build_bvh = real_build
         scene = params.scene
         log(f"{label}: {scene._geom.num_triangles} triangles (padded), the threaded BVH's "
             f"{scene._accel.bvh.num_nodes} nodes built with the reorder and the device rows in "
@@ -2214,7 +2250,7 @@ def phase_threaded(device, tex_dir: str, sf):
         check_aovs(aovs, params, label)
         out[label] = dict(build_s=build, first_frame_s=first, warm_frame_s=dt,
                           triangles=scene._geom.num_triangles,
-                          nodes=scene._accel.bvh.num_nodes)
+                          nodes=scene._accel.bvh.num_nodes, native_bvh=native_builds[0])
         launches_by[label] = {k: launches[k] for k in ("B1", "B2")}
         recorded = record_waves(params)
         if label == "sphere_field_aovs":
@@ -2393,10 +2429,12 @@ THREADED_ENTRIES = {
 }
 
 
-def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict) -> dict:
+def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict,
+                   formats: dict) -> dict:
     """The kernels-line entry of B1 or B2: the headline numbers on
     interior_aovs' bounce-0 wave (its launches a warm frame), the other
-    waves by case, K5's or K6's time beside it on interior_aovs_small."""
+    waves by case, K5's or K6's time beside it on interior_aovs_small; the
+    trees' host builds (4l, the native library) and 4n's NumPy twin's."""
     name, replaces = THREADED_ENTRIES[kernel]
     head = times[(kernel, "interior_aovs", 0)]
     cases = {f"{label}/bounce {b}": r for (k, label, b), r in sorted(times.items())
@@ -2418,6 +2456,8 @@ def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict) -> di
         ("k5_ms_by_case" if kernel == "B1" else "k6_ms_by_case"): {
             c: r["k5_ms"] for c, r in cases.items() if "k5_ms" in r},
         "bvh_build_s": {label: f["build_s"] for label, f in frames.items() if "build_s" in f},
+        "bvh_build_native_s": {k: v["native_s"] for k, v in formats["bvh"].items()},
+        "bvh_build_numpy_twin_s": {k: v["twin_s"] for k, v in formats["bvh"].items()},
     }
 
 
@@ -4122,12 +4162,13 @@ def phase_dome(device, tex_dir: str):
     return frames, launches, replay, tap_waves, passes
 
 
-def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict) -> list[dict]:
+def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
+                formats: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
-    instance on cornell_hdr_textured's beside it), K4t on
-    interior_hdr_first_hit's peel wave (with TAP_OPACITY beside it);
-    launches per frame of 4k."""
+    instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
+    K4t on interior_hdr_first_hit's peel wave (with TAP_OPACITY beside
+    it); launches per frame of 4k."""
     r, c = branch["interior_hdr_textured"], branch["cornell_hdr_textured"]
     t, o = taps["interior_hdr_first_hit"], taps["interior_hdr_opacity"]
     return [{
@@ -4146,6 +4187,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict) -> lis
         "ms_resident_cornell_hdr": c["ms"], "plain_ms_resident_cornell_hdr": c["plain_ms"],
         "bound_ms_resident_cornell_hdr": c["bound"][0],
         "distinct_texel_rows_resident_cornell_hdr": c["k4_texels"],
+        "formats": formats_entry(formats, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -4264,6 +4306,51 @@ class HostTimers:
         return False
 
 
+def split_parity(device, params, res: int, label: str) -> dict:
+    """K3 and K4 (its FLT instance over a float pool) on the bounce-0 wave
+    of a split frame gi.render rendered (NEE on): H_HIT/H_MAT and rows
+    12-15 bit-equal to their twins on every ray, then both timed with
+    their bounds."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import trace_ref
+
+    fs, static, mats, tpool, active = split_tables(params)
+    wave = wave_state(params.camera, res, res, SF_SPP, device, tiled=True)
+    p0 = params_row(0, device)
+    hit = trace_ref(p0, fs.tris, wave, fs.walk)
+    twin = wave.clone()
+    split_twin(p0, fs, twin, hit, mats, tpool, active, True)
+    got_hit = tb.trace_step(p0, fs, wave)
+    got = wave.clone()
+    tb.shade_step(p0, fs, got, hit, mats, tpool, active, True)
+    torch.cuda.synchronize()
+    hb, ho, n, herr = compare_hits(got_hit, hit)
+    sb, so, _n, serr = compare(got, twin)
+    k4 = "K4" if tpool.packed else "K4f"
+    log(f"parity {label} nee=True bounce 0: K3 {hb} rays with H_HIT/H_MAT not bit-equal, {ho} "
+        f"of {n} outside rtol {RTOL}/atol {ATOL}, max abs err {herr:.3g}; {k4} {sb} rays with "
+        f"rows 12-15 not bit-equal, {so} outside on rows 0-11, max abs err {serr:.3g}")
+    assert hb == 0 and sb == 0 and ho <= n * (1 - MIN_AGREE) and so <= n * (1 - MIN_AGREE)
+    work = cluster_walk_work(p0, fs, wave, False)
+    k4_bound, k4_work, texels = k4_bound_ms(p0, fs, wave, hit, mats, tpool, active, True)
+    t = dict(k3=time_ms(lambda s: tb.trace_step(p0, fs, s), wave),
+             k3_twin=time_ms(lambda s: trace_ref(p0, fs.tris, s, fs.walk), wave, reps=2),
+             k4=time_ms(lambda s: tb.shade_step(p0, fs, s, hit, mats, tpool, active, True), wave),
+             k4_twin=time_ms(lambda s: split_twin(p0, fs, s, hit, mats, tpool, active, True),
+                             wave, reps=2),
+             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work), k4_bound=k4_bound,
+             k3_err=herr, k4_err=serr, work=work, k4_work=k4_work, k4_texels=texels,
+             rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
+    log(f"timing {label} nee=True bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
+        f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
+        f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}); {k4} {t['k4']:.3f} ms (twin "
+        f"{t['k4_twin']:.1f} ms, bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]}: shadow walk "
+        f"work {k4_work}, {texels} distinct texel rows)")
+    return t
+
+
 def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_RES):
     """Phase 4m: USD content of production shape, built by the port alone
     (scene/examples.py write_content: 16 skinned figures of 6,144
@@ -4295,7 +4382,6 @@ def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import split_ref
-    from gatling_tpu_torch.ops.split_ref import trace_ref
     from gatling_tpu_torch.render import material as rmat
     from gatling_tpu_torch.render.texture import TextureManager
     from gatling_tpu_torch.scene import crate, examples, skel
@@ -4321,6 +4407,7 @@ def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_
     # chunks, compressed int and float arrays (the pure-Python decoder's
     # match copies)
     adv = crate.write_usdc(packed["stage"], adversarial=True)
+    out["adversarial_usdc"] = adv  # 4n (f) reads it again
     with HostTimers(lz4=(crate, "lz4_decompress_block")) as tm:
         t0 = time.perf_counter()
         adv_back = crate.read_usdc(adv)
@@ -4447,41 +4534,240 @@ def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_
     gi.render(params)  # back at frame 12 for the bounce-0 wave
 
     # K3 and K4 on the frame's bounce-0 wave: parity and timing
-    fs, static, mats, tpool, active = split_tables(params)
-    wave = wave_state(params.camera, res, res, SF_SPP, device, tiled=True)
-    p0 = params_row(0, device)
-    hit = trace_ref(p0, fs.tris, wave, fs.walk)
-    twin = wave.clone()
-    split_twin(p0, fs, twin, hit, mats, tpool, active, True)
-    got_hit = tb.trace_step(p0, fs, wave)
-    got = wave.clone()
-    tb.shade_step(p0, fs, got, hit, mats, tpool, active, True)
-    torch.cuda.synchronize()
-    hb, ho, n, herr = compare_hits(got_hit, hit)
-    sb, so, _n, serr = compare(got, twin)
-    log(f"parity content nee=True bounce 0: K3 {hb} rays with H_HIT/H_MAT not bit-equal, {ho} "
-        f"of {n} outside rtol {RTOL}/atol {ATOL}, max abs err {herr:.3g}; K4 {sb} rays with rows "
-        f"12-15 not bit-equal, {so} outside on rows 0-11, max abs err {serr:.3g}")
-    assert hb == 0 and sb == 0 and ho <= n * (1 - MIN_AGREE) and so <= n * (1 - MIN_AGREE)
-    work = cluster_walk_work(p0, fs, wave, False)
-    k4_bound, k4_work, texels = k4_bound_ms(p0, fs, wave, hit, mats, tpool, active, True)
-    t = dict(k3=time_ms(lambda s: tb.trace_step(p0, fs, s), wave),
-             k3_twin=time_ms(lambda s: trace_ref(p0, fs.tris, s, fs.walk), wave, reps=2),
-             k4=time_ms(lambda s: tb.shade_step(p0, fs, s, hit, mats, tpool, active, True), wave),
-             k4_twin=time_ms(lambda s: split_twin(p0, fs, s, hit, mats, tpool, active, True),
-                             wave, reps=2),
-             k3_bound=k3_bound_ms(wave, fs, hit.shape[0], work), k4_bound=k4_bound,
-             k3_err=herr, k4_err=serr, work=work, k4_work=k4_work, k4_texels=texels,
-             rays=wave.shape[1], hits=int((hit[0] > 0.5).sum()))
-    log(f"timing content nee=True bounce 0 at {t['rays']} rays ({t['hits']} hit; walk work "
-        f"{work}): K3 {t['k3']:.3f} ms (twin {t['k3_twin']:.1f} ms, bound "
-        f"{t['k3_bound'][0]:.4f} ms {t['k3_bound'][1]}); K4 {t['k4']:.3f} ms (twin "
-        f"{t['k4_twin']:.1f} ms, bound {t['k4_bound'][0]:.4f} ms {t['k4_bound'][1]}: shadow walk "
-        f"work {k4_work}, {texels} distinct texel rows)")
-    out["kernels"] = t
+    out["kernels"] = split_parity(device, params, res, "content")
     log(f"content: warm frames {', '.join(f'{x:.4f}' for x in frames)} s; launches a frame "
         f"{out['launches']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# 4n: the image formats, the asset readers and the native host library
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(HERE, "tests", "data", "imgio")
+# the interior's base colours in (b) and (g): eight 8-bit fixtures, eight formats
+FORMAT_TEXTURES = ("jpeg_420.jpg", "jpeg_444.jpg", "jpeg_progressive.jpg", "jpeg_grey.jpg",
+                   "tga_raw.tga", "tga_rle.tga", "tiff_lzw_pred2.tif", "png_interlaced.png")
+GREY16 = "png_grey16.png"  # (c): every material's roughness, a float pool
+# the builders' earlier host times of the same work on the card's host
+# (PERF.md section 5: E4, the NumPy build_bvh; F2, the pure-Python lz4
+# crate read in the exporters' layout and the content pool build)
+E4_BVH_S = {"interior_aovs": 0.967, "sphere_field_aovs": 2.868}
+F2_CRATE_S, F2_POOL_S = 0.300, 0.671
+
+
+def same_image(got, want) -> bool:
+    """dtype and shape equal, values bit for bit (a bool array by value:
+    Pillow's "1" arrays hold 255 for True)."""
+    import numpy as np
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    return np.array_equal(got, want) if got.dtype == bool else got.tobytes() == want.tobytes()
+
+
+def formats_interior(device, tex_dir: str, files: list[str], roughness: str | None = None):
+    """gi render parameters of the textured interior (512x512, 4 spp, 6
+    bounces, NEE) whose materials' base colours are `files` in turn; with
+    `roughness`, that texture's red channel every material's roughness."""
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    desc = interior(tex_dir=tex_dir)
+    for k, path in enumerate(sorted(desc.materials)):
+        m = desc.materials[path]
+        m.nodes[f"{path}/tex"].inputs["file"] = files[k % len(files)]
+        if roughness:
+            node = ShaderNode(path=f"{path}/roughness_tex", shader_id="UsdUVTexture",
+                              inputs={"file": roughness, "sourceColorSpace": "raw"},
+                              input_connections={})
+            m.nodes[node.path] = node
+            m.nodes[m.surface_node].input_connections["roughness"] = (node.path, "r")
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True))
+
+
+def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threaded: dict) -> dict:
+    """Phase 4n: the image formats through the texture path, the asset
+    readers, and the native host library's BVH build and lz4 (see the
+    module docstring, (a)-(g)). Returns its numbers and launch counts."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch import cli, gi, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.ops import bvh as bvhm
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render import assets
+    from gatling_tpu_torch.render.texture import TextureManager
+    from gatling_tpu_torch.scene import crate, examples
+
+    out, launches = {}, {}
+    # (a) every fixture on the card's host against Pillow's arrays
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s = {}, {}
+    for name in sorted(ref.files):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"formats (a): {len(decode_s)} fixtures decoded on the card's host, each bit-equal to "
+        f"Pillow's array (fixtures.npz); host ms {({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) eight formats as the interior's base colours against PNGs of their codes
+    fmt_files = [os.path.join(FIXTURES, n) for n in FORMAT_TEXTURES]
+    png_dir = os.path.join(tex_dir, "formats_png")
+    os.makedirs(png_dir, exist_ok=True)
+    png_files = []
+    for name in FORMAT_TEXTURES:
+        png_files.append(os.path.join(png_dir, os.path.splitext(name)[0] + ".png"))
+        imgio.write_image_file(png_files[-1], imgio.load_image(blobs[name]))
+    frames = {}
+    for label, files in (("formats", fmt_files), ("formats_png", png_files)):
+        params = formats_interior(device, tex_dir, files)
+        counted_render(params, f"interior_{label} (first frame)")
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(FORMAT_TEXTURES), (pool.packed, pool.count)
+        assert n["K3"] > 0 and n["K4"] == n["K3"] and n["K4f"] == 0 and split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["formats"][0], frames["formats_png"][0])
+    log(f"formats (b): the interior with {len(FORMAT_TEXTURES)} base colours of 8 formats "
+        f"against PNGs of their decoded codes: frames bit-equal {same}; COLOR mean "
+        f"{frames['formats'][0][..., :3].mean():.6f}")
+    assert same
+    out["formats_kernels"] = split_parity(device, frames["formats"][1], SF_RES,
+                                          "interior_formats")
+
+    # (c) a 16-bit grey PNG as every roughness: a float pool, K4's FLT instance
+    grey16 = os.path.join(FIXTURES, GREY16)
+    params = formats_interior(device, tex_dir, fmt_files, roughness=grey16)
+    counted_render(params, "interior_grey16 (first frame)")
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, dt, _mr, n = counted_render(params, "interior_grey16 (warm)")
+    assert not params.scene._texture_pool.packed, "a 16-bit grey PNG makes the pool float"
+    assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+    assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+    out["grey16_warm_frame_s"] = dt
+    launches["interior_grey16"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    out["grey16_kernels"] = split_parity(device, params, SF_RES, "interior_grey16")
+    small = {}
+    for route in ("fused", "wavefront"):
+        p = formats_interior(device, tex_dir, fmt_files, roughness=grey16)
+        p.aov_bindings = [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(128, 128, 4))]
+        if route == "wavefront":
+            p.aov_bindings.append(gi.GiAovBinding(
+                AovId.OBJECT_ID, gi.GiRenderBuffer(128, 128, 1, True), clear_value=-1))
+        counted_render(p, f"interior_grey16 128^2, {route}")
+        assert (p.scene._fused is None) == (route == "wavefront"), route
+        small[route] = p.aov_bindings[0].render_buffer.data.copy()
+    out["grey16_vs_wavefront"] = mean_gap(small["fused"], small["wavefront"],
+                                          "interior_grey16 128^2")
+
+    # (d) the content scene, its 1024^2 ground a JPEG from the port's writer
+    usda = examples.retexture(os.path.join(content_dir, "content.usda"),
+                              {"ground.png": ".jpg"}, "jpeg")
+    with open(os.path.join(content_dir, "ground.jpg"), "rb") as f:
+        ground = f.read()
+    t0 = time.perf_counter()
+    decoded = imgio.load_image(ground)
+    out["ground_jpeg_decode_s"] = time.perf_counter() - t0
+    timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+    settings = dict(frame=CONTENT_FRAME, spp=SF_SPP, maxBounces=SF_BOUNCES,
+                    nextEventEstimation=True)
+    with timers:
+        cimg, scene = cli.render_scene_file(usda, SF_RES, SF_RES, settings, device=str(device))
+    out["ground_jpeg_pool_build_s"] = timers.seconds["pool_build"]
+    assert decoded.shape == (CONTENT["tex_res"],) * 2 + (4,) and scene._texture_pool.packed
+    assert np.isfinite(cimg).all() and cimg[..., :3].mean() > 0.01
+    log(f"formats (d): content with its 1024^2 ground a JPEG ({len(ground)} B) written by the "
+        f"port: the ground decoded in {out['ground_jpeg_decode_s']:.4f} s on the card's host, "
+        f"the pool built in {out['ground_jpeg_pool_build_s']:.4f} s (F2, the PNG ground: "
+        f"{F2_POOL_S} s); COLOR mean {cimg[..., :3].mean():.6f}")
+    del scene, cimg
+
+    # (e) the native threaded BVHs of 4l against the NumPy twin
+    out["bvh"] = {}
+    for label in ("interior_aovs", "sphere_field_aovs"):
+        soup, (arrays, order), native_s = threaded[label]["native_bvh"]
+        t0 = time.perf_counter()
+        twin, twin_order = bvhm.build_bvh_ref(*soup)
+        twin_s = time.perf_counter() - t0
+        assert np.array_equal(order, twin_order)
+        for field in bvhm.BvhArrays._fields:
+            a, b = getattr(arrays, field), getattr(twin, field)
+            assert a.dtype == b.dtype and np.array_equal(a, b), (label, field)
+        out["bvh"][label] = dict(native_s=native_s, twin_s=twin_s, nodes=len(arrays.skip),
+                                 triangles=len(order), e4_numpy_s=E4_BVH_S[label])
+        log(f"formats (e): {label}'s threaded BVH ({len(order)} triangles, {len(arrays.skip)} "
+            f"nodes) built natively in {native_s:.4f} s on the card's host, the NumPy twin in "
+            f"{twin_s:.4f} s (E4: {E4_BVH_S[label]} s), array for array equal")
+
+    # (f) the exporters' crate layout through the native lz4 against the twin
+    adv = content["adversarial_usdc"]
+    blocks, real_lz4 = [], crate.lz4_decompress_block
+
+    def capture_lz4(src, max_out):
+        got = real_lz4(src, max_out)
+        blocks.append((bytes(src), max_out, got))
+        return got
+
+    crate.lz4_decompress_block = capture_lz4
+    try:
+        t0 = time.perf_counter()
+        crate.read_usdc(adv)
+        out["crate_read_s"] = time.perf_counter() - t0
+    finally:
+        crate.lz4_decompress_block = real_lz4
+    twin_lz4 = HostTimers(lz4=(crate, "lz4_decompress_block_ref"))
+    with twin_lz4:
+        assert all(crate.lz4_decompress_block_ref(src, m) == got for src, m, got in blocks)
+    t0 = time.perf_counter()
+    for src, m, _got in blocks:
+        real_lz4(src, m)
+    out.update(crate_lz4_native_s=time.perf_counter() - t0, crate_lz4_twin_s=twin_lz4.seconds["lz4"],
+               crate_blocks=len(blocks), crate_bytes=len(adv), f2_crate_read_s=F2_CRATE_S)
+    log(f"formats (f): 4m's crate file in the exporters' layout ({len(adv)} B, {len(blocks)} lz4 "
+        f"blocks) read in {out['crate_read_s']:.4f} s through the native lz4 (F2, pure Python: "
+        f"{F2_CRATE_S} s); the blocks alone {out['crate_lz4_native_s']:.4f} s natively, "
+        f"{out['crate_lz4_twin_s']:.4f} s in the pure-Python twin, bytes equal")
+
+    # (g) (b)'s textures served by a registered in-memory reader
+    served = {f"mem://formats/{n}": blobs[n] for n in FORMAT_TEXTURES}
+
+    class MemoryReader(assets.GiAssetReader):
+        def open(self, path):
+            data = served.get(path)
+            return None if data is None else assets.GiAsset(data, len(data))
+
+    gi.giRegisterAssetReader(MemoryReader())
+    params = formats_interior(device, tex_dir, list(served))
+    counted_render(params, "interior_formats_reader (first frame)")
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, _dt, _mr, n = counted_render(params, "interior_formats_reader (warm)")
+    same = np.array_equal(img, frames["formats"][0])
+    log(f"formats (g): the interior's textures through a registered in-memory asset reader: "
+        f"frame bit-equal to (b)'s {same}")
+    assert same and n["K3"] > 0
+    launches["interior_formats_reader"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    out["launches"] = launches
+    torch.cuda.synchronize()
+    return out
+
+
+def formats_entry(formats: dict, kernel: str) -> dict:
+    """Phase 4n's numbers beside K3's, K4's or K4f's kernels-line entry."""
+    t = formats["grey16_kernels" if kernel == "K4f" else "formats_kernels"]
+    k = "k4" if kernel == "K4f" else kernel.lower()
+    return {"launches_by_frame": {f: v[kernel] for f, v in formats["launches"].items()},
+            "ms": t[k], "plain_ms": t[k + "_twin"], "bound_ms": t[k + "_bound"][0],
+            "max_abs_err": t[k + "_err"]}
 
 
 def phase_goldens(device, out_dir: str):
@@ -4590,13 +4876,23 @@ def main() -> int:
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import trace as tt
 
+    from gatling_tpu_torch import native
+
+    def build_native() -> float:
+        t0 = time.perf_counter()
+        native.library()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # every nvcc run at once (bounce.cu in parts)
+    with ThreadPoolExecutor(4) as pool:  # every nvcc run at once (bounce.cu in parts), and g++
         builds = [pool.submit(mod.kernel) for mod in (tb, tt, tools)]
+        native_build = pool.submit(build_native)
         libs = [b.result() for b in builds]
+        native_s = native_build.result()
     log(f"built {', '.join(k.path.name for k in libs)} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {', '.join(f'{k.build_seconds:.1f}' for k in libs)} s; ninja available: "
-        f"{is_ninja_available()}, not needed: nvcc is called directly)")
+        f"{is_ninja_available()}, not needed: nvcc is called directly); the native host "
+        f"library (csrc/gatling_native.cpp, g++) loaded in {native_s:.1f} s")
     for k in libs:
         for line in ptxas_summary(k.ptxas_log):
             log(f"ptxas {k.path.name}: {line}")
@@ -4714,6 +5010,19 @@ def main() -> int:
     t0 = time.perf_counter()
     content = phase_content(device, os.path.join(tex_tmp.name, "content"))
     log(f"phase 4m: {time.perf_counter() - t0:.1f} s")
+    # 4n: the image formats through the texture path (K3, K4, K4f), the
+    # asset readers, the native BVH build and lz4
+    t0 = time.perf_counter()
+    formats = phase_formats(device, tex_tmp.name, os.path.join(tex_tmp.name, "content"),
+                            content, threaded_frames)
+    log(f"phase 4n: {time.perf_counter() - t0:.1f} s")
+    host = {"ground_jpeg_decode_s": formats["ground_jpeg_decode_s"],
+            "ground_jpeg_pool_build_s": formats["ground_jpeg_pool_build_s"],
+            "crate_read_exporters_layout_native_lz4_s": formats["crate_read_s"],
+            **{f"bvh_build_native_{k}_s": v["native_s"] for k, v in formats["bvh"].items()},
+            **{f"bvh_build_numpy_twin_{k}_s": v["twin_s"] for k, v in formats["bvh"].items()}}
+    for k, v in host.items():
+        log(f"4n host time {k}: {v:.4f} s on the card's host ({smi})")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -4731,8 +5040,12 @@ def main() -> int:
         f"{cut_frames}; their launches {new_launches}; goldens {goldens}")
     log(f"dome and float-pool frames {dome_frames}; their launches {dome_launches}; the dome "
         f"pass {dome_passes}")
+    shown = {k: {f: x for f, x in v.items() if f != "native_bvh"}
+             for k, v in threaded_frames.items()}
     log(f"the wavefront above 8192 triangles, dynamic inputs and backface rows: frames "
-        f"{threaded_frames}; their launches {threaded_launches}")
+        f"{shown}; their launches {threaded_launches}")
+    log(f"formats: launches {formats['launches']}; 16-bit grey against the wavefront "
+        f"{formats['grey16_vs_wavefront']}")
     taps = peel["cornell_first_hit"]
 
     k2 = walk_times[("instanced", "generated", False)]
@@ -4810,6 +5123,7 @@ def main() -> int:
                                     if k.startswith("retrace")},
         "launches_by_new_frame": {k: v["K3"] for k, v in new_launches.items()},
         "content": content_entry(content, "K3"),
+        "formats": formats_entry(formats, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -4840,6 +5154,7 @@ def main() -> int:
         "ms_peel_clipped": {k: v["k4"] for k, v in peel.items() if k.startswith("clip_")},
         "launches_by_new_frame": {k: v["K4"] for k, v in new_launches.items()},
         "content": content_entry(content, "K4"),
+        "formats": formats_entry(formats, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -4861,11 +5176,11 @@ def main() -> int:
                     for k, v in peel.items() if "ms" in v and "alive" not in v},
         "launches_by_new_frame": {k: v["K4t"] for k, v in new_launches.items()},
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
-        *(threaded_entry(k, threaded_times, threaded_launches, threaded_frames)
+        *(threaded_entry(k, threaded_times, threaded_launches, threaded_frames, formats)
           for k in ("B1", "B2")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
-        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches),
+        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

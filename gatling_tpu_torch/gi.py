@@ -82,6 +82,7 @@ from gatling_tpu_torch.ops.geometry import (
     update_instance_transforms,
 )
 from gatling_tpu_torch.ops.trace import build_trace_tables
+from gatling_tpu_torch.render.assets import gi_register_asset_reader  # noqa: F401
 from gatling_tpu_torch.render.camera import camera_uniforms
 from gatling_tpu_torch.render.fused import FUSED_AOV_MASK, render_pixels_fused
 from gatling_tpu_torch.render.integrator import (
@@ -725,7 +726,7 @@ def _load_dome(dome: GiDomeLight | None, device) -> DomeLightData:
         try:
             tex = imgio.as_float_rgba(imgio.load_image_file(dome.file_path))[:, :, :3]
         except NotImplementedError:
-            raise  # a format the port does not read yet: never render something else
+            raise  # a variant the port does not read yet: never render something else
         except Exception:  # noqa: BLE001
             get_logger().error("failed to load dome light texture %s", dome.file_path)
             tex = np.zeros((1, 1, 3), np.float32)
@@ -746,6 +747,11 @@ def _turbo_heatmap(values: np.ndarray) -> np.ndarray:
     g = np.polyval([-5.9311, 11.6060, -8.5590, 2.7747, 0.2484, 0.0914][::-1], t)
     bl = np.polyval([13.6217, -34.5806, 28.8827, -9.0252, 1.2897, 0.1067][::-1], t)
     return np.clip(np.stack([r, g, bl], axis=1), 0.0, 1.0).astype(np.float32)
+
+
+# the reference's asset-reader registration (Gi.h giRegisterAssetReader;
+# gatling_tpu/gi.py:916): texture bytes come through the registered readers
+giRegisterAssetReader = gi_register_asset_reader
 
 
 # ---------------------------------------------------------------------------

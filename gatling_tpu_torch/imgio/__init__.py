@@ -1,17 +1,25 @@
-"""Image IO on zlib, struct and numpy alone: an 8-bit PNG decoder and
-writer, and the OpenEXR and Radiance HDR codecs (exr.py, hdr.py).
+"""Image IO on zlib, struct, numpy and the port's native library alone:
+the decoders and writers of every format the JAX package reads and writes
+(it goes through Pillow, which the port does not depend on).
 
-The JAX package decodes and writes LDR images through Pillow, which the
-port does not depend on. The decoder reads 8-bit, non-interlaced PNGs of
-every colour type (grey, RGB, palette with its PLTE/tRNS chunks, grey +
-alpha, RGBA) into the RGBA array that the JAX package's Pillow path gives
-for the same file: tRNS applies to palette images only, as Pillow's
-RGBA conversion of a "P" image does. `load_image` picks the decoder by
-magic, as the JAX package's does: EXR, Radiance HDR, PNG. A decoded image
-is an RGBA array, uint8 for PNG and float32 for the HDR formats, so its
-dtype says whether it is HDR (`is_hdr`, the JAX package's Image.is_hdr).
-Other PNG bit depths, Adam7 interlacing and the JPEG/TGA/TIFF formats
-raise (ROADMAP: 'USD content').
+`load_image` picks the decoder by magic, as Pillow picks its plugin: EXR
+and Radiance HDR (exr.py, hdr.py), PNG (here), JPEG (jpeg.py), TIFF
+(tiff.py), then TGA by its header checks (tga.py). Each returns the RGBA
+array [H, W, 4] that the JAX package's imgio.load_image(data).data gives
+for the same bytes: uint8 codes for 8-bit data; float32 for the HDR
+formats, for 16-bit grey PNGs and TIFFs (code / 65535) and float TIFFs;
+bool for 1-bit grey PNGs. So the dtype says whether the image is HDR
+(`is_hdr`, the JAX package's Image.is_hdr). Bytes that no decoder accepts
+raise ValueError, as the JAX package's load_image does. A recognised
+container in a variant that is not ported (arithmetic-coded or 12-bit
+JPEG, JPEG-in-TIFF, CMYK, 16-bit TGA ...) or a format of Pillow's that is
+not ported (BMP, GIF, WebP ...) raises NotImplementedError (ROADMAP: 'USD
+content'), so that the port never renders something else where the JAX
+package renders the image.
+
+`write_image_file` writes by extension: .png (8-bit), .jpg / .jpeg (jpeg.py:
+Pillow's defaults, alpha dropped), .tga and .tif / .tiff (uncompressed),
+.exr and .hdr.
 """
 
 from __future__ import annotations
@@ -22,8 +30,10 @@ import zlib
 
 import numpy as np
 
+from gatling_tpu_torch.imgio import jpeg, tga, tiff
 from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
 from gatling_tpu_torch.imgio.hdr import decode_hdr, encode_hdr
+from gatling_tpu_torch.utils.log import get_logger
 
 EXR_MAGIC = b"\x76\x2f\x31\x01"
 HDR_MAGIC = b"#?"
@@ -57,8 +67,40 @@ def _unfilter(filt: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_samples(raw: np.ndarray, w: int, h: int, depth: int, chans: int) -> tuple[np.ndarray, int]:
+    """The samples [h, w, chans] of one (sub)image's filtered rows at the
+    head of raw, and the bytes they took."""
+    row = (w * chans * depth + 7) // 8
+    bpp = max(1, chans * depth // 8)  # the filters' byte distance
+    n = h * (1 + row)
+    if raw.size < n:
+        raise ValueError("PNG: truncated image data")
+    rows = raw[:n].reshape(h, 1 + row)
+    px = _unfilter(rows[:, 1:].reshape(h, row // bpp, bpp), rows[:, 0], bpp).reshape(h, row)
+    if depth == 16:
+        return px.view(">u2").reshape(h, w, chans), n
+    if depth < 8:
+        bits = np.unpackbits(px, axis=1)[:, :w * depth].reshape(h, w, depth)
+        px = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+        return px[..., None], n
+    return px.reshape(h, w, chans), n
+
+
 def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> [H, W, 4] uint8 RGBA."""
+    """PNG bytes -> [H, W, 4] RGBA as the JAX package's Pillow path gives it
+    for every bit depth and colour type, interlaced or not: uint8 codes;
+    float32 code / 65535 for 16-bit grey (Pillow's "I;16" over 65535); bool
+    for 1-bit grey (Pillow's "1"). 2- and 4-bit grey scale to 8-bit codes;
+    16-bit colour keeps the high byte of each sample; a palette image takes
+    its PLTE entries (black past the end) and tRNS alphas, as Pillow's RGBA
+    conversion of a "P" image does; tRNS is ignored for every other
+    colour type, as Pillow's array of the image ignores it."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, palette, trns, header = 8, [], None, None, None
@@ -69,7 +111,7 @@ def decode_png(data: bytes) -> np.ndarray:
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif tag == b"tRNS":
             trns = np.frombuffer(body, np.uint8)
         elif tag == b"IDAT":
@@ -79,51 +121,95 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     w, h, depth, ctype, _compression, _filter, interlace = header
-    if depth != 8 or interlace != 0 or ctype not in _CHANNELS:
-        raise NotImplementedError(
-            f"PNG of bit depth {depth}, colour type {ctype}, interlace {interlace}: only "
-            "8-bit non-interlaced PNGs are ported (ROADMAP: 'USD content')")
-    bpp = _CHANNELS[ctype]
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1 or w == 0 or h == 0:
+        raise ValueError(f"PNG: bit depth {depth}, colour type {ctype}, interlace {interlace}")
+    chans = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
-    px = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0], bpp)
+    if interlace == 0:
+        px = _png_samples(raw, w, h, depth, chans)[0]
+    else:
+        px = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                px[y0::dy, x0::dx], used = _png_samples(raw, pw, ph, depth, chans)
+                raw = raw[used:]
+    if ctype == 0 and depth == 16:
+        grey = px[..., 0].astype(np.float32) / np.float32(65535.0)
+        return np.concatenate([np.repeat(grey[..., None], 3, -1),
+                               np.ones((h, w, 1), np.float32)], axis=-1)
+    if ctype == 0 and depth == 1:
+        return np.repeat(px.astype(bool), 4, axis=-1) | np.array([False, False, False, True])
+    if depth == 16:
+        px = (px >> 8).astype(np.uint8)
     out = np.empty((h, w, 4), np.uint8)
     out[..., 3] = 255
     if ctype == 3:
         if palette is None:
             raise ValueError("PNG: palette image without a PLTE chunk")
-        alpha = np.full(len(palette), 255, np.uint8)
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        table[:len(palette), :3] = palette[:256]
         if trns is not None:
-            alpha[:min(len(trns), len(alpha))] = trns[:len(alpha)]
-        idx = np.minimum(px[..., 0], len(palette) - 1)
-        out[..., :3] = palette[idx]
-        out[..., 3] = alpha[idx]
+            table[:min(len(trns), 256), 3] = trns[:256]
+        out[:] = table[px[..., 0]]
     elif ctype in (0, 4):
-        out[..., :3] = px[..., :1]
+        scale = {1: 255, 2: 85, 4: 17, 8: 1}[depth] if ctype == 0 else 1
+        out[..., :3] = px[..., :1] * np.uint8(scale)
         if ctype == 4:
             out[..., 3] = px[..., 1]
     else:
-        out[..., :bpp] = px
+        out[..., :chans] = px
     return out
 
 
+# formats Pillow reads that the port does not, by their magic
+_UNPORTED_MAGIC = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"8BPS", "PSD"),
+                   (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"\xffO\xffQ", "JPEG 2000"),
+                   (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"II+\x00", "BigTIFF"),
+                   (b"MM\x00+", "BigTIFF"))
+
+
 def load_image(data: bytes) -> np.ndarray:
-    """Decode image bytes into [H, W, 4] RGBA: uint8 from a PNG, float32
-    from an EXR (half widened) or a Radiance HDR file (the JAX package's
-    imgio.load_image(data).data for the formats ported so far)."""
+    """Decode image bytes into [H, W, 4] RGBA (the JAX package's
+    imgio.load_image(data).data): the decoder is picked by magic, and
+    bytes it rejects, or that no decoder accepts, raise ValueError."""
+    data = bytes(data)
     if data[:4] == EXR_MAGIC:
         return decode_exr(data)
     if data[:2] == HDR_MAGIC:
         return decode_hdr(data)
-    if data[:8] != PNG_SIGNATURE:
-        raise NotImplementedError("only PNG images are decoded so far; JPEG, TGA and TIFF "
-                                  "are not ported yet (ROADMAP: 'USD content')")
-    return decode_png(data)
+    if data[:8] == PNG_SIGNATURE:
+        decode = decode_png
+    elif data[:3] == b"\xff\xd8\xff":
+        decode = jpeg.decode_jpeg
+    elif tiff.accepts(data):
+        decode = tiff.decode_tiff
+    else:
+        for magic, name in _UNPORTED_MAGIC:
+            if data.startswith(magic):
+                raise NotImplementedError(f"{name} images are not ported (ROADMAP: 'USD "
+                                          "content')")
+        if not tga.accepts(data):
+            raise ValueError("no decoder accepted image data: not a PNG, JPEG, TIFF, TGA, "
+                             "EXR or Radiance HDR file")
+        decode = tga.decode_tga
+    try:
+        return decode(data)
+    except NotImplementedError:
+        raise
+    except Exception as e:  # noqa: BLE001 - a corrupt file, whatever the decoder met
+        raise ValueError(f"no decoder accepted image data: {decode.__name__}: {e}") from e
 
 
 def load_image_file(path: str | os.PathLike) -> np.ndarray:
     with open(path, "rb") as f:
-        return load_image(f.read())
+        data = f.read()
+    try:
+        return load_image(data)
+    except ValueError:
+        get_logger().error("failed to decode image %s", path)
+        raise
 
 
 def is_hdr(img: np.ndarray) -> bool:
@@ -159,9 +245,11 @@ def encode_png(img: np.ndarray) -> bytes:
 
 
 def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
-    """Write [H, W, 3] RGB or [H, W, 4] RGBA by extension: .png as 8 bits
-    (floats in [0, 1] or uint8), .exr (ZIP, half) and .hdr (flat RGBE) as
-    the float values."""
+    """Write [H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA by extension (the
+    JAX package's write_image_file): .exr (ZIP, half) and .hdr (flat RGBE)
+    as the float values; .png (RGB or RGBA), .jpg / .jpeg (the alpha
+    dropped), .tga and .tif / .tiff as 8-bit codes, floats in [0, 1]
+    scaled and rounded."""
     ext = os.path.splitext(str(path))[1].lower()
     img = np.asarray(img)
     if ext in (".exr", ".hdr"):
@@ -169,9 +257,14 @@ def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
         with open(path, "wb") as f:
             f.write(encode(img.astype(np.float32)))
         return
-    if ext != ".png":
-        raise NotImplementedError(f"{ext} output is not ported yet; write .png, .exr or .hdr")
+    encoders = {".png": encode_png, ".jpg": jpeg.encode_jpeg, ".jpeg": jpeg.encode_jpeg,
+                ".tga": tga.encode_tga, ".tif": tiff.encode_tiff, ".tiff": tiff.encode_tiff}
+    if ext not in encoders:
+        raise ValueError(f"cannot write {ext} images: write .png, .jpg, .tga, .tif, .exr or "
+                         ".hdr")
     if img.dtype != np.uint8:
         img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    if ext in (".jpg", ".jpeg") and img.ndim == 3 and img.shape[2] == 4:
+        img = img[..., :3]
     with open(path, "wb") as f:
-        f.write(encode_png(img))
+        f.write(encoders[ext](img))

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gatling_tpu_torch import native
 from gatling_tpu_torch.interface import FLOAT_MAX
 
 TLAS_LEAF = 2        # level-1 entries per TLAS leaf
@@ -392,23 +393,35 @@ def _morton3(x: np.ndarray) -> np.ndarray:
     return (spread(q[:, 0]) << np.uint64(2)) | (spread(q[:, 1]) << np.uint64(1)) | spread(q[:, 2])
 
 
+def _tri_boxes(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
+    v0 = np.asarray(v0, np.float32)
+    p1 = v0 + np.asarray(e1, np.float32)
+    p2 = v0 + np.asarray(e2, np.float32)
+    return np.minimum(np.minimum(v0, p1), p2), np.maximum(np.maximum(v0, p1), p2)
+
+
 def build_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
               leaf_size: int = LEAF_SIZE) -> tuple[BvhArrays, np.ndarray]:
-    """The threaded BVH of a soup (gatling_tpu/ops/bvh.py build_bvh, its
-    NumPy path): triangles sorted by the Morton code of their box
-    centroids, median splits over that order down to `leaf_size`
-    triangles a leaf, nodes in preorder with skip links. Returns (arrays,
-    order): order reorders the soup so that every leaf is a contiguous
-    range. Built over the padded soup (its degenerate triangles included),
-    the arrays and the order equal the JAX package's."""
-    v0 = np.asarray(v0, np.float32)
-    e1 = np.asarray(e1, np.float32)
-    e2 = np.asarray(e2, np.float32)
-    t = len(v0)
-    p1 = v0 + e1
-    p2 = v0 + e2
-    tri_min = np.minimum(np.minimum(v0, p1), p2)
-    tri_max = np.maximum(np.maximum(v0, p1), p2)
+    """The threaded BVH of a soup, built by the native library's
+    gatling_build_bvh as gatling_tpu/ops/bvh.py build_bvh builds it:
+    triangles sorted by the Morton code of their box centroids, median
+    splits over that order down to `leaf_size` triangles a leaf, nodes in
+    preorder with skip links. Returns (arrays, order): order reorders the
+    soup so that every leaf is a contiguous range. Built over the padded
+    soup (its degenerate triangles included), the arrays and the order
+    equal the JAX package's and build_bvh_ref's."""
+    bbox_min, bbox_max, skip, leaf_start, leaf_count, order = native.build_bvh(
+        *_tri_boxes(v0, e1, e2), leaf_size)
+    return BvhArrays(bbox_min=bbox_min, bbox_max=bbox_max, skip=skip, leaf_start=leaf_start,
+                     leaf_count=leaf_count), order
+
+
+def build_bvh_ref(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+                  leaf_size: int = LEAF_SIZE) -> tuple[BvhArrays, np.ndarray]:
+    """build_bvh's NumPy twin (gatling_tpu/ops/bvh.py build_bvh without the
+    native library): the same arrays, array for array."""
+    tri_min, tri_max = _tri_boxes(v0, e1, e2)
+    t = len(tri_min)
     centroid = (tri_min + tri_max) * 0.5
     lo = centroid.min(axis=0)
     hi = centroid.max(axis=0)

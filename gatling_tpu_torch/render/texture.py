@@ -35,6 +35,7 @@ import torch
 
 from gatling_tpu_torch import imgio
 from gatling_tpu_torch.interface import MAX_TEXTURE_COUNT
+from gatling_tpu_torch.render.assets import read_asset
 from gatling_tpu_torch.utils.log import get_logger
 
 # procedural generator Expr ops baked over a uv grid (render/procedural.py)
@@ -267,13 +268,13 @@ class TextureManager:
             self._raw_cache[ref.file_path] = out
             return out
         try:
-            # a plain file read: the JAX package's asset-reader registry
-            # (render/assets.py) waits for ROADMAP 'Multi-GPU and front ends'
-            with open(ref.file_path, "rb") as f:
-                img = imgio.load_image(f.read())
+            raw = read_asset(ref.file_path)
+            if raw is None:
+                raise FileNotFoundError(ref.file_path)
+            img = imgio.load_image(raw)
             rgba, hdr = imgio.as_float_rgba(img), imgio.is_hdr(img)
         except NotImplementedError:
-            raise  # a format the port does not read yet: never render something else
+            raise  # a variant the port does not read yet: never render something else
         except Exception:  # noqa: BLE001
             # 1x1 black fallback (TextureManager.cpp:253-267)
             get_logger().error("texture load failed: %s", ref.file_path)

@@ -19,8 +19,9 @@ ops (token/string/path/reference/payload), specifier, variant selection
 maps, dictionaries, and TimeSamples ({time: value}, resolved to the
 nearest sample at the `frame` render setting by scene/usda.py
 resolve_frame; value clips are out of scope). The lz4 blocks decode in
-pure Python (`lz4_decompress_block`, the JAX reader's own fallback, bit
-for bit); a native decoder is ROADMAP Queue 1 item 6.
+the port's native library (`lz4_decompress_block`, gatling_lz4_decompress,
+as the JAX reader decodes them); `lz4_decompress_block_ref`, the JAX
+reader's own pure-Python fallback, is its twin, bit for bit.
 
 The writer emits version 0.8.0 files (literals-only lz4 blocks, always-
 explicit widths): enough to round-trip the reader's subset for fixtures
@@ -36,6 +37,7 @@ from typing import Any
 
 import numpy as np
 
+from gatling_tpu_torch import native
 from gatling_tpu_torch.scene.usda import Attr, Prim, Stage
 from gatling_tpu_torch.utils.log import get_logger
 
@@ -100,8 +102,17 @@ _POD = {
 # ---------------------------------------------------------------------------
 
 def lz4_decompress_block(src: bytes, max_out: int) -> bytes:
-    """Decode one raw LZ4 block (lz4 block format spec) in pure Python.
-    Literal runs copy as slices; an overlapping match copies byte by byte."""
+    """Decode one raw LZ4 block (lz4 block format spec) in the native
+    library (gatling_tpu/scene/crate.py lz4_decompress_block). A block it
+    rejects goes through the twin, as in the JAX reader: the twin raises
+    the error the JAX reader raises for it."""
+    out = native.lz4_decompress(src, max_out) if src else None
+    return out if out is not None else lz4_decompress_block_ref(src, max_out)
+
+
+def lz4_decompress_block_ref(src: bytes, max_out: int) -> bytes:
+    """lz4_decompress_block's pure-Python twin. Literal runs copy as
+    slices; an overlapping match copies byte by byte."""
     out = bytearray()
     i, n = 0, len(src)
     while i < n:

@@ -1056,3 +1056,20 @@ def pack_usdz(usda_path: str, usdz_path: str) -> dict:
             zf.write(os.path.join(os.path.dirname(usda_path), a), a)
     return dict(parse_s=t1 - t0, save_s=t2 - t1, zip_s=time.perf_counter() - t2, usdc=usdc,
                 usdc_bytes=os.path.getsize(usdc), stage=stage)
+
+
+def retexture(usda_path: str, formats: dict[str, str], tag: str) -> str:
+    """A copy of a .usda whose PNG textures are written anew in other
+    formats by the port's writers: formats maps a texture's file name
+    (ground.png) to its new extension (.jpg, .tga, .tif). The copy is
+    usda_path's name with `tag` appended; returns its path."""
+    text = Path(usda_path).read_text()
+    d = os.path.dirname(usda_path)
+    for name, ext in formats.items():
+        new = os.path.splitext(name)[0] + ext
+        imgio.write_image_file(os.path.join(d, new),
+                               imgio.load_image_file(os.path.join(d, name)))
+        text = text.replace(f"@{name}@", f"@{new}@")
+    out = os.path.splitext(usda_path)[0] + f"_{tag}.usda"
+    Path(out).write_text(text)
+    return out

@@ -13,8 +13,11 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import zlib
 
 import numpy as np
+
+from gatling_tpu_torch import native
 
 
 class Interpolation(enum.Enum):
@@ -75,9 +78,9 @@ class CompressedMesh:
 
 
 def compress_mesh(tm: TriangulatedMesh) -> CompressedMesh:
-    """Compress every buffer of a triangulated mesh (byteshuffle + zlib)."""
-    import zlib
-
+    """Compress every buffer of a triangulated mesh: byteshuffle + zlib
+    level 3 in the native library (gatling_compress, as
+    gatling_tpu/scene/meshproc.py compresses; twin `compress_ref`)."""
     blobs: dict = {}
     for f in dataclasses.fields(TriangulatedMesh):
         arr = getattr(tm, f.name)
@@ -88,19 +91,29 @@ def compress_mesh(tm: TriangulatedMesh) -> CompressedMesh:
         if arr.nbytes < _COMPRESS_MIN_BYTES:
             blobs[f.name] = (arr, arr.shape, arr.dtype, False)
             continue
-        elem = arr.dtype.itemsize
-        # byteshuffle + zlib, the stream layout of the native codec
-        flat = arr.view(np.uint8).reshape(-1, elem)
-        blob = zlib.compress(flat.T.tobytes(), 3)
-        blobs[f.name] = (blob, arr.shape, arr.dtype, True)
+        blobs[f.name] = (native.compress(arr.view(np.uint8).reshape(-1), arr.dtype.itemsize),
+                         arr.shape, arr.dtype, True)
     return CompressedMesh(blobs=blobs, num_triangles=tm.num_triangles,
                           colors=() if tm.colors is not None else None)
 
 
-def decompress_mesh(cm: CompressedMesh) -> TriangulatedMesh:
-    """Inverse of compress_mesh (giDecompressMeshData analog)."""
-    import zlib
+def compress_ref(raw: np.ndarray, elem_size: int) -> bytes:
+    """native.compress's twin: the byte planes of `raw`, deflated by
+    Python's zlib at level 3."""
+    return zlib.compress(raw.reshape(-1, elem_size).T.tobytes(), 3)
 
+
+def decompress_ref(blob: bytes, n: int, elem_size: int) -> np.ndarray:
+    """native.decompress's twin: compress_ref's n raw bytes."""
+    flat = np.frombuffer(zlib.decompress(blob), np.uint8)
+    if flat.size != n:
+        raise ValueError(f"a corrupt mesh stream ({n} bytes expected, {flat.size} found)")
+    return flat.reshape(elem_size, -1).T.reshape(-1).copy()
+
+
+def decompress_mesh(cm: CompressedMesh) -> TriangulatedMesh:
+    """Inverse of compress_mesh (giDecompressMeshData analog): the native
+    gatling_decompress (twin `decompress_ref`)."""
     out = {}
     for name, entry in cm.blobs.items():
         if entry is None:
@@ -110,11 +123,7 @@ def decompress_mesh(cm: CompressedMesh) -> TriangulatedMesh:
         if not compressed:
             out[name] = payload
             continue
-        n = int(np.prod(shape)) * dtype.itemsize
-        elem = dtype.itemsize
-        flat = np.frombuffer(zlib.decompress(payload), np.uint8)
-        raw = flat.reshape(elem, -1).T.reshape(-1).copy()
-        assert raw.size == n
+        raw = native.decompress(payload, int(np.prod(shape)) * dtype.itemsize, dtype.itemsize)
         out[name] = raw.view(dtype).reshape(shape)
     return TriangulatedMesh(**out)
 

@@ -3,7 +3,9 @@ and K4 the split trace and shade, with their lobe, cutout and volume
 branches, K5-K8 the wavefront's trace, P1/P2 the probes) against their
 plain twins; K1's, K5's and K6's BVH walks also on tests/test_torch_bvh.py's
 adversarial rays, and K2's, K3's and K4's per-cluster trees on
-tests/test_torch_cluster_bvh.py's adversarial placements.
+tests/test_torch_cluster_bvh.py's adversarial placements; K4's FLT
+instances also over a 16-bit grey PNG's float pool, and the image
+fixtures of tests/data/imgio decoded on the card's host.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine that has only torch:
@@ -33,6 +35,7 @@ from gatling_tpu_torch.render.texture import empty_pool
 from gatling_tpu_torch.scene.stage import LightDesc, load_scene
 
 RTOL, ATOL, MIN_AGREE = 1e-4, 1e-5, 0.999
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "imgio")
 
 
 def _rect_light() -> LightDesc:
@@ -160,7 +163,8 @@ def _chip_smoke():
 
 
 def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
-                     tinted: bool = False, taps: bool = False, hdr: bool = False):
+                     tinted: bool = False, taps: bool = False, hdr: bool = False,
+                     grey16: bool = False):
     """Tables of a small interior (3,840 triangles) for the split kernels:
     its base-colour textures and, with `normal_map`, a leaning
     tangent-space normal map on every material (a raw UsdUVTexture, which
@@ -169,7 +173,9 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
     its geometry and that table then go into resident, flattened or
     instanced tables. `tinted`: the bowls in tinted glass
     (examples.interior_tinted); `taps`: chip_smoke.py tap_variants; `hdr`:
-    the floor a 64x64 EXR (examples.hdr_floor), a float pool."""
+    the floor a 64x64 EXR (examples.hdr_floor), a float pool; `grey16`:
+    every roughness the red channel of tests/data/imgio's 16-bit grey PNG,
+    also a float pool."""
     from gatling_tpu_torch import gi, imgio
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.scene.examples import hdr_floor, interior, interior_tinted
@@ -180,6 +186,13 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
         _chip_smoke().tap_variants(desc)
     if hdr:
         hdr_floor(desc, str(tex_dir / "floor.exr"), size=64)
+    if grey16:
+        for m in desc.materials.values():
+            node = ShaderNode(path=f"{m.path}/roughness_tex", shader_id="UsdUVTexture",
+                              inputs={"file": os.path.join(FIXTURES, "png_grey16.png"),
+                                      "sourceColorSpace": "raw"}, input_connections={})
+            m.nodes[node.path] = node
+            m.nodes[m.surface_node].input_connections["roughness"] = (node.path, "r")
     if normal_map:
         lean = np.zeros((2, 2, 4), np.uint8)
         lean[...] = (200, 128, 230, 255)
@@ -212,7 +225,7 @@ def _textured_tables(device, layout: str, nee: bool, normal_map: bool, tex_dir,
                                           resident_max=4096 if layout == "resident" else 0)
     static = gi._with_split(scene, static)
     assert static.textured and static.tangents == normal_map
-    assert scene._texture_pool.packed != hdr
+    assert scene._texture_pool.packed != (hdr or grey16)
     return (fs, static, scene._material_dev, scene._texture_pool, static.textured_params,
             desc.first_camera())
 
@@ -312,6 +325,33 @@ def test_split_kernels_match_twins_float_pool(cuda, tmp_path, layout, nee, norma
     assert tb.tap_mask(1, 16, pool) & tb.TAP_FLOAT
     _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, nee,
                        f"{layout} float pool")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout", ["resident", "flattened", "instanced"])
+def test_split_kernels_match_twins_grey16_pool(cuda, tmp_path, layout):
+    """K3 and K4's FLT instances against their twins on the interior whose
+    every roughness is a 16-bit grey PNG (decoded as Pillow's "I;16" over
+    65535: a float pool), NEE on: rows 12-15, H_HIT and H_MAT bit-equal on
+    every ray (_check_split_waves)."""
+    fs, static, mats, pool, active, cam_desc = _textured_tables(cuda, layout, True, False,
+                                                                tmp_path, grey16=True)
+    assert not pool.packed and tb.tap_mask(1, 16, pool) & tb.TAP_FLOAT
+    _check_split_waves(cuda, fs, static, mats, pool, active, cam_desc, True,
+                       f"{layout} 16-bit grey pool")
+
+
+@pytest.mark.requires_cuda
+def test_fixture_decodes_on_the_card_host(cuda):
+    """Every image fixture decodes on the card's host (no Pillow there)
+    to the array Pillow gave where it was written (fixtures.npz)."""
+    from gatling_tpu_torch import imgio
+
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    cs = _chip_smoke()
+    for name in ref.files:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            assert cs.same_image(imgio.load_image(f.read()), ref[name]), name
 
 
 @pytest.mark.requires_cuda

@@ -207,5 +207,7 @@ def test_port_encoders_read_back(tmp_path):
                                   jimgio.load_image_file(tmp_path / "b.png").as_float_rgba())
     with pytest.raises(ValueError):
         timgio.load_image(b"#?RADIANCE\n")  # a truncated header
-    with pytest.raises(NotImplementedError, match="USD content"):
+    with pytest.raises(ValueError):  # a JPEG cut inside its first segment, as JAX raises
         timgio.load_image(b"\xff\xd8\xff\xe0 a JPEG")
+    with pytest.raises(ValueError):
+        jimgio.load_image(b"\xff\xd8\xff\xe0 a JPEG")

@@ -5,9 +5,11 @@ module of gatling_tpu_torch imports, and 8x8 frames of the Cornell box, of
 an instanced scene and of the textured interior (its PNG textures written
 and decoded by the port) render on the CPU, the interior also through
 the wavefront integrator, a Cornell box with an MDL fog volume (the
-port's own MDL front end) in the fused scatter mode, and USD content: a
+port's own MDL front end) in the fused scatter mode, USD content (a
 .usdz of a crate layer the port wrote, with UsdSkel figures and MaterialX
-graphs it bakes (and a MaterialX document through its own nodedefs)."""
+graphs it bakes, and a MaterialX document through its own nodedefs), and
+the interior textured with a JPEG and a TIFF fixture (tests/data/imgio),
+which the port decodes without Pillow."""
 
 import os
 import subprocess
@@ -78,6 +80,23 @@ img, scene = render_scene_file(d + "/content.usdz", 8, 8,
                                {"spp": 1, "maxBounces": 2, "frame": 12.0}, device="cpu")
 assert scene._texture_pool.count == 4 and img[..., :3].max() > 0.0
 assert any(m.traits.is_animated for m in scene._lowered_materials)
+desc = interior(detail=1, tex_dir=tempfile.mkdtemp())  # a JPEG and a TIFF base colour
+for k, path in enumerate(sorted(desc.materials)):
+    desc.materials[path].nodes[path + "/tex"].inputs["file"] = (
+        "tests/data/imgio/jpeg_420.jpg", "tests/data/imgio/tiff_lzw_pred2.tif")[k % 2]
+scene = gi.create_scene("cpu")
+for m in desc.meshes:
+    scene.add_mesh(m)
+for m in desc.materials.values():
+    scene.add_material(m)
+for light in desc.lights:
+    scene.add_light(light)
+gi.render(gi.GiRenderParams(scene=scene, camera=desc.first_camera(),
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf)],
+                            render_settings={"spp": 1, "maxBounces": 2,
+                                             "nextEventEstimation": True}))
+assert scene._texture_pool.count == 2 and scene._texture_pool.packed
+assert buf.data[..., :3].max() > 0.0
 from gatling_tpu_torch.render.mtlx import parse_mtlx
 assert parse_mtlx('<materialx><open_pbr_surface name="s" type="surfaceshader"/></materialx>',
                   name="m").nodes["/m/s"].inputs["specular_roughness"] == 0.3

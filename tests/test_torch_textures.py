@@ -118,14 +118,19 @@ def test_png_writer_rgba_and_unsupported_inputs(tmp_path):
     Image.fromarray(np.arange(12, dtype=np.uint16).reshape(3, 4) * 5000).save(buf, "PNG")
     grey16 = buf.getvalue()
     assert grey16[24] == 16
-    with pytest.raises(NotImplementedError, match="USD content"):
-        timgio.load_image(grey16)
+    got = timgio.load_image(grey16)  # float code / 65535, as Pillow's "I;16" array over 65535
+    assert got.dtype == np.float32 and timgio.is_hdr(got)
+    np.testing.assert_array_equal(got, jimgio.load_image(grey16).data)
     with pytest.raises(ValueError):  # a Radiance HDR header without its resolution line
         timgio.load_image(b"#?RADIANCE\n")
     jpeg = io.BytesIO()
     Image.fromarray(rgba[..., :3]).save(jpeg, "JPEG")
+    np.testing.assert_array_equal(timgio.load_image(jpeg.getvalue()),
+                                  jimgio.load_image(jpeg.getvalue()).data)
+    bmp = io.BytesIO()  # a format of Pillow's that the port does not read
+    Image.fromarray(rgba[..., :3]).save(bmp, "BMP")
     with pytest.raises(NotImplementedError, match="USD content"):
-        timgio.load_image(jpeg.getvalue())
+        timgio.load_image(bmp.getvalue())
 
 
 @pytest.fixture(scope="module")
