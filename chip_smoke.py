@@ -249,6 +249,24 @@ fails, with a non-zero exit, if any phase fails:
    pure-Python twin's bytes, both timed; (g) (b)'s interior with its
    textures served by a registered in-memory asset reader, bit-equal to
    (b);
+4o. the front ends (phase_front_ends): (a) the Cornell box with the
+   bench's rect light made by giCreateRectLight and its setters, rendered
+   through the Hydra delegate's render pass (1200x1200, 16 spp, 8 bounces,
+   NEE; 64 K1 launches), bit-equal to cli.render_scene_file's frame of the
+   file with the same RectLight prim (examples.cornell_rect) and to phase
+   4's gi frame, its warm time beside that frame's; (b) the textured
+   interior (512x512, 4 spp, 6 bounces, NEE) through the delegate, 6 K3 and
+   6 K4, bit-equal to gi's frame; (c) a checkpoint at 1200x1200: 8 spp,
+   giSaveCheckpoint, giLoadCheckpoint into a fresh scene, 8 more, bit-equal
+   to 16 in one scene, the save and load timed; (d) giDestroyMesh with
+   OBJECT_ID bound (the wavefront, K5/K6): the survivors' ids unchanged;
+   (e) parallelDevices 2, clamped to the cards present, bit-equal to 1;
+   (f) render_fused_sharded on [cuda:0, cuda:0]: two tiles bit-equal to the
+   one-device frame, two sample shards within RTOL/ATOL, each timed warm;
+   (g) GATLING_VALIDATE=1 on (a)'s frame: the same bits; (h) the husk
+   bridge (gatling_tpu_torch/dist/houdini) writing a PNG from a new
+   process; (i) sphere_field's meshes registered with and without the
+   compression, timed;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -4770,6 +4788,300 @@ def formats_entry(formats: dict, kernel: str) -> dict:
             "max_abs_err": t[k + "_err"]}
 
 
+# 4o: the front ends (the gi surface, the delegate, checkpoints, the CLI's
+# flags, multi-device rendering, the validation layer, the husk bridge)
+FE_ID_RES = 256  # the OBJECT_ID frames of giDestroyMesh (the wavefront: K5/K6)
+
+
+def zero_launches() -> None:
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
+
+    for counts in (tb.launches, tt.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_launches() -> dict:
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops import trace as tt
+
+    return {k: v for k, v in {**tb.launches, **tt.launches}.items() if v}
+
+
+def timed(fn):
+    """(fn(), seconds to the device's end), the launch counts set to 0
+    just before and read just after: (result, seconds, launches)."""
+    import torch
+
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def gi_bench_light(scene):
+    """The benchmark's rect light through the gi calls: the RectLight prim
+    of examples.cornell_rect (bench_rect_light) as giCreateRectLight and
+    its setters build it."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi
+
+    light = gi.giCreateRectLight(scene)
+    gi.giSetRectLightOrigin(light, (0.0, 0.0, 0.9))
+    gi.giSetRectLightTangents(light, (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    gi.giSetRectLightDimensions(light, 0.8, 0.6)
+    gi.giSetRectLightBaseEmission(light, np.float32([1.0, 0.9, 0.8]) * 4.0)
+    gi.giSetRectLightDiffuseSpecular(light, 1.0, 1.0)
+    return light
+
+
+def delegate_of(desc, device, settings: dict):
+    """A render delegate on `device` with the scene description synced and
+    `settings` set (as a host sets them)."""
+    from gatling_tpu_torch.hydra import get_renderer_plugin
+
+    plugin = get_renderer_plugin()
+    assert plugin.is_supported()
+    delegate = plugin.create_render_delegate(device)
+    for m in desc.meshes:
+        delegate.sync_mesh(m)
+    for mat in desc.materials.values():
+        delegate.sync_material(mat)
+    for light in desc.lights:
+        delegate.sync_light(light)
+    for k, v in settings.items():
+        if delegate.render_settings.get(k) != v:
+            delegate.set_render_setting(k, v)
+    return delegate
+
+
+def execute(delegate, camera, binding: str, buf, label: str):
+    """One render pass of `binding` into `buf`: (pixels, seconds, launches)."""
+    from gatling_tpu_torch.hydra import HdAovBinding
+
+    rp = delegate.create_render_pass()
+    _, dt, launches = timed(lambda: rp.execute(camera, [HdAovBinding(binding, buf)]))
+    assert buf.converged
+    log(f"4o {label}: {dt:.4f} s, launches {launches}")
+    return buf.map().copy(), dt, launches
+
+
+def phase_front_ends(device, tex_dir: str) -> dict:
+    """Phase 4o: the front ends on the card. Returns its numbers."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch import cli, gi
+    from gatling_tpu_torch.interface import AovId, aov_bit
+    from gatling_tpu_torch.parallel.sharding import make_mesh, render_fused_sharded
+    from gatling_tpu_torch.render.fused import render_pixels_fused, spp_batch_size
+    from gatling_tpu_torch.scene.examples import cornell_rect, interior, sphere_field
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    out = {}
+    usda = cornell_rect(os.path.join(tex_dir, "front_ends"))
+    settings = dict(spp=16, maxBounces=8, nextEventEstimation=True)
+    merged = cli.load_gi_scene(usda, device, dict(settings))[2]
+
+    # (a) the Cornell box with the bench's rect light made by the gi calls,
+    # through the delegate, against the CLI's frame of the RectLight prim
+    (want, cli_scene), cli_s, cli_launches = timed(
+        lambda: cli.render_scene_file(usda, FULL_RES, FULL_RES, settings, device=device))
+    log(f"4o cli.render_scene_file cornell_rect {FULL_RES}^2 16spp 8 bounces NEE: {cli_s:.4f} s "
+        f"(scene build included), launches {cli_launches}")
+    image_checks(want, "4o cli cornell_rect")
+    desc = load_scene(CORNELL)
+    delegate = delegate_of(desc, device, merged)
+    gi_bench_light(delegate.scene)
+    buf = delegate.create_render_buffer(FULL_RES, FULL_RES)
+    img, first_s, launches = execute(delegate, desc.first_camera(), "color", buf,
+                                     "delegate cornell_rect first frame")
+    assert np.array_equal(img, want), "the delegate's frame differs from the CLI's"
+    k1 = settings["spp"] // spp_batch_size(FULL_RES * FULL_RES, settings["spp"]) * 8
+    assert launches == {"K1": k1}, launches  # 64 at 1200^2: 8 waves of 2 samples
+    out["delegate_cornell_launches"] = launches
+    delegate.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, warm_s, _ = execute(delegate, desc.first_camera(), "color", buf,
+                             "delegate cornell_rect warm frame")
+    assert np.array_equal(img, want)
+    gi_params = cornell_params(device, settings, [bench_rect_light()])
+    _, gi_warm_s, _, _ = warm_render(gi_params, "4o gi cornell_nee (phase 4's frame)")
+    assert np.array_equal(gi_params.aov_bindings[0].render_buffer.data, want)
+    out.update(delegate_first_s=first_s, delegate_warm_s=warm_s, gi_warm_s=gi_warm_s,
+               cli_first_s=cli_s)
+
+    # (b) the textured interior through the delegate: K3 and K4, equal to gi
+    idesc = interior(tex_dir=tex_dir)
+    idelegate = delegate_of(idesc, device, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                nextEventEstimation=True))
+    ibuf = idelegate.create_render_buffer(SF_RES, SF_RES)
+    execute(idelegate, idesc.first_camera(), "color", ibuf, "delegate interior first frame")
+    idelegate.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    iimg, iwarm_s, ilaunches = execute(idelegate, idesc.first_camera(), "color", ibuf,
+                                       "delegate interior warm frame")
+    assert ilaunches == {"K3": 6, "K4": 6}, ilaunches
+    ref = interior_params(device, tex_dir)
+    gi.render(ref)
+    assert np.array_equal(ref.aov_bindings[0].render_buffer.data, iimg)
+    out.update(delegate_interior_launches=ilaunches, delegate_interior_warm_s=iwarm_s)
+
+    # (c) the checkpoint at the full frame: 8 spp, save, load into a fresh
+    # scene, 8 more, against 8 + 8 in one scene
+    half = dict(settings, spp=8)
+    ckpt = os.path.join(tex_dir, "front_ends", "cornell.npz")
+    scene, cdesc, cmerged = cli.load_gi_scene(usda, device, dict(half))
+    one = gi.GiRenderParams(scene=scene, camera=cdesc.first_camera(), render_settings=cmerged,
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR,
+                                                          gi.GiRenderBuffer(FULL_RES, FULL_RES))])
+    gi.render(one)
+    t0 = time.perf_counter()
+    gi.giSaveCheckpoint(scene, ckpt)
+    save_s = time.perf_counter() - t0
+    gi.render(one)
+    fresh, fdesc, fmerged = cli.load_gi_scene(usda, device, dict(half))
+    t0 = time.perf_counter()
+    offset = gi.giLoadCheckpoint(fresh, ckpt)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    two = gi.GiRenderParams(scene=fresh, camera=fdesc.first_camera(), render_settings=fmerged,
+                            aov_bindings=[gi.GiAovBinding(AovId.COLOR,
+                                                          gi.GiRenderBuffer(FULL_RES, FULL_RES))])
+    gi.render(two)
+    assert offset == 8 and fresh.sample_offset == scene.sample_offset == 16
+    assert np.array_equal(two.aov_bindings[0].render_buffer.data,
+                          one.aov_bindings[0].render_buffer.data), "the resumed frame differs"
+    size = os.path.getsize(ckpt)
+    log(f"4o checkpoint {FULL_RES}^2 COLOR: save {save_s:.4f} s, load {load_s:.4f} s, "
+        f"{size} bytes (raw {FULL_RES * FULL_RES * 16} bytes); the resumed 8 + 8 frame "
+        f"bit-equal to 16 in one scene")
+    out.update(checkpoint_save_s=save_s, checkpoint_load_s=load_s, checkpoint_bytes=size)
+
+    # (d) giDestroyMesh: the survivors' OBJECT_ID values, through K5/K6
+    ddesc = load_scene(CORNELL)
+    ddel = delegate_of(ddesc, device, dict(spp=1, maxBounces=2, nextEventEstimation=True))
+    gi_bench_light(ddel.scene)
+    ids = ddel.create_render_buffer(FE_ID_RES, FE_ID_RES, "Int32")
+    before, _, _ = execute(ddel, ddesc.first_camera(), "objectId", ids, "OBJECT_ID before")
+    doomed = next(m for m in ddel.scene.meshes if m.path.endswith("BackWall"))
+    gi.giDestroyMesh(ddel.scene, doomed)
+    after, _, dlaunches = execute(ddel, ddesc.first_camera(), "objectId", ids,
+                                  "OBJECT_ID after giDestroyMesh")
+    keep = (before != doomed.object_id) & (after >= 0)
+    assert not (after == doomed.object_id).any() and keep.mean() > 0.5
+    assert np.array_equal(after[keep], before[keep]), "a survivor's OBJECT_ID changed"
+    assert dlaunches.get("K5", 0) > 0 and dlaunches.get("K6", 0) > 0, dlaunches
+    out["destroy_mesh_launches"] = dlaunches
+
+    # (e) parallelDevices 2 on this host: clamped to the cards present
+    par, par_s, _ = timed(lambda: cli.render_scene_file(
+        usda, FULL_RES, FULL_RES, dict(settings, parallelDevices=2), device=device)[0])
+    assert np.array_equal(par, want), "parallelDevices=2 differs from 1"
+    log(f"4o parallelDevices=2 on {torch.cuda.device_count()} card(s): bit-equal to 1 "
+        f"({par_s:.4f} s, scene build included)")
+
+    # (f) render_fused_sharded on [cuda:0, cuda:0]: tiles bit-equal to the
+    # one-device frame, sample shards within RTOL/ATOL; both timed warm
+    params = gi.GiRenderParams(scene=delegate.scene, camera=desc.first_camera(),
+                               aov_bindings=[gi.GiAovBinding(AovId.COLOR, buf._gi)],
+                               render_settings=dict(delegate.render_settings))
+    config = gi._build_config(params, FULL_RES, FULL_RES, aov_bit(AovId.COLOR))
+    delegate.scene.sample_offset = 0
+    uniforms = gi.frame_uniforms(params, config)
+    fs, static = delegate.scene._fused, delegate.scene._fused_static
+    pix = torch.arange(FULL_RES * FULL_RES, device=device)
+
+    def single():
+        return render_pixels_fused(config, uniforms, fs, pix, config.spp, 0, with_stats=True)
+
+    def sharded(n_tiles, n_spp):
+        mesh = make_mesh(n_tiles, n_spp, [device] * (n_tiles * n_spp))
+        return render_fused_sharded(config, uniforms, fs, static, None, mesh)
+
+    times = {}
+    for label, fn in (("one_device", single), ("two_tiles", lambda: sharded(2, 1)),
+                      ("two_spp_shards", lambda: sharded(1, 2))):
+        fn()
+        (color, segs), dt, launches = timed(fn)
+        times[label] = (color, segs, dt, launches)
+        log(f"4o {label} on [cuda:0{', cuda:0' if label != 'one_device' else ''}]: {dt:.4f} s "
+            f"warm, launches {launches}")
+    c1, s1 = times["one_device"][:2]
+    assert torch.equal(times["two_tiles"][0], c1) and torch.equal(times["two_tiles"][1], s1)
+    cs, ss = times["two_spp_shards"][:2]
+    err = float((cs - c1).abs().max())
+    assert torch.allclose(cs, c1, rtol=RTOL, atol=ATOL) and torch.allclose(ss, s1, rtol=RTOL,
+                                                                           atol=ATOL), err
+    assert times["two_tiles"][3]["K1"] == 2 * times["one_device"][3]["K1"]
+    out.update(one_device_s=times["one_device"][2], two_tiles_s=times["two_tiles"][2],
+               two_spp_shards_s=times["two_spp_shards"][2], spp_shards_max_abs_err=err)
+
+    # (g) GATLING_VALIDATE=1: every launch synchronised and checked, the
+    # AOVs checked; the same bits
+    delegate.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    os.environ["GATLING_VALIDATE"] = "1"
+    try:
+        img, val_s, vlaunches = execute(delegate, desc.first_camera(), "color", buf,
+                                        "GATLING_VALIDATE=1 cornell_rect frame")
+    finally:
+        del os.environ["GATLING_VALIDATE"]
+    assert np.array_equal(img, want) and vlaunches == {"K1": k1}, vlaunches
+    out["validate_s"] = val_s
+
+    # (h) the husk bridge: Solaris' command line through the port's CLI
+    png = os.path.join(tex_dir, "front_ends", "husk.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "gatling_tpu_torch", "dist", "houdini",
+                                      "husk_gatling.py"), usda, "-o", png, "--res", "256", "256",
+         "--pixel-samples", "4", "--gatling:next-event-estimation", "--gatling:device",
+         device.type],
+        capture_output=True, text=True, timeout=300)
+    husk_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    from gatling_tpu_torch import imgio
+
+    pixels = np.asarray(imgio.load_image_file(png))
+    assert pixels.shape[:2] == (256, 256) and pixels.max() > 100, pixels.shape
+    log(f"4o husk bridge wrote {png} ({pixels.shape}) in {husk_s:.2f} s (a new process)")
+    out["husk_s"] = husk_s
+
+    # (i) registration compression of sphere_field's meshes
+    for mode in ("1", "0"):
+        os.environ["GATLING_COMPRESS_MESHES"] = mode
+        try:
+            sdesc = sphere_field()
+            held = [m.mesh for m in sdesc.meshes]
+            scene = gi.create_scene(device)
+            t0 = time.perf_counter()
+            for m in sdesc.meshes:
+                scene.add_mesh(m)
+            reg_s = time.perf_counter() - t0
+        finally:
+            del os.environ["GATLING_COMPRESS_MESHES"]
+        sources = {id(m) for m in held}
+        if mode == "1":
+            from gatling_tpu_torch.scene.meshproc import CompressedMesh
+
+            packed = {id(m.mesh): m.mesh for m in scene.meshes}
+            assert len(packed) == len(sources)
+            assert all(isinstance(c, CompressedMesh) for c in packed.values())
+            nbytes = sum(len(b[0]) if b[3] else b[0].nbytes
+                         for c in packed.values() for b in c.blobs.values() if b is not None)
+            raw = sum(a.nbytes for m in {id(h): h for h in held}.values()
+                      for a in vars(m).values() if isinstance(a, np.ndarray))
+            out.update(compress_register_s=reg_s, compressed_bytes=nbytes, raw_bytes=raw)
+            log(f"4o sphere_field registration: {len(sdesc.meshes)} meshes over "
+                f"{len(sources)} sources, compressed in {reg_s:.4f} s, {nbytes} of {raw} bytes")
+        else:
+            out["plain_register_s"] = reg_s
+            log(f"4o sphere_field registration with GATLING_COMPRESS_MESHES=0: {reg_s:.4f} s")
+    return out
+
+
 def phase_goldens(device, out_dir: str):
     """The committed graphical scenes that tests/test_torch_graphical.py
     renders, through gatling_tpu_torch.testing.run_graphical_test on the
@@ -5023,6 +5335,13 @@ def main() -> int:
             **{f"bvh_build_numpy_twin_{k}_s": v["twin_s"] for k, v in formats["bvh"].items()}}
     for k, v in host.items():
         log(f"4n host time {k}: {v:.4f} s on the card's host ({smi})")
+    # 4o: the front ends (gi calls, the delegate, checkpoints, parallelDevices,
+    # render_fused_sharded, GATLING_VALIDATE, the husk bridge)
+    t0 = time.perf_counter()
+    front = phase_front_ends(device, tex_tmp.name)
+    for k, v in front.items():
+        log(f"4o {k}: {v} ({smi})")
+    log(f"phase 4o: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()

@@ -8,13 +8,20 @@ camera path, AOV, gamma, and one flag per render setting. `--aov` takes
 every AOV: colour and the first-hit normal, albedo, depth and texcoords
 render through the fused kernels, the others through the wavefront
 integrator (gi.py), the ids into int32 buffers. A `DomeLight` prim's
-`inputs:texture:file` becomes the scene's dome light. `--watch`
-and `--checkpoint` are not ported yet and raise.
+`inputs:texture:file` becomes the scene's dome light. `--checkpoint
+file.npz` resumes the accumulation from the file when it exists and writes
+it after the frame (gi.giSaveCheckpoint: the JAX package's format, so a
+checkpoint crosses between the two CLIs). `--watch` renders again whenever
+the scene or a material source it reads (a texture, an .mdl module)
+changes, and re-executes itself when the port's shader code changes
+(render/, ops/, csrc/; the kernels rebuild under their new source hash);
+GATLING_WATCH_SHADERS=0 leaves the shader code unwatched.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import re
 import sys
 import time
@@ -46,9 +53,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--gamma-correction", action=argparse.BooleanOptionalAction, default=True,
                    help="encode output as sRGB (main.cpp:84-92)")
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="progressive-accumulation checkpoint (not ported yet)")
+                   help="progressive-accumulation checkpoint (.npz): resumed "
+                        "if it exists, written after the render")
     p.add_argument("--watch", action="store_true",
-                   help="re-render on scene changes (not ported yet)")
+                   help="re-render whenever the scene or a material source changes (the "
+                        "shader hot-reload analog, Gi.cpp:261-285)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the bounce kernel) or cpu (its plain twin)")
     for d in SETTING_DESCRIPTORS:
@@ -98,10 +107,12 @@ def load_gi_scene(scene_path: str, device: str, settings: dict | None = None):
 
 def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
                       aov: AovId = AovId.COLOR, camera_path: str | None = None,
-                      device: str = "cuda"):
+                      device: str = "cuda", checkpoint: str | None = None):
     """Load a USD scene and render one frame of `aov`; returns (image
     [H, W, C], scene): 4 channels for colour, at least 3 for the other
-    float AOVs, 1 int32 channel for the ids."""
+    float AOVs, 1 int32 channel for the ids. With `checkpoint`, the
+    accumulation resumes from that file when it exists, and the file is
+    written after the frame."""
     log = get_logger()
     scene, desc, merged = load_gi_scene(scene_path, device, settings)
     camera = desc.cameras.get(camera_path) if camera_path else None
@@ -118,10 +129,16 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
     params = gi.GiRenderParams(scene=scene, camera=camera,
                                aov_bindings=[gi.GiAovBinding(aov_id=aov, render_buffer=buf)],
                                render_settings=merged)
+    if checkpoint and os.path.exists(checkpoint):
+        offset = gi.giLoadCheckpoint(scene, checkpoint)
+        log.info("resumed checkpoint %s at sampleOffset %d", checkpoint, offset)
     t0 = time.monotonic()
     gi.render(params)
     log.info("rendered %dx%d @ %d spp on %s in %.2f s", width, height,
              merged.get("spp", 1), scene.device, time.monotonic() - t0)
+    if checkpoint:
+        gi.giSaveCheckpoint(scene, checkpoint)
+        log.info("wrote checkpoint %s (sampleOffset %d)", checkpoint, scene.sample_offset)
     return buf.data, scene
 
 
@@ -143,17 +160,95 @@ def write_output(img: np.ndarray, path: str, gamma_correction: bool = True,
     get_logger().info("wrote %s", path)
 
 
+def _mtimes(paths) -> dict[str, float]:
+    out = {}
+    for p in paths:
+        try:
+            out[p] = os.path.getmtime(p)
+        except OSError:
+            pass
+    return out
+
+
+def watched_material_sources(scene, scene_path: str) -> dict[str, float]:
+    """The watch set of --watch, path -> mtime: the scene file and every
+    material source it reads, the `file` inputs of shader nodes (relative
+    to the material's base_dir) and .mdl modules (gatling_tpu/cli.py:158-
+    184; the reference's efsw watcher over its shader sources,
+    Gi.cpp:261-285)."""
+    paths = {scene_path}
+    for mat in getattr(scene, "materials", {}).values():
+        base = getattr(mat, "base_dir", "") or ""
+        for node in mat.nodes.values():
+            f = node.inputs.get("file")
+            if isinstance(f, str) and f:
+                paths.add(f if os.path.isabs(f) else os.path.join(base, f))
+        mdl = getattr(mat, "mdl_source", None)
+        if mdl:
+            paths.add(mdl)
+    return _mtimes(paths)
+
+
+# the port's shader code: the render and ops modules and the kernels' sources
+_SHADER_SOURCES = (("render", (".py",)), ("ops", (".py",)), ("csrc", (".cu", ".cuh", ".cpp")))
+
+
+def watched_shader_sources() -> dict[str, float]:
+    """The shader-code watch set, path -> mtime (gatling_tpu/cli.py:187-
+    208): render/*.py, ops/*.py and csrc/*.{cu,cuh,cpp} of this package. A
+    change re-executes the CLI, so the modules import anew and an edited
+    kernel builds under its new source hash. GATLING_WATCH_SHADERS=0: none."""
+    if os.environ.get("GATLING_WATCH_SHADERS", "1") == "0":
+        return {}
+    pkg_dir = os.path.dirname(os.path.abspath(__file__))
+    paths = []
+    for sub, exts in _SHADER_SOURCES:
+        d = os.path.join(pkg_dir, sub)
+        try:
+            paths += [os.path.join(d, f) for f in os.listdir(d) if f.endswith(exts)]
+        except OSError:
+            continue
+    return _mtimes(paths)
+
+
+def _watch(args, settings: dict, aov: AovId, scene) -> int:
+    """Render again on every change of the scene's material sources;
+    re-execute on a change of the shader code (gatling_tpu/cli.py:210-258).
+    Polls every half second until interrupted."""
+    log = get_logger()
+    last = watched_material_sources(scene, args.scene)
+    last_shaders = watched_shader_sources()
+    log.info("watching %d file(s) (scene + material sources) and %d shader source(s) for "
+             "changes (ctrl-c to stop)", len(last), len(last_shaders))
+    try:
+        while True:
+            time.sleep(0.5)
+            if watched_shader_sources() != last_shaders:
+                log.info("shader source changed; reloading")
+                sys.stdout.flush()
+                os.execv(sys.executable,
+                         [sys.executable, "-m", "gatling_tpu_torch.cli"] + sys.argv[1:])
+            if watched_material_sources(scene, args.scene) != last:
+                img, scene = render_scene_file(args.scene, args.image_width,
+                                               args.image_height, settings, aov,
+                                               args.camera_path, device=args.device)
+                write_output(img, args.output, args.gamma_correction, aov)
+                last = watched_material_sources(scene, args.scene)
+    except KeyboardInterrupt:
+        return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     init_logging()
     args = build_arg_parser().parse_args(argv)
-    if args.watch or args.checkpoint:
-        raise NotImplementedError(
-            "--watch and --checkpoint are not ported yet (ROADMAP: 'Multi-GPU and front ends')")
     settings = {d.name: getattr(args, d.name) for d in SETTING_DESCRIPTORS}
     aov = AovId[args.aov.upper()]
-    img, _scene = render_scene_file(args.scene, args.image_width, args.image_height,
-                                    settings, aov, args.camera_path, device=args.device)
+    img, scene = render_scene_file(args.scene, args.image_width, args.image_height,
+                                   settings, aov, args.camera_path, device=args.device,
+                                   checkpoint=args.checkpoint)
     write_output(img, args.output, args.gamma_correction, aov)
+    if args.watch:
+        return _watch(args, settings, aov, scene)
     return 0
 
 

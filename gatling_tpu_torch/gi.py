@@ -44,15 +44,27 @@ of the texture pool. Frame and time nodes fold at the `frame` setting;
 when it changes, `render` lowers the animated materials anew
 (`_relower_animated`) and keeps the pool and the fused tables where it can.
 
-`render` raises NotImplementedError, naming the ROADMAP item, for anything
-else; it never renders something else.
+The front ends of the JAX package are ported: the C-style `gi*` surface
+(meshes registered in a versioned handle store, whose slot is the mesh's
+stable OBJECT_ID, and compressed at registration; the analytic lights'
+create, destroy and setter calls; materials), the accumulation
+checkpoints (`giSaveCheckpoint` / `giLoadCheckpoint`, the JAX package's
+file format), the validation layer (GATLING_VALIDATE=1, ops/validate.py)
+and `parallelDevices`: a fused COLOR frame shards its pixels over that many
+cards (parallel/sharding.py), clamped to the cards present. A variant the
+port does not read raises NotImplementedError naming its ROADMAP item; the
+port never renders something else.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import itertools
+import math
+import os
 import time
+import weakref
 from typing import Any
 
 import numpy as np
@@ -81,6 +93,7 @@ from gatling_tpu_torch.ops.geometry import (
     pack_geometry,
     update_instance_transforms,
 )
+from gatling_tpu_torch.ops import validate
 from gatling_tpu_torch.ops.trace import build_trace_tables
 from gatling_tpu_torch.render.assets import gi_register_asset_reader  # noqa: F401
 from gatling_tpu_torch.render.camera import camera_uniforms
@@ -108,8 +121,10 @@ from gatling_tpu_torch.render.material import (
 )
 from gatling_tpu_torch.render.shadergraph import expr_dynamic_beyond, expr_reads_primvar
 from gatling_tpu_torch.render.texture import TextureManager
+from gatling_tpu_torch.scene import meshproc
 from gatling_tpu_torch.scene.stage import CameraDesc, LightDesc, MaterialDesc, MeshDesc
 from gatling_tpu_torch.utils.config import default_settings
+from gatling_tpu_torch.utils.handles import LinearDataStore
 from gatling_tpu_torch.utils.log import get_logger, init_logging
 
 
@@ -154,11 +169,19 @@ class GiDomeLight:
 
 class GiScene:
     """Mutable scene container (reference: struct GiScene, Gi.cpp:211-232),
-    whose device tables live on `device`."""
+    whose device tables live on `device`.
+
+    Meshes register in a versioned LinearDataStore (the gb HandleStore
+    pattern, HandleStore.h:28-42; gatling_tpu/gi.py:100-215): a removed
+    mesh's handle goes stale, and the handle's slot is the mesh's
+    OBJECT_ID, so removing a mesh does not renumber the survivors."""
 
     def __init__(self, device: str | torch.device = "cuda") -> None:
         self.device = torch.device(device)
         self.meshes: list[MeshDesc] = []
+        self._mesh_store = LinearDataStore()
+        self._mesh_handles: dict[int, int] = {}  # id(mesh desc) -> handle
+        self._compress_cache: dict[int, meshproc.CompressedMesh] = {}  # id(source) -> payload
         self.materials: dict[str, MaterialDesc] = {}
         self.lights: list[LightDesc] = []
         self.dome_light: GiDomeLight | None = None
@@ -185,14 +208,45 @@ class GiScene:
         self._clusters: UniqueClusters | None = None  # instanced: the unique clusters
         self._aov_state: dict[str, torch.Tensor] | None = None  # accumulated AOVs
         self._fb_shape: tuple[int, int] | None = None
+        self._restored_checkpoint = False  # giLoadCheckpoint's state awaits its first render
         self._last_params_key = None
         self.last_segments: float = 0.0  # traced segments of the last render
 
     def add_mesh(self, mesh: MeshDesc) -> MeshDesc:
-        mesh.object_id = len(self.meshes)
+        """Register a mesh: its OBJECT_ID is its handle's slot, and its
+        buffers are compressed (byteshuffle + deflate, the giProcessMeshData
+        analog, MeshProcessing.cpp:144-212) until the geometry build;
+        GATLING_COMPRESS_MESHES=0 keeps them raw."""
+        handle = self._mesh_store.allocate(mesh)
+        self._mesh_handles[id(mesh)] = handle
+        mesh.object_id = handle & 0xFFFFFFFF
+        if (os.environ.get("GATLING_COMPRESS_MESHES", "1") != "0"
+                and not isinstance(mesh.mesh, meshproc.CompressedMesh)):
+            # one payload a source: descs that share a mesh (instances,
+            # sphere fields) keep sharing one object, on which the instanced
+            # builder dedups. The id() key goes when the source dies: a
+            # recycled id once served a dead mesh's payload to a new mesh
+            # (gatling_tpu/gi.py:155-162)
+            src = mesh.mesh
+            cached = self._compress_cache.get(id(src))
+            if cached is None:
+                cached = meshproc.compress_mesh(src)
+                self._compress_cache[id(src)] = cached
+                weakref.finalize(src, self._compress_cache.pop, id(src), None)
+            mesh.mesh = cached
         self.meshes.append(mesh)
         self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.FRAMEBUFFER
         return mesh
+
+    def remove_mesh(self, mesh: MeshDesc) -> None:
+        """Unregister a mesh; its slot is reused by the next one. A mesh
+        this scene does not hold (a stale handle) raises KeyError."""
+        handle = self._mesh_handles.pop(id(mesh), None)
+        if handle is None or not self._mesh_store.is_valid(handle):
+            raise KeyError("mesh is not registered with this scene (stale handle)")
+        self._mesh_store.free(handle)
+        self.meshes.remove(mesh)
+        self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.FRAMEBUFFER
 
     def set_mesh_transform(self, mesh: MeshDesc, transform: np.ndarray) -> None:
         """Move a mesh. Once its geometry is built, only its placements are
@@ -204,12 +258,20 @@ class GiScene:
         else:
             self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.FRAMEBUFFER
 
+    def set_mesh_material(self, mesh: MeshDesc, material_path: str) -> None:
+        mesh.material = material_path
+        self.dirty |= DirtyFlags.GEOMETRY | DirtyFlags.MATERIALS | DirtyFlags.FRAMEBUFFER
+
     def add_material(self, mat: MaterialDesc) -> None:
         self.materials[mat.path] = mat
         self.dirty |= DirtyFlags.MATERIALS | DirtyFlags.FRAMEBUFFER
 
     def add_light(self, light: LightDesc) -> None:
         self.lights.append(light)
+        self.dirty |= DirtyFlags.LIGHTS | DirtyFlags.FRAMEBUFFER
+
+    def remove_light(self, light: LightDesc) -> None:
+        self.lights.remove(light)
         self.dirty |= DirtyFlags.LIGHTS | DirtyFlags.FRAMEBUFFER
 
     def set_dome_light(self, dome: GiDomeLight | None) -> None:
@@ -228,10 +290,19 @@ class GiRenderParams:
     dome_light: GiDomeLight | None = None
 
 
+def gi_initialize() -> None:
+    """giInitialize (Gi.cpp:362-441): logging."""
+    init_logging()
+
+
+def gi_terminate() -> None:
+    """giTerminate: nothing to release; the kernels' builds stay loaded."""
+
+
 def create_scene(device: str | torch.device = "cuda") -> GiScene:
     """giCreateScene. A CUDA device must exist: the port never falls back
     to the CPU on its own."""
-    init_logging()
+    gi_initialize()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
@@ -372,11 +443,18 @@ def _uses_vertex_colours(scene: GiScene) -> bool:
     return vcolor and any(getattr(m.mesh, "colors", None) is not None for m in scene.meshes)
 
 
-def _check_route(params: GiRenderParams) -> None:
-    """Raise for what neither route of the port renders."""
-    if int(params.render_settings.get("parallelDevices", 1) or 1) > 1:
-        raise NotImplementedError(
-            "parallelDevices > 1 is not ported yet (ROADMAP: 'Multi-GPU and front ends')")
+def _parallel_devices(settings: dict, device: torch.device) -> int:
+    """The parallelDevices setting clamped to the cards present
+    (gatling_tpu/gi.py:440-449): 1 on the CPU or on a one-card host, where
+    the frame renders on the scene's device. Never a CPU render."""
+    want = int(settings.get("parallelDevices", 1) or 1)
+    if want <= 1:
+        return 1
+    have = torch.cuda.device_count() if device.type == "cuda" else 1
+    if want > have:
+        get_logger().info("parallelDevices=%d clamped to the %d %s device(s) present", want,
+                          have, device.type)
+    return max(1, min(want, have))
 
 
 def _opacity_textures(lowered: list) -> bool:
@@ -547,7 +625,20 @@ def render(params: GiRenderParams) -> None:
     """giRender analog (reference: Gi.cpp:1989-2524): resolve dirty state,
     rebuild device tables, render the frame through the fused bounce
     kernels or the wavefront integrator, blend it into the AOV buffers and
-    copy them to the host buffers."""
+    copy them to the host buffers.
+
+    GATLING_VALIDATE=1 turns the validation layer on (gatling_tpu/gi.py
+    :451-474): the card is synchronised after every kernel launch, whose
+    outputs must be finite (ops/validate.py), and every AOV must be finite
+    before the host copy. It changes no value of the frame."""
+    if os.environ.get("GATLING_VALIDATE") == "1":
+        with validate.validating():
+            _render_impl(params, check=True)
+        return
+    _render_impl(params)
+
+
+def _render_impl(params: GiRenderParams, check: bool = False) -> None:
     log = get_logger()
     scene = params.scene
     if not params.aov_bindings:
@@ -612,9 +703,18 @@ def render(params: GiRenderParams) -> None:
         scene._light_dev = light_tensors(scene._light_arrays, scene.device)
         scene._fused = None
     if scene.dirty & DirtyFlags.FRAMEBUFFER or scene._fb_shape != (width, height):
-        scene.sample_offset = 0
-        scene._fb_shape = (width, height)
-        scene._aov_state = None
+        if scene._restored_checkpoint and scene._fb_shape == (width, height):
+            # a restored checkpoint outlives the first render's framebuffer
+            # reset (a fresh scene has every flag set; gatling_tpu/gi.py:595-605)
+            scene._restored_checkpoint = False
+        else:
+            if scene._restored_checkpoint:
+                log.error("checkpoint resolution %s does not match the framebuffer %s; "
+                          "accumulation reset", scene._fb_shape, (width, height))
+                scene._restored_checkpoint = False
+            scene.sample_offset = 0
+            scene._fb_shape = (width, height)
+            scene._aov_state = None
     if scene._aov_state is None or set(scene._aov_state) != {
             _AOV_KEYS[b.aov_id] for b in params.aov_bindings}:
         scene._aov_state = _init_aov_state(params.aov_bindings, n, scene.device)
@@ -628,26 +728,19 @@ def render(params: GiRenderParams) -> None:
     wavefront = (bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
                  or bool(config.dynamic_params) or config.has_backface
                  or not _volumes_fused(scene, config))
-    _check_route(params)
     s = params.render_settings
     dome_obj = params.dome_light or scene.dome_light
-    uniforms = Uniforms(
-        camera=camera_uniforms(params.camera, config.depth_of_field, scene.device),
-        sample_offset=scene.sample_offset,
-        inv_total_sample_count=f32(1.0 / (scene.sample_offset + config.spp)),
-        max_sample_value=f32(s.get("maxSampleValue", 10.0)),
-        rr_inv_min_term_prob=f32(s.get("rrInvMinTermProb", 0.95)),
-        light_intensity_multiplier=f32(s.get("lightIntensityMultiplier", 1.0)),
-        meters_per_scene_unit=f32(s.get("metersPerSceneUnit", 1.0)),
-        max_volume_walk_length=int(s.get("maxVolumeWalkLength", 7)),
-        **_dome_uniforms(dome_obj, scene.device),
-    )
+    uniforms = frame_uniforms(params, config)
     dome = _load_dome(dome_obj, scene.device) if config.has_dome else None
     if wavefront:
         if scene._accel is None:
             _build_accel(scene)
         inst_pv = {name: torch.as_tensor(table, device=scene.device)
                    for name, table in build_instance_primvar_tables(scene.meshes).items()}
+        if _parallel_devices(s, scene.device) > 1:
+            # the JAX package shards the wavefront only for its brute tracer
+            # (gatling_tpu/gi.py:822-836), which the port's routing never picks
+            log.warning("parallelDevices: the wavefront integrator renders on one device")
         scene._aov_state = render_frame(config, uniforms, scene._packed, scene._material_dev,
                                         scene._light_dev, scene._aov_state,
                                         scene._texture_pool, scene._accel, dome,
@@ -663,12 +756,27 @@ def render(params: GiRenderParams) -> None:
         # read the raw material table and the pool (gatling_tpu/gi.py:757-760)
         want_first = aov_mask != aov_bit(AovId.COLOR)
         tables = static.textured or want_first or config.clipping_planes
-        out = render_pixels_fused(
-            config, uniforms, scene._fused, pix, config.spp, scene.sample_offset,
-            with_stats=True, materials=scene._material_dev if tables else None,
-            textures=scene._texture_pool if tables else None,
-            textured_params=static.textured_params, want_first_hit=want_first,
-            split=static.textured, cutout_textured=static.cutout_textured, dome=dome)
+        materials = scene._material_dev if tables else None
+        textures = scene._texture_pool if tables else None
+        n_par = _parallel_devices(s, scene.device)
+        if n_par > 1 and not want_first and n % n_par == 0:
+            # the frame's pixels in n_par tiles, one a card (gatling_tpu/gi.py
+            # :762-779); the JAX package also needs whole 128-ray Mosaic
+            # blocks a tile (n % (n_par * 128)), a kernel here takes any count
+            from gatling_tpu_torch.parallel.sharding import make_mesh, render_fused_sharded
+
+            out = render_fused_sharded(config, uniforms, scene._fused, static, dome,
+                                       make_mesh(n_tiles=n_par), materials, textures)
+        else:
+            if n_par > 1:
+                log.warning("parallelDevices=%d requested but rendering on one device: %s",
+                            n_par, "first-hit AOVs requested" if want_first
+                            else f"pixel count {n} not divisible into {n_par} tiles")
+            out = render_pixels_fused(
+                config, uniforms, scene._fused, pix, config.spp, scene.sample_offset,
+                with_stats=True, materials=materials, textures=textures,
+                textured_params=static.textured_params, want_first_hit=want_first,
+                split=static.textured, cutout_textured=static.cutout_textured, dome=dome)
         color, segs = out[0], out[1]
         first = empty_first_hit(n, scene.device)
         if want_first:
@@ -680,6 +788,13 @@ def render(params: GiRenderParams) -> None:
         scene._aov_state = blend_aovs(config, uniforms, scene._aov_state,
                                       SampleResult(color, torch.zeros_like(pix), first))
 
+    if check:
+        # every AOV finite before the host copy: a NaN names its AOV
+        for key2, arr in scene._aov_state.items():
+            if arr.is_floating_point() and not bool(torch.isfinite(arr).all()):
+                raise FloatingPointError(
+                    f"GATLING_VALIDATE: AOV {key2!r} contains "
+                    f"{int((~torch.isfinite(arr)).sum())} non-finite values")
     # device -> host copies of every bound AOV (Gi.cpp:2439-2502)
     for b in params.aov_bindings:
         arr = scene._aov_state[_AOV_KEYS[b.aov_id]].cpu().numpy()
@@ -694,6 +809,24 @@ def render(params: GiRenderParams) -> None:
         if buf.channels == 4 and arr.shape[1] == 3:
             out[:, 3] = 1
     scene.sample_offset += config.spp  # Gi.cpp:2515
+
+
+def frame_uniforms(params: GiRenderParams, config: RenderConfig) -> Uniforms:
+    """The frame's uniforms on the scene's device: the camera, the
+    accumulation's sample offset and weight, the settings' scalars and the
+    dome's rotation and emission."""
+    scene, s = params.scene, params.render_settings
+    return Uniforms(
+        camera=camera_uniforms(params.camera, config.depth_of_field, scene.device),
+        sample_offset=scene.sample_offset,
+        inv_total_sample_count=f32(1.0 / (scene.sample_offset + config.spp)),
+        max_sample_value=f32(s.get("maxSampleValue", 10.0)),
+        rr_inv_min_term_prob=f32(s.get("rrInvMinTermProb", 0.95)),
+        light_intensity_multiplier=f32(s.get("lightIntensityMultiplier", 1.0)),
+        meters_per_scene_unit=f32(s.get("metersPerSceneUnit", 1.0)),
+        max_volume_walk_length=int(s.get("maxVolumeWalkLength", 7)),
+        **_dome_uniforms(params.dome_light or scene.dome_light, scene.device),
+    )
 
 
 def _dome_uniforms(dome: GiDomeLight | None, device) -> dict:
@@ -749,15 +882,148 @@ def _turbo_heatmap(values: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, bl], axis=1), 0.0, 1.0).astype(np.float32)
 
 
-# the reference's asset-reader registration (Gi.h giRegisterAssetReader;
-# gatling_tpu/gi.py:916): texture bytes come through the registered readers
+# ---------------------------------------------------------------------------
+# the reference's C-style surface (Gi.h:199-261; gatling_tpu/gi.py:911-1194)
+# ---------------------------------------------------------------------------
+
+giInitialize = gi_initialize
+giTerminate = gi_terminate
+giCreateScene = create_scene
+giRender = render
+# texture bytes come through the registered readers (render/assets.py)
 giRegisterAssetReader = gi_register_asset_reader
 
 
-# ---------------------------------------------------------------------------
-# the reference's C-style names of the dome light's calls (Gi.h:199-261;
-# gatling_tpu/gi.py:939-942, :1111-1123)
-# ---------------------------------------------------------------------------
+def giCreateRenderBuffer(width: int, height: int, channels: int = 4,
+                         is_int: bool = False) -> GiRenderBuffer:
+    return GiRenderBuffer(width, height, channels, is_int)
+
+
+def giCreateMesh(scene: GiScene, mesh_desc: MeshDesc) -> MeshDesc:
+    return scene.add_mesh(mesh_desc)
+
+
+def giDestroyMesh(scene: GiScene, mesh: MeshDesc) -> None:
+    scene.remove_mesh(mesh)
+
+
+def giSetMeshTransform(scene: GiScene, mesh: MeshDesc, mat: np.ndarray) -> None:
+    scene.set_mesh_transform(mesh, mat)
+
+
+def giSetMeshMaterial(scene: GiScene, mesh: MeshDesc, material_path: str) -> None:
+    scene.set_mesh_material(mesh, material_path)
+
+
+# The analytic lights (Gi.h:223-257): each handle is a LightDesc whose
+# params carry `explicit_frame` (positions, tangents and radii given as
+# they are, not read off a USD transform; render/lights.py), created with
+# Gi.cpp's defaults: unit emission, diffuse = specular = 1.
+_light_ids = itertools.count(1)
+
+
+def _gi_make_light(scene: GiScene, light_type: str, **extra) -> LightDesc:
+    params = dict(intensity=1.0, exposure=0.0, color=np.ones(3, np.float32), normalize=False,
+                  diffuse=1.0, specular=1.0, enableColorTemperature=False,
+                  colorTemperature=6500.0, explicit_frame=True)
+    params.update(extra)
+    light = LightDesc(path=f"/__gi_light_{next(_light_ids)}", light_type=light_type,
+                      transform=np.eye(4), params=params)
+    light._gi_scene = scene  # type: ignore[attr-defined]
+    scene.add_light(light)
+    return light
+
+
+def _gi_light_dirty(light: LightDesc) -> None:
+    light._gi_scene.dirty |= DirtyFlags.LIGHTS | DirtyFlags.FRAMEBUFFER  # type: ignore[attr-defined]
+
+
+def _gi_destroy_light(scene: GiScene, light: LightDesc) -> None:
+    scene.remove_light(light)
+
+
+def _gi_set_origin(light: LightDesc, origin) -> None:
+    light.transform = np.eye(4)
+    light.transform[3, :3] = np.asarray(origin, np.float64)
+    _gi_light_dirty(light)
+
+
+def _gi_set_emission(light: LightDesc, rgb) -> None:
+    # the base emission is the final product (the Hydra layer folds in
+    # intensity, exposure and normalisation, light.cpp:59-90): a colour
+    # under unit multipliers
+    light.params.update(color=np.asarray(rgb, np.float32), intensity=1.0, exposure=0.0,
+                        normalize=False)
+    _gi_light_dirty(light)
+
+
+def _gi_set_tangents(light: LightDesc, t0, t1) -> None:
+    light.params.update(t0=tuple(t0), t1=tuple(t1))
+    _gi_light_dirty(light)
+
+
+def _gi_set_diff_spec(light: LightDesc, diffuse: float, specular: float) -> None:
+    light.params.update(diffuse=float(diffuse), specular=float(specular))
+    _gi_light_dirty(light)
+
+
+def giCreateSphereLight(scene: GiScene) -> LightDesc:
+    return _gi_make_light(scene, "sphere", radius=0.5, radius_xyz=(0.5, 0.5, 0.5),
+                          treatAsPoint=False)
+
+
+def giSetSphereLightRadius(light: LightDesc, rx: float, ry: float, rz: float) -> None:
+    light.params.update(radius_xyz=(rx, ry, rz), radius=max(rx, ry, rz))
+    _gi_light_dirty(light)
+
+
+def giCreateDistantLight(scene: GiScene) -> LightDesc:
+    return _gi_make_light(scene, "distant", angle=0.0, direction=(0.0, 0.0, -1.0))
+
+
+def giSetDistantLightDirection(light: LightDesc, direction) -> None:
+    light.params["direction"] = np.asarray(direction, np.float64)
+    _gi_light_dirty(light)
+
+
+def giSetDistantLightAngle(light: LightDesc, angle: float) -> None:
+    # radians here, as in the reference; the light tables read the USD
+    # layer's degrees
+    light.params["angle"] = math.degrees(float(angle))
+    _gi_light_dirty(light)
+
+
+def giCreateRectLight(scene: GiScene) -> LightDesc:
+    return _gi_make_light(scene, "rect", width=1.0, height=1.0, t0=(1.0, 0.0, 0.0),
+                          t1=(0.0, 1.0, 0.0))
+
+
+def giSetRectLightDimensions(light: LightDesc, width: float, height: float) -> None:
+    light.params.update(width=float(width), height=float(height))
+    _gi_light_dirty(light)
+
+
+def giCreateDiskLight(scene: GiScene) -> LightDesc:
+    return _gi_make_light(scene, "disk", radius=0.5, radius_xy=(0.5, 0.5), t0=(1.0, 0.0, 0.0),
+                          t1=(0.0, 1.0, 0.0))
+
+
+def giSetDiskLightRadius(light: LightDesc, rx: float, ry: float) -> None:
+    light.params.update(radius_xy=(rx, ry), radius=max(rx, ry))
+    _gi_light_dirty(light)
+
+
+giDestroySphereLight = giDestroyDistantLight = _gi_destroy_light
+giDestroyRectLight = giDestroyDiskLight = _gi_destroy_light
+giSetSphereLightPosition = giSetRectLightOrigin = giSetDiskLightOrigin = _gi_set_origin
+giSetSphereLightBaseEmission = giSetDistantLightBaseEmission = _gi_set_emission
+giSetRectLightBaseEmission = giSetDiskLightBaseEmission = _gi_set_emission
+giSetRectLightTangents = giSetDiskLightTangents = _gi_set_tangents
+giSetSphereLightDiffuseSpecular = giSetDistantLightDiffuseSpecular = _gi_set_diff_spec
+giSetRectLightDiffuseSpecular = giSetDiskLightDiffuseSpecular = _gi_set_diff_spec
+
+
+# the dome light's calls (gatling_tpu/gi.py:939-942, :1111-1123)
 
 def giCreateDomeLight(scene: GiScene, file_path: str) -> GiDomeLight:
     dome = GiDomeLight(file_path=file_path)
@@ -797,3 +1063,55 @@ def giCreateMaterialFromMtlxDoc(scene: GiScene, name: str, path: str) -> Materia
     mat = load_mtlx(path)
     scene.add_material(mat)
     return mat
+
+
+def giCreateMaterialFromMdlFile(scene: GiScene, name: str, file_path: str,
+                                sub_identifier: str | None = None,
+                                params: dict | None = None) -> MaterialDesc:
+    """Reference: Gi.h giCreateMaterialFromMdlFile (gatling_tpu/gi.py:1145)."""
+    from gatling_tpu_torch.render.mdl import load_mdl_material
+
+    mat = load_mdl_material(file_path, sub_identifier, params, name=name)
+    scene.add_material(mat)
+    return mat
+
+
+def giDestroyMaterial(scene: GiScene, mat: MaterialDesc) -> None:
+    scene.materials.pop(mat.path, None)
+    scene.dirty |= DirtyFlags.MATERIALS | DirtyFlags.FRAMEBUFFER
+
+
+# ---------------------------------------------------------------------------
+# the accumulation state on disk (gatling_tpu/gi.py:1162-1194): the AOV
+# buffers and sampleOffset, so a long render resumes in another process.
+# The JAX package's np.savez_compressed layout: __sample_offset__ (int64),
+# __fb_shape__ (int64 [2]: width, height) and one array per bound AOV under
+# its _AOV_KEYS name ([n] or [n, channels], f32 or int32 for the ids); a
+# file either package writes loads into the other.
+# ---------------------------------------------------------------------------
+
+def giSaveCheckpoint(scene: GiScene, path: str) -> None:
+    """Write the scene's accumulation state to `path` (the AOVs leave the
+    device only here)."""
+    if scene._aov_state is None or scene._fb_shape is None:
+        raise ValueError("nothing to checkpoint: no frame rendered yet")
+    arrays = {k: v.cpu().numpy() for k, v in scene._aov_state.items()}
+    np.savez_compressed(path, __sample_offset__=np.int64(scene.sample_offset),
+                        __fb_shape__=np.asarray(scene._fb_shape, np.int64), **arrays)
+
+
+def giLoadCheckpoint(scene: GiScene, path: str) -> int:
+    """Restore a checkpoint onto the scene's device; the next render
+    accumulates on from its sampleOffset, which is returned. A framebuffer
+    of another size resets it at that render (logged)."""
+    with np.load(path) as data:
+        fb = tuple(int(x) for x in data["__fb_shape__"])
+        aovs = {k: torch.as_tensor(v, device=scene.device) for k, v in data.items()
+                if not k.startswith("__")}
+        offset = int(data["__sample_offset__"])
+    scene._aov_state = aovs
+    scene._fb_shape = fb
+    scene.sample_offset = offset
+    scene.dirty &= ~DirtyFlags.FRAMEBUFFER
+    scene._restored_checkpoint = True
+    return offset

@@ -116,6 +116,7 @@ from gatling_tpu_torch.ops.bvh import (  # noqa: F401 (TLAS_*: the TLAS builder'
     plane_corners,
     tri_bvh,
 )
+from gatling_tpu_torch.ops import validate
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry, real_triangles
 from gatling_tpu_torch.ops.split_ref import (
@@ -1235,6 +1236,7 @@ def _bounce_cuda(params, tris, bvh, mats, lights, light_types, state, nee: bool,
     kernel().launch(params, tris, _bvh(bvh), mats, lights, light_types, state, nee, advanced,
                     cutout, volumes)
     launches["K1"] += 1
+    validate.after_launch("K1", lambda: validate.state_rows(state))
 
 
 def _bounce_cpu(params, tris, bvh, mats, lights, light_types, state, nee: bool,
@@ -1248,6 +1250,7 @@ def _walk_cuda(params, tris, mats, lights, light_types, walk, state, nee: bool,
     kernel().launch_walk(params, tris, mats, lights, light_types, _walk(walk), state, nee,
                          advanced, cutout, volumes)
     launches["K2"] += 1
+    validate.after_launch("K2", lambda: validate.state_rows(state))
 
 
 def _walk_cpu(params, tris, mats, lights, light_types, walk, state, nee: bool,
@@ -1261,6 +1264,7 @@ def _trace_cuda(params, tris, state, walk, bvh, cutout: bool) -> torch.Tensor:
                       device=state.device)
     kernel().launch_trace(params, tris, _walk(walk), _bvh(bvh), state, hit, cutout)
     launches["K3"] += 1
+    validate.after_launch("K3", lambda: validate.hit_rows(hit))
     return hit
 
 
@@ -1300,6 +1304,7 @@ def _shade_cuda(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, 
     kernel().launch_shade(params, tris, mats, lights, light_types, _walk(walk), _bvh(bvh), state,
                           hit, mat_i, pool, mask, nee, advanced, cutout, volumes)
     launches["K4f" if mask & TAP_FLOAT else "K4"] += 1
+    validate.after_launch("K4", lambda: validate.state_rows(state))
 
 
 def _shade_cpu(params, tris, mats, lights, light_types, walk, bvh, hit, mat_f, mat_i, pool,
@@ -1403,6 +1408,7 @@ def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePo
            int(hitbuf.shape[0] == HIT_ROWS_TAN), hitbuf.shape[1], *taps, out.data_ptr(),
            k.stream(hitbuf))
     launches["K4tf" if flt else "K4t"] += 1
+    validate.after_launch("K4t", lambda: (out[:, hitbuf[0] > 0.5],))  # missed rays: unwritten
     return out
 
 

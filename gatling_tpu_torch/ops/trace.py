@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from gatling_tpu_torch.ops.bvh import ThreadedBvh, TriBvh, tri_bvh
+from gatling_tpu_torch.ops import validate
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import real_triangles
 from gatling_tpu_torch.ops.intersect import Hit
@@ -259,6 +260,7 @@ def _closest_cuda(key, origins, launch) -> Hit:
     u, v = torch.empty_like(t), torch.empty_like(t)
     launch((t, tri, u, v))
     launches[key] += 1
+    validate.after_launch(key, lambda: (t, u, v))
     return Hit(t, tri, u, v)
 
 

@@ -254,7 +254,7 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
                         textures: TexturePool | None = None,
                         textured_params: tuple[str, ...] = (), want_first_hit: bool = False,
                         split: bool | None = None, cutout_textured: bool = False,
-                        dome: DomeLightData | None = None):
+                        dome: DomeLightData | None = None, spp_batch: int | None = None):
     """Mean color [R,3] over spp samples of the pixels `pixel_index`; with
     with_stats also the mean traced-segment count per sample [R] (path
     segments + NEE shadow rays: the Mray/s accounting source); with
@@ -264,7 +264,10 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     `split` (by default, whether `textures` is given) every bounce splits
     into trace and shade, tapping the parameters `textured_params`;
     `cutout_textured` re-traces the rays an opacity texture rejects; with
-    config.has_dome the misses see `dome` (black when None)."""
+    config.has_dome the misses see `dome` (black when None). `spp_batch`
+    (a divisor of spp) sets the samples a wave, spp_batch_size's choice by
+    default: a tile of a frame keeps the whole frame's waves with it
+    (parallel/sharding.py)."""
     split = textures is not None if split is None else split
     peel = want_first_hit or config.clipping_planes
     if (peel or cutout_textured or split) and (materials is None or textures is None):
@@ -276,7 +279,8 @@ def render_pixels_fused(config: RenderConfig, uniforms: Uniforms, scene: FusedSc
     # several samples per pixel in one wave: the sample index of replica k
     # in step s is offset + s * batch + k, the same stream as one sample
     # per step
-    spp_batch = spp_batch_size(r, spp, want_first_hit)
+    if spp_batch is None:
+        spp_batch = spp_batch_size(r, spp, want_first_hit)
     rb = r * spp_batch
     sort_rays = scene.walk is not None
     tile_perm = None

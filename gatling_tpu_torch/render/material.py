@@ -34,6 +34,8 @@ own (packed_i column MI_BACKFACE_ID) for back-facing hits.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -96,6 +98,10 @@ class MaterialTable(NamedTuple):
 class MaterialTraits:
     """Host-side material traits (reference: mc/Material.h McMaterial)."""
 
+    # an emission above 0 or an emission texture, and thin_walled set (the
+    # JAX package's traits, which GATLING_DUMP_MATERIALS writes)
+    is_emissive: bool = False
+    is_thin_walled: bool = False
     has_backface_edf: bool = False
     # an opacity below 1, an opacity threshold or an opacity texture: the
     # wavefront integrator draws a cutout decision at every hit
@@ -303,10 +309,40 @@ def lower_material(desc: MaterialDesc | None, frame: float = 0.0) -> LoweredMate
     # the MDL front end's backface traits and parameters (render/mdl.py)
     traits.has_backface_bsdf = bool(node.inputs.get("has_backface_bsdf", False))
     traits.has_backface_edf = bool(node.inputs.get("has_backface_edf", False))
+    traits.is_emissive = any(c > 0.0 for c in params["emissive"]) or "emissive" in textures
     traits.has_cutout = (params["opacity_threshold"] > 0.0 or params["opacity"] < 1.0
                          or "opacity" in textures)
-    return LoweredMaterial(params=params, traits=traits, textures=textures, dynamic=dynamic,
-                           backface=dict(node.inputs.get("backface_params") or {}))
+    traits.is_thin_walled = bool(params["thin_walled"])
+    out = LoweredMaterial(params=params, traits=traits, textures=textures, dynamic=dynamic,
+                          backface=dict(node.inputs.get("backface_params") or {}))
+    dump_material(desc, out)
+    return out
+
+
+def dump_material(desc: MaterialDesc, low: LoweredMaterial) -> None:
+    """GATLING_DUMP_MATERIALS=<dir>: write the lowered material (its
+    parameters, textures, dynamic inputs and traits) as one JSON document
+    named after its path, the same document as gatling_tpu/render/
+    material.py:344-370 (the reference's GTL_DUMP_MTLX / GTL_DUMP_MDL
+    source dumps, MtlxMdlCodeGen.cpp:249,280)."""
+    out_dir = os.environ.get("GATLING_DUMP_MATERIALS")
+    if not out_dir:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    name = (desc.path or "anon").strip("/").replace("/", "_") or "anon"
+    doc = {
+        "path": desc.path,
+        "surface_node": desc.surface_node,
+        "params": {k: (list(v) if isinstance(v, (tuple, list)) else v)
+                   for k, v in low.params.items()},
+        "textures": {k: dataclasses.asdict(t) if dataclasses.is_dataclass(t) else str(t)
+                     for k, t in low.textures.items()},
+        "dynamic": {k: repr(e) for k, e in low.dynamic.items()},
+        "traits": dataclasses.asdict(low.traits),
+        "backface": bool(low.backface),
+    }
+    with open(os.path.join(out_dir, name + ".json"), "w") as f:
+        json.dump(doc, f, indent=2, default=str)
 
 
 def build_materials(lowered: list[LoweredMaterial], texture_manager: TextureManager | None = None,

@@ -477,6 +477,19 @@ def _cornell_with_tall_block(out_dir: str, name: str, material: str, prim: str) 
     return path
 
 
+def cornell_rect(out_dir: str) -> str:
+    """tests/data/cornell.usda with the benchmark's rect light as a
+    RectLight prim: out_dir/cornell_rect.usda (the scene of the front
+    ends' frames: the CLI renders it, the gi calls build the same light)."""
+    text = _CORNELL_USDA.read_text()
+    tall = text.index('def Mesh "TallBlock"')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cornell_rect.usda")
+    with open(path, "w") as f:
+        f.write(text[:tall] + _BENCH_RECT_LIGHT + text[tall:])
+    return path
+
+
 def glass_tinted(out_dir: str) -> str:
     """The Cornell box with its tall block in OmniGlass tinted GLASS_TINT
     (info:mdl:sourceAsset = @OmniGlass.mdl@, resolved in the bundled

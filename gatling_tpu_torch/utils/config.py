@@ -41,8 +41,8 @@ SETTING_DESCRIPTORS: list[SettingDescriptor] = [
     SettingDescriptor("metersPerSceneUnit", float, 1.0, "meters per scene unit"),
     SettingDescriptor("progressiveAccumulation", bool, True, "progressive sample accumulation", debug_only=True),
     SettingDescriptor("domeLightCameraVisible", bool, True, "dome light visible to camera"),
-    # no reference counterpart: shard the frame across N devices (the port
-    # renders on one card; values above 1 raise, ROADMAP 'Multi-GPU')
+    # no reference counterpart: shard a fused COLOR frame's pixels across N
+    # devices (parallel/sharding.py), clamped to the devices present
     SettingDescriptor("parallelDevices", int, 1, "shard the frame across N devices (1 = single device)"),
     SettingDescriptor("frame", float, 0.0,
                       "USD timecode to render: resolves authored "

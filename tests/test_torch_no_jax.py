@@ -9,7 +9,10 @@ port's own MDL front end) in the fused scatter mode, USD content (a
 .usdz of a crate layer the port wrote, with UsdSkel figures and MaterialX
 graphs it bakes, and a MaterialX document through its own nodedefs), and
 the interior textured with a JPEG and a TIFF fixture (tests/data/imgio),
-which the port decodes without Pillow."""
+which the port decodes without Pillow; and the front ends: the Hydra
+delegate with a gi rect light, giDestroyMesh, a checkpoint saved and
+loaded, the driver entry's multi-device dry run, and the CLI with
+parallelDevices and --checkpoint."""
 
 import os
 import subprocess
@@ -100,6 +103,30 @@ assert buf.data[..., :3].max() > 0.0
 from gatling_tpu_torch.render.mtlx import parse_mtlx
 assert parse_mtlx('<materialx><open_pbr_surface name="s" type="surfaceshader"/></materialx>',
                   name="m").nodes["/m/s"].inputs["specular_roughness"] == 0.3
+from gatling_tpu_torch.hydra import HdAovBinding, get_renderer_plugin  # the front ends
+from gatling_tpu_torch.scene.stage import load_scene
+delegate = get_renderer_plugin().create_render_delegate("cpu")
+desc = load_scene("tests/data/cornell.usda")
+meshes = [delegate.sync_mesh(m) for m in desc.meshes]
+for m in desc.materials.values():
+    delegate.sync_material(m)
+light = gi.giCreateRectLight(delegate.scene)
+gi.giSetRectLightOrigin(light, (0.0, 0.0, 0.9))
+gi.giSetRectLightBaseEmission(light, (4.0, 3.6, 3.2))
+delegate.set_render_setting("spp", 2)
+delegate.set_render_setting("nextEventEstimation", True)
+hd = delegate.create_render_buffer(8, 8)
+delegate.create_render_pass().execute(desc.first_camera(), [HdAovBinding("color", hd)])
+gi.giDestroyMesh(delegate.scene, meshes[2])
+ckpt = tempfile.mkdtemp() + "/c.npz"
+gi.giSaveCheckpoint(delegate.scene, ckpt)
+assert gi.giLoadCheckpoint(gi.create_scene("cpu"), ckpt) == 2 and hd.map()[..., :3].max() > 0
+from gatling_tpu_torch import entry
+entry.dryrun_multidevice(2, "cpu")  # render_frame_sharded, render_fused_sharded
+img, scene = render_scene_file("tests/data/cornell.usda", 8, 8,
+                               {"spp": 2, "maxBounces": 2, "parallelDevices": 2}, device="cpu",
+                               checkpoint=tempfile.mkdtemp() + "/cli.npz")
+assert scene.sample_offset == 2 and img[..., :3].max() > 0.0
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")
