@@ -267,6 +267,23 @@ fails, with a non-zero exit, if any phase fails:
    bridge (gatling_tpu_torch/dist/houdini) writing a PNG from a new
    process; (i) sphere_field's meshes registered with and without the
    compression, timed;
+4p. the remaining formats (phase_formats2): (a) every fixture of
+   tests/data/imgio past 4n's fifteen (BMP, DIB, ICO, CUR, GIF, DDS BC1-BC7
+   and raw, PSD, QOI, PPM/PGM/PBM/PFM, 16-bit TGA, palette, CMYK, 4-bit,
+   32-bit, planar, fill-order-2, old-LZW, JPEG-compressed and BigTIFF, CMYK,
+   YCCK, 4:1:1 and 3x1 JPEG) decoded on the card's host, bit-equal to
+   fixtures.npz; (b) the textured interior at 512x512, 4 spp, 6 bounces,
+   NEE, its twelve 8-bit slots (ten base colours, two roughnesses) BMP, GIF,
+   DDS BC1/BC3/BC7, PSD, QOI, PPM, 16-bit TGA, palette TIFF, JPEG-in-TIFF
+   and CMYK JPEG: 6 K3 and 6 K4 a frame, bit-equal to the frame whose
+   textures are PNGs of the port's decoded codes, K3 and K4 on its bounce-0
+   wave against their twins; (c) the same interior with a 16-bit PGM, a
+   PFM and a 1-bit BMP as the roughnesses (a float pool): 6 K4f a frame,
+   K3 and K4f on its bounce-0 wave against their twins, its 128x128 frame
+   against the wavefront's (MEAN_SIGMAS); (d) the host times of (b)'s and
+   (c)'s pool builds; (e) GATLING_FUSED=0 with GATLING_TRACER=brute (the
+   plain Moller-Trumbore: no kernel launched, a request, not a fallback)
+   and =bvh (B1/B2) on the Cornell box at 64x64;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -4181,7 +4198,7 @@ def phase_dome(device, tex_dir: str):
 
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
-                formats: dict) -> list[dict]:
+                formats: dict, formats2: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
@@ -4206,6 +4223,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "bound_ms_resident_cornell_hdr": c["bound"][0],
         "distinct_texel_rows_resident_cornell_hdr": c["k4_texels"],
         "formats": formats_entry(formats, "K4f"),
+        "formats2": formats_entry(formats2, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -4779,6 +4797,171 @@ def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threade
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4p: the remaining image formats (BMP, GIF, DDS, PSD, QOI, Netpbm, 16-bit
+# TGA, palette and JPEG-compressed TIFF, CMYK JPEG ...) through the texture
+# path, and the tracer switches
+# ---------------------------------------------------------------------------
+
+# 4n's fixtures; 4p (a) decodes every other entry of fixtures.npz
+FIRST_FIXTURES = ("jpeg_420.jpg", "jpeg_422.jpg", "jpeg_444.jpg", "jpeg_grey.jpg",
+                  "jpeg_progressive.jpg", "jpeg_restart.jpg", "tga_raw.tga", "tga_rle.tga",
+                  "tiff_lzw_pred2.tif", "tiff_deflate16.tif", "tiff_float.tif",
+                  "png_interlaced.png", "png_rgb16.png", "png_grey16.png", "png_grey1.png")
+# (b): twelve 8-bit slots of the new formats, ten base colours and two roughnesses
+FORMATS2_8BIT = ("bmp_rgb24.bmp", "gif_palette.gif", "dds_bc1.dds", "dds_bc3.dds",
+                 "dds_bc7.dds", "psd_rgb.psd", "qoi_rgba.qoi", "ppm_rgb.ppm", "tga_rgb16.tga",
+                 "tiff_palette.tif", "tiff_jpeg.tif", "jpeg_cmyk.jpg")
+# (c): float and bool images as every material's roughness (a float pool)
+FORMATS2_FLOAT = ("pgm_grey16.pgm", "pfm_grey.pfm", "bmp_grey1.bmp")
+BRUTE_RES = 64  # (e): the Cornell box through the wavefront with a forced tracer
+
+
+def formats2_interior(device, tex_dir: str, base: list[str], rough: list[str]):
+    """gi render parameters of the textured interior (512x512, 4 spp, 6
+    bounces, NEE), its materials' base colours `base` in turn and their
+    roughnesses the red channels of `rough` in turn."""
+    from gatling_tpu_torch.scene.examples import interior
+    from gatling_tpu_torch.scene.stage import ShaderNode
+
+    desc = interior(tex_dir=tex_dir)
+    for k, path in enumerate(sorted(desc.materials)):
+        m = desc.materials[path]
+        m.nodes[f"{path}/tex"].inputs["file"] = base[k % len(base)]
+        node = ShaderNode(path=f"{path}/roughness_tex", shader_id="UsdUVTexture",
+                          inputs={"file": rough[k % len(rough)], "sourceColorSpace": "raw"},
+                          input_connections={})
+        m.nodes[node.path] = node
+        m.nodes[m.surface_node].input_connections["roughness"] = (node.path, "r")
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True))
+
+
+def phase_formats2(device, tex_dir: str) -> dict:
+    """Phase 4p: the remaining formats (see the module docstring, (a)-(e)).
+    Returns its numbers and launch counts."""
+    import numpy as np
+    import torch
+
+    from gatling_tpu_torch import cli, gi, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) the new fixtures on the card's host against Pillow's arrays
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s = {}, {}
+    for name in sorted(set(ref.files) - set(FIRST_FIXTURES)):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"formats2 (a): {len(decode_s)} fixtures of the remaining formats decoded on the card's "
+        f"host, each bit-equal to Pillow's array (fixtures.npz); host ms "
+        f"{({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) twelve 8-bit slots of the new formats against PNGs of their codes
+    files = [os.path.join(FIXTURES, n) for n in FORMATS2_8BIT]
+    png_dir = os.path.join(tex_dir, "formats2_png")
+    os.makedirs(png_dir, exist_ok=True)
+    pngs = []
+    for path in files:
+        pngs.append(os.path.join(png_dir, os.path.basename(path) + ".png"))
+        imgio.write_image_file(pngs[-1], imgio.load_image(blobs[os.path.basename(path)]))
+    frames = {}
+    for label, slots in (("formats2", files), ("formats2_png", pngs)):
+        params = formats2_interior(device, tex_dir, slots[:10], slots[10:])
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(FORMATS2_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["formats2"][0], frames["formats2_png"][0])
+    log(f"formats2 (b): the interior with {len(FORMATS2_8BIT)} 8-bit slots of the new formats "
+        f"against PNGs of their decoded codes: frames bit-equal {same}; COLOR mean "
+        f"{frames['formats2'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["formats2"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["formats2"][1], SF_RES,
+                                          "interior_formats2")
+
+    # (c) float and bool images as the roughnesses: a float pool, K4's FLT instance
+    params = formats2_interior(device, tex_dir, files[:10],
+                               [os.path.join(FIXTURES, n) for n in FORMATS2_FLOAT])
+    timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+    with timers:
+        counted_render(params, "interior_formats2_float (first frame)")
+    out["formats2_float_pool_build_s"] = timers.seconds["pool_build"]
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, dt, _mr, n = counted_render(params, "interior_formats2_float (warm)")
+    assert not params.scene._texture_pool.packed, "float and bool images make the pool float"
+    assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+    assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+    out["formats2_float_warm_frame_s"] = dt
+    launches["interior_formats2_float"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    out["grey16_kernels"] = split_parity(device, params, SF_RES, "interior_formats2_float")
+    small = {}
+    for route in ("fused", "wavefront"):
+        p = formats2_interior(device, tex_dir, files[:10],
+                              [os.path.join(FIXTURES, n) for n in FORMATS2_FLOAT])
+        p.aov_bindings = [gi.GiAovBinding(AovId.COLOR, gi.GiRenderBuffer(128, 128, 4))]
+        if route == "wavefront":
+            p.aov_bindings.append(gi.GiAovBinding(
+                AovId.OBJECT_ID, gi.GiRenderBuffer(128, 128, 1, True), clear_value=-1))
+        counted_render(p, f"interior_formats2_float 128^2, {route}")
+        assert (p.scene._fused is None) == (route == "wavefront"), route
+        small[route] = p.aov_bindings[0].render_buffer.data.copy()
+    out["float_vs_wavefront"] = mean_gap(small["fused"], small["wavefront"],
+                                         "interior_formats2_float 128^2")
+
+    # (d) the host times of (b)'s and (c)'s pool builds
+    log(f"formats2 (d): pool builds on the card's host: 8-bit slots "
+        f"{out['formats2_pool_build_s']:.4f} s (their PNG twins "
+        f"{out['formats2_png_pool_build_s']:.4f} s), float slots "
+        f"{out['formats2_float_pool_build_s']:.4f} s")
+
+    # (e) GATLING_FUSED=0 with GATLING_TRACER forced: brute launches no kernel
+    # (a request, not a fallback); bvh takes B1/B2
+    saved = {k: os.environ.get(k) for k in ("GATLING_FUSED", "GATLING_TRACER")}
+    settings = dict(spp=2, maxBounces=3, nextEventEstimation=True)
+    try:
+        os.environ["GATLING_FUSED"] = "0"
+        for tracer in ("brute", "bvh"):
+            os.environ["GATLING_TRACER"] = tracer
+            (img, scene), dt, n = timed(lambda: cli.render_scene_file(
+                CORNELL, BRUTE_RES, BRUTE_RES, settings, device=str(device)))
+            assert scene._fused is None and scene._tracer == tracer
+            assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+            if tracer == "brute":
+                assert not n, n  # the plain Moller-Trumbore: no kernel of the port's
+            else:
+                assert n.get("B1", 0) > 0 and n.get("B2", 0) > 0, n
+            out.setdefault("tracer_launches", {})[f"cornell_wavefront_{tracer}"] = n
+            out[f"cornell_wavefront_{tracer}_s"] = dt
+            log(f"formats2 (e): GATLING_FUSED=0 GATLING_TRACER={tracer}: the Cornell box "
+                f"{BRUTE_RES}^2 through the wavefront in {dt:.4f} s, kernel launches {n}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["launches"] = launches
+    torch.cuda.synchronize()
+    return out
+
+
 def formats_entry(formats: dict, kernel: str) -> dict:
     """Phase 4n's numbers beside K3's, K4's or K4f's kernels-line entry."""
     t = formats["grey16_kernels" if kernel == "K4f" else "formats_kernels"]
@@ -5342,6 +5525,13 @@ def main() -> int:
     for k, v in front.items():
         log(f"4o {k}: {v} ({smi})")
     log(f"phase 4o: {time.perf_counter() - t0:.1f} s")
+    # 4p: the remaining image formats through the texture path (K3, K4, K4f)
+    # and the tracer switches
+    t0 = time.perf_counter()
+    formats2 = phase_formats2(device, tex_tmp.name)
+    for k in ("formats2_pool_build_s", "formats2_png_pool_build_s", "formats2_float_pool_build_s"):
+        log(f"4p host time {k}: {formats2[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4p: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -5365,6 +5555,9 @@ def main() -> int:
         f"{shown}; their launches {threaded_launches}")
     log(f"formats: launches {formats['launches']}; 16-bit grey against the wavefront "
         f"{formats['grey16_vs_wavefront']}")
+    log(f"formats2: launches {formats2['launches']}, with forced tracers "
+        f"{formats2['tracer_launches']}; float slots against the wavefront "
+        f"{formats2['float_vs_wavefront']}")
     taps = peel["cornell_first_hit"]
 
     k2 = walk_times[("instanced", "generated", False)]
@@ -5443,6 +5636,7 @@ def main() -> int:
         "launches_by_new_frame": {k: v["K3"] for k, v in new_launches.items()},
         "content": content_entry(content, "K3"),
         "formats": formats_entry(formats, "K3"),
+        "formats2": formats_entry(formats2, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -5474,6 +5668,7 @@ def main() -> int:
         "launches_by_new_frame": {k: v["K4"] for k, v in new_launches.items()},
         "content": content_entry(content, "K4"),
         "formats": formats_entry(formats, "K4"),
+        "formats2": formats_entry(formats2, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -5499,7 +5694,7 @@ def main() -> int:
           for k in ("B1", "B2")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
-        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats),
+        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

@@ -43,7 +43,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="gatling",
         description="USD path tracer, PyTorch + CUDA port (gatling_tpu_torch)")
-    p.add_argument("scene", help="input USD scene (.usda)")
+    p.add_argument("scene", help="input USD scene (.usda / .usdc / .usdz)")
     p.add_argument("output", help="output image (.png; .exr or .hdr for linear values)")
     p.add_argument("--image-width", type=int, default=1200)
     p.add_argument("--image-height", type=int, default=1200)

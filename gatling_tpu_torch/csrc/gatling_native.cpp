@@ -10,8 +10,9 @@
 // imgio: the JPEG entropy coder (Huffman decoding of baseline and
 // progressive scans, and encoding of a baseline scan), libjpeg's integer
 // transforms (jidctint.c's islow IDCT, jfdctint.c's islow FDCT with
-// jcdctmgr.c's reciprocal quantiser), and the TIFF LZW and PackBits
-// decoders.
+// jcdctmgr.c's reciprocal quantiser), the TIFF LZW and PackBits
+// decoders, the GIF LZW decoder (Pillow's GifDecode.c) and the BC1-BC7
+// block decoders of DDS textures (Pillow's BcnDecode.c).
 //
 // A plain C ABI, loaded through ctypes (gatling_tpu_torch/native.py, which
 // builds it with g++ -O3 -std=c++17 -shared -fPIC ... -lz into
@@ -919,6 +920,79 @@ int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int
   return o < cap ? o : cap;
 }
 
+// Old-style TIFF LZW (libtiff's LZWDecodeCompat): codes LSB-first, the
+// code width growing one code later than in the new style. Returns the
+// bytes written (at most cap), or -1 for a corrupt table.
+int64_t gatling_tiff_lzw_compat_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                                       int64_t cap) {
+  const int kClear = 256, kEoi = 257, kFirst = 258, kMaxBits = 12, kSize = 5119;
+  static thread_local int next_of[5119], length[5119];
+  static thread_local uint8_t value[5119], firstchar[5119];
+  for (int c = 0; c < 256; ++c) {
+    next_of[c] = -1;
+    length[c] = 1;
+    value[c] = firstchar[c] = (uint8_t)c;
+  }
+  int nbits = 9, free_ent = kFirst, maxcode = (1 << 9) - 1, old = -2;
+  int64_t pos = 0, o = 0, bitsleft = n * 8;
+  uint64_t nextdata = 0;
+  int nextbits = 0;
+  auto next_code = [&]() -> int {
+    if (bitsleft < nbits) return kEoi;
+    nextdata |= (uint64_t)src[pos++] << nextbits;
+    nextbits += 8;
+    if (nextbits < nbits) {
+      nextdata |= (uint64_t)src[pos++] << nextbits;
+      nextbits += 8;
+    }
+    const int code = (int)(nextdata & ((1u << nbits) - 1));
+    nextdata >>= nbits;
+    nextbits -= nbits;
+    bitsleft -= nbits;
+    return code;
+  };
+  while (o < cap) {
+    int code = next_code();
+    if (code == kEoi) break;
+    if (code == kClear) {
+      do {
+        free_ent = kFirst;
+        nbits = 9;
+        maxcode = (1 << 9) - 1;
+        code = next_code();
+      } while (code == kClear);
+      if (code == kEoi) break;
+      if (code > kClear) return -1;
+      dst[o++] = (uint8_t)code;
+      old = code;
+      continue;
+    }
+    if (old < 0 || free_ent >= kSize || code > free_ent) return -1;
+    next_of[free_ent] = old;
+    firstchar[free_ent] = firstchar[old];
+    length[free_ent] = length[old] + 1;
+    value[free_ent] = code < free_ent ? firstchar[code] : firstchar[free_ent];
+    if (++free_ent > maxcode) {
+      if (++nbits > kMaxBits) nbits = kMaxBits;
+      maxcode = (1 << nbits) - 1;
+    }
+    old = code;
+    if (code >= 256) {
+      const int len = length[code];
+      if (len == 0) return -1;
+      const int64_t keep = std::min<int64_t>(len, cap - o);
+      int c = code;
+      for (int k = len - 1; k >= 0; --k, c = next_of[c]) {
+        if (k < keep) dst[o + k] = value[c];
+      }
+      o += keep;
+    } else {
+      dst[o++] = (uint8_t)code;
+    }
+  }
+  return o;
+}
+
 // PackBits (TIFF 6.0 section 9): returns the bytes written, at most cap.
 int64_t gatling_tiff_packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
   int64_t i = 0, o = 0;
@@ -937,6 +1011,664 @@ int64_t gatling_tiff_packbits_decode(const uint8_t* src, int64_t n, uint8_t* dst
     }
   }
   return o;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// GIF LZW (Pillow's GifDecode.c): the indices of one frame of xsize x ysize
+// pixels, rows in the order the frame stores them (interlaced: passes of
+// every 8th row from 0, every 8th from 4, every 4th from 2, every 2nd from
+// 1). The code stream's sub-blocks start at src[0]. Returns 0 when the frame
+// is filled, -1 for a broken stream or a bad code size, -2 when the data
+// ends first (Pillow's "image file is truncated"), -3 on an overrun.
+int64_t gatling_gif_lzw_decode(const uint8_t* src, int64_t n, int bits, int interlace,
+                               int xsize, int ysize, uint8_t* out) {
+  const int GIFTABLE = 4096, GIFBITS = 12;
+  if (bits < 0 || bits > 12) return -1;
+  if (xsize <= 0 || ysize <= 0) return 0;
+  static thread_local uint8_t data[4096], buffer[4096];
+  static thread_local uint16_t link[4096];
+  const int clear = 1 << bits, end = clear + 1;
+  int step = 1, pass = 0;
+  if (interlace) {
+    pass = 1;
+    step = 8;
+  }
+  int state = 1, next = 0, codesize = 0, codemask = 0, bufferindex = GIFTABLE;
+  int lastdata = 0, lastcode = 0, blocksize = 0, bitcount = 0;
+  int64_t bitbuffer = 0, pos = 0;
+  int x = 0, y = 0;
+  uint8_t last = 0;
+  // NEWLINE: returns true when the frame is complete
+  auto newline = [&]() -> bool {
+    x = 0;
+    y += step;
+    while (y >= ysize) {
+      switch (pass) {
+        case 1: y = 4; pass = 2; break;
+        case 2: step = 4; y = 2; pass = 3; break;
+        case 3: step = 2; y = 1; pass = 0; break;
+        default: return true;
+      }
+    }
+    return false;
+  };
+  for (;;) {
+    if (state == 1) {
+      next = clear + 2;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      bufferindex = GIFTABLE;
+      state = 2;
+    }
+    const uint8_t* p;
+    int count;
+    if (bufferindex < GIFTABLE) {
+      count = GIFTABLE - bufferindex;
+      p = &buffer[bufferindex];
+      bufferindex = GIFTABLE;
+    } else {
+      while (bitcount < codesize) {
+        if (blocksize > 0) {
+          bitbuffer |= (int64_t)src[pos++] << bitcount;
+          bitcount += 8;
+          --blocksize;
+        } else {
+          if (pos >= n) return -2;
+          const int c = src[pos];
+          if (n - pos < c + 1) return -2;
+          blocksize = c;
+          ++pos;
+        }
+      }
+      int c = (int)(bitbuffer & codemask);
+      bitbuffer >>= codesize;
+      bitcount -= codesize;
+      if (c == clear) {
+        if (state != 2) state = 1;
+        continue;
+      }
+      if (c == end) return -2;  // the frame is not filled: Pillow waits for data to its end
+      count = 1;
+      if (state == 2) {
+        if (c > clear) return -1;
+        lastdata = lastcode = c;
+        state = 3;
+      } else {
+        const int thiscode = c;
+        if (c > next) return -1;
+        if (c == next) {
+          if (bufferindex <= 0) return -1;
+          buffer[--bufferindex] = (uint8_t)lastdata;
+          c = lastcode;
+        }
+        while (c >= clear) {
+          if (bufferindex <= 0 || c >= GIFTABLE) return -1;
+          buffer[--bufferindex] = data[c];
+          c = link[c];
+        }
+        lastdata = c;
+        if (next < GIFTABLE) {
+          data[next] = (uint8_t)c;
+          link[next] = (uint16_t)lastcode;
+          if (next == codemask && codesize < GIFBITS) {
+            ++codesize;
+            codemask = (1 << codesize) - 1;
+          }
+          ++next;
+        }
+        lastcode = thiscode;
+      }
+      last = (uint8_t)lastdata;
+      p = &last;
+    }
+    if (y >= ysize) return -3;
+    for (int k = 0; k < count; ++k) {
+      out[(int64_t)y * xsize + x] = p[k];
+      if (++x >= xsize && newline()) return 0;
+    }
+  }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// BCn block decoders (Pillow's BcnDecode.c): `n_blocks` blocks of 4x4
+// texels, row-major over a w x h image of `out_bytes` bytes a texel (4:
+// RGBA, 1: BC4's L); the texels past the right and bottom edges dropped.
+// format 1-7 (BC1 ... BC7); sign: BC5 and BC6H signed.
+
+namespace {
+
+struct Rgba {
+  uint8_t r, g, b, a;
+};
+
+Rgba decode_565(uint16_t x) {
+  Rgba c;
+  int r = (x & 0xf800) >> 8;
+  r |= r >> 5;
+  int g = (x & 0x7e0) >> 3;
+  g |= g >> 6;
+  int b = (x & 0x1f) << 3;
+  b |= b >> 5;
+  c.r = (uint8_t)r;
+  c.g = (uint8_t)g;
+  c.b = (uint8_t)b;
+  c.a = 0xff;
+  return c;
+}
+
+void bc1_color(Rgba* dst, const uint8_t* src, bool separate_alpha) {
+  const uint16_t c0 = src[0] | (src[1] << 8), c1 = src[2] | (src[3] << 8);
+  const uint32_t lut = src[4] | (src[5] << 8) | (src[6] << 16) | ((uint32_t)src[7] << 24);
+  Rgba p[4];
+  p[0] = decode_565(c0);
+  p[1] = decode_565(c1);
+  const int r0 = p[0].r, g0 = p[0].g, b0 = p[0].b, r1 = p[1].r, g1 = p[1].g, b1 = p[1].b;
+  if (c0 > c1 || separate_alpha) {
+    p[2] = Rgba{(uint8_t)((2 * r0 + r1) / 3), (uint8_t)((2 * g0 + g1) / 3),
+                (uint8_t)((2 * b0 + b1) / 3), 0xff};
+    p[3] = Rgba{(uint8_t)((r0 + 2 * r1) / 3), (uint8_t)((g0 + 2 * g1) / 3),
+                (uint8_t)((b0 + 2 * b1) / 3), 0xff};
+  } else {
+    p[2] = Rgba{(uint8_t)((r0 + r1) / 2), (uint8_t)((g0 + g1) / 2), (uint8_t)((b0 + b1) / 2),
+                0xff};
+    p[3] = Rgba{0, 0, 0, 0};
+  }
+  for (int k = 0; k < 16; ++k) dst[k] = p[3 & (lut >> (2 * k))];
+}
+
+// BC3's alpha block (and BC4/BC5's channels) into byte o of each texel
+void bc3_alpha(uint8_t* dst, const uint8_t* src, int stride, int o, bool sign) {
+  int a0, a1;
+  if (sign) {
+    a0 = (int8_t)src[0] + 128;
+    a1 = (int8_t)src[1] + 128;
+  } else {
+    a0 = src[0];
+    a1 = src[1];
+  }
+  const int lut1 = src[2] | (src[3] << 8) | (src[4] << 16);
+  const int lut2 = src[5] | (src[6] << 8) | (src[7] << 16);
+  uint8_t a[8];
+  a[0] = (uint8_t)a0;
+  a[1] = (uint8_t)a1;
+  if (a0 > a1) {
+    for (int k = 1; k < 7; ++k) a[k + 1] = (uint8_t)(((7 - k) * a0 + k * a1) / 7);
+  } else {
+    for (int k = 1; k < 5; ++k) a[k + 1] = (uint8_t)(((5 - k) * a0 + k * a1) / 5);
+    a[6] = 0;
+    a[7] = 0xff;
+  }
+  for (int k = 0; k < 8; ++k) dst[stride * k + o] = a[7 & (lut1 >> (3 * k))];
+  for (int k = 0; k < 8; ++k) dst[stride * (8 + k) + o] = a[7 & (lut2 >> (3 * k))];
+}
+
+uint8_t get_bits(const uint8_t* src, int bit, int count) {
+  const int by = bit >> 3;
+  bit &= 7;
+  if (!count) return 0;
+  if (bit + count <= 8) return (uint8_t)((src[by] >> bit) & ((1 << count) - 1));
+  const int x = src[by] | (src[by + 1] << 8);
+  return (uint8_t)((x >> bit) & ((1 << count) - 1));
+}
+
+struct Bc7Mode {
+  uint8_t ns, pb, rb, isb, cb, ab, epb, spb, ib, ib2;
+};
+const Bc7Mode kBc7Modes[8] = {
+    {3, 4, 0, 0, 4, 0, 1, 0, 3, 0}, {2, 6, 0, 0, 6, 0, 0, 1, 3, 0},
+    {3, 6, 0, 0, 5, 0, 0, 0, 2, 0}, {2, 6, 0, 0, 7, 0, 1, 0, 2, 0},
+    {1, 0, 2, 1, 5, 6, 0, 0, 2, 3}, {1, 0, 2, 0, 7, 8, 0, 0, 2, 2},
+    {1, 0, 0, 0, 7, 7, 1, 0, 4, 0}, {2, 6, 0, 0, 5, 5, 1, 0, 2, 0}};
+
+// the BPTC partitions (the BC7 specification's tables): two subsets, one bit
+// a texel; three subsets, two bits a texel; the anchor texels
+const uint16_t kSi2[64] = {
+    0xcccc, 0x8888, 0xeeee, 0xecc8, 0xc880, 0xfeec, 0xfec8, 0xec80, 0xc800, 0xffec, 0xfe80,
+    0xe800, 0xffe8, 0xff00, 0xfff0, 0xf000, 0xf710, 0x008e, 0x7100, 0x08ce, 0x008c, 0x7310,
+    0x3100, 0x8cce, 0x088c, 0x3110, 0x6666, 0x366c, 0x17e8, 0x0ff0, 0x718e, 0x399c, 0xaaaa,
+    0xf0f0, 0x5a5a, 0x33cc, 0x3c3c, 0x55aa, 0x9696, 0xa55a, 0x73ce, 0x13c8, 0x324c, 0x3bdc,
+    0x6996, 0xc33c, 0x9966, 0x0660, 0x0272, 0x04e4, 0x4e40, 0x2720, 0xc936, 0x936c, 0x39c6,
+    0x639c, 0x9336, 0x9cc6, 0x817e, 0xe718, 0xccf0, 0x0fcc, 0x7744, 0xee22};
+const uint32_t kSi3[64] = {
+    0xaa685050, 0x6a5a5040, 0x5a5a4200, 0x5450a0a8, 0xa5a50000, 0xa0a05050, 0x5555a0a0,
+    0x5a5a5050, 0xaa550000, 0xaa555500, 0xaaaa5500, 0x90909090, 0x94949494, 0xa4a4a4a4,
+    0xa9a59450, 0x2a0a4250, 0xa5945040, 0x0a425054, 0xa5a5a500, 0x55a0a0a0, 0xa8a85454,
+    0x6a6a4040, 0xa4a45000, 0x1a1a0500, 0x0050a4a4, 0xaaa59090, 0x14696914, 0x69691400,
+    0xa08585a0, 0xaa821414, 0x50a4a450, 0x6a5a0200, 0xa9a58000, 0x5090a0a8, 0xa8a09050,
+    0x24242424, 0x00aa5500, 0x24924924, 0x24499224, 0x50a50a50, 0x500aa550, 0xaaaa4444,
+    0x66660000, 0xa5a0a5a0, 0x50a050a0, 0x69286928, 0x44aaaa44, 0x66666600, 0xaa444444,
+    0x54a854a8, 0x95809580, 0x96969600, 0xa85454a8, 0x80959580, 0xaa141414, 0x96960000,
+    0xaaaa1414, 0xa05050a0, 0xa0a5a5a0, 0x96000000, 0x40804080, 0xa9a8a9a8, 0xaaaaaa44,
+    0x2a4a5254};
+const uint8_t kAi0[64] = {15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+                          15, 2,  8,  2,  2,  8,  8,  15, 2,  8,  2,  2,  8,  8,  2,  2,
+                          15, 15, 6,  8,  2,  8,  15, 15, 2,  8,  2,  2,  2,  15, 15, 6,
+                          6,  2,  6,  8,  15, 15, 2,  2,  15, 15, 15, 15, 15, 2,  2,  15};
+const uint8_t kAi1[64] = {3,  3,  15, 15, 8,  3,  15, 15, 8,  8,  6,  6,  6,  5,  3,  3,
+                          3,  3,  8,  15, 3,  3,  6,  10, 5,  8,  8,  6,  8,  5,  15, 15,
+                          8,  15, 3,  5,  6,  10, 8,  15, 15, 3,  15, 5,  15, 15, 15, 15,
+                          3,  15, 5,  5,  5,  8,  5,  10, 5,  10, 8,  13, 15, 12, 3,  3};
+const uint8_t kAi2[64] = {15, 8,  8,  3,  15, 15, 3,  8,  15, 15, 15, 15, 15, 15, 15, 8,
+                          15, 8,  15, 3,  15, 8,  15, 8,  3,  15, 6,  10, 15, 15, 10, 8,
+                          15, 3,  15, 10, 10, 8,  9,  10, 6,  15, 8,  15, 3,  6,  6,  8,
+                          15, 3,  15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 3,  15, 15, 8};
+const uint8_t kW2[4] = {0, 21, 43, 64};
+const uint8_t kW3[8] = {0, 9, 18, 27, 37, 46, 55, 64};
+const uint8_t kW4[16] = {0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64};
+
+const uint8_t* bc7_weights(int n) {
+  return n == 2 ? kW2 : n == 3 ? kW3 : kW4;
+}
+
+int bc7_subset(int ns, int partition, int n) {
+  if (ns == 2) return 1 & (kSi2[partition] >> n);
+  if (ns == 3) return 3 & (kSi3[partition] >> (2 * n));
+  return 0;
+}
+
+uint8_t expand_quantized(uint8_t v, int bits) {
+  v = (uint8_t)(v << (8 - bits));
+  return (uint8_t)(v | (v >> bits));
+}
+
+void bc7_lerp(Rgba* dst, const Rgba* e, int s0, int s1) {
+  const int t0 = 64 - s0, t1 = 64 - s1;
+  dst->r = (uint8_t)((t0 * e[0].r + s0 * e[1].r + 32) >> 6);
+  dst->g = (uint8_t)((t0 * e[0].g + s0 * e[1].g + 32) >> 6);
+  dst->b = (uint8_t)((t0 * e[0].b + s0 * e[1].b + 32) >> 6);
+  dst->a = (uint8_t)((t1 * e[0].a + s1 * e[1].a + 32) >> 6);
+}
+
+void bc7_block(Rgba* col, const uint8_t* src) {
+  int mode = src[0];
+  if (!mode) {
+    for (int i = 0; i < 16; ++i) col[i] = Rgba{0, 0, 0, 255};
+    return;
+  }
+  int bit = 0;
+  while (!(mode & (1 << bit++))) {
+  }
+  mode = bit - 1;
+  const Bc7Mode& info = kBc7Modes[mode];
+  int cb = info.cb, ab = info.ab;
+  const uint8_t* cw = bc7_weights(info.ib);
+  const uint8_t* aw = bc7_weights((ab && info.ib2) ? info.ib2 : info.ib);
+  auto load = [&](int nb) {
+    const uint8_t v = get_bits(src, bit, nb);
+    bit += nb;
+    return v;
+  };
+  const int partition = load(info.pb), rotation = load(info.rb), index_sel = load(info.isb);
+  const int numep = info.ns << 1;
+  Rgba ep[6];
+  for (int i = 0; i < numep; ++i) ep[i].r = load(cb);
+  for (int i = 0; i < numep; ++i) ep[i].g = load(cb);
+  for (int i = 0; i < numep; ++i) ep[i].b = load(cb);
+  for (int i = 0; i < numep; ++i) ep[i].a = ab ? load(ab) : 255;
+  auto assign_p = [](uint8_t& x, int v) { x = (uint8_t)((x << 1) | v); };
+  if (info.epb) {
+    ++cb;
+    if (ab) ++ab;
+    for (int i = 0; i < numep; ++i) {
+      const int v = load(1);
+      assign_p(ep[i].r, v);
+      assign_p(ep[i].g, v);
+      assign_p(ep[i].b, v);
+      if (ab) assign_p(ep[i].a, v);
+    }
+  }
+  if (info.spb) {
+    ++cb;
+    if (ab) ++ab;
+    for (int i = 0; i < numep; i += 2) {
+      const int v = load(1);
+      for (int j = 0; j < 2; ++j) {
+        assign_p(ep[i + j].r, v);
+        assign_p(ep[i + j].g, v);
+        assign_p(ep[i + j].b, v);
+        if (ab) assign_p(ep[i + j].a, v);
+      }
+    }
+  }
+  for (int i = 0; i < numep; ++i) {
+    ep[i].r = expand_quantized(ep[i].r, cb);
+    ep[i].g = expand_quantized(ep[i].g, cb);
+    ep[i].b = expand_quantized(ep[i].b, cb);
+    if (ab) ep[i].a = expand_quantized(ep[i].a, ab);
+  }
+  int cibit = bit, aibit = cibit + 16 * info.ib - info.ns;
+  for (int i = 0; i < 16; ++i) {
+    const int s = bc7_subset(info.ns, partition, i) << 1;
+    int ib = info.ib;
+    if (i == 0) {
+      --ib;
+    } else if (info.ns == 2) {
+      if (i == kAi0[partition]) --ib;
+    } else if (info.ns == 3) {
+      if (i == kAi1[partition]) {
+        --ib;
+      } else if (i == kAi2[partition]) {
+        --ib;
+      }
+    }
+    const int i0 = get_bits(src, cibit, ib);
+    cibit += ib;
+    if (ab && info.ib2) {
+      int ib2 = info.ib2;
+      if (i == 0) --ib2;
+      const int i1 = get_bits(src, aibit, ib2);
+      aibit += ib2;
+      if (index_sel) {
+        bc7_lerp(&col[i], &ep[s], aw[i1], cw[i0]);
+      } else {
+        bc7_lerp(&col[i], &ep[s], cw[i0], aw[i1]);
+      }
+    } else {
+      bc7_lerp(&col[i], &ep[s], cw[i0], cw[i0]);
+    }
+    if (rotation == 1) {
+      std::swap(col[i].r, col[i].a);
+    } else if (rotation == 2) {
+      std::swap(col[i].g, col[i].a);
+    } else if (rotation == 3) {
+      std::swap(col[i].b, col[i].a);
+    }
+  }
+}
+
+struct Bc6Mode {
+  uint8_t ns, tr, pb, epb, rb, gb, bb;
+};
+const Bc6Mode kBc6Modes[14] = {
+    {2, 1, 5, 10, 5, 5, 5}, {2, 1, 5, 7, 6, 6, 6},  {2, 1, 5, 11, 5, 4, 4},
+    {2, 1, 5, 11, 4, 5, 4}, {2, 1, 5, 11, 4, 4, 5}, {2, 1, 5, 9, 5, 5, 5},
+    {2, 1, 5, 8, 6, 5, 5},  {2, 1, 5, 8, 5, 6, 5},  {2, 1, 5, 8, 5, 5, 6},
+    {2, 0, 5, 6, 6, 6, 6},  {1, 0, 0, 10, 10, 10, 10}, {1, 1, 0, 11, 9, 9, 9},
+    {1, 1, 0, 12, 8, 8, 8}, {1, 1, 0, 16, 4, 4, 4}};
+
+// The BC6H endpoint bits of each mode, in block order from its first
+// endpoint bit: (endpoint component << 4) | bit, the component indexing
+// rw gw bw rx gx bx ry gy by rz gz bz (0-11).
+#define BC6_RW(b) (0 << 4 | (b))
+#define BC6_GW(b) (1 << 4 | (b))
+#define BC6_BW(b) (2 << 4 | (b))
+#define BC6_RX(b) (3 << 4 | (b))
+#define BC6_GX(b) (4 << 4 | (b))
+#define BC6_BX(b) (5 << 4 | (b))
+#define BC6_RY(b) (6 << 4 | (b))
+#define BC6_GY(b) (7 << 4 | (b))
+#define BC6_BY(b) (8 << 4 | (b))
+#define BC6_RZ(b) (9 << 4 | (b))
+#define BC6_GZ(b) (10 << 4 | (b))
+#define BC6_BZ(b) (11 << 4 | (b))
+#define BC6_R10(F) F(0), F(1), F(2), F(3), F(4), F(5), F(6), F(7), F(8), F(9)
+#define BC6_R9(F) F(0), F(1), F(2), F(3), F(4), F(5), F(6), F(7), F(8)
+#define BC6_R8(F) F(0), F(1), F(2), F(3), F(4), F(5), F(6), F(7)
+#define BC6_R7(F) F(0), F(1), F(2), F(3), F(4), F(5), F(6)
+#define BC6_R6(F) F(0), F(1), F(2), F(3), F(4), F(5)
+#define BC6_R5(F) F(0), F(1), F(2), F(3), F(4)
+#define BC6_R4(F) F(0), F(1), F(2), F(3)
+const uint8_t kBc6Bits[14][75] = {
+    // mode 0 (2-bit mode 00), bits 2-76
+    {BC6_GY(4), BC6_BY(4), BC6_BZ(4), BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW),
+     BC6_R5(BC6_RX), BC6_GZ(4), BC6_R4(BC6_GY), BC6_R5(BC6_GX), BC6_BZ(0), BC6_R4(BC6_GZ),
+     BC6_R5(BC6_BX), BC6_BZ(1), BC6_R4(BC6_BY), BC6_R5(BC6_RY), BC6_BZ(2), BC6_R5(BC6_RZ),
+     BC6_BZ(3)},
+    // mode 1 (01)
+    {BC6_GY(5), BC6_GZ(4), BC6_GZ(5), BC6_R7(BC6_RW), BC6_BZ(0), BC6_BZ(1), BC6_BY(4),
+     BC6_R7(BC6_GW), BC6_BY(5), BC6_BZ(2), BC6_GY(4), BC6_R7(BC6_BW), BC6_BZ(3), BC6_BZ(5),
+     BC6_BZ(4), BC6_R6(BC6_RX), BC6_R4(BC6_GY), BC6_R6(BC6_GX), BC6_R4(BC6_GZ),
+     BC6_R6(BC6_BX), BC6_R4(BC6_BY), BC6_R6(BC6_RY), BC6_R6(BC6_RZ)},
+    // mode 2 (00010), bits 5-76
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R5(BC6_RX), BC6_RW(10),
+     BC6_R4(BC6_GY), BC6_R4(BC6_GX), BC6_GW(10), BC6_BZ(0), BC6_R4(BC6_GZ), BC6_R4(BC6_BX),
+     BC6_BW(10), BC6_BZ(1), BC6_R4(BC6_BY), BC6_R5(BC6_RY), BC6_BZ(2), BC6_R5(BC6_RZ),
+     BC6_BZ(3)},
+    // mode 3 (00110)
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R4(BC6_RX), BC6_RW(10),
+     BC6_GZ(4), BC6_R4(BC6_GY), BC6_R5(BC6_GX), BC6_GW(10), BC6_R4(BC6_GZ), BC6_R4(BC6_BX),
+     BC6_BW(10), BC6_BZ(1), BC6_R4(BC6_BY), BC6_R4(BC6_RY), BC6_BZ(0), BC6_BZ(2),
+     BC6_R4(BC6_RZ), BC6_GY(4), BC6_BZ(3)},
+    // mode 4 (01010)
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R4(BC6_RX), BC6_RW(10),
+     BC6_BY(4), BC6_R4(BC6_GY), BC6_R4(BC6_GX), BC6_GW(10), BC6_BZ(0), BC6_R4(BC6_GZ),
+     BC6_R5(BC6_BX), BC6_BW(10), BC6_R4(BC6_BY), BC6_R4(BC6_RY), BC6_BZ(1), BC6_BZ(2),
+     BC6_R4(BC6_RZ), BC6_BZ(4), BC6_BZ(3)},
+    // mode 5 (01110)
+    {BC6_R9(BC6_RW), BC6_BY(4), BC6_R9(BC6_GW), BC6_GY(4), BC6_R9(BC6_BW), BC6_BZ(4),
+     BC6_R5(BC6_RX), BC6_GZ(4), BC6_R4(BC6_GY), BC6_R5(BC6_GX), BC6_BZ(0), BC6_R4(BC6_GZ),
+     BC6_R5(BC6_BX), BC6_BZ(1), BC6_R4(BC6_BY), BC6_R5(BC6_RY), BC6_BZ(2), BC6_R5(BC6_RZ),
+     BC6_BZ(3)},
+    // mode 6 (10010)
+    {BC6_R8(BC6_RW), BC6_GZ(4), BC6_BY(4), BC6_R8(BC6_GW), BC6_BZ(2), BC6_GY(4),
+     BC6_R8(BC6_BW), BC6_BZ(3), BC6_BZ(4), BC6_R6(BC6_RX), BC6_R4(BC6_GY), BC6_R5(BC6_GX),
+     BC6_BZ(0), BC6_R4(BC6_GZ), BC6_R5(BC6_BX), BC6_BZ(1), BC6_R4(BC6_BY), BC6_R6(BC6_RY),
+     BC6_R6(BC6_RZ)},
+    // mode 7 (10110)
+    {BC6_R8(BC6_RW), BC6_BZ(0), BC6_BY(4), BC6_R8(BC6_GW), BC6_GY(5), BC6_GY(4),
+     BC6_R8(BC6_BW), BC6_GZ(5), BC6_BZ(4), BC6_R5(BC6_RX), BC6_GZ(4), BC6_R4(BC6_GY),
+     BC6_R6(BC6_GX), BC6_R4(BC6_GZ), BC6_R5(BC6_BX), BC6_BZ(1), BC6_R4(BC6_BY),
+     BC6_R5(BC6_RY), BC6_BZ(2), BC6_R5(BC6_RZ), BC6_BZ(3)},
+    // mode 8 (11010)
+    {BC6_R8(BC6_RW), BC6_BZ(1), BC6_BY(4), BC6_R8(BC6_GW), BC6_BY(5), BC6_GY(4),
+     BC6_R8(BC6_BW), BC6_BZ(5), BC6_BZ(4), BC6_R5(BC6_RX), BC6_GZ(4), BC6_R4(BC6_GY),
+     BC6_R5(BC6_GX), BC6_BZ(0), BC6_R4(BC6_GZ), BC6_R6(BC6_BX), BC6_R4(BC6_BY),
+     BC6_R5(BC6_RY), BC6_BZ(2), BC6_R5(BC6_RZ), BC6_BZ(3)},
+    // mode 9 (11110)
+    {BC6_R6(BC6_RW), BC6_GZ(4), BC6_BZ(0), BC6_BZ(1), BC6_BY(4), BC6_R6(BC6_GW), BC6_GY(5),
+     BC6_BY(5), BC6_BZ(2), BC6_GY(4), BC6_R6(BC6_BW), BC6_GZ(5), BC6_BZ(3), BC6_BZ(5),
+     BC6_BZ(4), BC6_R6(BC6_RX), BC6_R4(BC6_GY), BC6_R6(BC6_GX), BC6_R4(BC6_GZ),
+     BC6_R6(BC6_BX), BC6_R4(BC6_BY), BC6_R6(BC6_RY), BC6_R6(BC6_RZ)},
+    // mode 10 (00011), bits 5-64
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R10(BC6_RX), BC6_R10(BC6_GX),
+     BC6_R10(BC6_BX)},
+    // mode 11 (00111)
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R9(BC6_RX), BC6_RW(10),
+     BC6_R9(BC6_GX), BC6_GW(10), BC6_R9(BC6_BX), BC6_BW(10)},
+    // mode 12 (01011)
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R8(BC6_RX), BC6_RW(11),
+     BC6_RW(10), BC6_R8(BC6_GX), BC6_GW(11), BC6_GW(10), BC6_R8(BC6_BX), BC6_BW(11),
+     BC6_BW(10)},
+    // mode 13 (01111)
+    {BC6_R10(BC6_RW), BC6_R10(BC6_GW), BC6_R10(BC6_BW), BC6_R4(BC6_RX), BC6_RW(15),
+     BC6_RW(14), BC6_RW(13), BC6_RW(12), BC6_RW(11), BC6_RW(10), BC6_R4(BC6_GX), BC6_GW(15),
+     BC6_GW(14), BC6_GW(13), BC6_GW(12), BC6_GW(11), BC6_GW(10), BC6_R4(BC6_BX), BC6_BW(15),
+     BC6_BW(14), BC6_BW(13), BC6_BW(12), BC6_BW(11), BC6_BW(10)},
+};
+
+void bc6_sign_extend(uint16_t* v, int prec) {
+  int x = *v;
+  if (x & (1 << (prec - 1))) x |= -1 << prec;
+  *v = (uint16_t)x;
+}
+
+int bc6_unquantize(uint16_t v, int prec, bool sign) {
+  if (!sign) {
+    const int x = v;
+    if (prec >= 15) return x;
+    if (x == 0) return 0;
+    if (x == ((1 << prec) - 1)) return 0xffff;
+    return ((x << 15) + 0x4000) >> (prec - 1);
+  }
+  int x = (int16_t)v;
+  if (prec >= 16) return x;
+  bool s = false;
+  if (x < 0) {
+    s = true;
+    x = -x;
+  }
+  if (x != 0) {
+    if (x >= ((1 << (prec - 1)) - 1)) {
+      x = 0x7fff;
+    } else {
+      x = ((x << 15) + 0x4000) >> (prec - 1);
+    }
+  }
+  return s ? -x : x;
+}
+
+float half_to_float(uint16_t h) {
+  union {
+    uint32_t u;
+    float f;
+  } o, m;
+  m.u = 0x77800000;
+  o.u = (uint32_t)(h & 0x7fff) << 13;
+  o.f *= m.f;
+  m.u = 0x47800000;
+  if (o.f >= m.f) o.u |= 255u << 23;
+  o.u |= (uint32_t)(h & 0x8000) << 16;
+  return o.f;
+}
+
+float bc6_finalize(int v, bool sign) {
+  if (sign) {
+    if (v < 0) {
+      v = ((-v) * 31) / 32;
+      return half_to_float((uint16_t)(0x8000 | v));
+    }
+    return half_to_float((uint16_t)((v * 31) / 32));
+  }
+  return half_to_float((uint16_t)((v * 31) / 64));
+}
+
+uint8_t bc6_clamp(float value) {
+  if (value < 0.0f) return 0;
+  if (value > 1.0f) return 255;
+  return (uint8_t)(value * 255.0f);
+}
+
+void bc6_block(Rgba* col, const uint8_t* src, bool sign) {
+  uint16_t ep[12] = {0};
+  int ueps[12];
+  int bit = 5, epbits = 75, ib = 3;
+  int mode = src[0] & 0x1f;
+  if ((mode & 3) == 0 || (mode & 3) == 1) {
+    mode &= 3;
+    bit = 2;
+  } else if ((mode & 3) == 2) {
+    mode = 2 + (mode >> 2);
+    epbits = 72;
+  } else {
+    mode = 10 + (mode >> 2);
+    epbits = 60;
+    ib = 4;
+  }
+  if (mode >= 14) {
+    for (int i = 0; i < 16; ++i) col[i] = Rgba{0, 0, 0, 0};
+    return;
+  }
+  const Bc6Mode& info = kBc6Modes[mode];
+  const uint8_t* cw = bc7_weights(ib);
+  const int numep = info.ns == 2 ? 12 : 6;
+  for (int i = 0; i < epbits; ++i) {
+    const int di = kBc6Bits[mode][i];
+    ep[di >> 4] |= (uint16_t)(get_bits(src, bit + i, 1) << (di & 15));
+  }
+  bit += epbits;
+  const int partition = get_bits(src, bit, info.pb);
+  bit += info.pb;
+  const int mask = (1 << info.epb) - 1;
+  if (sign) {
+    for (int i = 0; i < 3; ++i) bc6_sign_extend(&ep[i], info.epb);
+  }
+  if (sign || info.tr) {
+    for (int i = 3; i < numep; i += 3) {
+      bc6_sign_extend(&ep[i], info.rb);
+      bc6_sign_extend(&ep[i + 1], info.gb);
+      bc6_sign_extend(&ep[i + 2], info.bb);
+    }
+  }
+  if (info.tr) {
+    // the sums are not sign-extended again, as in Pillow's decoder
+    for (int i = 3; i < numep; i += 3) {
+      for (int c = 0; c < 3; ++c) ep[i + c] = (uint16_t)((ep[i + c] + ep[c]) & mask);
+    }
+  }
+  for (int i = 0; i < numep; ++i) ueps[i] = bc6_unquantize(ep[i], info.epb, sign);
+  for (int i = 0; i < 16; ++i) {
+    const int s = bc7_subset(info.ns, partition, i) * 6;
+    int ib2 = ib;
+    if (i == 0) {
+      --ib2;
+    } else if (info.ns == 2 && i == kAi0[partition]) {
+      --ib2;
+    }
+    const int w = cw[get_bits(src, bit, ib2)];
+    bit += ib2;
+    const int t = 64 - w;
+    const int* e0 = &ueps[s];
+    const int* e1 = &ueps[s + 3];
+    col[i].r = bc6_clamp(bc6_finalize((e0[0] * t + e1[0] * w) >> 6, sign));
+    col[i].g = bc6_clamp(bc6_finalize((e0[1] * t + e1[1] * w) >> 6, sign));
+    col[i].b = bc6_clamp(bc6_finalize((e0[2] * t + e1[2] * w) >> 6, sign));
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decodes the blocks of src (8 bytes a block for BC1 and BC4, else 16) over
+// a w x h image; returns the blocks used, or -1 for an unknown format.
+int64_t gatling_bcn_decode(const uint8_t* src, int64_t n_blocks, int format, int sign, int w,
+                           int h, uint8_t* out) {
+  if (format < 1 || format > 7) return -1;
+  const int size = (format == 1 || format == 4) ? 8 : 16;
+  const int out_bytes = format == 4 ? 1 : 4;
+  const int bw = (w + 3) / 4;
+  int64_t k = 0;
+  for (; k < n_blocks; ++k) {
+    const uint8_t* b = src + k * size;
+    Rgba col[16];
+    std::memset(col, 0, sizeof(col));
+    uint8_t lum[16] = {0};
+    switch (format) {
+      case 1: bc1_color(col, b, false); break;
+      case 2:
+        bc1_color(col, b + 8, true);
+        for (int i = 0; i < 16; ++i) {
+          int av = 0xf & (b[(i * 4) >> 3] >> ((i * 4) & 7));
+          col[i].a = (uint8_t)((av << 4) | av);
+        }
+        break;
+      case 3:
+        bc1_color(col, b + 8, true);
+        bc3_alpha(reinterpret_cast<uint8_t*>(col), b, 4, 3, false);
+        break;
+      case 4: bc3_alpha(lum, b, 1, 0, false); break;
+      case 5:
+        bc3_alpha(reinterpret_cast<uint8_t*>(col), b, 4, 0, sign != 0);
+        bc3_alpha(reinterpret_cast<uint8_t*>(col), b + 8, 4, 1, sign != 0);
+        if (sign) {
+          for (int i = 0; i < 16; ++i) col[i].b = 128;
+        }
+        break;
+      case 6: bc6_block(col, b, sign != 0); break;
+      default: bc7_block(col, b); break;
+    }
+    const int64_t by = k / bw, bx = k % bw;
+    for (int j = 0; j < 4; ++j) {
+      const int64_t y = by * 4 + j;
+      if (y >= h) continue;
+      for (int i = 0; i < 4; ++i) {
+        const int64_t x = bx * 4 + i;
+        if (x >= w) continue;
+        if (out_bytes == 1) {
+          out[y * w + x] = lum[j * 4 + i];
+        } else {
+          std::memcpy(out + (y * w + x) * 4, &col[j * 4 + i], 4);
+        }
+      }
+    }
+  }
+  return k;
 }
 
 }  // extern "C"

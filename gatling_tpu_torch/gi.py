@@ -335,7 +335,13 @@ MATRIX_MAX_TRIS = 8192
 def _choose_tracer(geom) -> str:
     """The wavefront's tracer (gatling_tpu/gi.py:272-286, with the TPU's
     rule on either device): the brute-force kernels up to MATRIX_MAX_TRIS
-    triangles, the threaded BVH above."""
+    triangles, the threaded BVH above. GATLING_TRACER forces one, as in
+    the JAX package: "pallas" (the port's K5/K6, "matrix"), "bvh" (B1/B2)
+    or "brute" (the plain Moller-Trumbore of ops/intersect.py, which runs
+    no kernel of the port's on either device: a request, not a fallback)."""
+    forced = os.environ.get("GATLING_TRACER")
+    if forced in ("brute", "pallas", "bvh"):
+        return "matrix" if forced == "pallas" else forced
     return "matrix" if geom.num_triangles <= MATRIX_MAX_TRIS else "bvh"
 
 
@@ -349,6 +355,8 @@ def _build_accel(scene: GiScene) -> None:
     geom = scene._geom
     if scene._tracer == "matrix":
         scene._accel = Accel(tables=build_trace_tables(geom, scene.device))
+    elif scene._tracer == "brute":
+        scene._accel = Accel(soup=geom)
     else:
         arrays, order = build_bvh(geom.v0, geom.e1, geom.e2)
         geom = reorder_geometry(geom, order)
@@ -724,8 +732,9 @@ def _render_impl(params: GiRenderParams, check: bool = False) -> None:
     # the JAX package's route (gatling_tpu/gi.py:650-700): AOVs the fused
     # kernels do not write, vertex colours, dynamic inputs, backface
     # surfaces, or media the fused kernels do not carry take the wavefront
-    # integrator
-    wavefront = (bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
+    # integrator; GATLING_FUSED=0 sends every frame there (gatling_tpu/gi.py:649-651)
+    wavefront = (os.environ.get("GATLING_FUSED", "1") == "0"
+                 or bool(aov_mask & ~FUSED_AOV_MASK) or _uses_vertex_colours(scene)
                  or bool(config.dynamic_params) or config.has_backface
                  or not _volumes_fused(scene, config))
     s = params.render_settings

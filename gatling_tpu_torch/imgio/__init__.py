@@ -2,35 +2,46 @@
 the decoders and writers of every format the JAX package reads and writes
 (it goes through Pillow, which the port does not depend on).
 
-`load_image` picks the decoder by magic, as Pillow picks its plugin: EXR
-and Radiance HDR (exr.py, hdr.py), PNG (here), JPEG (jpeg.py), TIFF
-(tiff.py), then TGA by its header checks (tga.py). Each returns the RGBA
-array [H, W, 4] that the JAX package's imgio.load_image(data).data gives
-for the same bytes: uint8 codes for 8-bit data; float32 for the HDR
-formats, for 16-bit grey PNGs and TIFFs (code / 65535) and float TIFFs;
-bool for 1-bit grey PNGs. So the dtype says whether the image is HDR
-(`is_hdr`, the JAX package's Image.is_hdr). Bytes that no decoder accepts
-raise ValueError, as the JAX package's load_image does. A recognised
-container in a variant that is not ported (arithmetic-coded or 12-bit
-JPEG, JPEG-in-TIFF, CMYK, 16-bit TGA ...) or a format of Pillow's that is
-not ported (BMP, GIF, WebP ...) raises NotImplementedError (ROADMAP: 'USD
-content'), so that the port never renders something else where the JAX
-package renders the image.
+`load_image` takes EXR and Radiance HDR by their magic (exr.py, hdr.py),
+as the JAX package does, then makes Pillow 12.1's open decision
+(identify.py): Pillow's plugins in Pillow's order, each by its accept test
+and its opening's checks. A ported plugin's decoder returns the RGBA array
+[H, W, 4] that the JAX package's imgio.load_image(data).data gives for the
+same bytes: PNG (here), JPEG (jpeg.py), TIFF (tiff.py), TGA (tga.py), BMP,
+DIB, ICO and CUR (bmp.py), GIF (gif.py), DDS (dds.py), PSD (psd.py), QOI
+(qoi.py) and Netpbm (pnm.py). The array is uint8 codes for 8-bit data;
+float32 for the HDR formats, for Pillow's "I" and "F" modes (16-bit grey
+PNGs, TIFFs and PGMs as code / 65535, float TIFFs and PFMs as stored);
+bool for Pillow's "1" (1-bit grey PNGs, BMPs, TIFFs, PBMs). So the dtype
+says whether the image is HDR (`is_hdr`, the JAX package's Image.is_hdr).
+
+The contract with the JAX package, for any bytes: where it returns an
+array, the port returns the same array or raises NotImplementedError
+naming its ROADMAP item ('USD content': a plugin or variant not ported),
+and never another array; where it raises ValueError (no plugin takes the
+bytes, or the plugin that takes them cannot finish: EPS without
+Ghostscript, WMF off Windows, a truncated or corrupt file), the port
+raises ValueError. Both packages' texture managers turn that ValueError
+into the 1x1 black texel; a NotImplementedError is raised to the caller.
 
 `write_image_file` writes by extension: .png (8-bit), .jpg / .jpeg (jpeg.py:
 Pillow's defaults, alpha dropped), .tga and .tif / .tiff (uncompressed),
-.exr and .hdr.
+.bmp (bmp.py), .pbm / .pgm / .ppm / .pnm / .pfm (pnm.py), .exr
+and .hdr.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
 import numpy as np
 
-from gatling_tpu_torch.imgio import jpeg, tga, tiff
+from gatling_tpu_torch.imgio import bmp, dds, gif, jpeg, pnm, psd, qoi, tga, tiff
+from gatling_tpu_torch.imgio.identify import PLUGINS, accepts, open_unported
+from gatling_tpu_torch.imgio.modes import Skip
 from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
 from gatling_tpu_torch.imgio.hdr import decode_hdr, encode_hdr
 from gatling_tpu_torch.utils.log import get_logger
@@ -39,6 +50,7 @@ EXR_MAGIC = b"\x76\x2f\x31\x01"
 HDR_MAGIC = b"#?"
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_CID = re.compile(rb"\w\w\w\w")  # PngImagePlugin.is_cid
 
 
 def _unfilter(filt: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
@@ -103,28 +115,59 @@ def decode_png(data: bytes) -> np.ndarray:
     colour type, as Pillow's array of the image ignores it."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
-    pos, idat, palette, trns, header = 8, [], None, None, None
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack(">I", data[pos:pos + 4])
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if tag == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif tag == b"PLTE":
-            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
-        elif tag == b"tRNS":
-            trns = np.frombuffer(body, np.uint8)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
+    pos, palette, trns, header = 8, None, None, None
+    while True:  # PngImageFile._open: the chunks up to the first IDAT, checksummed
+        s = data[pos:pos + 8]
+        if len(s) < 8 or not _CID.match(s[4:]):
+            raise ValueError("broken PNG file")
+        (length,) = struct.unpack(">I", s[:4])
+        tag, pos = s[4:], pos + 8
+        if tag == b"IDAT":
             break
+        if tag == b"IEND":
+            raise ValueError("PNG: no image data")
+        body, crc = data[pos:pos + length], data[pos + length:pos + length + 4]
+        if len(body) < length:
+            raise ValueError("PNG: Truncated File Read")
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(tag + body):
+            raise ValueError(f"broken PNG file (bad header checksum in {tag!r})")
+        pos += length + 4
+        if tag == b"IHDR":
+            if length < 13:
+                raise ValueError("Truncated IHDR chunk")
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif tag == b"PLTE" and header is not None and header[3] == 3:
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+        elif tag == b"tRNS" and header is not None and header[3] == 3:
+            trns = np.frombuffer(body, np.uint8)
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
-    w, h, depth, ctype, _compression, _filter, interlace = header
-    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1 or w == 0 or h == 0:
+    idat = []  # PngImageFile.load_read: the IDAT chunks that follow one another
+    while tag == b"IDAT":
+        idat.append(data[pos:pos + length])
+        pos += length + 4
+        s = data[pos:pos + 8]
+        if len(s) < 8:
+            break
+        (length,) = struct.unpack(">I", s[:4])
+        tag, pos = s[4:], pos + 8
+    w, h, depth, ctype, _compression, filt, interlace = header
+    if depth not in _DEPTHS.get(ctype, ()) or interlace > 1 or w == 0 or h == 0 or filt:
         raise ValueError(f"PNG: bit depth {depth}, colour type {ctype}, interlace {interlace}")
     chans = _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    # Pillow's zip decoder stops once the image is filled: the stream's end
+    # (and whatever corruption lies past the last row) is never read
+    passes = [(w, h, 0, 0, 1, 1)] if interlace == 0 else [
+        (-(-(w - x0) // dx), -(-(h - y0) // dy), x0, y0, dx, dy) for x0, y0, dx, dy in _ADAM7]
+    need = sum(ph * (1 + (pw * chans * depth + 7) // 8) for pw, ph, *_ in passes
+               if pw > 0 and ph > 0)
+    try:
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
+    except zlib.error as e:
+        raise ValueError(f"PNG: corrupt image data: {e}") from e
+    if len(raw) < need:
+        raise ValueError("image file is truncated")
+    raw = np.frombuffer(raw, np.uint8)
     if interlace == 0:
         px = _png_samples(raw, w, h, depth, chans)[0]
     else:
@@ -163,43 +206,48 @@ def decode_png(data: bytes) -> np.ndarray:
     return out
 
 
-# formats Pillow reads that the port does not, by their magic
-_UNPORTED_MAGIC = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"8BPS", "PSD"),
-                   (b"DDS ", "DDS"), (b"qoif", "QOI"), (b"\xffO\xffQ", "JPEG 2000"),
-                   (b"\x00\x00\x00\x0cjP  ", "JPEG 2000"), (b"II+\x00", "BigTIFF"),
-                   (b"MM\x00+", "BigTIFF"))
+def _tga(data: bytes) -> np.ndarray:
+    if not tga.accepts(data):
+        raise Skip("not a TGA file")
+    return tga.decode_tga(data)
+
+
+# the decoder of each ported plugin of Pillow's (identify.PLUGINS)
+_DECODERS = {"BMP": bmp.decode_bmp, "DIB": bmp.decode_dib, "GIF": gif.decode_gif,
+             "JPEG": jpeg.decode_jpeg, "PPM": pnm.decode_pnm, "PNG": decode_png,
+             "CUR": bmp.decode_cur, "DDS": dds.decode_dds, "ICO": bmp.decode_ico,
+             "TIFF": tiff.decode_tiff, "PSD": psd.decode_psd, "QOI": qoi.decode_qoi,
+             "TGA": _tga}
 
 
 def load_image(data: bytes) -> np.ndarray:
     """Decode image bytes into [H, W, 4] RGBA (the JAX package's
-    imgio.load_image(data).data): the decoder is picked by magic, and
-    bytes it rejects, or that no decoder accepts, raise ValueError."""
+    imgio.load_image(data).data): EXR and Radiance HDR by their magic, then
+    Pillow's plugins in Pillow's order (identify.py). A ported plugin's
+    decoder returns the array the JAX package gives; an unported one raises
+    NotImplementedError (ROADMAP: 'USD content'). Bytes that no plugin
+    takes, or that the plugin taking them cannot decode, raise ValueError,
+    as the JAX package's load_image does."""
     data = bytes(data)
     if data[:4] == EXR_MAGIC:
         return decode_exr(data)
     if data[:2] == HDR_MAGIC:
         return decode_hdr(data)
-    if data[:8] == PNG_SIGNATURE:
-        decode = decode_png
-    elif data[:3] == b"\xff\xd8\xff":
-        decode = jpeg.decode_jpeg
-    elif tiff.accepts(data):
-        decode = tiff.decode_tiff
-    else:
-        for magic, name in _UNPORTED_MAGIC:
-            if data.startswith(magic):
-                raise NotImplementedError(f"{name} images are not ported (ROADMAP: 'USD "
-                                          "content')")
-        if not tga.accepts(data):
-            raise ValueError("no decoder accepted image data: not a PNG, JPEG, TIFF, TGA, "
-                             "EXR or Radiance HDR file")
-        decode = tga.decode_tga
-    try:
-        return decode(data)
-    except NotImplementedError:
-        raise
-    except Exception as e:  # noqa: BLE001 - a corrupt file, whatever the decoder met
-        raise ValueError(f"no decoder accepted image data: {decode.__name__}: {e}") from e
+    prefix = data[:16]
+    for name, accept in PLUGINS:
+        if not accepts(accept, prefix):
+            continue
+        try:
+            if name in _DECODERS:
+                return _DECODERS[name](data)
+            open_unported(name, data)
+        except Skip:
+            continue
+        except NotImplementedError:
+            raise
+        except Exception as e:  # noqa: BLE001 - a corrupt file, whatever the decoder met
+            raise ValueError(f"no decoder accepted image data: {name}: {e}") from e
+    raise ValueError("no decoder accepted image data: cannot identify image file")
 
 
 def load_image_file(path: str | os.PathLike) -> np.ndarray:
@@ -248,8 +296,10 @@ def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
     """Write [H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA by extension (the
     JAX package's write_image_file): .exr (ZIP, half) and .hdr (flat RGBE)
     as the float values; .png (RGB or RGBA), .jpg / .jpeg (the alpha
-    dropped), .tga and .tif / .tiff as 8-bit codes, floats in [0, 1]
-    scaled and rounded."""
+    dropped), .tga, .tif / .tiff, .bmp and the Netpbm extensions
+    (.pbm, .pgm, .ppm, .pnm and .pfm alike: Pillow's P5 or P6, the alpha
+    dropped) as 8-bit codes, floats in [0, 1] scaled and rounded; each file
+    byte for byte what Pillow saves for the same array."""
     ext = os.path.splitext(str(path))[1].lower()
     img = np.asarray(img)
     if ext in (".exr", ".hdr"):
@@ -258,10 +308,12 @@ def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
             f.write(encode(img.astype(np.float32)))
         return
     encoders = {".png": encode_png, ".jpg": jpeg.encode_jpeg, ".jpeg": jpeg.encode_jpeg,
-                ".tga": tga.encode_tga, ".tif": tiff.encode_tiff, ".tiff": tiff.encode_tiff}
+                ".tga": tga.encode_tga, ".tif": tiff.encode_tiff, ".tiff": tiff.encode_tiff,
+                ".bmp": bmp.encode_bmp,
+                **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"), pnm.encode_pnm)}
     if ext not in encoders:
-        raise ValueError(f"cannot write {ext} images: write .png, .jpg, .tga, .tif, .exr or "
-                         ".hdr")
+        raise ValueError(f"cannot write {ext} images: write .png, .jpg, .tga, .tif, .bmp, "
+                         ".ppm (.pbm, .pgm, .pnm, .pfm), .exr or .hdr (ROADMAP: 'USD content')")
     if img.dtype != np.uint8:
         img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
     if ext in (".jpg", ".jpeg") and img.ndim == 3 and img.shape[2] == 4:

@@ -3,8 +3,9 @@ code for code (the JAX package reads and writes JPEG through Pillow, which
 links libjpeg-turbo).
 
 The decoder reads Huffman-coded baseline, extended-sequential and
-progressive files of 8-bit samples, with one (grey) or three components
-sampled at most 2x2 (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals, and
+progressive files of 8-bit samples, with one (grey), three (YCbCr or RGB)
+or four components (CMYK, or YCCK by the Adobe APP14 transform), any
+integer sampling ratios (1 to 4 in each direction), restart intervals, and
 any APPn or COM segments. It decodes as libjpeg does with its defaults:
 - the markers are parsed here and each scan's entropy-coded segment is
   Huffman-decoded by the native library (gatling_jpeg_decode_scan: the
@@ -12,15 +13,18 @@ any APPn or COM segments. It decodes as libjpeg does with its defaults:
   jdphuff.c), into coefficient blocks;
 - jidctint.c's islow IDCT dequantises and transforms them
   (gatling_jpeg_idct_islow);
-- fancy upsampling (jdsample.c's h2v1, h1v2 and h2v2 triangle filters,
-  their alternating rounding biases, the edge sample repeated) brings
-  the chroma to full size;
-- jdcolor.c's fixed-point tables convert YCbCr to RGB.
+- jdsample.c brings the chroma to full size: the fancy h2v1, h1v2 and
+  h2v2 triangle filters (their alternating rounding biases, the edge
+  sample repeated), and int_upsample's replication for every other ratio;
+- jdcolor.c's fixed-point tables convert YCbCr to RGB, and YCCK to CMYK;
+  Pillow reads four components as "CMYK;I", inverted, and converts them
+  to RGBA as it converts CMYK.
 Progressive block smoothing never applies: libjpeg smooths only while
 some coefficient bits are missing after the last scan, and such a file
-raises here. Arithmetic coding, 12-bit and lossless files, and four
-components (CMYK, YCCK) raise NotImplementedError (ROADMAP: 'USD
-content'); a file libjpeg rejects raises ValueError.
+raises here. Arithmetic coding and lossless and hierarchical frames
+raise NotImplementedError (ROADMAP: 'USD content'); a file Pillow or
+libjpeg rejects (another precision than 8 bits, two components, a height
+given only by a DNL marker, fractional sampling) raises ValueError.
 
 The encoder writes what Pillow writes at its defaults (quality 75,
 4:2:0 for colour, the standard Huffman tables, the islow DCT): jccolor.c's
@@ -38,6 +42,7 @@ import struct
 import numpy as np
 
 from gatling_tpu_torch import native
+from gatling_tpu_torch.imgio.modes import finish
 
 UNPORTED = "(ROADMAP: 'USD content')"
 
@@ -177,6 +182,8 @@ def _upsample(p: np.ndarray, hr: int, vr: int) -> np.ndarray:
     x = p.astype(np.int32)
     if (hr, vr) == (1, 1):
         return p
+    if (hr, vr) not in ((2, 1), (1, 2), (2, 2)):  # int_upsample: each sample repeated
+        return np.repeat(np.repeat(p, hr, axis=1), vr, axis=0)
     if (hr, vr) == (1, 2):  # h1v2_fancy_upsample
         out = np.empty((2 * dh, dw), np.int32)
         out[0::2] = (3 * x + x[_prev(dh)] + 1) >> 2
@@ -211,9 +218,9 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> [H, W, 4] uint8 RGBA (a grey image in R, G and B), the
-    JAX package's imgio.load_image(data).data for the same file."""
+def _decode(data: bytes) -> tuple:
+    """The full-size planes of a JPEG stream's components, their ids, and
+    whether it has a JFIF marker and which Adobe transform."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     pos, frame, progressive, restart = 2, None, False, 0
@@ -239,32 +246,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             kind = _SOF_UNPORTED.get(m, "arithmetic")
             raise NotImplementedError(f"JPEG: {kind} coding (SOF{m - 0xC0}) is not ported "
                                       f"{UNPORTED}")
-        if m == 0xDC:
-            raise NotImplementedError(f"JPEG: a DNL marker is not ported {UNPORTED}")
         payload, pos = _segment(data, pos)
         if m in _SOF_SUPPORTED:
             if frame is not None:
                 raise ValueError("JPEG: two SOF markers")
             progressive = _SOF_SUPPORTED[m]
             precision, height, width, n = struct.unpack(">BHHB", payload[:6])
-            if precision != 8:
-                raise NotImplementedError(f"JPEG: {precision}-bit samples are not ported "
-                                          f"{UNPORTED}")
-            if n not in (1, 3):
-                raise NotImplementedError(f"JPEG: {n} components (CMYK, YCCK) are not ported "
-                                          f"{UNPORTED}")
+            if precision != 8:  # JpegImagePlugin.SOF gives up on any other precision
+                raise ValueError(f"JPEG: Pillow reads no {precision}-bit samples")
+            if n not in (1, 3, 4):
+                raise ValueError(f"JPEG: Pillow reads no image of {n} components")
             if height == 0 or width == 0 or len(payload) < 6 + 3 * n:
-                raise ValueError("JPEG: bad SOF segment")
+                raise ValueError("JPEG: bad SOF segment (an empty image: libjpeg reads no "
+                                 "DNL height)")
             comps = [_Component(payload[6 + 3 * i], payload[7 + 3 * i] >> 4,
                                 payload[7 + 3 * i] & 15, payload[8 + 3 * i]) for i in range(n)]
             if any(not 1 <= c.h <= 4 or not 1 <= c.v <= 4 for c in comps):
                 raise ValueError("JPEG: bad sampling factors")
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-            if any(hmax // c.h not in (1, 2) or vmax // c.v not in (1, 2) or hmax % c.h
-                   or vmax % c.v for c in comps):
-                raise NotImplementedError("JPEG: sampling factors "
-                                          f"{[(c.h, c.v) for c in comps]} are not ported "
-                                          f"{UNPORTED}")
+            if any(hmax % c.h or vmax % c.v for c in comps):
+                raise ValueError("JPEG: fractional sampling (libjpeg: not implemented)")
             mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
             for c in comps:
                 c.layout(width, height, hmax, vmax, mcux, mcuy)
@@ -291,6 +292,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             scan = [by_id.get(payload[1 + 2 * i]) for i in range(n)]
             if any(c is None for c in scan):
                 raise ValueError("JPEG: a scan names an unknown component")
+            if n > 1 and sum(c.h * c.v for c in scan) > 10:
+                raise ValueError("JPEG: sampling factors too large for an interleaved scan")
             sel = [(payload[2 + 2 * i] >> 4, payload[2 + 2 * i] & 15) for i in range(n)]
             ss, se, ahl = payload[1 + 2 * n:4 + 2 * n]
             ah, al = ahl >> 4, ahl & 15
@@ -320,17 +323,42 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     width, height, hmax, vmax = frame[:4]
     planes = [_upsample(_idct_plane(c)[:c.down_h, :c.down_w], hmax // c.h,
                         vmax // c.v)[:height, :width] for c in comps]
-    out = np.empty((height, width, 4), np.uint8)
-    out[..., 3] = 255
+    return planes, tuple(c.cid for c in comps), jfif, adobe
+
+
+def _ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """jdcolor.c ycck_cmyk_convert: YCbCr to RGB by its tables, each
+    inverted, K passed through."""
+    return np.concatenate([255 - _ycc_to_rgb(y, cb, cr), k[..., None]], axis=-1)
+
+
+def decode_planes(data: bytes, ycc: bool) -> np.ndarray:
+    """The decoded samples [H, W, components] of a JPEG stream, converted
+    from YCbCr to RGB if `ycc` (libtiff's JPEG colour mode for a YCbCr
+    TIFF), else as coded."""
+    planes = _decode(data)[0]
+    if ycc and len(planes) == 3:
+        return _ycc_to_rgb(*planes)
+    return np.stack(planes, axis=-1)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> [H, W, 4] uint8 RGBA (a grey image in R, G and B), the
+    JAX package's imgio.load_image(data).data for the same file."""
+    planes, ids, jfif, adobe = _decode(data)
     if len(planes) == 1:
-        out[..., :3] = planes[0][..., None]
-        return out
-    ids = tuple(c.cid for c in comps)
+        return finish("L", planes[0])
+    if len(planes) == 4:
+        # jdapimin.c default_decompress_parms: an Adobe transform of 2 is
+        # YCCK (any other value but 0 too, with a warning); without the
+        # marker, or at 0, CMYK. Pillow reads either as "CMYK;I", inverted.
+        cmyk = (np.stack(planes, axis=-1) if adobe in (None, 0)
+                else _ycck_to_cmyk(*planes))
+        return finish("CMYK", 255 - cmyk)
     # jdapimin.c default_decompress_parms: JFIF, then Adobe's transform, then
     # the component ids decide whether the samples are YCbCr
     rgb = (not jfif) and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
-    out[..., :3] = np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes)
-    return out
+    return finish("RGB", np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes))
 
 
 # ---------------------------------------------------------------------------

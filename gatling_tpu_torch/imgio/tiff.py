@@ -2,26 +2,38 @@
 libtiff for compressed files; the JAX package's imgio goes through
 Pillow).
 
-Read: the first image of a little- or big-endian TIFF, in strips or
-tiles, planar configuration 1, compressed with none, LZW (the native
-library's gatling_tiff_lzw_decode), Deflate (both tags, Python's zlib) or
-PackBits (gatling_tiff_packbits_decode), with predictor 2 (horizontal
+Read: the first image of a little- or big-endian TIFF or BigTIFF, in
+strips or tiles, planar configuration 1 or 2, compressed with none, LZW
+(new style by the native library's gatling_tiff_lzw_decode; old style,
+LSB first, by gatling_tiff_lzw_compat_decode), Deflate (both tags,
+Python's zlib), PackBits (gatling_tiff_packbits_decode) or JPEG
+(compression 7: each strip or tile a JPEG stream completed by the
+JPEGTables tag, decoded by jpeg.py), with predictor 2 (horizontal
 differencing of 8-, 16- or 32-bit samples) or 3 (floating point), which
-libtiff applies to LZW and Deflate strips alone. Samples of 8 or 16
-unsigned bits, or 32-bit floats, in grey, grey + alpha, RGB and RGBA;
-the array each gives is Pillow's:
-- 8-bit grey, grey + alpha, RGB and RGBA: the codes (WhiteIsZero grey
-  inverted; RGBA with associated alpha divided out as Pillow's "RGBa"
-  unpacker does; an unspecified fourth sample dropped);
-- 16-bit grey: float32 code / 65535 (Pillow's "I;16"); 16-bit RGB and
-  RGBA: the high byte of each sample (Pillow's 8-bit modes);
-- 32-bit float grey: the floats (Pillow's "F"; in a compressed
-  big-endian file each float's bytes swapped, as Pillow reads them).
-JPEG-in-TIFF, palette, CMYK, YCbCr and Lab images, other sample widths,
-signed samples, bit fill order 2 and planar configuration 2 raise
-NotImplementedError (ROADMAP: 'USD content'); a layout Pillow rejects
-(float RGB, 16-bit grey + alpha, big-endian 16-bit WhiteIsZero) raises
-ValueError.
+libtiff applies to LZW and Deflate strips alone; bit fill order 2 (each
+byte's bits reversed). Pillow's mode and raw mode come from its OPEN_INFO
+table, copied here (`OPEN_INFO`): a layout it lacks is given up, as Pillow
+gives it up, and the array each raw mode gives is Pillow's:
+- 1-bit grey: bool (WhiteIsZero inverted); 2- and 4-bit grey scaled to
+  8 bits (x 85, x 17); 8-bit grey, grey + alpha, RGB and RGBA: the codes
+  (WhiteIsZero inverted; associated alpha divided out as Pillow's "RGBa"
+  unpacker does; unspecified extra samples dropped);
+- 12- and 16-bit grey: float32 code / 65535 (Pillow's "I;16"); signed
+  16-bit and 32-bit integer grey: Pillow's "I", the same division;
+  16-bit RGB, RGBA and CMYK: the high byte of each sample;
+- 32-bit float grey: the floats (Pillow's "F"; in a compressed big-endian
+  file each float's bytes swapped, as Pillow reads them);
+- palette images (1, 2, 4 and 8 bits): their ColorMap's high bytes, as
+  Pillow converts "P" to RGBA; CMYK: Pillow's CMYK to RGBA conversion;
+- JPEG-compressed YCbCr: libjpeg's YCbCr to RGB (libtiff's RGB colour
+  mode), JPEG-compressed RGB and grey: the samples as coded.
+CIE Lab: its L*, a* and b* samples as stored, three bands the JAX package
+takes for RGB. YCbCr without JPEG (which Pillow
+reads through libtiff's RGBA interface; uncompressed, Pillow reads it past
+its strips and fails: ValueError), old-style JPEG (compression 6), the other codecs (CCITT, LZMA,
+ZSTD, WebP ...) and orientations that swap the axes raise
+NotImplementedError (ROADMAP: 'USD content'); a file Pillow gives up on
+raises ValueError.
 
 Write: uncompressed 8-bit grey, RGB or RGBA (unassociated alpha), one
 strip, little-endian.
@@ -36,54 +48,147 @@ import zlib
 import numpy as np
 
 from gatling_tpu_torch import native
+from gatling_tpu_torch.imgio import jpeg
+from gatling_tpu_torch.imgio.modes import Skip, bomb_check, finish, unpack_bits
 
 UNPORTED = "(ROADMAP: 'USD content')"
-MAGICS = (b"II*\x00", b"MM\x00*")
+MAGICS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 
 # field types: (struct code, size)
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
-          16: ("Q", 8)}
-_COMPRESSIONS = {1: "none", 5: "lzw", 8: "deflate", 32946: "deflate", 32773: "packbits"}
-# (photometric, bits, samples, extra samples) of Pillow's OPEN_INFO that
-# are read here: grey (0: WhiteIsZero, 1: BlackIsZero), grey + alpha, RGB,
-# RGB + an unspecified (0), associated (1) or unassociated (2, 999, or
-# none named) fourth sample
-_LAYOUTS = {(0, 8, 1, ()), (1, 8, 1, ()), (0, 16, 1, ()), (1, 16, 1, ()), (0, 32, 1, ()),
-            (1, 32, 1, ()), (1, 8, 2, (2,)),
-            *((2, b, 3, ()) for b in (8, 16)),
-            *((2, b, 4, e) for b in (8, 16) for e in ((), (0,), (1,), (2,))), (2, 8, 4, (999,))}
+          13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
+# Pillow's COMPRESSION_INFO codes; the ported ones by the port's codec name
+_KNOWN_COMPRESSIONS = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677,
+                       34925, 50000, 50001}
+_COMPRESSIONS = {1: "none", 5: "lzw", 7: "jpeg", 8: "deflate", 32946: "deflate",
+                 32773: "packbits"}
+
+
+def _open_info() -> dict[tuple, tuple[str, str]]:
+    """TiffImagePlugin.OPEN_INFO: (byte order, photometric, sample format,
+    fill order, bits per sample, extra samples) -> (mode, raw mode)."""
+    both = [  # the same for either byte order
+        (0, (1,), 1, (1,), (), "1", "1;I"), (0, (1,), 2, (1,), (), "1", "1;IR"),
+        (1, (1,), 1, (1,), (), "1", "1"), (1, (1,), 2, (1,), (), "1", "1;R"),
+        (0, (1,), 1, (2,), (), "L", "L;2I"), (0, (1,), 2, (2,), (), "L", "L;2IR"),
+        (1, (1,), 1, (2,), (), "L", "L;2"), (1, (1,), 2, (2,), (), "L", "L;2R"),
+        (0, (1,), 1, (4,), (), "L", "L;4I"), (0, (1,), 2, (4,), (), "L", "L;4IR"),
+        (1, (1,), 1, (4,), (), "L", "L;4"), (1, (1,), 2, (4,), (), "L", "L;4R"),
+        (0, (1,), 1, (8,), (), "L", "L;I"), (0, (1,), 2, (8,), (), "L", "L;IR"),
+        (1, (1,), 1, (8,), (), "L", "L"), (1, (2,), 1, (8,), (), "L", "L"),
+        (1, (1,), 2, (8,), (), "L", "L;R"), (1, (1,), 1, (8, 8), (2,), "LA", "LA"),
+        (2, (1,), 1, (8, 8, 8), (), "RGB", "RGB"), (2, (1,), 2, (8, 8, 8), (), "RGB", "RGB;R"),
+        (2, (1,), 1, (8,) * 4, (), "RGBA", "RGBA"), (2, (1,), 1, (8,) * 4, (0,), "RGB", "RGBX"),
+        (2, (1,), 1, (8,) * 5, (0, 0), "RGB", "RGBXX"),
+        (2, (1,), 1, (8,) * 6, (0, 0, 0), "RGB", "RGBXXX"),
+        (2, (1,), 1, (8,) * 4, (1,), "RGBA", "RGBa"),
+        (2, (1,), 1, (8,) * 5, (1, 0), "RGBA", "RGBaX"),
+        (2, (1,), 1, (8,) * 6, (1, 0, 0), "RGBA", "RGBaXX"),
+        (2, (1,), 1, (8,) * 4, (2,), "RGBA", "RGBA"),
+        (2, (1,), 1, (8,) * 5, (2, 0), "RGBA", "RGBAX"),
+        (2, (1,), 1, (8,) * 6, (2, 0, 0), "RGBA", "RGBAXX"),
+        (2, (1,), 1, (8,) * 4, (999,), "RGBA", "RGBA"),
+        (3, (1,), 1, (1,), (), "P", "P;1"), (3, (1,), 2, (1,), (), "P", "P;1R"),
+        (3, (1,), 1, (2,), (), "P", "P;2"), (3, (1,), 2, (2,), (), "P", "P;2R"),
+        (3, (1,), 1, (4,), (), "P", "P;4"), (3, (1,), 2, (4,), (), "P", "P;4R"),
+        (3, (1,), 1, (8,), (), "P", "P"), (3, (1,), 1, (8, 8), (0,), "P", "PX"),
+        (3, (1,), 1, (8, 8), (2,), "PA", "PA"), (3, (1,), 2, (8,), (), "P", "P;R"),
+        (5, (1,), 1, (8,) * 4, (), "CMYK", "CMYK"),
+        (5, (1,), 1, (8,) * 5, (0,), "CMYK", "CMYKX"),
+        (5, (1,), 1, (8,) * 6, (0, 0), "CMYK", "CMYKXX"),
+        (6, (1,), 1, (8,), (), "L", "L"), (6, (1,), 1, (8, 8, 8), (), "RGB", "RGBX"),
+        (8, (1,), 1, (8, 8, 8), (), "LAB", "LAB"),
+    ]
+    by_order = [  # (II mode, II raw mode, MM mode, MM raw mode); None: no entry
+        ((1, (1,), 1, (12,), ()), ("I;16", "I;12"), None),
+        ((0, (1,), 1, (16,), ()), ("I;16", "I;16"), None),
+        ((1, (1,), 1, (16,), ()), ("I;16", "I;16"), ("I;16B", "I;16B")),
+        ((1, (1,), 2, (16,), ()), ("I;16", "I;16R"), None),
+        ((1, (2,), 1, (16,), ()), ("I", "I;16S"), ("I", "I;16BS")),
+        ((0, (3,), 1, (32,), ()), ("F", "F;32F"), ("F", "F;32BF")),
+        ((1, (1,), 1, (32,), ()), ("I", "I;32N"), None),
+        ((1, (2,), 1, (32,), ()), ("I", "I;32S"), ("I", "I;32BS")),
+        ((1, (3,), 1, (32,), ()), ("F", "F;32F"), ("F", "F;32BF")),
+        ((2, (1,), 1, (16,) * 3, ()), ("RGB", "RGB;16L"), ("RGB", "RGB;16B")),
+        ((2, (1,), 1, (16,) * 4, ()), ("RGBA", "RGBA;16L"), ("RGBA", "RGBA;16B")),
+        ((2, (1,), 1, (16,) * 4, (0,)), ("RGB", "RGBX;16L"), ("RGB", "RGBX;16B")),
+        ((2, (1,), 1, (16,) * 4, (1,)), ("RGBA", "RGBa;16L"), ("RGBA", "RGBa;16B")),
+        ((2, (1,), 1, (16,) * 4, (2,)), ("RGBA", "RGBA;16L"), ("RGBA", "RGBA;16B")),
+        ((5, (1,), 1, (16,) * 4, ()), ("CMYK", "CMYK;16L"), ("CMYK", "CMYK;16B")),
+    ]
+    table = {}
+    for photo, fmt, fill, bps, extra, mode, raw in both:
+        for bo in ("<", ">"):
+            table[(bo, photo, fmt, fill, bps, extra)] = (mode, raw)
+    for key, ii, mm in by_order:
+        table[("<", *key)] = ii
+        if mm is not None:
+            table[(">", *key)] = mm
+    return table
+
+
+OPEN_INFO = _open_info()
+_MAX_SAMPLES = max(len(k[4]) for k in OPEN_INFO)
+_REVERSED = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
 
 
 def accepts(data: bytes) -> bool:
     return data[:4] in MAGICS
 
 
-def _ifd(data: bytes, bo: str) -> dict[int, tuple]:
-    """The first IFD's fields: tag -> tuple of values."""
-    (offset,) = struct.unpack(bo + "I", data[4:8])
-    if offset + 2 > len(data):
-        raise ValueError("TIFF: truncated IFD")
-    (n,) = struct.unpack(bo + "H", data[offset:offset + 2])
-    fields = {}
+def _ifd(data: bytes, bo: str, big: bool) -> tuple[dict[int, tuple], bool]:
+    """The first IFD's fields: tag -> tuple of values (BigTIFF: 8-byte
+    counts and offsets, 20-byte entries). As in Pillow's
+    ImageFileDirectory_v2.load, an entry or a value that runs past the end
+    of the data ends the directory, keeping the fields before it, and
+    fields of no values or of an unknown type are left out. The flag says
+    whether the entries themselves were whole (libtiff reads no directory
+    whose entries are cut)."""
+    if big:
+        if len(data) < 16:
+            raise Skip("TIFF: short BigTIFF header")
+        (offset,) = struct.unpack_from(bo + "Q", data, 8)
+        head, entry_size, count_code, inline = 8, 20, "Q", 8
+    else:
+        if len(data) < 8:
+            raise Skip("TIFF: short header")
+        (offset,) = struct.unpack_from(bo + "I", data, 4)
+        head, entry_size, count_code, inline = 2, 12, "I", 4
+    fields: dict[int, tuple] = {}
+    if offset + head > len(data):
+        return fields, False
+    (n,) = struct.unpack_from(bo + ("Q" if big else "H"), data, offset)
     for k in range(n):
-        entry = data[offset + 2 + 12 * k:offset + 14 + 12 * k]
-        if len(entry) < 12:
-            raise ValueError("TIFF: truncated IFD")
-        tag, typ, count = struct.unpack(bo + "HHI", entry[:8])
+        at = offset + head + entry_size * k
+        entry = data[at:at + entry_size]
+        if len(entry) < entry_size:
+            return fields, False
+        tag, typ, count = struct.unpack_from(bo + "HH" + count_code, entry)
         if typ not in _TYPES:
             continue
         code, size = _TYPES[typ]
         nbytes = size * count
-        if nbytes <= 4:
-            raw = entry[8:8 + nbytes]
+        if nbytes <= inline:
+            raw = entry[entry_size - inline:entry_size - inline + nbytes]
         else:
-            (at,) = struct.unpack(bo + "I", entry[8:12])
-            raw = data[at:at + nbytes]
+            (pos,) = struct.unpack_from(bo + count_code, entry, entry_size - inline)
+            raw = data[pos:pos + nbytes]
             if len(raw) < nbytes:
-                raise ValueError(f"TIFF: truncated field {tag}")
-        fields[tag] = struct.unpack(bo + code * count, raw) if typ != 2 else (raw,)
-    return fields
+                return fields, True
+        if not raw:
+            continue
+        fields[tag] = struct.unpack(bo + code * count, raw) if typ not in (2, 7) else (raw,)
+    return fields, True
+
+
+def _native_decode(fn, blob: bytes, n: int) -> np.ndarray:
+    src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
+    dst = np.zeros(n, np.uint8)
+    got = fn(native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8), n)
+    if got < 0:
+        raise ValueError("TIFF: corrupt compressed data")
+    return dst[:got]
 
 
 def _decompress(kind: str, blob: bytes, n: int) -> np.ndarray:
@@ -91,137 +196,265 @@ def _decompress(kind: str, blob: bytes, n: int) -> np.ndarray:
     if kind == "none":
         out = np.frombuffer(blob[:n], np.uint8)
     elif kind == "deflate":
-        out = np.frombuffer(zlib.decompressobj().decompress(blob, n), np.uint8)
+        try:
+            out = np.frombuffer(zlib.decompressobj().decompress(blob, n), np.uint8)
+        except zlib.error as e:
+            raise ValueError(f"TIFF: corrupt Deflate data: {e}") from e
+    elif kind == "lzw":
+        lib = native.library()
+        old = len(blob) >= 2 and blob[0] == 0 and blob[1] & 1
+        out = _native_decode(lib.gatling_tiff_lzw_compat_decode if old
+                             else lib.gatling_tiff_lzw_decode, blob, n)
     else:
-        src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
-        dst = np.zeros(n, np.uint8)
-        fn = (native.library().gatling_tiff_lzw_decode if kind == "lzw"
-              else native.library().gatling_tiff_packbits_decode)
-        if kind == "lzw" and src.size >= 2 and src[0] == 0 and src[1] & 1:
-            raise NotImplementedError(f"TIFF: old-style (LSB-first) LZW is not ported {UNPORTED}")
-        got = fn(native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8), n)
-        if got < 0:
-            raise ValueError(f"TIFF: corrupt {kind} data")
-        out = dst[:got]
+        out = _native_decode(native.library().gatling_tiff_packbits_decode, blob, n)
     if out.size < n:
         raise ValueError(f"TIFF: a {kind} strip or tile holds {out.size} of its {n} bytes")
     return out
 
 
 def _predict(px: np.ndarray, predictor: int, spp: int, bits: int, bo: str) -> np.ndarray:
-    """Rows [r, w * spp * bits / 8] of bytes, the predictor undone, as
-    samples [r, w * spp] of the file's sample type in native order."""
+    """libtiff's view of a decompressed strip: rows [r, row bytes] in the
+    file's byte order -> rows of native-order samples, the predictor undone
+    (2: horizontal differencing modulo the sample width; 3: bytes
+    differenced, then byte planes MSB first)."""
     r = px.shape[0]
-    if predictor == 3:  # libtiff fpAcc: bytes differenced, then byte planes, MSB first
+    if predictor == 3:
         acc = px.reshape(r, -1, spp).astype(np.uint64).cumsum(axis=1).astype(np.uint8)
-        planes = acc.reshape(r, bits // 8, -1)
-        return np.ascontiguousarray(planes.transpose(0, 2, 1)).view(">f4").reshape(r, -1)
-    dt = np.dtype({8: "u1", 16: "u2", 32: "u4"}[bits]).newbyteorder(bo)
-    vals = px.view(dt).reshape(r, -1).astype(dt.newbyteorder("="))
-    if predictor == 2:  # horizontal differencing, modulo the sample width
-        per = vals.reshape(r, -1, spp).astype(np.uint64).cumsum(axis=1)
-        vals = (per & np.uint64((1 << bits) - 1)).astype(vals.dtype).reshape(r, -1)
-    return vals
+        planes = np.ascontiguousarray(acc.reshape(r, bits // 8, -1).transpose(0, 2, 1))
+        return planes.view(">f4").astype("=f4").view(np.uint8).reshape(r, -1)
+    if bits not in (16, 32):
+        if predictor == 2:
+            return (px.reshape(r, -1, spp).astype(np.uint64).cumsum(axis=1)
+                    .astype(np.uint8).reshape(r, -1))
+        return px
+    dt = np.dtype(f"{bo}u{bits // 8}")
+    vals = px.view(dt).astype(np.uint64)
+    if predictor == 2:
+        vals = vals.reshape(r, -1, spp).cumsum(axis=1) & np.uint64((1 << bits) - 1)
+    return np.ascontiguousarray(vals.astype(f"=u{bits // 8}")).view(np.uint8).reshape(r, -1)
+
+
+def _samples(rows: np.ndarray, w: int, spp: int, bits: int, fmt, dt_order: str) -> np.ndarray:
+    """Byte rows [r, row bytes] -> sample values [r, w, spp]."""
+    r = rows.shape[0]
+    if bits < 8:
+        return unpack_bits(rows, w, bits)[..., None]
+    if bits == 12:  # Pillow's I;12 unpacker: MSB-first 12-bit pairs in 3 bytes
+        b = rows[:, :(w * 12 + 7) // 8].astype(np.uint16)
+        b = np.pad(b, ((0, 0), (0, (-b.shape[1]) % 3)))
+        trip = b.reshape(r, -1, 3)
+        even = (trip[..., 0] << 4) | (trip[..., 1] >> 4)
+        odd = ((trip[..., 1] & 15) << 8) | trip[..., 2]
+        return np.stack([even, odd], axis=-1).reshape(r, -1)[:, :w, None]
+    kind = {1: "u", 2: "i", 3: "f"}.get(fmt if isinstance(fmt, int) else 1, "u")
+    dt = np.dtype(f"{dt_order}{kind}{bits // 8}")
+    return rows[:, :w * spp * bits // 8].copy().view(dt).reshape(r, w, spp)
 
 
 def decode_tiff(data: bytes) -> np.ndarray:
-    """TIFF bytes -> [H, W, 4] RGBA: uint8, or float32 for 16-bit and float
-    grey (the JAX package's imgio.load_image(data).data)."""
+    """TIFF bytes -> [H, W, 4] RGBA: uint8, float32 (12-, 16- and 32-bit
+    grey) or bool (1-bit grey), the JAX package's imgio.load_image(data).data."""
     if not accepts(data):
-        raise ValueError("not a TIFF file")
+        raise Skip("not a TIFF file")
     bo = "<" if data[:2] == b"II" else ">"
-    f = _ifd(data, bo)
+    # Pillow takes a file for BigTIFF by its third byte alone, so a
+    # big-endian BigTIFF ("MM\x00+") is read as a classic TIFF
+    f, complete = _ifd(data, bo, data[2] == 0x2B)
 
     def one(tag, default=None):
         return f[tag][0] if tag in f else default
 
-    w, h = one(256), one(257)
-    if w is None or h is None or w <= 0 or h <= 0:
-        raise ValueError("TIFF: no image size")
+    if 0xBC01 in f:
+        raise ValueError("Windows Media Photo files not yet supported")
     comp = one(259, 1)
-    if comp not in _COMPRESSIONS:
-        kind = {6: "old-style JPEG", 7: "JPEG"}.get(comp, f"compression {comp}")
-        raise NotImplementedError(f"TIFF: {kind} is not ported {UNPORTED}")
-    kind = _COMPRESSIONS[comp]
-    photo = one(262, 0)
-    if photo not in (0, 1, 2):
-        name = {3: "palette", 4: "mask", 5: "CMYK", 6: "YCbCr", 8: "CIE Lab"}.get(photo, photo)
-        raise NotImplementedError(f"TIFF: photometric {name} is not ported {UNPORTED}")
-    spp = one(277, 1)
-    bps = f.get(258, (1,))
-    bps = bps * spp if len(bps) == 1 else bps[:spp]
-    extra = f.get(338, ())
+    if comp not in _KNOWN_COMPRESSIONS:
+        raise Skip(f"TIFF: unknown compression {comp}")
+    planar = one(284, 1)
+    photo = 6 if comp == 6 else one(262, 0)
+    fill = one(266, 1)
+    w, h = one(256), one(257)
+    if w is None or h is None:
+        raise Skip("Missing dimensions")
     fmt = f.get(339, (1,))
-    fmt = fmt[0] if len(set(fmt)) == 1 else fmt
-    if one(284, 1) != 1:
-        raise NotImplementedError(f"TIFF: planar configuration 2 is not ported {UNPORTED}")
-    if one(266, 1) != 1:
-        raise NotImplementedError(f"TIFF: bit fill order 2 is not ported {UNPORTED}")
+    if len(fmt) > 1 and max(fmt) == min(fmt) == 1:
+        fmt = (1,)
+    bps = f.get(258, (1,))
+    extra = f.get(338, ())
+    nbands = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
+    spp = one(277, 3 if comp == 6 and photo in (2, 6) else 1)
+    if spp > _MAX_SAMPLES:
+        raise Skip("Invalid value for samples per pixel")
+    if spp < len(bps):
+        bps = bps[:spp]
+    elif spp > len(bps) and len(bps) == 1:
+        bps = bps * spp
+    if len(bps) != spp:
+        raise Skip("unknown data organization")
+    key = (bo, photo, tuple(fmt), fill, tuple(bps), tuple(extra))
+    if key not in OPEN_INFO:
+        raise Skip("unknown pixel mode")
+    mode, raw = OPEN_INFO[key]
+    if comp != 1 and fill == 2:
+        key = key[:3] + (1,) + key[4:]
+        if key not in OPEN_INFO:
+            raise Skip("unknown pixel mode")
+        mode, raw = OPEN_INFO[key]
+    if mode in ("P", "PA") and 320 not in f:
+        raise Skip("TIFF: a palette image without a ColorMap")
+    if w <= 0 or h <= 0:
+        raise Skip("not identified by this plugin")
+    bomb_check(w, h)
+    if comp not in _COMPRESSIONS:
+        raise NotImplementedError(f"TIFF: compression {comp} is not ported {UNPORTED}")
+    kind = _COMPRESSIONS[comp]
+    if kind != "none" and not complete:
+        raise ValueError("TIFF: libtiff cannot read a truncated directory")
+    if one(274) in (5, 6, 7, 8):
+        raise NotImplementedError(f"TIFF: orientations that swap the axes are not ported "
+                                  f"{UNPORTED}")
+    if photo == 6 and kind == "none":
+        raise ValueError("TIFF: Pillow's raw YCbCr layout reads past its strips")
+    if photo == 6 and kind != "jpeg":
+        raise NotImplementedError(f"TIFF: YCbCr without JPEG compression is not ported "
+                                  f"{UNPORTED}")
     bits = bps[0]
-    if len(set(bps)) != 1 or (bits, fmt) not in ((8, 1), (16, 1), (32, 3)):
-        raise NotImplementedError(f"TIFF: samples of {bps} bits, format {fmt}, are not "
-                                  f"ported {UNPORTED}")
-    layout = (photo, bits, spp, tuple(extra))
-    if layout not in _LAYOUTS or (layout == (0, 16, 1, ()) and bo == ">"):
-        if photo == 2 and bits != 32 and spp > 4:
-            raise NotImplementedError(f"TIFF: {spp} samples a pixel are not ported {UNPORTED}")
-        raise ValueError(f"TIFF: Pillow reads no image of layout {layout}")
+    if planar == 2 and (bits != 8 or spp == 1 or kind == "jpeg"):
+        raise NotImplementedError(f"TIFF: planar configuration 2 of {bits}-bit samples is "
+                                  f"not ported {UNPORTED}")
+    if kind == "jpeg" and (bits != 8 or spp not in (1, 3, 4) or extra):
+        raise NotImplementedError(f"TIFF: JPEG compression of this layout is not ported "
+                                  f"{UNPORTED}")
     predictor = one(317, 1) if kind in ("lzw", "deflate") else 1
-    if predictor not in (1, 2, 3) or (predictor == 3 and bits != 32):
+    if predictor not in (1, 2, 3) or (predictor == 3 and bits != 32) or (
+            predictor == 2 and bits not in (8, 16, 32)):
         raise NotImplementedError(f"TIFF: predictor {predictor} on {bits}-bit samples is not "
                                   f"ported {UNPORTED}")
-    if 324 in f:  # tiles
+    px = _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, predictor,
+                       photo)
+    return _to_mode(px, mode, raw, bits, bo, kind, f)
+
+
+def _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, predictor,
+                  photo) -> np.ndarray:
+    """The image's samples [h, w, spp] from its strips or tiles."""
+    if 324 in f:
         tw, tl = one(322), one(323)
         offsets, counts = f[324], f.get(325, ())
+        if not isinstance(tw, int) or not isinstance(tl, int) or tw <= 0 or tl <= 0:
+            raise ValueError("Invalid tile dimensions")
         grid = (-(-h // tl), -(-w // tw))
-    elif 273 in f:  # strips
-        tw, tl = w, min(one(278, h), h)
+    elif 273 in f:
+        tw, tl = w, min(one(278, h), h) or h
         offsets, counts = f[273], f.get(279, ())
         grid = (-(-h // tl), 1)
+        if kind == "none" and tl == h and planar != 2:
+            offsets = offsets[-1:]  # TiffImageFile._setup's one-strip case
     else:
         raise ValueError("TIFF: no strips or tiles")
-    if len(offsets) < grid[0] * grid[1] or len(counts) < len(offsets):
+    planes = spp if planar == 2 else 1
+    per_plane = grid[0] * grid[1]
+    if kind != "none" and (len(offsets) < per_plane * planes or len(counts) < len(offsets)):
         raise ValueError("TIFF: too few strips or tiles")
-    samples = np.zeros((grid[0] * tl, grid[1] * tw * spp),
-                       np.float32 if bits == 32 else np.uint16 if bits == 16 else np.uint8)
-    for k in range(grid[0] * grid[1]):
-        ty, tx = divmod(k, grid[1])
-        rows = tl if 324 in f else min(tl, h - ty * tl)
-        nbytes = rows * tw * spp * bits // 8
-        blob = data[offsets[k]:offsets[k] + counts[k]]
-        px = _decompress(kind, blob, nbytes).reshape(rows, tw * spp * bits // 8)
-        vals = _predict(px, predictor, spp, bits, bo)
-        if bits == 32 and predictor != 3:
-            vals = vals.view(np.float32)
-        if bits == 32 and bo == ">" and kind != "none":
+    tables = f.get(347, (b"",))[0] if kind == "jpeg" else b""
+    chans = 1 if planar == 2 else spp
+    dt_order = bo if kind == "none" else "="
+    out = None
+    for p in range(planes):
+        for k in range(per_plane):
+            if p * per_plane + k >= len(offsets):
+                break  # Pillow's raw tiles: strips past the last offset stay zero
+            ty, tx = divmod(k, grid[1])
+            rows = tl if 324 in f else min(tl, h - ty * tl)
+            off = offsets[p * per_plane + k]
+            if kind == "jpeg":
+                vals = _jpeg_tile(data[off:off + counts[p * per_plane + k]], tables, photo,
+                                  tw, rows)
+            else:
+                row_bytes = (tw * chans * bits + 7) // 8
+                nbytes = rows * row_bytes
+                blob = (data[off:off + nbytes] if kind == "none"
+                        else data[off:off + counts[p * per_plane + k]])
+                if fill == 2 and kind != "none":
+                    blob = _REVERSED[np.frombuffer(blob, np.uint8)].tobytes()
+                if len(blob) < (nbytes if kind == "none" else counts[p * per_plane + k]):
+                    raise ValueError("image file is truncated")
+                px = _decompress(kind, blob, nbytes).reshape(rows, row_bytes)
+                if fill == 2 and kind == "none":
+                    px = _REVERSED[px]
+                if kind != "none":
+                    px = _predict(px, predictor, chans, bits, bo)
+                vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1,
+                                dt_order)
+            if out is None:
+                out = np.zeros((grid[0] * tl, grid[1] * tw, spp), vals.dtype)
+            y0, x0 = ty * tl, tx * tw
+            out[y0:y0 + rows, x0:x0 + tw, p:p + vals.shape[2]] = vals[:rows, :tw]
+    if out is None:
+        raise ValueError("TIFF: no strips or tiles")
+    return out[:h, :w]
+
+
+def _jpeg_tile(blob: bytes, tables: bytes, photo: int, tw: int, rows: int) -> np.ndarray:
+    """One JPEG-compressed strip or tile: its stream with the JPEGTables'
+    segments put after its SOI, decoded with libtiff's colour handling
+    (YCbCr converted to RGB, RGB and grey as coded)."""
+    if blob[:2] != b"\xff\xd8":
+        raise ValueError("TIFF: a JPEG strip or tile without SOI")
+    body = tables[2:-2] if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" else b""
+    planes = jpeg.decode_planes(blob[:2] + body + blob[2:], ycc=photo == 6)
+    if planes.shape[0] < rows or planes.shape[1] < tw:
+        raise ValueError("TIFF: a JPEG strip or tile smaller than its layout")
+    return planes[:rows, :tw]
+
+
+def _to_mode(px: np.ndarray, mode: str, raw: str, bits: int, bo: str, kind: str,
+             f: dict) -> np.ndarray:
+    """Pillow's unpacking of samples px [h, w, spp] by raw mode `raw` into
+    `mode`, then the JAX package's array of that mode."""
+    base = raw.split(";")[0]
+    inverted = "I" in raw.split(";")[1] if ";" in raw else False
+    if mode == "1":
+        v = px[..., 0] != 0
+        return finish("1", ~v if inverted else v)
+    if mode == "L":
+        v = px[..., 0].astype(np.uint8)
+        if bits in (2, 4):
+            v = v * np.uint8(255 // ((1 << bits) - 1))
+        return finish("L", 255 - v if inverted else v)
+    if mode in ("I;16", "I;16B", "I"):
+        return finish("I", px[..., 0].astype(np.int32) if px.dtype != np.uint32 else
+                      px[..., 0].view(np.int32))
+    if mode == "F":
+        v = px[..., 0].astype(np.float32)
+        if bo == ">" and kind != "none":
             # libtiff hands Pillow native-order floats, which Pillow's
             # "F;32BF" unpacker reads as big-endian: the bytes swapped
-            vals = vals.astype(np.float32).byteswap()
-        samples[ty * tl:ty * tl + rows, tx * tw * spp:(tx + 1) * tw * spp] = vals
-    px = samples[:h, :w * spp].reshape(h, w, spp)
-    if bits == 32 or (bits == 16 and spp == 1):
-        grey = px[..., 0].astype(np.float32)
-        if bits == 16:
-            grey = grey / np.float32(65535.0)
-        return np.concatenate([np.repeat(grey[..., None], 3, -1),
-                               np.ones((h, w, 1), np.float32)], axis=-1)
+            v = v.byteswap()
+        return finish("F", v)
     if bits == 16:
         px = (px >> 8).astype(np.uint8)
-    out = np.empty((h, w, 4), np.uint8)
-    out[..., 3] = 255
-    if photo != 2:
-        out[..., :3] = 255 - px[..., :1] if photo == 0 else px[..., :1]
-        if spp == 2:
-            out[..., 3] = px[..., 1]
-        return out
-    out[..., :3] = px[..., :3]
-    if spp == 4 and extra != (0,):
-        out[..., 3] = px[..., 3]
-        if extra == (1,):  # Unpack.c unpackRGBa: the associated alpha divided out
-            a = px[..., 3:4].astype(np.int32)
-            rgb = np.minimum(px[..., :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
-            out[..., :3] = np.where(a == 255, px[..., :3], np.where(a == 0, 0, rgb))
-    return out
+    px = px.astype(np.uint8)
+    if mode in ("P", "PA"):
+        cmap = np.array(f[320], np.int64) // 256
+        n = len(cmap) // 3
+        entries = cmap[:3 * n].reshape(3, n).T.astype(np.uint8)
+        if mode == "PA":
+            return finish("LA", px[..., :2])
+        return finish("P", px[..., 0], entries)
+    if mode == "LA":
+        return finish("LA", px[..., :2])
+    if mode == "CMYK":
+        return finish("CMYK", px[..., :4])
+    if mode == "RGB":
+        return finish("RGB", px[..., :3])
+    if mode == "LAB":  # three bands, which the JAX package takes for RGB
+        return finish("RGB", px[..., :3])
+    out = px[..., :4].copy()
+    if base == "RGBa":  # Unpack.c unpackRGBa: the associated alpha divided out
+        a = px[..., 3:4].astype(np.int32)
+        rgb = np.minimum(px[..., :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
+        out[..., :3] = np.where(a == 255, px[..., :3], np.where(a == 0, 0, rgb))
+    return finish("RGBA", out)
 
 
 def encode_tiff(img: np.ndarray) -> bytes:

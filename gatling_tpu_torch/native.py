@@ -6,7 +6,8 @@ and the threaded-BVH build, the byteshuffle + deflate mesh codec and the
 crate reader's LZ4 block decoder. The port carries a copy of that source
 in csrc/, with the image codecs' loops beside it: the JPEG entropy coder
 and libjpeg's integer transforms (imgio/jpeg.py), the TIFF LZW and
-PackBits decoders (imgio/tiff.py).
+PackBits decoders (imgio/tiff.py), the GIF LZW decoder (imgio/gif.py)
+and the BC1-BC7 block decoders (imgio/dds.py).
 
 `library()` builds the source with g++ into build/torch_ext/ (keyed by a
 hash of the source and the flags, as ops/cuda_lib.py keys the kernels)
@@ -14,7 +15,8 @@ and loads it. Unlike the JAX package's bridge, a failed build or load
 raises with the compiler's output: nothing falls back to NumPy. The
 NumPy versions stay as the twins the tests hold the library against
 (ops/bvh.py build_bvh_ref, scene/crate.py lz4_decompress_block_ref,
-scene/meshproc.py compress_mesh_ref / decompress_mesh_ref).
+scene/meshproc.py compress_mesh_ref / decompress_mesh_ref, imgio/dds.py
+bcn_decode_ref).
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ _ENTRY_POINTS = {
     "gatling_jpeg_encode_scan": (_I64, [_INT, _I32, _PP, _INT, _INT, _U8, _U8, _I64]),
     "gatling_tiff_lzw_decode": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_tiff_packbits_decode": (_I64, [_U8, _I64, _U8, _I64]),
+    "gatling_tiff_lzw_compat_decode": (_I64, [_U8, _I64, _U8, _I64]),
+    "gatling_gif_lzw_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
+    "gatling_bcn_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
 }
 
 _lock = threading.Lock()

@@ -23,8 +23,9 @@ libjpeg-turbo and libtiff).
 3. The port's writers, read back by Pillow: TGA and TIFF codes equal; a
    JPEG decodes (in Pillow) to what Pillow's own file at the same settings
    decodes to, code for code, with no tolerance.
-4. Unported variants raise NotImplementedError naming the ROADMAP item,
-   and bytes Pillow rejects raise ValueError in both packages; an
+4. Unported variants raise NotImplementedError naming the ROADMAP item
+   (the formats ported since: tests/test_torch_imgio_formats.py), and
+   bytes Pillow rejects raise ValueError in both packages; an
    undecodable texture renders the 1x1 black fallback and logs an error in
    both packages.
 """
@@ -410,23 +411,23 @@ def _jpeg_with_sof(marker: int, precision: int = 8, comps: int = 3) -> bytes:
 
 
 def _unported() -> dict[str, bytes]:
+    """Files the JAX package decodes in variants the port does not read yet
+    (ROADMAP Queue 1 item 2). BMP, GIF, CMYK JPEG, 16-bit TGA and palette,
+    CMYK and JPEG-compressed TIFF left this list when the port came to
+    read them (tests/test_torch_imgio_formats.py), and 12-bit JPEG, which
+    Pillow refuses (ValueError in both packages)."""
     rgb = mf.texture(16, 16, 3, 1)
     out = {f"jpeg_sof{m - 0xC0}": _jpeg_with_sof(m) for m in (0xC3, 0xC9, 0xCA, 0xCB)}
-    out["jpeg_12bit"] = _jpeg_with_sof(0xC0, precision=12)
-    buf = io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(buf, "JPEG")
-    out["jpeg_cmyk"] = buf.getvalue()
-    out["tiff_jpeg"] = mf.pillow(rgb, "TIFF", compression="jpeg")
-    buf = io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(buf, "TIFF")
-    out["tiff_cmyk"] = buf.getvalue()
-    buf = io.BytesIO()
-    Image.fromarray(rgb).quantize(16).save(buf, "TIFF")
-    out["tiff_palette"] = buf.getvalue()
-    out["tga_16bit"] = _tga(2, 1, 2, 16, bytes(4))
-    out["bmp"] = mf.pillow(rgb, "BMP")
-    out["gif"] = mf.pillow(rgb, "GIF")
+    for fmt in ("WEBP", "JPEG2000", "PCX", "SGI", "AVIF"):
+        out[fmt.lower()] = mf.pillow(rgb, fmt)
+    out["tiff_ycbcr_lzw"] = _tiff_ycbcr(rgb)
     return out
+
+
+def _tiff_ycbcr(rgb: np.ndarray) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(rgb).convert("YCbCr").save(buf, "TIFF", compression="tiff_lzw")
+    return buf.getvalue()
 
 
 @pytest.mark.parametrize("name", sorted(_unported()))

@@ -9,10 +9,13 @@ port's own MDL front end) in the fused scatter mode, USD content (a
 .usdz of a crate layer the port wrote, with UsdSkel figures and MaterialX
 graphs it bakes, and a MaterialX document through its own nodedefs), and
 the interior textured with a JPEG and a TIFF fixture (tests/data/imgio),
-which the port decodes without Pillow; and the front ends: the Hydra
+which the port decodes without Pillow, and fixtures of the remaining
+formats (BMP, GIF, DDS BC7, PSD, QOI, PPM, 16-bit TGA, JPEG-in-TIFF, CMYK
+JPEG, PFM) equal to Pillow's arrays; and the front ends: the Hydra
 delegate with a gi rect light, giDestroyMesh, a checkpoint saved and
 loaded, the driver entry's multi-device dry run, and the CLI with
-parallelDevices and --checkpoint."""
+parallelDevices and --checkpoint. A scan of the port's sources finds no
+import of jax, PIL or the JAX package."""
 
 import os
 import subprocess
@@ -127,10 +130,39 @@ img, scene = render_scene_file("tests/data/cornell.usda", 8, 8,
                                {"spp": 2, "maxBounces": 2, "parallelDevices": 2}, device="cpu",
                                checkpoint=tempfile.mkdtemp() + "/cli.npz")
 assert scene.sample_offset == 2 and img[..., :3].max() > 0.0
+import numpy as np
+from gatling_tpu_torch import imgio  # the remaining formats, decoded without Pillow
+ref = np.load("tests/data/imgio/fixtures.npz")
+for name in ("bmp_rgb24.bmp", "gif_palette.gif", "dds_bc7.dds", "psd_rgb.psd", "qoi_rgba.qoi",
+             "ppm_rgb.ppm", "tga_rgb16.tga", "tiff_jpeg.tif", "jpeg_cmyk.jpg", "pfm_grey.pfm"):
+    with open("tests/data/imgio/" + name, "rb") as f:
+        got = imgio.load_image(f.read())
+    assert got.dtype == ref[name].dtype and np.array_equal(got, ref[name]), name
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
+
+
+def test_no_port_module_imports_pil_or_jax():
+    """No module of the port imports jax, PIL or the JAX package, at module
+    level or inside a function (the card's host has none of them)."""
+    import ast
+
+    root = os.path.join(REPO, "gatling_tpu_torch")
+    for dirpath, _dirs, files in os.walk(root):
+        for fname in files:
+            if not fname.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, fname)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                         else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+                for name in names:
+                    assert name.split(".")[0] not in ("jax", "jaxlib", "PIL", "gatling_tpu"), \
+                        (path, name)
 
 
 def test_port_imports_and_renders_without_jax():
