@@ -284,6 +284,18 @@ fails, with a non-zero exit, if any phase fails:
    (c)'s pool builds; (e) GATLING_FUSED=0 with GATLING_TRACER=brute (the
    plain Moller-Trumbore: no kernel launched, a request, not a fallback)
    and =bvh (B1/B2) on the Cornell box at 64x64;
+4q. WebP (phase_webp): (a) every WebP fixture of tests/data/imgio (lossy
+   RGB, lossy RGBA with its ALPH chunk, lossless RGB and RGBA, a
+   three-frame animation, and 1024^2 lossy RGB, lossy RGBA and lossless
+   files) decoded on the card's host, bit-equal to Pillow's array
+   (fixtures.npz; the 1024^2 ones by the SHA-256 make_fixtures.py records;
+   4n (a) and 4p (a) leave these out); (b) the textured interior at
+   512x512, 4 spp, 6 bounces, NEE, its six 8-bit base colours lossy RGB,
+   lossy RGBA, lossless RGB, lossless RGBA, the animation's first frame and
+   the 1024^2 lossy ground: 6 K3 and 6 K4 a frame, bit-equal to the frame
+   whose textures are PNGs of the port's decoded codes, K3 and K4 on its
+   bounce-0 wave bit-equal to their twins and timed; (c) the host times of
+   (b)'s pool build and of the three 1024^2 decodes;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -304,8 +316,8 @@ P. the probes P1 (the six layout moves in one launch, a block a move,
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
-cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's and
-4n's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
+cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
+4p's and 4q's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -4642,7 +4654,7 @@ def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threade
     # (a) every fixture on the card's host against Pillow's arrays
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
-    for name in sorted(ref.files):
+    for name in sorted(set(ref.files) - set(WEBP_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -4852,7 +4864,7 @@ def phase_formats2(device, tex_dir: str) -> dict:
     # (a) the new fixtures on the card's host against Pillow's arrays
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
-    for name in sorted(set(ref.files) - set(FIRST_FIXTURES)):
+    for name in sorted(set(ref.files) - set(FIRST_FIXTURES) - set(WEBP_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -4959,6 +4971,119 @@ def phase_formats2(device, tex_dir: str) -> dict:
                 os.environ[k] = v
     out["launches"] = launches
     torch.cuda.synchronize()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4q: WebP (VP8 lossy, VP8L lossless, ALPH alpha, an animation's first
+# frame) through the texture path
+# ---------------------------------------------------------------------------
+
+# 4n and 4p leave these to 4q; the 1024^2 ones fixtures.npz keeps as digests
+WEBP_FIXTURES = ("webp_anim.webp", "webp_ground_1024.webp", "webp_lossless_1024.webp",
+                 "webp_lossless_rgb.webp", "webp_lossless_rgba.webp", "webp_lossy_rgb.webp",
+                 "webp_lossy_rgba.webp", "webp_rgba_1024.webp")
+WEBP_1024 = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp")
+# (b): the interior's six 8-bit base-colour slots
+WEBP_8BIT = ("webp_lossy_rgb.webp", "webp_lossy_rgba.webp", "webp_lossless_rgb.webp",
+             "webp_lossless_rgba.webp", "webp_anim.webp", "webp_ground_1024.webp")
+
+
+def array_digest(arr) -> bytes:
+    """SHA-256 of an array's dtype, shape and bytes (make_fixtures.py
+    digest)."""
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode()
+                          + np.ascontiguousarray(arr).tobytes()).digest()
+
+
+def webp_interior(device, tex_dir: str, base: list[str]):
+    """gi render parameters of the textured interior (512x512, 4 spp, 6
+    bounces, NEE), its materials' base colours `base` in turn."""
+    from gatling_tpu_torch.scene.examples import interior
+
+    desc = interior(tex_dir=tex_dir)
+    for k, path in enumerate(sorted(desc.materials)):
+        desc.materials[path].nodes[f"{path}/tex"].inputs["file"] = base[k % len(base)]
+    return desc_params(device, desc, SF_RES, dict(spp=SF_SPP, maxBounces=SF_BOUNCES,
+                                                  nextEventEstimation=True))
+
+
+def phase_webp(device, tex_dir: str) -> dict:
+    """Phase 4q: WebP (see the module docstring, (a)-(c)). Returns its
+    numbers and launch counts."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) the WebP fixtures on the card's host against Pillow's arrays or digests
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s = {}, {}
+    for name in WEBP_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        if name in WEBP_1024:
+            assert array_digest(got) == ref[name].tobytes(), name
+        else:
+            assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"webp (a): {len(decode_s)} WebP fixtures decoded on the card's host, each bit-equal "
+        f"to Pillow's array (fixtures.npz; the 1024^2 ones by its SHA-256); host ms "
+        f"{({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) six WebP base colours against PNGs of their decoded codes
+    files = [os.path.join(FIXTURES, n) for n in WEBP_8BIT]
+    png_dir = os.path.join(tex_dir, "webp_png")
+    os.makedirs(png_dir, exist_ok=True)
+    pngs = []
+    for path in files:
+        pngs.append(os.path.join(png_dir, os.path.basename(path) + ".png"))
+        imgio.write_image_file(pngs[-1], imgio.load_image(blobs[os.path.basename(path)]))
+    frames = {}
+    for label, slots in (("webp", files), ("webp_png", pngs)):
+        params = webp_interior(device, tex_dir, slots)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(WEBP_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["webp"][0], frames["webp_png"][0])
+    log(f"webp (b): the interior with {len(WEBP_8BIT)} WebP base colours (lossy RGB and RGBA, "
+        f"lossless RGB and RGBA, an animation's first frame, the 1024^2 lossy ground) against "
+        f"PNGs of their decoded codes: frames bit-equal {same}; COLOR mean "
+        f"{frames['webp'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["webp"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["webp"][1], SF_RES, "interior_webp")
+
+    # (c) the host times: (b)'s pool build, the three 1024^2 decodes (median of 5)
+    for name in WEBP_1024:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            imgio.load_image(blobs[name])
+            times.append(time.perf_counter() - t0)
+        out[f"decode_{name}_s"] = statistics.median(times)
+    log(f"webp (c): host times: pool build {out['webp_pool_build_s']:.4f} s (its PNG twins "
+        f"{out['webp_png_pool_build_s']:.4f} s); 1024^2 decodes "
+        f"{({k: round(out[f'decode_{k}_s'], 4) for k in WEBP_1024})} s")
+    out["launches"] = launches
     return out
 
 
@@ -5532,6 +5657,13 @@ def main() -> int:
     for k in ("formats2_pool_build_s", "formats2_png_pool_build_s", "formats2_float_pool_build_s"):
         log(f"4p host time {k}: {formats2[k]:.4f} s on the card's host ({smi})")
     log(f"phase 4p: {time.perf_counter() - t0:.1f} s")
+    # 4q: WebP through the texture path (K3, K4)
+    t0 = time.perf_counter()
+    webp_out = phase_webp(device, tex_tmp.name)
+    for k in ("webp_pool_build_s", "webp_png_pool_build_s",
+              *(f"decode_{n}_s" for n in WEBP_1024)):
+        log(f"4q host time {k}: {webp_out[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4q: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -5555,6 +5687,7 @@ def main() -> int:
         f"{shown}; their launches {threaded_launches}")
     log(f"formats: launches {formats['launches']}; 16-bit grey against the wavefront "
         f"{formats['grey16_vs_wavefront']}")
+    log(f"webp: launches {webp_out['launches']}")
     log(f"formats2: launches {formats2['launches']}, with forced tracers "
         f"{formats2['tracer_launches']}; float slots against the wavefront "
         f"{formats2['float_vs_wavefront']}")
@@ -5637,6 +5770,7 @@ def main() -> int:
         "content": content_entry(content, "K3"),
         "formats": formats_entry(formats, "K3"),
         "formats2": formats_entry(formats2, "K3"),
+        "webp": formats_entry(webp_out, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -5669,6 +5803,7 @@ def main() -> int:
         "content": content_entry(content, "K4"),
         "formats": formats_entry(formats, "K4"),
         "formats2": formats_entry(formats2, "K4"),
+        "webp": formats_entry(webp_out, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",

@@ -675,12 +675,6 @@ def _xvthumb(d: bytes) -> None:
         raise ValueError("image file is truncated")
 
 
-def _webp(d: bytes) -> None:
-    (riff,) = struct.unpack_from("<I", d, 4)
-    if len(d) < 8 + riff - 1 or riff < 12:
-        raise ValueError("could not create decoder object")
-
-
 def _boxes_fill(d: bytes, pos: int = 0) -> bool:
     """The ISOBMFF / JP2 top-level boxes from pos reach the data's end
     exactly (a cut file's last box runs past it)."""
@@ -717,7 +711,7 @@ UNPORTED_OPEN = {
     "AVIF": _avif, "BLP": _blp, "PCX": _pcx, "DCX": _dcx, "FITS": _fits, "FLI": _fli,
     "FTEX": _ftex, "GBR": _gbr, "JPEG2000": _jpeg2000, "ICNS": _icns, "IM": _im, "IMT": _imt,
     "IPTC": _iptc, "MCIDAS": _mcidas, "MSP": _msp, "PCD": _pcd, "PIXAR": _pixar, "SGI": _sgi,
-    "SPIDER": _spider, "SUN": _sun, "WEBP": _webp, "XBM": _xbm, "XPM": _xpm,
+    "SPIDER": _spider, "SUN": _sun, "XBM": _xbm, "XPM": _xpm,
     "XVTHUMB": _xvthumb,
     "EPS": _never("EPS images need Ghostscript, which Pillow does not find"),
     "WMF": _never("WMF images are drawn only on Windows"),

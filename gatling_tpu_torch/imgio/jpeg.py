@@ -58,10 +58,16 @@ NATURAL = np.array([
 _SMOOTH_COEFS = 10
 
 _SOF_SUPPORTED = {0xC0: False, 0xC1: False, 0xC2: True}  # marker -> progressive
-_SOF_UNPORTED = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-                 0xC7: "hierarchical lossless", 0xC9: "arithmetic", 0xCA: "arithmetic",
-                 0xCB: "arithmetic lossless", 0xCD: "arithmetic", 0xCE: "arithmetic",
-                 0xCF: "arithmetic lossless"}
+# the frames libjpeg-turbo decodes that the port does not
+_SOF_UNPORTED = {0xC3: "lossless", 0xC9: "arithmetic", 0xCA: "arithmetic",
+                 0xCB: "arithmetic lossless"}
+# jdmarker.c read_markers: the frame types it refuses (hierarchical, JPG and
+# the differential arithmetic ones), and the markers it knows; any other
+# (DHP, EXP, JPGn, RESn) ends the decode
+_SOF_REFUSED = (0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE, 0xCF)
+_KNOWN_MARKERS = frozenset([0x01, 0xC4, 0xCC, 0xD9, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE,
+                            *_SOF_SUPPORTED, *_SOF_UNPORTED, *range(0xD0, 0xD8),
+                            *range(0xE0, 0xF0)])
 
 
 def _fix(x: float) -> int:
@@ -124,6 +130,37 @@ class _Component:
         self.coefs = np.zeros((mcuy * self.v, self.stride, 64), np.int16)
 
 
+def _dac(payload: bytes) -> None:
+    """jdmarker.c get_dac: (index, value) pairs, index below 32, a DC
+    table's lower bound not above its upper."""
+    if len(payload) % 2:
+        raise ValueError("JPEG: bad DAC length")
+    for k in range(0, len(payload), 2):
+        index, val = payload[k], payload[k + 1]
+        if index >= 32 or (index < 16 and (val & 15) > (val >> 4)):
+            raise ValueError("JPEG: bad DAC entry")
+
+
+def _sos_components(payload: bytes, comps: list) -> list:
+    """jdmarker.c get_sos: the length is exactly 6 + 2n (n in 1..4), and
+    each scan component is found among the frame's first four components
+    whose slot in the scan list is still empty (a component named twice,
+    or one that comes back to an earlier frame position already filled,
+    is refused)."""
+    n = payload[0] if payload else 0
+    if not 1 <= n <= 4 or len(payload) != 4 + 2 * n:
+        raise ValueError("JPEG: bad SOS segment")
+    slots: list = [None] * 4
+    for i in range(n):
+        cc = payload[1 + 2 * i]
+        found = next((ci for ci, c in enumerate(comps[:4])
+                      if c.cid == cc and slots[ci] is None), None)
+        if found is None or comps[found] in slots[:i]:
+            raise ValueError("JPEG: a scan names an unknown or repeated component")
+        slots[i] = comps[found]
+    return slots[:n]
+
+
 def _check_progressive(ncomp: int, ss: int, se: int, ah: int, al: int) -> None:
     """jdphuff.c start_pass_phuff_decoder's scan checks."""
     bad = (se != 0) if ss == 0 else (se < ss or se > 63 or ncomp != 1)
@@ -150,6 +187,8 @@ def _decode_scan(data: bytes, pos: int, comps: list, mcu: tuple[int, int], dc: d
         native.ptr(info, ctypes.c_int32), native.pointers([c.coefs for c in comps]),
         mcu[0], mcu[1], native.ptr(tables, ctypes.c_uint8), native.ptr(present, ctypes.c_int32),
         int(progressive), ss, se, ah, al, restart)
+    if got == -2:
+        raise ValueError("JPEG: the data ends within a scan (image file is truncated)")
     if got < 0:
         raise ValueError("JPEG: a scan uses an undefined or malformed Huffman table")
     return int(got)
@@ -227,7 +266,11 @@ def _decode(data: bytes) -> tuple:
     dc, ac, quant = {}, {}, {}
     jfif, adobe = False, None
     comps: list[_Component] = []
-    ended = False
+    ended, scans, multi_scan = False, 0, False
+    # once the one scan of a single-scan file is decoded, Pillow has every
+    # row: jpeg_finish_decompress reads the markers left, and data that
+    # runs out there ends the decode without error
+    finishing = False
     while pos < len(data):
         while pos < len(data) and data[pos] != 0xFF:  # garbage before a marker
             pos += 1
@@ -242,10 +285,20 @@ def _decode(data: bytes) -> tuple:
             break
         if 0xD0 <= m <= 0xD7 or m in (0x00, 0x01):  # stray RSTn, a stuffed 0xFF, TEM
             continue
-        if m in _SOF_UNPORTED or m == 0xCC:
-            kind = _SOF_UNPORTED.get(m, "arithmetic")
-            raise NotImplementedError(f"JPEG: {kind} coding (SOF{m - 0xC0}) is not ported "
-                                      f"{UNPORTED}")
+        if m in _SOF_REFUSED or (frame is not None and (m in _SOF_SUPPORTED or m in _SOF_UNPORTED)):
+            raise ValueError(f"JPEG: a refused or second SOF marker (0x{m:02X})")
+        if m not in _KNOWN_MARKERS:
+            raise ValueError(f"JPEG: unknown marker 0x{m:02X}")
+        if m in _SOF_UNPORTED:
+            raise NotImplementedError(f"JPEG: {_SOF_UNPORTED[m]} coding (SOF{m - 0xC0}) is not "
+                                      f"ported {UNPORTED}")
+        if (m >= 0xE0 or m in (0xDC, 0xFE)) and data[pos:pos + 2] in (b"\0\0", b"\0\1"):
+            pos += 2  # skip_variable: a length below 2 skips nothing
+            continue
+        if finishing and (pos + 2 > len(data) or
+                          pos + struct.unpack(">H", data[pos:pos + 2])[0] > len(data)):
+            ended = True  # the segment runs past the data: libjpeg suspends
+            break
         payload, pos = _segment(data, pos)
         if m in _SOF_SUPPORTED:
             if frame is not None:
@@ -282,16 +335,18 @@ def _decode(data: bytes) -> tuple:
             jfif = True
         elif m == 0xEE and payload[:5] == b"Adobe" and len(payload) >= 12:
             adobe = payload[11]
+        elif m == 0xCC:  # DAC: arithmetic conditioning, checked and unused
+            _dac(payload)
         elif m == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: SOS before SOF")
-            n = payload[0] if payload else 0
-            if not 1 <= n <= 4 or len(payload) < 4 + 2 * n:
-                raise ValueError("JPEG: bad SOS segment")
-            by_id = {c.cid: c for c in comps}
-            scan = [by_id.get(payload[1 + 2 * i]) for i in range(n)]
-            if any(c is None for c in scan):
-                raise ValueError("JPEG: a scan names an unknown component")
+            if scans and not multi_scan:  # jdinput.c consume_markers
+                raise ValueError("JPEG: a second scan in a one-scan file")
+            scan = _sos_components(payload, comps)
+            n = len(scan)
+            if not scans:
+                multi_scan = progressive or n < len(comps)
+            scans += 1
             if n > 1 and sum(c.h * c.v for c in scan) > 10:
                 raise ValueError("JPEG: sampling factors too large for an interleaved scan")
             sel = [(payload[2 + 2 * i] >> 4, payload[2 + 2 * i] & 15) for i in range(n)]
@@ -310,6 +365,8 @@ def _decode(data: bytes) -> tuple:
             mcu = frame[4:] if n > 1 else (scan[0].blocks_w, scan[0].blocks_h)
             pos = _decode_scan(data, pos, scan, mcu, dc, ac, sel, progressive,
                                (ss, se, ah, al), restart)
+            finishing = not multi_scan
+    ended = ended or (finishing and pos >= len(data))
     if frame is None or not ended:
         raise ValueError("JPEG: truncated file" if frame is not None else "JPEG: no frame")
     if any(c.quant is None for c in comps):

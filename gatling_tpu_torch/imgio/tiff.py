@@ -11,9 +11,18 @@ Python's zlib), PackBits (gatling_tiff_packbits_decode) or JPEG
 JPEGTables tag, decoded by jpeg.py), with predictor 2 (horizontal
 differencing of 8-, 16- or 32-bit samples) or 3 (floating point), which
 libtiff applies to LZW and Deflate strips alone; bit fill order 2 (each
-byte's bits reversed). Pillow's mode and raw mode come from its OPEN_INFO
-table, copied here (`OPEN_INFO`): a layout it lacks is given up, as Pillow
-gives it up, and the array each raw mode gives is Pillow's:
+byte's bits reversed). Pillow's mode and raw mode come from its own reading
+of the directory (`_ifd`) and its OPEN_INFO table, copied here
+(`OPEN_INFO`): a layout it lacks is given up, as Pillow gives it up, and
+the array each raw mode gives is Pillow's. A compressed file's layout
+(strips or tiles, their offsets and byte counts, rows per strip, planar
+configuration, fill order, predictor) is libtiff's reading of the same
+directory (`_libtiff_directory`, tif_dirread.c TIFFReadDirectory: the
+tags it must read or refuse the file, those it leaves unset when they do
+not read, strip arrays padded with zeros, byte counts estimated), decoded
+as Pillow's libtiff decoder does (`_read_libtiff`: its rows must be
+libtiff's; each strip through TIFFFillStrip's byte-count checks); an
+uncompressed file is Pillow's raw decoder over Pillow's reading:
 - 1-bit grey: bool (WhiteIsZero inverted); 2- and 4-bit grey scaled to
   8 bits (x 85, x 17); 8-bit grey, grey + alpha, RGB and RGBA: the codes
   (WhiteIsZero inverted; associated alpha divided out as Pillow's "RGBa"
@@ -137,14 +146,12 @@ def accepts(data: bytes) -> bool:
     return data[:4] in MAGICS
 
 
-def _ifd(data: bytes, bo: str, big: bool) -> tuple[dict[int, tuple], bool]:
-    """The first IFD's fields: tag -> tuple of values (BigTIFF: 8-byte
-    counts and offsets, 20-byte entries). As in Pillow's
+def _ifd(data: bytes, bo: str, big: bool) -> dict[int, tuple]:
+    """The first IFD's fields as Pillow reads them: tag -> tuple of values
+    (BigTIFF: 8-byte counts and offsets, 20-byte entries). As in Pillow's
     ImageFileDirectory_v2.load, an entry or a value that runs past the end
     of the data ends the directory, keeping the fields before it, and
-    fields of no values or of an unknown type are left out. The flag says
-    whether the entries themselves were whole (libtiff reads no directory
-    whose entries are cut)."""
+    fields of no values or of an unknown type are left out."""
     if big:
         if len(data) < 16:
             raise Skip("TIFF: short BigTIFF header")
@@ -157,13 +164,13 @@ def _ifd(data: bytes, bo: str, big: bool) -> tuple[dict[int, tuple], bool]:
         head, entry_size, count_code, inline = 2, 12, "I", 4
     fields: dict[int, tuple] = {}
     if offset + head > len(data):
-        return fields, False
+        return fields
     (n,) = struct.unpack_from(bo + ("Q" if big else "H"), data, offset)
     for k in range(n):
         at = offset + head + entry_size * k
         entry = data[at:at + entry_size]
         if len(entry) < entry_size:
-            return fields, False
+            return fields
         tag, typ, count = struct.unpack_from(bo + "HH" + count_code, entry)
         if typ not in _TYPES:
             continue
@@ -175,11 +182,183 @@ def _ifd(data: bytes, bo: str, big: bool) -> tuple[dict[int, tuple], bool]:
             (pos,) = struct.unpack_from(bo + count_code, entry, entry_size - inline)
             raw = data[pos:pos + nbytes]
             if len(raw) < nbytes:
-                return fields, True
+                return fields
         if not raw:
             continue
         fields[tag] = struct.unpack(bo + code * count, raw) if typ not in (2, 7) else (raw,)
-    return fields, True
+    return fields
+
+
+# libtiff's view of the first directory (tif_dirread.c TIFFReadDirectory),
+# which Pillow's libtiff decoder opens for a compressed file: the values it
+# decodes by, or the failure that makes Pillow raise "decoder error -2"
+_LT_SIZE = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+            16: 8, 17: 8, 18: 8}
+_LT_INT = {1: "B", 6: "b", 3: "H", 8: "h", 4: "I", 9: "i", 13: "I", 16: "Q", 17: "q", 18: "Q"}
+_LT_ARRAY_TYPES = (1, 6, 3, 8, 4, 9, 16, 17)  # TIFFReadDirEntry*Array: integers only
+NO_ROWS = 0xFFFFFFFF  # td_rowsperstrip when the tag is absent
+
+
+class _LibtiffError(ValueError):
+    """libtiff refuses the directory or a strip (Pillow's decoder error -2)."""
+
+
+def _lt_values(data: bytes, bo: str, big: bool, e: tuple, types) -> list[int]:
+    """TIFFReadDirEntry*Array: the integer values of entry e (type, count,
+    value field), read inline or at its offset in the mapped file."""
+    typ, count, field = e
+    if typ not in types:
+        raise _LibtiffError("TIFF: incompatible type")
+    size = _LT_SIZE[typ] * count
+    if size <= len(field):
+        raw = field[:size]
+    else:
+        (off,) = struct.unpack_from(bo + ("Q" if big else "I"), field)
+        if off > len(data) or size > len(data) - off:
+            raise _LibtiffError("TIFF: IO error reading a tag")
+        raw = data[off:off + size]
+    vals = list(struct.unpack(bo + _LT_INT[typ] * count, raw)) if count else []
+    if any(v < 0 for v in vals):
+        raise _LibtiffError("TIFF: a negative value")
+    return vals
+
+
+def _lt_one(data, bo, big, e, limit: int) -> int:
+    """TIFFReadDirEntryShort / Long: one value of an integer type in range."""
+    if e[1] != 1:
+        raise _LibtiffError("TIFF: incorrect count")
+    (v,) = _lt_values(data, bo, big, e, (*_LT_ARRAY_TYPES, 13, 18) if limit > 0xFFFF else
+                      _LT_ARRAY_TYPES)
+    if v > limit:
+        raise _LibtiffError("TIFF: value out of range")
+    return v
+
+
+def _lt_per_sample(data, bo, big, e, spp: int) -> int:
+    """TIFFReadDirEntryShort, else (a count error) the per-sample form: at
+    least spp values, the first spp equal."""
+    if e[1] == 1:
+        return _lt_one(data, bo, big, e, 0xFFFF)
+    if e[1] < spp:
+        raise _LibtiffError("TIFF: incorrect count")
+    vals = _lt_values(data, bo, big, e, _LT_ARRAY_TYPES)
+    if any(v > 0xFFFF for v in vals) or len(set(vals[:spp])) > 1:
+        raise _LibtiffError("TIFF: per-sample values differ")
+    return vals[0]
+
+
+def _libtiff_directory(data: bytes, bo: str, big: bool) -> dict:
+    """TIFFReadDirectory of the first IFD, memory-mapped as Pillow's decoder
+    maps its buffer. Raises _LibtiffError where libtiff gives up."""
+    (off,) = struct.unpack_from(bo + ("Q" if big else "I"), data, 8 if big else 4)
+    head, size, cnt = (8, 20, "Q") if big else (2, 12, "I")
+    if off + head > len(data):
+        raise _LibtiffError("TIFF: cannot read the directory count")
+    (n,) = struct.unpack_from(bo + ("Q" if big else "H"), data, off)
+    if n > (65535 if big else 4096) or n == 0:
+        raise _LibtiffError("TIFF: sanity check on the directory count failed")
+    if off + head + size * n > len(data):
+        raise _LibtiffError("TIFF: cannot read the directory")
+    entries: dict[int, tuple] = {}
+    for k in range(n):  # a repeated tag: its first entry counts
+        at = off + head + size * k
+        tag, typ, count = struct.unpack_from(bo + "HH" + cnt, data, at)
+        entries.setdefault(tag, (typ, count, data[at + size - (8 if big else 4):at + size]))
+    d = {"spp": 1, "compression": 1, "planar": 1, "rows": NO_ROWS, "fill": 1, "predictor": 1,
+         "bits": 1, "format": 1, "photometric": 0}
+    if 277 in entries:
+        d["spp"] = _lt_one(data, bo, big, entries[277], 0xFFFF)
+        if d["spp"] == 0:
+            raise _LibtiffError("TIFF: bad SamplesPerPixel")
+    if 259 in entries:
+        d["compression"] = _lt_per_sample(data, bo, big, entries[259], d["spp"])
+    # the first pass: the layout tags, whose failure ends the read
+    dims = False
+    for tag, e in entries.items():
+        if tag in (256, 257, 322, 323):
+            v = _lt_one(data, bo, big, e, 0xFFFFFFFF)
+            d[{256: "width", 257: "height", 322: "tile_w", 323: "tile_l"}[tag]] = v
+            dims = dims or tag in (256, 257)
+        elif tag == 284:
+            d["planar"] = _lt_one(data, bo, big, e, 0xFFFF)
+            if d["planar"] not in (1, 2):
+                raise _LibtiffError("TIFF: bad PlanarConfiguration")
+        elif tag == 278:
+            d["rows"] = _lt_one(data, bo, big, e, 0xFFFFFFFF)
+            if d["rows"] == 0:
+                raise _LibtiffError("TIFF: bad RowsPerStrip")
+        elif tag == 338:
+            vals = _lt_values(data, bo, big, e, _LT_ARRAY_TYPES) if e[1] <= 0xFFFF else None
+            if vals is None or len(vals) > d["spp"] or any(v > 2 and v != 999 for v in vals):
+                raise _LibtiffError("TIFF: bad ExtraSamples")
+    if not dims:
+        raise _LibtiffError("TIFF: missing ImageLength")
+    w, h, spp = d.get("width", 0), d.get("height", 0), d["spp"]
+    tiled = "tile_w" in d or "tile_l" in d
+    if tiled:
+        tw, tl = d.get("tile_w", 0), d.get("tile_l", 0)
+        across = -(-w // tw) if tw else 0
+        down = -(-h // tl) if tl else 0
+        per_plane = across * down
+    else:
+        per_plane = 1 if d["rows"] == NO_ROWS else -(-h // d["rows"])
+    nstrips = per_plane * (spp if d["planar"] == 2 else 1)
+    if nstrips == 0:
+        raise _LibtiffError("TIFF: zero strips")
+    if 273 not in entries and 324 not in entries:
+        raise _LibtiffError("TIFF: missing StripOffsets")
+    # the second pass: the per-sample tags and the strip arrays must read;
+    # any other tag that does not is left unset
+    for tag, e in entries.items():
+        if tag in (258, 339):
+            v = _lt_per_sample(data, bo, big, e, spp)
+            if tag == 339 and not 1 <= v <= 6:
+                raise _LibtiffError("TIFF: bad SampleFormat")
+            d["bits" if tag == 258 else "format"] = v
+        elif tag in (273, 324, 279, 325):
+            vals = _lt_values(data, bo, big, e, _LT_ARRAY_TYPES)
+            d["counts" if tag in (279, 325) else "offsets"] = (
+                vals[:nstrips] + [0] * (nstrips - len(vals)))
+        elif tag in (262, 266, 317):
+            try:
+                v = _lt_one(data, bo, big, e, 0xFFFF)
+            except _LibtiffError:
+                continue
+            if tag != 266 or v in (1, 2):
+                d[{262: "photometric", 266: "fill", 317: "predictor"}[tag]] = v
+    if d["photometric"] == 3 and 320 not in entries and d["bits"] < 8:
+        raise _LibtiffError("TIFF: missing Colormap")
+    counts = d.get("counts")
+    if counts is None:
+        if (d["planar"] == 1 and nstrips > 1) or (d["planar"] == 2 and nstrips != spp):
+            raise _LibtiffError("TIFF: missing StripByteCounts")
+        counts = _estimate_counts(data, d, entries, big, nstrips)
+    elif nstrips == 1 and not tiled and d["offsets"][0] != 0 and counts[0] == 0:
+        counts = _estimate_counts(data, d, entries, big, nstrips)
+    d["counts"] = counts
+    row_samples = w * (spp if d["planar"] == 1 else 1)
+    d["scanline"] = (row_samples * d["bits"] + 7) // 8
+    if d["scanline"] == 0:
+        raise _LibtiffError("TIFF: zero scanline size")
+    return d
+
+
+def _estimate_counts(data: bytes, d: dict, entries: dict, big: bool, nstrips: int) -> list:
+    """EstimateStripByteCounts of a compressed file: the file past the
+    header, the directory and its out-of-line values, shared by every
+    strip, the last trimmed to the file's end."""
+    space = (16 + 8 + 20 * len(entries) + 8) if big else (8 + 2 + 12 * len(entries) + 4)
+    for typ, count, _field in entries.values():
+        size = _LT_SIZE.get(typ, 0) * count
+        space += size if size > (8 if big else 4) else 0
+    space = len(data) if len(data) < space else len(data) - space
+    if d["planar"] == 2:
+        space //= d["spp"]
+    counts = [space] * nstrips
+    last = d["offsets"][-1]
+    if last + counts[-1] > len(data):
+        counts[-1] = 0 if last >= len(data) else len(data) - last
+    return counts
 
 
 def _native_decode(fn, blob: bytes, n: int) -> np.ndarray:
@@ -259,7 +438,7 @@ def decode_tiff(data: bytes) -> np.ndarray:
     bo = "<" if data[:2] == b"II" else ">"
     # Pillow takes a file for BigTIFF by its third byte alone, so a
     # big-endian BigTIFF ("MM\x00+") is read as a classic TIFF
-    f, complete = _ifd(data, bo, data[2] == 0x2B)
+    f = _ifd(data, bo, data[2] == 0x2B)
 
     def one(tag, default=None):
         return f[tag][0] if tag in f else default
@@ -307,8 +486,12 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if comp not in _COMPRESSIONS:
         raise NotImplementedError(f"TIFF: compression {comp} is not ported {UNPORTED}")
     kind = _COMPRESSIONS[comp]
-    if kind != "none" and not complete:
-        raise ValueError("TIFF: libtiff cannot read a truncated directory")
+    lt = None
+    if kind != "none":  # libtiff decodes by its own reading of the directory
+        lt = _libtiff_directory(data, bo, data[2] == 0x2B)
+        if (lt.get("width"), lt.get("height")) != (w, h):
+            raise _LibtiffError("TIFF: libtiff's image size is not Pillow's")
+        planar, fill = lt["planar"], lt["fill"]
     if one(274) in (5, 6, 7, 8):
         raise NotImplementedError(f"TIFF: orientations that swap the axes are not ported "
                                   f"{UNPORTED}")
@@ -324,40 +507,44 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if kind == "jpeg" and (bits != 8 or spp not in (1, 3, 4) or extra):
         raise NotImplementedError(f"TIFF: JPEG compression of this layout is not ported "
                                   f"{UNPORTED}")
-    predictor = one(317, 1) if kind in ("lzw", "deflate") else 1
-    if predictor not in (1, 2, 3) or (predictor == 3 and bits != 32) or (
-            predictor == 2 and bits not in (8, 16, 32)):
-        raise NotImplementedError(f"TIFF: predictor {predictor} on {bits}-bit samples is not "
-                                  f"ported {UNPORTED}")
-    px = _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, predictor,
-                       photo)
+    if lt is None:
+        if raw in _NO_RAW_UNPACKER:
+            raise ValueError("unknown raw mode for given image mode")
+        px = _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill)
+    else:
+        predictor = lt["predictor"] if kind in ("lzw", "deflate") else 1
+        if predictor not in (1, 2, 3) or (predictor == 2 and lt["bits"] not in (8, 16, 32, 64)) \
+                or (predictor == 3 and (lt["format"] != 3 or lt["bits"] not in (16, 24, 32, 64))):
+            raise _LibtiffError(f"TIFF: predictor {predictor} not supported by libtiff here")
+        if predictor > 1 and (lt["bits"], lt["spp"]) != (bits, spp):
+            raise NotImplementedError(f"TIFF: a predictor over samples libtiff and Pillow read "
+                                      f"differently is not ported {UNPORTED}")
+        px = _read_libtiff(data, lt, kind, w, h, spp, bits, fmt, mode, predictor, photo,
+                           f.get(347, (b"",))[0])
     return _to_mode(px, mode, raw, bits, bo, kind, f)
 
 
-def _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, predictor,
-                  photo) -> np.ndarray:
-    """The image's samples [h, w, spp] from its strips or tiles."""
+def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill) -> np.ndarray:
+    """An uncompressed image's samples [h, w, spp] from its strips or tiles,
+    as Pillow's raw decoder reads them (Pillow's own reading of the
+    directory)."""
     if 324 in f:
         tw, tl = one(322), one(323)
-        offsets, counts = f[324], f.get(325, ())
+        offsets = f[324]
         if not isinstance(tw, int) or not isinstance(tl, int) or tw <= 0 or tl <= 0:
             raise ValueError("Invalid tile dimensions")
         grid = (-(-h // tl), -(-w // tw))
     elif 273 in f:
         tw, tl = w, min(one(278, h), h) or h
-        offsets, counts = f[273], f.get(279, ())
+        offsets = f[273]
         grid = (-(-h // tl), 1)
-        if kind == "none" and tl == h and planar != 2:
+        if tl == h and planar != 2:
             offsets = offsets[-1:]  # TiffImageFile._setup's one-strip case
     else:
         raise ValueError("TIFF: no strips or tiles")
     planes = spp if planar == 2 else 1
     per_plane = grid[0] * grid[1]
-    if kind != "none" and (len(offsets) < per_plane * planes or len(counts) < len(offsets)):
-        raise ValueError("TIFF: too few strips or tiles")
-    tables = f.get(347, (b"",))[0] if kind == "jpeg" else b""
     chans = 1 if planar == 2 else spp
-    dt_order = bo if kind == "none" else "="
     out = None
     for p in range(planes):
         for k in range(per_plane):
@@ -366,25 +553,15 @@ def _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, pr
             ty, tx = divmod(k, grid[1])
             rows = tl if 324 in f else min(tl, h - ty * tl)
             off = offsets[p * per_plane + k]
-            if kind == "jpeg":
-                vals = _jpeg_tile(data[off:off + counts[p * per_plane + k]], tables, photo,
-                                  tw, rows)
-            else:
-                row_bytes = (tw * chans * bits + 7) // 8
-                nbytes = rows * row_bytes
-                blob = (data[off:off + nbytes] if kind == "none"
-                        else data[off:off + counts[p * per_plane + k]])
-                if fill == 2 and kind != "none":
-                    blob = _REVERSED[np.frombuffer(blob, np.uint8)].tobytes()
-                if len(blob) < (nbytes if kind == "none" else counts[p * per_plane + k]):
-                    raise ValueError("image file is truncated")
-                px = _decompress(kind, blob, nbytes).reshape(rows, row_bytes)
-                if fill == 2 and kind == "none":
-                    px = _REVERSED[px]
-                if kind != "none":
-                    px = _predict(px, predictor, chans, bits, bo)
-                vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1,
-                                dt_order)
+            row_bytes = (tw * chans * bits + 7) // 8
+            nbytes = rows * row_bytes
+            blob = data[off:off + nbytes]
+            if len(blob) < nbytes:
+                raise ValueError("image file is truncated")
+            px = np.frombuffer(blob, np.uint8).reshape(rows, row_bytes)
+            if fill == 2:
+                px = _REVERSED[px]
+            vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1, bo)
             if out is None:
                 out = np.zeros((grid[0] * tl, grid[1] * tw, spp), vals.dtype)
             y0, x0 = ty * tl, tx * tw
@@ -392,6 +569,92 @@ def _read_samples(data, f, one, kind, w, h, spp, bits, fmt, bo, planar, fill, pr
     if out is None:
         raise ValueError("TIFF: no strips or tiles")
     return out[:h, :w]
+
+
+# raw modes of OPEN_INFO for which Pillow's raw decoder has no unpacker (a
+# bit fill order of 2 on an uncompressed file): it raises ValueError
+_NO_RAW_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
+_BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "I;16": 1, "I;16B": 1, "F": 1, "LA": 2, "PA": 2,
+          "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
+
+
+def _read_libtiff(data, lt: dict, kind: str, w: int, h: int, spp: int, bits: int, fmt,
+                  mode: str, predictor: int, photo: int, tables: bytes) -> np.ndarray:
+    """A compressed image's samples [h, w, spp] as Pillow's libtiff decoder
+    reads them (TiffDecode.c _decodeStrip, _decodeTile): libtiff's strips or
+    tiles (TIFFReadEncodedStrip, TIFFReadTile: TIFFFillStrip's byte-count
+    checks, the codec, the predictor), each row of libtiff's scanline
+    unpacked by Pillow's raw mode (spp samples of `bits`)."""
+    planes = _BANDS[mode] if lt["planar"] == 2 else 1
+    chans = 1 if lt["planar"] == 2 else spp
+    unpack_bytes = (w * spp * bits // planes + 7) // 8
+    tiled = "tile_w" in lt or "tile_l" in lt
+    if tiled:
+        tw, tl = lt.get("tile_w", 0), lt.get("tile_l", 0)
+        if tw == 0 or tl == 0:
+            raise _LibtiffError("TIFF: zero tile size")
+        row_bytes = (tw * (lt["spp"] if lt["planar"] == 1 else 1) * lt["bits"] + 7) // 8
+        unpack_bytes = (tw * spp * bits // planes + 7) // 8
+        if row_bytes != unpack_bytes:  # Pillow's decoder: its rows must be libtiff's
+            raise _LibtiffError("TIFF: libtiff's tile rows are not Pillow's")
+        across, stripsize = -(-w // tw), tl * row_bytes
+        rps = tl
+    else:
+        tw, row_bytes = w, lt["scanline"]
+        if row_bytes != unpack_bytes:
+            raise _LibtiffError("TIFF: libtiff's rows are not Pillow's")
+        rps = h if lt["rows"] == NO_ROWS else min(lt["rows"], h)
+        across = 1
+    per_plane = len(lt["offsets"]) // (lt["spp"] if lt["planar"] == 2 else 1)
+    out = None
+    for y in range(0, h, rps):
+        for p in range(planes):
+            for x in range(0, w, tw):
+                if tiled:
+                    k = (y // tl) * across + x // tw
+                    rows = tl
+                else:
+                    k = 0 if lt["rows"] == NO_ROWS else y // lt["rows"]
+                    rows = min(lt["rows"], h) if lt["rows"] != NO_ROWS else h
+                    rows = min(rows, h - k * rows)
+                    stripsize = rows * row_bytes
+                k += p * per_plane
+                if k >= len(lt["offsets"]):
+                    raise _LibtiffError("TIFF: strip out of range")
+                px = _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor,
+                                    chans, tables, photo, tw)
+                if kind == "jpeg":
+                    vals = px
+                else:
+                    vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1, "=")
+                if out is None:
+                    out = np.zeros((-(-h // rps) * rps, across * tw, spp), vals.dtype)
+                n = min(rps, h - y, vals.shape[0])
+                out[y:y + n, x:x + tw, p:p + vals.shape[2]] = vals[:n, :tw]
+    if out is None:
+        raise ValueError("TIFF: no strips or tiles")
+    return out[:h, :w]
+
+
+def _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor, chans, tables,
+                   photo, tw) -> np.ndarray:
+    """TIFFFillStrip and the codec: strip or tile k's `rows` rows of
+    row_bytes."""
+    off, count = lt["offsets"][k], lt["counts"][k]
+    if count == 0:
+        raise _LibtiffError(f"TIFF: invalid strip byte count 0, strip {k}")
+    full = lt.get("tile_l", min(lt["rows"], lt["height"])) * row_bytes
+    if count > 1024 * 1024 and full and (count - 4096) // 10 > full:
+        count = full * 10 + 4096  # "Too large strip byte count ... Limiting"
+    if count > len(data) or off > len(data) - count:
+        raise _LibtiffError(f"TIFF: read error on strip {k}")
+    blob = data[off:off + count]
+    if kind == "jpeg":
+        return _jpeg_tile(blob, tables, photo, tw, rows)
+    if lt["fill"] == 2:
+        blob = _REVERSED[np.frombuffer(blob, np.uint8)].tobytes()
+    px = _decompress(kind, blob, stripsize).reshape(rows, row_bytes)
+    return _predict(px, predictor, chans, lt["bits"], "<" if data[:2] == b"II" else ">")
 
 
 def _jpeg_tile(blob: bytes, tables: bytes, photo: int, tw: int, rows: int) -> np.ndarray:

@@ -6,8 +6,9 @@ and the threaded-BVH build, the byteshuffle + deflate mesh codec and the
 crate reader's LZ4 block decoder. The port carries a copy of that source
 in csrc/, with the image codecs' loops beside it: the JPEG entropy coder
 and libjpeg's integer transforms (imgio/jpeg.py), the TIFF LZW and
-PackBits decoders (imgio/tiff.py), the GIF LZW decoder (imgio/gif.py)
-and the BC1-BC7 block decoders (imgio/dds.py).
+PackBits decoders (imgio/tiff.py), the GIF LZW decoder (imgio/gif.py),
+the BC1-BC7 block decoders (imgio/dds.py) and libwebp's VP8 and VP8L
+decoders with the stages after them (imgio/vp8.py, vp8l.py, webp.py).
 
 `library()` builds the source with g++ into build/torch_ext/ (keyed by a
 hash of the source and the flags, as ops/cuda_lib.py keys the kernels)
@@ -16,7 +17,8 @@ raises with the compiler's output: nothing falls back to NumPy. The
 NumPy versions stay as the twins the tests hold the library against
 (ops/bvh.py build_bvh_ref, scene/crate.py lz4_decompress_block_ref,
 scene/meshproc.py compress_mesh_ref / decompress_mesh_ref, imgio/dds.py
-bcn_decode_ref).
+bcn_decode_ref, imgio/vp8.py transform_ref and yuv_to_rgba_ref, imgio/vp8l.py
+inverse_transform_ref, imgio/webp.py unfilter_ref).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ _I32 = ctypes.POINTER(ctypes.c_int32)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
 _I16 = ctypes.POINTER(ctypes.c_int16)
 _U16 = ctypes.POINTER(ctypes.c_uint16)
+_U32 = ctypes.POINTER(ctypes.c_uint32)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int32
@@ -64,6 +67,12 @@ _ENTRY_POINTS = {
     "gatling_tiff_lzw_compat_decode": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_gif_lzw_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
     "gatling_bcn_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
+    "gatling_vp8_decode": (_I64, [_U8, _I64, _U8, _I64, _INT, _INT, _U8, _U8, _U8, _I32]),
+    "gatling_vp8_transform": (None, [_I16, _I64, _INT, _U8]),
+    "gatling_webp_yuv_to_rgba": (None, [_U8, _U8, _U8, _INT, _INT, _INT, _INT, _U8]),
+    "gatling_webp_unfilter": (None, [_U8, _INT, _INT, _INT, _U8]),
+    "gatling_vp8l_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _U32, _I32]),
+    "gatling_vp8l_inverse_transform": (None, [_INT, _INT, _INT, _INT, _U32, _U32, _U32]),
 }
 
 _lock = threading.Lock()

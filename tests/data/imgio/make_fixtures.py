@@ -17,6 +17,13 @@ old-style LZW) and, through the port's native entropy coder, JPEGs of any
 sampling factors (`jpeg_sampled`). The images are smooth procedural
 textures with a little noise, from a seed.
 
+The WebP fixtures (`webp_fixtures`, chip_smoke.py phase 4q) are Pillow's
+lossy and lossless files, RGB and RGBA, and a three-frame animation; the
+three 1024^2 ones (`smooth_texture`: a lossy RGB ground, a lossy RGBA with
+an alpha ramp, a lossless one posterised to 16 levels) are kept in
+fixtures.npz as the SHA-256 of their array (`digest`), so that the
+repository stays small.
+
 Run from the repository root, where Pillow and JAX are installed:
 
     JAX_PLATFORMS=cpu python tests/data/imgio/make_fixtures.py
@@ -487,7 +494,58 @@ def pillow_im(im, fmt: str, **kwargs) -> bytes:
 
 def fixtures() -> dict[str, bytes]:
     """Every fixture's file name and bytes."""
-    return {**first_fixtures(), **new_fixtures()}
+    return {**first_fixtures(), **new_fixtures(), **webp_fixtures()}
+
+
+# fixtures.npz keeps these as the digest of their array
+DIGESTED = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp")
+
+
+def digest(arr: np.ndarray) -> np.ndarray:
+    """SHA-256 of an array's dtype, shape and bytes, as uint8 [32]."""
+    import hashlib
+
+    h = hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode() + np.ascontiguousarray(arr)
+                       .tobytes())
+    return np.frombuffer(h.digest(), np.uint8).copy()
+
+
+def smooth_texture(n: int, channels: int, seed: int) -> np.ndarray:
+    """texture's pattern without its noise, n x n (a 1024^2 WebP of it
+    stays some tens of kilobytes)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n] / n
+    phase = rng.uniform(0, 6.3, channels)
+    base = np.stack([0.5 + 0.35 * np.sin(9.0 * xx + 5.0 * yy * (k + 1) + phase[k])
+                     for k in range(channels)], axis=-1)
+    tiles = ((xx * 6).astype(int) + (yy * 6).astype(int)) % 2
+    return np.clip(np.round(base * (0.8 + 0.2 * tiles[..., None]) * 255), 0, 255
+                   ).astype(np.uint8)
+
+
+def webp_fixtures() -> dict[str, bytes]:
+    """The WebP fixtures (tests/test_torch_imgio.py, chip_smoke.py phase 4q)."""
+    from PIL import Image
+
+    frames = [Image.fromarray(texture(40, 48, 4, 64 + k)) for k in range(3)]
+    anim = io.BytesIO()
+    frames[0].save(anim, "WEBP", save_all=True, append_images=frames[1:], quality=70,
+                   duration=100)
+    rgba = np.concatenate([smooth_texture(1024, 3, 67),
+                           np.broadcast_to((np.arange(1024) // 4).astype(np.uint8)[None, :, None],
+                                           (1024, 1024, 1))], axis=-1)
+    return {
+        "webp_lossy_rgb.webp": pillow(texture(48, 64, 3, 60), "WEBP", quality=80),
+        "webp_lossy_rgba.webp": pillow(texture(40, 56, 4, 61), "WEBP", quality=75,
+                                       alpha_quality=90),
+        "webp_lossless_rgb.webp": pillow(texture(44, 60, 3, 62), "WEBP", lossless=True),
+        "webp_lossless_rgba.webp": pillow(texture(36, 52, 4, 63), "WEBP", lossless=True),
+        "webp_anim.webp": anim.getvalue(),
+        "webp_ground_1024.webp": pillow(smooth_texture(1024, 3, 66), "WEBP", quality=80),
+        "webp_rgba_1024.webp": pillow(rgba, "WEBP", quality=80),
+        "webp_lossless_1024.webp": pillow((smooth_texture(1024, 3, 68) >> 4) << 4, "WEBP",
+                                          lossless=True),
+    }
 
 
 def first_fixtures() -> dict[str, bytes]:
@@ -536,8 +594,9 @@ def main() -> int:
     for name, data in fixtures().items():
         with open(os.path.join(HERE, name), "wb") as f:
             f.write(data)
-        decoded[name] = imgio.load_image(data).data
-        print(f"{name}: {len(data)} bytes, {decoded[name].dtype} {decoded[name].shape}")
+        arr = imgio.load_image(data).data
+        decoded[name] = digest(arr) if name in DIGESTED else arr
+        print(f"{name}: {len(data)} bytes, {arr.dtype} {arr.shape}")
     np.savez_compressed(os.path.join(HERE, "fixtures.npz"), **decoded)
     return 0
 

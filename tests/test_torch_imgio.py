@@ -5,7 +5,7 @@ libjpeg-turbo and libtiff).
    make_fixtures.py with Pillow) decodes in the port to the array that
    gatling_tpu.imgio.load_image gives, dtype and codes bit-equal, and to
    the array fixtures.npz keeps for the card's machine, which has no
-   Pillow.
+   Pillow (the 1024^2 WebP ones: to its SHA-256 digest).
 2. Files generated here from a numpy seed, decoded by both packages, bit
    for bit:
    - JPEG: Pillow's baseline at 4:2:0, 4:2:2 and 4:4:4, restart intervals,
@@ -88,10 +88,16 @@ def test_fixtures_are_current():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_fixture_decodes_as_jax(name):
+    """The JAX package's array, and the one fixtures.npz keeps (for the
+    1024^2 WebP fixtures, its digest)."""
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     got = check(data)
-    assert same(got, np.load(os.path.join(FIXTURES, "fixtures.npz"))[name])
+    kept = np.load(os.path.join(FIXTURES, "fixtures.npz"))[name]
+    if name in mf.DIGESTED:
+        assert np.array_equal(mf.digest(got), kept)
+    else:
+        assert same(got, kept)
 
 
 # ---------------------------------------------------------------------------
@@ -414,11 +420,12 @@ def _unported() -> dict[str, bytes]:
     """Files the JAX package decodes in variants the port does not read yet
     (ROADMAP Queue 1 item 2). BMP, GIF, CMYK JPEG, 16-bit TGA and palette,
     CMYK and JPEG-compressed TIFF left this list when the port came to
-    read them (tests/test_torch_imgio_formats.py), and 12-bit JPEG, which
-    Pillow refuses (ValueError in both packages)."""
+    read them (tests/test_torch_imgio_formats.py), WebP too
+    (tests/test_torch_webp.py), and 12-bit JPEG, which Pillow refuses
+    (ValueError in both packages)."""
     rgb = mf.texture(16, 16, 3, 1)
     out = {f"jpeg_sof{m - 0xC0}": _jpeg_with_sof(m) for m in (0xC3, 0xC9, 0xCA, 0xCB)}
-    for fmt in ("WEBP", "JPEG2000", "PCX", "SGI", "AVIF"):
+    for fmt in ("JPEG2000", "PCX", "SGI", "AVIF"):
         out[fmt.lower()] = mf.pillow(rgb, fmt)
     out["tiff_ycbcr_lzw"] = _tiff_ycbcr(rgb)
     return out

@@ -18,7 +18,7 @@ package's imgio (Pillow 12.1), and its open decision.
 3. The native BC1-BC7 block decoders against their NumPy twins on random
    blocks, bit for bit (no tolerance).
 4. Through TextureManager: the 1x1 black texel appears only where the JAX
-   manager also gives it; a .webp texture raises NotImplementedError.
+   manager also gives it; a .webp texture builds the JAX manager's pool.
 5. The writers of .bmp and the Netpbm extensions, byte for byte what
    Pillow saves for the same array.
 """
@@ -199,7 +199,7 @@ PILLOW_OPEN = [name for name, _accept in identify.PLUGINS]
 # Compressed formats the port does not decode, whose damaged data the JAX
 # package rejects while the port, which cannot tell without their decoder,
 # raises NotImplementedError (ROADMAP Queue 3): both give no image.
-DAMAGE_UNSEEN = ("AVIF", "JPEG2000", "WEBP")
+DAMAGE_UNSEEN = ("AVIF", "JPEG2000")
 
 
 def test_plugin_order_is_pillows():
@@ -242,7 +242,7 @@ def test_open_decision_meets_the_contract(name):
             continue
         seen[label] = contract(blob)
     ported = name in ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "CUR", "DDS", "ICO", "TIFF",
-                      "PSD", "QOI", "TGA")
+                      "PSD", "QOI", "TGA", "WEBP")
     if ported:
         assert seen["whole"] == "array", seen
     elif name in ("EPS", "WMF", "BUFR", "GRIB", "HDF5", "MPEG"):
@@ -259,11 +259,10 @@ def test_bytes_no_plugin_takes_raise_value_error(data):
 def test_webp_and_ppm_were_black_and_now_are_not():
     """The fault PR 16 left: a WebP, PPM or ICO the port could not read
     raised ValueError, which the texture manager turns into the black
-    texel, while the JAX package renders the image. Now the WebP raises
-    NotImplementedError and the PPM and ICO decode."""
+    texel, while the JAX package renders the image. Now all three decode
+    to the JAX package's array."""
     rgb = Image.fromarray(mf.texture(16, 16, 3, 7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        imgio.load_image(_pil(rgb, "WEBP"))
+    check(_pil(rgb, "WEBP"))
     check(_pil(rgb, "PPM"))
     check(_pil(rgb, "ICO"))
 
@@ -448,13 +447,15 @@ def test_bcn_native_matches_numpy_twin(fmt, sign):
 # ---------------------------------------------------------------------------
 
 def test_black_texel_only_where_the_jax_manager_gives_it(tmp_path):
-    """Textures of the new formats, one cut short, one in a format neither
-    package reads: both managers build the same pool (the 1x1 black texel
-    for the two bad files alone); a .webp texture raises
-    NotImplementedError in the port, where it would otherwise render black."""
+    """Textures of the new formats (a .webp among them), one cut short, one
+    in a format neither package reads: both managers build the same pool
+    (the 1x1 black texel for the two bad files alone)."""
+    webp = tmp_path / "t.webp"
+    webp.write_bytes(_pil(Image.fromarray(mf.texture(8, 8, 3, 20)), "WEBP"))
     names = ["bmp_rgb24.bmp", "gif_palette.gif", "dds_bc7.dds", "psd_rgb.psd", "qoi_rgba.qoi",
              "tga_rgb16.tga", "tiff_palette.tif", "jpeg_cmyk.jpg", "ppm_rgb.ppm"]
-    paths = [os.path.join(FIXTURES, n) for n in names]
+    paths = [os.path.join(FIXTURES, n) for n in names] + [str(webp)]
+    names.append("t.webp")
     with open(paths[2], "rb") as f:
         (tmp_path / "cut.dds").write_bytes(f.read()[:300])
     (tmp_path / "none.xyz").write_bytes(b"not an image at all")
@@ -469,10 +470,6 @@ def test_black_texel_only_where_the_jax_manager_gives_it(tmp_path):
         np.testing.assert_array_equal(got, ref, err_msg=field)
     widths = tp.width.numpy()
     assert (widths[:len(names)] > 1).all() and (widths[len(names):] == 1).all()
-    webp = tmp_path / "t.webp"
-    webp.write_bytes(_pil(Image.fromarray(mf.texture(8, 8, 3, 20)), "WEBP"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttex.TextureManager().build_pool([ttex.TextureRef(file_path=str(webp))])
 
 
 # ---------------------------------------------------------------------------

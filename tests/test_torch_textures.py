@@ -127,14 +127,15 @@ def test_png_writer_rgba_and_unsupported_inputs(tmp_path):
     Image.fromarray(rgba[..., :3]).save(jpeg, "JPEG")
     np.testing.assert_array_equal(timgio.load_image(jpeg.getvalue()),
                                   jimgio.load_image(jpeg.getvalue()).data)
-    webp = io.BytesIO()  # a format of Pillow's that the port does not read
-    Image.fromarray(rgba[..., :3]).save(webp, "WEBP")
+    sgi = io.BytesIO()  # a format of Pillow's that the port does not read
+    Image.fromarray(rgba[..., :3]).save(sgi, "SGI")
     with pytest.raises(NotImplementedError, match="USD content"):
-        timgio.load_image(webp.getvalue())
-    bmp = io.BytesIO()  # read since the port ported BMP
-    Image.fromarray(rgba[..., :3]).save(bmp, "BMP")
-    np.testing.assert_array_equal(timgio.load_image(bmp.getvalue()),
-                                  jimgio.load_image(bmp.getvalue()).data)
+        timgio.load_image(sgi.getvalue())
+    for fmt in ("BMP", "WEBP"):  # read since the port ported BMP, then WebP
+        buf = io.BytesIO()
+        Image.fromarray(rgba[..., :3]).save(buf, fmt)
+        np.testing.assert_array_equal(timgio.load_image(buf.getvalue()),
+                                      jimgio.load_image(buf.getvalue()).data)
 
 
 @pytest.fixture(scope="module")
