@@ -296,6 +296,22 @@ fails, with a non-zero exit, if any phase fails:
    whose textures are PNGs of the port's decoded codes, K3 and K4 on its
    bounce-0 wave bit-equal to their twins and timed; (c) the host times of
    (b)'s pool build and of the three 1024^2 decodes;
+4r. JPEG 2000 and JPEG's other processes (phase_jpeg2000): (a) every
+   fixture of tests/data/imgio they added (JP2 and raw codestreams: 5/3
+   lossless, 9/7 with MCT, RGBA with a cdef box, tiled RPCL with
+   precincts, a pclr palette, 16-bit grey, the 1024^2 9/7 ground;
+   arithmetic sequential and progressive JPEG, a lossless JPEG, a
+   block-smoothed progressive one) decoded on the card's host, bit-equal
+   to Pillow's array (fixtures.npz; the 1024^2 ground by its SHA-256; 4n
+   (a) and 4p (a) leave these out), each decode timed; (b) the textured
+   interior at 512x512, 4 spp, 6 bounces, NEE, its nine 8-bit base
+   colours those files (the 1024^2 ground among them): 6 K3 and 6 K4 a
+   frame, bit-equal to the frame whose textures are PNGs of the port's
+   decoded codes, K3 and K4 on its bounce-0 wave bit-equal to their twins
+   and timed; (c) the 16-bit grey JPEG 2000 (I;16) as every material's
+   roughness (a float pool): 6 K4f a frame, K4f on its bounce-0 wave
+   against its twin; (d) the host times of (b)'s and (c)'s pool builds and
+   of the 1024^2 decode;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -317,7 +333,7 @@ Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
-4p's and 4q's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
+4p's, 4q's and 4r's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -4210,7 +4226,7 @@ def phase_dome(device, tex_dir: str):
 
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
-                formats: dict, formats2: dict) -> list[dict]:
+                formats: dict, formats2: dict, jpeg2000: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
@@ -4236,6 +4252,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "distinct_texel_rows_resident_cornell_hdr": c["k4_texels"],
         "formats": formats_entry(formats, "K4f"),
         "formats2": formats_entry(formats2, "K4f"),
+        "jpeg2000": formats_entry(jpeg2000, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -4654,7 +4671,7 @@ def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threade
     # (a) every fixture on the card's host against Pillow's arrays
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
-    for name in sorted(set(ref.files) - set(WEBP_FIXTURES)):
+    for name in sorted(set(ref.files) - set(WEBP_FIXTURES) - set(J2K_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -4864,7 +4881,8 @@ def phase_formats2(device, tex_dir: str) -> dict:
     # (a) the new fixtures on the card's host against Pillow's arrays
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
-    for name in sorted(set(ref.files) - set(FIRST_FIXTURES) - set(WEBP_FIXTURES)):
+    for name in sorted(set(ref.files) - set(FIRST_FIXTURES) - set(WEBP_FIXTURES)
+                       - set(J2K_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -5094,6 +5112,114 @@ def formats_entry(formats: dict, kernel: str) -> dict:
     return {"launches_by_frame": {f: v[kernel] for f, v in formats["launches"].items()},
             "ms": t[k], "plain_ms": t[k + "_twin"], "bound_ms": t[k + "_bound"][0],
             "max_abs_err": t[k + "_err"]}
+
+
+# ---------------------------------------------------------------------------
+# 4r: JPEG 2000, and JPEG's arithmetic, lossless and block-smoothed
+# processes, through the texture path
+# ---------------------------------------------------------------------------
+
+# 4n (a) and 4p (a) leave these to 4r; the 1024^2 one fixtures.npz keeps as a digest
+J2K_FIXTURES = ("j2k_97_mct.jp2", "j2k_grey16.j2k", "j2k_ground_1024.jp2", "j2k_lossless.jp2",
+                "j2k_pclr.jp2", "j2k_rgba_cdef.jp2", "j2k_tiled_rpcl.j2k", "jpeg_arith.jpg",
+                "jpeg_arith_progressive.jpg", "jpeg_lossless.jpg", "jpeg_smoothed.jpg")
+J2K_1024 = "j2k_ground_1024.jp2"
+# (b): the interior's nine 8-bit base-colour slots
+J2K_8BIT = ("j2k_lossless.jp2", "j2k_97_mct.jp2", "j2k_rgba_cdef.jp2", "j2k_tiled_rpcl.j2k",
+            "j2k_pclr.jp2", "jpeg_arith.jpg", "jpeg_lossless.jpg", "jpeg_smoothed.jpg",
+            J2K_1024)
+J2K_GREY16 = "j2k_grey16.j2k"  # (c): every material's roughness, a float pool
+
+
+def phase_jpeg2000(device, tex_dir: str) -> dict:
+    """Phase 4r: JPEG 2000 and JPEG's other processes (see the module
+    docstring, (a)-(d)). Returns its numbers and launch counts."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) the fixtures on the card's host against Pillow's arrays or digest
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s = {}, {}
+    for name in J2K_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        if name == J2K_1024:
+            assert array_digest(got) == ref[name].tobytes(), name
+        else:
+            assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"jpeg2000 (a): {len(decode_s)} JPEG 2000 and JPEG fixtures decoded on the card's host, "
+        f"each bit-equal to Pillow's array (fixtures.npz; the 1024^2 ground by its SHA-256); "
+        f"host ms {({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) nine base colours against PNGs of their decoded codes
+    files = [os.path.join(FIXTURES, n) for n in J2K_8BIT]
+    png_dir = os.path.join(tex_dir, "jpeg2000_png")
+    os.makedirs(png_dir, exist_ok=True)
+    pngs = []
+    for path in files:
+        pngs.append(os.path.join(png_dir, os.path.basename(path) + ".png"))
+        imgio.write_image_file(pngs[-1], imgio.load_image(blobs[os.path.basename(path)]))
+    frames = {}
+    for label, slots in (("jpeg2000", files), ("jpeg2000_png", pngs)):
+        params = webp_interior(device, tex_dir, slots)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(J2K_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["jpeg2000"][0], frames["jpeg2000_png"][0])
+    log(f"jpeg2000 (b): the interior with {len(J2K_8BIT)} base colours (JP2 5/3, 9/7 with MCT, "
+        f"RGBA with cdef, a tiled RPCL codestream, a pclr palette, arithmetic, lossless and "
+        f"block-smoothed JPEG, the 1024^2 9/7 ground) against PNGs of their decoded codes: "
+        f"frames bit-equal {same}; COLOR mean {frames['jpeg2000'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["jpeg2000"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["jpeg2000"][1], SF_RES,
+                                          "interior_jpeg2000")
+
+    # (c) the 16-bit grey JPEG 2000 as every roughness: a float pool, K4's FLT instance
+    params = formats2_interior(device, tex_dir, files, [os.path.join(FIXTURES, J2K_GREY16)])
+    timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+    with timers:
+        counted_render(params, "interior_jpeg2000_grey16 (first frame)")
+    out["jpeg2000_grey16_pool_build_s"] = timers.seconds["pool_build"]
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    img, dt, _mr, n = counted_render(params, "interior_jpeg2000_grey16 (warm)")
+    assert not params.scene._texture_pool.packed, "an I;16 image makes the pool float"
+    assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+    assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+    out["jpeg2000_grey16_warm_frame_s"] = dt
+    launches["interior_jpeg2000_grey16"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    out["grey16_kernels"] = split_parity(device, params, SF_RES, "interior_jpeg2000_grey16")
+
+    # (d) the host times: the pool builds, the 1024^2 decode (median of 5)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        imgio.load_image(blobs[J2K_1024])
+        times.append(time.perf_counter() - t0)
+    out[f"decode_{J2K_1024}_s"] = statistics.median(times)
+    log(f"jpeg2000 (d): host times: pool builds {out['jpeg2000_pool_build_s']:.4f} s (their PNG "
+        f"twins {out['jpeg2000_png_pool_build_s']:.4f} s), the grey16 roughness pool "
+        f"{out['jpeg2000_grey16_pool_build_s']:.4f} s; the 1024^2 9/7 decode "
+        f"{out[f'decode_{J2K_1024}_s']:.4f} s")
+    out["launches"] = launches
+    return out
 
 
 # 4o: the front ends (the gi surface, the delegate, checkpoints, the CLI's
@@ -5664,6 +5790,14 @@ def main() -> int:
               *(f"decode_{n}_s" for n in WEBP_1024)):
         log(f"4q host time {k}: {webp_out[k]:.4f} s on the card's host ({smi})")
     log(f"phase 4q: {time.perf_counter() - t0:.1f} s")
+    # 4r: JPEG 2000 and JPEG's arithmetic, lossless and smoothed processes
+    # through the texture path (K3, K4, K4f)
+    t0 = time.perf_counter()
+    j2k_out = phase_jpeg2000(device, tex_tmp.name)
+    for k in ("jpeg2000_pool_build_s", "jpeg2000_png_pool_build_s",
+              "jpeg2000_grey16_pool_build_s", f"decode_{J2K_1024}_s"):
+        log(f"4r host time {k}: {j2k_out[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4r: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -5688,6 +5822,7 @@ def main() -> int:
     log(f"formats: launches {formats['launches']}; 16-bit grey against the wavefront "
         f"{formats['grey16_vs_wavefront']}")
     log(f"webp: launches {webp_out['launches']}")
+    log(f"jpeg2000: launches {j2k_out['launches']}")
     log(f"formats2: launches {formats2['launches']}, with forced tracers "
         f"{formats2['tracer_launches']}; float slots against the wavefront "
         f"{formats2['float_vs_wavefront']}")
@@ -5771,6 +5906,7 @@ def main() -> int:
         "formats": formats_entry(formats, "K3"),
         "formats2": formats_entry(formats2, "K3"),
         "webp": formats_entry(webp_out, "K3"),
+        "jpeg2000": formats_entry(j2k_out, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -5804,6 +5940,7 @@ def main() -> int:
         "formats": formats_entry(formats, "K4"),
         "formats2": formats_entry(formats2, "K4"),
         "webp": formats_entry(webp_out, "K4"),
+        "jpeg2000": formats_entry(j2k_out, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -5829,7 +5966,8 @@ def main() -> int:
           for k in ("B1", "B2")),
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
-        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2),
+        *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2,
+                     j2k_out),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

@@ -555,11 +555,16 @@ extern "C" {
 // the scan (or the data's end: libjpeg reads on for more markers), -1
 // when a table the scan needs is missing or malformed, -2 when the data
 // ends within the scan (libjpeg's suspension: Pillow's truncated file).
+// state: [0] the MCU rows of an iMCU row (1 in an interleaved scan, the
+// component's v in a single-component one), [1] in and out: jdcoefct.c's
+// last_good_iMCU_row, the iMCU row of the last MCU begun while the data
+// had not run out (block smoothing reads it).
 int64_t gatling_jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t pos,
                                  int32_t ncomp, const int32_t* comp, int16_t* const* coefs,
                                  int32_t mcu_cols, int32_t mcu_rows, const uint8_t* tables,
                                  const int32_t* present, int32_t progressive, int32_t ss,
-                                 int32_t se, int32_t ah, int32_t al, int32_t restart) {
+                                 int32_t se, int32_t ah, int32_t al, int32_t restart,
+                                 int32_t* state) {
   HuffDecode dc[4], ac[4];
   const bool dc_scan = !progressive || ss == 0;
   const bool ac_scan = !progressive || ss > 0;
@@ -590,6 +595,7 @@ int64_t gatling_jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t pos,
   const int32_t p1 = 1 << al, m1 = -(1 << al);
   const int64_t total = (int64_t)mcu_cols * mcu_rows;
   for (int64_t m = 0; m < total; ++m) {
+    if (!br.insufficient) state[1] = (int32_t)(m / mcu_cols / state[0]);
     if (restart > 0 && m > 0 && m % restart == 0) {
       br.restart(next_restart_num);
       pred[0] = pred[1] = pred[2] = pred[3] = 0;
@@ -688,6 +694,480 @@ int64_t gatling_jpeg_decode_scan(const uint8_t* data, int64_t n, int64_t pos,
             }
           }
         }
+      }
+    }
+  }
+  if (br.suspended) return -2;
+  return br.end();
+}
+
+}  // extern "C"
+
+namespace {
+
+// jaricom.c jpeg_aritab: Table D.2 of T.81 as (Qe << 16) | (Next_Index_MPS
+// << 8) | (Switch_MPS << 7) | Next_Index_LPS, the last entry the fixed
+// probability 0.5 of T.851
+#define ARI(i, qe, nlps, nmps, sw) (((int64_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    ARI(0, 0x5a1d, 1, 1, 1),      ARI(1, 0x2586, 14, 2, 0),    ARI(2, 0x1114, 16, 3, 0),
+    ARI(3, 0x080b, 18, 4, 0),     ARI(4, 0x03d8, 20, 5, 0),    ARI(5, 0x01da, 23, 6, 0),
+    ARI(6, 0x00e5, 25, 7, 0),     ARI(7, 0x006f, 28, 8, 0),    ARI(8, 0x0036, 30, 9, 0),
+    ARI(9, 0x001a, 33, 10, 0),    ARI(10, 0x000d, 35, 11, 0),  ARI(11, 0x0006, 9, 12, 0),
+    ARI(12, 0x0003, 10, 13, 0),   ARI(13, 0x0001, 12, 13, 0),  ARI(14, 0x5a7f, 15, 15, 1),
+    ARI(15, 0x3f25, 36, 16, 0),   ARI(16, 0x2cf2, 38, 17, 0),  ARI(17, 0x207c, 39, 18, 0),
+    ARI(18, 0x17b9, 40, 19, 0),   ARI(19, 0x1182, 42, 20, 0),  ARI(20, 0x0cef, 43, 21, 0),
+    ARI(21, 0x09a1, 45, 22, 0),   ARI(22, 0x072f, 46, 23, 0),  ARI(23, 0x055c, 48, 24, 0),
+    ARI(24, 0x0406, 49, 25, 0),   ARI(25, 0x0303, 51, 26, 0),  ARI(26, 0x0240, 52, 27, 0),
+    ARI(27, 0x01b1, 54, 28, 0),   ARI(28, 0x0144, 56, 29, 0),  ARI(29, 0x00f5, 57, 30, 0),
+    ARI(30, 0x00b7, 59, 31, 0),   ARI(31, 0x008a, 60, 32, 0),  ARI(32, 0x0068, 62, 33, 0),
+    ARI(33, 0x004e, 63, 34, 0),   ARI(34, 0x003b, 32, 35, 0),  ARI(35, 0x002c, 33, 9, 0),
+    ARI(36, 0x5ae1, 37, 37, 1),   ARI(37, 0x484c, 64, 38, 0),  ARI(38, 0x3a0d, 65, 39, 0),
+    ARI(39, 0x2ef1, 67, 40, 0),   ARI(40, 0x261f, 68, 41, 0),  ARI(41, 0x1f33, 69, 42, 0),
+    ARI(42, 0x19a8, 70, 43, 0),   ARI(43, 0x1518, 72, 44, 0),  ARI(44, 0x1177, 73, 45, 0),
+    ARI(45, 0x0e74, 74, 46, 0),   ARI(46, 0x0bfb, 75, 47, 0),  ARI(47, 0x09f8, 77, 48, 0),
+    ARI(48, 0x0861, 78, 49, 0),   ARI(49, 0x0706, 79, 50, 0),  ARI(50, 0x05cd, 48, 51, 0),
+    ARI(51, 0x04de, 50, 52, 0),   ARI(52, 0x040f, 50, 53, 0),  ARI(53, 0x0363, 51, 54, 0),
+    ARI(54, 0x02d4, 52, 55, 0),   ARI(55, 0x025c, 53, 56, 0),  ARI(56, 0x01f8, 54, 57, 0),
+    ARI(57, 0x01a4, 55, 58, 0),   ARI(58, 0x0160, 56, 59, 0),  ARI(59, 0x0125, 57, 60, 0),
+    ARI(60, 0x00f6, 58, 61, 0),   ARI(61, 0x00cb, 59, 62, 0),  ARI(62, 0x00ab, 61, 63, 0),
+    ARI(63, 0x008f, 61, 32, 0),   ARI(64, 0x5b12, 65, 65, 1),  ARI(65, 0x4d04, 80, 66, 0),
+    ARI(66, 0x412c, 81, 67, 0),   ARI(67, 0x37d8, 82, 68, 0),  ARI(68, 0x2fe8, 83, 69, 0),
+    ARI(69, 0x293c, 84, 70, 0),   ARI(70, 0x2379, 86, 71, 0),  ARI(71, 0x1edf, 87, 72, 0),
+    ARI(72, 0x1aa9, 87, 73, 0),   ARI(73, 0x174e, 72, 74, 0),  ARI(74, 0x1424, 72, 75, 0),
+    ARI(75, 0x119c, 74, 76, 0),   ARI(76, 0x0f6b, 74, 77, 0),  ARI(77, 0x0d51, 75, 78, 0),
+    ARI(78, 0x0bb6, 77, 79, 0),   ARI(79, 0x0a40, 77, 48, 0),  ARI(80, 0x5832, 80, 81, 1),
+    ARI(81, 0x4d1c, 88, 82, 0),   ARI(82, 0x438e, 89, 83, 0),  ARI(83, 0x3bdd, 90, 84, 0),
+    ARI(84, 0x34ee, 91, 85, 0),   ARI(85, 0x2eae, 92, 86, 0),  ARI(86, 0x299a, 93, 87, 0),
+    ARI(87, 0x2516, 86, 71, 0),   ARI(88, 0x5570, 88, 89, 1),  ARI(89, 0x4ca9, 95, 90, 0),
+    ARI(90, 0x44d9, 96, 91, 0),   ARI(91, 0x3e22, 97, 92, 0),  ARI(92, 0x3824, 99, 93, 0),
+    ARI(93, 0x32b4, 99, 94, 0),   ARI(94, 0x2e17, 93, 86, 0),  ARI(95, 0x56a8, 95, 96, 1),
+    ARI(96, 0x4f46, 101, 97, 0),  ARI(97, 0x47e5, 102, 98, 0), ARI(98, 0x41cf, 103, 99, 0),
+    ARI(99, 0x3c3d, 104, 100, 0), ARI(100, 0x375e, 99, 93, 0), ARI(101, 0x5231, 105, 102, 0),
+    ARI(102, 0x4c0f, 106, 103, 0), ARI(103, 0x4639, 107, 104, 0), ARI(104, 0x415e, 103, 99, 0),
+    ARI(105, 0x5627, 105, 106, 1), ARI(106, 0x50e7, 108, 107, 0), ARI(107, 0x4b85, 109, 103, 0),
+    ARI(108, 0x5597, 110, 109, 0), ARI(109, 0x504f, 111, 107, 0), ARI(110, 0x5a10, 110, 111, 1),
+    ARI(111, 0x5522, 112, 109, 0), ARI(112, 0x59eb, 112, 111, 1), ARI(113, 0x5a1d, 113, 113, 0)};
+#undef ARI
+
+// jdarith.c's decoder: the C register holds the interval's base and the
+// bits read ahead, ct the bits left; at a marker, zeros are fed in (legal
+// in arithmetic coding). The data running out is a suspension, which
+// jdarith.c does not support: an error.
+struct ArithDecoder {
+  BitReader br;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin = 113;
+
+  int get_byte() {
+    if (br.pos >= br.n) {
+      br.suspended = true;
+      return 0;
+    }
+    return br.d[br.pos++];
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data;
+        if (br.marker) {
+          data = 0;
+        } else {
+          data = get_byte();
+          if (data == 0xFF) {
+            do data = get_byte();
+            while (data == 0xFF && !br.suspended);
+            if (data == 0) {
+              data = 0xFF;
+            } else {
+              br.marker = data;
+              br.mpos = br.pos - 2;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAritab[sv & 0x7F];
+    const int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    const int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+  void reset_coder() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+};
+
+// Figures F.19-F.24: a DC difference's value under statistics st0 (the
+// context's bins, dc_stats + dc_context) and the table's bins; returns
+// false on a magnitude overflow (jdarith.c's "ct = -1")
+bool arith_dc_diff(ArithDecoder& e, uint8_t* bins, int* context, int L, int U, int* diff) {
+  uint8_t* st = bins + *context;
+  if (e.decode(st) == 0) {
+    *context = 0;
+    *diff = 0;
+    return true;
+  }
+  const int sign = e.decode(st + 1);
+  st += 2 + sign;
+  int m = e.decode(st);
+  if (m != 0) {
+    st = bins + 20;
+    while (e.decode(st)) {
+      if ((m <<= 1) == 0x8000) return false;
+      st += 1;
+    }
+  }
+  if (m < (int)((1L << L) >> 1)) *context = 0;
+  else if (m > (int)((1L << U) >> 1)) *context = 12 + sign * 4;
+  else *context = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (e.decode(st)) v |= m;
+  v += 1;
+  *diff = sign ? -v : v;
+  return true;
+}
+
+// Figures F.21-F.24 for an AC coefficient at k whose bins are st (the
+// table's + 3 * (k - 1) + 2 after the sign); false on overflow
+bool arith_ac_value(ArithDecoder& e, uint8_t* table_bins, uint8_t* st, int k, int K, int sign,
+                    int* value) {
+  int m = e.decode(st);
+  if (m != 0) {
+    if (e.decode(st)) {
+      m <<= 1;
+      st = table_bins + (k <= K ? 189 : 217);
+      while (e.decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (e.decode(st)) v |= m;
+  v += 1;
+  *value = sign ? -v : v;
+  return true;
+}
+
+// jdlossls.c's predictors (PREDICTOR1-7)
+inline int lossless_predict(int psv, int Ra, int Rb, int Rc) {
+  switch (psv) {
+    case 1: return Ra;
+    case 2: return Rb;
+    case 3: return Rc;
+    case 4: return (int)((int64_t)Ra + Rb - Rc);
+    case 5: return (int)((int64_t)Ra + (((int64_t)Rb - Rc) >> 1));
+    case 6: return (int)((int64_t)Rb + (((int64_t)Ra - Rc) >> 1));
+    default: return (int)(((int64_t)Ra + Rb) >> 1);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Arithmetic-decode one scan of a sequential (SOF9) or progressive (SOF10)
+// JPEG as jdarith.c does, into the coefficient blocks; the arguments as
+// gatling_jpeg_decode_scan's, with dac: the conditioning of the 16 tables
+// (L[16], U[16], K[16], jdmarker.c get_dac over the SOI defaults 0, 1, 5).
+// Restart intervals reset the statistics. Returns the offset of the next
+// marker, -1 for a table number out of range, -2 when the data ends within
+// the scan.
+int64_t gatling_jpeg_decode_arith_scan(const uint8_t* data, int64_t n, int64_t pos, int32_t ncomp,
+                                       const int32_t* comp, int16_t* const* coefs,
+                                       int32_t mcu_cols, int32_t mcu_rows, const int32_t* dac,
+                                       int32_t progressive, int32_t ss, int32_t se, int32_t ah,
+                                       int32_t al, int32_t restart, int32_t* state) {
+  ArithDecoder e;
+  e.br = BitReader{data, n, pos};
+  std::memset(e.dc_stats, 0, sizeof(e.dc_stats));
+  std::memset(e.ac_stats, 0, sizeof(e.ac_stats));
+  const bool dc_stats = !progressive || (ss == 0 && ah == 0);
+  const bool ac_stats = !progressive || ss != 0;
+  int last_dc[4] = {0, 0, 0, 0}, context[4] = {0, 0, 0, 0};
+  for (int c = 0; c < ncomp; ++c) {
+    const int32_t* ci = comp + 6 * c;
+    if ((dc_stats && (ci[3] < 0 || ci[3] > 15)) || (ac_stats && (ci[4] < 0 || ci[4] > 15)))
+      return -1;
+  }
+  const int* L = dac;
+  const int* U = dac + 16;
+  const int* K = dac + 32;
+  int next_restart_num = 0;
+  int64_t restarts_to_go = restart;
+  const int32_t p1 = 1 << al, m1 = (int32_t)((uint32_t)-1 << al);
+  const int64_t total = (int64_t)mcu_cols * mcu_rows;
+  for (int64_t m = 0; m < total; ++m) {
+    state[1] = (int32_t)(m / mcu_cols / state[0]);
+    if (restart) {
+      if (restarts_to_go == 0) {  // process_restart
+        e.br.restart(next_restart_num);
+        if (e.br.suspended) return -2;
+        for (int c = 0; c < ncomp; ++c) {
+          const int32_t* ci = comp + 6 * c;
+          if (dc_stats) {
+            std::memset(e.dc_stats[ci[3]], 0, 64);
+            last_dc[c] = 0;
+            context[c] = 0;
+          }
+          if (ac_stats) std::memset(e.ac_stats[ci[4]], 0, 256);
+        }
+        e.reset_coder();
+        restarts_to_go = restart;
+      }
+      --restarts_to_go;
+    }
+    if (e.ct == -1 && !(progressive && ss == 0 && ah != 0)) continue;  // after an error
+    const int64_t mr = m / mcu_cols, mc = m % mcu_cols;
+    bool failed = false;
+    for (int c = 0; c < ncomp && !failed; ++c) {
+      const int32_t* ci = comp + 6 * c;
+      const int32_t h = ci[0], v = ci[1], stride = ci[2];
+      for (int32_t y = 0; y < v && !failed; ++y) {
+        for (int32_t x = 0; x < h && !failed; ++x) {
+          int16_t* blk = coefs[c] + ((mr * v + y) * (int64_t)stride + mc * h + x) * 64;
+          if (!progressive || (ss == 0 && ah == 0)) {  // decode_mcu's DC, decode_mcu_DC_first
+            int diff;
+            if (!arith_dc_diff(e, e.dc_stats[ci[3]], &context[c], L[ci[3]], U[ci[3]], &diff)) {
+              failed = true;
+              break;
+            }
+            last_dc[c] = (last_dc[c] + diff) & 0xffff;
+            blk[0] = progressive ? (int16_t)(uint32_t)((uint32_t)last_dc[c] << al)
+                                 : (int16_t)last_dc[c];
+            if (progressive) continue;
+            // decode_mcu's AC coefficients
+            uint8_t* tb = e.ac_stats[ci[4]];
+            int k = 0;
+            do {
+              uint8_t* st = tb + 3 * k;
+              if (e.decode(st)) break;  // EOB
+              for (;;) {
+                ++k;
+                if (e.decode(st + 1)) break;
+                st += 3;
+                if (k >= 63) {
+                  failed = true;
+                  break;
+                }
+              }
+              if (failed) break;
+              const int sign = e.decode(&e.fixed_bin);
+              int val;
+              if (!arith_ac_value(e, tb, st + 2, k, K[ci[4]], sign, &val)) {
+                failed = true;
+                break;
+              }
+              blk[kNatural[k]] = (int16_t)val;
+            } while (k < 63);
+          } else if (ss == 0) {  // decode_mcu_DC_refine
+            if (e.decode(&e.fixed_bin)) blk[0] = (int16_t)(blk[0] | p1);
+          } else if (ah == 0) {  // decode_mcu_AC_first
+            uint8_t* tb = e.ac_stats[ci[4]];
+            for (int k = ss; k <= se; ++k) {
+              uint8_t* st = tb + 3 * (k - 1);
+              if (e.decode(st)) break;  // EOB
+              while (e.decode(st + 1) == 0) {
+                st += 3;
+                if (++k > se) {
+                  failed = true;
+                  break;
+                }
+              }
+              if (failed) break;
+              const int sign = e.decode(&e.fixed_bin);
+              int val;
+              if (!arith_ac_value(e, tb, st + 2, k, K[ci[4]], sign, &val)) {
+                failed = true;
+                break;
+              }
+              blk[kNatural[k]] = (int16_t)(uint32_t)((uint32_t)val << al);
+            }
+          } else {  // decode_mcu_AC_refine
+            uint8_t* tb = e.ac_stats[ci[4]];
+            int kex = se;
+            for (; kex > 0; --kex)
+              if (blk[kNatural[kex]]) break;
+            for (int k = ss; k <= se; ++k) {
+              uint8_t* st = tb + 3 * (k - 1);
+              if (k > kex)
+                if (e.decode(st)) break;  // EOB
+              for (;;) {
+                int16_t* coef = blk + kNatural[k];
+                if (*coef) {
+                  if (e.decode(st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+                  break;
+                }
+                if (e.decode(st + 1)) {
+                  *coef = (int16_t)(e.decode(&e.fixed_bin) ? m1 : p1);
+                  break;
+                }
+                st += 3;
+                if (++k > se) {
+                  failed = true;
+                  break;
+                }
+              }
+              if (failed) break;
+            }
+          }
+        }
+      }
+    }
+    if (failed) e.ct = -1;
+    if (e.br.suspended) return -2;
+  }
+  if (e.br.suspended) return -2;
+  return e.br.end();
+}
+
+// Decode the one scan of a lossless Huffman-coded JPEG (SOF3) as
+// libjpeg-turbo 3.x does (jdlhuff.c, jddiffct.c, jdlossls.c): each
+// sample's difference (category 16 is 32768 with no extra bits), the
+// undifferencing with predictor psv (the first row of the scan and of each
+// restart interval from 2^(P - Pt - 1) and the left sample, every other
+// row's first column from the sample above), modulo 2^16, and the point
+// transform's left shift into an 8-bit sample. Out of data, a row's
+// differences are zero and the undifferencing starts afresh (jdlhuff.c
+// decode_mcus). comp: h, v, width and height (in samples), DC table, 0
+// for each component; mcu_cols, imcu_rows: as libjpeg counts them for the
+// scan; out: per component, height rows of `width` samples (rounded up to
+// whole iMCU rows). Returns the offset of the next marker, -1 for a
+// missing or malformed table, -2 when the data ends within the scan, -3
+// for a restart interval that is not a whole number of MCU rows.
+int64_t gatling_jpeg_decode_lossless(const uint8_t* data, int64_t n, int64_t pos, int32_t ncomp,
+                                     const int32_t* comp, uint8_t* const* out, int32_t mcu_cols,
+                                     int32_t imcu_rows, const uint8_t* tables,
+                                     const int32_t* present, int32_t psv, int32_t pt,
+                                     int32_t restart, int32_t precision) {
+  HuffDecode dc[4];
+  for (int c = 0; c < ncomp; ++c) {
+    const int32_t t = comp[6 * c + 4];
+    if (t < 0 || t > 3 || !present[t] || !make_huff_decode(tables + 272 * t, &dc[t])) return -1;
+    const uint8_t* spec = tables + 272 * t;
+    int count = 0;
+    for (int l = 0; l < 16; ++l) count += spec[l];
+    for (int i = 0; i < count; ++i)
+      if (spec[16 + i] > 16) return -1;
+  }
+  const bool interleaved = ncomp > 1;
+  std::vector<std::vector<int32_t>> diff(ncomp), undiff(ncomp);
+  std::vector<int32_t> width_alloc(ncomp);
+  for (int c = 0; c < ncomp; ++c) {
+    const int32_t* ci = comp + 6 * c;
+    width_alloc[c] = interleaved ? mcu_cols * ci[0] : ci[2];
+    diff[c].assign((size_t)width_alloc[c] * ci[1], 0);
+    undiff[c].assign((size_t)width_alloc[c] * ci[1], 0);
+  }
+  BitReader br{data, n, pos};
+  std::vector<uint8_t> first_row(ncomp, 1);  // the undifferencer to use
+  int next_restart_num = 0;
+  const int64_t mcus_per_row = interleaved ? mcu_cols : comp[2];
+  if (restart % mcus_per_row) return -3;
+  int64_t restart_rows_to_go = restart / mcus_per_row;
+  const int32_t initial = 1 << (precision - pt - 1);
+  for (int32_t imcu = 0; imcu < imcu_rows; ++imcu) {
+    int32_t mcu_rows_here = 1;
+    if (!interleaved)
+      mcu_rows_here = imcu < imcu_rows - 1 ? comp[1] : (comp[3] % comp[1] ? comp[3] % comp[1] : comp[1]);
+    for (int32_t yoff = 0; yoff < mcu_rows_here; ++yoff) {
+      if (restart && restart_rows_to_go == 0) {  // jddiffct.c process_restart
+        br.restart(next_restart_num);
+        if (br.suspended) return -2;
+        std::fill(first_row.begin(), first_row.end(), 1);
+        restart_rows_to_go = restart / mcus_per_row;
+      }
+      for (int c = 0; c < ncomp; ++c) {
+        if (!br.insufficient) break;
+        const int32_t hh = interleaved ? comp[6 * c] : 1, vv = interleaved ? comp[6 * c + 1] : 1;
+        const int32_t row0 = interleaved ? 0 : yoff;
+        for (int32_t y = 0; y < vv; ++y) {
+          auto first = diff[c].begin() + (size_t)(row0 + y) * width_alloc[c];
+          std::fill(first, first + (size_t)mcus_per_row * hh, 0);
+        }
+      }
+      if (br.insufficient) {
+        std::fill(first_row.begin(), first_row.end(), 1);
+      } else {
+        for (int64_t mc = 0; mc < mcus_per_row; ++mc) {
+          for (int c = 0; c < ncomp; ++c) {
+            const int32_t* ci = comp + 6 * c;
+            const int32_t hh = interleaved ? ci[0] : 1, vv = interleaved ? ci[1] : 1;
+            for (int32_t y = 0; y < vv; ++y)
+              for (int32_t x = 0; x < hh; ++x) {
+                int32_t s = br.decode(dc[ci[4]]);
+                if (s) s = s == 16 ? 32768 : extend(br.bits(s), s);
+                const int32_t row = interleaved ? y : yoff;
+                diff[c][(size_t)row * width_alloc[c] + mc * hh + x] = s;
+              }
+          }
+          if (br.suspended) return -2;
+        }
+      }
+      if (restart) --restart_rows_to_go;
+    }
+    // undifference and scale each component's rows of this iMCU row
+    for (int c = 0; c < ncomp; ++c) {
+      const int32_t* ci = comp + 6 * c;
+      const int32_t v = ci[1], width = ci[2];
+      const int32_t rows = imcu < imcu_rows - 1 ? v : (ci[3] % v ? ci[3] % v : v);
+      for (int32_t row = 0, prev = v - 1; row < rows; prev = row, ++row) {
+        const int32_t* d = diff[c].data() + (size_t)row * width_alloc[c];
+        const int32_t* p = undiff[c].data() + (size_t)prev * width_alloc[c];
+        int32_t* u = undiff[c].data() + (size_t)row * width_alloc[c];
+        if (first_row[c]) {
+          int32_t Ra = (d[0] + initial) & 0xFFFF;
+          u[0] = Ra;
+          for (int32_t x = 1; x < width; ++x) u[x] = Ra = (d[x] + Ra) & 0xFFFF;
+          first_row[c] = 0;
+        } else {
+          int32_t Rb = p[0];
+          int32_t Ra = (d[0] + Rb) & 0xFFFF;
+          u[0] = Ra;
+          for (int32_t x = 1; x < width; ++x) {
+            const int32_t Rc = Rb;
+            Rb = p[x];
+            u[x] = Ra = (d[x] + lossless_predict(psv, Ra, Rb, Rc)) & 0xFFFF;
+          }
+        }
+        uint8_t* o = out[c] + ((size_t)imcu * v + row) * width;
+        for (int32_t x = 0; x < width; ++x) o[x] = (uint8_t)((uint32_t)u[x] << pt);
       }
     }
   }

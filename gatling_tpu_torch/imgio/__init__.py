@@ -7,10 +7,13 @@ as the JAX package does, then makes Pillow 12.1's open decision
 (identify.py): Pillow's plugins in Pillow's order, each by its accept test
 and its opening's checks. A ported plugin's decoder returns the RGBA array
 [H, W, 4] that the JAX package's imgio.load_image(data).data gives for the
-same bytes: PNG (here), JPEG (jpeg.py), TIFF (tiff.py), TGA (tga.py), BMP,
-DIB, ICO and CUR (bmp.py), GIF (gif.py), DDS (dds.py), PSD (psd.py), QOI
-(qoi.py), Netpbm (pnm.py) and WebP (webp.py: VP8 lossy, VP8L lossless,
-ALPH alpha and an animation's first frame, as libwebp decodes them). The array is uint8 codes for 8-bit data;
+same bytes: PNG (here), JPEG (jpeg.py: baseline, progressive with
+libjpeg's block smoothing, lossless, Huffman- or arithmetic-coded), TIFF
+(tiff.py), TGA (tga.py), BMP, DIB, ICO and CUR (bmp.py), GIF (gif.py),
+DDS (dds.py), PSD (psd.py), QOI (qoi.py), Netpbm (pnm.py), WebP
+(webp.py: VP8 lossy, VP8L lossless, ALPH alpha and an animation's first
+frame, as libwebp decodes them) and JPEG 2000 (jpeg2000.py: JP2 files and
+raw codestreams, as OpenJPEG decodes them for Pillow). The array is uint8 codes for 8-bit data;
 float32 for the HDR formats, for Pillow's "I" and "F" modes (16-bit grey
 PNGs, TIFFs and PGMs as code / 65535, float TIFFs and PFMs as stored);
 bool for Pillow's "1" (1-bit grey PNGs, BMPs, TIFFs, PBMs). So the dtype
@@ -40,7 +43,7 @@ import zlib
 
 import numpy as np
 
-from gatling_tpu_torch.imgio import bmp, dds, gif, jpeg, pnm, psd, qoi, tga, tiff, webp
+from gatling_tpu_torch.imgio import bmp, dds, gif, jpeg, jpeg2000, pnm, psd, qoi, tga, tiff, webp
 from gatling_tpu_torch.imgio.identify import PLUGINS, accepts, open_unported
 from gatling_tpu_torch.imgio.modes import Skip
 from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
@@ -218,7 +221,7 @@ _DECODERS = {"BMP": bmp.decode_bmp, "DIB": bmp.decode_dib, "GIF": gif.decode_gif
              "JPEG": jpeg.decode_jpeg, "PPM": pnm.decode_pnm, "PNG": decode_png,
              "CUR": bmp.decode_cur, "DDS": dds.decode_dds, "ICO": bmp.decode_ico,
              "TIFF": tiff.decode_tiff, "PSD": psd.decode_psd, "QOI": qoi.decode_qoi,
-             "TGA": _tga, "WEBP": webp.decode_webp}
+             "TGA": _tga, "WEBP": webp.decode_webp, "JPEG2000": jpeg2000.decode_jpeg2000}
 
 
 def load_image(data: bytes) -> np.ndarray:

@@ -277,26 +277,6 @@ def _gbr(d: bytes) -> None:
         raise ValueError("not enough image data")
 
 
-def _jpeg2000(d: bytes) -> None:
-    if d.startswith(b"\xff\x4f\xff\x51"):
-        s = d[4:]
-        if len(s) < 38:
-            raise Skip("JPEG 2000: short codestream header")
-        lsiz, _rsiz, xsiz, ysiz, xo, yo = struct.unpack_from(">HHIIII", d, 4)
-        csiz = struct.unpack_from(">H", d, 40)[0] if len(d) >= 42 else 0
-        if len(d) < 42 + 3 * csiz:
-            raise Skip("JPEG 2000: short codestream header")
-        if csiz not in (1, 2, 3, 4):
-            raise Skip("JPEG 2000: unsupported component count")
-        _size(xsiz - xo, ysiz - yo)
-    elif len(d) < 12:
-        raise Skip("not a JPEG 2000 file")
-    elif not _boxes_fill(d):
-        raise ValueError("JPEG 2000: a box runs past the end of the file")
-    if not d.rstrip(b"\0").endswith(b"\xff\xd9"):
-        raise ValueError("JPEG 2000: the codestream has no end marker")
-
-
 def _icns(d: bytes) -> None:
     if len(d) < 8:
         raise Skip("icns: short header")
@@ -709,7 +689,7 @@ def _never(reason: str):
 # of each, and whether Pillow can load such an image here at all
 UNPORTED_OPEN = {
     "AVIF": _avif, "BLP": _blp, "PCX": _pcx, "DCX": _dcx, "FITS": _fits, "FLI": _fli,
-    "FTEX": _ftex, "GBR": _gbr, "JPEG2000": _jpeg2000, "ICNS": _icns, "IM": _im, "IMT": _imt,
+    "FTEX": _ftex, "GBR": _gbr, "ICNS": _icns, "IM": _im, "IMT": _imt,
     "IPTC": _iptc, "MCIDAS": _mcidas, "MSP": _msp, "PCD": _pcd, "PIXAR": _pixar, "SGI": _sgi,
     "SPIDER": _spider, "SUN": _sun, "XBM": _xbm, "XPM": _xpm,
     "XVTHUMB": _xvthumb,

@@ -1,30 +1,38 @@
 """JPEG decoder and baseline encoder that reproduce libjpeg-turbo's output
 code for code (the JAX package reads and writes JPEG through Pillow, which
-links libjpeg-turbo).
+links libjpeg-turbo 3.1).
 
-The decoder reads Huffman-coded baseline, extended-sequential and
-progressive files of 8-bit samples, with one (grey), three (YCbCr or RGB)
-or four components (CMYK, or YCCK by the Adobe APP14 transform), any
-integer sampling ratios (1 to 4 in each direction), restart intervals, and
-any APPn or COM segments. It decodes as libjpeg does with its defaults:
-- the markers are parsed here and each scan's entropy-coded segment is
-  Huffman-decoded by the native library (gatling_jpeg_decode_scan: the
-  sequential decoder of jdhuff.c and the four progressive ones of
-  jdphuff.c), into coefficient blocks;
+The decoder reads 8-bit files of every process libjpeg-turbo decodes:
+baseline and extended-sequential, progressive and lossless frames,
+Huffman- or arithmetic-coded, with one (grey), three (YCbCr or RGB) or
+four components (CMYK, or YCCK by the Adobe APP14 transform), any integer
+sampling ratios (1 to 4 in each direction), restart intervals, and any
+APPn or COM segments. It decodes as libjpeg does with its defaults:
+- the markers are parsed here; each scan's entropy-coded segment is
+  decoded by the native library into coefficient blocks: Huffman
+  (gatling_jpeg_decode_scan: the sequential decoder of jdhuff.c and the
+  four progressive ones of jdphuff.c) or arithmetic
+  (gatling_jpeg_decode_arith_scan: jdarith.c, its DAC conditioning with
+  the SOI defaults, restart intervals resetting the statistics);
 - jidctint.c's islow IDCT dequantises and transforms them
-  (gatling_jpeg_idct_islow);
+  (gatling_jpeg_idct_islow); a progressive file whose first AC
+  coefficients are not all refined after its last scan is smoothed first
+  as jdcoefct.c decompress_smooth_data smooths it (`_smooth`: the
+  estimates from the 5x5 neighbourhood of DC values, the coef_bits latch,
+  the previous scan's bits past the last good iMCU row);
+- a lossless frame (SOF3) is undifferenced as jddiffct.c and jdlossls.c do
+  (gatling_jpeg_decode_lossless: predictors 1-7, the point transform);
 - jdsample.c brings the chroma to full size: the fancy h2v1, h1v2 and
   h2v2 triangle filters (their alternating rounding biases, the edge
-  sample repeated), and int_upsample's replication for every other ratio;
+  sample repeated), and int_upsample's replication for every other ratio
+  and for every lossless frame;
 - jdcolor.c's fixed-point tables convert YCbCr to RGB, and YCCK to CMYK;
   Pillow reads four components as "CMYK;I", inverted, and converts them
   to RGBA as it converts CMYK.
-Progressive block smoothing never applies: libjpeg smooths only while
-some coefficient bits are missing after the last scan, and such a file
-raises here. Arithmetic coding and lossless and hierarchical frames
-raise NotImplementedError (ROADMAP: 'USD content'); a file Pillow or
-libjpeg rejects (another precision than 8 bits, two components, a height
-given only by a DNL marker, fractional sampling) raises ValueError.
+A file Pillow or libjpeg rejects (another precision than 8 bits, two
+components, a height given only by a DNL marker, fractional sampling,
+hierarchical frames, arithmetic-coded lossless frames, which
+libjpeg-turbo does not implement) raises ValueError.
 
 The encoder writes what Pillow writes at its defaults (quality 75,
 4:2:0 for colour, the standard Huffman tables, the islow DCT): jccolor.c's
@@ -38,13 +46,12 @@ from __future__ import annotations
 
 import ctypes
 import struct
+from types import SimpleNamespace
 
 import numpy as np
 
 from gatling_tpu_torch import native
 from gatling_tpu_torch.imgio.modes import finish
-
-UNPORTED = "(ROADMAP: 'USD content')"
 
 # jpeg_natural_order: the block index of the k-th coefficient in zigzag order
 NATURAL = np.array([
@@ -57,17 +64,16 @@ NATURAL = np.array([
 # SAVED_COEFS)
 _SMOOTH_COEFS = 10
 
-_SOF_SUPPORTED = {0xC0: False, 0xC1: False, 0xC2: True}  # marker -> progressive
-# the frames libjpeg-turbo decodes that the port does not
-_SOF_UNPORTED = {0xC3: "lossless", 0xC9: "arithmetic", 0xCA: "arithmetic",
-                 0xCB: "arithmetic lossless"}
+# the frames libjpeg-turbo reads: marker -> (progressive, arithmetic, lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
+        0xC3: (False, False, True), 0xC9: (False, True, False), 0xCA: (True, True, False),
+        0xCB: (False, True, True)}
 # jdmarker.c read_markers: the frame types it refuses (hierarchical, JPG and
 # the differential arithmetic ones), and the markers it knows; any other
 # (DHP, EXP, JPGn, RESn) ends the decode
 _SOF_REFUSED = (0xC5, 0xC6, 0xC7, 0xC8, 0xCD, 0xCE, 0xCF)
 _KNOWN_MARKERS = frozenset([0x01, 0xC4, 0xCC, 0xD9, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE,
-                            *_SOF_SUPPORTED, *_SOF_UNPORTED, *range(0xD0, 0xD8),
-                            *range(0xE0, 0xF0)])
+                            *_SOF, *range(0xD0, 0xD8), *range(0xE0, 0xF0)])
 
 
 def _fix(x: float) -> int:
@@ -119,26 +125,40 @@ class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int) -> None:
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
         self.quant = None  # latched at the component's first scan (jdinput.c)
+        self.scanned = False
+        # cinfo->coef_bits and the copy each progressive scan takes first
         self.coef_bits = np.full(64, -1, np.int64)
+        self.prev_bits = np.full(64, -1, np.int64)
 
-    def layout(self, width: int, height: int, hmax: int, vmax: int, mcux: int, mcuy: int):
-        self.blocks_w = -(-width * self.h // (hmax * 8))   # width_in_blocks
-        self.blocks_h = -(-height * self.v // (vmax * 8))  # height_in_blocks
-        self.down_w = -(-width * self.h // hmax)           # downsampled_width
+    def layout(self, width: int, height: int, hmax: int, vmax: int, mcux: int, mcuy: int,
+               size: int = 8) -> None:
+        """The component's extent in blocks of size x size samples (1 x 1 in
+        a lossless frame): coefficient blocks, or the samples themselves."""
+        self.blocks_w = -(-width * self.h // (hmax * size))   # width_in_blocks
+        self.blocks_h = -(-height * self.v // (vmax * size))  # height_in_blocks
+        self.down_w = -(-width * self.h // hmax)              # downsampled_width
         self.down_h = -(-height * self.v // vmax)
         self.stride = mcux * self.h
-        self.coefs = np.zeros((mcuy * self.v, self.stride, 64), np.int16)
+        if size == 1:
+            self.samples = np.zeros((mcuy * self.v, self.blocks_w), np.uint8)
+        else:
+            self.coefs = np.zeros((mcuy * self.v, self.stride, 64), np.int16)
 
 
-def _dac(payload: bytes) -> None:
+def _dac(payload: bytes, dac: np.ndarray) -> None:
     """jdmarker.c get_dac: (index, value) pairs, index below 32, a DC
-    table's lower bound not above its upper."""
+    table's lower bound not above its upper, into dac (L[16], U[16],
+    K[16])."""
     if len(payload) % 2:
         raise ValueError("JPEG: bad DAC length")
     for k in range(0, len(payload), 2):
         index, val = payload[k], payload[k + 1]
         if index >= 32 or (index < 16 and (val & 15) > (val >> 4)):
             raise ValueError("JPEG: bad DAC entry")
+        if index >= 16:
+            dac[32 + index - 16] = val
+        else:
+            dac[index], dac[16 + index] = val & 15, val >> 4
 
 
 def _sos_components(payload: bytes, comps: list) -> list:
@@ -168,25 +188,40 @@ def _check_progressive(ncomp: int, ss: int, se: int, ah: int, al: int) -> None:
         raise ValueError(f"JPEG: invalid progressive scan Ss={ss} Se={se} Ah={ah} Al={al}")
 
 
-def _decode_scan(data: bytes, pos: int, comps: list, mcu: tuple[int, int], dc: dict, ac: dict,
-                 sel: list, progressive: bool, spectral: tuple, restart: int) -> int:
+def _tables(dc: dict, ac: dict) -> tuple:
     tables = np.zeros((8, 272), np.uint8)
     present = np.zeros(8, np.int32)
     for k, spec in dc.items():
         tables[k], present[k] = spec, 1
     for k, spec in ac.items():
         tables[4 + k], present[4 + k] = spec, 1
+    return tables, present
+
+
+def _decode_scan(data: bytes, pos: int, comps: list, mcu: tuple[int, int], dc: dict, ac: dict,
+                 sel: list, progressive: bool, spectral: tuple, restart: int,
+                 dac: np.ndarray | None, state: np.ndarray) -> int:
+    """One DCT scan, Huffman-coded, or arithmetic-coded under the
+    conditioning dac; state as gatling_jpeg_decode_scan takes it."""
     info = np.zeros((len(comps), 6), np.int32)
     for i, (c, (td, ta)) in enumerate(zip(comps, sel)):
         hv = (c.h, c.v) if len(comps) > 1 else (1, 1)
         info[i] = (*hv, c.stride, td, ta, 0)
     src = np.frombuffer(data, np.uint8)
     ss, se, ah, al = spectral
-    got = native.library().gatling_jpeg_decode_scan(
-        native.ptr(src, ctypes.c_uint8), src.size, pos, len(comps),
-        native.ptr(info, ctypes.c_int32), native.pointers([c.coefs for c in comps]),
-        mcu[0], mcu[1], native.ptr(tables, ctypes.c_uint8), native.ptr(present, ctypes.c_int32),
-        int(progressive), ss, se, ah, al, restart)
+    lib = native.library()
+    args = (native.ptr(src, ctypes.c_uint8), src.size, pos, len(comps),
+            native.ptr(info, ctypes.c_int32), native.pointers([c.coefs for c in comps]),
+            mcu[0], mcu[1])
+    if dac is None:
+        tables, present = _tables(dc, ac)
+        got = lib.gatling_jpeg_decode_scan(
+            *args, native.ptr(tables, ctypes.c_uint8), native.ptr(present, ctypes.c_int32),
+            int(progressive), ss, se, ah, al, restart, native.ptr(state, ctypes.c_int32))
+    else:
+        got = lib.gatling_jpeg_decode_arith_scan(
+            *args, native.ptr(dac, ctypes.c_int32), int(progressive), ss, se, ah, al, restart,
+            native.ptr(state, ctypes.c_int32))
     if got == -2:
         raise ValueError("JPEG: the data ends within a scan (image file is truncated)")
     if got < 0:
@@ -194,9 +229,33 @@ def _decode_scan(data: bytes, pos: int, comps: list, mcu: tuple[int, int], dc: d
     return int(got)
 
 
-def _idct_plane(c: _Component) -> np.ndarray:
-    """The component's samples [blocks_h * 8, blocks_w * 8] (jidctint.c)."""
-    blocks = np.ascontiguousarray(c.coefs[:c.blocks_h, :c.blocks_w])
+def _decode_lossless(data: bytes, pos: int, comps: list, mcu: tuple[int, int], dc: dict,
+                     sel: list, psv: int, pt: int, restart: int) -> int:
+    """One scan of a lossless (SOF3) frame into the components' samples."""
+    info = np.array([(c.h, c.v, c.blocks_w, c.blocks_h, td, 0) for c, (td, _) in zip(comps, sel)],
+                    np.int32)
+    tables, present = _tables(dc, {})
+    src = np.frombuffer(data, np.uint8)
+    got = native.library().gatling_jpeg_decode_lossless(
+        native.ptr(src, ctypes.c_uint8), src.size, pos, len(comps), native.ptr(info, ctypes.c_int32),
+        native.pointers([c.samples for c in comps]), mcu[0], mcu[1],
+        native.ptr(tables, ctypes.c_uint8), native.ptr(present, ctypes.c_int32), psv, pt, restart,
+        8)
+    if got == -2:
+        raise ValueError("JPEG: the data ends within a scan (image file is truncated)")
+    if got == -3:
+        raise ValueError("JPEG: a lossless restart interval is not a whole number of MCU rows")
+    if got < 0:
+        raise ValueError("JPEG: a scan uses an undefined or malformed Huffman table")
+    return int(got)
+
+
+def _idct_plane(c: _Component, blocks: np.ndarray | None = None) -> np.ndarray:
+    """The component's samples [blocks_h * 8, blocks_w * 8] (jidctint.c) of
+    its coefficient blocks, or of `blocks` [blocks_h, blocks_w, 64]."""
+    if blocks is None:
+        blocks = c.coefs[:c.blocks_h, :c.blocks_w]
+    blocks = np.ascontiguousarray(blocks, np.int16)
     out = np.empty((c.blocks_h, c.blocks_w, 8, 8), np.uint8)
     quant = np.ascontiguousarray(c.quant, np.uint16)
     native.library().gatling_jpeg_idct_islow(
@@ -213,15 +272,16 @@ def _next(n: int) -> np.ndarray:
     return np.minimum(np.arange(n) + 1, n - 1)
 
 
-def _upsample(p: np.ndarray, hr: int, vr: int) -> np.ndarray:
-    """jdsample.c at do_fancy_upsampling: p [down_h, down_w] to hr x vr
-    times its size, the edge samples repeated as libjpeg's context rows
-    and edge columns repeat them."""
+def _upsample(p: np.ndarray, hr: int, vr: int, fancy: bool = True) -> np.ndarray:
+    """jdsample.c: p [down_h, down_w] to hr x vr times its size, the edge
+    samples repeated as libjpeg's context rows and edge columns repeat
+    them. Fancy upsampling needs DCT blocks larger than one sample: a
+    lossless frame's samples are replicated."""
     dh, dw = p.shape
     x = p.astype(np.int32)
     if (hr, vr) == (1, 1):
         return p
-    if (hr, vr) not in ((2, 1), (1, 2), (2, 2)):  # int_upsample: each sample repeated
+    if not fancy or (hr, vr) not in ((2, 1), (1, 2), (2, 2)):  # each sample repeated
         return np.repeat(np.repeat(p, hr, axis=1), vr, axis=0)
     if (hr, vr) == (1, 2):  # h1v2_fancy_upsample
         out = np.empty((2 * dh, dw), np.int32)
@@ -257,16 +317,118 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
-def _decode(data: bytes) -> tuple:
-    """The full-size planes of a JPEG stream's components, their ids, and
-    whether it has a JFIF marker and which Adobe transform."""
+# jdcoefct.c: natural-order positions of the zigzag coefficients 1-9
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _smooth_columns(width: int) -> np.ndarray:
+    """The block columns [width, 5] whose DC values decompress_smooth_data's
+    sliding registers hold at each block: two to the left, the block, two
+    to the right, the row's first and last columns repeated past its
+    ends."""
+    return np.clip(np.arange(width)[:, None] + np.arange(-2, 3)[None, :], 0, width - 1)
+
+
+def _smooth(c: _Component, total: int, last_good: int, latch: np.ndarray,
+            prev_latch: np.ndarray) -> np.ndarray:
+    """jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1): the
+    component's blocks [blocks_h, blocks_w, 64] with each of the first nine
+    AC coefficients that is zero and not known exactly estimated from the
+    5x5 neighbourhood of DC values, and, where no AC data at all is known,
+    the DC interpolated too. iMCU rows past last_good take the previous
+    scan's coefficient bits (prev_latch)."""
+    q = c.quant.astype(np.int64)
+    q00 = q[0]
+    dcs = c.coefs[..., 0].astype(np.int64)
+    work = c.coefs[:c.blocks_h, :c.blocks_w].astype(np.int64)
+    cols = _smooth_columns(c.blocks_w)
+    for r in range(total):
+        block_rows = c.v if r < total - 1 else (c.blocks_h % c.v or c.v)
+        image_block_rows = block_rows * total
+        bits = prev_latch if r > last_good else latch
+        change_dc = bool((bits[1:10] == -1).all())
+        for br in range(block_rows):
+            ibr = r * block_rows + br
+            phys = r * c.v + br
+            prev = phys - 1 if ibr > 0 else phys
+            pprev = phys - 2 if ibr > 1 else prev
+            nxt = phys + 1 if ibr < image_block_rows - 1 else phys
+            nnxt = phys + 2 if ibr < image_block_rows - 2 else nxt
+            # DC[k] of the kernel, k = 1..25 row by row: [width, 26]
+            g = dcs[np.array([pprev, prev, phys, nxt, nnxt])[:, None, None], cols.T[None, :, :]]
+            DC = np.concatenate([np.zeros((1, c.blocks_w), np.int64),
+                                 g.reshape(25, c.blocks_w)])
+            w = work[phys]
+
+            def est(k: int, pos: int, qk: int, kernel) -> None:
+                al = int(bits[k])
+                if al == 0:
+                    return
+                num = q00 * kernel
+                pred = np.where(num >= 0, ((qk << 7) + num) // (qk << 8),
+                                ((qk << 7) - num) // (qk << 8))
+                if al > 0:
+                    pred = np.minimum(pred, (1 << al) - 1)
+                pred = np.where(num >= 0, pred, -pred)
+                w[:, pos] = np.where(w[:, pos] == 0, pred, w[:, pos])
+
+            D = DC
+            if change_dc:
+                k01 = (-D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10]
+                       - 3 * D[11] + 38 * D[12] - 38 * D[14] + 3 * D[15] - 3 * D[16] + 13 * D[17]
+                       - 13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25])
+                k10 = (-D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7]
+                       + 38 * D[8] + 13 * D[9] - D[10] + D[16] - 13 * D[17] - 38 * D[18]
+                       - 13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25])
+                k20 = (D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] - 5 * D[14]
+                       + 2 * D[17] + 7 * D[18] + 2 * D[19] + D[23])
+                k11 = -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25]
+                k02 = (2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13]
+                       + 7 * D[14] + D[15] + 2 * D[17] - 5 * D[18] + 2 * D[19])
+            else:
+                k01 = -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15]
+                k10 = -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23]
+                k20 = -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23]
+                k11 = (D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24]
+                       + D[4] - D[6] + 10 * D[7] - 10 * D[9])
+                k02 = -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15]
+            for k, kernel in enumerate((k01, k10, k20, k11, k02), start=1):
+                est(k, _SMOOTH_POS[k - 1], int(q[_SMOOTH_POS[k - 1]]), kernel)
+            if change_dc:
+                for k, kernel in ((6, D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19]),
+                                  (7, D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19]),
+                                  (8, D[7] - 3 * D[12] + D[17] - D[9] + 3 * D[14] - D[19]),
+                                  (9, D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19])):
+                    est(k, _SMOOTH_POS[k - 1], int(q[_SMOOTH_POS[k - 1]]), kernel)
+                num = q00 * (-2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6]
+                             + 6 * D[7] + 42 * D[8] + 6 * D[9] - 6 * D[10] - 8 * D[11]
+                             + 42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] - 6 * D[16]
+                             + 6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21]
+                             - 6 * D[22] - 8 * D[23] - 6 * D[24] - 2 * D[25])
+                pred = np.where(num >= 0, ((q00 << 7) + num) // (q00 << 8),
+                                -(((q00 << 7) - num) // (q00 << 8)))
+                w[:, 0] = pred
+    return work.astype(np.int16)
+
+
+def read(data: bytes) -> SimpleNamespace:
+    """A JPEG stream's frame as libjpeg reads it, every scan decoded: the
+    components (ids, sampling, quantisation tables and coefficient blocks
+    [rows, stride, 64] padded to whole MCUs, or a lossless frame's samples),
+    the scans (Ss, Se, Ah, Al and the components' indices), the restart
+    interval, and what decides the colour space (JFIF, Adobe)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
-    pos, frame, progressive, restart = 2, None, False, 0
+    pos, frame, restart = 2, None, 0
+    progressive = arith = lossless = False
     dc, ac, quant = {}, {}, {}
+    # jdmarker.c get_soi: every table's arithmetic conditioning L, U and K
+    dac = np.array([0] * 16 + [1] * 16 + [5] * 16, np.int32)
     jfif, adobe = False, None
     comps: list[_Component] = []
     ended, scans, multi_scan = False, 0, False
+    state = np.zeros(2, np.int32)  # MCU rows an iMCU row, last_good_iMCU_row
+    script = []
     # once the one scan of a single-scan file is decoded, Pillow has every
     # row: jpeg_finish_decompress reads the markers left, and data that
     # runs out there ends the decode without error
@@ -285,13 +447,10 @@ def _decode(data: bytes) -> tuple:
             break
         if 0xD0 <= m <= 0xD7 or m in (0x00, 0x01):  # stray RSTn, a stuffed 0xFF, TEM
             continue
-        if m in _SOF_REFUSED or (frame is not None and (m in _SOF_SUPPORTED or m in _SOF_UNPORTED)):
+        if m in _SOF_REFUSED or (frame is not None and m in _SOF):
             raise ValueError(f"JPEG: a refused or second SOF marker (0x{m:02X})")
         if m not in _KNOWN_MARKERS:
             raise ValueError(f"JPEG: unknown marker 0x{m:02X}")
-        if m in _SOF_UNPORTED:
-            raise NotImplementedError(f"JPEG: {_SOF_UNPORTED[m]} coding (SOF{m - 0xC0}) is not "
-                                      f"ported {UNPORTED}")
         if (m >= 0xE0 or m in (0xDC, 0xFE)) and data[pos:pos + 2] in (b"\0\0", b"\0\1"):
             pos += 2  # skip_variable: a length below 2 skips nothing
             continue
@@ -300,10 +459,8 @@ def _decode(data: bytes) -> tuple:
             ended = True  # the segment runs past the data: libjpeg suspends
             break
         payload, pos = _segment(data, pos)
-        if m in _SOF_SUPPORTED:
-            if frame is not None:
-                raise ValueError("JPEG: two SOF markers")
-            progressive = _SOF_SUPPORTED[m]
+        if m in _SOF:
+            progressive, arith, lossless = _SOF[m]
             precision, height, width, n = struct.unpack(">BHHB", payload[:6])
             if precision != 8:  # JpegImagePlugin.SOF gives up on any other precision
                 raise ValueError(f"JPEG: Pillow reads no {precision}-bit samples")
@@ -312,6 +469,9 @@ def _decode(data: bytes) -> tuple:
             if height == 0 or width == 0 or len(payload) < 6 + 3 * n:
                 raise ValueError("JPEG: bad SOF segment (an empty image: libjpeg reads no "
                                  "DNL height)")
+            if arith and lossless:  # jdlossls.c: JERR_ARITH_NOTIMPL
+                raise ValueError("JPEG: libjpeg-turbo decodes no arithmetic-coded lossless "
+                                 "frame (SOF11)")
             comps = [_Component(payload[6 + 3 * i], payload[7 + 3 * i] >> 4,
                                 payload[7 + 3 * i] & 15, payload[8 + 3 * i]) for i in range(n)]
             if any(not 1 <= c.h <= 4 or not 1 <= c.v <= 4 for c in comps):
@@ -319,9 +479,10 @@ def _decode(data: bytes) -> tuple:
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
             if any(hmax % c.h or vmax % c.v for c in comps):
                 raise ValueError("JPEG: fractional sampling (libjpeg: not implemented)")
-            mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+            size = 1 if lossless else 8
+            mcux, mcuy = -(-width // (size * hmax)), -(-height // (size * vmax))
             for c in comps:
-                c.layout(width, height, hmax, vmax, mcux, mcuy)
+                c.layout(width, height, hmax, vmax, mcux, mcuy, size)
             frame = (width, height, hmax, vmax, mcux, mcuy)
         elif m == 0xC4:
             _dht(payload, dc, ac)
@@ -335,8 +496,8 @@ def _decode(data: bytes) -> tuple:
             jfif = True
         elif m == 0xEE and payload[:5] == b"Adobe" and len(payload) >= 12:
             adobe = payload[11]
-        elif m == 0xCC:  # DAC: arithmetic conditioning, checked and unused
-            _dac(payload)
+        elif m == 0xCC:  # DAC: the arithmetic coder's conditioning
+            _dac(payload, dac)
         elif m == 0xDA:
             if frame is None:
                 raise ValueError("JPEG: SOS before SOF")
@@ -352,6 +513,19 @@ def _decode(data: bytes) -> tuple:
             sel = [(payload[2 + 2 * i] >> 4, payload[2 + 2 * i] & 15) for i in range(n)]
             ss, se, ahl = payload[1 + 2 * n:4 + 2 * n]
             ah, al = ahl >> 4, ahl & 15
+            mcu = frame[4:] if n > 1 else (scan[0].blocks_w, scan[0].blocks_h)
+            state[0] = 1 if n > 1 else scan[0].v
+            script.append((ss, se, ah, al, tuple(comps.index(c) for c in scan)))
+            if lossless:  # jdlossls.c start_pass_lossless
+                if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:
+                    raise ValueError(f"JPEG: invalid lossless scan Ss={ss} Se={se} Ah={ah} "
+                                     f"Al={al}")
+                for c in scan:
+                    c.scanned = True
+                pos = _decode_lossless(data, pos, scan, (frame[4], frame[5]), dc, sel, ss, al,
+                                       restart)
+                finishing = not multi_scan
+                continue
             if progressive:
                 _check_progressive(n, ss, se, ah, al)
             else:
@@ -361,26 +535,49 @@ def _decode(data: bytes) -> tuple:
                     if c.tq not in quant:
                         raise ValueError(f"JPEG: quantisation table {c.tq} is undefined")
                     c.quant = quant[c.tq].copy()
+                c.scanned = True
+                if progressive:  # jdphuff.c / jdarith.c start_pass
+                    lo, hi = min(ss, 1), max(se, 9)
+                    c.prev_bits[lo:hi + 1] = c.coef_bits[lo:hi + 1] if scans > 1 else 0
                 c.coef_bits[ss:se + 1] = al
-            mcu = frame[4:] if n > 1 else (scan[0].blocks_w, scan[0].blocks_h)
             pos = _decode_scan(data, pos, scan, mcu, dc, ac, sel, progressive,
-                               (ss, se, ah, al), restart)
+                               (ss, se, ah, al), restart, dac if arith else None, state)
             finishing = not multi_scan
     ended = ended or (finishing and pos >= len(data))
     if frame is None or not ended:
         raise ValueError("JPEG: truncated file" if frame is not None else "JPEG: no frame")
-    if any(c.quant is None for c in comps):
+    if not all(c.scanned for c in comps):
         raise ValueError("JPEG: a component has no scan")
+    return SimpleNamespace(frame=frame, comps=comps, scans=script, restart=restart, jfif=jfif,
+                           adobe=adobe, progressive=progressive, arith=arith,
+                           lossless=lossless, last_good=int(state[1]))
+
+
+def _decode(data: bytes) -> tuple:
+    """The full-size planes of a JPEG stream's components, their ids, and
+    whether it has a JFIF marker and which Adobe transform."""
+    f = read(data)
+    comps = f.comps
+    width, height, hmax, vmax = f.frame[:4]
+    if f.lossless:
+        planes = [_upsample(c.samples[:c.down_h, :c.down_w], hmax // c.h, vmax // c.v,
+                            fancy=False)[:height, :width] for c in comps]
+        return planes, tuple(c.cid for c in comps), f.jfif, f.adobe
     # jdcoefct.c smoothing_ok: every DC known and some AC bits among 1-9 not
-    if progressive and all(c.coef_bits[0] >= 0 for c in comps) and any(
-            (c.coef_bits[1:_SMOOTH_COEFS] != 0).any() for c in comps):
-        raise NotImplementedError("JPEG: a progressive file whose coefficients are not all "
-                                  "refined (libjpeg's block smoothing) is not ported "
-                                  f"{UNPORTED}")
-    width, height, hmax, vmax = frame[:4]
-    planes = [_upsample(_idct_plane(c)[:c.down_h, :c.down_w], hmax // c.h,
-                        vmax // c.v)[:height, :width] for c in comps]
-    return planes, tuple(c.cid for c in comps), jfif, adobe
+    # (and no quantiser of the ten coefficients zero)
+    smooth = (f.progressive and all(c.coef_bits[0] >= 0 for c in comps)
+              and all(c.quant[[0, *_SMOOTH_POS]].all() for c in comps)
+              and any((c.coef_bits[1:_SMOOTH_COEFS] != 0).any() for c in comps))
+    planes = []
+    for c in comps:
+        blocks = None
+        if smooth:
+            prev = (c.prev_bits[:_SMOOTH_COEFS] if len(f.scans) > 1
+                    else np.full(_SMOOTH_COEFS, -1))
+            blocks = _smooth(c, f.frame[5], f.last_good, c.coef_bits[:_SMOOTH_COEFS], prev)
+        plane = _idct_plane(c, blocks)[:c.down_h, :c.down_w]
+        planes.append(_upsample(plane, hmax // c.h, vmax // c.v)[:height, :width])
+    return planes, tuple(c.cid for c in comps), f.jfif, f.adobe
 
 
 def _ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, k: np.ndarray) -> np.ndarray:

@@ -1,24 +1,28 @@
-"""The port's native host library (csrc/gatling_native.cpp) through ctypes.
+"""The port's native host library (csrc/gatling_native.cpp and
+csrc/jpeg2000.cpp) through ctypes.
 
 The JAX package keeps its host-side loops in a small C++ library
 (gatling_tpu/native.py over native/gatling_native.cpp): Morton ordering
 and the threaded-BVH build, the byteshuffle + deflate mesh codec and the
 crate reader's LZ4 block decoder. The port carries a copy of that source
-in csrc/, with the image codecs' loops beside it: the JPEG entropy coder
-and libjpeg's integer transforms (imgio/jpeg.py), the TIFF LZW and
-PackBits decoders (imgio/tiff.py), the GIF LZW decoder (imgio/gif.py),
-the BC1-BC7 block decoders (imgio/dds.py) and libwebp's VP8 and VP8L
-decoders with the stages after them (imgio/vp8.py, vp8l.py, webp.py).
+in csrc/, with the image codecs' loops beside it: the JPEG entropy
+decoders (Huffman, arithmetic, lossless) and encoder and libjpeg's
+integer transforms (imgio/jpeg.py), the TIFF LZW and PackBits decoders
+(imgio/tiff.py), the GIF LZW decoder (imgio/gif.py), the BC1-BC7 block
+decoders (imgio/dds.py) and libwebp's VP8 and VP8L decoders with the
+stages after them (imgio/vp8.py, vp8l.py, webp.py); and a second source,
+csrc/jpeg2000.cpp, OpenJPEG's tile decoding (imgio/jpeg2000.py).
 
-`library()` builds the source with g++ into build/torch_ext/ (keyed by a
-hash of the source and the flags, as ops/cuda_lib.py keys the kernels)
-and loads it. Unlike the JAX package's bridge, a failed build or load
+`library()` builds the sources with g++ into one library in
+build/torch_ext/ (keyed by a hash of the sources and the flags, as
+ops/cuda_lib.py keys the kernels) and loads it. Unlike the JAX package's bridge, a failed build or load
 raises with the compiler's output: nothing falls back to NumPy. The
 NumPy versions stay as the twins the tests hold the library against
 (ops/bvh.py build_bvh_ref, scene/crate.py lz4_decompress_block_ref,
 scene/meshproc.py compress_mesh_ref / decompress_mesh_ref, imgio/dds.py
 bcn_decode_ref, imgio/vp8.py transform_ref and yuv_to_rgba_ref, imgio/vp8l.py
-inverse_transform_ref, imgio/webp.py unfilter_ref).
+inverse_transform_ref, imgio/webp.py unfilter_ref, imgio/jpeg2000.py
+idwt53_ref, idwt97_ref and mct_ref).
 """
 
 from __future__ import annotations
@@ -34,8 +38,13 @@ import numpy as np
 
 from gatling_tpu_torch.ops.cuda_lib import BUILD_DIR, CSRC
 
+# the library's sources: every one is compiled into it, and the build is
+# keyed on all of them
 SOURCE = CSRC / "gatling_native.cpp"
-FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+MORE_SOURCES = (CSRC / "jpeg2000.cpp",)
+# no contraction into fused multiply-adds: the float code rounds as the
+# x86-64 builds of the libraries it reproduces (OpenJPEG's 9/7 wavelet)
+FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
 LIBS = ("-lz",)
 
 _F32 = ctypes.POINTER(ctypes.c_float)
@@ -58,7 +67,11 @@ _ENTRY_POINTS = {
     "gatling_decompress": (_I64, [_U8, _I64, _I64, _U8, _I64]),
     "gatling_lz4_decompress": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_jpeg_decode_scan": (_I64, [_U8, _I64, _I64, _INT, _I32, _PP, _INT, _INT, _U8, _I32,
-                                        _INT, _INT, _INT, _INT, _INT, _INT]),
+                                        _INT, _INT, _INT, _INT, _INT, _INT, _I32]),
+    "gatling_jpeg_decode_arith_scan": (_I64, [_U8, _I64, _I64, _INT, _I32, _PP, _INT, _INT, _I32,
+                                              _INT, _INT, _INT, _INT, _INT, _INT, _I32]),
+    "gatling_jpeg_decode_lossless": (_I64, [_U8, _I64, _I64, _INT, _I32, _PP, _INT, _INT, _U8, _I32,
+                                            _INT, _INT, _INT, _INT]),
     "gatling_jpeg_idct_islow": (None, [_I16, _I64, _U16, _U8]),
     "gatling_jpeg_fdct_islow": (None, [_U8, _I64, _U16, _I16]),
     "gatling_jpeg_encode_scan": (_I64, [_INT, _I32, _PP, _INT, _INT, _U8, _U8, _I64]),
@@ -73,10 +86,18 @@ _ENTRY_POINTS = {
     "gatling_webp_unfilter": (None, [_U8, _INT, _INT, _INT, _U8]),
     "gatling_vp8l_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _U32, _I32]),
     "gatling_vp8l_inverse_transform": (None, [_INT, _INT, _INT, _INT, _U32, _U32, _U32]),
+    "gatling_j2k_decode_tile": (_I64, [_I32, _U8, _I64, _U8, _I64, ctypes.POINTER(ctypes.c_int64),
+                                       _I32, _PP, _I32]),
+    "gatling_j2k_idwt": (None, [ctypes.c_void_p, _I32, _INT, _INT, _INT]),
+    "gatling_j2k_mct": (None, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _I64, _INT]),
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def _sources() -> tuple:
+    return (SOURCE, *MORE_SOURCES)
 
 
 def _build(path) -> None:
@@ -85,13 +106,14 @@ def _build(path) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the port's native library is built from "
-                           f"{SOURCE} at first use")
+                           f"{', '.join(map(str, _sources()))} at first use")
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([gxx, *FLAGS, "-o", str(tmp), str(SOURCE), *LIBS],
+    res = subprocess.run([gxx, *FLAGS, "-o", str(tmp), *map(str, _sources()), *LIBS],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {SOURCE}:\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"g++ failed on {', '.join(map(str, _sources()))}:\n"
+                           f"{res.stdout}{res.stderr}")
     os.replace(tmp, path)
 
 
@@ -100,8 +122,8 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            tag = hashlib.sha1(SOURCE.read_bytes() + " ".join(FLAGS + LIBS).encode()
-                               ).hexdigest()[:12]
+            tag = hashlib.sha1(b"".join(src.read_bytes() for src in _sources())
+                               + " ".join(FLAGS + LIBS).encode()).hexdigest()[:12]
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             path = BUILD_DIR / f"libgatling_native_{tag}.so"
             if not path.exists():

@@ -24,6 +24,17 @@ an alpha ramp, a lossless one posterised to 16 levels) are kept in
 fixtures.npz as the SHA-256 of their array (`digest`), so that the
 repository stays small.
 
+The JPEG 2000 fixtures (`jpeg2000_fixtures`, chip_smoke.py phase 4r) are
+Pillow's files (5/3 lossless, 9/7 with MCT, a tiled RPCL codestream with
+precincts, 16-bit grey, a 1024^2 9/7 ground kept as its digest) and JP2
+boxes Pillow does not write (`jp2_file`: RGBA with a cdef box, a pclr
+palette with cmap). The JPEG processes Pillow does not write come from the
+writers here: `jpeg_arith`, a jcarith.c encoder re-coding a Pillow
+Huffman file's coefficients as SOF9 or SOF10 (with DAC conditioning if
+asked); `jpeg_lossless`, SOF3 with any predictor and point transform;
+`jpeg_scans`, a progressive file with some scans cut out, which libjpeg
+decodes with block smoothing.
+
 Run from the repository root, where Pillow and JAX are installed:
 
     JAX_PLATFORMS=cpu python tests/data/imgio/make_fixtures.py
@@ -492,13 +503,528 @@ def pillow_im(im, fmt: str, **kwargs) -> bytes:
     return buf.getvalue()
 
 
+# ---------------------------------------------------------------------------
+# JPEG's arithmetic and lossless processes, and progressive files cut short
+# (tests/test_torch_jpeg_arith.py, chip_smoke.py phase 4r). Pillow's saver
+# writes none of these: the arithmetic files are Pillow's Huffman files
+# transcoded (their coefficients read back by the port's decoder, which
+# tests/test_torch_jpeg_arith.py holds to Pillow's decode of both).
+# ---------------------------------------------------------------------------
+
+# jaricom.c jpeg_aritab (T.81 Table D.2): (Qe, Next_Index_LPS, Next_Index_MPS,
+# Switch_MPS), the last entry the fixed probability 0.5
+ARITAB = [
+    (0x5a1d, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080b, 18, 4, 0),
+    (0x03d8, 20, 5, 0), (0x01da, 23, 6, 0), (0x00e5, 25, 7, 0), (0x006f, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001a, 33, 10, 0), (0x000d, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5a7f, 15, 15, 1), (0x3f25, 36, 16, 0),
+    (0x2cf2, 38, 17, 0), (0x207c, 39, 18, 0), (0x17b9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0cef, 43, 21, 0), (0x09a1, 45, 22, 0), (0x072f, 46, 23, 0), (0x055c, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01b1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00f5, 57, 30, 0), (0x00b7, 59, 31, 0), (0x008a, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004e, 63, 34, 0), (0x003b, 32, 35, 0), (0x002c, 33, 9, 0),
+    (0x5ae1, 37, 37, 1), (0x484c, 64, 38, 0), (0x3a0d, 65, 39, 0), (0x2ef1, 67, 40, 0),
+    (0x261f, 68, 41, 0), (0x1f33, 69, 42, 0), (0x19a8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0e74, 74, 46, 0), (0x0bfb, 75, 47, 0), (0x09f8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05cd, 48, 51, 0), (0x04de, 50, 52, 0),
+    (0x040f, 50, 53, 0), (0x0363, 51, 54, 0), (0x02d4, 52, 55, 0), (0x025c, 53, 56, 0),
+    (0x01f8, 54, 57, 0), (0x01a4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00f6, 58, 61, 0), (0x00cb, 59, 62, 0), (0x00ab, 61, 63, 0), (0x008f, 61, 32, 0),
+    (0x5b12, 65, 65, 1), (0x4d04, 80, 66, 0), (0x412c, 81, 67, 0), (0x37d8, 82, 68, 0),
+    (0x2fe8, 83, 69, 0), (0x293c, 84, 70, 0), (0x2379, 86, 71, 0), (0x1edf, 87, 72, 0),
+    (0x1aa9, 87, 73, 0), (0x174e, 72, 74, 0), (0x1424, 72, 75, 0), (0x119c, 74, 76, 0),
+    (0x0f6b, 74, 77, 0), (0x0d51, 75, 78, 0), (0x0bb6, 77, 79, 0), (0x0a40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4d1c, 88, 82, 0), (0x438e, 89, 83, 0), (0x3bdd, 90, 84, 0),
+    (0x34ee, 91, 85, 0), (0x2eae, 92, 86, 0), (0x299a, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4ca9, 95, 90, 0), (0x44d9, 96, 91, 0), (0x3e22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32b4, 99, 94, 0), (0x2e17, 93, 86, 0), (0x56a8, 95, 96, 1),
+    (0x4f46, 101, 97, 0), (0x47e5, 102, 98, 0), (0x41cf, 103, 99, 0), (0x3c3d, 104, 100, 0),
+    (0x375e, 99, 93, 0), (0x5231, 105, 102, 0), (0x4c0f, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415e, 103, 99, 0), (0x5627, 105, 106, 1), (0x50e7, 108, 107, 0), (0x4b85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504f, 111, 107, 0), (0x5a10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59eb, 112, 111, 1), (0x5a1d, 113, 113, 0)]
+
+
+class ArithEncoder:
+    """jcarith.c's coder (T.81 Annex D) over statistics bins: a bin is a
+    one-element list [state index | MPS << 7]."""
+
+    def __init__(self) -> None:
+        self.out = bytearray()
+        self.reset()
+
+    def reset(self) -> None:
+        self.c, self.a, self.sc, self.zc, self.ct, self.buffer = 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, b: int) -> None:
+        self.out.append(b)
+
+    def _flush_stack(self, byte: int, carry: bool) -> None:
+        """jcarith.c: the buffered byte (plus a carry), the stacked 0x00
+        and 0xFF bytes."""
+        if carry:
+            if self.buffer >= 0:
+                for _ in range(self.zc):
+                    self._emit(0)
+                self.zc = 0
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = byte
+            return
+        if self.buffer == 0:
+            self.zc += 1
+        elif self.buffer >= 0:
+            for _ in range(self.zc):
+                self._emit(0)
+            self.zc = 0
+            self._emit(self.buffer)
+        if self.sc:
+            for _ in range(self.zc):
+                self._emit(0)
+            self.zc = 0
+            for _ in range(self.sc):
+                self._emit(0xFF)
+                self._emit(0)
+            self.sc = 0
+        self.buffer = byte
+
+    def encode(self, st: list, val: int) -> None:
+        sv = st[0]
+        qe, nl, nm, switch = ARITAB[sv & 0x7F]
+        self.a -= qe
+        if val != (sv >> 7):
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[0] = (sv & 0x80) ^ (nl | (switch << 7))
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[0] = (sv & 0x80) ^ nm
+        while True:
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                temp = self.c >> 19
+                if temp > 0xFF:
+                    self._flush_stack(temp & 0xFF, carry=True)
+                elif temp == 0xFF:
+                    self.sc += 1
+                else:
+                    self._flush_stack(temp & 0xFF, carry=False)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> None:
+        """jcarith.c finish_pass (T.81 D.1.8)."""
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                for _ in range(self.zc):
+                    self._emit(0)
+                self.zc = 0
+                self._emit(self.buffer + 1)
+                if self.buffer + 1 == 0xFF:
+                    self._emit(0)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            self._flush_stack(-1, carry=False)
+        if self.c & 0x7FFF800:
+            for _ in range(self.zc):
+                self._emit(0)
+            self.zc = 0
+            self._emit((self.c >> 19) & 0xFF)
+            if ((self.c >> 19) & 0xFF) == 0xFF:
+                self._emit(0)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+                if ((self.c >> 11) & 0xFF) == 0xFF:
+                    self._emit(0)
+
+
+def _arith_value(e: ArithEncoder, st_bins: list, base: int, v: int, far: int | None) -> None:
+    """Figures F.8 and F.9: the magnitude category and bits of v - 1 >= 0
+    from bin base (far: the AC table's X2 bin when v - 1 >= 2, None for DC,
+    whose X1 is bin 20)."""
+    m = 0
+    st = base
+    v -= 1
+    if v:
+        e.encode(st_bins[st], 1)
+        m = 1
+        v2 = v
+        if far is None:
+            st = 20
+            while (v2 := v2 >> 1):
+                e.encode(st_bins[st], 1)
+                m <<= 1
+                st += 1
+        elif (v2 := v2 >> 1):
+            e.encode(st_bins[st], 1)
+            m <<= 1
+            st = far
+            while (v2 := v2 >> 1):
+                e.encode(st_bins[st], 1)
+                m <<= 1
+                st += 1
+    e.encode(st_bins[st], 0)
+    st += 14
+    while (m := m >> 1):
+        e.encode(st_bins[st], 1 if m & v else 0)
+    return m
+
+
+def jpeg_arith(huffman: bytes, dac: dict | None = None) -> bytes:
+    """A Huffman-coded JPEG (Pillow's) re-coded by jcarith.c's rules: SOF9
+    for a sequential frame, SOF10 for a progressive one, the same scans,
+    restart interval and coefficients. dac: {table: (L, U, K)} written as
+    a DAC segment (libjpeg's defaults are 0, 1 and 5)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+    from gatling_tpu_torch.imgio import jpeg
+
+    f = jpeg.read(huffman)
+    width, height, hmax, vmax, mcux, mcuy = f.frame
+    natural = [int(x) for x in jpeg.NATURAL]
+    conditioning = {t: (0, 1, 5) for t in range(16)}
+    conditioning.update(dac or {})
+
+    def seg(marker: int, payload: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    out = [b"\xff\xd8"]
+    if f.jfif:
+        out.append(seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    if f.adobe is not None:
+        out.append(seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, f.adobe)))
+    for tq in sorted({c.tq for c in f.comps}):
+        table = next(c.quant for c in f.comps if c.tq == tq)
+        out.append(seg(0xDB, bytes([tq]) + bytes(int(table[k]) for k in natural)))
+    if dac:
+        out.append(seg(0xCC, b"".join(bytes([t, (u << 4) | lo, 16 + t, k])
+                                      for t, (lo, u, k) in sorted(dac.items()))))
+    if f.restart:
+        out.append(seg(0xDD, struct.pack(">H", f.restart)))
+    out.append(seg(0xCA if f.progressive else 0xC9, struct.pack(">BHHB", 8, height, width,
+                                                                len(f.comps))
+                   + b"".join(bytes([c.cid, c.h << 4 | c.v, c.tq]) for c in f.comps)))
+    for ss, se, ah, al, idx in f.scans:
+        comps = [f.comps[i] for i in idx]
+        tbl = [min(i, 1) for i in idx]
+        out.append(seg(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([c.cid, t << 4 | t]) for c, t in zip(comps, tbl)) + bytes([ss, se, ah << 4 | al])))
+        e = ArithEncoder()
+        dc_stats = {t: [[0] for _ in range(64)] for t in set(tbl)}
+        ac_stats = {t: [[0] for _ in range(256)] for t in set(tbl)}
+        fixed = [113]
+        last_dc = [0] * len(comps)
+        context = [0] * len(comps)
+        if len(comps) > 1:
+            mcus = [(r, col) for r in range(mcuy) for col in range(mcux)]
+            blocks = lambda r, col: [(k, r * c.v + y, col * c.h + x) for k, c in enumerate(comps)
+                                     for y in range(c.v) for x in range(c.h)]
+        else:
+            c0 = comps[0]
+            mcus = [(r, col) for r in range(c0.blocks_h) for col in range(c0.blocks_w)]
+            blocks = lambda r, col: [(0, r, col)]
+        to_go, rst = f.restart, 0
+        for r, col in mcus:
+            if f.restart:
+                if to_go == 0:  # jcarith.c emit_restart
+                    e.finish()
+                    e.out += bytes([0xFF, 0xD0 + rst])
+                    rst = (rst + 1) & 7
+                    for k in range(len(comps)):
+                        if not f.progressive or (ss == 0 and ah == 0):
+                            dc_stats[tbl[k]] = [[0] for _ in range(64)]
+                            last_dc[k] = context[k] = 0
+                        if not f.progressive or se:
+                            ac_stats[tbl[k]] = [[0] for _ in range(256)]
+                    e.reset()
+                    to_go = f.restart
+                to_go -= 1
+            for k, y, x in blocks(r, col):
+                blk = [int(v) for v in comps[k].coefs[y, x]]
+                t = tbl[k]
+                lo, u, kk = conditioning[t]
+                if not f.progressive or (ss == 0 and ah == 0):  # DC (Figure F.4)
+                    m = blk[0] >> al
+                    st0 = context[k]
+                    bins = dc_stats[t]
+                    v = m - last_dc[k]
+                    if v == 0:
+                        e.encode(bins[st0], 0)
+                        context[k] = 0
+                    else:
+                        last_dc[k] = m
+                        e.encode(bins[st0], 1)
+                        if v > 0:
+                            e.encode(bins[st0 + 1], 0)
+                            base, context[k] = st0 + 2, 4
+                        else:
+                            v = -v
+                            e.encode(bins[st0 + 1], 1)
+                            base, context[k] = st0 + 3, 8
+                        cat = 0
+                        if v - 1:
+                            cat = 1
+                            while (v - 1) >> cat:
+                                cat += 1
+                            cat = 1 << (cat - 1)
+                        _arith_value(e, bins, base, v, None)
+                        if cat < (1 << lo) >> 1:
+                            context[k] = 0
+                        elif cat > (1 << u) >> 1:
+                            context[k] += 8
+                    if f.progressive:
+                        continue
+                if f.progressive and ss == 0:  # DC refinement: bit Al
+                    e.encode(fixed, (blk[0] >> al) & 1)
+                    continue
+                lo_k = 1 if not f.progressive else ss
+                hi_k = 63 if not f.progressive else se
+                bins = ac_stats[t]
+                mag = [abs(blk[natural[q]]) >> al for q in range(64)]
+                ke = hi_k
+                while ke > 0 and not mag[ke]:
+                    ke -= 1
+                if f.progressive and ah:  # Figure G.10
+                    kex = ke
+                    while kex > 0 and not abs(blk[natural[kex]]) >> ah:
+                        kex -= 1
+                    q = lo_k
+                    while q <= ke:
+                        st = 3 * (q - 1)
+                        if q > kex:
+                            e.encode(bins[st], 0)
+                        while True:
+                            v = mag[q]
+                            if v:
+                                if v >> 1:
+                                    e.encode(bins[st + 2], v & 1)
+                                else:
+                                    e.encode(bins[st + 1], 1)
+                                    e.encode(fixed, 1 if blk[natural[q]] < 0 else 0)
+                                break
+                            e.encode(bins[st + 1], 0)
+                            st += 3
+                            q += 1
+                        q += 1
+                    if q <= hi_k:
+                        e.encode(bins[3 * (q - 1)], 1)
+                    continue
+                q = lo_k  # Figure F.5
+                while q <= ke:
+                    st = 3 * (q - 1)
+                    e.encode(bins[st], 0)
+                    while True:
+                        v = mag[q]
+                        if v:
+                            e.encode(bins[st + 1], 1)
+                            e.encode(fixed, 1 if blk[natural[q]] < 0 else 0)
+                            break
+                        e.encode(bins[st + 1], 0)
+                        st += 3
+                        q += 1
+                    _arith_value(e, bins, st + 2, v, 189 if q <= kk else 217)
+                    q += 1
+                if q <= hi_k:
+                    e.encode(bins[3 * (q - 1)], 1)
+        e.finish()
+        out.append(bytes(e.out))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+# jstdhuff.c's DC luminance table: categories 0-11
+_DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
+
+
+def jpeg_lossless(img: np.ndarray, psv: int, pt: int = 0, restart_rows: int = 0,
+                  arith: bool = False) -> bytes:
+    """A lossless JPEG (SOF3; SOF11's header over the same data when
+    `arith`) of [H, W] grey or [H, W, 3] RGB (an Adobe segment with
+    transform 0: no colour conversion), one interleaved scan with
+    predictor psv and point transform pt, the standard DC luminance
+    table, a restart every `restart_rows` rows."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, nc = img.shape
+    x = img.astype(np.int64) >> pt
+    counts, symbols = _DC_LUMA
+    code, codes, k = 0, {}, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            codes[symbols[k]] = (code, length)
+            code += 1
+            k += 1
+        code <<= 1
+    bits = []
+
+    def put(v: int, n: int) -> None:
+        bits.extend((v >> (n - 1 - i)) & 1 for i in range(n))
+
+    def flush() -> bytes:
+        while len(bits) % 8:
+            bits.append(1)
+        out = bytearray()
+        for i in range(0, len(bits), 8):
+            b = int("".join(map(str, bits[i:i + 8])), 2)
+            out.append(b)
+            if b == 0xFF:
+                out.append(0)
+        bits.clear()
+        return bytes(out)
+
+    body, rst, first = bytearray(), 0, 0
+    for y in range(h):
+        if restart_rows and y and y % restart_rows == 0:
+            body += flush() + bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) & 7
+            first = y
+        for xx in range(w):
+            for c in range(nc):
+                if y == first:
+                    pred = (1 << (8 - pt - 1)) if xx == 0 else x[y, xx - 1, c]
+                elif xx == 0:
+                    pred = x[y - 1, 0, c]
+                else:
+                    ra, rb, rc = x[y, xx - 1, c], x[y - 1, xx, c], x[y - 1, xx - 1, c]
+                    pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                            6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[psv]
+                diff = int(x[y, xx, c] - pred) & 0xFFFF
+                if diff >= 0x8000:
+                    diff -= 0x10000
+                size = abs(diff).bit_length()
+                put(*codes[size])
+                if size:
+                    put(diff if diff > 0 else diff - 1 + (1 << size), size)
+    body += flush()
+
+    def seg(marker: int, payload: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    out = [b"\xff\xd8"]
+    if nc == 3:
+        out.append(seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0)))
+    if restart_rows:
+        out.append(seg(0xDD, struct.pack(">H", restart_rows * w)))
+    out.append(seg(0xCB if arith else 0xC3, struct.pack(">BHHB", 8, h, w, nc)
+                   + b"".join(bytes([c + 1, 0x11, 0]) for c in range(nc))))
+    out.append(seg(0xC4, bytes([0]) + bytes(counts) + bytes(symbols)))
+    out.append(seg(0xDA, bytes([nc]) + b"".join(bytes([c + 1, 0]) for c in range(nc))
+                   + bytes([psv, 0, pt])))
+    out += [bytes(body), b"\xff\xd9"]
+    return b"".join(out)
+
+
+def jpeg_scans(data: bytes, keep) -> bytes:
+    """A JPEG with only the scans for which keep(Ss, Se, Ah, Al) holds (the
+    markers between scans kept)."""
+    out, pos = [data[:2]], 2
+    while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError("jpeg_scans: a marker was expected")
+        m = data[pos + 1]
+        if m == 0xD9:
+            out.append(data[pos:])
+            break
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        end = pos + 2 + length
+        if m != 0xDA:
+            out.append(data[pos:end])
+            pos = end
+            continue
+        n = data[pos + 4]
+        ss, se, ahl = data[pos + 5 + 2 * n:pos + 8 + 2 * n]
+        scan_end = end
+        while not (data[scan_end] == 0xFF and data[scan_end + 1] not in (0,) + tuple(
+                range(0xD0, 0xD8))):
+            scan_end += 1
+        if keep(ss, se, ahl >> 4, ahl & 15):
+            out.append(data[pos:scan_end])
+        pos = scan_end
+    return b"".join(out)
+
+
+def jp2_box(kind: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + kind + payload
+
+
+def jp2_file(codestream: bytes, h: int, w: int, nc: int, colr: int = 16, extra: bytes = b"",
+             bpc: int = 7) -> bytes:
+    """A JP2 file around a raw codestream: the signature, ftyp, and a jp2h
+    with ihdr, colr (enumerated colour space `colr`) and `extra` boxes."""
+    header = (jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+              + jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr)) + extra)
+    return (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", header) + jp2_box(b"jp2c", codestream))
+
+
+def jpeg2000_fixtures() -> dict[str, bytes]:
+    """The JPEG 2000 fixtures, and the JPEG ones of the arithmetic, lossless
+    and smoothed processes (tests/test_torch_imgio.py, chip_smoke.py phase
+    4r)."""
+    from PIL import Image
+
+    def j2k(arr: np.ndarray, **kw) -> bytes:
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG2000", no_jp2=True, **kw)
+        return buf.getvalue()
+
+    rgba = texture(40, 52, 4, 71)
+    indices = (texture(36, 44, 1, 72)[..., 0] // 32).astype(np.uint8)
+    palette = [(230, 60, 40), (40, 200, 90), (30, 80, 220), (240, 220, 60), (120, 40, 160),
+               (20, 20, 20), (250, 250, 250), (140, 100, 60)]
+    grey16 = texture(64, 64, 1, 73, depth=16)[..., 0]
+    buf = io.BytesIO()
+    Image.frombytes("I;16", (64, 64), grey16.astype("<u2").tobytes()).save(
+        buf, "JPEG2000", no_jp2=True)
+    progressive = pillow(texture(64, 80, 3, 76), "JPEG", progressive=True)
+    return {
+        "j2k_lossless.jp2": pillow(texture(40, 48, 3, 70), "JPEG2000"),
+        "j2k_97_mct.jp2": pillow(texture(44, 56, 3, 74), "JPEG2000", irreversible=True, mct=1,
+                                 quality_mode="rates", quality_layers=[12]),
+        "j2k_rgba_cdef.jp2": jp2_file(j2k(rgba), 40, 52, 4, extra=jp2_box(b"cdef", struct.pack(
+            ">H", 4) + b"".join(struct.pack(">HHH", k, 1 if k == 3 else 0, 0 if k == 3 else k + 1)
+                               for k in range(4)))),
+        "j2k_tiled_rpcl.j2k": j2k(texture(64, 72, 3, 75), tile_size=(32, 32),
+                                  progression="RPCL", precinct_size=(16, 16), num_resolutions=3,
+                                  irreversible=True, quality_mode="dB", quality_layers=[38]),
+        "j2k_pclr.jp2": jp2_file(j2k(indices), 36, 44, 1, extra=jp2_box(
+            b"pclr", struct.pack(">HB", len(palette), 3) + bytes([7, 7, 7])
+            + b"".join(bytes(c) for c in palette)) + jp2_box(b"cmap", b"".join(
+                struct.pack(">HBB", 0, 1, k) for k in range(3)))),
+        "j2k_grey16.j2k": buf.getvalue(),
+        "j2k_ground_1024.jp2": pillow(smooth_texture(1024, 3, 77), "JPEG2000", irreversible=True,
+                                      quality_mode="rates", quality_layers=[48]),
+        "jpeg_arith.jpg": jpeg_arith(pillow(texture(56, 72, 3, 78), "JPEG")),
+        "jpeg_arith_progressive.jpg": jpeg_arith(progressive, dac={0: (1, 4, 3), 1: (0, 2, 7)}),
+        "jpeg_lossless.jpg": jpeg_lossless(texture(40, 56, 3, 79), psv=6, pt=0, restart_rows=8),
+        "jpeg_smoothed.jpg": jpeg_scans(progressive, lambda ss, se, ah, al: not (ss and ah)),
+    }
+
+
 def fixtures() -> dict[str, bytes]:
     """Every fixture's file name and bytes."""
-    return {**first_fixtures(), **new_fixtures(), **webp_fixtures()}
+    return {**first_fixtures(), **new_fixtures(), **webp_fixtures(), **jpeg2000_fixtures()}
 
 
 # fixtures.npz keeps these as the digest of their array
-DIGESTED = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp")
+DIGESTED = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp",
+            "j2k_ground_1024.jp2")
 
 
 def digest(arr: np.ndarray) -> np.ndarray:
