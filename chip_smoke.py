@@ -312,6 +312,24 @@ fails, with a non-zero exit, if any phase fails:
    roughness (a float pool): 6 K4f a frame, K4f on its bounce-0 wave
    against its twin; (d) the host times of (b)'s and (c)'s pool builds and
    of the 1024^2 decode;
+4s. TIFF's codecs and layouts (phase_tiff): (a) every TIFF fixture of
+   tests/data/imgio phase 4s added (ZSTD with predictors 2 and 3, LZMA,
+   Group 4, Group 3 2D with fill bits, Modified Huffman, ThunderScan, YCbCr
+   4:2:0 under LZW, Orientation 6 under LZW, planes of 16-bit RGB, an
+   old-style JPEG, 16-bit grey LZMA, a 1024^2 ZSTD ground and Group 4
+   stencil) decoded on the card's host, bit-equal to Pillow's array
+   (fixtures.npz; the 1024^2 ones by their SHA-256; 4n (a) and 4p (a)
+   leave these out), each decode timed; (b) interior_tiff: the textured
+   interior at 512x512, 4 spp, 6 bounces, NEE, its ten base colours LZMA
+   RGBA, Group 4, Group 3 2D, Modified Huffman, the 1024^2 ZSTD ground (the
+   floor), ThunderScan, YCbCr, Orientation 6, planes and old-style JPEG: 6
+   K3 and 6 K4 a frame, bit-equal
+   to the frame of its _png twin (PNGs of the port's decoded codes), K3
+   and K4 on its bounce-0 wave bit-equal to their twins and timed; (c)
+   interior_tiff_float: every roughness the float ZSTD (predictor 3) or the
+   16-bit grey LZMA file (a float pool): 6 K4f a frame, K4f against its
+   twin; (d) the host times of (b)'s and (c)'s pool builds and the median
+   of five decodes of each 1024^2 file;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -4226,7 +4244,7 @@ def phase_dome(device, tex_dir: str):
 
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
-                formats: dict, formats2: dict, jpeg2000: dict) -> list[dict]:
+                formats: dict, formats2: dict, jpeg2000: dict, tiff: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
@@ -4253,6 +4271,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "formats": formats_entry(formats, "K4f"),
         "formats2": formats_entry(formats2, "K4f"),
         "jpeg2000": formats_entry(jpeg2000, "K4f"),
+        "tiff": formats_entry(tiff, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -4671,7 +4690,8 @@ def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threade
     # (a) every fixture on the card's host against Pillow's arrays
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
-    for name in sorted(set(ref.files) - set(WEBP_FIXTURES) - set(J2K_FIXTURES)):
+    for name in sorted(set(ref.files) - set(WEBP_FIXTURES) - set(J2K_FIXTURES)
+                       - set(TIFF_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -4882,7 +4902,7 @@ def phase_formats2(device, tex_dir: str) -> dict:
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
     for name in sorted(set(ref.files) - set(FIRST_FIXTURES) - set(WEBP_FIXTURES)
-                       - set(J2K_FIXTURES)):
+                       - set(J2K_FIXTURES) - set(TIFF_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -5008,12 +5028,14 @@ WEBP_8BIT = ("webp_lossy_rgb.webp", "webp_lossy_rgba.webp", "webp_lossless_rgb.w
 
 
 def array_digest(arr) -> bytes:
-    """SHA-256 of an array's dtype, shape and bytes (make_fixtures.py
-    digest)."""
+    """SHA-256 of an array's dtype, shape and bytes, a bool array by value
+    (make_fixtures.py digest)."""
     import hashlib
 
     import numpy as np
 
+    if arr.dtype == bool:
+        arr = arr != 0
     return hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode()
                           + np.ascontiguousarray(arr).tobytes()).digest()
 
@@ -5218,6 +5240,131 @@ def phase_jpeg2000(device, tex_dir: str) -> dict:
         f"twins {out['jpeg2000_png_pool_build_s']:.4f} s), the grey16 roughness pool "
         f"{out['jpeg2000_grey16_pool_build_s']:.4f} s; the 1024^2 9/7 decode "
         f"{out[f'decode_{J2K_1024}_s']:.4f} s")
+    out["launches"] = launches
+    return out
+
+
+# 4s: TIFF's codecs and layouts (4n (a) and 4p (a) leave these to 4s; the
+# 1024^2 ones fixtures.npz keeps as digests)
+# (b): the 8-bit variants, one slot a material of the interior's ten in
+# their sorted order, the 1024^2 ZSTD ground (predictor 2) on /m_floor, the
+# fifth; (c): the bilevel CCITT ones, whose bool images make the pool float
+# (imgio.is_hdr, the JAX package's rule), with the float roughnesses
+TIFF_8BIT = ("tiff_lzma_rgba.tif", "tiff_zstd_pred2.tif", "tiff_thunder.tif",
+             "tiff_ycbcr420_lzw.tif", "tiff_zstd_ground_1024.tif", "tiff_orient6_lzw.tif",
+             "tiff_planar16.tif", "tiff_ojpeg.tif")
+TIFF_BILEVEL = ("tiff_g4.tif", "tiff_g3_2d_fill.tif", "tiff_mh.tif")
+TIFF_FLOAT = ("tiff_float_zstd_pred3.tif", "tiff_grey16_lzma.tif")  # (c): the roughnesses
+TIFF_1024 = ("tiff_zstd_ground_1024.tif", "tiff_g4_stencil_1024.tif")
+TIFF_FIXTURES = tuple(sorted({*TIFF_8BIT, *TIFF_BILEVEL, *TIFF_FLOAT, *TIFF_1024}))
+
+
+def phase_tiff(device, tex_dir: str) -> dict:
+    """Phase 4s: TIFF's codecs and layouts (see the module docstring,
+    (a)-(d)). Returns its numbers and launch counts."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) the fixtures on the card's host against Pillow's arrays or digests
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s = {}, {}
+    for name in TIFF_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        if name in TIFF_1024:
+            assert array_digest(got) == ref[name].tobytes(), name
+        else:
+            assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"tiff (a): {len(decode_s)} TIFF fixtures decoded on the card's host, each bit-equal "
+        f"to Pillow's array (fixtures.npz; the 1024^2 ground and stencil by their SHA-256); "
+        f"host ms {({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) eight 8-bit base colours against PNGs of their decoded codes
+    png_dir = os.path.join(tex_dir, "tiff_png")
+    os.makedirs(png_dir, exist_ok=True)
+
+    def png_twins(names):
+        paths = []
+        for name in names:
+            paths.append(os.path.join(png_dir, name + ".png"))
+            imgio.write_image_file(paths[-1], imgio.load_image(blobs[name]))
+        return paths
+
+    files = [os.path.join(FIXTURES, n) for n in TIFF_8BIT]
+    pngs = png_twins(TIFF_8BIT)
+    frames = {}
+    for label, slots in (("tiff", files), ("tiff_png", pngs)):
+        params = webp_interior(device, tex_dir, slots)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(TIFF_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["tiff"][0], frames["tiff_png"][0])
+    log(f"tiff (b): the interior with {len(TIFF_8BIT)} base colours (LZMA RGBA, ZSTD with "
+        f"predictor 2, ThunderScan, YCbCr 4:2:0 LZW, the 1024^2 ZSTD ground, Orientation 6 LZW, "
+        f"16-bit planes, old-style JPEG) against PNGs of their decoded codes: frames bit-equal "
+        f"{same}; COLOR mean "
+        f"{frames['tiff'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["tiff"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["tiff"][1], SF_RES, "interior_tiff")
+
+    # (c) the bilevel CCITT files as the base colours, the float ZSTD and
+    # 16-bit grey LZMA files as the roughnesses: a float pool, K4's FLT
+    # instance; against PNGs of the bilevel images' codes
+    rough = [os.path.join(FIXTURES, n) for n in TIFF_FLOAT]
+    floats = {}
+    for label, slots in (("tiff_float", [os.path.join(FIXTURES, n) for n in TIFF_BILEVEL]),
+                         ("tiff_float_png", png_twins(TIFF_BILEVEL))):
+        params = formats2_interior(device, tex_dir, slots, rough)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        assert not params.scene._texture_pool.packed, "F and I;16 images make the pool float"
+        assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+        assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+        floats[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(floats["tiff_float"][0], floats["tiff_float_png"][0])
+    log(f"tiff (c): the interior with the Group 4, Group 3 2D and Modified Huffman base colours "
+        f"and float ZSTD / 16-bit LZMA roughnesses against PNGs of the bilevel codes: frames "
+        f"bit-equal {same}")
+    assert same
+    out["grey16_kernels"] = split_parity(device, floats["tiff_float"][1], SF_RES,
+                                         "interior_tiff_float")
+
+    # (d) the host times: the pool builds, the 1024^2 decodes (median of 5)
+    for name in TIFF_1024:
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            imgio.load_image(blobs[name])
+            times.append(time.perf_counter() - t0)
+        out[f"decode_{name}_s"] = statistics.median(times)
+    log(f"tiff (d): host times: pool builds {out['tiff_pool_build_s']:.4f} s (their PNG twins "
+        f"{out['tiff_png_pool_build_s']:.4f} s), the float roughness pool "
+        f"{out['tiff_float_pool_build_s']:.4f} s; 1024^2 decodes (median of 5) "
+        + ", ".join(f"{n} {out[f'decode_{n}_s']:.4f} s" for n in TIFF_1024))
     out["launches"] = launches
     return out
 
@@ -5798,6 +5945,14 @@ def main() -> int:
               "jpeg2000_grey16_pool_build_s", f"decode_{J2K_1024}_s"):
         log(f"4r host time {k}: {j2k_out[k]:.4f} s on the card's host ({smi})")
     log(f"phase 4r: {time.perf_counter() - t0:.1f} s")
+    # 4s: TIFF's codecs (CCITT, LZMA, ZSTD, ThunderScan, old-style JPEG) and
+    # layouts through the texture path (K3, K4, K4f)
+    t0 = time.perf_counter()
+    tiff_out = phase_tiff(device, tex_tmp.name)
+    for k in ("tiff_pool_build_s", "tiff_png_pool_build_s", "tiff_float_pool_build_s",
+              *(f"decode_{n}_s" for n in TIFF_1024)):
+        log(f"4s host time {k}: {tiff_out[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4s: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -5823,6 +5978,7 @@ def main() -> int:
         f"{formats['grey16_vs_wavefront']}")
     log(f"webp: launches {webp_out['launches']}")
     log(f"jpeg2000: launches {j2k_out['launches']}")
+    log(f"tiff: launches {tiff_out['launches']}")
     log(f"formats2: launches {formats2['launches']}, with forced tracers "
         f"{formats2['tracer_launches']}; float slots against the wavefront "
         f"{formats2['float_vs_wavefront']}")
@@ -5907,6 +6063,7 @@ def main() -> int:
         "formats2": formats_entry(formats2, "K3"),
         "webp": formats_entry(webp_out, "K3"),
         "jpeg2000": formats_entry(j2k_out, "K3"),
+        "tiff": formats_entry(tiff_out, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -5941,6 +6098,7 @@ def main() -> int:
         "formats2": formats_entry(formats2, "K4"),
         "webp": formats_entry(webp_out, "K4"),
         "jpeg2000": formats_entry(j2k_out, "K4"),
+        "tiff": formats_entry(tiff_out, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -5967,7 +6125,7 @@ def main() -> int:
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
         *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2,
-                     j2k_out),
+                     j2k_out, tiff_out),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

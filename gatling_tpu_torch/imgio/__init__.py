@@ -9,7 +9,9 @@ and its opening's checks. A ported plugin's decoder returns the RGBA array
 [H, W, 4] that the JAX package's imgio.load_image(data).data gives for the
 same bytes: PNG (here), JPEG (jpeg.py: baseline, progressive with
 libjpeg's block smoothing, lossless, Huffman- or arithmetic-coded), TIFF
-(tiff.py), TGA (tga.py), BMP, DIB, ICO and CUR (bmp.py), GIF (gif.py),
+(tiff.py: every compression libtiff here decodes, CCITT, LZMA, ZSTD,
+ThunderScan and old-style JPEG among them; YCbCr, orientations, planes),
+TGA (tga.py), BMP, DIB, ICO and CUR (bmp.py), GIF (gif.py),
 DDS (dds.py), PSD (psd.py), QOI (qoi.py), Netpbm (pnm.py), WebP
 (webp.py: VP8 lossy, VP8L lossless, ALPH alpha and an animation's first
 frame, as libwebp decodes them) and JPEG 2000 (jpeg2000.py: JP2 files and
@@ -22,7 +24,9 @@ says whether the image is HDR (`is_hdr`, the JAX package's Image.is_hdr).
 The contract with the JAX package, for any bytes: where it returns an
 array, the port returns the same array or raises NotImplementedError
 naming its ROADMAP item ('USD content': a plugin or variant not ported),
-and never another array; where it raises ValueError (no plugin takes the
+and never another array (a TIFF whose array in Pillow holds memory no
+decoder wrote, or data libtiff keeps from a damaged LZMA strip, raises
+ValueError: tiff.py); where it raises ValueError (no plugin takes the
 bytes, or the plugin that takes them cannot finish: EPS without
 Ghostscript, WMF off Windows, a truncated or corrupt file), the port
 raises ValueError. Both packages' texture managers turn that ValueError

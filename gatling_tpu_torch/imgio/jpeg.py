@@ -251,17 +251,19 @@ def _decode_lossless(data: bytes, pos: int, comps: list, mcu: tuple[int, int], d
 
 
 def _idct_plane(c: _Component, blocks: np.ndarray | None = None) -> np.ndarray:
-    """The component's samples [blocks_h * 8, blocks_w * 8] (jidctint.c) of
-    its coefficient blocks, or of `blocks` [blocks_h, blocks_w, 64]."""
+    """The component's samples [rows * 8, cols * 8] (jidctint.c) of its
+    coefficient blocks [blocks_h, blocks_w], or of `blocks` [rows, cols,
+    64]."""
     if blocks is None:
         blocks = c.coefs[:c.blocks_h, :c.blocks_w]
     blocks = np.ascontiguousarray(blocks, np.int16)
-    out = np.empty((c.blocks_h, c.blocks_w, 8, 8), np.uint8)
+    rows, cols = blocks.shape[:2]
+    out = np.empty((rows, cols, 8, 8), np.uint8)
     quant = np.ascontiguousarray(c.quant, np.uint16)
     native.library().gatling_jpeg_idct_islow(
-        native.ptr(blocks, ctypes.c_int16), blocks.shape[0] * blocks.shape[1],
+        native.ptr(blocks, ctypes.c_int16), rows * cols,
         native.ptr(quant, ctypes.c_uint16), native.ptr(out, ctypes.c_uint8))
-    return out.transpose(0, 2, 1, 3).reshape(c.blocks_h * 8, c.blocks_w * 8)
+    return out.transpose(0, 2, 1, 3).reshape(rows * 8, cols * 8)
 
 
 def _prev(n: int) -> np.ndarray:
@@ -411,12 +413,13 @@ def _smooth(c: _Component, total: int, last_good: int, latch: np.ndarray,
     return work.astype(np.int16)
 
 
-def read(data: bytes) -> SimpleNamespace:
+def read(data: bytes, components: tuple | None = (1, 3, 4)) -> SimpleNamespace:
     """A JPEG stream's frame as libjpeg reads it, every scan decoded: the
     components (ids, sampling, quantisation tables and coefficient blocks
     [rows, stride, 64] padded to whole MCUs, or a lossless frame's samples),
     the scans (Ss, Se, Ah, Al and the components' indices), the restart
-    interval, and what decides the colour space (JFIF, Adobe)."""
+    interval, and what decides the colour space (JFIF, Adobe). `components`:
+    the component counts Pillow opens (None: any, as libtiff's codec)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file")
     pos, frame, restart = 2, None, 0
@@ -464,7 +467,7 @@ def read(data: bytes) -> SimpleNamespace:
             precision, height, width, n = struct.unpack(">BHHB", payload[:6])
             if precision != 8:  # JpegImagePlugin.SOF gives up on any other precision
                 raise ValueError(f"JPEG: Pillow reads no {precision}-bit samples")
-            if n not in (1, 3, 4):
+            if components is not None and n not in components:
                 raise ValueError(f"JPEG: Pillow reads no image of {n} components")
             if height == 0 or width == 0 or len(payload) < 6 + 3 * n:
                 raise ValueError("JPEG: bad SOF segment (an empty image: libjpeg reads no "
@@ -553,10 +556,11 @@ def read(data: bytes) -> SimpleNamespace:
                            lossless=lossless, last_good=int(state[1]))
 
 
-def _decode(data: bytes) -> tuple:
+def _decode(data: bytes, components: tuple | None = (1, 3, 4), frame=None) -> tuple:
     """The full-size planes of a JPEG stream's components, their ids, and
-    whether it has a JFIF marker and which Adobe transform."""
-    f = read(data)
+    whether it has a JFIF marker and which Adobe transform (`frame`: the
+    stream's `read`, if made already)."""
+    f = frame if frame is not None else read(data, components)
     comps = f.comps
     width, height, hmax, vmax = f.frame[:4]
     if f.lossless:
@@ -580,17 +584,27 @@ def _decode(data: bytes) -> tuple:
     return planes, tuple(c.cid for c in comps), f.jfif, f.adobe
 
 
+def raw_planes(data: bytes) -> tuple:
+    """jpeg_read_raw_data: each component's samples at its own resolution,
+    every coded block of the MCUs (the dummy blocks at the right and bottom
+    edges too), no upsampling or colour conversion; and the frame's
+    (width, height, hmax, vmax). libtiff's old-style JPEG codec reads a
+    subsampled YCbCr image so."""
+    f = read(data, None)
+    return [_idct_plane(c, c.coefs) for c in f.comps], f.frame[:4]
+
+
 def _ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, k: np.ndarray) -> np.ndarray:
     """jdcolor.c ycck_cmyk_convert: YCbCr to RGB by its tables, each
     inverted, K passed through."""
     return np.concatenate([255 - _ycc_to_rgb(y, cb, cr), k[..., None]], axis=-1)
 
 
-def decode_planes(data: bytes, ycc: bool) -> np.ndarray:
-    """The decoded samples [H, W, components] of a JPEG stream, converted
-    from YCbCr to RGB if `ycc` (libtiff's JPEG colour mode for a YCbCr
-    TIFF), else as coded."""
-    planes = _decode(data)[0]
+def decode_planes(data: bytes, ycc: bool, frame=None) -> np.ndarray:
+    """The decoded samples [H, W, components] of a JPEG stream of any
+    component count (libtiff's codec), converted from YCbCr to RGB if `ycc`
+    (libtiff's JPEG colour mode for a YCbCr TIFF), else as coded."""
+    planes = _decode(data, None, frame)[0]
     if ycc and len(planes) == 3:
         return _ycc_to_rgb(*planes)
     return np.stack(planes, axis=-1)

@@ -28,10 +28,10 @@ to RGBA by the JAX package (a PA image stays index and alpha).
 
 High-throughput code-blocks (HTJ2K, JPEG 2000 Part 15: an HT code-block
 style, the CAP and CPF markers) and the Part 2 markers (MCT, MCC, MCO,
-CBD) raise NotImplementedError (ROADMAP: 'USD content'), as do the few
-headers whose outcome in OpenJPEG this port cannot tell (a tile-part of
-length 12, a COD after a COC or a QCD after a QCC in one header, a
-repeated tile-part 0 of 0).
+CBD) raise NotImplementedError (ROADMAP: 'USD content'). A COD or QCD
+after a COC or QCC in one header overrides it for every component, as in
+OpenJPEG; a tile-part of Psot 12 holds no data; a repeated tile-part 0 of
+0 counts as one more tile-part (opj_j2k_need_nb_tile_parts_correction).
 
 NumPy twins of the native transforms: `idwt53_ref`, `idwt97_ref` (float32,
 step for step) and `mct_ref`; `idwt` and `mct` call the native ones.
@@ -460,7 +460,6 @@ class _Tcp:
         self.data = None
         self.current_part = -1
         self.nb_parts = 0
-        self.coc_seen = self.qcc_seen = False
 
     def copy(self) -> "_Tcp":
         t = _Tcp(0)
@@ -667,9 +666,7 @@ class _Codestream:
             self.sot_length = (self.left() - 2) & 0xFFFFFFFF
         elif self.sot_length >= 2:
             self.sot_length -= 2
-        else:
-            raise NotImplementedError("JPEG 2000: a tile-part of length 12, whose outcome in "
-                                      f"OpenJPEG this port cannot tell {UNPORTED}")
+        # else Psot 12, an SOT with no data: OpenJPEG reads none
         if self.sot_length:
             if self.sot_length > self.left():
                 raise _Broken("Tile part length size inconsistent with stream length")
@@ -691,10 +688,6 @@ class _Codestream:
                     raise _Broken("Inconsistent marker size")
                 isot, psot, tpsot, tnsot = struct.unpack(">HIBB", self.read(8))
                 if isot == tile:
-                    if tpsot == tnsot == 0:
-                        raise NotImplementedError(
-                            "JPEG 2000: a repeated tile-part 0 of 0, whose outcome in OpenJPEG "
-                            f"this port cannot tell {UNPORTED}")
                     return tpsot == tnsot
                 if psot < 14:
                     return False
@@ -798,9 +791,6 @@ def _spcod(cs: _Codestream, tccp: _Tccp, p: bytes) -> int:
 
 def _cod(cs: _Codestream, p: bytes) -> None:
     tcp = cs.tcp()
-    if tcp.coc_seen:
-        raise NotImplementedError("JPEG 2000: a COD after a COC in one header is not ported "
-                                  f"{UNPORTED}")
     if len(p) < 5:
         raise _Broken("Error reading COD marker")
     tcp.csty = p[0]
@@ -836,7 +826,6 @@ def _coc(cs: _Codestream, p: bytes) -> None:
     tccp.csty = p[room]
     if _spcod(cs, tccp, p[room + 1:]) != len(p) - room - 1:
         raise _Broken("Error reading COC marker")
-    tcp.coc_seen = True
 
 
 def _sqcd(cs: _Codestream, tccp: _Tccp, p: bytes) -> None:
@@ -870,9 +859,6 @@ def _sqcd(cs: _Codestream, tccp: _Tccp, p: bytes) -> None:
 
 def _qcd(cs: _Codestream, p: bytes) -> None:
     tcp = cs.tcp()
-    if tcp.qcc_seen:
-        raise NotImplementedError("JPEG 2000: a QCD after a QCC in one header is not ported "
-                                  f"{UNPORTED}")
     _sqcd(cs, tcp.tccps[0], p)
     ref = tcp.tccps[0]
     for tccp in tcp.tccps[1:]:
@@ -888,7 +874,6 @@ def _qcc(cs: _Codestream, p: bytes) -> None:
     if compno >= cs.ncomp():
         raise _Broken("Invalid component number")
     _sqcd(cs, tcp.tccps[compno], p[room:])
-    tcp.qcc_seen = True
 
 
 def _rgn(cs: _Codestream, p: bytes) -> None:

@@ -12,9 +12,10 @@ colour-mapped 8-bit indices into a 16-, 24- or 32-bit map (entry `first`
 of the map is index `first`, the entries before it zeros; indices outside
 the map are black). The descriptor's origin bits orient the image as
 Pillow does: bottom-up unless bit 5 is set, mirrored when bit 4 is. A
-layout Pillow has no raw mode for raises
-NotImplementedError (ROADMAP: 'USD content'); a file Pillow rejects (a
-truncated body, run-length 1-bit grey) raises ValueError. A TGA has no magic: `accepts` is
+file Pillow rejects raises ValueError: a layout it has no raw mode for
+(Pillow opens it with no tile and cannot load it), a colour map on a
+1-bit, RGB or RGBA image (its palette cannot be put on such an image), a
+truncated body, run-length 1-bit grey. A TGA has no magic: `accepts` is
 Pillow's header check.
 
 Write: uncompressed, top-left origin, type 2 (BGR or BGRA) or 3 (grey).
@@ -28,7 +29,6 @@ import numpy as np
 
 from gatling_tpu_torch.imgio.modes import finish, raw_rows, unpack_bgr15, unpack_bits
 
-UNPORTED = "(ROADMAP: 'USD content')"
 # Pillow's MODES: (image type & 7, bits) -> raw mode
 _RAWMODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA", (2, 16): "BGRA;15Z",
              (2, 24): "BGR", (2, 32): "BGRA"}
@@ -74,9 +74,11 @@ def decode_tga(data: bytes) -> np.ndarray:
         _HEADER.unpack(data[:18])
     base = itype & 7
     raw = _RAWMODES.get((base, depth))
-    if raw is None or (base == 1 and not cmap_type):
-        raise NotImplementedError(f"TGA: image type {itype} of {depth} bits is not ported "
-                                  f"{UNPORTED}")
+    if raw is None:  # Pillow opens the file with no tile: "cannot load this image"
+        raise ValueError(f"TGA: image type {itype} of {depth} bits has no Pillow raw mode")
+    if cmap_type and (base == 2 or depth == 1):
+        # Pillow reads the map, then cannot put a palette on a "1", RGB or RGBA image
+        raise ValueError(f"TGA: a colour map on an image type {itype} of {depth} bits")
     pos = 18 + id_len
     palette = None
     if cmap_type:

@@ -1,28 +1,56 @@
-"""TIFF decoder and writer, as Pillow reads and writes TIFF (through
-libtiff for compressed files; the JAX package's imgio goes through
-Pillow).
+"""TIFF decoder and writer, as Pillow 12.1 reads and writes TIFF (through
+its libtiff 4.7.1 for compressed files; the JAX package's imgio goes
+through Pillow).
 
 Read: the first image of a little- or big-endian TIFF or BigTIFF, in
-strips or tiles, planar configuration 1 or 2, compressed with none, LZW
-(new style by the native library's gatling_tiff_lzw_decode; old style,
-LSB first, by gatling_tiff_lzw_compat_decode), Deflate (both tags,
-Python's zlib), PackBits (gatling_tiff_packbits_decode) or JPEG
-(compression 7: each strip or tile a JPEG stream completed by the
-JPEGTables tag, decoded by jpeg.py), with predictor 2 (horizontal
-differencing of 8-, 16- or 32-bit samples) or 3 (floating point), which
-libtiff applies to LZW and Deflate strips alone; bit fill order 2 (each
-byte's bits reversed). Pillow's mode and raw mode come from its own reading
-of the directory (`_ifd`) and its OPEN_INFO table, copied here
-(`OPEN_INFO`): a layout it lacks is given up, as Pillow gives it up, and
-the array each raw mode gives is Pillow's. A compressed file's layout
-(strips or tiles, their offsets and byte counts, rows per strip, planar
-configuration, fill order, predictor) is libtiff's reading of the same
-directory (`_libtiff_directory`, tif_dirread.c TIFFReadDirectory: the
-tags it must read or refuse the file, those it leaves unset when they do
-not read, strip arrays padded with zeros, byte counts estimated), decoded
-as Pillow's libtiff decoder does (`_read_libtiff`: its rows must be
-libtiff's; each strip through TIFFFillStrip's byte-count checks); an
-uncompressed file is Pillow's raw decoder over Pillow's reading:
+strips or tiles, planar configuration 1 or 2, compressed with
+- none (Pillow's raw decoder); LZW (new style by the native library's
+  gatling_tiff_lzw_decode; old style, LSB first, by
+  gatling_tiff_lzw_compat_decode); Deflate (both tags, Python's zlib);
+  PackBits (gatling_tiff_packbits_decode);
+- CCITT Modified Huffman (2), RLEW (32771), T.4 (3, 1D or 2D by
+  T4Options) and T.6 (4): libtiff's tif_fax3.c in the native
+  gatling_tiff_fax_decode (csrc/tiff_codecs.cpp), the bits in the file's
+  fill order; a T.4 strip whose EOL search runs out of data decoded again
+  without EOLs, as libtiff does;
+- LZMA (34925): each strip an xz stream through Python's lzma module, which
+  is liblzma's stream decoder (every check type and filter chain liblzma
+  reads), libtiff's rule that an error met after the strip's last byte is
+  not seen;
+- ZSTD (50000): the strip's first frame by the native
+  gatling_tiff_zstd_decode (RFC 8878, as libzstd 1.5.7's
+  ZSTD_decompressStream hands it to libtiff: a dictionary refused, the
+  content checksum verified, damaged four-stream literals read on past
+  their streams as libzstd's fast Huffman path reads them);
+- ThunderScan (32809, 4-bit grey): tif_thunder.c in the native
+  gatling_tiff_thunder_decode;
+- JPEG (7): each strip or tile a JPEG stream completed by the JPEGTables
+  tag, decoded by jpeg.py with tif_jpeg.c's checks (its component count and
+  sampling), a contiguous YCbCr image converted to RGB by libjpeg, any
+  other layout (RGBA with an extra sample, planes, CMYK) as coded;
+- old-style JPEG (6): tif_ojpeg.c's one stream over the strips or tiles
+  (`_OJpeg`: the header at JPEGInterchangeFormat, or in the first strip, or
+  made from the JPEGQTables, JPEGDCTables and JPEGACTables tags; RST
+  markers between striles), libtiff's directory fix-ups (RGB is YCbCr);
+with predictor 2 (horizontal differencing of 8-, 16- or 32-bit samples) or
+3 (floating point), which libtiff applies to LZW, Deflate, LZMA and ZSTD
+strips (TIFFPredictorInit) by its own reading of the samples; bit fill
+order 2. SGILog (34676, 34677) on a photometric other than LogL or LogLuv,
+and WebP (50001, not configured in this libtiff), raise ValueError, as
+Pillow fails on them.
+
+Pillow's mode and raw mode come from its own reading of the directory
+(`_ifd`) and its OPEN_INFO table, copied here (`OPEN_INFO`): a layout it
+lacks is given up, as Pillow gives it up, and the array each raw mode gives
+is Pillow's. A compressed file's layout (strips or tiles, their offsets and
+byte counts, rows per strip, planar configuration, fill order, predictor) is
+libtiff's reading of the same directory (`_libtiff_directory`,
+tif_dirread.c TIFFReadDirectory: the tags it must read or refuse the file,
+those it leaves unset when they do not read, strip arrays padded with zeros,
+byte counts estimated), decoded as Pillow's libtiff decoder does
+(`_read_libtiff`: its rows must be libtiff's; each strip through
+TIFFFillStrip's byte-count checks); an uncompressed file is Pillow's raw
+decoder over Pillow's reading:
 - 1-bit grey: bool (WhiteIsZero inverted); 2- and 4-bit grey scaled to
   8 bits (x 85, x 17); 8-bit grey, grey + alpha, RGB and RGBA: the codes
   (WhiteIsZero inverted; associated alpha divided out as Pillow's "RGBa"
@@ -34,15 +62,25 @@ uncompressed file is Pillow's raw decoder over Pillow's reading:
   file each float's bytes swapped, as Pillow reads them);
 - palette images (1, 2, 4 and 8 bits): their ColorMap's high bytes, as
   Pillow converts "P" to RGBA; CMYK: Pillow's CMYK to RGBA conversion;
-- JPEG-compressed YCbCr: libjpeg's YCbCr to RGB (libtiff's RGB colour
-  mode), JPEG-compressed RGB and grey: the samples as coded.
-CIE Lab: its L*, a* and b* samples as stored, three bands the JAX package
-takes for RGB. YCbCr without JPEG (which Pillow
-reads through libtiff's RGBA interface; uncompressed, Pillow reads it past
-its strips and fails: ValueError), old-style JPEG (compression 6), the other codecs (CCITT, LZMA,
-ZSTD, WebP ...) and orientations that swap the axes raise
-NotImplementedError (ROADMAP: 'USD content'); a file Pillow gives up on
-raises ValueError.
+- CIE Lab: its L*, a* and b* samples as stored, three bands the JAX
+  package takes for RGB.
+Planar configuration 2: uncompressed, Pillow's raw decoder takes each plane
+by the character of the raw mode at its place (`_read_samples`); compressed,
+Pillow's per-plane unpackers copy 8- or 16-bit planes (the high byte) into
+its four-byte pixels (an LA image's alpha stays 0, CIE Lab's a and b read
+unsigned), other depths fail.
+A YCbCr image other than JPEG's, old-style JPEG's included, goes through
+libtiff's RGBA interface (`_read_rgba`, tif_getimage.c: data units of the
+YCbCrSubsampling tile routines, TIFFYCbCrToRGB over ReferenceBlackWhite and
+YCbCrCoefficients); an uncompressed one Pillow reads past its strips and
+fails (ValueError). The Orientation tag, or an XMP packet's
+tiff:Orientation, transposes the image after the load, as
+TiffImageFile.load_end does (ImageOps.exif_transpose).
+Where Pillow's array holds memory no decoder wrote (a T.6 strip that ends
+before its last row), and where libtiff keeps LZMA data liblzma reports
+damaged with its last byte, the port raises ValueError; old-style JPEG in planes raises
+NotImplementedError (ROADMAP Queue 3); a file Pillow gives up on raises
+ValueError.
 
 Write: uncompressed 8-bit grey, RGB or RGBA (unassociated alpha), one
 strip, little-endian.
@@ -51,6 +89,7 @@ strip, little-endian.
 from __future__ import annotations
 
 import ctypes
+import re
 import struct
 import zlib
 
@@ -67,11 +106,16 @@ MAGICS = (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 _TYPES = {1: ("B", 1), 2: ("c", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8), 6: ("b", 1),
           7: ("B", 1), 8: ("h", 2), 9: ("i", 4), 10: ("ii", 8), 11: ("f", 4), 12: ("d", 8),
           13: ("I", 4), 16: ("Q", 8), 17: ("q", 8), 18: ("Q", 8)}
-# Pillow's COMPRESSION_INFO codes; the ported ones by the port's codec name
-_KNOWN_COMPRESSIONS = {1, 2, 3, 4, 5, 6, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677,
-                       34925, 50000, 50001}
-_COMPRESSIONS = {1: "none", 5: "lzw", 7: "jpeg", 8: "deflate", 32946: "deflate",
-                 32773: "packbits"}
+# Pillow's COMPRESSION_INFO codes by the port's codec name; the ones libtiff
+# here cannot decode, with its reason
+_COMPRESSIONS = {1: "none", 2: "ccitt", 3: "ccitt", 4: "ccitt", 32771: "ccitt", 5: "lzw",
+                 6: "ojpeg", 7: "jpeg", 8: "deflate", 32946: "deflate", 32773: "packbits",
+                 32809: "thunder", 34925: "lzma", 50000: "zstd"}
+_REFUSED = {34676: "SGILog (LogLuvSetupDecode: not a LogL or LogLuv image)",
+            34677: "SGILog (LogLuvSetupDecode: not a LogL or LogLuv image)",
+            50001: "WebP (not configured in this libtiff)"}
+_KNOWN_COMPRESSIONS = set(_COMPRESSIONS) | set(_REFUSED)
+_PREDICTED = ("lzw", "deflate", "lzma", "zstd")  # TIFFPredictorInit's codecs
 
 
 def _open_info() -> dict[tuple, tuple[str, str]]:
@@ -326,6 +370,7 @@ def _libtiff_directory(data: bytes, bo: str, big: bool) -> dict:
                 continue
             if tag != 266 or v in (1, 2):
                 d[{262: "photometric", 266: "fill", 317: "predictor"}[tag]] = v
+                d["photometric_set"] = d.get("photometric_set", False) or tag == 262
     if d["photometric"] == 3 and 320 not in entries and d["bits"] < 8:
         raise _LibtiffError("TIFF: missing Colormap")
     counts = d.get("counts")
@@ -340,7 +385,38 @@ def _libtiff_directory(data: bytes, bo: str, big: bool) -> dict:
     d["scanline"] = (row_samples * d["bits"] + 7) // 8
     if d["scanline"] == 0:
         raise _LibtiffError("TIFF: zero scanline size")
+    d["entries"], d["bo"], d["big"] = entries, bo, big
     return d
+
+
+def _lt_tag(data: bytes, lt: dict, tag: int, count: int | None = None) -> list | None:
+    """TIFFFetchNormalTag of a tag libtiff reads by its value: the values
+    (integers; floats of a rational or float type, as float32), or None
+    where the tag is absent, of another count than `count`, or unreadable
+    (libtiff then ignores it)."""
+    e = lt["entries"].get(tag)
+    if e is None or (count is not None and e[1] != count):
+        return None
+    typ, n, field = e
+    bo = lt["bo"]
+    if typ in (5, 10, 11, 12):
+        size = {5: 8, 10: 8, 11: 4, 12: 8}[typ] * n
+        if size <= len(field):
+            raw = field[:size]
+        else:
+            (off,) = struct.unpack_from(bo + ("Q" if lt["big"] else "I"), field)
+            if off > len(data) or size > len(data) - off:
+                return None
+            raw = data[off:off + size]
+        if typ in (11, 12):
+            return [np.float32(v) for v in struct.unpack(bo + ("f" if typ == 11 else "d") * n, raw)]
+        v = struct.unpack(bo + ("I" if typ == 5 else "i") * 2 * n, raw)
+        num, den = (np.float32(x) for x in v[0::2]), (np.float32(x) for x in v[1::2])
+        return [np.float32(0) if d == 0 else np.float32(a / d) for a, d in zip(num, den)]
+    try:
+        return _lt_values(data, bo, lt["big"], e, (*_LT_ARRAY_TYPES, 13, 18))
+    except _LibtiffError:
+        return None
 
 
 def _estimate_counts(data: bytes, d: dict, entries: dict, big: bool, nstrips: int) -> list:
@@ -370,25 +446,79 @@ def _native_decode(fn, blob: bytes, n: int) -> np.ndarray:
     return dst[:got]
 
 
-def _decompress(kind: str, blob: bytes, n: int) -> np.ndarray:
-    """One strip or tile's n bytes."""
+def _lzma(blob: bytes, n: int) -> np.ndarray:
+    """tif_lzma.c LZMADecode: the strip's xz stream through liblzma
+    (Python's lzma module is liblzma's stream decoder, the same calls), n
+    bytes wanted. libtiff's one lzma_code call stops when its output is
+    full: an error liblzma meets after that is not seen, one met before it
+    fails the strip. Python drops a call's output on an error, so the call
+    is made again for n - 1 bytes and then the last one."""
+    import lzma
+
+    try:
+        return np.frombuffer(lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(blob, n), np.uint8)
+    except lzma.LZMAError as e:
+        try:
+            d = lzma.LZMADecompressor(lzma.FORMAT_XZ)
+            head = d.decompress(blob, n - 1)
+            out = head + (d.decompress(b"", 1) if len(head) == n - 1 else b"")
+        except lzma.LZMAError:
+            out = b""
+        if len(out) < n:
+            raise ValueError(f"TIFF: corrupt LZMA data: {e}") from e
+        return np.frombuffer(out, np.uint8)
+
+
+def _deflate_prefix(blob: bytes, n: int) -> bytes:
+    """What zlib writes of a damaged Deflate stream before its error (fed in
+    pieces: Python's zlib drops a call's output on an error)."""
+    d, out = zlib.decompressobj(), b""
+    for at in range(0, len(blob), 256):
+        try:
+            out += d.decompress(blob[at:at + 256], n - len(out))
+        except zlib.error:
+            break
+        if len(out) >= n:
+            break
+    return out
+
+
+def _decompress(kind: str, blob: bytes, n: int, partial: bool = False) -> np.ndarray:
+    """One strip or tile's n bytes; with `partial`, what the codec writes
+    of a short or damaged strip (libtiff keeps it), else ValueError."""
     if kind == "none":
         out = np.frombuffer(blob[:n], np.uint8)
     elif kind == "deflate":
         try:
             out = np.frombuffer(zlib.decompressobj().decompress(blob, n), np.uint8)
         except zlib.error as e:
-            raise ValueError(f"TIFF: corrupt Deflate data: {e}") from e
-    elif kind == "lzw":
-        lib = native.library()
-        old = len(blob) >= 2 and blob[0] == 0 and blob[1] & 1
-        out = _native_decode(lib.gatling_tiff_lzw_compat_decode if old
-                             else lib.gatling_tiff_lzw_decode, blob, n)
+            if not partial:
+                raise ValueError(f"TIFF: corrupt Deflate data: {e}") from e
+            out = np.frombuffer(_deflate_prefix(blob, n), np.uint8)
+    elif kind == "lzma":
+        try:
+            out = _lzma(blob, n)
+        except ValueError:
+            if not partial:
+                raise
+            out = np.zeros(0, np.uint8)
     else:
-        out = _native_decode(native.library().gatling_tiff_packbits_decode, blob, n)
-    if out.size < n:
+        lib = native.library()
+        if kind == "lzw":
+            old = len(blob) >= 2 and blob[0] == 0 and blob[1] & 1
+            fn = lib.gatling_tiff_lzw_compat_decode if old else lib.gatling_tiff_lzw_decode
+        else:
+            fn = {"zstd": lib.gatling_tiff_zstd_decode,
+                  "packbits": lib.gatling_tiff_packbits_decode}[kind]
+        try:
+            out = _native_decode(fn, blob, n)
+        except ValueError:
+            if not partial:
+                raise
+            out = np.zeros(0, np.uint8)
+    if out.size < n and not partial:
         raise ValueError(f"TIFF: a {kind} strip or tile holds {out.size} of its {n} bytes")
-    return out
+    return out[:n]
 
 
 def _predict(px: np.ndarray, predictor: int, spp: int, bits: int, bo: str) -> np.ndarray:
@@ -430,6 +560,27 @@ def _samples(rows: np.ndarray, w: int, spp: int, bits: int, fmt, dt_order: str) 
     return rows[:, :w * spp * bits // 8].copy().view(dt).reshape(r, w, spp)
 
 
+# ImageOps.exif_transpose, which TiffImageFile.load_end applies
+_TRANSPOSE = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1], 4: lambda a: a[::-1],
+              5: lambda a: a.swapaxes(0, 1), 6: lambda a: np.rot90(a, -1),
+              7: lambda a: a[::-1, ::-1].swapaxes(0, 1), 8: lambda a: np.rot90(a, 1)}
+_XMP_ORIENTATION = re.compile(rb'tiff:Orientation(="|>)([0-9])')
+
+
+def _orientation(f: dict) -> int | None:
+    """The EXIF orientation Pillow reads (Image.getexif): the Orientation
+    tag's one value, else an XMP packet's tiff:Orientation."""
+    if 274 in f:
+        return f[274][0] if len(f[274]) == 1 else None
+    xmp = f.get(700)  # BYTE values, or UNDEFINED and ASCII bytes
+    if xmp is not None:
+        xmp = xmp[0] if len(xmp) == 1 and isinstance(xmp[0], bytes) else bytes(
+            v & 255 for v in xmp if isinstance(v, int))
+        m = _XMP_ORIENTATION.search(xmp)
+        return int(m[2]) if m else None
+    return None
+
+
 def decode_tiff(data: bytes) -> np.ndarray:
     """TIFF bytes -> [H, W, 4] RGBA: uint8, float32 (12-, 16- and 32-bit
     grey) or bool (1-bit grey), the JAX package's imgio.load_image(data).data."""
@@ -459,7 +610,6 @@ def decode_tiff(data: bytes) -> np.ndarray:
         fmt = (1,)
     bps = f.get(258, (1,))
     extra = f.get(338, ())
-    nbands = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(extra)
     spp = one(277, 3 if comp == 6 and photo in (2, 6) else 1)
     if spp > _MAX_SAMPLES:
         raise Skip("Invalid value for samples per pixel")
@@ -483,51 +633,66 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if w <= 0 or h <= 0:
         raise Skip("not identified by this plugin")
     bomb_check(w, h)
-    if comp not in _COMPRESSIONS:
-        raise NotImplementedError(f"TIFF: compression {comp} is not ported {UNPORTED}")
+    orient = _orientation(f)
+    if comp in _REFUSED:
+        raise ValueError(f"TIFF: libtiff here cannot decode compression {comp}: {_REFUSED[comp]}")
     kind = _COMPRESSIONS[comp]
-    lt = None
-    if kind != "none":  # libtiff decodes by its own reading of the directory
-        lt = _libtiff_directory(data, bo, data[2] == 0x2B)
-        if (lt.get("width"), lt.get("height")) != (w, h):
-            raise _LibtiffError("TIFF: libtiff's image size is not Pillow's")
-        planar, fill = lt["planar"], lt["fill"]
-    if one(274) in (5, 6, 7, 8):
-        raise NotImplementedError(f"TIFF: orientations that swap the axes are not ported "
-                                  f"{UNPORTED}")
-    if photo == 6 and kind == "none":
-        raise ValueError("TIFF: Pillow's raw YCbCr layout reads past its strips")
-    if photo == 6 and kind != "jpeg":
-        raise NotImplementedError(f"TIFF: YCbCr without JPEG compression is not ported "
-                                  f"{UNPORTED}")
     bits = bps[0]
-    if planar == 2 and (bits != 8 or spp == 1 or kind == "jpeg"):
-        raise NotImplementedError(f"TIFF: planar configuration 2 of {bits}-bit samples is "
-                                  f"not ported {UNPORTED}")
-    if kind == "jpeg" and (bits != 8 or spp not in (1, 3, 4) or extra):
-        raise NotImplementedError(f"TIFF: JPEG compression of this layout is not ported "
-                                  f"{UNPORTED}")
-    if lt is None:
+    if kind == "none":
+        if photo == 6:
+            raise ValueError("TIFF: Pillow's raw YCbCr layout reads past its strips")
         if raw in _NO_RAW_UNPACKER:
             raise ValueError("unknown raw mode for given image mode")
-        px = _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill)
+        px, raw, bits = _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill, mode,
+                                      raw)
+        out = _to_mode(px, mode, raw, bits, bo, kind, f, planar == 2 and _BANDS[mode] > 1)
     else:
-        predictor = lt["predictor"] if kind in ("lzw", "deflate") else 1
+        out = _decode_libtiff(data, f, bo, kind, w, h, spp, bits, fmt, mode, raw, photo)
+    return _TRANSPOSE[orient](out) if orient in _TRANSPOSE else out
+
+
+def _decode_libtiff(data, f, bo, kind, w, h, spp, bits, fmt, mode, raw, photo) -> np.ndarray:
+    """A compressed image, as libtiff decodes it by its own reading of the
+    directory and Pillow's decoder unpacks it, in Pillow's `mode`."""
+    lt = _libtiff_directory(data, bo, data[2] == 0x2B)
+    if (lt.get("width"), lt.get("height")) != (w, h):
+        raise _LibtiffError("TIFF: libtiff's image size is not Pillow's")
+    tables = f.get(347, (b"",))[0]
+    lt["ycbcr_sub"] = _lt_tag(data, lt, 530, 2)
+    if kind == "ojpeg":
+        _ojpeg_fixups(lt, w)
+    if lt["photometric"] == 6 and not (kind == "jpeg" and lt["planar"] == 1):
+        # TiffDecode.c: a YCbCr image other than JPEG's through libtiff's
+        # RGBA interface (tif_getimage.c), Pillow's raw mode RGBX over it
+        if mode != "RGB":
+            raise ValueError("TIFF: libtiff's RGBA interface takes no such YCbCr layout")
+        px = _read_rgba(data, lt, kind, w, h, tables)
+    else:
+        if lt["planar"] == 2 and _BANDS[mode] > 1 and lt["bits"] not in (8, 16):
+            # TiffDecode.c _pickUnpackers: planes of 8 or 16 bits alone
+            raise ValueError(f"TIFF: Pillow unpacks no planes of {lt['bits']}-bit samples")
+        predictor = lt["predictor"] if kind in _PREDICTED else 1
         if predictor not in (1, 2, 3) or (predictor == 2 and lt["bits"] not in (8, 16, 32, 64)) \
                 or (predictor == 3 and (lt["format"] != 3 or lt["bits"] not in (16, 24, 32, 64))):
             raise _LibtiffError(f"TIFF: predictor {predictor} not supported by libtiff here")
-        if predictor > 1 and (lt["bits"], lt["spp"]) != (bits, spp):
-            raise NotImplementedError(f"TIFF: a predictor over samples libtiff and Pillow read "
-                                      f"differently is not ported {UNPORTED}")
-        px = _read_libtiff(data, lt, kind, w, h, spp, bits, fmt, mode, predictor, photo,
-                           f.get(347, (b"",))[0])
-    return _to_mode(px, mode, raw, bits, bo, kind, f)
+        px = _read_libtiff(data, lt, kind, w, h, spp, bits, fmt, mode, predictor, photo, tables)
+    return _to_mode(px, mode, raw, bits, bo, kind, f, lt["planar"] == 2 and _BANDS[mode] > 1)
 
 
-def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill) -> np.ndarray:
-    """An uncompressed image's samples [h, w, spp] from its strips or tiles,
+# the modes whose bands Pillow's raw decoder unpacks a plane at a time by
+# the raw mode's character (a byte a pixel)
+_PLANE_MODES = ("RGB", "RGBA", "CMYK", "LAB")
+
+
+def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill, mode,
+                  raw) -> tuple:
+    """An uncompressed image's samples [h, w, spp] from its strips or tiles
     as Pillow's raw decoder reads them (Pillow's own reading of the
-    directory)."""
+    directory), with the raw mode and depth they were unpacked by. Planar
+    configuration 2 unpacks each plane by the character of the raw mode at
+    its place, as TiffImagePlugin does: a band's bytes (8 bits a pixel,
+    whatever the samples' depth), or for one band "1" (bits, not inverted),
+    "L" and "P" (bytes), "I" and "F" (native 32-bit)."""
     if 324 in f:
         tw, tl = one(322), one(323)
         offsets = f[324]
@@ -546,14 +711,37 @@ def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill) -> np.nd
     per_plane = grid[0] * grid[1]
     chans = 1 if planar == 2 else spp
     out = None
+    used = (raw, bits) if planar != 2 else (raw, 8)
     for p in range(planes):
+        ubits, ufmt, unpack = bits, fmt[0] if len(fmt) == 1 else 1, bits
+        if planar == 2:
+            c = raw[p] if p < len(raw) else ""
+            if _BANDS[mode] == 1:
+                if p:
+                    break  # one band: the other planes' tiles are never decoded
+                if c == "1":
+                    ubits = unpack = 1
+                    used = ("1", 1)
+                elif c in ("L", "P"):
+                    ubits, unpack, ufmt = 8, 8, 1
+                    used = (c, 8)
+                elif c in ("I", "F") and mode in ("I", "F"):
+                    ubits = unpack = 32
+                    ufmt = 3 if c == "F" else 2
+                    used = (raw, 32)
+                else:
+                    raise ValueError("unknown raw mode for given image mode")
+            elif mode in _PLANE_MODES and c and c in mode:
+                ubits, unpack, ufmt = 8, 8, 1
+            else:
+                raise ValueError("unknown raw mode for given image mode")
         for k in range(per_plane):
             if p * per_plane + k >= len(offsets):
                 break  # Pillow's raw tiles: strips past the last offset stay zero
             ty, tx = divmod(k, grid[1])
             rows = tl if 324 in f else min(tl, h - ty * tl)
             off = offsets[p * per_plane + k]
-            row_bytes = (tw * chans * bits + 7) // 8
+            row_bytes = (tw * chans * ubits + 7) // 8
             nbytes = rows * row_bytes
             blob = data[off:off + nbytes]
             if len(blob) < nbytes:
@@ -561,14 +749,15 @@ def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill) -> np.nd
             px = np.frombuffer(blob, np.uint8).reshape(rows, row_bytes)
             if fill == 2:
                 px = _REVERSED[px]
-            vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1, bo)
+            vals = _samples(px, tw, chans, unpack, ufmt, "<" if planar == 2 else bo)
             if out is None:
-                out = np.zeros((grid[0] * tl, grid[1] * tw, spp), vals.dtype)
+                dt = vals.dtype if planar != 2 or _BANDS[mode] == 1 else np.uint8
+                out = np.zeros((grid[0] * tl, grid[1] * tw, spp), dt)
             y0, x0 = ty * tl, tx * tw
             out[y0:y0 + rows, x0:x0 + tw, p:p + vals.shape[2]] = vals[:rows, :tw]
     if out is None:
         raise ValueError("TIFF: no strips or tiles")
-    return out[:h, :w]
+    return out[:h, :w], *used
 
 
 # raw modes of OPEN_INFO for which Pillow's raw decoder has no unpacker (a
@@ -576,6 +765,17 @@ def _read_samples(data, f, one, w, h, spp, bits, fmt, bo, planar, fill) -> np.nd
 _NO_RAW_UNPACKER = ("L;IR", "P;1R", "P;2R", "P;4R")
 _BANDS = {"1": 1, "L": 1, "P": 1, "I": 1, "I;16": 1, "I;16B": 1, "F": 1, "LA": 2, "PA": 2,
           "RGB": 3, "LAB": 3, "RGBA": 4, "CMYK": 4}
+
+
+def _strile_layout(lt: dict, w: int, h: int) -> tuple:
+    """(tiled, tile or strip width, rows a block, tiles across)."""
+    tiled = "tile_w" in lt or "tile_l" in lt
+    if tiled:
+        tw, tl = lt.get("tile_w", 0), lt.get("tile_l", 0)
+        if tw == 0 or tl == 0:
+            raise _LibtiffError("TIFF: zero tile size")
+        return True, tw, tl, -(-w // tw)
+    return False, w, h if lt["rows"] == NO_ROWS else min(lt["rows"], h), 1
 
 
 def _read_libtiff(data, lt: dict, kind: str, w: int, h: int, spp: int, bits: int, fmt,
@@ -587,26 +787,22 @@ def _read_libtiff(data, lt: dict, kind: str, w: int, h: int, spp: int, bits: int
     unpacked by Pillow's raw mode (spp samples of `bits`)."""
     planes = _BANDS[mode] if lt["planar"] == 2 else 1
     chans = 1 if lt["planar"] == 2 else spp
-    unpack_bytes = (w * spp * bits // planes + 7) // 8
-    tiled = "tile_w" in lt or "tile_l" in lt
+    lt_chans = 1 if lt["planar"] == 2 else lt["spp"]
+    tiled, tw, rps, across = _strile_layout(lt, w, h)
+    unpack_bytes = (tw * spp * bits // planes + 7) // 8
     if tiled:
-        tw, tl = lt.get("tile_w", 0), lt.get("tile_l", 0)
-        if tw == 0 or tl == 0:
-            raise _LibtiffError("TIFF: zero tile size")
-        row_bytes = (tw * (lt["spp"] if lt["planar"] == 1 else 1) * lt["bits"] + 7) // 8
-        unpack_bytes = (tw * spp * bits // planes + 7) // 8
+        tl = rps
+        row_bytes = (tw * lt_chans * lt["bits"] + 7) // 8
         if row_bytes != unpack_bytes:  # Pillow's decoder: its rows must be libtiff's
             raise _LibtiffError("TIFF: libtiff's tile rows are not Pillow's")
-        across, stripsize = -(-w // tw), tl * row_bytes
-        rps = tl
+        stripsize = tl * row_bytes
     else:
-        tw, row_bytes = w, lt["scanline"]
+        row_bytes = lt["scanline"]
         if row_bytes != unpack_bytes:
             raise _LibtiffError("TIFF: libtiff's rows are not Pillow's")
-        rps = h if lt["rows"] == NO_ROWS else min(lt["rows"], h)
-        across = 1
     per_plane = len(lt["offsets"]) // (lt["spp"] if lt["planar"] == 2 else 1)
     out = None
+    ojpeg = _OJpeg(data, lt, w, h) if kind == "ojpeg" else None
     for y in range(0, h, rps):
         for p in range(planes):
             for x in range(0, w, tw):
@@ -621,9 +817,12 @@ def _read_libtiff(data, lt: dict, kind: str, w: int, h: int, spp: int, bits: int
                 k += p * per_plane
                 if k >= len(lt["offsets"]):
                     raise _LibtiffError("TIFF: strip out of range")
-                px = _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor,
-                                    chans, tables, photo, tw)
-                if kind == "jpeg":
+                if ojpeg is not None:
+                    px = ojpeg.strip(k, rows)
+                else:
+                    px = _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor,
+                                        lt_chans, tables, photo, tw)
+                if kind in ("jpeg", "ojpeg"):
                     vals = px
                 else:
                     vals = _samples(px, tw, chans, bits, fmt[0] if len(fmt) == 1 else 1, "=")
@@ -636,44 +835,117 @@ def _read_libtiff(data, lt: dict, kind: str, w: int, h: int, spp: int, bits: int
     return out[:h, :w]
 
 
-def _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor, chans, tables,
-                   photo, tw) -> np.ndarray:
-    """TIFFFillStrip and the codec: strip or tile k's `rows` rows of
-    row_bytes."""
+def _fill_strip(data, lt, k: int) -> bytes:
+    """TIFFFillStrip: strip or tile k's bytes, or _LibtiffError."""
     off, count = lt["offsets"][k], lt["counts"][k]
     if count == 0:
         raise _LibtiffError(f"TIFF: invalid strip byte count 0, strip {k}")
-    full = lt.get("tile_l", min(lt["rows"], lt["height"])) * row_bytes
+    full = lt.get("tile_l", min(lt["rows"], lt["height"])) * lt["scanline"]
     if count > 1024 * 1024 and full and (count - 4096) // 10 > full:
         count = full * 10 + 4096  # "Too large strip byte count ... Limiting"
     if count > len(data) or off > len(data) - count:
         raise _LibtiffError(f"TIFF: read error on strip {k}")
-    blob = data[off:off + count]
+    return data[off:off + count]
+
+
+def _libtiff_strip(data, lt, kind, k, rows, row_bytes, stripsize, predictor, chans, tables,
+                   photo, tw) -> np.ndarray:
+    """TIFFFillStrip and the codec: strip or tile k's `rows` rows of
+    row_bytes."""
+    blob = _fill_strip(data, lt, k)
     if kind == "jpeg":
-        return _jpeg_tile(blob, tables, photo, tw, rows)
+        return _jpeg_tile(blob, tables, lt, photo, tw, rows)
+    if kind == "ccitt":  # the codec reads the bits in the file's fill order itself
+        px = _fax(data, lt, k, blob, rows, row_bytes, tw, stripsize)
+        return px.reshape(rows, row_bytes)
     if lt["fill"] == 2:
         blob = _REVERSED[np.frombuffer(blob, np.uint8)].tobytes()
-    px = _decompress(kind, blob, stripsize).reshape(rows, row_bytes)
+    if kind == "thunder":
+        px = _thunder(lt, blob, stripsize)
+    else:
+        px = _decompress(kind, blob, stripsize)
+    px = px.reshape(rows, row_bytes)
     return _predict(px, predictor, chans, lt["bits"], "<" if data[:2] == b"II" else ">")
 
 
-def _jpeg_tile(blob: bytes, tables: bytes, photo: int, tw: int, rows: int) -> np.ndarray:
-    """One JPEG-compressed strip or tile: its stream with the JPEGTables'
-    segments put after its SOI, decoded with libtiff's colour handling
-    (YCbCr converted to RGB, RGB and grey as coded)."""
+def _fax(data, lt, k, blob: bytes, rows: int, row_bytes: int, rowpixels: int,
+         stripsize: int) -> np.ndarray:
+    """tif_fax3.c over one strip or tile (Fax3SetupState's checks first)."""
+    if lt["bits"] != 1:
+        raise _LibtiffError("TIFF: Bits/sample must be 1 for Group 3/4 decoding")
+    if lt["spp"] != 1 and lt["planar"] == 1:
+        raise _LibtiffError("TIFF: Samples/pixel shall be 1 for Group 3/4 decoding")
+    if row_bytes < (rowpixels + 7) // 8:
+        raise _LibtiffError("TIFF: inconsistent number of bytes per row")
+    opts = _lt_tag(data, lt, 292, 1) if lt["compression"] == 3 else None
+    src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
+    dst = np.zeros(stripsize, np.uint8)
+    ok = native.library().gatling_tiff_fax_decode(
+        native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8),
+        stripsize // row_bytes, row_bytes, rowpixels, lt["compression"],
+        int(bool(opts and opts[0] & 1)), int(lt["fill"] != 2), lt["offsets"][k])
+    if ok < 0:
+        raise ValueError(f"TIFF: corrupt CCITT data in strip or tile {k}")
+    if ok == 0:  # Pillow's array holds its buffer's uninitialized memory there
+        raise ValueError(f"TIFF: a T.6 strip or tile ends before its last row (strip {k}); "
+                         f"libtiff leaves the rows after it unwritten")
+    return dst
+
+
+def _thunder(lt, blob: bytes, stripsize: int) -> np.ndarray:
+    """tif_thunder.c ThunderDecodeRow over one strip."""
+    if lt["bits"] != 4:
+        raise _LibtiffError("TIFF: the ThunderScan decoder takes 4-bit samples alone")
+    scan = lt["scanline"]
+    if stripsize % scan:
+        raise _LibtiffError("TIFF: fractional scanlines cannot be read")
+    src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
+    dst = np.zeros(stripsize, np.uint8)
+    ok = native.library().gatling_tiff_thunder_decode(
+        native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8),
+        stripsize // scan, lt["width"], scan)
+    if ok <= 0:
+        raise ValueError("TIFF: corrupt ThunderScan data")
+    return dst
+
+
+def _jpeg_tile(blob: bytes, tables: bytes, lt: dict, photo: int, tw: int,
+               rows: int) -> np.ndarray:
+    """One JPEG-compressed strip or tile (tif_jpeg.c): its stream with the
+    JPEGTables' segments put after its SOI, decoded with libtiff's colour
+    handling (a contiguous YCbCr image converted to RGB by libjpeg, any other
+    as coded); JPEGPreDecode's checks of the component count and sampling."""
     if blob[:2] != b"\xff\xd8":
         raise ValueError("TIFF: a JPEG strip or tile without SOI")
     body = tables[2:-2] if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9" else b""
-    planes = jpeg.decode_planes(blob[:2] + body + blob[2:], ycc=photo == 6)
+    stream = blob[:2] + body + blob[2:]
+    contig = lt["planar"] == 1
+    ycc = contig and lt["photometric"] == 6
+    f = jpeg.read(stream, components=None)
+    want = lt["spp"] if contig else 1
+    if len(f.comps) != want:
+        raise ValueError("TIFF: improper JPEG component count")
+    if ycc:
+        hs, vs = lt["ycbcr_sub"] or (f.comps[0].h, f.comps[0].v)  # JPEGFixupTags
+    else:
+        hs = vs = 1
+    if (f.comps[0].h, f.comps[0].v) != (hs, vs) or any((c.h, c.v) != (1, 1)
+                                                      for c in f.comps[1:]):
+        raise ValueError("TIFF: improper JPEG sampling factors")
+    planes = jpeg.decode_planes(stream, ycc=ycc, frame=f)
     if planes.shape[0] < rows or planes.shape[1] < tw:
         raise ValueError("TIFF: a JPEG strip or tile smaller than its layout")
     return planes[:rows, :tw]
 
 
 def _to_mode(px: np.ndarray, mode: str, raw: str, bits: int, bo: str, kind: str,
-             f: dict) -> np.ndarray:
+             f: dict, planes: bool = False) -> np.ndarray:
     """Pillow's unpacking of samples px [h, w, spp] by raw mode `raw` into
-    `mode`, then the JAX package's array of that mode."""
+    `mode`, then the JAX package's array of that mode (`planes`: a planar
+    image of several bands, each plane copied into one byte of Pillow's
+    four-byte pixel: an LA or PA image's second plane lands in a byte the
+    mode ignores, its alpha left 0, and CIE Lab's a and b planes are read
+    as unsigned where the contiguous LAB unpacker reads them signed)."""
     base = raw.split(";")[0]
     inverted = "I" in raw.split(";")[1] if ";" in raw else False
     if mode == "1":
@@ -694,9 +966,13 @@ def _to_mode(px: np.ndarray, mode: str, raw: str, bits: int, bo: str, kind: str,
             # "F;32BF" unpacker reads as big-endian: the bytes swapped
             v = v.byteswap()
         return finish("F", v)
-    if bits == 16:
+    if bits == 16 and px.dtype != np.uint8:
         px = (px >> 8).astype(np.uint8)
     px = px.astype(np.uint8)
+    if planes and mode in ("LA", "PA"):
+        px = np.concatenate([px[..., :1], np.zeros_like(px[..., :1])], axis=-1)
+    if planes and mode == "LAB":
+        px = px[..., :3] ^ np.array([0, 128, 128], np.uint8)
     if mode in ("P", "PA"):
         cmap = np.array(f[320], np.int64) // 256
         n = len(cmap) // 3
@@ -718,6 +994,383 @@ def _to_mode(px: np.ndarray, mode: str, raw: str, bits: int, bo: str, kind: str,
         rgb = np.minimum(px[..., :3].astype(np.int32) * 255 // np.maximum(a, 1), 255)
         out[..., :3] = np.where(a == 255, px[..., :3], np.where(a == 0, 0, rgb))
     return finish("RGBA", out)
+
+
+# tif_getimage.c: the YCbCr subsamplings putcontig8bitYCbCr*tile handles
+_YCC_PUTS = ((4, 4), (4, 2), (4, 1), (2, 2), (2, 1), (1, 2), (1, 1))
+_LUMA = [np.float32(0.299), np.float32(0.587), np.float32(0.114)]
+_YCC_BLACK_WHITE = [np.float32(v) for v in (0, 255, 128, 255, 128, 255)]
+
+
+def _ycbcr_to_rgb_tables(luma, rbw) -> tuple:
+    """TIFFYCbCrToRGBInit's tables (float32 arithmetic as libtiff's C):
+    Y_tab, Cr_r_tab, Cb_b_tab, Cr_g_tab, Cb_g_tab, each [256] int64."""
+    f32 = np.float32
+    lr, lg, lb = (f32(v) for v in luma)
+
+    def clamp(v, lo, hi):
+        return lo if not v >= lo else hi if v > hi else v
+
+    def fix(x):  # (int32_t)((x) * (1L << 16) + 0.5)
+        return int(float(f32(x) * f32(65536)) + 0.5)
+
+    f1 = f32(2) - f32(2) * lr
+    d1 = fix(clamp(f1, f32(0), f32(2)))
+    d2 = -fix(clamp(f32(lr * f1) / lg, f32(0), f32(2)))
+    f3 = f32(2) - f32(2) * lb
+    d3 = fix(clamp(f3, f32(0), f32(2)))
+    d4 = -fix(clamp(f32(lb * f3) / lg, f32(0), f32(2)))
+
+    def code2v(c, rb, rw, cr):
+        den = f32(rw - rb)
+        return f32(f32(c - int(rb)) * f32(cr)) / (den if den != 0 else f32(1))
+
+    tabs = [np.zeros(256, np.int64) for _ in range(5)]
+    for i in range(256):
+        x = i - 128
+        cr = int(clamp(code2v(x, f32(rbw[4] - f32(128)), f32(rbw[5] - f32(128)), 127),
+                       f32(-4096), f32(4096)))
+        cb = int(clamp(code2v(x, f32(rbw[2] - f32(128)), f32(rbw[3] - f32(128)), 127),
+                       f32(-4096), f32(4096)))
+        tabs[0][i] = int(clamp(code2v(x + 128, rbw[0], rbw[1], 255), f32(-4096), f32(4096)))
+        tabs[1][i] = (d1 * cr + 32768) >> 16
+        tabs[2][i] = (d3 * cb + 32768) >> 16
+        tabs[3][i] = d2 * cr
+        tabs[4][i] = d4 * cb + 32768
+    return tuple(tabs)
+
+
+def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, tables: tuple) -> np.ndarray:
+    """TIFFYCbCrtoRGB over uint8 planes -> [..., 3] uint8."""
+    ytab, crr, cbb, crg, cbg = tables
+    yv = ytab[y]
+    r = yv + crr[cr]
+    g = yv + ((cbg[cb] + crg[cr]) >> 16)
+    b = yv + cbb[cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _ycbcr_units(buf: np.ndarray, w: int, rows: int, hs: int, vs: int, tables,
+                 skip: int = 0) -> np.ndarray:
+    """putcontig8bitYCbCr*tile: rows of YCbCr data units (hs x vs luma
+    samples, then Cb and Cr) -> [rows, w, 3] RGB, each pixel its own Y and
+    its unit's Cb and Cr; `skip` columns of a clipped tile passed over after
+    each row of units (putcontig8bitYCbCr44tile skips 10 bytes for each 4,
+    not a unit's 18)."""
+    ux, uy = -(-w // hs), -(-rows // vs)
+    unit = hs * vs + 2
+    stride = ux * unit + (skip // hs) * (10 if (hs, vs) == (4, 4) else unit)
+    need = (uy - 1) * stride + ux * unit
+    if buf.size < need:
+        buf = np.concatenate([buf, np.zeros(need - buf.size, np.uint8)])
+    u = np.lib.stride_tricks.as_strided(buf, (uy, ux, unit), (stride, unit, 1))
+    y = u[..., :hs * vs].reshape(uy, ux, vs, hs).transpose(0, 2, 1, 3).reshape(uy * vs, ux * hs)
+    cb = np.repeat(np.repeat(u[..., hs * vs], vs, 0), hs, 1)
+    cr = np.repeat(np.repeat(u[..., hs * vs + 1], vs, 0), hs, 1)
+    return ycbcr_to_rgb(y, cb, cr, tables)[:rows, :w]
+
+
+def _read_rgba(data, lt: dict, kind: str, w: int, h: int, tables: bytes) -> np.ndarray:
+    """TiffDecode.c _decodeAsRGBA: a YCbCr image through TIFFRGBAImageGet,
+    a block of rows (a strip or a row of tiles) at a time -> [h, w, 3] RGB,
+    top-left first whatever the Orientation (which load_end applies after),
+    each data unit converted by TIFFYCbCrtoRGB (YCbCrCoefficients,
+    ReferenceBlackWhite; YCbCrPositioning plays no part). Pillow's decoder
+    stops at a strip libtiff cannot read at all; one whose data is damaged
+    leaves its decoded part and zeros (TIFFRGBAImageBegin with stoponerr 0)."""
+    if lt["bits"] != 8 or lt["spp"] != 3 or lt["format"] == 3:
+        raise ValueError("TIFF: the RGBA interface cannot handle this YCbCr format")
+    contig = lt["planar"] == 1
+    ojpeg = _OJpeg(data, lt, w, h) if kind == "ojpeg" else None
+    sub = lt["ycbcr_sub"]
+    hs, vs = sub if sub else (2, 2)
+    if (hs, vs) not in (_YCC_PUTS if contig else ((1, 1),)):
+        raise ValueError(f"TIFF: the RGBA interface cannot handle YCbCr {hs}x{vs}")
+    luma = _lt_tag(data, lt, 529, 3) or _LUMA
+    rbw = _lt_tag(data, lt, 532, 6) or _YCC_BLACK_WHITE
+    if any(np.isnan(v) for v in luma) or luma[1] == 0:
+        raise ValueError("TIFF: invalid YCbCrCoefficients")
+    if not all(-0x7FFFFFFF + 128 < v < 0x7FFFFFFF for v in rbw):
+        raise ValueError("TIFF: invalid ReferenceBlackWhite")
+    conv = _ycbcr_to_rgb_tables(luma, rbw)
+    tiled, tw, rps, across = _strile_layout(lt, w, h)
+    unit = hs * vs + 2
+    unit_row = -(-tw // hs) * unit  # TIFFScanlineSize's sampling row
+    scanline = unit_row // vs
+    per_plane = len(lt["offsets"]) // (1 if contig else 3)
+    out = np.zeros((h, w, 3), np.uint8)
+
+    def read(k: int, nbytes: int, buf: np.ndarray | None) -> np.ndarray:
+        """_TIFFReadEncodedStripAndAllocBuffer (buf None: the block's first
+        read, whose TIFFFillStrip failure ends the decode) or
+        TIFFReadEncodedStrip into buf: what the codec writes is kept, a
+        strip that cannot be read zeroes its part of the buffer."""
+        fresh = buf is None
+        if fresh:
+            buf = np.zeros(max(nbytes, 1), np.uint8)
+        try:
+            if ojpeg is not None:
+                got = ojpeg.raw(k, nbytes)
+            else:
+                blob = _fill_strip(data, lt, k)
+                if lt["fill"] == 2:
+                    blob = _REVERSED[np.frombuffer(blob, np.uint8)].tobytes()
+                if kind == "jpeg":
+                    got = _jpeg_tile(blob, tables, lt, 6, tw, nbytes // tw).reshape(-1)
+                else:
+                    got = _decompress(kind, blob, nbytes, partial=True)
+        except _LibtiffError:
+            if fresh:
+                raise
+            got = np.zeros(nbytes, np.uint8)
+        got = got[:buf.size]
+        buf[:got.size] = got
+        return buf
+
+    for y in range(0, h, rps):
+        n = min(rps, h - y)
+        buf = None  # gtTileContig's buffer, kept across one row of tiles
+        for x in range(0, w, tw):
+            k = (y // rps) * across + x // tw
+            cols = min(tw, w - x)
+            if contig:
+                if tiled:
+                    buf = read(k, -(-rps // vs) * unit_row, buf)
+                else:
+                    size = min(-(-n // vs) * unit_row, -(-n // vs) * vs * scanline)
+                    buf = read(k, size, None)
+                rgb = _ycbcr_units(buf, cols, n, hs, vs, conv, tw - cols)
+            else:  # gtStripSeparate, gtTileSeparate: three planes a block
+                size = (rps if tiled else n) * tw
+                p0 = read(k, size, None if not tiled or buf is None else buf[0])
+                buf = [p0] + [read(k + p * per_plane, size, np.zeros(size, np.uint8))
+                              for p in (1, 2)]
+                rgb = ycbcr_to_rgb(*(b[:n * tw].reshape(n, tw) for b in buf), conv)
+            out[y:y + n, x:x + cols] = rgb[:n, :cols]
+    return out
+
+
+def _ojpeg_fixups(lt: dict, w: int) -> None:
+    """TIFFReadDirectory's old-style JPEG hack: no Photometric, or RGB, is
+    YCbCr; no BitsPerSample is 8; no SamplesPerPixel is 3 for YCbCr and 1 for
+    grey."""
+    if not lt.get("photometric_set") or lt["photometric"] == 2:
+        lt["photometric"] = 6
+    if 258 not in lt["entries"]:
+        lt["bits"] = 8
+    if 277 not in lt["entries"]:
+        if lt["photometric"] == 6:
+            lt["spp"] = 3
+        elif lt["photometric"] in (0, 1):
+            lt["spp"] = 1
+    lt["scanline"] = (w * (lt["spp"] if lt["planar"] == 1 else 1) * lt["bits"] + 7) // 8
+
+
+class _OJpeg:
+    """tif_ojpeg.c: an old-style JPEG image (compression 6) as the one JPEG
+    stream libtiff builds for libjpeg: its header read from the bytes at
+    JPEGInterchangeFormat (513, 514), else from the first strip's, else
+    made from the tables in tags (JPEGQTables 519, JPEGDCTables 520,
+    JPEGACTables 521: component m's tables at the m-th offset, a repeated
+    offset sharing a table); then the entropy-coded data that follows, the
+    strips' bytes after it with an RST marker between strips (the restart
+    interval one strip's MCUs when there is more than one strip, unless a
+    DRI says otherwise), then EOI. A YCbCr image of three samples is read
+    raw (jpeg_read_raw_data: each component at its own resolution, packed
+    into TIFF data units of the JPEG's sampling, which overrides the
+    YCbCrSubsampling tag), for the RGBA interface to convert; grey as its
+    samples. JPEG sampling TIFF cannot express makes libtiff upsample inside
+    libjpeg (data units of 1 x 1)."""
+
+    def __init__(self, data: bytes, lt: dict, w: int, h: int):
+        if lt["planar"] != 1:
+            raise NotImplementedError("TIFF: old-style JPEG in planes (libtiff's scan a plane) "
+                                      f"is not ported {UNPORTED}")
+        spp = lt["spp"]
+        if spp not in (1, 3):
+            raise _LibtiffError("TIFF: SamplesPerPixel not supported for old-style JPEG")
+        size = len(data)
+        tiled, sw, rps, _across = _strile_layout(lt, w, h)
+        total = -(-h // rps) * rps if tiled else h  # strile_length_total
+        ycc = spp == 3 and lt["photometric"] in (6, 10)
+        sub = _lt_tag(data, lt, 530, 2) if spp == 3 else None
+        hs, vs = (sub or [2, 2]) if ycc else (1, 1)
+        # the byte source: the interchange format's bytes, then each strip's
+        jif = (_lt_tag(data, lt, 513, 1) or [0])[0]
+        jif_len = (_lt_tag(data, lt, 514, 1) or [0])[0]
+        parts = []
+        if jif:
+            if jif >= size:
+                jif = 0
+            elif jif_len == 0 or jif + jif_len > size:
+                jif_len = size - jif
+        if jif:
+            parts.append(data[jif:jif + jif_len])
+        first_strip = len(parts)
+        for off, count in zip(lt["offsets"], lt["counts"]):
+            if off == 0 or off >= size:
+                parts.append(b"")
+            else:
+                parts.append(data[off:off + count] if count else data[off:])
+        head, sof, at = self._header(parts)
+        restart = 0
+        if rps < h:
+            if hs not in (1, 2, 4) or vs not in (1, 2, 4):
+                raise _LibtiffError("TIFF: invalid subsampling values")
+            if rps % (vs * 8):
+                raise _LibtiffError("TIFF: incompatible vertical subsampling and strip length")
+            restart = -(-sw // (hs * 8)) * (rps // (vs * 8))
+        forced = False
+        if sof is None:  # tables from tags
+            head = self._tables(data, lt, spp, hs, vs, sw, total)
+        else:
+            if ycc:  # OJPEGSubsamplingCorrect: the JPEG's sampling rules
+                hv = [(sof[7 + 3 * c] >> 4, sof[7 + 3 * c] & 15) for c in range(sof[5])]
+                forced = (hv[0][0] not in (1, 2, 4) or hv[0][1] not in (1, 2, 4)
+                          or any(x != (1, 1) for x in hv[1:]))
+                hs, vs = (1, 1) if forced else hv[0]
+            sof_h, sof_w = struct.unpack(">HH", sof[1:5])
+            if (sof_h < h and sof_h < total) or (sof_w < w and sof_w < sw) or sof_w > sw:
+                raise _LibtiffError("TIFF: JPEG compressed data indicates an unexpected size")
+        dri = [seg for seg in head if seg[1] == 0xDD]
+        if dri:
+            restart = struct.unpack(">H", dri[-1][2][:2])[0]
+        head = [seg for seg in head if seg[1] != 0xDD]
+        if restart:  # OJPEGWriteStream's order: the tables, DRI, SOF, SOS
+            head.insert(len(head) - 2, (0, 0xDD, struct.pack(">H", restart)))
+        segs = b"".join(bytes([0xFF, m]) + struct.pack(">H", len(p) + 2) + p for _, m, p in head)
+        body = bytearray()
+        k, pos = at
+        index = 0
+        for j in range(k, len(parts)):
+            piece = parts[j][pos if j == k else 0:]
+            if not piece and j != k:
+                continue  # a strip with no bytes is passed over
+            body += piece
+            if j >= first_strip and any(parts[j + 1:]):
+                body += bytes([0xFF, 0xD0 + index])  # OJPEGWriteStreamRst
+                index = (index + 1) & 7
+        stream = b"\xff\xd8" + segs + bytes(body) + b"\xff\xd9"
+        self.w, self.rps, self.hs, self.vs = sw, rps, hs, vs
+        if ycc:
+            planes = jpeg._decode(stream, None)[0] if forced else jpeg.raw_planes(stream)[0]
+            self.units = self._units(planes, hs, vs)
+        else:
+            self.grey = jpeg.decode_planes(stream, ycc=False)
+        lt["ycbcr_sub"] = [hs, vs]
+
+    @staticmethod
+    def _header(parts: list) -> tuple:
+        """OJPEGReadHeaderInfoSec: the marker segments up to SOS from the
+        byte source, [(0, marker, payload)], the SOF payload or None, and
+        where the entropy-coded data starts (part, offset)."""
+        segs, sof = [], None
+        k, pos = 0, 0
+
+        def take(n):
+            nonlocal k, pos
+            out = b""
+            while len(out) < n and k < len(parts):
+                piece = parts[k][pos:pos + n - len(out)]
+                out += piece
+                pos += len(piece)
+                if pos >= len(parts[k]):
+                    k, pos = k + 1, 0
+            if len(out) < n:
+                raise _LibtiffError("TIFF: old-style JPEG data ends in its header")
+            return out
+
+        while True:
+            while k < len(parts) and pos >= len(parts[k]):
+                k, pos = k + 1, 0
+            if k >= len(parts) or parts[k][pos] != 0xFF:
+                return segs, sof, (k, pos)
+            take(1)
+            m = 0xFF
+            while m == 0xFF:
+                m = take(1)[0]
+            if m == 0xD8:
+                continue
+            if m in (0xFE, *range(0xE0, 0xF0)) or m in (0xDD, 0xDB, 0xC4, 0xC0, 0xC1, 0xC3, 0xDA):
+                (n,) = struct.unpack(">H", take(2))
+                if n < 2:
+                    raise _LibtiffError("TIFF: corrupt old-style JPEG data")
+                payload = take(n - 2)
+                if m in (0xFE, *range(0xE0, 0xF0)):
+                    continue
+                if m in (0xC0, 0xC1, 0xC3):
+                    sof = payload
+                segs.append((0, m, payload))
+                if m == 0xDA:
+                    while k < len(parts) and pos >= len(parts[k]):
+                        k, pos = k + 1, 0
+                    return segs, sof, (k, pos)
+                continue
+            raise _LibtiffError(f"TIFF: unknown marker type {m} in old-style JPEG data")
+
+    @staticmethod
+    def _tables(data: bytes, lt: dict, spp: int, hs: int, vs: int, w: int, h: int) -> list:
+        """The header libtiff makes from the tables in tags."""
+        segs = []
+        tq, td = [], []
+        for tag, kind in ((519, "q"), (520, "dc"), (521, "ac")):
+            offs = _lt_tag(data, lt, tag)
+            if not offs or offs[0] == 0:
+                raise _LibtiffError("TIFF: missing old-style JPEG tables")
+            ids = []
+            for m in range(spp):
+                off = offs[m] if m < len(offs) else 0
+                if m and (off == 0 or off == offs[m - 1]):
+                    ids.append(ids[-1])
+                    continue
+                ids.append(m)
+                if kind == "q":
+                    table = data[off:off + 64]
+                    if len(table) < 64:
+                        raise _LibtiffError("TIFF: a JPEGQTables table runs past the file")
+                    segs.append((0, 0xDB, bytes([m]) + table))
+                else:
+                    counts = data[off:off + 16]
+                    n = sum(counts)
+                    values = data[off + 16:off + 16 + n]
+                    if len(counts) < 16 or len(values) < n:
+                        raise _LibtiffError("TIFF: a JPEG Huffman table runs past the file")
+                    segs.append((0, 0xC4, bytes([(16 if kind == "ac" else 0) | m]) + counts
+                                 + values))
+            (tq if kind == "q" else td).append(ids)
+        comps = b"".join(bytes([m + 1, (hs << 4 | vs) if m == 0 else 0x11, tq[0][m]])
+                         for m in range(spp))
+        segs.append((0, 0xC0, struct.pack(">BHHB", 8, h, w, spp) + comps))
+        segs.append((0, 0xDA, bytes([spp]) + b"".join(bytes([m + 1, td[0][m] << 4 | td[1][m]])
+                                                      for m in range(spp)) + b"\x00\x3f\x00"))
+        return segs
+
+    def _units(self, planes: list, hs: int, vs: int) -> np.ndarray:
+        """OJPEGDecodeRaw: the component planes packed into data units, one
+        row of units for each vs rows of the stream (every strile's)."""
+        ux, uy = -(-self.w // hs), planes[0].shape[0] // vs
+        y = planes[0][:uy * vs, :ux * hs]
+        if y.shape[1] != ux * hs:
+            raise ValueError("TIFF: old-style JPEG data narrower than its striles")
+        lum = y.reshape(uy, vs, ux, hs).transpose(0, 2, 1, 3).reshape(uy, ux, vs * hs)
+        cb, cr = planes[1][:uy, :ux], planes[2][:uy, :ux]
+        return np.concatenate([lum, cb[..., None], cr[..., None]], axis=-1).reshape(uy, -1)
+
+    def raw(self, k: int, nbytes: int) -> np.ndarray:
+        """Strile k's data units, nbytes of them (the striles follow one
+        another down the stream)."""
+        first = k * self.rps // self.vs
+        got = np.ascontiguousarray(self.units[first:]).reshape(-1)[:nbytes]
+        if got.size < nbytes:
+            raise ValueError(f"TIFF: old-style JPEG data ends before strile {k}")
+        return got
+
+    def strip(self, k: int, rows: int) -> np.ndarray:
+        """Strile k's grey rows [rows, strile width, 1]."""
+        got = self.grey[k * self.rps:k * self.rps + rows, :self.w]
+        if got.shape[0] < rows:
+            raise ValueError(f"TIFF: old-style JPEG data ends before strile {k}")
+        return got
 
 
 def encode_tiff(img: np.ndarray) -> bytes:

@@ -1,5 +1,5 @@
-"""The port's native host library (csrc/gatling_native.cpp and
-csrc/jpeg2000.cpp) through ctypes.
+"""The port's native host library (csrc/gatling_native.cpp,
+csrc/jpeg2000.cpp and csrc/tiff_codecs.cpp) through ctypes.
 
 The JAX package keeps its host-side loops in a small C++ library
 (gatling_tpu/native.py over native/gatling_native.cpp): Morton ordering
@@ -10,8 +10,10 @@ decoders (Huffman, arithmetic, lossless) and encoder and libjpeg's
 integer transforms (imgio/jpeg.py), the TIFF LZW and PackBits decoders
 (imgio/tiff.py), the GIF LZW decoder (imgio/gif.py), the BC1-BC7 block
 decoders (imgio/dds.py) and libwebp's VP8 and VP8L decoders with the
-stages after them (imgio/vp8.py, vp8l.py, webp.py); and a second source,
-csrc/jpeg2000.cpp, OpenJPEG's tile decoding (imgio/jpeg2000.py).
+stages after them (imgio/vp8.py, vp8l.py, webp.py); a second source,
+csrc/jpeg2000.cpp, OpenJPEG's tile decoding (imgio/jpeg2000.py); and a
+third, csrc/tiff_codecs.cpp, libtiff's CCITT and ThunderScan decoders and
+a Zstandard frame decoder (imgio/tiff.py).
 
 `library()` builds the sources with g++ into one library in
 build/torch_ext/ (keyed by a hash of the sources and the flags, as
@@ -41,7 +43,7 @@ from gatling_tpu_torch.ops.cuda_lib import BUILD_DIR, CSRC
 # the library's sources: every one is compiled into it, and the build is
 # keyed on all of them
 SOURCE = CSRC / "gatling_native.cpp"
-MORE_SOURCES = (CSRC / "jpeg2000.cpp",)
+MORE_SOURCES = (CSRC / "jpeg2000.cpp", CSRC / "tiff_codecs.cpp")
 # no contraction into fused multiply-adds: the float code rounds as the
 # x86-64 builds of the libraries it reproduces (OpenJPEG's 9/7 wavelet)
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
@@ -78,6 +80,9 @@ _ENTRY_POINTS = {
     "gatling_tiff_lzw_decode": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_tiff_packbits_decode": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_tiff_lzw_compat_decode": (_I64, [_U8, _I64, _U8, _I64]),
+    "gatling_tiff_fax_decode": (_I64, [_U8, _I64, _U8, _I64, _I64, _INT, _INT, _INT, _INT, _I64]),
+    "gatling_tiff_thunder_decode": (_I64, [_U8, _I64, _U8, _I64, _I64, _I64]),
+    "gatling_tiff_zstd_decode": (_I64, [_U8, _I64, _U8, _I64]),
     "gatling_gif_lzw_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
     "gatling_bcn_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
     "gatling_vp8_decode": (_I64, [_U8, _I64, _U8, _I64, _INT, _INT, _U8, _U8, _U8, _I32]),

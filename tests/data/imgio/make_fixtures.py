@@ -35,6 +35,16 @@ asked); `jpeg_lossless`, SOF3 with any predictor and point transform;
 `jpeg_scans`, a progressive file with some scans cut out, which libjpeg
 decodes with block smoothing.
 
+The TIFF fixtures (`tiff_fixtures`, chip_smoke.py phase 4s) are Pillow's
+ZSTD, LZMA and CCITT files and LZW with an Orientation, and what Pillow
+cannot write, from the writers here: `tiff_raw` (any fields, strips or
+tiles, tables beside them), `thunder_encode` (ThunderScan codes),
+`ycbcr_units` (subsampled YCbCr data units) over `lzw_new` (new-style
+LZW), planes of 16-bit samples, `ojpeg_tables` (an old-style JPEG: the
+tables of a Pillow JPEG in tags, its restart intervals the strips) and
+`ojpeg_jif` (a whole JPEG at JPEGInterchangeFormat); a 1024^2 ZSTD ground
+and Group 4 stencil are kept as their digest.
+
 Run from the repository root, where Pillow and JAX are installed:
 
     JAX_PLATFORMS=cpu python tests/data/imgio/make_fixtures.py
@@ -1017,19 +1027,291 @@ def jpeg2000_fixtures() -> dict[str, bytes]:
     }
 
 
+# ---------------------------------------------------------------------------
+# TIFF variants Pillow cannot write (chip_smoke.py phase 4s,
+# tests/test_torch_tiff_codecs.py)
+# ---------------------------------------------------------------------------
+
+_TIFF_CODES = {1: "B", 2: "c", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
+               11: "f", 12: "d"}
+
+
+def tiff_raw(blobs: list[bytes], w: int, h: int, fields: dict, bo: str = "<",
+             rows_per_strip: int | None = None, tile: tuple[int, int] | None = None) -> bytes:
+    """A classic TIFF of `blobs` (each at an even offset from 8) and fields
+    {tag: (type, values)} of any type (rationals as (num, den) pairs, bytes
+    for types 2 and 7). The blobs are the strips (or tiles of `tile`) unless
+    `fields` gives StripOffsets and StripByteCounts itself (tables put
+    beside the strips)."""
+    data, offsets = bytearray(), []
+    for b in blobs:
+        offsets.append(8 + len(data))
+        data += b + b"\0" * (len(b) & 1)
+    f = {256: (4, [w]), 257: (4, [h])}
+    if tile:
+        f.update({322: (4, [tile[0]]), 323: (4, [tile[1]]), 324: (4, offsets),
+                  325: (4, [len(b) for b in blobs])})
+    else:
+        f.update({278: (4, [rows_per_strip or h]), 273: (4, offsets),
+                  279: (4, [len(b) for b in blobs])})
+    f.update(fields)
+    ifd_at = 8 + len(data)
+    extra_at = ifd_at + 2 + 12 * len(f) + 4
+    entries, extra = [], bytearray()
+    for tag in sorted(f):
+        typ, vals = f[tag]
+        if isinstance(vals, (bytes, bytearray)):
+            raw, n = bytes(vals), len(vals)
+        elif typ in (5, 10):
+            raw = struct.pack(bo + _TIFF_CODES[typ][0] * 2 * len(vals),
+                              *[x for v in vals for x in v])
+            n = len(vals)
+        else:
+            raw, n = struct.pack(bo + _TIFF_CODES[typ] * len(vals), *vals), len(vals)
+        if len(raw) <= 4:
+            value = raw.ljust(4, b"\0")
+        else:
+            value = struct.pack(bo + "I", extra_at + len(extra))
+            extra += raw + b"\0" * (len(raw) & 1)
+        entries.append(struct.pack(bo + "HHI", tag, typ, n) + value)
+    head = b"II*\0" if bo == "<" else b"MM\0*"
+    return (head + struct.pack(bo + "I", ifd_at) + bytes(data) + struct.pack(bo + "H", len(f))
+            + b"".join(entries) + b"\0\0\0\0" + bytes(extra))
+
+
+def thunder_encode(rows: np.ndarray, seed: int) -> bytes:
+    """ThunderScan codes for rows of 4-bit pixels, picked from a seed: runs
+    of the last pixel (never to a row's end, where libtiff writes nothing),
+    three 2-bit deltas, two 3-bit deltas, raw pixels."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for row in rows.astype(int):
+        last, i, n = 0, 0, len(row)
+        while i < n:
+            v, pick = row[i], rng.integers(4)
+            run = 0
+            while i + run < n - 1 and row[i + run] == last and run < 63:
+                run += 1
+            if run > 1 and pick != 3:
+                out.append(run)
+                i += run
+            elif pick == 1 and i + 2 < n and {v - last, row[i + 1] - v,
+                                              row[i + 2] - row[i + 1]} <= set(two):
+                d = (two[v - last], two[row[i + 1] - v], two[row[i + 2] - row[i + 1]])
+                out.append(0x40 | d[0] << 4 | d[1] << 2 | d[2])
+                last, i = row[i + 2], i + 3
+            elif pick == 2 and -3 <= v - last <= 3:
+                out.append(0x80 | three[v - last] << 3 | 4)  # the second delta skipped
+                last, i = v, i + 1
+            else:
+                out.append(0xC0 | v)
+                last, i = v, i + 1
+    return bytes(out)
+
+
+def ycbcr_units(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """Y [h, w] and Cb, Cr at one sample a data unit -> rows of TIFF YCbCr
+    data units (hs x vs luma samples, Cb, Cr), uint8 [units down, bytes]."""
+    h, w = y.shape
+    uy, ux = -(-h // vs), -(-w // hs)
+    yp = np.pad(y, ((0, uy * vs - h), (0, ux * hs - w)), mode="edge")
+    lum = yp.reshape(uy, vs, ux, hs).transpose(0, 2, 1, 3).reshape(uy, ux, vs * hs)
+    return np.concatenate([lum, cb[:uy, :ux, None], cr[:uy, :ux, None]],
+                          axis=-1).astype(np.uint8).reshape(uy, -1)
+
+
+def jpeg_segments(jpg: bytes) -> tuple[list, bytes]:
+    """A baseline JPEG's marker segments up to SOS [(marker, payload)], and
+    the bytes after the SOS segment."""
+    out, p = [], 2
+    while True:
+        m = jpg[p + 1]
+        (n,) = struct.unpack(">H", jpg[p + 2:p + 4])
+        out.append((m, jpg[p + 4:p + 2 + n]))
+        p += 2 + n
+        if m == 0xDA:
+            return out, jpg[p:]
+
+
+def ojpeg_jif(jpg: bytes, w: int, h: int, photometric: int = 6, spp: int = 3,
+              strip_at_scan: bool = True) -> bytes:
+    """An old-style JPEG TIFF (compression 6) of a whole JPEG stream at
+    JPEGInterchangeFormat, its one strip the stream's entropy-coded data (or
+    the whole stream)."""
+    scan = len(jpg) - len(jpeg_segments(jpg)[1]) if strip_at_scan else 0
+    return tiff_raw([jpg], w, h, {258: (3, [8] * spp), 259: (3, [6]), 262: (3, [photometric]),
+                                  277: (3, [spp]), 512: (3, [1]), 513: (4, [8]),
+                                  514: (4, [len(jpg)]), 273: (4, [8 + scan]),
+                                  279: (4, [len(jpg) - scan])})
+
+
+def ojpeg_tables(jpg: bytes, w: int, h: int, rows_per_strip: int, spp: int = 3,
+                 photometric: int = 6, sampling: tuple[int, int] | None = (2, 2),
+                 tiles: bool = False) -> bytes:
+    """An old-style JPEG TIFF in the other form writers use: JPEGQTables,
+    JPEGDCTables and JPEGACTables offsets to the tables of a baseline JPEG
+    (component m's at the m-th), and each restart interval of its
+    entropy-coded data a strip (the JPEG written with a restart marker every
+    strip's MCUs, the markers dropped); with `tiles`, tiles of w x
+    rows_per_strip in one column."""
+    segs, scan = jpeg_segments(jpg)
+    q, dc, ac = {}, {}, {}
+    for m, pl in segs:
+        i = 0
+        while m == 0xDB and i < len(pl):
+            q[pl[i] & 15] = pl[i + 1:i + 65]
+            i += 65
+        while m == 0xC4 and i < len(pl):
+            n = sum(pl[i + 1:i + 17])
+            (ac if pl[i] >> 4 else dc)[pl[i] & 15] = pl[i + 1:i + 17 + n]
+            i += 17 + n
+    scan = scan[:scan.rindex(b"\xff\xd9")]
+    parts, start, i = [], 0, 0
+    while i < len(scan) - 1:
+        if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
+            parts.append(scan[start:i])
+            start = i = i + 2
+        else:
+            i += 1
+    parts.append(scan[start:])
+    ids = [0, 1, 1][:spp]
+    blobs = parts + [q[t] for t in ids] + [dc[t] for t in ids] + [ac[t] for t in ids]
+    offs, pos = [], 8
+    for b in blobs:
+        offs.append(pos)
+        pos += len(b) + (len(b) & 1)
+    n = len(parts)
+    fields = {258: (3, [8] * spp), 259: (3, [6]), 262: (3, [photometric]), 277: (3, [spp]),
+              512: (3, [1]), 519: (4, offs[n:n + spp]), 520: (4, offs[n + spp:n + 2 * spp]),
+              521: (4, offs[n + 2 * spp:])}
+    if sampling:
+        fields[530] = (3, list(sampling))
+    if tiles:
+        fields.update({324: (4, offs[:n]), 325: (4, [len(p) for p in parts])})
+        return tiff_raw(blobs, w, h, fields, tile=(w, rows_per_strip))
+    fields.update({273: (4, offs[:n]), 279: (4, [len(p) for p in parts]),
+                   278: (4, [rows_per_strip])})
+    return tiff_raw(blobs, w, h, fields)
+
+
+def lzw_new(data: bytes) -> bytes:
+    """New-style TIFF LZW (MSB-first codes), every code 9 bits: a ClearCode
+    before the table would need a tenth bit (libtiff's early change)."""
+    out = bytearray()
+    acc = nacc = 0
+
+    def put(code: int) -> None:
+        nonlocal acc, nacc
+        acc, nacc = (acc << 9) | code, nacc + 9
+        while nacc >= 8:
+            out.append((acc >> (nacc - 8)) & 255)
+            nacc -= 8
+
+    table = {bytes([i]): i for i in range(256)}
+    put(256)
+    w = b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = len(table) + 2
+        if len(table) + 2 == 511:
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+        w = bytes([b])
+    if w:
+        put(table[w])
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 255)
+    return bytes(out)
+
+
+def bilevel(h: int, w: int, seed: int) -> np.ndarray:
+    """A stencil: bands and blobs with a little noise, bool [h, w]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    v = np.sin(40 * xx + 9 * np.sin(6 * yy)) + np.cos(31 * yy * (1 + xx))
+    return (v > 0.2) ^ (rng.random((h, w)) < 0.01)
+
+
+def tiff_fixtures() -> dict[str, bytes]:
+    """The TIFF variants of chip_smoke.py phase 4s: Pillow's ZSTD (predictor
+    2 and 3), LZMA, Group 4, Group 3 2D with fill bits, Modified Huffman and
+    LZW with Orientation 6; and the writers here: ThunderScan, YCbCr 4:2:0
+    in LZW strips, 16-bit RGB in planes, an old-style JPEG of tables in tags
+    and strips of restart intervals, 16-bit grey LZMA. The 1024^2 ZSTD
+    ground and Group 4 stencil are kept as their digest."""
+    from PIL import Image
+
+    def save(img, **kw) -> bytes:
+        buf = io.BytesIO()
+        img.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    oriented = Image.fromarray(texture(40, 56, 3, 91))
+    exif = oriented.getexif()
+    exif[274] = 6
+    grey4 = (texture(36, 44, 1, 92)[..., 0] >> 4).astype(np.uint8)
+    ycc = texture(36, 42, 3, 93)
+    units = ycbcr_units(ycc[..., 0], ycc[::2, ::2, 1], ycc[::2, ::2, 2], 2, 2)
+    rgb16 = texture(30, 34, 3, 94, depth=16).astype("<u2")
+    grey16 = texture(48, 48, 1, 97, depth=16)[..., 0]
+    floats = texture(48, 48, 1, 96)[..., 0].astype(np.float32) / 255.0
+    ojpeg = pillow(texture(48, 64, 3, 95), "JPEG", restart_marker_rows=1)
+    return {
+        "tiff_zstd_pred2.tif": save(Image.fromarray(texture(44, 52, 3, 86)), compression="zstd",
+                                    tiffinfo={317: 2}),
+        "tiff_lzma_rgba.tif": save(Image.fromarray(texture(40, 48, 4, 87)), compression="lzma"),
+        "tiff_g4.tif": save(Image.fromarray(bilevel(60, 80, 88)), compression="group4"),
+        "tiff_g3_2d_fill.tif": save(Image.fromarray(bilevel(50, 70, 89)), compression="group3",
+                                    tiffinfo={292: 5}),
+        "tiff_mh.tif": save(Image.fromarray(bilevel(40, 66, 90)), compression="tiff_ccitt"),
+        "tiff_orient6_lzw.tif": save(oriented, compression="tiff_lzw", exif=exif),
+        "tiff_thunder.tif": tiff_raw([thunder_encode(grey4[r:r + 12], r) for r in range(0, 36, 12)],
+                                     44, 36, {258: (3, [4]), 259: (3, [32809]), 262: (3, [1])},
+                                     rows_per_strip=12),
+        "tiff_ycbcr420_lzw.tif": tiff_raw([lzw_new(units[r:r + 4].tobytes())
+                                           for r in range(0, len(units), 4)], 42, 36,
+                                          {258: (3, [8] * 3), 259: (3, [5]), 262: (3, [6]),
+                                           277: (3, [3]), 530: (3, [2, 2])}, rows_per_strip=8),
+        "tiff_planar16.tif": tiff_raw([zlib.compress(rgb16[..., c].tobytes()) for c in range(3)],
+                                      34, 30, {258: (3, [16] * 3), 259: (3, [8]), 262: (3, [2]),
+                                               277: (3, [3]), 284: (3, [2])}),
+        "tiff_ojpeg.tif": ojpeg_tables(ojpeg, 64, 48, 16),
+        "tiff_float_zstd_pred3.tif": save(Image.fromarray(floats, "F"), compression="zstd",
+                                          tiffinfo={317: 3}),
+        "tiff_grey16_lzma.tif": save(Image.frombytes("I;16", (48, 48), grey16.astype("<u2")
+                                                     .tobytes()), compression="lzma"),
+        "tiff_zstd_ground_1024.tif": save(Image.fromarray(smooth_texture(1024, 3, 98)),
+                                          compression="zstd", tiffinfo={317: 2}),
+        "tiff_g4_stencil_1024.tif": save(Image.fromarray(bilevel(1024, 1024, 99)),
+                                         compression="group4"),
+    }
+
+
 def fixtures() -> dict[str, bytes]:
     """Every fixture's file name and bytes."""
-    return {**first_fixtures(), **new_fixtures(), **webp_fixtures(), **jpeg2000_fixtures()}
+    return {**first_fixtures(), **new_fixtures(), **webp_fixtures(), **jpeg2000_fixtures(),
+            **tiff_fixtures()}
 
 
 # fixtures.npz keeps these as the digest of their array
 DIGESTED = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp",
-            "j2k_ground_1024.jp2")
+            "j2k_ground_1024.jp2", "tiff_zstd_ground_1024.tif", "tiff_g4_stencil_1024.tif")
 
 
 def digest(arr: np.ndarray) -> np.ndarray:
-    """SHA-256 of an array's dtype, shape and bytes, as uint8 [32]."""
+    """SHA-256 of an array's dtype, shape and bytes, as uint8 [32] (a bool
+    array by value: Pillow's "1" arrays hold 255 for True)."""
     import hashlib
+
+    if arr.dtype == bool:
+        arr = arr != 0
 
     h = hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode() + np.ascontiguousarray(arr)
                        .tobytes())

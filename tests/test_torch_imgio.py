@@ -437,10 +437,10 @@ def _tiff_ycbcr(rgb: np.ndarray) -> bytes:
     return buf.getvalue()
 
 
-# the variants of _unported() the port has come to read (JPEG 2000, and
-# JPEG's lossless and arithmetic frames; tests/test_torch_jpeg2000.py and
-# test_torch_jpeg_arith.py hold them in full)
-NOW_PORTED = ("jpeg2000", "jpeg_sof3", "jpeg_sof9", "jpeg_sof10", "jpeg_sof11")
+# the variants of _unported() the port has come to read (JPEG 2000, JPEG's
+# lossless and arithmetic frames, YCbCr TIFF; tests/test_torch_jpeg2000.py,
+# test_torch_jpeg_arith.py and test_torch_tiff_codecs.py hold them in full)
+NOW_PORTED = ("jpeg2000", "jpeg_sof3", "jpeg_sof9", "jpeg_sof10", "jpeg_sof11", "tiff_ycbcr_lzw")
 
 
 @pytest.mark.parametrize("name", sorted(_unported()))

@@ -388,6 +388,25 @@ def test_hand_made_files():
                               adobe=adobe))
 
 
+# TGA headers Pillow opens but cannot load: no raw mode for the type and
+# depth ("cannot load this image"), or a colour map on a 1-bit, RGB or RGBA
+# image (its palette cannot be put on such an image); 4x4, top-left
+TGA_REFUSED = {"rgb8": (2, 8, 0), "rgb1": (2, 1, 0), "grey24": (3, 24, 0), "grey32": (3, 32, 0),
+               "mapped16": (1, 16, 1), "rle_rgb8": (10, 8, 0), "rle_grey24": (11, 24, 0),
+               "rgb24_mapped": (2, 24, 1), "rgba32_mapped": (2, 32, 1), "grey1_mapped": (3, 1, 1),
+               "rle_mapped32": (9, 32, 1), "rle_rgb1": (10, 1, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(TGA_REFUSED))
+def test_tga_headers_pillow_refuses(name):
+    itype, depth, cmap = TGA_REFUSED[name]
+    rng = np.random.default_rng(sorted(TGA_REFUSED).index(name))
+    head = struct.pack("<BBBHHBHHHHBB", 0, cmap, itype, 0, 4 if cmap else 0, 24 if cmap else 0,
+                       0, 0, 4, 4, depth, 0x20)
+    data = head + (bytes(12) if cmap else b"") + rng.integers(0, 256, 160, np.uint8).tobytes()
+    assert contract(data) == "rejected"
+
+
 @pytest.mark.parametrize("dxgi", [71, 74, 77, 80, 83, 84, 95, 96, 98, 28])
 def test_dds_dx10_random_blocks(dxgi):
     """Every DXGI format the port reads (BC1-BC7, signed BC5 and BC6H, raw

@@ -34,6 +34,10 @@ OpenJPEG 2.5.4), code for code.
    with precincts, RGN shifts, several tile-parts a tile, and the same
    packets with their headers in PPT or PPM markers.
 
+7. Header orders OpenJPEG settles (tests/data/jpeg2000/repairs/): a COD or
+   QCD after a COC or QCC, a tile-part of Psot 12, a repeated tile-part 0
+   of 0.
+
 No saver here writes a high-throughput block: an HT block raises
 NotImplementedError (ROADMAP: 'USD content').
 """
@@ -308,6 +312,32 @@ def test_damage_meets_the_contract(kind, group):
         for _ in range(2):
             b[int(rng.integers(lo, len(b)))] = int(rng.integers(0, 256))
         contract(bytes(b))
+
+
+REPAIRS = os.path.join(OPENJPEG_FILES, "repairs")
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(REPAIRS) if f.endswith(".j2k")))
+def test_header_orders_decode_as_openjpeg(name):
+    """tests/data/jpeg2000/repairs/make_repairs.py: a COC or QCC before the
+    COD or QCD (with the same parameters or others: the later COD or QCD
+    overrides it, as in OpenJPEG), a tile-part of Psot 12 (no data), a
+    repeated tile-part 0 of 0 (OpenJPEG fails on it)."""
+    with open(os.path.join(REPAIRS, name), "rb") as f:
+        data = f.read()
+    want = "rejected" if name == "repeated_part0.j2k" else "array"
+    assert contract(data) == want
+
+
+def test_header_repairs_are_current():
+    """make_repairs.py writes the committed files, byte for byte."""
+    spec = importlib.util.spec_from_file_location("make_repairs",
+                                                  os.path.join(REPAIRS, "make_repairs.py"))
+    mr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mr)
+    for name, data in mr.files().items():
+        with open(os.path.join(REPAIRS, name), "rb") as f:
+            assert f.read() == data, name
 
 
 def test_high_throughput_blocks_raise_not_implemented():
