@@ -330,6 +330,28 @@ fails, with a non-zero exit, if any phase fails:
    16-bit grey LZMA file (a float pool): 6 K4f a frame, K4f against its
    twin; (d) the host times of (b)'s and (c)'s pool builds and the median
    of five decodes of each 1024^2 file;
+4t. Pillow's legacy plugins (phase_legacy): (a) every fixture of
+   tests/data/imgio phase 4t added (PCX with a VGA palette, DCX, BLP2 DXT1,
+   BLP1 JPEG, a 1024^2 SGI RLE tile ground, FTEX DXT1, Sun RLE with a
+   palette, an ICNS it32 icon with its mask, XPM, IM RGB, SPIDER, FITS -32
+   of big- and of little-endian floats and 16, McIdas 16-bit, IM "F" and
+   "I;16", FLI, MSP 2, a GIMP brush, an XV thumbnail, XBM) decoded on the
+   card's host, bit-equal to Pillow's array (fixtures.npz; the 1024^2
+   ground by its SHA-256; 4n (a) and 4p (a) leave these out), each decode
+   timed; (b) interior_legacy: the textured
+   interior at 512x512, 4 spp, 6 bounces, NEE, its ten 8-bit base colours
+   those files (the SGI ground the fifth: /m_floor): 6 K3 and 6 K4 a frame,
+   bit-equal to its _png twin (PNGs of the port's decoded codes), K3 and
+   K4 on its bounce-0 wave bit-equal to their twins and timed; (c)
+   interior_legacy_float: four of those as base colours and the SPIDER,
+   FITS (-32, 16), McIdas and IM float files as the roughnesses (a float
+   pool; the FITS -32 file's big-endian floats read as Pillow reads them,
+   little-endian: NaN and infinite texels among them): 6 K4f a frame,
+   bit-equal to its _pfm twin (PFMs of the same floats), K4f on the
+   bounce-0 wave bit-equal to its twin, a NaN row agreeing with a NaN
+   row, and timed; (d) the host times of (b)'s
+   and (c)'s pool builds and the median of five decodes of the 1024^2
+   ground;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -351,7 +373,7 @@ Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
-4p's, 4q's and 4r's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
+4p's, 4q's, 4r's, 4s's and 4t's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -467,15 +489,17 @@ def params_row(bounce: int, device):
 
 def compare(kernel_state, twin_state):
     """Mismatch counts of the kernel's state against the twin's: rows 12-15
-    bit for bit, rows 0-11 at rtol/atol; returns (bad_bits, outside, n,
-    max_abs_err over rows 0-11)."""
+    bit for bit, rows 0-11 at rtol/atol, a NaN agreeing with a NaN alone
+    (a NaN texel's ray: both shade it to NaN); returns (bad_bits, outside,
+    n, max_abs_err over rows 0-11, NaN where one side alone is NaN)."""
     import torch
 
     k, t = kernel_state, twin_state
     bad_bits = int((k[12:].view(torch.int32) != t[12:].view(torch.int32)).any(dim=0).sum())
-    close = torch.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL).all(dim=0)
+    close = torch.isclose(k[:12], t[:12], rtol=RTOL, atol=ATOL, equal_nan=True).all(dim=0)
     outside = int((~close).sum())
-    max_err = float((k[:12] - t[:12]).abs().max())
+    both_nan = torch.isnan(k[:12]) & torch.isnan(t[:12])
+    max_err = float(torch.where(both_nan, 0.0, (k[:12] - t[:12]).abs()).max())
     return bad_bits, outside, k.shape[1], max_err
 
 
@@ -3452,7 +3476,7 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
         "name": "cast_probe (P1, six layout moves of an (8, 128) f32 tile, one launch, a "
                 "block a move)",
         "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
-        "replaces": "tools/mosaic_cast_probe.py:12 probe", "launches": launches["P1"],
+        "replaces": "tools/mosaic_cast_probe.py:8 probe", "launches": launches["P1"],
         "max_abs_err": p1["err"], "ms": p1["ms"], "plain_ms": p1["plain_ms"],
         "bound_ms": p1["bound"][0], "bound_by": p1["bound"][1], "library_ms": p1["library_ms"],
         "bank_conflicts": p1["conflicts"], "run_ms": p1["run_ms"],
@@ -3461,7 +3485,7 @@ def probe_entries(launches: dict, p1: dict, p2: dict, library: dict,
         "name": "onehot_product (P2, one-hot 128x128 product, TF32 mma.sync from staged "
                 "shared memory)",
         "route": "cuda", "source": "gatling_tpu_torch/csrc/probes.cu",
-        "replaces": "tools/mosaic_precision_probe.py:20 kern", "launches": launches["P2"],
+        "replaces": "tools/mosaic_precision_probe.py:8 kern", "launches": launches["P2"],
         "max_abs_err": max(v["err"] for v in p2.values()),
         "ms": tf32["ms"], "plain_ms": tf32["plain_ms"], "bound_ms": tf32["bound"][0],
         "bound_by": tf32["bound"][1], "library_ms": library[True]["ms"],
@@ -4244,7 +4268,8 @@ def phase_dome(device, tex_dir: str):
 
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
-                formats: dict, formats2: dict, jpeg2000: dict, tiff: dict) -> list[dict]:
+                formats: dict, formats2: dict, jpeg2000: dict, tiff: dict,
+                legacy: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
@@ -4272,6 +4297,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "formats2": formats_entry(formats2, "K4f"),
         "jpeg2000": formats_entry(jpeg2000, "K4f"),
         "tiff": formats_entry(tiff, "K4f"),
+        "legacy": formats_entry(legacy, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -4691,7 +4717,7 @@ def phase_formats(device, tex_dir: str, content_dir: str, content: dict, threade
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
     for name in sorted(set(ref.files) - set(WEBP_FIXTURES) - set(J2K_FIXTURES)
-                       - set(TIFF_FIXTURES)):
+                       - set(TIFF_FIXTURES) - set(LEGACY_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -4902,7 +4928,7 @@ def phase_formats2(device, tex_dir: str) -> dict:
     ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
     blobs, decode_s = {}, {}
     for name in sorted(set(ref.files) - set(FIRST_FIXTURES) - set(WEBP_FIXTURES)
-                       - set(J2K_FIXTURES) - set(TIFF_FIXTURES)):
+                       - set(J2K_FIXTURES) - set(TIFF_FIXTURES) - set(LEGACY_FIXTURES)):
         with open(os.path.join(FIXTURES, name), "rb") as f:
             blobs[name] = f.read()
         t0 = time.perf_counter()
@@ -5365,6 +5391,146 @@ def phase_tiff(device, tex_dir: str) -> dict:
         f"{out['tiff_png_pool_build_s']:.4f} s), the float roughness pool "
         f"{out['tiff_float_pool_build_s']:.4f} s; 1024^2 decodes (median of 5) "
         + ", ".join(f"{n} {out[f'decode_{n}_s']:.4f} s" for n in TIFF_1024))
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4t: Pillow's legacy plugins (SGI, PCX/DCX, BLP, FTEX, Sun raster, ICNS,
+# XPM, IM, SPIDER, FITS, McIdas and the rest) through the texture path
+# ---------------------------------------------------------------------------
+
+# (b) the 8-bit base colours (the 1024^2 SGI ground the fifth: /m_floor)
+LEGACY_8BIT = ("pcx_vga.pcx", "dcx_rgb.dcx", "blp2_dxt1.blp", "blp1_jpeg.blp",
+               "sgi_ground_1024.sgi", "ftex_dxt1.ftex", "sun_rle8.ras", "icns_it32.icns",
+               "xpm_p.xpm", "im_rgb.im")
+# (c) the roughnesses Pillow gives as "F" or "I" modes: a float pool
+# (fits_m32.fits: big-endian floats, as the FITS standard writes them,
+# which Pillow reads as little-endian: NaN and infinite texels among them)
+LEGACY_FLOAT = ("spider_f.spi", "fits_m32.fits", "fits_16.fits", "mcidas_2.area", "im_f.im",
+                "im_grey16.im")
+LEGACY_1024 = "sgi_ground_1024.sgi"
+# 4n (a) and 4p (a) leave these to 4t; the 1024^2 ground fixtures.npz keeps as a digest
+LEGACY_FIXTURES = tuple(sorted({*LEGACY_8BIT, *LEGACY_FLOAT, "fli_brun.flc",
+                                "msp_v2.msp", "gbr_rgba.gbr", "xvthumb.xv", "xbm_bits.xbm"}))
+
+
+def write_pfm(path: str, img) -> None:
+    """A grey PFM (Pillow's "F": rows bottom first, little-endian) of the
+    float image img [H, W, 4] whose R, G and B are equal."""
+    import numpy as np
+
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"Pf\n%d %d\n-1.0\n" % (w, h) + np.ascontiguousarray(
+            img[::-1, :, 0], "<f4").tobytes())
+
+
+def phase_legacy(device, tex_dir: str) -> dict:
+    """Phase 4t: Pillow's legacy plugins (see the module docstring,
+    (a)-(d)). Returns its numbers and launch counts."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) the fixtures on the card's host against Pillow's arrays or digest
+    ref = np.load(os.path.join(FIXTURES, "fixtures.npz"))
+    blobs, decode_s, arrays = {}, {}, {}
+    for name in LEGACY_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        arrays[name] = got = imgio.load_image(blobs[name])
+        decode_s[name] = time.perf_counter() - t0
+        if name == LEGACY_1024:
+            assert array_digest(got) == ref[name].tobytes(), name
+        else:
+            assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"legacy (a): {len(decode_s)} fixtures of Pillow's legacy plugins decoded on the card's "
+        f"host, each bit-equal to Pillow's array (fixtures.npz; the 1024^2 SGI ground by its "
+        f"SHA-256); host ms {({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+
+    # (b) ten 8-bit base colours against PNGs of their decoded codes
+    twin_dir = os.path.join(tex_dir, "legacy_twins")
+    os.makedirs(twin_dir, exist_ok=True)
+    pngs = []
+    for name in LEGACY_8BIT:
+        pngs.append(os.path.join(twin_dir, name + ".png"))
+        imgio.write_image_file(pngs[-1], arrays[name])
+    frames = {}
+    for label, slots in (("legacy", [os.path.join(FIXTURES, n) for n in LEGACY_8BIT]),
+                         ("legacy_png", pngs)):
+        params = webp_interior(device, tex_dir, slots)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(LEGACY_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["legacy"][0], frames["legacy_png"][0])
+    log(f"legacy (b): the interior with {len(LEGACY_8BIT)} base colours (PCX, DCX, BLP2 DXT1, "
+        f"BLP1 JPEG, the 1024^2 SGI RLE ground, FTEX, Sun RLE, ICNS it32, XPM, IM) against PNGs "
+        f"of their decoded codes: frames bit-equal {same}; COLOR mean "
+        f"{frames['legacy'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["legacy"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["legacy"][1], SF_RES, "interior_legacy")
+
+    # (c) the float and I-mode files as the roughnesses (a float pool, K4's
+    # FLT instance) against PFMs of the same floats
+    twins = []
+    for name in LEGACY_FLOAT:
+        twins.append(os.path.join(twin_dir, name + ".pfm"))
+        write_pfm(twins[-1], arrays[name])
+        assert same_image(imgio.load_image_file(twins[-1]), arrays[name]), name
+    base = [os.path.join(FIXTURES, n) for n in LEGACY_8BIT[:4]]
+    floats = {}
+    for label, rough in (("legacy_float", [os.path.join(FIXTURES, n) for n in LEGACY_FLOAT]),
+                         ("legacy_float_pfm", twins)):
+        params = formats2_interior(device, tex_dir, base, rough)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        assert not params.scene._texture_pool.packed, "F and I images make the pool float"
+        assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+        assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+        floats[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(floats["legacy_float"][0], floats["legacy_float_pfm"][0])
+    bad = int((~np.isfinite(arrays["fits_m32.fits"])).sum())
+    log(f"legacy (c): the interior with SPIDER, FITS -32 ({bad} of "
+        f"{arrays['fits_m32.fits'].size} texel channels NaN or infinite under Pillow's "
+        f"little-endian read of its big-endian floats) and 16, McIdas, IM F and I;16 "
+        f"roughnesses against PFMs of the same floats: frames bit-equal {same}")
+    assert same and bad > 0
+    out["grey16_kernels"] = split_parity(device, floats["legacy_float"][1], SF_RES,
+                                         "interior_legacy_float")
+
+    # (d) the host times: the pool builds, the 1024^2 decode (median of 5)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        imgio.load_image(blobs[LEGACY_1024])
+        times.append(time.perf_counter() - t0)
+    out[f"decode_{LEGACY_1024}_s"] = statistics.median(times)
+    log(f"legacy (d): host times: pool builds {out['legacy_pool_build_s']:.4f} s (their PNG "
+        f"twins {out['legacy_png_pool_build_s']:.4f} s), the float roughness pool "
+        f"{out['legacy_float_pool_build_s']:.4f} s; the 1024^2 SGI decode (median of 5) "
+        f"{out[f'decode_{LEGACY_1024}_s']:.4f} s")
     out["launches"] = launches
     return out
 
@@ -5953,6 +6119,13 @@ def main() -> int:
               *(f"decode_{n}_s" for n in TIFF_1024)):
         log(f"4s host time {k}: {tiff_out[k]:.4f} s on the card's host ({smi})")
     log(f"phase 4s: {time.perf_counter() - t0:.1f} s")
+    # 4t: Pillow's legacy plugins through the texture path (K3, K4, K4f)
+    t0 = time.perf_counter()
+    legacy_out = phase_legacy(device, tex_tmp.name)
+    for k in ("legacy_pool_build_s", "legacy_png_pool_build_s", "legacy_float_pool_build_s",
+              f"decode_{LEGACY_1024}_s"):
+        log(f"4t host time {k}: {legacy_out[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4t: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -5979,6 +6152,7 @@ def main() -> int:
     log(f"webp: launches {webp_out['launches']}")
     log(f"jpeg2000: launches {j2k_out['launches']}")
     log(f"tiff: launches {tiff_out['launches']}")
+    log(f"legacy: launches {legacy_out['launches']}")
     log(f"formats2: launches {formats2['launches']}, with forced tracers "
         f"{formats2['tracer_launches']}; float slots against the wavefront "
         f"{formats2['float_vs_wavefront']}")
@@ -6064,6 +6238,7 @@ def main() -> int:
         "webp": formats_entry(webp_out, "K3"),
         "jpeg2000": formats_entry(j2k_out, "K3"),
         "tiff": formats_entry(tiff_out, "K3"),
+        "legacy": formats_entry(legacy_out, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -6099,6 +6274,7 @@ def main() -> int:
         "webp": formats_entry(webp_out, "K4"),
         "jpeg2000": formats_entry(j2k_out, "K4"),
         "tiff": formats_entry(tiff_out, "K4"),
+        "legacy": formats_entry(legacy_out, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -6125,7 +6301,7 @@ def main() -> int:
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
         *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2,
-                     j2k_out, tiff_out),
+                     j2k_out, tiff_out, legacy_out),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

@@ -205,8 +205,24 @@ __device__ __forceinline__ float pcg_next(uint32_t& s) {
   return __uint_as_float(0x3F800000u | (word >> 9)) - 1.0f;
 }
 
+// torch.maximum, torch.minimum and torch.clamp as the twins (and the JAX
+// package's jnp.maximum) compute them: a NaN operand gives NaN (PTX's
+// max.NaN / min.NaN), where fmaxf and fminf return the other operand. A NaN
+// or infinite texel (a float pool) then shades as the twin shades it.
+__device__ __forceinline__ float maxn(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float minn(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+  return minn(maxn(x, lo), hi);
 }
 
 // Per-(ray, triangle) uniform in [0, 1) (pallas_bounce.py _cutout_xi): a
@@ -258,7 +274,7 @@ __device__ __forceinline__ float ggx_g1(float a2, float nv) {
 
 // Smith G1 of anisotropic GGX in the rotated frame (pallas_bounce.py :2651).
 __device__ __forceinline__ float aniso_g1(float ax, float ay, float vx, float vy, float vz) {
-  const float vza = fmaxf(fabsf(vz), C(1e-6));
+  const float vza = maxn(fabsf(vz), C(1e-6));
   const float sx = ax * vx, sy = ay * vy;
   const float lam = 0.5f * (-1.0f + sqrtf(1.0f + (sx * sx + sy * sy) / (vza * vza)));
   return 1.0f / (1.0f + lam);
@@ -268,46 +284,46 @@ template <bool ADV>
 __device__ __forceinline__ Lobes eval_lobes(const Surface& s, float wix, float wiy, float wiz) {
   Lobes l;
   const bool refl = (s.woz > 0.0f) && (wiz > 0.0f);
-  const float cos_i_c = fmaxf(wiz, 0.0f);
+  const float cos_i_c = maxn(wiz, 0.0f);
   float hxs = s.wox + wix;
   float hys = s.woy + wiy;
   float hzs = s.woz + wiz;
-  const float hinv = 1.0f / sqrtf(fmaxf(hxs * hxs + hys * hys + hzs * hzs, C(1e-24)));
+  const float hinv = 1.0f / sqrtf(maxn(hxs * hxs + hys * hys + hzs * hzs, C(1e-24)));
   hxs = hxs * hinv;
   hys = hys * hinv;
   hzs = hzs * hinv;
   const float nh = fabsf(hzs);
-  const float oh = fmaxf(s.wox * hxs + s.woy * hys + s.woz * hzs, C(1e-6));
-  const float nvo = fmaxf(s.woz, C(1e-6));
-  const float nvi = fmaxf(cos_i_c, C(1e-6));
+  const float oh = maxn(s.wox * hxs + s.woy * hys + s.woz * hzs, C(1e-6));
+  const float nvo = maxn(s.woz, C(1e-6));
+  const float nvi = maxn(cos_i_c, C(1e-6));
   const float a2 = s.alpha2;
   float ggx_d, gg;
   if (ADV) {  // anisotropic D and G in the rotated tangent frame
     const float qa = (hxs * s.cos_r + hys * s.sin_r) / s.ax;
     const float qb = (-hxs * s.sin_r + hys * s.cos_r) / s.ay;
     const float q = qa * qa + qb * qb + hzs * hzs;
-    ggx_d = 1.0f / fmaxf(C(PI_D) * s.ax * s.ay * q * q, C(1e-12));
+    ggx_d = 1.0f / maxn(C(PI_D) * s.ax * s.ay * q * q, C(1e-12));
     gg = aniso_g1(s.ax, s.ay, s.wox * s.cos_r + s.woy * s.sin_r,
                   -s.wox * s.sin_r + s.woy * s.cos_r, s.woz) *
          aniso_g1(s.ax, s.ay, wix * s.cos_r + wiy * s.sin_r, -wix * s.sin_r + wiy * s.cos_r, wiz);
   } else {
     const float dd = nh * nh * (a2 - 1.0f) + 1.0f;
-    ggx_d = a2 / fmaxf(C(PI_D) * dd * dd, C(1e-12));
+    ggx_d = a2 / maxn(C(PI_D) * dd * dd, C(1e-12));
     gg = ggx_g1(a2, nvo) * ggx_g1(a2, nvi);
   }
   const float mfres = clampf(1.0f - oh, 0.0f, 1.0f);
   const float fres5 = (mfres * mfres) * (mfres * mfres) * mfres;
-  float spec_core = ggx_d * gg / fmaxf(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
+  float spec_core = ggx_d * gg / maxn(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
   float diff_core = (1.0f - s.metallic) * (1.0f - s.transm) * cos_i_c / C(PI_D);
   float coat_core = 0.0f, dc = 0.0f;
   if (ADV) {
     // the clearcoat lobe, and the base attenuated under the coat in both
     // directions; the thick-glass fraction leaves the base glossy lobe
     const float dcd = nh * nh * (s.ac2 - 1.0f) + 1.0f;
-    dc = s.ac2 / fmaxf(C(PI_D) * (dcd * dcd), C(1e-12));
+    dc = s.ac2 / maxn(C(PI_D) * (dcd * dcd), C(1e-12));
     const float fc = C(0.04) + C(0.96) * fres5;
     coat_core = s.coat * fc * dc * ggx_g1(s.ac2, nvo) * ggx_g1(s.ac2, nvi) /
-                fmaxf(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
+                maxn(4.0f * s.woz * cos_i_c, C(1e-9)) * cos_i_c;
     const float m_o = clampf(1.0f - nvo, 0.0f, 1.0f);
     const float m_i = clampf(1.0f - nvi, 0.0f, 1.0f);
     const float att = (1.0f - s.coat * (C(0.04) + C(0.96) * ((m_o * m_o) * (m_o * m_o)) * m_o)) *
@@ -321,8 +337,8 @@ __device__ __forceinline__ Lobes eval_lobes(const Surface& s, float wix, float w
     if (ADV) g = g + coat_core;
     l.fg[c] = refl ? g : 0.0f;
   }
-  float pdf = s.p_d * cos_i_c / C(PI_D) + s.p_g * ggx_d * nh / fmaxf(4.0f * oh, C(1e-9));
-  if (ADV) pdf = pdf + s.p_c * dc * nh / fmaxf(4.0f * oh, C(1e-9));
+  float pdf = s.p_d * cos_i_c / C(PI_D) + s.p_g * ggx_d * nh / maxn(4.0f * oh, C(1e-9));
+  if (ADV) pdf = pdf + s.p_c * dc * nh / maxn(4.0f * oh, C(1e-9));
   l.pdf = refl ? pdf : 0.0f;
   return l;
 }
@@ -359,7 +375,7 @@ __device__ LightSample sample_light(const float* s_light, const int* s_ltype,
   float sdx, sdy, sdz, dist, s_ipdf;
   if (t == LT_SPHERE) {
     const float a_s = 1.0f - 2.0f * k2;
-    const float b_s = sqrtf(fmaxf(0.0f, 1.0f - a_s * a_s));
+    const float b_s = sqrtf(maxn(0.0f, 1.0f - a_s * a_s));
     const float phi = C(2.0 * PI_D) * k3;
     const float lx = b_s * cosf(phi) * g[3];
     const float ly = b_s * sinf(phi) * g[4];
@@ -368,17 +384,17 @@ __device__ LightSample sample_light(const float* s_light, const int* s_ltype,
     const float vy = g[1] + ly - posy;
     const float vz = g[2] + lz - posz;
     dist = sqrtf(vx * vx + vy * vy + vz * vz);
-    const float inv_d = dist > 0.0f ? 1.0f / fmaxf(dist, C(1e-30)) : 0.0f;
+    const float inv_d = dist > 0.0f ? 1.0f / maxn(dist, C(1e-30)) : 0.0f;
     sdx = vx * inv_d;
     sdy = vy * inv_d;
     sdz = vz * inv_d;
     const float nl = sqrtf(lx * lx + ly * ly + lz * lz);
-    const float inv_nl = nl > 0.0f ? 1.0f / fmaxf(nl, C(1e-30)) : 0.0f;
-    const float cosl = fmaxf(0.0f, -(sdx * lx + sdy * ly + sdz * lz) * inv_nl);
+    const float inv_nl = nl > 0.0f ? 1.0f / maxn(nl, C(1e-30)) : 0.0f;
+    const float cosl = maxn(0.0f, -(sdx * lx + sdy * ly + sdz * lz) * inv_nl);
     const float area = g[9];
     const float num = area > 0.0f ? area * cosl : 1.0f;
     const float d2 = dist * dist;
-    s_ipdf = d2 > 0.0f ? num / fmaxf(d2, C(1e-30)) : 0.0f;
+    s_ipdf = d2 > 0.0f ? num / maxn(d2, C(1e-30)) : 0.0f;
   } else if (t == LT_DISTANT) {
     const float phi = k2 * 2.0f * C(PI_D) - C(PI_D);
     const float theta = k3 * g[9];
@@ -387,7 +403,7 @@ __device__ LightSample sample_light(const float* s_light, const int* s_ltype,
     const float px = st * (cp * g[3] + sp * g[6]) + ct * g[0];
     const float py = st * (cp * g[4] + sp * g[7]) + ct * g[1];
     const float pz = st * (cp * g[5] + sp * g[8]) + ct * g[2];
-    const float pinv = 1.0f / sqrtf(fmaxf(px * px + py * py + pz * pz, C(1e-40)));
+    const float pinv = 1.0f / sqrtf(maxn(px * px + py * py + pz * pz, C(1e-40)));
     if (g[9] > 0.0f) {
       sdx = px * pinv;
       sdy = py * pinv;
@@ -423,14 +439,14 @@ __device__ LightSample sample_light(const float* s_light, const int* s_ltype,
     const float sz = g[2] + on0 * g[5] + on1 * g[8];
     const float vx = sx - posx, vy = sy - posy, vz = sz - posz;
     dist = sqrtf(vx * vx + vy * vy + vz * vz);
-    const float inv_d = dist > 0.0f ? 1.0f / fmaxf(dist, C(1e-30)) : 0.0f;
+    const float inv_d = dist > 0.0f ? 1.0f / maxn(dist, C(1e-30)) : 0.0f;
     sdx = vx * inv_d;
     sdy = vy * inv_d;
     sdz = vz * inv_d;
-    const float cosl = fmaxf(0.0f, -(sdx * g[11] + sdy * g[12] + sdz * g[13]));
+    const float cosl = maxn(0.0f, -(sdx * g[11] + sdy * g[12] + sdz * g[13]));
     const float num = area > 0.0f ? area * cosl : 1.0f;
     const float d2 = dist * dist;
-    s_ipdf = d2 > 0.0f ? num / fmaxf(d2, C(1e-30)) : 0.0f;
+    s_ipdf = d2 > 0.0f ? num / maxn(d2, C(1e-30)) : 0.0f;
   }
   ls.dx = sdx;
   ls.dy = sdy;
@@ -508,7 +524,7 @@ __device__ __forceinline__ Hit surface_hit(const float o[3], const float d[3], c
   for (int c = 0; c < 3; ++c) h.pos[c] = o[c] + sf.t * d[c];
   const float* nrm = sf.nrm;
   const float* gn = sf.gn;
-  const float nlen = 1.0f / sqrtf(fmaxf(nrm[0] * nrm[0] + nrm[1] * nrm[1] + nrm[2] * nrm[2], C(1e-20)));
+  const float nlen = 1.0f / sqrtf(maxn(nrm[0] * nrm[0] + nrm[1] * nrm[1] + nrm[2] * nrm[2], C(1e-20)));
   h.front = (gn[0] * -d[0] + gn[1] * -d[1] + gn[2] * -d[2]) >= 0.0f;
   const float fsign = h.front ? 1.0f : -1.0f;
   for (int c = 0; c < 3; ++c) {
@@ -560,7 +576,7 @@ __device__ __forceinline__ Mat table_mat(const float* s_mat, int n_mats, float m
 __device__ __forceinline__ void free_flight(const float* p, const float* s_mat, int n_mats,
                                             float alive_f, Ray& r, Medium& md) {
   md.inside = alive_f >= 1.5f;
-  const float enc = fmaxf(alive_f - 2.0f, 0.0f);
+  const float enc = maxn(alive_f - 2.0f, 0.0f);
   md.walk_f = floorf(enc * C(1.0 / 64.0));
   md.mid_f = enc - md.walk_f * 64.0f;
   const int m_id = (int)rintf(md.mid_f);
@@ -580,15 +596,15 @@ __device__ __forceinline__ void free_flight(const float* p, const float* s_mat, 
   // spectral single-channel MIS select (rgen sampleDistance:49-69)
   float w[3];
   for (int c = 0; c < 3; ++c)
-    w[c] = r.tp[c] * (md.mt[c] > 0.0f ? md.ms[c] / fmaxf(md.mt[c], C(1e-20)) : 0.0f);
+    w[c] = r.tp[c] * (md.mt[c] > 0.0f ? md.ms[c] / maxn(md.mt[c], C(1e-20)) : 0.0f);
   const float wsum = w[0] + w[1] + w[2];
   for (int c = 0; c < 3; ++c)
-    md.p3[c] = wsum > C(1e-9) ? w[c] / fmaxf(wsum, C(1e-9)) : C(1.0 / 3.0);
+    md.p3[c] = wsum > C(1e-9) ? w[c] / maxn(wsum, C(1e-9)) : C(1.0 / 3.0);
   const bool pick1 = xv0 < md.p3[0];
   const bool pick2 = !pick1 && (xv0 < md.p3[0] + md.p3[1]);
   const float sel_sigma = pick1 ? md.mt[0] : (pick2 ? md.mt[1] : md.mt[2]);
-  const float s_coef = fmaxf(sel_sigma * p[P_METERS], C(1e-20));
-  md.t_sample = -logf(fmaxf(1.0f - xv1, C(1e-20))) / s_coef;
+  const float s_coef = maxn(sel_sigma * p[P_METERS], C(1e-20));
+  md.t_sample = -logf(maxn(1.0f - xv1, C(1e-20))) / s_coef;
 }
 
 // A walk step of a ray whose free-flight sample fell short of its hit
@@ -599,7 +615,7 @@ __device__ __forceinline__ void walk_step(const float* p, Ray& r, const Medium& 
   const float dm_s = ts * p[P_METERS];
   float trv[3];
   for (int c = 0; c < 3; ++c) trv[c] = expf(-md.mt[c] * dm_s);
-  const float pdf_w = fmaxf(md.p3[0] * md.mt[0] * trv[0] + md.p3[1] * md.mt[1] * trv[1] +
+  const float pdf_w = maxn(md.p3[0] * md.mt[0] * trv[0] + md.p3[1] * md.mt[1] * trv[1] +
                                 md.p3[2] * md.mt[2] * trv[2], C(1e-20));
   for (int c = 0; c < 3; ++c) {
     r.tp[c] = r.tp[c] * md.ms[c] * trv[c] / pdf_w;
@@ -608,12 +624,12 @@ __device__ __forceinline__ void walk_step(const float* p, Ray& r, const Medium& 
   const float xh0 = pcg_next(r.rng);
   const float xh1 = pcg_next(r.rng);
   const float g = md.gbias;
-  const float sq = (1.0f - g * g) / fmaxf(1.0f - g + 2.0f * g * xh0, C(1e-9));
+  const float sq = (1.0f - g * g) / maxn(1.0f - g + 2.0f * g * xh0, C(1e-9));
   const float g_safe = fabsf(g) < C(1e-9) ? 1.0f : g;
   const float cos_hg = clampf(fabsf(g) < C(1e-3) ? 1.0f - 2.0f * xh0
                                                  : (1.0f + g * g - sq * sq) / (2.0f * g_safe),
                               -1.0f, 1.0f);
-  const float sin_hg = sqrtf(fmaxf(0.0f, 1.0f - cos_hg * cos_hg));
+  const float sin_hg = sqrtf(maxn(0.0f, 1.0f - cos_hg * cos_hg));
   const float phi = C(2.0 * PI_D) * xh1;
   const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
   const float vsign = dz >= 0.0f ? 1.0f : -1.0f;
@@ -679,7 +695,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * expf(-md->mt[c] * dist_m);
   } else if (VOL == VOL_ABSORB && inside) {  // (:2414-2430, integrator:427-431)
     const float ex = posx - r.o[0], ey = posy - r.o[1], ez = posz - r.o[2];
-    const float dist_m = fminf(sqrtf(ex * ex + ey * ey + ez * ez), C(1e30)) * p[P_METERS];
+    const float dist_m = minn(sqrtf(ex * ex + ey * ey + ez * ez), C(1e30)) * p[P_METERS];
     for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * expf(-m.va[c] * dist_m);
   }
 
@@ -715,7 +731,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     float mtz = h.tan[2] - nz * tdn;
     const float tlen2 = mtx * mtx + mty * mty + mtz * mtz;
     if (tlen2 > C(1e-12)) {
-      const float tl = 1.0f / sqrtf(fmaxf(tlen2, C(1e-20)));
+      const float tl = 1.0f / sqrtf(maxn(tlen2, C(1e-20)));
       mtx = mtx * tl;
       mty = mty * tl;
       mtz = mtz * tl;
@@ -741,7 +757,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
   const float lum_base = C(0.2126) * s.base[0] + C(0.7152) * s.base[1] + C(0.0722) * s.base[2];
   const float lum_f0 = C(0.2126) * s.f0[0] + C(0.7152) * s.f0[1] + C(0.0722) * s.f0[2];
   const float w_d = lum_base * (1.0f - s.metallic) * (1.0f - s.transm);
-  float w_g = lum_f0 > 0.0f ? fmaxf(lum_f0, C(0.04)) : 0.0f;
+  float w_g = lum_f0 > 0.0f ? maxn(lum_f0, C(0.04)) : 0.0f;
   const float w_t = s.transm;
   const bool thin = m.thinw > 0.5f;
   float w_sum, w_c = 0.0f;
@@ -751,9 +767,9 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     s.thick = s.transm * (1.0f - (thin ? 1.0f : 0.0f));
     w_g = w_g * (1.0f - s.thick);
     w_c = C(0.25) * m.coat;
-    w_sum = fmaxf(w_d + w_g + w_t + w_c, C(1e-20));
+    w_sum = maxn(w_d + w_g + w_t + w_c, C(1e-20));
   } else {
-    w_sum = fmaxf(w_d + w_g + w_t, C(1e-20));
+    w_sum = maxn(w_d + w_g + w_t, C(1e-20));
   }
   s.p_d = w_d / w_sum;
   s.p_g = w_g / w_sum;
@@ -769,17 +785,17 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     pick_t = !pick_d && !pick_g;
   }
 
-  const float alpha = fmaxf(m.roughness * m.roughness, C(1e-3));
+  const float alpha = maxn(m.roughness * m.roughness, C(1e-3));
   s.alpha2 = alpha * alpha;
   if (ADV) {  // anisotropic GGX roughnesses (Disney aspect), their rotation; the coat
     const float aspect = sqrtf(1.0f - C(0.9) * clampf(m.aniso, 0.0f, 1.0f));
-    s.ax = fmaxf(alpha / aspect, C(1e-3));
-    s.ay = fmaxf(alpha * aspect, C(1e-3));
+    s.ax = maxn(alpha / aspect, C(1e-3));
+    s.ay = maxn(alpha * aspect, C(1e-3));
     const float rtheta = C(2.0 * PI_D) * m.aniso_rot;
     s.cos_r = cosf(rtheta);
     s.sin_r = sinf(rtheta);
     s.coat = m.coat;
-    const float ac = fmaxf(m.coat_rough * m.coat_rough, C(1e-3));
+    const float ac = maxn(m.coat_rough * m.coat_rough, C(1e-3));
     s.ac2 = ac * ac;
   }
 
@@ -798,7 +814,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
       const float ra = sqrtf(clampf(xi1, 0.0f, 1.0f));
       wix = ra * cphi;
       wiy = ra * sphi;
-      wiz = sqrtf(fmaxf(0.0f, 1.0f - xi1));
+      wiz = sqrtf(maxn(0.0f, 1.0f - xi1));
     } else {
       // the half vector, then a reflection about it (or a refraction)
       float hx, hy, hz;
@@ -807,7 +823,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
         const float r_slope = sqrtf(u_c / (1.0f - u_c));
         float hxr = s.ax * r_slope * cphi;
         float hyr = s.ay * r_slope * sphi;
-        const float hinv_s = 1.0f / sqrtf(fmaxf(hxr * hxr + hyr * hyr + 1.0f, C(1e-24)));
+        const float hinv_s = 1.0f / sqrtf(maxn(hxr * hxr + hyr * hyr + 1.0f, C(1e-24)));
         hxr = hxr * hinv_s;
         hyr = hyr * hinv_s;
         hx = hxr * s.cos_r - hyr * s.sin_r;
@@ -817,9 +833,9 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
         // GGX NDF: the glossy lobe (plain), the coat or the thick interface
         const float a2 = ADV ? (pick_c ? s.ac2 : s.alpha2) : s.alpha2;
         const float x = ADV ? u_c : xi1;
-        const float c2h = (1.0f - x) / fmaxf(1.0f + (a2 - 1.0f) * x, C(1e-12));
+        const float c2h = (1.0f - x) / maxn(1.0f + (a2 - 1.0f) * x, C(1e-12));
         const float ch = sqrtf(clampf(c2h, 0.0f, 1.0f));
-        const float sh = sqrtf(fmaxf(0.0f, 1.0f - c2h));
+        const float sh = sqrtf(maxn(0.0f, 1.0f - c2h));
         hx = sh * cphi;
         hy = sh * sphi;
         hz = ch;
@@ -827,17 +843,17 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
       if (ADV && pick_t) {
         // thick transmission: a microfacet dielectric interface; the exact
         // Fresnel picks reflection or refraction, TIR is F = 1
-        const float eta_rel = h.front ? m.ior : 1.0f / fmaxf(m.ior, C(1e-6));
-        const float c_oh = fmaxf(s.wox * hx + s.woy * hy + s.woz * hz, 0.0f);
-        const float sin2_t = (1.0f - c_oh * c_oh) / fmaxf(eta_rel * eta_rel, C(1e-12));
-        const float cos_tf = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-        const float rs_f = (c_oh - eta_rel * cos_tf) / fmaxf(c_oh + eta_rel * cos_tf, C(1e-12));
-        const float rp_f = (eta_rel * c_oh - cos_tf) / fmaxf(eta_rel * c_oh + cos_tf, C(1e-12));
+        const float eta_rel = h.front ? m.ior : 1.0f / maxn(m.ior, C(1e-6));
+        const float c_oh = maxn(s.wox * hx + s.woy * hy + s.woz * hz, 0.0f);
+        const float sin2_t = (1.0f - c_oh * c_oh) / maxn(eta_rel * eta_rel, C(1e-12));
+        const float cos_tf = sqrtf(maxn(1.0f - sin2_t, 0.0f));
+        const float rs_f = (c_oh - eta_rel * cos_tf) / maxn(c_oh + eta_rel * cos_tf, C(1e-12));
+        const float rp_f = (eta_rel * c_oh - cos_tf) / maxn(eta_rel * c_oh + cos_tf, C(1e-12));
         const float f_t = sin2_t >= 1.0f ? 1.0f
                                          : clampf(0.5f * (rs_f * rs_f + rp_f * rp_f), 0.0f, 1.0f);
-        const float eta_inv = 1.0f / fmaxf(eta_rel, C(1e-6));
+        const float eta_inv = 1.0f / maxn(eta_rel, C(1e-6));
         k_t = 1.0f - eta_inv * eta_inv * (1.0f - c_oh * c_oh);
-        const float cos_t = sqrtf(fmaxf(k_t, 0.0f));
+        const float cos_t = sqrtf(maxn(k_t, 0.0f));
         const float scale_h = eta_inv * c_oh - cos_t;
         refl_pick = xi3 < f_t;
         if (refl_pick) {
@@ -860,11 +876,11 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
 
   float bop[3];
   if (pick_t) {  // thin transmission Fresnel-weighted (render/bsdf.py); thick: G1 at wi
-    const float mtr = clampf(1.0f - fmaxf(s.woz, 0.0f), 0.0f, 1.0f);
+    const float mtr = clampf(1.0f - maxn(s.woz, 0.0f), 0.0f, 1.0f);
     const float tr5 = (mtr * mtr) * (mtr * mtr) * mtr;
-    const float inv_pt = p_t > C(1e-12) ? 1.0f / fmaxf(p_t, C(1e-12)) : 0.0f;
+    const float inv_pt = p_t > C(1e-12) ? 1.0f / maxn(p_t, C(1e-12)) : 0.0f;
     if (ADV && !thin) {
-      const float thick_w = s.transm * ggx_g1(s.alpha2, fmaxf(fabsf(wiz), C(1e-6))) * inv_pt;
+      const float thick_w = s.transm * ggx_g1(s.alpha2, maxn(fabsf(wiz), C(1e-6))) * inv_pt;
       for (int c = 0; c < 3; ++c) bop[c] = thick_w;
       r.valid = p_t > 0.0f && (refl_pick || k_t > 0.0f);
     } else {
@@ -874,7 +890,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
     }
   } else {
     const Lobes lb = eval_lobes<ADV>(s, wix, wiy, wiz);
-    const float inv_pdf = lb.pdf > C(1e-12) ? 1.0f / fmaxf(lb.pdf, C(1e-12)) : 0.0f;
+    const float inv_pdf = lb.pdf > C(1e-12) ? 1.0f / maxn(lb.pdf, C(1e-12)) : 0.0f;
     for (int c = 0; c < 3; ++c) bop[c] = (lb.fd[c] + lb.fg[c]) * inv_pdf;
     r.valid = lb.pdf > C(1e-12) && wiz > 0.0f && s.woz > 0.0f;
   }
@@ -886,7 +902,7 @@ __device__ __forceinline__ void shade_core(const float* p, const Mat& m, const H
   if (VOL != VOL_OFF) r.toggled = r.valid && pick_t && m.thinw <= 0.5f && (!ADV || !refl_pick);
   const float osign = crossing ? -1.0f : 1.0f;
   for (int c = 0; c < 3; ++c)
-    r.o[c] = h.pos[c] + h.gn[c] * osign * fmaxf(fabsf(h.pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
+    r.o[c] = h.pos[c] + h.gn[c] * osign * maxn(fabsf(h.pos[c]) * C(1.0 / 65536.0), C(1.0 / 65536.0));
   r.d[0] = wix * t1x + wiy * t2x + wiz * nx;
   r.d[1] = wix * t1y + wiy * t2y + wiz * ny;
   r.d[2] = wix * t1z + wiy * t2z + wiz * nz;
@@ -969,11 +985,11 @@ __device__ __forceinline__ void write_path(const float* p, Ray& r, float* state,
   terminate = terminate || (r.tp[0] * r.tp[0] + r.tp[1] * r.tp[1] + r.tp[2] * r.tp[2] < C(1e-18));
   if (p[P_BOUNCE] > p[P_RR_OFFSET]) {
     const float krr = pcg_next(r.rng);
-    const float p_rr = fminf(fmaxf(r.tp[0], fmaxf(r.tp[1], r.tp[2])), p[P_RR_INV_MIN]);
+    const float p_rr = minn(maxn(r.tp[0], maxn(r.tp[1], r.tp[2])), p[P_RR_INV_MIN]);
     const bool rr_kill = krr > p_rr;
     // the !miss guard keeps the throughput rows at their at-miss value
     if (!rr_kill && !r.miss) {
-      const float sc = 1.0f / fmaxf(p_rr, C(1e-20));
+      const float sc = 1.0f / maxn(p_rr, C(1e-20));
       for (int c = 0; c < 3; ++c) r.tp[c] = r.tp[c] * sc;
     }
     terminate = terminate || rr_kill;
@@ -1063,7 +1079,7 @@ __device__ __forceinline__ void write_hit(float* hit, long long R, long long i, 
     const float tdn = tan[0] * h.n[0] + tan[1] * h.n[1] + tan[2] * h.n[2];
     float t[3];
     for (int c = 0; c < 3; ++c) t[c] = tan[c] - h.n[c] * tdn;
-    const float tlen = 1.0f / sqrtf(fmaxf(t[0] * t[0] + t[1] * t[1] + t[2] * t[2], C(1e-20)));
+    const float tlen = 1.0f / sqrtf(maxn(t[0] * t[0] + t[1] * t[1] + t[2] * t[2], C(1e-20)));
     for (int c = 0; c < 3; ++c) hit[(H_TAN + c) * R + i] = t[c] * tlen;
     hit[H_BS * R + i] = tbs;
     for (int k = H_BS + 1; k < HIT_ROWS_TAN; ++k) hit[k * R + i] = 0.0f;
@@ -1268,9 +1284,9 @@ __device__ __forceinline__ void perturb(const float4 nm, const float t[3], float
   b[0] = cross_term(n[1], t[2], n[2], t[1]) * tbs;
   b[1] = cross_term(n[2], t[0], n[0], t[2]) * tbs;
   b[2] = cross_term(n[0], t[1], n[1], t[0]) * tbs;
-  const float nz = fmaxf(nm.z, C(1e-3));
+  const float nz = maxn(nm.z, C(1e-3));
   for (int c = 0; c < 3; ++c) m[c] = (nm.x * t[c] + nm.y * b[c]) + nz * n[c];
-  const float len = fmaxf(sqrtf(norm_sq(m)), C(1e-20));
+  const float len = maxn(sqrtf(norm_sq(m)), C(1e-20));
   for (int c = 0; c < 3; ++c) n[c] = m[c] / len;
 }
 
@@ -1849,7 +1865,7 @@ __device__ __forceinline__ void pass2(const Walk& w, const float o[3], const flo
     float g[3];
     for (int c = 0; c < 3; ++c)
       g[c] = tr[CLU_GN] * a[3 * c] + tr[CLU_GN + 1] * a[3 * c + 1] + tr[CLU_GN + 2] * a[3 * c + 2];
-    const float glen = 1.0f / sqrtf(fmaxf(g[0] * g[0] + g[1] * g[1] + g[2] * g[2], C(1e-20)));
+    const float glen = 1.0f / sqrtf(maxn(g[0] * g[0] + g[1] * g[1] + g[2] * g[2], C(1e-20)));
     for (int c = 0; c < 3; ++c) sf.gn[c] = g[c] * glen;
     for (int k = 0; k < 3; ++k)
       for (int c = 0; c < 3; ++c)

@@ -1406,9 +1406,11 @@ int64_t gatling_jpeg_encode_scan(int32_t ncomp, const int32_t* comp,
 // ---------------------------------------------------------------------------
 
 // TIFF LZW (TIFF 6.0 section 13, libtiff's LZWDecode): MSB-first codes of
-// 9-12 bits, Clear 256, EOI 257, the code width growing one code early.
-// Decodes at most `cap` bytes; returns the count written, -1 on a code
-// that is not in the table.
+// 9-12 bits, Clear 256, EOI 257, the code width growing one code early; a
+// table without a Clear fills at libtiff's 5,119 entries.
+// Decodes at most `cap` bytes; returns the count written, or -2 - the count
+// written before a code that is not in the table (libtiff's buffer keeps
+// those bytes).
 int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
   std::vector<int32_t> prefix(4096), length(4096);
   std::vector<uint8_t> suffix(4096), first(4096);
@@ -1440,12 +1442,15 @@ int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int
       next = 258;
       code = read_code();
       if (code == 257) break;
-      if (code > 256) return -1;
+      if (code > 256) return -2 - o;
       put(code);
       old = code;
       continue;
     }
-    if (old < 0) return -1;
+    // libtiff's table has CSIZE = 5119 entries: past 4095 it goes on adding
+    // entries no 12-bit code can name, and once it is full any code but
+    // Clear and EOI is "not yet in table"
+    if (old < 0 || next >= 5119) return -2 - o;
     if (code < next) {
       put(code);
       if (next < 4096) {
@@ -1453,8 +1458,8 @@ int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int
         suffix[next] = first[code];
         first[next] = first[old];
         length[next] = length[old] + 1;
-        ++next;
       }
+      ++next;
     } else if (code == next && next < 4096) {
       prefix[next] = old;
       suffix[next] = first[old];
@@ -1463,7 +1468,7 @@ int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int
       ++next;
       put(code);
     } else {
-      return -1;
+      return -2 - o;
     }
     old = code;
     if (next >= (1 << nbits) - 1 && nbits < 12) ++nbits;
@@ -1473,7 +1478,8 @@ int64_t gatling_tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int
 
 // Old-style TIFF LZW (libtiff's LZWDecodeCompat): codes LSB-first, the
 // code width growing one code later than in the new style. Returns the
-// bytes written (at most cap), or -1 for a corrupt table.
+// bytes written (at most cap), or -2 - the bytes written before a corrupt
+// table entry.
 int64_t gatling_tiff_lzw_compat_decode(const uint8_t* src, int64_t n, uint8_t* dst,
                                        int64_t cap) {
   const int kClear = 256, kEoi = 257, kFirst = 258, kMaxBits = 12, kSize = 5119;
@@ -1513,12 +1519,12 @@ int64_t gatling_tiff_lzw_compat_decode(const uint8_t* src, int64_t n, uint8_t* d
         code = next_code();
       } while (code == kClear);
       if (code == kEoi) break;
-      if (code > kClear) return -1;
+      if (code > kClear) return -2 - o;
       dst[o++] = (uint8_t)code;
       old = code;
       continue;
     }
-    if (old < 0 || free_ent >= kSize || code > free_ent) return -1;
+    if (old < 0 || free_ent >= kSize || code > free_ent) return -2 - o;
     next_of[free_ent] = old;
     firstchar[free_ent] = firstchar[old];
     length[free_ent] = length[old] + 1;
@@ -1530,7 +1536,7 @@ int64_t gatling_tiff_lzw_compat_decode(const uint8_t* src, int64_t n, uint8_t* d
     old = code;
     if (code >= 256) {
       const int len = length[code];
-      if (len == 0) return -1;
+      if (len == 0) return -2 - o;
       const int64_t keep = std::min<int64_t>(len, cap - o);
       int c = code;
       for (int k = len - 1; k >= 0; --k, c = next_of[c]) {

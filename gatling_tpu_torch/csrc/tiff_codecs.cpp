@@ -21,10 +21,19 @@
 //   repeat offsets, the window size, the XXH64 content checksum; damaged
 //   four-stream literals as libzstd's fast Huffman path reads them. A
 //   frame that needs a dictionary is refused, as libzstd refuses it.
+// - LZMA (tif_lzma.c over liblzma's lzma_stream_decoder): an xz stream's
+//   blocks, their LZMA2 chunks behind up to three delta or branch (x86,
+//   PowerPC, IA64, ARM, ARM-Thumb, SPARC, ARM64, RISC-V) filters, written
+//   as liblzma writes them in the one
+//   lzma_code call of LZMADecode: every byte decoded before liblzma meets
+//   an error is in the caller's buffer, and an error met once the buffer
+//   is full is never seen.
 
 #include <cstdint>
 #include <cstring>
 #include <vector>
+
+#include <zlib.h>
 
 namespace {
 
@@ -1356,7 +1365,9 @@ void compressed_block(ZFrame& f, const uint8_t* src, size_t n) {
 
 // The first frame of src as ZSTD_decompressStream hands it to libtiff's
 // ZSTDDecode with `cap` bytes of room: the bytes decoded (at most cap; the
-// caller wants cap), or -1 where libzstd reports an error first.
+// caller wants cap), or -2 where libzstd reports an error (its call then
+// leaves the output position at 0, whatever it flushed, and ZSTDDecode
+// zeroes the strip from there).
 int64_t zstd_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap) {
     ZFrame f;
     size_t pos = 0;
@@ -1443,9 +1454,980 @@ int64_t zstd_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap) {
         }
         return done();
     } catch (ZError&) {
-        return -1;
     } catch (std::bad_alloc&) {
-        return -1;
+    }
+    return -2;
+}
+
+
+// ---------------------------------------------------------------------------
+// xz / LZMA2 (liblzma 5: stream_decoder.c, block_header_decoder.c,
+// lzma2_decoder.c, lzma_decoder.c, delta_decoder.c)
+// ---------------------------------------------------------------------------
+
+enum { XZ_OK = 0, XZ_ERROR = 1 };
+
+struct XzRange {  // rc_read_init, rc_normalize, rc_bit, rc_direct
+    const uint8_t* in;
+    size_t n, pos;
+    uint32_t range = 0xFFFFFFFFu, code = 0;
+    bool short_input = false;
+    bool init() {  // false on a first byte other than 0 (LZMA_DATA_ERROR)
+        range = 0xFFFFFFFFu;
+        code = 0;
+        for (int k = 0; k < 5; ++k) {
+            if (pos >= n) {
+                short_input = true;
+                return true;
+            }
+            if (k == 0 && in[pos] != 0) return false;
+            code = (code << 8) | in[pos++];
+        }
+        return true;
+    }
+    void normalize() {
+        if (range < (1u << 24)) {
+            if (pos >= n) {
+                short_input = true;
+                return;
+            }
+            range <<= 8;
+            code = (code << 8) | in[pos++];
+        }
+    }
+    int bit(uint16_t& p) {
+        normalize();
+        const uint32_t bound = (range >> 11) * p;
+        if (code < bound) {
+            range = bound;
+            p = (uint16_t)(p + ((2048 - p) >> 5));
+            return 0;
+        }
+        range -= bound;
+        code -= bound;
+        p = (uint16_t)(p - (p >> 5));
+        return 1;
+    }
+    uint32_t tree(uint16_t* probs, int bits) {
+        uint32_t m = 1;
+        for (int k = 0; k < bits; ++k) m = (m << 1) | (uint32_t)bit(probs[m]);
+        return m - (1u << bits);
+    }
+    uint32_t reverse(uint16_t* probs, int bits) {
+        uint32_t m = 1, sym = 0;
+        for (int k = 0; k < bits; ++k) {
+            const uint32_t b = (uint32_t)bit(probs[m]);
+            m = (m << 1) | b;
+            sym |= b << k;
+        }
+        return sym;
+    }
+    uint32_t direct(int bits) {
+        uint32_t v = 0;
+        for (int k = 0; k < bits; ++k) {
+            normalize();
+            range >>= 1;
+            uint32_t b = 0;
+            if (code >= range) {
+                code -= range;
+                b = 1;
+            }
+            v = (v << 1) | b;
+        }
+        return v;
+    }
+};
+
+struct XzLen {
+    uint16_t choice, choice2, low[16][8], mid[16][8], high[256];
+};
+
+struct XzLzma {
+    int lc = 0, lp = 0, pb = 0;
+    uint32_t state = 0, rep[4] = {0, 0, 0, 0};
+    uint16_t is_match[12][16], is_rep[12], is_rep0[12], is_rep1[12], is_rep2[12],
+        is_rep0_long[12][16], slot[4][64], spec[115], align[16];
+    XzLen len_dec, rep_len_dec;
+    std::vector<uint16_t> literal;
+    void reset() {  // lzma_decoder_reset
+        state = 0;
+        rep[0] = rep[1] = rep[2] = rep[3] = 0;
+        literal.assign((size_t)0x300 << (lc + lp), 1024);
+        for (auto* arr : {&is_match[0][0], &is_rep0_long[0][0]})
+            for (int k = 0; k < 12 * 16; ++k) arr[k] = 1024;
+        for (int k = 0; k < 12; ++k) is_rep[k] = is_rep0[k] = is_rep1[k] = is_rep2[k] = 1024;
+        for (int k = 0; k < 4 * 64; ++k) (&slot[0][0])[k] = 1024;
+        for (int k = 0; k < 115; ++k) spec[k] = 1024;
+        for (int k = 0; k < 16; ++k) align[k] = 1024;
+        for (XzLen* l : {&len_dec, &rep_len_dec}) {
+            l->choice = l->choice2 = 1024;
+            for (int k = 0; k < 16 * 8; ++k) (&l->low[0][0])[k] = (&l->mid[0][0])[k] = 1024;
+            for (int k = 0; k < 256; ++k) l->high[k] = 1024;
+        }
+    }
+    uint32_t length(XzRange& rc, XzLen& l, uint32_t pos_state) {
+        if (!rc.bit(l.choice)) return 2 + rc.tree(l.low[pos_state], 3);
+        if (!rc.bit(l.choice2)) return 10 + rc.tree(l.mid[pos_state], 3);
+        return 18 + rc.tree(l.high, 8);
+    }
+};
+
+// The LZMA2 data of one block into out[0, cap): *written the bytes out
+// holds (decoded before an error, or all cap of them). XZ_OK when the
+// output filled or the data ended (control byte 0), XZ_ERROR where
+// liblzma reports an error before the output is full; input that runs out
+// leaves XZ_OK with fewer bytes (liblzma waits for more, libtiff gives up).
+int xz_lzma2(const uint8_t* in, size_t n, size_t& pos, uint8_t* out, size_t cap,
+             uint64_t dict_size, size_t* written, bool* block_end, bool* at_room,
+             size_t* overrun_at, bool* overrun_reset) {
+    XzLzma lz;
+    XzRange rc{in, n, pos};
+    size_t o = 0, reset_at = 0;  // reset_at: where the dictionary was last reset
+    bool need_dict_reset = true, need_props = true;
+    *block_end = false;
+    *at_room = false;
+    *overrun_at = ~(size_t)0;
+    *overrun_reset = false;
+    auto done = [&](int status) {
+        *written = o;
+        pos = rc.pos;
+        return status;
+    };
+    // *at_room: the error is met even by a call whose room ends where the
+    // output stops. lzma_decoder.c decodes the symbol at a full room before
+    // it finds no room to write it, and lzma2_decoder.c finishes a chunk
+    // and reads the next control byte after the room fills (and unless
+    // that byte resets the dictionary, ending the call, the chunk's header
+    // and its range coder's first bytes)
+    size_t reset_o = ~(size_t)0;  // where the last dictionary-reset control byte was read
+    auto room_error = [&]() {
+        *at_room = reset_o != o;
+        return done(XZ_ERROR);
+    };
+    for (;;) {
+        if (o >= cap) {
+            // lzma2_decoder.c reads the control byte after a chunk that
+            // filled the room: the end of the data ends the block
+            if (rc.pos < n && in[rc.pos] == 0) {
+                ++rc.pos;
+                *block_end = true;
+            }
+            return done(XZ_OK);
+        }
+        if (rc.pos >= n) return done(XZ_OK);
+        const uint32_t control = in[rc.pos++];
+        if (control == 0) {
+            *block_end = true;
+            return done(XZ_OK);
+        }
+        if (control >= 0xE0 || control == 1) {
+            reset_o = o;
+            need_props = true;
+            need_dict_reset = true;
+        } else if (need_dict_reset) {
+            return room_error();
+        }
+        if (control < 0x80 && control > 2) return room_error();
+        // an LZMA chunk without new properties needs them set (checked on
+        // the control byte, before the chunk's header is read)
+        if (control >= 0x80 && control < 0xC0 && need_props) return room_error();
+        if (need_dict_reset) {
+            need_dict_reset = false;
+            reset_at = o;
+        }
+        if (control < 0x80) {  // an uncompressed chunk
+            if (n - rc.pos < 2) return done(XZ_OK);
+            size_t size = ((size_t)in[rc.pos] << 8 | in[rc.pos + 1]) + 1;
+            rc.pos += 2;
+            while (size > 0 && o < cap) {
+                if (rc.pos >= n) return done(XZ_OK);
+                out[o++] = in[rc.pos++];
+                --size;
+            }
+            if (size > 0) return done(XZ_OK);
+            continue;
+        }
+        if (n - rc.pos < 4) return done(XZ_OK);
+        uint64_t usize = ((uint64_t)(control & 0x1F) << 16 | (uint64_t)in[rc.pos] << 8 |
+                          in[rc.pos + 1]) + 1;
+        const size_t csize = ((size_t)in[rc.pos + 2] << 8 | in[rc.pos + 3]) + 1;
+        rc.pos += 4;
+        if (control >= 0xC0) {
+            if (rc.pos >= n) return done(XZ_OK);
+            uint32_t b = in[rc.pos++];  // lzma_lzma_lclppb_decode
+            if (b > (4 * 5 + 4) * 9 + 8) return room_error();
+            lz.pb = (int)(b / 45);
+            b -= (uint32_t)lz.pb * 45;
+            lz.lp = (int)(b / 9);
+            lz.lc = (int)(b - (uint32_t)lz.lp * 9);
+            if (lz.lc + lz.lp > 4) return room_error();
+            need_props = false;
+            lz.reset();
+        } else if (control >= 0xA0) {
+            lz.reset();
+        }
+        const size_t chunk_start = rc.pos;
+        // lzma2_decoder.c checks the chunk's compressed size whenever the
+        // LZMA decoder returns: when a call's room fills, the symbol at its
+        // end decoded (*overrun_at: where the first symbol to read past the
+        // size starts; *overrun_reset: a dictionary reset there, which ends
+        // a call whose room ends there first), or when the input runs out
+        auto overran = [&]() { return rc.pos - chunk_start > csize; };
+        auto mark = [&]() {
+            if (*overrun_at == ~(size_t)0 && overran()) {
+                *overrun_at = o;
+                *overrun_reset = reset_o == o;  // a call whose room ends here ends at the reset
+            }
+        };
+        auto starved = [&]() { return overran() ? room_error() : done(XZ_OK); };
+        if (!rc.init()) return room_error();
+        if (rc.short_input) return starved();
+        const uint32_t pb_mask = (1u << lz.pb) - 1, lp_mask = (1u << lz.lp) - 1;
+        const uint64_t dict_cap = dict_size < 4096 ? 4096 : (dict_size + 15) & ~(uint64_t)15;
+        auto full = [&]() -> uint64_t {
+            const uint64_t f = o - reset_at;
+            return f < dict_cap ? f : dict_cap;
+        };
+        while (usize > 0) {
+            const size_t p = o - reset_at;
+            const uint32_t pos_state = (uint32_t)p & pb_mask;
+            uint32_t& st = lz.state;
+            const int is_match = rc.bit(lz.is_match[st][pos_state]);
+            if (rc.short_input) return starved();
+            if (!is_match) {
+                const uint32_t prev = p > 0 ? out[o - 1] : 0;
+                uint16_t* probs = &lz.literal[0x300 * ((((uint32_t)p & lp_mask) << lz.lc) +
+                                                     (prev >> (8 - lz.lc)))];
+                uint32_t sym = 1;
+                if (st >= 7) {
+                    uint32_t match = out[o - lz.rep[0] - 1];
+                    do {
+                        const uint32_t mbit = (match >> 7) & 1;
+                        match <<= 1;
+                        const uint32_t b = (uint32_t)rc.bit(probs[((1 + mbit) << 8) + sym]);
+                        sym = (sym << 1) | b;
+                        if (mbit != b) break;
+                    } while (sym < 0x100);
+                }
+                while (sym < 0x100) sym = (sym << 1) | (uint32_t)rc.bit(probs[sym]);
+                if (rc.short_input) return starved();
+                st = st < 4 ? 0 : st < 10 ? st - 3 : st - 6;
+                mark();
+                out[o++] = (uint8_t)sym;
+                --usize;
+                if (o >= cap && usize > 0) return done(XZ_OK);
+                continue;
+            }
+            uint32_t len;
+            if (!rc.bit(lz.is_rep[st])) {
+                len = lz.length(rc, lz.len_dec, pos_state);
+                const uint32_t ls = len - 2 < 3 ? len - 2 : 3;
+                const uint32_t slot = rc.tree(lz.slot[ls], 6);
+                uint32_t dist;
+                if (slot < 4) {
+                    dist = slot;
+                } else {
+                    const int nd = (int)(slot >> 1) - 1;
+                    dist = (2 | (slot & 1)) << nd;
+                    if (slot < 14) {
+                        dist += rc.reverse(lz.spec + dist - slot, nd);
+                    } else {
+                        dist += rc.direct(nd - 4) << 4;
+                        dist += rc.reverse(lz.align, 4);
+                    }
+                }
+                if (rc.short_input) return starved();
+                lz.rep[3] = lz.rep[2];
+                lz.rep[2] = lz.rep[1];
+                lz.rep[1] = lz.rep[0];
+                lz.rep[0] = dist;
+                st = st < 7 ? 7 : 10;
+                if ((uint64_t)dist >= full()) return room_error();  // the end marker too
+            } else {
+                if (full() == 0) return room_error();
+                if (!rc.bit(lz.is_rep0[st])) {
+                    if (!rc.bit(lz.is_rep0_long[st][pos_state])) {  // a short rep
+                        if (rc.short_input) return starved();
+                        st = st < 7 ? 9 : 11;
+                        mark();
+                        out[o] = out[o - lz.rep[0] - 1];
+                        ++o;
+                        --usize;
+                        if (o >= cap && usize > 0) return done(XZ_OK);
+                        continue;
+                    }
+                } else {
+                    uint32_t dist;
+                    if (!rc.bit(lz.is_rep1[st])) {
+                        dist = lz.rep[1];
+                    } else {
+                        if (!rc.bit(lz.is_rep2[st])) {
+                            dist = lz.rep[2];
+                        } else {
+                            dist = lz.rep[3];
+                            lz.rep[3] = lz.rep[2];
+                        }
+                        lz.rep[2] = lz.rep[1];
+                    }
+                    lz.rep[1] = lz.rep[0];
+                    lz.rep[0] = dist;
+                }
+                len = lz.length(rc, lz.rep_len_dec, pos_state);
+                if (rc.short_input) return starved();
+                st = st < 7 ? 8 : 11;
+            }
+            // dict_repeat: as much of the match as the chunk and the output hold
+            const uint64_t take = len < usize ? len : usize;
+            mark();
+            for (uint64_t k = 0; k < take; ++k) {
+                out[o] = out[o - lz.rep[0] - 1];
+                ++o;
+                // the room full: stop, unless the chunk ends with this match
+                if (o >= cap && (k + 1 < take || take < usize || take < len)) return done(XZ_OK);
+            }
+            usize -= take;
+            if (take < len) return room_error();  // a match past the chunk's end, met at its end
+        }
+        rc.normalize();  // the chunk's end: the range coder finished on its last byte
+        if (rc.short_input) return starved();
+        if (rc.code != 0 || rc.pos - chunk_start != csize) return room_error();
+    }
+}
+
+
+// liblzma's branch filters (simple/*.c), decoding: each turns the branch
+// targets in buf[0, size) back from absolute to relative, now_pos the
+// position of buf[0] in the block's data plus the filter's start offset,
+// and returns how many bytes it filtered (the rest wait for more data, or
+// stay as they are at the data's end).
+
+// simple/x86.c x86_code, its state carried from call to call
+struct X86State {
+    uint32_t prev_mask = 0, prev_pos = (uint32_t)-5;
+};
+
+size_t bcj_x86(uint8_t* buf, size_t size, uint32_t now_pos, X86State& st) {
+    static const bool allowed[8] = {true, true, true, false, true, false, false, false};
+    static const uint32_t bit_number[8] = {0, 1, 2, 2, 3, 3, 3, 3};
+    auto ms = [](uint8_t b) { return b == 0 || b == 0xFF; };
+    if (size < 5) return 0;
+    uint32_t prev_mask = st.prev_mask, prev_pos = st.prev_pos;
+    if (now_pos - prev_pos > 5) prev_pos = now_pos - 5;
+    const size_t limit = size - 5;
+    size_t i = 0;
+    while (i <= limit) {
+        uint8_t b = buf[i];
+        if (b != 0xE8 && b != 0xE9) {
+            ++i;
+            continue;
+        }
+        const uint32_t offset = now_pos + (uint32_t)i - prev_pos;
+        prev_pos = now_pos + (uint32_t)i;
+        if (offset > 5) {
+            prev_mask = 0;
+        } else {
+            for (uint32_t k = 0; k < offset; ++k) {
+                prev_mask &= 0x77;
+                prev_mask <<= 1;
+            }
+        }
+        b = buf[i + 4];
+        if (ms(b) && allowed[(prev_mask >> 1) & 7] && (prev_mask >> 1) < 0x10) {
+            uint32_t src = (uint32_t)b << 24 | (uint32_t)buf[i + 3] << 16 |
+                           (uint32_t)buf[i + 2] << 8 | buf[i + 1];
+            uint32_t dest;
+            for (;;) {
+                dest = src - (now_pos + (uint32_t)i + 5);
+                if (prev_mask == 0) break;
+                const uint32_t k = bit_number[prev_mask >> 1];
+                b = (uint8_t)(dest >> (24 - k * 8));
+                if (!ms(b)) break;
+                src = dest ^ ((1u << (32 - k * 8)) - 1);
+            }
+            buf[i + 4] = (uint8_t)(~(((dest >> 24) & 1) - 1));
+            buf[i + 3] = (uint8_t)(dest >> 16);
+            buf[i + 2] = (uint8_t)(dest >> 8);
+            buf[i + 1] = (uint8_t)dest;
+            i += 5;
+            prev_mask = 0;
+        } else {
+            ++i;
+            prev_mask |= 1;
+            if (ms(b)) prev_mask |= 0x10;
+        }
+    }
+    st.prev_mask = prev_mask;
+    st.prev_pos = prev_pos;
+    return i;
+}
+
+// simple/powerpc.c
+size_t bcj_powerpc(uint8_t* buf, size_t size, uint32_t now_pos) {
+    size_t i = 0;
+    for (i = 0; i + 4 <= size; i += 4) {
+        if ((buf[i] >> 2) != 0x12 || (buf[i + 3] & 3) != 1) continue;
+        const uint32_t src = ((uint32_t)(buf[i] & 3) << 24) | (uint32_t)buf[i + 1] << 16 |
+                             (uint32_t)buf[i + 2] << 8 | (uint32_t)(buf[i + 3] & ~3u);
+        const uint32_t dest = src - (now_pos + (uint32_t)i);
+        buf[i] = (uint8_t)(0x48 | ((dest >> 24) & 0x03));
+        buf[i + 1] = (uint8_t)(dest >> 16);
+        buf[i + 2] = (uint8_t)(dest >> 8);
+        buf[i + 3] = (uint8_t)((buf[i + 3] & 0x03) | (dest & 0xFF));
+    }
+    return i;
+}
+
+// simple/ia64.c
+size_t bcj_ia64(uint8_t* buf, size_t size, uint32_t now_pos) {
+    static const uint32_t branch_table[32] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+                                              4, 4, 6, 6, 0, 0, 7, 7, 4, 4, 0, 0, 4, 4, 0, 0};
+    size_t i = 0;
+    for (i = 0; i + 16 <= size; i += 16) {
+        const uint32_t mask = branch_table[buf[i] & 0x1F];
+        uint32_t bit_pos = 5;
+        for (int slot = 0; slot < 3; ++slot, bit_pos += 41) {
+            if (((mask >> slot) & 1) == 0) continue;
+            const size_t byte_pos = bit_pos >> 3;
+            const uint32_t bit_res = bit_pos & 7;
+            uint64_t instruction = 0;
+            for (int j = 0; j < 6; ++j) instruction |= (uint64_t)buf[i + j + byte_pos] << (8 * j);
+            uint64_t norm = instruction >> bit_res;
+            if (((norm >> 37) & 0xF) != 0x5 || ((norm >> 9) & 0x7) != 0) continue;
+            uint32_t src = (uint32_t)((norm >> 13) & 0xFFFFF);
+            src |= (uint32_t)((norm >> 36) & 1) << 20;
+            src <<= 4;
+            uint32_t dest = src - (now_pos + (uint32_t)i);
+            dest >>= 4;
+            norm &= ~((uint64_t)0x8FFFFF << 13);
+            norm |= (uint64_t)(dest & 0xFFFFF) << 13;
+            norm |= (uint64_t)(dest & 0x100000) << (36 - 20);
+            instruction &= ((uint64_t)1 << bit_res) - 1;
+            instruction |= norm << bit_res;
+            for (int j = 0; j < 6; ++j) buf[i + j + byte_pos] = (uint8_t)(instruction >> (8 * j));
+        }
+    }
+    return i;
+}
+
+// simple/arm.c
+size_t bcj_arm(uint8_t* buf, size_t size, uint32_t now_pos) {
+    size_t i = 0;
+    for (i = 0; i + 4 <= size; i += 4) {
+        if (buf[i + 3] != 0xEB) continue;
+        uint32_t src = (uint32_t)buf[i + 2] << 16 | (uint32_t)buf[i + 1] << 8 | buf[i];
+        src <<= 2;
+        const uint32_t dest = (src - (now_pos + (uint32_t)i + 8)) >> 2;
+        buf[i + 2] = (uint8_t)(dest >> 16);
+        buf[i + 1] = (uint8_t)(dest >> 8);
+        buf[i] = (uint8_t)dest;
+    }
+    return i;
+}
+
+// simple/armthumb.c
+size_t bcj_armthumb(uint8_t* buf, size_t size, uint32_t now_pos) {
+    size_t i = 0;
+    for (i = 0; i + 4 <= size; i += 2) {
+        if ((buf[i + 1] & 0xF8) != 0xF0 || (buf[i + 3] & 0xF8) != 0xF8) continue;
+        uint32_t src = ((uint32_t)(buf[i + 1] & 7) << 19) | (uint32_t)buf[i] << 11 |
+                       ((uint32_t)(buf[i + 3] & 7) << 8) | buf[i + 2];
+        src <<= 1;
+        const uint32_t dest = (src - (now_pos + (uint32_t)i + 4)) >> 1;
+        buf[i + 1] = (uint8_t)(0xF0 | ((dest >> 19) & 0x7));
+        buf[i] = (uint8_t)(dest >> 11);
+        buf[i + 3] = (uint8_t)(0xF8 | ((dest >> 8) & 0x7));
+        buf[i + 2] = (uint8_t)dest;
+        i += 2;
+    }
+    return i;
+}
+
+// simple/sparc.c
+size_t bcj_sparc(uint8_t* buf, size_t size, uint32_t now_pos) {
+    size_t i = 0;
+    for (i = 0; i + 4 <= size; i += 4) {
+        if (!((buf[i] == 0x40 && (buf[i + 1] & 0xC0) == 0x00) ||
+              (buf[i] == 0x7F && (buf[i + 1] & 0xC0) == 0xC0)))
+            continue;
+        uint32_t src = (uint32_t)buf[i] << 24 | (uint32_t)buf[i + 1] << 16 |
+                       (uint32_t)buf[i + 2] << 8 | buf[i + 3];
+        src <<= 2;
+        uint32_t dest = (src - (now_pos + (uint32_t)i)) >> 2;
+        dest = (((0u - ((dest >> 22) & 1)) << 22) & 0x3FFFFFFF) | (dest & 0x3FFFFF) | 0x40000000;
+        buf[i] = (uint8_t)(dest >> 24);
+        buf[i + 1] = (uint8_t)(dest >> 16);
+        buf[i + 2] = (uint8_t)(dest >> 8);
+        buf[i + 3] = (uint8_t)dest;
+    }
+    return i;
+}
+
+uint32_t rd32le(const uint8_t* p) {
+    return p[0] | p[1] << 8 | p[2] << 16 | (uint32_t)p[3] << 24;
+}
+
+void wr32le(uint8_t* p, uint32_t v) {
+    for (int k = 0; k < 4; ++k) p[k] = (uint8_t)(v >> (8 * k));
+}
+
+// simple/arm64.c
+size_t bcj_arm64(uint8_t* buf, size_t size, uint32_t now_pos) {
+    size_t i = 0;
+    for (i = 0; i + 4 <= size; i += 4) {
+        uint32_t pc = now_pos + (uint32_t)i;
+        uint32_t instr = rd32le(buf + i);
+        if ((instr >> 26) == 0x25) {  // BL
+            const uint32_t src = instr;
+            pc >>= 2;
+            wr32le(buf + i, 0x94000000u | ((src - pc) & 0x03FFFFFF));
+        } else if ((instr & 0x9F000000u) == 0x90000000u) {  // ADRP
+            const uint32_t src = ((instr >> 29) & 3) | ((instr >> 3) & 0x001FFFFC);
+            if ((src + 0x00020000) & 0x001C0000) continue;
+            instr &= 0x9000001Fu;
+            pc >>= 12;
+            const uint32_t dest = src - pc;
+            instr |= (dest & 3) << 29;
+            instr |= (dest & 0x0003FFFC) << 3;
+            instr |= (0u - (dest & 0x00020000)) & 0x00E00000;
+            wr32le(buf + i, instr);
+        }
+    }
+    return i;
+}
+
+// simple/riscv.c riscv_decode
+size_t bcj_riscv(uint8_t* buf, size_t size, uint32_t now_pos) {
+    if (size < 8) return 0;
+    const size_t last = size - 8;
+    size_t i = 0;
+    for (i = 0; i <= last; i += 2) {
+        uint32_t inst = buf[i];
+        if (inst == 0xEF) {  // JAL
+            const uint32_t b1 = buf[i + 1];
+            if ((b1 & 0x0D) != 0) continue;
+            const uint32_t b2 = buf[i + 2], b3 = buf[i + 3];
+            uint32_t addr = ((b1 & 0xF0) << 13) | (b2 << 9) | (b3 << 1);
+            addr -= now_pos + (uint32_t)i;
+            buf[i + 1] = (uint8_t)((b1 & 0x0F) | ((addr >> 8) & 0xF0));
+            buf[i + 2] = (uint8_t)(((addr >> 16) & 0x0F) | ((addr >> 7) & 0x10) |
+                                   ((addr << 4) & 0xE0));
+            buf[i + 3] = (uint8_t)(((addr >> 4) & 0x7F) | ((addr >> 13) & 0x80));
+            i += 4 - 2;
+        } else if ((inst & 0x7F) == 0x17) {  // AUIPC
+            inst |= (uint32_t)buf[i + 1] << 8 | (uint32_t)buf[i + 2] << 16 |
+                    (uint32_t)buf[i + 3] << 24;
+            uint32_t inst2;
+            if (inst & 0xE80) {  // rd neither x0 nor x2: a "fake" pair or nothing
+                inst2 = rd32le(buf + i + 4);
+                if (((inst << 8) ^ (inst2 - 3)) & 0xF8003) {
+                    i += 6 - 2;
+                    continue;
+                }
+                uint32_t addr = inst & 0xFFFFF000u;
+                addr += inst2 >> 20;
+                inst = 0x17 | (2 << 7) | (inst2 << 12);
+                inst2 = addr;
+            } else {  // rd x0 or x2: the real pair, its address big-endian
+                const uint32_t inst2_rs1 = inst >> 27;
+                if (((inst - 0x3117) << 18) >= (inst2_rs1 & 0x1D)) {
+                    i += 4 - 2;
+                    continue;
+                }
+                uint32_t addr = (uint32_t)buf[i + 4] << 24 | (uint32_t)buf[i + 5] << 16 |
+                                (uint32_t)buf[i + 6] << 8 | buf[i + 7];
+                addr -= now_pos + (uint32_t)i;
+                inst2 = (inst >> 12) | (addr << 20);
+                inst = 0x17 | (inst2_rs1 << 7) | ((addr + 0x800) & 0xFFFFF000u);
+            }
+            wr32le(buf + i, inst);
+            wr32le(buf + i + 4, inst2);
+            i += 8 - 2;
+        }
+    }
+    return i;
+}
+
+// The branch filter of filter id `id` (0x04-0x0B) over buf[0, size): the
+// bytes it filtered.
+size_t bcj_decode(uint64_t id, uint8_t* buf, size_t size, uint32_t now_pos, X86State& st) {
+    switch (id) {
+        case 0x04: return bcj_x86(buf, size, now_pos, st);
+        case 0x05: return bcj_powerpc(buf, size, now_pos);
+        case 0x06: return bcj_ia64(buf, size, now_pos);
+        case 0x07: return bcj_arm(buf, size, now_pos);
+        case 0x08: return bcj_armthumb(buf, size, now_pos);
+        case 0x09: return bcj_sparc(buf, size, now_pos);
+        case 0x0A: return bcj_arm64(buf, size, now_pos);
+        default: return bcj_riscv(buf, size, now_pos);
+    }
+}
+
+// lzma_simple_coder_init's unfiltered_max and alignment of each filter
+size_t bcj_unfiltered_max(uint64_t id) {
+    return id == 0x04 ? 5 : id == 0x06 ? 16 : id == 0x0B ? 8 : 4;
+}
+
+uint32_t bcj_alignment(uint64_t id) {
+    return id == 0x04 ? 1 : id == 0x06 ? 16 : (id == 0x08 || id == 0x0B) ? 2 : 4;
+}
+
+// liblzma's decoder chain of one block, call by call (lzma_code as
+// LZMADecode calls it): LZMA2 decoded ahead into `data` (t bytes, then its
+// end, error or want of input), the delta and branch filters in front.
+enum { XC_OK, XC_END, XC_ERROR };
+
+struct XzNode {
+    virtual ~XzNode() = default;
+    virtual int code(uint8_t* out, size_t& out_pos, size_t out_size) = 0;
+};
+
+// The LZMA2 decoder: a call writes what its room holds of the data; at
+// the data's end it reports the block's end, or an error once asked for
+// more (or, for an error met between chunks, in the call whose room ends
+// there).
+struct XzSource : XzNode {
+    const uint8_t* data;
+    size_t t, p = 0, overrun_at;
+    bool end, error, at_limit, overrun_reset;
+    int code(uint8_t* out, size_t& out_pos, size_t out_size) override {
+        const size_t room = out_size - out_pos, n = room < t - p ? room : t - p;
+        memcpy(out + out_pos, data + p, n);
+        p += n;
+        out_pos += n;
+        // a chunk read past its size
+        if (n > 0 && n == room && (p > overrun_at || (p == overrun_at && !overrun_reset)))
+            return XC_ERROR;
+        if (p < t) return XC_OK;
+        if (end) return XC_END;
+        if (error && (n < room || at_limit)) return XC_ERROR;
+        return XC_OK;
+    }
+};
+
+// delta_decoder.c: what its inner decoder wrote, error or not
+struct XzDelta : XzNode {
+    XzNode* next;
+    size_t dist;
+    uint8_t history[256] = {};
+    uint8_t pos = 0;
+    int code(uint8_t* out, size_t& out_pos, size_t out_size) override {
+        const size_t start = out_pos;
+        const int ret = next->code(out, out_pos, out_size);
+        for (size_t k = start; k < out_pos; ++k) {
+            out[k] = (uint8_t)(out[k] + history[(dist + pos) & 0xFF]);
+            history[pos--] = out[k];
+        }
+        return ret;
+    }
+};
+
+// simple_coder.c simple_code: the first step fills the room, filters it
+// and keeps its unfiltered tail; the second decodes up to 2 *
+// unfiltered_max bytes into the coder's buffer and filters them. An error
+// returns before the filter runs.
+struct XzSimple : XzNode {
+    XzNode* next;
+    uint64_t id;
+    uint32_t now_pos;
+    X86State st;
+    std::vector<uint8_t> buffer;
+    size_t pos = 0, filtered = 0, size = 0;
+    bool end_was_reached = false;
+    int copy_or_code(uint8_t* out, size_t& out_pos, size_t out_size) {
+        const int ret = next->code(out, out_pos, out_size);
+        if (ret == XC_END) {
+            end_was_reached = true;
+            return XC_OK;
+        }
+        return ret;
+    }
+    size_t call_filter(uint8_t* b, size_t n) {
+        const size_t f = bcj_decode(id, b, n, now_pos, st);
+        now_pos += (uint32_t)f;
+        return f;
+    }
+    void flush(uint8_t* out, size_t& out_pos, size_t out_size) {  // lzma_bufcpy
+        const size_t n = filtered - pos < out_size - out_pos ? filtered - pos : out_size - out_pos;
+        memcpy(out + out_pos, buffer.data() + pos, n);
+        pos += n;
+        out_pos += n;
+    }
+    int code(uint8_t* out, size_t& out_pos, size_t out_size) override {
+        if (pos < filtered) {
+            flush(out, out_pos, out_size);
+            if (pos < filtered) return XC_OK;
+            if (end_was_reached) return XC_END;
+        }
+        filtered = 0;
+        const size_t out_avail = out_size - out_pos, buf_avail = size - pos;
+        if (out_avail > buf_avail || buf_avail == 0) {
+            const size_t out_start = out_pos;
+            memcpy(out + out_pos, buffer.data() + pos, buf_avail);
+            out_pos += buf_avail;
+            const int ret = copy_or_code(out, out_pos, out_size);
+            if (ret != XC_OK) return ret;
+            const size_t n = out_pos - out_start;
+            const size_t unfiltered = n - (n ? call_filter(out + out_start, n) : 0);
+            pos = 0;
+            size = end_was_reached ? 0 : unfiltered;
+            if (size) {
+                out_pos -= unfiltered;
+                memcpy(buffer.data(), out + out_pos, unfiltered);
+            }
+        } else if (pos > 0) {
+            memmove(buffer.data(), buffer.data() + pos, buf_avail);
+            size -= pos;
+            pos = 0;
+        }
+        if (size > 0) {
+            const int ret = copy_or_code(buffer.data(), size, buffer.size());
+            if (ret != XC_OK) return ret;
+            filtered = call_filter(buffer.data(), size);
+            if (end_was_reached) filtered = size;
+            flush(out, out_pos, out_size);
+        }
+        return end_was_reached && pos == size ? XC_END : XC_OK;
+    }
+};
+
+// check.c's CRC64 (ECMA-182, reflected) and SHA-256 (FIPS 180-4), the
+// block checks liblzma verifies besides CRC32
+uint64_t crc64(const uint8_t* p, size_t n) {
+    static uint64_t table[256];
+    static bool ready = false;
+    if (!ready) {
+        for (uint32_t k = 0; k < 256; ++k) {
+            uint64_t c = k;
+            for (int b = 0; b < 8; ++b) c = (c & 1) ? (c >> 1) ^ 0xC96C5795D7870F42ull : c >> 1;
+            table[k] = c;
+        }
+        ready = true;
+    }
+    uint64_t c = ~0ull;
+    for (size_t k = 0; k < n; ++k) c = table[(c ^ p[k]) & 0xFF] ^ (c >> 8);
+    return ~c;
+}
+
+void sha256(const uint8_t* p, size_t n, uint8_t digest[32]) {
+    static const uint32_t kk[64] = {
+        0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1, 0x923f82a4,
+        0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3, 0x72be5d74, 0x80deb1fe,
+        0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786, 0x0fc19dc6, 0x240ca1cc, 0x2de92c6f,
+        0x4a7484aa, 0x5cb0a9dc, 0x76f988da, 0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7,
+        0xc6e00bf3, 0xd5a79147, 0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc,
+        0x53380d13, 0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+        0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070, 0x19a4c116,
+        0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a, 0x5b9cca4f, 0x682e6ff3,
+        0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208, 0x90befffa, 0xa4506ceb, 0xbef9a3f7,
+        0xc67178f2};
+    uint32_t h[8] = {0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+                     0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19};
+    auto rotr = [](uint32_t x, int r) { return (x >> r) | (x << (32 - r)); };
+    std::vector<uint8_t> msg(p, p + n);
+    msg.push_back(0x80);
+    while (msg.size() % 64 != 56) msg.push_back(0);
+    const uint64_t bits = (uint64_t)n * 8;
+    for (int k = 7; k >= 0; --k) msg.push_back((uint8_t)(bits >> (8 * k)));
+    for (size_t blk = 0; blk < msg.size(); blk += 64) {
+        uint32_t w[64];
+        for (int t = 0; t < 16; ++t)
+            w[t] = (uint32_t)msg[blk + 4 * t] << 24 | (uint32_t)msg[blk + 4 * t + 1] << 16 |
+                   (uint32_t)msg[blk + 4 * t + 2] << 8 | msg[blk + 4 * t + 3];
+        for (int t = 16; t < 64; ++t) {
+            const uint32_t s0 = rotr(w[t - 15], 7) ^ rotr(w[t - 15], 18) ^ (w[t - 15] >> 3);
+            const uint32_t s1 = rotr(w[t - 2], 17) ^ rotr(w[t - 2], 19) ^ (w[t - 2] >> 10);
+            w[t] = w[t - 16] + s0 + w[t - 7] + s1;
+        }
+        uint32_t a = h[0], b = h[1], c = h[2], d = h[3], e = h[4], f = h[5], g = h[6], hh = h[7];
+        for (int t = 0; t < 64; ++t) {
+            const uint32_t t1 = hh + (rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25)) +
+                                ((e & f) ^ (~e & g)) + kk[t] + w[t];
+            const uint32_t t2 = (rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22)) +
+                                ((a & b) ^ (a & c) ^ (b & c));
+            hh = g;
+            g = f;
+            f = e;
+            e = d + t1;
+            d = c;
+            c = b;
+            b = a;
+            a = t1 + t2;
+        }
+        h[0] += a; h[1] += b; h[2] += c; h[3] += d;
+        h[4] += e; h[5] += f; h[6] += g; h[7] += hh;
+    }
+    for (int k = 0; k < 8; ++k)
+        for (int j = 0; j < 4; ++j) digest[4 * k + j] = (uint8_t)(h[k] >> (24 - 8 * j));
+}
+
+uint64_t xz_vli(const uint8_t* p, size_t n, size_t& at, bool& ok) {
+    uint64_t v = 0;
+    for (int k = 0; k < 9; ++k) {
+        if (at >= n) break;
+        const uint8_t b = p[at++];
+        if (b == 0 && k > 0) break;
+        v |= (uint64_t)(b & 0x7F) << (7 * k);
+        if (!(b & 0x80)) return v;
+    }
+    ok = false;
+    return 0;
+}
+
+// An xz stream as LZMADecode gets it from liblzma with cap bytes of room:
+// the bytes written (*written), XZ_OK (the output full, or the data
+// ended) or XZ_ERROR (an error before the output is full). Its blocks in
+// turn, each one's filter chain (up to three delta or branch filters
+// before LZMA2), declared sizes and check (CRC32, CRC64, SHA-256; other
+// check types skipped unread, as liblzma skips them without
+// LZMA_TELL_UNSUPPORTED_CHECK). LZMA2 is decoded ahead as far as the
+// branch filters may read past the room, then the chain runs call by call
+// (XzSource, XzDelta, XzSimple): where an error falls relative to each
+// call's room decides what is filtered and what is written.
+int xz_decode(const uint8_t* in, size_t n, uint8_t* out, size_t cap, size_t* written) {
+    *written = 0;
+    if (cap == 0) return XZ_OK;
+    if (n < 12) return XZ_OK;  // liblzma waits for the rest of the header
+    static const uint8_t magic[6] = {0xFD, '7', 'z', 'X', 'Z', 0};
+    if (memcmp(in, magic, 6) != 0) return XZ_ERROR;
+    const uint32_t crc = rd32le(in + 8);
+    if (crc32(0, in + 6, 2) != crc || in[6] != 0 || (in[7] & 0xF0)) return XZ_ERROR;
+    static const int check_size[16] = {0, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 32, 64, 64, 64};
+    const int check = in[7] & 15;
+    size_t pos = 12, w = 0;
+    for (;;) {
+        if (pos >= n) return XZ_OK;
+        if (in[pos] == 0) return XZ_OK;  // the index: no more blocks, no more data
+        const size_t block_at = pos;
+        const size_t hsize = ((size_t)in[pos] + 1) * 4;
+        if (n - pos < hsize) return XZ_OK;
+        const uint8_t* h = in + pos;
+        if (crc32(0, h, (uInt)(hsize - 4)) != rd32le(h + hsize - 4)) return XZ_ERROR;
+        const uint8_t flags = h[1];
+        if (flags & 0x3C) return XZ_ERROR;
+        size_t at = 2;
+        bool ok = true;
+        const uint64_t none = ~0ull;
+        uint64_t csize = none, usize = none;
+        if (flags & 0x40) {
+            csize = xz_vli(h, hsize - 4, at, ok);
+            // lzma_block_unpadded_size: not zero, the block's size a VLI
+            if (ok && (csize == 0 || csize > (1ull << 63) - 1 - hsize - check_size[check]))
+                return XZ_ERROR;
+        }
+        if (flags & 0x80) usize = xz_vli(h, hsize - 4, at, ok);
+        const int nfilters = (flags & 3) + 1;
+        uint64_t ids[4], props[4];
+        uint32_t starts[4];
+        for (int f = 0; f < nfilters && ok; ++f) {
+            ids[f] = xz_vli(h, hsize - 4, at, ok);
+            const uint64_t psize = xz_vli(h, hsize - 4, at, ok);
+            if (!ok || psize > hsize - 4 - at) {
+                ok = false;
+                break;
+            }
+            // lzma_properties_decode; validate_chain: LZMA2 last and only
+            // there, the delta and branch filters before it
+            const bool last = f == nfilters - 1;
+            if (ids[f] >= 0x04 && ids[f] <= 0x0B && !last) {
+                if (psize != 0 && psize != 4) ok = false;
+            } else if ((ids[f] == 0x03 && !last) || (ids[f] == 0x21 && last)) {
+                if (psize != 1) ok = false;
+            } else {
+                ok = false;
+            }
+            props[f] = psize ? h[at] : 0;
+            starts[f] = psize == 4 ? rd32le(h + at) : 0;
+            at += (size_t)psize;
+        }
+        if (!ok) return XZ_ERROR;
+        for (size_t k = at; k < hsize - 4; ++k)
+            if (h[k]) return XZ_ERROR;
+        size_t extra = 0;  // the branch filters' look-ahead past the room
+        for (int f = 0; f < nfilters - 1; ++f) {
+            if (ids[f] == 0x03) continue;
+            if (starts[f] & (bcj_alignment(ids[f]) - 1)) return XZ_ERROR;
+            extra += 2 * bcj_unfiltered_max(ids[f]);
+        }
+        const uint64_t lp = props[nfilters - 1];
+        if (lp > 40) return XZ_ERROR;
+        const uint64_t dict = lp == 40 ? 0xFFFFFFFFull : (uint64_t)(2 | (lp & 1)) << (lp / 2 + 11);
+        pos += hsize;
+        const size_t data_at = pos;
+        // block_decoder.c: the input and output the block may take
+        const size_t in_stop = csize != none && csize < n - pos ? pos + (size_t)csize : n;
+        const size_t room = usize != none && usize < cap - w ? (size_t)usize : cap - w;
+        if (room == 0) return XZ_OK;
+        std::vector<uint8_t> buf(room + extra);
+        size_t t = 0;
+        bool block_end = false, at_room = false;
+        size_t overrun_at = 0;
+        bool overrun_reset = false;
+        const int status = xz_lzma2(in, in_stop, pos, buf.data(), buf.size(), dict, &t,
+                                    &block_end, &at_room, &overrun_at, &overrun_reset);
+        XzSource src;
+        src.data = buf.data();
+        src.t = t;
+        src.end = status == XZ_OK && block_end;
+        src.error = status != XZ_OK;
+        src.at_limit = at_room;
+        src.overrun_at = overrun_at;
+        src.overrun_reset = overrun_reset;
+        std::vector<XzDelta> deltas(nfilters);
+        std::vector<XzSimple> simples(nfilters);
+        XzNode* chain = &src;
+        for (int f = nfilters - 2; f >= 0; --f) {  // the innermost filter first
+            if (ids[f] == 0x03) {
+                deltas[f].next = chain;
+                deltas[f].dist = (size_t)props[f] + 1;
+                chain = &deltas[f];
+            } else {
+                simples[f].next = chain;
+                simples[f].id = ids[f];
+                simples[f].now_pos = starts[f];
+                simples[f].buffer.resize(2 * bcj_unfiltered_max(ids[f]));
+                chain = &simples[f];
+            }
+        }
+        // LZMADecode's loop: lzma_code until the room is full, the block
+        // ends, an error, or two calls in a row that move nothing
+        size_t got = 0;
+        int ret = XC_OK;
+        for (int idle = 0; idle < 2;) {
+            const size_t before = got, src_before = src.p;
+            ret = chain->code(out + w, got, room);
+            if (ret != XC_OK || got >= room) break;
+            idle = got == before && src.p == src_before ? idle + 1 : 0;
+        }
+        const uint8_t* block_out = out + w;
+        w += got;
+        *written = w;
+        if (ret == XC_ERROR) return XZ_ERROR;
+        if (ret != XC_END) {
+            // the room full, or the input or a declared size used up
+            if (w >= cap || pos >= n) return XZ_OK;
+            return XZ_ERROR;
+        }
+        if ((csize != none && pos - data_at != csize) || (usize != none && got != usize))
+            return XZ_ERROR;
+        while ((pos - block_at) & 3) {  // block padding
+            if (pos >= n) return XZ_OK;
+            if (in[pos++] != 0) return XZ_ERROR;
+        }
+        const size_t cs = (size_t)check_size[check];
+        if (n - pos < cs) return XZ_OK;
+        if (check == 1 && crc32(0, block_out, (uInt)got) != rd32le(in + pos)) return XZ_ERROR;
+        if (check == 4) {
+            const uint64_t c = crc64(block_out, got);
+            for (int k = 0; k < 8; ++k)
+                if (in[pos + k] != (uint8_t)(c >> (8 * k))) return XZ_ERROR;
+        }
+        if (check == 10) {
+            uint8_t d[32];
+            sha256(block_out, got, d);
+            if (memcmp(d, in + pos, 32) != 0) return XZ_ERROR;
+        }
+        pos += cs;
+        if (w >= cap) return XZ_OK;
     }
 }
 
@@ -1484,6 +2466,16 @@ int64_t gatling_tiff_thunder_decode(const uint8_t* src, int64_t n, uint8_t* dst,
 // One Zstandard strip: see zstd_decode.
 int64_t gatling_tiff_zstd_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap) {
     return zstd_decode(src, (size_t)n, dst, (size_t)cap);
+}
+
+// One LZMA strip (an xz stream) with `cap` bytes of room: the bytes
+// written; *status 0 (the output full, or the data ended) or 1 (liblzma's
+// error before the output was full).
+int64_t gatling_tiff_xz_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                               int32_t* status) {
+    size_t written = 0;
+    *status = xz_decode(src, (size_t)n, dst, (size_t)cap, &written);
+    return (int64_t)written;
 }
 
 }  // extern "C"

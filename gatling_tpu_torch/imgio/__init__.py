@@ -14,8 +14,13 @@ ThunderScan and old-style JPEG among them; YCbCr, orientations, planes),
 TGA (tga.py), BMP, DIB, ICO and CUR (bmp.py), GIF (gif.py),
 DDS (dds.py), PSD (psd.py), QOI (qoi.py), Netpbm (pnm.py), WebP
 (webp.py: VP8 lossy, VP8L lossless, ALPH alpha and an animation's first
-frame, as libwebp decodes them) and JPEG 2000 (jpeg2000.py: JP2 files and
-raw codestreams, as OpenJPEG decodes them for Pillow). The array is uint8 codes for 8-bit data;
+frame, as libwebp decodes them), JPEG 2000 (jpeg2000.py: JP2 files and
+raw codestreams, as OpenJPEG decodes them for Pillow) and Pillow's legacy
+plugins: SGI (sgi.py), PCX and DCX (pcx.py), BLP (blp.py), FTEX (ftex.py),
+Sun raster (sun.py), ICNS (icns.py), FITS (fits.py), IM (im.py), XPM and
+XBM (xpm.py), MSP (msp.py), FLI (fli.py), Photo CD (pcd.py), and SPIDER,
+McIdas, PIXAR, IMT, XV thumbnails, GIMP brushes and IPTC
+(rawformats.py). The array is uint8 codes for 8-bit data;
 float32 for the HDR formats, for Pillow's "I" and "F" modes (16-bit grey
 PNGs, TIFFs and PGMs as code / 65535, float TIFFs and PFMs as stored);
 bool for Pillow's "1" (1-bit grey PNGs, BMPs, TIFFs, PBMs). So the dtype
@@ -25,8 +30,7 @@ The contract with the JAX package, for any bytes: where it returns an
 array, the port returns the same array or raises NotImplementedError
 naming its ROADMAP item ('USD content': a plugin or variant not ported),
 and never another array (a TIFF whose array in Pillow holds memory no
-decoder wrote, or data libtiff keeps from a damaged LZMA strip, raises
-ValueError: tiff.py); where it raises ValueError (no plugin takes the
+decoder wrote raises ValueError: tiff.py); where it raises ValueError (no plugin takes the
 bytes, or the plugin that takes them cannot finish: EPS without
 Ghostscript, WMF off Windows, a truncated or corrupt file), the port
 raises ValueError. Both packages' texture managers turn that ValueError
@@ -47,7 +51,9 @@ import zlib
 
 import numpy as np
 
-from gatling_tpu_torch.imgio import bmp, dds, gif, jpeg, jpeg2000, pnm, psd, qoi, tga, tiff, webp
+from gatling_tpu_torch.imgio import (blp, bmp, dds, fits, fli, ftex, gif, icns, im, jpeg, jpeg2000,
+                                     msp, pcd, pcx, pnm, psd, qoi, rawformats, sgi, sun, tga,
+                                     tiff, webp, xpm)
 from gatling_tpu_torch.imgio.identify import PLUGINS, accepts, open_unported
 from gatling_tpu_torch.imgio.modes import Skip
 from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
@@ -112,15 +118,17 @@ def _png_samples(raw: np.ndarray, w: int, h: int, depth: int, chans: int) -> tup
     return px.reshape(h, w, chans), n
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def decode_png(data: bytes, transparency: bool = True) -> np.ndarray:
     """PNG bytes -> [H, W, 4] RGBA as the JAX package's Pillow path gives it
     for every bit depth and colour type, interlaced or not: uint8 codes;
     float32 code / 65535 for 16-bit grey (Pillow's "I;16" over 65535); bool
     for 1-bit grey (Pillow's "1"). 2- and 4-bit grey scale to 8-bit codes;
     16-bit colour keeps the high byte of each sample; a palette image takes
     its PLTE entries (black past the end) and tRNS alphas, as Pillow's RGBA
-    conversion of a "P" image does; tRNS is ignored for every other
-    colour type, as Pillow's array of the image ignores it."""
+    conversion of a "P" image does (unless `transparency` is false: an
+    image that does not carry the PNG's info, as an ICNS icon's); tRNS is
+    ignored for every other colour type, as Pillow's array of the image
+    ignores it."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, palette, trns, header = 8, None, None, None
@@ -201,7 +209,7 @@ def decode_png(data: bytes) -> np.ndarray:
         table = np.zeros((256, 4), np.uint8)
         table[:, 3] = 255
         table[:len(palette), :3] = palette[:256]
-        if trns is not None:
+        if trns is not None and transparency:
             table[:min(len(trns), 256), 3] = trns[:256]
         out[:] = table[px[..., 0]]
     elif ctype in (0, 4):
@@ -225,7 +233,15 @@ _DECODERS = {"BMP": bmp.decode_bmp, "DIB": bmp.decode_dib, "GIF": gif.decode_gif
              "JPEG": jpeg.decode_jpeg, "PPM": pnm.decode_pnm, "PNG": decode_png,
              "CUR": bmp.decode_cur, "DDS": dds.decode_dds, "ICO": bmp.decode_ico,
              "TIFF": tiff.decode_tiff, "PSD": psd.decode_psd, "QOI": qoi.decode_qoi,
-             "TGA": _tga, "WEBP": webp.decode_webp, "JPEG2000": jpeg2000.decode_jpeg2000}
+             "TGA": _tga, "WEBP": webp.decode_webp, "JPEG2000": jpeg2000.decode_jpeg2000,
+             "SGI": sgi.decode_sgi, "PCX": pcx.decode_pcx, "DCX": pcx.decode_dcx,
+             "BLP": blp.decode_blp, "FTEX": ftex.decode_ftex, "SUN": sun.decode_sun,
+             "ICNS": icns.decode_icns, "FITS": fits.decode_fits, "IM": im.decode_im,
+             "XPM": xpm.decode_xpm, "XBM": xpm.decode_xbm, "MSP": msp.decode_msp,
+             "FLI": fli.decode_fli, "SPIDER": rawformats.decode_spider,
+             "MCIDAS": rawformats.decode_mcidas, "PIXAR": rawformats.decode_pixar,
+             "IMT": rawformats.decode_imt, "XVTHUMB": rawformats.decode_xvthumb,
+             "GBR": rawformats.decode_gbr, "IPTC": rawformats.decode_iptc, "PCD": pcd.decode_pcd}
 
 
 def load_image(data: bytes) -> np.ndarray:

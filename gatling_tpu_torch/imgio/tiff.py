@@ -13,10 +13,12 @@ strips or tiles, planar configuration 1 or 2, compressed with
   gatling_tiff_fax_decode (csrc/tiff_codecs.cpp), the bits in the file's
   fill order; a T.4 strip whose EOL search runs out of data decoded again
   without EOLs, as libtiff does;
-- LZMA (34925): each strip an xz stream through Python's lzma module, which
-  is liblzma's stream decoder (every check type and filter chain liblzma
-  reads), libtiff's rule that an error met after the strip's last byte is
-  not seen;
+- LZMA (34925): each strip an xz stream through the native
+  gatling_tiff_xz_decode (csrc/tiff_codecs.cpp: liblzma's stream, block
+  and LZMA2 decoders with their checks, the delta and every branch
+  filter), as libtiff's one lzma_code
+  call writes it: the strip is kept when its last byte is written, an
+  error met after it unseen;
 - ZSTD (50000): the strip's first frame by the native
   gatling_tiff_zstd_decode (RFC 8878, as libzstd 1.5.7's
   ZSTD_decompressStream hands it to libtiff: a dictionary refused, the
@@ -76,9 +78,12 @@ YCbCrCoefficients); an uncompressed one Pillow reads past its strips and
 fails (ValueError). The Orientation tag, or an XMP packet's
 tiff:Orientation, transposes the image after the load, as
 TiffImageFile.load_end does (ImageOps.exif_transpose).
-Where Pillow's array holds memory no decoder wrote (a T.6 strip that ends
-before its last row), and where libtiff keeps LZMA data liblzma reports
-damaged with its last byte, the port raises ValueError; old-style JPEG in planes raises
+In the RGBA interface a damaged strip keeps what its codec wrote, as
+libtiff's buffer does: Deflate's and LZMA's prefix, LZW's and PackBits'
+prefix then zeros, ZSTD's zeros (libzstd's failed call reports no
+output). Where Pillow's array holds memory no decoder wrote (a T.6 strip
+that ends before its last row), the port raises ValueError; old-style
+JPEG in planes raises
 NotImplementedError (ROADMAP Queue 3); a file Pillow gives up on raises
 ValueError.
 
@@ -437,36 +442,36 @@ def _estimate_counts(data: bytes, d: dict, entries: dict, big: bool, nstrips: in
     return counts
 
 
-def _native_decode(fn, blob: bytes, n: int) -> np.ndarray:
+def _native_decode(fn, blob: bytes, n: int, partial: bool = False) -> np.ndarray:
+    """A native codec's n bytes. Its error returns -2 - the bytes it wrote
+    before it (what libtiff's buffer keeps, with `partial`)."""
     src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
     dst = np.zeros(n, np.uint8)
     got = fn(native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8), n)
     if got < 0:
-        raise ValueError("TIFF: corrupt compressed data")
+        if not partial:
+            raise ValueError("TIFF: corrupt compressed data")
+        got = -2 - got
     return dst[:got]
 
 
-def _lzma(blob: bytes, n: int) -> np.ndarray:
-    """tif_lzma.c LZMADecode: the strip's xz stream through liblzma
-    (Python's lzma module is liblzma's stream decoder, the same calls), n
-    bytes wanted. libtiff's one lzma_code call stops when its output is
-    full: an error liblzma meets after that is not seen, one met before it
-    fails the strip. Python drops a call's output on an error, so the call
-    is made again for n - 1 bytes and then the last one."""
-    import lzma
-
-    try:
-        return np.frombuffer(lzma.LZMADecompressor(lzma.FORMAT_XZ).decompress(blob, n), np.uint8)
-    except lzma.LZMAError as e:
-        try:
-            d = lzma.LZMADecompressor(lzma.FORMAT_XZ)
-            head = d.decompress(blob, n - 1)
-            out = head + (d.decompress(b"", 1) if len(head) == n - 1 else b"")
-        except lzma.LZMAError:
-            out = b""
-        if len(out) < n:
-            raise ValueError(f"TIFF: corrupt LZMA data: {e}") from e
-        return np.frombuffer(out, np.uint8)
+def _lzma(blob: bytes, n: int, partial: bool = False) -> np.ndarray:
+    """tif_lzma.c LZMADecode: the strip's xz stream through liblzma's stream
+    decoder in one lzma_code call with n bytes of room. The strip is kept
+    when liblzma fills them, whatever error it meets after; else it fails,
+    and the RGBA interface (`partial`) keeps what liblzma wrote before its
+    error. The native decoder (csrc/tiff_codecs.cpp gatling_tiff_xz_decode)
+    writes what liblzma writes (Python's lzma module drops the output of a
+    call that meets an error)."""
+    src = np.ascontiguousarray(np.frombuffer(blob, np.uint8))
+    dst = np.zeros(max(n, 1), np.uint8)
+    status = ctypes.c_int32()
+    got = native.library().gatling_tiff_xz_decode(
+        native.ptr(src, ctypes.c_uint8), src.size, native.ptr(dst, ctypes.c_uint8), n,
+        ctypes.byref(status))
+    if got < n and not partial:
+        raise ValueError(f"TIFF: corrupt LZMA data: {got} of the strip's {n} bytes")
+    return dst[:got]
 
 
 def _deflate_prefix(blob: bytes, n: int) -> bytes:
@@ -496,12 +501,7 @@ def _decompress(kind: str, blob: bytes, n: int, partial: bool = False) -> np.nda
                 raise ValueError(f"TIFF: corrupt Deflate data: {e}") from e
             out = np.frombuffer(_deflate_prefix(blob, n), np.uint8)
     elif kind == "lzma":
-        try:
-            out = _lzma(blob, n)
-        except ValueError:
-            if not partial:
-                raise
-            out = np.zeros(0, np.uint8)
+        out = _lzma(blob, n, partial)
     else:
         lib = native.library()
         if kind == "lzw":
@@ -510,12 +510,14 @@ def _decompress(kind: str, blob: bytes, n: int, partial: bool = False) -> np.nda
         else:
             fn = {"zstd": lib.gatling_tiff_zstd_decode,
                   "packbits": lib.gatling_tiff_packbits_decode}[kind]
-        try:
-            out = _native_decode(fn, blob, n)
-        except ValueError:
-            if not partial:
-                raise
-            out = np.zeros(0, np.uint8)
+        out = _native_decode(fn, blob, n, partial)
+        if partial and out.size < n and (kind in ("packbits", "zstd") or (kind == "lzw" and
+                                                                       not old)):
+            # LZWDecode, PackBitsDecode and ZSTDDecode zero the rest of the
+            # buffer when they fail (ZSTD's from 0: libzstd's failed call
+            # reports no output), and a tile row's buffer loses what the
+            # last tile left there
+            out = np.concatenate([out, np.zeros(n - out.size, np.uint8)])
     if out.size < n and not partial:
         raise ValueError(f"TIFF: a {kind} strip or tile holds {out.size} of its {n} bytes")
     return out[:n]

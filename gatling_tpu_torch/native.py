@@ -1,5 +1,6 @@
 """The port's native host library (csrc/gatling_native.cpp,
-csrc/jpeg2000.cpp and csrc/tiff_codecs.cpp) through ctypes.
+csrc/jpeg2000.cpp, csrc/tiff_codecs.cpp and csrc/legacy_codecs.cpp)
+through ctypes.
 
 The JAX package keeps its host-side loops in a small C++ library
 (gatling_tpu/native.py over native/gatling_native.cpp): Morton ordering
@@ -12,8 +13,11 @@ integer transforms (imgio/jpeg.py), the TIFF LZW and PackBits decoders
 decoders (imgio/dds.py) and libwebp's VP8 and VP8L decoders with the
 stages after them (imgio/vp8.py, vp8l.py, webp.py); a second source,
 csrc/jpeg2000.cpp, OpenJPEG's tile decoding (imgio/jpeg2000.py); and a
-third, csrc/tiff_codecs.cpp, libtiff's CCITT and ThunderScan decoders and
-a Zstandard frame decoder (imgio/tiff.py).
+third, csrc/tiff_codecs.cpp, libtiff's CCITT and ThunderScan decoders, a
+Zstandard frame decoder and an xz / LZMA2 decoder (imgio/tiff.py); and a
+fourth, csrc/legacy_codecs.cpp, the run-length loops of Pillow's SGI, PCX,
+Sun raster, ICNS and FLI decoders (imgio/sgi.py, pcx.py, sun.py, icns.py,
+fli.py).
 
 `library()` builds the sources with g++ into one library in
 build/torch_ext/ (keyed by a hash of the sources and the flags, as
@@ -43,7 +47,7 @@ from gatling_tpu_torch.ops.cuda_lib import BUILD_DIR, CSRC
 # the library's sources: every one is compiled into it, and the build is
 # keyed on all of them
 SOURCE = CSRC / "gatling_native.cpp"
-MORE_SOURCES = (CSRC / "jpeg2000.cpp", CSRC / "tiff_codecs.cpp")
+MORE_SOURCES = (CSRC / "jpeg2000.cpp", CSRC / "tiff_codecs.cpp", CSRC / "legacy_codecs.cpp")
 # no contraction into fused multiply-adds: the float code rounds as the
 # x86-64 builds of the libraries it reproduces (OpenJPEG's 9/7 wavelet)
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
@@ -83,6 +87,13 @@ _ENTRY_POINTS = {
     "gatling_tiff_fax_decode": (_I64, [_U8, _I64, _U8, _I64, _I64, _INT, _INT, _INT, _INT, _I64]),
     "gatling_tiff_thunder_decode": (_I64, [_U8, _I64, _U8, _I64, _I64, _I64]),
     "gatling_tiff_zstd_decode": (_I64, [_U8, _I64, _U8, _I64]),
+    "gatling_tiff_xz_decode": (_I64, [_U8, _I64, _U8, _I64, _I32]),
+    "gatling_sgi_rle_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
+    "gatling_pcx_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _U8]),
+    "gatling_sun_rle_decode": (_I64, [_U8, _I64, _INT, _INT, _U8]),
+    "gatling_fli_decode": (_I64, [_U8, _I64, _INT, _INT, _U8]),
+    "gatling_icns_rle_channel": (_I64, [_U8, _I64, ctypes.POINTER(ctypes.c_int64), _I64, _U8,
+                                        ctypes.POINTER(ctypes.c_int64)]),
     "gatling_gif_lzw_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
     "gatling_bcn_decode": (_I64, [_U8, _I64, _INT, _INT, _INT, _INT, _U8]),
     "gatling_vp8_decode": (_I64, [_U8, _I64, _U8, _I64, _INT, _INT, _U8, _U8, _U8, _I32]),

@@ -45,6 +45,18 @@ tables of a Pillow JPEG in tags, its restart intervals the strips) and
 `ojpeg_jif` (a whole JPEG at JPEGInterchangeFormat); a 1024^2 ZSTD ground
 and Group 4 stencil are kept as their digest.
 
+The fixtures of Pillow's legacy plugins (`legacy_fixtures`, chip_smoke.py
+phase 4t) are Pillow's PCX, DCX frames, IM, SPIDER and XBM files, and the
+writers here for what Pillow does not write: `sgi_file` (SGI RLE: a 1024^2
+tile ground, `tile_ground`, kept as its digest), `pcx_file`, `dcx_file`,
+`blp_file` over `dxt1_blocks` (a plain DXT1 encoder) or a JPEG's header
+and scan, `ftex_file`, `sun_file` (raw and RLE), `icns_file` over
+`icns_rgb`, `fits_file` and `fits_gzip`, `fli_file` with `fli_color`,
+`fli_brun`, `fli_lc` and `fli_ss2` chunks, `xpm_file`, `msp_file`,
+`gbr_file`, `imt_file`, `iptc_file`, `mcidas_file`, `pixar_file` and
+`xvthumb_file` (tests/test_torch_imgio_legacy.py makes its own files with
+the same writers).
+
 Run from the repository root, where Pillow and JAX are installed:
 
     JAX_PLATFORMS=cpu python tests/data/imgio/make_fixtures.py
@@ -1294,15 +1306,539 @@ def tiff_fixtures() -> dict[str, bytes]:
     }
 
 
+# ---------------------------------------------------------------------------
+# Pillow's legacy plugins (tests/test_torch_imgio_legacy.py, chip_smoke.py
+# phase 4t): writers of what Pillow does not write
+# ---------------------------------------------------------------------------
+
+def sgi_file(img: np.ndarray, bpc: int = 1, rle: bool = True, dimension: int | None = None,
+             rows=None) -> bytes:
+    """An SGI image of img [h, w, c] (c 1, 3 or 4; uint8, or uint16 for bpc
+    2), raw or RLE (each channel's rows: runs and copies of at most 127
+    atoms, a 0 terminator); rows(r, c, encoded) may change a row's bytes."""
+    h, w, c = img.shape
+    dim = dimension or (3 if c > 1 else 2)
+    head = struct.pack(">HBBHHHH", 474, 1 if rle else 0, bpc, dim, w, h, c).ljust(512, b"\0")
+    planes = img[::-1].transpose(2, 0, 1)  # bottom row first
+    if not rle:
+        dt = ">u2" if bpc == 2 else "u1"
+        return head + planes.astype(dt).tobytes()
+    offsets, lengths, body = [], [], bytearray()
+    start = 512 + 8 * h * c
+    for ch in range(c):
+        for r in range(h):
+            samples = planes[ch, r]
+            enc = bytearray()
+            vals = samples.astype(np.int64).tolist()
+            i = 0
+            while i < w:
+                j = i
+                while j < w and vals[j] == vals[i] and j - i < 127:
+                    j += 1
+                if j - i >= 3:
+                    enc += (bytes([j - i]) + bytes([vals[i]]) if bpc == 1 else
+                            struct.pack(">HH", j - i, vals[i]))
+                    i = j
+                    continue
+                k = i + 1
+                while k < w and k - i < 127 and not (k + 2 < w and vals[k] == vals[k + 1]
+                                                      == vals[k + 2]):
+                    k += 1
+                enc += (bytes([0x80 | (k - i)]) + bytes(vals[i:k]) if bpc == 1 else
+                        struct.pack(">H", 0x80 | (k - i)) + struct.pack(f">{k - i}H",
+                                                                         *vals[i:k]))
+                i = k
+            enc += b"\0" * bpc
+            if rows is not None:
+                enc = bytearray(rows(r, ch, bytes(enc)))
+            offsets.append(start + len(body))
+            lengths.append(len(enc))
+            body += enc
+    # the lengths are bytes; Pillow's decoder takes them as a count of
+    # chunks, never fewer than the row's, and stops at the terminator
+    table = struct.pack(f">{h * c}I", *offsets) + struct.pack(f">{h * c}I", *lengths)
+    return head + table + bytes(body)
+
+
+def pcx_file(planes: np.ndarray, bits: int, palette: bytes = b"\0" * 48, version: int = 5,
+             stride: int | None = None, vga: bytes | None = None) -> bytes:
+    """A PCX of `planes` [p, h, w] sample planes (bits 1 or 8): rows of each
+    plane packed MSB first at `stride` bytes, run-length coded; a VGA
+    palette (768 bytes) after the data if given."""
+    p, h, w = planes.shape
+    line = (w * bits + 7) // 8
+    stride = stride or line + (line % 2)
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 72, 72)
+    head += palette[:48].ljust(48, b"\0") + bytes([0, p]) + struct.pack("<HH", stride, 1)
+    head = head.ljust(128, b"\0")
+    data = bytearray()
+    for r in range(h):
+        row = bytearray()
+        for k in range(p):
+            v = planes[k, r]
+            packed = np.packbits(v.astype(bool)) if bits == 1 else v.astype(np.uint8)
+            row += packed.tobytes().ljust(stride, b"\0")
+        i = 0
+        while i < len(row):
+            j = i
+            while j < len(row) and row[j] == row[i] and j - i < 63:
+                j += 1
+            if j - i > 1 or row[i] >= 0xC0:
+                data += bytes([0xC0 | (j - i), row[i]])
+                i = j
+            else:
+                data.append(row[i])
+                i += 1
+    return bytes(head) + bytes(data) + (b"\x0c" + vga if vga is not None else b"")
+
+
+def dcx_file(frames: list[bytes]) -> bytes:
+    """A DCX directory of PCX frames."""
+    at = 4 + 4 * (len(frames) + 1)
+    offsets = []
+    for f in frames:
+        offsets.append(at)
+        at += len(f)
+    return struct.pack(f"<I{len(frames) + 1}I", 987654321, *offsets, 0) + b"".join(frames)
+
+
+def dxt1_blocks(img: np.ndarray) -> bytes:
+    """A plain DXT1 encoder: each 4x4 block's darkest and lightest pixels
+    as its end points (4-colour mode), every pixel the nearest of the four;
+    img [h, w, 3], h and w multiples of 4."""
+    h, w, _ = img.shape
+    blocks = img.reshape(h // 4, 4, w // 4, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    lum = blocks.astype(np.int64).sum(-1)
+    hi = blocks[np.arange(len(blocks)), lum.argmax(1)].astype(np.int64)
+    lo = blocks[np.arange(len(blocks)), lum.argmin(1)].astype(np.int64)
+    def q(c):
+        return (c[:, 0] >> 3) << 11 | (c[:, 1] >> 2) << 5 | (c[:, 2] >> 3)
+    c0, c1 = q(hi), q(lo)
+    swap = c0 < c1
+    c0, c1 = np.where(swap, c1, c0), np.where(swap, c0, c1)
+    c1 = np.where(c0 == c1, np.maximum(c0 - 1, 0), c1)
+    def rgb(c):
+        return np.stack([(c >> 11) << 3, ((c >> 5) & 63) << 2, (c & 31) << 3], -1)
+    p0, p1 = rgb(c0), rgb(c1)
+    pal = np.stack([p0, p1, (2 * p0 + p1) // 3, (p0 + 2 * p1) // 3], 1)  # [n, 4, 3]
+    d = ((blocks[:, :, None, :].astype(np.int64) - pal[:, None]) ** 2).sum(-1)
+    idx = d.argmin(-1)
+    four = c0 > c1
+    idx = np.where(four[:, None], idx, np.minimum(idx, 1))
+    bits = (idx << (2 * np.arange(16))).sum(1)
+    return b"".join(struct.pack("<HHI", int(a), int(b), int(c)) for a, b, c in zip(c0, c1, bits))
+
+
+def blp_file(version: int, w: int, h: int, body: bytes, compression: int = 1, encoding: int = 1,
+             alpha: int = 0, alpha_encoding: int = 0, palette: bytes = b"",
+             jpeg_header: bytes | None = None) -> bytes:
+    """A BLP1 or BLP2 with one mipmap, `body` its bytes (palette indices,
+    DXT blocks or, for a BLP1 JPEG, the stream after `jpeg_header`)."""
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIiI", compression, alpha, w, h, encoding, 0)
+    else:
+        head = b"BLP2" + struct.pack("<ibbbbII", compression, encoding, alpha, alpha_encoding, 1,
+                                     w, h)
+    extra = palette.ljust(1024, b"\0") if palette else b""
+    if jpeg_header is not None:
+        extra = struct.pack("<I", len(jpeg_header)) + jpeg_header
+    offset = len(head) + 128 + len(extra)
+    tables = struct.pack("<16I", offset, *([0] * 15)) + struct.pack("<16I", len(body), *([0] * 15))
+    return head + tables + extra + body
+
+
+def ftex_file(w: int, h: int, fmt: int, mip: bytes) -> bytes:
+    return (b"FTEX" + struct.pack("<i2i2i2i", 1, w, h, 1, 1, fmt, 32) + struct.pack("<i", len(mip))
+            + mip)
+
+
+def sun_file(rows: np.ndarray, w: int, depth: int, file_type: int = 1,
+             palette: np.ndarray | None = None, palette_type: int = 1) -> bytes:
+    """A Sun raster of packed rows [h, (w * depth + 7) // 8]: raw rows padded
+    to 16 bits, or (type 2) the unpadded rows run-length coded."""
+    h = rows.shape[0]
+    pal = b"" if palette is None else palette.T.astype(np.uint8).tobytes()  # planar
+    if file_type == 2:
+        flat = rows.tobytes()
+        data = bytearray()
+        i = 0
+        while i < len(flat):
+            j = i
+            while j < len(flat) and flat[j] == flat[i] and j - i < 256:
+                j += 1
+            n = j - i
+            if n >= 3 or flat[i] == 0x80:
+                if n == 1:
+                    data += b"\x80\x00"
+                else:
+                    data += bytes([0x80, n - 1, flat[i]])
+                i = j
+            else:
+                data.append(flat[i])
+                i += 1
+    else:
+        stride = ((w * depth + 15) // 16) * 2
+        data = np.pad(rows, ((0, 0), (0, stride - rows.shape[1]))).tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), file_type,
+                       palette_type if palette is not None else 0, len(pal))
+    return head + pal + bytes(data)
+
+
+def icns_rle_channel(v: np.ndarray) -> bytes:
+    """IcnsImagePlugin's packbits-like coding of one channel."""
+    out = bytearray()
+    vals = v.tobytes()
+    i = 0
+    while i < len(vals):
+        j = i
+        while j < len(vals) and vals[j] == vals[i] and j - i < 130:
+            j += 1
+        if j - i >= 3:
+            out += bytes([(j - i) + 125, vals[i]])
+            i = j
+            continue
+        k = i + 1
+        while k < len(vals) and k - i < 128 and not (k + 2 < len(vals) and vals[k] ==
+                                                     vals[k + 1] == vals[k + 2]):
+            k += 1
+        out += bytes([k - i - 1]) + vals[i:k]
+        i = k
+    return bytes(out)
+
+
+def icns_file(elements: list[tuple[bytes, bytes]]) -> bytes:
+    body = b"".join(kind + struct.pack(">I", 8 + len(data)) + data for kind, data in elements)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rgb(img: np.ndarray, kind: bytes, rle: bool = True) -> bytes:
+    """An it32 / ih32 / il32 / is32 element's data of img [n, n, 3]."""
+    data = (b"".join(icns_rle_channel(img[..., c]) for c in range(3)) if rle
+            else img.tobytes())
+    return (b"\0\0\0\0" if kind == b"it32" else b"") + data
+
+
+def fits_file(arr: np.ndarray, bitpix: int, extra: list[bytes] = ()) -> bytes:
+    """A FITS primary image of arr [h, w] as BITPIX samples (big-endian),
+    rows in file order (Pillow reads them bottom first)."""
+    h, w = arr.shape
+    dt = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}[bitpix]
+    cards = [f"SIMPLE  = {'T':>20}", f"BITPIX  = {bitpix:>20}", f"NAXIS   = {2:>20}",
+             f"NAXIS1  = {w:>20}", f"NAXIS2  = {h:>20}", *[c.decode() for c in extra], "END"]
+    head = "".join(c.ljust(80) for c in cards).encode().ljust(2880 * (-(-len(cards) * 80 // 2880)),
+                                                                b" ")
+    data = arr.astype(dt).tobytes()
+    return head + data.ljust(-(-len(data) // 2880) * 2880, b"\0")
+
+
+def fits_gzip(arr: np.ndarray, zbitpix: int) -> bytes:
+    """Pillow's GZIP_1 layout: an empty primary HDU, then a BINTABLE with
+    ZIMAGE T, ZCMPTYPE 'GZIP_1  ' and the image's 32-bit big-endian words
+    gzipped as its heap (no padding after it)."""
+    import gzip
+
+    h, w = arr.shape
+    primary = "".join(c.ljust(80) for c in [f"SIMPLE  = {'T':>20}", f"BITPIX  = {8:>20}",
+                                            f"NAXIS   = {0:>20}", "END"]).encode().ljust(2880)
+    cards = [f"XTENSION= 'BINTABLE'", f"BITPIX  = {8:>20}", f"NAXIS   = {2:>20}",
+             f"NAXIS1  = {8:>20}", f"NAXIS2  = {1:>20}", f"ZIMAGE  = {'T':>20}",
+             f"ZBITPIX = {zbitpix:>20}", f"ZNAXIS  = {2:>20}", f"ZNAXIS1 = {w:>20}",
+             f"ZNAXIS2 = {h:>20}", "ZCMPTYPE= 'GZIP_1  '", "END"]
+    table_head = "".join(c.ljust(80) for c in cards).encode().ljust(2880)
+    words = arr.astype(">i4").tobytes()
+    return primary + table_head + b"\0" * 8 + gzip.compress(words, mtime=0)
+
+
+def fli_file(w: int, h: int, chunks: list[tuple[int, bytes]], flc: bool = True,
+             prefix: bytes | None = None) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) of one frame of subchunks [(type,
+    data)], each padded to an even size."""
+    sub = b""
+    for kind, data in chunks:
+        data = data + b"\0" * (len(data) % 2)
+        sub += struct.pack("<IH", 6 + len(data), kind) + data
+    frame = struct.pack("<IHH", 16 + len(sub), 0xF1FA, len(chunks)) + b"\0" * 8 + sub
+    pre = b"" if prefix is None else struct.pack("<IH", 6 + len(prefix), 0xF100) + prefix
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHH", head, 0, 128 + len(pre) + len(frame), 0xAF12 if flc else 0xAF11,
+                     1, w, h, 8, 0)
+    struct.pack_into("<I", head, 16, 5)
+    return bytes(head) + pre + frame
+
+
+def fli_color(entries: np.ndarray, start: int = 0) -> bytes:
+    """A COLOR chunk's data: one packet of `entries` [n, 3] after `start`
+    skipped."""
+    n = len(entries)
+    return struct.pack("<HBB", 1, start, n & 255) + entries.astype(np.uint8).tobytes()
+
+
+def fli_brun(img: np.ndarray) -> bytes:
+    """BRUN lines of img [h, w]: a packet-count byte, then runs (count,
+    byte) and literals (-count, bytes)."""
+    out = bytearray()
+    for row in img:
+        out.append(0)
+        vals = row.tobytes()
+        i = 0
+        while i < len(vals):
+            j = i
+            while j < len(vals) and vals[j] == vals[i] and j - i < 127:
+                j += 1
+            if j - i >= 2:
+                out += bytes([j - i, vals[i]])
+                i = j
+            else:
+                k = i + 1
+                while k < len(vals) and k - i < 128 and (k + 1 >= len(vals) or
+                                                         vals[k] != vals[k + 1]):
+                    k += 1
+                out += bytes([256 - (k - i)]) + vals[i:k]
+                i = k
+    return bytes(out)
+
+
+def fli_lc(y0: int, rows: list[list[tuple[int, bytes | tuple[int, int]]]]) -> bytes:
+    """An LC chunk from line y0: each line a list of (skip, bytes) copies or
+    (skip, (count, byte)) runs."""
+    out = struct.pack("<HH", y0, len(rows))
+    for packets in rows:
+        out += bytes([len(packets)])
+        for skip, what in packets:
+            if isinstance(what, tuple):
+                out += bytes([skip, 256 - what[0], what[1]])
+            else:
+                out += bytes([skip, len(what)]) + what
+    return out
+
+
+def fli_ss2(lines: list) -> bytes:
+    """An SS2 chunk: each line a list of words (a flag word or packet
+    count) and packets (skip, bytes of an even length) or (skip, (count,
+    two bytes)) runs."""
+    out = struct.pack("<H", len(lines))
+    for words, packets in lines:
+        for wd in words:
+            out += struct.pack("<H", wd)
+        out += struct.pack("<H", len(packets))
+        for skip, what in packets:
+            if isinstance(what, tuple):
+                out += bytes([skip, 256 - what[0]]) + what[1]
+            else:
+                out += bytes([skip, len(what) // 2]) + what
+    return out
+
+
+def xpm_file(idx: np.ndarray, colours: list[bytes], cpp: int = 1, keys: list[bytes] | None = None,
+             pixels_comment: bool = True) -> bytes:
+    """An XPM of palette indices idx [h, w] over colour values ("#rrggbb",
+    "None", ...), keys of `cpp` characters."""
+    h, w = idx.shape
+    alphabet = b".#abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789+@"
+    if keys is None:
+        keys = []
+        for k in range(len(colours)):
+            key = b""
+            v = k
+            for _ in range(cpp):
+                key += alphabet[v % len(alphabet):v % len(alphabet) + 1]
+                v //= len(alphabet)
+            keys.append(key)
+    lines = [b"/* XPM */", b"static char *img[] = {", b"/* columns rows colors cpp */",
+             b'"%d %d %d %d",' % (w, h, len(colours), cpp)]
+    lines += [b'"' + keys[k] + b" c " + colours[k] + b'",' for k in range(len(colours))]
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + b"".join(keys[v] for v in row) + b'",' for row in idx]
+    lines.append(b"};")
+    return b"\n".join(lines) + b"\n"
+
+
+def msp_file(bits: np.ndarray, version: int = 2) -> bytes:
+    """A Windows Paint file of bits [h, w] (True white): version 1 raw, or
+    version 2 rows of runs and literals."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(bool), axis=1)
+    words = [0] * 16
+    words[0], words[1] = struct.unpack("<HH", b"DanM" if version == 1 else b"LinS")
+    words[2], words[3] = w, h
+    for k in range(12):
+        words[12] ^= words[k]  # the header's words XOR to 0
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    body, rowmap = b"", []
+    for r in rows:
+        if (r == 255).all():
+            rowmap.append(0)
+            continue
+        enc = bytearray()
+        vals = r.tobytes()
+        i = 0
+        while i < len(vals):
+            j = i
+            while j < len(vals) and vals[j] == vals[i] and j - i < 255:
+                j += 1
+            if j - i >= 3:
+                enc += bytes([0, j - i, vals[i]])
+                i = j
+            else:
+                k = i + 1
+                while k < len(vals) and k - i < 255 and not (k + 2 < len(vals) and vals[k] ==
+                                                             vals[k + 1] == vals[k + 2]):
+                    k += 1
+                enc += bytes([k - i]) + vals[i:k]
+                i = k
+        rowmap.append(len(enc))
+        body += bytes(enc)
+    return head + struct.pack(f"<{h}H", *rowmap) + body
+
+
+def gbr_file(px: np.ndarray, version: int = 2, comment: bytes = b"brush\0") -> bytes:
+    h, w, depth = px.shape
+    size = (28 if version == 2 else 20) + len(comment)
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 25)
+    return head + comment + px.astype(np.uint8).tobytes()
+
+
+def imt_file(img: np.ndarray) -> bytes:
+    h, w = img.shape
+    return b"* IM Tools\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h) + img.tobytes()
+
+
+def iptc_file(img: np.ndarray, band: int | None = None, layers: int = 1, component: int = 0,
+              chunk: int = 1000) -> bytes:
+    """An IPTC/NAA record set holding the raw image img [h, w] (one band)."""
+    h, w = img.shape
+
+    def field(rec: int, tag: int, data: bytes) -> bytes:
+        if len(data) < 0x8000:
+            return bytes([0x1C, rec, tag]) + struct.pack(">H", len(data)) + data
+        return bytes([0x1C, rec, tag, 0x80 | 4]) + b"\0" + struct.pack(">I", len(data)) + data
+
+    out = (field(2, 0, b"\0\2") + field(3, 60, bytes([layers, component]))
+           + field(3, 20, struct.pack(">H", w)) + field(3, 30, struct.pack(">H", h))
+           + field(3, 120, b"\1"))
+    if band is not None:
+        out += field(3, 65, bytes([band]))
+    data = img.astype(np.uint8).tobytes()
+    for k in range(0, len(data), chunk):
+        out += field(8, 10, data[k:k + chunk])
+    return out
+
+
+def mcidas_file(arr: np.ndarray, size: int, prefix: int = 0) -> bytes:
+    """A McIdas area of arr [h, w] at `size` bytes a sample (big-endian),
+    each line after a prefix of `prefix` bytes."""
+    h, w = arr.shape
+    head = np.zeros(64, ">i4")
+    head[1] = 4
+    head[8], head[9], head[10], head[13] = h, w, size, 1
+    head[14] = prefix
+    head[33] = 256
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[size]
+    lines = np.concatenate([np.zeros((h, prefix), np.uint8),
+                            arr.astype(dt).view(np.uint8).reshape(h, -1)], 1)
+    return b"\0\0\0\0\0\0\0\4" + head.tobytes()[8:] + lines.tobytes()
+
+
+def pixar_file(img: np.ndarray) -> bytes:
+    h, w, _ = img.shape
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<HH", head, 416, h, w)
+    struct.pack_into("<HH", head, 424, 14, 2)
+    return bytes(head) + img.astype(np.uint8).tobytes()
+
+
+def xvthumb_file(idx: np.ndarray) -> bytes:
+    h, w = idx.shape
+    return (b"P7 332\n#XVVERSION:Version 2.28\n#IMGINFO:\n#END_OF_COMMENTS\n%d %d 255\n" % (w, h)
+            + idx.astype(np.uint8).tobytes())
+
+
+def tile_ground(n: int, seed: int) -> np.ndarray:
+    """A floor of flat tiles, 64 x 8 texels each, their colours from a
+    seed: [n, n, 3] uint8 whose rows are runs (an RLE-compressible 1024^2
+    ground)."""
+    rng = np.random.default_rng(seed)
+    colours = rng.integers(40, 230, (n // 8 + 1, n // 64 + 1, 3), np.uint8)
+    yy, xx = np.mgrid[0:n, 0:n]
+    return colours[yy // 8, (xx + 32 * ((yy // 8) % 2)) // 64]
+
+
+def legacy_fixtures() -> dict[str, bytes]:
+    """The fixtures of Pillow's legacy plugins (chip_smoke.py phase 4t):
+    8-bit base colours (a 1024^2 SGI RLE tile ground kept as its digest,
+    PCX with a VGA palette, DCX, BLP2 DXT1, BLP1 JPEG, FTEX, Sun RLE, an
+    ICNS it32 icon with its mask, XPM, IM) and float roughnesses (SPIDER,
+    FITS -32 of big- and of little-endian floats, FITS 16, McIdas 16-bit,
+    IM "F" and "I;16"), and a few more decoded on the card's host (FLI,
+    MSP, GBR, XV thumbnail, XBM)."""
+    from PIL import Image
+
+    def save(img, fmt, **kw) -> bytes:
+        buf = io.BytesIO()
+        img.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    t64 = texture(64, 64, 3, 120)
+    jpg = pillow(texture(64, 64, 3, 121), "JPEG")
+    cut = jpg.find(b"\xff\xda")
+    pal8 = texture(48, 64, 1, 122)[..., 0]
+    rle8 = (pal8 // 16).astype(np.uint8)
+    icon = texture(128, 128, 4, 123)
+    grey = texture(40, 48, 1, 124)[..., 0].astype(np.int64)
+    idx = (texture(32, 40, 1, 125)[..., 0] // 32).astype(np.uint8)
+    rng = np.random.default_rng(126)
+    return {
+        "sgi_ground_1024.sgi": sgi_file(tile_ground(1024, 127)),
+        "pcx_vga.pcx": save(Image.fromarray(texture(48, 64, 3, 128)).quantize(64), "PCX"),
+        "dcx_rgb.dcx": dcx_file([save(Image.fromarray(texture(40, 56, 3, 129)), "PCX"),
+                                 save(Image.fromarray(texture(20, 20, 3, 130)), "PCX")]),
+        "blp2_dxt1.blp": blp_file(2, 64, 64, dxt1_blocks(t64), 1, 2, 0, 0,
+                                  bytes(1024)),
+        "blp1_jpeg.blp": blp_file(1, 64, 64, jpg[cut:], 0, 5, 0, jpeg_header=jpg[:cut]),
+        "ftex_dxt1.ftex": ftex_file(64, 64, 0, dxt1_blocks(texture(64, 64, 3, 131))),
+        "sun_rle8.ras": sun_file(rle8, 64, 8, 2, rng.integers(0, 256, (16, 3), np.uint8)),
+        "icns_it32.icns": icns_file([(b"it32", icns_rgb(icon[..., :3], b"it32")),
+                                     (b"t8mk", icon[..., 3].tobytes())]),
+        "xpm_p.xpm": xpm_file(idx, [b"#%06x" % int(v) for v in rng.integers(0, 1 << 24, 8)]),
+        "im_rgb.im": save(Image.fromarray(texture(36, 52, 3, 132)), "IM"),
+        "spider_f.spi": save(Image.fromarray(grey.astype(np.float32) / 255.0, "F"), "SPIDER"),
+        "fits_m32.fits": fits_file(grey.astype(np.float64) / 255.0, -32),
+        # Pillow reads FITS floats as little-endian: a file of little-endian
+        # floats gives it finite texels (the big-endian one above gives it
+        # byte-swapped values, NaN and infinities among them)
+        "fits_m32_le.fits": fits_file(np.frombuffer((grey.astype(np.float32) / 255.0)
+                                                    .astype("<f4").tobytes(), ">f4")
+                                      .reshape(grey.shape), -32),
+        "fits_16.fits": fits_file(grey * 100, 16),
+        "mcidas_2.area": mcidas_file(grey * 250, 2, 4),
+        "im_f.im": save(Image.fromarray(grey.astype(np.float32) / 255.0, "F"), "IM"),
+        "im_grey16.im": save(Image.frombytes("I;16", (48, 40), (grey * 257).astype("<u2")
+                                             .tobytes()), "IM"),
+        "fli_brun.flc": fli_file(40, 32, [(11, fli_color(rng.integers(0, 64, (256, 3)))),
+                                          (15, fli_brun(idx))]),
+        "msp_v2.msp": msp_file(texture(30, 44, 1, 133)[..., 0] > 120, 2),
+        "gbr_rgba.gbr": gbr_file(texture(24, 24, 4, 134), 2),
+        "xvthumb.xv": xvthumb_file(texture(30, 40, 1, 135)[..., 0]),
+        "xbm_bits.xbm": pillow(texture(30, 44, 1, 136) > 128, "XBM"),
+    }
+
+
 def fixtures() -> dict[str, bytes]:
     """Every fixture's file name and bytes."""
     return {**first_fixtures(), **new_fixtures(), **webp_fixtures(), **jpeg2000_fixtures(),
-            **tiff_fixtures()}
+            **tiff_fixtures(), **legacy_fixtures()}
 
 
 # fixtures.npz keeps these as the digest of their array
 DIGESTED = ("webp_ground_1024.webp", "webp_rgba_1024.webp", "webp_lossless_1024.webp",
-            "j2k_ground_1024.jp2", "tiff_zstd_ground_1024.tif", "tiff_g4_stencil_1024.tif")
+            "j2k_ground_1024.jp2", "tiff_zstd_ground_1024.tif", "tiff_g4_stencil_1024.tif",
+            "sgi_ground_1024.sgi")
 
 
 def digest(arr: np.ndarray) -> np.ndarray:

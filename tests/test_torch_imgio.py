@@ -438,9 +438,11 @@ def _tiff_ycbcr(rgb: np.ndarray) -> bytes:
 
 
 # the variants of _unported() the port has come to read (JPEG 2000, JPEG's
-# lossless and arithmetic frames, YCbCr TIFF; tests/test_torch_jpeg2000.py,
-# test_torch_jpeg_arith.py and test_torch_tiff_codecs.py hold them in full)
-NOW_PORTED = ("jpeg2000", "jpeg_sof3", "jpeg_sof9", "jpeg_sof10", "jpeg_sof11", "tiff_ycbcr_lzw")
+# lossless and arithmetic frames, YCbCr TIFF, PCX and SGI;
+# tests/test_torch_jpeg2000.py, test_torch_jpeg_arith.py,
+# test_torch_tiff_codecs.py and test_torch_imgio_legacy.py hold them in full)
+NOW_PORTED = ("jpeg2000", "jpeg_sof3", "jpeg_sof9", "jpeg_sof10", "jpeg_sof11", "tiff_ycbcr_lzw",
+              "pcx", "sgi")
 
 
 @pytest.mark.parametrize("name", sorted(_unported()))

@@ -127,10 +127,14 @@ def test_png_writer_rgba_and_unsupported_inputs(tmp_path):
     Image.fromarray(rgba[..., :3]).save(jpeg, "JPEG")
     np.testing.assert_array_equal(timgio.load_image(jpeg.getvalue()),
                                   jimgio.load_image(jpeg.getvalue()).data)
-    sgi = io.BytesIO()  # a format of Pillow's that the port does not read
+    sgi = io.BytesIO()  # SGI, which the port has come to read
     Image.fromarray(rgba[..., :3]).save(sgi, "SGI")
+    np.testing.assert_array_equal(timgio.load_image(sgi.getvalue()),
+                                  jimgio.load_image(sgi.getvalue()).data)
+    avif = io.BytesIO()  # a format of Pillow's that the port does not read
+    Image.fromarray(rgba[..., :3]).save(avif, "AVIF")
     with pytest.raises(NotImplementedError, match="USD content"):
-        timgio.load_image(sgi.getvalue())
+        timgio.load_image(avif.getvalue())
     for fmt in ("BMP", "WEBP"):  # read since the port ported BMP, then WebP
         buf = io.BytesIO()
         Image.fromarray(rgba[..., :3]).save(buf, fmt)

@@ -9,8 +9,10 @@ ValueError in both. The inputs are made from seeds.
    damaged copies (cut short, bits flipped): a T.4 strip whose EOL search
    runs out of data is decoded again without EOLs, as libtiff does.
 2. LZMA: xz streams made with Python's lzma (each check type, the delta and
-   x86 filters, two streams) in TIFFs, and Pillow's files with predictors 2
-   and 3.
+   branch filters, two streams) in TIFFs, and Pillow's files with predictors
+   2 and 3; streams framed here over stored chunks for every branch filter
+   (ARM64 and RISC-V too), chains of them, blocks of declared sizes, and
+   their damaged copies.
 3. ZSTD: Pillow's files of varied data (raw, RLE and compressed blocks,
    Huffman literals of one and four streams, treeless literals, FSE tables
    in every mode; a Python walker of the frames shows they are there),
@@ -32,11 +34,14 @@ ValueError in both. The inputs are made from seeds.
 
 Damage where Pillow's array cannot be reproduced: libtiff leaves the rows of
 a T.6 strip past its early end unwritten (Pillow's buffer: uninitialized
-memory), and keeps LZMA data whose error comes with or after a strip's last
-byte; there the port raises ValueError (`ONE_SIDED`), never a different
-array (ROADMAP Queue 3).
+memory); there the port raises ValueError (`ONE_SIDED`), never a different
+array. LZMA data whose error liblzma reports with or after a strip's last
+byte is kept, as libtiff keeps it (the native xz decoder writes what
+liblzma writes before its error).
 """
 
+import ctypes
+import glob
 import importlib.util
 import io
 import lzma
@@ -46,6 +51,7 @@ import zlib
 
 import numpy as np
 import pytest
+import PIL
 from PIL import Image
 
 from gatling_tpu import imgio as jimgio
@@ -59,7 +65,7 @@ mf = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(mf)
 
 # the port's messages where Pillow keeps an array the port cannot reproduce
-ONE_SIDED = ("ends before its last row", "corrupt LZMA data")
+ONE_SIDED = ("ends before its last row",)
 
 
 def contract(data: bytes, one_sided: bool = False) -> str:
@@ -156,7 +162,10 @@ XZ_CHECKS = {"none": lzma.CHECK_NONE, "crc32": lzma.CHECK_CRC32, "crc64": lzma.C
              "sha256": lzma.CHECK_SHA256}
 XZ_FILTERS = {"lzma2": [{"id": lzma.FILTER_LZMA2}],
               "delta": [{"id": lzma.FILTER_DELTA, "dist": 3}, {"id": lzma.FILTER_LZMA2}],
-              "x86": [{"id": lzma.FILTER_X86}, {"id": lzma.FILTER_LZMA2}]}
+              **{name: [{"id": fid}, {"id": lzma.FILTER_LZMA2}] for name, fid in (
+                  ("x86", lzma.FILTER_X86), ("powerpc", lzma.FILTER_POWERPC),
+                  ("ia64", lzma.FILTER_IA64), ("arm", lzma.FILTER_ARM),
+                  ("armthumb", lzma.FILTER_ARMTHUMB), ("sparc", lzma.FILTER_SPARC))}}
 
 
 @pytest.mark.parametrize("chain", sorted(XZ_FILTERS))
@@ -186,6 +195,223 @@ def test_xz_streams(check, chain):
             b[-13] ^= 0x40
         contract(mf.tiff_raw([bytes(b) for b in bad], 30, 24, fields, rows_per_strip=12),
                  one_sided=True)
+
+
+@pytest.mark.parametrize("chain", sorted(XZ_FILTERS))
+def test_native_xz_decoder(chain):
+    """The native xz / LZMA2 decoder (tiff.py `_lzma`) against Python's
+    lzma (liblzma) on whole streams: every byte, over LZMA2 chunks of
+    every kind (uncompressed, state and dictionary resets; several chunks
+    for incompressible data), lc/lp/pb and dictionary sizes, and with room
+    for fewer bytes than the stream holds (a branch filter's last
+    instructions then filtered as liblzma's look-ahead filters them)."""
+    rng = np.random.default_rng(sorted(XZ_FILTERS).index(chain))
+    from gatling_tpu_torch.imgio import tiff
+
+    for k in range(12):
+        n = int(rng.integers(5, 150000))
+        raw = [rng.integers(0, 256, n, np.uint8), np.repeat(rng.integers(0, 256, n // 9 + 1,
+                                                                         np.uint8), 9)[:n],
+               (np.arange(n) % int(rng.integers(2, 40))).astype(np.uint8)][k % 3]
+        for op in (0xE8, 0x48, 0xEB, 0xF0, 0xF8, 0x40, 0x7F, 0x16):
+            raw[rng.integers(0, n, n // 60)] = op
+        lz = {"id": lzma.FILTER_LZMA2, "preset": int(rng.integers(0, 7)),
+              "lc": int(rng.integers(0, 3)), "lp": int(rng.integers(0, 2)),
+              "pb": int(rng.integers(0, 5)), "dict_size": 4096 << int(rng.integers(0, 12))}
+        filters = XZ_FILTERS[chain][:-1] + [lz]
+        blob = lzma.compress(raw.tobytes(), lzma.FORMAT_XZ, filters=filters)
+        assert tiff._lzma(blob, n).tobytes() == raw.tobytes()
+        short = max(1, n // 3)
+        assert tiff._lzma(blob, short).tobytes() == raw[:short].tobytes()
+
+
+def xz_vli(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append(v & 0x7F | 0x80)
+        v >>= 7
+    return bytes(out + bytes([v]))
+
+
+def xz_framed(blocks, sizes: bool = False, chunk: int = 400) -> bytes:
+    """An xz stream without checks whose blocks [(filters [(id, props)],
+    data)] hold their data in stored LZMA2 chunks of `chunk` bytes: the
+    branch filters then decode bytes chosen here (Python's lzma writes no
+    ARM64 or RISC-V stream), and liblzma is the judge. `sizes`: the block
+    headers declare their compressed and uncompressed sizes."""
+    out = bytearray(b"\xfd7zXZ\0\0\0" + struct.pack("<I", zlib.crc32(b"\0\0")))
+    records = []
+    for filters, data in blocks:
+        body = bytearray()
+        for k in range(0, len(data), chunk):
+            part = data[k:k + chunk]
+            body += bytes([1 if k == 0 else 2]) + struct.pack(">H", len(part) - 1) + part
+        body += b"\0"
+        head = bytearray([len(filters) | (0xC0 if sizes else 0)])
+        if sizes:
+            head += xz_vli(len(body)) + xz_vli(len(data))
+        for fid, props in filters + [(0x21, b"\x10")]:
+            head += xz_vli(fid) + xz_vli(len(props)) + props
+        size = (len(head) + 5 + 3) // 4 * 4
+        head = bytes([size // 4 - 1]) + head + bytes(size - 5 - len(head))
+        block = head + struct.pack("<I", zlib.crc32(head)) + body
+        records.append((len(block), len(data)))
+        out += block + bytes(-len(block) % 4)
+    index = bytearray(b"\0" + xz_vli(len(records)))
+    for unpadded, n in records:
+        index += xz_vli(unpadded) + xz_vli(n)
+    index += bytes(-len(index) % 4)
+    index += struct.pack("<I", zlib.crc32(index))
+    foot = struct.pack("<I", len(index) // 4 - 1) + b"\0\0"
+    return bytes(out + index + struct.pack("<I", zlib.crc32(foot)) + foot + b"YZ")
+
+
+# liblzma's branch filters: id, the start offsets' alignment
+XZ_BRANCH = {"x86": (4, 1), "powerpc": (5, 4), "ia64": (6, 16), "arm": (7, 4),
+             "armthumb": (8, 2), "sparc": (9, 4), "arm64": (10, 4), "riscv": (11, 2)}
+
+
+def branch_code(rng, n: int) -> bytes:
+    """n bytes dense in every architecture's branch and address opcodes."""
+    b = rng.integers(0, 256, n).astype(np.uint8)
+    for op in (0xE8, 0xE9, 0xEB, 0xEF, 0x17, 0x97, 0x94, 0x90, 0x48, 0x40, 0x7F, 0xF0, 0xF8):
+        b[rng.integers(0, n, n // 40)] = op
+    for _ in range(n // 48):
+        at = int(rng.integers(0, n - 8))
+        w = int(rng.integers(0, 1 << 32))
+        w = [(w & ~0x7F) | 0x17, (w & ~0xFF) | 0xEF, (w & 0x03FFFFFF) | 0x94000000,
+             (w & ~0x9F000000) | 0x90000000, (w & ~0xEFF) | 0x17][int(rng.integers(0, 5))]
+        b[at:at + 4] = np.frombuffer(struct.pack("<I", w), np.uint8)
+    return b.tobytes()
+
+
+@pytest.mark.parametrize("name", sorted(XZ_BRANCH))
+def test_xz_branch_filters(name):
+    """Each branch filter liblzma decodes (x86, PowerPC, IA64, ARM,
+    ARM-Thumb, SPARC, ARM64, RISC-V), over stored chunks of branch-dense
+    bytes: alone, at a start offset of its alignment (one beside it
+    refused), behind a delta filter, twice in one chain, in two blocks of
+    declared sizes, in a stream longer than its strip; damaged (a bad chunk
+    header, the stream cut short) through the plain path (ValueError in
+    both) and libtiff's RGBA interface, where a filter that meets liblzma's
+    error leaves what it was given unfiltered and a cut stream's unfiltered
+    tail unwritten: Pillow's array."""
+    fid, align = XZ_BRANCH[name]
+    rng = np.random.default_rng(fid)
+    w, h = 24, 16
+    rgb = {258: (3, [8] * 3), 259: (3, [34925]), 262: (3, [2]), 277: (3, [3])}
+    code = branch_code(rng, w * h * 3 + 500)
+    n = w * h * 3
+    start = struct.pack("<I", 4096 + 16 * align)
+    other = XZ_BRANCH["arm64" if name != "arm64" else "riscv"][0]
+    chains = [[(fid, b"")], [(fid, start)], [(3, b"\x02"), (fid, b"")],
+              [(fid, b""), (other, b"")]]
+    for chain in chains:
+        assert contract(mf.tiff_raw([xz_framed([(chain, code[:n])])], w, h, rgb)) == "array"
+    halves = [(chains[0], code[:n // 2]), (chains[1], code[n // 2:n])]
+    assert contract(mf.tiff_raw([xz_framed(halves, sizes=True)], w, h, rgb)) == "array"
+    assert contract(mf.tiff_raw([xz_framed([(chains[0], code)])], w, h, rgb)) == "array"
+    if align > 1:
+        skew = [(fid, struct.pack("<I", 4096 + align // 2))]
+        assert contract(mf.tiff_raw([xz_framed([(skew, code[:n])])], w, h, rgb)) == "rejected"
+    ycc = {**YCC_FIELDS, 259: (3, [34925])}
+    wy, hy = 48, 32
+    units = code[:wy * hy // 4 * 6]
+    for chain in chains:
+        blob = bytearray(xz_framed([(chain, units)]))
+        first = blob.index(b"\x01\x01\x8f")  # the first chunk: stored, 400 bytes
+        bad = bytearray(blob)
+        bad[first + 3 + 400] = 0x05  # the second chunk's control byte: an error
+        for damaged in (bytes(bad), bytes(blob[:first + 3 + 400 + 3 + int(rng.integers(1, 390))])):
+            contract(mf.tiff_raw([damaged], w, h, rgb))
+            assert contract(mf.tiff_raw([damaged], wy, hy, ycc)) == "array"
+
+
+class _LzmaStream(ctypes.Structure):  # lzma.h lzma_stream
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t),
+                ("total_in", ctypes.c_uint64), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4), ("seek_pos", ctypes.c_uint64),
+                ("reserved_int", ctypes.c_uint64), ("reserved_sizes", ctypes.c_size_t * 2),
+                ("reserved_enums", ctypes.c_int * 2)]
+
+
+def libtiff_lzma(blob: bytes, n: int) -> bytes:
+    """What tif_lzma.c LZMADecode leaves in a strip of n bytes: Pillow's own
+    liblzma (the one its libtiff links) through ctypes, lzma_code called
+    until the strip is full, the data ends or liblzma reports an error."""
+    found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs",
+                                   "liblzma*"))
+    if not found:
+        pytest.skip("this Pillow bundles no liblzma")
+    lib = ctypes.CDLL(found[0])
+    strm = _LzmaStream()
+    assert lib.lzma_stream_decoder(ctypes.byref(strm), ctypes.c_uint64(2**64 - 1),
+                                   ctypes.c_uint32(0)) == 0
+    src = ctypes.create_string_buffer(blob, len(blob) + 1)
+    dst = ctypes.create_string_buffer(n + 1)
+    strm.next_in, strm.avail_in = ctypes.addressof(src), len(blob)
+    strm.next_out, strm.avail_out = ctypes.addressof(dst), n
+    while lib.lzma_code(ctypes.byref(strm), 0) == 0 and strm.avail_out > 0:
+        pass
+    got = n - strm.avail_out
+    lib.lzma_end(ctypes.byref(strm))
+    return dst.raw[:got]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_xz_against_liblzma(seed):
+    """The native xz decoder (tiff.py `_lzma`, the bytes it keeps) against
+    Pillow's liblzma as LZMADecode drives it, byte for byte: streams framed
+    here (one to three blocks, chains of up to three delta and branch
+    filters, start offsets aligned or not, declared sizes or not) and
+    Python's (each check, a branch filter behind a delta one or alone),
+    each whole, into a strip shorter than its data, and damaged (bytes
+    changed, cut short, bytes inserted)."""
+    from gatling_tpu_torch.imgio import tiff
+
+    rng = np.random.default_rng(seed)
+    ids = sorted(v[0] for v in XZ_BRANCH.values())
+    branch = [lzma.FILTER_X86, lzma.FILTER_POWERPC, lzma.FILTER_IA64, lzma.FILTER_ARM,
+              lzma.FILTER_ARMTHUMB, lzma.FILTER_SPARC]
+    for it in range(40):
+        if it % 2:
+            blocks = []
+            for _ in range(int(rng.integers(1, 4))):
+                chain = []
+                for _ in range(int(rng.integers(0, 4))):
+                    if rng.integers(0, 4) == 0:
+                        chain.append((3, bytes([int(rng.integers(0, 256))])))
+                    else:
+                        start = int(rng.integers(0, 1 << 20)) & ~int(rng.choice([0, 1, 15]))
+                        chain.append((int(rng.choice(ids)),
+                                      struct.pack("<I", start) if rng.integers(0, 2) else b""))
+                blocks.append((chain, branch_code(rng, int(rng.integers(16, 3000)))))
+            blob, n = xz_framed(blocks, sizes=bool(rng.integers(0, 2))), sum(
+                len(d) for _, d in blocks)
+        else:
+            n = int(rng.integers(16, 6000))
+            chain = [{"id": int(rng.choice(branch))}] if it % 4 else []
+            if rng.integers(0, 2):
+                chain.insert(0, {"id": lzma.FILTER_DELTA, "dist": int(rng.integers(1, 20))})
+            chain.append({"id": lzma.FILTER_LZMA2, "preset": int(rng.integers(0, 7))})
+            blob = lzma.compress(branch_code(rng, n), lzma.FORMAT_XZ,
+                                 check=[0, 1, 4, 10][it // 2 % 4], filters=chain)
+        copies = [(blob, n), (blob, max(1, n // 2))]
+        for k in range(6):
+            b = bytearray(blob)
+            if k % 3 == 0:
+                for _ in range(int(rng.integers(1, 4))):
+                    b[int(rng.integers(12, len(b)))] = int(rng.integers(0, 256))
+            elif k % 3 == 1:
+                b = b[:int(rng.integers(12, len(b)))]
+            else:
+                at = int(rng.integers(12, len(b)))
+                b[at:at] = rng.integers(0, 256, int(rng.integers(1, 8)), np.uint8).tobytes()
+            copies.append((bytes(b), n))
+        for data, room in copies:
+            assert tiff._lzma(data, room, partial=True).tobytes() == libtiff_lzma(data, room)
 
 
 @pytest.mark.parametrize("comp", (34925, 8), ids=("lzma", "deflate"))
@@ -662,6 +888,48 @@ def test_ycbcr_planes_and_damage():
                                 rows_per_strip=8)) == "array"
     assert contract(mf.tiff_raw(short, 12, 8, {**YCC_FIELDS, 530: (3, [2, 2])},
                                 rows_per_strip=2)) == "rejected"
+
+
+@pytest.mark.parametrize("comp", ("tiff_lzw", "zstd", "lzma"))
+def test_ycbcr_damaged_strips(comp):
+    """Damaged LZW, ZSTD and LZMA strips through libtiff's RGBA interface:
+    libtiff keeps what each codec wrote before its error (LZWDecode zeroes
+    the rest of the strip, libzstd hands over the blocks before the one at
+    fault, liblzma every byte it decoded), bytes changed and byte counts
+    cut, 24 seeds each: Pillow's array every time. The image's 144,000
+    bytes take two ZSTD blocks."""
+    data = saved(Image.fromarray(mf.texture(200, 240, 3, 61)).convert("YCbCr"),
+                 compression=comp, strip_size=1 << 20)
+    off, count, count_at = strip_span(data)
+    for seed in range(24):
+        rng = np.random.default_rng(seed)
+        b = bytearray(data)
+        if seed % 3 == 2:
+            struct.pack_into("<I", b, count_at, int(rng.integers(1, count)))
+        else:
+            for _ in range(int(rng.integers(1, 3))):
+                b[off + int(rng.integers(count))] = int(rng.integers(256))
+        assert contract(bytes(b)) == "array", seed
+    if comp == "zstd":  # the second block's type made reserved: libzstd's error after the first
+        blob = data[off:off + count]
+        assert blob[4] == 0  # no content size, no checksum, a window byte
+        (head,) = struct.unpack("<I", blob[6:9] + b"\0")
+        b = bytearray(data)
+        b[off + 6 + 3 + (head >> 3)] |= 6
+        assert contract(bytes(b)) == "array"
+        # tiles: gtTileContig reuses one buffer across a row of tiles, and
+        # ZSTDDecode zeroes it from 0 when a tile fails
+        tex = mf.texture(32, 48, 3, 62)
+        tiles = []
+        for ty in range(0, 32, 16):
+            for tx in range(0, 48, 16):
+                one = saved(Image.fromarray(tex[ty:ty + 16, tx:tx + 16]).convert("YCbCr"),
+                            compression=comp)
+                o, c, _ = strip_span(one)
+                tiles.append(one[o:o + c])
+        tiles[4] = tiles[4][:6] + bytes([tiles[4][6] | 6]) + tiles[4][7:]
+        fields = {**YCC_FIELDS, 259: (3, [50000]), 530: (3, [1, 1])}
+        assert contract(mf.tiff_raw(tiles, 48, 32, fields, tile=(16, 16))) == "array"
 
 
 # ---------------------------------------------------------------------------
