@@ -352,6 +352,25 @@ fails, with a non-zero exit, if any phase fails:
    row, and timed; (d) the host times of (b)'s
    and (c)'s pool builds and the median of five decodes of the 1024^2
    ground;
+4u. the CLI's writers (phase_writers): (a) the bench's Cornell frame
+   (examples.cornell_rect, 1200x1200, 16 spp, 8 bounces, NEE) through
+   cli.main to .gif and once more to .jp2, 64 K1 launches each; then,
+   through cli.write_output (what cli.main runs after its render), that
+   COLOR frame to every extension of write_image_file's table, and a
+   NORMAL and a DEPTH frame of the same view to the first extension of
+   each group of equal bytes (writer_primaries); (b) each file read back
+   on the card's host by the port's decoders and held to the uint8 array
+   write_image_file made (GIF: the quantizer's palette at its indices;
+   ICO and ICNS: each frame against the port's resample; EPS: the hex
+   payload; PDF: the embedded stream; JPEG: the encoder's bytes, the
+   decode's mean error logged), each refused pair its exception class and
+   no file, WebP and AVIF NotImplementedError; (c) the port's bytes of
+   tests/data/imgio/writers.json's three seeded arrays at every
+   byte-equal extension, and of its three 1200x1200 arrays (writer_ramp)
+   as GIF, JPEG and PNG, against the SHA-256 of Pillow's files, and the
+   port's decode of each such JPEG against Pillow's; (d) the host time of
+   each group's first 1200x1200 COLOR write, the median of three, beside
+   the nvidia-smi line;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -373,7 +392,8 @@ Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
-4p's, 4q's, 4r's, 4s's and 4t's frames beside K3's, K4's, K4t's and K4f's entries; B1 and B2: interior_aovs', with
+4p's, 4q's, 4r's, 4s's and 4t's frames beside K3's, K4's, K4t's and K4f's entries; 4u's CLI
+frame beside K1's; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
 0 just before it and read just after (K4f and K4tf, the FLT instances:
@@ -5829,6 +5849,272 @@ def phase_front_ends(device, tex_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4u: the CLI's writers
+# ---------------------------------------------------------------------------
+
+# every extension of Pillow 12.1's save registry and what the table of
+# imgio.write_image_file asks of it
+WRITER_JPEG = (".jpg", ".jpeg", ".jfif", ".jpe", ".mpo")
+WRITER_J2K = (".j2k", ".j2c", ".jpc", ".jp2", ".jpf", ".jpx")
+WRITER_REFUSED = {".blp": ValueError, **dict.fromkeys(
+    (".msp", ".xbm", ".palm", ".bufr", ".grib", ".h5", ".hdf", ".emf", ".wmf"), OSError)}
+WRITER_UNPORTED = (".webp", ".avif", ".avifs")
+WRITER_RGBA_REFUSED = {".jfif": OSError, ".jpe": OSError, ".mpo": OSError, ".pcx": ValueError,
+                       ".eps": ValueError, ".ps": ValueError}
+WRITER_NO_ALPHA = (".pbm", ".pgm", ".ppm", ".pnm", ".pfm")  # Pillow's PPM drops it
+
+
+def writer_exts() -> tuple:
+    from gatling_tpu_torch import imgio
+
+    return tuple(e for e, f in imgio.EXTENSION_FORMAT.items()
+                 if f not in imgio.READ_ONLY_FORMATS)
+
+
+def writer_primaries() -> tuple:
+    """The first extension of each group that cli.write_output hands the
+    same array and imgio.write_image_file the same encoder: one format, and
+    on the same side of the sRGB suffix test (.png and .apng differ)."""
+    from gatling_tpu_torch import cli, imgio
+
+    seen, out = set(), []
+    for ext in writer_exts():
+        key = (imgio.EXTENSION_FORMAT[ext], ext.endswith(cli.SRGB_SUFFIXES))
+        if key not in seen:
+            seen.add(key)
+            out.append(ext)
+    return tuple(out)
+
+
+def writer_ramp(mode: str, h: int, w: int):
+    """tests/data/imgio/make_fixtures.py writer_ramp: the full-size arrays
+    of writers.json, by integer arithmetic (writers.json holds their
+    SHA-256, so a drift between the two copies fails)."""
+    import numpy as np
+
+    y, x = np.mgrid[0:h, 0:w].astype(np.int64)
+    channels = [(x * 3 + y * y // 97) % 256, (y * 5 + x * y // 311) % 256,
+                ((x ^ y) + x * x // 173) % 256,
+                np.where((x + y) % 7 == 0, 0, 128 + (x + 2 * y) % 128)]
+    n = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
+    img = np.stack(channels[:n], -1).astype(np.uint8)
+    return img[..., 0] if n == 1 else img
+
+
+def check_written(path: str, u8, ext: str, decoded: dict) -> str:
+    """Read the file at `path` back with the port's decoders and hold it to
+    the uint8 array write_image_file made (u8): the array itself, or for
+    GIF the quantizer's palette at its indices, for ICO and ICNS each frame
+    against the port's resample, for EPS the hex payload, for PDF the
+    embedded stream, for JPEG the port's encoder's bytes (a lossy file:
+    its decode is logged against u8). Files of equal bytes decode once
+    (`decoded`: digest -> what the first gave). Returns what was checked."""
+    import hashlib
+    import struct
+
+    import numpy as np
+
+    from gatling_tpu_torch import imgio
+    from gatling_tpu_torch.imgio import eps, gif, icns, ico, jpeg, jpeg2000
+
+    with open(path, "rb") as f:
+        data = f.read()
+    key = hashlib.sha256(data).hexdigest()
+    if key in decoded:
+        return decoded[key]
+    e = ext.lower()
+
+    def rgba_of(a):  # an array as the decoders give it: RGBA, opaque unless it has alpha
+        if a.ndim == 2:
+            a = np.repeat(a[..., None], 3, -1)
+        if a.shape[2] == 4:
+            return a
+        return np.concatenate([a, np.full(a.shape[:2] + (1,), 255, np.uint8)], -1)
+
+    want = rgba_of(u8[..., :3] if e in WRITER_NO_ALPHA and u8.ndim == 3 else u8)
+    if e in WRITER_JPEG:
+        assert data == jpeg.encode_jpeg(u8), path
+        err = float(np.abs(imgio.load_image(data)[..., :3].astype(np.int32)
+                           - want[..., :3]).mean())
+        what = f"the encoder's bytes; decode mean |err| {err:.3f} codes"
+    elif e == ".gif":
+        pal, idx, clear = gif.indexed(u8)
+        got = imgio.load_image(data)
+        assert np.array_equal(got[..., :3], pal[idx]), path
+        assert np.array_equal(got[..., 3], np.where(idx == clear, 0, 255)), path
+        what = f"palette of {len(pal)} at its indices"
+    elif e == ".ico":
+        frames = ico.frames(u8)
+        n = struct.unpack("<H", data[4:6])[0]
+        assert n == len(frames), path
+        for k, frame in enumerate(frames):
+            size, offset = struct.unpack("<II", data[6 + 16 * k + 8:6 + 16 * k + 16])
+            png = imgio.decode_png(data[offset:offset + size])
+            assert np.array_equal(png, rgba_of(frame)), (path, k)
+        what = f"{n} frames against the resample"
+    elif e == ".icns":
+        frames = icns.save_frames(u8)
+        pos, seen = 8 + 8 + 8 * len(icns.SAVE_SIZES), 0
+        while pos < len(data):
+            kind, n = data[pos:pos + 4], struct.unpack(">i", data[pos + 4:pos + 8])[0]
+            frame = frames[icns.SAVE_SIZES[kind]]
+            png = imgio.decode_png(data[pos + 8:pos + n])
+            assert np.array_equal(png, rgba_of(frame)), (path, kind)
+            pos, seen = pos + n, seen + 1
+        assert seen == len(icns.SAVE_SIZES), path
+        what = f"{seen} frames against the resample"
+    elif e in (".eps", ".ps"):
+        assert np.array_equal(eps.hex_payload(data), u8), path
+        what = "hex payload"
+    elif e == ".pdf":
+        m = data.index(b">>stream\n") + len(b">>stream\n")
+        length = int(data[:m].rsplit(b"/Length ", 1)[1].split(b"\n")[0])
+        stream = data[m:m + length]
+        if u8.ndim == 3 and u8.shape[2] == 4:
+            assert stream == jpeg2000.encode_jpeg2000(u8, jp2=True), path
+            assert np.array_equal(imgio.load_image(stream), u8), path
+            what = "JPX stream decoded"
+        else:
+            assert stream == jpeg.encode_jpeg(u8), path
+            assert np.isfinite(imgio.load_image(stream).astype(np.float32)).all()
+            what = "DCT stream: the encoder's bytes"
+    else:
+        assert np.array_equal(imgio.load_image(data), want), path
+        what = "decoded equal"
+    decoded[key] = what
+    return what
+
+
+def phase_writers(device, tex_dir: str, smi: str) -> dict:
+    """Phase 4u: the CLI's writers on the card's main path (see the module
+    docstring, (a)-(d)). Returns its numbers."""
+    import base64
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from gatling_tpu_torch import cli, imgio
+    from gatling_tpu_torch.interface import AovId
+    from gatling_tpu_torch.scene.examples import cornell_rect
+
+    out: dict = {"launches": {}, "host_ms": {}}
+    usda = cornell_rect(os.path.join(tex_dir, "writers"))
+    wdir = os.path.join(tex_dir, "writers_out")
+    os.makedirs(wdir, exist_ok=True)
+    # (a) the bench's Cornell frame through cli.main to .gif and .jp2, each
+    # array write_image_file is handed recorded
+    handed, frames = {}, {}
+    write, write_output = imgio.write_image_file, cli.write_output
+
+    def record_write(path, img):
+        handed[str(path)] = np.asarray(img)
+        return write(path, img)
+
+    def record_output(img, path, gamma_correction=True, aov=AovId.COLOR):
+        frames[path] = img
+        return write_output(img, path, gamma_correction, aov)
+
+    imgio.write_image_file, cli.write_output = record_write, record_output
+    try:
+        for ext in (".gif", ".jp2"):
+            path = os.path.join(wdir, "cli_frame" + ext)
+            argv = [usda, path, "--image-width", str(FULL_RES), "--image-height", str(FULL_RES),
+                    "--spp", "16", "--max-bounces", "8", "--next-event-estimation",
+                    "--device", "cuda"]
+            rc, dt, launches = timed(lambda: cli.main(argv))
+            assert rc == 0 and launches == {"K1": 64}, (ext, rc, launches)
+            out["launches"][ext] = launches
+            log(f"4u cli.main cornell_rect {FULL_RES}^2 16spp 8 bounces NEE -> {ext}: {dt:.4f} s, "
+                f"launches {launches}")
+            image_checks(frames[path], f"4u cli {ext}")
+    finally:
+        imgio.write_image_file, cli.write_output = write, write_output
+    color = frames[os.path.join(wdir, "cli_frame.gif")]
+    # the NORMAL and DEPTH frames of the same view
+    buffers = {"COLOR": (color, AovId.COLOR)}
+    for aov in ("NORMAL", "DEPTH"):
+        (img, _scene), dt, launches = timed(lambda: cli.render_scene_file(
+            usda, FULL_RES, FULL_RES, dict(spp=16, maxBounces=8, nextEventEstimation=True),
+            AovId[aov], device=device))
+        assert np.isfinite(img).all(), aov
+        buffers[aov] = (img, AovId[aov])
+        out["launches"][aov] = launches
+        log(f"4u {aov} frame {FULL_RES}^2: {dt:.4f} s, launches {launches}")
+    # (a), (b) and (d): through cli.write_output, each file read back: the
+    # COLOR frame to every extension, the NORMAL and DEPTH frames to the
+    # first extension of each group (writer_primaries: the others give the
+    # same bytes, which tests/test_torch_writers.py holds on every
+    # extension); the COLOR write to each group's first extension timed,
+    # the median of three
+    checked, decoded = 0, {}
+    primaries = writer_primaries()
+    for label, (img, aov) in buffers.items():
+        for ext in writer_exts() if label == "COLOR" else primaries:
+            path = os.path.join(wdir, f"{label.lower()}{ext}")
+            timing = label == "COLOR" and ext in primaries
+            handed.clear()
+            imgio.write_image_file = record_write
+            times = []
+            try:
+                for _ in range(3 if timing else 1):
+                    t0 = time.perf_counter()
+                    cli.write_output(img, path, True, aov)
+                    times.append(time.perf_counter() - t0)
+                err = None
+            except Exception as e:  # noqa: BLE001 - each refusal is held to its class
+                err = e
+            finally:
+                imgio.write_image_file = write
+            rgba = handed[path].ndim == 3 and handed[path].shape[2] == 4
+            want = WRITER_REFUSED.get(ext) or (WRITER_RGBA_REFUSED.get(ext) if rgba else None)
+            if ext in WRITER_UNPORTED:
+                assert isinstance(err, NotImplementedError) and "ROADMAP" in str(err), (ext, err)
+                continue
+            if want is not None:
+                assert type(err) is want and not os.path.exists(path), (label, ext, err)
+                continue
+            assert err is None, (label, ext, err)
+            u8 = np.clip(handed[path] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+            what = check_written(path, u8, ext, decoded)
+            checked += 1
+            if timing:
+                out["host_ms"][ext] = 1e3 * statistics.median(times)
+                log(f"4u host time write {label} {FULL_RES}^2 {ext}: "
+                    f"{out['host_ms'][ext]:.3f} ms (median of 3) on the card's host ({smi}); "
+                    f"read back: {what}")
+    out["files_checked"] = checked
+    # (c) writers.json: the port's bytes against Pillow's, by their SHA-256
+    with open(os.path.join(FIXTURES, "writers.json")) as f:
+        doc = json.load(f)
+    hashed = 0
+    for mode, a in doc["arrays"].items():
+        arr = np.frombuffer(base64.b64decode(a["base64"]), np.uint8).reshape(a["shape"])
+        for ext, digest in doc["sha256"][mode].items():
+            got = hashlib.sha256(imgio.encode_image(doc["name"] + ext, arr)).hexdigest()
+            assert got == digest, (mode, ext)
+            hashed += 1
+    # the full-size arrays (GIF's whole palettes, the JPEG encoder and
+    # decoder at the frame's size): the port's bytes and its JPEG decode
+    full = doc["full_size"]
+    for mode, digests in full["sha256"].items():
+        arr = writer_ramp(mode, *full["shape"])
+        assert hashlib.sha256(arr.tobytes()).hexdigest() == full["arrays"][mode], mode
+        for ext, digest in digests.items():
+            data = imgio.encode_image(doc["name"] + ext, arr)
+            assert hashlib.sha256(data).hexdigest() == digest, ("full size", mode, ext)
+            hashed += 1
+            if ext == ".jpg":
+                samples = imgio.load_image(data).tobytes()
+                assert hashlib.sha256(samples).hexdigest() == full["jpeg_decoded"][mode], mode
+                hashed += 1
+    out["hashes_matched"] = hashed
+    log(f"4u: {checked} files read back equal; {hashed} writers.json hashes matched "
+        f"(Pillow {doc['pillow']}); launches {out['launches']}")
+    return out
+
+
 def phase_goldens(device, out_dir: str):
     """The committed graphical scenes that tests/test_torch_graphical.py
     renders, through gatling_tpu_torch.testing.run_graphical_test on the
@@ -6126,6 +6412,11 @@ def main() -> int:
               f"decode_{LEGACY_1024}_s"):
         log(f"4t host time {k}: {legacy_out[k]:.4f} s on the card's host ({smi})")
     log(f"phase 4t: {time.perf_counter() - t0:.1f} s")
+    # 4u: the CLI's writers: the bench's frame through cli.main to .gif and
+    # .jp2, every extension read back, Pillow's hashes on the card's host
+    t0 = time.perf_counter()
+    writers_out = phase_writers(device, tex_tmp.name, smi)
+    log(f"phase 4u: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -6180,6 +6471,7 @@ def main() -> int:
         "bound_ms_nee": times[True][2][0],
         "bound_ms_brute_force_nee": times[True][3][0],
         "walk_work_nee": times[True][4],
+        "launches_writers_cli": writers_out["launches"][".gif"]["K1"],
     }, {
         "name": "bounce_step_walk (K2, clustered + instanced)",
         "route": "cuda",

@@ -142,21 +142,29 @@ def render_scene_file(scene_path: str, width: int, height: int, settings: dict,
     return buf.data, scene
 
 
+# the paths the JAX CLI converts to sRGB RGB (a case-sensitive suffix test)
+SRGB_SUFFIXES = (".png", ".jpg", ".jpeg", ".tga", ".tiff", ".tif")
+
+
 def write_output(img: np.ndarray, path: str, gamma_correction: bool = True,
                  aov: AovId = AovId.COLOR) -> None:
-    """Flip to image row order (main.cpp:224-249) and write: a .png with
-    colour encoded as sRGB (ids as grey levels over their maximum), an .exr
-    or .hdr with the linear values (gatling_tpu/cli.py _write_output)."""
+    """Flip to image row order (main.cpp:224-249) and write as
+    gatling_tpu/cli.py _write_output does: ids as grey levels over their
+    maximum; a path ending, case-sensitively, in .png .jpg .jpeg .tga .tiff
+    or .tif gets RGB (grey repeated), sRGB-encoded for colour when
+    `gamma_correction`; every other path the buffer's own channels, linear
+    (imgio.write_image_file picks the format by the extension, case aside,
+    and raises where the JAX package's Pillow raises)."""
     out = img[::-1]
-    if out.dtype == np.int32:
-        out = out.astype(np.float32) / max(1.0, float(out.max()))
-    if path.lower().endswith((".exr", ".hdr")):
-        imgio.write_image_file(path, out.astype(np.float32))
-    else:
+    if out.dtype == np.int32:  # NumPy's promotion of the int32 maximum, as there
+        out = out.astype(np.float32) / max(1.0, out.max())
+    if path.endswith(SRGB_SUFFIXES):
         rgb = out[:, :, :3] if out.shape[2] >= 3 else np.repeat(out, 3, axis=2)
         if gamma_correction and aov == AovId.COLOR:
             rgb = linear_to_srgb(rgb)
         imgio.write_image_file(path, np.clip(rgb, 0, 1).astype(np.float32))
+    else:
+        imgio.write_image_file(path, out.astype(np.float32))
     get_logger().info("wrote %s", path)
 
 

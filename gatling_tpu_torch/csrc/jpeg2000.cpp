@@ -13,6 +13,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <algorithm>
+#include <atomic>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -1472,6 +1475,472 @@ void gatling_j2k_idwt(void* data, const int32_t* rx, int32_t numres, int32_t w, 
 void gatling_j2k_mct(void* c0, void* c1, void* c2, int64_t n, int32_t reversible) {
   if (reversible) mct_rev((int32_t*)c0, (int32_t*)c1, (int32_t*)c2, n);
   else mct_real((float*)c0, (float*)c1, (float*)c2, n);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The lossless encoder behind imgio/jpeg2000.py encode_jpeg2000 (Pillow's
+// JPEG 2000 defaults: the reversible 5/3 wavelet, 64x64 code-blocks, one
+// precinct a resolution, one layer in LRCP order, no MCT, no code-block
+// style): the forward 5/3 (dwt.c's opj_dwt_encode_1, columns then rows at
+// each level, so that the inverse above undoes it exactly), tier 1 (the MQ
+// coder of mqc.c and the three passes of t1.c, each context the decoder's
+// above) and tier 2 (tgt.c's tag trees and t2.c's packet headers, bio.c's
+// bit stuffing). The codestream's markers and the JP2 boxes are Python's.
+// ---------------------------------------------------------------------------
+namespace {
+
+// opj_dwt_encode_1 (cas 0) over an interleaved line a of sn low and dn high
+// samples, then deinterleaved into tmp: the low ones first
+void fdwt53_line(int32_t* a, int32_t dn, int32_t sn, int32_t* tmp) {
+  auto S = [&](int32_t i) -> int32_t& { return a[2 * i]; };
+  auto D = [&](int32_t i) -> int32_t& { return a[2 * i + 1]; };
+  auto S_ = [&](int32_t i) { return S(i < 0 ? 0 : (i >= sn ? sn - 1 : i)); };
+  auto D_ = [&](int32_t i) { return D(i < 0 ? 0 : (i >= dn ? dn - 1 : i)); };
+  if (dn > 0 || sn > 1) {
+    for (int32_t i = 0; i < dn; i++) D(i) -= (S_(i) + S_(i + 1)) >> 1;
+    for (int32_t i = 0; i < sn; i++) S(i) += (D_(i - 1) + D_(i) + 2) >> 2;
+  }
+  for (int32_t i = 0; i < sn; i++) tmp[i] = a[2 * i];
+  for (int32_t i = 0; i < dn; i++) tmp[sn + i] = a[2 * i + 1];
+  std::memcpy(a, tmp, sizeof(int32_t) * (size_t)(sn + dn));
+}
+
+struct Mqe {
+  std::vector<uint8_t> buf;
+  size_t bp = 0;  // index of the last byte written (buf[0] is the dummy byte)
+  uint32_t a = 0x8000, c = 0, ct = 12;
+  uint8_t state[kNumCtx], mps[kNumCtx];
+  Mqe() {
+    buf.assign(1, 0);
+    std::memset(state, 0, sizeof(state));
+    std::memset(mps, 0, sizeof(mps));
+    state[kCtxUni] = 46;
+    state[kCtxAgg] = 3;
+    state[kCtxZc] = 4;
+  }
+  uint8_t& at(size_t i) {
+    if (i >= buf.size()) buf.resize(i + 1, 0);
+    return buf[i];
+  }
+  void byteout() {
+    if (at(bp) == 0xff) {
+      at(++bp) = (uint8_t)(c >> 20);
+      c &= 0xfffff;
+      ct = 7;
+    } else if ((c & 0x8000000) == 0) {
+      at(++bp) = (uint8_t)(c >> 19);
+      c &= 0x7ffff;
+      ct = 8;
+    } else {
+      at(bp)++;
+      if (at(bp) == 0xff) {
+        c &= 0x7ffffff;
+        at(++bp) = (uint8_t)(c >> 20);
+        c &= 0xfffff;
+        ct = 7;
+      } else {
+        at(++bp) = (uint8_t)(c >> 19);
+        c &= 0x7ffff;
+        ct = 8;
+      }
+    }
+  }
+  void renorm() {
+    do {
+      a <<= 1;
+      c <<= 1;
+      if (--ct == 0) byteout();
+    } while ((a & 0x8000) == 0);
+  }
+  void encode(int cx, uint32_t d) {
+    const uint32_t s = state[cx], qe = kQe[s];
+    if (mps[cx] == d) {
+      a -= qe;
+      if ((a & 0x8000) == 0) {
+        if (a < qe) a = qe;
+        else c += qe;
+        state[cx] = kNmps[s];
+        renorm();
+      } else {
+        c += qe;
+      }
+    } else {
+      a -= qe;
+      if (a < qe) c += qe;
+      else a = qe;
+      if (kSwitch[s]) mps[cx] ^= 1;
+      state[cx] = kNlps[s];
+      renorm();
+    }
+  }
+  // opj_mqc_flush; the segment's bytes are buf[1, bp] (bp past a final 0xff
+  // is not counted)
+  size_t flush() {
+    const uint32_t tempc = c + a;
+    c |= 0xffff;
+    if (c >= tempc) c -= 0x8000;
+    c <<= ct;
+    byteout();
+    c <<= ct;
+    byteout();
+    if (at(bp) != 0xff) ++bp;
+    return bp - 1;
+  }
+};
+
+// one code-block's passes over coefficients w x h (row stride `stride`)
+struct T1Enc {
+  T1 t;  // the decoder's flags and contexts
+  Mqe mq;
+  std::vector<uint32_t> mag;
+  std::vector<uint8_t> neg;
+  int passes = 0;
+  uint32_t numbps = 0;
+
+  bool bit(int x, int y, int32_t bp) const { return (mag[(size_t)y * t.w + x] >> bp) & 1; }
+  void sign(int x, int y) {
+    int ctx;
+    uint32_t spb;
+    t.sign_ctx(x, y, &ctx, &spb);
+    const uint32_t n = neg[(size_t)y * t.w + x];
+    mq.encode(ctx, n ^ spb);
+    *t.f(x, y) |= (uint8_t)(kSig | (n ? kNeg : 0));
+  }
+  void sigpass(int32_t bp) {
+    for (int k = 0; k < t.h; k += 4)
+      for (int x = 0; x < t.w; ++x)
+        for (int y = k; y < k + 4 && y < t.h; ++y) {
+          uint8_t* p = t.f(x, y);
+          if ((*p & (kSig | kVisit)) || !t.neighbours(x, y)) continue;
+          const uint32_t b = bit(x, y, bp);
+          mq.encode(g_zc[t.orient][t.neighbours(x, y)], b);
+          if (b) sign(x, y);
+          *p |= kVisit;
+        }
+  }
+  void refpass(int32_t bp) {
+    for (int k = 0; k < t.h; k += 4)
+      for (int x = 0; x < t.w; ++x)
+        for (int y = k; y < k + 4 && y < t.h; ++y) {
+          uint8_t* p = t.f(x, y);
+          if ((*p & (kSig | kVisit)) != kSig) continue;
+          const int ctx = (*p & kRefined) ? kCtxMag + 2 : (t.neighbours(x, y) ? kCtxMag + 1 : kCtxMag);
+          mq.encode(ctx, bit(x, y, bp));
+          *p |= kRefined;
+        }
+  }
+  void cln_sample(int x, int y, int32_t bp) {
+    const uint32_t b = bit(x, y, bp);
+    mq.encode(g_zc[t.orient][t.neighbours(x, y)], b);
+    if (b) sign(x, y);
+  }
+  void clnpass(int32_t bp) {
+    int k = 0;
+    for (; k + 4 <= t.h; k += 4)
+      for (int x = 0; x < t.w; ++x) {
+        if (t.run_mode(x, k)) {
+          int first = -1;
+          for (int y = k; y < k + 4; ++y)
+            if (bit(x, y, bp)) {
+              first = y - k;
+              break;
+            }
+          mq.encode(kCtxAgg, first >= 0);
+          if (first >= 0) {
+            mq.encode(kCtxUni, (uint32_t)first >> 1);
+            mq.encode(kCtxUni, (uint32_t)first & 1);
+            sign(x, k + first);
+            for (int y = k + first + 1; y < k + 4; ++y) cln_sample(x, y, bp);
+          }
+        } else {
+          for (int y = k; y < k + 4; ++y)
+            if (!(*t.f(x, y) & (kSig | kVisit))) cln_sample(x, y, bp);
+        }
+        for (int y = k; y < k + 4; ++y) *t.f(x, y) &= (uint8_t)~kVisit;
+      }
+    if (k < t.h)
+      for (int x = 0; x < t.w; ++x) {
+        for (int y = k; y < t.h; ++y)
+          if (!(*t.f(x, y) & (kSig | kVisit))) cln_sample(x, y, bp);
+        for (int y = k; y < t.h; ++y) *t.f(x, y) &= (uint8_t)~kVisit;
+      }
+  }
+  // the segment's length (0 with no passes)
+  size_t encode(const int32_t* coef, int64_t stride, int w, int h, int orient) {
+    t.allocate(w, h);
+    t.orient = orient;
+    mag.assign((size_t)w * h, 0);
+    neg.assign((size_t)w * h, 0);
+    uint32_t mx = 0;
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        const int32_t v = coef[y * stride + x];
+        const uint32_t m = v < 0 ? (uint32_t)(-(int64_t)v) : (uint32_t)v;
+        mag[(size_t)y * w + x] = m;
+        neg[(size_t)y * w + x] = v < 0;
+        mx = m > mx ? m : mx;
+      }
+    numbps = 0;
+    while (numbps < 32 && (mx >> numbps)) ++numbps;
+    passes = numbps ? (int)(3 * numbps - 2) : 0;
+    if (!numbps) return 0;
+    for (int32_t bp = (int32_t)numbps - 1; bp >= 0; --bp) {
+      if (bp != (int32_t)numbps - 1) {
+        sigpass(bp);
+        refpass(bp);
+      }
+      clnpass(bp);
+    }
+    return mq.flush();
+  }
+};
+
+// bio.c's writer: a byte after 0xff carries 7 bits
+struct BioW {
+  std::vector<uint8_t>& out;
+  uint32_t buf = 0, ct = 8;
+  bool started = false;
+  explicit BioW(std::vector<uint8_t>& o) : out(o) {}
+  void byteout() {
+    buf = (buf << 8) & 0xffff;
+    ct = buf == 0xff00 ? 7 : 8;
+    out.push_back((uint8_t)(buf >> 8));
+  }
+  void putbit(uint32_t b) {
+    if (ct == 0) byteout();
+    --ct;
+    buf |= b << ct;
+  }
+  void write(uint32_t v, int n) {
+    for (int i = n - 1; i >= 0; --i) putbit((v >> i) & 1);
+  }
+  void flush() {
+    byteout();
+    if (ct == 7) byteout();
+  }
+};
+
+// tgt.c's encoder over the decoder's tree shape
+struct TagTreeW {
+  TagTree shape;
+  std::vector<int32_t> value, low;
+  std::vector<uint8_t> known;
+  void create(uint32_t nh, uint32_t nv) {
+    shape.create(nh, nv);
+    value.assign(shape.parent.size(), 999);
+    low.assign(shape.parent.size(), 0);
+    known.assign(shape.parent.size(), 0);
+  }
+  void setvalue(uint32_t leaf, int32_t v) {
+    int32_t node = (int32_t)leaf;
+    while (node >= 0 && value[node] > v) {
+      value[node] = v;
+      node = shape.parent[node];
+    }
+  }
+  void encode(BioW& bio, uint32_t leaf, int32_t threshold) {
+    int32_t stk[64];
+    int sp = 0;
+    int32_t node = (int32_t)leaf;
+    while (shape.parent[node] >= 0) {
+      stk[sp++] = node;
+      node = shape.parent[node];
+    }
+    int32_t lo = 0;
+    for (;;) {
+      if (lo > low[node]) low[node] = lo;
+      else lo = low[node];
+      while (lo < threshold) {
+        if (lo >= value[node]) {
+          if (!known[node]) {
+            bio.write(1, 1);
+            known[node] = 1;
+          }
+          break;
+        }
+        bio.write(0, 1);
+        ++lo;
+      }
+      low[node] = lo;
+      if (sp == 0) break;
+      node = stk[--sp];
+    }
+  }
+};
+
+struct CblkEnc {
+  std::vector<uint8_t> data;
+  uint32_t numbps = 0;
+  int passes = 0;
+};
+
+void put_numpasses(BioW& bio, int n) {
+  if (n == 1) bio.write(0, 1);
+  else if (n == 2) bio.write(2, 2);
+  else if (n <= 5) bio.write(0xc | (n - 3), 4);
+  else if (n <= 36) bio.write(0x1e0 | (n - 6), 9);
+  else bio.write(0xff80 | (n - 37), 16);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The forward 5/3 of data [h, w] in place over `levels` levels (columns
+// then rows at each), the subbands where the inverse reads them.
+void gatling_j2k_fdwt53(int32_t* data, int32_t w, int32_t h, int32_t levels) {
+  std::vector<int32_t> line((size_t)(w > h ? w : h) + 2), tmp(line.size());
+  int32_t rw = w, rh = h;
+  for (int32_t l = 0; l < levels; ++l) {
+    const int32_t sn_v = (rh + 1) / 2, dn_v = rh / 2, sn_h = (rw + 1) / 2, dn_h = rw / 2;
+    for (int32_t x = 0; x < rw; ++x) {
+      for (int32_t y = 0; y < rh; ++y) line[y] = data[(size_t)y * w + x];
+      fdwt53_line(line.data(), dn_v, sn_v, tmp.data());
+      for (int32_t y = 0; y < rh; ++y) data[(size_t)y * w + x] = line[y];
+    }
+    for (int32_t y = 0; y < rh; ++y) fdwt53_line(data + (size_t)y * w, dn_h, sn_h, tmp.data());
+    rw = sn_h;
+    rh = sn_v;
+  }
+}
+
+// Tier 1 of one code-block (orient 0 LL, 1 HL, 2 LH, 3 HH): its segment
+// into out (cap bytes); info[0] its bit-planes, info[1] its passes.
+// Returns the length, or -1 if cap is too small.
+int64_t gatling_j2k_encode_cblk(const int32_t* coef, int64_t stride, int32_t w, int32_t h,
+                                int32_t orient, uint8_t* out, int64_t cap, int32_t* info) {
+  T1Enc enc;
+  const size_t n = enc.encode(coef, stride, w, h, orient);
+  info[0] = (int32_t)enc.numbps;
+  info[1] = enc.passes;
+  if ((int64_t)n > cap) return -1;
+  if (n) std::memcpy(out, enc.mq.buf.data() + 1, n);
+  return (int64_t)n;
+}
+
+// The packets of one tile: comps [nc][h, w] after the forward 5/3 over
+// `levels` levels; 64x64 code-blocks, one precinct a resolution, one layer,
+// LRCP. bandbps[r][band] (3 a resolution, LL at [0][0]) are the bands'
+// bit-plane counts (expn + guard bits - 1, the decoder's band numbps).
+// Returns the length written to out, -1 if cap is too small, -2 if a
+// code-block needs more bit-planes than its band allows.
+int64_t gatling_j2k_encode_tile(const int32_t* const* comps, int32_t nc, int32_t w, int32_t h,
+                                int32_t levels, const int32_t* bandbps, uint8_t* out,
+                                int64_t cap) {
+  const int32_t numres = levels + 1;
+  // every band of every resolution and component, in packet order
+  struct BandJob {
+    int32_t r, c, b, x0, y0, bw, bh, orient;
+    uint32_t cw, ch;
+    size_t first;  // index of its first code-block in `blocks`
+  };
+  std::vector<BandJob> bands;
+  size_t nblocks = 0;
+  for (int32_t r = 0; r < numres; ++r) {
+    int32_t rw = w, rh = h;
+    for (int32_t i = 0; i < numres - 1 - r; ++i) {
+      rw = (rw + 1) / 2;
+      rh = (rh + 1) / 2;
+    }
+    const int32_t lw = (rw + 1) / 2, lh = (rh + 1) / 2;  // the next lower resolution
+    for (int32_t c = 0; c < nc; ++c) {
+      const int32_t spec[4][5] = {{0, 0, rw, rh, 0}, {lw, 0, rw - lw, lh, 1},
+                                  {0, lh, lw, rh - lh, 2}, {lw, lh, rw - lw, rh - lh, 3}};
+      for (int b = r == 0 ? 0 : 1; b < (r == 0 ? 1 : 4); ++b) {
+        BandJob j{r, c, r == 0 ? 0 : b - 1, spec[b][0], spec[b][1], spec[b][2], spec[b][3],
+                  spec[b][4], 0, 0, nblocks};
+        if (j.bw > 0 && j.bh > 0) {
+          j.cw = (uint32_t)((j.bw + 63) / 64);
+          j.ch = (uint32_t)((j.bh + 63) / 64);
+        }
+        nblocks += (size_t)j.cw * j.ch;
+        bands.push_back(j);
+      }
+    }
+  }
+  // tier 1 of every code-block, on the host's cores
+  std::vector<CblkEnc> blocks(nblocks);
+  std::vector<const BandJob*> owner(nblocks);
+  for (const BandJob& j : bands)
+    for (size_t k = 0; k < (size_t)j.cw * j.ch; ++k) owner[j.first + k] = &j;
+  std::atomic<size_t> next{0};
+  std::atomic<bool> too_deep{false};
+  auto work = [&]() {
+    for (size_t i = next++; i < nblocks; i = next++) {
+      const BandJob& j = *owner[i];
+      const uint32_t k = (uint32_t)(i - j.first), bx = k % j.cw, by = k / j.cw;
+      const int32_t x0 = (int32_t)bx * 64, y0 = (int32_t)by * 64;
+      T1Enc enc;
+      const int32_t* base = comps[j.c] + (size_t)(j.y0 + y0) * w + (j.x0 + x0);
+      const size_t n = enc.encode(base, w, std::min(64, j.bw - x0), std::min(64, j.bh - y0),
+                                  j.orient);
+      CblkEnc& ce = blocks[i];
+      ce.numbps = enc.numbps;
+      ce.passes = enc.passes;
+      if ((int32_t)enc.numbps > bandbps[j.r * 3 + j.b]) too_deep = true;
+      if (n) ce.data.assign(enc.mq.buf.begin() + 1, enc.mq.buf.begin() + 1 + (long)n);
+    }
+  };
+  const unsigned nthreads = std::max(1u, std::min(std::thread::hardware_concurrency(), 16u));
+  std::vector<std::thread> pool;
+  for (unsigned t = 1; t < nthreads && t < nblocks; ++t) pool.emplace_back(work);
+  work();
+  for (std::thread& t : pool) t.join();
+  if (too_deep) return -2;
+  // tier 2: one packet a resolution and component (one precinct, one layer)
+  std::vector<uint8_t> all;
+  for (size_t first = 0; first < bands.size();) {
+    size_t last = first + 1;
+    while (last < bands.size() && bands[last].r == bands[first].r &&
+           bands[last].c == bands[first].c)
+      ++last;
+    std::vector<uint8_t> header, body;
+    BioW bio(header);
+    std::vector<TagTreeW> incl(last - first), imsb(last - first);
+    bool any = false;
+    for (size_t q = first; q < last; ++q) {
+      const BandJob& j = bands[q];
+      if (!j.cw) continue;
+      incl[q - first].create(j.cw, j.ch);
+      imsb[q - first].create(j.cw, j.ch);
+      for (uint32_t k = 0; k < j.cw * j.ch; ++k) {
+        const CblkEnc& ce = blocks[j.first + k];
+        imsb[q - first].setvalue(k, bandbps[j.r * 3 + j.b] - (int32_t)ce.numbps);
+        if (ce.passes) {
+          incl[q - first].setvalue(k, 0);
+          any = true;
+        }
+      }
+    }
+    bio.write(any ? 1 : 0, 1);
+    for (size_t q = first; any && q < last; ++q) {
+      const BandJob& j = bands[q];
+      for (uint32_t k = 0; k < j.cw * j.ch; ++k) {
+        const CblkEnc& ce = blocks[j.first + k];
+        incl[q - first].encode(bio, k, 1);
+        if (!ce.passes) continue;
+        imsb[q - first].encode(bio, k, 999);
+        put_numpasses(bio, ce.passes);
+        const uint32_t len = (uint32_t)ce.data.size();
+        const int32_t lenbits = 3 + (int32_t)floorlog2((uint32_t)ce.passes);
+        const int32_t need = (int32_t)floorlog2(len) + 1 - lenbits;
+        const int32_t increment = need > 0 ? need : 0;
+        for (int32_t i = 0; i < increment; ++i) bio.write(1, 1);
+        bio.write(0, 1);
+        bio.write(len, lenbits + increment);
+        body.insert(body.end(), ce.data.begin(), ce.data.end());
+      }
+    }
+    bio.flush();
+    all.insert(all.end(), header.begin(), header.end());
+    all.insert(all.end(), body.begin(), body.end());
+    first = last;
+  }
+  if ((int64_t)all.size() > cap) return -1;
+  std::memcpy(out, all.data(), all.size());
+  return (int64_t)all.size();
 }
 
 }  // extern "C"

@@ -36,10 +36,14 @@ Ghostscript, WMF off Windows, a truncated or corrupt file), the port
 raises ValueError. Both packages' texture managers turn that ValueError
 into the 1x1 black texel; a NotImplementedError is raised to the caller.
 
-`write_image_file` writes by extension: .png (8-bit), .jpg / .jpeg (jpeg.py:
-Pillow's defaults, alpha dropped), .tga and .tif / .tiff (uncompressed),
-.bmp (bmp.py), .pbm / .pgm / .ppm / .pnm / .pfm (pnm.py), .exr
-and .hdr.
+`write_image_file` writes by extension every format the JAX package's
+writer saves through Pillow (its docstring has the table): Pillow's bytes
+for PNG (here), JPEG (jpeg.py), TGA, TIFF, BMP/DIB, Netpbm, GIF (gif.py over
+quantize.py), DDS, QOI, PCX, SGI, IM, EPS (eps.py), ICO (ico.py) and ICNS
+(icns.py, over resample.py); a lossless JPEG 2000 of the port's own
+(jpeg2000.py); PDF (pdf.py); EXR and Radiance HDR as floats. Where
+Pillow's saver refuses, the same exception class; WebP and AVIF raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -51,9 +55,9 @@ import zlib
 
 import numpy as np
 
-from gatling_tpu_torch.imgio import (blp, bmp, dds, fits, fli, ftex, gif, icns, im, jpeg, jpeg2000,
-                                     msp, pcd, pcx, pnm, psd, qoi, rawformats, sgi, sun, tga,
-                                     tiff, webp, xpm)
+from gatling_tpu_torch.imgio import (blp, bmp, dds, eps, fits, fli, ftex, gif, icns, ico, im,
+                                     jpeg, jpeg2000, msp, pcd, pcx, pdf, pnm, psd, qoi, rawformats,
+                                     sgi, sun, tga, tiff, webp, xpm)
 from gatling_tpu_torch.imgio.identify import PLUGINS, accepts, open_unported
 from gatling_tpu_torch.imgio.modes import Skip
 from gatling_tpu_torch.imgio.exr import decode_exr, encode_exr
@@ -302,45 +306,166 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def encode_png(img: np.ndarray) -> bytes:
-    """[H, W, 3] or [H, W, 4] uint8 -> PNG bytes (colour type 2 or 6,
-    filter 0 on every row)."""
-    img = np.ascontiguousarray(img, np.uint8)
+def png_rows(img: np.ndarray) -> np.ndarray:
+    """The filtered rows [H, 1 + W * C] of img [H, W, C] uint8 as Pillow's
+    ZipEncode.c picks them: each row's filter the one of None, Up, Sub and
+    Paeth (tried in that order, a later one taken only when strictly
+    better, and none tried once a row sums to 0) whose bytes, each counted
+    as its distance from 0 mod 256, sum the least."""
     h, w, c = img.shape
-    if c not in (3, 4):
-        raise ValueError(f"expected [H, W, 3] RGB or [H, W, 4] RGBA, got {img.shape}")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
+    raw = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), raw[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), raw[:, :-c]])
+    corner = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    filtered = np.stack([(raw - x) & 0xFF for x in (0, up, left, paeth)]).astype(np.uint8)
+    cost = np.minimum(filtered, 256 - filtered.astype(np.int32)).sum(axis=2)
+    choice = np.zeros(h, np.int64)
+    best = cost[0].copy()
+    for k in (1, 2, 3):
+        take = (best > 0) & (cost[k] < best)
+        choice[take] = k
+        best = np.where(take, cost[k], best)
+    types = np.array([0, 2, 1, 4], np.uint8)[choice]
+    return np.concatenate([types[:, None], filtered[choice, np.arange(h)]], axis=1)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    PngImagePlugin._save writes: IHDR, the filtered rows (png_rows) deflated
+    as ZipEncode.c deflates them (level 6, memory level 9, Z_FILTERED) in
+    IDAT chunks of ImageFile's buffer size, IEND."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    if c not in (1, 3, 4):
+        raise ValueError(f"expected grey, RGB or RGBA, got {img.shape}")
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    stream = z.compress(png_rows(img).tobytes()) + z.flush()
+    block = max(65536, w * 4)  # ImageFile._save's bufsize: one IDAT an encoder call
     return (PNG_SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0))
-            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0))
+            + b"".join(_chunk(b"IDAT", stream[i:i + block]) for i in range(0, len(stream), block))
             + _chunk(b"IEND", b""))
 
 
+# Pillow 12.1's save registry (Image.EXTENSION, Image.SAVE): each extension
+# the JAX package's writer takes and the format Pillow saves it as
+EXTENSION_FORMAT = {
+    **dict.fromkeys((".png", ".apng"), "PNG"),
+    **dict.fromkeys((".jpg", ".jpeg", ".jfif", ".jpe"), "JPEG"), ".mpo": "MPO",
+    **dict.fromkeys((".tga", ".icb", ".vda", ".vst"), "TGA"),
+    **dict.fromkeys((".tif", ".tiff"), "TIFF"), ".bmp": "BMP", ".dib": "DIB",
+    **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"), "PPM"),
+    ".gif": "GIF", ".dds": "DDS", ".qoi": "QOI", ".pcx": "PCX",
+    **dict.fromkeys((".sgi", ".rgb", ".rgba", ".bw"), "SGI"), ".im": "IM",
+    **dict.fromkeys((".eps", ".ps"), "EPS"), ".ico": "ICO", ".icns": "ICNS",
+    **dict.fromkeys((".j2k", ".j2c", ".jpc", ".jp2", ".jpf", ".jpx"), "JPEG2000"),
+    ".pdf": "PDF", ".blp": "BLP", ".msp": "MSP", ".xbm": "XBM", ".palm": "PALM",
+    ".bufr": "BUFR", ".grib": "GRIB", **dict.fromkeys((".h5", ".hdf"), "HDF5"),
+    **dict.fromkeys((".emf", ".wmf"), "WMF"), ".webp": "WEBP",
+    **dict.fromkeys((".avif", ".avifs"), "AVIF"),
+    ".cur": "CUR", ".dcx": "DCX", **dict.fromkeys((".fit", ".fits"), "FITS"),
+    **dict.fromkeys((".flc", ".fli"), "FLI"), **dict.fromkeys((".ftc", ".ftu"), "FTEX"),
+    ".gbr": "GBR", ".iim": "IPTC", **dict.fromkeys((".mpeg", ".mpg"), "MPEG"), ".pcd": "PCD",
+    ".psd": "PSD", ".pxr": "PIXAR", ".ras": "SUN", ".xpm": "XPM",
+}
+# registered for reading only: Image.save raises KeyError on the format
+READ_ONLY_FORMATS = frozenset(("CUR", "DCX", "FITS", "FLI", "FTEX", "GBR", "IPTC", "MPEG", "PCD",
+                               "PSD", "PIXAR", "SUN", "XPM"))
+# the formats whose Pillow saver refuses every image the writer passes it
+_REFUSED = {"BLP": (ValueError, "Unsupported BLP image mode"),
+            "MSP": (OSError, "cannot write mode {mode} as MSP"),
+            "XBM": (OSError, "cannot write mode {mode} as XBM"),
+            "PALM": (OSError, "cannot write mode {mode} as Palm"),
+            "BUFR": (OSError, "BUFR save handler not installed"),
+            "GRIB": (OSError, "GRIB save handler not installed"),
+            "HDF5": (OSError, "HDF5 save handler not installed"),
+            "WMF": (OSError, "WMF save handler not installed")}
+UNPORTED_WRITERS = {"WEBP": "ROADMAP Queue 1 item 2: the WebP encoder (lossy VP8 at quality 80 "
+                            "and the VP8L alpha)",
+                    "AVIF": "ROADMAP Queue 1 item 2: AVIF (an AV1 encoder)"}
+
+
+def _jpeg(img: np.ndarray) -> bytes:
+    if img.ndim == 3 and img.shape[2] == 4:
+        raise OSError("cannot write mode RGBA as JPEG")
+    return jpeg.encode_jpeg(img)
+
+
+def encode_image(path: str | os.PathLike, img: np.ndarray) -> bytes:
+    """The bytes write_image_file writes for img (uint8 [H, W], [H, W, 3]
+    or [H, W, 4]) at `path`, by its extension (case aside): Pillow's bytes
+    where the table of write_image_file says so."""
+    path = os.fspath(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in EXTENSION_FORMAT:
+        raise ValueError(f"unknown file extension: {ext}")
+    fmt = EXTENSION_FORMAT[ext]
+    if fmt in READ_ONLY_FORMATS:
+        raise KeyError(fmt)
+    if fmt in UNPORTED_WRITERS:
+        raise NotImplementedError(f"writing {ext} images: {UNPORTED_WRITERS[fmt]}")
+    if fmt in _REFUSED:
+        kind, msg = _REFUSED[fmt]
+        raise kind(msg.format(mode={1: "L", 3: "RGB", 4: "RGBA"}[
+            1 if img.ndim == 2 else img.shape[2]]))
+    writers = {"PNG": encode_png, "JPEG": _jpeg, "MPO": _jpeg, "TGA": tga.encode_tga,
+               "TIFF": tiff.encode_tiff, "BMP": bmp.encode_bmp, "DIB": bmp.encode_dib,
+               "PPM": pnm.encode_pnm, "GIF": gif.encode_gif, "DDS": dds.encode_dds,
+               "QOI": qoi.encode_qoi, "PCX": pcx.encode_pcx, "EPS": eps.encode_eps,
+               "ICO": ico.encode_ico, "ICNS": icns.encode_icns,
+               "SGI": lambda a: sgi.encode_sgi(a, path), "IM": lambda a: im.encode_im(a, path),
+               "PDF": lambda a: pdf.encode_pdf(a, path),
+               "JPEG2000": lambda a: jpeg2000.encode_jpeg2000(a, jp2=not path.endswith(".j2k"))}
+    return writers[fmt](img)
+
+
 def write_image_file(path: str | os.PathLike, img: np.ndarray) -> None:
-    """Write [H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA by extension (the
-    JAX package's write_image_file): .exr (ZIP, half) and .hdr (flat RGBE)
-    as the float values; .png (RGB or RGBA), .jpg / .jpeg (the alpha
-    dropped), .tga, .tif / .tiff, .bmp and the Netpbm extensions
-    (.pbm, .pgm, .ppm, .pnm and .pfm alike: Pillow's P5 or P6, the alpha
-    dropped) as 8-bit codes, floats in [0, 1] scaled and rounded; each file
-    byte for byte what Pillow saves for the same array."""
+    """Write [H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA by extension, as
+    the JAX package's write_image_file does through Pillow 12.1: .exr (ZIP,
+    half) and .hdr (flat RGBE) as the float values; every other extension
+    as 8-bit codes (floats in [0, 1] scaled and rounded), a grey image
+    squeezed first (so one row high it is written one column wide, as
+    there), an RGBA image's alpha dropped for .jpg and .jpeg alone. The
+    contract with the JAX package's writer, on the same array and path:
+    - the same bytes for .png .apng, .jpg .jpeg .jfif .jpe .mpo (RGBA:
+      OSError), .tga .icb .vda .vst, .tif .tiff, .bmp, .dib, the Netpbm
+      five, .dds, .qoi (grey: ValueError), .pcx and .eps .ps (RGBA:
+      ValueError), .sgi .rgb .rgba .bw, .im, .gif, .ico and .icns;
+    - .j2k .j2c .jpc .jp2 .jpf .jpx: a lossless JPEG 2000 (a bare
+      codestream for .j2k, else the JP2 boxes) that Pillow opens with the
+      same format, mode, size and samples; the bytes are the port's own;
+    - .pdf: the same bytes but for the dates and, for RGBA, the JPX stream
+      (and the lengths and offsets it moves);
+    - the class Pillow raises where its saver refuses: ValueError for .blp
+      and unknown extensions, OSError for .msp .xbm .palm .bufr .grib .h5
+      .hdf .emf .wmf, KeyError for the extensions Pillow only reads;
+    - .webp, .avif and .avifs raise NotImplementedError naming their
+      ROADMAP item.
+    Nothing is written where it raises."""
     ext = os.path.splitext(str(path))[1].lower()
     img = np.asarray(img)
     if ext in (".exr", ".hdr"):
-        encode = encode_exr if ext == ".exr" else encode_hdr
+        data = (encode_exr if ext == ".exr" else encode_hdr)(img.astype(np.float32))
         with open(path, "wb") as f:
-            f.write(encode(img.astype(np.float32)))
+            f.write(data)
         return
-    encoders = {".png": encode_png, ".jpg": jpeg.encode_jpeg, ".jpeg": jpeg.encode_jpeg,
-                ".tga": tga.encode_tga, ".tif": tiff.encode_tiff, ".tiff": tiff.encode_tiff,
-                ".bmp": bmp.encode_bmp,
-                **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"), pnm.encode_pnm)}
-    if ext not in encoders:
-        raise ValueError(f"cannot write {ext} images: write .png, .jpg, .tga, .tif, .bmp, "
-                         ".ppm (.pbm, .pgm, .pnm, .pfm), .exr or .hdr (ROADMAP: 'USD content')")
     if img.dtype != np.uint8:
         img = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    if ext in (".jpg", ".jpeg") and img.ndim == 3 and img.shape[2] == 4:
+    if img.ndim == 3 and img.shape[2] not in (1, 3, 4):
+        raise KeyError(img.shape[2])  # the JAX writer's channels -> mode table
+    if img.ndim == 2 or img.shape[2] == 1:
+        img = img.squeeze()
+        if img.ndim == 1:  # Image.fromarray takes a 1-D array as one column
+            img = img[:, None]
+        elif img.ndim == 0:
+            raise IndexError("tuple index out of range")  # Image.fromarray of a 0-d array
+    elif ext in (".jpg", ".jpeg") and img.shape[2] == 4:
         img = img[..., :3]
+    data = encode_image(path, img)
     with open(path, "wb") as f:
-        f.write(encoders[ext](img))
+        f.write(data)

@@ -346,11 +346,12 @@ def decode_ico(data: bytes) -> np.ndarray:
     return rgba
 
 
-def encode_bmp(img: np.ndarray) -> bytes:
+def encode_bmp(img: np.ndarray, file_header: bool = True) -> bytes:
     """[H, W] or [H, W, 1] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 ->
     the bytes Pillow's BmpImagePlugin._save writes: a V3 header at 96 dpi,
     grey as 8-bit indices into a grey palette, RGB as BGR and RGBA as BGRA,
-    rows bottom-up, each padded to 4 bytes."""
+    rows bottom-up, each padded to 4 bytes; without the 14-byte file header
+    (`file_header` false) the bytes of its DIB save (_dib_save)."""
     img = np.asarray(img, np.uint8)
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
@@ -371,4 +372,9 @@ def encode_bmp(img: np.ndarray) -> bytes:
     head = b"BM" + struct.pack("<IHHI", offset + stride * h, 0, 0, offset)
     info = struct.pack("<IIIHHIIIIII", 40, w, h, 1, bits, 0, stride * h, ppm, ppm, colors,
                        colors)
-    return head + info + palette + rows[::-1].tobytes()
+    return (head if file_header else b"") + info + palette + rows[::-1].tobytes()
+
+
+def encode_dib(img: np.ndarray) -> bytes:
+    """Pillow's .dib file of img: encode_bmp without its file header."""
+    return encode_bmp(img, file_header=False)

@@ -461,3 +461,31 @@ def bcn_decode_ref(blocks: bytes, fmt: int, sign: int, w: int, h: int) -> np.nda
     out = full[:h, :w]
     return np.ascontiguousarray(out[..., 0] if fmt == 4 else out)
 
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+def encode_dds(img: np.ndarray) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    DdsImagePlugin._save writes without a pixel format: uncompressed, grey
+    as luminance, RGB as BGR, RGBA as BGRA, with the pitch and masks."""
+    img = np.asarray(img, np.uint8)
+    c = 1 if img.ndim == 2 else img.shape[2]
+    h, w = img.shape[:2]
+    flags = 0x1 | 0x2 | 0x4 | 0x1000 | 0x8  # CAPS, HEIGHT, WIDTH, PIXELFORMAT, PITCH
+    if c == 1:
+        pixel_flags, masks, px = 0x20000, [0xFF000000] * 3 + [0], img
+    else:
+        pixel_flags, masks = 0x40, [0x00FF0000, 0x0000FF00, 0x000000FF]
+        px = img[..., [2, 1, 0, 3][:c]]
+        if c == 4:
+            pixel_flags |= 0x1
+        masks.append(0xFF000000 if c == 4 else 0)
+    head = (struct.pack("<I", 0x20534444)
+            + struct.pack("<7I", 124, flags, h, w, (w * 8 * c + 7) // 8, 0, 0)
+            + struct.pack("11I", *((0,) * 11))
+            + struct.pack("<4I", 32, pixel_flags, 0, 8 * c) + struct.pack("<4I", *masks)
+            + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    return head + np.ascontiguousarray(px).tobytes()

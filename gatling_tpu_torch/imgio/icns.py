@@ -140,3 +140,36 @@ def decode_icns(data: bytes) -> np.ndarray:
     if "A" in channels:
         return np.concatenate([channels["RGB"], channels["A"][..., None]], -1)
     return finish("RGB", channels["RGB"])
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+# IcnsImagePlugin._save's entries: type -> side
+SAVE_SIZES = {b"ic07": 128, b"ic08": 256, b"ic09": 512, b"ic10": 1024, b"ic11": 32,
+              b"ic12": 64, b"ic13": 256, b"ic14": 512}
+
+
+def save_frames(img: np.ndarray) -> dict[int, np.ndarray]:
+    """Each side of SAVE_SIZES -> the image IcnsImagePlugin._save stores:
+    img resized to side x side (Image.resize, BICUBIC; resample.py)."""
+    from gatling_tpu_torch.imgio import resample
+
+    img = np.asarray(img, np.uint8)
+    return {s: resample.resize(img, s, s) for s in sorted(set(SAVE_SIZES.values()))}
+
+
+def encode_icns(img: np.ndarray) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> Pillow's .icns
+    bytes: the header, the table of contents and one PNG entry of each type
+    (the port's encode_png, Pillow's bytes)."""
+    from gatling_tpu_torch.imgio import encode_png
+
+    streams = {s: encode_png(f) for s, f in save_frames(img).items()}
+    entries = [(kind, 8 + len(streams[s]), streams[s]) for kind, s in SAVE_SIZES.items()]
+    length = 8 + 8 + 8 * len(entries) + sum(n for _, n, _ in entries)
+    out = [b"icns", struct.pack(">i", length), b"TOC ", struct.pack(">i", 8 + 8 * len(entries))]
+    out += [kind + struct.pack(">i", n) for kind, n, _ in entries]
+    out += [kind + struct.pack(">i", n) + data for kind, n, data in entries]
+    return b"".join(out)

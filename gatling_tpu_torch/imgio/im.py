@@ -31,6 +31,7 @@ YCC images, which Pillow converts with its own YCbCr tables.
 
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
@@ -169,3 +170,28 @@ def decode_im(data: bytes) -> np.ndarray:
     if mode == "F":
         return finish("F", v.astype(np.float32))
     return finish(mode, v.astype(np.int32) if mode == "I" else v)
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+_IM_TYPES = {1: "Greyscale", 3: "RGB", 4: "RGBA"}
+
+
+def encode_im(img: np.ndarray, path: str) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    ImImagePlugin._save writes for `path`: the text header (the file's
+    base name, cut to 92 characters with its extension kept) padded with
+    zeros to 511 bytes and a 0x1A, then the rows bottom to top, a colour
+    image's planes one after the other in each row ("RGB;L", "RGBA;L")."""
+    img = np.asarray(img, np.uint8)
+    c = 1 if img.ndim == 2 else img.shape[2]
+    h, w = img.shape[:2]
+    name, ext = os.path.splitext(os.path.basename(path))
+    head = (f"Image type: {_IM_TYPES[c]} image\r\n"
+            f"Name: {name[:92 - len(ext)] + ext}\r\n"
+            f"Image size (x*y): {w}*{h}\r\n"
+            "File size (no of images): 1\r\n").encode("ascii")
+    rows = img[::-1] if c == 1 else img[::-1].transpose(0, 2, 1)
+    return head + b"\0" * (511 - len(head)) + b"\x1a" + np.ascontiguousarray(rows).tobytes()

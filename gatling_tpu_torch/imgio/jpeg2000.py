@@ -1422,3 +1422,323 @@ def mct_ref(c0: np.ndarray, c1: np.ndarray, c2: np.ndarray, reversible: bool) ->
     g = (y - u * _F(0.34413)) - v * _F(0.71414)
     b = y + u * _F(1.772)
     return r, g, b
+
+
+# ---------------------------------------------------------------------------
+# the encoder (Pillow's saver, lossless by its defaults)
+# ---------------------------------------------------------------------------
+
+CBLK = 64  # OpenJPEG's default code-block side
+MAX_LEVELS = 5  # OpenJPEG's default 6 resolutions
+_GAIN = (0, 1, 1, 2)  # log2 of each band's gain (LL, HL, LH, HH) on the 5/3
+
+
+def levels_for(w: int, h: int) -> int:
+    """The decomposition levels Pillow's encoder uses: OpenJPEG's 5, fewer
+    where the smaller side holds fewer than 2^levels samples."""
+    return min(MAX_LEVELS, max(min(w, h), 1).bit_length() - 1)
+
+
+def fdwt53(data: np.ndarray, levels: int) -> np.ndarray:
+    """The native forward 5/3 (gatling_j2k_fdwt53) of data [h, w] over
+    `levels` levels: each level's columns, then its rows, the low-pass half
+    first, into the top-left corner the next level works on."""
+    out = np.ascontiguousarray(data, np.int32).copy()
+    native.library().gatling_j2k_fdwt53(native.ptr(out, ctypes.c_int32), out.shape[1],
+                                        out.shape[0], levels)
+    return out
+
+
+def fdwt53_ref(data: np.ndarray, levels: int) -> np.ndarray:
+    """The NumPy twin of `fdwt53`."""
+    out = np.asarray(data, np.int64).copy()
+    rh, rw = out.shape
+    for _ in range(levels):
+        for axis, n in ((0, rh), (1, rw)):
+            region = out[:rh, :rw] if axis == 1 else out[:rh, :rw].T
+            sn, dn = (n + 1) // 2, n // 2
+            s, d = region[:, 0::2].copy(), region[:, 1::2].copy()
+            if dn > 0 or sn > 1:
+                right = np.concatenate([s[:, 1:], s[:, -1:]], axis=1)[:, :dn]
+                d -= (s[:, :dn] + right) >> 1
+                dl = np.concatenate([d[:, :1], d], axis=1)[:, :sn] if dn else np.zeros_like(s)
+                dr = np.concatenate([d, d[:, -1:]], axis=1)[:, :sn] if dn else np.zeros_like(s)
+                s += (dl + dr + 2) >> 2
+            region[:, :sn], region[:, sn:] = s, d
+        rh, rw = (rh + 1) // 2, (rw + 1) // 2
+    return out.astype(np.int32)
+
+
+def encode_cblk(coef: np.ndarray, orient: int) -> tuple[bytes, int, int]:
+    """Tier 1 of one code-block in the native library
+    (gatling_j2k_encode_cblk): (its MQ segment, bit-planes, passes)."""
+    coef = np.ascontiguousarray(coef, np.int32)
+    h, w = coef.shape
+    cap = coef.size * 8 + 64
+    out = np.empty(cap, np.uint8)
+    info = np.zeros(2, np.int32)
+    n = native.library().gatling_j2k_encode_cblk(
+        native.ptr(coef, ctypes.c_int32), w, w, h, orient, native.ptr(out, ctypes.c_uint8), cap,
+        native.ptr(info, ctypes.c_int32))
+    if n < 0:
+        raise RuntimeError("JPEG 2000: code-block output overran its buffer")
+    return out[:n].tobytes(), int(info[0]), int(info[1])
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return struct.pack(">HH", code, len(body) + 2) + body
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body) + 8) + kind + body
+
+
+def encode_jpeg2000(img: np.ndarray, jp2: bool = True) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> a lossless JPEG
+    2000 file with Pillow's defaults (Jpeg2KImagePlugin._save): one tile,
+    the reversible 5/3 over levels_for(w, h) levels, 64x64 code-blocks, one
+    layer in LRCP order, no MCT, each component DC-shifted by 128; a bare
+    codestream, or (`jp2`) in the JP2 boxes Pillow's encoder writes (ihdr,
+    colr sRGB or greyscale, cdef marking RGBA's alpha). The bytes are the
+    port's own; Pillow and the port decode them to img."""
+    img = np.asarray(img, np.uint8)
+    planes = img[None] if img.ndim == 2 else img.transpose(2, 0, 1)
+    nc, h, w = planes.shape
+    levels = levels_for(w, h)
+    comps = [fdwt53(p.astype(np.int32) - 128, levels) for p in planes]
+    ptrs = native.pointers(comps)
+    cap = sum(c.size for c in comps) * 8 + 4096
+    out = np.empty(cap, np.uint8)
+    guard = 2  # OpenJPEG's; more where a code-block needs more bit-planes
+    while True:
+        expn = [8 + _GAIN[0]] + [8 + g for _ in range(levels) for g in _GAIN[1:]]
+        bandbps = np.array([expn[0] + guard - 1, 0, 0]
+                           + [e + guard - 1 for e in expn[1:]], np.int32)
+        n = native.library().gatling_j2k_encode_tile(
+            ctypes.cast(ptrs, ctypes.POINTER(ctypes.c_void_p)), nc, w, h, levels,
+            native.ptr(bandbps, ctypes.c_int32), native.ptr(out, ctypes.c_uint8), cap)
+        if n == -2 and guard < 7:
+            guard += 1
+            continue
+        if n < 0:
+            raise RuntimeError(f"JPEG 2000: the tile encoder failed ({n})")
+        break
+    packets = out[:n].tobytes()
+    siz = struct.pack(">HIIIIIIIIH", 0, w, h, 0, 0, w, h, 0, 0, nc) + b"\x07\x01\x01" * nc
+    cod = struct.pack(">BBHBBBBBB", 0, 0, 1, 0, levels, 4, 4, 0, 1)
+    qcd = bytes([guard << 5] + [e << 3 for e in expn])
+    sot = struct.pack(">HIBB", 0, 12 + 2 + len(packets), 0, 1)
+    stream = (b"\xff\x4f" + _marker(0xFF51, siz) + _marker(0xFF52, cod) + _marker(0xFF5C, qcd)
+              + _marker(0xFF90, sot) + b"\xff\x93" + packets + b"\xff\xd9")
+    if not jp2:
+        return stream
+    head = _box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, 7, 7, 0, 0))
+    head += _box(b"colr", struct.pack(">BBBI", 1, 0, 0, 17 if nc == 1 else 16))
+    if nc == 4:
+        head += _box(b"cdef", struct.pack(">H", 4) + struct.pack(">12H", 0, 0, 1, 1, 0, 2, 2, 0,
+                                                                 3, 3, 1, 0))
+    return (_box(b"jP  ", b"\r\n\x87\n") + _box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+            + _box(b"jp2h", head) + _box(b"jp2c", stream))
+
+
+# the MQ coder's tables (mqc.c) and the tier-1 contexts (t1.c), for the twin
+_QE = (0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401, 0x4801, 0x3801, 0x3001,
+       0x2401, 0x1C01, 0x1601, 0x5601, 0x5401, 0x5101, 0x4801, 0x3801, 0x3401, 0x3001, 0x2801,
+       0x2401, 0x2201, 0x1C01, 0x1801, 0x1601, 0x1401, 0x1201, 0x1101, 0x0AC1, 0x09C1, 0x08A1,
+       0x0521, 0x0441, 0x02A1, 0x0221, 0x0141, 0x0111, 0x0085, 0x0049, 0x0025, 0x0015, 0x0009,
+       0x0005, 0x0001, 0x5601)
+_NMPS = (1, 2, 3, 4, 5, 38, 7, 8, 9, 10, 11, 12, 13, 29, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24,
+         25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 45, 46)
+_NLPS = (1, 6, 9, 12, 29, 33, 6, 14, 14, 14, 17, 18, 20, 21, 14, 14, 15, 16, 17, 18, 19, 19, 20,
+         21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42,
+         43, 46)
+_SWITCH = {0, 6, 14}
+_ZC, _SC, _MAG, _AGG, _UNI = 0, 9, 14, 17, 18
+
+
+def _zc(orient: int, h: int, v: int, d: int) -> int:
+    """The zero-coding context of t1.c (Table D.1)."""
+    if orient == 3:
+        hv = h + v
+        if d == 0:
+            return (0, 1, 2)[min(hv, 2)]
+        if d == 1:
+            return (3, 4, 5)[min(hv, 2)]
+        return 6 if d == 2 and hv == 0 else 7 if d == 2 else 8
+    if orient == 1:
+        h, v = v, h
+    if h == 0:
+        return (0 if d == 0 else 1 if d == 1 else 2) if v == 0 else 3 if v == 1 else 4
+    if h == 1:
+        return (5 if d == 0 else 6) if v == 0 else 7
+    return 8
+
+
+class _MqRef:
+    """mqc.c's MQ encoder."""
+
+    def __init__(self) -> None:
+        self.out = bytearray(1)
+        self.a, self.c, self.ct = 0x8000, 0, 12
+        self.state = [0] * 19
+        self.mps = [0] * 19
+        self.state[_UNI], self.state[_AGG], self.state[_ZC] = 46, 3, 4
+
+    def _byteout(self) -> None:
+        if self.out[-1] == 0xFF:
+            self.out.append((self.c >> 20) & 0xFF)
+            self.c &= 0xFFFFF
+            self.ct = 7
+        elif not self.c & 0x8000000:
+            self.out.append((self.c >> 19) & 0xFF)
+            self.c &= 0x7FFFF
+            self.ct = 8
+        else:
+            self.out[-1] += 1
+            if self.out[-1] == 0xFF:
+                self.c &= 0x7FFFFFF
+                self.out.append((self.c >> 20) & 0xFF)
+                self.c &= 0xFFFFF
+                self.ct = 7
+            else:
+                self.out.append((self.c >> 19) & 0xFF)
+                self.c &= 0x7FFFF
+                self.ct = 8
+
+    def _renorm(self) -> None:
+        while True:
+            self.a = (self.a << 1) & 0xFFFFFFFF
+            self.c = (self.c << 1) & 0xFFFFFFFF
+            self.ct -= 1
+            if self.ct == 0:
+                self._byteout()
+            if self.a & 0x8000:
+                break
+
+    def encode(self, cx: int, d: int) -> None:
+        s = self.state[cx]
+        qe = _QE[s]
+        self.a -= qe
+        if self.mps[cx] == d:
+            if not self.a & 0x8000:
+                if self.a < qe:
+                    self.a = qe
+                else:
+                    self.c += qe
+                self.state[cx] = _NMPS[s]
+                self._renorm()
+            else:
+                self.c += qe
+        else:
+            if self.a < qe:
+                self.c += qe
+            else:
+                self.a = qe
+            if s in _SWITCH:
+                self.mps[cx] ^= 1
+            self.state[cx] = _NLPS[s]
+            self._renorm()
+
+    def flush(self) -> bytes:
+        tempc = self.c + self.a
+        self.c |= 0xFFFF
+        if self.c >= tempc:
+            self.c -= 0x8000
+        for _ in range(2):
+            self.c = (self.c << self.ct) & 0xFFFFFFFF
+            self._byteout()
+        return bytes(self.out[1:] if self.out[-1] != 0xFF else self.out[1:-1])
+
+
+def encode_cblk_ref(coef: np.ndarray, orient: int) -> tuple[bytes, int, int]:
+    """The NumPy twin of `encode_cblk`: t1.c's passes over a code-block."""
+    coef = np.asarray(coef, np.int64)
+    h, w = coef.shape
+    mag, neg = np.abs(coef).tolist(), (coef < 0).tolist()
+    top = int(np.abs(coef).max(initial=0))
+    numbps = top.bit_length()
+    if not numbps:
+        return b"", 0, 0
+    sig = [[False] * (w + 2) for _ in range(h + 2)]
+    negf = [[False] * (w + 2) for _ in range(h + 2)]
+    visit = [[False] * w for _ in range(h)]
+    refined = [[False] * w for _ in range(h)]
+    mq = _MqRef()
+
+    def nbr(x: int, y: int) -> tuple[int, int, int]:
+        X, Y = x + 1, y + 1
+        hh = sig[Y][X - 1] + sig[Y][X + 1]
+        vv = sig[Y - 1][X] + sig[Y + 1][X]
+        dd = sig[Y - 1][X - 1] + sig[Y - 1][X + 1] + sig[Y + 1][X - 1] + sig[Y + 1][X + 1]
+        return hh, vv, dd
+
+    def sign(x: int, y: int) -> None:
+        X, Y = x + 1, y + 1
+
+        def contrib(yy: int, xx: int) -> int:
+            return 0 if not sig[yy][xx] else (-1 if negf[yy][xx] else 1)
+
+        # each direction's neighbours count once for each sign (Table D.2)
+        hp = (contrib(Y, X - 1) > 0) + (contrib(Y, X + 1) > 0)
+        hn = (contrib(Y, X - 1) < 0) + (contrib(Y, X + 1) < 0)
+        vp = (contrib(Y - 1, X) > 0) + (contrib(Y + 1, X) > 0)
+        vn = (contrib(Y - 1, X) < 0) + (contrib(Y + 1, X) < 0)
+        hc = (hp > 0) - (hn > 0)
+        vc = (vp > 0) - (vn > 0)
+        h0, v0 = hc, vc
+        if hc < 0:
+            hc, vc = -hc, -vc
+        n = (0 if vc == 0 else 1) if hc == 0 else (2 if vc == -1 else 3 if vc == 0 else 4)
+        spb = 0 if (h0 == 0 and v0 == 0) else int(not (h0 > 0 or (h0 == 0 and v0 > 0)))
+        mq.encode(_SC + n, int(neg[y][x]) ^ spb)
+        sig[Y][X], negf[Y][X] = True, neg[y][x]
+
+    def cln_sample(x: int, y: int, bp: int) -> None:
+        b = (mag[y][x] >> bp) & 1
+        mq.encode(_ZC + _zc(orient, *nbr(x, y)), b)
+        if b:
+            sign(x, y)
+
+    for bp in range(numbps - 1, -1, -1):
+        if bp != numbps - 1:
+            for k in range(0, h, 4):  # significance propagation
+                for x in range(w):
+                    for y in range(k, min(k + 4, h)):
+                        if sig[y + 1][x + 1] or visit[y][x] or not any(nbr(x, y)):
+                            continue
+                        b = (mag[y][x] >> bp) & 1
+                        mq.encode(_ZC + _zc(orient, *nbr(x, y)), b)
+                        if b:
+                            sign(x, y)
+                        visit[y][x] = True
+            for k in range(0, h, 4):  # magnitude refinement
+                for x in range(w):
+                    for y in range(k, min(k + 4, h)):
+                        if not sig[y + 1][x + 1] or visit[y][x]:
+                            continue
+                        ctx = _MAG + 2 if refined[y][x] else _MAG + (1 if any(nbr(x, y)) else 0)
+                        mq.encode(ctx, (mag[y][x] >> bp) & 1)
+                        refined[y][x] = True
+        for k in range(0, h, 4):  # cleanup
+            rows = range(k, min(k + 4, h))
+            for x in range(w):
+                run = len(rows) == 4 and not any(
+                    sig[y + 1][x + dx + 1] for y in range(k - 1, k + 5) for dx in (-1, 0, 1)) \
+                    and not any(visit[y][x] for y in rows)
+                if run:
+                    bits = [(mag[y][x] >> bp) & 1 for y in rows]
+                    first = bits.index(1) if 1 in bits else -1
+                    mq.encode(_AGG, int(first >= 0))
+                    if first >= 0:
+                        mq.encode(_UNI, first >> 1)
+                        mq.encode(_UNI, first & 1)
+                        sign(x, k + first)
+                        for y in range(k + first + 1, k + 4):
+                            cln_sample(x, y, bp)
+                else:
+                    for y in rows:
+                        if not sig[y + 1][x + 1] and not visit[y][x]:
+                            cln_sample(x, y, bp)
+                for y in rows:
+                    visit[y][x] = False
+    return mq.flush(), numbps, 3 * numbps - 2

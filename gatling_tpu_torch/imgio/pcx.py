@@ -21,6 +21,7 @@ The run-length loop is the native library's gatling_pcx_decode.
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 
@@ -118,3 +119,74 @@ def decode_dcx(data: bytes) -> np.ndarray:
     if not offsets:
         raise Skip("DCX: no frames")  # IndexError in seek(0)
     return decode_frame(data, offsets[0])
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+def _plane_rows(img: np.ndarray) -> tuple[np.ndarray, int]:
+    """img as PcxEncode.c reads it: rows [H, planes * W] of each plane's
+    bytes ("L", or "RGB;L"), and the plane count."""
+    if img.ndim == 2:
+        return np.ascontiguousarray(img), 1
+    h, w, _ = img.shape
+    return np.ascontiguousarray(img.transpose(0, 2, 1).reshape(h, 3 * w)), 3
+
+
+def encode_pcx(img: np.ndarray) -> bytes:
+    """[H, W] grey or [H, W, 3] RGB uint8 -> the bytes PcxImagePlugin._save
+    writes: the 128-byte header (version 5, 100 dpi), the run-length rows
+    of each plane, each padded to an even stride, and for grey the grey
+    palette after a 12. RGBA raises ValueError, as Pillow does."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[2] != 3:
+        raise ValueError("Cannot save RGBA images as PCX")
+    h, w = img.shape[:2]
+    rows, planes = _plane_rows(img)
+    stride = w + w % 2
+    head = (bytes((10, 5, 1, 8)) + struct.pack("<HHHHHH", 0, 0, w - 1, h - 1, 100, 100)
+            + b"\0" * 24 + b"\xff" * 24 + bytes((0, planes))
+            + struct.pack("<HHHH", stride, 1, w, h) + b"\0" * 54)
+    cap = rows.size * 2 + 2 * h * planes + 16
+    out = np.empty(cap, np.uint8)
+    n = native.library().gatling_pcx_encode(native.ptr(rows, ctypes.c_uint8), h, planes, w,
+                                            stride - w, native.ptr(out, ctypes.c_uint8), cap)
+    if n < 0:
+        raise RuntimeError("PCX: run-length output overran its buffer")
+    tail = b"\x0c" + bytes(np.repeat(np.arange(256, dtype=np.uint8), 3)) if planes == 1 else b""
+    return head + out[:n].tobytes() + tail
+
+
+def rle_ref(img: np.ndarray) -> bytes:
+    """The NumPy twin of encode_pcx's native run-length rows."""
+    rows, planes = _plane_rows(np.asarray(img, np.uint8))
+    w = rows.shape[1] // planes
+    padding = w % 2
+    out = bytearray()
+
+    def flush(count: int, last: int) -> None:
+        if count == 1 and last < 0xC0:
+            out.append(last)
+        elif count > 0:
+            out.extend((0xC0 | count, last))
+
+    # one byte a plane row: PcxEncode.c's loop ends before it writes the
+    # last plane (Pillow's files hold planes - 1 of them)
+    written = planes - 1 if w == 1 and planes > 1 else planes
+    for row in rows.tolist():
+        for p in range(written):
+            plane = row[p * w:(p + 1) * w]
+            count, last = 1, plane[0]
+            for v in plane[1:]:
+                if count == 63:
+                    flush(count, last)
+                    count = 0
+                if v == last:
+                    count += 1
+                else:
+                    flush(count, last)
+                    last, count = v, 1
+            flush(count, last)
+            out.extend(b"\0" * padding)
+    return bytes(out)

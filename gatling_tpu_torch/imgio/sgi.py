@@ -20,6 +20,7 @@ The run-length loop is the native library's gatling_sgi_rle_decode.
 from __future__ import annotations
 
 import ctypes
+import os
 import struct
 
 import numpy as np
@@ -67,3 +68,23 @@ def decode_sgi(data: bytes) -> np.ndarray:
             raise ValueError("SGI: RLE data overruns its rows")
         px = rows.reshape(h, w, bands, bpc)[..., 0]
     return finish(mode, np.ascontiguousarray(px[::-1]))
+
+
+# ---------------------------------------------------------------------------
+# the writer
+# ---------------------------------------------------------------------------
+
+def encode_sgi(img: np.ndarray, path: str) -> bytes:
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    SgiImagePlugin._save writes for `path` (whatever its extension): the
+    512-byte header, uncompressed, 1 byte a sample, the file's base name
+    without its extension in the name field; then each channel's rows,
+    bottom to top."""
+    img = np.asarray(img, np.uint8)
+    planes = img[None] if img.ndim == 2 else img.transpose(2, 0, 1)
+    z, h, w = planes.shape
+    dimension = (1 if h == 1 else 2) if img.ndim == 2 else 3
+    name = os.path.splitext(os.path.basename(path))[0].encode("ascii", "ignore")
+    head = (struct.pack(">hBBHHHHll", 474, 0, 1, dimension, w, h, z, 0, 255) + b"\0" * 4
+            + struct.pack("79s", name) + b"\0" + struct.pack(">l", 0) + b"\0" * 404)
+    return head + np.ascontiguousarray(planes[:, ::-1]).tobytes()

@@ -126,8 +126,9 @@ def decode_tga(data: bytes) -> np.ndarray:
 
 
 def encode_tga(img: np.ndarray) -> bytes:
-    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> an
-    uncompressed, top-left TGA."""
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    TgaImagePlugin._save writes: an uncompressed bottom-up TGA (8 alpha
+    bits flagged for RGBA) and the TGA 2.0 footer."""
     img = np.asarray(img, np.uint8)
     if img.ndim == 2:
         img = img[..., None]
@@ -135,6 +136,5 @@ def encode_tga(img: np.ndarray) -> bytes:
     if c not in (1, 3, 4):
         raise ValueError(f"TGA: expected 1, 3 or 4 channels, got {img.shape}")
     px = img if c == 1 else np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
-    flags = 0x20 | (8 if c == 4 else 0)
-    return (_HEADER.pack(0, 0, 3 if c == 1 else 2, 0, 0, 0, 0, 0, w, h, 8 * c, flags)
-            + np.ascontiguousarray(px).tobytes())
+    return (_HEADER.pack(0, 0, 3 if c == 1 else 2, 0, 0, 0, 0, 0, w, h, 8 * c, 8 if c == 4 else 0)
+            + np.ascontiguousarray(px[::-1]).tobytes() + b"\0" * 8 + b"TRUEVISION-XFILE.\0")

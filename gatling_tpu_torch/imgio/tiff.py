@@ -1376,8 +1376,10 @@ class _OJpeg:
 
 
 def encode_tiff(img: np.ndarray) -> bytes:
-    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> an uncompressed
-    little-endian TIFF of one strip."""
+    """[H, W] grey, [H, W, 3] RGB or [H, W, 4] RGBA uint8 -> the bytes
+    TiffImagePlugin._save writes: an uncompressed little-endian TIFF of one
+    strip, its tags those Pillow writes (PlanarConfiguration 1 among them,
+    SamplesPerPixel only for colour)."""
     img = np.asarray(img, np.uint8)
     if img.ndim == 2:
         img = img[..., None]
@@ -1385,14 +1387,14 @@ def encode_tiff(img: np.ndarray) -> bytes:
     if c not in (1, 3, 4):
         raise ValueError(f"TIFF: expected 1, 3 or 4 channels, got {img.shape}")
     pixels = np.ascontiguousarray(img).tobytes()
-    n_fields = 9 + (c == 4)
     ifd_at = 8
-    bps_at = ifd_at + 2 + 12 * n_fields + 4
+    bps_at = ifd_at + 2 + 12 * (9 + (c > 1) + (c == 4)) + 4
     data_at = bps_at + (2 * c if c > 2 else 0)
-    entries = [(256, 4, 1, w), (257, 4, 1, h),
-               (258, 3, c, bps_at if c > 2 else 8), (259, 3, 1, 1),
-               (262, 3, 1, 2 if c >= 3 else 1), (273, 4, 1, data_at), (277, 3, 1, c),
-               (278, 4, 1, h), (279, 4, 1, len(pixels))]
+    entries = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, c, bps_at if c > 2 else 8),
+               (259, 3, 1, 1), (262, 3, 1, 2 if c >= 3 else 1), (273, 4, 1, data_at),
+               (278, 4, 1, h), (279, 4, 1, len(pixels)), (284, 3, 1, 1)]
+    if c > 1:
+        entries.append((277, 3, 1, c))
     if c == 4:
         entries.append((338, 3, 1, 2))
     out = [b"II*\x00", struct.pack("<I", ifd_at), struct.pack("<H", len(entries))]

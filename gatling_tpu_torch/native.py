@@ -47,10 +47,11 @@ from gatling_tpu_torch.ops.cuda_lib import BUILD_DIR, CSRC
 # the library's sources: every one is compiled into it, and the build is
 # keyed on all of them
 SOURCE = CSRC / "gatling_native.cpp"
-MORE_SOURCES = (CSRC / "jpeg2000.cpp", CSRC / "tiff_codecs.cpp", CSRC / "legacy_codecs.cpp")
+MORE_SOURCES = (CSRC / "jpeg2000.cpp", CSRC / "tiff_codecs.cpp", CSRC / "legacy_codecs.cpp",
+                CSRC / "image_writers.cpp")
 # no contraction into fused multiply-adds: the float code rounds as the
 # x86-64 builds of the libraries it reproduces (OpenJPEG's 9/7 wavelet)
-FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
+FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off", "-pthread")
 LIBS = ("-lz",)
 
 _F32 = ctypes.POINTER(ctypes.c_float)
@@ -106,6 +107,15 @@ _ENTRY_POINTS = {
                                        _I32, _PP, _I32]),
     "gatling_j2k_idwt": (None, [ctypes.c_void_p, _I32, _INT, _INT, _INT]),
     "gatling_j2k_mct": (None, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, _I64, _INT]),
+    "gatling_j2k_fdwt53": (None, [_I32, _INT, _INT, _INT]),
+    "gatling_j2k_encode_cblk": (_I64, [_I32, _I64, _INT, _INT, _INT, _U8, _I64, _I32]),
+    "gatling_j2k_encode_tile": (_I64, [_PP, _INT, _INT, _INT, _INT, _I32, _U8, _I64]),
+    "gatling_resample": (None, [_U8, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _U8]),
+    "gatling_quantize_mediancut": (_INT, [_U8, _I64, _INT, _U8, _U8]),
+    "gatling_quantize_octree": (_INT, [_U8, _I64, _INT, _U8, _U8]),
+    "gatling_gif_lzw_encode": (_I64, [_U8, _INT, _INT, _INT, _U8, _I64]),
+    "gatling_pcx_encode": (_I64, [_U8, _INT, _INT, _INT, _INT, _U8, _I64]),
+    "gatling_qoi_encode": (_I64, [_U8, _I64, _INT, _U8, _I64]),
 }
 
 _lock = threading.Lock()

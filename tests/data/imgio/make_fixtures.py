@@ -57,6 +57,12 @@ and scan, `ftex_file`, `sun_file` (raw and RLE), `icns_file` over
 `xvthumb_file` (tests/test_torch_imgio_legacy.py makes its own files with
 the same writers).
 
+writers.json (`writers`, tests/test_torch_writers.py and chip_smoke.py
+phase 4u) holds three seeded arrays (L, RGB, RGBA, odd sizes) and the
+SHA-256 of the file Pillow saves for each at every extension where the
+port's writer must give Pillow's bytes, so that the card's host, without
+Pillow, can hold the port's files to them.
+
 Run from the repository root, where Pillow and JAX are installed:
 
     JAX_PLATFORMS=cpu python tests/data/imgio/make_fixtures.py
@@ -65,6 +71,7 @@ Run from the repository root, where Pillow and JAX are installed:
 from __future__ import annotations
 
 import io
+import json
 import os
 import struct
 import sys
@@ -1930,9 +1937,103 @@ def first_fixtures() -> dict[str, bytes]:
     }
 
 
+# the writers' byte-equal extensions for each mode (tests/test_torch_writers.py,
+# chip_smoke.py phase 4u)
+WRITER_EXTS = (".png", ".apng", ".jpg", ".jpeg", ".jfif", ".jpe", ".mpo", ".tga", ".icb", ".vda",
+               ".vst", ".tif", ".tiff", ".bmp", ".dib", ".pbm", ".pgm", ".ppm", ".pnm", ".pfm",
+               ".dds", ".qoi", ".pcx", ".eps", ".ps", ".sgi", ".rgb", ".rgba", ".bw", ".im",
+               ".gif", ".ico", ".icns")
+WRITER_REFUSED = {"L": (".qoi",), "RGB": (),
+                  "RGBA": (".jfif", ".jpe", ".mpo", ".jpg", ".jpeg", ".pcx", ".eps", ".ps")}
+WRITER_SHAPES = {"L": (19, 33), "RGB": (37, 21, 3), "RGBA": (29, 47, 4)}
+WRITER_NAME = "fixture"
+
+
+def writer_arrays() -> dict[str, np.ndarray]:
+    """The three seeded arrays of writers.json: textures with noise, odd
+    sizes, an alpha of every level."""
+    out = {}
+    for k, (mode, shape) in enumerate(WRITER_SHAPES.items()):
+        img = texture(shape[0], shape[1], shape[2] if len(shape) == 3 else 1, 700 + k)
+        out[mode] = img[..., 0] if len(shape) == 2 else img
+    return out
+
+
+# the full-size arrays of writers.json: the CLI frame's size, and the
+# extensions whose encoders take other branches there (GIF: the palette
+# kept whole, the median cut's hash rescaling above 65,536 colours, the
+# octree's 256 entries with a transparent one)
+WRITER_FULL_SIZE = (1200, 1200)
+WRITER_FULL_EXTS = {"L": (".gif", ".jpg", ".png"), "RGB": (".gif", ".jpg", ".png"),
+                    "RGBA": (".gif", ".png")}
+
+
+def writer_ramp(mode: str, h: int, w: int) -> np.ndarray:
+    """A [h, w] (L), [h, w, 3] (RGB) or [h, w, 4] (RGBA) uint8 array of
+    integer arithmetic alone, so that a script without this file can make
+    it (chip_smoke.py `writer_ramp`): over a million colours at 1200 x
+    1200, and an alpha of 0 on every seventh diagonal, 128-255 elsewhere."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.int64)
+    channels = [(x * 3 + y * y // 97) % 256, (y * 5 + x * y // 311) % 256,
+                ((x ^ y) + x * x // 173) % 256,
+                np.where((x + y) % 7 == 0, 0, 128 + (x + 2 * y) % 128)]
+    n = {"L": 1, "RGB": 3, "RGBA": 4}[mode]
+    img = np.stack(channels[:n], -1).astype(np.uint8)
+    return img[..., 0] if n == 1 else img
+
+
+def writers() -> dict:
+    """writers.json: the arrays (base64 of their bytes) and the SHA-256 of
+    the file Pillow saves for each array at each byte-equal extension, the
+    base name WRITER_NAME (SGI and IM files hold it). The .jpg and .jpeg
+    files of RGBA are left out: the writer drops the alpha first. Under
+    "full_size": writer_ramp's arrays at WRITER_FULL_SIZE, by the SHA-256
+    of their bytes, Pillow's files of them at WRITER_FULL_EXTS, and the
+    SHA-256 of Pillow's decode of each JPEG (the lossy file's samples)."""
+    import base64
+    import hashlib
+    import tempfile
+
+    from PIL import Image
+
+    doc = {"pillow": Image.__version__, "name": WRITER_NAME, "arrays": {}, "sha256": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, arr in writer_arrays().items():
+            doc["arrays"][mode] = {"shape": list(arr.shape),
+                                   "base64": base64.b64encode(arr.tobytes()).decode("ascii")}
+            doc["sha256"][mode] = {}
+            for ext in WRITER_EXTS:
+                if ext in WRITER_REFUSED[mode]:
+                    continue
+                path = os.path.join(tmp, WRITER_NAME + ext)
+                Image.fromarray(arr, mode).save(path)
+                with open(path, "rb") as f:
+                    doc["sha256"][mode][ext] = hashlib.sha256(f.read()).hexdigest()
+        full = {"shape": list(WRITER_FULL_SIZE), "arrays": {}, "sha256": {}, "jpeg_decoded": {}}
+        for mode, exts in WRITER_FULL_EXTS.items():
+            arr = writer_ramp(mode, *WRITER_FULL_SIZE)
+            full["arrays"][mode] = hashlib.sha256(arr.tobytes()).hexdigest()
+            full["sha256"][mode] = {}
+            for ext in exts:
+                path = os.path.join(tmp, WRITER_NAME + ext)
+                Image.fromarray(arr, mode).save(path)
+                with open(path, "rb") as f:
+                    full["sha256"][mode][ext] = hashlib.sha256(f.read()).hexdigest()
+                if ext == ".jpg":
+                    with Image.open(path) as im:
+                        samples = np.asarray(im.convert("RGBA")).tobytes()
+                    full["jpeg_decoded"][mode] = hashlib.sha256(samples).hexdigest()
+        doc["full_size"] = full
+    return doc
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
     from gatling_tpu import imgio
+
+    with open(os.path.join(HERE, "writers.json"), "w") as f:
+        json.dump(writers(), f, indent=1, sort_keys=True)
+        f.write("\n")
 
     decoded = {}
     for name, data in fixtures().items():

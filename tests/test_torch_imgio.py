@@ -54,7 +54,7 @@ _spec = importlib.util.spec_from_file_location("make_fixtures",
                                                os.path.join(FIXTURES, "make_fixtures.py"))
 mf = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(mf)
-NAMES = sorted(f for f in os.listdir(FIXTURES) if not f.endswith((".py", ".npz")))
+NAMES = sorted(f for f in os.listdir(FIXTURES) if not f.endswith((".py", ".npz", ".json")))
 SIZES = [(1, 1), (2, 3), (3, 5), (8, 8), (9, 9), (15, 17), (17, 33), (31, 7), (64, 48)]
 
 
@@ -404,6 +404,21 @@ def test_writers_read_back_by_pillow(tmp_path, ext, channels):
     jimgio.write_image_file(tmp_path / f"g{ext}", floats)
     assert same(imgio.load_image_file(tmp_path / f"f{ext}"),
                 jimgio.load_image_file(tmp_path / f"g{ext}").data)
+
+
+@pytest.mark.parametrize("ext", [".png", ".tga", ".tif", ".tiff"])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_writers_are_pillows_bytes(tmp_path, ext, channels):
+    """The PNG (Pillow's row filters and deflate settings, its IDAT split),
+    TGA (its header and footer) and TIFF (its tags) files are the JAX
+    package's bytes."""
+    rng = np.random.default_rng(channels)
+    for k, (h, w) in enumerate(s for s in SIZES + [(300, 290)] if channels > 1 or min(s) > 1):
+        img = rng.integers(0, 256, (h, w, channels), dtype=np.uint8) if k % 2 else \
+            mf.texture(h, w, channels, k)
+        imgio.write_image_file(tmp_path / f"x{ext}", img)
+        jimgio.write_image_file(tmp_path / f"ref{ext}", img)
+        assert (tmp_path / f"x{ext}").read_bytes() == (tmp_path / f"ref{ext}").read_bytes(), (h, w)
 
 
 # ---------------------------------------------------------------------------

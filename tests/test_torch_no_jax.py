@@ -14,7 +14,8 @@ formats (BMP, GIF, DDS BC7, PSD, QOI, PPM, 16-bit TGA, JPEG-in-TIFF, CMYK
 JPEG, PFM) equal to Pillow's arrays; and the front ends: the Hydra
 delegate with a gi rect light, giDestroyMesh, a checkpoint saved and
 loaded, the driver entry's multi-device dry run, and the CLI with
-parallelDevices and --checkpoint. A scan of the port's sources finds no
+parallelDevices and --checkpoint, and the CLI's frames written to .gif and
+.jp2 and read back by the port's decoders. A scan of the port's sources finds no
 import of jax, PIL or the JAX package."""
 
 import os
@@ -138,6 +139,27 @@ for name in ("bmp_rgb24.bmp", "gif_palette.gif", "dds_bc7.dds", "psd_rgb.psd", "
     with open("tests/data/imgio/" + name, "rb") as f:
         got = imgio.load_image(f.read())
     assert got.dtype == ref[name].dtype and np.array_equal(got, ref[name]), name
+from gatling_tpu_torch import cli  # the CLI's writers: .gif and .jp2, read back by the port
+from gatling_tpu_torch.imgio import gif
+written = {}
+write = imgio.write_image_file
+imgio.write_image_file = lambda path, a: (written.__setitem__(path, a), write(path, a))[1]
+out_dir = tempfile.mkdtemp()
+for ext in (".gif", ".jp2"):
+    assert cli.main(["tests/data/cornell.usda", out_dir + "/frame" + ext, "--device", "cpu",
+                     "--image-width", "8", "--image-height", "8", "--spp", "1",
+                     "--max-bounces", "2"]) == 0
+imgio.write_image_file = write
+for ext in (".gif", ".jp2"):
+    path = out_dir + "/frame" + ext
+    u8 = np.clip(written[path] * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    got = imgio.load_image_file(path)
+    if ext == ".jp2":
+        assert np.array_equal(got, u8), ext  # lossless RGBA
+    else:
+        pal, idx, clear = gif.indexed(u8)  # the quantizer's palette at its indices
+        assert np.array_equal(got[..., :3], pal[idx])
+        assert np.array_equal(got[..., 3], np.where(idx == clear, 0, 255))
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None]
 assert not loaded, loaded
 print("NO_JAX_OK")

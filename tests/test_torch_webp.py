@@ -24,7 +24,7 @@ over libwebp 1.6.0), bit for bit.
    transforms.
 5. What the saver reaches: the VP8 header fields and VP8L transforms its
    files use (the simple loop filter and 2-8 token partitions it never
-   writes), and a .webp write still raises ValueError naming its ROADMAP
+   writes), and a .webp write raises NotImplementedError naming its ROADMAP
    item.
 """
 
@@ -390,5 +390,7 @@ def test_what_the_saver_reaches():
 
 
 def test_webp_write_raises_value_error(tmp_path):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    """A .webp write raises NotImplementedError naming its ROADMAP item (the
+    WebP encoder is unported; the test's name predates that contract)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         imgio.write_image_file(tmp_path / "t.webp", image(4, 4, 3, 0))
