@@ -371,6 +371,23 @@ fails, with a non-zero exit, if any phase fails:
    port's decode of each such JPEG against Pillow's; (d) the host time of
    each group's first 1200x1200 COLOR write, the median of three, beside
    the nvidia-smi line;
+4v. HTJ2K and the Part 2 markers (phase_htj2k): (a) every file of
+   tests/data/jpeg2000/make_ht_files.py (HT cleanup-only and 3-pass
+   blocks, 16x64 and 1024x4 code-blocks, tiles, precincts and layers, RCT
+   and ICT, RGBA, 12- and 16-bit and signed grey, raw, JP2 and JPH, a
+   1024^2 9/7 ground; MCT/MCC/MCO/CBD/CAP/CPF spliced into codestreams)
+   decoded on the card's host, bit-equal to Pillow's array
+   (ht_fixtures.npz; the 1024^2 ground by its SHA-256) or refused as
+   Pillow refuses it, each decode timed, then the 1024^2 HT ground against
+   the 1024^2 MQ ground (4r's j2k_ground_1024.jp2), the median of five
+   interleaved decodes each; (b) interior_htj2k: the textured interior at
+   512x512, 4 spp, 6 bounces, NEE, its ten 8-bit base colours HT files
+   (the ground among them): 6 K3 and 6 K4 a frame, bit-equal to
+   interior_htj2k_png (PNGs of the port's decoded codes), K3 and K4 on
+   its bounce-0 wave bit-equal to their twins and timed; (c)
+   interior_htj2k_grey16: the 16-bit grey HT file as every roughness (a
+   float pool): 6 K4f a frame, bit-equal to its 16-bit PNG twin, K4f on
+   the bounce-0 wave bit-equal to its twin and timed;
 goldens: the committed scenes tests/test_torch_graphical.py renders, all
    ten, through gatling_tpu_torch.testing.run_graphical_test on the card at
    their own thresholds (Materials.MtlxViewDirection on the wavefront,
@@ -392,7 +409,7 @@ Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
 the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
-4p's, 4q's, 4r's, 4s's and 4t's frames beside K3's, K4's, K4t's and K4f's entries; 4u's CLI
+4p's, 4q's, 4r's, 4s's, 4t's and 4v's frames beside K3's, K4's, K4t's and K4f's entries; 4u's CLI
 frame beside K1's; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
@@ -4289,7 +4306,7 @@ def phase_dome(device, tex_dir: str):
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
                 formats: dict, formats2: dict, jpeg2000: dict, tiff: dict,
-                legacy: dict) -> list[dict]:
+                legacy: dict, htj2k: dict) -> list[dict]:
     """The kernels-line entries of K4's and K4t's FLT instances from 3h's
     numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
@@ -4318,6 +4335,7 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "jpeg2000": formats_entry(jpeg2000, "K4f"),
         "tiff": formats_entry(tiff, "K4f"),
         "legacy": formats_entry(legacy, "K4f"),
+        "htj2k": formats_entry(htj2k, "K4f"),
     }, {
         "name": "tap_rows (K4t, FLT: a float texel pool)",
         "route": "cuda",
@@ -5555,6 +5573,159 @@ def phase_legacy(device, tex_dir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4v: high-throughput JPEG 2000 (HTJ2K, Part 15) and the Part 2 markers
+# through the texture path
+# ---------------------------------------------------------------------------
+
+# tests/data/jpeg2000/make_ht_files.py's files; ht_fixtures.npz holds Pillow's
+# array of each (the 1024^2 ground as its digest) and the names it refuses
+HT_DIR = os.path.join(HERE, "tests", "data", "jpeg2000")
+HT_8BIT = ("ht_cleanup_53_grey.j2c", "ht_3pass_rct.jp2", "ht_p3_lossy.j2c", "ht_vsc_16x64.j2c",
+           "ht_1024x4.j2c", "ht_tiles_precincts_layers.j2c", "ht_97_ict.jp2", "ht_rgba.jp2",
+           "ht_rgb.jph", "ht_ground_1024.jph")
+HT_GREY16 = "ht_grey16.j2c"  # (c): every material's roughness, a float pool
+HT_1024 = "ht_ground_1024.jph"
+
+
+def write_png16(path: str, img) -> None:
+    """A 16-bit grey PNG of the float image img [H, W, 4] (Pillow's I;16:
+    code / 65535 in R, G and B)."""
+    import zlib
+
+    import numpy as np
+
+    codes = np.round(img[..., 0].astype(np.float64) * 65535).astype(">u2")
+    h, w = codes.shape
+    rows = b"".join(b"\0" + codes[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (len(data).to_bytes(4, "big") + tag + data
+                + (zlib.crc32(tag + data) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", w.to_bytes(4, "big") + h.to_bytes(4, "big")
+                                                + bytes([16, 0, 0, 0, 0]))
+                + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+def phase_htj2k(device, tex_dir: str) -> dict:
+    """Phase 4v: HTJ2K and the Part 2 markers (see the module docstring,
+    (a)-(c)). Returns its numbers and launch counts."""
+    import numpy as np
+
+    from gatling_tpu_torch import gi, imgio
+    from gatling_tpu_torch.ops import split_ref
+    from gatling_tpu_torch.render.texture import TextureManager
+
+    out, launches = {}, {}
+    # (a) every file on the card's host against Pillow's array or digest, or
+    # refused as Pillow refuses it; the 1024^2 HT and MQ grounds timed
+    ref = np.load(os.path.join(HT_DIR, "ht_fixtures.npz"))
+    refused = set(ref["refused"].tolist())
+    names = sorted(f for f in os.listdir(HT_DIR) if f.startswith(("ht_", "p2_"))
+                   and not f.endswith(".npz"))
+    assert set(HT_8BIT) | {HT_GREY16} <= set(names) - refused and len(names) > 40
+    blobs, arrays, decode_s = {}, {}, {}
+    for name in names:
+        with open(os.path.join(HT_DIR, name), "rb") as f:
+            blobs[name] = f.read()
+        t0 = time.perf_counter()
+        try:
+            arrays[name] = got = imgio.load_image(blobs[name])
+        except ValueError:
+            decode_s[name] = time.perf_counter() - t0
+            assert name in refused, name
+            continue
+        decode_s[name] = time.perf_counter() - t0
+        assert name not in refused, name
+        if name == HT_1024:
+            assert array_digest(got) == ref[name].tobytes(), name
+        else:
+            assert same_image(got, ref[name]), (name, got.dtype, ref[name].dtype, got.shape)
+    out["fixture_decode_s"] = decode_s
+    log(f"htj2k (a): {len(names)} HTJ2K and Part 2 files decoded on the card's host, "
+        f"{len(names) - len(refused)} bit-equal to Pillow's array (ht_fixtures.npz; the 1024^2 "
+        f"ground by its SHA-256) and {len(refused)} refused as Pillow refuses them; host ms "
+        f"{({k: round(v * 1e3, 3) for k, v in decode_s.items()})}")
+    with open(os.path.join(FIXTURES, J2K_1024), "rb") as f:
+        mq_ground = f.read()
+    times = {HT_1024: [], J2K_1024: []}
+    for _ in range(5):
+        for name, data in ((HT_1024, blobs[HT_1024]), (J2K_1024, mq_ground)):
+            t0 = time.perf_counter()
+            imgio.load_image(data)
+            times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        out[f"decode_{name}_s"] = statistics.median(ts)
+    log(f"htj2k (a): the 1024^2 9/7 RGB grounds on the card's host, median of 5 interleaved "
+        f"decodes: HT {out[f'decode_{HT_1024}_s']:.4f} s, MQ ({J2K_1024}) "
+        f"{out[f'decode_{J2K_1024}_s']:.4f} s")
+
+    # (b) ten 8-bit base colours against PNGs of their decoded codes
+    png_dir = os.path.join(tex_dir, "htj2k_png")
+    os.makedirs(png_dir, exist_ok=True)
+    pngs = []
+    for name in HT_8BIT:
+        pngs.append(os.path.join(png_dir, name + ".png"))
+        imgio.write_image_file(pngs[-1], arrays[name])
+    frames = {}
+    for label, slots in (("htj2k", [os.path.join(HT_DIR, n) for n in HT_8BIT]),
+                         ("htj2k_png", pngs)):
+        params = webp_interior(device, tex_dir, slots)
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        pool = params.scene._texture_pool
+        assert pool.packed and pool.count == len(HT_8BIT), (pool.packed, pool.count)
+        assert n["K3"] == SF_BOUNCES and n["K4"] == SF_BOUNCES and n["K4f"] == 0, n
+        assert split_ref.stage_calls == 0
+        frames[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(frames["htj2k"][0], frames["htj2k_png"][0])
+    log(f"htj2k (b): the interior with {len(HT_8BIT)} HT base colours (cleanup-only and 3-pass "
+        f"blocks, 16x64 and 1024x4 code-blocks, tiles, precincts and layers, RCT and ICT, RGBA, "
+        f"JP2 and JPH, the 1024^2 9/7 ground) against PNGs of their decoded codes: frames "
+        f"bit-equal {same}; COLOR mean {frames['htj2k'][0][..., :3].mean():.6f}")
+    assert same and np.isfinite(frames["htj2k"][0]).all()
+    out["formats_kernels"] = split_parity(device, frames["htj2k"][1], SF_RES, "interior_htj2k")
+
+    # (c) the 16-bit grey HT file as every roughness (a float pool, K4's FLT
+    # instance) against a 16-bit PNG of the same codes
+    twin = os.path.join(png_dir, HT_GREY16 + ".png")
+    write_png16(twin, arrays[HT_GREY16])
+    assert same_image(imgio.load_image_file(twin), arrays[HT_GREY16])
+    base = [os.path.join(HT_DIR, n) for n in HT_8BIT]
+    floats = {}
+    for label, rough in (("htj2k_grey16", os.path.join(HT_DIR, HT_GREY16)),
+                         ("htj2k_grey16_png", twin)):
+        params = formats2_interior(device, tex_dir, base, [rough])
+        timers = HostTimers(pool_build=(TextureManager, "build_pool"))
+        with timers:
+            counted_render(params, f"interior_{label} (first frame)")
+        out[f"{label}_pool_build_s"] = timers.seconds["pool_build"]
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        img, dt, _mr, n = counted_render(params, f"interior_{label} (warm)")
+        assert not params.scene._texture_pool.packed, "an I;16 image makes the pool float"
+        assert n["K4f"] == SF_BOUNCES and n["K3"] == SF_BOUNCES and n["K4"] == 0, n
+        assert np.isfinite(img).all() and img[..., :3].mean() > 0.01
+        floats[label] = (img, params)
+        out[f"{label}_warm_frame_s"] = dt
+        launches[f"interior_{label}"] = {k: n[k] for k in ("K3", "K4", "K4f")}
+    same = np.array_equal(floats["htj2k_grey16"][0], floats["htj2k_grey16_png"][0])
+    log(f"htj2k (c): the interior with the 16-bit grey HT file as every roughness against a "
+        f"16-bit PNG of its codes: frames bit-equal {same}")
+    assert same
+    out["grey16_kernels"] = split_parity(device, floats["htj2k_grey16"][1], SF_RES,
+                                         "interior_htj2k_grey16")
+    out["launches"] = launches
+    return out
+
+
 # 4o: the front ends (the gi surface, the delegate, checkpoints, the CLI's
 # flags, multi-device rendering, the validation layer, the husk bridge)
 FE_ID_RES = 256  # the OBJECT_ID frames of giDestroyMesh (the wavefront: K5/K6)
@@ -6417,6 +6588,13 @@ def main() -> int:
     t0 = time.perf_counter()
     writers_out = phase_writers(device, tex_tmp.name, smi)
     log(f"phase 4u: {time.perf_counter() - t0:.1f} s")
+    # 4v: HTJ2K and the Part 2 markers through the texture path (K3, K4, K4f)
+    t0 = time.perf_counter()
+    htj2k_out = phase_htj2k(device, tex_tmp.name)
+    for k in ("htj2k_pool_build_s", "htj2k_png_pool_build_s", "htj2k_grey16_pool_build_s",
+              f"decode_{HT_1024}_s", f"decode_{J2K_1024}_s"):
+        log(f"4v host time {k}: {htj2k_out[k]:.4f} s on the card's host ({smi})")
+    log(f"phase 4v: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     goldens = phase_goldens(device, os.path.join(tex_tmp.name, "goldens"))
     tex_tmp.cleanup()
@@ -6444,6 +6622,7 @@ def main() -> int:
     log(f"jpeg2000: launches {j2k_out['launches']}")
     log(f"tiff: launches {tiff_out['launches']}")
     log(f"legacy: launches {legacy_out['launches']}")
+    log(f"htj2k: launches {htj2k_out['launches']}")
     log(f"formats2: launches {formats2['launches']}, with forced tracers "
         f"{formats2['tracer_launches']}; float slots against the wavefront "
         f"{formats2['float_vs_wavefront']}")
@@ -6531,6 +6710,7 @@ def main() -> int:
         "jpeg2000": formats_entry(j2k_out, "K3"),
         "tiff": formats_entry(tiff_out, "K3"),
         "legacy": formats_entry(legacy_out, "K3"),
+        "htj2k": formats_entry(htj2k_out, "K3"),
     }, {
         "name": "shade_step (K4, split shade)",
         "route": "cuda",
@@ -6567,6 +6747,7 @@ def main() -> int:
         "jpeg2000": formats_entry(j2k_out, "K4"),
         "tiff": formats_entry(tiff_out, "K4"),
         "legacy": formats_entry(legacy_out, "K4"),
+        "htj2k": formats_entry(htj2k_out, "K4"),
     }, {
         "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
                 "textured cutout's opacity)",
@@ -6593,7 +6774,7 @@ def main() -> int:
         *branch_entries(branch, lobe_launches),
         *branch_entries(vol_branch, vol_launches, VOLUME_BRANCHES),
         *flt_entries(hdr_branch, hdr_tap_times, hdr_tap_errs, dome_launches, formats, formats2,
-                     j2k_out, tiff_out, legacy_out),
+                     j2k_out, tiff_out, legacy_out, htj2k_out),
         *probe_entries(probe_launches, p1, p2, p2_library, stream_us)]}))
     # the run drives one card (cuda:0), whatever the host holds
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": 1}}))

@@ -1,6 +1,7 @@
 // JPEG 2000 (ITU-T T.800) tile decoding as OpenJPEG 2.5 decodes it: the
 // packet headers and bodies of tier 2 (t2.c, pi.c, tgt.c, bio.c), the MQ
-// and raw decoders and the three coding passes of tier 1 (mqc.c, t1.c),
+// and raw decoders and the three coding passes of tier 1 (mqc.c, t1.c), the
+// high-throughput block decoder of Part 15 (ht_dec.c, ITU-T T.814),
 // dequantisation, the inverse 5/3 and 9/7 wavelets (dwt.c), the inverse
 // RCT and ICT (mct.c) and the DC level shift with its clamp (tcd.c).
 // imgio/jpeg2000.py reads the boxes and the marker segments and calls
@@ -36,7 +37,7 @@ enum {
 
 // the code-block styles the decoder reads (PTERM only changes how the encoder
 // terminates a pass)
-constexpr uint32_t kLazy = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32;
+constexpr uint32_t kLazy = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32, kHt = 64;
 constexpr uint32_t kCstySop = 2, kCstyEph = 4;
 
 inline int32_t ceildiv(int32_t a, int32_t b) { return (int32_t)(((int64_t)a + b - 1) / b); }
@@ -172,6 +173,7 @@ struct Chunk {
 struct Cblk {
   int32_t x0, y0, x1, y1;
   uint32_t numbps = 0, numlenbits = 0, numnewpasses = 0, numsegs = 0, real_num_segs = 0;
+  uint32_t Mb = 0;  // the band's bit-planes, set where the block is first included
   std::vector<Seg> segs;
   std::vector<Chunk> chunks;
 };
@@ -577,6 +579,851 @@ bool decode_cblk(T1& t1, Cblk& cb, const uint8_t* tiledata, uint32_t orient,
       }
     }
     t1.mqc.finish();
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// ht_dec.c: the high-throughput block decoder of JPEG 2000 Part 15 (ITU-T
+// T.814), as OpenJPEG 2.5 decodes a block: the cleanup pass's MEL, VLC and
+// MagSgn streams, then SigProp and MagRef when the block has 2 or 3 passes.
+// A sample is written as sign (bit 31) and magnitude with the half-bin
+// centre, so that the dequantisation and wavelets above serve both coders.
+// ---------------------------------------------------------------------------
+
+// the CxtVLC tables of T.814 in OpenJPEG's packed form, indexed by the
+// context (3 bits) and the next 7 bits of the VLC stream: bits 0-2 the
+// codeword's length, 3 u_off, 4-7 rho, 8-11 e_1, 12-15 e_k; table 0 for
+// the first row of quads, table 1 for the others
+const uint16_t kVlcTbl0[1024] = {
+    0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0xd8df, 0x0023, 0x10be, 0x0043, 0xf5ff,
+    0x0083, 0x207e, 0x0055, 0x515f, 0x0023, 0x0035, 0x0043, 0x444e, 0x0083, 0xc4ce, 0x0014, 0xcccf,
+    0x0023, 0xe2fe, 0x0043, 0x99ff, 0x0083, 0x0096, 0x00c5, 0x313f, 0x0023, 0x00a5, 0x0043, 0x445e,
+    0x0083, 0xc8ce, 0x0014, 0x11df, 0x0023, 0xf4fe, 0x0043, 0xfcff, 0x0083, 0x009e, 0x0055, 0x0077,
+    0x0023, 0x0035, 0x0043, 0xf1ff, 0x0083, 0x88ae, 0x0014, 0x00b7, 0x0023, 0xf8fe, 0x0043, 0xe4ef,
+    0x0083, 0x888e, 0x00c5, 0x111f, 0x0023, 0x00a5, 0x0043, 0x0066, 0x0083, 0xa8ee, 0x0014, 0x54df,
+    0x0023, 0x10be, 0x0043, 0x22ef, 0x0083, 0x207e, 0x0055, 0x227f, 0x0023, 0x0035, 0x0043, 0x444e,
+    0x0083, 0xc4ce, 0x0014, 0x11bf, 0x0023, 0xe2fe, 0x0043, 0x00f7, 0x0083, 0x0096, 0x00c5, 0x223f,
+    0x0023, 0x00a5, 0x0043, 0x445e, 0x0083, 0xc8ce, 0x0014, 0x00d7, 0x0023, 0xf4fe, 0x0043, 0xbaff,
+    0x0083, 0x009e, 0x0055, 0x006f, 0x0023, 0x0035, 0x0043, 0xe6ff, 0x0083, 0x88ae, 0x0014, 0xa2af,
+    0x0023, 0xf8fe, 0x0043, 0x00e7, 0x0083, 0x888e, 0x00c5, 0x222f, 0x0002, 0x00c5, 0x0084, 0x207e,
+    0x0002, 0xc4ce, 0x0024, 0x00f7, 0x0002, 0xa2fe, 0x0044, 0x0056, 0x0002, 0x009e, 0x0014, 0x00d7,
+    0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x11df, 0x0002, 0xa8ee, 0x0044, 0x0036,
+    0x0002, 0x888e, 0x0014, 0x111f, 0x0002, 0x00c5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x88ff,
+    0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0x00b7, 0x0002, 0xe4fe, 0x0084, 0x445e,
+    0x0002, 0x00a6, 0x0024, 0x00e7, 0x0002, 0x54de, 0x0044, 0x222e, 0x0002, 0x003e, 0x0014, 0x0077,
+    0x0002, 0x00c5, 0x0084, 0x207e, 0x0002, 0xc4ce, 0x0024, 0xf1ff, 0x0002, 0xa2fe, 0x0044, 0x0056,
+    0x0002, 0x009e, 0x0014, 0x11bf, 0x0002, 0x10be, 0x0084, 0x0066, 0x0002, 0x88ae, 0x0024, 0x22ef,
+    0x0002, 0xa8ee, 0x0044, 0x0036, 0x0002, 0x888e, 0x0014, 0x227f, 0x0002, 0x00c5, 0x0084, 0x006e,
+    0x0002, 0x88ce, 0x0024, 0xe4ef, 0x0002, 0xb8fe, 0x0044, 0x444e, 0x0002, 0x0096, 0x0014, 0xa2af,
+    0x0002, 0xe4fe, 0x0084, 0x445e, 0x0002, 0x00a6, 0x0024, 0xd8df, 0x0002, 0x54de, 0x0044, 0x222e,
+    0x0002, 0x003e, 0x0014, 0x515f, 0x0002, 0x0055, 0x0084, 0x0066, 0x0002, 0x88de, 0x0024, 0x32ff,
+    0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x00b7, 0x0002, 0x317e, 0x0084, 0x515e,
+    0x0002, 0x00c6, 0x0024, 0x00d7, 0x0002, 0x20ee, 0x0044, 0x111e, 0x0002, 0x009e, 0x0014, 0x0077,
+    0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0x00e7, 0x0002, 0xf1fe, 0x0044, 0x0036,
+    0x0002, 0x00a6, 0x0014, 0x555f, 0x0002, 0x74fe, 0x0084, 0x113e, 0x0002, 0x20be, 0x0024, 0x747f,
+    0x0002, 0xc4de, 0x0044, 0xf8ff, 0x0002, 0x0096, 0x0014, 0x222f, 0x0002, 0x0055, 0x0084, 0x0066,
+    0x0002, 0x88de, 0x0024, 0x00f7, 0x0002, 0x11fe, 0x0044, 0x444e, 0x0002, 0x00ae, 0x0014, 0x888f,
+    0x0002, 0x317e, 0x0084, 0x515e, 0x0002, 0x00c6, 0x0024, 0xc8cf, 0x0002, 0x20ee, 0x0044, 0x111e,
+    0x0002, 0x009e, 0x0014, 0x006f, 0x0002, 0x0055, 0x0084, 0x545e, 0x0002, 0x44ce, 0x0024, 0xd1df,
+    0x0002, 0xf1fe, 0x0044, 0x0036, 0x0002, 0x00a6, 0x0014, 0x227f, 0x0002, 0x74fe, 0x0084, 0x113e,
+    0x0002, 0x20be, 0x0024, 0x22bf, 0x0002, 0xc4de, 0x0044, 0x22ef, 0x0002, 0x0096, 0x0014, 0x323f,
+    0x0003, 0xd4de, 0xf4fd, 0xfcff, 0x0014, 0x113e, 0x0055, 0x888f, 0x0003, 0x32be, 0x0085, 0x00e7,
+    0x0025, 0x515e, 0xaafe, 0x727f, 0x0003, 0x44ce, 0xf8fd, 0x44ef, 0x0014, 0x647e, 0x0045, 0xa2af,
+    0x0003, 0x00a6, 0x555d, 0x99df, 0xf1fd, 0x0036, 0xf5fe, 0x626f, 0x0003, 0xd1de, 0xf4fd, 0xe6ff,
+    0x0014, 0x717e, 0x0055, 0xb1bf, 0x0003, 0x88ae, 0x0085, 0xd5df, 0x0025, 0x444e, 0xf2fe, 0x667f,
+    0x0003, 0x00c6, 0xf8fd, 0xe2ef, 0x0014, 0x545e, 0x0045, 0x119f, 0x0003, 0x0096, 0x555d, 0xc8cf,
+    0xf1fd, 0x111e, 0xc8ee, 0x0067, 0x0003, 0xd4de, 0xf4fd, 0xf3ff, 0x0014, 0x113e, 0x0055, 0x11bf,
+    0x0003, 0x32be, 0x0085, 0xd8df, 0x0025, 0x515e, 0xaafe, 0x222f, 0x0003, 0x44ce, 0xf8fd, 0x00f7,
+    0x0014, 0x647e, 0x0045, 0x989f, 0x0003, 0x00a6, 0x555d, 0x00d7, 0xf1fd, 0x0036, 0xf5fe, 0x446f,
+    0x0003, 0xd1de, 0xf4fd, 0xb9ff, 0x0014, 0x717e, 0x0055, 0x00b7, 0x0003, 0x88ae, 0x0085, 0xdcdf,
+    0x0025, 0x444e, 0xf2fe, 0x0077, 0x0003, 0x00c6, 0xf8fd, 0xe4ef, 0x0014, 0x545e, 0x0045, 0x737f,
+    0x0003, 0x0096, 0x555d, 0xb8bf, 0xf1fd, 0x111e, 0xc8ee, 0x323f, 0x0002, 0x00a5, 0x0084, 0x407e,
+    0x0002, 0x10de, 0x0024, 0x11df, 0x0002, 0x72fe, 0x0044, 0x0056, 0x0002, 0xa8ae, 0x0014, 0xb2bf,
+    0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00e7, 0x0002, 0xc8ee, 0x0044, 0x222e,
+    0x0002, 0x888e, 0x0014, 0x0077, 0x0002, 0x00a5, 0x0084, 0x006e, 0x0002, 0x88ce, 0x0024, 0x00f7,
+    0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0xaaaf, 0x0002, 0xb8fe, 0x0084, 0x005e,
+    0x0002, 0x00be, 0x0024, 0xc4cf, 0x0002, 0x44ee, 0x0044, 0xf4ff, 0x0002, 0x223e, 0x0014, 0x111f,
+    0x0002, 0x00a5, 0x0084, 0x407e, 0x0002, 0x10de, 0x0024, 0x99ff, 0x0002, 0x72fe, 0x0044, 0x0056,
+    0x0002, 0xa8ae, 0x0014, 0x00b7, 0x0002, 0x0096, 0x0084, 0x0066, 0x0002, 0x00c6, 0x0024, 0x00d7,
+    0x0002, 0xc8ee, 0x0044, 0x222e, 0x0002, 0x888e, 0x0014, 0x444f, 0x0002, 0x00a5, 0x0084, 0x006e,
+    0x0002, 0x88ce, 0x0024, 0xe2ef, 0x0002, 0x91fe, 0x0044, 0x0036, 0x0002, 0xa2ae, 0x0014, 0x447f,
+    0x0002, 0xb8fe, 0x0084, 0x005e, 0x0002, 0x00be, 0x0024, 0x009f, 0x0002, 0x44ee, 0x0044, 0x76ff,
+    0x0002, 0x223e, 0x0014, 0x313f, 0x0003, 0x00c6, 0x0085, 0xd9ff, 0xf2fd, 0x647e, 0xf1fe, 0x99bf,
+    0x0003, 0xa2ae, 0x0025, 0x66ef, 0xf4fd, 0x0056, 0xe2ee, 0x737f, 0x0003, 0x98be, 0x0045, 0x00f7,
+    0xf8fd, 0x0066, 0x76fe, 0x889f, 0x0003, 0x888e, 0x0015, 0xd5df, 0x00a5, 0x222e, 0x98de, 0x444f,
+    0x0003, 0xb2be, 0x0085, 0xfcff, 0xf2fd, 0x226e, 0x0096, 0x00b7, 0x0003, 0xaaae, 0x0025, 0xd1df,
+    0xf4fd, 0x0036, 0xd4de, 0x646f, 0x0003, 0xa8ae, 0x0045, 0xeaef, 0xf8fd, 0x445e, 0xe8ee, 0x717f,
+    0x0003, 0x323e, 0x0015, 0xc4cf, 0x00a5, 0xfaff, 0x88ce, 0x313f, 0x0003, 0x00c6, 0x0085, 0x77ff,
+    0xf2fd, 0x647e, 0xf1fe, 0xb3bf, 0x0003, 0xa2ae, 0x0025, 0x00e7, 0xf4fd, 0x0056, 0xe2ee, 0x0077,
+    0x0003, 0x98be, 0x0045, 0xe4ef, 0xf8fd, 0x0066, 0x76fe, 0x667f, 0x0003, 0x888e, 0x0015, 0x00d7,
+    0x00a5, 0x222e, 0x98de, 0x333f, 0x0003, 0xb2be, 0x0085, 0x75ff, 0xf2fd, 0x226e, 0x0096, 0x919f,
+    0x0003, 0xaaae, 0x0025, 0x99df, 0xf4fd, 0x0036, 0xd4de, 0x515f, 0x0003, 0xa8ae, 0x0045, 0xecef,
+    0xf8fd, 0x445e, 0xe8ee, 0x727f, 0x0003, 0x323e, 0x0015, 0xb1bf, 0x00a5, 0xf3ff, 0x88ce, 0x111f,
+    0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0xcccf, 0x0003, 0x91be, 0x0045, 0x22ef,
+    0x0025, 0x222e, 0xf3fe, 0x888f, 0x0003, 0x00c6, 0x0085, 0x00f7, 0x0014, 0x115e, 0xfcfe, 0xa8af,
+    0x0003, 0x00a6, 0x0035, 0xc8df, 0xf1fd, 0x313e, 0x66fe, 0x646f, 0x0003, 0xc8ce, 0xf2fd, 0xf5ff,
+    0x0014, 0x0066, 0xf4fe, 0xbabf, 0x0003, 0x22ae, 0x0045, 0x00e7, 0x0025, 0x323e, 0xeafe, 0x737f,
+    0x0003, 0xb2be, 0x0085, 0x55df, 0x0014, 0x0056, 0x717e, 0x119f, 0x0003, 0x0096, 0x0035, 0xc4cf,
+    0xf1fd, 0x333e, 0xe8ee, 0x444f, 0x0003, 0x54de, 0xf2fd, 0x111e, 0x0014, 0x647e, 0xf8fe, 0x99bf,
+    0x0003, 0x91be, 0x0045, 0xe2ef, 0x0025, 0x222e, 0xf3fe, 0x667f, 0x0003, 0x00c6, 0x0085, 0xe4ef,
+    0x0014, 0x115e, 0xfcfe, 0x989f, 0x0003, 0x00a6, 0x0035, 0x00d7, 0xf1fd, 0x313e, 0x66fe, 0x226f,
+    0x0003, 0xc8ce, 0xf2fd, 0xb9ff, 0x0014, 0x0066, 0xf4fe, 0x00b7, 0x0003, 0x22ae, 0x0045, 0xd1df,
+    0x0025, 0x323e, 0xeafe, 0x0077, 0x0003, 0xb2be, 0x0085, 0xecef, 0x0014, 0x0056, 0x717e, 0x727f,
+    0x0003, 0x0096, 0x0035, 0xb8bf, 0xf1fd, 0x333e, 0xe8ee, 0x545f, 0xf1fc, 0xd1de, 0xfafd, 0x00d7,
+    0xf8fc, 0x0016, 0xfffd, 0x747f, 0xf4fc, 0x717e, 0xf3fd, 0xb3bf, 0xf2fc, 0xeaef, 0xe8ee, 0x444f,
+    0xf1fc, 0x22ae, 0x0005, 0xb8bf, 0xf8fc, 0x00f7, 0xfcfe, 0x0077, 0xf4fc, 0x115e, 0xf5fd, 0x757f,
+    0xf2fc, 0xd8df, 0xe2ee, 0x333f, 0xf1fc, 0xb2be, 0xfafd, 0x88cf, 0xf8fc, 0xfbff, 0xfffd, 0x737f,
+    0xf4fc, 0x006e, 0xf3fd, 0x00b7, 0xf2fc, 0x66ef, 0xf9fe, 0x313f, 0xf1fc, 0x009e, 0x0005, 0xbabf,
+    0xf8fc, 0xfdff, 0xf6fe, 0x0067, 0xf4fc, 0x0026, 0xf5fd, 0x888f, 0xf2fc, 0xdcdf, 0xd4de, 0x222f,
+    0xf1fc, 0xd1de, 0xfafd, 0xc4cf, 0xf8fc, 0x0016, 0xfffd, 0x727f, 0xf4fc, 0x717e, 0xf3fd, 0x99bf,
+    0xf2fc, 0xecef, 0xe8ee, 0x0047, 0xf1fc, 0x22ae, 0x0005, 0x00a7, 0xf8fc, 0xf7ff, 0xfcfe, 0x0057,
+    0xf4fc, 0x115e, 0xf5fd, 0x0097, 0xf2fc, 0xd5df, 0xe2ee, 0x0037, 0xf1fc, 0xb2be, 0xfafd, 0x00c7,
+    0xf8fc, 0xfeff, 0xfffd, 0x667f, 0xf4fc, 0x006e, 0xf3fd, 0xa8af, 0xf2fc, 0x00e7, 0xf9fe, 0x323f,
+    0xf1fc, 0x009e, 0x0005, 0xb1bf, 0xf8fc, 0xe4ef, 0xf6fe, 0x545f, 0xf4fc, 0x0026, 0xf5fd, 0x0087,
+    0xf2fc, 0x99df, 0xd4de, 0x111f,
+};
+const uint16_t kVlcTbl1[1024] = {
+    0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e, 0x0013, 0x00a5, 0x0043, 0x88ae,
+    0x0083, 0x0035, 0x0023, 0x00d7, 0x0013, 0x00c5, 0x0043, 0x009e, 0x0083, 0x0055, 0x0023, 0x222e,
+    0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x0077, 0x0013, 0x0065, 0x0043, 0x88ce,
+    0x0083, 0x888d, 0x0023, 0x111e, 0x0013, 0x00a5, 0x0043, 0x005e, 0x0083, 0x0035, 0x0023, 0x00e7,
+    0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x11ff, 0x0013, 0x0095, 0x0043, 0x003e,
+    0x0083, 0x40ee, 0x0023, 0xa2af, 0x0013, 0x0065, 0x0043, 0x00de, 0x0083, 0x888d, 0x0023, 0x444e,
+    0x0013, 0x00a5, 0x0043, 0x88ae, 0x0083, 0x0035, 0x0023, 0x44ef, 0x0013, 0x00c5, 0x0043, 0x009e,
+    0x0083, 0x0055, 0x0023, 0x222e, 0x0013, 0x0095, 0x0043, 0x007e, 0x0083, 0x10fe, 0x0023, 0x00b7,
+    0x0013, 0x0065, 0x0043, 0x88ce, 0x0083, 0x888d, 0x0023, 0x111e, 0x0013, 0x00a5, 0x0043, 0x005e,
+    0x0083, 0x0035, 0x0023, 0xc4cf, 0x0013, 0x00c5, 0x0043, 0x00be, 0x0083, 0x0055, 0x0023, 0x00f7,
+    0x0013, 0x0095, 0x0043, 0x003e, 0x0083, 0x40ee, 0x0023, 0x006f, 0x0001, 0x0084, 0x0001, 0x0056,
+    0x0001, 0x0014, 0x0001, 0x00d7, 0x0001, 0x0024, 0x0001, 0x0096, 0x0001, 0x0045, 0x0001, 0x0077,
+    0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x888f, 0x0001, 0x0024, 0x0001, 0x00f7,
+    0x0001, 0x0035, 0x0001, 0x222f, 0x0001, 0x0084, 0x0001, 0x40fe, 0x0001, 0x0014, 0x0001, 0x00b7,
+    0x0001, 0x0024, 0x0001, 0x00bf, 0x0001, 0x0045, 0x0001, 0x0067, 0x0001, 0x0084, 0x0001, 0x00a6,
+    0x0001, 0x0014, 0x0001, 0x444f, 0x0001, 0x0024, 0x0001, 0x00e7, 0x0001, 0x0035, 0x0001, 0x113f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0024, 0x0001, 0x0096,
+    0x0001, 0x0045, 0x0001, 0x006f, 0x0001, 0x0084, 0x0001, 0x00c6, 0x0001, 0x0014, 0x0001, 0x009f,
+    0x0001, 0x0024, 0x0001, 0x00ef, 0x0001, 0x0035, 0x0001, 0x323f, 0x0001, 0x0084, 0x0001, 0x40fe,
+    0x0001, 0x0014, 0x0001, 0x00af, 0x0001, 0x0024, 0x0001, 0x44ff, 0x0001, 0x0045, 0x0001, 0x005f,
+    0x0001, 0x0084, 0x0001, 0x00a6, 0x0001, 0x0014, 0x0001, 0x007f, 0x0001, 0x0024, 0x0001, 0x00df,
+    0x0001, 0x0035, 0x0001, 0x111f, 0x0001, 0x0024, 0x0001, 0x0056, 0x0001, 0x0085, 0x0001, 0x00bf,
+    0x0001, 0x0014, 0x0001, 0x00f7, 0x0001, 0x00c6, 0x0001, 0x0077, 0x0001, 0x0024, 0x0001, 0xf8ff,
+    0x0001, 0x0045, 0x0001, 0x007f, 0x0001, 0x0014, 0x0001, 0x00df, 0x0001, 0x00a6, 0x0001, 0x313f,
+    0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0x00b7, 0x0001, 0x0014, 0x0001, 0x44ef,
+    0x0001, 0xa2ae, 0x0001, 0x0067, 0x0001, 0x0024, 0x0001, 0x51ff, 0x0001, 0x0045, 0x0001, 0x0097,
+    0x0001, 0x0014, 0x0001, 0x00cf, 0x0001, 0x0036, 0x0001, 0x223f, 0x0001, 0x0024, 0x0001, 0x0056,
+    0x0001, 0x0085, 0x0001, 0xb2bf, 0x0001, 0x0014, 0x0001, 0x40ef, 0x0001, 0x00c6, 0x0001, 0x006f,
+    0x0001, 0x0024, 0x0001, 0x72ff, 0x0001, 0x0045, 0x0001, 0x009f, 0x0001, 0x0014, 0x0001, 0x00d7,
+    0x0001, 0x00a6, 0x0001, 0x444f, 0x0001, 0x0024, 0x0001, 0x222e, 0x0001, 0x0085, 0x0001, 0xa8af,
+    0x0001, 0x0014, 0x0001, 0x00e7, 0x0001, 0xa2ae, 0x0001, 0x005f, 0x0001, 0x0024, 0x0001, 0x44ff,
+    0x0001, 0x0045, 0x0001, 0x888f, 0x0001, 0x0014, 0x0001, 0xaaaf, 0x0001, 0x0036, 0x0001, 0x111f,
+    0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0x66ff, 0x0002, 0x00ce, 0x0014, 0x111e,
+    0x0002, 0x0096, 0x0035, 0xa8af, 0x0002, 0x00f6, 0x0024, 0x313e, 0x0002, 0x00a6, 0x0045, 0xb3bf,
+    0x0002, 0xb2be, 0x0014, 0xf5ff, 0x0002, 0x0066, 0x517e, 0x545f, 0x0002, 0xf2fe, 0x0024, 0x222e,
+    0x0002, 0x22ae, 0x0085, 0x44ef, 0x0002, 0x00c6, 0x0014, 0xf4ff, 0x0002, 0x0076, 0x0035, 0x447f,
+    0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0x00d7, 0x0002, 0x88be, 0x0014, 0xfaff,
+    0x0002, 0x115e, 0xf1fe, 0x444f, 0x0002, 0xf8fe, 0x0024, 0x0056, 0x0002, 0x00b6, 0x0085, 0xc8ef,
+    0x0002, 0x00ce, 0x0014, 0x111e, 0x0002, 0x0096, 0x0035, 0x888f, 0x0002, 0x00f6, 0x0024, 0x313e,
+    0x0002, 0x00a6, 0x0045, 0x44df, 0x0002, 0xb2be, 0x0014, 0xa8ff, 0x0002, 0x0066, 0x517e, 0x006f,
+    0x0002, 0xf2fe, 0x0024, 0x222e, 0x0002, 0x22ae, 0x0085, 0x00e7, 0x0002, 0x00c6, 0x0014, 0xe2ef,
+    0x0002, 0x0076, 0x0035, 0x727f, 0x0002, 0x40de, 0x0024, 0x323e, 0x0002, 0x009e, 0x0045, 0xb1bf,
+    0x0002, 0x88be, 0x0014, 0x73ff, 0x0002, 0x115e, 0xf1fe, 0x333f, 0x0001, 0x0084, 0x0001, 0x20ee,
+    0x0001, 0x00c5, 0x0001, 0xc4cf, 0x0001, 0x0044, 0x0001, 0x32ff, 0x0001, 0x0015, 0x0001, 0x888f,
+    0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x00af, 0x0001, 0x0044, 0x0001, 0x22ef,
+    0x0001, 0x00a6, 0x0001, 0x005f, 0x0001, 0x0084, 0x0001, 0x444e, 0x0001, 0x00c5, 0x0001, 0xcccf,
+    0x0001, 0x0044, 0x0001, 0x00f7, 0x0001, 0x0015, 0x0001, 0x006f, 0x0001, 0x0084, 0x0001, 0x0056,
+    0x0001, 0x0025, 0x0001, 0x009f, 0x0001, 0x0044, 0x0001, 0x00df, 0x0001, 0x30fe, 0x0001, 0x222f,
+    0x0001, 0x0084, 0x0001, 0x20ee, 0x0001, 0x00c5, 0x0001, 0xc8cf, 0x0001, 0x0044, 0x0001, 0x11ff,
+    0x0001, 0x0015, 0x0001, 0x0077, 0x0001, 0x0084, 0x0001, 0x0066, 0x0001, 0x0025, 0x0001, 0x007f,
+    0x0001, 0x0044, 0x0001, 0x00e7, 0x0001, 0x00a6, 0x0001, 0x0037, 0x0001, 0x0084, 0x0001, 0x444e,
+    0x0001, 0x00c5, 0x0001, 0x00b7, 0x0001, 0x0044, 0x0001, 0x00bf, 0x0001, 0x0015, 0x0001, 0x003f,
+    0x0001, 0x0084, 0x0001, 0x0056, 0x0001, 0x0025, 0x0001, 0x0097, 0x0001, 0x0044, 0x0001, 0x00d7,
+    0x0001, 0x30fe, 0x0001, 0x111f, 0x0002, 0xa8ee, 0x0044, 0x888e, 0x0002, 0x00d6, 0x00c5, 0xf3ff,
+    0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0xd8df, 0x0002, 0xf8fe, 0x0044, 0x0066,
+    0x0002, 0x207e, 0x0085, 0x99ff, 0x0002, 0x00e6, 0x00f5, 0x0036, 0x0002, 0x00a6, 0x0015, 0x009f,
+    0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0x76ff, 0x0002, 0xf1fe, 0x0025, 0x444e,
+    0x0002, 0x00ae, 0x0055, 0xc8cf, 0x0002, 0xf4fe, 0x0044, 0x445e, 0x0002, 0x10be, 0x0085, 0xe4ef,
+    0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x222f, 0x0002, 0xa8ee, 0x0044, 0x888e,
+    0x0002, 0x00d6, 0x00c5, 0xfaff, 0x0002, 0xfcfe, 0x0025, 0x003e, 0x0002, 0x00b6, 0x0055, 0x11bf,
+    0x0002, 0xf8fe, 0x0044, 0x0066, 0x0002, 0x207e, 0x0085, 0x22ef, 0x0002, 0x00e6, 0x00f5, 0x0036,
+    0x0002, 0x00a6, 0x0015, 0x227f, 0x0002, 0xf2fe, 0x0044, 0x0076, 0x0002, 0x44ce, 0x00c5, 0xd5ff,
+    0x0002, 0xf1fe, 0x0025, 0x444e, 0x0002, 0x00ae, 0x0055, 0x006f, 0x0002, 0xf4fe, 0x0044, 0x445e,
+    0x0002, 0x10be, 0x0085, 0x11df, 0x0002, 0x54de, 0x00f5, 0x111e, 0x0002, 0x0096, 0x0015, 0x515f,
+    0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xd4df, 0x0003, 0xa2ae, 0x0055, 0x76ff,
+    0x0024, 0x223e, 0x00b6, 0xaaaf, 0x0003, 0x00e6, 0x0014, 0xf5ff, 0x0044, 0x0066, 0x0085, 0xcccf,
+    0x0003, 0x009e, 0x00c5, 0x44ef, 0x0024, 0x0036, 0xf8fe, 0x317f, 0x0003, 0xe8ee, 0x0014, 0xf1ff,
+    0x0044, 0x0076, 0x00a5, 0xc4cf, 0x0003, 0x227e, 0x0055, 0xd1df, 0x0024, 0x444e, 0xf4fe, 0x515f,
+    0x0003, 0x00d6, 0x0014, 0xe2ef, 0x0044, 0x445e, 0x0085, 0x22bf, 0x0003, 0x0096, 0x00c5, 0xc8df,
+    0x0024, 0x222e, 0xf2fe, 0x226f, 0x0003, 0x00f6, 0x0014, 0x111e, 0x0044, 0x888e, 0x00a5, 0xb1bf,
+    0x0003, 0xa2ae, 0x0055, 0x33ff, 0x0024, 0x223e, 0x00b6, 0xa8af, 0x0003, 0x00e6, 0x0014, 0xb9ff,
+    0x0044, 0x0066, 0x0085, 0xa8bf, 0x0003, 0x009e, 0x00c5, 0xe4ef, 0x0024, 0x0036, 0xf8fe, 0x646f,
+    0x0003, 0xe8ee, 0x0014, 0xfcff, 0x0044, 0x0076, 0x00a5, 0xc8cf, 0x0003, 0x227e, 0x0055, 0xeaef,
+    0x0024, 0x444e, 0xf4fe, 0x747f, 0x0003, 0x00d6, 0x0014, 0xfaff, 0x0044, 0x445e, 0x0085, 0xb2bf,
+    0x0003, 0x0096, 0x00c5, 0x44df, 0x0024, 0x222e, 0xf2fe, 0x313f, 0x00f3, 0xfafe, 0xf1fd, 0x0036,
+    0x0004, 0x32be, 0x0075, 0x11df, 0x00f3, 0x54de, 0xf2fd, 0xe4ef, 0x00d5, 0x717e, 0xfcfe, 0x737f,
+    0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0xb1bf, 0x00f3, 0x00ce, 0x00b5, 0xd8df,
+    0xf4fd, 0x0066, 0xb9fe, 0x545f, 0x00f3, 0x76fe, 0xf1fd, 0x0026, 0x0004, 0x00a6, 0x0075, 0x009f,
+    0x00f3, 0x00ae, 0xf2fd, 0xf7ff, 0x00d5, 0x0046, 0xf5fe, 0x747f, 0x00f3, 0x00e6, 0xf8fd, 0x0016,
+    0x0004, 0x0086, 0x0055, 0x888f, 0x00f3, 0x00c6, 0x00b5, 0xe2ef, 0xf4fd, 0x115e, 0xa8ee, 0x113f,
+    0x00f3, 0xfafe, 0xf1fd, 0x0036, 0x0004, 0x32be, 0x0075, 0xd1df, 0x00f3, 0x54de, 0xf2fd, 0xfbff,
+    0x00d5, 0x717e, 0xfcfe, 0x447f, 0x00f3, 0xf3fe, 0xf8fd, 0x111e, 0x0004, 0x0096, 0x0055, 0x727f,
+    0x00f3, 0x00ce, 0x00b5, 0x22ef, 0xf4fd, 0x0066, 0xb9fe, 0x444f, 0x00f3, 0x76fe, 0xf1fd, 0x0026,
+    0x0004, 0x00a6, 0x0075, 0x11bf, 0x00f3, 0x00ae, 0xf2fd, 0xffff, 0x00d5, 0x0046, 0xf5fe, 0x323f,
+    0x00f3, 0x00e6, 0xf8fd, 0x0016, 0x0004, 0x0086, 0x0055, 0x006f, 0x00f3, 0x00c6, 0x00b5, 0xb8bf,
+    0xf4fd, 0x115e, 0xa8ee, 0x222f,
+};
+inline uint32_t read_le32(const uint8_t* p) {
+  return (uint32_t)p[0] | ((uint32_t)p[1] << 8) | ((uint32_t)p[2] << 16) | ((uint32_t)p[3] << 24);
+}
+inline uint32_t popcount32(uint32_t v) { return (uint32_t)__builtin_popcount(v); }
+inline uint32_t bitlen32(uint32_t v) { return v ? 32u - (uint32_t)__builtin_clz(v) : 0u; }
+
+// The MEL stream, read forwards from the start of the MEL+VLC region, 0xFF
+// past its end. `align` is the block's address modulo 4: OpenJPEG reads the
+// MEL's bytes up to the next multiple of 4 one at a time, and only those
+// are checked for a stuffed byte above 0x8F.
+struct HtMel {
+  const uint8_t* data;
+  uint64_t tmp;
+  int bits, size, k, num_runs;
+  bool unstuff;
+  uint64_t runs;
+
+  bool init(const uint8_t* bbuf, int lcup, int scup, uint32_t align) {
+    data = bbuf + lcup - scup;
+    bits = 0;
+    tmp = 0;
+    unstuff = false;
+    size = scup - 1;
+    k = 0;
+    num_runs = 0;
+    runs = 0;
+    const int num = 4 - (int)((align + (uint32_t)(lcup - scup)) & 3);
+    for (int i = 0; i < num; ++i) {
+      if (unstuff && data[0] > 0x8F) return false;
+      uint64_t d = size > 0 ? *data : 0xFF;
+      if (size == 1) d |= 0xF;
+      data += size-- > 0;
+      const int d_bits = 8 - unstuff;
+      tmp = (tmp << d_bits) | d;
+      bits += d_bits;
+      unstuff = (d & 0xFF) == 0xFF;
+    }
+    tmp <<= 64 - bits;
+    return true;
+  }
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0xFFFFFFFFu;
+    if (size > 4) {
+      val = read_le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      while (size > 1) {
+        const uint32_t v = *data++;
+        const uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+      uint32_t v = *data++;
+      v |= 0xF;
+      const uint32_t m = ~(0xFFu << i);
+      val = (val & m) | (v << i);
+      --size;
+    }
+    int nbits = 32 - unstuff;
+    uint32_t t = val & 0xFF;
+    bool u = (val & 0xFF) == 0xFF;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 8) & 0xFF;
+    u = ((val >> 8) & 0xFF) == 0xFF;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 16) & 0xFF;
+    u = ((val >> 16) & 0xFF) == 0xFF;
+    nbits -= u;
+    t <<= 8 - u;
+    t |= (val >> 24) & 0xFF;
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= (uint64_t)t << (64 - nbits - bits);
+    bits += nbits;
+  }
+  void decode() {
+    static const int mel_exp[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+    if (bits < 6) read();
+    while (bits >= 6 && num_runs < 8) {
+      const int eval = mel_exp[k];
+      int run;
+      if (tmp & (1ull << 63)) {
+        run = ((1 << eval) - 1) << 1;  // 2^eval zero events, no one
+        k = k + 1 < 12 ? k + 1 : 12;
+        tmp <<= 1;
+        bits -= 1;
+      } else {
+        run = (int)(tmp >> (63 - eval)) & ((1 << eval) - 1);
+        k = k - 1 > 0 ? k - 1 : 0;
+        tmp <<= eval + 1;
+        bits -= eval + 1;
+        run = (run << 1) + 1;  // zero events ended by a one
+      }
+      const int at = num_runs * 7;
+      runs &= ~((uint64_t)0x3F << at);
+      runs |= (uint64_t)run << at;
+      ++num_runs;
+    }
+  }
+  int get_run() {
+    if (num_runs == 0) decode();
+    const int t = (int)(runs & 0x7F);
+    runs >>= 7;
+    --num_runs;
+    return t;
+  }
+};
+
+// A stream read backwards with the unstuffing of a byte 0x7F after one above
+// 0x8F: the VLC stream from the byte before Scup (its upper four bits), and
+// the MagRef stream from the end of the refinement segment; zeros past the
+// start.
+struct HtRev {
+  const uint8_t* data;
+  uint64_t tmp;
+  uint32_t bits;
+  int size;
+  bool unstuff;
+
+  void read() {
+    if (bits > 32) return;
+    uint32_t val = 0;
+    if (size > 3) {
+      val = read_le32(data - 3);
+      data -= 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 24;
+      while (size > 0) {
+        const uint32_t v = *data--;
+        val |= v << i;
+        --size;
+        i -= 8;
+      }
+    }
+    uint32_t t = val >> 24;
+    uint32_t nbits = 8u - ((unstuff && ((val >> 24) & 0x7F) == 0x7F) ? 1u : 0u);
+    bool u = (val >> 24) > 0x8F;
+    t |= ((val >> 16) & 0xFF) << nbits;
+    nbits += 8u - ((u && ((val >> 16) & 0x7F) == 0x7F) ? 1u : 0u);
+    u = ((val >> 16) & 0xFF) > 0x8F;
+    t |= ((val >> 8) & 0xFF) << nbits;
+    nbits += 8u - ((u && ((val >> 8) & 0x7F) == 0x7F) ? 1u : 0u);
+    u = ((val >> 8) & 0xFF) > 0x8F;
+    t |= (val & 0xFF) << nbits;
+    nbits += 8u - ((u && (val & 0x7F) == 0x7F) ? 1u : 0u);
+    u = (val & 0xFF) > 0x8F;
+    tmp |= (uint64_t)t << bits;
+    bits += nbits;
+    unstuff = u;
+  }
+  // OpenJPEG reads the bytes up to an aligned address one at a time first;
+  // the bits come out the same
+  void init_vlc(const uint8_t* d, int lcup, int scup) {
+    data = d + lcup - 2;
+    size = scup - 2;
+    const uint32_t first = *data--;
+    tmp = first >> 4;
+    bits = 4 - ((tmp & 7) == 7);
+    unstuff = (first | 0xF) > 0x8F;
+    read();
+  }
+  void init_mrp(const uint8_t* d, int lcup, int len2) {
+    data = d + lcup + len2 - 1;
+    size = len2;
+    unstuff = true;
+    bits = 0;
+    tmp = 0;
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return (uint32_t)tmp;
+  }
+  uint32_t advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+    return (uint32_t)tmp;
+  }
+};
+
+// A stream read forwards with the unstuffing of the bit after a 0xFF byte:
+// MagSgn (0xFF past its end) and SigProp (zeros past its end).
+struct HtFrwd {
+  const uint8_t* data;
+  uint64_t tmp;
+  uint32_t bits, X;
+  bool unstuff;
+  int size;
+
+  void read() {
+    uint32_t val;
+    if (size > 3) {
+      val = read_le32(data);
+      data += 4;
+      size -= 4;
+    } else if (size > 0) {
+      int i = 0;
+      val = X != 0 ? 0xFFFFFFFFu : 0;
+      while (size > 0) {
+        const uint32_t v = *data++;
+        const uint32_t m = ~(0xFFu << i);
+        val = (val & m) | (v << i);
+        --size;
+        i += 8;
+      }
+    } else {
+      val = X != 0 ? 0xFFFFFFFFu : 0;
+    }
+    uint32_t nbits = 8u - (unstuff ? 1u : 0u);
+    uint32_t t = val & 0xFF;
+    bool u = (val & 0xFF) == 0xFF;
+    t |= ((val >> 8) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 8) & 0xFF) == 0xFF;
+    t |= ((val >> 16) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    u = ((val >> 16) & 0xFF) == 0xFF;
+    t |= ((val >> 24) & 0xFF) << nbits;
+    nbits += 8u - (u ? 1u : 0u);
+    unstuff = ((val >> 24) & 0xFF) == 0xFF;
+    tmp |= (uint64_t)t << bits;
+    bits += nbits;
+  }
+  void init(const uint8_t* d, int n, uint32_t x) {
+    data = d;
+    tmp = 0;
+    bits = 0;
+    unstuff = false;
+    size = n;
+    X = x;
+    read();
+  }
+  uint32_t fetch() {
+    if (bits < 32) {
+      read();
+      if (bits < 32) read();
+    }
+    return (uint32_t)tmp;
+  }
+  void advance(uint32_t n) {
+    tmp >>= n;
+    bits -= n;
+  }
+};
+
+// the u prefix (1, 01, 001, 000 read from the LSB) with its suffix length and
+// prefix value: bits 0-1 the prefix length, 2-4 the suffix length, 5-7 u_pfx
+const uint8_t kUvlcDec[8] = {3 | (5 << 2) | (5 << 5), 1 | (0 << 2) | (1 << 5), 2 | (0 << 2) | (2 << 5),
+                             1 | (0 << 2) | (1 << 5), 3 | (1 << 2) | (3 << 5), 1 | (0 << 2) | (1 << 5),
+                             2 | (0 << 2) | (2 << 5), 1 | (0 << 2) | (1 << 5)};
+
+// decode_init_uvlc and decode_noninit_uvlc: u + kappa of a quad pair. mode
+// holds the two u_off bits; on the first row, 4 when both are set and the
+// MEL event is 1 (both u past 2: kappa 1 and 2 more), and after a first
+// prefix of 3 bits at mode 3 the second u is one bit
+uint32_t decode_uvlc(uint32_t vlc, uint32_t mode, bool initial, uint32_t* u) {
+  u[0] = u[1] = 1;
+  if (mode == 0) return 0;
+  uint32_t consumed = 0;
+  auto prefix = [&]() {
+    const uint32_t d = kUvlcDec[vlc & 0x7];
+    vlc >>= d & 0x3;
+    consumed += d & 0x3;
+    return d;
+  };
+  auto suffix = [&](uint32_t d) {
+    const uint32_t sl = (d >> 2) & 0x7;
+    const uint32_t v = (d >> 5) + (vlc & ((1u << sl) - 1));
+    vlc >>= sl;
+    consumed += sl;
+    return v;
+  };
+  if (mode <= 2) {
+    u[mode - 1] = suffix(prefix()) + 1;
+    return consumed;
+  }
+  const uint32_t d1 = prefix();
+  if (initial && mode == 3 && (d1 & 0x3) > 2) {
+    u[1] = (vlc & 1) + 2;
+    vlc >>= 1;
+    ++consumed;
+    u[0] = suffix(d1) + 1;
+    return consumed;
+  }
+  const uint32_t d2 = prefix();
+  const uint32_t add = mode == 4 ? 3 : 1;
+  u[0] = suffix(d1) + add;
+  u[1] = suffix(d2) + add;
+  return consumed;
+}
+
+// the SigProp and MagRef passes over one stripe of 4 rows (y0 its first row;
+// `pattern` limits a last, shorter stripe) of a block w wide. sig, mbr: the
+// stripe's significance and its membership (the samples SigProp visits), 8
+// columns of 4 rows a word; nsig, nmbr: those of the next stripe.
+void ht_sigprop_stripe(uint32_t* dec, int w, int stride, int y0, uint32_t p, uint32_t pattern,
+                       uint32_t* cur_sig, uint32_t* cur_mbr, uint32_t* nxt_sig, uint32_t* nxt_mbr,
+                       HtFrwd& sigprop) {
+  const uint32_t val = 3u << (p - 2);  // the newly significant samples with the bin centre
+  for (int i = 0; i < w; i += 8, ++cur_sig, ++cur_mbr, ++nxt_sig, ++nxt_mbr) {
+    uint32_t mbr = *cur_mbr & pattern;
+    uint32_t new_sig = 0;
+    if (mbr) {
+      for (int n = 0; n < 8; n += 4) {
+        uint32_t cwd = sigprop.fetch();
+        uint32_t cnt = 0;
+        uint32_t* dp = dec + (size_t)y0 * stride + i + n;
+        uint32_t col_mask = 0xFu << (4 * n);
+        const uint32_t inv_sig = ~cur_sig[0] & pattern;
+        const int end = n + 4 + i < w ? n + 4 : w - i;
+        for (int j = n; j < end; ++j, ++dp, col_mask <<= 4) {
+          if ((col_mask & mbr) == 0) continue;
+          static const uint32_t spread[4] = {0x32u, 0x74u, 0xE8u, 0xC0u};
+          uint32_t sample_mask = 0x11111111u & col_mask;
+          for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+            if (!(mbr & sample_mask)) continue;
+            if (cwd & 1) {
+              new_sig |= sample_mask;
+              mbr |= (spread[r] << (j * 4)) & inv_sig;
+            }
+            cwd >>= 1;
+            ++cnt;
+          }
+        }
+        if (new_sig & (0xFFFFu << (4 * n))) {
+          uint32_t* dq = dec + (size_t)y0 * stride + i + n;
+          uint32_t cm = 0xFu << (4 * n);
+          for (int j = n; j < end; ++j, ++dq, cm <<= 4) {
+            if ((cm & new_sig) == 0) continue;
+            uint32_t sample_mask = 0x11111111u & cm;
+            for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+              if (!(new_sig & sample_mask)) continue;
+              dq[(size_t)r * stride] |= ((cwd & 1) << 31) | val;
+              cwd >>= 1;
+              ++cnt;
+            }
+          }
+        }
+        sigprop.advance(cnt);
+        if (n == 4) {  // the next 8 columns' first one
+          uint32_t t = new_sig >> 28;
+          t |= ((t & 0xE) >> 1) | ((t & 7) << 1);
+          cur_mbr[1] |= t & ~cur_sig[1];
+        }
+      }
+    }
+    // the next stripe's first row
+    new_sig |= cur_sig[0];
+    const uint32_t ux = (new_sig & 0x88888888u) >> 3;
+    const uint32_t tx = ux | (ux << 4) | (ux >> 4);
+    if (i > 0) nxt_mbr[-1] |= (ux << 28) & ~nxt_sig[-1];
+    nxt_mbr[0] |= tx & ~nxt_sig[0];
+    nxt_mbr[1] |= (ux >> 28) & ~nxt_sig[1];
+  }
+}
+
+// MagRef over the samples of one stripe that the cleanup made significant
+void ht_magref_stripe(uint32_t* dpp, int w, int stride, uint32_t p, uint32_t* sig_row, HtRev& magref) {
+  const uint32_t half = 1u << (p - 2);
+  for (int i = 0; i < w; i += 8) {
+    uint32_t cwd = magref.fetch();
+    const uint32_t sig = *sig_row++;
+    uint32_t col_mask = 0xFu;
+    uint32_t* dp = dpp + i;
+    if (sig) {
+      for (int j = 0; j < 8; ++j, ++dp, col_mask <<= 4) {
+        if (!(sig & col_mask)) continue;
+        uint32_t sample_mask = 0x11111111u & col_mask;
+        for (int r = 0; r < 4; ++r, sample_mask += sample_mask) {
+          if (!(sig & sample_mask)) continue;
+          const uint32_t sym = cwd & 1;
+          dp[(size_t)r * stride] ^= (1 - sym) << (p - 1);
+          dp[(size_t)r * stride] |= half;
+          cwd >>= 1;
+        }
+      }
+    }
+    magref.advance(popcount32(sig));
+  }
+}
+
+// the membership of a stripe from its own significance: its neighbours
+// left, right, above and below, less the significant samples
+void ht_stripe_mbr(const uint32_t* sig, uint32_t* mbr, int w) {
+  uint32_t prev = 0;
+  for (int i = 0; i < w; i += 8, ++mbr, ++sig) {
+    mbr[0] = sig[0];
+    mbr[0] |= prev >> 28;
+    mbr[0] |= sig[0] << 4;
+    mbr[0] |= sig[0] >> 4;
+    mbr[0] |= sig[1] << 28;
+    prev = sig[0];
+    const uint32_t t = mbr[0];
+    uint32_t z = mbr[0];
+    z |= (t & 0x77777777u) << 1;
+    z |= (t & 0xEEEEEEEEu) >> 1;
+    mbr[0] = z & ~sig[0];
+  }
+}
+
+// the next stripe's first row adds to this stripe's last row's membership
+// (not when vertically causal)
+void ht_stripe_mbr_below(const uint32_t* cur_sig, uint32_t* cur_mbr, const uint32_t* nxt_sig, int w,
+                         bool stripe_causal) {
+  uint32_t prev = 0;
+  for (int i = 0; i < w; i += 8, ++cur_mbr, ++cur_sig, ++nxt_sig) {
+    uint32_t t = nxt_sig[0];
+    t |= prev >> 28;
+    t |= nxt_sig[0] << 4;
+    t |= nxt_sig[0] >> 4;
+    t |= nxt_sig[1] << 28;
+    prev = nxt_sig[0];
+    if (!stripe_causal) cur_mbr[0] |= (t & 0x11111111u) << 3;
+    cur_mbr[0] &= ~cur_sig[0];
+  }
+}
+
+// one significant sample of the cleanup pass: m_n bits of MagSgn (the sign
+// first) under the implicit MSB e_1, the bin centre, shifted to bit-plane p;
+// returns v_n for the exponent
+inline uint32_t ht_sample(HtFrwd& magsgn, uint32_t U, uint32_t ek, uint32_t e1, uint32_t p, uint32_t* out) {
+  const uint32_t ms_val = magsgn.fetch();
+  const uint32_t m_n = U - ek;
+  magsgn.advance(m_n);
+  const uint32_t val = ms_val << 31;
+  uint32_t v_n = ms_val & ((1u << m_n) - 1);
+  v_n |= e1 << m_n;
+  v_n |= 1;
+  *out = val | ((v_n + 2) << (p - 1));
+  return v_n;
+}
+
+// opj_t1_ht_decode_cblk: false where OpenJPEG gives up on the block
+bool ht_decode_cblk(T1& t1, Cblk& cb, const uint8_t* tiledata, uint32_t roishift, uint32_t cblksty) {
+  if (roishift != 0) return false;  // "We do not support ROI in decoding HT codeblocks"
+  const int width = cb.x1 - cb.x0, height = cb.y1 - cb.y0;
+  t1.allocate(width, height);
+  const uint32_t zero_bplanes = (cb.Mb + 1) - cb.numbps;
+  uint32_t cblk_len = 0;
+  for (const Chunk& c : cb.chunks) cblk_len += c.len;
+  if (cb.chunks.empty()) return true;
+  // OpenJPEG reads one chunk where it lies in the tile's data (a malloc'd,
+  // so 16-byte aligned, buffer: `align` is the block's address modulo 4,
+  // which the MEL's check depends on), several from an aligned buffer
+  std::vector<uint8_t> joined;
+  const uint8_t* coded;
+  uint32_t align = 0;
+  if (cb.chunks.size() > 1) {
+    joined.resize(cblk_len);
+    uint32_t at = 0;
+    for (const Chunk& c : cb.chunks) {
+      if (c.len) std::memcpy(joined.data() + at, tiledata + c.off, c.len);
+      at += c.len;
+    }
+    coded = joined.data();
+  } else {
+    coded = tiledata + cb.chunks[0].off;
+    align = cb.chunks[0].off & 3;
+  }
+  // a segment no packet header began reads as zeros (OpenJPEG clears every
+  // segment when it sets a tile up): a later layer's lone pass joins the
+  // cleanup's segment and leaves the second one empty
+  const Seg none;
+  const Seg& seg0 = cb.segs.size() > 0 ? cb.segs[0] : none;
+  const Seg& seg1 = cb.segs.size() > 1 ? cb.segs[1] : none;
+  uint32_t num_passes = cb.numsegs > 0 ? seg0.real_num_passes : 0;
+  num_passes += cb.numsegs > 1 ? seg1.real_num_passes : 0;
+  const uint32_t lengths1 = num_passes > 0 ? seg0.len : 0;
+  const uint32_t lengths2 = num_passes > 1 ? seg1.len : 0;
+  if (num_passes > 1 && lengths2 == 0) num_passes = 1;  // a warning
+  if (num_passes > 3) return false;
+  if (cb.Mb > 30) return false;
+  if (zero_bplanes > cb.Mb) return false;
+  if (zero_bplanes == cb.Mb && num_passes > 1) num_passes = 1;  // a warning
+  const uint32_t p = cb.numbps;
+  if (lengths1 < 2 || lengths1 > cblk_len || lengths1 + lengths2 > cblk_len) return false;
+  const int lcup = (int)lengths1;
+  const int scup = ((int)coded[lcup - 1] << 4) + (coded[lcup - 2] & 0xF);
+  if (scup < 2 || scup > lcup || scup > 4079) return false;
+  const int stride = width;
+  uint32_t* dec = reinterpret_cast<uint32_t*>(t1.data.data());
+  std::vector<uint32_t> flags(132 * 4 + 132, 0);
+  uint32_t* sigma1 = flags.data();
+  uint32_t* sigma2 = sigma1 + 132;
+  uint32_t* mbr1 = sigma2 + 132;
+  uint32_t* mbr2 = mbr1 + 132;
+  uint8_t* line_state = reinterpret_cast<uint8_t*>(mbr2 + 132);
+  const bool stripe_causal = (cblksty & kVsc) != 0;
+
+  HtMel mel;
+  if (!mel.init(coded, lcup, scup, align)) return false;  // "Incorrect MEL segment sequence"
+  HtRev vlc, magref;
+  vlc.init_vlc(coded, lcup, scup);
+  HtFrwd magsgn, sigprop;
+  magsgn.init(coded, lcup - scup, 0xFF);
+  if (num_passes > 1) sigprop.init(coded + lengths1, (int)lengths2, 0);
+  if (num_passes > 2) magref.init_mrp(coded, (int)lengths1, (int)lengths2);
+
+  // the rows of quads, two rows of samples each; SigProp and MagRef follow
+  // a stripe behind. The first row takes table 0, the initial u code and
+  // no line state above it (all zeros, so the context and kappa come out
+  // as the first row's).
+  uint32_t sip_shift = 2;
+  const uint32_t zero_bplanes_p1 = zero_bplanes + 1;
+  int run = mel.get_run();
+  for (int y = 0; y < height;) {
+    const bool initial = y == 0;
+    const uint16_t* table = initial ? kVlcTbl0 : kVlcTbl1;
+    sip_shift ^= 0x2;
+    sip_shift &= 0xFFFFFFEFu;
+    uint32_t* sip = y & 0x4 ? sigma2 : sigma1;
+    uint8_t* lsp = line_state;
+    uint8_t ls0 = lsp[0];
+    lsp[0] = 0;
+    uint32_t* sp = dec + (size_t)y * stride;
+    uint32_t c_q = 0;
+    for (int x = 0; x < width; x += 4) {
+      uint32_t qinf[2], U_q[2];
+      c_q |= ls0 >> 7;
+      c_q |= (lsp[1] >> 5) & 0x4;
+      uint32_t vlc_val = vlc.fetch();
+      qinf[0] = table[(c_q << 7) | (vlc_val & 0x7F)];
+      if (c_q == 0) {  // a MEL event says whether the quad is significant
+        run -= 2;
+        qinf[0] = run == -1 ? qinf[0] : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      c_q = initial ? ((qinf[0] & 0x10) >> 4) | ((qinf[0] & 0xE0) >> 5)
+                    : ((qinf[0] & 0x40) >> 5) | ((qinf[0] & 0x80) >> 6);
+      vlc_val = vlc.advance(qinf[0] & 0x7);
+      *sip |= (((qinf[0] & 0x30) >> 4) | ((qinf[0] & 0xC0) >> 2)) << sip_shift;
+      qinf[1] = 0;
+      if (x + 2 < width) {
+        c_q |= lsp[1] >> 7;
+        c_q |= (lsp[2] >> 5) & 0x4;
+        qinf[1] = table[(c_q << 7) | (vlc_val & 0x7F)];
+        if (c_q == 0) {
+          run -= 2;
+          qinf[1] = run == -1 ? qinf[1] : 0;
+          if (run < 0) run = mel.get_run();
+        }
+        c_q = initial ? ((qinf[1] & 0x10) >> 4) | ((qinf[1] & 0xE0) >> 5)
+                      : ((qinf[1] & 0x40) >> 5) | ((qinf[1] & 0x80) >> 6);
+        vlc_val = vlc.advance(qinf[1] & 0x7);
+      }
+      *sip |= ((qinf[1] & 0x30) | ((qinf[1] & 0xC0) << 2)) << (4 + sip_shift);
+      sip += x & 0x7 ? 1 : 0;
+      sip_shift ^= 0x10;
+      uint32_t uvlc_mode = ((qinf[0] & 0x8) >> 3) | ((qinf[1] & 0x8) >> 2);
+      if (initial && uvlc_mode == 3) {
+        run -= 2;
+        uvlc_mode += run == -1 ? 1 : 0;
+        if (run < 0) run = mel.get_run();
+      }
+      vlc.advance(decode_uvlc(vlc_val, uvlc_mode, initial, U_q));
+      // kappa from the row above (E^max less 1) where more than one sample
+      // of the quad is significant
+      if ((qinf[0] & 0xF0) & ((qinf[0] & 0xF0) - 1)) {
+        uint32_t E = ls0 & 0x7Fu;
+        E = E > (lsp[1] & 0x7Fu) ? E : (lsp[1] & 0x7Fu);
+        U_q[0] += E > 2 ? E - 2 : 0;
+      }
+      if ((qinf[1] & 0xF0) & ((qinf[1] & 0xF0) - 1)) {
+        uint32_t E = lsp[1] & 0x7Fu;
+        E = E > (lsp[2] & 0x7Fu) ? E : (lsp[2] & 0x7Fu);
+        U_q[1] += E > 2 ? E - 2 : 0;
+      }
+      if (U_q[0] > zero_bplanes_p1 || U_q[1] > zero_bplanes_p1) return false;  // "U_q is larger ..."
+      ls0 = lsp[2];
+      lsp[1] = lsp[2] = 0;
+      uint32_t locs = 0xFF;
+      if (x + 4 > width) locs >>= (x + 4 - width) << 1;
+      locs = y + 2 <= height ? locs : (locs & 0x55);
+      if ((((qinf[0] & 0xF0) >> 4) | (qinf[1] & 0xF0)) & ~locs) return false;  // outside the block
+      for (int q = 0; q < 2; ++q) {  // the samples, MagSgn in their order; the line state
+        const uint32_t qi = qinf[q], U = U_q[q], lb = q * 4;
+        if (qi & 0x10) ht_sample(magsgn, U, (qi >> 12) & 1, (qi >> 8) & 1, p, &sp[0]);
+        else if (locs & (1u << lb)) sp[0] = 0;
+        if (qi & 0x20) {
+          const uint32_t v_n = ht_sample(magsgn, U, (qi >> 13) & 1, (qi >> 9) & 1, p, &sp[stride]);
+          const uint32_t t = lsp[0] & 0x7F, e = bitlen32(v_n);
+          lsp[0] = (uint8_t)(0x80 | (t > e ? t : e));
+        } else if (locs & (2u << lb)) {
+          sp[stride] = 0;
+        }
+        ++lsp;
+        ++sp;
+        if (qi & 0x40) ht_sample(magsgn, U, (qi >> 14) & 1, (qi >> 10) & 1, p, &sp[0]);
+        else if (locs & (4u << lb)) sp[0] = 0;
+        lsp[0] = 0;
+        if (qi & 0x80) {
+          const uint32_t v_n = ht_sample(magsgn, U, (qi >> 15) & 1, (qi >> 11) & 1, p, &sp[stride]);
+          lsp[0] = (uint8_t)(0x80 | bitlen32(v_n));
+        } else if (locs & (8u << lb)) {
+          sp[stride] = 0;
+        }
+        ++sp;
+      }
+    }
+    y += 2;
+    if (num_passes > 1 && (y & 3) == 0) {
+      if (num_passes > 2) ht_magref_stripe(dec + (size_t)(y - 4) * stride, width, stride, p,
+                                           y & 0x4 ? sigma1 : sigma2, magref);
+      if (y >= 4) ht_stripe_mbr(y & 0x4 ? sigma1 : sigma2, y & 0x4 ? mbr1 : mbr2, width);
+      if (y >= 8) {
+        uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+        uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+        uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+        uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+        ht_stripe_mbr_below(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+        ht_sigprop_stripe(dec, width, stride, y - 8, p, 0xFFFFFFFFu, cur_sig, cur_mbr, nxt_sig,
+                          nxt_mbr, sigprop);
+        std::memset(cur_sig, 0, ((((uint32_t)width + 7u) >> 3) + 1u) << 2);
+      }
+    }
+  }
+
+  // the last stripes' refinement
+  if (num_passes > 1) {
+    if (num_passes > 2 && ((height & 3) == 1 || (height & 3) == 2))
+      ht_magref_stripe(dec + (size_t)(height & 0xFFFFFC) * stride, width, stride, p,
+                       height & 0x4 ? sigma2 : sigma1, magref);
+    if ((height & 3) == 1 || (height & 3) == 2)
+      ht_stripe_mbr(height & 0x4 ? sigma2 : sigma1, height & 0x4 ? mbr2 : mbr1, width);
+    int st = height;
+    st -= height > 6 ? (((height + 1) & 3) + 3) : height;
+    for (int y = st; y < height; y += 4) {
+      uint32_t pattern = 0xFFFFFFFFu;
+      if (height - y == 3) pattern = 0x77777777u;
+      else if (height - y == 2) pattern = 0x33333333u;
+      else if (height - y == 1) pattern = 0x11111111u;
+      uint32_t* cur_sig = y & 0x4 ? sigma2 : sigma1;
+      uint32_t* cur_mbr = y & 0x4 ? mbr2 : mbr1;
+      uint32_t* nxt_sig = y & 0x4 ? sigma1 : sigma2;
+      uint32_t* nxt_mbr = y & 0x4 ? mbr1 : mbr2;
+      if (height - y > 4) ht_stripe_mbr_below(cur_sig, cur_mbr, nxt_sig, width, stripe_causal);
+      ht_sigprop_stripe(dec, width, stride, y, p, pattern, cur_sig, cur_mbr, nxt_sig, nxt_mbr, sigprop);
+    }
+  }
+
+  // sign and magnitude to two's complement
+  for (int i = 0; i < width * height; ++i) {
+    const int32_t v = (int32_t)(dec[i] & 0x7FFFFFFFu);
+    dec[i] = (dec[i] & 0x80000000u) ? (uint32_t)-v : (uint32_t)v;
   }
   return true;
 }
@@ -1132,6 +1979,7 @@ bool decode_packet(Tile& t, const Packet& pk, const uint8_t* src, uint32_t max_l
         if (!c.numsegs) {
           uint32_t i = 0;
           while (!p.imsb.decode(bio, cblkno, (int32_t)i)) ++i;
+          c.Mb = (uint32_t)b.numbps;
           c.numbps = (uint32_t)b.numbps + 1 - i;
           c.numlenbits = 3;
         }
@@ -1153,7 +2001,10 @@ bool decode_packet(Tile& t, const Packet& pk, const uint8_t* src, uint32_t max_l
         do {
           Seg& s = c.segs[segno];
           const int32_t room = (int32_t)(s.maxpasses - s.numpasses);
-          s.numnewpasses = (uint32_t)(room < n ? room : n);
+          if (tc.cblksty & kHt)  // the cleanup pass alone, then the rest in one segment
+            s.numnewpasses = segno == 0 ? 1u : (uint32_t)n;
+          else
+            s.numnewpasses = (uint32_t)(room < n ? room : n);
           const uint32_t bit_number = c.numlenbits + floorlog2(s.numnewpasses);
           if (bit_number > 32) return false;
           s.newlen = bio.read(bit_number);
@@ -1241,16 +2092,13 @@ extern "C" {
 // from *ext_pos on and advanced. resno_decoded: per component, in and out
 // (OpenJPEG keeps it across tiles). out: per component a buffer of the
 // tile-component's size; on return it holds the decoded resolution's
-// samples packed, and dims its width and height. Returns 0, -1 where
-// OpenJPEG fails ("broken data stream" in Pillow), -2 for a code-block
-// style this decoder does not implement (high throughput).
+// samples packed, and dims its width and height. Returns 0, or -1 where
+// OpenJPEG fails ("broken data stream" in Pillow).
 int64_t gatling_j2k_decode_tile(const int32_t* hdr, uint8_t* data, int64_t n, const uint8_t* ext,
                                 int64_t ext_n, int64_t* ext_pos, int32_t* resno_decoded,
                                 int32_t* const* out, int32_t* dims) {
   Tile t;
   t.hdr = hdr;
-  for (int32_t c = 0; c < hdr[H_NCOMP]; ++c)
-    if (hdr[H_COMP + C_SIZE * c + C_CBLKSTY] & 0x40) return -2;
   if (!init_tile(t)) return -1;
   // the packet order
   std::vector<PiComp> pcomps(t.numcomps);
@@ -1350,7 +2198,9 @@ int64_t gatling_j2k_decode_tile(const int32_t* hdr, uint8_t* data, int64_t n, co
             continue;
           for (Cblk& cb : p.cblks) {
             if (cb.x1 < cb.x0 || cb.y1 < cb.y0) return -1;
-            if (!decode_cblk(t1, cb, data, b.bandno, tc.roishift, tc.cblksty)) return -1;
+            const bool ok = (tc.cblksty & kHt) ? ht_decode_cblk(t1, cb, data, tc.roishift, tc.cblksty)
+                                               : decode_cblk(t1, cb, data, b.bandno, tc.roishift, tc.cblksty);
+            if (!ok) return -1;
             int32_t x = cb.x0 - b.x0, y = cb.y0 - b.y0;
             if (b.bandno & 1) x += tc.res[resno - 1].x1 - tc.res[resno - 1].x0;
             if (b.bandno & 2) y += tc.res[resno - 1].y1 - tc.res[resno - 1].y0;

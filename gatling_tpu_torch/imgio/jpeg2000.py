@@ -8,10 +8,11 @@ Three layers, each as its original does it:
   RGB, RGBA, I;16 for one component deeper than 8 bits, CMYK where `colr`
   names it, P or PA through `pclr`);
 - OpenJPEG reads the JP2 boxes and the codestream's main and tile-part
-  headers (SIZ, COD, COC, QCD, QCC, RGN, POC, PPM, PPT, TLM, PLM, PLT,
-  CRG, COM, SOT, SOD, EOC; here, in Python) and decodes each tile in the
-  native library (csrc/jpeg2000.cpp, gatling_j2k_decode_tile: the packet
-  headers, the MQ decoder's three coding passes, dequantisation, the
+  headers (SIZ, CAP, COD, COC, QCD, QCC, RGN, POC, PPM, PPT, TLM, PLM,
+  PLT, CRG, COM, CPF, MCT, MCC, MCO, CBD, SOT, SOD, EOC; here, in Python)
+  and decodes each tile in the native library (csrc/jpeg2000.cpp,
+  gatling_j2k_decode_tile: the packet headers, the MQ decoder's three
+  coding passes or the HT block decoder, dequantisation, the
   inverse 5/3 or 9/7 wavelet, the inverse RCT or ICT, the DC level shift).
   Damage that OpenJPEG tolerates decodes as it decodes it; where it gives
   up (its strict mode, Pillow's default), Pillow's "broken data stream" is
@@ -26,9 +27,14 @@ palette (`pclr`, `cmap`) nor the channel definitions (`cdef`): a `pclr`
 file is its indices with the palette Pillow read from the box, converted
 to RGBA by the JAX package (a PA image stays index and alpha).
 
-High-throughput code-blocks (HTJ2K, JPEG 2000 Part 15: an HT code-block
-style, the CAP and CPF markers) and the Part 2 markers (MCT, MCC, MCO,
-CBD) raise NotImplementedError (ROADMAP: 'USD content'). A COD or QCD
+High-throughput code-blocks (HTJ2K, JPEG 2000 Part 15: COD's HT style
+bit) decode in the native library as OpenJPEG's ht_dec.c decodes them,
+its tier 2 giving the cleanup pass a segment of its own. Of the Part 2
+and Part 15 markers, OpenJPEG reads CAP and CPF and ignores them; MCT,
+MCC and MCO as its readers do (an MCO takes every component's DC level
+shift away, and an MCC's offset array gives each its own; COD cannot
+name the decorrelation matrix, so it is never applied), and CBD sets each
+component's precision and signedness. A COD or QCD
 after a COC or QCC in one header overrides it for every component, as in
 OpenJPEG; a tile-part of Psot 12 holds no data; a repeated tile-part 0 of
 0 counts as one more tile-part (opj_j2k_need_nb_tile_parts_correction).
@@ -48,7 +54,6 @@ from gatling_tpu_torch import native
 from gatling_tpu_torch.imgio.modes import (Reader, Skip, bomb_check, cmyk_to_rgba, p_to_rgba,
                                            to_rgba)
 
-UNPORTED = "(ROADMAP: 'USD content')"
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
 J2K_START = b"\xff\x4f\xff\x51"
 
@@ -454,6 +459,8 @@ class _Tcp:
         self.poc = False
         self.pocs: list = []
         self.tccps = [_Tccp() for _ in range(ncomp)]
+        self.mct_records: list = []  # MCT: {index, element, data}
+        self.mcc_records: list = []  # MCC: {index, nb_comps, deco, offset} (MCT records)
         self.ppt = False
         self.ppt_markers: dict = {}
         self.ppt_data = None
@@ -466,6 +473,12 @@ class _Tcp:
         t.csty, t.prg, t.numlayers, t.mct = self.csty, self.prg, self.numlayers, self.mct
         t.poc, t.pocs = self.poc, [list(p) for p in self.pocs]
         t.tccps = [c.copy() for c in self.tccps]
+        # opj_j2k_copy_default_tcp_and_create_tcd: the records, each MCC
+        # pointing into the copy's own MCT records
+        t.mct_records = [dict(r) for r in self.mct_records]
+        moved = {id(a): b for a, b in zip(self.mct_records, t.mct_records)}
+        t.mcc_records = [{k: moved.get(id(v), v) if isinstance(v, dict) else v
+                          for k, v in r.items()} for r in self.mcc_records]
         return t
 
 
@@ -720,8 +733,8 @@ class _Codestream:
 def _siz(cs: _Codestream, p: bytes) -> None:
     if len(p) < 36 or (len(p) - 36) % 3:
         raise _Broken("Error with SIZ marker size")
-    # Rsiz does not decide the decoding: a high-throughput block is known by
-    # its code-block style (the native decoder raises for it)
+    # Rsiz does not decide the decoding (nor does its HT bit): a
+    # high-throughput block is known by COD's code-block style
     x1, y1, x0, y0, tdx, tdy, tx0, ty0, nc = struct.unpack_from(">IIIIIIIIH", p, 2)
     if nc >= 16385 or nc != (len(p) - 36) // 3:
         raise _Broken("Error with SIZ marker: number of components")
@@ -996,11 +1009,161 @@ def _com(cs: _Codestream, p: bytes) -> None:
     pass
 
 
-def _part2(name: str):
-    def handler(cs: _Codestream, p: bytes) -> None:
-        raise NotImplementedError(f"JPEG 2000: the {name} marker (JPEG 2000 Part 2 or 15) is "
-                                  f"not ported {UNPORTED}")
-    return handler
+def _cap(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_cap: Part 15's capabilities, read and ignored."""
+
+
+def _cpf(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_cpf: Part 15's corresponding profile, read and ignored."""
+
+
+# MCT_ELEMENT_SIZE: int16, int32, float32, float64
+_MCT_ELEMENT = ((2, ">H"), (4, ">i"), (4, ">f"), (8, ">d"))
+
+
+def _mct(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_mct: one array record, kept by its index (a record read
+    again under its index is replaced in place)."""
+    tcp = cs.tcp()
+    if len(p) < 2:
+        raise _Broken("Error reading MCT marker")
+    if struct.unpack_from(">H", p)[0] != 0:  # Zmct: "Cannot take in charge mct data
+        return                               # within multiple MCT records"
+    if len(p) <= 6:
+        raise _Broken("Error reading MCT marker")
+    imct, ymct = struct.unpack_from(">HH", p, 2)
+    rec = next((r for r in tcp.mct_records if r["index"] == imct & 0xFF), None)
+    if rec is None:
+        rec = {}
+        tcp.mct_records.append(rec)
+    rec.update(index=imct & 0xFF, element=(imct >> 10) & 3, data=b"")
+    if ymct != 0:  # "Cannot take in charge multiple MCT markers": the record stays empty
+        return
+    rec["data"] = p[6:]
+
+
+def _mcc(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_mcc: one array-based decorrelation collection naming its
+    decorrelation and offset records; what OpenJPEG cannot take is a
+    warning, and the record counts only when read whole."""
+    tcp = cs.tcp()
+    if len(p) < 2:
+        raise _Broken("Error reading MCC marker")
+    if struct.unpack_from(">H", p)[0] != 0:  # "Cannot take in charge multiple data spanning"
+        return
+    if len(p) < 7:
+        raise _Broken("Error reading MCC marker")
+    index = p[2]
+    known = next((r for r in tcp.mcc_records if r["index"] == index), None)
+    rec = known if known is not None else {}
+    rec["index"] = index
+    ymcc, qmcc = struct.unpack_from(">HH", p, 3)
+    if ymcc != 0 or qmcc > 1:  # multiple data spanning, multiple collections
+        return
+    at, left = 7, len(p) - 7
+    for _ in range(qmcc):
+        if left < 3:
+            raise _Broken("Error reading MCC marker")
+        if p[at] != 1:  # "collections other than array decorrelation"
+            return
+        nmcc = struct.unpack_from(">H", p, at + 1)[0]
+        at, left = at + 3, left - 3
+        room, rec["nb_comps"] = 1 + (nmcc >> 15), nmcc & 0x7FFF
+        if left < room * rec["nb_comps"] + 2:
+            raise _Broken("Error reading MCC marker")
+        left -= room * rec["nb_comps"] + 2
+        for j in range(rec["nb_comps"]):
+            if int.from_bytes(p[at:at + room], "big") != j:  # "indix shuffle"
+                return
+            at += room
+        mmcc = struct.unpack_from(">H", p, at)[0]
+        at += 2
+        room = 1 + (mmcc >> 15)
+        if mmcc & 0x7FFF != rec["nb_comps"]:  # "without same number of indixes"
+            return
+        if left < room * rec["nb_comps"] + 3:
+            raise _Broken("Error reading MCC marker")
+        left -= room * rec["nb_comps"] + 3
+        for j in range(rec["nb_comps"]):
+            if int.from_bytes(p[at:at + room], "big") != j:
+                return
+            at += room
+        tmcc = int.from_bytes(p[at:at + 3], "big")
+        at += 3
+        rec["deco"] = rec["offset"] = None
+        for key, idx in (("deco", tmcc & 0xFF), ("offset", (tmcc >> 8) & 0xFF)):
+            if idx:
+                rec[key] = next((r for r in tcp.mct_records if r["index"] == idx), None)
+                if rec[key] is None:
+                    raise _Broken("Error reading MCC marker")
+    if left != 0:
+        raise _Broken("Error reading MCC marker")
+    if known is None:
+        tcp.mcc_records.append(rec)
+
+
+def _mco(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_mco: the one transform stage. Every component loses its
+    DC level shift; an MCC with an offset record gives each its offset. The
+    decorrelation matrix is never applied: COD's transform byte cannot name
+    it (above 1 is an error)."""
+    tcp = cs.tcp()
+    if len(p) < 1:
+        raise _Broken("Error reading MCO marker")
+    if p[0] > 1:  # "Cannot take in charge multiple transformation stages."
+        return
+    if len(p) != p[0] + 1:
+        raise _Broken("Error reading MCO marker")
+    for tccp in tcp.tccps:
+        tccp.dc_level_shift = 0
+    for stage in p[1:]:
+        _add_mct(cs, tcp, stage)
+
+
+def _add_mct(cs: _Codestream, tcp: _Tcp, index: int) -> None:
+    """opj_j2k_add_mct. Its search compares the first MCC record's index
+    each time round, so only the first record can be applied."""
+    recs = tcp.mcc_records
+    if not recs or recs[0]["index"] != index:
+        return
+    rec = recs[0]
+    n = cs.ncomp()
+    if rec.get("nb_comps") != n:
+        return
+    for key, count in (("deco", n * n), ("offset", n)):
+        arr = rec.get(key)
+        if arr is None:
+            continue
+        size, fmt = _MCT_ELEMENT[arr["element"]]
+        if len(arr["data"]) != size * count:
+            raise _Broken("MCT record size")
+        if key == "offset":
+            for i, tccp in enumerate(tcp.tccps):
+                v = struct.unpack_from(fmt, arr["data"], size * i)[0]
+                tccp.dc_level_shift = _to_int32(v)
+
+
+def _to_int32(v) -> int:
+    """OpenJPEG's cast of an offset to OPJ_INT32: a float truncates (x86's
+    cvttsd2si: out of range, or NaN, is INT_MIN), an integer wraps."""
+    if isinstance(v, float):
+        if not -2147483649.0 < v < 2147483648.0:
+            return -(1 << 31)
+        return int(v)
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _cbd(cs: _Codestream, p: bytes) -> None:
+    """opj_j2k_read_cbd: each component's precision and signedness anew (the
+    image's, so Pillow's unpacker sees them too; the DC level shift stays
+    SIZ's)."""
+    n = cs.ncomp()
+    if len(p) != n + 2 or struct.unpack_from(">H", p)[0] != n:
+        raise _Broken("Error reading CBD marker")
+    for comp, b in zip(cs.comps, p[2:]):
+        comp.sgnd, comp.prec = b >> 7, (b & 0x7F) + 1
+        if comp.prec > 31:
+            raise _Broken("Invalid values for comp: prec")
 
 
 _HANDLERS = {
@@ -1008,9 +1171,9 @@ _HANDLERS = {
     0xFF5E: (MH | TPH, _rgn), 0xFF5C: (MH | TPH, _qcd), 0xFF5D: (MH | TPH, _qcc),
     0xFF5F: (MH | TPH, _poc), 0xFF51: (MHSIZ, _siz), 0xFF55: (MH, _tlm), 0xFF57: (MH, _plm),
     0xFF58: (TPH, _plt), 0xFF60: (MH, _ppm), 0xFF61: (TPH, _ppt), 0xFF91: (0, None),
-    0xFF63: (MH, _crg), 0xFF64: (MH | TPH, _com), 0xFF74: (MH | TPH, _part2("MCT")),
-    0xFF78: (MH, _part2("CBD")), 0xFF50: (MH, _part2("CAP")), 0xFF59: (MH, _part2("CPF")),
-    0xFF75: (MH | TPH, _part2("MCC")), 0xFF77: (MH | TPH, _part2("MCO")),
+    0xFF63: (MH, _crg), 0xFF64: (MH | TPH, _com), 0xFF74: (MH | TPH, _mct),
+    0xFF78: (MH, _cbd), 0xFF50: (MH, _cap), 0xFF59: (MH, _cpf), 0xFF75: (MH | TPH, _mcc),
+    0xFF77: (MH | TPH, _mco),
 }
 
 
@@ -1066,9 +1229,6 @@ def _decode_tile(cs: _Codestream, index: int) -> tuple:
         native.ptr(hdr, ctypes.c_int32), native.ptr(src, ctypes.c_uint8), len(tcp.data),
         native.ptr(extbuf, ctypes.c_uint8), len(ext), native.ptr(ext_pos, ctypes.c_int64),
         native.ptr(resno, ctypes.c_int32), native.pointers(outs), native.ptr(dims, ctypes.c_int32))
-    if got == -2:
-        raise NotImplementedError("JPEG 2000: high-throughput code-blocks (HTJ2K) are not "
-                                  f"ported {UNPORTED}")
     if got < 0:
         raise _Broken("Failed to decode the tile")
     for c, r in zip(cs.comps, resno):

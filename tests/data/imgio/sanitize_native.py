@@ -2,9 +2,12 @@
 AddressSanitizer and UndefinedBehaviorSanitizer, fed through the port's own
 decoders: the legacy plugins' files of tests/test_torch_imgio_legacy.py
 (its hand-made files and a Pillow corpus of every saver's modes), the
-fixtures of this folder, LZMA TIFFs, and xz streams of every filter chain
-(Python's lzma and tests/test_torch_tiff_codecs.py's framed ones), each
-whole, cut and mutated. Any sanitizer report ends the run with an error; an
+fixtures of this folder, LZMA TIFFs, the HTJ2K and Part 2 JPEG 2000 files
+of tests/data/jpeg2000/make_ht_files.py, and xz streams of every filter
+chain (Python's lzma and tests/test_torch_tiff_codecs.py's framed ones),
+each whole, cut and mutated; then, each once, tests/test_torch_htj2k.py's
+2,000 random cleanup segments and its damaged HT files. Any sanitizer
+report ends the run with an error; an
 exception other than ValueError or NotImplementedError is printed and
 fails it too.
 
@@ -43,7 +46,8 @@ def _module(name: str, path: str):
 
 
 def corpus(seed: int = 7):
-    """({name: image file}, [(xz stream, strip bytes)])."""
+    """({name: image file}, [(xz stream, strip bytes)], [image files
+    decoded once])."""
     from PIL import Image
 
     sys.path.insert(0, ROOT)
@@ -87,7 +91,20 @@ def corpus(seed: int = 7):
                                       filters=chain), n))
         framed = [(int(rng.choice(ids)), b"") for _ in range(int(rng.integers(1, 3)))]
         streams.append((tc.xz_framed([(framed, raw)], sizes=bool(it % 2)), n))
-    return files, streams
+    ht = _module("ht_tests", os.path.join(ROOT, "tests", "test_torch_htj2k.py"))
+    once = [ht.mh.random_block(np.random.default_rng(s)) for s in range(2000)]
+    for name in ht.COMMITTED:
+        files[name] = ht._read(name)
+    for name in ht.DAMAGED:
+        data = ht._read(name)
+        lo = data.find(b"\xff\x93") + 2
+        for s in range(30):
+            r = np.random.default_rng(s)
+            b = bytearray(data)
+            for _ in range(2):
+                b[int(r.integers(lo, len(b)))] = int(r.integers(0, 256))
+            once.append(bytes(b))
+    return files, streams, once
 
 
 def fuzz(lib_path: str, corpus_path: str, seed: int, per: int) -> int:
@@ -108,7 +125,7 @@ def fuzz(lib_path: str, corpus_path: str, seed: int, per: int) -> int:
         fn.argtypes = argtypes
     native._lib = lib
     with open(corpus_path, "rb") as f:
-        files, streams = pickle.load(f)
+        files, streams, once = pickle.load(f)
     rng = np.random.default_rng(seed)
 
     def mutate(b: bytes) -> bytes:
@@ -146,6 +163,18 @@ def fuzz(lib_path: str, corpus_path: str, seed: int, per: int) -> int:
                 print(f"{name} #{k}: {type(e).__name__}: {e}", flush=True)
             outcomes[kind] = outcomes.get(kind, 0) + 1
             n += 1
+    for data in once:
+        try:
+            imgio.load_image(data)
+            kind = "array"
+        except (ValueError, NotImplementedError) as e:
+            kind = type(e).__name__
+        except Exception as e:  # noqa: BLE001
+            kind = "fault"
+            faults += 1
+            print(f"once #{n}: {type(e).__name__}: {e}", flush=True)
+        outcomes[kind] = outcomes.get(kind, 0) + 1
+        n += 1
     for blob, size in streams:
         for k in range(max(1, per // 4)):
             data = blob if k == 0 else mutate(blob)

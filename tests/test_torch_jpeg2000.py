@@ -38,8 +38,8 @@ OpenJPEG 2.5.4), code for code.
    QCD after a COC or QCC, a tile-part of Psot 12, a repeated tile-part 0
    of 0.
 
-No saver here writes a high-throughput block: an HT block raises
-NotImplementedError (ROADMAP: 'USD content').
+High-throughput blocks (HTJ2K) and the Part 2 markers are
+tests/test_torch_htj2k.py's.
 """
 
 import importlib.util
@@ -341,14 +341,13 @@ def test_header_repairs_are_current():
 
 
 def test_high_throughput_blocks_raise_not_implemented():
-    """HTJ2K is not ported. Pillow's saver writes no HT file, so this one
-    is an MQ-coded file with COD's HT code-block style set (OpenJPEG fails
-    on it): the port raises NotImplementedError naming its ROADMAP item."""
+    """An MQ-coded file with COD's HT code-block style set: OpenJPEG reads
+    its blocks as HT blocks and fails on them, and so does the port (both
+    raise ValueError). The HT files themselves are tests/test_torch_htj2k.py's."""
     data = bytearray(_codestream(mf.texture(16, 16, 3, 1)))
     cod = data.find(b"\xff\x52")
     data[cod + 12] |= 0x40
-    with pytest.raises(NotImplementedError, match="USD content"):
-        imgio.load_image(bytes(data))
+    assert contract(bytes(data)) == "rejected"
 
 
 # ---------------------------------------------------------------------------
