@@ -2226,9 +2226,13 @@ def trace_entry(kernel: str, times: dict, launches: int) -> dict:
 
 # operations of B1 and B2, counted from csrc/trace.cu: (a slab test, a
 # triangle test) at the published f32 peak (a fused multiply-add two) and
-# in FP32 instructions (a fused multiply-add one); 3 divisions a live ray
-THREADED_FLOPS = {"B1": (26, 56), "B2": (25, 54)}
-THREADED_INSTR = {"B1": (26, 42), "B2": (25, 40)}
+# in FP32 instructions (a fused multiply-add one); 3 divisions a live ray.
+# A slab test: 6 subtractions, 6 multiplications, 4 min/max (the near and
+# far planes picked by the signs of 1/d), 3 comparisons and B1's
+# min(tmax, best t). A triangle test: K7's 54, the four sums' +0 starts,
+# and B1's min(tmax, best t) and t < best t.
+THREADED_FLOPS = {"B1": (20, 60), "B2": (19, 58)}
+THREADED_INSTR = {"B1": (20, 42), "B2": (19, 40)}
 
 
 def threaded_bound_ms(kernel: str, rays, bvh, work, nc: bool = False):
@@ -2250,8 +2254,12 @@ def threaded_bound_ms(kernel: str, rays, bvh, work, nc: bool = False):
 def threaded_parity(label: str, bounce, kind: str, rays, bvh) -> dict:
     """B1 (closest) or B2 (occluded) on one recorded wave against its twin
     over every ray: t, tri, u, v or the flags bit-equal. The twin's one run
-    (trace_ref.threaded_work) gives its time, and the walk's work for the
-    bound; the kernel is timed with CUDA events."""
+    (trace_ref.threaded_work) gives its time, and the JAX walk's work for
+    the bound; the model of the kernel's own walk of the wide rows
+    (trace_ref.wide_work) must give the same answers, and counts what the
+    kernel does: the rows it fetches, the boxes and triangles it tests,
+    and the rays that walked the node rows (a non-finite 1/d component).
+    The kernel is timed with CUDA events."""
     import torch
 
     from gatling_tpu_torch.ops import trace as tt
@@ -2280,13 +2288,23 @@ def threaded_parity(label: str, bounce, kind: str, rays, bvh) -> dict:
                   for g, r in ((got[0], ref[0]), (got[2], ref[2]), (got[3], ref[3])))
         what = f"{int(hit.sum())} hits"
     work = (int(boxes.sum()), int(tests.sum()))
+    model, rows, slabs, wtests, binary = trf.wide_work(*rays, bvh, any_hit=any_hit)
+    model_bad = (int((model != ref).sum()) if any_hit else
+                 sum(int((g.view(torch.int32) != r.view(torch.int32)).sum())
+                     for g, r in zip(model, ref)))
+    wide = dict(rows=int(rows.sum()), slabs=int(slabs.sum()), tests=int(wtests.sum()),
+                node_row_rays=int(binary.sum()))
+    per = max(live, 1)
     log(f"parity {label} bounce {bounce} {kind} ({rays[0].shape[0]} rays, every one compared, "
-        f"{live} live, {what}): {k} {bad} values not bit-equal to its twin; walk work {work} "
-        f"slab and triangle tests, {work[0] / max(live, 1):.1f} and {work[1] / max(live, 1):.1f} "
-        "a live ray")
-    assert bad == 0, (label, bounce, kind)
+        f"{live} live, {what}): {k} {bad} values not bit-equal to its twin; the JAX walk's work "
+        f"{work} slab and triangle tests, {work[0] / per:.1f} and {work[1] / per:.1f} a live "
+        f"ray; the kernel's walk of the wide rows (its model, {model_bad} values off the twin): "
+        f"{wide['rows'] / per:.2f} rows fetched, {wide['slabs'] / per:.1f} slab and "
+        f"{wide['tests'] / per:.1f} triangle tests a live ray, {wide['node_row_rays']} rays on "
+        "the node rows")
+    assert bad == 0 and model_bad == 0, (label, bounce, kind)
     return dict(ms=event_ms(lambda: run(*rays, bvh)), plain_ms=a.elapsed_time(b),
-                rays=rays[0].shape[0], live=live, err=err, work=work,
+                rays=rays[0].shape[0], live=live, err=err, work=work, wide=wide,
                 bound=threaded_bound_ms(k, rays, bvh, work),
                 bound_nc=threaded_bound_ms(k, rays, bvh, work, nc=True))
 
@@ -2354,6 +2372,7 @@ def phase_threaded(device, tex_dir: str, sf):
 
     from gatling_tpu_torch import gi
     from gatling_tpu_torch.interface import AovId, aov_bit
+    from gatling_tpu_torch.ops import bvh as bvhm
     from gatling_tpu_torch.scene.examples import interior_dynamic
 
     out, waves, launches_by = {}, {}, {}
@@ -2371,17 +2390,28 @@ def phase_threaded(device, tex_dir: str, sf):
                           time.perf_counter() - t0))
             return tree
 
+        wide_times, real_wide = [], bvhm.wide_rows
+
+        def timed_wide(arrays, _real=real_wide, _into=wide_times):
+            t0 = time.perf_counter()
+            rows = _real(arrays)
+            _into.append(time.perf_counter() - t0)
+            return rows
+
         gi.build_bvh = capture_build  # the native build and its soup, for 4n (e)
+        bvhm.wide_rows = timed_wide  # the collapse into wide rows, inside the build
         try:
             t0 = time.perf_counter()
             build = timed_accel_build(params, desc + " (first frame)")
             first = time.perf_counter() - t0
         finally:
             gi.build_bvh = real_build
+            bvhm.wide_rows = real_wide
         scene = params.scene
         log(f"{label}: {scene._geom.num_triangles} triangles (padded), the threaded BVH's "
             f"{scene._accel.bvh.num_nodes} nodes built with the reorder and the device rows in "
-            f"{build:.3f} s on the card's host; first frame {first:.3f} s")
+            f"{build:.3f} s on the card's host, of which {wide_times[0]:.3f} s the collapse into "
+            f"{scene._accel.bvh.wide.shape[0]} wide rows; first frame {first:.3f} s")
         aovs, dt, launches = timed_aov_render(params, desc + " (warm)")
         assert scene._tracer == "bvh" and scene._fused is None and scene._accel.tables is None
         assert launches["B1"] > 0 and launches["B2"] > 0, launches
@@ -2390,7 +2420,8 @@ def phase_threaded(device, tex_dir: str, sf):
         color = aovs[AovId.COLOR][..., :3]
         assert (color >= 0).all() and color.mean() > 0.01, label
         check_aovs(aovs, params, label)
-        out[label] = dict(build_s=build, first_frame_s=first, warm_frame_s=dt,
+        out[label] = dict(build_s=build, wide_s=wide_times[0], first_frame_s=first,
+                          warm_frame_s=dt,
                           triangles=scene._geom.num_triangles,
                           nodes=scene._accel.bvh.num_nodes, native_bvh=native_builds[0])
         launches_by[label] = {k: launches[k] for k in ("B1", "B2")}
@@ -2555,17 +2586,18 @@ def phase_threaded_trace(device, waves: dict, small) -> dict:
     for (k, label, bounce), r in sorted(results.items()):
         log(f"timing {k} {label} bounce {bounce} ({r['rays']} rays, {r['live']} live): kernel "
             f"{r['ms']:.4f} ms, plain twin {r['plain_ms']:.1f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}; walk work {r['work']}), at one FP32 instruction an operation "
-            f"{r['bound_nc'][0]:.4f} ms")
+            f"({r['bound'][1]}; the JAX walk's work {r['work']}), at one FP32 instruction an "
+            f"operation {r['bound_nc'][0]:.4f} ms; the kernel's own walk {r['wide']}")
     return results
 
 
 THREADED_ENTRIES = {
-    "B1": ("intersect_threaded (B1, closest hit: threaded_closest_kernel, a stackless walk of "
-           "the threaded BVH, the wavefront's tracer above 8192 triangles)",
+    "B1": ("intersect_threaded (B1, closest hit: threaded_kernel, a walk of the threaded BVH's "
+           "4-wide rows with a short stack, a warp's lanes in step, the wavefront's tracer above "
+           "8192 triangles)",
            "gatling_tpu/ops/bvh.py:202 traverse (any_hit=False; an XLA lax.while_loop, no "
            "Pallas kernel) via traverse_closest :266"),
-    "B2": ("occluded_threaded (B2, shadow rays: threaded_occluded_kernel, its any-hit walk)",
+    "B2": ("occluded_threaded (B2, shadow rays: threaded_kernel, its any-hit walk)",
            "gatling_tpu/ops/bvh.py:202 traverse (any_hit=True; an XLA lax.while_loop, no "
            "Pallas kernel) via traverse_occluded :270"),
 }
@@ -2589,6 +2621,8 @@ def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict,
         "bound_by": head["bound"][1], "library_ms": None, "on_main_path": True,
         "launches_by_frame": {label: v[kernel] for label, v in launches.items()},
         "walk_work": head["work"],
+        "wide_walk_work": head["wide"],
+        "wide_walk_work_by_case": {c: r["wide"] for c, r in cases.items()},
         "ms_by_case": {c: r["ms"] for c, r in cases.items()},
         "plain_ms_by_case": {c: r["plain_ms"] for c, r in cases.items()},
         "bound_ms_by_case": {c: r["bound"][0] for c, r in cases.items()},
@@ -2598,6 +2632,7 @@ def threaded_entry(kernel: str, times: dict, launches: dict, frames: dict,
         ("k5_ms_by_case" if kernel == "B1" else "k6_ms_by_case"): {
             c: r["k5_ms"] for c, r in cases.items() if "k5_ms" in r},
         "bvh_build_s": {label: f["build_s"] for label, f in frames.items() if "build_s" in f},
+        "wide_rows_s": {label: f["wide_s"] for label, f in frames.items() if "wide_s" in f},
         "bvh_build_native_s": {k: v["native_s"] for k, v in formats["bvh"].items()},
         "bvh_build_numpy_twin_s": {k: v["twin_s"] for k, v in formats["bvh"].items()},
     }
@@ -6319,6 +6354,7 @@ GOLDENS = ("Camera.ClippingPlanes", "Lights.Analytic", "MaterialX.ColorSpaces",
 
 # the __global__ functions of csrc/, the longest first (one name ends another)
 KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_kernel",
+                "threaded_kernel",
                 "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
                 "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
                 "bounce_kernel", "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")

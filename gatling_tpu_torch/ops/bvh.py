@@ -10,10 +10,12 @@ Four walks take one:
 * the triangle walks of K1, K3 and K4 over a resident table and of K5
   and K6 over the wavefront's soup (`TriBvh`), TRI_LEAF triangles a leaf
   (a table of at most ONE_LEAF_MAX is one leaf);
-* the stackless walks of B1 and B2, the wavefront's tracer above 8192
-  triangles (`ThreadedBvh`, at the end of this file): the JAX package's
-  threaded BVH, Morton order and median splits, unpadded boxes, built
-  as the JAX package builds it so that its walk is the JAX `traverse`.
+* the walks of B1 and B2, the wavefront's tracer above 8192 triangles
+  (`ThreadedBvh`, at the end of this file): the JAX package's threaded
+  BVH, Morton order and median splits, unpadded boxes, built as the JAX
+  package builds it so that its walk is the JAX `traverse`, and beside it
+  the same tree collapsed into WIDE-child rows (`wide_rows`), which the
+  kernels walk with a short stack.
 
 `build_tlas` makes them: a median split of the box centres along their
 longest extent (`build_forest` the same, for every cluster at once). A
@@ -343,15 +345,25 @@ class BvhArrays(NamedTuple):
     leaf_count: np.ndarray  # [N] int32: its triangles (0: an interior node)
 
 
+# B1/B2's wide rows (csrc/trace.cu): each collapses two levels of the
+# binary tree into one 128-byte row of at most WIDE children
+WIDE = 4
+WIDE_ROW = 32       # floats a wide row
+WIDE_STACK = 48     # entries of the kernels' traversal stack (trace.cu WIDE_STACK)
+
+
 class ThreadedBvh(NamedTuple):
     """A threaded BVH on a device, in the rows B1, B2 and their twins read.
     nodes [N, 8] f32, one 32-byte row a node: bbox_min xyz, bbox_max xyz,
     then two int32 words stored bit for bit: skip, and leaf_start <<
     LEAF_BITS | leaf_count. tris [T, 12] f32: the reordered soup's v0, e1,
-    e2 and three zeros a triangle (three 16-byte loads)."""
+    e2 and three zeros a triangle (three 16-byte loads). wide [W, 32] f32:
+    the same tree's wide rows (`wide_rows`), which the kernels walk; the
+    twins walk the node rows."""
 
     nodes: torch.Tensor
     tris: torch.Tensor
+    wide: torch.Tensor
 
     @property
     def num_nodes(self) -> int:
@@ -478,8 +490,68 @@ def reorder_geometry(geom, order: np.ndarray):
     return type(geom)(*[np.asarray(a)[order] for a in geom])
 
 
+def wide_rows(arrays: BvhArrays) -> np.ndarray:
+    """The threaded BVH collapsed into wide rows [W, WIDE_ROW] f32 (B1's
+    and B2's tree): wide node 0 is the binary root, and a wide node's
+    children are the binary nodes two levels below it, or a leaf
+    met on the way, in the binary preorder (the left child of interior
+    node i is i + 1, its right child skip[i + 1]); each interior child is
+    a wide node of its own. Rows in level order, one 128-byte row a node:
+    the children's bbox_min x, y, z and bbox_max x, y, z, four floats
+    each (SoA, copied unchanged from `arrays`; an empty slot NaN, so that
+    no slab test passes it), then four int32 words, -1 - its wide row for
+    an interior child and leaf_start << LEAF_BITS | leaf_count for a leaf
+    (0 for an empty slot), then four unused zero words. A binary box
+    holds its descendants' boxes exactly (each is the min/max over its
+    triangles' boxes), which is what lets the kernels test the children
+    and skip the levels between (csrc/trace.cu). No rows (the kernels
+    then walk the node rows) when the root is a leaf, when a box holds a
+    NaN (its parent's then does too, and no longer holds its sibling), or
+    when the tree is too deep for the kernels' stack."""
+    count = arrays.leaf_count
+    n = count.shape[0]
+    none = np.zeros((0, WIDE_ROW), np.float32)
+    if n < 2 or count[0] > 0 or np.isnan(arrays.bbox_min).any() \
+            or np.isnan(arrays.bbox_max).any():
+        return none
+    interior = count == 0
+    skip = np.append(arrays.skip, n).astype(np.int64)  # skip[n]: read for a last leaf, unused
+    levels, kids = [], []
+    frontier = np.zeros(1, np.int64)
+    while frontier.size:
+        left = frontier + 1  # the frontier's nodes are interior
+        right = skip[left]
+        inner_l, inner_r = interior[left], interior[right]
+        # each child's two children, or the child itself (a leaf) and an empty slot
+        a, b = np.where(inner_l, left + 1, left), np.where(inner_l, skip[left + 1], -1)
+        c, d = np.where(inner_r, right + 1, right), np.where(inner_r, skip[right + 1], -1)
+        # the children first, in preorder; the empty slots after them
+        cols = np.stack([a, np.where(inner_l, b, c), np.where(inner_l, c, d),
+                         np.where(inner_l, d, -1)], axis=1)
+        levels.append(frontier)
+        kids.append(cols)
+        frontier = cols[(cols >= 0) & interior[np.maximum(cols, 0)]]
+    if (WIDE - 1) * len(levels) > WIDE_STACK:
+        return none
+    order = np.concatenate(levels)
+    kid = np.concatenate(kids)
+    wide_id = np.full(n, -1, np.int64)
+    wide_id[order] = np.arange(order.size)
+    slot = kid >= 0
+    k = np.maximum(kid, 0)
+    box = np.concatenate([arrays.bbox_min[k], arrays.bbox_max[k]], axis=2)  # [W, WIDE, 6]
+    box[~slot] = np.nan
+    rows = np.zeros((order.size, WIDE_ROW), np.float32)
+    rows[:, :6 * WIDE] = box.transpose(0, 2, 1).reshape(order.size, 6 * WIDE)
+    words = rows.view(np.int32)
+    leaf = (arrays.leaf_start[k].astype(np.int64) << LEAF_BITS) | count[k]
+    words[:, 6 * WIDE:7 * WIDE] = np.where(slot, np.where(interior[k], -1 - wide_id[k], leaf), 0)
+    return rows
+
+
 def threaded_bvh(arrays: BvhArrays, soup, device) -> ThreadedBvh:
-    """The device rows of `arrays` over the reordered `soup`."""
+    """The device rows of `arrays` over the reordered `soup`, and its wide
+    rows."""
     n = arrays.skip.shape[0]
     if int(arrays.leaf_start.max(initial=0)) >= 1 << (31 - LEAF_BITS) \
             or int(arrays.leaf_count.max(initial=0)) >= 1 << LEAF_BITS:
@@ -493,4 +565,5 @@ def threaded_bvh(arrays: BvhArrays, soup, device) -> ThreadedBvh:
     tris = np.zeros((soup.v0.shape[0], 12), np.float32)
     tris[:, 0:3], tris[:, 3:6], tris[:, 6:9] = soup.v0, soup.e1, soup.e2
     return ThreadedBvh(nodes=torch.tensor(nodes, device=device),
-                       tris=torch.tensor(tris, device=device))
+                       tris=torch.tensor(tris, device=device),
+                       wide=torch.tensor(wide_rows(arrays), device=device))

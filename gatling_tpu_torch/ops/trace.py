@@ -35,8 +35,10 @@ twin in ops/trace_ref.py:
 * `intersect_threaded` (B1) and `occluded_threaded` (B2): the tracer of
   the wavefront above 8192 triangles (`tracer="bvh"`), the JAX package's
   threaded-BVH walk `traverse` (gatling_tpu/ops/bvh.py, an XLA loop, no
-  Pallas kernel) over a ThreadedBvh (ops/bvh.py), one thread a ray; their
-  twins repeat the JAX walk in lockstep.
+  Pallas kernel) over a ThreadedBvh (ops/bvh.py); on the card a walk of
+  its 4-wide rows, one thread a ray with a short stack, the lanes of a
+  warp in step, bit-equal to the twins, which repeat the JAX walk in
+  lockstep over its node rows.
 
 `launches` counts the kernel launches made on CUDA tensors.
 """
@@ -49,7 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gatling_tpu_torch.ops.bvh import ThreadedBvh, TriBvh, tri_bvh
+from gatling_tpu_torch.ops.bvh import WIDE_ROW, ThreadedBvh, TriBvh, tri_bvh
 from gatling_tpu_torch.ops import validate
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import real_triangles
@@ -159,10 +161,10 @@ class TraceKernel(CudaLibrary):
     def __init__(self) -> None:
         # K7/K8: o d tmin tmax, the rows, n_real n_rays; K5/K6: o d tmin
         # tmax, the TriBvh's nodes kids rows, n_rays; B1/B2: o d tmin tmax,
-        # the ThreadedBvh's nodes n_nodes tris, n_rays
+        # the ThreadedBvh's nodes n_nodes wide n_wide tris, n_rays
         tiles = [PTR, PTR, PTR, PTR, PTR, I32, I64]
         walk = [PTR, PTR, PTR, PTR, PTR, PTR, PTR, I64]
-        threaded = [PTR, PTR, PTR, PTR, PTR, I32, PTR, I64]
+        threaded = [PTR, PTR, PTR, PTR, PTR, I32, PTR, I32, PTR, I64]
         closest = [PTR, PTR, PTR, PTR, PTR]  # t tri u v stream
         occluded = [PTR, PTR]                # hit stream
         super().__init__("trace.cu", {
@@ -226,18 +228,22 @@ class TraceKernel(CudaLibrary):
 
     def launch_threaded(self, name: str, origins, dirs, tmin, tmax, bvh: ThreadedBvh,
                         outputs) -> None:
-        """B1/B2: a stackless walk of the ThreadedBvh."""
+        """B1/B2: a walk of the ThreadedBvh's wide rows (its node rows for
+        the rays the wide rows cannot take)."""
         r = self._check_rays(name, origins, dirs, tmin, tmax)
         check_tensor("trace", "threaded bvh nodes", bvh.nodes, torch.float32)
+        check_tensor("trace", "threaded bvh wide rows", bvh.wide, torch.float32)
         check_tensor("trace", "threaded bvh tris", bvh.tris, torch.float32)
         if bvh.nodes.dim() != 2 or bvh.nodes.shape[1] != 8 or bvh.tris.dim() != 2 \
-                or bvh.tris.shape[1] != 12:
+                or bvh.tris.shape[1] != 12 or bvh.wide.dim() != 2 \
+                or bvh.wide.shape[1] != WIDE_ROW:
             raise ValueError(f"trace kernel {name}: ThreadedBvh shape mismatch")
-        if bvh.nodes.data_ptr() % 16 or bvh.tris.data_ptr() % 16:
+        if bvh.nodes.data_ptr() % 16 or bvh.tris.data_ptr() % 16 or bvh.wide.data_ptr() % 16:
             raise ValueError(f"trace kernel {name}: the ThreadedBvh rows must be 16-byte aligned")
         self.call(name, origins.data_ptr(), dirs.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                  bvh.nodes.data_ptr(), bvh.num_nodes, bvh.tris.data_ptr(), r,
-                  *(o.data_ptr() for o in outputs), self.stream(origins))
+                  bvh.nodes.data_ptr(), bvh.num_nodes, bvh.wide.data_ptr(), bvh.wide.shape[0],
+                  bvh.tris.data_ptr(), r, *(o.data_ptr() for o in outputs),
+                  self.stream(origins))
 
 
 _kernel: TraceKernel | None = None

@@ -19,6 +19,9 @@ threaded BVH (ops/bvh.py ThreadedBvh), step for step, in the arithmetic
 XLA compiles it to on the CPU (its leaf test's products and sums
 contracted into fused multiply-adds, `fma_f32`; B1 and B2 take
 __fmaf_rn); `threaded_work` counts their walks' slab and triangle tests.
+The kernels walk the same tree's wide rows (ops/bvh.py wide_rows) with a
+stack; `wide_work` is a plain model of that walk, for the tests (its
+answer equals the twins' on every ray) and for the work it counts.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch
 
 from gatling_tpu_torch.interface import BARY_EPS, FLOAT_MAX
 from gatling_tpu_torch.ops.bounce_ref import bvh_walk
-from gatling_tpu_torch.ops.bvh import LEAF_BITS, LEAF_SIZE, ThreadedBvh, TriBvh
+from gatling_tpu_torch.ops.bvh import (LEAF_BITS, LEAF_SIZE, WIDE, WIDE_ROW, WIDE_STACK,
+                                       ThreadedBvh, TriBvh)
 
 TRI_TILE = 128
 RAY_CHUNK = 131072
@@ -290,8 +294,10 @@ def _leaf_tests(o, d, tri, tmin):
     """The JAX `_leaf_intersect` of rays [R] against LEAF_SIZE gathered
     triangles each (tri [R, K, 12]: v0, e1, e2), in XLA's arithmetic on
     the CPU: jnp.cross's components as fma(a1, b2, -(a2 b1)), each sum of
-    three products as fma(a2, b2, fma(a1, b1, a0 b0)). Returns (t, u, v,
-    valid over (tmin, inf)) [R, K]; the caller adds t < its segment's end."""
+    three products as fma(a2, b2, fma(a1, b1, fma(a0, b0, +0))), the
+    reduction's +0 start kept (so that products of -0 alone sum to +0).
+    Returns (t, u, v, valid over (tmin, inf)) [R, K]; the caller adds t <
+    its segment's end."""
     ox, oy, oz, dx, dy, dz = (x[:, None] for x in (*o.unbind(1), *d.unbind(1)))
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri[:, :, :9].unbind(2)
 
@@ -299,8 +305,8 @@ def _leaf_tests(o, d, tri, tmin):
         return (fma_f32(a1, b2, -(a2 * b1)), fma_f32(a2, b0, -(a0 * b2)),
                 fma_f32(a0, b1, -(a1 * b0)))
 
-    def dot(a0, a1, a2, b0, b1, b2):
-        return fma_f32(a2, b2, fma_f32(a1, b1, a0 * b0))
+    def dot(a0, a1, a2, b0, b1, b2):  # fma(a0, b0, +0): the f64 product is exact
+        return fma_f32(a2, b2, fma_f32(a1, b1, (a0.double() * b0.double() + 0.0).float()))
 
     px, py, pz = cross(dx, dy, dz, e2x, e2y, e2z)
     det = dot(px, py, pz, e1x, e1y, e1z)
@@ -405,3 +411,155 @@ def threaded_work(origins, dirs, tmin, tmax, bvh: ThreadedBvh, any_hit: bool = F
     triangle tests each ray's walk makes ([R] int64), for the bound."""
     t, tri, u, v, hit, boxes, tests = _threaded_walk(origins, dirs, tmin, tmax, bvh, any_hit)
     return (hit if any_hit else (t, tri, u, v)), boxes, tests
+
+
+def _child_slabs(o, inv_d, row):
+    """The JAX `_slab_test`'s tnear and tfar of rays [m] against the WIDE
+    children of their wide rows (row [m, WIDE_ROW]): [m, WIDE] each, an
+    empty slot's NaN."""
+    lo = row[:, 0:3 * WIDE].view(-1, 3, WIDE)
+    hi = row[:, 3 * WIDE:6 * WIDE].view(-1, 3, WIDE)
+    t0 = (lo - o[:, :, None]) * inv_d[:, :, None]
+    t1 = (hi - o[:, :, None]) * inv_d[:, :, None]
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tnear = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+    tfar = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return tnear, tfar
+
+
+def _wide_walk(origins, dirs, tmin, tmax, bvh: ThreadedBvh, any_hit: bool):
+    """B1's (B2's with `any_hit`) walk of the wide rows, as csrc/trace.cu
+    makes it for one ray, every ray in lockstep. A ray tests the root's
+    box (node row 0) over (tmin, min(tmax, best t)), then at each wide row
+    all its children's boxes; it goes on with the first child that passes
+    and stacks the others with their tnear, in preorder (the binary
+    walk's order). A leaf's triangles are tested as the twin tests them.
+    A stacked child is taken again only when its tnear is still <=
+    min(tmax, best t), the test the binary walk makes at that node with
+    the same best t (B2's cap never changes). A ray whose 1/d has a
+    non-finite component, and every ray of a tree without wide rows,
+    walks the node rows (_threaded_walk). The kernel's lanes walk in
+    step and a lane may walk a few rows past a leaf it has set aside
+    before the warp tests it (trace.cu wide_walk): those rows are not
+    counted here.
+    Returns (t, tri, u, v, hit, rows, slabs, tests, binary): the answer,
+    and per ray ([R]) the rows fetched (node or wide rows), the boxes
+    tested (all WIDE slots of a wide row, as the kernels test them, and
+    the root's box), the triangle tests and whether it walked the node
+    rows."""
+    r, dev = origins.shape[0], origins.device
+    n_tris = bvh.tris.shape[0]
+    out_t = torch.full((r,), float(FLOAT_MAX), dtype=torch.float32, device=dev)
+    out_tri = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    out_u, out_v = torch.zeros_like(out_t), torch.zeros_like(out_t)
+    out_hit = torch.zeros((r,), dtype=torch.bool, device=dev)
+    rows = torch.zeros((r,), dtype=torch.int64, device=dev)
+    slabs, tests = torch.zeros_like(rows), torch.zeros_like(rows)
+    binary = ~torch.isfinite(1.0 / dirs).all(dim=1) | (bvh.wide.shape[0] == 0)
+    if bool(binary.any()):
+        at = torch.nonzero(binary)[:, 0]
+        res = _threaded_walk(origins[at], dirs[at], tmin[at], tmax[at], bvh, any_hit)
+        out_t[at], out_tri[at], out_u[at], out_v[at], out_hit[at] = res[:5]
+        rows[at], slabs[at], tests[at] = res[5], res[5], res[6]
+    idx = torch.nonzero(~binary & (tmax > tmin))[:, 0]
+    o, d, lo, hi = origins[idx], dirs[idx], tmin[idx], tmax[idx]
+    inv_d = 1.0 / d
+    m = idx.numel()
+    best_t = torch.full_like(lo, float(FLOAT_MAX))
+    best_tri = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    best_u, best_v = torch.zeros_like(lo), torch.zeros_like(lo)
+    hit = torch.zeros((m,), dtype=torch.bool, device=dev)
+    n_rows = torch.ones((m,), dtype=torch.int64, device=dev)  # the root's node row
+    n_slabs, n_tests = n_rows.clone(), torch.zeros_like(n_rows)
+    stack_w = torch.zeros((m, WIDE_STACK), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((m, WIDE_STACK), dtype=torch.float32, device=dev)
+    sp = torch.zeros((m,), dtype=torch.int64, device=dev)
+    cur = torch.full((m,), -1, dtype=torch.int64, device=dev)  # wide row 0
+    root = bvh.nodes[:1].expand(m, 8)
+    going = _slab_threaded(o, inv_d, lo, torch.minimum(hi, best_t), root)
+    lanes = torch.arange(LEAF_SIZE, device=dev)
+    rows_i = bvh.wide.view(torch.int32)
+
+    def cap():  # B2's best t stays FLOAT_MAX
+        return torch.minimum(hi, best_t)
+
+    while m:
+        pop = torch.zeros((m,), dtype=torch.bool, device=dev)
+        inner = going & (cur < 0)
+        if bool(inner.any()):  # a wide row: every child's box, then on with the first
+            w = torch.nonzero(inner)[:, 0]
+            row = bvh.wide[-1 - cur[w]]
+            tn, tf = _child_slabs(o[w], inv_d[w], row)
+            passed = (tn <= tf) & (tf >= lo[w, None]) & (tn <= cap()[w, None])
+            n_rows[w] += 1
+            n_slabs[w] += WIDE  # every slot, an empty one's NaN box too
+            order = torch.sort((~passed).long(), dim=1, stable=True)[1]  # passing, by slot
+            words = torch.gather(rows_i[-1 - cur[w], 6 * WIDE:7 * WIDE].long(), 1, order)
+            tns = torch.gather(tn, 1, order)
+            c = passed.sum(dim=1)
+            for j in range(1, WIDE):  # the j-th passing child onto the stack, the last lowest
+                put = c > j
+                pos = sp[w] + c - 1 - j
+                stack_w[w[put], pos[put]] = words[put, j]
+                stack_t[w[put], pos[put]] = tns[put, j]
+            sp[w] += torch.clamp(c - 1, min=0)
+            cur[w] = torch.where(c > 0, words[:, 0], cur[w])
+            pop[w] = c == 0
+        leaf = going & (cur >= 0)
+        if bool(leaf.any()):  # a leaf's triangles, in index order
+            f = torch.nonzero(leaf)[:, 0]
+            start, count = cur[f] >> LEAF_BITS, cur[f] & ((1 << LEAF_BITS) - 1)
+            tri_idx = torch.clamp(start[:, None] + lanes, max=n_tris - 1)
+            in_range = lanes < count[:, None]
+            t, u, v, valid = _leaf_tests(o[f], d[f], bvh.tris[tri_idx], lo[f])
+            bt, btri, bu, bv, bh = best_t[f], best_tri[f], best_u[f], best_v[f], hit[f]
+            for k in range(LEAF_SIZE):
+                ok = valid[:, k] & in_range[:, k] & (t[:, k] < torch.minimum(hi[f], bt))
+                if any_hit:
+                    n_tests[f] += in_range[:, k] & ~bh
+                    bh = bh | ok
+                else:
+                    n_tests[f] += in_range[:, k]
+                    better = ok & (t[:, k] < bt)
+                    btri = torch.where(better, tri_idx[:, k].to(torch.int32), btri)
+                    bu = torch.where(better, u[:, k], bu)
+                    bv = torch.where(better, v[:, k], bv)
+                    bt = torch.where(better, t[:, k], bt)
+            best_t[f], best_tri[f], best_u[f], best_v[f], hit[f] = bt, btri, bu, bv, bh
+            pop[f] = True
+        while True:  # pop until a stacked child still passes its cap, or none is left
+            want = pop & going & ~hit & (sp > 0)
+            if not bool(want.any()):
+                break
+            p = torch.nonzero(want)[:, 0]
+            sp[p] -= 1
+            ok = stack_t[p, sp[p]] <= cap()[p]
+            cur[p[ok]] = stack_w[p[ok], sp[p[ok]]]
+            pop[p[ok]] = False
+        done = ~going | hit | (pop & (sp == 0))
+        if bool(done.any()):
+            at = idx[done]
+            out_t[at], out_tri[at], out_u[at], out_v[at] = (best_t[done], best_tri[done],
+                                                             best_u[done], best_v[done])
+            out_hit[at], rows[at], slabs[at], tests[at] = (hit[done], n_rows[done],
+                                                           n_slabs[done], n_tests[done])
+            keep = ~done
+            idx, o, d, inv_d, lo, hi, cur, sp, going = (
+                x[keep] for x in (idx, o, d, inv_d, lo, hi, cur, sp, going))
+            best_t, best_tri, best_u, best_v, hit = (
+                x[keep] for x in (best_t, best_tri, best_u, best_v, hit))
+            n_rows, n_slabs, n_tests, stack_w, stack_t = (
+                x[keep] for x in (n_rows, n_slabs, n_tests, stack_w, stack_t))
+            m = idx.numel()
+    return out_t, out_tri, out_u, out_v, out_hit, rows, slabs, tests, binary
+
+
+def wide_work(origins, dirs, tmin, tmax, bvh: ThreadedBvh, any_hit: bool = False):
+    """B1's (or with `any_hit` B2's) walk as the kernel makes it, over the
+    wide rows (_wide_walk): (answer, rows, slabs, tests, binary), the
+    answer ((t, tri, u, v), or the flag; the twins' on every ray) and per
+    ray [R] the rows fetched, the boxes and triangles tested, and whether
+    it walked the node rows (a non-finite 1/d component)."""
+    t, tri, u, v, hit, rows, slabs, tests, binary = _wide_walk(origins, dirs, tmin, tmax, bvh,
+                                                               any_hit)
+    return (hit if any_hit else (t, tri, u, v)), rows, slabs, tests, binary

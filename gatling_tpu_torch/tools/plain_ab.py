@@ -3,6 +3,7 @@ on one card.
 
     python gatling_tpu_torch/tools/plain_ab.py PARENT CHANGE CHANGE PARENT
     python gatling_tpu_torch/tools/plain_ab.py --only walk,frames PARENT CHANGE ...
+    python gatling_tpu_torch/tools/plain_ab.py --only threaded PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout (for example a `git archive` of a
 commit unpacked into a git-ignored directory); each runs in its own
@@ -57,6 +58,15 @@ picks some; all by default):
   warm frames of interior_nee_textured, _normalmapped, _lod2,
   cornell_textured, interior_lobes, interior_tinted and sphere_field
   (NEE off and on);
+* threaded: B1 and B2, the wavefront's tracer above 8192 triangles, on
+  the closest-hit and NEE shadow waves gi.render hands them (recorded
+  from a frame): interior_aovs (the interior at full detail, every AOV,
+  512x512, 4 spp, 6 bounces, NEE) at bounces 0 and 2, sphere_field_aovs
+  at bounce 0, and interior_aovs_small's waves (interior(detail=1), which
+  K5/K6 trace) over a threaded BVH of its soup, beside K5 and K6 on the
+  same rays; ten warm frames each of interior_aovs and sphere_field_aovs,
+  then one more under torch.profiler: the device time of its B1/B2
+  launches and of all its kernels and copies, and its idle share;
 * the ptxas registers, stack and spills of every kernel instance.
 """
 
@@ -81,7 +91,7 @@ def _chip_smoke():
     return cs
 
 
-GROUPS = ("resident", "wavefront", "probes", "walk", "frames", "k4")
+GROUPS = ("resident", "wavefront", "probes", "walk", "frames", "k4", "threaded")
 
 
 def time_tree(tree: str, groups=GROUPS) -> None:
@@ -102,7 +112,8 @@ def time_tree(tree: str, groups=GROUPS) -> None:
     cs = _chip_smoke()
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    mods = (tt,) if set(groups) <= {"wavefront", "probes"} else (tb, tt)  # what the groups run
+    mods = ((tt,) if set(groups) <= {"wavefront", "probes", "threaded"}
+            else (tb, tt))  # what the groups run
     with ThreadPoolExecutor(2) as pool:
         libs = [f.result() for f in [pool.submit(m.kernel) for m in mods]]
     print(f"{tree}: built in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -154,6 +165,8 @@ def time_tree(tree: str, groups=GROUPS) -> None:
         time_walk(cs, device, tmp.name, out, frames)
     if "k4" in groups:
         time_k4(cs, device, tmp.name, out, frames)
+    if "threaded" in groups:
+        time_threaded(cs, device, tmp.name, out, frames)
     settings = dict(spp=16, maxBounces=8)
     wavefront = "wavefront" in groups
     cases = []
@@ -299,6 +312,78 @@ def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
         shade_ref(p, fs.tris, fs.mats, fs.lights, static.light_types, state, hit_n, parbuf, prow,
                   True, fs.walk)
         state = coherent(state, fs)
+
+
+def profiled_frame(params, label: str) -> None:
+    """One more warm frame of `params` under torch.profiler: prints its
+    wall time, the device time of its B1/B2 launches (kernels named
+    threaded_*, the parent's and this tree's), of all its kernels and
+    copies, the union of those (busy), and its idle share (1 - busy /
+    wall)."""
+    import torch
+
+    from gatling_tpu_torch import gi
+
+    params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=act) as prof:
+        t0 = time.perf_counter()
+        gi.render(params)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    span = [(e.time_range.start, e.time_range.end) for e in dev]
+    mine = [b - a for (a, b), e in zip(span, dev) if "threaded_" in e.name]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(span):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    print(f"{os.getcwd()}: profiled frame {label}: wall {wall:.3f} ms, B1/B2 "
+          f"{sum(mine) / 1e3:.4f} ms in {len(mine)} launches, every kernel and copy "
+          f"{sum(b - a for a, b in span) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / 1e3 / wall:.4f}", flush=True)
+
+
+def time_threaded(cs, device, tmp: str, out: dict, frames: dict) -> None:
+    """The threaded group: B1 and B2 on interior_aovs' waves at bounces 0
+    and 2 and sphere_field_aovs' at bounce 0, with ten warm frames of each
+    and a profiled one; B1/B2 beside K5/K6 on interior_aovs_small's
+    waves."""
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bvh as bvhm
+    from gatling_tpu_torch.ops import trace as tt
+    from gatling_tpu_torch.scene.examples import sphere_field
+
+    runs = {"closest": (("B1", tt.intersect_threaded), ("K5", tt.intersect_matrix)),
+            "occluded": (("B2", tt.occluded_threaded), ("K6", tt.occluded_matrix))}
+    settings = dict(spp=cs.SF_SPP, maxBounces=cs.SF_BOUNCES, nextEventEstimation=True)
+    for label, make, bounces in (
+            ("interior_aovs", lambda: cs.interior_aovs_params(device, tmp, detail=5), (0, 2)),
+            ("sphere_field_aovs", lambda: cs.desc_params(device, sphere_field(), cs.SF_RES,
+                                                         settings, every_aov=True), (0,))):
+        params = make()
+        cs.counted_render(params, label + " (first frame)")
+        for i in range(10):
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
+        profiled_frame(params, label)
+        recorded, bvh = cs.record_waves(params, bounces), params.scene._accel.bvh
+        for kind, ((key, fn), _k) in runs.items():
+            for b, rays in sorted(recorded[kind].items()):
+                out[f"{key} {label} {b}"] = cs.event_ms(lambda r=rays, f=fn: f(*r, bvh), reps=15)
+    params = cs.interior_aovs_params(device, tmp)
+    cs.counted_render(params, "interior_aovs_small (first frame)")
+    recorded, tables, geom = cs.record_waves(params), params.scene._accel.tables, params.scene._geom
+    arrays, order = bvhm.build_bvh(geom.v0, geom.e1, geom.e2)
+    bvh = bvhm.threaded_bvh(arrays, bvhm.reorder_geometry(geom, order), device)
+    for kind, ((key, fn), (other, ofn)) in runs.items():
+        for b, rays in sorted(recorded[kind].items()):
+            out[f"{key} interior_aovs_small {b}"] = cs.event_ms(lambda r=rays, f=fn: f(*r, bvh),
+                                                                reps=15)
+            out[f"{other} interior_aovs_small {b}"] = cs.event_ms(
+                lambda r=rays, f=ofn: f(*r, tables), reps=15)
 
 
 def big_texture_interior(cs, device, tmp: str, size: int = 2048):

@@ -612,11 +612,17 @@ def test_wavefront_frame_matches_cpu(cuda):
 
 
 def _threaded_soup(name: str, tmp_path):
-    """(desc or None, soup): a random soup of 20,000 triangles, or the
-    interior at full detail (92,492 triangles and the padding)."""
+    """(desc or None, soup): a random soup of 20,000 triangles, the
+    adversarial lattice of tests/threaded_soups.py (12 cells a side,
+    11,232 triangles) or the interior at full detail (92,492 triangles
+    and the padding)."""
+    from threaded_soups import lattice_soup
+
     from gatling_tpu_torch.ops.geometry import SceneGeometry
     from gatling_tpu_torch.scene.examples import interior
 
+    if name == "lattice":
+        return None, lattice_soup(LATTICE_CELLS)
     if name == "interior":
         desc = interior(tex_dir=str(tmp_path))
         paths = sorted({m.material for m in desc.meshes if m.material})
@@ -632,17 +638,26 @@ def _threaded_soup(name: str, tmp_path):
                                zi, zi, zi, zi, zi)
 
 
+LATTICE_CELLS = 12
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("soup", ["random20000", "interior"])
+@pytest.mark.parametrize("soup", ["random20000", "interior", "lattice"])
 def test_threaded_kernels_match_twins(cuda, tmp_path, soup):
-    """B1 and B2 (the threaded-BVH walks, the wavefront's tracer above 8192
-    triangles) against their twins: on a random soup of 20,000 triangles
-    (rays from random points in random directions, every 7th with tmin >
-    0, every 5th a finite tmax, every 11th dead) and on the interior's
-    first wave at full detail (its camera's 256x256 rays, shadow rays
-    from their hits toward its lights): t, tri, u, v and the flags
-    bit-equal on every ray, one launch each."""
+    """B1 and B2 (the walks of the threaded BVH's wide rows, the
+    wavefront's tracer above 8192 triangles) against their twins: on a
+    random soup of 20,000 triangles (rays from random points in random
+    directions, every 7th with tmin > 0, every 5th a finite tmax, every
+    11th dead), on the interior's first wave at full detail (its camera's
+    256x256 rays, shadow rays from their hits toward its lights) and on
+    the adversarial lattice (tests/threaded_soups.py: ties at shared edges
+    and vertices, directions with exact zeros from origins on box faces,
+    segments that end inside a leaf; B2 on the same rays, and on shadow
+    rays from B1's hits): t, tri, u, v and the flags bit-equal on every
+    ray, one launch each; the wide walk's model (trace_ref.wide_work)
+    gives the same answers and counts the rays that walked the node rows."""
     from test_torch_bvh import _light_targets
+    from threaded_soups import lattice_rays
 
     from gatling_tpu_torch.ops import bvh as bvhm
     from gatling_tpu_torch.ops import trace as tt
@@ -652,8 +667,16 @@ def test_threaded_kernels_match_twins(cuda, tmp_path, soup):
     arrays, order = bvhm.build_bvh(geom.v0, geom.e1, geom.e2)
     reordered = bvhm.reorder_geometry(geom, order)
     bvh = bvhm.threaded_bvh(arrays, reordered, cuda)
+    assert bvh.wide.shape[0] > 0
     n = 256 * 256
-    if desc is None:
+    if soup == "lattice":
+        o, d, tmin, tmax = (torch.tensor(x, device=cuda) for x in lattice_rays(LATTICE_CELLS,
+                                                                               n, 9))
+        b2 = tt.occluded_threaded(o, d, tmin, tmax, bvh)
+        flags, _rows, _slabs, _tests, binary = trf.wide_work(o, d, tmin, tmax, bvh, True)
+        assert torch.equal(b2, trf.occluded_threaded_ref(o, d, tmin, tmax, bvh))
+        assert torch.equal(b2, flags) and int(binary.sum()) > n // 8
+    elif desc is None:
         rng = np.random.default_rng(5)
         o = torch.tensor(rng.uniform(-7, 7, (n, 3)), dtype=torch.float32, device=cuda)
         d = torch.nn.functional.normalize(torch.tensor(rng.normal(size=(n, 3)),
@@ -674,13 +697,18 @@ def test_threaded_kernels_match_twins(cuda, tmp_path, soup):
     b1 = tt.intersect_threaded(o, d, tmin, tmax, bvh)
     torch.cuda.synchronize()
     assert tt.launches["B1"] == before["B1"] + 1
-    for g, r in zip(b1, trf.intersect_threaded_ref(o, d, tmin, tmax, bvh)):
+    model = trf.wide_work(o, d, tmin, tmax, bvh)[0]
+    for g, r, m in zip(b1, trf.intersect_threaded_ref(o, d, tmin, tmax, bvh), model):
         np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
                                       r.cpu().numpy().view(np.int32))
+        assert torch.equal(m.view(torch.int32), r.view(torch.int32))
     hit = b1.tri >= 0
     assert hit.float().mean() > (0.5 if desc else 0.05) and (b1.tri[::11] == -1).all()
     pos = (o + d * torch.where(hit, b1.t, 0.0)[:, None]).contiguous()
-    if desc is None:
+    if soup == "lattice":
+        to = torch.tensor(np.random.default_rng(6).integers(0, LATTICE_CELLS + 1, (n, 3)),
+                          dtype=torch.float32, device=cuda) - pos
+    elif desc is None:
         to = torch.tensor(np.random.default_rng(6).uniform(-7, 7, (n, 3)), dtype=torch.float32,
                           device=cuda) - pos
     else:

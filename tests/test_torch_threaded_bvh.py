@@ -23,7 +23,18 @@ Inputs are made with numpy from seeds:
    FACE_ID and COLOR) against `gatling_tpu.gi.render` on the CPU, which
    takes its BVH tracer above 2,048 triangles: both walk the same tree;
    the tolerances of test_torch_wavefront.py's whole frame: ids equal on
-   99 % of pixels, COLOR within 1e-3 on 98 % and its mean within 1 %.
+   99 % of pixels, COLOR within 1e-3 on 98 % and its mean within 1 %;
+5. the wide rows B1 and B2 walk (ops/bvh.py wide_rows) on the three soups
+   and on the adversarial lattice of tests/threaded_soups.py, against a
+   collapse of the binary tree written out here: every child's box a
+   binary node's, bit for bit, inside its parent's, the leaves in the
+   binary preorder, each triangle once; no rows where the walk could not
+   take them;
+6. the model of the kernels' walk of the wide rows (trace_ref.wide_work)
+   against `traverse_closest` / `traverse_occluded` and the twins on the
+   same rays, and on the lattice's adversarial rays: t, tri, u, v and the
+   flags bit-equal to the twins and to the JAX walk on every ray (a zero
+   u or v's sign included).
 """
 
 import jax.numpy as jnp
@@ -51,6 +62,7 @@ from gatling_tpu_torch.utils import config
 
 from test_torch_bounce import CORNELL, rect_light
 from test_torch_bvh import one_thread  # noqa: F401 (an autouse fixture)
+from threaded_soups import lattice_rays, lattice_soup
 
 N_RAYS = 4096
 
@@ -83,6 +95,8 @@ def _grid_mesh(pkg, n: int):
 def _soup(name: str) -> SceneGeometry:
     if name == "random3000":
         return _random_soup()
+    if name == "lattice":
+        return lattice_soup(LATTICE_CELLS)
     if name == "cornell":
         desc = load_scene(CORNELL)
         paths = sorted({m.material for m in desc.meshes if m.material})
@@ -93,6 +107,7 @@ def _soup(name: str) -> SceneGeometry:
 
 
 SOUPS = ("random3000", "cornell", "grid8450")
+LATTICE_CELLS = 8  # tests/threaded_soups.py lattice_soup: 3,456 triangles
 
 
 def _rays(geom: SceneGeometry, seed: int):
@@ -274,3 +289,117 @@ def test_fma_f32_rounds_once():
     np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
     naive = (a.astype(np.float64) * b + c).astype(np.float32)
     assert (naive[-3:].view(np.int32) != ref[-3:].view(np.int32)).any()  # the case is real
+
+
+def _collapse(arrays):
+    """The wide tree of `arrays` by recursion: [(binary node, [its
+    children's binary nodes])] in level order."""
+    interior = arrays.leaf_count == 0
+
+    def below(i, levels):
+        if levels == 0 or not interior[i]:
+            return [i]
+        return below(i + 1, levels - 1) + below(int(arrays.skip[i + 1]), levels - 1)
+
+    out, queue = [], [0]
+    while queue:
+        i = queue.pop(0)
+        kids = below(i, 2)  # two binary levels a row
+        out.append((i, kids))
+        queue += [k for k in kids if interior[k]]
+    return out
+
+
+@pytest.mark.parametrize("name", SOUPS + ("lattice",))
+def test_wide_rows_collapse_the_tree(name):
+    _geom, arrays, _order, _reordered, bvh = _built(name)
+    rows = bvh.wide.numpy()
+    words = rows.view(np.int32)
+    expect = _collapse(arrays)
+    assert rows.shape == (len(expect), tbvh.WIDE_ROW)
+    wide_of = {i: k for k, (i, _kids) in enumerate(expect)}
+    w = tbvh.WIDE
+    for k, (i, kids) in enumerate(expect):
+        assert 2 <= len(kids) <= w and (words[k, 7 * w:] == 0).all()
+        for j in range(w):
+            box = rows[k, j::w][:6]  # lo x, y, z, hi x, y, z of slot j
+            if j >= len(kids):
+                assert np.isnan(box).all() and words[k, 6 * w + j] == 0
+                continue
+            c = kids[j]
+            # the child's box is the binary node's, bit for bit
+            np.testing.assert_array_equal(box.view(np.int32), np.concatenate(
+                [arrays.bbox_min[c], arrays.bbox_max[c]]).astype(np.float32).view(np.int32))
+            # ... inside its parent's (the box of binary node i)
+            assert (box[:3] >= arrays.bbox_min[i]).all() and (box[3:] <= arrays.bbox_max[i]).all()
+            if arrays.leaf_count[c] == 0:
+                assert words[k, 6 * w + j] == -1 - wide_of[c]
+            else:
+                assert words[k, 6 * w + j] == (arrays.leaf_start[c] << tbvh.LEAF_BITS
+                                               | arrays.leaf_count[c])
+    # a depth-first walk of the wide rows in slot order meets the leaves
+    # in the binary preorder, and they hold each triangle once
+    order, stack = [], [-1]
+    while stack:
+        word = stack.pop()
+        if word < 0:
+            k = -1 - word
+            stack += [int(x) for x in reversed(words[k, 6 * w:7 * w]) if x != 0]
+        else:
+            order.append(word)
+    binary = [int(arrays.leaf_start[i]) << tbvh.LEAF_BITS | int(arrays.leaf_count[i])
+              for i in range(arrays.skip.shape[0]) if arrays.leaf_count[i] > 0]
+    assert order == binary
+    covered = np.concatenate([np.arange(x >> tbvh.LEAF_BITS, (x >> tbvh.LEAF_BITS)
+                                        + (x & ((1 << tbvh.LEAF_BITS) - 1))) for x in order])
+    np.testing.assert_array_equal(covered, np.arange(bvh.tris.shape[0]))
+
+
+def test_wide_rows_only_where_the_walk_holds():
+    """No wide rows (the kernels then walk the node rows) for a tree whose
+    root is a leaf or whose boxes hold a NaN (a parent's box then no
+    longer holds its children's)."""
+    soup = _random_soup(40)
+    arrays, _order = tbvh.build_bvh(soup.v0, soup.e1, soup.e2)
+    assert tbvh.wide_rows(arrays).shape == (5, tbvh.WIDE_ROW)  # 40 triangles: the root, 4 of 10
+    lo = arrays.bbox_min.copy()
+    lo[9, 1] = np.nan
+    assert tbvh.wide_rows(arrays._replace(bbox_min=lo)).shape == (0, tbvh.WIDE_ROW)
+    arrays, _order = tbvh.build_bvh(soup.v0[:3], soup.e1[:3], soup.e2[:3])
+    assert arrays.leaf_count[0] == 3 and tbvh.wide_rows(arrays).shape == (0, tbvh.WIDE_ROW)
+
+
+@pytest.mark.parametrize("name", SOUPS + ("lattice",))
+def test_wide_walk_matches_traverse(name):
+    _geom, arrays, _order, reordered, bvh = _built(name)
+    rays = (lattice_rays(LATTICE_CELLS, N_RAYS, 1) if name == "lattice"
+            else _rays(reordered, seed=len(name)))
+    tr = [torch.as_tensor(x) for x in rays]
+    got, rows, slabs, tests, binary = trf.wide_work(*tr, bvh)
+    flags, orows, oslabs, otests, _binary = trf.wide_work(*tr, bvh, any_hit=True)
+    twin = trf.intersect_threaded_ref(*tr, bvh)
+    for g, r in zip(got, twin):
+        assert torch.equal(g.view(torch.int32), r.view(torch.int32))
+    assert torch.equal(flags, trf.occluded_threaded_ref(*tr, bvh))
+    jarrays = jbvh.BvhArrays(*(jnp.asarray(x) for x in arrays))
+    jrays = [jnp.asarray(x) for x in rays]
+    ref = jbvh.traverse_closest(*jrays, jarrays, _jax_geom(reordered))
+    jocc = np.asarray(jbvh.traverse_occluded(*jrays, jarrays, _jax_geom(reordered)))
+    np.testing.assert_array_equal(flags.numpy(), jocc)
+    for g, r in ((got[0], ref.t), (got[1], ref.tri), (got[2], ref.u), (got[3], ref.v)):
+        np.testing.assert_array_equal(g.numpy().view(np.int32), np.asarray(r).view(np.int32))
+    live = rays[3] > rays[2]
+    hits = got[1].numpy() >= 0
+    print(f"{name}: {hits.sum()} hits, {jocc.sum()} occluded; {int(binary.sum())} rays on the "
+          f"node rows; a live ray: {rows.float()[live].mean():.2f} rows, "
+          f"{slabs.float()[live].mean():.2f} boxes, {tests.float()[live].mean():.2f} "
+          f"triangles (B2: {orows.float()[live].mean():.2f}, {oslabs.float()[live].mean():.2f}, "
+          f"{otests.float()[live].mean():.2f})")
+    assert hits.mean() > 0.05 and jocc.mean() > 0.05
+    assert (rows[~live] == 0).all() and (rows[live] >= 1).all() and (slabs >= rows).all()
+    # both test the triangles the JAX walk tests, in its order
+    _hit, boxes, btests = trf.threaded_work(*tr, bvh)
+    _flags, oboxes, obtests = trf.threaded_work(*tr, bvh, any_hit=True)
+    assert torch.equal(tests, btests) and (rows <= boxes).all()
+    assert torch.equal(otests, obtests) and (orows <= oboxes).all()
+    assert bool(binary.any()) == (name == "lattice")
