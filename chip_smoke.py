@@ -9,7 +9,8 @@ fails, with a non-zero exit, if any phase fails:
 1. device: a CUDA card must be present (there is no CPU path);
 2. build: the kernels K1 (resident bounce), K2 (two-level walk bounce),
    K3 (split trace) and K4 (split shade, with its own texture taps; its
-   taps alone K4t; both also in FLT instances over a float texel pool) are
+   taps alone K4t; a textured-cutout re-trace round K4r; all three also in
+   FLT instances over a float texel pool) are
    built from gatling_tpu_torch/csrc/bounce.cu (in fifteen nvcc parts), K5-K8 and
    B1/B2 (the wavefront's trace) from csrc/trace.cu and the probes P1/P2 from
    csrc/probes.cu, every nvcc run at once, and with them the native host
@@ -173,19 +174,24 @@ fails, with a non-zero exit, if any phase fails:
 4j. the textured cutout on the fused route: the interior with its bowls'
    opacity a checker mask written at run time (and emitting, so that the
    frame without NEE is lit), 512x512, 4 spp, 6 bounces, NEE off and on: K3
-   four times a split bounce (the trace and three re-trace rounds), K4's
-   taps three times, K4 once; the first wave's pass rate through the mask
+   four times a split bounce (the trace and three re-trace rounds), K4r
+   (a re-trace round: the draw against the opacity tapped at the hit, the
+   origin past the surface, the masked alive row) three times, K4 once,
+   K4t never; the first wave's pass rate through the mask
    0.5 +- 0.01; interior(detail=1)'s NEE-off frame against the wavefront's
    (which taps the opacity at every hit), means as in 4i, held at 24 and
    48 bounces (CUTOUT_MEAN_PAIRS; the 6-bounce pairs, at the re-trace's 4
    rounds and at 16, logged: the wavefront spends a bounce on each pass
    through the mask);
-3g. then tap_rows on the waves of 4h and 4j against tap_rows_ref, every
-   row (the opacity's included) bit-equal on every hit ray; K3 and K4 on
-   4i's clipped peel waves against their twins as 3c holds them; K3 on
-   4j's masked re-trace waves; each timed, with its bound (tap_rows: the
-   hit rows its outputs depend on, the distinct texels touched, 12 rows
-   written);
+3g. then tap_rows on 4h's peel waves against tap_rows_ref, its 7 rows
+   bit-equal on every hit ray; retrace_round (K4r) on 4j's re-trace waves
+   against retrace_round_ref, state rows 0-2, the masked rows 0-2 and 13
+   and the reject count bit-equal on every ray; K3 and K4 on 4i's clipped
+   peel waves against their twins as 3c holds them; K3 on 4j's masked
+   re-trace waves; each timed, with its bound (tap_rows: the hit rows its
+   rows need, the distinct texels touched, its 7 rows written, beside the
+   12-row figure of the kernel before; retrace_round: the rows each ray
+   reads and writes by what it turns out to be);
 4k. dome lights and float texel pools through gi.render, a first and a
    warm frame each with their launches: cornell_dome (the Cornell box,
    open towards -y, under a 2048x1024 half EXR sky written at run time by
@@ -200,18 +206,20 @@ fails, with a non-zero exit, if any phase fails:
    wavefront's K5/K6 and the dome on the miss; the fused NEE frame's mean
    against it within MEAN_SIGMAS), interior_hdr_textured (the interior
    with its floor a 2048x2048 EXR reaching 4: the whole pool float; K3 and
-   K4's FLT instance, no texture stage) and interior_hdr_first_hit (its
-   first-hit AOVs: K4t's FLT instance); the dome pass (render/fused.py
+   K4's FLT instance, no texture stage), interior_hdr_first_hit (its
+   first-hit AOVs: K4t's FLT instance) and interior_hdr_cutout (4j's
+   checker-masked bowls over that float pool: K4r's FLT instance, K4rf);
+   the dome pass (render/fused.py
    dome_pass) on the card against its CPU run on three frames' final
    states, 99.9 % of rays within 1e-4, with its device time;
 3h. then K3 and K4's FLT instances against their twins on 4k's recorded
    waves (interior_hdr_textured on gi's instanced tables, and a Cornell
    box with an EXR checker on every base colour on resident ones; bounces
    0 and 2): rows 12-15, H_HIT and H_MAT bit-equal on every ray; K4t's
-   FLT instance on interior_hdr_first_hit's peel wave, and with
-   TAP_OPACITY over the float floor texture, bit-equal to tap_rows_ref on
-   every hit ray; each timed with its bound (16 bytes a distinct float
-   texel);
+   FLT instance on interior_hdr_first_hit's peel wave bit-equal to
+   tap_rows_ref on every hit ray; K4rf on interior_hdr_cutout's re-trace
+   waves bit-equal to retrace_round_ref as 3g holds K4r; each timed with
+   its bound (16 bytes a distinct float texel);
 4m. USD content (phase_content): 16 skinned figures (6,144 triangles
    each; 24-joint chains, 4 influences a vertex, animations sampled at
    frames 1-24, a blend shape) on a textured ground, MaterialX nodes
@@ -407,14 +415,16 @@ P. the probes P1 (the six layout moves in one launch, a block a move,
 
 Each kernel's launches are counted over one frame of its path through
 gi.render (K1: the Cornell frame; K2: sphere_field's, NEE off; K3 and K4:
-the interior's; K4t, K4's taps alone: cornell_first_hit's; K5 and K6:
+the interior's; K4t, K4's taps alone: cornell_first_hit's; K4r, the
+re-trace round: interior_cutout's (NEE off); K5 and K6:
 cornell_aovs'; the branches: 4f's and 4g's frames; 4h-4j's, 4m's, 4n's,
 4p's, 4q's, 4r's, 4s's, 4t's and 4v's frames beside K3's, K4's, K4t's and K4f's entries; 4u's CLI
 frame beside K1's; B1 and B2: interior_aovs', with
 sphere_field_aovs' and interior_dynamic's beside; P1/P2: the probes'
 run), the counts set to
-0 just before it and read just after (K4f and K4tf, the FLT instances:
-interior_hdr_textured's and interior_hdr_first_hit's frames). K7 and K8 are on no path (the JAX package's comparison point)
+0 just before it and read just after (K4f, K4tf and K4rf, the FLT
+instances: interior_hdr_textured's, interior_hdr_first_hit's and
+interior_hdr_cutout's frames). K7 and K8 are on no path (the JAX package's comparison point)
 and count 0. The last lines are the card's name and power limit, one JSON
 line with the kernels' launch counts, errors, times and bounds, and
 {"ok": true, "device": {...}}.
@@ -1265,7 +1275,7 @@ def tap_texel_rows(mats, pool, hit, textured: int):
     """The distinct texel rows the taps of one K4 launch on hit buffer
     `hit` read: for each hit ray and each tapped parameter (render/fused.py
     textured bits, ops/bounce.py TAP_BITS) and the normal map whose
-    material binds a slot (and tap_rows' opacity with TAP_OPACITY), the
+    material binds a slot (and the re-trace's opacity with TAP_OPACITY), the
     texels_q22 row of its bilinear tap, or the texels_u32 entries (a float
     pool's `texels` rows, 16 bytes each) of its four texels that the wrap
     keeps, indexed as render/texture.py sample_pool indexes them. Returns
@@ -1605,8 +1615,8 @@ def phase_interior(device, tex_dir: str, extra: dict):
     split_launches = {k: launches[k] for k in ("K3", "K4")}
     scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
     img, _dt, out["interior"], launches = counted_render(params, label + " (warm)")
-    assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K4f=0, K4tf=0, K5=0, K6=0, K7=0,
-                            K8=0, B1=0, B2=0), launches
+    assert launches == dict(split_launches, K1=0, K2=0, K4t=0, K4r=0, K4f=0, K4tf=0, K4rf=0,
+                            K5=0, K6=0, K7=0, K8=0, B1=0, B2=0), launches
     # K4 taps the textures itself: no texture stage between K3 and K4
     assert split_ref.stage_calls == 0, split_ref.stage_calls
     out["interior_texture_stage_calls"] = split_ref.stage_calls
@@ -3708,10 +3718,11 @@ def mean_gap(fused, wave, label, held: bool = True) -> dict:
 class KernelCalls:
     """Keeps copies of the inputs of the first `limit` calls render/fused.py
     makes of its kernel entry points `names` (by default trace_step,
-    tap_rows and shade_step: K3, K4t, K4; or its dome_pass) inside the
-    `with` block: [(name, args)] in call order."""
+    tap_rows, retrace_round and shade_step: K3, K4t, K4r, K4; or its
+    dome_pass) inside the `with` block: [(name, args)] in call order."""
 
-    def __init__(self, limit: int, names=("trace_step", "tap_rows", "shade_step")) -> None:
+    def __init__(self, limit: int,
+                 names=("trace_step", "tap_rows", "retrace_round", "shade_step")) -> None:
         self.limit, self.calls, self.names = limit, [], names
 
     def __enter__(self):
@@ -3873,70 +3884,41 @@ def phase_clipping(device):
     return frames, launches, waves
 
 
-def checker_mask(path: str, size: int = 64, square: int = 4) -> str:
-    """A checker of alpha 0 and 255 in squares of `square` texels (white
-    RGB), written with the port's PNG writer."""
-    import numpy as np
-
-    from gatling_tpu_torch import imgio
-
-    c = (np.arange(size)[:, None] // square + np.arange(size)[None, :] // square) % 2
-    img = np.full((size, size, 4), 255, np.uint8)
-    img[..., 3] = np.where(c, 255, 0)
-    imgio.write_image_file(path, img)
-    return path
-
-
-def cutout_interior(tex_dir: str, detail: int = 5):
-    """The interior with its instanced bowls' opacity the checker mask's
-    alpha at opacityThreshold 0.5 (a leaf- or fence-like cutout). The
-    bowls also emit (1, 1, 1): the interior's lights reach the camera only
-    through NEE, so without NEE the frame is lit by the bowls alone, and
-    what it shows depends on the mask."""
-    from gatling_tpu_torch.scene.examples import interior
-    from gatling_tpu_torch.scene.stage import ShaderNode
-
-    desc = interior(detail=detail, tex_dir=tex_dir)
-    bowl = surface_variant(desc.materials["/m_bowl"], opacityThreshold=0.5,
-                           emissiveColor=(1.0, 1.0, 1.0))
-    node = ShaderNode(path="/m_bowl/mask", shader_id="UsdUVTexture",
-                      inputs={"file": checker_mask(os.path.join(tex_dir, "mask.png")),
-                              "sourceColorSpace": "raw"}, input_connections={})
-    bowl.nodes[node.path] = node
-    bowl.nodes[bowl.surface_node].input_connections["opacity"] = (node.path, "a")
-    desc.materials["/m_bowl"] = bowl
-    return desc
-
-
 def first_wave_pass_rate(calls, bowl: int):
-    """On the first wave of a frame recorded by KernelCalls (its first K3
-    state and the first round's taps of that hit buffer): the share of
-    the alive rays whose hit is a bowl (material `bowl`) that the
-    re-trace's first draw lets through the mask, their count, and the mean
-    of their pass probabilities."""
-    from gatling_tpu_torch.ops import bounce as tb
-    from gatling_tpu_torch.ops.sampling import f32_bits_to_u32
-    from gatling_tpu_torch.ops.split_ref import H_HIT
-    from gatling_tpu_torch.render import bsdf
-    from gatling_tpu_torch.render.fused import _hit_materials, _tapped_params, retrace_draws
+    """On the first wave of a frame recorded by KernelCalls (the state and
+    hit buffer of its first re-trace round): the share of the alive rays
+    whose hit is a bowl (material `bowl`) that the re-trace's first draw
+    lets through the mask (the rays retrace_round_ref rejects), their
+    count, and the mean of their pass probabilities."""
+    import torch
 
-    _p, _fs, state = calls.of("trace_step")[0]
-    hit, mats, pool, active = calls.of("tap_rows")[0]
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import H_HIT, H_UVX, H_UVY
+    from gatling_tpu_torch.render import bsdf
+    from gatling_tpu_torch.render.fused import _hit_materials
+    from gatling_tpu_torch.render.material import apply_textures, gather_params
+
+    state, masked, hit, mats, pool, active, rnd = calls.of("retrace_round")[0]
+    assert rnd == 0
+    st, mk = state.clone(), masked.clone()
+    tb.retrace_round_ref(st, mk, hit, mats, pool, active, rnd)
     mat = _hit_materials(hit, mats)
-    pass_prob = bsdf.cutout_opacity(_tapped_params(mats, mat, tb.tap_rows(hit, mats, pool,
-                                                                          active)))
     on = (state[13] > 0.5) & (hit[H_HIT] > 0.5) & (mat == bowl)
-    passed = on & (retrace_draws(f32_bits_to_u32(state[12]), 0) >= pass_prob)
+    passed = on & (mk[13] > 0.5)
+    uv = torch.stack([hit[H_UVX], hit[H_UVY]], dim=-1)
+    opacity = apply_textures(mats, pool, gather_params(mats, mat), mat, uv, ("opacity",))
     n = int(on.sum())
-    return float(passed.sum()) / max(n, 1), n, float((1.0 - pass_prob)[on].mean())
+    return (float(passed.sum()) / max(n, 1), n,
+            float((1.0 - bsdf.cutout_opacity(opacity))[on].mean()))
 
 
 def phase_textured_cutout(device, tex_dir: str):
-    """Phase 4j: the textured cutout on the fused route: cutout_interior
-    (the bowls' opacity a checker mask) at the bench's 512x512, 4 spp, 6
+    """Phase 4j: the textured cutout on the fused route: interior_cutout
+    (scene/examples.py: the bowls' opacity a checker mask, the bowls
+    emitting) at the bench's 512x512, 4 spp, 6
     bounces, NEE off and on, a first and a warm frame each: every split
-    bounce K3, then three re-trace rounds (K4's taps of the opacity, K3 on
-    the rejected rays), then K4; the NEE shadow walk draws against the
+    bounce K3, then three re-trace rounds (K4r, K3 on the rejected rays),
+    then K4; the NEE shadow walk draws against the
     mask's mean pass rate (gi.shadow_cutout_pass). The first wave's pass
     rate through the mask, and interior(detail=1)'s NEE-off frame against
     the wavefront's (which taps the opacity at every hit) of the same
@@ -3944,7 +3926,9 @@ def phase_textured_cutout(device, tex_dir: str):
     Returns (frames, launches, KernelCalls of the NEE-off frame)."""
     import numpy as np
 
-    desc = cutout_interior(tex_dir)
+    from gatling_tpu_torch.scene.examples import interior_cutout
+
+    desc = interior_cutout(tex_dir=tex_dir)
     frames, launches, recorded = {}, {}, None
     for nee in (False, True):
         label = f"interior_cutout nee={nee}"
@@ -3952,13 +3936,13 @@ def phase_textured_cutout(device, tex_dir: str):
             desc, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=nee))
         bufs, frames[label], launches[label], calls = frame_pair(
             params, f"{label} {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces",
-            {"K3", "K4", "K4t"}, record=8)
+            {"K3", "K4", "K4r"}, record=8)
         scene = params.scene
         st = scene._fused_static
         assert st.instanced and st.textured and st.cutout_textured and scene._fused.cutout, st
         n = launches[label]
-        # a split bounce: one K3, TEX_CUTOUT_ROUNDS - 1 rounds of taps and K3, one K4
-        assert n["K3"] == 4 * n["K4"] and n["K4t"] == 3 * n["K4"] and n["K3"] > SF_BOUNCES, n
+        # a split bounce: one K3, TEX_CUTOUT_ROUNDS - 1 rounds of K4r and K3, one K4
+        assert n["K3"] == 4 * n["K4"] and n["K4r"] == 3 * n["K4"] and n["K3"] > SF_BOUNCES, n
         img = bufs["COLOR"][..., :3]
         assert np.isfinite(img).all() and (img >= 0).all() and img.mean() > 0.01, label
         if not nee:
@@ -3974,7 +3958,7 @@ def phase_textured_cutout(device, tex_dir: str):
 
     from gatling_tpu_torch.render import fused
 
-    small = cutout_interior(tex_dir, detail=1)
+    small = interior_cutout(detail=1, tex_dir=tex_dir)
     for bounces, rounds in CUTOUT_MEAN_PAIRS:
         out = {}
         for route in ("fused", "wavefront"):
@@ -3999,56 +3983,126 @@ def phase_textured_cutout(device, tex_dir: str):
 
 def tap_bound_ms(hit, mats, pool, active):
     """The least time of one tap_rows launch (HBM bytes; it does no walk):
-    the hit rows its 12 output rows depend on (H_HIT, H_MAT and the 3 of
-    H_N; the 2 uv rows when it taps; H_TAN and H_BS when it normal-maps:
-    read_hit loads 13 rows, but H_POS, H_GN, H_FRONT and H_DS feed none of
-    tap_kernel's outputs), the distinct texel rows its taps touch
-    (tap_texel_rows), its 12 rows written, the tables read once (the
-    material rows and slot columns, the slot records, the sRGB table).
-    Returns ((ms, what bounds it), distinct texel rows)."""
+    H_HIT of every ray; of the hit rays H_MAT, the 3 normal rows, the 2 uv
+    rows when it taps, H_TAN and H_BS when it normal-maps, and its 7 rows
+    written; the distinct texel rows its taps touch (tap_texel_rows); the
+    tables read once (the material rows and slot columns, the slot
+    records, the sRGB table). Beside it the figure before the redesign
+    (PERF.md's Q7): every ray's 5 hit rows (+2 uv when it taps, +4 tangent
+    when it normal-maps) read and 12 rows written, all the textured
+    parameters tapped. Returns ((ms, what bounds it), (Q7's ms, what
+    bounds it), distinct texel rows)."""
     from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import H_HIT
 
     textured = sum(bit for name, bit in tb.TAP_BITS.items() if name in active)
-    textured |= tb.TAP_OPACITY if "opacity" in active else 0
-    mask = tb.tap_mask(textured, hit.shape[0], pool)
-    texels, row_bytes = tap_texel_rows(mats, pool, hit, textured)
-    hit_rows = 5 + (2 if mask else 0) + (4 if mask & tb.TAP_NORMAL else 0)
-    tables = mats.packed_f.numel() + mats.packed_i.numel() + 14 * pool.count + 256
-    nbytes = 4 * hit.shape[1] * (hit_rows + tb.TAP_ROWS) + texels.numel() * row_bytes + 4 * tables
-    return _bound(nbytes, 0), texels.numel()
+    tables = 4 * (mats.packed_f.numel() + mats.packed_i.numel() + 14 * pool.count + 256)
+    n = hit.shape[1]
+    every = textured | (tb.TAP_OPACITY if "opacity" in active else 0)
+    old_mask = tb.tap_mask(every, hit.shape[0], pool)
+    texels, row_bytes = tap_texel_rows(mats, pool, hit, every)
+    old_rows = 5 + (2 if old_mask else 0) + (4 if old_mask & tb.TAP_NORMAL else 0)
+    q7 = _bound(4 * n * (old_rows + 12) + texels.numel() * row_bytes + tables, 0)
+    mask = tb.tap_mask(textured & tb.TAP_PEEL, hit.shape[0], pool)
+    texels, row_bytes = tap_texel_rows(mats, pool, hit, textured & tb.TAP_PEEL)
+    hit_rays = int((hit[H_HIT] > 0.5).sum())
+    read = 1 + 3 + (2 if mask & ~tb.TAP_FLOAT else 0) + (4 if mask & tb.TAP_NORMAL else 0)
+    nbytes = 4 * n + 4 * hit_rays * (read + tb.TAP_ROWS) + texels.numel() * row_bytes + tables
+    return _bound(nbytes, 0), q7, texels.numel()
 
 
-def phase_taps(device, tap_waves, clip_waves, cutout_calls):
+def retrace_bound_ms(state, hit, mats, pool, active, rejected: int):
+    """The least time of one retrace_round launch (HBM bytes): state row 13
+    read and masked row 13 written on every ray; H_HIT of the alive; H_MAT
+    of the alive hits; of the candidates (their material binds an opacity
+    slot) the PCG row, the 2 uv rows when it taps, and the distinct texel
+    rows of their taps; of the rejected H_POS and H_GN read and state and
+    masked rows 0-2 written (`rejected` of them); the tables read once.
+    Returns ((ms, what bounds it), {ray counts})."""
+    import torch
+
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.ops.split_ref import H_HIT, HIT_ROWS
+    from gatling_tpu_torch.render.fused import _hit_materials
+    from gatling_tpu_torch.render.material import MI_OPACITY_TEX
+
+    alive = state[13] > 0.5
+    ah = alive & (hit[H_HIT] > 0.5)
+    cand = ah & (mats.packed_i[_hit_materials(hit, mats), MI_OPACITY_TEX] >= 0)
+    textured = tb.TAP_OPACITY if "opacity" in active else 0
+    mask = tb.tap_mask(textured, HIT_ROWS, pool)
+    tapped = hit[:HIT_ROWS].clone()
+    tapped[H_HIT] = torch.where(cand, tapped[H_HIT], 0.0)
+    texels, row_bytes = tap_texel_rows(mats, pool, tapped, textured)
+    n, c = state.shape[1], int(cand.sum())
+    tables = 4 * (mats.packed_f.numel() + mats.packed_i.numel() + 14 * pool.count + 256)
+    nbytes = (8 * n + 4 * int(alive.sum()) + 4 * int(ah.sum())
+              + 4 * c * (1 + (2 if mask & tb.TAP_OPACITY else 0))
+              + texels.numel() * row_bytes + 48 * rejected + tables)
+    return _bound(nbytes, 0), dict(rays=n, alive=int(alive.sum()), alive_hits=int(ah.sum()),
+                                   candidates=c, distinct_texel_rows=texels.numel())
+
+
+def phase_taps(device, tap_waves, clip_waves, k3_states, rounds):
     """Phase 3g: the kernels of 4h-4j on the waves those frames handed
     them. K4's taps alone (tap_rows) against tap_rows_ref on 4h's peel
-    waves and 4j's re-trace waves, every row (the opacity's included)
-    bit-equal on every hit ray; K3 and K4 on 4i's clipped peel waves
-    against their twins (H_HIT, H_MAT and state rows 12-15 bit-equal on
-    every ray, the other rows within tolerance on 99.9 %), as 3c holds
-    them; K3 on 4j's masked re-trace waves against its twin. Each timed
-    (CUDA events, medians) beside its twin, with its bound. Returns
-    {wave: numbers}."""
+    waves, every row bit-equal on every hit ray; K4r (retrace_round) against
+    retrace_round_ref on 4j's re-trace rounds `rounds`, every row of the
+    state, masked rows 0-2 and 13 and the reject count bit-equal on every
+    ray; K3 and K4 on 4i's clipped peel waves against their twins (H_HIT,
+    H_MAT and state rows 12-15 bit-equal on every ray, the other rows
+    within tolerance on 99.9 %), as 3c holds them; K3 on 4j's masked
+    re-trace states `k3_states` against its twin. Each timed (CUDA events,
+    medians: one call with its enqueue; K4t and K4r also as device time
+    behind a sleep, device_ms)
+    beside its twin, with its bound. Returns ({wave: numbers}, errors)."""
     import torch
 
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops.split_ref import H_HIT, trace_ref
 
-    out, errs = {}, dict(taps=0.0, k3=0.0, k4=0.0)
+    out, errs = {}, dict(taps=0.0, k3=0.0, k4=0.0, rounds=0.0)
     for label, (hit, mats, pool, active) in tap_waves:
         got, want = tb.tap_rows(hit, mats, pool, active), tb.tap_rows_ref(hit, mats, pool, active)
         torch.cuda.synchronize()
         on = hit[H_HIT] > 0.5
-        bad = int((got.view(torch.int32) != want.view(torch.int32))[:, on].any(dim=0).sum())
-        err = float((got - want)[:, on].abs().max()) if bool(on.any()) else 0.0
-        bound, texels = tap_bound_ms(hit, mats, pool, active)
+        got, want = got[:, on], want[:, on]
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).any(dim=0).sum())
+        err = float((got - want).abs().max()) if bool(on.any()) else 0.0
+        bound, q7, texels = tap_bound_ms(hit, mats, pool, active)
         out[label] = dict(rays=hit.shape[1], hit_rays=int(on.sum()), not_bit_equal=bad,
                           ms=event_ms(lambda: tb.tap_rows(hit, mats, pool, active)),
+                          device_ms=device_ms(lambda: tb.tap_rows(hit, mats, pool, active)),
                           plain_ms=event_ms(lambda: tb.tap_rows_ref(hit, mats, pool, active)),
-                          bound=bound, distinct_texel_rows=texels,
-                          opacity="opacity" in active)
+                          bound=bound, bound_q7_12_rows=q7, distinct_texel_rows=texels)
         log(f"taps {label}: {out[label]}")
         assert bad == 0, (label, bad)
         errs["taps"] = max(errs["taps"], err)
+    for label, (state, masked, hit, mats, pool, active, rnd) in rounds:
+        st, mk = state.clone(), masked.clone()
+        tb.retrace_round(st, mk, hit, mats, pool, active, rnd)
+        st2, mk2 = state.clone(), masked.clone()
+        tb.retrace_round_ref(st2, mk2, hit, mats, pool, active, rnd)
+        torch.cuda.synchronize()
+        rows = list(range(3)) + [13]
+        bad = int(((st.view(torch.int32) != st2.view(torch.int32)).any(dim=0)
+                   | (mk[rows].view(torch.int32) != mk2[rows].view(torch.int32)).any(dim=0))
+                  .sum())
+        rejected, rejected_twin = int((mk[13] > 0.5).sum()), int((mk2[13] > 0.5).sum())
+        err = float(max((st - st2).abs().max(), (mk[rows] - mk2[rows]).abs().max()))
+        bound, counts = retrace_bound_ms(state, hit, mats, pool, active, rejected)
+        st, mk = state.clone(), masked.clone()
+        out[label] = dict(counts, rejected=rejected, not_bit_equal=bad,
+                          ms=event_ms(lambda: tb.retrace_round(st, mk, hit, mats, pool, active,
+                                                               rnd)),
+                          device_ms=device_ms(lambda: tb.retrace_round(
+                              st, mk, hit, mats, pool, active, rnd)),
+                          plain_ms=event_ms(lambda: tb.retrace_round_ref(
+                              st, mk, hit, mats, pool, active, rnd)),
+                          bound=bound, opacity_tapped="opacity" in active)
+        log(f"re-trace round {label}: {out[label]}, twin's reject count {rejected_twin}")
+        assert bad == 0 and rejected == rejected_twin, (label, bad, rejected, rejected_twin)
+        errs["rounds"] = max(errs["rounds"], err)
     for label, (trace, shade) in clip_waves.items():
         p, fs, state = trace
         hit = tb.trace_step(p, fs, state)
@@ -4068,7 +4122,7 @@ def phase_taps(device, tap_waves, clip_waves, cutout_calls):
         log(f"peel clip_{label}: {out[f'clip_{label}']}, max abs err K3 {herr:.3g}, K4 {serr:.3g}")
         assert hb == 0 and sb == 0 and ho <= n * (1 - MIN_AGREE) and so <= n * (1 - MIN_AGREE)
         errs["k3"], errs["k4"] = max(errs["k3"], herr), max(errs["k4"], serr)
-    for k, (p, fs, state) in enumerate(cutout_calls.of("trace_step")[1:]):
+    for k, (p, fs, state) in enumerate(k3_states):
         hit = tb.trace_step(p, fs, state)
         twin = trace_ref(p, fs.tris, state, fs.walk, fs.cutout)
         hb, ho, n, herr = compare_hits(hit, twin)
@@ -4186,6 +4240,19 @@ def interior_hdr_desc(tex_dir: str):
     return desc
 
 
+def interior_hdr_cutout_desc(tex_dir: str):
+    """interior_hdr_cutout: interior_cutout's checker-masked bowls
+    (scene/examples.py) with the floor EXR that interior_hdr_desc wrote
+    (the whole pool float)."""
+    from gatling_tpu_torch.scene.examples import interior_cutout
+
+    desc = interior_cutout(tex_dir=tex_dir)
+    for node in desc.materials["/m_floor"].nodes.values():
+        if node.shader_id == "UsdUVTexture":
+            node.inputs["file"] = os.path.join(tex_dir, "floor_hdr.exr")
+    return desc
+
+
 def cornell_hdr_params(device, tex_dir: str):
     """The Cornell box with every base colour a 64x64 EXR checker whose
     values reach 4 (a float pool on resident tables: K4's FLT instance
@@ -4214,18 +4281,18 @@ def phase_dome(device, tex_dir: str):
     sphere_field_dome (K2, instanced), cornell_aovs_dome (every AOV: the
     wavefront's K5/K6 and the dome on the miss; the fused NEE frame's mean
     against it within MEAN_SIGMAS), interior_hdr_textured (K3 and K4's
-    FLT instance, no texture stage) and interior_hdr_first_hit (K4t's FLT
-    instance); the dome pass on the card against its CPU run on three of
-    the frames' final states. Returns (frame numbers, launches by frame,
-    {case: (tables, static, recorded waves, nee)} for 3h, the tap waves of
-    3h, the dome pass numbers)."""
+    FLT instance, no texture stage), interior_hdr_first_hit (K4t's FLT
+    instance) and interior_hdr_cutout (K4r's, K4rf); the dome pass on the
+    card against its CPU run on three of the frames' final states. Returns
+    (frame numbers, launches by frame, {case: (tables, static, recorded
+    waves, nee)} for 3h, the tap waves and re-trace rounds of 3h, the dome
+    pass numbers)."""
     import numpy as np
 
     from gatling_tpu_torch import cli, gi, imgio
     from gatling_tpu_torch.interface import AovId
     from gatling_tpu_torch.ops import bounce as tb
     from gatling_tpu_torch.ops import split_ref
-    from gatling_tpu_torch.render.material import MI_OPACITY_CH, MI_OPACITY_TEX, MaterialTable
     from gatling_tpu_torch.scene.examples import sphere_field
 
     assets = write_dome_assets(tex_dir)
@@ -4320,15 +4387,21 @@ def phase_dome(device, tex_dir: str):
     frames["interior_hdr_first_hit"]["hit_share"] = check_first_hit(
         bufs, "interior_hdr_first_hit", albedo_max=4.0 + ALBEDO_MAX)
     launches["interior_hdr_first_hit"] = lc
-    hit, mats, pool, active = calls.of("tap_rows")[0]
-    # the same wave's opacity tapped through the float pool: every
-    # material's opacity the floor EXR's green channel (TAP_OPACITY)
-    pi = mats.packed_i.clone()
-    pi[:, MI_OPACITY_TEX] = int((pool.width == HDR_FLOOR).nonzero()[0, 0])
-    pi[:, MI_OPACITY_CH] = 1
-    tap_waves = [("interior_hdr_first_hit", (hit, mats, pool, active)),
-                 ("interior_hdr_opacity", (hit, MaterialTable(mats.packed_f, pi), pool,
-                                           (*active, "opacity")))]
+    tap_waves = [("interior_hdr_first_hit", calls.of("tap_rows")[0])]
+
+    # interior_hdr_cutout: 4j's re-trace over the float pool, K4r's FLT
+    # instance; its rounds for 3h
+    cut = interior_hdr_cutout_desc(tex_dir)
+    params = desc_params(device, cut, SF_RES, merged_settings(
+        cut, spp=SF_SPP, maxBounces=SF_BOUNCES, nextEventEstimation=False))
+    _bufs, frames["interior_hdr_cutout"], lc, calls = frame_pair(
+        params, f"interior_hdr_cutout {SF_RES}^2 {SF_SPP}spp {SF_BOUNCES} bounces",
+        {"K3", "K4f", "K4rf"}, record=8)
+    assert not params.scene._texture_pool.packed and params.scene._fused_static.cutout_textured
+    assert lc["K3"] == 4 * lc["K4f"] and lc["K4rf"] == 3 * lc["K4f"], lc
+    launches["interior_hdr_cutout"] = lc
+    rounds = [(f"interior_hdr_cutout K4rf round {k}", args)
+              for k, args in enumerate(calls.of("retrace_round"))]
 
     # K4's FLT instance over resident tables, for 3h
     params = cornell_hdr_params(device, tex_dir)
@@ -4336,19 +4409,20 @@ def phase_dome(device, tex_dir: str):
     assert params.scene._fused.walk is None and not params.scene._texture_pool.packed
     replay["cornell_hdr_textured"] = (params.scene._fused, params.scene._fused_static, waves,
                                       False)
-    return frames, launches, replay, tap_waves, passes
+    return frames, launches, replay, tap_waves, rounds, passes
 
 
 def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
                 formats: dict, formats2: dict, jpeg2000: dict, tiff: dict,
                 legacy: dict, htj2k: dict) -> list[dict]:
-    """The kernels-line entries of K4's and K4t's FLT instances from 3h's
-    numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
+    """The kernels-line entries of K4's, K4t's and K4r's FLT instances from
+    3h's numbers: K4 on interior_hdr_textured's bounce-0 wave (the resident
     instance on cornell_hdr_textured's beside it, 4n's 16-bit grey pool),
-    K4t on interior_hdr_first_hit's peel wave (with TAP_OPACITY beside
-    it); launches per frame of 4k."""
+    K4t on interior_hdr_first_hit's peel wave, K4rf on
+    interior_hdr_cutout's re-trace rounds; launches per frame of 4k."""
     r, c = branch["interior_hdr_textured"], branch["cornell_hdr_textured"]
-    t, o = taps["interior_hdr_first_hit"], taps["interior_hdr_opacity"]
+    t = taps["interior_hdr_first_hit"]
+    rf = {k: v for k, v in taps.items() if "K4rf round" in k}
     return [{
         "name": "shade_step (K4, FLT: a float texel pool)",
         "route": "cuda",
@@ -4382,9 +4456,28 @@ def flt_entries(branch: dict, taps: dict, tap_errs: dict, launches: dict,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
         "bound_by": t["bound"][1], "library_ms": None, "rays": t["rays"],
         "hit_rays": t["hit_rays"], "distinct_texel_rows": t["distinct_texel_rows"],
-        "ms_opacity": o["ms"], "plain_ms_opacity": o["plain_ms"],
-        "bound_ms_opacity": o["bound"][0],
-    }]
+        "device_ms": t["device_ms"], "bound_ms_q7_12_rows": t["bound_q7_12_rows"][0],
+    }, round_entry(
+        "retrace_round (K4rf, FLT: a float texel pool)",
+        "gatling_tpu/render/fused.py:337-358 (a textured-cutout re-trace round) over a float "
+        "pool (gatling_tpu/render/texture.py:479-484)",
+        launches["interior_hdr_cutout"]["K4rf"], tap_errs["rounds"], rf)]
+
+
+def round_entry(name: str, replaces: str, launches: int, err: float, rounds: dict) -> dict:
+    """A kernels-line entry of K4r or K4rf: the first round's numbers, the
+    others by round."""
+    first = rounds[min(rounds)]
+    return {
+        "name": name, "route": "cuda", "source": "gatling_tpu_torch/csrc/bounce.cu",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+        "bound_by": first["bound"][1], "library_ms": None, "device_ms": first["device_ms"],
+        "by_round": {k: {f: v[f] for f in ("rays", "alive", "alive_hits", "candidates",
+                                           "rejected", "distinct_texel_rows", "ms",
+                                           "device_ms", "plain_ms")}
+                     | {"bound_ms": v["bound"][0]} for k, v in rounds.items()},
+    }
 
 
 # 4m: the content scene's .usdz frame against its .usda frame (the JAX
@@ -4659,8 +4752,8 @@ def phase_content(device, work_dir: str, content: dict = CONTENT, res: int = SF_
         wimg, dt, _mr, launches = counted_render(params, f"content warm frame {k + 1}")
         frames.append(dt)
         assert launches["K3"] > 0 and launches["K4"] == launches["K3"], launches
-        assert all(launches[n] == 0 for n in ("K1", "K2", "K4t", "K4f", "K4tf", "K5", "K6",
-                                              "B1", "B2")), launches
+        assert all(launches[n] == 0 for n in ("K1", "K2", "K4t", "K4r", "K4f", "K4tf", "K4rf",
+                                              "K5", "K6", "B1", "B2")), launches
         assert split_ref.stage_calls == 0
     out["warm_frame_s"], out["launches"] = frames, {k: launches[k] for k in ("K3", "K4")}
     rgb = wimg[..., :3]
@@ -6357,7 +6450,8 @@ KERNEL_NAMES = ("intersect_tree_kernel", "occluded_tree_kernel", "shade_walk_ker
                 "threaded_kernel",
                 "trace_walk_kernel", "cutout_draws_kernel", "onehot_fp32_kernel",
                 "onehot_tf32_kernel", "cast_probe_kernel", "occluded_kernel", "closest_kernel",
-                "bounce_kernel", "shade_kernel", "trace_kernel", "tap_kernel", "walk_kernel")
+                "bounce_kernel", "shade_kernel", "trace_kernel", "tap_kernel", "retrace_kernel",
+                "walk_kernel")
 
 
 def content_entry(content: dict, kernel: str) -> dict:
@@ -6528,8 +6622,8 @@ def main() -> int:
     log(f"phase 3f: {time.perf_counter() - t0:.1f} s")
 
     # 4h-4j: the fused route's bounce-0 peel (first-hit AOVs, clipping) and
-    # the textured cutout's re-trace; 3g: K4's taps alone, K3 and K4 on
-    # their waves; the goldens through the port's harness
+    # the textured cutout's re-trace; 3g: K4's taps alone, the re-trace
+    # round, K3 and K4 on their waves; the goldens through the port's harness
     t0 = time.perf_counter()
     fh_frames, fh_launches, tap_waves = phase_first_hit(device, tex_tmp.name)
     log(f"phase 4h: {time.perf_counter() - t0:.1f} s")
@@ -6540,22 +6634,22 @@ def main() -> int:
     cut_frames, cut_launches, cut_calls = phase_textured_cutout(device, tex_tmp.name)
     log(f"phase 4j: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    tap_waves += [(f"interior_cutout round {k}", args)
-                  for k, args in enumerate(cut_calls.of("tap_rows"))]
-    peel, peel_errs = phase_taps(device, tap_waves, clip_waves, cut_calls)
+    peel, peel_errs = phase_taps(device, tap_waves, clip_waves, cut_calls.of("trace_step")[1:],
+                                 [(f"interior_cutout K4r round {k}", args)
+                                  for k, args in enumerate(cut_calls.of("retrace_round"))])
     del tap_waves, clip_waves, cut_calls
     log(f"phase 3g: {time.perf_counter() - t0:.1f} s")
 
-    # 4k: dome lights and float texel pools through gi.render; 3h: K4's and
-    # K4t's FLT instances against their twins on 4k's waves
+    # 4k: dome lights and float texel pools through gi.render; 3h: K4's,
+    # K4t's and K4r's FLT instances against their twins on 4k's waves
     t0 = time.perf_counter()
-    dome_frames, dome_launches, hdr_replay, hdr_taps, dome_passes = phase_dome(device,
-                                                                               tex_tmp.name)
+    dome_frames, dome_launches, hdr_replay, hdr_taps, hdr_rounds, dome_passes = phase_dome(
+        device, tex_tmp.name)
     log(f"phase 4k: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     hdr_branch = phase_branches(device, hdr_replay, exact=True)
-    hdr_tap_times, hdr_tap_errs = phase_taps(device, hdr_taps, {}, KernelCalls(0))
-    del hdr_replay, hdr_taps
+    hdr_tap_times, hdr_tap_errs = phase_taps(device, hdr_taps, {}, [], hdr_rounds)
+    del hdr_replay, hdr_taps, hdr_rounds
     log(f"phase 3h: {time.perf_counter() - t0:.1f} s")
     # 4m: USD content (skinned figures, a .usdz of a crate layer, MaterialX
     # graphs baked into the pool) through cli.render_scene_file: K3, K4
@@ -6785,13 +6879,12 @@ def main() -> int:
         "legacy": formats_entry(legacy_out, "K4"),
         "htj2k": formats_entry(htj2k_out, "K4"),
     }, {
-        "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material and the "
-                "textured cutout's opacity)",
+        "name": "tap_rows (K4t, K4's taps alone: the first-hit AOVs' material)",
         "route": "cuda",
         "source": "gatling_tpu_torch/csrc/bounce.cu",
         "replaces": "gatling_tpu/render/fused.py:241 _material_rows (the texture stage before "
                     "gatling_tpu/ops/pallas_bounce.py:3705 shade_step) at the bounce-0 peel "
-                    ":481-490 and the textured-cutout re-trace :326-333",
+                    ":481-490",
         "launches": new_launches["cornell_first_hit"]["K4t"],
         "max_abs_err": peel_errs["taps"],
         "ms": taps["ms"],
@@ -6799,11 +6892,21 @@ def main() -> int:
         "bound_ms": taps["bound"][0],
         "bound_by": taps["bound"][1],
         "library_ms": None,
-        "by_wave": {k: {f: v[f] for f in ("rays", "hit_rays", "ms", "plain_ms",
-                                           "distinct_texel_rows", "opacity")}
-                    | {"bound_ms": v["bound"][0]}
-                    for k, v in peel.items() if "ms" in v and "alive" not in v},
+        "device_ms": taps["device_ms"],
+        "bound_ms_q7_12_rows": taps["bound_q7_12_rows"][0],
+        "by_wave": {k: {f: v[f] for f in ("rays", "hit_rays", "ms", "device_ms", "plain_ms",
+                                           "distinct_texel_rows")}
+                    | {"bound_ms": v["bound"][0], "bound_ms_q7_12_rows": v["bound_q7_12_rows"][0]}
+                    for k, v in peel.items() if "bound_q7_12_rows" in v},
         "launches_by_new_frame": {k: v["K4t"] for k, v in new_launches.items()},
+    }, {
+        **round_entry("retrace_round (K4r, a textured-cutout re-trace round)",
+                      "gatling_tpu/render/fused.py:337-358 (a textured-cutout re-trace round: "
+                      "the opacity taps of _material_rows' apply_textures :326-333, the draw, "
+                      "the origin past the surface, the masked alive row)",
+                      new_launches["interior_cutout nee=False"]["K4r"], peel_errs["rounds"],
+                      {k: v for k, v in peel.items() if "K4r round" in k}),
+        "launches_by_new_frame": {k: v["K4r"] for k, v in new_launches.items()},
     }, *(trace_entry(k, trace_times, launches[k]) for k in ("K5", "K6", "K7", "K8")),
         *(threaded_entry(k, threaded_times, threaded_launches, threaded_frames, formats)
           for k in ("B1", "B2")),

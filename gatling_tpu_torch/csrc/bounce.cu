@@ -79,7 +79,10 @@
 // plain torch). What bounds them: K3 the same triangle tests as
 // K1 and K2 without the shading; K4 the state and hit-buffer traffic (16
 // + 16 + up to 21 floats a ray), the texels its taps touch and, with NEE,
-// the shadow walk's box and triangle tests.
+// the shadow walk's box and triangle tests. Two more serve the fused
+// sample loop: K4t `tap_kernel`, K4's taps alone at the bounce-0 peel, and
+// K4r `retrace_kernel`, one round of the textured-cutout re-trace (notes
+// at their definitions).
 //
 // K1. One thread per ray; ray state row k of ray i lives at
 // state[k*R + i], so every row access coalesces. The TPU kernel tested a
@@ -1100,17 +1103,19 @@ __device__ __forceinline__ void write_dead(float* hit, int rows, long long R, lo
 enum { WRAP_BLACK = 0, WRAP_CLAMP = 1, WRAP_REPEAT = 2, WRAP_MIRROR = 3 };
 // which taps a launch makes: the textured parameters, and the normal map
 // when the hit buffer carries the tangent rows; TAP_OPACITY only in
-// tap_kernel (K4 never reads opacity)
+// retrace_kernel (K4 and tap_kernel never read opacity).
 enum { TAP_BASE = 1, TAP_EMISSIVE = 2, TAP_METAL = 4, TAP_ROUGH = 8, TAP_NORMAL = 16,
-       TAP_OPACITY = 32 };
+       TAP_OPACITY = 32, TAP_SAMPLES = 63 };
 // the material table's integer columns K4 stages, per material: the slots
 // of base colour, emission, metallic, roughness and the normal map, then
 // the channels of metallic and roughness (render/material.py MI_*)
 constexpr int MI_COLS = 10;
 constexpr int TAP_MI = 7;  // MI_* columns 0-3 and 5-7 (4, the opacity slot, is not read)
-// the opacity slot and channel columns (MI_OPACITY_TEX, MI_OPACITY_CH), which
-// only tap_kernel reads, from global memory; the table's opacity column
-constexpr int MI_OPACITY_TEX = 4, MI_OPACITY_CH = 8, MF_OPACITY = 6;
+// the MI_* columns as tap_kernel and retrace_kernel read them, from global
+// memory; the float table's opacity and opacity-threshold columns
+enum { MI_BASE_TEX = 0, MI_METAL_TEX = 2, MI_OPACITY_TEX = 4, MI_NORMAL_TEX = 5,
+       MI_METAL_CH = 6, MI_OPACITY_CH = 8 };
+constexpr int MF_OPACITY = 6, MF_OPACITY_THRESH = 23;
 constexpr int SLOT_I = 6;  // offset, width, height, wrap s, wrap t, sRGB
 constexpr int SLOT_F = 8;  // scale, bias
 
@@ -1139,14 +1144,11 @@ __host__ __device__ constexpr size_t tap_smem_words(int n_mats, int n_slots) {
   return (size_t)n_mats * TAP_MI + (size_t)n_slots * (SLOT_I + SLOT_F) + 256;
 }
 
-__device__ __forceinline__ TapTables stage_taps(const Taps& tx, int n_mats, int* smem) {
-  TapTables tt;
-  int* mi = smem;
-  int* si = mi + n_mats * TAP_MI;
+// The slot records, then the sRGB table (when `lut`), staged at smem.
+__device__ __forceinline__ void stage_slots(const Taps& tx, int* smem, bool lut, TapTables& tt) {
+  int* si = smem;
   float* sf = reinterpret_cast<float*>(si + tx.n_slots * SLOT_I);
-  float* lut = sf + tx.n_slots * SLOT_F;
-  for (int k = threadIdx.x; k < n_mats * TAP_MI; k += blockDim.x)
-    mi[k] = tx.mat_i[(k / TAP_MI) * MI_COLS + k % TAP_MI + (k % TAP_MI >= 4 ? 1 : 0)];
+  float* sl = sf + tx.n_slots * SLOT_F;
   for (int k = threadIdx.x; k < tx.n_slots; k += blockDim.x) {
     int* o = si + k * SLOT_I;
     o[0] = tx.offset[k];
@@ -1160,11 +1162,27 @@ __device__ __forceinline__ TapTables stage_taps(const Taps& tx, int n_mats, int*
     sf[(k / 4) * SLOT_F + k % 4] = tx.scale[k];
     sf[(k / 4) * SLOT_F + 4 + k % 4] = tx.bias[k];
   }
-  for (int k = threadIdx.x; k < 256; k += blockDim.x) lut[k] = tx.lut[k];
-  tt.mi = mi;
+  if (lut)
+    for (int k = threadIdx.x; k < 256; k += blockDim.x) sl[k] = tx.lut[k];
   tt.slot_i = si;
   tt.slot_f = sf;
-  tt.lut = lut;
+  tt.lut = sl;
+}
+
+// the words stage_slots stages
+__host__ __device__ constexpr size_t slot_smem_words(int n_slots, bool lut) {
+  return (size_t)n_slots * (SLOT_I + SLOT_F) + (lut ? 256 : 0);
+}
+
+// K4's tables: its materials' slot columns, then the slot records and the
+// sRGB table
+__device__ __forceinline__ TapTables stage_taps(const Taps& tx, int n_mats, int* smem) {
+  TapTables tt;
+  int* mi = smem;
+  for (int k = threadIdx.x; k < n_mats * TAP_MI; k += blockDim.x)
+    mi[k] = tx.mat_i[(k / TAP_MI) * MI_COLS + k % TAP_MI + (k % TAP_MI >= 4 ? 1 : 0)];
+  tt.mi = mi;
+  stage_slots(tx, mi + n_mats * TAP_MI, true, tt);
   return tt;
 }
 
@@ -2048,39 +2066,141 @@ cutout_draws_kernel(const uint32_t* __restrict__ keys, const uint32_t* __restric
   if (i < n) out[i] = cutout_xi(keys[i], ids[i]);
 }
 
-// K4's taps alone (ops/bounce.py tap_rows): each hit ray's material row
-// with its tapped parameters and its normal-mapped shading normal, rows
-// base colour (3), emission (3), metallic, roughness, normal (3) and
-// opacity of out [12, R]; the material table `mats` is read from global
-// memory. The first-hit AOVs and the textured-cutout draw of the fused
-// sample loop read them. With TAP_OPACITY the opacity is tapped where the
-// material binds an opacity slot (its slot and channel columns read from
-// global memory: K4's shared table stays as it is), else the table's.
-// FLT: over a float pool.
+// K4t, K4's taps alone (ops/bounce.py tap_rows; replaces the texture stage
+// gatling_tpu/render/fused.py:241 _material_rows where the fused sample
+// loop's bounce-0 peel reads it): out [7, R] holds the rows the peel's
+// first-hit AOVs read, each hit ray's base colour (3), metallic and
+// shading normal (3), written only for hit rays: the material table's
+// columns with the base colour and metallic tapped (tx.mask) where the
+// material binds a slot, the normal normal-mapped (TAP_NORMAL). FLT: over
+// a float pool. What bounds it: bytes, H_HIT of every ray; of the hit
+// rays H_MAT, the normal rows, the uv rows when it taps and the tangent
+// rows when it normal-maps; the 7 rows written; the texels its taps touch.
+// Its design for that: one thread a ray, which reads H_HIT first and
+// stops a missed ray there; the materials' columns read through the
+// read-only cache, the slot records and the sRGB table staged in shared
+// memory only when it taps, so that an untextured launch stages nothing
+// and never syncs. Four rays a thread with float4 rows, and two with
+// float2, ran slower on the peel waves (PERF.md, section 6): fewer
+// threads hid less of the two dependent reads, and the four-ray instance
+// kept its arrays on the stack.
+enum { O_BASE = 0, O_METAL = 3, O_N = 4 };  // the first of out's rows of each
+
 template <bool FLT>
 __global__ void __launch_bounds__(THREADS)
 tap_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__ hit,
-           int hit_tan, long long R, Taps tx, float* __restrict__ out) {
+           long long R, Taps tx, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
-  const TapTables tt = stage_taps(tx, n_mats, reinterpret_cast<int*>(smem4));
-  __syncthreads();
+  TapTables tt = {};
+  if (tx.mask & TAP_SAMPLES) {
+    stage_slots(tx, reinterpret_cast<int*>(smem4), !FLT, tt);
+    __syncthreads();
+  }
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R || !(__ldg(hit + H_HIT * R + i) > 0.5f)) return;
+  const int mat = min(max((int)rintf(__ldg(hit + H_MAT * R + i)), 0), n_mats - 1);
+  const float* m = mats + (long long)mat * MAT_COLS;
+  const int* mi = tx.mat_i + mat * MI_COLS;
+  float u = 0.0f, v = 0.0f;
+  if (tx.mask & TAP_SAMPLES) {
+    u = __ldg(hit + H_UV * R + i);
+    v = __ldg(hit + (H_UV + 1) * R + i);
+  }
+  float base[3];
+  for (int c = 0; c < 3; ++c) base[c] = __ldg(m + c);
+  const int base_slot = (tx.mask & TAP_BASE) ? __ldg(mi + MI_BASE_TEX) : -1;
+  if (base_slot >= 0) {
+    const float4 t = tap<FLT>(tx, tt, base_slot, u, v);
+    base[0] = t.x;
+    base[1] = t.y;
+    base[2] = t.z;
+  }
+  for (int c = 0; c < 3; ++c) out[(O_BASE + c) * R + i] = base[c];
+  float metal = __ldg(m + 3);
+  const int metal_slot = (tx.mask & TAP_METAL) ? __ldg(mi + MI_METAL_TEX) : -1;
+  if (metal_slot >= 0) metal = channel(tap<FLT>(tx, tt, metal_slot, u, v), __ldg(mi + MI_METAL_CH));
+  out[O_METAL * R + i] = metal;
+  float n[3];
+  for (int c = 0; c < 3; ++c) n[c] = __ldg(hit + (H_N + c) * R + i);
+  const int normal_slot = (tx.mask & TAP_NORMAL) ? __ldg(mi + MI_NORMAL_TEX) : -1;
+  if (normal_slot >= 0) {
+    float t[3];
+    for (int c = 0; c < 3; ++c) t[c] = __ldg(hit + (H_TAN + c) * R + i);
+    perturb(tap<FLT>(tx, tt, normal_slot, u, v), t, __ldg(hit + H_BS * R + i), n);
+  }
+  for (int c = 0; c < 3; ++c) out[(O_N + c) * R + i] = n[c];
+}
+
+// The textured-cutout re-trace's draw of round `rnd` (ops/bounce.py
+// retrace_draws, gatling_tpu/render/fused.py:342-346): a hash of the ray's
+// PCG word, salted by the round, in [0, 1).
+__device__ __forceinline__ float retrace_xi(uint32_t salt, int rnd) {
+  uint32_t h = salt ^ (0x9E3779B9u + 0x85EBu * (uint32_t)rnd);
+  h = (h ^ (h >> 16)) * 0x21F0AAADu;
+  h = (h ^ (h >> 15)) * 0x735A2D97u;
+  return (float)((h ^ (h >> 15)) >> 8) * C(1.0 / (1 << 24));
+}
+
+// K4r, one round of the textured-cutout re-trace (ops/bounce.py
+// retrace_round; replaces the XLA round gatling_tpu/render/fused.py:337-358,
+// whose twin ops/bounce.py retrace_round_ref runs it in PyTorch): an alive
+// ray whose hit's material binds an opacity slot draws against
+// cutout_opacity of the opacity tapped at its uv (the table's without
+// TAP_OPACITY) and the table's threshold; a rejected ray's origin moves
+// past the surface (offset_ray_origin of H_POS along -H_GN) in state rows
+// 0-2 and masked rows 0-2, in place; masked row 13, the alive row K3
+// re-traces, becomes state row 13 where rejected, else 0. `masked` is a
+// copy of the state made once a bounce: its rows 3-12 are the state's, and
+// its rows 0-2 are the state's wherever K3 reads them. What bounds it:
+// bytes, the alive row read and masked row 13 written on every ray, H_HIT
+// of the alive, H_MAT of the alive hits, the PCG row and uv of the
+// candidates (and their texels), six hit rows read and six rows written
+// of the rejected. Its design: one thread a ray, each row read only while
+// the ray is still a candidate; the slot records and the sRGB table
+// staged only when it taps. With -fmad=false the origin's multiply, then
+// add, rounds as the twin's, and the draw is integer arithmetic: the
+// kernel is bit-equal to the twin.
+template <bool FLT>
+__global__ void __launch_bounds__(THREADS)
+retrace_kernel(const float* __restrict__ mats, int n_mats, const float* __restrict__ hit,
+               long long R, Taps tx, int rnd, float* __restrict__ state,
+               float* __restrict__ masked) {
+  extern __shared__ float4 smem4[];
+  TapTables tt = {};
+  if (tx.mask & TAP_OPACITY) {
+    stage_slots(tx, reinterpret_cast<int*>(smem4), !FLT, tt);
+    __syncthreads();
+  }
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  Ray r = {};
-  Hit h;
-  Mat m;
-  read_hit<false, VOL_OFF, FLT>(hit, hit_tan != 0, mats, n_mats, tx, tt, R, i, r, h, m);
-  const int mat = min(max((int)rintf(hit[H_MAT * R + i]), 0), n_mats - 1);
-  float opacity = mats[mat * MAT_COLS + MF_OPACITY];
-  if ((tx.mask & TAP_OPACITY) && r.hit) {
-    const int slot = __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_TEX);
-    if (slot >= 0)
-      opacity = channel(tap<FLT>(tx, tt, slot, hit[H_UV * R + i], hit[(H_UV + 1) * R + i]),
-                        __ldg(tx.mat_i + mat * MI_COLS + MI_OPACITY_CH));
+  const float alive = state[S_ALIVE * R + i];
+  bool reject = false;
+  if (alive > 0.5f && __ldg(hit + H_HIT * R + i) > 0.5f) {
+    const int mat = min(max((int)rintf(__ldg(hit + H_MAT * R + i)), 0), n_mats - 1);
+    const int* mi = tx.mat_i + mat * MI_COLS;
+    const int slot = __ldg(mi + MI_OPACITY_TEX);
+    if (slot >= 0) {
+      const float* m = mats + (long long)mat * MAT_COLS;
+      float opacity = __ldg(m + MF_OPACITY);
+      if (tx.mask & TAP_OPACITY)
+        opacity = channel(tap<FLT>(tx, tt, slot, __ldg(hit + H_UV * R + i),
+                                   __ldg(hit + (H_UV + 1) * R + i)),
+                          __ldg(mi + MI_OPACITY_CH));
+      const float thresh = __ldg(m + MF_OPACITY_THRESH);
+      const float pass = thresh > 0.0f ? (opacity >= thresh ? 1.0f : 0.0f) : opacity;
+      reject = retrace_xi(__float_as_uint(state[S_RNG * R + i]), rnd) >= pass;
+    }
   }
-  const float rows[12] = {m.base[0], m.base[1], m.base[2], m.em[0],  m.em[1], m.em[2],
-                          m.metallic, m.roughness, h.n[0],   h.n[1], h.n[2], opacity};
-  for (int k = 0; k < 12; ++k) out[k * R + i] = rows[k];
+  if (reject) {
+    for (int c = 0; c < 3; ++c) {
+      const float p = __ldg(hit + (H_POS + c) * R + i);
+      const float g = -__ldg(hit + (H_GN + c) * R + i);
+      const float o = p + g * maxn(fabsf(p) * C(1.0 / 65536.0), C(1.0 / 65536.0));
+      state[(S_OX + c) * R + i] = o;
+      masked[(S_OX + c) * R + i] = o;
+    }
+  }
+  masked[S_ALIVE * R + i] = reject ? alive : 0.0f;
 }
 
 unsigned grid(long long n_rays) { return (unsigned)((n_rays + THREADS - 1) / THREADS); }
@@ -2135,17 +2255,34 @@ extern "C" {
   {mat_i, u32, reinterpret_cast<const int4*>(q22), reinterpret_cast<const float4*>(f32),      \
    t_off, t_w, t_h, t_ws, t_wt, t_srgb, t_scale, t_bias, lut, n_slots, taps}
 
-// K4's taps alone on hit buffer `hit` into out [12, n_rays] (tap_kernel):
+// K4's taps alone on hit buffer `hit` into out [7, n_rays] (tap_kernel):
 // gatling_tap_rows over an 8-bit pool, gatling_tap_rows_flt over a float one.
-#define TAP_ROWS(NAME, FLT_)                                                      \
-  int NAME(const float* mats, int n_mats, const float* hit, int hit_tan,         \
-           long long n_rays, TAP_ARGS, float* out, void* stream) {               \
-    if (n_rays <= 0) return 0;                                                    \
-    const Taps tx = TAP_STRUCT;                                                   \
-    const size_t smem = sizeof(int) * tap_smem_words(n_mats, n_slots);            \
-    if (int err = allow_smem(tap_kernel<FLT_>, smem)) return err;                 \
-    tap_kernel<FLT_> CONFIG(smem)(mats, n_mats, hit, hit_tan, n_rays, tx, out);   \
-    return (int)cudaGetLastError();                                               \
+#define TAP_ROWS(NAME, FLT_)                                                               \
+  int NAME(const float* mats, int n_mats, const float* hit, long long n_rays, TAP_ARGS,   \
+           float* out, void* stream) {                                                    \
+    if (n_rays <= 0) return 0;                                                             \
+    const Taps tx = TAP_STRUCT;                                                            \
+    const size_t smem =                                                                    \
+        (taps & TAP_SAMPLES) ? sizeof(int) * slot_smem_words(n_slots, !FLT_) : 0;          \
+    if (int err = allow_smem(tap_kernel<FLT_>, smem)) return err;                          \
+    tap_kernel<FLT_> CONFIG(smem)(mats, n_mats, hit, n_rays, tx, out);                     \
+    return (int)cudaGetLastError();                                                        \
+  }
+
+// K4r, a textured-cutout re-trace round `rnd` on hit buffer `hit`, state
+// [16, n_rays] and its masked copy, in place (retrace_kernel):
+// gatling_retrace_round over an 8-bit pool, gatling_retrace_round_flt over
+// a float one.
+#define RETRACE_ROUND(NAME, FLT_)                                                         \
+  int NAME(const float* mats, int n_mats, const float* hit, long long n_rays, TAP_ARGS,   \
+           int rnd, float* state, float* masked, void* stream) {                          \
+    if (n_rays <= 0) return 0;                                                             \
+    const Taps tx = TAP_STRUCT;                                                            \
+    const size_t smem =                                                                    \
+        (taps & TAP_OPACITY) ? sizeof(int) * slot_smem_words(n_slots, !FLT_) : 0;          \
+    if (int err = allow_smem(retrace_kernel<FLT_>, smem)) return err;                      \
+    retrace_kernel<FLT_> CONFIG(smem)(mats, n_mats, hit, n_rays, tx, rnd, state, masked);  \
+    return (int)cudaGetLastError();                                                        \
   }
 
 // K4, resident: shade state [16, n_rays] in place from the hit buffer
@@ -2191,6 +2328,7 @@ int gatling_cutout_draws(const uint32_t* keys, const uint32_t* ids, float* out,
 }
 
 TAP_ROWS(gatling_tap_rows, false)
+RETRACE_ROUND(gatling_retrace_round, false)
 
 // K3, resident: the hit buffer [16 or 24, n_rays] of state [16, n_rays].
 int gatling_trace_resident(const float* params, RESIDENT_TABLES, const float* state,
@@ -2348,9 +2486,11 @@ SHADE_WALK(gatling_shade_walk_vol, false, VOL_ABSORB, VOL_ABSORB, false)
 SHADE_WALK(gatling_shade_walk_vol_nee, true, VOL_ABSORB, VOL_ABSORB, false)
 #endif
 
-// the float pool's instances of K4 and of its taps alone, in parts of their own
+// the float pool's instances of K4, of its taps alone and of the re-trace
+// round, in parts of their own
 #if PART(10)
 TAP_ROWS(gatling_tap_rows_flt, true)
+RETRACE_ROUND(gatling_retrace_round_flt, true)
 SHADE_RESIDENT(gatling_shade_resident_flt, true)
 #endif
 #if PART(11)

@@ -9,6 +9,7 @@
     python -m gatling_tpu_torch.frame_profile --scene glass_tinted   # an absorbing medium
     python -m gatling_tpu_torch.frame_profile --scene cornell_first_hit   # the bounce-0 peel
     python -m gatling_tpu_torch.frame_profile --scene interior_first_hit
+    python -m gatling_tpu_torch.frame_profile --scene interior_cutout     # the re-trace (K4r)
     python -m gatling_tpu_torch.frame_profile --scene sphere_field_dome   # the dome pass
 
 On one CUDA card, at the JAX bench's settings for big scenes (512x512,
@@ -23,7 +24,11 @@ cornell_first_hit / interior_first_hit, the fused route's first-hit
 frames: the Cornell box (as cornell_aovs) or the textured interior (512x512,
 4 spp, 6 bounces, NEE) with COLOR, NORMAL, ALBEDO, DEPTH and TEXCOORDS
 bound (bounce 0 of each sample peeled through K3, K4's taps alone and
-K4); or sphere_field_dome, sphere_field (NEE on) under a 4096x2048
+K4); or interior_cutout, the textured interior with its bowls' opacity
+a checker mask (scene/examples.py interior_cutout; 512x512, 4 spp, 6
+bounces, NEE off and on), whose split bounces re-trace what the mask
+rejects (three rounds of K4r and K3 each); or sphere_field_dome,
+sphere_field (NEE on) under a 4096x2048
 float32 EXR sky written at run time (scene/examples.py write_sky), rotated
 30 degrees about the up axis with an emission multiplier (1.5, 1.4, 1.3):
 after the profile, the dome pass (render/fused.py dome_pass, PyTorch ops
@@ -74,7 +79,8 @@ from gatling_tpu_torch.render import fused
 
 RES, SPP, BOUNCES, FRAMES = 512, 4, 6, 5
 # kernel-name patterns, the split kernels first ("walk_kernel" ends their names too)
-GROUPS = (("K3 trace", "trace_"), ("K4 shade", "shade_"), ("K4t taps", "tap_kernel"),
+GROUPS = (("K4r re-trace round", "retrace_kernel"), ("K3 trace", "trace_"),
+          ("K4 shade", "shade_"), ("K4t taps", "tap_kernel"),
           ("K1 bounce_kernel", "bounce_kernel"),
           ("K2 walk_kernel", "walk_kernel"), ("K5 closest hit", "intersect_tree_kernel"),
           ("K6 shadow rays", "occluded_tree_kernel"), ("sort", "sort"), ("copies", "memcpy"))
@@ -213,7 +219,8 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
     import math
     import os
 
-    from gatling_tpu_torch.scene.examples import interior, sphere_field, write_sky
+    from gatling_tpu_torch.scene.examples import (interior, interior_cutout, sphere_field,
+                                                  write_sky)
 
     if scene_name == "cornell_aovs":
         return _cornell_aovs()
@@ -225,6 +232,7 @@ def _params(scene_name: str, nee: bool, tex_dir: str):
         return _media(scene_name, tex_dir)
     desc = (interior(tex_dir=tex_dir) if scene_name in ("interior", "interior_first_hit")
             else interior(detail=1, tex_dir=tex_dir) if scene_name == "interior_aovs"
+            else interior_cutout(tex_dir=tex_dir) if scene_name == "interior_cutout"
             else sphere_field())
     scene = gi.create_scene("cuda")
     for m in desc.meshes:
@@ -307,8 +315,8 @@ def profile(scene_name: str, nee: bool, tex_dir: str) -> None:
         by[key] += (e.time_range.end - e.time_range.start) / 1e3
         counts[key] += 1
     busy = _busy_union(dev) / 1e3
-    print(f"  profiled frame: wall {wall * 1e3:.2f} ms, device time {total:.2f} ms "
-          f"(busy {busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f})")
+    print(f"  profiled frame: wall {wall * 1e3:.2f} ms, device time {total:.2f} ms in {len(dev)} "
+          f"kernels and copies (busy {busy:.2f} ms, idle share {1 - busy / (wall * 1e3):.3f})")
     for k, v in by.items():
         print(f"    {k}: {v:.3f} ms in {counts[k]} launches")
     other: dict[str, list] = {}
@@ -367,7 +375,8 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", choices=("sphere_field", "interior", "cornell_aovs",
                                         "interior_aovs", "glass_coated", "cornell_fog",
                                         "glass_tinted", "cornell_first_hit",
-                                        "interior_first_hit", "sphere_field_dome"),
+                                        "interior_first_hit", "interior_cutout",
+                                        "sphere_field_dome"),
                     default="sphere_field")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -379,7 +388,8 @@ def main(argv=None) -> int:
             for name in ("glass_coated", "glass_coated_lobes_off"):
                 profile(name, False, tex_dir)
             return 0
-        for nee in ((False, True) if args.scene == "sphere_field" else (True,)):
+        for nee in ((False, True) if args.scene in ("sphere_field", "interior_cutout")
+                    else (True,)):
             profile(args.scene, nee, tex_dir)
     return 0
 

@@ -41,7 +41,11 @@ a textured scene splits it into `trace_step` (the hit buffer) and
   (K4's after the texture stage, ops/split_ref.py material_rows).
 
 They are registered as the operators `torch.ops.gatling.bounce_step` (K1),
-`bounce_step_walk` (K2), `trace_step` (K3) and `shade_step` (K4).
+`bounce_step_walk` (K2), `trace_step` (K3) and `shade_step` (K4). The fused
+sample loop's bounce-0 peel and textured-cutout re-trace call two more
+wrappers of the same kind directly: `tap_rows` (K4t, K4's taps alone, of
+the rows the peel reads) and `retrace_round` (K4r, one round of the
+re-trace), with their twins `tap_rows_ref` and `retrace_round_ref`.
 """
 
 from __future__ import annotations
@@ -120,14 +124,16 @@ from gatling_tpu_torch.ops import validate
 from gatling_tpu_torch.ops.cuda_lib import I32, I64, PTR, CudaLibrary, check_tensor
 from gatling_tpu_torch.ops.geometry import SceneGeometry, real_triangles
 from gatling_tpu_torch.ops.split_ref import (
+    H_GN,
+    H_HIT,
     H_MAT,
     H_N,
+    H_POS,
     H_UVX,
     H_UVY,
     HIT_ROWS,
     HIT_ROWS_TAN,
     PAR_ORDER,
-    PR_WIDTHS,
     has_tangents,
     hit_row_count,
     material_rows,
@@ -136,20 +142,20 @@ from gatling_tpu_torch.ops.split_ref import (
     slim_param_layout,
     trace_ref,
 )
-from gatling_tpu_torch.ops.sampling import u32_to_f32_bits
+from gatling_tpu_torch.ops.sampling import f32_bits_to_u32, offset_ray_origin, u32_to_f32_bits
+from gatling_tpu_torch.render.bsdf import cutout_opacity
 from gatling_tpu_torch.render.material import (
     MF_ANISO,
     MF_BASE,
     MF_COAT,
-    MF_EMISSIVE,
     MF_METAL,
     MF_OPACITY,
     MF_OPACITY_THRESH,
-    MF_ROUGH,
     MF_THIN,
     MF_TRANS,
     MF_VOL_A,
     MF_VOL_S,
+    MI_OPACITY_TEX,
     MaterialTable,
     apply_textures,
     gather_params,
@@ -175,11 +181,17 @@ MI_COLS = 10  # the device material table's integer columns (render/material.py 
 # samples, and the normal map
 TAP_BITS = {"base_color": 1, "emissive": 2, "metallic": 4, "roughness": 8}
 TAP_NORMAL = 16
-TAP_OPACITY = 32  # tap_rows' opacity row alone: K4 never reads opacity
+TAP_OPACITY = 32  # retrace_round's opacity tap: K4 and tap_rows never read opacity
 # the pool is float (render/texture.py): the taps read `texels` through the
-# FLT instances of K4 and of tap_rows (the ..._flt entry points)
+# FLT instances of K4, tap_rows and retrace_round (the ..._flt entry points)
 TAP_FLOAT = 64
-TAP_ROWS = 12  # tap_rows' rows: base colour, emission, metallic, roughness, normal, opacity
+# tap_rows' rows, those the bounce-0 peel reads (render/fused.py
+# FirstHit.add: the shading normal, and the base colour and metallic of
+# bsdf.auxiliary): the first row of each (csrc/bounce.cu O_*)
+TAP_ROWS = 7
+TAP_BASE_ROW, TAP_METAL_ROW, TAP_N_ROW = 0, 3, 4
+# the taps tap_rows makes, of those textured (the normal map besides)
+TAP_PEEL = TAP_BITS["base_color"] | TAP_BITS["metallic"]
 # K4's tap tables in shared memory, in 4-byte words (csrc/bounce.cu
 # tap_smem_words): TAP_MI slot columns a material, SLOT_WORDS a texture
 # slot (SLOT_I ints, SLOT_F floats), then the SRGB_LUT-entry decode table
@@ -1002,7 +1014,10 @@ class BounceKernel(CudaLibrary):
                for nee in (False, True) for vol in (VOL_OFF, VOL_ABSORB)
                for flt in (False, True)},
             "gatling_cutout_draws": [PTR, PTR, PTR, I64, PTR],
-            **{_flt_entry("gatling_tap_rows", flt): [PTR, I32, PTR, I32, I64, *taps, PTR, PTR]
+            **{_flt_entry("gatling_tap_rows", flt): [PTR, I32, PTR, I64, *taps, PTR, PTR]
+               for flt in (False, True)},
+            **{_flt_entry("gatling_retrace_round", flt): [PTR, I32, PTR, I64, *taps, I32, PTR,
+                                                          PTR, PTR]
                for flt in (False, True)}},
             "gatling_error_string", parts=BOUNCE_PARTS)
 
@@ -1210,9 +1225,10 @@ def _walk_entry(base: str, nee: bool, volumes: int, flt: bool = False) -> str:
 _kernel: BounceKernel | None = None
 # kernel launches made on CUDA tensors, by kernel (chip_smoke.py reads
 # them): K1 resident bounce, K2 the two-level walk, K3 trace, K4 shade,
-# K4t K4's taps alone (tap_rows); K4f and K4tf their FLT instances, over a
-# float pool
-launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4t": 0, "K4f": 0, "K4tf": 0}
+# K4t K4's taps alone (tap_rows), K4r a textured-cutout re-trace round
+# (retrace_round); K4f, K4tf and K4rf their FLT instances, over a float pool
+launches = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4t": 0, "K4r": 0, "K4f": 0, "K4tf": 0,
+            "K4rf": 0}
 
 
 def kernel() -> BounceKernel:
@@ -1360,56 +1376,122 @@ def cutout_draws(keys: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def tap_rows_ref(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
                  textured_params) -> torch.Tensor:
-    """tap_rows' twin, on the device of its tensors: the texture stage
-    (ops/split_ref.py material_rows) over the raw material table's rows,
-    and the opacity through the same taps (render/material.py
-    apply_textures) when "opacity" is among `textured_params`."""
-    active = tuple(name for name in PAR_ORDER if name in textured_params)
+    """tap_rows' twin, on the device of its tensors: the raw material
+    table's base colour and metallic with the texture stage's taps laid
+    over (ops/split_ref.py material_rows), and its shading normal
+    (normal-mapped there when the hit buffer has tangent rows)."""
+    active = tuple(name for name in PAR_ORDER if name in textured_params
+                   and TAP_BITS.get(name, 0) & TAP_PEEL)
     parbuf, hit_n = material_rows(materials, textures, hitbuf, active)
     mat = torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
-    cols = [*range(MF_BASE, MF_BASE + 3), *range(MF_EMISSIVE, MF_EMISSIVE + 3), MF_METAL,
-            MF_ROUGH]
-    rows = materials.packed_f[mat][:, cols].T.clone()
+    table = materials.packed_f[mat]
+    out = torch.empty((TAP_ROWS, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
+    out[TAP_BASE_ROW:TAP_BASE_ROW + 3] = table[:, MF_BASE:MF_BASE + 3].T
+    out[TAP_METAL_ROW] = table[:, MF_METAL]
     layout = dict(slim_param_layout(active))
-    for name, dst in (("base_color", 0), ("emissive", 3), ("metallic", 6), ("roughness", 7)):
-        if name in layout:
-            rows[dst:dst + PR_WIDTHS[name]] = parbuf[layout[name]:layout[name] + PR_WIDTHS[name]]
-    params = gather_params(materials, mat)
-    if "opacity" in textured_params:
-        uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
-        params = apply_textures(materials, textures, params, mat, uv, ("opacity",))
-    return torch.cat([rows, hit_n[H_N:H_N + 3], params.opacity[None]])
+    if "base_color" in layout:
+        out[TAP_BASE_ROW:TAP_BASE_ROW + 3] = parbuf[layout["base_color"]:layout["base_color"] + 3]
+    if "metallic" in layout:
+        out[TAP_METAL_ROW] = parbuf[layout["metallic"]]
+    out[TAP_N_ROW:TAP_N_ROW + 3] = hit_n[H_N:H_N + 3]
+    return out
+
+
+def _check_hit(name: str, hitbuf: torch.Tensor) -> None:
+    _check_bounce("hit", hitbuf, torch.float32)
+    if hitbuf.dim() != 2 or hitbuf.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN):
+        raise ValueError(f"{name}: hit buffer must be [16 or 24, R]")
 
 
 def tap_rows(hitbuf: torch.Tensor, materials: MaterialTable, textures: TexturePool,
              textured_params) -> torch.Tensor:
-    """K4's taps alone: [TAP_ROWS, R] of the base colour, emission,
-    metallic, roughness, shading normal and opacity each hit ray of K3's
-    hit buffer shades with, from the raw material table `materials` and
-    the texture pool, for the textured parameters `textured_params` (the
-    opacity tapped when it is among them): K4's device code (tap_kernel)
-    on CUDA tensors, tap_rows_ref on CPU ones. The fused sample loop's
-    first-hit AOVs and textured-cutout draws read them. Rows of missed
-    rays are unspecified."""
+    """K4's taps alone, for the bounce-0 peel: [TAP_ROWS, R] of the base
+    colour (rows TAP_BASE_ROW..+3), metallic (TAP_METAL_ROW) and shading
+    normal (TAP_N_ROW..+3) each hit ray of K3's hit buffer shades with,
+    from the raw material table `materials` and the texture pool, for the
+    textured parameters `textured_params`: K4's device code (tap_kernel)
+    on CUDA tensors, tap_rows_ref on CPU ones. Rows of missed rays are
+    unspecified."""
     if not hitbuf.is_cuda:
         return tap_rows_ref(hitbuf, materials, textures, textured_params)
     k, mats = kernel(), materials.packed_f
     _check_bounce("mats", mats, torch.float32)
-    _check_bounce("hit", hitbuf, torch.float32)
-    if hitbuf.dim() != 2 or hitbuf.shape[0] not in (HIT_ROWS, HIT_ROWS_TAN):
-        raise ValueError("tap_rows: hit buffer must be [16 or 24, R]")
+    _check_hit("tap_rows", hitbuf)
     out = torch.empty((TAP_ROWS, hitbuf.shape[1]), dtype=torch.float32, device=hitbuf.device)
     textured = sum(bit for name, bit in TAP_BITS.items() if name in textured_params)
-    textured |= TAP_OPACITY if "opacity" in textured_params else 0
-    mask = tap_mask(textured, hitbuf.shape[0], textures)
+    mask = tap_mask(textured & TAP_PEEL, hitbuf.shape[0], textures)
     taps = k._tap_args(mats, materials.packed_i, textures, mask)
     flt = bool(mask & TAP_FLOAT)
     k.call(_flt_entry("gatling_tap_rows", flt), mats.data_ptr(), mats.shape[0], hitbuf.data_ptr(),
-           int(hitbuf.shape[0] == HIT_ROWS_TAN), hitbuf.shape[1], *taps, out.data_ptr(),
-           k.stream(hitbuf))
+           hitbuf.shape[1], *taps, out.data_ptr(), k.stream(hitbuf))
     launches["K4tf" if flt else "K4t"] += 1
     validate.after_launch("K4t", lambda: (out[:, hitbuf[0] > 0.5],))  # missed rays: unwritten
     return out
+
+
+def retrace_draws(salt: torch.Tensor, rnd: int) -> torch.Tensor:
+    """The textured-cutout re-trace's uniform draw of round `rnd`
+    (gatling_tpu/render/fused.py:342-346): a hash of each ray's PCG word `salt` (uint32
+    values in int64 carriers), salted by the round, in [0, 1)."""
+    h = salt ^ ((0x9E3779B9 + 0x85EB * rnd) & 0xFFFFFFFF)
+    h = ((h ^ (h >> 16)) * 0x21F0AAAD) & 0xFFFFFFFF
+    h = ((h ^ (h >> 15)) * 0x735A2D97) & 0xFFFFFFFF
+    return ((h ^ (h >> 15)) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def retrace_round_ref(state: torch.Tensor, masked: torch.Tensor, hitbuf: torch.Tensor,
+                      materials: MaterialTable, textures: TexturePool, textured_params,
+                      rnd: int) -> None:
+    """retrace_round's twin, the JAX round (gatling_tpu/render/fused.py:337-358) in
+    PyTorch ops on the device of its tensors: the draw against the opacity
+    tapped at every alive ray's hit (apply_textures) where the material
+    binds an opacity texture; a rejected ray's origin moved just past the
+    surface in state rows 0-2; `masked` a copy of the state with row 13
+    the rejected rays' alive row, 0 elsewhere."""
+    mat = torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
+    params = gather_params(materials, mat)
+    if "opacity" in textured_params:
+        uv = torch.stack([hitbuf[H_UVX], hitbuf[H_UVY]], dim=-1)
+        params = apply_textures(materials, textures, params, mat, uv, ("opacity",))
+    has_slot = materials.packed_i[:, MI_OPACITY_TEX] >= 0
+    reject = ((state[13] > 0.5) & (hitbuf[H_HIT] > 0.5) & has_slot[mat]
+              & (retrace_draws(f32_bits_to_u32(state[12]), rnd) >= cutout_opacity(params)))
+    past = offset_ray_origin(hitbuf[H_POS:H_POS + 3].T, -hitbuf[H_GN:H_GN + 3].T)
+    state[0:3] = torch.where(reject, past.T, state[0:3])
+    masked.copy_(state)
+    masked[13] = torch.where(reject, state[13], 0.0)
+
+
+def retrace_round(state: torch.Tensor, masked: torch.Tensor, hitbuf: torch.Tensor,
+                  materials: MaterialTable, textures: TexturePool, textured_params,
+                  rnd: int) -> None:
+    """Round `rnd` of the textured-cutout re-trace on K3's hit buffer, in
+    place: each alive ray whose hit's material binds an opacity texture
+    draws (retrace_draws) against the cutout opacity tapped at its hit; a
+    rejected ray's origin moves just past the surface in state rows 0-2
+    and in `masked` rows 0-2, and masked row 13, the alive row of the
+    state K3 re-traces, becomes state row 13 where rejected, else 0.
+    `masked` is a copy of the state made before the first round of a
+    bounce. K4r (retrace_kernel; K4rf over a float pool) on CUDA tensors,
+    retrace_round_ref on CPU ones."""
+    if not hitbuf.is_cuda:
+        retrace_round_ref(state, masked, hitbuf, materials, textures, textured_params, rnd)
+        return
+    k, mats = kernel(), materials.packed_f
+    _check_bounce("mats", mats, torch.float32)
+    _check_hit("retrace_round", hitbuf)
+    for name, t in (("state", state), ("masked", masked)):
+        _check_bounce(name, t, torch.float32)
+        if t.shape != (STATE_ROWS, hitbuf.shape[1]):
+            raise ValueError(f"retrace_round: {name} must be [16, {hitbuf.shape[1]}]")
+    mask = tap_mask(TAP_OPACITY if "opacity" in textured_params else 0, HIT_ROWS, textures)
+    taps = k._tap_args(mats, materials.packed_i, textures, mask)
+    flt = bool(mask & TAP_FLOAT)
+    k.call(_flt_entry("gatling_retrace_round", flt), mats.data_ptr(), mats.shape[0],
+           hitbuf.data_ptr(), hitbuf.shape[1], *taps, int(rnd), state.data_ptr(),
+           masked.data_ptr(), k.stream(hitbuf))
+    launches["K4rf" if flt else "K4r"] += 1
+    validate.after_launch("K4r", lambda: (state[0:3], masked[13]))
 
 
 def bounce_step(params: torch.Tensor, scene: FusedScene, state: torch.Tensor,

@@ -30,14 +30,16 @@ Camera clipping planes and the first-hit AOVs (NORMAL, ALBEDO, DEPTH,
 TEXCOORDS) peel bounce 0 off the loop, as the JAX package does
 (gatling_tpu/render/fused.py:446-527): the origin advances to the near plane, K3
 traces, hits beyond the far plane become misses, the AOVs are read from
-the hit buffer and from K4's taps alone (ops/bounce.py tap_rows: the
-tapped base colour, metallic, roughness and normal-mapped normal), and K4
-shades; the loop goes on at bounce 1. A first-hit frame traces one sample
-a wave. A scene with an opacity texture re-traces the rays its textured
-cutout rejects, up to TEX_CUTOUT_ROUNDS - 1 times a split bounce
-(gatling_tpu/render/fused.py:299-359): each round draws against the opacity that
-tap_rows taps at the hit and moves a rejected ray's origin past the
-surface; K3 traces the rejected rays alone.
+the hit buffer and from K4's taps alone (ops/bounce.py tap_rows, K4t:
+the rows the AOVs read, the tapped base colour and metallic and the
+normal-mapped normal), and K4 shades; the loop goes on at bounce 1. A
+first-hit frame traces one sample a wave. A scene with an opacity texture
+re-traces the rays its textured cutout rejects, up to TEX_CUTOUT_ROUNDS - 1
+times a split bounce (gatling_tpu/render/fused.py:299-359): each round is one
+kernel, K4r (ops/bounce.py retrace_round), which draws against the
+opacity tapped at the hit, moves a rejected ray's origin past the surface
+and masks the other rays' alive row in a copy of the state made once a
+bounce; K3 traces the rejected rays alone.
 
 A dome light adds its radiance after the bounce loop, as the JAX package
 does (gatling_tpu/render/fused.py:666-681): the kernels record in state row
@@ -54,20 +56,25 @@ import torch
 
 from gatling_tpu_torch.interface import AovId, aov_bit, f32
 from gatling_tpu_torch.ops import sampling as smp
-from gatling_tpu_torch.ops.bounce import (
+from gatling_tpu_torch.ops.bounce import (  # noqa: F401 (retrace_draws: re-exported)
+    TAP_BASE_ROW,
+    TAP_METAL_ROW,
+    TAP_N_ROW,
     VOL_ABSORB,
     VOL_SCATTER,
     FusedScene,
     bounce_step,
     make_params,
     pack_state,
+    retrace_draws,
+    retrace_round,
     shade_step,
     tap_rows,
     trace_step,
     unpack_radiance,
     unpack_rows,
 )
-from gatling_tpu_torch.ops.split_ref import H_GN, H_HIT, H_MAT, H_POS, H_T, H_UVX, H_UVY
+from gatling_tpu_torch.ops.split_ref import H_HIT, H_MAT, H_T, H_UVX, H_UVY
 from gatling_tpu_torch.render import bsdf
 from gatling_tpu_torch.render.camera import generate_primary_rays
 from gatling_tpu_torch.render.integrator import (
@@ -77,7 +84,7 @@ from gatling_tpu_torch.render.integrator import (
     default_dome,
     dome_radiance,
 )
-from gatling_tpu_torch.render.material import MI_OPACITY_TEX, MaterialTable, gather_params
+from gatling_tpu_torch.render.material import MaterialTable, gather_params
 from gatling_tpu_torch.render.texture import TexturePool
 
 # samples of one pixel traced together in one ray wave, up to this many rays
@@ -90,8 +97,6 @@ FUSED_AOV_MASK = (aov_bit(AovId.COLOR) | aov_bit(AovId.NORMAL) | aov_bit(AovId.A
 # textured-cutout surfaces a split bounce passes through before it takes
 # the hit (gatling_tpu/render/fused.py:299): TEX_CUTOUT_ROUNDS - 1 re-traces
 TEX_CUTOUT_ROUNDS = 4
-# the tap_rows rows the peel and the re-trace read
-_TAP_BASE, _TAP_EM, _TAP_METAL, _TAP_ROUGH, _TAP_N, _TAP_OPACITY = 0, 3, 6, 7, 8, 11
 
 
 def spp_batch_size(r: int, spp: int, want_first_hit: bool = False) -> int:
@@ -133,26 +138,6 @@ def coherence_keys(state: torch.Tensor, scene_lo: torch.Tensor,
     return torch.where(state[13] > 0.5, (octant << 15) | morton, 0xFFFFFFFF)
 
 
-def retrace_draws(salt: torch.Tensor, rnd: int) -> torch.Tensor:
-    """The textured-cutout re-trace's uniform draw of round `rnd`
-    (gatling_tpu/render/fused.py:342-346): a hash of each ray's PCG word `salt` (uint32
-    values in int64 carriers), salted by the round, in [0, 1)."""
-    h = salt ^ ((0x9E3779B9 + 0x85EB * rnd) & 0xFFFFFFFF)
-    h = ((h ^ (h >> 16)) * 0x21F0AAAD) & 0xFFFFFFFF
-    h = ((h ^ (h >> 15)) * 0x735A2D97) & 0xFFFFFFFF
-    return ((h ^ (h >> 15)) >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
-def _tapped_params(materials: MaterialTable, mat: torch.Tensor, taps: torch.Tensor):
-    """BsdfParams of each ray's material row with the tapped rows of
-    tap_rows laid over: base colour, emission, metallic, roughness and
-    opacity (the raw table's where no slot is bound, as apply_textures)."""
-    p = gather_params(materials, mat)
-    return p._replace(base_color=taps[_TAP_BASE:_TAP_BASE + 3].T,
-                      emissive=taps[_TAP_EM:_TAP_EM + 3].T, metallic=taps[_TAP_METAL],
-                      roughness=taps[_TAP_ROUGH], opacity=taps[_TAP_OPACITY])
-
-
 def _hit_materials(hitbuf: torch.Tensor, materials: MaterialTable) -> torch.Tensor:
     return torch.clamp(torch.round(hitbuf[H_MAT]).long(), 0, materials.packed_f.shape[0] - 1)
 
@@ -161,26 +146,18 @@ def textured_cutout_retrace(params: torch.Tensor, scene: FusedScene, state: torc
                             hitbuf: torch.Tensor, materials: MaterialTable,
                             textures: TexturePool, textured_params) -> torch.Tensor:
     """The stochastic textured-opacity cutout of a split bounce
-    (gatling_tpu/render/fused.py:302-359): TEX_CUTOUT_ROUNDS - 1 rounds, each drawing
-    against the opacity tapped at every alive ray's hit (tap_rows) where
-    the material binds an opacity texture, moving a rejected ray's origin
-    just past the surface (state rows 0-2, in place) and re-tracing the
-    rejected rays alone (K3 with the others' alive row masked). Returns
-    the merged hit buffer. The in-walk untextured cutout is separate:
-    opacity-textured materials pass there with probability 1."""
-    salt = smp.f32_bits_to_u32(state[12])
-    has_slot = materials.packed_i[:, MI_OPACITY_TEX] >= 0
+    (gatling_tpu/render/fused.py:302-359): TEX_CUTOUT_ROUNDS - 1 rounds, each
+    (retrace_round, K4r) drawing against the opacity tapped at every alive
+    ray's hit where the material binds an opacity texture, moving a
+    rejected ray's origin just past the surface (state rows 0-2, in place)
+    and masking the others' alive row in a copy of the state made once a
+    bounce; K3 re-traces the masked state, and the rejected rays take its
+    hits. Returns the merged hit buffer. The in-walk untextured cutout is
+    separate: opacity-textured materials pass there with probability 1."""
+    masked = state.clone()
     for rnd in range(TEX_CUTOUT_ROUNDS - 1):
-        mat = _hit_materials(hitbuf, materials)
-        taps = tap_rows(hitbuf, materials, textures, textured_params)
-        pass_prob = bsdf.cutout_opacity(_tapped_params(materials, mat, taps))
-        reject = ((state[13] > 0.5) & (hitbuf[H_HIT] > 0.5) & has_slot[mat]
-                  & (retrace_draws(salt, rnd) >= pass_prob))
-        past = smp.offset_ray_origin(hitbuf[H_POS:H_POS + 3].T, -hitbuf[H_GN:H_GN + 3].T)
-        state[0:3] = torch.where(reject, past.T, state[0:3])
-        masked = state.clone()
-        masked[13] = torch.where(reject, state[13], 0.0)
-        hitbuf = torch.where(reject, trace_step(params, scene, masked), hitbuf)
+        retrace_round(state, masked, hitbuf, materials, textures, textured_params, rnd)
+        hitbuf = torch.where(masked[13] > 0.5, trace_step(params, scene, masked), hitbuf)
     return hitbuf
 
 
@@ -204,8 +181,9 @@ class FirstHit:
         directions [r, 3]."""
         r = dirs.shape[0]
         hit = hitbuf[H_HIT, :r] > 0.5
-        normal = taps[_TAP_N:_TAP_N + 3, :r].T
-        p = _tapped_params(materials, _hit_materials(hitbuf[:, :r], materials), taps[:, :r])
+        normal = taps[TAP_N_ROW:TAP_N_ROW + 3, :r].T
+        p = gather_params(materials, _hit_materials(hitbuf[:, :r], materials))._replace(
+            base_color=taps[TAP_BASE_ROW:TAP_BASE_ROW + 3, :r].T, metallic=taps[TAP_METAL_ROW, :r])
         albedo = bsdf.auxiliary(p, -dirs, normal)
         t_hit = hitbuf[H_T, :r]
         cs, ce = f32(camera.clip_start), f32(camera.clip_end)

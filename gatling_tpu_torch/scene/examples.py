@@ -548,6 +548,35 @@ def interior_tinted(detail: int = 5, tex_dir: str | None = None) -> SceneDesc:
     return desc
 
 
+def interior_cutout(detail: int = 5, tex_dir: str | None = None) -> SceneDesc:
+    """interior(detail) with its instanced bowls' opacity the alpha of a
+    64x64 checker of alpha 0 and 255 in 4x4-texel squares (mask.png in
+    tex_dir) at opacityThreshold 0.5, a leaf- or fence-like cutout that the
+    fused route's split bounce re-traces. The bowls also emit (1, 1, 1):
+    the interior's lights reach the camera only through NEE, so without
+    NEE the frame is lit by the bowls alone, and what it shows depends on
+    the mask."""
+    import copy
+
+    desc = interior(detail=detail, tex_dir=tex_dir)
+    if tex_dir is None:
+        tex_dir = os.path.join(tempfile.gettempdir(), "gatling_interior_tex")
+    c = (np.arange(64)[:, None] // 4 + np.arange(64)[None, :] // 4) % 2
+    img = np.full((64, 64, 4), 255, np.uint8)
+    img[..., 3] = np.where(c, 255, 0)
+    path = os.path.join(tex_dir, "mask.png")
+    imgio.write_image_file(path, img)
+    bowl = copy.deepcopy(desc.materials["/m_bowl"])
+    bowl.nodes[bowl.surface_node].inputs.update(opacityThreshold=0.5,
+                                                emissiveColor=(1.0, 1.0, 1.0))
+    node = ShaderNode(path="/m_bowl/mask", shader_id="UsdUVTexture",
+                      inputs={"file": path, "sourceColorSpace": "raw"}, input_connections={})
+    bowl.nodes[node.path] = node
+    bowl.nodes[bowl.surface_node].input_connections["opacity"] = (node.path, "a")
+    desc.materials["/m_bowl"] = bowl
+    return desc
+
+
 # a two-sided MDL material: a red front and a blue `backface:` surface
 TWO_SIDED_MDL = """mdl 1.6;
 import ::df::*;

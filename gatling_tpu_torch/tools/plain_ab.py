@@ -4,6 +4,7 @@ on one card.
     python gatling_tpu_torch/tools/plain_ab.py PARENT CHANGE CHANGE PARENT
     python gatling_tpu_torch/tools/plain_ab.py --only walk,frames PARENT CHANGE ...
     python gatling_tpu_torch/tools/plain_ab.py --only threaded PARENT CHANGE CHANGE PARENT
+    python gatling_tpu_torch/tools/plain_ab.py --only taps PARENT CHANGE CHANGE PARENT
 
 Each argument is the root of a checkout (for example a `git archive` of a
 commit unpacked into a git-ignored directory); each runs in its own
@@ -67,6 +68,11 @@ picks some; all by default):
   same rays; ten warm frames each of interior_aovs and sphere_field_aovs,
   then one more under torch.profiler: the device time of its B1/B2
   launches and of all its kernels and copies, and its idle share;
+* taps: the bounce-0 peel's K4t and the textured-cutout re-trace (K4r
+  and the hit-buffer merge a round) on the waves gi.render hands them,
+  and the warm and profiled frames of cornell_first_hit,
+  interior_first_hit and interior_cutout (time_taps; a checkout with
+  retrace_round and scene/examples.py interior_cutout);
 * the ptxas registers, stack and spills of every kernel instance.
 """
 
@@ -91,7 +97,7 @@ def _chip_smoke():
     return cs
 
 
-GROUPS = ("resident", "wavefront", "probes", "walk", "frames", "k4", "threaded")
+GROUPS = ("resident", "wavefront", "probes", "walk", "frames", "k4", "threaded", "taps")
 
 
 def time_tree(tree: str, groups=GROUPS) -> None:
@@ -167,6 +173,8 @@ def time_tree(tree: str, groups=GROUPS) -> None:
         time_k4(cs, device, tmp.name, out, frames)
     if "threaded" in groups:
         time_threaded(cs, device, tmp.name, out, frames)
+    if "taps" in groups:
+        time_taps(cs, device, tmp.name, out, frames)
     settings = dict(spp=16, maxBounces=8)
     wavefront = "wavefront" in groups
     cases = []
@@ -314,12 +322,12 @@ def time_walk(cs, device, tmp: str, out: dict, frames: dict) -> None:
         state = coherent(state, fs)
 
 
-def profiled_frame(params, label: str) -> None:
+def profiled_frame(params, label: str, patterns=("threaded_",), name: str = "B1/B2") -> None:
     """One more warm frame of `params` under torch.profiler: prints its
-    wall time, the device time of its B1/B2 launches (kernels named
-    threaded_*, the parent's and this tree's), of all its kernels and
-    copies, the union of those (busy), and its idle share (1 - busy /
-    wall)."""
+    wall time, the device time of its `name` launches (kernels whose names
+    hold one of `patterns`: by default B1/B2, threaded_*, the parent's and
+    this tree's), of all its kernels and copies and their count, the
+    union of those (busy), and its idle share (1 - busy / wall)."""
     import torch
 
     from gatling_tpu_torch import gi
@@ -334,16 +342,16 @@ def profiled_frame(params, label: str) -> None:
         wall = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     span = [(e.time_range.start, e.time_range.end) for e in dev]
-    mine = [b - a for (a, b), e in zip(span, dev) if "threaded_" in e.name]
+    mine = [b - a for (a, b), e in zip(span, dev) if any(p in e.name for p in patterns)]
     busy, end = 0.0, float("-inf")
     for a, b in sorted(span):
         if b > end:
             busy += b - max(a, end)
             end = b
-    print(f"{os.getcwd()}: profiled frame {label}: wall {wall:.3f} ms, B1/B2 "
+    print(f"{os.getcwd()}: profiled frame {label}: wall {wall:.3f} ms, {name} "
           f"{sum(mine) / 1e3:.4f} ms in {len(mine)} launches, every kernel and copy "
-          f"{sum(b - a for a, b in span) / 1e3:.3f} ms, busy {busy / 1e3:.3f} ms, idle share "
-          f"{1 - busy / 1e3 / wall:.4f}", flush=True)
+          f"{sum(b - a for a, b in span) / 1e3:.3f} ms in {len(span)}, busy {busy / 1e3:.3f} ms, "
+          f"idle share {1 - busy / 1e3 / wall:.4f}", flush=True)
 
 
 def time_threaded(cs, device, tmp: str, out: dict, frames: dict) -> None:
@@ -384,6 +392,73 @@ def time_threaded(cs, device, tmp: str, out: dict, frames: dict) -> None:
                                                                 reps=15)
             out[f"{other} interior_aovs_small {b}"] = cs.event_ms(
                 lambda r=rays, f=ofn: f(*r, tables), reps=15)
+
+
+def time_taps(cs, device, tmp: str, out: dict, frames: dict) -> None:
+    """The taps group: the bounce-0 peel's K4t and the textured-cutout
+    re-trace's rounds (K4r), as the main path runs them. Frames:
+    cornell_first_hit (the Cornell box, the bench's rect light, 1200x1200,
+    16 spp, 8 bounces, NEE, the first-hit AOVs), interior_first_hit
+    (512x512, 4 spp, 6 bounces, NEE) and interior_cutout (NEE off;
+    scene/examples.py), five warm frames each and one more profiled
+    (profiled_frame: device time, its kernels and copies, K4t's or K4r's,
+    idle share). Then, on the waves of one more frame of each: K4t as the
+    peel calls it, the device time a launch (device_ms) and one call with
+    its enqueue (event_ms); on interior_cutout's first wave, each round
+    without its K3 (K4r and the hit-buffer merge) and the whole re-trace
+    of a split bounce (three rounds with K3), device time a call."""
+    import torch
+
+    from gatling_tpu_torch import gi
+    from gatling_tpu_torch.ops import bounce as tb
+    from gatling_tpu_torch.render import fused
+    from gatling_tpu_torch.scene.examples import interior, interior_cutout
+    from gatling_tpu_torch.scene.stage import load_scene
+
+    cornell = load_scene(cs.CORNELL)
+    cases = (
+        ("cornell_first_hit", lambda: cs.fh_params(
+            device, cornell, cs.AOVS_RES, cs.merged_settings(
+                cornell, spp=cs.AOVS_SPP, maxBounces=cs.AOVS_BOUNCES, nextEventEstimation=True),
+            lights=(cs.bench_rect_light(),))),
+        ("interior_first_hit", lambda: cs.fh_params(
+            device, interior(tex_dir=tmp), cs.SF_RES, dict(
+                spp=cs.SF_SPP, maxBounces=cs.SF_BOUNCES, nextEventEstimation=True))),
+        ("interior_cutout", lambda: cs.desc_params(
+            device, interior_cutout(tex_dir=tmp), cs.SF_RES, dict(
+                spp=cs.SF_SPP, maxBounces=cs.SF_BOUNCES, nextEventEstimation=False))))
+    for label, make in cases:
+        params = make()
+        cs.counted_render(params, label + " (first frame)")
+        for i in range(5):
+            params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+            frames[f"{label} warm {i + 1}"] = cs.counted_render(params, label)[1]
+        profiled_frame(params, label, ("tap_kernel", "retrace_kernel"), "K4t/K4r")
+        params.scene.dirty |= gi.DirtyFlags.FRAMEBUFFER
+        with cs.KernelCalls(7, ("trace_step", "tap_rows", "retrace_round")) as calls:
+            gi.render(params)
+        if label != "interior_cutout":
+            args = calls.of("tap_rows")[0]
+            out[f"K4t {label} device"] = cs.device_ms(lambda: tb.tap_rows(*args))
+            out[f"K4t {label} with enqueue"] = cs.event_ms(lambda: tb.tap_rows(*args), reps=15)
+            continue
+        p0, fs, state = calls.of("trace_step")[0]
+        for rnd, (_st, _mk, hit, mats, pool, active, _r) in enumerate(calls.of("retrace_round")):
+            st, mk = state.clone(), state.clone()
+
+            def round_ops(hit=hit, rnd=rnd):
+                tb.retrace_round(st, mk, hit, mats, pool, active, rnd)
+                return torch.where(mk[13] > 0.5, hit, hit)
+
+            out[f"round {rnd} without K3, device"] = cs.device_ms(round_ops, launches=10)
+            out[f"round {rnd} without K3, with enqueue"] = cs.event_ms(round_ops, reps=15)
+        hit0 = tb.trace_step(p0, fs, state)
+        st = state.clone()
+        out["re-trace of a split bounce (3 rounds with K3), device"] = cs.device_ms(
+            lambda: fused.textured_cutout_retrace(p0, fs, st, hit0, mats, pool, active),
+            launches=5)
+        out["re-trace of a split bounce (3 rounds with K3), with enqueue"] = cs.event_ms(
+            lambda: fused.textured_cutout_retrace(p0, fs, st, hit0, mats, pool, active), reps=15)
 
 
 def big_texture_interior(cs, device, tmp: str, size: int = 2048):

@@ -1,6 +1,7 @@
 """On the card: the CUDA kernels (K1 resident, K2 the two-level walk, K3
 and K4 the split trace and shade, with their lobe, cutout and volume
-branches, K5-K8 the wavefront's trace, P1/P2 the probes) against their
+branches, K4t K4's taps alone with its row sets, K4r the textured-cutout
+re-trace round, K5-K8 the wavefront's trace, P1/P2 the probes) against their
 plain twins; K1's, K5's and K6's BVH walks also on tests/test_torch_bvh.py's
 adversarial rays, and K2's, K3's and K4's per-cluster trees on
 tests/test_torch_cluster_bvh.py's adversarial placements; K4's FLT
@@ -453,7 +454,7 @@ def test_taps_match_texture_stage(cuda, tmp_path, taps, normal_map):
     torch.cuda.synchronize()
     bad = (got.view(torch.int32) != want.view(torch.int32)).any(dim=0)
     assert int(bad.sum()) == 0, (int(bad.sum()), torch.nonzero(bad)[:5].tolist())
-    assert bool((got[8:11] != hit[8:11]).any()) == normal_map
+    assert bool((got[tb.TAP_N_ROW:tb.TAP_N_ROW + 3] != hit[8:11]).any()) == normal_map
 
 
 @pytest.mark.requires_cuda
@@ -1338,12 +1339,13 @@ def test_onehot_product_rejects_bad_operands(cuda):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("repeat", [False, True, "float"])
 def test_opacity_tap_matches_twin(cuda, tmp_path, repeat):
-    """tap_kernel's opacity row (TAP_OPACITY: the opacity slot and channel
-    columns read from global memory) bit-equal to tap_rows_ref's on every
-    hit ray of 1,048,576 random rows: every channel, every wrap mode (or
-    all repeat: the 2x2 rows), thresholds on and off, one untextured
-    material; one K4t launch a call. "float": the same over an EXR
-    opacity texture (a float pool: tap_rows' FLT instance, K4tf)."""
+    """retrace_kernel's opacity tap (TAP_OPACITY: the opacity slot and
+    channel columns read from global memory) through one re-trace round on
+    1,048,576 random rows, every ray alive: state rows 0-2 and the masked
+    rows 0-2 and 13 bit-equal to retrace_round_ref's on every ray; every
+    channel, every wrap mode (or all repeat: the 2x2 rows), thresholds on
+    and off, one untextured material; one K4r launch. "float": the same
+    over an EXR opacity texture (a float pool: the FLT instance, K4rf)."""
     from gatling_tpu_torch import imgio
     from gatling_tpu_torch.render import material as tmat
     from gatling_tpu_torch.render.texture import TextureRef
@@ -1372,18 +1374,126 @@ def test_opacity_tap_matches_twin(cuda, tmp_path, repeat):
     hit[0] = rng.random(r) < 0.9
     hit[2:4] = rng.uniform(-3.0, 4.0, (2, r))
     hit[4] = rng.integers(0, len(rows), r)
-    hit = torch.tensor(hit, device=cuda)
-    key = "K4tf" if repeat == "float" else "K4t"
+    hit[5:8] = rng.standard_normal((3, r))
+    hit[13:16] = rng.normal(scale=30.0, size=(3, r))
+    state = rng.normal(size=(16, r)).astype(np.float32)
+    state[12] = rng.integers(0, 1 << 32, r, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    state[13] = 1.0
+    hit, state = torch.tensor(hit, device=cuda), torch.tensor(state, device=cuda)
+    key = "K4rf" if repeat == "float" else "K4r"
     assert pool.packed == (repeat != "float")
+    got_s, got_m, want_s, want_m = (state.clone() for _ in range(4))
     before = tb.launches[key]
-    got = tb.tap_rows(hit, mats, pool, ("opacity",))
+    tb.retrace_round(got_s, got_m, hit, mats, pool, ("opacity",), 0)
     assert tb.launches[key] == before + 1
-    want = tb.tap_rows_ref(hit, mats, pool, ("opacity",))
+    tb.retrace_round_ref(want_s, want_m, hit, mats, pool, ("opacity",), 0)
     torch.cuda.synchronize()
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    for k in (0, 1, 2, 13):
+        assert torch.equal(got_m[k].view(torch.int32), want_m[k].view(torch.int32)), k
+    # the tapped opacity decides: textured hits are rejected, the untextured never
+    rejected = got_m[13] > 0.5
+    assert 10000 < int(rejected.sum()) < int((hit[0] > 0.5).sum())
+    assert not bool(rejected[hit[4] == len(rows) - 1].any())
+
+
+def _opacity_tables(cuda, tmp_path, float_pool: bool):
+    """test_opacity_tap_matches_twin's materials (every channel and wrap of
+    an opacity texture, thresholds on and off, an untextured opacity of
+    0.3), a base colour tapped on the odd ones; an EXR opacity texture with
+    `float_pool`. Returns (device table, pool, textured parameters)."""
+    from gatling_tpu_torch import imgio
+    from gatling_tpu_torch.render import material as tmat
+    from gatling_tpu_torch.render.texture import TextureRef
+
+    rng = np.random.default_rng(29)
+    png = str(tmp_path / "opacity.png")
+    imgio.write_image_file(png, rng.integers(0, 256, (29, 17, 4)).astype(np.uint8))
+    opac = png
+    if float_pool:
+        opac = str(tmp_path / "opacity.exr")
+        imgio.write_image_file(opac, rng.uniform(0.0, 1.2, (29, 17, 4)).astype(np.float32))
+    wraps = ["repeat", "clamp", "mirror", "black"]
+    rows = []
+    for k, ch in enumerate("rgba"):
+        m = lower_material(None)
+        m.textures["opacity"] = TextureRef(file_path=opac, wrap_s=wraps[k], wrap_t=wraps[::-1][k],
+                                           channel=ch, scale=(0.9, 1.1, 0.8, 1.2),
+                                           bias=(0.05, -0.1, 0.1, 0.0))
+        if k % 2:
+            m.textures["base_color"] = TextureRef(file_path=png, wrap_s=wraps[k])
+        m.params.update(opacity_threshold=0.5 * (k % 2))
+        rows.append(m)
+    rows.append(lower_material(None))
+    rows[-1].params.update(opacity=0.3)
+    table, pool = tmat.build_materials(rows, device=cuda)
+    assert pool.packed != float_pool
+    return table.to(cuda), pool, ("base_color", "opacity")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rays", [1 << 20, (1 << 20) - 3])
+@pytest.mark.parametrize("float_pool", [False, True])
+def test_tap_rows_write_only_hit_rays(cuda, tmp_path, rays, float_pool):
+    """tap_kernel into a buffer of sentinels: its 7 rows bit-equal to
+    tap_rows_ref's on every hit ray, and every missed ray's values left as
+    they were; R a multiple of the block's 128 rays and not."""
+    mats, pool, active = _opacity_tables(cuda, tmp_path, float_pool)
+    rng = np.random.default_rng(30)
+    hit = np.zeros((16, rays), np.float32)
+    hit[0] = rng.random(rays) < 0.8
+    hit[2:4] = rng.uniform(-3.0, 4.0, (2, rays))
+    hit[4] = rng.integers(0, mats.packed_f.shape[0], rays)
+    hit[8:11] = rng.standard_normal((3, rays))
+    hit = torch.tensor(hit, device=cuda)
     on = hit[0] > 0.5
-    bad = (got.view(torch.int32) != want.view(torch.int32))[:, on].any(dim=0)
-    assert got.shape == (tb.TAP_ROWS, r) and int(bad.sum()) == 0, int(bad.sum())
-    assert bool((got[11][on] != mats.packed_f[hit[4][on].long(), tmat.MF_OPACITY]).any())
+    k = tb.kernel()
+    mask = tb.tap_mask(tb.TAP_BITS["base_color"], hit.shape[0], pool)
+    out = torch.full((tb.TAP_ROWS, rays), -7.0, device=cuda)
+    k.call("gatling_tap_rows_flt" if float_pool else "gatling_tap_rows",
+           mats.packed_f.data_ptr(), mats.packed_f.shape[0], hit.data_ptr(), rays,
+           *k._tap_args(mats.packed_f, mats.packed_i, pool, mask), out.data_ptr(), k.stream(hit))
+    want = tb.tap_rows_ref(hit, mats, pool, active)
+    torch.cuda.synchronize()
+    bad = (out.view(torch.int32) != want.view(torch.int32))[:, on]
+    assert int(bad.sum()) == 0, int(bad.sum())
+    assert bool((out[:, ~on] == -7.0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("rays", [1 << 20, (1 << 20) - 3])
+@pytest.mark.parametrize("float_pool", [False, True])
+def test_retrace_round_matches_twin(cuda, tmp_path, rays, float_pool):
+    """retrace_round (K4r; K4rf over a float pool) against
+    retrace_round_ref, three rounds on seeded state and hit rows: the
+    state, masked rows 0-2 and 13 and the reject count bit-equal on every
+    ray; one launch a round."""
+    mats, pool, active = _opacity_tables(cuda, tmp_path, float_pool)
+    rng = np.random.default_rng(31)
+    hit = np.zeros((16, rays), np.float32)
+    hit[0] = rng.random(rays) < 0.8
+    hit[2:4] = rng.uniform(-3.0, 4.0, (2, rays))
+    hit[4] = rng.integers(0, mats.packed_f.shape[0], rays)
+    hit[5:8] = rng.standard_normal((3, rays))
+    hit[13:16] = rng.normal(scale=30.0, size=(3, rays))
+    state = rng.normal(size=(16, rays)).astype(np.float32)
+    state[12] = rng.integers(0, 1 << 32, rays, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    state[13] = rng.choice(np.array([0.0, 1.0, 2.0, 0.25], np.float32), rays)
+    hit, state = torch.tensor(hit, device=cuda), torch.tensor(state, device=cuda)
+    key = "K4rf" if float_pool else "K4r"
+    got_s, got_m = state.clone(), state.clone()
+    want_s, want_m = state.clone(), state.clone()
+    for rnd in range(3):
+        before = tb.launches[key]
+        tb.retrace_round(got_s, got_m, hit, mats, pool, active, rnd)
+        assert tb.launches[key] == before + 1
+        tb.retrace_round_ref(want_s, want_m, hit, mats, pool, active, rnd)
+        torch.cuda.synchronize()
+        assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)), rnd
+        for r in (0, 1, 2, 13):
+            assert torch.equal(got_m[r].view(torch.int32), want_m[r].view(torch.int32)), (rnd, r)
+        rejected = int((got_m[13] > 0.5).sum())
+        assert rejected == int((want_m[13] > 0.5).sum()) and 10000 < rejected < rays // 2
 
 
 @pytest.mark.requires_cuda

@@ -10,11 +10,13 @@ linear on the host (gatling_tpu/render/texture.py:303-380). Held here:
 2. `sample_pool`'s float branch against JAX's under every wrap mode, black
    included, bit for bit (no x ** 2.4 on this branch);
 3. the texture stage (ops/split_ref.py material_rows, K4's twin's first
-   half) and the taps alone (ops/bounce.py tap_rows_ref, the twin of
-   tap_kernel) against the JAX `_material_rows` and `apply_textures` on a
-   float pool with a normal map: the parameter rows and the opacity bit for
-   bit, the normal-mapped normal within 1e-6 (XLA's and PyTorch's cross
-   products round differently);
+   half), the taps alone (ops/bounce.py tap_rows_ref, the twin of
+   tap_kernel) and the re-trace's opacity tap (render/material.py
+   apply_textures, as ops/bounce.py retrace_round_ref takes it) against
+   the JAX `_material_rows` and `apply_textures` on a float pool with a
+   normal map: the parameter rows and the opacity bit for bit, the
+   normal-mapped normal within 1e-6 (XLA's and PyTorch's cross products
+   round differently);
 4. `tap_mask` sets TAP_FLOAT for a float pool (K4's FLT instances);
 5. K4's twin (`shade_step` on a CPU state) from the JAX hit buffer against
    the JAX `_material_rows` + `shade_step` in Pallas interpret mode, on the
@@ -193,18 +195,22 @@ def test_texture_stage_and_taps_match_jax_on_a_float_pool(tex_dir, floor_exr):  
     np.testing.assert_array_equal(par.numpy(), np.asarray(par_ref).reshape(par.shape))
     np.testing.assert_allclose(hit_n.numpy(), np.asarray(hit_n_ref).reshape(hit_n.shape),
                                rtol=0, atol=1e-6)
-    taps = tb.tap_rows_ref(torch.tensor(hit), tt.to("cpu"), tp, active)
+    tt = tt.to("cpu")
+    taps = tb.tap_rows_ref(torch.tensor(hit), tt, tp, active)
     on = hit[sr.H_HIT] > 0.5
-    ref_rows = np.concatenate([np.asarray(p_ref.base_color).T, np.asarray(p_ref.emissive).T,
-                               np.asarray(p_ref.metallic)[None], np.asarray(p_ref.roughness)[None]])
-    np.testing.assert_array_equal(taps[:8].numpy()[:, on], ref_rows[:, on])
-    np.testing.assert_allclose(taps[8:11].numpy()[:, on], hit_n.numpy()[sr.H_N:sr.H_N + 3, on],
-                               rtol=0, atol=0)
+    ref_rows = np.concatenate([np.asarray(p_ref.base_color).T, np.asarray(p_ref.metallic)[None]])
+    np.testing.assert_array_equal(taps[:tb.TAP_N_ROW].numpy()[:, on], ref_rows[:, on])
+    np.testing.assert_allclose(taps[tb.TAP_N_ROW:].numpy()[:, on],
+                               hit_n.numpy()[sr.H_N:sr.H_N + 3, on], rtol=0, atol=0)
     jmat_ids = jnp.asarray(hit[sr.H_MAT].astype(np.int32))
+    uv = hit[sr.H_UVX:sr.H_UVY + 1].T.copy()
     op = jmat.apply_textures(jt, jp, jmat.gather_params(jt, jmat_ids), jmat_ids,
-                             jnp.asarray(hit[sr.H_UVX:sr.H_UVY + 1].T.copy()), ("opacity",))
-    np.testing.assert_array_equal(taps[11].numpy()[on], np.asarray(op.opacity)[on])
-    assert (taps[11].numpy()[on] < 1.0).any()  # the worktop's tapped alpha
+                             jnp.asarray(uv), ("opacity",))
+    ids = torch.tensor(hit[sr.H_MAT].astype(np.int64))
+    opacity = tmat.apply_textures(tt, tp, tmat.gather_params(tt, ids), ids, torch.tensor(uv),
+                                  ("opacity",)).opacity.numpy()
+    np.testing.assert_array_equal(opacity[on], np.asarray(op.opacity)[on])
+    assert (opacity[on] < 1.0).any()  # the worktop's tapped alpha
 
 
 def test_tap_mask_sets_the_float_flag(files):

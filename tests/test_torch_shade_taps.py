@@ -21,8 +21,9 @@ shade_ref. Held here:
    the FLT taps (TAP_FLOAT) and sample_pool's float branch;
 3. chip_smoke.py's count of the distinct texel rows a K4 launch's taps
    read (its bound's texel bytes) against a brute-force count;
-4. the opacity row of the taps alone (ops/bounce.py tap_rows_ref, the
-   twin of tap_kernel's TAP_OPACITY row) against the JAX
+4. the opacity tap of the textured-cutout re-trace (render/material.py
+   apply_textures on the hit buffer's rows, as ops/bounce.py
+   retrace_round_ref, the twin of retrace_kernel, takes it) against the JAX
    `apply_textures(..., ("opacity",))` on seeded hits, over every wrap mode
    and channel, on a pool of mixed wraps and on an all-repeat pool (the
    2x2-row path), bit for bit.
@@ -271,14 +272,18 @@ def test_opacity_tap_row_matches_jax(tmp_path, pool_kind):
     hit[split_ref.H_HIT] = torch.tensor((rng.random(r) < 0.9).astype(np.float32))
     hit[split_ref.H_MAT] = torch.tensor(mat.astype(np.float32))
     hit[split_ref.H_UVX:split_ref.H_UVY + 1] = torch.tensor(uv.T.copy())
-    got = tb.tap_rows_ref(hit, tt.to("cpu"), tp, ("opacity",))
-    assert got.shape == (tb.TAP_ROWS, r)
+    tt = tt.to("cpu")
+    mat_t = torch.clamp(torch.round(hit[split_ref.H_MAT]).long(), 0, tt.packed_f.shape[0] - 1)
+    uv_t = torch.stack([hit[split_ref.H_UVX], hit[split_ref.H_UVY]], dim=-1)
+    got = tmat.apply_textures(tt, tp, tmat.gather_params(tt, mat_t), mat_t, uv_t,
+                              ("opacity",)).opacity.numpy()
+    assert got.shape == (r,)
     ref = jmat.apply_textures(jt, jp, jmat.gather_params(jt, jnp.asarray(mat)),
                               jnp.asarray(mat), jnp.asarray(uv), ("opacity",))
     hit_rays = hit[split_ref.H_HIT].numpy() > 0.5
-    np.testing.assert_array_equal(got[11].numpy()[hit_rays], np.asarray(ref.opacity)[hit_rays])
+    np.testing.assert_array_equal(got[hit_rays], np.asarray(ref.opacity)[hit_rays])
     untextured = hit_rays & (mat == n_mats - 1)
-    assert untextured.any() and (got[11].numpy()[untextured] == np.float32(0.3)).all()
-    # without "opacity" among the textured parameters the row is the table's
-    plain = tb.tap_rows_ref(hit, tt.to("cpu"), tp, ())
-    np.testing.assert_array_equal(plain[11].numpy(), tt.packed_f[mat, tmat.MF_OPACITY])
+    assert untextured.any() and (got[untextured] == np.float32(0.3)).all()
+    # without "opacity" among the textured parameters the round takes the table's
+    plain = tmat.gather_params(tt, mat_t).opacity
+    np.testing.assert_array_equal(plain.numpy(), tt.packed_f[mat, tmat.MF_OPACITY])
